@@ -1,0 +1,203 @@
+"""Train CLI: the counterpart of ``cgr_mpnn_3d_tpu/cli/train.py`` on one
+device, with its single-device flags plus ``--device`` (default ``cuda``).
+
+Usage (the README's model):
+  python -m cgr_mpnn_3d_tpu_torch.cli.train --name CGR-MPNN-3D -d 4 \\
+      --hidden_sizes 400 --dropout_ps 0.1 -af ReLU -lr 1e-4 -ne 50 \\
+      --weight_decay 1e-5 -bs 64 -g 0.9 --data_path datasets
+
+``--data_path`` holds ``train.csv`` and ``val.csv`` (and ``test.csv`` unless
+``--skip_test``), plus ``<split>.npz`` descriptors for CGR-MPNN-3D; a
+missing split raises.  After training, the best checkpoint is evaluated on
+the test split and the results merge into
+``hyperparameter_study/<name>_hyperparameter_study.json``.
+
+Not ported yet: the data-parallel, edge-partition and multi-host flags
+(``--dp``, ``--ep*``), ``--device_epoch``, ``--steps_per_call``,
+``--reuse_packs``, ``--loader_workers``, ``--pack_q``, ``--compute_dtype``
+and ``--num_workers`` (ROADMAP.md).
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+from pathlib import Path
+
+import numpy as np
+
+
+def build_arg_parser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser(
+        description="CLI tool for training the CGR MPNN 3D Graph Neural "
+                    "Network (PyTorch, CUDA kernels).")
+    ap.add_argument("-n", "--name", default="CGR",
+                    choices=["CGR", "CGR-MPNN-3D"],
+                    help="Type of the model to be trained")
+    ap.add_argument("-d", "--depth", default=3, type=int)
+    ap.add_argument("--hidden_sizes", default=None, nargs="+", type=int)
+    ap.add_argument("--dropout_ps", default=None, nargs="+", type=float)
+    ap.add_argument("-af", "--activation_fn", default="ReLU",
+                    choices=["ReLU", "SiLU", "GELU"])
+    ap.add_argument("--aggr", default="add", choices=["add", "mean"],
+                    help="D-MPNN aggregation")
+    ap.add_argument("--pooling", default="add", choices=["add", "mean"],
+                    help="graph pooling (sum or mean over the graph's nodes)")
+    ap.add_argument("--save_path", default="saved_models")
+    ap.add_argument("--learnable_skip", action="store_true")
+    ap.add_argument("-lr", "--learning_rate", default=1e-3, type=float)
+    ap.add_argument("-ne", "--num_epochs", default=30, type=int)
+    ap.add_argument("--weight_decay", default=0.0, type=float)
+    ap.add_argument("-bs", "--batch_size", default=32, type=int)
+    ap.add_argument("-g", "--gamma", default=1.0, type=float)
+    ap.add_argument("--data_path", default="datasets")
+    ap.add_argument("--seed", default=0, type=int)
+    ap.add_argument("--val_frequency", default=5, type=int)
+    ap.add_argument("--resume", default=None,
+                    help="training checkpoint to resume from")
+    ap.add_argument("--use_logger", action="store_true",
+                    help="log to wandb if available (JSONL always written)")
+    ap.add_argument("--log_histograms", action="store_true",
+                    help="per-parameter histograms of the params and of one "
+                         "batch's gradients once per epoch, to JSONL (and "
+                         "wandb when attached)")
+    ap.add_argument("--pack_te", default=256, type=int)
+    ap.add_argument("--pack_tn", default=128, type=int)
+    ap.add_argument("--pack_tb", default=16, type=int)
+    ap.add_argument("--skip_test", action="store_true")
+    ap.add_argument("--ckpt_every_steps", default=0, type=int,
+                    help="save {name}.latest.npz every N successful train "
+                         "steps within an epoch; --resume continues from it "
+                         "bit-identically (0 = per-epoch)")
+    ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
+    return ap
+
+
+def run_name(args) -> str:
+    """Config-encoding run name."""
+    return "_".join([
+        args.name,
+        f"d-{args.depth}",
+        "h-" + "-".join(str(i) for i in args.hidden_sizes),
+        "p-" + "-".join(str(i) for i in args.dropout_ps),
+        args.activation_fn,
+        f"s-{'t' if args.learnable_skip else 'f'}",
+        f"l-{args.learning_rate}",
+        f"e-{args.num_epochs}",
+        f"w-{args.weight_decay}",
+        f"b-{args.batch_size}",
+        f"g-{args.gamma}",
+    ])
+
+
+def split_dataset(data_path: str | Path, split: str, name: str):
+    """The ``split`` dataset of ``data_path`` (csv, plus the descriptor npz
+    for CGR-MPNN-3D); a missing file raises and names it."""
+    from ..data import ChemDataset
+    if name not in ("CGR", "CGR-MPNN-3D"):
+        raise NameError(f"Unknown model with name '{name}'.")
+    csv = Path(data_path) / f"{split}.csv"
+    npz = Path(data_path) / f"{split}.npz" if name == "CGR-MPNN-3D" else None
+    for f in (csv, npz):
+        if f is not None and not f.exists():
+            raise FileNotFoundError(
+                f"{f} not found: the {split} split must be prepared first "
+                "(this package downloads nothing)")
+    return ChemDataset(str(csv), data_npz_path=None if npz is None
+                       else str(npz))
+
+
+def train(args) -> dict:
+    from ..data import plan_spec
+    from ..models import CGRMPNNConfig
+    from ..train import MetricsLogger, RxnGraphTrainer
+    from ..utils import resolve_device
+
+    device = resolve_device(args.device)
+    train_data = split_dataset(args.data_path, "train", args.name)
+    val_data = split_dataset(args.data_path, "val", args.name)
+    cfg = CGRMPNNConfig(
+        num_node_features=train_data.num_node_features,
+        num_edge_features=train_data.num_edge_features,
+        depth=args.depth,
+        hidden_sizes=tuple(args.hidden_sizes),
+        dropout_ps=tuple(args.dropout_ps),
+        activation=args.activation_fn,
+        aggr=args.aggr,
+        pooling=args.pooling,
+        use_learnable_skip=args.learnable_skip,
+    )
+    print("Featurizing training set...")
+    train_data.prefeaturize()
+    val_data.prefeaturize()
+    graphs = [train_data.graph(i) for i in range(len(train_data))]
+    spec = plan_spec(graphs, te=args.pack_te, tn=args.pack_tn,
+                     tb=args.pack_tb)
+
+    name = run_name(args)
+    logger = MetricsLogger(name, config=vars_config(args),
+                           use_wandb=args.use_logger)
+    trainer = RxnGraphTrainer(
+        name=name, cfg=cfg, train_data=train_data, val_data=val_data,
+        spec=spec, lr=args.learning_rate, weight_decay=args.weight_decay,
+        gamma=args.gamma, num_epochs=args.num_epochs,
+        batch_size=args.batch_size, val_frequency=args.val_frequency,
+        model_save_dir=args.save_path, seed=args.seed, logger=logger,
+        log_histograms=args.log_histograms, resume_from=args.resume,
+        ckpt_every_steps=args.ckpt_every_steps, device=device)
+    return trainer.train()
+
+
+def vars_config(args) -> dict:
+    return {
+        "depth": args.depth, "hidden_sizes": args.hidden_sizes,
+        "dropout_ps": args.dropout_ps, "activation_fn": args.activation_fn,
+        "learnable_skip": args.learnable_skip, "lr": args.learning_rate,
+        "num_epochs": args.num_epochs, "weight_decay": args.weight_decay,
+        "batch_size": args.batch_size, "gamma": args.gamma,
+    }
+
+
+def main(argv=None) -> dict:
+    """Train, test and record; returns the run's results (train/val RMSE
+    per epoch, steps, test RMSE and MAE)."""
+    args = build_arg_parser().parse_args(argv)
+    if args.hidden_sizes is None:
+        args.hidden_sizes = [300] * args.depth
+    if args.dropout_ps is None:
+        args.dropout_ps = [0.02] * args.depth
+    if len(args.hidden_sizes) == 1:
+        args.hidden_sizes = args.hidden_sizes * args.depth
+    if len(args.dropout_ps) == 1:
+        args.dropout_ps = args.dropout_ps * args.depth
+
+    if not args.skip_test:
+        # fail before training, not after it
+        split_dataset(args.data_path, "test", args.name)
+    name = run_name(args)
+    meta = {name: {"metadata": vars_config(args)}}
+    print("Metadata of the training:")
+    for k, v in vars_config(args).items():
+        print(f"{k}: {v}")
+
+    meta[name].update(train(args))
+
+    if not args.skip_test:
+        from .test import test
+        test_result = test(args.name, f"{args.save_path}/{name}.npz",
+                           data_path=args.data_path, plot_results=False,
+                           device=args.device)
+        meta[name].update(**{k: float(v) for k, v in test_result.items()
+                             if np.isscalar(v)})
+
+    from ..utils import json_dumper
+    out_dir = Path("hyperparameter_study")
+    out_dir.mkdir(parents=True, exist_ok=True)
+    json_dumper(str(out_dir / f"{args.name}_hyperparameter_study.json"), meta)
+    print(json.dumps({k: v for k, v in meta[name].items()
+                      if k != "metadata"}, default=str, indent=2))
+    return meta[name]
+
+
+if __name__ == "__main__":
+    main()

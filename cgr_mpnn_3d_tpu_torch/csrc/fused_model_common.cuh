@@ -1,0 +1,342 @@
+// Device code shared by the whole-model kernels (fused_model_fwd.cu and
+// fused_model_bwd.cu): the elementwise helpers of the TPU kernels
+// (cgr_mpnn_3d_tpu/ops/pallas_fused.py: k_act, k_dact, mean_colscale,
+// _hash_bits / k_dropout_mask), a shared-memory-tiled f32 FMA product with
+// plain or transposed operands, the ELL gather sums, and the per-pack
+// forward that both kernels run (pallas_model.py::_replay_forward).
+//
+// One thread block of kThreads threads works on one pack.  Indices are
+// global, with the sentinel equal to the row count; an index outside the
+// block's own pack (the sentinel included) is skipped and never read
+// through, which is what a never-matching one-hot column does on the TPU.
+
+#pragma once
+
+#include <cuda_runtime.h>
+
+#include <cstddef>
+
+namespace cgr {
+
+constexpr int kThreads = 256;          // 16 x 16 threads
+constexpr int BM = 64, BN = 64, BK = 16;
+constexpr int TM = 4, TN = 4;          // thread (ty, tx): rows ty + 16 i, cols tx + 16 j
+
+enum Act { kRelu = 0, kSilu = 1, kGelu = 2 };  // ops/kernel_math.KERNEL_ACTS
+
+// k_act: relu, silu (x * sigmoid(x)) or exact-erf gelu.
+__device__ __forceinline__ float k_act(int act, float x) {
+  if (act == kRelu) return fmaxf(x, 0.f);
+  if (act == kSilu) return x / (1.f + expf(-x));
+  return 0.5f * x * (1.f + erff(x * 0.70710678118654752f));
+}
+
+// k_dact: d act(x) / dx.
+__device__ __forceinline__ float k_dact(int act, float x) {
+  if (act == kRelu) return x > 0.f ? 1.f : 0.f;
+  if (act == kSilu) {
+    const float s = 1.f / (1.f + expf(-x));
+    return s * (1.f + x * (1.f - s));
+  }
+  const float cdf = 0.5f * (1.f + erff(x * 0.70710678118654752f));
+  return cdf + x * (0.3989422804014327f * expf(-0.5f * x * x));
+}
+
+// mean_colscale: 1 / degree, where a row with no entries divides by 1.
+__device__ __forceinline__ float mean_colscale(int count) {
+  return 1.f / fmaxf(static_cast<float>(count), 1.f);
+}
+
+// _hash_bits: murmur3 finalizer over (pack-local row, column, seed, pack),
+// uint32 arithmetic with wraparound.
+__device__ __forceinline__ unsigned hash_bits(unsigned row, unsigned col,
+                                              unsigned seed, unsigned pack) {
+  unsigned x = row * 65537u + col + seed * 0x9E3779B9u + pack * 0x85EBCA6Bu;
+  x ^= x >> 16;
+  x *= 0x85EBCA6Bu;
+  x ^= x >> 13;
+  x *= 0xC2B2AE35u;
+  x ^= x >> 16;
+  return x;
+}
+
+// The hash dropout of one conv layer: keep where bits >= thr, and scale
+// the kept values by 1 / (1 - rate).  `on` is 0 in eval mode.
+struct Dropout {
+  int on;
+  unsigned seed, thr, pack;
+  float scale;
+  __device__ __forceinline__ bool kept(int row, int col) const {
+    return hash_bits(static_cast<unsigned>(row), static_cast<unsigned>(col),
+                     seed, pack) >= thr;
+  }
+  __device__ __forceinline__ float apply(int row, int col, float v) const {
+    if (!on) return v;
+    return kept(row, col) ? v * scale : 0.f;
+  }
+};
+
+// `drop` is the wrapper's [3, L] table (seeds, thresholds as uint32 bits,
+// scales as f32 bits), or nullptr in eval mode.
+__device__ __forceinline__ Dropout layer_dropout(const int* drop, int L,
+                                                 int l) {
+  if (drop == nullptr) return Dropout{0, 0u, 0u, 0u, 1.f};
+  return Dropout{1, static_cast<unsigned>(drop[l]),
+                 static_cast<unsigned>(drop[L + l]),
+                 static_cast<unsigned>(blockIdx.x), __int_as_float(drop[2 * L + l])};
+}
+
+// Rows of a dense operand [*, K]: row m is base + m*K, or with `ids` the
+// row ids[m] - lo when that lies in [0, n), and a zero row otherwise.
+struct Rows {
+  const float* base;
+  int K;
+  const int* ids;
+  int lo, n;
+  __device__ __forceinline__ const float* row(int m) const {
+    if (ids == nullptr) return base + static_cast<size_t>(m) * K;
+    const int r = ids[m] - lo;
+    return (r >= 0 && r < n) ? base + static_cast<size_t>(r) * K : nullptr;
+  }
+};
+
+struct Smem {
+  float a[BK][BM + 1];  // +1 keeps the k-major stores conflict-free
+  float b[BK][BN + 1];
+};
+
+// acc += Aop[m0:m0+BM, 0:K] · Bop[0:K, n0:n0+BN], where
+//   Aop(m, k) = A.row(m)[k]  (TA false)  or  A.row(k)[m]  (TA true: Aᵀ),
+//   Bop(k, n) = B[k*ldb + n] (TB false)  or  B[n*ldb + k] (TB true: Bᵀ).
+template <bool TA, bool TB>
+__device__ __forceinline__ void mma_tile(float (&acc)[TM][TN], const Rows& A,
+                                         const float* __restrict__ B, int ldb,
+                                         int K, int m0, int n0, int M, int N,
+                                         Smem& sm) {
+  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
+  for (int k0 = 0; k0 < K; k0 += BK) {
+    for (int i = tid; i < BM * BK; i += kThreads) {
+      // neighbouring threads read neighbouring addresses of A
+      const int mm = TA ? i % BM : i / BK, kk = TA ? i / BM : i % BK;
+      const int m = m0 + mm, k = k0 + kk;
+      float v = 0.f;
+      if (m < M && k < K) {
+        const float* r = A.row(TA ? k : m);
+        if (r != nullptr) v = r[TA ? m : k];
+      }
+      sm.a[kk][mm] = v;
+    }
+    for (int i = tid; i < BK * BN; i += kThreads) {
+      const int nn = TB ? i / BK : i % BN, kk = TB ? i % BK : i / BN;
+      const int k = k0 + kk, n = n0 + nn;
+      float v = 0.f;
+      if (k < K && n < N)
+        v = B[TB ? static_cast<size_t>(n) * ldb + k
+                 : static_cast<size_t>(k) * ldb + n];
+      sm.b[kk][nn] = v;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int kk = 0; kk < BK; ++kk) {
+      float av[TM], bv[TN];
+#pragma unroll
+      for (int i = 0; i < TM; ++i) av[i] = sm.a[kk][ty + 16 * i];
+#pragma unroll
+      for (int j = 0; j < TN; ++j) bv[j] = sm.b[kk][tx + 16 * j];
+#pragma unroll
+      for (int i = 0; i < TM; ++i)
+#pragma unroll
+        for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+    }
+    __syncthreads();
+  }
+}
+
+// One operand pair of a product: Aop · Bop with reduction length K.
+struct Operands {
+  Rows A;
+  const float* B;
+  int ldb, K;
+};
+
+// epi(m, n, Σ over the pairs of Aop·Bop [m, n]) over an M x N output.
+template <bool TA, bool TB, class Epi>
+__device__ void gemm(const Operands& p1, const Operands* p2, int M, int N,
+                     const Epi& epi, Smem& sm) {
+  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
+  for (int m0 = 0; m0 < M; m0 += BM) {
+    for (int n0 = 0; n0 < N; n0 += BN) {
+      float acc[TM][TN] = {};
+      mma_tile<TA, TB>(acc, p1.A, p1.B, p1.ldb, p1.K, m0, n0, M, N, sm);
+      if (p2 != nullptr)
+        mma_tile<TA, TB>(acc, p2->A, p2->B, p2->ldb, p2->K, m0, n0, M, N, sm);
+#pragma unroll
+      for (int i = 0; i < TM; ++i) {
+        const int m = m0 + ty + 16 * i;
+#pragma unroll
+        for (int j = 0; j < TN; ++j) {
+          const int n = n0 + tx + 16 * j;
+          if (m < M && n < N) epi(m, n, acc[i][j]);
+        }
+      }
+    }
+  }
+}
+
+// out = drop(act(acc + bias [+ skip·h0])), rows of width ld; the
+// pre-activation is stored too when `pre` is set.
+struct ActEpi {
+  const float* bias;   // [N]
+  const float* h0;     // added times `skip`; nullptr for none
+  float skip;
+  int act;
+  float* pre;          // nullptr: not stored
+  float* out;
+  int ld;
+  Dropout drop;
+  __device__ __forceinline__ void operator()(int m, int n, float acc) const {
+    const size_t o = static_cast<size_t>(m) * ld + n;
+    float v = acc + bias[n];
+    if (h0 != nullptr) v = fmaf(skip, h0[o], v);
+    if (pre != nullptr) pre[o] = v;
+    out[o] = drop.apply(m, n, k_act(act, v));
+  }
+};
+
+// out[m, n] = acc.
+struct StoreEpi {
+  float* out;
+  int ld;
+  __device__ __forceinline__ void operator()(int m, int n, float acc) const {
+    out[static_cast<size_t>(m) * ld + n] = acc;
+  }
+};
+
+// out[r, :] = scale_r · Σ_d src[ids[r, d] - lo, :]  [- src[rev[r] - lo, :]]
+// over R rows of width H; entries outside [0, n) are skipped, and
+// scale_r = mean_colscale(entries counted) when `mean`, else 1.
+__device__ void gather_sum(const float* __restrict__ src, int n, int lo,
+                           const int* __restrict__ ids, int D,
+                           const int* __restrict__ rev, bool mean, int R,
+                           int H, float* __restrict__ out) {
+  for (int i = threadIdx.x; i < R * H; i += kThreads) {
+    const int r = i / H, c = i % H;
+    const int* row = ids + static_cast<size_t>(r) * D;
+    float sum = 0.f;
+    int count = 0;
+    for (int d = 0; d < D; ++d) {
+      const int j = row[d] - lo;
+      if (j >= 0 && j < n) {
+        sum += src[static_cast<size_t>(j) * H + c];
+        ++count;
+      }
+    }
+    if (mean) sum *= mean_colscale(count);
+    if (rev != nullptr) {
+      const int j = rev[r] - lo;
+      if (j >= 0 && j < n) sum -= src[static_cast<size_t>(j) * H + c];
+    }
+    out[i] = sum;
+  }
+}
+
+// out[g] = pooled[g, :] · wffn + bffn, one warp per graph.
+__device__ void head(const float* __restrict__ pooled, int tb, int H,
+                     const float* __restrict__ wffn,
+                     const float* __restrict__ bffn, float* __restrict__ out) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  for (int g = warp; g < tb; g += kThreads / 32) {
+    float v = 0.f;
+    for (int c = lane; c < H; c += 32)
+      v = fmaf(pooled[static_cast<size_t>(g) * H + c], wffn[c], v);
+    for (int off = 16; off > 0; off >>= 1)
+      v += __shfl_down_sync(0xffffffffu, v, off);
+    if (lane == 0) out[g] = v + bffn[0];
+  }
+}
+
+// The model's inputs, as the wrappers in ops/fused_model.py pass them.
+struct ModelArgs {
+  const float *x, *e;
+  const int *senders, *edge_nbr, *rev, *node_inc, *graph_nodes;
+  const float *wx, *we, *be, *wc, *bc, *skips, *ws, *wxn, *ben, *wffn, *bffn;
+  const int* drop;  // [3, L] dropout table, nullptr in eval mode
+  int te, tn, tb, F, Fe, H, L, D, DN, act, mean_aggr, mean_pool;
+};
+
+// Where one pack's forward writes its states.  `t` and `pre` hold one
+// layer each at stride t_stride / pre_stride (0: every layer overwrites
+// the same rows); the pre-activations are stored only where the pointer
+// is set.
+struct FwdState {
+  float *pre0, *h0, *t, *pre, *h, *s, *pre_n, *hn, *pooled, *preds;
+  size_t t_stride, pre_stride;
+};
+
+// The whole forward of pack blockIdx.x (pallas_model.py::_replay_forward):
+//
+//   h0     = act(x[senders]·Wx + e·We + be)                   edge_init
+//   for l < L:
+//     t    = scale·Σ_d h[edge_nbr[:, d]] − h[rev]             messages
+//     h    = drop_l(act(t·Wc[l] + bc[l] + skip[l]·h0))        conv layer l
+//   s      = scale·Σ_d h[node_inc[:, d]]                      readout sum
+//   hn     = act(s·Ws + x·Wxn + ben)                          edge_to_node
+//   pooled = scale·Σ_k hn[graph_nodes[:, k]]                  pooling
+//   pred   = pooled·wffn + bffn                               ffn head
+//
+// "scale" is 1 for add and 1 / (number of counted entries) for mean; the
+// rev term stays unscaled.  Ends with the block synchronised.
+__device__ void forward_pack(const ModelArgs& a, const FwdState& st,
+                             Smem& sm) {
+  const int H = a.H;
+  const int eb = blockIdx.x * a.te, nb = blockIdx.x * a.tn,
+            gb = blockIdx.x * a.tb;
+  const float* x = a.x + static_cast<size_t>(nb) * a.F;
+  const float* e = a.e + static_cast<size_t>(eb) * a.Fe;
+  const Dropout none{0, 0u, 0u, 0u, 1.f};
+
+  // edge_init
+  const Operands xw{Rows{x, a.F, a.senders + eb, nb, a.tn}, a.wx, H, a.F};
+  const Operands ew{Rows{e, a.Fe, nullptr, 0, 0}, a.we, H, a.Fe};
+  gemm<false, false>(xw, &ew, a.te, H,
+                     ActEpi{a.be, nullptr, 0.f, a.act, st.pre0, st.h0, H, none},
+                     sm);
+  __syncthreads();
+
+  const float* h_in = st.h0;
+  for (int l = 0; l < a.L; ++l) {
+    float* t = st.t + l * st.t_stride;
+    gather_sum(h_in, a.te, eb, a.edge_nbr + static_cast<size_t>(eb) * a.D,
+               a.D, a.rev + eb, a.mean_aggr != 0, a.te, H, t);
+    __syncthreads();
+    const Operands tw{Rows{t, H, nullptr, 0, 0},
+                      a.wc + static_cast<size_t>(l) * H * H, H, H};
+    gemm<false, false>(
+        tw, nullptr, a.te, H,
+        ActEpi{a.bc + static_cast<size_t>(l) * H, st.h0, a.skips[l], a.act,
+               st.pre == nullptr ? nullptr : st.pre + l * st.pre_stride, st.h,
+               H, layer_dropout(a.drop, a.L, l)},
+        sm);
+    __syncthreads();
+    h_in = st.h;
+  }
+
+  // readout: hn = act(s·Ws + x·Wxn + ben), s = incoming sum of h
+  gather_sum(h_in, a.te, eb, a.node_inc + static_cast<size_t>(nb) * a.D, a.D,
+             nullptr, a.mean_aggr != 0, a.tn, H, st.s);
+  __syncthreads();
+  const Operands sw{Rows{st.s, H, nullptr, 0, 0}, a.ws, H, H};
+  const Operands xn{Rows{x, a.F, nullptr, 0, 0}, a.wxn, H, a.F};
+  gemm<false, false>(sw, &xn, a.tn, H,
+                     ActEpi{a.ben, nullptr, 0.f, a.act, st.pre_n, st.hn, H, none},
+                     sm);
+  __syncthreads();
+
+  gather_sum(st.hn, a.tn, nb, a.graph_nodes + static_cast<size_t>(gb) * a.DN,
+             a.DN, nullptr, a.mean_pool != 0, a.tb, H, st.pooled);
+  __syncthreads();
+  head(st.pooled, a.tb, H, a.wffn, a.bffn, st.preds);
+  __syncthreads();
+}
+
+}  // namespace cgr

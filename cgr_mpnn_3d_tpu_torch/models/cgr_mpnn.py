@@ -6,7 +6,7 @@ math over the same packed batches:
   h0 = act(edge_init([x[src] ++ e_attr]))
   repeat depth times:
       t  = a_message[src] - h[rev]
-      h  = act(lin_l(t) + (skip_w[l] *)? h0)        (eval: no dropout)
+      h  = dropout(act(lin_l(t) + (skip_w[l] *)? h0), p[l])   (train only)
   s  = incoming-sum(h)        (mean: divided by the in-degree)
   hn = act(edge_to_node([x ++ s]))
   out = ffn(pool(hn)).squeeze(-1)      (pool: sum or mean over the graph)
@@ -15,9 +15,18 @@ Parameters keep the JAX pytree's names and layout (``edge_init``,
 ``convs[l]``, ``edge_to_node``, ``ffn``, ``skip_weights``; weights
 ``[fan_in, fan_out]``) and PyTorch-default Linear init bounds.
 
-:func:`apply` routes a batch on the card through the whole-model forward
-kernel (ops/fused_model.py) and takes the plain gather ops (ops/segment.py)
-on the CPU and for ``capture=True``.
+:func:`apply` routes a batch on the card through the whole-model kernels
+(ops/fused_model.py: the forward kernel, with the VJP kernel as its
+backward) and takes the plain gather ops (ops/segment.py) on the CPU and for
+``capture=True``.  :func:`fused_train_value_and_grad` is the training
+step's compute in one kernel launch per step on the card.
+
+Dropout is the TPU kernels' hash dropout everywhere (on the card and on the
+CPU), driven by one int32 seed per conv layer, so a CPU run and a card run
+of the trainer see the same masks.  The JAX package's XLA path draws its
+masks with ``jax.random.bernoulli`` instead; the port matches that path
+only in distribution (each element kept with probability 1 - p, scaled by
+1/(1 - p)), not mask for mask.
 """
 
 from __future__ import annotations
@@ -31,15 +40,16 @@ import torch
 from torch import nn
 
 from ..data.batch import PackedGraphBatch, PackSpec
-from ..ops.fused_model import fused_model_forward
-from ..ops.kernel_math import k_act
+from ..ops.fused_model import GRAD_NAMES, fused_model, fused_model_train
+from ..ops.kernel_math import hash_dropout_keep_full, k_act
 from ..ops.segment import (dmpnn_messages, gather_nodes, graph_pool_sum,
                            node_incoming_sum)
 from ..utils.device import resolve_device
 
 __all__ = ["CGRMPNNConfig", "CGRMPNN", "init_params", "apply",
-           "kernel_inputs", "params_from_jax", "jax_leaf_names",
-           "ACTIVATIONS"]
+           "kernel_inputs", "adjoint_inputs", "kernel_seeds",
+           "kernel_grads_to_params", "fused_train_value_and_grad",
+           "params_from_jax", "jax_leaf_names", "ACTIVATIONS"]
 
 # config activation name -> kernel activation id (ops/kernel_math.k_act)
 ACTIVATIONS = {"ReLU": "relu", "SiLU": "silu", "GELU": "gelu"}
@@ -177,16 +187,93 @@ def kernel_inputs(model: CGRMPNN, batch: PackedGraphBatch) -> tuple:
             model.ffn.w, model.ffn.b)
 
 
+
+
+def adjoint_inputs(batch: PackedGraphBatch) -> tuple:
+    """The index arrays through which the backward kernels transpose the
+    forward's gathers: receivers, edge_nbr_rev, graph_of_node."""
+    return batch.receivers, batch.edge_nbr_rev, batch.graph_of_node
+
+
+def kernel_seeds(cfg: CGRMPNNConfig,
+                 generator: torch.Generator) -> torch.Tensor:
+    """One int32 dropout seed per conv layer, in [0, 2**31 - 1), drawn on
+    the CPU from ``generator`` (the counterpart of the JAX package's
+    ``kernel_seeds``, which draws them from a PRNG key)."""
+    return torch.randint(0, 2**31 - 1, (cfg.depth,), generator=generator,
+                         dtype=torch.int64).to(torch.int32)
+
+
+def _kernel_kw(cfg: CGRMPNNConfig, spec: PackSpec, train: bool,
+               seeds) -> dict:
+    if train and seeds is None:
+        raise ValueError("train=True needs the per-layer dropout seeds")
+    return dict(p=spec.p, act=ACTIVATIONS[cfg.activation], aggr=cfg.aggr,
+                pooling=cfg.pooling, train=train,
+                seeds=seeds if train else None,
+                dropout_ps=tuple(cfg.dropout_ps) if train else ())
+
+
+def kernel_grads_to_params(model: CGRMPNN, grads: tuple) -> None:
+    """Write the kernels' 11 weight gradients (ops.fused_model.GRAD_NAMES
+    order) into the parameters' ``.grad``: the counterpart of the JAX
+    package's ``kernel_grads_to_pytree``.  The concat-layout weights take
+    their two halves back (edge_init.w = [dwx; dwe], edge_to_node.w =
+    [dwxn; dws])."""
+    g = dict(zip(GRAD_NAMES, grads))
+    model.edge_init.w.grad = torch.cat([g["wx"], g["we"]], dim=0)
+    model.edge_init.b.grad = g["be"]
+    for l, conv in enumerate(model.convs):
+        conv.w.grad = g["wc"][l]
+        conv.b.grad = g["bc"][l]
+    model.edge_to_node.w.grad = torch.cat([g["wxn"], g["ws"]], dim=0)
+    model.edge_to_node.b.grad = g["ben"]
+    model.ffn.w.grad = g["wffn"]
+    model.ffn.b.grad = g["bffn"]
+    if model.cfg.use_learnable_skip:
+        for l, w in enumerate(model.skip_weights):
+            w.grad = g["skips"][l].reshape(w.shape)
+
+
+def fused_train_value_and_grad(model: CGRMPNN, batch: PackedGraphBatch,
+                               spec: PackSpec, seeds=None) -> torch.Tensor:
+    """The masked SSE of ``batch`` (a 0-dim tensor), with the gradients of
+    every parameter written into ``.grad``: on the card by ONE launch of the
+    training kernel (replay, loss, gradients -- no autograd, no separate
+    forward), on the CPU by its plain version.  ``seeds`` (one per conv
+    layer) turns on train-mode dropout; None trains without it."""
+    train = seeds is not None
+    with torch.no_grad():
+        sse, grads = fused_model_train(
+            kernel_inputs(model, batch), adjoint_inputs(batch),
+            batch.labels.float(), batch.graph_mask.float(),
+            **_kernel_kw(model.cfg, spec, train, seeds))
+    kernel_grads_to_params(model, grads)
+    return sse
+
+
+def _dropout(h: torch.Tensor, rate: float, seed: int, te: int):
+    """The kernels' hash dropout over the stacked [p*te, H] edge states."""
+    if rate == 0.0:
+        return h
+    keep = hash_dropout_keep_full(h.shape[0], h.shape[1], te, seed, rate,
+                                  device=h.device)
+    return torch.where(keep, h * (1.0 / (1.0 - rate)), 0.0)
+
+
 def apply(model: CGRMPNN, batch: PackedGraphBatch, spec: PackSpec | None = None,
-          *, capture: bool = False):
-    """Eval-mode forward pass -> per-graph predictions [BT] (padded slots
-    garbage -- mask with ``batch.graph_mask``).  With ``capture=True`` also
-    returns a dict of intermediate activations.  Dropout arrives with the
-    training slice.
+          *, train: bool = False, seeds=None, capture: bool = False):
+    """Forward pass -> per-graph predictions [BT] (padded slots garbage --
+    mask with ``batch.graph_mask``).  With ``train=True`` each conv layer's
+    output goes through the hash dropout of rate ``cfg.dropout_ps[l]`` under
+    ``seeds[l]``.  With ``capture=True`` also returns a dict of intermediate
+    activations.
 
     A batch on the card goes through the forward kernel, which needs
-    ``spec`` (its pack count); the CPU and ``capture=True`` take the plain
-    gather ops."""
+    ``spec`` (its pack count); with gradients enabled, through the autograd
+    Function whose backward is the VJP kernel.  The CPU and
+    ``capture=True`` take the plain gather ops (train mode needs ``spec``
+    there too, for the pack-local dropout rows)."""
     cfg = model.cfg
     kact = ACTIVATIONS[cfg.activation]
     x, e = batch.node_x, batch.edge_attr
@@ -194,9 +281,13 @@ def apply(model: CGRMPNN, batch: PackedGraphBatch, spec: PackSpec | None = None,
     if x.device.type == "cuda" and not capture:
         if spec is None:
             raise ValueError("the forward kernel needs the batch's PackSpec")
-        return fused_model_forward(
-            *kernel_inputs(model, batch), p=spec.p, act=kact, aggr=cfg.aggr,
-            pooling=cfg.pooling)
+        return fused_model(kernel_inputs(model, batch), adjoint_inputs(batch),
+                           **_kernel_kw(cfg, spec, train, seeds))
+    if train:
+        if spec is None or seeds is None:
+            raise ValueError("train mode needs the batch's PackSpec and the "
+                             "per-layer dropout seeds")
+        seed_list = [int(s) for s in seeds]
 
     x, e = x.float(), e.float()
     ET = batch.senders.shape[0]
@@ -219,6 +310,8 @@ def apply(model: CGRMPNN, batch: PackedGraphBatch, spec: PackSpec | None = None,
     for l in range(cfg.depth):
         t = dmpnn_messages(h, batch.edge_nbr, batch.rev, norm)
         h = k_act(kact, model.convs[l](t) + skips[l] * h0)
+        if train:
+            h = _dropout(h, cfg.dropout_ps[l], seed_list[l], spec.te)
         if capture:
             acts[f"h_{l}"] = h
 

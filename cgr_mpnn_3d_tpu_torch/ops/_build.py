@@ -1,8 +1,8 @@
 """Build the CUDA sources under ``csrc/`` with nvcc and load them with ctypes.
 
 Each ``csrc/<name>.cu`` exposes a plain C interface and compiles on its own
-into ``build/lib<name>-<hash>.so`` (the hash is of the source, so an edited
-source rebuilds).  Building happens at first use, or up front for every
+into ``build/lib<name>-<hash>.so`` (the hash is of the source and of the
+shared ``csrc/*.cuh`` headers, so an edited source or header rebuilds).  Building happens at first use, or up front for every
 source at once with :func:`build_all`.  Nothing here runs when the module is
 imported, and a failed build raises.
 """
@@ -41,7 +41,8 @@ def _nvcc() -> str:
 
 def _target(name: str) -> tuple[Path, Path]:
     src = CSRC / f"{name}.cu"
-    digest = hashlib.sha1(src.read_bytes()
+    headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+    digest = hashlib.sha1(src.read_bytes() + headers
                           + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
     return src, BUILD_DIR / f"lib{name}-{digest}.so"
 

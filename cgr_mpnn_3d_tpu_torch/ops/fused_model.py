@@ -1,44 +1,73 @@
-"""The whole-model forward per pack: the CUDA kernel's wrapper and its plain
-PyTorch version.
+"""The whole-model kernels per pack: their wrappers and plain PyTorch versions.
 
-The counterpart of the forward of ``cgr_mpnn_3d_tpu/ops/pallas_model.py::
-fused_model`` (``_fwd_call`` -> ``_replay_forward``).  Per pack it computes
-edge_init, the L conv layers, the readout, pooling (add | mean) and the FFN
-head, and returns ``preds [p*tb]`` in f32 (padded graph slots hold garbage:
-mask them with ``graph_mask``).
+The counterparts of ``cgr_mpnn_3d_tpu/ops/pallas_model.py``:
 
-Unlike the TPU kernel, which builds one-hot matrices from transposed index
-rows, both versions here gather straight through the packer's ELL arrays.
-An index outside the pack of the row that holds it -- the sentinel included
--- counts as absent, which is what a never-matching one-hot column does on
-the TPU.  For mean, the scale is 1 over the number of entries that count,
-and the ``rev`` term stays unscaled.
+* :func:`fused_model_forward` -- the forward (K3f, ``_fwd_call`` ->
+  ``_replay_forward``): edge_init, the L conv layers (with the hash dropout
+  in train mode), the readout, pooling (add | mean) and the FFN head ->
+  ``preds [p*tb]`` f32 (padded graph slots hold garbage: mask them with
+  ``graph_mask``);
+* :func:`fused_model_train` -- the training step's compute (K2,
+  ``fused_model_train``): the replayed forward, the masked SSE and the 11
+  parameter gradients, with dpred = 2·mask·(pred − y);
+* :func:`fused_model_vjp` -- the VJP of the forward from dpred (K3b,
+  ``_bwd_call``);
+* :func:`fused_model` -- the forward as a ``torch.autograd.Function`` whose
+  backward is the VJP kernel (``fused_model``'s custom VJP).
 
-:func:`fused_model_forward` launches ``csrc/fused_model_fwd.cu`` for CUDA
-tensors (or raises) and takes :func:`fused_model_forward_ref` only for CPU
-tensors.  Eval mode only: the hash dropout arrives with the training
-kernels.
+The model's inputs are the 18 tensors of ``models.kernel_inputs`` (x, e, the
+five forward index arrays, then wx, we, be, wc, bc, skips, ws, wxn, ben,
+wffn, bffn); the backward kernels also take the ``adjoint`` index arrays
+(receivers, edge_nbr_rev, graph_of_node of ``models.adjoint_inputs``),
+through which they transpose the forward's gathers.
+
+Unlike the TPU kernels, which build one-hot matrices from transposed index
+rows, everything here gathers straight through the packer's ELL arrays.  An
+index outside the pack of the row that holds it -- the sentinel included --
+counts as absent, which is what a never-matching one-hot column does on the
+TPU.  For mean, the scale is 1 over the number of entries that count, and
+the ``rev`` term stays unscaled.
+
+Train mode (``train=True``) takes one int32 ``seed`` and one drop rate per
+conv layer; the dropout bits are the TPU kernels' (ops/kernel_math.py).
+
+Each wrapper launches its CUDA kernel (``csrc/fused_model_fwd.cu``,
+``csrc/fused_model_bwd.cu``) for CUDA tensors or raises, and takes its plain
+version only for CPU tensors.  The plain versions of K2 and K3b are autograd
+through :func:`fused_model_forward_ref`.
 """
 
 from __future__ import annotations
 
 import ctypes
 
+import numpy as np
 import torch
 
 from . import _build
-from .kernel_math import KERNEL_ACTS, k_act, mean_colscale
+from .kernel_math import (KERNEL_ACTS, dropout_threshold,
+                          hash_dropout_keep_full, k_act, mean_colscale)
 from .segment import ext_zero_row
 
-__all__ = ["fused_model_forward", "fused_model_forward_ref", "launches"]
+__all__ = ["fused_model_forward", "fused_model_forward_ref",
+           "fused_model_train", "fused_model_train_ref", "fused_model_vjp",
+           "fused_model_vjp_ref", "fused_model", "GRAD_NAMES", "launches",
+           "train_launches", "vjp_launches"]
 
-# launches of the CUDA kernel by fused_model_forward (nothing else adds here)
+# launches of each CUDA kernel by its wrapper (nothing else adds here):
+# the forward (K3f), the training step (K2) and the VJP (K3b)
 launches = 0
+train_launches = 0
+vjp_launches = 0
 
 _NAMES = ("x", "e", "senders", "edge_nbr", "rev", "node_inc", "graph_nodes",
           "wx", "we", "be", "wc", "bc", "skips", "ws", "wxn", "ben", "wffn",
           "bffn")
-_INDEX_NAMES = {"senders", "edge_nbr", "rev", "node_inc", "graph_nodes"}
+_ADJ_NAMES = ("receivers", "edge_nbr_rev", "graph_of_node")
+_INDEX_NAMES = {"senders", "edge_nbr", "rev", "node_inc", "graph_nodes",
+                *_ADJ_NAMES}
+# the gradients the backward kernels return, one per weight input
+GRAD_NAMES = _NAMES[7:]
 
 
 def _shapes(x, e, edge_nbr, graph_nodes, wc, p: int) -> dict:
@@ -56,15 +85,12 @@ def _shapes(x, e, edge_nbr, graph_nodes, wc, p: int) -> dict:
                 rev=(ET,), node_inc=(NT, D), graph_nodes=(BT, DN),
                 wx=(F, H), we=(Fe, H), be=(H,), wc=(L, H, H), bc=(L, H),
                 skips=(L,), ws=(H, H), wxn=(F, H), ben=(H,), wffn=(H, 1),
-                bffn=(1,))
+                bffn=(1,), receivers=(ET,), edge_nbr_rev=(ET, D),
+                graph_of_node=(NT,), labels=(BT,), mask=(BT,), dpred=(BT,))
 
 
 def _check(args: dict, p: int, act: str, aggr: str, pooling: str,
-           train: bool) -> None:
-    if train:
-        raise NotImplementedError(
-            "fused_model_forward is eval only: the in-kernel hash dropout "
-            "arrives with the training kernels")
+           train: bool, seeds, dropout_ps) -> None:
     if act not in KERNEL_ACTS:
         raise ValueError(f"unsupported kernel activation {act!r}")
     for name, mode in (("aggr", aggr), ("pooling", pooling)):
@@ -72,10 +98,22 @@ def _check(args: dict, p: int, act: str, aggr: str, pooling: str,
             raise ValueError(f"unsupported {name} {mode!r}")
     want = _shapes(args["x"], args["e"], args["edge_nbr"],
                    args["graph_nodes"], args["wc"], p)
-    for name in _NAMES:
-        if tuple(args[name].shape) != want[name]:
-            raise ValueError(f"{name} has shape {tuple(args[name].shape)}, "
+    for name, tsr in args.items():
+        if tuple(tsr.shape) != want[name]:
+            raise ValueError(f"{name} has shape {tuple(tsr.shape)}, "
                              f"expected {want[name]}")
+    if train:
+        L = args["wc"].shape[0]
+        if seeds is None or len(seeds) != L or len(dropout_ps) != L:
+            raise ValueError(f"train mode needs one seed and one drop rate "
+                             f"per conv layer ({L})")
+        if not all(0.0 <= r < 1.0 for r in dropout_ps):
+            raise ValueError(f"drop rates must lie in [0, 1): {dropout_ps}")
+
+
+def _seed_list(seeds) -> list[int]:
+    return [int(s) for s in (seeds.tolist() if torch.is_tensor(seeds)
+                             else seeds)]
 
 
 def _in_pack(idx: torch.Tensor, p: int, n_src: int):
@@ -94,13 +132,16 @@ def fused_model_forward_ref(x, e, senders, edge_nbr, rev, node_inc,
                             graph_nodes, wx, we, be, wc, bc, skips, ws, wxn,
                             ben, wffn, bffn, *, p: int, act: str = "relu",
                             aggr: str = "add", pooling: str = "add",
-                            train: bool = False) -> torch.Tensor:
-    """Plain PyTorch version of the kernel (any device): preds [p*tb]."""
+                            train: bool = False, seeds=None,
+                            dropout_ps=()) -> torch.Tensor:
+    """Plain PyTorch version of the forward kernel (any device): preds
+    [p*tb].  Differentiable in the weights."""
     args = dict(zip(_NAMES, (x, e, senders, edge_nbr, rev, node_inc,
                              graph_nodes, wx, we, be, wc, bc, skips, ws, wxn,
                              ben, wffn, bffn)))
-    _check(args, p, act, aggr, pooling, train)
+    _check(args, p, act, aggr, pooling, train, seeds, dropout_ps)
     ET, NT = e.shape[0], x.shape[0]
+    H = wc.shape[2]
 
     def gather_sum(src, idx, mean):
         ids, valid = _in_pack(idx, p, src.shape[0])
@@ -115,77 +156,276 @@ def fused_model_forward_ref(x, e, senders, edge_nbr, rev, node_inc,
         t = (gather_sum(h, edge_nbr, aggr == "mean")
              - ext_zero_row(h)[rev_ids])
         h = k_act(act, t @ wc[l] + bc[l] + skips[l] * h0)
+        if train and dropout_ps[l] > 0.0:
+            keep = hash_dropout_keep_full(ET, H, ET // p,
+                                          _seed_list(seeds)[l],
+                                          dropout_ps[l], device=x.device)
+            h = torch.where(keep, h * (1.0 / (1.0 - dropout_ps[l])), 0.0)
     s = gather_sum(h, node_inc, aggr == "mean")
     hn = k_act(act, s @ ws + x @ wxn + ben)
     pooled = gather_sum(hn, graph_nodes, pooling == "mean")
     return (pooled @ wffn)[:, 0] + bffn
 
 
-def _kernel_lib() -> ctypes.CDLL:
-    lib = _build.load("fused_model_fwd")
+def _weight_grads(inputs, kw, outer):
+    """Autograd through the plain forward: (preds, grads of the weights)
+    with ``outer(preds)`` the scalar whose gradient is taken."""
+    with torch.enable_grad():
+        ws = [t.detach().requires_grad_() for t in inputs[7:]]
+        preds = fused_model_forward_ref(*inputs[:7], *ws, **kw)
+        out = outer(preds)
+        grads = torch.autograd.grad(out, ws)
+    return out.detach(), grads
+
+
+def _check_all(inputs, adjoint, extra: dict, kw: dict) -> dict:
+    """Every argument of a backward kernel, checked; returns them by name."""
+    args = dict(zip(_NAMES, inputs))
+    args.update(zip(_ADJ_NAMES, adjoint))
+    args.update(extra)
+    _check(args, kw["p"], kw["act"], kw["aggr"], kw["pooling"], kw["train"],
+           kw["seeds"], kw["dropout_ps"])
+    return args
+
+
+def fused_model_train_ref(inputs, adjoint, labels, mask, **kw):
+    """Plain version of the training kernel: (sse, the 11 weight grads).
+    Autograd transposes the forward's gathers itself: ``adjoint`` is only
+    checked."""
+    _check_all(inputs, adjoint, dict(labels=labels, mask=mask), kw)
+
+    def sse(preds):
+        err = (preds - labels) * mask
+        return (err * err).sum()
+    return _weight_grads(inputs, kw, sse)
+
+
+def fused_model_vjp_ref(inputs, adjoint, dpred, **kw):
+    """Plain version of the VJP kernel: the 11 weight grads."""
+    _check_all(inputs, adjoint, dict(dpred=dpred), kw)
+    return _weight_grads(inputs, kw, lambda preds: (preds * dpred).sum())[1]
+
+
+def _lib(name: str) -> ctypes.CDLL:
+    lib = _build.load(name)
     if not getattr(lib, "_cgr_typed", False):
-        lib.cgr_fused_model_fwd.argtypes = (
-            [ctypes.c_void_p] * 25 + [ctypes.c_int] * 13 + [ctypes.c_void_p])
-        lib.cgr_fused_model_fwd.restype = ctypes.c_int
-        lib.cgr_cuda_error_string.argtypes = [ctypes.c_int]
+        ptr, i32 = ctypes.c_void_p, ctypes.c_int
+        if name == "fused_model_fwd":
+            lib.cgr_fused_model_fwd.argtypes = (
+                [ptr] * 26 + [i32] * 13 + [ptr])
+            lib.cgr_fused_model_fwd.restype = i32
+        else:
+            for fn, n_extra in (("cgr_fused_model_train", 2),
+                                ("cgr_fused_model_vjp", 1)):
+                f = getattr(lib, fn)
+                f.argtypes = [ptr] * (22 + n_extra + 3) + [i32] * 13 + [ptr]
+                f.restype = i32
+            lib.cgr_fused_model_bwd_scratch_floats.argtypes = [i32] * 5
+            lib.cgr_fused_model_bwd_scratch_floats.restype = ctypes.c_longlong
+            lib.cgr_fused_model_grad_floats.argtypes = [i32] * 4
+            lib.cgr_fused_model_grad_floats.restype = ctypes.c_longlong
+        lib.cgr_cuda_error_string.argtypes = [i32]
         lib.cgr_cuda_error_string.restype = ctypes.c_char_p
         lib._cgr_typed = True
     return lib
 
 
+def _check_cuda(args: dict, device) -> None:
+    for name, tsr in args.items():
+        want = torch.int32 if name in _INDEX_NAMES else torch.float32
+        if tsr.device != device:
+            raise ValueError(f"{name} is on {tsr.device}, x on {device}")
+        if tsr.dtype != want:
+            raise TypeError(f"{name} is {tsr.dtype}, the kernel takes {want}")
+        if not tsr.is_contiguous():
+            raise ValueError(f"{name} is not contiguous")
+
+
+def _drop_table(train: bool, seeds, dropout_ps, device):
+    """[3, L] int32 on ``device``: seeds, keep thresholds (uint32 bits) and
+    scales 1/(1 - rate) (f32 bits); None in eval mode.  A layer of rate 0
+    keeps every element at scale 1, which leaves it unchanged."""
+    if not train:
+        return None
+    seeds = np.asarray(_seed_list(seeds), np.int64) & 0xFFFFFFFF
+    thr = [dropout_threshold(r) for r in dropout_ps]
+    scale = np.asarray([1.0 / (1.0 - r) for r in dropout_ps], np.float32)
+    table = np.stack([seeds.astype(np.uint32).view(np.int32),
+                      np.asarray(thr, np.uint32).view(np.int32),
+                      scale.view(np.int32)])
+    return torch.from_numpy(table).to(device)
+
+
+def _dims(x, e, graph_nodes, edge_nbr, wc, p: int) -> list[int]:
+    NT, F = x.shape
+    ET, Fe = e.shape
+    BT, DN = graph_nodes.shape
+    L, H = wc.shape[0], wc.shape[2]
+    return [p, ET // p, NT // p, BT // p, F, Fe, H, L, edge_nbr.shape[1], DN]
+
+
+def _modes(act: str, aggr: str, pooling: str) -> list[int]:
+    return [KERNEL_ACTS.index(act), int(aggr == "mean"),
+            int(pooling == "mean")]
+
+
+def _raise_on(lib, err: int, what: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{what} launch failed: "
+                           + lib.cgr_cuda_error_string(err).decode())
+
+
 def fused_model_forward(x, e, senders, edge_nbr, rev, node_inc, graph_nodes,
                         wx, we, be, wc, bc, skips, ws, wxn, ben, wffn, bffn,
                         *, p: int, act: str = "relu", aggr: str = "add",
-                        pooling: str = "add",
-                        train: bool = False) -> torch.Tensor:
+                        pooling: str = "add", train: bool = False,
+                        seeds=None, dropout_ps=()) -> torch.Tensor:
     """Whole-model forward -> preds [p*tb] f32.
 
     CUDA tensors launch ``csrc/fused_model_fwd.cu`` (one block per pack) or
     raise; CPU tensors take :func:`fused_model_forward_ref`.  Features and
     weights are float32, indices int32, all contiguous; ``wffn`` is [H, 1],
-    ``skips`` [L], ``bffn`` [1].  No backward: call it without gradients."""
+    ``skips`` [L], ``bffn`` [1].  No backward: for gradients on the card
+    call :func:`fused_model`."""
     global launches
     tensors = (x, e, senders, edge_nbr, rev, node_inc, graph_nodes, wx, we,
                be, wc, bc, skips, ws, wxn, ben, wffn, bffn)
+    kw = dict(p=p, act=act, aggr=aggr, pooling=pooling, train=train,
+              seeds=seeds, dropout_ps=dropout_ps)
     if x.device.type == "cpu":
-        return fused_model_forward_ref(*tensors, p=p, act=act, aggr=aggr,
-                                       pooling=pooling, train=train)
+        return fused_model_forward_ref(*tensors, **kw)
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
     args = dict(zip(_NAMES, tensors))
-    _check(args, p, act, aggr, pooling, train)
-    for name, tsr in args.items():
-        want = torch.int32 if name in _INDEX_NAMES else torch.float32
-        if tsr.device != x.device:
-            raise ValueError(f"{name} is on {tsr.device}, x on {x.device}")
-        if tsr.dtype != want:
-            raise TypeError(f"{name} is {tsr.dtype}, the kernel takes {want}")
-        if not tsr.is_contiguous():
-            raise ValueError(f"{name} is not contiguous")
-        if torch.is_grad_enabled() and tsr.requires_grad:
-            raise RuntimeError("the forward kernel has no backward yet: "
-                               "call it under torch.no_grad()")
+    _check(args, p, act, aggr, pooling, train, seeds, dropout_ps)
+    _check_cuda(args, x.device)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError("the forward kernel has no backward of its own: "
+                           "call fused_model() for gradients, or call this "
+                           "under torch.no_grad()")
 
-    NT, F = x.shape
-    ET, Fe = e.shape
-    BT, DN = graph_nodes.shape
-    L, H = wc.shape[0], wc.shape[2]
-    D = edge_nbr.shape[1]
+    NT, ET, BT = x.shape[0], e.shape[0], graph_nodes.shape[0]
+    H = wc.shape[2]
     scratch = dict(h0=(ET, H), h=(ET, H), t=(ET, H), s=(NT, H), hn=(NT, H),
                    pooled=(BT, H))
     bufs = [torch.empty(shape, device=x.device, dtype=torch.float32)
             for shape in scratch.values()]
     out = torch.empty(BT, device=x.device, dtype=torch.float32)
-    lib = _kernel_lib()
+    drop = _drop_table(train, seeds, dropout_ps, x.device)
+    lib = _lib("fused_model_fwd")
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = lib.cgr_fused_model_fwd(
-            *(t.data_ptr() for t in tensors), *(b.data_ptr() for b in bufs),
-            out.data_ptr(), p, ET // p, NT // p, BT // p, F, Fe, H, L, D, DN,
-            KERNEL_ACTS.index(act), int(aggr == "mean"),
-            int(pooling == "mean"), stream)
+            *(t.data_ptr() for t in tensors),
+            None if drop is None else drop.data_ptr(),
+            *(b.data_ptr() for b in bufs), out.data_ptr(),
+            *_dims(x, e, graph_nodes, edge_nbr, wc, p),
+            *_modes(act, aggr, pooling), stream)
     launches += 1
-    if err != 0:
-        raise RuntimeError("fused_model_fwd launch failed: "
-                           + lib.cgr_cuda_error_string(err).decode())
+    _raise_on(lib, err, "fused_model_fwd")
     return out
+
+
+def _backward(inputs, adjoint, extra: dict, *, p, act, aggr, pooling,
+              train, seeds, dropout_ps):
+    """Launch csrc/fused_model_bwd.cu: K2 when ``extra`` holds labels and
+    mask, K3b when it holds dpred.  Returns (sse, the 11 grads)."""
+    args = _check_all(inputs, adjoint, extra, dict(
+        p=p, act=act, aggr=aggr, pooling=pooling, train=train, seeds=seeds,
+        dropout_ps=dropout_ps))
+    x, e, wc = args["x"], args["e"], args["wc"]
+    _check_cuda(args, x.device)
+    dims = _dims(x, e, args["graph_nodes"], args["edge_nbr"], wc, p)
+    _, te, tn, tb, F, Fe, H, L = dims[:8]
+    lib = _lib("fused_model_bwd")
+    n_scratch = lib.cgr_fused_model_bwd_scratch_floats(te, tn, tb, H, L)
+    n_grad = lib.cgr_fused_model_grad_floats(F, Fe, H, L)
+    shapes = [(), *(tuple(t.shape) for t in inputs[7:])]
+    if 1 + sum(t.numel() for t in inputs[7:]) != n_grad:
+        raise RuntimeError("gradient layout of fused_model_bwd.cu differs "
+                           "from the wrapper's")
+    scratch = torch.empty(p * n_scratch, device=x.device, dtype=torch.float32)
+    partial = torch.empty(p * n_grad, device=x.device, dtype=torch.float32)
+    out = torch.empty(n_grad, device=x.device, dtype=torch.float32)
+    drop = _drop_table(train, seeds, dropout_ps, x.device)
+    fn = (lib.cgr_fused_model_train if "labels" in extra
+          else lib.cgr_fused_model_vjp)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = fn(*(t.data_ptr() for t in inputs),
+                 None if drop is None else drop.data_ptr(),
+                 *(t.data_ptr() for t in adjoint),
+                 *(t.data_ptr() for t in extra.values()),
+                 scratch.data_ptr(), partial.data_ptr(), out.data_ptr(),
+                 *dims, *_modes(act, aggr, pooling), stream)
+    _raise_on(lib, err, fn.__name__)
+    parts = torch.split(out, [int(np.prod(s, dtype=np.int64)) for s in shapes])
+    return parts[0][0], tuple(t.view(s) for t, s in zip(parts[1:], shapes[1:]))
+
+
+def fused_model_train(inputs, adjoint, labels, mask, *, p: int,
+                      act: str = "relu", aggr: str = "add",
+                      pooling: str = "add", train: bool = False, seeds=None,
+                      dropout_ps=()):
+    """The training step's compute: (sse, grads) with grads the 11 weight
+    gradients in :data:`GRAD_NAMES` order, shaped like the weights.
+
+    CUDA tensors launch ``csrc/fused_model_bwd.cu`` (K2: one block per pack
+    replays the forward, derives dpred = 2·mask·(pred − y) and the masked
+    SSE, and writes its pack's gradients; a second launch sums them over
+    packs) or raise; CPU tensors take :func:`fused_model_train_ref`."""
+    global train_launches
+    kw = dict(p=p, act=act, aggr=aggr, pooling=pooling, train=train,
+              seeds=seeds, dropout_ps=dropout_ps)
+    if inputs[0].device.type == "cpu":
+        return fused_model_train_ref(inputs, adjoint, labels, mask, **kw)
+    out = _backward(inputs, adjoint, dict(labels=labels, mask=mask), **kw)
+    train_launches += 1
+    return out
+
+
+def fused_model_vjp(inputs, adjoint, dpred, *, p: int, act: str = "relu",
+                    aggr: str = "add", pooling: str = "add",
+                    train: bool = False, seeds=None, dropout_ps=()):
+    """The VJP of the forward: the 11 weight gradients from the cotangent
+    ``dpred`` [p*tb] of the predictions.  CUDA tensors launch
+    ``csrc/fused_model_bwd.cu`` (K3b) or raise; CPU tensors take
+    :func:`fused_model_vjp_ref`."""
+    global vjp_launches
+    kw = dict(p=p, act=act, aggr=aggr, pooling=pooling, train=train,
+              seeds=seeds, dropout_ps=dropout_ps)
+    if inputs[0].device.type == "cpu":
+        return fused_model_vjp_ref(inputs, adjoint, dpred, **kw)
+    _, grads = _backward(inputs, adjoint, dict(dpred=dpred), **kw)
+    vjp_launches += 1
+    return grads
+
+
+class _FusedModel(torch.autograd.Function):
+    """Forward: the forward kernel.  Backward: the VJP kernel, which
+    replays the forward (nothing but the inputs is saved)."""
+
+    @staticmethod
+    def forward(ctx, kw, adjoint, *inputs):
+        ctx.kw, ctx.adjoint = kw, adjoint
+        ctx.save_for_backward(*inputs)
+        return fused_model_forward(*inputs, **kw)
+
+    @staticmethod
+    def backward(ctx, dpred):
+        grads = fused_model_vjp(ctx.saved_tensors, ctx.adjoint,
+                                dpred.contiguous(), **ctx.kw)
+        return (None, None) + (None,) * 7 + grads
+
+
+def fused_model(inputs, adjoint, *, p: int, act: str = "relu",
+                aggr: str = "add", pooling: str = "add", train: bool = False,
+                seeds=None, dropout_ps=()) -> torch.Tensor:
+    """The forward, differentiable in the weights: on the card through the
+    forward kernel with the VJP kernel as its backward, on the CPU through
+    :func:`fused_model_forward_ref` (autograd gives the VJP)."""
+    kw = dict(p=p, act=act, aggr=aggr, pooling=pooling, train=train,
+              seeds=seeds, dropout_ps=tuple(dropout_ps))
+    if inputs[0].device.type == "cpu":
+        return fused_model_forward_ref(*inputs, **kw)
+    return _FusedModel.apply(kw, tuple(adjoint), *inputs)

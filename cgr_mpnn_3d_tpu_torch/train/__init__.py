@@ -1,8 +1,15 @@
-"""Serving side of the training subsystem: checkpoints and evaluation (the
-trainer itself is not ported yet)."""
+"""Training subsystem: the single-device trainer, checkpoints (the JAX
+package's ``.npz`` + JSON format), metrics logging, step timing and
+evaluation."""
 
-from .checkpoint import load_checkpoint, restore_into, save_checkpoint
-from .evaluate import evaluate, load_model, predict
+from .checkpoint import (load_checkpoint, restore_into,
+                         restore_training_state, save_checkpoint)
+from .evaluate import evaluate, load_model, parity_plot, predict
+from .metrics import MetricsLogger
+from .profiler import StepTimer
+from .trainer import RxnGraphTrainer, set_epoch_lr, sse_loss
 
-__all__ = ["load_checkpoint", "restore_into", "save_checkpoint", "evaluate",
-           "load_model", "predict"]
+__all__ = ["load_checkpoint", "restore_into", "restore_training_state",
+           "save_checkpoint", "evaluate", "load_model", "parity_plot",
+           "predict", "MetricsLogger", "StepTimer", "RxnGraphTrainer",
+           "set_epoch_lr", "sse_loss"]

@@ -1,4 +1,5 @@
-"""Serving and evaluation: load a checkpoint, predict in row order, RMSE.
+"""Serving and evaluation: load a checkpoint, predict in row order, RMSE,
+and the predicted-vs-true parity plot.
 
 The counterpart of ``cgr_mpnn_3d_tpu/train/evaluate.py``.  On the card every
 batch goes through the whole-model forward kernel; ``device="cpu"`` takes
@@ -19,7 +20,7 @@ from ..models.cgr_mpnn import CGRMPNN, CGRMPNNConfig, apply
 from ..utils.device import resolve_device
 from .checkpoint import load_checkpoint, restore_into
 
-__all__ = ["load_model", "evaluate", "predict"]
+__all__ = ["load_model", "evaluate", "predict", "parity_plot"]
 
 
 def load_model(ckpt_path: str | Path, device: str | torch.device = "cuda"
@@ -67,13 +68,41 @@ def predict(model: CGRMPNN, dataset: ChemDataset, spec: PackSpec,
 
 
 def evaluate(model: CGRMPNN, dataset: ChemDataset, spec: PackSpec,
-             batch_size: int = 64,
-             device: str | torch.device = "cuda") -> dict:
-    """Test-set RMSE and MAE of ``model`` on ``dataset`` (labelled rows)."""
+             batch_size: int = 64, device: str | torch.device = "cuda",
+             plot_path: str | None = None) -> dict:
+    """Test-set RMSE and MAE of ``model`` on ``dataset`` (labelled rows);
+    with ``plot_path``, the parity plot too."""
     preds = predict(model, dataset, spec, batch_size, device)
     true = dataset.labels[:len(preds)]
     rmse = float(np.sqrt(np.mean((preds - true) ** 2)))
     mae = float(np.mean(np.abs(preds - true)))
     print(f"Test loss: {rmse:.4f}\n")
+    if plot_path:
+        parity_plot(true, preds, plot_path)
     return {"test_losses": rmse, "test_mae": mae,
             "predictions": preds, "true_values": true}
+
+
+def parity_plot(true: np.ndarray, preds: np.ndarray, path: str) -> None:
+    """Predicted-vs-true scatter, host-side matplotlib; skipped with a
+    message when matplotlib is not installed."""
+    try:
+        import matplotlib
+        matplotlib.use("Agg")
+        import matplotlib.pyplot as plt
+    except ImportError:
+        print("[evaluate] matplotlib unavailable; skipping parity plot")
+        return
+    fig, ax = plt.subplots(figsize=(10, 8))
+    ax.scatter(true, preds, alpha=0.7, label="Predictions")
+    lo, hi = float(np.min(true)), float(np.max(true))
+    ax.plot([lo, hi], [lo, hi], color="red", linestyle="--",
+            label="Identity Line")
+    ax.set_xlabel("True Activation Energies [kcal/mol]", fontsize=16)
+    ax.set_ylabel("Predicted Activation Energies [kcal/mol]", fontsize=16)
+    ax.legend(fontsize=12, frameon=False)
+    ax.grid(True, linestyle=":", linewidth=0.7, color="gray")
+    fig.tight_layout()
+    fig.savefig(path)
+    plt.close(fig)
+    print(f"Parity plot saved to {path}")

@@ -16,13 +16,25 @@ Phases (any failure raises, and the script exits non-zero):
    ``--graphs`` graphs packed at te=256/tn=128/tb=16, and at small width for
    SiLU and GELU with mean aggregation and mean pooling; times of both and
    the kernel's f32 bound;
-4. serving: a seeded full-width checkpoint in the ``.npz`` + JSON format
+4. the training kernels against their plain versions (TF32 off): the
+   forward in train mode, the training step (K2) and the VJP (K3b), at full
+   width with dropout 0.1 on the synthetic batch and on the first training
+   batch of the corpus, and at small width for SiLU and GELU with mean/mean
+   and learnable skips; times and f32 bounds;
+5. serving: a seeded full-width checkpoint in the ``.npz`` + JSON format
    serves ``examples/demo.csv`` (with synthetic descriptors) through
    ``activation_energy_prediction(device="cuda")`` once as a batch and as 10
    single-reaction requests; the launch count of the kernel must rise, and
    the predictions must match the same entry point with ``device="cpu"``;
    request latency and served graphs/s;
-5. a ``{"kernels": [...]}`` line, then ``{"ok": true, "device": {...}}`` as
+6. training: ``cli.train.main`` with the README's model and flags, 3 epochs
+   on the 300-reaction corpus (synthetic descriptors) on the card, then 2 on
+   the CPU; the per-epoch RMSEs must agree, every training step must be one
+   launch of the training kernel, and the gradient histograms must go
+   through the VJP kernel; then a resumed run (1 epoch, resume, 2nd epoch)
+   must equal a straight 2-epoch run bit for bit; steps/s and the card's
+   busy share of a training step under torch.profiler;
+7. a ``{"kernels": [...]}`` line, then ``{"ok": true, "device": {...}}`` as
    the last line.
 
 It exits non-zero, printing no result, without CUDA or without the package
@@ -34,6 +46,8 @@ from __future__ import annotations
 import argparse
 import csv
 import json
+import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -48,6 +62,10 @@ REL_TOL = 1e-4          # max |kernel - plain| / max |plain|, f32, TF32 off
 PEAK_F32_FLOPS = 67e12  # H100 SXM f32 outside the tensor cores (data sheet)
 PEAK_BYTES = 3.35e12    # H100 SXM HBM3 bytes/s (data sheet)
 DEVICE = "cuda"
+TRAIN_TOL = 1e-3        # card vs CPU per-epoch RMSE, relative
+README_FLAGS = ["--name", "CGR-MPNN-3D", "-d", "4", "--hidden_sizes", "400",
+                "--dropout_ps", "0.1", "-af", "ReLU", "-lr", "1e-4",
+                "--weight_decay", "1e-5", "-bs", "64", "-g", "0.9"]
 
 
 def card_line() -> str:
@@ -106,6 +124,34 @@ def forward_cost(args) -> tuple[float, float]:
     return float(dense + adds), float(nbytes)
 
 
+def train_cost(args, adjoint) -> tuple[float, float]:
+    """(operations, bytes) one training step's compute needs on these
+    inputs: the replayed forward (forward_cost), then over the real rows the
+    cotangents through the weights (ds, and dt for every conv layer), each
+    weight gradient once -- the x part of dWx once per node, as in the
+    forward -- and the transposed gathers (dh: as many adds as the
+    forward's gathers).  The graph inputs take no gradient.  Bytes: the
+    inputs, the adjoint indices, labels and mask read once, the gradients
+    and the SSE written once."""
+    ops, nbytes = forward_cost(args)
+    (x, e, senders, edge_nbr, _rev, node_inc, graph_nodes, *_w) = args
+    NT, F = x.shape
+    ET, Fe = e.shape
+    BT = graph_nodes.shape[0]
+    L, H = args[10].shape[0], args[10].shape[2]
+    E = int((senders < NT).sum())
+    N = int((graph_nodes < NT).sum())
+    B = int((graph_nodes < NT).any(dim=1).sum())
+    dense = (4 * B * H + 4 * N * H * H + 4 * N * F * H + 4 * L * E * H * H
+             + 2 * E * Fe * H)
+    adds = (L * (int((edge_nbr < ET).sum()) + E) * H
+            + int((node_inc < ET).sum()) * H
+            + int((graph_nodes < NT).sum()) * H)
+    nbytes += (sum(t.numel() * t.element_size() for t in adjoint) + BT * 4
+               + sum(t.numel() for t in args[7:]) * 4 + 4)
+    return float(ops + dense + adds), float(nbytes)
+
+
 def synthetic_batch(n_graphs: int, seed: int, F: int, Fe: int, device):
     """Seeded synthetic graphs packed at te=256/tn=128/tb=16 into the
     fewest packs that hold them."""
@@ -124,9 +170,10 @@ def synthetic_batch(n_graphs: int, seed: int, F: int, Fe: int, device):
     return spec, to_device(batch, device)
 
 
-def corpus_batch(tmp: Path, seed: int, device):
+def corpus_batch(tmp: Path, seed: int, device, shuffle: bool = False):
     """The first request batch (64 rows, p = 4 packs) that predict() makes
-    of the 300-reaction corpus with synthetic descriptors."""
+    of the 300-reaction corpus with synthetic descriptors; with ``shuffle``
+    the trainer's first batch of epoch 0 instead."""
     from cgr_mpnn_3d_tpu_torch.data import (ChemDataset, PackedLoader,
                                             plan_spec, to_device)
     from cgr_mpnn_3d_tpu_torch.data.descriptors import \
@@ -136,7 +183,8 @@ def corpus_batch(tmp: Path, seed: int, device):
     ds = ChemDataset(str(corpus), data_npz_path=str(tmp / "corpus.npz"))
     ds.prefeaturize()
     spec = plan_spec([ds.graph(i) for i in range(len(ds))])
-    loader = PackedLoader(ds, spec, batch_size=64)
+    loader = PackedLoader(ds, spec, batch_size=64, shuffle=shuffle,
+                          seed=seed)
     return loader.spec, to_device(next(iter(loader)), device)
 
 
@@ -186,6 +234,153 @@ def kernel_vs_plain(cfg_kw: dict, spec, batch, seed: int,
     check(rel <= REL_TOL, f"kernel vs plain relative error {rel:.3e} > "
                           f"{REL_TOL} for {cfg_kw}")
     return out
+
+
+def _timed(entry: dict, kern, plain, repeats: int, cost) -> None:
+    """Times of the kernel and its plain version (plain, kernel, kernel,
+    plain) and the f32 bound of ``cost`` = (operations, bytes).  A plain
+    version that takes longer than 0.1 s a call (autograd through the
+    gathers at full width) is timed over fewer calls, at least 2."""
+    import torch
+    t0 = time.perf_counter()
+    plain()
+    torch.cuda.synchronize()
+    n_plain = max(2, min(repeats, int(0.1 * repeats
+                                      / (time.perf_counter() - t0))))
+    p1 = time_ms(plain, n_plain)
+    kern_ms = [time_ms(kern, repeats) for _ in range(2)]
+    p2 = time_ms(plain, n_plain)
+    t_ops, t_bytes = cost[0] / PEAK_F32_FLOPS, cost[1] / PEAK_BYTES
+    entry.update(ms=statistics.mean(kern_ms), plain_ms=(p1 + p2) / 2,
+                 ops=cost[0], bytes=cost[1],
+                 bound_ms=max(t_ops, t_bytes) * 1e3,
+                 bound_by="operations" if t_ops >= t_bytes else "bytes")
+
+
+def train_kernels_vs_plain(cfg_kw: dict, spec, batch, seed: int,
+                           repeats: int) -> dict:
+    """The forward in train mode, the training step (K2) and the VJP (K3b)
+    against their plain versions on one batch, with seeded weights, labels,
+    cotangents and dropout seeds: errors, and with ``repeats`` times and
+    bounds.
+
+    The predictions and the SSE are held at REL_TOL (max |kernel - plain| /
+    max |plain|).  So are the gradients, output by output, for SiLU and
+    GELU.  With ReLU, two f32 evaluations of the same gradients disagree by
+    more than that on large batches: pre-activations within rounding
+    distance of 0 fall on different sides of the ReLU, and each such flip
+    changes a whole column of a weight gradient and, through the
+    cotangents, the layers below.  There the plain version is evaluated in
+    float64 as well, and the kernel's gradients, as one vector, may be at
+    most max(3 x the f32 plain version's, REL_TOL) away from it in relative
+    L1 error (sum |g - g64| / sum |g64|)."""
+    import torch
+    from cgr_mpnn_3d_tpu_torch.models import (CGRMPNNConfig, adjoint_inputs,
+                                              init_params, kernel_inputs,
+                                              kernel_seeds)
+    from cgr_mpnn_3d_tpu_torch.models.cgr_mpnn import ACTIVATIONS
+    from cgr_mpnn_3d_tpu_torch.ops import fused_model as fm
+    cfg = CGRMPNNConfig(**cfg_kw)
+    gen = torch.Generator().manual_seed(seed)
+    dev = batch.node_x.device
+    model = init_params(cfg, gen, dev)
+    if cfg.use_learnable_skip:
+        with torch.no_grad():
+            for w in model.skip_weights:
+                w.copy_(torch.rand((), generator=gen) * 2.0 - 0.5)
+    mask = batch.graph_mask
+    labels = (torch.randn(mask.shape, generator=gen) * 10.0).to(dev)
+    dpred = torch.randn(mask.shape, generator=gen).to(dev) * mask
+    kw = dict(p=spec.p, act=ACTIVATIONS[cfg.activation], aggr=cfg.aggr,
+              pooling=cfg.pooling, train=True,
+              seeds=kernel_seeds(cfg, gen).tolist(),
+              dropout_ps=cfg.dropout_ps)
+    with torch.no_grad():
+        args = kernel_inputs(model, batch)
+    adj = adjoint_inputs(batch)
+    real = mask > 0
+    calls = {
+        "fwd_train": (lambda: fm.fused_model_forward(*args, **kw),
+                      lambda: fm.fused_model_forward_ref(*args, **kw)),
+        "train": (lambda: fm.fused_model_train(args, adj, labels, mask, **kw),
+                  lambda: fm.fused_model_train_ref(args, adj, labels, mask,
+                                                   **kw)),
+        "vjp": (lambda: fm.fused_model_vjp(args, adj, dpred, **kw),
+                lambda: fm.fused_model_vjp_ref(args, adj, dpred, **kw)),
+    }
+    a64 = [t.double() if t.is_floating_point() else t for t in args]
+    exact = {"train": lambda: fm.fused_model_train_ref(
+                 a64, adj, labels.double(), mask.double(), **kw)[1],
+             "vjp": lambda: fm.fused_model_vjp_ref(a64, adj, dpred.double(),
+                                                    **kw)}
+    relu = cfg.activation == "ReLU"
+
+    def l1(a, b):
+        a = torch.cat([t.double().flatten() for t in a])
+        b = torch.cat([t.double().flatten() for t in b])
+        return float((a - b).abs().sum() / b.abs().sum())
+
+    out = dict(p=spec.p, graphs=int(real.sum()))
+    for name, (kern, plain) in calls.items():
+        with torch.no_grad():
+            got, want = kern(), plain()
+        torch.cuda.synchronize()
+        names = ["preds"]
+        if name == "fwd_train":
+            got, want = [got[real]], [want[real]]
+        elif name == "train":
+            names = ["sse", *fm.GRAD_NAMES]
+            got, want = [got[0], *got[1]], [want[0], *want[1]]
+        else:
+            names = list(fm.GRAD_NAMES)
+        check(all(bool(torch.isfinite(g).all()) for g in got),
+              f"{name} outputs are not finite")
+        rels = [float((g - w).abs().max()) / max(float(w.abs().max()), 1e-30)
+                for g, w in zip(got, want)]
+        worst = int(np.argmax(rels))
+        entry = dict(abs_err=max(float((g - w).abs().max())
+                                 for g, w in zip(got, want)),
+                     rel_err=rels[worst], worst=names[worst])
+        held = list(zip(names, rels))
+        if relu and name != "fwd_train":
+            ex = exact[name]()
+            entry.update(l1=l1(got[-11:], want[-11:]),
+                         l1_64=(l1(got[-11:], ex), l1(want[-11:], ex)))
+            held = held[:-11]
+            k64, p64 = entry["l1_64"]
+            check(k64 <= max(3.0 * p64, REL_TOL),
+                  f"{name} gradients: kernel vs float64 L1 {k64:.3e} > "
+                  f"max(3 x the f32 plain version's {p64:.3e}, {REL_TOL}) for "
+                  f"{cfg_kw}")
+        for what, rel in held:
+            check(rel <= REL_TOL, f"{name} {what}: kernel vs plain relative "
+                                  f"error {rel:.3e} > {REL_TOL} for {cfg_kw}")
+        if repeats:
+            with torch.no_grad():
+                _timed(entry, kern, plain, repeats,
+                       forward_cost(args) if name == "fwd_train"
+                       else train_cost(args, adj))
+        out[name] = entry
+    return out
+
+
+def print_train_kernels(what: str, k: dict, card: str) -> None:
+    for name, e in k.items():
+        if not isinstance(e, dict):
+            continue
+        line = (f"{name} {what}: {k['graphs']} graphs in {k['p']} packs, "
+                f"max abs err {e['abs_err']:.3e}, rel {e['rel_err']:.3e} "
+                f"({e['worst']})")
+        if "l1" in e:
+            line += (f"; gradient vector L1 vs plain {e['l1']:.3e}, vs "
+                     f"float64: kernel {e['l1_64'][0]:.3e}, f32 plain "
+                     f"{e['l1_64'][1]:.3e}")
+        if "ms" in e:
+            line += (f"; kernel {e['ms']:.4f} ms, plain {e['plain_ms']:.4f} "
+                     f"ms, f32 bound {e['bound_ms']:.4f} ms "
+                     f"({e['ops'] / 1e9:.3f} GFLOP, {e['bytes'] / 1e6:.3f} "
+                     f"MB, {e['bound_by']}-bound) [{card}]")
+        print(line)
 
 
 def device_busy(fn) -> tuple[float, float, list]:
@@ -324,6 +519,141 @@ def serve(tmp: Path, seed: int, card: str) -> dict:
                 graphs_per_s=n / wall)
 
 
+def training_data(tmp: Path, seed: int) -> Path:
+    """The corpus as train, val and test splits, with synthetic descriptors
+    (64 per structure)."""
+    from cgr_mpnn_3d_tpu_torch.data.descriptors import \
+        synthetic_descriptors_npz
+    data = tmp / "datasets"
+    data.mkdir(parents=True, exist_ok=True)
+    corpus = ROOT / "tests" / "corpus_reactions.csv"
+    synthetic_descriptors_npz(corpus, data / "train.npz", 64, seed=seed)
+    for split in ("train", "val", "test"):
+        shutil.copy(corpus, data / f"{split}.csv")
+        if split != "train":
+            shutil.copy(data / "train.npz", data / f"{split}.npz")
+    return data
+
+
+def train_cli(tmp: Path, data: Path, seed: int, device: str, epochs: int,
+              save: str, *extra: str) -> dict:
+    """One ``cli.train.main`` run with the README's flags; its outputs
+    (checkpoints, logs, results) go under ``tmp``."""
+    from cgr_mpnn_3d_tpu_torch.cli import train as cli_train
+    return cli_train.main(README_FLAGS + [
+        "-ne", str(epochs), "--val_frequency", "1", "--seed", str(seed),
+        "--data_path", str(data), "--save_path", str(tmp / save),
+        "--device", device, *extra])
+
+
+def train_phase(tmp: Path, seed: int, card: str) -> dict:
+    """Drive the training entry point on the card and on the CPU, then a
+    resumed run against a straight one."""
+    import torch
+    from cgr_mpnn_3d_tpu_torch.ops import fused_model as fm
+    from cgr_mpnn_3d_tpu_torch.train import load_checkpoint
+    data = training_data(tmp, seed)
+
+    # the main path: counts are zeroed just before it and read just after
+    fm.launches = fm.train_launches = fm.vjp_launches = 0
+    t0 = time.perf_counter()
+    card_res = train_cli(tmp, data, seed, DEVICE, 3, "card",
+                         "--log_histograms")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(fwd=fm.launches, train=fm.train_launches,
+                    vjp=fm.vjp_launches)
+    check(launches["train"] == card_res["steps"] > 0,
+          f"{launches['train']} training-kernel launches for "
+          f"{card_res['steps']} optimizer steps")
+    check(launches["vjp"] == 3, f"{launches['vjp']} VJP-kernel launches for "
+                                f"3 epochs of gradient histograms")
+    check(launches["fwd"] > 0, "validation launched no forward kernel")
+    cpu_res = train_cli(tmp, data, seed, "cpu", 2, "cpu", "--log_histograms")
+    losses = [card_res["train_losses"], card_res["val_losses"],
+              cpu_res["train_losses"], cpu_res["val_losses"],
+              [card_res["test_losses"], cpu_res["test_losses"]]]
+    check(all(np.isfinite(v).all() and len(v) for v in losses),
+          f"training losses are not finite: {losses}")
+    rel = max(abs(a - b) / abs(b) for key in ("train_losses", "val_losses")
+              for a, b in zip(card_res[key], cpu_res[key]))
+    check(rel <= TRAIN_TOL, f"card vs CPU per-epoch RMSE differ by {rel:.3e}")
+    steps_per_s = [json.loads(line).get("steps_per_s")
+                   for f in (tmp / "runs").glob("*_e-3_*.jsonl")
+                   for line in f.read_text().splitlines()
+                   if '"train_loss"' in line]
+    print(f"train cli card: 3 epochs, {card_res['steps']} steps in "
+          f"{wall:.3f} s wall (featurize, train, validate, test), train RMSE "
+          f"{card_res['train_losses']}, val RMSE {card_res['val_losses']}, "
+          f"test RMSE {card_res['test_losses']}; launches: training kernel "
+          f"{launches['train']}, VJP kernel {launches['vjp']}, forward kernel "
+          f"{launches['fwd']}; steps/s per epoch (StepTimer) {steps_per_s} "
+          f"[{card}]")
+    print(f"train cli cpu: 2 epochs, train RMSE {cpu_res['train_losses']}, "
+          f"val RMSE {cpu_res['val_losses']}; card vs CPU max rel diff "
+          f"{rel:.3e} (limit {TRAIN_TOL})")
+
+    # resume: 1 epoch, then --resume to 2, against a straight 2-epoch run
+    train_cli(tmp, data, seed, DEVICE, 1, "resume", "--skip_test")
+    (latest,) = (tmp / "resume").glob("*_e-1_*.latest.npz")
+    train_cli(tmp, data, seed, DEVICE, 2, "resume", "--skip_test",
+              "--resume", str(latest))
+    train_cli(tmp, data, seed, DEVICE, 2, "straight", "--skip_test")
+    (a,) = (tmp / "resume").glob("*_e-2_*.latest.npz")
+    (b,) = (tmp / "straight").glob("*_e-2_*.latest.npz")
+    la, lb = load_checkpoint(a)[0], load_checkpoint(b)[0]
+    same = len(la) == len(lb) and all(np.array_equal(x, y)
+                                      for x, y in zip(la, lb))
+    check(same, "a resumed 2-epoch run differs from a straight one")
+    print(f"resume: 1 epoch + --resume to 2 equals a straight 2-epoch run "
+          f"bit for bit ({len(la)} leaves: params, Adam moments, step, "
+          f"seed stream)")
+    return dict(launches=launches, rel=rel, steps=card_res["steps"])
+
+
+def train_profile(tmp: Path, seed: int, card: str) -> None:
+    """Steps/s of the training step alone (batches already on the card) and
+    the card's busy share of an epoch of steps under torch.profiler."""
+    import torch
+    from cgr_mpnn_3d_tpu_torch.data import ChemDataset, plan_spec, to_device
+    from cgr_mpnn_3d_tpu_torch.models import CGRMPNNConfig
+    from cgr_mpnn_3d_tpu_torch.train import RxnGraphTrainer
+    data = tmp / "datasets"
+    ds = ChemDataset(str(data / "train.csv"),
+                     data_npz_path=str(data / "train.npz"))
+    ds.prefeaturize()
+    cfg = CGRMPNNConfig(num_node_features=ds.num_node_features,
+                        num_edge_features=ds.num_edge_features, depth=4,
+                        hidden_sizes=(400,) * 4, dropout_ps=(0.1,) * 4)
+    tr = RxnGraphTrainer(name="profile", cfg=cfg, train_data=ds, val_data=ds,
+                         spec=plan_spec([ds.graph(i) for i in range(len(ds))]),
+                         lr=1e-4, weight_decay=1e-5, gamma=0.9,
+                         batch_size=64, seed=seed,
+                         model_save_dir=str(tmp / "profile"), device=DEVICE)
+    batches = [to_device(b, DEVICE) for b in tr.train_loader]
+    for b in batches:
+        tr._train_step(b)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    n = 0
+    for _ in range(4):
+        for b in batches:
+            tr._train_step(b)
+            n += 1
+    torch.cuda.synchronize()
+    sps = n / (time.perf_counter() - t0)
+    print(f"train step: {sps:.2f} steps/s over {n} steps of "
+          f"{len(batches)} corpus batches already on the card (p = "
+          f"{tr.train_loader.spec.p}) [{card}]")
+    for _ in range(2):
+        wall_ms, dev_ms, top = device_busy(
+            lambda: [tr._train_step(b) for b in batches])
+        print(f"profile train epoch ({len(batches)} steps): wall "
+              f"{wall_ms:.3f} ms, device busy {dev_ms:.3f} ms "
+              f"({100 * dev_ms / wall_ms:.1f}%), top device time {top} "
+              f"[{card}]")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -375,6 +705,16 @@ def main(argv=None) -> int:
           f"{main_k['plain_ms']:.4f} ms, f32 bound {main_k['bound_ms']:.4f} "
           f"ms ({main_k['ops'] / 1e9:.3f} GFLOP, "
           f"{main_k['bytes'] / 1e6:.3f} MB) [{card}]")
+    full_train = dict(full, dropout_ps=(0.1,) * 4)
+    train_k = train_kernels_vs_plain(full_train, spec, batch, args.seed,
+                                     args.repeats)
+    print_train_kernels("full width, dropout 0.1, synthetic", train_k, card)
+    for act in ("SiLU", "GELU"):
+        k = train_kernels_vs_plain(dict(full_train, activation=act), spec,
+                                   batch, args.seed, 0)
+        print_train_kernels(f"full width {act}, dropout 0.1, synthetic", k,
+                            card)
+    del batch
     for act in ("SiLU", "GELU"):
         small = dict(num_node_features=78, num_edge_features=14, depth=3,
                      hidden_sizes=(40,) * 3, dropout_ps=(0.0,) * 3,
@@ -385,6 +725,10 @@ def main(argv=None) -> int:
         print(f"fused_model_fwd small width {act} mean/mean learnable skip: "
               f"{k['graphs']} graphs, max abs err {k['abs_err']:.3e}, rel "
               f"{k['rel_err']:.3e}")
+        k = train_kernels_vs_plain(dict(small, dropout_ps=(0.1,) * 3), spec,
+                                   batch, args.seed + 1, 0)
+        print_train_kernels(f"small width {act} mean/mean learnable skip, "
+                            f"dropout 0.1", k, card)
 
     with tempfile.TemporaryDirectory() as tmp:
         spec, batch = corpus_batch(Path(tmp), args.seed, dev)
@@ -394,16 +738,37 @@ def main(argv=None) -> int:
               f"{req_k['rel_err']:.3e}; kernel {req_k['ms']:.4f} ms, plain "
               f"{req_k['plain_ms']:.4f} ms, f32 bound "
               f"{req_k['bound_ms']:.4f} ms [{card}]")
+        spec, batch = corpus_batch(Path(tmp), args.seed, dev, shuffle=True)
+        k = train_kernels_vs_plain(full_train, spec, batch, args.seed,
+                                   args.repeats)
+        print_train_kernels("corpus training batch, full width, dropout 0.1",
+                            k, card)
         srv = serve(Path(tmp), args.seed, card)
+        # the training CLI writes runs/, hyperparameter_study/ and a parity
+        # plot into its working directory
+        cwd = os.getcwd()
+        os.chdir(tmp)
+        try:
+            trn = train_phase(Path(tmp), args.seed, card)
+            train_profile(Path(tmp), args.seed, card)
+        finally:
+            os.chdir(cwd)
 
-    print(json.dumps({"kernels": [{
-        "name": "fused_model_fwd", "route": "cuda",
-        "source": "cgr_mpnn_3d_tpu_torch/csrc/fused_model_fwd.cu",
-        "replaces": "cgr_mpnn_3d_tpu/ops/pallas_model.py:376",
-        "launches": srv["launches"], "max_abs_err": main_k["abs_err"],
-        "ms": main_k["ms"], "plain_ms": main_k["plain_ms"],
-        "bound_ms": main_k["bound_ms"], "bound_by": main_k["bound_by"],
-        "library_ms": None}]}))
+    def kernel(name, cu, line, launches, k):
+        return {"name": name, "route": "cuda",
+                "source": f"cgr_mpnn_3d_tpu_torch/csrc/{cu}",
+                "replaces": f"cgr_mpnn_3d_tpu/ops/pallas_model.py:{line}",
+                "launches": launches, "max_abs_err": k["abs_err"],
+                "ms": k["ms"], "plain_ms": k["plain_ms"],
+                "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
+                "library_ms": None}
+    print(json.dumps({"kernels": [
+        kernel("fused_model_fwd", "fused_model_fwd.cu", 376, srv["launches"],
+               main_k),
+        kernel("fused_model_train", "fused_model_bwd.cu", 439,
+               trn["launches"]["train"], train_k["train"]),
+        kernel("fused_model_vjp", "fused_model_bwd.cu", 397,
+               trn["launches"]["vjp"], train_k["vjp"])]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -74,13 +74,16 @@ def test_resolve_device(no_cuda):
 def test_entry_points_raise_without_cuda(no_cuda, tmp_path):
     """Called without device="cpu", every entry point raises instead of
     running on the CPU."""
+    from cgr_mpnn_3d_tpu_torch.cli import test as cli_test
+    from cgr_mpnn_3d_tpu_torch.cli import train as cli_train
     from cgr_mpnn_3d_tpu_torch.cli.predict import (
         activation_energy_prediction, main)
     from cgr_mpnn_3d_tpu_torch.data import ChemDataset, PackSpec
     from cgr_mpnn_3d_tpu_torch.data.descriptors import \
         synthetic_descriptors_npz
     from cgr_mpnn_3d_tpu_torch.models import CGRMPNNConfig, init_params
-    from cgr_mpnn_3d_tpu_torch.train import (evaluate, load_model, predict,
+    from cgr_mpnn_3d_tpu_torch.train import (RxnGraphTrainer, evaluate,
+                                             load_model, predict,
                                              save_checkpoint)
 
     cfg = CGRMPNNConfig(num_node_features=90, num_edge_features=14, depth=2,
@@ -88,13 +91,27 @@ def test_entry_points_raise_without_cuda(no_cuda, tmp_path):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         init_params(cfg)
     model = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
-    ckpt = save_checkpoint(tmp_path / "m.npz", model, {"model": {
-        "num_node_features": 90, "num_edge_features": 14, "depth": 2,
-        "hidden_sizes": [8, 8], "dropout_ps": [0.0, 0.0]}})
+    meta = {"model": {"num_node_features": 90, "num_edge_features": 14,
+                      "depth": 2, "hidden_sizes": [8, 8],
+                      "dropout_ps": [0.0, 0.0]}}
+    ckpt = save_checkpoint(tmp_path / "m.npz", model, meta)
+    # cli.test infers the model's name from the file name
+    named = save_checkpoint(tmp_path / "CGR-MPNN-3D_m.npz", model, meta)
     demo = REPO / "examples" / "demo.csv"
     synthetic_descriptors_npz(demo, tmp_path / "d.npz", 4)
     ds = ChemDataset(str(demo), data_npz_path=str(tmp_path / "d.npz"))
+    for split in ("train", "val", "test"):
+        (tmp_path / f"{split}.csv").write_text(demo.read_text())
+        (tmp_path / f"{split}.npz").write_bytes(
+            (tmp_path / "d.npz").read_bytes())
+    train_argv = ["--name", "CGR-MPNN-3D", "-d", "2", "--hidden_sizes", "8",
+                  "--data_path", str(tmp_path), "--save_path",
+                  str(tmp_path / "saved")]
     for call in (lambda: load_model(ckpt),
+                 lambda: RxnGraphTrainer("t", cfg, ds, ds, PackSpec()),
+                 lambda: cli_train.main(train_argv),
+                 lambda: cli_test.main(["--path_trained_model", str(named),
+                                        "--data_path", str(tmp_path)]),
                  lambda: predict(model, ds, PackSpec()),
                  lambda: evaluate(model, ds, PackSpec()),
                  lambda: activation_energy_prediction(

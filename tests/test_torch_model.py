@@ -225,7 +225,7 @@ def test_kernel_wrapper_checks(packed):
     args = kernel_inputs(model, tb)
     kkw = dict(p=spec.p, act="relu", aggr="add", pooling="add")
     with torch.no_grad():
-        with pytest.raises(NotImplementedError, match="eval only"):
+        with pytest.raises(ValueError, match="one seed and one drop rate"):
             fused_model_forward(*args, **kkw, train=True)
         with pytest.raises(ValueError, match="activation"):
             fused_model_forward(*args, **{**kkw, "act": "tanh"})
