@@ -1,0 +1,226 @@
+// Device code shared by the layered kernels (onehot_spmm.cu, gather_linear.cu,
+// conv_stack.cu): a pack-local ELL gather-sum over a whole batch, one
+// output tile of the shared-memory f32 product of fused_model_common.cuh
+// per thread block, a split-K weight-gradient product, column sums and a
+// fixed-order sum of partials.
+//
+// Unlike the whole-model kernels, these run a grid over the whole batch:
+// a block is not a pack.  A row's pack is its row index over the rows per
+// pack, its sources lie in [pack·C, (pack + 1)·C), and the hash dropout
+// takes that pack and the pack-local row explicitly (never blockIdx.x).
+// Indices outside the window of their row's pack, the sentinel included,
+// count as absent.  No float atomics: every sum runs in a fixed order, so
+// reruns are bit-identical.
+
+#pragma once
+
+#include "fused_model_common.cuh"
+
+namespace cgr {
+
+constexpr int kGatherThreads = 128;  // columns of one gather block
+constexpr int kGatherRows = 8;       // rows of one gather block
+constexpr int kReduceBlocks = 264;   // blocks of a grid-stride reduction
+
+// out[r, :] = scale_r · Σ_d w_j·src[j, :]  [− src[sign[r], :]],  j = idx[r, d]
+// over `rows` output rows of width W, R rows per pack, C source rows per
+// pack.  w_j = src_scale[j] (1 when nullptr); scale_r = 1 / (entries
+// counted) when `mean`, else 1; the sign term stays unscaled.  With
+// `rscale`, scale_r is written there too.
+struct GatherArgs {
+  const float* src;
+  int C, W;
+  const int* idx;
+  int D;
+  const int* sign;
+  const float* src_scale;
+  int mean, R;
+  long long rows;
+  float* out;
+  float* rscale;
+};
+
+__global__ void __launch_bounds__(kGatherThreads) gather_kernel(GatherArgs a) {
+  const int c = blockIdx.y * kGatherThreads + threadIdx.x;
+  for (int i = 0; i < kGatherRows; ++i) {
+    const long long r = static_cast<long long>(blockIdx.x) * kGatherRows + i;
+    if (r >= a.rows) return;
+    const long long lo = (r / a.R) * a.C;
+    const int* row = a.idx + r * a.D;
+    float sum = 0.f;
+    int count = 0;
+    for (int d = 0; d < a.D; ++d) {
+      const long long j = row[d] - lo;
+      if (j >= 0 && j < a.C) {
+        ++count;
+        if (c < a.W) {
+          const float v = a.src[(lo + j) * a.W + c];
+          sum += a.src_scale == nullptr ? v : a.src_scale[lo + j] * v;
+        }
+      }
+    }
+    const float scale = a.mean ? mean_colscale(count) : 1.f;
+    if (a.mean) sum *= scale;
+    if (a.sign != nullptr) {
+      const long long j = a.sign[r] - lo;
+      if (j >= 0 && j < a.C && c < a.W) sum -= a.src[(lo + j) * a.W + c];
+    }
+    if (c < a.W) a.out[r * a.W + c] = sum;
+    if (a.rscale != nullptr && blockIdx.y == 0 && threadIdx.x == 0)
+      a.rscale[r] = scale;
+  }
+}
+
+inline void launch_gather(const GatherArgs& a, cudaStream_t st) {
+  if (a.rows == 0) return;
+  const dim3 grid(static_cast<unsigned>((a.rows + kGatherRows - 1) / kGatherRows),
+                  static_cast<unsigned>((a.W + kGatherThreads - 1) / kGatherThreads));
+  gather_kernel<<<grid, kGatherThreads, 0, st>>>(a);
+}
+
+// Stores the accumulators of the BM x BN tile at (m0, n0) through epi.
+template <class Epi>
+__device__ __forceinline__ void store_tile(const float (&acc)[TM][TN], int m0,
+                                           int n0, int M, int N,
+                                           const Epi& epi) {
+  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+#pragma unroll
+  for (int i = 0; i < TM; ++i) {
+    const int m = m0 + ty + 16 * i;
+#pragma unroll
+    for (int j = 0; j < TN; ++j) {
+      const int n = n0 + tx + 16 * j;
+      if (m < M && n < N) epi(m, n, acc[i][j]);
+    }
+  }
+}
+
+// One BM x BN output tile per block, grid (ceil(N/BN), ceil(M/BM)):
+// epi(m, n, Σ over the pairs of Aop·Bop) (fused_model_common.cuh::mma_tile);
+// the second pair is skipped when its K is 0.
+template <bool TA, bool TB, class Epi>
+__global__ void __launch_bounds__(kThreads)
+    tile_kernel(Operands p1, Operands p2, int M, int N, Epi epi) {
+  __shared__ Smem sm;
+  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
+  float acc[TM][TN] = {};
+  mma_tile<TA, TB>(acc, p1.A, p1.B, p1.ldb, p1.K, m0, n0, M, N, sm);
+  if (p2.K > 0)
+    mma_tile<TA, TB>(acc, p2.A, p2.B, p2.ldb, p2.K, m0, n0, M, N, sm);
+  store_tile(acc, m0, n0, M, N, epi);
+}
+
+template <bool TA, bool TB, class Epi>
+void launch_tile(const Operands& p1, const Operands& p2, int M, int N,
+                 const Epi& epi, cudaStream_t st) {
+  if (M == 0 || N == 0) return;
+  const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
+  tile_kernel<TA, TB, Epi><<<grid, kThreads, 0, st>>>(p1, p2, M, N, epi);
+}
+
+inline Operands plain(const float* a, int K_a, const float* b, int ldb, int K) {
+  return Operands{Rows{a, K_a, nullptr, 0, 0}, b, ldb, K};
+}
+
+inline Operands no_operands() { return Operands{Rows{nullptr, 0, nullptr, 0, 0}, nullptr, 0, 0}; }
+
+// out = drop_l(act(acc + bias [+ skip·h0])) over rows of width ld; the
+// pre-activation is stored too when `pre` is set.  `drop` is the
+// wrapper's [3, L] table (seeds, thresholds, scales) or nullptr; row m is
+// pack-local row m % rows_per_pack of pack m / rows_per_pack.
+struct LayerEpi {
+  const float* bias;
+  const float* h0;    // nullptr: no skip term
+  const float* skip;  // the layer's skip weight (device)
+  int act;
+  float* pre;
+  float* out;
+  int ld;
+  const int* drop;
+  int L, l, rows_per_pack;
+  __device__ __forceinline__ void operator()(int m, int n, float acc) const {
+    const size_t o = static_cast<size_t>(m) * ld + n;
+    float v = acc + bias[n];
+    if (h0 != nullptr) v = fmaf(*skip, h0[o], v);
+    if (pre != nullptr) pre[o] = v;
+    float y = k_act(act, v);
+    if (drop != nullptr) {
+      const Dropout d{1, static_cast<unsigned>(drop[l]),
+                      static_cast<unsigned>(drop[L + l]),
+                      static_cast<unsigned>(m / rows_per_pack),
+                      __int_as_float(drop[2 * L + l])};
+      y = d.apply(m % rows_per_pack, n, y);
+    }
+    out[o] = y;
+  }
+};
+
+// part[s, m, n] = Σ_{k in split s} A[k, m]·B[k, n] with A [K, M] and B
+// [K, N] row-major, split s covering rows [s·chunk, (s + 1)·chunk); grid
+// (ceil(N/BN), ceil(M/BM), S).
+__global__ void __launch_bounds__(kThreads)
+    wgrad_kernel(const float* A, int M, const float* B, int N, long long K,
+                 long long chunk, float* part) {
+  __shared__ Smem sm;
+  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
+  const long long k0 = blockIdx.z * chunk;
+  const long long left = K - k0;
+  const int kn = static_cast<int>(left < chunk ? (left > 0 ? left : 0) : chunk);
+  float acc[TM][TN] = {};
+  mma_tile<true, false>(acc, Rows{A + k0 * M, M, nullptr, 0, 0}, B + k0 * N,
+                        N, kn, m0, n0, M, N, sm);
+  store_tile(acc, m0, n0, M, N,
+             StoreEpi{part + static_cast<size_t>(blockIdx.z) * M * N, N});
+}
+
+// part[s, c] = Σ_{r in split s} a[r, c], rows in order; grid
+// (ceil(N/256), S) of 256 threads.
+__global__ void colsum_kernel(const float* a, int N, long long K,
+                              long long chunk, float* part) {
+  const int c = blockIdx.x * 256 + threadIdx.x;
+  if (c >= N) return;
+  const long long k0 = blockIdx.y * chunk;
+  const long long k1 = k0 + chunk < K ? k0 + chunk : K;
+  float s = 0.f;
+  for (long long r = k0; r < k1; ++r) s += a[r * N + c];
+  part[static_cast<size_t>(blockIdx.y) * N + c] = s;
+}
+
+// out[i] = Σ_s part[s, i] over S partials of G floats, in order.
+__global__ void sum_splits_kernel(const float* part, int S, long long G,
+                                  float* out) {
+  for (long long i = blockIdx.x * static_cast<long long>(blockDim.x) +
+                     threadIdx.x;
+       i < G; i += static_cast<long long>(gridDim.x) * blockDim.x) {
+    float s = 0.f;
+    for (int q = 0; q < S; ++q) s += part[static_cast<size_t>(q) * G + i];
+    out[i] = s;
+  }
+}
+
+inline void launch_sum(const float* part, int S, long long G, float* out,
+                       cudaStream_t st) {
+  const long long blocks = (G + 255) / 256 < 2048 ? (G + 255) / 256 : 2048;
+  sum_splits_kernel<<<static_cast<int>(blocks), 256, 0, st>>>(part, S, G, out);
+}
+
+// out [M, N] = Σ_k A[k, :]ᵀ·B[k, :] over K rows: S split-K partials in
+// part (S·M·N floats), then their sum in split order.
+inline void launch_wgrad(const float* A, int M, const float* B, int N,
+                         long long K, int S, float* part, float* out,
+                         cudaStream_t st) {
+  const long long chunk = (K + S - 1) / S;
+  const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM, S);
+  wgrad_kernel<<<grid, kThreads, 0, st>>>(A, M, B, N, K, chunk, part);
+  launch_sum(part, S, static_cast<long long>(M) * N, out, st);
+}
+
+// out [N] = Σ_k a[k, :] over K rows: S partials in part (S·N floats).
+inline void launch_colsum(const float* a, int N, long long K, int S,
+                          float* part, float* out, cudaStream_t st) {
+  const long long chunk = (K + S - 1) / S;
+  colsum_kernel<<<dim3((N + 255) / 256, S), 256, 0, st>>>(a, N, K, chunk, part);
+  launch_sum(part, S, N, out, st);
+}
+
+}  // namespace cgr

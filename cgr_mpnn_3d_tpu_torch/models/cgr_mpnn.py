@@ -21,6 +21,14 @@ backward) and takes the plain gather ops (ops/segment.py) on the CPU and for
 ``capture=True``.  :func:`fused_train_value_and_grad` is the training
 step's compute in one kernel launch per step on the card.
 
+With ``CGRMPNNConfig(fuse_whole_model=False)`` (the layered-kernel
+configuration) :func:`apply` runs the network as four differentiable
+kernels instead -- gather-linear edge_init (ops/gather_linear.py), the conv
+stack (ops/conv_stack.py), gather-linear readout, sum pooling
+(ops/onehot_spmm.py) -- with mean pooling's scale and the FFN head in
+torch; on the CPU each takes its plain version.  Training then goes through
+autograd (:func:`supports_fused_train` is False).
+
 Dropout is the TPU kernels' hash dropout everywhere (on the card and on the
 CPU), driven by one int32 seed per conv layer, so a CPU run and a card run
 of the trainer see the same masks.  The JAX package's XLA path draws its
@@ -40,8 +48,11 @@ import torch
 from torch import nn
 
 from ..data.batch import PackedGraphBatch, PackSpec
+from ..ops.conv_stack import conv_stack
 from ..ops.fused_model import GRAD_NAMES, fused_model, fused_model_train
+from ..ops.gather_linear import gather_linear
 from ..ops.kernel_math import hash_dropout_keep_full, k_act
+from ..ops.onehot_spmm import spmm
 from ..ops.segment import (dmpnn_messages, gather_nodes, graph_pool_sum,
                            node_incoming_sum)
 from ..utils.device import resolve_device
@@ -49,7 +60,8 @@ from ..utils.device import resolve_device
 __all__ = ["CGRMPNNConfig", "CGRMPNN", "init_params", "apply",
            "kernel_inputs", "adjoint_inputs", "kernel_seeds",
            "kernel_grads_to_params", "fused_train_value_and_grad",
-           "params_from_jax", "jax_leaf_names", "ACTIVATIONS"]
+           "params_from_jax", "jax_leaf_names", "supports_fused_train",
+           "ACTIVATIONS"]
 
 # config activation name -> kernel activation id (ops/kernel_math.k_act)
 ACTIVATIONS = {"ReLU": "relu", "SiLU": "silu", "GELU": "gelu"}
@@ -66,6 +78,7 @@ class CGRMPNNConfig:
     aggr: str = "add"                      # 'add' | 'mean'
     pooling: str = "add"                   # 'add' | 'mean'
     use_learnable_skip: bool = False
+    fuse_whole_model: bool = True          # False: the layered kernels
 
     def __post_init__(self):
         object.__setattr__(self, "hidden_sizes",
@@ -206,8 +219,6 @@ def kernel_seeds(cfg: CGRMPNNConfig,
 
 def _kernel_kw(cfg: CGRMPNNConfig, spec: PackSpec, train: bool,
                seeds) -> dict:
-    if train and seeds is None:
-        raise ValueError("train=True needs the per-layer dropout seeds")
     return dict(p=spec.p, act=ACTIVATIONS[cfg.activation], aggr=cfg.aggr,
                 pooling=cfg.pooling, train=train,
                 seeds=seeds if train else None,
@@ -252,6 +263,47 @@ def fused_train_value_and_grad(model: CGRMPNN, batch: PackedGraphBatch,
     return sse
 
 
+def supports_fused_train(cfg: CGRMPNNConfig) -> bool:
+    """Whether the one-launch training step applies: the whole-model
+    configuration (every activation of the config has a kernel)."""
+    return cfg.fuse_whole_model
+
+
+def _pool_scale(batch: PackedGraphBatch) -> torch.Tensor:
+    """Mean pooling's 1 / (nodes of the graph), 0 for an empty slot."""
+    n_cnt = (batch.graph_nodes < batch.node_x.shape[0]).sum(dim=1).float()
+    return torch.where(n_cnt > 0, 1.0 / n_cnt.clamp_min(1.0), 0.0)[:, None]
+
+
+def _layered(model: CGRMPNN, batch: PackedGraphBatch, spec: PackSpec,
+             train: bool, seeds) -> torch.Tensor:
+    """The layered-kernel forward (JAX apply's fuse_whole_model=False
+    branch): gather-linear edge_init, the conv stack, gather-linear readout,
+    sum pooling through the ELL gather-sum, then the mean scale and the FFN
+    head in torch."""
+    cfg = model.cfg
+    kw = dict(p=spec.p, act=ACTIVATIONS[cfg.activation])
+    mean = cfg.aggr == "mean"
+    x, e = batch.node_x.float(), batch.edge_attr.float()
+    F = x.shape[1]
+    wei, wen = model.edge_init, model.edge_to_node
+    h0 = gather_linear(x, e, batch.senders[:, None], batch.node_out,
+                       wei.w[:F], wei.w[F:], wei.b, **kw)
+    h = conv_stack(h0, batch.edge_nbr, batch.rev, batch.edge_nbr_rev,
+                   torch.stack([c.w for c in model.convs]),
+                   torch.stack([c.b for c in model.convs]),
+                   _skips(model, x.device), **kw, mean=mean, train=train,
+                   seeds=seeds if train else None,
+                   dropout_ps=tuple(cfg.dropout_ps) if train else ())
+    hn = gather_linear(h, x, batch.node_inc, batch.receivers[:, None],
+                       wen.w[F:], wen.w[:F], wen.b, **kw, mean=mean)
+    pooled = spmm(hn, batch.graph_nodes, batch.graph_of_node[:, None],
+                  p=spec.p)
+    if cfg.pooling == "mean":
+        pooled = pooled * _pool_scale(batch)
+    return model.ffn(pooled)[:, 0]
+
+
 def _dropout(h: torch.Tensor, rate: float, seed: int, te: int):
     """The kernels' hash dropout over the stacked [p*te, H] edge states."""
     if rate == 0.0:
@@ -273,20 +325,24 @@ def apply(model: CGRMPNN, batch: PackedGraphBatch, spec: PackSpec | None = None,
     ``spec`` (its pack count); with gradients enabled, through the autograd
     Function whose backward is the VJP kernel.  The CPU and
     ``capture=True`` take the plain gather ops (train mode needs ``spec``
-    there too, for the pack-local dropout rows)."""
+    there too, for the pack-local dropout rows).  With
+    ``cfg.fuse_whole_model`` False and ``spec`` given, the layered kernels
+    run instead (their plain versions on the CPU)."""
     cfg = model.cfg
     kact = ACTIVATIONS[cfg.activation]
     x, e = batch.node_x, batch.edge_attr
 
+    if x.device.type == "cuda" and not capture and spec is None:
+        raise ValueError("the kernels need the batch's PackSpec")
+    if train and (spec is None or seeds is None):
+        raise ValueError("train mode needs the batch's PackSpec and the "
+                         "per-layer dropout seeds")
+    if not cfg.fuse_whole_model and not capture and spec is not None:
+        return _layered(model, batch, spec, train, seeds)
     if x.device.type == "cuda" and not capture:
-        if spec is None:
-            raise ValueError("the forward kernel needs the batch's PackSpec")
         return fused_model(kernel_inputs(model, batch), adjoint_inputs(batch),
                            **_kernel_kw(cfg, spec, train, seeds))
     if train:
-        if spec is None or seeds is None:
-            raise ValueError("train mode needs the batch's PackSpec and the "
-                             "per-layer dropout seeds")
         seed_list = [int(s) for s in seeds]
 
     x, e = x.float(), e.float()
@@ -326,9 +382,7 @@ def apply(model: CGRMPNN, batch: PackedGraphBatch, spec: PackSpec | None = None,
 
     pooled = graph_pool_sum(hn, batch.graph_nodes)
     if cfg.pooling == "mean":
-        n_cnt = (batch.graph_nodes < x.shape[0]).sum(dim=1).float()
-        pooled = pooled * torch.where(n_cnt > 0, 1.0 / n_cnt.clamp_min(1.0),
-                                      0.0)[:, None]
+        pooled = pooled * _pool_scale(batch)
     out = model.ffn(pooled)[:, 0]
     if capture:
         acts["pooled"] = pooled

@@ -1,21 +1,37 @@
 """Compute primitives: plain-torch gather ops (the oracle), the kernels'
-elementwise helpers, and the whole-model kernels (forward, training step,
-VJP) with their plain versions.  The launch counts live on the module:
-``ops.fused_model.launches``, ``train_launches`` and ``vjp_launches``;
-the autograd wrapper is ``ops.fused_model.fused_model`` (not re-exported
-here, where its name would hide the module).
+elementwise helpers, the whole-model kernels (forward, training step, VJP)
+and the layered kernels (gather-linear, conv stack, ELL gather-sum, each
+forward and backward), with their plain versions.  The launch counts live
+on the modules: ``ops.fused_model.launches``, ``train_launches`` and
+``vjp_launches``; ``launches`` and ``bwd_launches`` of
+``ops.gather_linear``, ``ops.conv_stack`` and ``ops.onehot_spmm``.  The
+wrappers ``fused_model``, ``gather_linear``, ``conv_stack`` and
+``onehot_spmm`` are not re-exported here, where their names would hide
+the modules.
 """
 
+from .conv_stack import (conv_stack_backward, conv_stack_backward_ref,
+                         conv_stack_forward, conv_stack_forward_ref)
 from .fused_model import (fused_model_forward,
                           fused_model_forward_ref, fused_model_train,
                           fused_model_train_ref, fused_model_vjp,
                           fused_model_vjp_ref)
+from .gather_linear import (gather_linear_backward,
+                            gather_linear_backward_ref,
+                            gather_linear_forward, gather_linear_forward_ref)
 from .kernel_math import (hash_bits, hash_dropout_keep_full, k_act, k_dact,
                           k_dropout_mask, mean_colscale)
+from .onehot_spmm import onehot_spmm_ref, spmm
 from .segment import (dmpnn_messages, ext_zero_row, gather_nodes,
-                      graph_pool_sum, node_incoming_sum)
+                      graph_pool_sum, in_pack, node_incoming_sum,
+                      pack_gather_sum)
 
-__all__ = ["fused_model_forward", "fused_model_forward_ref",
+__all__ = ["conv_stack_backward", "conv_stack_backward_ref",
+           "conv_stack_forward", "conv_stack_forward_ref",
+           "gather_linear_backward", "gather_linear_backward_ref",
+           "gather_linear_forward", "gather_linear_forward_ref",
+           "onehot_spmm_ref", "spmm", "in_pack",
+           "pack_gather_sum", "fused_model_forward", "fused_model_forward_ref",
            "fused_model_train", "fused_model_train_ref", "fused_model_vjp",
            "fused_model_vjp_ref", "hash_bits", "hash_dropout_keep_full",
            "k_act", "k_dact", "k_dropout_mask", "mean_colscale",

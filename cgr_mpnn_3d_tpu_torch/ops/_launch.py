@@ -1,0 +1,106 @@
+"""What every kernel wrapper does around a launch: load and type its ctypes
+library, check its tensors, build the dropout table, pass the stream, and
+raise on a failed launch."""
+
+from __future__ import annotations
+
+import ctypes
+
+import numpy as np
+import torch
+
+from . import _build
+from .kernel_math import dropout_threshold
+
+__all__ = ["PTR", "I32", "library", "check_cuda", "seed_list", "check_train",
+           "drop_table", "stream", "raise_on", "refuse_grad", "ptr",
+           "split_k"]
+
+PTR, I32 = ctypes.c_void_p, ctypes.c_int
+
+
+def library(name: str, signatures: dict) -> ctypes.CDLL:
+    """The library of ``csrc/<name>.cu`` (built if needed), its functions
+    typed from ``signatures``: {function: (argtypes, restype)}."""
+    lib = _build.load(name)
+    if not getattr(lib, "_cgr_typed", False):
+        for fn, (argtypes, restype) in signatures.items():
+            f = getattr(lib, fn)
+            f.argtypes, f.restype = list(argtypes), restype
+        lib.cgr_cuda_error_string.argtypes = [I32]
+        lib.cgr_cuda_error_string.restype = ctypes.c_char_p
+        lib._cgr_typed = True
+    return lib
+
+
+def check_cuda(args: dict, device, index_names) -> None:
+    """Every tensor on ``device``, contiguous, int32 when its name is in
+    ``index_names`` and float32 otherwise."""
+    for name, tsr in args.items():
+        want = torch.int32 if name in index_names else torch.float32
+        if tsr.device != device:
+            raise ValueError(f"{name} is on {tsr.device}, expected {device}")
+        if tsr.dtype != want:
+            raise TypeError(f"{name} is {tsr.dtype}, the kernel takes {want}")
+        if not tsr.is_contiguous():
+            raise ValueError(f"{name} is not contiguous")
+
+
+def seed_list(seeds) -> list[int]:
+    return [int(s) for s in (seeds.tolist() if torch.is_tensor(seeds)
+                             else seeds)]
+
+
+def check_train(train: bool, seeds, dropout_ps, L: int) -> None:
+    if train:
+        if seeds is None or len(seeds) != L or len(dropout_ps) != L:
+            raise ValueError(f"train mode needs one seed and one drop rate "
+                             f"per conv layer ({L})")
+        if not all(0.0 <= r < 1.0 for r in dropout_ps):
+            raise ValueError(f"drop rates must lie in [0, 1): {dropout_ps}")
+
+
+def drop_table(train: bool, seeds, dropout_ps, device):
+    """[3, L] int32 on ``device``: seeds, keep thresholds (uint32 bits) and
+    scales 1/(1 - rate) (f32 bits); None in eval mode.  A layer of rate 0
+    keeps every element at scale 1, which leaves it unchanged."""
+    if not train:
+        return None
+    seeds = np.asarray(seed_list(seeds), np.int64) & 0xFFFFFFFF
+    thr = [dropout_threshold(r) for r in dropout_ps]
+    scale = np.asarray([1.0 / (1.0 - r) for r in dropout_ps], np.float32)
+    table = np.stack([seeds.astype(np.uint32).view(np.int32),
+                      np.asarray(thr, np.uint32).view(np.int32),
+                      scale.view(np.int32)])
+    return torch.from_numpy(table).to(device)
+
+
+def split_k(rows: int) -> int:
+    """Split-K partials of a weight gradient over ``rows`` rows: one per
+    256 rows, at most 64 (a function of the shape only, so reruns sum in
+    the same order)."""
+    return min(64, max(1, -(-rows // 256)))
+
+
+def stream(device) -> int:
+    """The current CUDA stream of ``device``, as the kernels take it."""
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def ptr(t) -> int | None:
+    """A tensor's device pointer; None (a null pointer) for None."""
+    return None if t is None else t.data_ptr()
+
+
+def raise_on(lib, err: int, what: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{what} launch failed: "
+                           + lib.cgr_cuda_error_string(err).decode())
+
+
+def refuse_grad(tensors, what: str, instead: str) -> None:
+    """A forward-only kernel wrapper under autograd would cut the graph."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(f"the {what} kernel has no backward of its own: "
+                           f"call {instead} for gradients, or call this "
+                           f"under torch.no_grad()")

@@ -44,10 +44,10 @@ import ctypes
 import numpy as np
 import torch
 
-from . import _build
-from .kernel_math import (KERNEL_ACTS, dropout_threshold,
-                          hash_dropout_keep_full, k_act, mean_colscale)
-from .segment import ext_zero_row
+from ._launch import (I32, PTR, check_cuda, check_train, drop_table, library,
+                      ptr, raise_on, refuse_grad, seed_list, stream)
+from .kernel_math import KERNEL_ACTS, hash_dropout_keep_full, k_act
+from .segment import ext_zero_row, in_pack, pack_gather_sum
 
 __all__ = ["fused_model_forward", "fused_model_forward_ref",
            "fused_model_train", "fused_model_train_ref", "fused_model_vjp",
@@ -102,30 +102,7 @@ def _check(args: dict, p: int, act: str, aggr: str, pooling: str,
         if tuple(tsr.shape) != want[name]:
             raise ValueError(f"{name} has shape {tuple(tsr.shape)}, "
                              f"expected {want[name]}")
-    if train:
-        L = args["wc"].shape[0]
-        if seeds is None or len(seeds) != L or len(dropout_ps) != L:
-            raise ValueError(f"train mode needs one seed and one drop rate "
-                             f"per conv layer ({L})")
-        if not all(0.0 <= r < 1.0 for r in dropout_ps):
-            raise ValueError(f"drop rates must lie in [0, 1): {dropout_ps}")
-
-
-def _seed_list(seeds) -> list[int]:
-    return [int(s) for s in (seeds.tolist() if torch.is_tensor(seeds)
-                             else seeds)]
-
-
-def _in_pack(idx: torch.Tensor, p: int, n_src: int):
-    """(ids, valid): ids outside the pack of their row become the sentinel
-    ``n_src`` (the zero row of ``ext_zero_row``)."""
-    rows = idx.shape[0]
-    pack = torch.arange(rows, device=idx.device) // (rows // p)
-    lo = pack * (n_src // p)
-    if idx.dim() == 2:
-        lo = lo[:, None]
-    valid = (idx >= lo) & (idx < lo + n_src // p)
-    return torch.where(valid, idx, n_src).long(), valid
+    check_train(train, seeds, dropout_ps, args["wc"].shape[0])
 
 
 def fused_model_forward_ref(x, e, senders, edge_nbr, rev, node_inc,
@@ -143,27 +120,22 @@ def fused_model_forward_ref(x, e, senders, edge_nbr, rev, node_inc,
     ET, NT = e.shape[0], x.shape[0]
     H = wc.shape[2]
 
-    def gather_sum(src, idx, mean):
-        ids, valid = _in_pack(idx, p, src.shape[0])
-        out = ext_zero_row(src)[ids].sum(dim=1)
-        return out * mean_colscale(valid)[:, None] if mean else out
-
-    s_ids, _ = _in_pack(senders, p, NT)
+    s_ids, _ = in_pack(senders, p, NT)
     h0 = k_act(act, ext_zero_row(x)[s_ids] @ wx + e @ we + be)
-    rev_ids, _ = _in_pack(rev, p, ET)
+    rev_ids, _ = in_pack(rev, p, ET)
     h = h0
     for l in range(wc.shape[0]):
-        t = (gather_sum(h, edge_nbr, aggr == "mean")
+        t = (pack_gather_sum(h, edge_nbr, p, aggr == "mean")
              - ext_zero_row(h)[rev_ids])
         h = k_act(act, t @ wc[l] + bc[l] + skips[l] * h0)
         if train and dropout_ps[l] > 0.0:
             keep = hash_dropout_keep_full(ET, H, ET // p,
-                                          _seed_list(seeds)[l],
+                                          seed_list(seeds)[l],
                                           dropout_ps[l], device=x.device)
             h = torch.where(keep, h * (1.0 / (1.0 - dropout_ps[l])), 0.0)
-    s = gather_sum(h, node_inc, aggr == "mean")
+    s = pack_gather_sum(h, node_inc, p, aggr == "mean")
     hn = k_act(act, s @ ws + x @ wxn + ben)
-    pooled = gather_sum(hn, graph_nodes, pooling == "mean")
+    pooled = pack_gather_sum(hn, graph_nodes, p, pooling == "mean")
     return (pooled @ wffn)[:, 0] + bffn
 
 
@@ -206,54 +178,20 @@ def fused_model_vjp_ref(inputs, adjoint, dpred, **kw):
     return _weight_grads(inputs, kw, lambda preds: (preds * dpred).sum())[1]
 
 
+_LL = ctypes.c_longlong
+_SIGNATURES = {
+    "fused_model_fwd": {
+        "cgr_fused_model_fwd": ([PTR] * 26 + [I32] * 13 + [PTR], I32)},
+    "fused_model_bwd": {
+        "cgr_fused_model_train": ([PTR] * 27 + [I32] * 13 + [PTR], I32),
+        "cgr_fused_model_vjp": ([PTR] * 26 + [I32] * 13 + [PTR], I32),
+        "cgr_fused_model_bwd_scratch_floats": ([I32] * 5, _LL),
+        "cgr_fused_model_grad_floats": ([I32] * 4, _LL)},
+}
+
+
 def _lib(name: str) -> ctypes.CDLL:
-    lib = _build.load(name)
-    if not getattr(lib, "_cgr_typed", False):
-        ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        if name == "fused_model_fwd":
-            lib.cgr_fused_model_fwd.argtypes = (
-                [ptr] * 26 + [i32] * 13 + [ptr])
-            lib.cgr_fused_model_fwd.restype = i32
-        else:
-            for fn, n_extra in (("cgr_fused_model_train", 2),
-                                ("cgr_fused_model_vjp", 1)):
-                f = getattr(lib, fn)
-                f.argtypes = [ptr] * (22 + n_extra + 3) + [i32] * 13 + [ptr]
-                f.restype = i32
-            lib.cgr_fused_model_bwd_scratch_floats.argtypes = [i32] * 5
-            lib.cgr_fused_model_bwd_scratch_floats.restype = ctypes.c_longlong
-            lib.cgr_fused_model_grad_floats.argtypes = [i32] * 4
-            lib.cgr_fused_model_grad_floats.restype = ctypes.c_longlong
-        lib.cgr_cuda_error_string.argtypes = [i32]
-        lib.cgr_cuda_error_string.restype = ctypes.c_char_p
-        lib._cgr_typed = True
-    return lib
-
-
-def _check_cuda(args: dict, device) -> None:
-    for name, tsr in args.items():
-        want = torch.int32 if name in _INDEX_NAMES else torch.float32
-        if tsr.device != device:
-            raise ValueError(f"{name} is on {tsr.device}, x on {device}")
-        if tsr.dtype != want:
-            raise TypeError(f"{name} is {tsr.dtype}, the kernel takes {want}")
-        if not tsr.is_contiguous():
-            raise ValueError(f"{name} is not contiguous")
-
-
-def _drop_table(train: bool, seeds, dropout_ps, device):
-    """[3, L] int32 on ``device``: seeds, keep thresholds (uint32 bits) and
-    scales 1/(1 - rate) (f32 bits); None in eval mode.  A layer of rate 0
-    keeps every element at scale 1, which leaves it unchanged."""
-    if not train:
-        return None
-    seeds = np.asarray(_seed_list(seeds), np.int64) & 0xFFFFFFFF
-    thr = [dropout_threshold(r) for r in dropout_ps]
-    scale = np.asarray([1.0 / (1.0 - r) for r in dropout_ps], np.float32)
-    table = np.stack([seeds.astype(np.uint32).view(np.int32),
-                      np.asarray(thr, np.uint32).view(np.int32),
-                      scale.view(np.int32)])
-    return torch.from_numpy(table).to(device)
+    return library(name, _SIGNATURES[name])
 
 
 def _dims(x, e, graph_nodes, edge_nbr, wc, p: int) -> list[int]:
@@ -267,12 +205,6 @@ def _dims(x, e, graph_nodes, edge_nbr, wc, p: int) -> list[int]:
 def _modes(act: str, aggr: str, pooling: str) -> list[int]:
     return [KERNEL_ACTS.index(act), int(aggr == "mean"),
             int(pooling == "mean")]
-
-
-def _raise_on(lib, err: int, what: str) -> None:
-    if err != 0:
-        raise RuntimeError(f"{what} launch failed: "
-                           + lib.cgr_cuda_error_string(err).decode())
 
 
 def fused_model_forward(x, e, senders, edge_nbr, rev, node_inc, graph_nodes,
@@ -298,11 +230,8 @@ def fused_model_forward(x, e, senders, edge_nbr, rev, node_inc, graph_nodes,
         raise ValueError(f"unsupported device {x.device}")
     args = dict(zip(_NAMES, tensors))
     _check(args, p, act, aggr, pooling, train, seeds, dropout_ps)
-    _check_cuda(args, x.device)
-    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
-        raise RuntimeError("the forward kernel has no backward of its own: "
-                           "call fused_model() for gradients, or call this "
-                           "under torch.no_grad()")
+    check_cuda(args, x.device, _INDEX_NAMES)
+    refuse_grad(tensors, "forward", "fused_model()")
 
     NT, ET, BT = x.shape[0], e.shape[0], graph_nodes.shape[0]
     H = wc.shape[2]
@@ -311,18 +240,16 @@ def fused_model_forward(x, e, senders, edge_nbr, rev, node_inc, graph_nodes,
     bufs = [torch.empty(shape, device=x.device, dtype=torch.float32)
             for shape in scratch.values()]
     out = torch.empty(BT, device=x.device, dtype=torch.float32)
-    drop = _drop_table(train, seeds, dropout_ps, x.device)
+    drop = drop_table(train, seeds, dropout_ps, x.device)
     lib = _lib("fused_model_fwd")
     with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
         err = lib.cgr_fused_model_fwd(
-            *(t.data_ptr() for t in tensors),
-            None if drop is None else drop.data_ptr(),
+            *(t.data_ptr() for t in tensors), ptr(drop),
             *(b.data_ptr() for b in bufs), out.data_ptr(),
             *_dims(x, e, graph_nodes, edge_nbr, wc, p),
-            *_modes(act, aggr, pooling), stream)
+            *_modes(act, aggr, pooling), stream(x.device))
     launches += 1
-    _raise_on(lib, err, "fused_model_fwd")
+    raise_on(lib, err, "fused_model_fwd")
     return out
 
 
@@ -334,7 +261,7 @@ def _backward(inputs, adjoint, extra: dict, *, p, act, aggr, pooling,
         p=p, act=act, aggr=aggr, pooling=pooling, train=train, seeds=seeds,
         dropout_ps=dropout_ps))
     x, e, wc = args["x"], args["e"], args["wc"]
-    _check_cuda(args, x.device)
+    check_cuda(args, x.device, _INDEX_NAMES)
     dims = _dims(x, e, args["graph_nodes"], args["edge_nbr"], wc, p)
     _, te, tn, tb, F, Fe, H, L = dims[:8]
     lib = _lib("fused_model_bwd")
@@ -347,18 +274,16 @@ def _backward(inputs, adjoint, extra: dict, *, p, act, aggr, pooling,
     scratch = torch.empty(p * n_scratch, device=x.device, dtype=torch.float32)
     partial = torch.empty(p * n_grad, device=x.device, dtype=torch.float32)
     out = torch.empty(n_grad, device=x.device, dtype=torch.float32)
-    drop = _drop_table(train, seeds, dropout_ps, x.device)
+    drop = drop_table(train, seeds, dropout_ps, x.device)
     fn = (lib.cgr_fused_model_train if "labels" in extra
           else lib.cgr_fused_model_vjp)
     with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = fn(*(t.data_ptr() for t in inputs),
-                 None if drop is None else drop.data_ptr(),
+        err = fn(*(t.data_ptr() for t in inputs), ptr(drop),
                  *(t.data_ptr() for t in adjoint),
                  *(t.data_ptr() for t in extra.values()),
                  scratch.data_ptr(), partial.data_ptr(), out.data_ptr(),
-                 *dims, *_modes(act, aggr, pooling), stream)
-    _raise_on(lib, err, fn.__name__)
+                 *dims, *_modes(act, aggr, pooling), stream(x.device))
+    raise_on(lib, err, fn.__name__)
     parts = torch.split(out, [int(np.prod(s, dtype=np.int64)) for s in shapes])
     return parts[0][0], tuple(t.view(s) for t, s in zip(parts[1:], shapes[1:]))
 

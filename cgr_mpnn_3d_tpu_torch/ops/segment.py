@@ -11,19 +11,49 @@ arrays (``node_out``, ``edge_nbr_rev``, ...) are therefore not arguments here.
     dmpnn_messages      sum_d h[edge_nbr[e, d]] * norm[e]  -  h[rev[e]]
     node_incoming_sum   sum_d h[node_inc[n, d]]
     graph_pool_sum      sum_k hn[graph_nodes[g, k]]
+
+:func:`in_pack` and :func:`pack_gather_sum` are the kernels' convention
+instead: an index outside the pack of the row that holds it counts as
+absent (the plain versions of the CUDA kernels use them).
 """
 
 from __future__ import annotations
 
 import torch
 
+from .kernel_math import mean_colscale
+
 __all__ = ["ext_zero_row", "gather_nodes", "dmpnn_messages",
-           "node_incoming_sum", "graph_pool_sum"]
+           "node_incoming_sum", "graph_pool_sum", "in_pack",
+           "pack_gather_sum"]
 
 
 def ext_zero_row(h: torch.Tensor) -> torch.Tensor:
     """Append one all-zero row: the sentinel target."""
     return torch.cat([h, h.new_zeros((1,) + tuple(h.shape[1:]))], dim=0)
+
+
+def in_pack(idx: torch.Tensor, p: int, n_src: int):
+    """(ids, valid) for the ELL array ``idx`` [rows] or [rows, D] over a
+    source of ``n_src`` rows, both split into ``p`` packs: ids outside the
+    pack of their row become the sentinel ``n_src`` (the zero row of
+    :func:`ext_zero_row`)."""
+    rows = idx.shape[0]
+    pack = torch.arange(rows, device=idx.device) // (rows // p)
+    lo = pack * (n_src // p)
+    if idx.dim() == 2:
+        lo = lo[:, None]
+    valid = (idx >= lo) & (idx < lo + n_src // p)
+    return torch.where(valid, idx, n_src).long(), valid
+
+
+def pack_gather_sum(src: torch.Tensor, idx: torch.Tensor, p: int,
+                    mean: bool = False) -> torch.Tensor:
+    """out[r] = scale_r · sum_d src[idx[r, d]] over in-pack entries; scale_r
+    is 1, or 1 / (entries counted) for ``mean``."""
+    ids, valid = in_pack(idx, p, src.shape[0])
+    out = ext_zero_row(src)[ids].sum(dim=1)
+    return out * mean_colscale(valid)[:, None] if mean else out
 
 
 def _take(h_ext: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:

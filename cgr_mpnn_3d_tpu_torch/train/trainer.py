@@ -10,7 +10,11 @@
               sqrt(sum of SSE / number of rows);
 * step        on the card ONE launch of the training kernel computes the
               loss and every gradient (``models.fused_train_value_and_grad``);
-              on the CPU its plain version;
+              on the CPU its plain version.  With
+              ``cfg.fuse_whole_model=False`` the step is autograd of the
+              masked SSE through the layered kernels' autograd Functions
+              (their backward kernels on the card, plain versions on the
+              CPU);
 * dropout     the kernels' hash dropout, with one int32 seed per conv layer
               drawn per step from the trainer's CPU ``torch.Generator``,
               re-seeded from (seed, draws) -- so a CPU run and a card run see
@@ -44,7 +48,7 @@ from ..data.dataset import ChemDataset
 from ..data.loader import PackedLoader
 from ..models.cgr_mpnn import (CGRMPNNConfig, apply,
                                fused_train_value_and_grad, init_params,
-                               kernel_seeds)
+                               kernel_seeds, supports_fused_train)
 from ..utils.device import resolve_device
 from .checkpoint import (SEED_STREAM, load_checkpoint,
                          restore_training_state, save_checkpoint)
@@ -174,10 +178,14 @@ class RxnGraphTrainer:
     def _train_step(self, batch) -> float:
         """One step on a device batch: the loss; the update is applied only
         when the loss is finite."""
-        sse = fused_train_value_and_grad(self.model, batch,
-                                         self.train_loader.spec,
-                                         self._step_seeds())
-        loss = float(sse)
+        spec, seeds = self.train_loader.spec, self._step_seeds()
+        if supports_fused_train(self.cfg):
+            sse = fused_train_value_and_grad(self.model, batch, spec, seeds)
+        else:
+            self.optimizer.zero_grad()
+            sse = sse_loss(self.model, batch, spec, train=True, seeds=seeds)
+            sse.backward()
+        loss = float(sse.detach())
         if math.isfinite(loss):
             self.optimizer.step()
             self.step += 1

@@ -1,6 +1,9 @@
 """The CUDA kernels on the card against their plain versions (needs a GPU
-and nvcc; skips elsewhere): the forward (eval and train mode), the training
-step and the VJP.  Run on a GPU machine with:
+and nvcc; skips elsewhere): the whole-model forward (eval and train mode),
+the training step and the VJP; the layered kernels (ELL gather-sum,
+gather-linear, conv stack, forward and backward, backward reruns bit for
+bit) and the layered configuration against the whole-model one.  Run on a
+GPU machine with:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py -q
 
@@ -111,11 +114,7 @@ def _assert_grads(act, grads, grads_ref, grads_f64):
     chip_smoke.py)."""
     for name, g, r in zip(fm.GRAD_NAMES, grads, grads_ref):
         assert g.shape == r.shape, name
-        if act != "ReLU":
-            assert _rel(g, r) <= 1e-4, name
-    if act == "ReLU":
-        assert _l1(grads, grads_f64()) <= max(
-            3 * _l1(grads_ref, grads_f64()), 1e-4)
+    _held(ACTIVATIONS[act], grads, grads_ref, grads_f64)
 
 
 def _f64(args):
@@ -219,3 +218,152 @@ def test_train_kernel_is_deterministic(cuda):
     b = fm.fused_model_train(args, adj, labels, batch.graph_mask, **kw)
     assert torch.equal(a[0], b[0])
     assert all(torch.equal(x, y) for x, y in zip(a[1], b[1]))
+
+
+# -- the layered kernels (K7, K5, K4) ---------------------------------------
+
+def _held(act, got, want, want64):
+    """Outputs of a backward kernel against its plain version: each at
+    1e-4, except with ReLU, where they are held as one vector to the float64
+    evaluation by the rule of _assert_grads."""
+    if act != "relu":
+        for g, w in zip(got, want):
+            assert _rel(g, w) <= 1e-4
+        return
+    exact = want64()
+    assert _l1(got, exact) <= max(3 * _l1(want, exact), 1e-4)
+
+
+def _layered_inputs(cuda, seed=5, H=40, F=78):
+    spec, batch = _batch(120, seed, F, cuda)
+    rng = np.random.default_rng(seed)
+
+    def rand(*shape, scale=1.0):
+        return torch.from_numpy((rng.standard_normal(shape) * scale)
+                                .astype(np.float32)).to(cuda)
+    return spec, batch, rand
+
+
+def test_onehot_spmm_kernel_matches_plain(cuda):
+    from cgr_mpnn_3d_tpu_torch.ops import onehot_spmm as sp
+    spec, b, rand = _layered_inputs(cuda)
+    h_e, h_n = rand(b.edge_nbr.shape[0], 40), rand(b.node_x.shape[0], 40)
+    for src, idx, sign in ((h_e, b.edge_nbr, b.rev), (h_n, b.graph_nodes, None),
+                           (h_e, b.node_inc, None)):
+        before = sp.launches
+        got = sp.onehot_spmm(src, idx, sign, p=spec.p)
+        assert sp.launches == before + 1
+        want = sp.onehot_spmm_ref(src, idx, sign, p=spec.p)
+        torch.cuda.synchronize()
+        assert _rel(got, want) <= 1e-5
+    # spmm: K7 forward, K7 over the transposed ELL backward
+    src = h_n.clone().requires_grad_()
+    before = (sp.launches, sp.bwd_launches)
+    out = sp.spmm(src, b.graph_nodes, b.graph_of_node[:, None], p=spec.p)
+    cot = rand(*out.shape)
+    (got,) = torch.autograd.grad((out * cot).sum(), src)
+    assert (sp.launches, sp.bwd_launches) == (before[0] + 1, before[1] + 1)
+    with torch.enable_grad():
+        ref = sp.onehot_spmm_ref(src, b.graph_nodes, p=spec.p)
+        (want,) = torch.autograd.grad((ref * cot).sum(), src)
+    assert _rel(got, want) <= 1e-5
+
+
+@pytest.mark.parametrize("stage,act,mean", [("edge_init", "relu", False),
+                                            ("readout", "gelu", True),
+                                            ("readout", "silu", False)])
+def test_gather_linear_kernel_matches_plain(cuda, stage, act, mean):
+    from cgr_mpnn_3d_tpu_torch.ops import gather_linear as gl
+    spec, b, rand = _layered_inputs(cuda)
+    H, F = 40, b.node_x.shape[1]
+    ET, NT = b.edge_nbr.shape[0], b.node_x.shape[0]
+    if stage == "edge_init":
+        xa, xb, idx, adj = b.node_x, rand(ET, 14), b.senders[:, None], \
+            b.node_out
+    else:
+        xa, xb, idx, adj = rand(ET, H), b.node_x, b.node_inc, \
+            b.receivers[:, None]
+    ws = (rand(xa.shape[1], H, scale=0.2), rand(xb.shape[1], H, scale=0.2),
+          rand(H, scale=0.1))
+    kw = dict(p=spec.p, act=act, mean=mean)
+    before = (gl.launches, gl.bwd_launches)
+    out = gl.gather_linear_forward(xa, xb, idx, *ws, **kw)
+    want = gl.gather_linear_forward_ref(xa, xb, idx, *ws, **kw)
+    g = rand(*out.shape)
+    grads = gl.gather_linear_backward(xa, xb, idx, adj, *ws, out, g, **kw)
+    assert (gl.launches, gl.bwd_launches) == (before[0] + 1, before[1] + 1)
+    ref = gl.gather_linear_backward_ref(xa, xb, idx, adj, *ws, want, g, **kw)
+    torch.cuda.synchronize()
+    assert _rel(out, want) <= 1e-4
+    _held(act, grads, ref, lambda: gl.gather_linear_backward_ref(
+        *_f64([xa, xb]), idx, adj, *_f64(ws), want.double(), g.double(),
+        **kw))
+    again = gl.gather_linear_backward(xa, xb, idx, adj, *ws, out, g, **kw)
+    assert all(torch.equal(x, y) for x, y in zip(grads, again))
+    part = gl.gather_linear_backward(xa, xb, idx, adj, *ws, out, g, **kw,
+                                     needs=(False, True, False, True, False))
+    assert part[0] is None and torch.equal(part[1], grads[1])
+
+
+@pytest.mark.parametrize("act,mean,drop", [("relu", False, 0.1),
+                                           ("silu", True, 0.0),
+                                           ("gelu", False, 0.3)])
+def test_conv_stack_kernel_matches_plain(cuda, act, mean, drop):
+    from cgr_mpnn_3d_tpu_torch.ops import conv_stack as cs
+    spec, b, rand = _layered_inputs(cuda)
+    ET, H, L = b.edge_nbr.shape[0], 40, 3
+    h0 = rand(ET, H)
+    ws = (rand(L, H, H, scale=0.2), rand(L, H, scale=0.1),
+          torch.tensor([0.8, -0.3, 1.2], device=cuda))
+    kw = dict(p=spec.p, act=act, mean=mean, train=drop > 0,
+              seeds=[7, 2**31 - 2, 12345] if drop else None,
+              dropout_ps=(drop,) * L if drop else ())
+    idx = (b.edge_nbr, b.rev)
+    before = (cs.launches, cs.bwd_launches)
+    out = cs.conv_stack_forward(h0, *idx, *ws, **kw)
+    want = cs.conv_stack_forward_ref(h0, *idx, *ws, **kw)
+    g = rand(*out.shape)
+    grads = cs.conv_stack_backward(h0, *idx, b.edge_nbr_rev, *ws, g, **kw)
+    assert (cs.launches, cs.bwd_launches) == (before[0] + 1, before[1] + 1)
+    ref = cs.conv_stack_backward_ref(h0, *idx, b.edge_nbr_rev, *ws, g, **kw)
+    torch.cuda.synchronize()
+    assert _rel(out, want) <= 1e-4
+    _held(act, grads, ref, lambda: cs.conv_stack_backward_ref(
+        h0.double(), *idx, b.edge_nbr_rev, *_f64(ws), g.double(), **kw))
+    again = cs.conv_stack_backward(h0, *idx, b.edge_nbr_rev, *ws, g, **kw)
+    assert all(torch.equal(x, y) for x, y in zip(grads, again))
+
+
+def test_layered_apply_matches_whole_model(cuda):
+    """apply with fuse_whole_model=False on the card: K5, K4, K5, K7
+    forward (no K3f), their backward kernels under autograd (no K2, no
+    K3b); predictions and gradients equal the whole-model kernels'."""
+    import dataclasses
+    from cgr_mpnn_3d_tpu_torch.ops import conv_stack as cs
+    from cgr_mpnn_3d_tpu_torch.ops import gather_linear as gl
+    from cgr_mpnn_3d_tpu_torch.ops import onehot_spmm as sp
+    spec, batch = _batch(120, 6, 78, cuda)
+    cfg = CGRMPNNConfig(num_node_features=78, num_edge_features=14,
+                        depth=3, hidden_sizes=(40,) * 3,
+                        dropout_ps=(0.2,) * 3, activation="SiLU",
+                        aggr="mean", pooling="mean", use_learnable_skip=True)
+    out = {}
+    for fuse in (True, False):
+        model = init_params(dataclasses.replace(cfg, fuse_whole_model=fuse),
+                            torch.Generator().manual_seed(8), cuda)
+        def counts():
+            return [(fm.launches, fm.vjp_launches)] + [
+                (m.launches, m.bwd_launches) for m in (gl, cs, sp)]
+        before = counts()
+        pred = apply(model, batch, spec, train=True, seeds=[1, 2, 3])
+        ((pred - batch.labels) ** 2 * batch.graph_mask).sum().backward()
+        torch.cuda.synchronize()
+        counts = [(a - c, b - d) for (a, b), (c, d) in zip(counts(), before)]
+        assert counts == ([(1, 1), (0, 0), (0, 0), (0, 0)] if fuse else
+                          [(0, 0), (2, 2), (1, 1), (1, 1)])
+        out[fuse] = (pred.detach(), {n: p.grad for n, p in
+                                     model.named_parameters()})
+    mask = batch.graph_mask > 0
+    assert _rel(out[False][0][mask], out[True][0][mask]) <= 1e-4
+    for name, g in out[True][1].items():
+        assert _rel(out[False][1][name], g) <= 1e-4, name

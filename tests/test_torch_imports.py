@@ -36,6 +36,9 @@ def test_importing_every_module_loads_no_jax():
                          timeout=300)
     res = json.loads(out.stdout.strip().splitlines()[-1])
     assert len(res["mods"]) >= 20
+    layered = {f"cgr_mpnn_3d_tpu_torch.ops.{m}" for m in
+               ("onehot_spmm", "gather_linear", "conv_stack", "_launch")}
+    assert layered <= set(res["mods"])
     assert [m for m in res["loaded"] if _forbidden(m)] == []
 
 
