@@ -21,7 +21,9 @@
 // block with bias, skip, activation and dropout in its epilogue
 // (LayerEpi, which takes the pack of a row from the row index, never from
 // blockIdx).  The launch boundary is the grid-wide barrier that the layer
-// dependency needs, and every SM works at any p.
+// dependency needs, and every SM works at any p.  The layer and its
+// backward steps are layered_common.cuh's conv_layer, dpre_kernel and
+// conv_layer_bwd, which fused_conv.cu (K6, one layer) runs too.
 //
 // Backward (pallas_stack.py:96-157): the replay keeps every layer's t and
 // pre-activation in scratch (2·L·p·te·H floats, 1.4 GB at 436 packs of full
@@ -52,62 +54,19 @@ struct StackArgs {
   const int* drop;  // [3, L] dropout table, or nullptr in eval mode
   int p, te, H, L, D, act, mean;
   long long rows() const { return static_cast<long long>(p) * te; }
+  ConvGraph graph() const {
+    return ConvGraph{edge_nbr, rev, D, mean, te, rows()};
+  }
 };
 
-// Layer l of the forward: t = messages(h_in), h_out = layer(t); the
-// pre-activation goes to `pre` when it is set.  h_out may be h_in: the
-// gather has finished before the product starts.
+// Layer l of the forward (layered_common.cuh::conv_layer): h_out =
+// layer(messages(h_in)); the pre-activation goes to `pre` when it is set.
 void layer(const StackArgs& a, int l, const float* h_in, float* t, float* pre,
            float* h_out, float* rscale, cudaStream_t st) {
   const size_t HH = static_cast<size_t>(a.H) * a.H;
-  launch_gather(GatherArgs{h_in, a.te, a.H, a.edge_nbr, a.D, a.rev, nullptr,
-                           a.mean, a.te, a.rows(), t, rscale},
-                st);
-  launch_tile<false, false>(
-      plain(t, a.H, a.w + l * HH, a.H, a.H), no_operands(),
-      static_cast<int>(a.rows()), a.H,
-      LayerEpi{a.b + static_cast<size_t>(l) * a.H, a.h0, a.skips + l, a.act,
-               pre, h_out, a.H, a.drop, a.L, l, a.te},
-      st);
-}
-
-// One layer's dpre over pre (in place), dh0 += skip·dpre, and the
-// block's share of Σ dpre·h0 in part[blockIdx.x·L + l]; kReduceBlocks
-// blocks of kThreads, grid-stride.
-__global__ void __launch_bounds__(kThreads)
-    dpre_kernel(const float* g, float* pre, const float* h0, float* dh0,
-                const float* skips, const int* drop, int L, int l, int act,
-                int te, int H, long long n, float* part) {
-  __shared__ float red[kThreads];
-  Dropout dr{0, 0u, 0u, 0u, 1.f};
-  if (drop != nullptr)
-    dr = Dropout{1, static_cast<unsigned>(drop[l]),
-                 static_cast<unsigned>(drop[L + l]), 0u,
-                 __int_as_float(drop[2 * L + l])};
-  const float skip = skips[l];
-  float dot = 0.f;
-  for (long long i = blockIdx.x * static_cast<long long>(kThreads) +
-                     threadIdx.x;
-       i < n; i += static_cast<long long>(gridDim.x) * kThreads) {
-    const long long r = i / H;
-    const int c = static_cast<int>(i % H);
-    float gg = g[i];
-    if (dr.on) {
-      dr.pack = static_cast<unsigned>(r / te);
-      gg = dr.kept(static_cast<int>(r % te), c) ? gg * dr.scale : 0.f;
-    }
-    const float v = gg * k_dact(act, pre[i]);
-    pre[i] = v;
-    dot = fmaf(v, h0[i], dot);
-    dh0[i] = fmaf(skip, v, dh0[i]);
-  }
-  red[threadIdx.x] = dot;
-  __syncthreads();
-  for (int s = kThreads / 2; s > 0; s >>= 1) {
-    if (threadIdx.x < s) red[threadIdx.x] += red[threadIdx.x + s];
-    __syncthreads();
-  }
-  if (threadIdx.x == 0) part[static_cast<size_t>(blockIdx.x) * L + l] = red[0];
+  conv_layer(a.graph(), h_in, a.H, a.w + l * HH,
+             a.b + static_cast<size_t>(l) * a.H, a.skips + l, a.h0, a.H,
+             a.act, a.drop, a.L, l, t, pre, h_out, rscale, st);
 }
 
 // a += b over n floats.
@@ -175,21 +134,17 @@ extern "C" int cgr_conv_stack_bwd(const float* h0, const int* edge_nbr,
     layer(a, l, l == 0 ? h0 : h, ts + l * rH, pres + l * rH, h,
           l == 0 ? escale : nullptr, st);
 
-  cudaMemsetAsync(dh0, 0, rH * sizeof(float), st);
   const float* g_in = g_out;
+  const ConvGraph gr = a.graph();
   for (int l = L - 1; l >= 0; --l) {
     float* dpre = pres + l * rH;
     dpre_kernel<<<kReduceBlocks, kThreads, 0, st>>>(
-        g_in, dpre, h0, dh0, skips, drop, L, l, act, te, H, rH, dpart);
-    launch_wgrad(ts + l * rH, H, dpre, H, rows, S, wpart, dw + l * HH, st);
-    launch_colsum(dpre, H, rows, S, wpart, db + static_cast<size_t>(l) * H,
-                  st);
-    // dt = dpre·W[l]ᵀ, then g = the messages' adjoint applied to dt
-    launch_tile<false, true>(plain(dpre, H, w + l * HH, H, H), no_operands(),
-                             static_cast<int>(rows), H, StoreEpi{dt, H}, st);
-    launch_gather(GatherArgs{dt, te, H, edge_nbr_rev, D, rev,
-                             mean ? escale : nullptr, 0, te, rows, g, nullptr},
-                  st);
+        g_in, dpre, nullptr, dpre, h0, dh0, l < L - 1, skips + l, drop, L, l,
+        act, te, H, rH, dpart);
+    // dW[l], db[l], and g = the messages' adjoint applied to dpre·W[l]ᵀ
+    conv_layer_bwd(gr, edge_nbr_rev, ts + l * rH, H, dpre, H, w + l * HH,
+                   escale, S, wpart, dt, g, dw + l * HH,
+                   db + static_cast<size_t>(l) * H, st);
     g_in = g;
   }
   add_kernel<<<2048, 256, 0, st>>>(dh0, g_in, rH);

@@ -1,8 +1,9 @@
 // Device code shared by the layered kernels (onehot_spmm.cu, gather_linear.cu,
-// conv_stack.cu): a pack-local ELL gather-sum over a whole batch, one
-// output tile of the shared-memory f32 product of fused_model_common.cuh
-// per thread block, a split-K weight-gradient product, column sums and a
-// fixed-order sum of partials.
+// conv_stack.cu, fused_conv.cu): a pack-local ELL gather-sum over a whole
+// batch, one output tile of the shared-memory f32 product of
+// fused_model_common.cuh per thread block, a split-K weight-gradient
+// product, column sums, a fixed-order sum of partials, and from these one
+// conv layer's forward and backward steps.
 //
 // Unlike the whole-model kernels, these run a grid over the whole batch:
 // a block is not a pack.  A row's pack is its row index over the rows per
@@ -125,9 +126,10 @@ inline Operands plain(const float* a, int K_a, const float* b, int ldb, int K) {
 inline Operands no_operands() { return Operands{Rows{nullptr, 0, nullptr, 0, 0}, nullptr, 0, 0}; }
 
 // out = drop_l(act(acc + bias [+ skip·h0])) over rows of width ld; the
-// pre-activation is stored too when `pre` is set.  `drop` is the
-// wrapper's [3, L] table (seeds, thresholds, scales) or nullptr; row m is
-// pack-local row m % rows_per_pack of pack m / rows_per_pack.
+// pre-activation is stored too when `pre` is set, the output only when
+// `out` is.  `drop` is the wrapper's [3, L] table (seeds, thresholds,
+// scales) or nullptr; row m is pack-local row m % rows_per_pack of pack
+// m / rows_per_pack.
 struct LayerEpi {
   const float* bias;
   const float* h0;    // nullptr: no skip term
@@ -143,6 +145,7 @@ struct LayerEpi {
     float v = acc + bias[n];
     if (h0 != nullptr) v = fmaf(*skip, h0[o], v);
     if (pre != nullptr) pre[o] = v;
+    if (out == nullptr) return;
     float y = k_act(act, v);
     if (drop != nullptr) {
       const Dropout d{1, static_cast<unsigned>(drop[l]),
@@ -221,6 +224,106 @@ inline void launch_colsum(const float* a, int N, long long K, int S,
   const long long chunk = (K + S - 1) / S;
   colsum_kernel<<<dim3((N + 255) / 256, S), 256, 0, st>>>(a, N, K, chunk, part);
   launch_sum(part, S, N, out, st);
+}
+
+// One D-MPNN conv layer over the whole batch, as conv_stack.cu (every
+// layer) and fused_conv.cu (one layer) run it: `rows` edge rows in packs
+// of te, messages through edge_nbr [rows, D] minus rev, scaled by
+// 1 / (entries counted) when `mean`.
+struct ConvGraph {
+  const int *edge_nbr, *rev;
+  int D, mean, te;
+  long long rows;
+};
+
+// t = messages(h_in) [rows, Hin] (each row's scale to rscale when set),
+// then drop_l(act(t·W + b + skip·h0)) with W [Hin, H] to `out` and the
+// pre-activation to `pre`, each when set (neither: no product).  out may
+// be h_in: the gather has finished before the product starts.
+inline void conv_layer(const ConvGraph& g, const float* h_in, int Hin,
+                       const float* w, const float* b, const float* skip,
+                       const float* h0, int H, int act, const int* drop,
+                       int L, int l, float* t, float* pre, float* out,
+                       float* rscale, cudaStream_t st) {
+  launch_gather(GatherArgs{h_in, g.te, Hin, g.edge_nbr, g.D, g.rev, nullptr,
+                           g.mean, g.te, g.rows, t, rscale},
+                st);
+  if (pre == nullptr && out == nullptr) return;
+  launch_tile<false, false>(
+      plain(t, Hin, w, H, Hin), no_operands(), static_cast<int>(g.rows), H,
+      LayerEpi{b, h0, skip, act, pre, out, H, drop, L, l, g.te}, st);
+}
+
+// A conv layer's dpre = drop_l'(g)·act'(pre) over the n = rows·H floats,
+// into dpre (which may be pre); with `out` instead (ReLU), dpre is
+// drop_l'(g) where out > 0, else 0, and pre is not read.  Then
+// dh0 = skip·dpre, or dh0 += skip·dpre when `add` (when dh0 is set), and
+// the block's share of Σ dpre·h0 in part[blockIdx.x·L + l]; kReduceBlocks
+// blocks of kThreads, grid-stride.
+__global__ void __launch_bounds__(kThreads)
+    dpre_kernel(const float* g, const float* pre, const float* out,
+                float* dpre, const float* h0, float* dh0, int add,
+                const float* skip, const int* drop, int L, int l, int act,
+                int te, int H, long long n, float* part) {
+  __shared__ float red[kThreads];
+  Dropout dr{0, 0u, 0u, 0u, 1.f};
+  if (drop != nullptr)
+    dr = Dropout{1, static_cast<unsigned>(drop[l]),
+                 static_cast<unsigned>(drop[L + l]), 0u,
+                 __int_as_float(drop[2 * L + l])};
+  const float s = *skip;
+  float dot = 0.f;
+  for (long long i = blockIdx.x * static_cast<long long>(kThreads) +
+                     threadIdx.x;
+       i < n; i += static_cast<long long>(gridDim.x) * kThreads) {
+    float v;
+    if (out != nullptr) {
+      v = out[i] > 0.f ? g[i] * dr.scale : 0.f;
+    } else {
+      const long long r = i / H;
+      float gg = g[i];
+      if (dr.on) {
+        dr.pack = static_cast<unsigned>(r / te);
+        gg = dr.kept(static_cast<int>(r % te), static_cast<int>(i % H))
+                 ? gg * dr.scale
+                 : 0.f;
+      }
+      v = gg * k_dact(act, pre[i]);
+    }
+    dpre[i] = v;
+    dot = fmaf(v, h0[i], dot);
+    if (dh0 != nullptr) dh0[i] = add ? fmaf(s, v, dh0[i]) : s * v;
+  }
+  red[threadIdx.x] = dot;
+  __syncthreads();
+  for (int k = kThreads / 2; k > 0; k >>= 1) {
+    if (threadIdx.x < k) red[threadIdx.x] += red[threadIdx.x + k];
+    __syncthreads();
+  }
+  if (threadIdx.x == 0) part[static_cast<size_t>(blockIdx.x) * L + l] = red[0];
+}
+
+// A conv layer's backward from dpre [rows, H]: dW = tᵀ·dpre and
+// db = Σ_r dpre (split-K partials in wpart, summed in split order), then
+// dt = dpre·Wᵀ and dh = the messages' adjoint applied to dt: a gather
+// through the transposed ELL array edge_nbr_rev, each entry scaled by its
+// forward row's 1/degree (rscale, for mean), minus the rev row.  A null
+// output is skipped.
+inline void conv_layer_bwd(const ConvGraph& g, const int* edge_nbr_rev,
+                           const float* t, int Hin, const float* dpre, int H,
+                           const float* w, const float* rscale, int S,
+                           float* wpart, float* dt, float* dh, float* dw,
+                           float* db, cudaStream_t st) {
+  if (dw != nullptr) launch_wgrad(t, Hin, dpre, H, g.rows, S, wpart, dw, st);
+  if (db != nullptr) launch_colsum(dpre, H, g.rows, S, wpart, db, st);
+  if (dh == nullptr) return;
+  launch_tile<false, true>(plain(dpre, H, w, H, H), no_operands(),
+                           static_cast<int>(g.rows), Hin, StoreEpi{dt, Hin},
+                           st);
+  launch_gather(GatherArgs{dt, g.te, Hin, edge_nbr_rev, g.D, g.rev,
+                           g.mean ? rscale : nullptr, 0, g.te, g.rows, dh,
+                           nullptr},
+                st);
 }
 
 }  // namespace cgr

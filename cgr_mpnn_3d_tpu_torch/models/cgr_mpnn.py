@@ -17,9 +17,18 @@ Parameters keep the JAX pytree's names and layout (``edge_init``,
 
 :func:`apply` routes a batch on the card through the whole-model kernels
 (ops/fused_model.py: the forward kernel, with the VJP kernel as its
-backward) and takes the plain gather ops (ops/segment.py) on the CPU and for
-``capture=True``.  :func:`fused_train_value_and_grad` is the training
-step's compute in one kernel launch per step on the card.
+backward) and takes the plain gather ops (ops/segment.py) on the CPU.
+:func:`fused_train_value_and_grad` is the training step's compute in one
+kernel launch per step on the card.
+
+With ``capture=True`` and the batch's ``spec``, :func:`apply` runs the
+JAX package's per-layer kernel path instead, whatever ``fuse_whole_model``
+says: the node gather x[senders], the readout's incoming sum and the
+pooling through the ELL gather-sum (ops/onehot_spmm.py), and each conv
+layer through the per-layer conv kernel (ops/fused_conv.py), recording
+every layer's output; edge_init's and the readout's products, the mean
+scales and the FFN head are torch.  On the CPU each kernel takes its plain
+version; a CPU batch without ``spec`` keeps the plain gather ops.
 
 With ``CGRMPNNConfig(fuse_whole_model=False)`` (the layered-kernel
 configuration) :func:`apply` runs the network as four differentiable
@@ -48,7 +57,9 @@ import torch
 from torch import nn
 
 from ..data.batch import PackedGraphBatch, PackSpec
+from ..ops._launch import seed_list
 from ..ops.conv_stack import conv_stack
+from ..ops.fused_conv import fused_conv_layer
 from ..ops.fused_model import GRAD_NAMES, fused_model, fused_model_train
 from ..ops.gather_linear import gather_linear
 from ..ops.kernel_math import hash_dropout_keep_full, k_act
@@ -304,6 +315,48 @@ def _layered(model: CGRMPNN, batch: PackedGraphBatch, spec: PackSpec,
     return model.ffn(pooled)[:, 0]
 
 
+def _inv_degree(batch: PackedGraphBatch) -> torch.Tensor:
+    """aggr='mean''s 1 / (in-degree) per node, 0 for a node without
+    incoming edges."""
+    in_deg = (batch.node_inc < batch.senders.shape[0]).sum(dim=1).float()
+    return torch.where(in_deg > 0, 1.0 / in_deg.clamp_min(1.0), 0.0)
+
+
+def _capture(model: CGRMPNN, batch: PackedGraphBatch, spec: PackSpec,
+             train: bool, seeds):
+    """The per-layer kernel forward with every intermediate activation (JAX
+    apply's capture branch with use_pallas): K7 for x[senders], the
+    incoming sum and the pooling, K6 once per conv layer."""
+    cfg = model.cfg
+    kact, p = ACTIVATIONS[cfg.activation], spec.p
+    x, e = batch.node_x.float(), batch.edge_attr.float()
+    F = x.shape[1]
+    wei, wen = model.edge_init, model.edge_to_node
+    x_src = spmm(x, batch.senders[:, None], batch.node_out, p=p)
+    h0 = k_act(kact, x_src @ wei.w[:F] + e @ wei.w[F:] + wei.b)
+    acts = {"h0": h0}
+    skips = _skips(model, x.device)
+    seeds = seed_list(seeds) if train else [None] * cfg.depth
+    h = h0
+    for l, conv in enumerate(model.convs):
+        h = fused_conv_layer(h, h0, batch.edge_nbr, batch.rev,
+                             batch.edge_nbr_rev, conv.w, conv.b, skips[l],
+                             p=p, act=kact, mean=cfg.aggr == "mean",
+                             train=train, seed=seeds[l],
+                             dropout_p=cfg.dropout_ps[l] if train else 0.0)
+        acts[f"h_{l}"] = h
+    s = spmm(h, batch.node_inc, batch.receivers[:, None], p=p)
+    if cfg.aggr == "mean":
+        s = s * _inv_degree(batch)[:, None]
+    hn = k_act(kact, x @ wen.w[:F] + s @ wen.w[F:] + wen.b)
+    acts["s"], acts["h_node"] = s, hn
+    pooled = spmm(hn, batch.graph_nodes, batch.graph_of_node[:, None], p=p)
+    if cfg.pooling == "mean":
+        pooled = pooled * _pool_scale(batch)
+    acts["pooled"] = pooled
+    return model.ffn(pooled)[:, 0], acts
+
+
 def _dropout(h: torch.Tensor, rate: float, seed: int, te: int):
     """The kernels' hash dropout over the stacked [p*te, H] edge states."""
     if rate == 0.0:
@@ -321,36 +374,38 @@ def apply(model: CGRMPNN, batch: PackedGraphBatch, spec: PackSpec | None = None,
     ``seeds[l]``.  With ``capture=True`` also returns a dict of intermediate
     activations.
 
-    A batch on the card goes through the forward kernel, which needs
-    ``spec`` (its pack count); with gradients enabled, through the autograd
-    Function whose backward is the VJP kernel.  The CPU and
-    ``capture=True`` take the plain gather ops (train mode needs ``spec``
-    there too, for the pack-local dropout rows).  With
-    ``cfg.fuse_whole_model`` False and ``spec`` given, the layered kernels
-    run instead (their plain versions on the CPU)."""
+    A batch on the card needs ``spec`` (its pack count) and goes through
+    the forward kernel; with gradients enabled, through the autograd
+    Function whose backward is the VJP kernel.  The CPU takes the plain
+    gather ops (train mode needs ``spec`` there too, for the pack-local
+    dropout rows).  With ``cfg.fuse_whole_model`` False and ``spec`` given,
+    the layered kernels run instead (their plain versions on the CPU).
+    ``capture=True`` with ``spec`` runs the per-layer kernels (see the
+    module doc), on the card and, through their plain versions, on the
+    CPU."""
     cfg = model.cfg
     kact = ACTIVATIONS[cfg.activation]
     x, e = batch.node_x, batch.edge_attr
 
-    if x.device.type == "cuda" and not capture and spec is None:
+    if x.device.type == "cuda" and spec is None:
         raise ValueError("the kernels need the batch's PackSpec")
     if train and (spec is None or seeds is None):
         raise ValueError("train mode needs the batch's PackSpec and the "
                          "per-layer dropout seeds")
-    if not cfg.fuse_whole_model and not capture and spec is not None:
+    if capture and spec is not None:
+        return _capture(model, batch, spec, train, seeds)
+    if not cfg.fuse_whole_model and spec is not None:
         return _layered(model, batch, spec, train, seeds)
-    if x.device.type == "cuda" and not capture:
+    if x.device.type == "cuda":
         return fused_model(kernel_inputs(model, batch), adjoint_inputs(batch),
                            **_kernel_kw(cfg, spec, train, seeds))
-    if train:
-        seed_list = [int(s) for s in seeds]
+    layer_seeds = seed_list(seeds) if train else None
 
     x, e = x.float(), e.float()
     ET = batch.senders.shape[0]
     acts: dict[str, torch.Tensor] = {}
     if cfg.aggr == "mean":
-        in_deg = (batch.node_inc < ET).sum(dim=1).float()
-        inv_deg = torch.where(in_deg > 0, 1.0 / in_deg.clamp_min(1.0), 0.0)
+        inv_deg = _inv_degree(batch)
         norm = gather_nodes(inv_deg[:, None], batch.senders)[:, 0]
     else:
         norm = torch.ones(ET, device=x.device)
@@ -367,7 +422,7 @@ def apply(model: CGRMPNN, batch: PackedGraphBatch, spec: PackSpec | None = None,
         t = dmpnn_messages(h, batch.edge_nbr, batch.rev, norm)
         h = k_act(kact, model.convs[l](t) + skips[l] * h0)
         if train:
-            h = _dropout(h, cfg.dropout_ps[l], seed_list[l], spec.te)
+            h = _dropout(h, cfg.dropout_ps[l], layer_seeds[l], spec.te)
         if capture:
             acts[f"h_{l}"] = h
 

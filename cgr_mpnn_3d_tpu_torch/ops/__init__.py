@@ -1,21 +1,27 @@
 """Compute primitives: plain-torch gather ops (the oracle), the kernels'
-elementwise helpers, the whole-model kernels (forward, training step, VJP)
-and the layered kernels (gather-linear, conv stack, ELL gather-sum, each
-forward and backward), with their plain versions.  The launch counts live
-on the modules: ``ops.fused_model.launches``, ``train_launches`` and
-``vjp_launches``; ``launches`` and ``bwd_launches`` of
-``ops.gather_linear``, ``ops.conv_stack`` and ``ops.onehot_spmm``.  The
-wrappers ``fused_model``, ``gather_linear``, ``conv_stack`` and
-``onehot_spmm`` are not re-exported here, where their names would hide
-the modules.
+elementwise helpers, the whole-model kernels (forward, training step, VJP),
+the layered kernels (gather-linear, conv stack, ELL gather-sum, each
+forward and backward), capture mode's per-layer conv kernel (forward and
+backward) and the activation-chain probe's kernel, with their plain
+versions.  The launch counts live on the modules:
+``ops.fused_model.launches``, ``train_launches`` and ``vjp_launches``;
+``launches`` and ``bwd_launches`` of ``ops.gather_linear``,
+``ops.conv_stack``, ``ops.onehot_spmm`` and ``ops.fused_conv``;
+``ops.act_chain.launches``.  The wrappers ``fused_model``,
+``gather_linear``, ``conv_stack``, ``onehot_spmm`` and ``act_chain`` are
+not re-exported here, where their names would hide the modules.
 """
 
+from .act_chain import act_chain_ref
 from .conv_stack import (conv_stack_backward, conv_stack_backward_ref,
                          conv_stack_forward, conv_stack_forward_ref)
 from .fused_model import (fused_model_forward,
                           fused_model_forward_ref, fused_model_train,
                           fused_model_train_ref, fused_model_vjp,
                           fused_model_vjp_ref)
+from .fused_conv import (fused_conv_backward, fused_conv_backward_ref,
+                         fused_conv_forward, fused_conv_layer,
+                         fused_conv_layer_ref)
 from .gather_linear import (gather_linear_backward,
                             gather_linear_backward_ref,
                             gather_linear_forward, gather_linear_forward_ref)
@@ -26,7 +32,9 @@ from .segment import (dmpnn_messages, ext_zero_row, gather_nodes,
                       graph_pool_sum, in_pack, node_incoming_sum,
                       pack_gather_sum)
 
-__all__ = ["conv_stack_backward", "conv_stack_backward_ref",
+__all__ = ["act_chain_ref", "fused_conv_backward", "fused_conv_backward_ref",
+           "fused_conv_forward", "fused_conv_layer", "fused_conv_layer_ref",
+           "conv_stack_backward", "conv_stack_backward_ref",
            "conv_stack_forward", "conv_stack_forward_ref",
            "gather_linear_backward", "gather_linear_backward_ref",
            "gather_linear_forward", "gather_linear_forward_ref",

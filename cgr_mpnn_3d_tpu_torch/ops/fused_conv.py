@@ -1,0 +1,253 @@
+"""One D-MPNN conv layer (K6): its wrappers, plain versions and autograd
+Function.
+
+The counterpart of ``cgr_mpnn_3d_tpu/ops/pallas_fused.py::fused_conv_layer``
+(``_fwd_call``, ``_bwd_call``), which capture mode runs once per layer.
+Over the edge states of p packs of te rows:
+
+    t   = scale · sum_d h[edge_nbr[:, d]] - h[rev]
+    out = drop(act(t · w + b + skip · h0))
+
+with ``h`` [p*te, Hin], ``w`` [Hin, H], ``h0`` and ``out`` [p*te, H], ``b``
+[H] and ``skip`` a 0-dim tensor (the learnable skip weight, or a constant
+1); ``scale`` is 1, or 1 / (entries counted) when ``mean`` (the rev term
+stays unscaled).  Train mode takes one int32 ``seed`` and one drop rate:
+the TPU kernels' hash dropout (ops/kernel_math.py), bit for bit.  The
+backward takes the transposed ELL array ``edge_nbr_rev`` and the forward's
+output, and returns (dh, dh0, dw, db, dskip).
+
+* :func:`fused_conv_forward` / :func:`fused_conv_backward` launch
+  ``csrc/fused_conv.cu`` for CUDA tensors or raise, and take
+  :func:`fused_conv_layer_ref` / :func:`fused_conv_backward_ref` (autograd
+  through the plain forward) only for CPU tensors;
+* :func:`fused_conv_layer` is the forward differentiable in h, h0, w, b and
+  skip, with the backward kernel as its backward on the card.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from ._launch import (I32, PTR, check_cuda, check_train, drop_table, library,
+                      ptr, raise_on, refuse_grad, split_k, stream)
+from .kernel_math import (KERNEL_ACTS, hash_dropout_keep_full, k_act,
+                          mean_colscale)
+from .segment import dmpnn_messages, in_pack
+
+__all__ = ["fused_conv_forward", "fused_conv_layer_ref",
+           "fused_conv_backward", "fused_conv_backward_ref",
+           "fused_conv_layer", "launches", "bwd_launches"]
+
+# kernel launches by the wrappers (nothing else adds here)
+launches = 0
+bwd_launches = 0
+
+_SIGNATURES = {
+    "cgr_fused_conv_fwd": ([PTR] * 10 + [I32] * 7 + [PTR], I32),
+    "cgr_fused_conv_bwd": ([PTR] * 17 + [I32] * 8 + [PTR], I32),
+    "cgr_fused_conv_bwd_scratch_floats": ([I32] * 5, ctypes.c_longlong),
+}
+_INDEX_NAMES = {"edge_nbr", "rev", "edge_nbr_rev"}
+
+
+def _check(args: dict, p: int, act: str, train: bool, seed,
+           dropout_p: float) -> None:
+    if act not in KERNEL_ACTS:
+        raise ValueError(f"unsupported kernel activation {act!r}")
+    h, edge_nbr, w = args["h"], args["edge_nbr"], args["w"]
+    if p < 1 or h.shape[0] % p:
+        raise ValueError(f"rows of h {tuple(h.shape)} must split into p={p} "
+                         f"packs")
+    ET, (Hin, H) = h.shape[0], w.shape
+    D = edge_nbr.shape[1] if edge_nbr.dim() == 2 else -1
+    want = dict(h=(ET, Hin), h0=(ET, H), edge_nbr=(ET, D), rev=(ET,),
+                edge_nbr_rev=(ET, D), w=(Hin, H), b=(H,), skip=(),
+                out=(ET, H), g=(ET, H))
+    for name, tsr in args.items():
+        if tuple(tsr.shape) != want[name]:
+            raise ValueError(f"{name} has shape {tuple(tsr.shape)}, "
+                             f"expected {want[name]}")
+    check_train(train, None if seed is None else [seed], (dropout_p,), 1)
+
+
+def fused_conv_layer_ref(h, h0, edge_nbr, rev, w, b, skip, *, p: int,
+                         act: str = "relu", mean: bool = False,
+                         train: bool = False, seed=None,
+                         dropout_p: float = 0.0) -> torch.Tensor:
+    """Plain PyTorch version of the forward (any device), differentiable:
+    ``dmpnn_messages`` over the ELL arrays with every index outside its
+    row's pack sent to the sentinel, then the layer."""
+    _check(dict(h=h, h0=h0, edge_nbr=edge_nbr, rev=rev, w=w, b=b, skip=skip),
+           p, act, train, seed, dropout_p)
+    ET, H = h0.shape
+    nbr, valid = in_pack(edge_nbr, p, ET)
+    norm = mean_colscale(valid) if mean else torch.ones(ET, device=h.device)
+    t = dmpnn_messages(h, nbr, in_pack(rev, p, ET)[0], norm)
+    out = k_act(act, t @ w + b + skip * h0)
+    if train and dropout_p > 0.0:
+        keep = hash_dropout_keep_full(ET, H, ET // p, int(seed), dropout_p,
+                                      device=h.device)
+        out = torch.where(keep, out * (1.0 / (1.0 - dropout_p)), 0.0)
+    return out
+
+
+def fused_conv_backward_ref(h, h0, edge_nbr, rev, edge_nbr_rev, w, b, skip,
+                            out, g, *, p: int, act: str = "relu",
+                            mean: bool = False, train: bool = False,
+                            seed=None, dropout_p: float = 0.0):
+    """Plain version of the backward: (dh, dh0, dw, db, dskip) by autograd
+    through :func:`fused_conv_layer_ref`; ``edge_nbr_rev`` and ``out`` are
+    only checked."""
+    _check(dict(h=h, h0=h0, edge_nbr=edge_nbr, rev=rev,
+                edge_nbr_rev=edge_nbr_rev, w=w, b=b, skip=skip, out=out, g=g),
+           p, act, train, seed, dropout_p)
+    with torch.enable_grad():
+        ins = [t.detach().requires_grad_() for t in (h, h0, w, b, skip)]
+        y = fused_conv_layer_ref(ins[0], ins[1], edge_nbr, rev, *ins[2:], p=p,
+                                 act=act, mean=mean, train=train, seed=seed,
+                                 dropout_p=dropout_p)
+        grads = torch.autograd.grad(y, ins, g)
+    return tuple(grads)
+
+
+def _lib():
+    return library("fused_conv", _SIGNATURES)
+
+
+def _dims(h, h0, edge_nbr, p: int) -> list[int]:
+    return [p, h.shape[0] // p, h.shape[1], h0.shape[1], edge_nbr.shape[1]]
+
+
+def _drop(train: bool, seed, dropout_p: float, device):
+    return drop_table(train, None if seed is None else [seed], (dropout_p,),
+                      device)
+
+
+def _launch_fwd(h, h0, edge_nbr, rev, w, b, skip, p, act, mean, train, seed,
+                dropout_p) -> torch.Tensor:
+    args = dict(h=h, h0=h0, edge_nbr=edge_nbr, rev=rev, w=w, b=b, skip=skip)
+    _check(args, p, act, train, seed, dropout_p)
+    check_cuda(args, h.device, _INDEX_NAMES)
+    dev = h.device
+    t = torch.empty_like(h)
+    out = torch.empty_like(h0)
+    drop = _drop(train, seed, dropout_p, dev)
+    lib = _lib()
+    with torch.cuda.device(dev):
+        err = lib.cgr_fused_conv_fwd(
+            *(x.data_ptr() for x in (h, h0, edge_nbr, rev, w, b, skip)),
+            ptr(drop), t.data_ptr(), out.data_ptr(),
+            *_dims(h, h0, edge_nbr, p), KERNEL_ACTS.index(act), int(mean),
+            stream(dev))
+    raise_on(lib, err, "fused_conv_fwd")
+    return out
+
+
+def fused_conv_forward(h, h0, edge_nbr, rev, w, b, skip, *, p: int,
+                       act: str = "relu", mean: bool = False,
+                       train: bool = False, seed=None,
+                       dropout_p: float = 0.0) -> torch.Tensor:
+    """The forward -> out [p*te, H] f32.  CUDA tensors launch
+    ``csrc/fused_conv.cu`` or raise; CPU tensors take
+    :func:`fused_conv_layer_ref`.  Floats are float32, indices int32, all
+    contiguous.  No backward: call :func:`fused_conv_layer` for one."""
+    global launches
+    kw = dict(p=p, act=act, mean=mean, train=train, seed=seed,
+              dropout_p=dropout_p)
+    if h.device.type == "cpu":
+        return fused_conv_layer_ref(h, h0, edge_nbr, rev, w, b, skip, **kw)
+    if h.device.type != "cuda":
+        raise ValueError(f"unsupported device {h.device}")
+    refuse_grad((h, h0, w, b, skip), "fused_conv", "fused_conv_layer()")
+    out = _launch_fwd(h, h0, edge_nbr, rev, w, b, skip, **kw)
+    launches += 1
+    return out
+
+
+def _launch_bwd(h, h0, edge_nbr, rev, edge_nbr_rev, w, b, skip, out, g, p,
+                act, mean, train, seed, dropout_p, needs):
+    args = dict(h=h, h0=h0, edge_nbr=edge_nbr, rev=rev,
+                edge_nbr_rev=edge_nbr_rev, w=w, b=b, skip=skip, out=out, g=g)
+    _check(args, p, act, train, seed, dropout_p)
+    check_cuda(args, h.device, _INDEX_NAMES)
+    dev = h.device
+    dims = _dims(h, h0, edge_nbr, p)
+    S = split_k(h.shape[0])
+    lib = _lib()
+    n_scratch = lib.cgr_fused_conv_bwd_scratch_floats(*dims[:4], S)
+    scratch = torch.empty(n_scratch, device=dev, dtype=torch.float32)
+    grads = [torch.empty_like(t) if need else None
+             for t, need in zip((h, h0, w, b, skip), needs)]
+    drop = _drop(train, seed, dropout_p, dev)
+    with torch.cuda.device(dev):
+        err = lib.cgr_fused_conv_bwd(
+            *(x.data_ptr() for x in (h, h0, edge_nbr, rev, edge_nbr_rev, w, b,
+                                     skip)),
+            ptr(drop), out.data_ptr(), g.data_ptr(), *(ptr(x) for x in grads),
+            scratch.data_ptr(), *dims, KERNEL_ACTS.index(act), int(mean), S,
+            stream(dev))
+    raise_on(lib, err, "fused_conv_bwd")
+    return tuple(grads)
+
+
+def fused_conv_backward(h, h0, edge_nbr, rev, edge_nbr_rev, w, b, skip, out,
+                        g, *, p: int, act: str = "relu", mean: bool = False,
+                        train: bool = False, seed=None,
+                        dropout_p: float = 0.0, needs=(True,) * 5):
+    """(dh, dh0, dw, db, dskip) from the cotangent ``g`` of the forward's
+    output ``out``; an entry whose ``needs`` flag is False is None (and not
+    computed on the card).  CUDA tensors launch ``csrc/fused_conv.cu`` or
+    raise; CPU tensors take :func:`fused_conv_backward_ref`."""
+    global bwd_launches
+    kw = dict(p=p, act=act, mean=mean, train=train, seed=seed,
+              dropout_p=dropout_p)
+    if h.device.type == "cpu":
+        grads = fused_conv_backward_ref(h, h0, edge_nbr, rev, edge_nbr_rev, w,
+                                        b, skip, out, g, **kw)
+        return tuple(d if need else None for d, need in zip(grads, needs))
+    grads = _launch_bwd(h, h0, edge_nbr, rev, edge_nbr_rev, w, b, skip, out,
+                        g, **kw, needs=needs)
+    bwd_launches += 1
+    return grads
+
+
+class _FusedConv(torch.autograd.Function):
+    """Forward: the forward kernel.  Backward: the backward kernel, which
+    recomputes the messages from the saved h, h0 and output."""
+
+    @staticmethod
+    def forward(ctx, kw, edge_nbr, rev, edge_nbr_rev, h, h0, w, b, skip):
+        global launches
+        out = _launch_fwd(h, h0, edge_nbr, rev, w, b, skip, **kw)
+        launches += 1
+        ctx.kw = kw
+        ctx.save_for_backward(edge_nbr, rev, edge_nbr_rev, h, h0, w, b, skip,
+                              out)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        global bwd_launches
+        edge_nbr, rev, edge_nbr_rev, h, h0, w, b, skip, out = ctx.saved_tensors
+        grads = _launch_bwd(h, h0, edge_nbr, rev, edge_nbr_rev, w, b, skip,
+                            out, g.contiguous(), **ctx.kw,
+                            needs=ctx.needs_input_grad[4:])
+        bwd_launches += 1
+        return (None,) * 4 + grads
+
+
+def fused_conv_layer(h, h0, edge_nbr, rev, edge_nbr_rev, w, b, skip, *,
+                     p: int, act: str = "relu", mean: bool = False,
+                     train: bool = False, seed=None,
+                     dropout_p: float = 0.0) -> torch.Tensor:
+    """The layer, differentiable in h, h0, w, b and skip: on the card the
+    forward kernel with the backward kernel as its backward, on the CPU
+    :func:`fused_conv_layer_ref` under autograd."""
+    kw = dict(p=p, act=act, mean=mean, train=train, seed=seed,
+              dropout_p=dropout_p)
+    if h.device.type == "cpu":
+        return fused_conv_layer_ref(h, h0, edge_nbr, rev, w, b, skip, **kw)
+    return _FusedConv.apply(kw, edge_nbr, rev, edge_nbr_rev, h, h0, w, b,
+                            skip)

@@ -52,7 +52,26 @@ Phases (any failure raises, and the script exits non-zero):
    whole-model configuration on the card; per-epoch RMSEs held to each
    other, every step launching the backward kernels of K5, K4 and K7 and no
    K2; steps/s of both configurations and a profiled layered epoch;
-10. a ``{"kernels": [...]}`` line, then ``{"ok": true, "device": {...}}`` as
+10. capture mode (``apply(capture=True)``: the ELL gather-sum K7 for
+   x[senders], the incoming sum and the pooling, the per-layer conv kernel
+   K6 once per layer): K6 against its plain version forward and backward
+   (eval and train mode at full width on the synthetic batch and on the
+   corpus training batch, with times and f32 bounds; SiLU and GELU with
+   mean and learnable skips at small width; Hin != H), its backward rerun
+   bit for bit; capture on the card against capture through the plain
+   versions on the card (every batch) and on the CPU (small batches) in
+   every activation, and against the layered path and K3f (predictions)
+   and K2 (gradients, train mode under the same seeds), with its launch
+   counts;
+11. the eight cases of ``tests/goldens/reference_gnn.npz`` (the original
+   model's activations) through capture mode on the card;
+12. the activation-chain probe P1: the probe at its defaults
+   (``tools/gelu_roofline.py``), its kernel against its plain version on
+   the probe's input, and a layered training step with ReLU and with GELU
+   against the probe's prediction;
+13. the per-op timing CLI ``cli/bench_ops.py`` at its defaults, then every
+   kernel it times against its plain version on its te = 512 batch;
+14. a ``{"kernels": [...]}`` line, then ``{"ok": true, "device": {...}}`` as
    the last line.
 
 It exits non-zero, printing no result, without CUDA or without the package
@@ -104,6 +123,10 @@ def l1(a, b) -> float:
     a = torch.cat([t.double().flatten() for t in a])
     b = torch.cat([t.double().flatten() for t in b])
     return float((a - b).abs().sum() / b.abs().sum())
+
+
+def _f64(ts) -> list:
+    return [t.double() if t.is_floating_point() else t for t in ts]
 
 
 def rel_err(got, ref, mask) -> tuple[float, float]:
@@ -805,9 +828,6 @@ def layered_kernels(cfg_kw: dict, spec, batch, seed: int,
     def rand(*shape):
         return torch.randn(shape, generator=gen).to(dev)
 
-    def f64(ts):
-        return [t.double() if t.is_floating_point() else t for t in ts]
-
     out: dict = dict(p=p, graphs=int((b.graph_mask > 0).sum()))
     with torch.no_grad():
         h0 = gl.gather_linear_forward(x, e, senders, *w_init, p=p, act=act)
@@ -840,18 +860,18 @@ def layered_kernels(cfg_kw: dict, spec, batch, seed: int,
         hold(out, "K5 readout bwd", gl.gather_linear_backward(
             *bwd_read, **kw_r), gl.gather_linear_backward_ref(
             *bwd_read, **kw_r), relu, lambda: gl.gather_linear_backward_ref(
-            *f64(bwd_read), **kw_r))
+            *_f64(bwd_read), **kw_r))
         bwd_stack = (h0, *msg, b.edge_nbr_rev, *stack, g_h)
         hold(out, "K4 bwd train", cs.conv_stack_backward(
             *bwd_stack, **kw_s, **train), cs.conv_stack_backward_ref(
             *bwd_stack, **kw_s, **train), relu,
-            lambda: cs.conv_stack_backward_ref(*f64(bwd_stack), **kw_s,
+            lambda: cs.conv_stack_backward_ref(*_f64(bwd_stack), **kw_s,
                                                **train))
         bwd_init = (x, e, senders, b.node_out, *w_init, h0, g_h0)
         hold(out, "K5 edge_init bwd", gl.gather_linear_backward(
             *bwd_init, p=p, act=act), gl.gather_linear_backward_ref(
             *bwd_init, p=p, act=act), relu,
-            lambda: gl.gather_linear_backward_ref(*f64(bwd_init), p=p,
+            lambda: gl.gather_linear_backward_ref(*_f64(bwd_init), p=p,
                                                   act=act))
         torch.cuda.synchronize()
         if not repeats:
@@ -908,13 +928,15 @@ def layered_kernels(cfg_kw: dict, spec, batch, seed: int,
 
 def print_layered(what: str, k: dict, card: str) -> None:
     for name, e in k.items():
-        if not isinstance(e, dict):
+        if not isinstance(e, dict) or "abs_err" not in e:
             continue
         line = (f"{name} {what}: {k['graphs']} graphs in {k['p']} packs, "
                 f"max abs err {e['abs_err']:.3e}, rel {e['rel_err']:.3e}")
         if "l1" in e:
             line += (f"; vector L1 vs plain {e['l1']:.3e}, vs float64: kernel "
                      f"{e['l1_64'][0]:.3e}, f32 plain {e['l1_64'][1]:.3e}")
+        if "l1_layered_64" in e:
+            line += f", layered {e['l1_layered_64']:.3e}"
         if "l1_k2_64" in e:
             line += f", K2 {e['l1_k2_64']:.3e}"
         if "ms" in e:
@@ -938,14 +960,9 @@ def layered_vs_whole(cfg_kw: dict, spec, batch, seed: int) -> dict:
     plain version."""
     import dataclasses
     import torch
-    from cgr_mpnn_3d_tpu_torch.models import (CGRMPNN, CGRMPNNConfig,
-                                              adjoint_inputs, apply,
+    from cgr_mpnn_3d_tpu_torch.models import (CGRMPNN, CGRMPNNConfig, apply,
                                               fused_train_value_and_grad,
-                                              init_params, kernel_inputs,
-                                              kernel_grads_to_params,
-                                              kernel_seeds)
-    from cgr_mpnn_3d_tpu_torch.models.cgr_mpnn import ACTIVATIONS
-    from cgr_mpnn_3d_tpu_torch.ops import fused_model as fm
+                                              init_params, kernel_seeds)
     from cgr_mpnn_3d_tpu_torch.train import sse_loss
     cfg = CGRMPNNConfig(**cfg_kw)
     gen = torch.Generator().manual_seed(seed)
@@ -967,30 +984,42 @@ def layered_vs_whole(cfg_kw: dict, spec, batch, seed: int) -> dict:
     hold(out, "sse", sse_l.detach(), sse_w)
     g_w = [w.grad for w in whole.parameters()]
     g_l = [w.grad for w in layered.parameters()]
-    kw = dict(p=spec.p, act=ACTIVATIONS[cfg.activation], aggr=cfg.aggr,
-              pooling=cfg.pooling, train=True, seeds=seeds.tolist(),
-              dropout_ps=cfg.dropout_ps)
-
-    def plain(dtype):
-        with torch.no_grad():
-            args = [t.to(dtype) if t.is_floating_point() else t
-                    for t in kernel_inputs(whole, batch)]
-            g = fm.fused_model_train_ref(args, adjoint_inputs(batch),
-                                         batch.labels.to(dtype),
-                                         batch.graph_mask.to(dtype), **kw)[1]
-        # the 11 kernel gradients in the parameters' order and shapes
-        scratch = CGRMPNN(cfg).to(device=dev, dtype=dtype)
-        kernel_grads_to_params(scratch, g)
-        return [w.grad for w in scratch.parameters()]
     if cfg.activation != "ReLU":
         hold(out, "grads", g_l, g_w)
         return out
     # ReLU: the layered gradients against float64, next to the f32 plain
     # version's distance (and, for the record, K2's)
-    ex = plain(torch.float64)
-    hold(out, "grads", g_l, plain(torch.float32), True, lambda: ex)
+    ex = k2_plain_grads(whole, batch, spec, seeds, torch.float64)
+    hold(out, "grads", g_l, k2_plain_grads(whole, batch, spec, seeds,
+                                           torch.float32), True, lambda: ex)
     out["grads"]["l1_k2_64"] = l1(g_w, ex)
     return out
+
+
+def k2_plain_grads(model, batch, spec, seeds, dtype) -> list:
+    """The training kernel's plain version (``fused_model_train_ref``) on
+    ``model``'s weights in ``dtype``, in train mode under ``seeds``: the
+    gradients in the parameters' order and shapes."""
+    import torch
+    from cgr_mpnn_3d_tpu_torch.models import (CGRMPNN, adjoint_inputs,
+                                              kernel_grads_to_params,
+                                              kernel_inputs)
+    from cgr_mpnn_3d_tpu_torch.models.cgr_mpnn import ACTIVATIONS
+    from cgr_mpnn_3d_tpu_torch.ops import fused_model as fm
+    cfg = model.cfg
+    kw = dict(p=spec.p, act=ACTIVATIONS[cfg.activation], aggr=cfg.aggr,
+              pooling=cfg.pooling, train=True, seeds=[int(s) for s in seeds],
+              dropout_ps=cfg.dropout_ps)
+    with torch.no_grad():
+        args = [t.to(dtype) if t.is_floating_point() else t
+                for t in kernel_inputs(model, batch)]
+        g = fm.fused_model_train_ref(args, adjoint_inputs(batch),
+                                     batch.labels.to(dtype),
+                                     batch.graph_mask.to(dtype), **kw)[1]
+    # the 11 kernel gradients in the parameters' order and shapes
+    scratch = CGRMPNN(cfg).to(device=batch.node_x.device, dtype=dtype)
+    kernel_grads_to_params(scratch, g)
+    return [w.grad for w in scratch.parameters()]
 
 
 def serve_layered(tmp: Path, seed: int, card: str) -> dict:
@@ -1190,6 +1219,507 @@ def train_layered(tmp: Path, seed: int, card: str) -> dict:
     return dict(launches=launches, steps=steps, rates=rates, rel=rel)
 
 
+def conv_cost(h, h0, edge_nbr, rev, w, p: int, edges: int, backward: bool,
+              relu: bool = True) -> tuple[float, float]:
+    """(operations, bytes) of one conv layer (K6) on these inputs over the
+    real edges: the product t·W and the message adds; backward the
+    recomputed messages (and, for SiLU and GELU, the recomputed product),
+    dt = dpre·Wᵀ, dW = tᵀ·dpre, the adjoint's adds, db, dskip and dh0.
+    Bytes: every input read once (backward: edge_nbr_rev, the output and
+    its cotangent too), every output written once."""
+    from cgr_mpnn_3d_tpu_torch.ops.segment import in_pack
+    ET, Hin = h.shape
+    H = w.shape[1]
+    adds = (int(in_pack(edge_nbr, p, ET)[1].sum())
+            + int(in_pack(rev, p, ET)[1].sum())) * Hin
+    prod = 2 * edges * Hin * H
+    ins = (h.numel() + h0.numel() + edge_nbr.numel() + rev.numel()
+           + Hin * H + H + 1)
+    if not backward:
+        return float(prod + adds), float((ins + ET * H) * 4)
+    ops = 2 * adds + (0 if relu else prod) + 2 * prod + 4 * edges * H
+    nbytes = (ins + edge_nbr.numel() + 2 * ET * H
+              + h.numel() + h0.numel() + Hin * H + H + 1)
+    return float(ops), float(nbytes * 4)
+
+
+def fused_conv_kernels(cfg_kw: dict, spec, batch, seed: int,
+                       repeats: int) -> dict:
+    """The per-layer conv kernel K6 against its plain version on the inputs
+    capture mode gives its second layer (h = the first layer's output, h0 =
+    edge_init's), with seeded weights and cotangents: the forward in eval
+    and train mode (the config's dropout of that layer), the backward in
+    train mode -- each output at REL_TOL, with ReLU by the float64 rule of
+    hold -- and a second backward run, which must equal the first bit for
+    bit.  With ``repeats``: times of the eval forward and the backward, and
+    their f32 bounds."""
+    import torch
+    from cgr_mpnn_3d_tpu_torch.models import (CGRMPNNConfig, apply,
+                                              init_params)
+    from cgr_mpnn_3d_tpu_torch.models.cgr_mpnn import ACTIVATIONS, _skips
+    from cgr_mpnn_3d_tpu_torch.ops import fused_conv as fc
+    cfg = CGRMPNNConfig(**cfg_kw)
+    gen = torch.Generator().manual_seed(seed)
+    b = batch
+    dev = b.node_x.device
+    model = init_params(cfg, gen, dev)
+    p, act = spec.p, ACTIVATIONS[cfg.activation]
+    relu = act == "relu"
+    with torch.no_grad():
+        if cfg.use_learnable_skip:
+            for w in model.skip_weights:
+                w.copy_(torch.rand((), generator=gen) * 2.0 - 0.5)
+        _, acts = apply(model, b, spec, capture=True)
+        ws = (model.convs[1].w.detach(), model.convs[1].b.detach(),
+              _skips(model, dev)[1].detach())
+    ins = (acts["h_0"], acts["h0"], b.edge_nbr, b.rev)
+    bwd = (*ins, b.edge_nbr_rev, *ws)
+    kw = dict(p=p, act=act, mean=cfg.aggr == "mean")
+    train = dict(kw, train=True, dropout_p=cfg.dropout_ps[1],
+                 seed=int(torch.randint(0, 2**31 - 1, (), generator=gen)))
+    g = torch.randn(acts["h0"].shape, generator=gen).to(dev)
+    E = int((b.senders < b.node_x.shape[0]).sum())
+    out: dict = dict(p=p, graphs=int((b.graph_mask > 0).sum()))
+    with torch.no_grad():
+        hold(out, "K6 fwd eval", fc.fused_conv_forward(*ins, *ws, **kw),
+             fc.fused_conv_layer_ref(*ins, *ws, **kw))
+        y, y_ref = (fc.fused_conv_forward(*ins, *ws, **train),
+                    fc.fused_conv_layer_ref(*ins, *ws, **train))
+        hold(out, "K6 fwd train", y, y_ref)
+        grads = fc.fused_conv_backward(*bwd, y, g, **train)
+        hold(out, "K6 bwd train", grads, fc.fused_conv_backward_ref(
+            *bwd, y_ref, g, **train), relu,
+            lambda: fc.fused_conv_backward_ref(*_f64(bwd), y_ref.double(),
+                                               g.double(), **train))
+        again = fc.fused_conv_backward(*bwd, y, g, **train)
+        torch.cuda.synchronize()
+        check(all(torch.equal(x, z) for x, z in zip(grads, again)),
+              "two runs of K6's backward differ")
+        if repeats:
+            _timed(out["K6 fwd eval"],
+                   lambda: fc.fused_conv_forward(*ins, *ws, **kw),
+                   lambda: fc.fused_conv_layer_ref(*ins, *ws, **kw), repeats,
+                   conv_cost(ins[0], ins[1], b.edge_nbr, b.rev, ws[0], p, E,
+                             False))
+            _timed(out["K6 bwd train"],
+                   lambda: fc.fused_conv_backward(*bwd, y, g, **train),
+                   lambda: fc.fused_conv_backward_ref(*bwd, y_ref, g,
+                                                      **train), repeats,
+                   conv_cost(ins[0], ins[1], b.edge_nbr, b.rev, ws[0], p, E,
+                             True, relu))
+    return out
+
+
+def fused_conv_hin(spec, batch, seed: int) -> dict:
+    """K6 with Hin = 24 != H = 40 (GELU, mean, dropout 0.2, skip 0.8) on
+    seeded random inputs, forward and backward, each output at REL_TOL."""
+    import torch
+    from cgr_mpnn_3d_tpu_torch.ops import fused_conv as fc
+    gen = torch.Generator().manual_seed(seed)
+    b = batch
+    dev = b.node_x.device
+    ET = b.edge_nbr.shape[0]
+
+    def rand(*shape, scale=1.0):
+        return (torch.randn(shape, generator=gen) * scale).to(dev)
+    ins = (rand(ET, 24), rand(ET, 40), b.edge_nbr, b.rev)
+    ws = (rand(24, 40, scale=0.2), rand(40, scale=0.1),
+          torch.tensor(0.8, device=dev))
+    kw = dict(p=spec.p, act="gelu", mean=True, train=True, seed=12345,
+              dropout_p=0.2)
+    out: dict = dict(p=spec.p, graphs=int((b.graph_mask > 0).sum()))
+    with torch.no_grad():
+        y = fc.fused_conv_forward(*ins, *ws, **kw)
+        y_ref = fc.fused_conv_layer_ref(*ins, *ws, **kw)
+        hold(out, "K6 fwd Hin 24", y, y_ref)
+        g = rand(*y.shape)
+        hold(out, "K6 bwd Hin 24", fc.fused_conv_backward(
+            *ins, b.edge_nbr_rev, *ws, y, g, **kw),
+            fc.fused_conv_backward_ref(*ins, b.edge_nbr_rev, *ws, y_ref, g,
+                                       **kw))
+    return out
+
+
+def capture_plain(model, batch, spec):
+    """``apply(capture=True)`` with the plain versions of K7 and K6 in
+    place of their wrappers, on the batch's own device (the plain versions
+    run on any device); no launch is counted."""
+    from cgr_mpnn_3d_tpu_torch.models import apply
+    from cgr_mpnn_3d_tpu_torch.models import cgr_mpnn as cm
+    from cgr_mpnn_3d_tpu_torch.ops import fused_conv as fc
+    from cgr_mpnn_3d_tpu_torch.ops import onehot_spmm as sp
+
+    def spmm_ref(src, idx, idx_bwd, sign=None, sign_bwd=None, *, p):
+        return sp.onehot_spmm_ref(src, idx, sign, p=p)
+
+    def conv_ref(h, h0, edge_nbr, rev, edge_nbr_rev, w, b, skip, **kw):
+        return fc.fused_conv_layer_ref(h, h0, edge_nbr, rev, w, b, skip, **kw)
+    wrappers = cm.spmm, cm.fused_conv_layer
+    cm.spmm, cm.fused_conv_layer = spmm_ref, conv_ref
+    try:
+        return apply(model, batch, spec, capture=True)
+    finally:
+        cm.spmm, cm.fused_conv_layer = wrappers
+
+
+def capture_vs_paths(cfg_kw: dict, spec, batch, seed: int, on_cpu: bool,
+                     repeats: int = 0) -> dict:
+    """Capture mode (``apply(capture=True)``: K7 for x[senders], the
+    incoming sum and the pooling, K6 per layer) on the card against the
+    other paths, one model with seeded weights.  Eval: every activation
+    and the predictions against capture through the plain versions on the
+    card (capture_plain) and, with ``on_cpu``, against the CPU's capture;
+    the predictions against the layered path's and K3f's.
+    Train mode under the same dropout seeds: the SSE and the parameter
+    gradients (autograd through K6's and K7's backward kernels) against the
+    layered path's and K2's, at REL_TOL output by output -- for ReLU by the
+    rule of hold against the float64 evaluation of K2's plain version.  The
+    train-mode run is the main path of capture mode: the counts are zeroed
+    just before it and read just after, and must show 3 K7 and depth K6
+    launches forward, 2 K7 (node features take no gradient, so x[senders]
+    has no backward) and depth K6 backward, and no other kernel.  With
+    ``repeats``: the forward's time in the three paths (capture, layered,
+    K3f), a training step's forward and backward in capture and layered
+    mode, and the card's time by kernel in one capture forward."""
+    import dataclasses
+    import torch
+    from cgr_mpnn_3d_tpu_torch.models import (CGRMPNN, CGRMPNNConfig, apply,
+                                              fused_train_value_and_grad,
+                                              init_params, kernel_seeds)
+    from cgr_mpnn_3d_tpu_torch.ops import conv_stack as cs
+    from cgr_mpnn_3d_tpu_torch.ops import fused_conv as fc
+    from cgr_mpnn_3d_tpu_torch.ops import fused_model as fm
+    from cgr_mpnn_3d_tpu_torch.ops import gather_linear as gl
+    from cgr_mpnn_3d_tpu_torch.ops import onehot_spmm as sp
+    from cgr_mpnn_3d_tpu_torch.train import sse_loss
+    cfg = CGRMPNNConfig(**cfg_kw)
+    gen = torch.Generator().manual_seed(seed)
+    dev = batch.node_x.device
+    whole = init_params(cfg, gen, dev)
+    if cfg.use_learnable_skip:
+        with torch.no_grad():
+            for w in whole.skip_weights:
+                w.copy_(torch.rand((), generator=gen) * 2.0 - 0.5)
+    layered = CGRMPNN(dataclasses.replace(cfg, fuse_whole_model=False)).to(dev)
+    layered.load_state_dict(whole.state_dict())
+    mask = batch.graph_mask > 0
+    out: dict = dict(p=spec.p, graphs=int(mask.sum()))
+    with torch.no_grad():
+        got, acts = apply(whole, batch, spec, capture=True)
+        want, acts_plain = capture_plain(whole, batch, spec)
+        keys = sorted(acts_plain)
+        check(sorted(acts) == keys, f"capture keys {sorted(acts)}")
+        hold(out, "capture acts vs plain", [acts[k] for k in keys],
+             [acts_plain[k] for k in keys])
+        hold(out, "capture preds vs plain", got[mask], want[mask])
+        del acts_plain
+        hold(out, "capture preds vs K3f", got[mask],
+             apply(whole, batch, spec)[mask])
+        hold(out, "capture preds vs layered", got[mask],
+             apply(layered, batch, spec)[mask])
+        if on_cpu:
+            cpu = CGRMPNN(cfg)
+            cpu.load_state_dict(whole.state_dict())
+            b_cpu = type(batch)(*(t.cpu() for t in batch))
+            want, acts_cpu = apply(cpu, b_cpu, spec, capture=True)
+            hold(out, "capture acts vs CPU", [acts[k] for k in keys],
+                 [acts_cpu[k].to(dev) for k in keys])
+            hold(out, "capture preds vs CPU", got[mask],
+                 want.to(dev)[mask])
+
+    seeds = kernel_seeds(cfg, gen)
+    labels, gmask = batch.labels, batch.graph_mask
+    whole.zero_grad()
+    # the main path: counts are zeroed just before it and read just after
+    for m in (sp, fc, gl, cs):
+        m.launches = m.bwd_launches = 0
+    fm.launches = fm.train_launches = fm.vjp_launches = 0
+    pred, _ = apply(whole, batch, spec, train=True, seeds=seeds, capture=True)
+    err = (pred - labels) * gmask
+    sse_c = (err * err).sum()
+    sse_c.backward()
+    torch.cuda.synchronize()
+    launches = dict(K7=(sp.launches, sp.bwd_launches),
+                    K6=(fc.launches, fc.bwd_launches),
+                    K5=(gl.launches, gl.bwd_launches),
+                    K4=(cs.launches, cs.bwd_launches),
+                    K3f=fm.launches, K3b=fm.vjp_launches, K2=fm.train_launches)
+    L = cfg.depth
+    check(launches == dict(K7=(3, 2), K6=(L, L), K5=(0, 0), K4=(0, 0),
+                           K3f=0, K3b=0, K2=0),
+          f"capture forward + backward launches {launches}")
+    out["launches"] = launches
+    g_c = [w.grad.clone() for w in whole.parameters()]
+    layered.zero_grad()
+    sse_l = sse_loss(layered, batch, spec, train=True, seeds=seeds)
+    sse_l.backward()
+    g_l = [w.grad for w in layered.parameters()]
+    sse_w = fused_train_value_and_grad(whole, batch, spec, seeds)
+    g_w = [w.grad for w in whole.parameters()]
+    torch.cuda.synchronize()
+    hold(out, "capture sse vs layered", sse_c.detach(), sse_l.detach())
+    hold(out, "capture sse vs K2", sse_c.detach(), sse_w)
+    if cfg.activation != "ReLU":
+        hold(out, "capture grads vs layered", g_c, g_l)
+        hold(out, "capture grads vs K2", g_c, g_w)
+        return out
+    ex = k2_plain_grads(whole, batch, spec, seeds, torch.float64)
+    hold(out, "capture grads", g_c, k2_plain_grads(whole, batch, spec, seeds,
+                                                   torch.float32),
+         True, lambda: ex)
+    out["capture grads"].update(l1_layered_64=l1(g_l, ex),
+                                l1_k2_64=l1(g_w, ex))
+    if repeats:
+        _capture_times(out, whole, layered, batch, spec, seeds, repeats)
+    return out
+
+
+def _capture_times(out: dict, whole, layered, batch, spec, seeds,
+                   repeats: int) -> None:
+    """Forward ms of capture, layered and K3f; fwd + bwd ms of a capture and
+    a layered training step (autograd); device time by kernel of one
+    capture forward (torch.profiler)."""
+    import torch
+    from cgr_mpnn_3d_tpu_torch.models import apply
+
+    def step(model, capture):
+        model.zero_grad(set_to_none=True)
+        pred = apply(model, batch, spec, train=True, seeds=seeds,
+                     capture=capture)
+        pred = pred[0] if capture else pred
+        err = (pred - batch.labels) * batch.graph_mask
+        (err * err).sum().backward()
+    with torch.no_grad():
+        fwd = {"capture": lambda: apply(whole, batch, spec, capture=True),
+               "layered": lambda: apply(layered, batch, spec),
+               "K3f": lambda: apply(whole, batch, spec)}
+        out["fwd_ms"] = {k: time_ms(f, repeats) for k, f in fwd.items()}
+        wall, busy, top = device_busy(fwd["capture"], top=12)
+    out["step_ms"] = {"capture": time_ms(lambda: step(whole, True), repeats),
+                      "layered": time_ms(lambda: step(layered, False),
+                                         repeats)}
+    out["profile"] = dict(wall_ms=wall, busy_ms=busy, top=top)
+
+
+def print_capture(what: str, k: dict, card: str) -> None:
+    print_layered(what, k, card)
+    if "launches" in k:
+        print(f"capture launches {what}: one forward + backward (forward, "
+              f"backward) {k['launches']} [{card}]")
+    if "fwd_ms" in k:
+        pr = k["profile"]
+        print(f"capture times {what}: forward ms {k['fwd_ms']}, training step"
+              f" (forward + backward) ms {k['step_ms']}; one capture forward "
+              f"under torch.profiler: wall {pr['wall_ms']:.3f} ms, device busy"
+              f" {pr['busy_ms']:.3f} ms, device time by kernel {pr['top']} "
+              f"[{card}]")
+
+
+def goldens_on_card(card: str) -> None:
+    """The eight cases of tests/goldens/reference_gnn.npz (the original
+    model's activations on fixed inputs and weights) through capture mode
+    on the card: h0, every h_l, s, h_node, pooled and the predictions at
+    rtol = atol = 1e-4, the bounds of tests/test_reference_goldens.py.  The
+    graphs are rebuilt with the port's GraphArrays and packed into one
+    pack."""
+    import torch
+    from cgr_mpnn_3d_tpu_torch.chem.featurize import GraphArrays
+    from cgr_mpnn_3d_tpu_torch.data import PackSpec, pack_graphs, to_device
+    from cgr_mpnn_3d_tpu_torch.models import CGRMPNN, CGRMPNNConfig, apply
+    from cgr_mpnn_3d_tpu_torch.ops import fused_conv as fc
+    acts_of = {"relu": "ReLU", "gelu": "GELU", "silu": "SiLU"}
+    worst = {}
+    with np.load(ROOT / "tests" / "goldens" / "reference_gnn.npz",
+                 allow_pickle=True) as z:
+        cases = sorted({k.split("/")[0] for k in z.files})
+        check(len(cases) == 8, f"goldens cases {cases}")
+        for case in cases:
+            depth, hidden, skip = (int(v) for v in z[f"{case}/meta"])
+            mstr = [str(v) for v in z[f"{case}/meta_str"]]
+            x, e = z[f"{case}/in/x"], z[f"{case}/in/edge_attr"]
+            snd, rcv = z[f"{case}/in/senders"], z[f"{case}/in/receivers"]
+            graphs, noff, eoff = [], 0, 0
+            for nn, ne in zip(z[f"{case}/in/n_nodes"],
+                              z[f"{case}/in/n_edges"]):
+                nn, ne = int(nn), int(ne)
+                graphs.append(GraphArrays(
+                    node_feats=x[noff:noff + nn],
+                    edge_feats=e[eoff:eoff + ne],
+                    senders=(snd[eoff:eoff + ne] - noff).astype(np.int32),
+                    receivers=(rcv[eoff:eoff + ne] - noff).astype(np.int32),
+                    rev_edge_index=np.arange(ne, dtype=np.int32) ^ 1))
+                noff, eoff = noff + nn, eoff + ne
+            cfg = CGRMPNNConfig(
+                num_node_features=x.shape[1], num_edge_features=e.shape[1],
+                depth=depth, hidden_sizes=(hidden,) * depth,
+                dropout_ps=(0.0,) * depth,
+                activation=acts_of[mstr[0].lower()], aggr=mstr[1],
+                pooling=mstr[2] if len(mstr) > 2 else "add",
+                use_learnable_skip=bool(skip))
+            model = CGRMPNN(cfg)
+            state = model.state_dict()
+            model.load_state_dict({n: torch.as_tensor(np.asarray(
+                z[f"{case}/param/{n}"], np.float32)).reshape(t.shape)
+                for n, t in state.items()})
+            model = model.to(DEVICE)
+            E, N, B = eoff, noff, len(graphs)
+            spec = PackSpec(te=E + 2, tn=N + 2, tb=B + 1,
+                            d=max(int(np.bincount(g.receivers).max())
+                                  for g in graphs if g.num_edges) + 1,
+                            dn=max(g.num_nodes for g in graphs), p=1)
+            batch = to_device(pack_graphs(graphs, [0.0] * B, spec), DEVICE)
+            before = fc.launches
+            with torch.no_grad():
+                out, acts = apply(model, batch, spec, capture=True)
+            check(fc.launches == before + depth,
+                  f"{case}: capture made {fc.launches - before} K6 launches")
+            acts["preds"] = out
+            rows = dict(h0=E, s=N, h_node=N, pooled=B, preds=B,
+                        **{f"h_{l}": E for l in range(depth)})
+            errs = []
+            for key, n in rows.items():
+                got = acts[key][:n].cpu().numpy()
+                gold = z[f"{case}/act/{key}"]
+                check(np.allclose(got, gold, rtol=1e-4, atol=1e-4),
+                      f"{case} {key}: capture on the card vs the reference "
+                      f"max abs err {np.abs(got - gold).max():.3e}")
+                errs.append(float(np.abs(got - gold).max()))
+            worst[case] = max(errs)
+    print(f"goldens on the card: {len(worst)} cases through capture mode, "
+          f"every activation within rtol = atol = 1e-4; max abs err per "
+          f"case {json.dumps(worst)} [{card}]")
+
+
+def bench_ops_phase(card: str, seed: int) -> dict:
+    """``cli/bench_ops.py`` at its defaults (2 repeats), its lines tagged
+    with the card; every time finite and positive, and the K6 and K7
+    counts risen.  Then every kernel it timed, held once against its plain
+    version on its batch (te = 512) at REL_TOL: K6 forward and backward on
+    its conv inputs (the ReLU gradients by the float64 rule of hold), K7
+    with the rev sign, and K3f, K2 and K3b (kernel_vs_plain,
+    train_kernels_vs_plain) with the benchmark model's config and seeded
+    weights."""
+    import contextlib
+    import io
+    import torch
+    from cgr_mpnn_3d_tpu_torch.cli import bench_ops
+    from cgr_mpnn_3d_tpu_torch.ops import fused_conv as fc
+    from cgr_mpnn_3d_tpu_torch.ops import onehot_spmm as sp
+    fc.launches = fc.bwd_launches = sp.launches = 0
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        res = bench_ops.main([], repeats=2)
+    wall = time.perf_counter() - t0
+    for line in buf.getvalue().splitlines():
+        print(f"bench_ops {line} [{card}]")
+    check(all(np.isfinite(t) and t > 0 for t, _ in res.values()),
+          f"bench_ops times {res}")
+    check(fc.launches > 0 and fc.bwd_launches > 0 and sp.launches > 0,
+          f"bench_ops launches: K6 {fc.launches} + {fc.bwd_launches}, K7 "
+          f"{sp.launches}")
+    print(f"bench_ops: {len(res)} lines in {wall:.3f} s; launches K6 "
+          f"{fc.launches} forward + {fc.bwd_launches} backward, K7 "
+          f"{sp.launches}")
+
+    args = bench_ops.parser().parse_args([])
+    dev = torch.device(DEVICE)
+    spec, batch, _ = bench_ops.bench_batch(args.graphs, dev)
+    (h, h0), ws = bench_ops.conv_inputs(spec, args.hidden, dev)
+    ins = (h, h0, batch.edge_nbr, batch.rev)
+    bwd = (*ins, batch.edge_nbr_rev, *ws)
+    g = torch.randn(h0.shape, generator=torch.Generator().manual_seed(seed)
+                    ).to(dev)
+    p = spec.p
+    held: dict = {}
+    with torch.no_grad():
+        y, y_ref = (fc.fused_conv_forward(*ins, *ws, p=p),
+                    fc.fused_conv_layer_ref(*ins, *ws, p=p))
+        hold(held, "K6 fwd", y, y_ref)
+        hold(held, "K6 bwd", fc.fused_conv_backward(*bwd, y, g, p=p),
+             fc.fused_conv_backward_ref(*bwd, y_ref, g, p=p), True,
+             lambda: fc.fused_conv_backward_ref(*_f64(bwd), y_ref.double(),
+                                                g.double(), p=p))
+        hold(held, "K7 messages",
+             sp.onehot_spmm(h, batch.edge_nbr, batch.rev, p=p),
+             sp.onehot_spmm_ref(h, batch.edge_nbr, batch.rev, p=p))
+    del h, h0, ins, bwd, g, y, y_ref
+    kw = bench_ops.model_kw(args.hidden)
+    held["K3f"] = kernel_vs_plain(kw, spec, batch, seed, 0)
+    train = train_kernels_vs_plain(kw, spec, batch, seed, 0)
+    held.update(K2=train["train"], K3b=train["vjp"])
+    errs = {k: {e: v[e] for e in ("rel_err", "l1_64") if e in v}
+            for k, v in held.items()}
+    print(f"bench_ops batch ({p} packs of te = {spec.te}): every timed "
+          f"kernel against its plain version {json.dumps(errs)} [{card}]")
+    return res
+
+
+def act_chain_phase(cfg_kw: dict, spec, batch, seed: int, card: str) -> dict:
+    """P1: the probe at its defaults (its JSON line), given the layered
+    training step on ``batch`` (``spec``, ``cfg_kw``) to predict for; then
+    the chain kernel against its plain version on the probe's own [N, H]
+    input for each function at k = 1 and k = 4 (REL_TOL); the kernel's
+    k = 1 time beside the plain version's and the bytes bound; then that
+    training step (forward and backward) with ReLU and with GELU, timed,
+    and the measured increase beside the probe's prediction."""
+    import torch
+    from cgr_mpnn_3d_tpu_torch.models import (CGRMPNNConfig, init_params,
+                                              kernel_seeds)
+    from cgr_mpnn_3d_tpu_torch.ops import act_chain as ac
+    from cgr_mpnn_3d_tpu_torch.tools import gelu_roofline
+    from cgr_mpnn_3d_tpu_torch.train import sse_loss
+    dev = batch.node_x.device
+    # the main path: the probe; counts zeroed just before, read just after
+    ac.launches = 0
+    probe = gelu_roofline.main([], step=(spec, CGRMPNNConfig(**cfg_kw)))
+    launches = ac.launches
+    check(launches > 0, "the probe made no chain-kernel launches")
+    N, H = probe["n"], probe["h"]
+    # the probe's own input (gelu_roofline.main's x0)
+    x0 = torch.randn((N, H), generator=torch.Generator().manual_seed(0)).to(
+        dev)
+    abs_err = 0.0
+    for fn in ac.FNS:
+        for k in (1, 4):
+            got, want = ac.act_chain(x0, fn, k), ac.act_chain_ref(x0, fn, k)
+            err, rel = rel_err(got, want, slice(None))
+            check(rel <= REL_TOL, f"act_chain {fn} k={k}: rel err {rel:.3e}")
+            abs_err = max(abs_err, err)
+            del got, want
+    plain_ms = time_ms(lambda: ac.act_chain_ref(x0, "gelu", 1), 5)
+    del x0
+    nbytes = 2 * N * H * 4
+    entry = dict(abs_err=abs_err, ms=probe["k1_ms"]["gelu"],
+                 plain_ms=plain_ms, bound_ms=nbytes / PEAK_BYTES * 1e3,
+                 bound_by="bytes")
+    print(f"act_chain: kernel vs plain max abs err {abs_err:.3e} over "
+          f"{len(ac.FNS)} functions at k = 1, 4 on the probe's [{N}, {H}] "
+          f"input; gelu at k = 1 kernel {entry['ms']:.4f} ms, plain "
+          f"{plain_ms:.4f} ms, bound {entry['bound_ms']:.4f} ms "
+          f"({nbytes / 1e6:.3f} MB, bytes-bound); probe launches {launches} "
+          f"[{card}]")
+
+    step_ms = {}
+    for act in ("ReLU", "GELU"):
+        cfg = CGRMPNNConfig(**dict(cfg_kw, activation=act,
+                                   fuse_whole_model=False))
+        model = init_params(cfg, torch.Generator().manual_seed(seed), dev)
+        seeds = kernel_seeds(cfg, torch.Generator().manual_seed(seed))
+
+        def step():
+            model.zero_grad(set_to_none=True)
+            sse_loss(model, batch, spec, train=True, seeds=seeds).backward()
+        step_ms[act] = time_ms(step, 3)
+    delta = step_ms["GELU"] - step_ms["ReLU"]
+    print(f"layered training step (forward + backward) on {spec.p} packs: "
+          f"ReLU {step_ms['ReLU']:.4f} ms, GELU {step_ms['GELU']:.4f} ms; "
+          f"GELU - ReLU measured {delta:.4f} ms, predicted by the probe "
+          f"{probe['pred_gelu_step_ms']:.4f} ms [{card}]")
+    return dict(entry=entry, launches=launches, probe=probe,
+                step_ms=step_ms)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1256,6 +1786,13 @@ def main(argv=None) -> int:
     print_layered("layered vs whole-model, full width, dropout 0.1, "
                   "synthetic", layered_vs_whole(full_train, spec, batch,
                                                 args.seed), card)
+    conv_k = fused_conv_kernels(full_train, spec, batch, args.seed, lay_reps)
+    print_capture("full width, dropout 0.1, synthetic", conv_k, card)
+    cap = capture_vs_paths(full_train, spec, batch, args.seed, False,
+                           lay_reps)
+    print_capture("capture vs the other paths, full width, dropout 0.1, "
+                  "synthetic", cap, card)
+    chain = act_chain_phase(full_train, spec, batch, args.seed, card)
     del batch
     for act in ("SiLU", "GELU"):
         small = dict(num_node_features=78, num_edge_features=14, depth=3,
@@ -1277,6 +1814,12 @@ def main(argv=None) -> int:
                                             args.seed + 1, 0), card)
         print_layered(f"layered vs whole-model, {what}", layered_vs_whole(
             small_train, spec, batch, args.seed + 1), card)
+        print_capture(what, fused_conv_kernels(small_train, spec, batch,
+                                               args.seed + 1, 0), card)
+        print_capture(f"capture vs the other paths, {what}", capture_vs_paths(
+            small_train, spec, batch, args.seed + 1, True), card)
+    print_capture("small width, GELU mean, dropout 0.2, skip 0.8",
+                  fused_conv_hin(spec, batch, args.seed), card)
 
     with tempfile.TemporaryDirectory() as tmp:
         spec, batch = corpus_batch(Path(tmp), args.seed, dev)
@@ -1288,6 +1831,9 @@ def main(argv=None) -> int:
               f"{req_k['bound_ms']:.4f} ms [{card}]")
         print_layered("layered vs whole-model, request batch",
                       layered_vs_whole(full, spec, batch, args.seed), card)
+        print_capture("capture vs the other paths, request batch",
+                      capture_vs_paths(full, spec, batch, args.seed, True,
+                                       args.repeats), card)
         spec, batch = corpus_batch(Path(tmp), args.seed, dev, shuffle=True)
         k = train_kernels_vs_plain(full_train, spec, batch, args.seed,
                                    args.repeats)
@@ -1299,6 +1845,10 @@ def main(argv=None) -> int:
         print_layered("layered vs whole-model, corpus training batch",
                       layered_vs_whole(full_train, spec, batch, args.seed),
                       card)
+        conv_p4 = fused_conv_kernels(full_train, spec, batch, args.seed,
+                                     args.repeats)
+        print_capture("corpus training batch, full width, dropout 0.1",
+                      conv_p4, card)
         srv = serve(Path(tmp), args.seed, card)
         srv_l = serve_layered(Path(tmp), args.seed, card)
         # the training CLI writes runs/, hyperparameter_study/ and a parity
@@ -1312,10 +1862,14 @@ def main(argv=None) -> int:
         finally:
             os.chdir(cwd)
 
+    goldens_on_card(card)
+    bench_ops_phase(card, args.seed)
+
     def kernel(name, cu, replaces, launches, k):
         return {"name": name, "route": "cuda",
                 "source": f"cgr_mpnn_3d_tpu_torch/csrc/{cu}",
-                "replaces": f"cgr_mpnn_3d_tpu/ops/{replaces}",
+                "replaces": (replaces if "/" in replaces
+                             else f"cgr_mpnn_3d_tpu/ops/{replaces}"),
                 "launches": launches, "max_abs_err": k["abs_err"],
                 "ms": k["ms"], "plain_ms": k["plain_ms"],
                 "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
@@ -1346,7 +1900,11 @@ def main(argv=None) -> int:
         kernel("gather_linear", "gather_linear.cu", "pallas_glin.py:160",
                lay_launches["K5"], glin),
         kernel("onehot_spmm", "onehot_spmm.cu", "pallas_ops.py:93",
-               lay_launches["K7"], lay_k["K7 pool fwd"])]}))
+               lay_launches["K7"], lay_k["K7 pool fwd"]),
+        kernel("fused_conv", "fused_conv.cu", "pallas_fused.py:330",
+               sum(cap["launches"]["K6"]), conv_k["K6 fwd eval"]),
+        kernel("act_chain", "act_chain.cu", "tools/gelu_roofline.py:66",
+               chain["launches"], chain["entry"])]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

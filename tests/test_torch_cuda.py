@@ -2,8 +2,11 @@
 and nvcc; skips elsewhere): the whole-model forward (eval and train mode),
 the training step and the VJP; the layered kernels (ELL gather-sum,
 gather-linear, conv stack, forward and backward, backward reruns bit for
-bit) and the layered configuration against the whole-model one.  Run on a
-GPU machine with:
+bit) and the layered configuration against the whole-model one; the
+per-layer conv kernel (forward and backward, Hin != H included, backward
+reruns bit for bit), capture mode on the card against the CPU and the
+layered path, and the activation-chain probe's kernel.  Run on a GPU
+machine with:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py -q
 
@@ -367,3 +370,110 @@ def test_layered_apply_matches_whole_model(cuda):
     assert _rel(out[False][0][mask], out[True][0][mask]) <= 1e-4
     for name, g in out[True][1].items():
         assert _rel(out[False][1][name], g) <= 1e-4, name
+
+
+# -- capture mode: the per-layer conv kernel (K6), K7, the probe (P1) -------
+
+@pytest.mark.parametrize("act,mean,drop,hin", [("relu", False, 0.1, 40),
+                                               ("silu", True, 0.0, 40),
+                                               ("gelu", False, 0.3, 40),
+                                               ("relu", True, 0.0, 24)])
+def test_fused_conv_kernel_matches_plain(cuda, act, mean, drop, hin):
+    from cgr_mpnn_3d_tpu_torch.ops import fused_conv as fc
+    spec, b, rand = _layered_inputs(cuda)
+    ET, H = b.edge_nbr.shape[0], 40
+    ins = (rand(ET, hin), rand(ET, H), b.edge_nbr, b.rev)
+    ws = (rand(hin, H, scale=0.2), rand(H, scale=0.1),
+          torch.tensor(0.8, device=cuda))
+    kw = dict(p=spec.p, act=act, mean=mean, train=drop > 0,
+              seed=2**31 - 2 if drop else None, dropout_p=drop)
+    before = (fc.launches, fc.bwd_launches)
+    out = fc.fused_conv_forward(*ins, *ws, **kw)
+    want = fc.fused_conv_layer_ref(*ins, *ws, **kw)
+    g = rand(*out.shape)
+    bwd = (*ins, b.edge_nbr_rev, *ws)
+    grads = fc.fused_conv_backward(*bwd, out, g, **kw)
+    assert (fc.launches, fc.bwd_launches) == (before[0] + 1, before[1] + 1)
+    ref = fc.fused_conv_backward_ref(*bwd, want, g, **kw)
+    torch.cuda.synchronize()
+    assert _rel(out, want) <= 1e-4
+    assert [t.shape for t in grads] == [t.shape for t in ref]
+    _held(act, grads, ref, lambda: fc.fused_conv_backward_ref(
+        *_f64(ins), b.edge_nbr_rev, *_f64(ws), want.double(), g.double(),
+        **kw))
+    again = fc.fused_conv_backward(*bwd, out, g, **kw)
+    assert all(torch.equal(x, y) for x, y in zip(grads, again))
+    part = fc.fused_conv_backward(*bwd, out, g, **kw,
+                                  needs=(False, True, False, False, True))
+    assert part[0] is None and torch.equal(part[1], grads[1])
+    assert torch.equal(part[4], grads[4])
+
+
+def test_capture_on_card_matches_cpu_and_layered(cuda):
+    """apply(capture=True) on the card: K7 three times and K6 once per layer
+    forward, the same backward except K7 over node_out (node features take
+    no gradient); no K3f, K4 or K5.  Every activation equals the CPU's
+    capture, and the predictions and gradients equal the layered path's."""
+    import dataclasses
+    from cgr_mpnn_3d_tpu_torch.ops import conv_stack as cs
+    from cgr_mpnn_3d_tpu_torch.ops import fused_conv as fc
+    from cgr_mpnn_3d_tpu_torch.ops import gather_linear as gl
+    from cgr_mpnn_3d_tpu_torch.ops import onehot_spmm as sp
+    spec, batch = _batch(120, 9, 78, "cpu")
+    cfg = CGRMPNNConfig(num_node_features=78, num_edge_features=14,
+                        depth=3, hidden_sizes=(40,) * 3,
+                        dropout_ps=(0.2, 0.0, 0.3), activation="GELU",
+                        aggr="mean", pooling="mean", use_learnable_skip=True)
+    cpu = init_params(cfg, torch.Generator().manual_seed(3), "cpu")
+    with torch.no_grad():
+        for w, v in zip(cpu.skip_weights, (0.8, -0.3, 1.2)):
+            w.fill_(v)
+    card = init_params(cfg, torch.Generator().manual_seed(3), cuda)
+    card.load_state_dict(cpu.state_dict())
+    b_cpu, b_card = to_device(batch, "cpu"), to_device(batch, cuda)
+    with torch.no_grad():
+        want, acts_cpu = apply(cpu, b_cpu, spec, capture=True)
+        with pytest.raises(ValueError, match="PackSpec"):
+            apply(card, b_card, capture=True)
+
+    def counts():
+        return [(fm.launches, fm.vjp_launches)] + [
+            (m.launches, m.bwd_launches) for m in (gl, cs, sp, fc)]
+    before = counts()
+    got, acts = apply(card, b_card, spec, train=True, seeds=[1, 2, 3],
+                      capture=True)
+    ((got - b_card.labels) ** 2 * b_card.graph_mask).sum().backward()
+    torch.cuda.synchronize()
+    assert [(a - c, d - e) for (a, d), (c, e) in zip(counts(), before)] == [
+        (0, 0), (0, 0), (0, 0), (3, 2), (3, 3)]
+    with torch.no_grad():
+        got_eval, acts_eval = apply(card, b_card, spec, capture=True)
+    for k, v in acts_cpu.items():
+        assert _rel(acts_eval[k].cpu(), v) <= 1e-4, k
+    mask = batch.graph_mask > 0
+    assert _rel(got_eval.cpu()[mask], want[mask]) <= 1e-4
+    layered = init_params(dataclasses.replace(cfg, fuse_whole_model=False),
+                          torch.Generator().manual_seed(3), cuda)
+    layered.load_state_dict(cpu.state_dict())
+    pred = apply(layered, b_card, spec, train=True, seeds=[1, 2, 3])
+    ((pred - b_card.labels) ** 2 * b_card.graph_mask).sum().backward()
+    assert _rel(got.detach()[mask.to(cuda)],
+                pred.detach()[mask.to(cuda)]) <= 1e-4
+    g_lay = dict(layered.named_parameters())
+    for name, prm in card.named_parameters():
+        assert _rel(prm.grad, g_lay[name].grad) <= 1e-4, name
+
+
+@pytest.mark.parametrize("fn", ["relu", "silu", "gelu", "gelu_bwd",
+                                "gelu_bwd_from_out"])
+def test_act_chain_kernel_matches_plain(cuda, fn):
+    from cgr_mpnn_3d_tpu_torch.ops import act_chain as ac
+    x = torch.randn((1000, 333), generator=torch.Generator().manual_seed(0))
+    x = (3.0 * x).to(cuda)
+    for k in (0, 1, 4):
+        before = ac.launches
+        got = ac.act_chain(x, fn, k)
+        assert ac.launches == before + 1
+        want = ac.act_chain_ref(x, fn, k)
+        torch.cuda.synchronize()
+        assert _rel(got, want) <= 1e-4, k

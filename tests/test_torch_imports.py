@@ -36,9 +36,11 @@ def test_importing_every_module_loads_no_jax():
                          timeout=300)
     res = json.loads(out.stdout.strip().splitlines()[-1])
     assert len(res["mods"]) >= 20
-    layered = {f"cgr_mpnn_3d_tpu_torch.ops.{m}" for m in
-               ("onehot_spmm", "gather_linear", "conv_stack", "_launch")}
-    assert layered <= set(res["mods"])
+    kernels = {f"cgr_mpnn_3d_tpu_torch.{m}" for m in
+               ("ops.onehot_spmm", "ops.gather_linear", "ops.conv_stack",
+                "ops._launch", "ops.fused_conv", "ops.act_chain",
+                "cli.bench_ops", "tools.gelu_roofline")}
+    assert kernels <= set(res["mods"])
     assert [m for m in res["loaded"] if _forbidden(m)] == []
 
 
