@@ -7,19 +7,25 @@ The counterpart of ``cgr_mpnn_3d_tpu/cli/bench_ops.py``, with its flags, its
 synthetic batch (``synthetic_graphs(N)`` packed at te=512, tn=256, tb=32
 into ``packs_needed(fill_target=0.92)`` packs) and its result lines:
 
-    dense_matmul[ET,H]x[H,H]   torch.matmul, the library anchor
+    dense_matmul[ET,H]x[H,H]   torch.matmul, the library anchor (f32; the
+                               bf16 library rate is the P2 probe's
+                               tools/int8_microbench.py)
     xla_gather_messages        the plain dmpnn_messages
     pallas_onehot_messages     the ELL gather-sum (K7) with the rev sign
     fused_conv_fwd             the per-layer conv kernel (K6)
     fused_conv_fwd+bwd         K6 forward, then backward (autograd on dh, dh0)
-    model_fwd                  apply through the whole-model kernel (K3f)
+    model_fwd                  apply through the whole-model kernel (K3f),
+                               bf16 compute
     model_fwd+bwd              the same, backward through the VJP kernel (K3b)
     optimizer_update           the trainer's Adam(amsgrad=True) step
 
 Deviations from the JAX module:
 
-* f32 with TF32 off, not bf16: bf16 compute is not ported yet (the header
-  line says ``dtype=float32``);
+* the model rows run at bf16 (``compute_dtype="bfloat16"``, the
+  whole-model kernels' bf16 instantiation), as the JAX module's do; the f32
+  anchor, the gathers and the K6 and K7 rows stay f32 (TF32 off) until
+  their kernels' bf16 slice.  The header line lists the dtype of each row
+  and every line ends with its own;
 * no ``build_indices`` line: the port gathers through the packer's ELL
   arrays and builds no index rows;
 * timing by CUDA events, not a ``lax.scan``: after a warm-up call, a loop of
@@ -46,7 +52,16 @@ import time
 import numpy as np
 import torch
 
-__all__ = ["main", "parser", "bench_batch", "conv_inputs", "model_kw"]
+__all__ = ["main", "parser", "bench_batch", "conv_inputs", "model_kw",
+           "DTYPES"]
+
+# the operand type of every line
+DTYPES = {"dense_matmul[ET,H]x[H,H]": "float32",
+          "xla_gather_messages": "float32",
+          "pallas_onehot_messages": "float32",
+          "fused_conv_fwd": "float32", "fused_conv_fwd+bwd": "float32",
+          "model_fwd": "bfloat16", "model_fwd+bwd": "bfloat16",
+          "optimizer_update": "float32"}
 
 
 def bench_batch(n_graphs: int, device):
@@ -139,7 +154,8 @@ def main(argv=None, repeats: int = 3) -> dict:
     ET = spec.total_edges
     kind = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
     print(f"device={kind} packs={spec.p} ET={ET} real_edges={n_real} "
-          f"dtype=float32", file=sys.stderr)
+          f"dtypes: {', '.join(f'{k}={v}' for k, v in DTYPES.items())}",
+          file=sys.stderr)
 
     (h, h0), (w, b, one) = conv_inputs(spec, H, dev)
     norm = torch.ones(ET, device=dev)
@@ -174,8 +190,8 @@ def main(argv=None, repeats: int = 3) -> dict:
     t = timed(conv_fwd_bwd)
     results["fused_conv_fwd+bwd"] = (t, 3 * work / t / 1e12)
 
-    # full-model pieces
-    cfg = CGRMPNNConfig(**model_kw(H))
+    # full-model pieces, bf16 compute as in the JAX module
+    cfg = CGRMPNNConfig(**model_kw(H), compute_dtype=DTYPES["model_fwd"])
     model = init_params(cfg, torch.Generator().manual_seed(0), dev)
     with torch.no_grad():
         results["model_fwd"] = (timed(lambda: apply(model, batch, spec).sum()),
@@ -195,7 +211,8 @@ def main(argv=None, repeats: int = 3) -> dict:
         extra = f"  {tf:.1f} TF/s" if tf else ""
         host = "  [under 0.1 ms: the host's launch rate]" if t < 1e-4 else ""
         print(f"{name:32s} {t * 1e3:8.3f} ms{extra}  "
-              f"({n_real / t / 1e6:8.1f} Medge/s-equiv){host}")
+              f"({n_real / t / 1e6:8.1f} Medge/s-equiv) {DTYPES[name]}"
+              f"{host}")
     return results
 
 

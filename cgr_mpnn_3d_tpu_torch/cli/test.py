@@ -20,6 +20,9 @@ def test(name: str, path_trained_model: str, data_path: str = "datasets",
          save_plot: str = "predicted_vs_true_activation_energy.pdf",
          batch_size: int = 64,
          device: str | torch.device = "cuda") -> dict:
+    """Test RMSE and MAE of a checkpoint on the ``test`` split.  The model
+    computes in f32 whatever dtype it was trained in: a checkpoint carries
+    none, as in the JAX package."""
     from ..data import plan_spec
     from ..train import evaluate, load_model
     from .train import split_dataset

@@ -4,7 +4,8 @@ device, with its single-device flags plus ``--device`` (default ``cuda``).
 Usage (the README's model):
   python -m cgr_mpnn_3d_tpu_torch.cli.train --name CGR-MPNN-3D -d 4 \\
       --hidden_sizes 400 --dropout_ps 0.1 -af ReLU -lr 1e-4 -ne 50 \\
-      --weight_decay 1e-5 -bs 64 -g 0.9 --data_path datasets
+      --weight_decay 1e-5 -bs 64 -g 0.9 --data_path datasets \\
+      [--compute_dtype bfloat16]
 
 ``--data_path`` holds ``train.csv`` and ``val.csv`` (and ``test.csv`` unless
 ``--skip_test``), plus ``<split>.npz`` descriptors for CGR-MPNN-3D; a
@@ -12,10 +13,15 @@ missing split raises.  After training, the best checkpoint is evaluated on
 the test split and the results merge into
 ``hyperparameter_study/<name>_hyperparameter_study.json``.
 
+``--compute_dtype bfloat16`` trains and validates with the whole-model
+kernels' bf16 products (on the CPU their plain versions at bf16);
+parameters and Adam stay f32.  The test after training loads the
+checkpoint in f32, as the JAX CLI does.
+
 Not ported yet: the data-parallel, edge-partition and multi-host flags
 (``--dp``, ``--ep*``), ``--device_epoch``, ``--steps_per_call``,
-``--reuse_packs``, ``--loader_workers``, ``--pack_q``, ``--compute_dtype``
-and ``--num_workers`` (ROADMAP.md).
+``--reuse_packs``, ``--loader_workers``, ``--pack_q`` and
+``--num_workers`` (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -45,6 +51,10 @@ def build_arg_parser() -> argparse.ArgumentParser:
                     help="graph pooling (sum or mean over the graph's nodes)")
     ap.add_argument("--save_path", default="saved_models")
     ap.add_argument("--learnable_skip", action="store_true")
+    ap.add_argument("--compute_dtype", default="float32",
+                    choices=["float32", "bfloat16"],
+                    help="operand type of the kernels' products (bf16 "
+                         "runs them on the tensor cores)")
     ap.add_argument("-lr", "--learning_rate", default=1e-3, type=float)
     ap.add_argument("-ne", "--num_epochs", default=30, type=int)
     ap.add_argument("--weight_decay", default=0.0, type=float)
@@ -126,6 +136,7 @@ def train(args) -> dict:
         aggr=args.aggr,
         pooling=args.pooling,
         use_learnable_skip=args.learnable_skip,
+        compute_dtype=args.compute_dtype,
     )
     print("Featurizing training set...")
     train_data.prefeaturize()

@@ -27,9 +27,16 @@
 //   graph_of_node.  x[senders] needs no adjoint: dWx takes the gathered x
 //   rows as its transposed operand.  Indices outside the pack count as
 //   absent in both directions.
-// * Products: the tiled f32 FMA loop of the forward, with a transposed A
+// * Products: the tiled product of the forward, with a transposed A
 //   operand for the weight-gradient products (Aᵀ·B over the pack's rows)
 //   and a transposed B for the cotangents through the weights (dpre·Wᵀ).
+// * bf16 (mat_dtype 1, the TPU kernel at mat_dtype=bf16): the replay is the
+//   forward's bf16 instantiation, and every backward product, gather and
+//   head term rounds its operands to bf16 as _bwd_kernel does -- dpred in
+//   the head products, dpooled, dpre_n and ds, each layer's dpre and dt,
+//   dpre0 -- with the bf16 mean scales; the products run on the tensor
+//   cores (f32 sums).  The loss, dpred, the ReLU mask, the bias and skip
+//   gradients and dh0 stay f32, as do the per-pack partials and their sum.
 // * dskips[l] = Σ dpre_l·h0 is a block reduction in a fixed order.
 //
 // Bound.  Per pack the replay needs the forward's f32 FMAs (≈ 0.43 GFLOP at
@@ -39,8 +46,10 @@
 // few hundred KB of input and ≈ 4.1 MB of partial gradients per pack: bound
 // by f32 FMA throughput outside the tensor cores.  Like the forward, the
 // kernel multiplies the gathered x rows once per edge, and one block per
-// pack leaves most SMs idle at small batches (bf16 wgmma, TMA and several
-// blocks per pack are later work).
+// pack leaves most SMs idle at small batches (wgmma, TMA and several
+// blocks per pack are later work).  In bf16 the products are tensor-core
+// work (bound 15x lower than f32's), and the staging loops, the gathers and
+// the elementwise passes over the pack's states set the time.
 
 #include "fused_model_common.cuh"
 
@@ -108,6 +117,7 @@ struct BwdArgs {
 
 // out[r] = mean_colscale(entries of ids[r, :] inside [lo, lo + n)) when
 // `mean`, else 1: the forward's scale of row r.
+template <bool kBf16>
 __device__ void row_scales(const int* __restrict__ ids, int D, int lo, int n,
                            int R, bool mean, float* __restrict__ out) {
   for (int r = threadIdx.x; r < R; r += kThreads) {
@@ -116,7 +126,7 @@ __device__ void row_scales(const int* __restrict__ ids, int D, int lo, int n,
       const int j = ids[static_cast<size_t>(r) * D + d] - lo;
       count += (j >= 0 && j < n);
     }
-    out[r] = mean ? mean_colscale(count) : 1.f;
+    out[r] = mean ? mean_colscale<kBf16>(count) : 1.f;
   }
 }
 
@@ -143,9 +153,10 @@ __device__ float block_sum(float v, float* red) {
   return out;
 }
 
+template <bool kBf16>
 __global__ void __launch_bounds__(kThreads)
     fused_model_bwd_kernel(const ModelArgs a, const BwdArgs b) {
-  __shared__ Smem sm;
+  __shared__ SmemOf<kBf16> sm;
   __shared__ float red[kThreads];
   const int H = a.H, te = a.te, tn = a.tn, tb = a.tb, F = a.F, tid = threadIdx.x;
   const int eb = blockIdx.x * te, nb = blockIdx.x * tn, gb = blockIdx.x * tb;
@@ -164,17 +175,17 @@ __global__ void __launch_bounds__(kThreads)
   const float* e = a.e + static_cast<size_t>(eb) * a.Fe;
 
   // the forward's mean scales, and the replay
-  row_scales(a.edge_nbr + static_cast<size_t>(eb) * a.D, a.D, eb, te, te,
-             a.mean_aggr != 0, escale);
-  row_scales(a.node_inc + static_cast<size_t>(nb) * a.D, a.D, eb, te, tn,
-             a.mean_aggr != 0, nscale);
-  row_scales(a.graph_nodes + static_cast<size_t>(gb) * a.DN, a.DN, nb, tn, tb,
-             a.mean_pool != 0, gscale);
+  row_scales<kBf16>(a.edge_nbr + static_cast<size_t>(eb) * a.D, a.D, eb, te,
+                    te, a.mean_aggr != 0, escale);
+  row_scales<kBf16>(a.node_inc + static_cast<size_t>(nb) * a.D, a.D, eb, te,
+                    tn, a.mean_aggr != 0, nscale);
+  row_scales<kBf16>(a.graph_nodes + static_cast<size_t>(gb) * a.DN, a.DN, nb,
+                    tn, tb, a.mean_pool != 0, gscale);
   for (size_t i = tid; i < teH; i += kThreads) dh0[i] = 0.f;
-  forward_pack(a,
-               FwdState{pre0, h0, t, pre, base + sl.h, s, pre_n,
-                        base + sl.hn, pooled, preds, teH, teH},
-               sm);
+  forward_pack<kBf16>(a,
+                      FwdState{pre0, h0, t, pre, base + sl.h, s, pre_n,
+                               base + sl.hn, pooled, preds, teH, teH},
+                      sm);
 
   // loss and cotangent of the predictions
   if (tid == 0) {
@@ -198,7 +209,8 @@ __global__ void __launch_bounds__(kThreads)
   for (int c = tid; c < H; c += kThreads) {
     float v = 0.f;
     for (int q = 0; q < tb; ++q)
-      v = fmaf(pooled[static_cast<size_t>(q) * H + c], dpred[q], v);
+      v = fmaf(operand<kBf16>(pooled[static_cast<size_t>(q) * H + c]),
+               operand<kBf16>(dpred[q]), v);
     part[gl.dwffn + c] = v;
   }
   if (tid == 0) {
@@ -207,32 +219,38 @@ __global__ void __launch_bounds__(kThreads)
     part[gl.dbffn] = v;
   }
   // pooling adjoint and the readout's activation: dpre_n over pre_n
+  // (dpooled = dpred·wffnᵀ, an operand of the pooling adjoint)
   for (int i = tid; i < tn * H; i += kThreads) {
     const int n = i / H, c = i % H;
     const int q = b.graph_of_node[nb + n] - gb;
     const float dhn =
-        (q >= 0 && q < tb) ? gscale[q] * (dpred[q] * a.wffn[c]) : 0.f;
+        (q >= 0 && q < tb)
+            ? gscale[q] * operand<kBf16>(operand<kBf16>(dpred[q]) *
+                                         operand<kBf16>(a.wffn[c]))
+            : 0.f;
     pre_n[i] = dhn * k_dact(a.act, pre_n[i]);
   }
   __syncthreads();
 
   // readout weights; then ds = dpre_n·Wsᵀ over s
-  gemm<true, false>(Operands{Rows{s, H, nullptr, 0, 0}, pre_n, H, tn},
-                    nullptr, H, H, StoreEpi{part + gl.dws, H}, sm);
-  gemm<true, false>(Operands{Rows{x, F, nullptr, 0, 0}, pre_n, H, tn},
-                    nullptr, F, H, StoreEpi{part + gl.dwxn, H}, sm);
+  gemm<kBf16, true, false>(Operands{Rows{s, H, nullptr, 0, 0}, pre_n, H, tn},
+                           nullptr, H, H, StoreEpi{part + gl.dws, H}, sm);
+  gemm<kBf16, true, false>(Operands{Rows{x, F, nullptr, 0, 0}, pre_n, H, tn},
+                           nullptr, F, H, StoreEpi{part + gl.dwxn, H}, sm);
   col_sum(pre_n, tn, H, part + gl.dben);
   __syncthreads();
-  gemm<false, true>(Operands{Rows{pre_n, H, nullptr, 0, 0}, a.ws, H, H},
-                    nullptr, tn, H, StoreEpi{s, H}, sm);
+  gemm<kBf16, false, true>(
+      Operands{Rows{pre_n, H, nullptr, 0, 0}, a.ws, H, H}, nullptr, tn, H,
+      StoreEpi{s, H}, sm);
   __syncthreads();
 
   // incoming-sum adjoint: g[e] = scale_r·ds[r], r = receivers[e]
   for (size_t i = tid; i < teH; i += kThreads) {
     const int r = static_cast<int>(i / H), c = static_cast<int>(i % H);
     const int n = b.receivers[eb + r] - nb;
-    g[i] = (n >= 0 && n < tn) ? nscale[n] * s[static_cast<size_t>(n) * H + c]
-                              : 0.f;
+    g[i] = (n >= 0 && n < tn)
+               ? nscale[n] * operand<kBf16>(s[static_cast<size_t>(n) * H + c])
+               : 0.f;
   }
   __syncthreads();
 
@@ -254,16 +272,16 @@ __global__ void __launch_bounds__(kThreads)
     }
     const float dskip = block_sum(dsk, red);
     if (tid == 0) part[gl.dskips + l] = dskip;
-    gemm<true, false>(Operands{Rows{t_l, H, nullptr, 0, 0}, dpre, H, te},
-                      nullptr, H, H,
-                      StoreEpi{part + gl.dwc + static_cast<size_t>(l) * H * H, H},
-                      sm);
+    gemm<kBf16, true, false>(
+        Operands{Rows{t_l, H, nullptr, 0, 0}, dpre, H, te}, nullptr, H, H,
+        StoreEpi{part + gl.dwc + static_cast<size_t>(l) * H * H, H}, sm);
     col_sum(dpre, te, H, part + gl.dbc + static_cast<size_t>(l) * H);
     __syncthreads();
     // dt = dpre_l·Wc[l]ᵀ over t_l
-    gemm<false, true>(Operands{Rows{dpre, H, nullptr, 0, 0},
-                               a.wc + static_cast<size_t>(l) * H * H, H, H},
-                      nullptr, te, H, StoreEpi{t_l, H}, sm);
+    gemm<kBf16, false, true>(
+        Operands{Rows{dpre, H, nullptr, 0, 0},
+                 a.wc + static_cast<size_t>(l) * H * H, H, H},
+        nullptr, te, H, StoreEpi{t_l, H}, sm);
     __syncthreads();
     // message adjoint: g[c] = Σ_{e in edge_nbr_rev[c]} scale_e·dt[e] − dt[rev[c]]
     for (size_t i = tid; i < teH; i += kThreads) {
@@ -273,10 +291,12 @@ __global__ void __launch_bounds__(kThreads)
       for (int d = 0; d < a.D; ++d) {
         const int j = nbr[d] - eb;
         if (j >= 0 && j < te)
-          sum += escale[j] * t_l[static_cast<size_t>(j) * H + c];
+          sum += escale[j] *
+                 operand<kBf16>(t_l[static_cast<size_t>(j) * H + c]);
       }
       const int j = a.rev[eb + r] - eb;
-      if (j >= 0 && j < te) sum -= t_l[static_cast<size_t>(j) * H + c];
+      if (j >= 0 && j < te)
+        sum -= operand<kBf16>(t_l[static_cast<size_t>(j) * H + c]);
       g[i] = sum;
     }
     __syncthreads();
@@ -286,10 +306,11 @@ __global__ void __launch_bounds__(kThreads)
   for (size_t i = tid; i < teH; i += kThreads)
     pre0[i] = (dh0[i] + g[i]) * k_dact(a.act, pre0[i]);
   __syncthreads();
-  gemm<true, false>(Operands{Rows{x, F, a.senders + eb, nb, tn}, pre0, H, te},
-                    nullptr, F, H, StoreEpi{part + gl.dwx, H}, sm);
-  gemm<true, false>(Operands{Rows{e, a.Fe, nullptr, 0, 0}, pre0, H, te},
-                    nullptr, a.Fe, H, StoreEpi{part + gl.dwe, H}, sm);
+  gemm<kBf16, true, false>(
+      Operands{Rows{x, F, a.senders + eb, nb, tn}, pre0, H, te}, nullptr, F,
+      H, StoreEpi{part + gl.dwx, H}, sm);
+  gemm<kBf16, true, false>(Operands{Rows{e, a.Fe, nullptr, 0, 0}, pre0, H, te},
+                           nullptr, a.Fe, H, StoreEpi{part + gl.dwe, H}, sm);
   col_sum(pre0, te, H, part + gl.dbe);
 }
 
@@ -306,9 +327,12 @@ __global__ void sum_packs_kernel(const float* __restrict__ part, int p,
 }
 
 int launch(const ModelArgs& a, const BwdArgs& b, float* out, int p,
-           void* stream) {
+           int mat_dtype, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  fused_model_bwd_kernel<<<p, kThreads, 0, st>>>(a, b);
+  if (mat_dtype == 1)
+    fused_model_bwd_kernel<true><<<p, kThreads, 0, st>>>(a, b);
+  else
+    fused_model_bwd_kernel<false><<<p, kThreads, 0, st>>>(a, b);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   const long long G = static_cast<long long>(GradLayout(a.F, a.Fe, a.H, a.L).total);
@@ -342,7 +366,7 @@ extern "C" long long cgr_fused_model_grad_floats(int F, int Fe, int H, int L) {
 #define CGR_MODEL_DIMS                                                        \
   float *scratch, float *partial, float *out, int p, int te, int tn, int tb, \
       int F, int Fe, int H, int L, int D, int DN, int act, int mean_aggr,    \
-      int mean_pool, void *stream
+      int mean_pool, int mat_dtype, void *stream
 
 #define CGR_MODEL_ARGS                                                        \
   ModelArgs {                                                                 \
@@ -357,7 +381,7 @@ extern "C" int cgr_fused_model_train(CGR_MODEL_PARAMS, const float* labels,
   return launch(CGR_MODEL_ARGS,
                 BwdArgs{receivers, edge_nbr_rev, graph_of_node, labels, mask,
                         nullptr, scratch, partial},
-                out, p, stream);
+                out, p, mat_dtype, stream);
 }
 
 // K3b: the gradients (out[0] = 0) from the cotangent dpred of the forward.
@@ -366,7 +390,7 @@ extern "C" int cgr_fused_model_vjp(CGR_MODEL_PARAMS, const float* dpred,
   return launch(CGR_MODEL_ARGS,
                 BwdArgs{receivers, edge_nbr_rev, graph_of_node, nullptr,
                         nullptr, dpred, scratch, partial},
-                out, p, stream);
+                out, p, mat_dtype, stream);
 }
 
 extern "C" const char* cgr_cuda_error_string(int code) {

@@ -1,9 +1,17 @@
 // Device code shared by the whole-model kernels (fused_model_fwd.cu and
 // fused_model_bwd.cu): the elementwise helpers of the TPU kernels
 // (cgr_mpnn_3d_tpu/ops/pallas_fused.py: k_act, k_dact, mean_colscale,
-// _hash_bits / k_dropout_mask), a shared-memory-tiled f32 FMA product with
-// plain or transposed operands, the ELL gather sums, and the per-pack
-// forward that both kernels run (pallas_model.py::_replay_forward).
+// _hash_bits / k_dropout_mask), a shared-memory-tiled product with plain or
+// transposed operands, the ELL gather sums, and the per-pack forward that
+// both kernels run (pallas_model.py::_replay_forward).
+//
+// Everything that touches a product's operands is templated on kBf16, the
+// TPU kernels' mat_dtype: false is the f32 FMA product; true rounds every
+// operand of a product, of a gather-sum and of the head to bf16 (round to
+// nearest even) as it is read, runs the products on the tensor cores
+// (mma.sync m16n8k16, f32 sums) and scales a mean by bf16(1 / degree).
+// Elementwise work (biases, skip·h0, activations, dropout) and every stored
+// state stay f32 in both.
 //
 // One thread block of kThreads threads works on one pack.  Indices are
 // global, with the sentinel equal to the row count; an index outside the
@@ -15,6 +23,9 @@
 #include <cuda_runtime.h>
 
 #include <cstddef>
+#include <type_traits>
+
+#include "tensor_core.cuh"
 
 namespace cgr {
 
@@ -42,9 +53,18 @@ __device__ __forceinline__ float k_dact(int act, float x) {
   return cdf + x * (0.3989422804014327f * expf(-0.5f * x * x));
 }
 
-// mean_colscale: 1 / degree, where a row with no entries divides by 1.
+// mean_colscale: 1 / degree, where a row with no entries divides by 1; an
+// entry of the bf16 one-hot matrix when kBf16.
+template <bool kBf16 = false>
 __device__ __forceinline__ float mean_colscale(int count) {
-  return 1.f / fmaxf(static_cast<float>(count), 1.f);
+  const float s = 1.f / fmaxf(static_cast<float>(count), 1.f);
+  return kBf16 ? round_bf16(s) : s;
+}
+
+// v as an operand of a product or a gather-sum.
+template <bool kBf16>
+__device__ __forceinline__ float operand(float v) {
+  return kBf16 ? round_bf16(v) : v;
 }
 
 // _hash_bits: murmur3 finalizer over (pack-local row, column, seed, pack),
@@ -105,6 +125,19 @@ struct Smem {
   float b[BK][BN + 1];
 };
 
+// The bf16 tiles: A as [m][k] and B as [n][k] (k contiguous, the layout
+// the mma fragments read two values at a time), BK16 deep; a row of
+// BK16 + 8 bf16 (20 words) puts the eight rows of a fragment load in
+// eight different bank quads.
+constexpr int BK16 = 32;
+struct SmemBf16 {
+  alignas(16) unsigned short a[BM][BK16 + 8];
+  alignas(16) unsigned short b[BN][BK16 + 8];
+};
+
+template <bool kBf16>
+using SmemOf = std::conditional_t<kBf16, SmemBf16, Smem>;
+
 // acc += Aop[m0:m0+BM, 0:K] · Bop[0:K, n0:n0+BN], where
 //   Aop(m, k) = A.row(m)[k]  (TA false)  or  A.row(k)[m]  (TA true: Aᵀ),
 //   Bop(k, n) = B[k*ldb + n] (TB false)  or  B[n*ldb + k] (TB true: Bᵀ).
@@ -152,6 +185,59 @@ __device__ __forceinline__ void mma_tile(float (&acc)[TM][TN], const Rows& A,
   }
 }
 
+// The tensor-core twin of mma_tile, operands rounded to bf16 as they are
+// staged: warp w accumulates rows 16 (w % 4) .. + 16 and columns
+// 32 (w / 4) .. + 32 of the tile, as four 16 x 8 mma tiles; acc[j] holds
+// tile j's fragment (rows g, g + 8; columns 8 j + 2 t, + 1).
+template <bool TA, bool TB>
+__device__ __forceinline__ void mma_tile_bf16(float (&acc)[4][4],
+                                              const Rows& A,
+                                              const float* __restrict__ B,
+                                              int ldb, int K, int m0, int n0,
+                                              int M, int N, SmemBf16& sm) {
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int wr = 16 * (warp % 4), wc = 32 * (warp / 4);
+  for (int k0 = 0; k0 < K; k0 += BK16) {
+    for (int i = tid; i < BM * BK16; i += kThreads) {
+      // neighbouring threads read neighbouring addresses of A
+      const int mm = TA ? i % BM : i / BK16, kk = TA ? i / BM : i % BK16;
+      const int m = m0 + mm, k = k0 + kk;
+      float v = 0.f;
+      if (m < M && k < K) {
+        const float* r = A.row(TA ? k : m);
+        if (r != nullptr) v = r[TA ? m : k];
+      }
+      sm.a[mm][kk] = bf16_bits(v);
+    }
+    for (int i = tid; i < BK16 * BN; i += kThreads) {
+      const int nn = TB ? i / BK16 : i % BN, kk = TB ? i % BK16 : i / BN;
+      const int k = k0 + kk, n = n0 + nn;
+      float v = 0.f;
+      if (k < K && n < N)
+        v = B[TB ? static_cast<size_t>(n) * ldb + k
+                 : static_cast<size_t>(k) * ldb + n];
+      sm.b[nn][kk] = bf16_bits(v);
+    }
+    __syncthreads();
+#pragma unroll
+    for (int ks = 0; ks < BK16; ks += 16) {
+      const unsigned a[4] = {ld_b32(&sm.a[wr + g][ks + 2 * t]),
+                             ld_b32(&sm.a[wr + g + 8][ks + 2 * t]),
+                             ld_b32(&sm.a[wr + g][ks + 8 + 2 * t]),
+                             ld_b32(&sm.a[wr + g + 8][ks + 8 + 2 * t])};
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int n = wc + 8 * j + g;
+        const unsigned b[2] = {ld_b32(&sm.b[n][ks + 2 * t]),
+                               ld_b32(&sm.b[n][ks + 8 + 2 * t])};
+        mma_bf16_16816(acc[j], a, b);
+      }
+    }
+    __syncthreads();
+  }
+}
+
 // One operand pair of a product: Aop · Bop with reduction length K.
 struct Operands {
   Rows A;
@@ -160,23 +246,42 @@ struct Operands {
 };
 
 // epi(m, n, Σ over the pairs of Aop·Bop [m, n]) over an M x N output.
-template <bool TA, bool TB, class Epi>
+template <bool kBf16, bool TA, bool TB, class Epi>
 __device__ void gemm(const Operands& p1, const Operands* p2, int M, int N,
-                     const Epi& epi, Smem& sm) {
-  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
+                     const Epi& epi, SmemOf<kBf16>& sm) {
+  const int tid = threadIdx.x;
   for (int m0 = 0; m0 < M; m0 += BM) {
     for (int n0 = 0; n0 < N; n0 += BN) {
       float acc[TM][TN] = {};
-      mma_tile<TA, TB>(acc, p1.A, p1.B, p1.ldb, p1.K, m0, n0, M, N, sm);
-      if (p2 != nullptr)
-        mma_tile<TA, TB>(acc, p2->A, p2->B, p2->ldb, p2->K, m0, n0, M, N, sm);
+      if constexpr (kBf16) {
+        mma_tile_bf16<TA, TB>(acc, p1.A, p1.B, p1.ldb, p1.K, m0, n0, M, N,
+                              sm);
+        if (p2 != nullptr)
+          mma_tile_bf16<TA, TB>(acc, p2->A, p2->B, p2->ldb, p2->K, m0, n0,
+                                M, N, sm);
+        const int warp = tid / 32, g = (tid % 32) / 4, t = tid % 4;
 #pragma unroll
-      for (int i = 0; i < TM; ++i) {
-        const int m = m0 + ty + 16 * i;
+        for (int j = 0; j < 4; ++j)
 #pragma unroll
-        for (int j = 0; j < TN; ++j) {
-          const int n = n0 + tx + 16 * j;
-          if (m < M && n < N) epi(m, n, acc[i][j]);
+          for (int q = 0; q < 4; ++q) {
+            const int m = m0 + 16 * (warp % 4) + g + 8 * (q / 2);
+            const int n = n0 + 32 * (warp / 4) + 8 * j + 2 * t + q % 2;
+            if (m < M && n < N) epi(m, n, acc[j][q]);
+          }
+      } else {
+        const int tx = tid % 16, ty = tid / 16;
+        mma_tile<TA, TB>(acc, p1.A, p1.B, p1.ldb, p1.K, m0, n0, M, N, sm);
+        if (p2 != nullptr)
+          mma_tile<TA, TB>(acc, p2->A, p2->B, p2->ldb, p2->K, m0, n0, M, N,
+                           sm);
+#pragma unroll
+        for (int i = 0; i < TM; ++i) {
+          const int m = m0 + ty + 16 * i;
+#pragma unroll
+          for (int j = 0; j < TN; ++j) {
+            const int n = n0 + tx + 16 * j;
+            if (m < M && n < N) epi(m, n, acc[i][j]);
+          }
         }
       }
     }
@@ -214,7 +319,9 @@ struct StoreEpi {
 
 // out[r, :] = scale_r · Σ_d src[ids[r, d] - lo, :]  [- src[rev[r] - lo, :]]
 // over R rows of width H; entries outside [0, n) are skipped, and
-// scale_r = mean_colscale(entries counted) when `mean`, else 1.
+// scale_r = mean_colscale(entries counted) when `mean`, else 1.  The rev
+// row is unscaled (its one-hot entry is -1, exact in bf16 too).
+template <bool kBf16>
 __device__ void gather_sum(const float* __restrict__ src, int n, int lo,
                            const int* __restrict__ ids, int D,
                            const int* __restrict__ rev, bool mean, int R,
@@ -227,20 +334,22 @@ __device__ void gather_sum(const float* __restrict__ src, int n, int lo,
     for (int d = 0; d < D; ++d) {
       const int j = row[d] - lo;
       if (j >= 0 && j < n) {
-        sum += src[static_cast<size_t>(j) * H + c];
+        sum += operand<kBf16>(src[static_cast<size_t>(j) * H + c]);
         ++count;
       }
     }
-    if (mean) sum *= mean_colscale(count);
+    if (mean) sum *= mean_colscale<kBf16>(count);
     if (rev != nullptr) {
       const int j = rev[r] - lo;
-      if (j >= 0 && j < n) sum -= src[static_cast<size_t>(j) * H + c];
+      if (j >= 0 && j < n)
+        sum -= operand<kBf16>(src[static_cast<size_t>(j) * H + c]);
     }
     out[i] = sum;
   }
 }
 
 // out[g] = pooled[g, :] · wffn + bffn, one warp per graph.
+template <bool kBf16>
 __device__ void head(const float* __restrict__ pooled, int tb, int H,
                      const float* __restrict__ wffn,
                      const float* __restrict__ bffn, float* __restrict__ out) {
@@ -248,7 +357,8 @@ __device__ void head(const float* __restrict__ pooled, int tb, int H,
   for (int g = warp; g < tb; g += kThreads / 32) {
     float v = 0.f;
     for (int c = lane; c < H; c += 32)
-      v = fmaf(pooled[static_cast<size_t>(g) * H + c], wffn[c], v);
+      v = fmaf(operand<kBf16>(pooled[static_cast<size_t>(g) * H + c]),
+               operand<kBf16>(wffn[c]), v);
     for (int off = 16; off > 0; off >>= 1)
       v += __shfl_down_sync(0xffffffffu, v, off);
     if (lane == 0) out[g] = v + bffn[0];
@@ -286,8 +396,9 @@ struct FwdState {
 //
 // "scale" is 1 for add and 1 / (number of counted entries) for mean; the
 // rev term stays unscaled.  Ends with the block synchronised.
+template <bool kBf16>
 __device__ void forward_pack(const ModelArgs& a, const FwdState& st,
-                             Smem& sm) {
+                             SmemOf<kBf16>& sm) {
   const int H = a.H;
   const int eb = blockIdx.x * a.te, nb = blockIdx.x * a.tn,
             gb = blockIdx.x * a.tb;
@@ -298,20 +409,21 @@ __device__ void forward_pack(const ModelArgs& a, const FwdState& st,
   // edge_init
   const Operands xw{Rows{x, a.F, a.senders + eb, nb, a.tn}, a.wx, H, a.F};
   const Operands ew{Rows{e, a.Fe, nullptr, 0, 0}, a.we, H, a.Fe};
-  gemm<false, false>(xw, &ew, a.te, H,
-                     ActEpi{a.be, nullptr, 0.f, a.act, st.pre0, st.h0, H, none},
-                     sm);
+  gemm<kBf16, false, false>(
+      xw, &ew, a.te, H,
+      ActEpi{a.be, nullptr, 0.f, a.act, st.pre0, st.h0, H, none}, sm);
   __syncthreads();
 
   const float* h_in = st.h0;
   for (int l = 0; l < a.L; ++l) {
     float* t = st.t + l * st.t_stride;
-    gather_sum(h_in, a.te, eb, a.edge_nbr + static_cast<size_t>(eb) * a.D,
-               a.D, a.rev + eb, a.mean_aggr != 0, a.te, H, t);
+    gather_sum<kBf16>(h_in, a.te, eb,
+                      a.edge_nbr + static_cast<size_t>(eb) * a.D, a.D,
+                      a.rev + eb, a.mean_aggr != 0, a.te, H, t);
     __syncthreads();
     const Operands tw{Rows{t, H, nullptr, 0, 0},
                       a.wc + static_cast<size_t>(l) * H * H, H, H};
-    gemm<false, false>(
+    gemm<kBf16, false, false>(
         tw, nullptr, a.te, H,
         ActEpi{a.bc + static_cast<size_t>(l) * H, st.h0, a.skips[l], a.act,
                st.pre == nullptr ? nullptr : st.pre + l * st.pre_stride, st.h,
@@ -322,20 +434,22 @@ __device__ void forward_pack(const ModelArgs& a, const FwdState& st,
   }
 
   // readout: hn = act(s·Ws + x·Wxn + ben), s = incoming sum of h
-  gather_sum(h_in, a.te, eb, a.node_inc + static_cast<size_t>(nb) * a.D, a.D,
-             nullptr, a.mean_aggr != 0, a.tn, H, st.s);
+  gather_sum<kBf16>(h_in, a.te, eb,
+                    a.node_inc + static_cast<size_t>(nb) * a.D, a.D, nullptr,
+                    a.mean_aggr != 0, a.tn, H, st.s);
   __syncthreads();
   const Operands sw{Rows{st.s, H, nullptr, 0, 0}, a.ws, H, H};
   const Operands xn{Rows{x, a.F, nullptr, 0, 0}, a.wxn, H, a.F};
-  gemm<false, false>(sw, &xn, a.tn, H,
-                     ActEpi{a.ben, nullptr, 0.f, a.act, st.pre_n, st.hn, H, none},
-                     sm);
+  gemm<kBf16, false, false>(
+      sw, &xn, a.tn, H,
+      ActEpi{a.ben, nullptr, 0.f, a.act, st.pre_n, st.hn, H, none}, sm);
   __syncthreads();
 
-  gather_sum(st.hn, a.tn, nb, a.graph_nodes + static_cast<size_t>(gb) * a.DN,
-             a.DN, nullptr, a.mean_pool != 0, a.tb, H, st.pooled);
+  gather_sum<kBf16>(st.hn, a.tn, nb,
+                    a.graph_nodes + static_cast<size_t>(gb) * a.DN, a.DN,
+                    nullptr, a.mean_pool != 0, a.tb, H, st.pooled);
   __syncthreads();
-  head(st.pooled, a.tb, H, a.wffn, a.bffn, st.preds);
+  head<kBf16>(st.pooled, a.tb, H, a.wffn, a.bffn, st.preds);
   __syncthreads();
 }
 

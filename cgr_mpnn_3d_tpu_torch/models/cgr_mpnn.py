@@ -38,6 +38,14 @@ stack (ops/conv_stack.py), gather-linear readout, sum pooling
 torch; on the CPU each takes its plain version.  Training then goes through
 autograd (:func:`supports_fused_train` is False).
 
+``CGRMPNNConfig(compute_dtype="bfloat16")`` is the JAX package's bf16
+compute with the rounding of its Pallas kernels (``mat_dtype=bf16``): every
+operand of a product and a gather rounded to bf16, sums and elementwise work
+in f32, parameters f32.  It runs the whole-model kernels only (their bf16
+instantiation on the card, their plain versions on the CPU) and needs the
+batch's ``spec``; bf16 with the layered configuration, with capture mode or
+without ``spec`` raises (ROADMAP.md §1.4).
+
 Dropout is the TPU kernels' hash dropout everywhere (on the card and on the
 CPU), driven by one int32 seed per conv layer, so a CPU run and a card run
 of the trainer see the same masks.  The JAX package's XLA path draws its
@@ -62,7 +70,7 @@ from ..ops.conv_stack import conv_stack
 from ..ops.fused_conv import fused_conv_layer
 from ..ops.fused_model import GRAD_NAMES, fused_model, fused_model_train
 from ..ops.gather_linear import gather_linear
-from ..ops.kernel_math import hash_dropout_keep_full, k_act
+from ..ops.kernel_math import MAT_DTYPES, hash_dropout_keep_full, k_act
 from ..ops.onehot_spmm import spmm
 from ..ops.segment import (dmpnn_messages, gather_nodes, graph_pool_sum,
                            node_incoming_sum)
@@ -90,6 +98,7 @@ class CGRMPNNConfig:
     pooling: str = "add"                   # 'add' | 'mean'
     use_learnable_skip: bool = False
     fuse_whole_model: bool = True          # False: the layered kernels
+    compute_dtype: str = "float32"         # or "bfloat16" (kernels' mat_dtype)
 
     def __post_init__(self):
         object.__setattr__(self, "hidden_sizes",
@@ -106,6 +115,9 @@ class CGRMPNNConfig:
             raise ValueError(f"unsupported pooling {self.pooling!r}")
         if self.activation not in ACTIVATIONS:
             raise ValueError(f"unsupported activation {self.activation!r}")
+        if self.compute_dtype not in MAT_DTYPES:
+            raise ValueError(f"unsupported compute_dtype "
+                             f"{self.compute_dtype!r}")
 
     @property
     def hidden(self) -> int:
@@ -233,7 +245,24 @@ def _kernel_kw(cfg: CGRMPNNConfig, spec: PackSpec, train: bool,
     return dict(p=spec.p, act=ACTIVATIONS[cfg.activation], aggr=cfg.aggr,
                 pooling=cfg.pooling, train=train,
                 seeds=seeds if train else None,
-                dropout_ps=tuple(cfg.dropout_ps) if train else ())
+                dropout_ps=tuple(cfg.dropout_ps) if train else (),
+                mat_dtype=cfg.compute_dtype)
+
+
+def _check_bf16(cfg: CGRMPNNConfig, spec: PackSpec | None,
+                capture: bool) -> None:
+    """bf16 compute runs the whole-model kernels only; the other paths'
+    bf16 is ROADMAP.md §1.4."""
+    missing = ("capture mode (K6, K7)" if capture
+               else "the layered configuration (K4, K5, K7)"
+               if not cfg.fuse_whole_model
+               else "a batch without its PackSpec (the XLA path's rounding)"
+               if spec is None else None)
+    if missing:
+        raise NotImplementedError(
+            f"compute_dtype='bfloat16' with {missing} is not ported yet "
+            f"(ROADMAP.md §1.4); bf16 runs the whole-model kernels with the "
+            f"batch's PackSpec")
 
 
 def kernel_grads_to_params(model: CGRMPNN, grads: tuple) -> None:
@@ -262,8 +291,9 @@ def fused_train_value_and_grad(model: CGRMPNN, batch: PackedGraphBatch,
     """The masked SSE of ``batch`` (a 0-dim tensor), with the gradients of
     every parameter written into ``.grad``: on the card by ONE launch of the
     training kernel (replay, loss, gradients -- no autograd, no separate
-    forward), on the CPU by its plain version.  ``seeds`` (one per conv
-    layer) turns on train-mode dropout; None trains without it."""
+    forward), on the CPU by its plain version, both with the products of
+    ``model.cfg.compute_dtype``.  ``seeds`` (one per conv layer) turns on
+    train-mode dropout; None trains without it."""
     train = seeds is not None
     with torch.no_grad():
         sse, grads = fused_model_train(
@@ -382,10 +412,15 @@ def apply(model: CGRMPNN, batch: PackedGraphBatch, spec: PackSpec | None = None,
     the layered kernels run instead (their plain versions on the CPU).
     ``capture=True`` with ``spec`` runs the per-layer kernels (see the
     module doc), on the card and, through their plain versions, on the
-    CPU."""
+    CPU.  With ``cfg.compute_dtype="bfloat16"`` the whole-model kernels'
+    bf16 instantiation runs, on the CPU their plain versions at bf16; the
+    other paths raise there."""
     cfg = model.cfg
     kact = ACTIVATIONS[cfg.activation]
     x, e = batch.node_x, batch.edge_attr
+    bf16 = cfg.compute_dtype == "bfloat16"
+    if bf16:
+        _check_bf16(cfg, spec, capture)
 
     if x.device.type == "cuda" and spec is None:
         raise ValueError("the kernels need the batch's PackSpec")
@@ -396,7 +431,7 @@ def apply(model: CGRMPNN, batch: PackedGraphBatch, spec: PackSpec | None = None,
         return _capture(model, batch, spec, train, seeds)
     if not cfg.fuse_whole_model and spec is not None:
         return _layered(model, batch, spec, train, seeds)
-    if x.device.type == "cuda":
+    if x.device.type == "cuda" or bf16:
         return fused_model(kernel_inputs(model, batch), adjoint_inputs(batch),
                            **_kernel_kw(cfg, spec, train, seeds))
     layer_seeds = seed_list(seeds) if train else None

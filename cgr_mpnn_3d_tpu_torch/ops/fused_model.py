@@ -31,10 +31,19 @@ the ``rev`` term stays unscaled.
 Train mode (``train=True``) takes one int32 ``seed`` and one drop rate per
 conv layer; the dropout bits are the TPU kernels' (ops/kernel_math.py).
 
+``mat_dtype`` ("float32" or "bfloat16") is the TPU kernels' ``mat_dtype``:
+at bf16 every operand of a product and of a gather-sum is rounded to bf16
+(round to nearest even) where it enters, sums run in f32, the mean scale is
+``bf16(1/deg)``, and the elementwise work and every stored state stay f32;
+the backward rounds the operands of its own products and gathers the same
+way (``pallas_model.py::_replay_forward``, ``_bwd_kernel``).  Inputs and
+outputs stay f32 at both types.
+
 Each wrapper launches its CUDA kernel (``csrc/fused_model_fwd.cu``,
 ``csrc/fused_model_bwd.cu``) for CUDA tensors or raises, and takes its plain
 version only for CPU tensors.  The plain versions of K2 and K3b are autograd
-through :func:`fused_model_forward_ref`.
+through :func:`fused_model_forward_ref`, whose bf16 products and gathers are
+``torch.autograd.Function``s that round their cotangents as the kernels do.
 """
 
 from __future__ import annotations
@@ -46,19 +55,25 @@ import torch
 
 from ._launch import (I32, PTR, check_cuda, check_train, drop_table, library,
                       ptr, raise_on, refuse_grad, seed_list, stream)
-from .kernel_math import KERNEL_ACTS, hash_dropout_keep_full, k_act
+from .kernel_math import (KERNEL_ACTS, MAT_DTYPES, hash_dropout_keep_full,
+                          k_act, mean_colscale, round_bf16)
 from .segment import ext_zero_row, in_pack, pack_gather_sum
 
 __all__ = ["fused_model_forward", "fused_model_forward_ref",
            "fused_model_train", "fused_model_train_ref", "fused_model_vjp",
            "fused_model_vjp_ref", "fused_model", "GRAD_NAMES", "launches",
-           "train_launches", "vjp_launches"]
+           "train_launches", "vjp_launches", "bf16_launches",
+           "bf16_train_launches", "bf16_vjp_launches"]
 
 # launches of each CUDA kernel by its wrapper (nothing else adds here):
-# the forward (K3f), the training step (K2) and the VJP (K3b)
+# the forward (K3f), the training step (K2) and the VJP (K3b), with f32
+# products and with bf16 products (mat_dtype="bfloat16")
 launches = 0
 train_launches = 0
 vjp_launches = 0
+bf16_launches = 0
+bf16_train_launches = 0
+bf16_vjp_launches = 0
 
 _NAMES = ("x", "e", "senders", "edge_nbr", "rev", "node_inc", "graph_nodes",
           "wx", "we", "be", "wc", "bc", "skips", "ws", "wxn", "ben", "wffn",
@@ -90,9 +105,11 @@ def _shapes(x, e, edge_nbr, graph_nodes, wc, p: int) -> dict:
 
 
 def _check(args: dict, p: int, act: str, aggr: str, pooling: str,
-           train: bool, seeds, dropout_ps) -> None:
+           train: bool, seeds, dropout_ps, mat_dtype: str) -> None:
     if act not in KERNEL_ACTS:
         raise ValueError(f"unsupported kernel activation {act!r}")
+    if mat_dtype not in MAT_DTYPES:
+        raise ValueError(f"unsupported mat_dtype {mat_dtype!r}")
     for name, mode in (("aggr", aggr), ("pooling", pooling)):
         if mode not in ("add", "mean"):
             raise ValueError(f"unsupported {name} {mode!r}")
@@ -105,38 +122,122 @@ def _check(args: dict, p: int, act: str, aggr: str, pooling: str,
     check_train(train, seeds, dropout_ps, args["wc"].shape[0])
 
 
+class _Bf16MatMul(torch.autograd.Function):
+    """a @ b with both operands rounded to bf16 and f32 (or float64) sums:
+    ``_mm`` of the TPU kernels at ``mat_dtype=bf16``.  The backward rounds
+    the incoming gradient too before its two products, as the TPU
+    kernel's backward does (``_outerT``, ``_mmT``)."""
+
+    @staticmethod
+    def forward(ctx, a, b):
+        a, b = round_bf16(a), round_bf16(b)
+        ctx.save_for_backward(a, b)
+        return a @ b
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        g = round_bf16(g)
+        return (g @ b.T if ctx.needs_input_grad[0] else None,
+                a.T @ g if ctx.needs_input_grad[1] else None)
+
+
+class _Bf16Gather(torch.autograd.Function):
+    """out[r] = Σ_d coef[r, d] · bf16(src)[ids[r, d]], ``ids`` holding the
+    sentinel row (zero) for absent entries: a one-hot product of the TPU
+    kernels at bf16 (``_BlockDiag.dot0``), whose entries ``coef`` are bf16
+    values.  The backward is the transposed product (``_BlockDiag.mm``)
+    with the incoming gradient rounded to bf16."""
+
+    @staticmethod
+    def forward(ctx, src, ids, coef):
+        ctx.save_for_backward(ids, coef)
+        ctx.rows = src.shape[0]
+        return (coef[..., None] * ext_zero_row(round_bf16(src))[ids]).sum(1)
+
+    @staticmethod
+    def backward(ctx, g):
+        ids, coef = ctx.saved_tensors
+        part = coef[..., None] * round_bf16(g)[:, None, :]
+        out = g.new_zeros((ctx.rows + 1, g.shape[1]))
+        out.index_add_(0, ids.reshape(-1), part.reshape(-1, g.shape[1]))
+        return out[:-1], None, None
+
+
+def _bf16_onehot(idx, p: int, n_src: int, mean: bool, rev=None, *, dtype):
+    """(ids, coef) of one pack-local gather as the bf16 one-hot matrix of
+    the TPU kernels (``pallas_model.py::_onehot``) has it: each counted
+    entry is ``bf16(1/deg)`` for mean, else 1; with ``rev`` the D-MPNN
+    message's reverse row is one more entry of -1 (exact, unscaled)."""
+    ids, valid = in_pack(idx, p, n_src)
+    scale = (mean_colscale(valid, "bfloat16") if mean
+             else torch.ones(idx.shape[0], device=idx.device))
+    coef = valid * scale[:, None]
+    if rev is not None:
+        rid, rvalid = in_pack(rev, p, n_src)
+        ids = torch.cat([ids, rid[:, None]], dim=1)
+        coef = torch.cat([coef, -rvalid[:, None].float()], dim=1)
+    return ids, coef.to(dtype)
+
+
 def fused_model_forward_ref(x, e, senders, edge_nbr, rev, node_inc,
                             graph_nodes, wx, we, be, wc, bc, skips, ws, wxn,
                             ben, wffn, bffn, *, p: int, act: str = "relu",
                             aggr: str = "add", pooling: str = "add",
                             train: bool = False, seeds=None,
-                            dropout_ps=()) -> torch.Tensor:
+                            dropout_ps=(), mat_dtype: str = "float32"
+                            ) -> torch.Tensor:
     """Plain PyTorch version of the forward kernel (any device): preds
-    [p*tb].  Differentiable in the weights."""
+    [p*tb].  Differentiable in the weights.
+
+    ``mat_dtype="bfloat16"`` rounds as the TPU kernels do at bf16: every
+    operand of a product and of a gather-sum to bf16, sums in f32, the mean
+    scale ``bf16(1/deg)``, elementwise work (biases, skip·h0, activations,
+    dropout) in f32; autograd then rounds the cotangents of every product
+    and gather as the kernels' backward does."""
     args = dict(zip(_NAMES, (x, e, senders, edge_nbr, rev, node_inc,
                              graph_nodes, wx, we, be, wc, bc, skips, ws, wxn,
                              ben, wffn, bffn)))
-    _check(args, p, act, aggr, pooling, train, seeds, dropout_ps)
+    _check(args, p, act, aggr, pooling, train, seeds, dropout_ps, mat_dtype)
     ET, NT = e.shape[0], x.shape[0]
     H = wc.shape[2]
+    mean = aggr == "mean"
+
+    if mat_dtype == "bfloat16":
+        def gather(idx, n_src, mean_, rev_=None):
+            ids, coef = _bf16_onehot(idx, p, n_src, mean_, rev_,
+                                     dtype=x.dtype)
+            return lambda src: _Bf16Gather.apply(src, ids, coef)
+        mm = _Bf16MatMul.apply
+        messages = gather(edge_nbr, ET, mean, rev)
+        incoming = gather(node_inc, ET, mean)
+        pool = gather(graph_nodes, NT, pooling == "mean")
+    else:
+        rev_ids, _ = in_pack(rev, p, ET)
+        mm = torch.matmul
+
+        def messages(h):
+            return (pack_gather_sum(h, edge_nbr, p, mean)
+                    - ext_zero_row(h)[rev_ids])
+
+        def incoming(h):
+            return pack_gather_sum(h, node_inc, p, mean)
+
+        def pool(hn):
+            return pack_gather_sum(hn, graph_nodes, p, pooling == "mean")
 
     s_ids, _ = in_pack(senders, p, NT)
-    h0 = k_act(act, ext_zero_row(x)[s_ids] @ wx + e @ we + be)
-    rev_ids, _ = in_pack(rev, p, ET)
+    h0 = k_act(act, mm(ext_zero_row(x)[s_ids], wx) + mm(e, we) + be)
     h = h0
     for l in range(wc.shape[0]):
-        t = (pack_gather_sum(h, edge_nbr, p, aggr == "mean")
-             - ext_zero_row(h)[rev_ids])
-        h = k_act(act, t @ wc[l] + bc[l] + skips[l] * h0)
+        h = k_act(act, mm(messages(h), wc[l]) + bc[l] + skips[l] * h0)
         if train and dropout_ps[l] > 0.0:
             keep = hash_dropout_keep_full(ET, H, ET // p,
                                           seed_list(seeds)[l],
                                           dropout_ps[l], device=x.device)
             h = torch.where(keep, h * (1.0 / (1.0 - dropout_ps[l])), 0.0)
-    s = pack_gather_sum(h, node_inc, p, aggr == "mean")
-    hn = k_act(act, s @ ws + x @ wxn + ben)
-    pooled = pack_gather_sum(hn, graph_nodes, p, pooling == "mean")
-    return (pooled @ wffn)[:, 0] + bffn
+    hn = k_act(act, mm(incoming(h), ws) + mm(x, wxn) + ben)
+    return mm(pool(hn), wffn)[:, 0] + bffn
 
 
 def _weight_grads(inputs, kw, outer):
@@ -156,7 +257,7 @@ def _check_all(inputs, adjoint, extra: dict, kw: dict) -> dict:
     args.update(zip(_ADJ_NAMES, adjoint))
     args.update(extra)
     _check(args, kw["p"], kw["act"], kw["aggr"], kw["pooling"], kw["train"],
-           kw["seeds"], kw["dropout_ps"])
+           kw["seeds"], kw["dropout_ps"], kw.get("mat_dtype", "float32"))
     return args
 
 
@@ -181,10 +282,10 @@ def fused_model_vjp_ref(inputs, adjoint, dpred, **kw):
 _LL = ctypes.c_longlong
 _SIGNATURES = {
     "fused_model_fwd": {
-        "cgr_fused_model_fwd": ([PTR] * 26 + [I32] * 13 + [PTR], I32)},
+        "cgr_fused_model_fwd": ([PTR] * 26 + [I32] * 14 + [PTR], I32)},
     "fused_model_bwd": {
-        "cgr_fused_model_train": ([PTR] * 27 + [I32] * 13 + [PTR], I32),
-        "cgr_fused_model_vjp": ([PTR] * 26 + [I32] * 13 + [PTR], I32),
+        "cgr_fused_model_train": ([PTR] * 27 + [I32] * 14 + [PTR], I32),
+        "cgr_fused_model_vjp": ([PTR] * 26 + [I32] * 14 + [PTR], I32),
         "cgr_fused_model_bwd_scratch_floats": ([I32] * 5, _LL),
         "cgr_fused_model_grad_floats": ([I32] * 4, _LL)},
 }
@@ -202,34 +303,38 @@ def _dims(x, e, graph_nodes, edge_nbr, wc, p: int) -> list[int]:
     return [p, ET // p, NT // p, BT // p, F, Fe, H, L, edge_nbr.shape[1], DN]
 
 
-def _modes(act: str, aggr: str, pooling: str) -> list[int]:
+def _modes(act: str, aggr: str, pooling: str, mat_dtype: str) -> list[int]:
     return [KERNEL_ACTS.index(act), int(aggr == "mean"),
-            int(pooling == "mean")]
+            int(pooling == "mean"), MAT_DTYPES.index(mat_dtype)]
 
 
 def fused_model_forward(x, e, senders, edge_nbr, rev, node_inc, graph_nodes,
                         wx, we, be, wc, bc, skips, ws, wxn, ben, wffn, bffn,
                         *, p: int, act: str = "relu", aggr: str = "add",
                         pooling: str = "add", train: bool = False,
-                        seeds=None, dropout_ps=()) -> torch.Tensor:
+                        seeds=None, dropout_ps=(),
+                        mat_dtype: str = "float32") -> torch.Tensor:
     """Whole-model forward -> preds [p*tb] f32.
 
     CUDA tensors launch ``csrc/fused_model_fwd.cu`` (one block per pack) or
     raise; CPU tensors take :func:`fused_model_forward_ref`.  Features and
     weights are float32, indices int32, all contiguous; ``wffn`` is [H, 1],
-    ``skips`` [L], ``bffn`` [1].  No backward: for gradients on the card
+    ``skips`` [L], ``bffn`` [1].  ``mat_dtype="bfloat16"`` runs the
+    kernel's bf16 instantiation: the operands of every product and gather
+    are rounded to bf16 as they load (products on the tensor cores), sums
+    and elementwise work stay f32.  No backward: for gradients on the card
     call :func:`fused_model`."""
-    global launches
+    global launches, bf16_launches
     tensors = (x, e, senders, edge_nbr, rev, node_inc, graph_nodes, wx, we,
                be, wc, bc, skips, ws, wxn, ben, wffn, bffn)
     kw = dict(p=p, act=act, aggr=aggr, pooling=pooling, train=train,
-              seeds=seeds, dropout_ps=dropout_ps)
+              seeds=seeds, dropout_ps=dropout_ps, mat_dtype=mat_dtype)
     if x.device.type == "cpu":
         return fused_model_forward_ref(*tensors, **kw)
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
     args = dict(zip(_NAMES, tensors))
-    _check(args, p, act, aggr, pooling, train, seeds, dropout_ps)
+    _check(args, p, act, aggr, pooling, train, seeds, dropout_ps, mat_dtype)
     check_cuda(args, x.device, _INDEX_NAMES)
     refuse_grad(tensors, "forward", "fused_model()")
 
@@ -247,19 +352,22 @@ def fused_model_forward(x, e, senders, edge_nbr, rev, node_inc, graph_nodes,
             *(t.data_ptr() for t in tensors), ptr(drop),
             *(b.data_ptr() for b in bufs), out.data_ptr(),
             *_dims(x, e, graph_nodes, edge_nbr, wc, p),
-            *_modes(act, aggr, pooling), stream(x.device))
-    launches += 1
+            *_modes(act, aggr, pooling, mat_dtype), stream(x.device))
+    if mat_dtype == "bfloat16":
+        bf16_launches += 1
+    else:
+        launches += 1
     raise_on(lib, err, "fused_model_fwd")
     return out
 
 
 def _backward(inputs, adjoint, extra: dict, *, p, act, aggr, pooling,
-              train, seeds, dropout_ps):
+              train, seeds, dropout_ps, mat_dtype):
     """Launch csrc/fused_model_bwd.cu: K2 when ``extra`` holds labels and
     mask, K3b when it holds dpred.  Returns (sse, the 11 grads)."""
     args = _check_all(inputs, adjoint, extra, dict(
         p=p, act=act, aggr=aggr, pooling=pooling, train=train, seeds=seeds,
-        dropout_ps=dropout_ps))
+        dropout_ps=dropout_ps, mat_dtype=mat_dtype))
     x, e, wc = args["x"], args["e"], args["wc"]
     check_cuda(args, x.device, _INDEX_NAMES)
     dims = _dims(x, e, args["graph_nodes"], args["edge_nbr"], wc, p)
@@ -282,7 +390,8 @@ def _backward(inputs, adjoint, extra: dict, *, p, act, aggr, pooling,
                  *(t.data_ptr() for t in adjoint),
                  *(t.data_ptr() for t in extra.values()),
                  scratch.data_ptr(), partial.data_ptr(), out.data_ptr(),
-                 *dims, *_modes(act, aggr, pooling), stream(x.device))
+                 *dims, *_modes(act, aggr, pooling, mat_dtype),
+                 stream(x.device))
     raise_on(lib, err, fn.__name__)
     parts = torch.split(out, [int(np.prod(s, dtype=np.int64)) for s in shapes])
     return parts[0][0], tuple(t.view(s) for t, s in zip(parts[1:], shapes[1:]))
@@ -291,38 +400,48 @@ def _backward(inputs, adjoint, extra: dict, *, p, act, aggr, pooling,
 def fused_model_train(inputs, adjoint, labels, mask, *, p: int,
                       act: str = "relu", aggr: str = "add",
                       pooling: str = "add", train: bool = False, seeds=None,
-                      dropout_ps=()):
+                      dropout_ps=(), mat_dtype: str = "float32"):
     """The training step's compute: (sse, grads) with grads the 11 weight
     gradients in :data:`GRAD_NAMES` order, shaped like the weights.
 
     CUDA tensors launch ``csrc/fused_model_bwd.cu`` (K2: one block per pack
     replays the forward, derives dpred = 2·mask·(pred − y) and the masked
     SSE, and writes its pack's gradients; a second launch sums them over
-    packs) or raise; CPU tensors take :func:`fused_model_train_ref`."""
-    global train_launches
+    packs) or raise; CPU tensors take :func:`fused_model_train_ref`.  With
+    ``mat_dtype="bfloat16"`` the replay and every backward product round
+    their operands to bf16 (the kernel's bf16 instantiation); the partial
+    gradients and their sum stay f32."""
+    global train_launches, bf16_train_launches
     kw = dict(p=p, act=act, aggr=aggr, pooling=pooling, train=train,
-              seeds=seeds, dropout_ps=dropout_ps)
+              seeds=seeds, dropout_ps=dropout_ps, mat_dtype=mat_dtype)
     if inputs[0].device.type == "cpu":
         return fused_model_train_ref(inputs, adjoint, labels, mask, **kw)
     out = _backward(inputs, adjoint, dict(labels=labels, mask=mask), **kw)
-    train_launches += 1
+    if mat_dtype == "bfloat16":
+        bf16_train_launches += 1
+    else:
+        train_launches += 1
     return out
 
 
 def fused_model_vjp(inputs, adjoint, dpred, *, p: int, act: str = "relu",
                     aggr: str = "add", pooling: str = "add",
-                    train: bool = False, seeds=None, dropout_ps=()):
+                    train: bool = False, seeds=None, dropout_ps=(),
+                    mat_dtype: str = "float32"):
     """The VJP of the forward: the 11 weight gradients from the cotangent
     ``dpred`` [p*tb] of the predictions.  CUDA tensors launch
-    ``csrc/fused_model_bwd.cu`` (K3b) or raise; CPU tensors take
-    :func:`fused_model_vjp_ref`."""
-    global vjp_launches
+    ``csrc/fused_model_bwd.cu`` (K3b, f32 or bf16 products) or raise; CPU
+    tensors take :func:`fused_model_vjp_ref`."""
+    global vjp_launches, bf16_vjp_launches
     kw = dict(p=p, act=act, aggr=aggr, pooling=pooling, train=train,
-              seeds=seeds, dropout_ps=dropout_ps)
+              seeds=seeds, dropout_ps=dropout_ps, mat_dtype=mat_dtype)
     if inputs[0].device.type == "cpu":
         return fused_model_vjp_ref(inputs, adjoint, dpred, **kw)
     _, grads = _backward(inputs, adjoint, dict(dpred=dpred), **kw)
-    vjp_launches += 1
+    if mat_dtype == "bfloat16":
+        bf16_vjp_launches += 1
+    else:
+        vjp_launches += 1
     return grads
 
 
@@ -345,12 +464,14 @@ class _FusedModel(torch.autograd.Function):
 
 def fused_model(inputs, adjoint, *, p: int, act: str = "relu",
                 aggr: str = "add", pooling: str = "add", train: bool = False,
-                seeds=None, dropout_ps=()) -> torch.Tensor:
+                seeds=None, dropout_ps=(),
+                mat_dtype: str = "float32") -> torch.Tensor:
     """The forward, differentiable in the weights: on the card through the
     forward kernel with the VJP kernel as its backward, on the CPU through
-    :func:`fused_model_forward_ref` (autograd gives the VJP)."""
+    :func:`fused_model_forward_ref` (autograd gives the VJP); both in
+    ``mat_dtype``."""
     kw = dict(p=p, act=act, aggr=aggr, pooling=pooling, train=train,
-              seeds=seeds, dropout_ps=tuple(dropout_ps))
+              seeds=seeds, dropout_ps=tuple(dropout_ps), mat_dtype=mat_dtype)
     if inputs[0].device.type == "cpu":
         return fused_model_forward_ref(*inputs, **kw)
     return _FusedModel.apply(kw, tuple(adjoint), *inputs)

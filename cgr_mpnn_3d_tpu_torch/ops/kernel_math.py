@@ -2,8 +2,9 @@
 
 The counterparts of ``k_act``, ``k_dact``, ``mean_colscale``, ``_hash_bits``,
 ``k_dropout_mask`` and ``hash_dropout_keep_full`` in
-``cgr_mpnn_3d_tpu/ops/pallas_fused.py``.  ``csrc/fused_model_common.cuh``
-has ``__device__`` twins of all of them.  GELU is the exact erf form
+``cgr_mpnn_3d_tpu/ops/pallas_fused.py``, and the rounding of a product's
+operands to ``mat_dtype`` (``x.astype(md)`` in the kernels).
+``csrc/fused_model_common.cuh`` has ``__device__`` twins of all of them.  GELU is the exact erf form
 (``torch.erf`` here, ``erff`` in CUDA); the JAX kernels build erf from the
 Abramowitz-Stegun approximation, which differs by about f32 epsilon.
 
@@ -22,12 +23,15 @@ import math
 
 import torch
 
-__all__ = ["KERNEL_ACTS", "k_act", "k_dact", "mean_colscale",
+__all__ = ["KERNEL_ACTS", "MAT_DTYPES", "round_bf16", "k_act", "k_dact", "mean_colscale",
            "dropout_threshold", "hash_bits", "k_dropout_mask",
            "hash_dropout_keep_full"]
 
 # activation ids shared with the CUDA kernels (the ``act`` argument)
 KERNEL_ACTS = ("relu", "silu", "gelu")
+# operand types of the whole-model kernels' products (the ``mat_dtype`` int
+# of the CUDA kernels is the index here)
+MAT_DTYPES = ("float32", "bfloat16")
 
 _SQRT_HALF = 1.0 / math.sqrt(2.0)
 _INV_SQRT_2PI = 1.0 / math.sqrt(2.0 * math.pi)
@@ -59,13 +63,24 @@ def k_dact(name: str, pre: torch.Tensor) -> torch.Tensor:
     raise ValueError(f"unsupported kernel activation {name!r}")
 
 
-def mean_colscale(valid: torch.Tensor) -> torch.Tensor:
+def round_bf16(t: torch.Tensor) -> torch.Tensor:
+    """``t`` rounded to bfloat16 (round to nearest even) and back to its
+    own type: what ``x.astype(jnp.bfloat16)`` gives an operand of a
+    kernel's product."""
+    return t.to(torch.bfloat16).to(t.dtype)
+
+
+def mean_colscale(valid: torch.Tensor,
+                  mat_dtype: str = "float32") -> torch.Tensor:
     """Per-row 1/degree scale for aggr or pooling 'mean': ``valid`` [R, D]
     marks the ELL entries that count (in-pack, not the sentinel).  A row
     with no entries divides by 1 -- its sum is zero anyway.  In the TPU
-    kernel this is the column sum of the one-hot matrix."""
+    kernel this is the column sum of the one-hot matrix, and the scale is
+    an entry of that matrix: with ``mat_dtype="bfloat16"`` it is
+    ``bf16(1/deg)``, not the f32 ``1/deg``."""
     deg = valid.sum(dim=1, dtype=torch.float32)
-    return 1.0 / torch.clamp_min(deg, 1.0)
+    scale = 1.0 / torch.clamp_min(deg, 1.0)
+    return round_bf16(scale) if mat_dtype == "bfloat16" else scale
 
 
 def dropout_threshold(rate: float) -> int:

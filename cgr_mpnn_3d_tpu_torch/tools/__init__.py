@@ -1,4 +1,7 @@
 """Measuring tools run as modules:
 
   python -m cgr_mpnn_3d_tpu_torch.tools.gelu_roofline   activation-chain probe
+  python -m cgr_mpnn_3d_tpu_torch.tools.int8_microbench  matmul rate probe
+  python -m cgr_mpnn_3d_tpu_torch.tools.bwd_registers    bf16 backward's
+                                                        register budget A/B
 """

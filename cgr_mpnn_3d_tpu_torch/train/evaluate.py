@@ -3,7 +3,8 @@ and the predicted-vs-true parity plot.
 
 The counterpart of ``cgr_mpnn_3d_tpu/train/evaluate.py``.  On the card every
 batch goes through the whole-model forward kernel; ``device="cpu"`` takes
-the plain PyTorch ops.
+the plain PyTorch ops.  A checkpoint carries no compute dtype (as in the JAX
+package): a loaded model computes in f32.
 """
 
 from __future__ import annotations

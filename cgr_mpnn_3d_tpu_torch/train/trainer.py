@@ -15,6 +15,10 @@
               masked SSE through the layered kernels' autograd Functions
               (their backward kernels on the card, plain versions on the
               CPU);
+* dtype       ``cfg.compute_dtype`` reaches the step, validation and the
+              histograms (bf16: the kernels' bf16 instantiation on the
+              card, their plain versions on the CPU); parameters and Adam
+              stay f32, as in the JAX trainer;
 * dropout     the kernels' hash dropout, with one int32 seed per conv layer
               drawn per step from the trainer's CPU ``torch.Generator``,
               re-seeded from (seed, draws) -- so a CPU run and a card run see

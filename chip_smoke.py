@@ -69,9 +69,28 @@ Phases (any failure raises, and the script exits non-zero):
    (``tools/gelu_roofline.py``), its kernel against its plain version on
    the probe's input, and a layered training step with ReLU and with GELU
    against the probe's prediction;
-13. the per-op timing CLI ``cli/bench_ops.py`` at its defaults, then every
-   kernel it times against its plain version on its te = 512 batch;
-14. a ``{"kernels": [...]}`` line, then ``{"ok": true, "device": {...}}`` as
+13. the per-op timing CLI ``cli/bench_ops.py`` at its defaults (its model
+   rows at bf16), then every kernel it times against its plain version on
+   its te = 512 batch;
+14. bf16 compute (``compute_dtype="bfloat16"``), interleaved with the
+   phases above: the bf16 instantiation of K3f, K2 and K3b against their
+   bf16 plain versions (rel-L2 of predictions and SSE, cosine of the
+   gradients, K2 and K3b reruns bit for bit, and against the f32 plain
+   version at tests/test_bf16.py's bounds; predictions and gradients at
+   most half as far from the bf16 plain version as from the f32 one, a
+   hold the f32 kernel on the same inputs must fail) at full width on the
+   synthetic batch and the corpus request and training batches, with times and bf16
+   bounds, and at small width for SiLU and GELU with mean/mean and
+   learnable skips; the training step's steps/s and profile in both
+   dtypes; ``cli.train.main`` with ``--compute_dtype bfloat16``, 3 epochs
+   on the card and 2 on the CPU, where every step is one bf16 K2 launch,
+   the histograms go through the bf16 K3b, validation through the bf16
+   K3f, the test after training through the f32 K3f (the checkpoint loads
+   in f32, as in the JAX CLI), and no f32 K2 or K3b runs;
+15. the matmul probe P2: the probe at its defaults
+   (``tools/int8_microbench.py``), then its kernel against its plain
+   version at N = 4096 in bf16 and int8;
+16. a ``{"kernels": [...]}`` line, then ``{"ok": true, "device": {...}}`` as
    the last line.
 
 It exits non-zero, printing no result, without CUDA or without the package
@@ -97,6 +116,8 @@ import numpy as np
 ROOT = Path(__file__).resolve().parent
 REL_TOL = 1e-4          # max |kernel - plain| / max |plain|, f32, TF32 off
 PEAK_F32_FLOPS = 67e12  # H100 SXM f32 outside the tensor cores (data sheet)
+PEAK_BF16_FLOPS = 989e12  # H100 SXM bf16 tensor cores, dense (data sheet)
+PEAK_INT8_OPS = 1979e12   # H100 SXM int8 tensor cores, dense (data sheet)
 PEAK_BYTES = 3.35e12    # H100 SXM HBM3 bytes/s (data sheet)
 DEVICE = "cuda"
 TRAIN_TOL = 1e-3        # card vs CPU per-epoch RMSE, relative
@@ -150,12 +171,24 @@ def time_ms(fn, n: int) -> float:
     return start.elapsed_time(end) / n
 
 
-def forward_cost(args) -> tuple[float, float]:
-    """(operations, bytes) the forward needs on these inputs: the dense
-    products' FMAs (2 ops each) and the gather-sum adds over real rows --
-    padding rows feed no prediction -- and every input read once plus the
-    predictions written once.  The x part of edge_init is counted once per
-    node, since x[senders]·Wx = (x·Wx)[senders]."""
+def bound(cost, bf16: bool) -> tuple[float, str]:
+    """(least ms, "operations" or "bytes") of work ``cost`` = (product
+    operations, other operations, bytes): the products at the f32 peak, or
+    with ``bf16`` at the bf16 tensor-core peak; the other operations
+    (gathers, elementwise) at the f32 peak."""
+    t_ops = (cost[0] / (PEAK_BF16_FLOPS if bf16 else PEAK_F32_FLOPS)
+             + cost[1] / PEAK_F32_FLOPS)
+    t_bytes = cost[2] / PEAK_BYTES
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes")
+
+
+def forward_cost(args) -> tuple[float, float, float]:
+    """(product operations, gather adds, bytes) the forward needs on these
+    inputs: the dense products' FMAs (2 ops each) and the gather-sum adds
+    over real rows -- padding rows feed no prediction -- and every input
+    read once plus the predictions written once.  The x part of edge_init
+    is counted once per node, since x[senders]·Wx = (x·Wx)[senders]."""
     (x, e, senders, edge_nbr, _rev, node_inc, graph_nodes, *_w) = args
     NT, F = x.shape
     ET, Fe = e.shape
@@ -170,19 +203,19 @@ def forward_cost(args) -> tuple[float, float]:
             + int((node_inc < ET).sum()) * H
             + int((graph_nodes < NT).sum()) * H)
     nbytes = sum(t.numel() * t.element_size() for t in args) + BT * 4
-    return float(dense + adds), float(nbytes)
+    return float(dense), float(adds), float(nbytes)
 
 
-def train_cost(args, adjoint) -> tuple[float, float]:
-    """(operations, bytes) one training step's compute needs on these
-    inputs: the replayed forward (forward_cost), then over the real rows the
+def train_cost(args, adjoint) -> tuple[float, float, float]:
+    """(product operations, gather adds, bytes) one training step's compute
+    needs on these inputs: the replayed forward (forward_cost), then over the real rows the
     cotangents through the weights (ds, and dt for every conv layer), each
     weight gradient once -- the x part of dWx once per node, as in the
     forward -- and the transposed gathers (dh: as many adds as the
     forward's gathers).  The graph inputs take no gradient.  Bytes: the
     inputs, the adjoint indices, labels and mask read once, the gradients
     and the SSE written once."""
-    ops, nbytes = forward_cost(args)
+    f_dense, f_adds, nbytes = forward_cost(args)
     (x, e, senders, edge_nbr, _rev, node_inc, graph_nodes, *_w) = args
     NT, F = x.shape
     ET, Fe = e.shape
@@ -198,7 +231,7 @@ def train_cost(args, adjoint) -> tuple[float, float]:
             + int((graph_nodes < NT).sum()) * H)
     nbytes += (sum(t.numel() * t.element_size() for t in adjoint) + BT * 4
                + sum(t.numel() for t in args[7:]) * 4 + 4)
-    return float(ops + dense + adds), float(nbytes)
+    return float(f_dense + dense), float(f_adds + adds), float(nbytes)
 
 
 def synthetic_batch(n_graphs: int, seed: int, F: int, Fe: int, device):
@@ -274,20 +307,21 @@ def kernel_vs_plain(cfg_kw: dict, spec, batch, seed: int,
                             repeats) for _ in range(2)]
             plain.append(time_ms(lambda: fused_model_forward_ref(*args, **kw),
                                  repeats))
-            ops, nbytes = forward_cost(args)
-            t_ops, t_bytes = ops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES
+            cost = forward_cost(args)
+            bound_ms, bound_by = bound(cost, bf16=False)
             out.update(ms=statistics.mean(kern), plain_ms=statistics.mean(plain),
-                       ops=ops, bytes=nbytes,
-                       bound_ms=max(t_ops, t_bytes) * 1e3,
-                       bound_by="operations" if t_ops >= t_bytes else "bytes")
+                       ops=cost[0] + cost[1], bytes=cost[2], bound_ms=bound_ms,
+                       bound_by=bound_by)
     check(rel <= REL_TOL, f"kernel vs plain relative error {rel:.3e} > "
                           f"{REL_TOL} for {cfg_kw}")
     return out
 
 
-def _timed(entry: dict, kern, plain, repeats: int, cost) -> None:
+def _timed(entry: dict, kern, plain, repeats: int, cost,
+           bf16: bool = False) -> None:
     """Times of the kernel and its plain version (plain, kernel, kernel,
-    plain) and the f32 bound of ``cost`` = (operations, bytes).  A plain
+    plain) and the bound of ``cost`` (see bound), its products at the bf16
+    peak with ``bf16``.  A plain
     version that takes longer than 0.1 s a call (autograd through the
     gathers at full width) is timed over fewer calls, at least 2."""
     import torch
@@ -299,11 +333,10 @@ def _timed(entry: dict, kern, plain, repeats: int, cost) -> None:
     p1 = time_ms(plain, n_plain)
     kern_ms = [time_ms(kern, repeats) for _ in range(2)]
     p2 = time_ms(plain, n_plain)
-    t_ops, t_bytes = cost[0] / PEAK_F32_FLOPS, cost[1] / PEAK_BYTES
+    bound_ms, bound_by = bound(cost, bf16)
     entry.update(ms=statistics.mean(kern_ms), plain_ms=(p1 + p2) / 2,
-                 ops=cost[0], bytes=cost[1],
-                 bound_ms=max(t_ops, t_bytes) * 1e3,
-                 bound_by="operations" if t_ops >= t_bytes else "bytes")
+                 ops=cost[0] + cost[1], bytes=cost[2], bound_ms=bound_ms,
+                 bound_by=bound_by)
 
 
 def train_kernels_vs_plain(cfg_kw: dict, spec, batch, seed: int,
@@ -635,6 +668,8 @@ def train_phase(tmp: Path, seed: int, card: str) -> dict:
     print(f"train cli cpu: 2 epochs, train RMSE {cpu_res['train_losses']}, "
           f"val RMSE {cpu_res['val_losses']}; card vs CPU max rel diff "
           f"{rel:.3e} (limit {TRAIN_TOL})")
+    trn = dict(launches=launches, rel=rel, steps=card_res["steps"],
+               steps_per_s=steps_per_s)
 
     # resume: 1 epoch, then --resume to 2, against a straight 2-epoch run
     train_cli(tmp, data, seed, DEVICE, 1, "resume", "--skip_test")
@@ -651,12 +686,14 @@ def train_phase(tmp: Path, seed: int, card: str) -> dict:
     print(f"resume: 1 epoch + --resume to 2 equals a straight 2-epoch run "
           f"bit for bit ({len(la)} leaves: params, Adam moments, step, "
           f"seed stream)")
-    return dict(launches=launches, rel=rel, steps=card_res["steps"])
+    return trn
 
 
-def train_profile(tmp: Path, seed: int, card: str) -> None:
+def train_profile(tmp: Path, seed: int, card: str) -> dict:
     """Steps/s of the training step alone (batches already on the card) and
-    the card's busy share of an epoch of steps under torch.profiler."""
+    the card's busy share of an epoch of steps under torch.profiler, with
+    f32 and with bf16 compute (the same model and batches); returns the
+    steps/s of each."""
     import torch
     from cgr_mpnn_3d_tpu_torch.data import ChemDataset, plan_spec, to_device
     from cgr_mpnn_3d_tpu_torch.models import CGRMPNNConfig
@@ -665,40 +702,296 @@ def train_profile(tmp: Path, seed: int, card: str) -> None:
     ds = ChemDataset(str(data / "train.csv"),
                      data_npz_path=str(data / "train.npz"))
     ds.prefeaturize()
-    cfg = CGRMPNNConfig(num_node_features=ds.num_node_features,
-                        num_edge_features=ds.num_edge_features, depth=4,
-                        hidden_sizes=(400,) * 4, dropout_ps=(0.1,) * 4)
-    tr = RxnGraphTrainer(name="profile", cfg=cfg, train_data=ds, val_data=ds,
-                         spec=plan_spec([ds.graph(i) for i in range(len(ds))]),
-                         lr=1e-4, weight_decay=1e-5, gamma=0.9,
-                         batch_size=64, seed=seed,
-                         model_save_dir=str(tmp / "profile"), device=DEVICE)
-    batches = [to_device(b, DEVICE) for b in tr.train_loader]
-    for b in batches:
-        tr._train_step(b)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    n = 0
-    for _ in range(4):
+    spec = plan_spec([ds.graph(i) for i in range(len(ds))])
+    rates = {}
+    for dtype in ("float32", "bfloat16"):
+        cfg = CGRMPNNConfig(num_node_features=ds.num_node_features,
+                            num_edge_features=ds.num_edge_features, depth=4,
+                            hidden_sizes=(400,) * 4, dropout_ps=(0.1,) * 4,
+                            compute_dtype=dtype)
+        tr = RxnGraphTrainer(name="profile", cfg=cfg, train_data=ds,
+                             val_data=ds, spec=spec, lr=1e-4,
+                             weight_decay=1e-5, gamma=0.9, batch_size=64,
+                             seed=seed, model_save_dir=str(tmp / "profile"),
+                             device=DEVICE)
+        batches = [to_device(b, DEVICE) for b in tr.train_loader]
         for b in batches:
             tr._train_step(b)
-            n += 1
-    torch.cuda.synchronize()
-    sps = n / (time.perf_counter() - t0)
-    print(f"train step: {sps:.2f} steps/s over {n} steps of "
-          f"{len(batches)} corpus batches already on the card (p = "
-          f"{tr.train_loader.spec.p}) [{card}]")
-    for _ in range(2):
-        wall_ms, dev_ms, top = device_busy(
-            lambda: [tr._train_step(b) for b in batches])
-        print(f"profile train epoch ({len(batches)} steps): wall "
-              f"{wall_ms:.3f} ms, device busy {dev_ms:.3f} ms "
-              f"({100 * dev_ms / wall_ms:.1f}%), top device time {top} "
-              f"[{card}]")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        n = 0
+        for _ in range(4):
+            for b in batches:
+                tr._train_step(b)
+                n += 1
+        torch.cuda.synchronize()
+        rates[dtype] = n / (time.perf_counter() - t0)
+        print(f"train step {dtype}: {rates[dtype]:.2f} steps/s over {n} "
+              f"steps of {len(batches)} corpus batches already on the card "
+              f"(p = {tr.train_loader.spec.p}) [{card}]")
+        for _ in range(2):
+            wall_ms, dev_ms, top = device_busy(
+                lambda: [tr._train_step(b) for b in batches], top=6)
+            print(f"profile train epoch {dtype} ({len(batches)} steps): "
+                  f"wall {wall_ms:.3f} ms, device busy {dev_ms:.3f} ms "
+                  f"({100 * dev_ms / wall_ms:.1f}%), top device time {top} "
+                  f"[{card}]")
+    return rates
 
 
-def spmm_cost(src, idx, sign, p: int) -> tuple[float, float]:
-    """(operations, bytes) of the ELL gather-sum on these inputs: one add
+BF16_TOL = 5e-3     # bf16 kernel vs its bf16 plain version: rel-L2 of values
+BF16_COS = 0.999    # ... and the cosine of the gradients
+BF16_SHARE = 0.5    # ... and its rel-L2 at most this share of its rel-L2 to
+                    # the f32 plain version (predictions, gradients)
+BF16_TRAIN_TOL = 1e-2  # bf16 card vs CPU per-epoch RMSE, relative
+
+
+def rel_l2(got, want) -> float:
+    """Relative L2 distance of two lists of tensors taken as one vector."""
+    import torch
+    a = torch.cat([t.double().flatten() for t in got])
+    b = torch.cat([t.double().flatten() for t in want])
+    return float((a - b).norm() / max(float(b.norm()), 1e-30))
+
+
+def cosine(got, want) -> float:
+    import torch
+    a = torch.cat([t.double().flatten() for t in got])
+    b = torch.cat([t.double().flatten() for t in want])
+    return float(a @ b / max(float(a.norm() * b.norm()), 1e-30))
+
+
+def bf16_kernels_vs_plain(cfg_kw: dict, spec, batch, seed: int,
+                          repeats: int) -> dict:
+    """The bf16 instantiation of K3f (eval mode), K2 and K3b (train mode,
+    the config's dropout) against their bf16 plain versions on one batch,
+    with seeded weights, labels, cotangents and dropout seeds: predictions
+    and SSE within rel-L2 BF16_TOL, gradients at cosine >= BF16_COS (the
+    f32 sums run in other orders, which can flip a bf16 rounding, so
+    nothing is held per output); a second run of K2 and K3b bit for bit;
+    against the f32 plain version within tests/test_bf16.py's bounds
+    (predictions rel-L2 < 1.5e-2, SSE rtol 2e-2, gradient cosine > 0.995
+    and rel-L2 < 0.1).
+
+    Those limits alone would pass a kernel that ran its f32 products at
+    mat_dtype bf16: bf16 and f32 differ by less.  So the predictions (K3f)
+    and the gradients (K2, K3b) are held by their two distances as well:
+    to the bf16 plain version at most BF16_SHARE of that to the f32 plain
+    version.  The f32 kernel on the same inputs is the control: it must
+    fail that hold.  With ``repeats``: times and bounds (products at the
+    bf16 tensor-core peak, gathers at the f32 peak)."""
+    import torch
+    from cgr_mpnn_3d_tpu_torch.models import (CGRMPNNConfig, adjoint_inputs,
+                                              init_params, kernel_inputs,
+                                              kernel_seeds)
+    from cgr_mpnn_3d_tpu_torch.models.cgr_mpnn import ACTIVATIONS
+    from cgr_mpnn_3d_tpu_torch.ops import fused_model as fm
+    cfg = CGRMPNNConfig(**cfg_kw)
+    gen = torch.Generator().manual_seed(seed)
+    dev = batch.node_x.device
+    model = init_params(cfg, gen, dev)
+    if cfg.use_learnable_skip:
+        with torch.no_grad():
+            for w in model.skip_weights:
+                w.copy_(torch.rand((), generator=gen) * 2.0 - 0.5)
+    mask = batch.graph_mask
+    labels = (torch.randn(mask.shape, generator=gen) * 10.0).to(dev)
+    dpred = torch.randn(mask.shape, generator=gen).to(dev) * mask
+    ev = dict(p=spec.p, act=ACTIVATIONS[cfg.activation], aggr=cfg.aggr,
+              pooling=cfg.pooling)
+    kw = dict(ev, train=True, seeds=kernel_seeds(cfg, gen).tolist(),
+              dropout_ps=cfg.dropout_ps)
+    with torch.no_grad():
+        args = kernel_inputs(model, batch)
+    adj = adjoint_inputs(batch)
+    real = mask > 0
+    bf16 = "bfloat16"
+    # (kernel, plain version), each called at mat_dtype ``md``
+    calls = {
+        "fwd": (lambda md=bf16: fm.fused_model_forward(*args, **ev,
+                                                       mat_dtype=md),
+                lambda md=bf16: fm.fused_model_forward_ref(*args, **ev,
+                                                           mat_dtype=md)),
+        "train": (lambda md=bf16: fm.fused_model_train(
+                      args, adj, labels, mask, **kw, mat_dtype=md),
+                  lambda md=bf16: fm.fused_model_train_ref(
+                      args, adj, labels, mask, **kw, mat_dtype=md)),
+        "vjp": (lambda md=bf16: fm.fused_model_vjp(args, adj, dpred, **kw,
+                                                   mat_dtype=md),
+                lambda md=bf16: fm.fused_model_vjp_ref(args, adj, dpred, **kw,
+                                                       mat_dtype=md)),
+    }
+
+    def parts(name, res):
+        """(values, gradients) of one call's result."""
+        if name == "fwd":
+            return [res[real]], []
+        if name == "train":
+            return [res[0]], list(res[1])
+        return [], list(res)
+
+    def shares(name, res, want, want32):
+        """(rel-L2 to the bf16 plain version, to the f32 plain version, the
+        first over the second) of the held part: predictions or gradients."""
+        held = [parts(name, r)[name != "fwd"] for r in (res, want, want32)]
+        near, far = rel_l2(held[0], held[1]), rel_l2(held[0], held[2])
+        return near, far, near / max(far, 1e-30)
+
+    out = dict(p=spec.p, graphs=int(real.sum()))
+    for name, (kern, plain) in calls.items():
+        with torch.no_grad():
+            got, want, want32 = kern(), plain(), plain("float32")
+            again = kern() if name != "fwd" else got
+            control = kern("float32")
+        torch.cuda.synchronize()
+        (gv, gg), (wv, wg), (v32, g32) = (parts(name, r)
+                                          for r in (got, want, want32))
+        check(all(bool(torch.isfinite(t).all()) for t in gv + gg),
+              f"bf16 {name} outputs are not finite")
+        entry = dict(abs_err=max(float((g - w).abs().max())
+                                 for g, w in zip(gv + gg, wv + wg)))
+        near, far, share = shares(name, got, want, want32)
+        ctrl = shares(name, control, want, want32)[2]
+        entry.update(near=near, far=far, share=share, control_share=ctrl)
+        check(share <= BF16_SHARE,
+              f"bf16 {name}: rel-L2 to the bf16 plain version {near:.3e} is "
+              f"{share:.3f} of that to the f32 plain version {far:.3e} "
+              f"(> {BF16_SHARE}) for {cfg_kw}")
+        check(ctrl > BF16_SHARE,
+              f"bf16 {name}: the f32 kernel passes the bf16 hold (share "
+              f"{ctrl:.3f} <= {BF16_SHARE}) for {cfg_kw}")
+        if gv:
+            entry.update(rel_l2=rel_l2(gv, wv), f32_rel_l2=rel_l2(gv, v32))
+            check(entry["rel_l2"] <= BF16_TOL,
+                  f"bf16 {name}: kernel vs bf16 plain rel-L2 "
+                  f"{entry['rel_l2']:.3e} > {BF16_TOL} for {cfg_kw}")
+            check(0.0 < entry["f32_rel_l2"] < (1.5e-2 if name == "fwd"
+                                               else 2e-2),
+                  f"bf16 {name}: vs the f32 plain version "
+                  f"{entry['f32_rel_l2']:.3e} for {cfg_kw}")
+        if gg:
+            entry.update(cos=cosine(gg, wg), f32_cos=cosine(gg, g32),
+                         f32_grad_rel_l2=rel_l2(gg, g32))
+            check(entry["cos"] >= BF16_COS,
+                  f"bf16 {name}: gradient cosine {entry['cos']:.6f} < "
+                  f"{BF16_COS} for {cfg_kw}")
+            check(entry["f32_cos"] > 0.995 and entry["f32_grad_rel_l2"] < 0.1,
+                  f"bf16 {name}: gradients vs f32 cosine "
+                  f"{entry['f32_cos']:.6f}, rel-L2 "
+                  f"{entry['f32_grad_rel_l2']:.3e} for {cfg_kw}")
+        if name != "fwd":
+            same = all(torch.equal(x, y) for x, y in
+                       zip(sum(parts(name, got), []),
+                           sum(parts(name, again), [])))
+            check(same, f"two runs of bf16 {name} differ")
+        if repeats:
+            with torch.no_grad():
+                _timed(entry, kern, plain, repeats,
+                       forward_cost(args) if name == "fwd"
+                       else train_cost(args, adj), bf16=True)
+        out[name] = entry
+    return out
+
+
+def print_bf16(what: str, k: dict, card: str) -> None:
+    for name, e in k.items():
+        if not isinstance(e, dict):
+            continue
+        line = (f"bf16 {name} {what}: {k['graphs']} graphs in {k['p']} "
+                f"packs, max abs err {e['abs_err']:.3e}; "
+                f"{'predictions' if name == 'fwd' else 'gradients'} rel-L2 "
+                f"vs bf16 plain {e['near']:.3e}, vs f32 plain {e['far']:.3e}, "
+                f"share {e['share']:.4g} (limit {BF16_SHARE}; the f32 "
+                f"kernel's {e['control_share']:.4g})")
+        if name == "train":
+            line += (f", SSE rel-L2 vs bf16 plain {e['rel_l2']:.3e}, vs f32 "
+                     f"plain {e['f32_rel_l2']:.3e}")
+        if "cos" in e:
+            line += (f", gradient cosine vs bf16 plain {e['cos']:.8f}, vs "
+                     f"f32 plain {e['f32_cos']:.8f} (rel-L2 "
+                     f"{e['f32_grad_rel_l2']:.3e})")
+        if "ms" in e:
+            line += (f"; kernel {e['ms']:.4f} ms, plain {e['plain_ms']:.4f} "
+                     f"ms, bf16 bound {e['bound_ms']:.4f} ms "
+                     f"({e['ops'] / 1e9:.3f} GFLOP, {e['bytes'] / 1e6:.3f} "
+                     f"MB, {e['bound_by']}-bound) [{card}]")
+        print(line)
+
+
+def train_phase_bf16(tmp: Path, seed: int, card: str,
+                     f32_steps_per_s) -> dict:
+    """``cli.train.main`` with the README's flags and ``--compute_dtype
+    bfloat16``: 3 epochs on the card with ``--log_histograms``, then 2 on
+    the CPU.  Every training step is one bf16 K2 launch and no f32 K2
+    launch, the histograms go through the bf16 K3b and no f32 K3b,
+    validation through the bf16 K3f, the test after training through the
+    f32 K3f (cli/test.py loads the checkpoint in f32, as the JAX CLI
+    does); per-epoch
+    RMSE card vs CPU within BF16_TRAIN_TOL; steps/s beside the f32 run's.
+    Runs in its own working directory (the run name carries no dtype)."""
+    import torch
+    from cgr_mpnn_3d_tpu_torch.ops import fused_model as fm
+    data = tmp / "datasets"
+    work = tmp / "bf16"
+    work.mkdir(exist_ok=True)
+    cwd = os.getcwd()
+    os.chdir(work)
+    try:
+        # the main path: counts are zeroed just before it and read just after
+        fm.launches = fm.train_launches = fm.vjp_launches = 0
+        fm.bf16_launches = fm.bf16_train_launches = fm.bf16_vjp_launches = 0
+        t0 = time.perf_counter()
+        card_res = train_cli(tmp, data, seed, DEVICE, 3, "card_bf16",
+                             "--log_histograms", "--compute_dtype",
+                             "bfloat16")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(fwd=fm.bf16_launches, train=fm.bf16_train_launches,
+                        vjp=fm.bf16_vjp_launches, f32=(fm.launches,
+                                                       fm.train_launches,
+                                                       fm.vjp_launches))
+        steps = card_res["steps"]
+        check(launches["train"] == steps > 0 and launches["f32"][1:] == (0, 0),
+              f"bf16 training launches {launches} for {steps} steps")
+        check(launches["vjp"] == 3, f"{launches['vjp']} bf16 VJP launches for "
+                                    f"3 epochs of gradient histograms")
+        check(launches["fwd"] > 0, "bf16 validation launched no bf16 forward "
+                                   "kernel")
+        check(launches["f32"][0] > 0, "the f32 test launched no f32 forward "
+                                      "kernel")
+        cpu_res = train_cli(tmp, data, seed, "cpu", 2, "cpu_bf16",
+                            "--log_histograms", "--compute_dtype", "bfloat16")
+        steps_per_s = [json.loads(line).get("steps_per_s")
+                       for f in (work / "runs").glob("*_e-3_*.jsonl")
+                       for line in f.read_text().splitlines()
+                       if '"train_loss"' in line]
+    finally:
+        os.chdir(cwd)
+    losses = [card_res["train_losses"], card_res["val_losses"],
+              cpu_res["train_losses"], cpu_res["val_losses"],
+              [card_res["test_losses"], cpu_res["test_losses"]]]
+    check(all(np.isfinite(v).all() and len(v) for v in losses),
+          f"bf16 training losses are not finite: {losses}")
+    rel = max(abs(a - b) / abs(b) for key in ("train_losses", "val_losses")
+              for a, b in zip(card_res[key], cpu_res[key]))
+    check(rel <= BF16_TRAIN_TOL, f"bf16 card vs CPU per-epoch RMSE differ "
+                                 f"by {rel:.3e} > {BF16_TRAIN_TOL}")
+    print(f"train cli bf16 card: 3 epochs, {steps} steps in {wall:.3f} s "
+          f"wall, train RMSE {card_res['train_losses']}, val RMSE "
+          f"{card_res['val_losses']}, test RMSE {card_res['test_losses']}; "
+          f"launches: bf16 training kernel {launches['train']}, bf16 VJP "
+          f"kernel {launches['vjp']}, bf16 forward kernel {launches['fwd']}, "
+          f"f32 (forward, train, VJP) {launches['f32']}; steps/s per epoch "
+          f"(StepTimer) bf16 {steps_per_s}, f32 {f32_steps_per_s} [{card}]")
+    print(f"train cli bf16 cpu: 2 epochs, train RMSE "
+          f"{cpu_res['train_losses']}, val RMSE {cpu_res['val_losses']}; "
+          f"card vs CPU max rel diff {rel:.3e} (limit {BF16_TRAIN_TOL})")
+    return dict(launches=launches, rel=rel, steps=steps,
+                steps_per_s=steps_per_s)
+
+
+def spmm_cost(src, idx, sign, p: int) -> tuple[float, float, float]:
+    """(0 products, adds, bytes) of the ELL gather-sum on these inputs: one add
     per counted entry and column; every input read once, the output
     written once."""
     from cgr_mpnn_3d_tpu_torch.ops.segment import in_pack
@@ -708,12 +1001,13 @@ def spmm_cost(src, idx, sign, p: int) -> tuple[float, float]:
     if sign is not None:
         n += int(in_pack(sign, p, src.shape[0])[1].sum())
         nbytes += sign.numel() * 4
-    return float(n * H), float(nbytes)
+    return 0.0, float(n * H), float(nbytes)
 
 
 def glin_cost(xa, xb, idx, wa, p: int, rows_out: int, rows_a: int,
-              adj=None) -> tuple[float, float]:
-    """(operations, bytes) of the gather-linear on these inputs over the
+              adj=None) -> tuple[float, float, float]:
+    """(product operations, other operations, bytes) of the gather-linear
+    on these inputs over the
     real rows: the products, the gathered product taken over the smaller of
     its two row sets ((G·xa)·Wa = G·(xa·Wa)), the gather's adds over the
     narrower width; backward dxa, dxb, dWa, dWb and db (ReLU: dpre from
@@ -726,16 +1020,17 @@ def glin_cost(xa, xb, idx, wa, p: int, rows_out: int, rows_a: int,
     adds = int(in_pack(idx, p, xa.shape[0])[1].sum()) * min(FA, H)
     ins = xa.numel() + xb.numel() + idx.numel() + (FA + FB + 1) * H
     if adj is None:
-        return (float(2 * m * FA * H + 2 * R * FB * H + adds),
+        return (float(2 * m * FA * H + 2 * R * FB * H), float(adds),
                 float((ins + xb.shape[0] * H) * 4))
-    ops = 4 * m * FA * H + 4 * R * FB * H + 2 * adds + R * H
     nbytes = 2 * ins - idx.numel() + adj.numel() + 2 * xb.shape[0] * H
-    return float(ops), float(nbytes * 4)
+    return (float(4 * m * FA * H + 4 * R * FB * H), float(2 * adds + R * H),
+            float(nbytes * 4))
 
 
 def stack_cost(h0, edge_nbr, rev, w, p: int, edges: int,
-               backward: bool) -> tuple[float, float]:
-    """(operations, bytes) of the conv stack on these inputs over the real
+               backward: bool) -> tuple[float, float, float]:
+    """(product operations, other operations, bytes) of the conv stack on
+    these inputs over the real
     edges: per layer the product t·W and the message adds; backward the
     replayed forward, then per layer dt = dpre·Wᵀ, dW = tᵀ·dpre and the
     adjoint's adds.  Bytes: every input read once, every output written
@@ -745,13 +1040,13 @@ def stack_cost(h0, edge_nbr, rev, w, p: int, edges: int,
     L = w.shape[0]
     adds = (int(in_pack(edge_nbr, p, ET)[1].sum())
             + int(in_pack(rev, p, ET)[1].sum())) * H
-    fwd = L * (2 * edges * H * H + adds)
+    prod = L * 2 * edges * H * H
     ins = h0.numel() + edge_nbr.numel() + rev.numel() + L * (H * H + H + 1)
     if not backward:
-        return float(fwd), float((ins + ET * H) * 4)
-    ops = 2 * fwd + L * 2 * edges * H * H + L * edges * H
+        return float(prod), float(L * adds), float((ins + ET * H) * 4)
     nbytes = ins + edge_nbr.numel() + 2 * ET * H + L * (H * H + H + 1)
-    return float(ops), float(nbytes * 4)
+    return (float(3 * prod), float(2 * L * adds + L * edges * H),
+            float(nbytes * 4))
 
 
 def hold(out: dict, name: str, got, want, relu: bool = False,
@@ -1220,8 +1515,9 @@ def train_layered(tmp: Path, seed: int, card: str) -> dict:
 
 
 def conv_cost(h, h0, edge_nbr, rev, w, p: int, edges: int, backward: bool,
-              relu: bool = True) -> tuple[float, float]:
-    """(operations, bytes) of one conv layer (K6) on these inputs over the
+              relu: bool = True) -> tuple[float, float, float]:
+    """(product operations, other operations, bytes) of one conv layer
+    (K6) on these inputs over the
     real edges: the product t·W and the message adds; backward the
     recomputed messages (and, for SiLU and GELU, the recomputed product),
     dt = dpre·Wᵀ, dW = tᵀ·dpre, the adjoint's adds, db, dskip and dh0.
@@ -1236,11 +1532,11 @@ def conv_cost(h, h0, edge_nbr, rev, w, p: int, edges: int, backward: bool,
     ins = (h.numel() + h0.numel() + edge_nbr.numel() + rev.numel()
            + Hin * H + H + 1)
     if not backward:
-        return float(prod + adds), float((ins + ET * H) * 4)
-    ops = 2 * adds + (0 if relu else prod) + 2 * prod + 4 * edges * H
+        return float(prod), float(adds), float((ins + ET * H) * 4)
     nbytes = (ins + edge_nbr.numel() + 2 * ET * H
               + h.numel() + h0.numel() + Hin * H + H + 1)
-    return float(ops), float(nbytes * 4)
+    return (float((0 if relu else prod) + 2 * prod),
+            float(2 * adds + 4 * edges * H), float(nbytes * 4))
 
 
 def fused_conv_kernels(cfg_kw: dict, spec, batch, seed: int,
@@ -1592,20 +1888,23 @@ def goldens_on_card(card: str) -> None:
 
 def bench_ops_phase(card: str, seed: int) -> dict:
     """``cli/bench_ops.py`` at its defaults (2 repeats), its lines tagged
-    with the card; every time finite and positive, and the K6 and K7
-    counts risen.  Then every kernel it timed, held once against its plain
-    version on its batch (te = 512) at REL_TOL: K6 forward and backward on
-    its conv inputs (the ReLU gradients by the float64 rule of hold), K7
-    with the rev sign, and K3f, K2 and K3b (kernel_vs_plain,
-    train_kernels_vs_plain) with the benchmark model's config and seeded
-    weights."""
+    with the card; every time finite and positive, and the K6 and K7 and
+    the bf16 K3f and K3b counts risen.  Then every kernel it timed, held
+    once against its plain version on its batch (te = 512) at REL_TOL: K6
+    forward and backward on its conv inputs (the ReLU gradients by the
+    float64 rule of hold), K7 with the rev sign, and K3f, K2 and K3b
+    (kernel_vs_plain, train_kernels_vs_plain) with the benchmark model's
+    config and seeded weights, in f32 and (bf16_kernels_vs_plain, the model
+    rows' dtype) in bf16."""
     import contextlib
     import io
     import torch
     from cgr_mpnn_3d_tpu_torch.cli import bench_ops
     from cgr_mpnn_3d_tpu_torch.ops import fused_conv as fc
+    from cgr_mpnn_3d_tpu_torch.ops import fused_model as fm
     from cgr_mpnn_3d_tpu_torch.ops import onehot_spmm as sp
     fc.launches = fc.bwd_launches = sp.launches = 0
+    fm.bf16_launches = fm.bf16_vjp_launches = 0
     buf = io.StringIO()
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(buf):
@@ -1618,6 +1917,9 @@ def bench_ops_phase(card: str, seed: int) -> dict:
     check(fc.launches > 0 and fc.bwd_launches > 0 and sp.launches > 0,
           f"bench_ops launches: K6 {fc.launches} + {fc.bwd_launches}, K7 "
           f"{sp.launches}")
+    check(fm.bf16_launches > 0 and fm.bf16_vjp_launches > 0,
+          f"bench_ops' bf16 model rows launched bf16 K3f "
+          f"{fm.bf16_launches}, K3b {fm.bf16_vjp_launches} times")
     print(f"bench_ops: {len(res)} lines in {wall:.3f} s; launches K6 "
           f"{fc.launches} forward + {fc.bwd_launches} backward, K7 "
           f"{sp.launches}")
@@ -1648,7 +1950,12 @@ def bench_ops_phase(card: str, seed: int) -> dict:
     held["K3f"] = kernel_vs_plain(kw, spec, batch, seed, 0)
     train = train_kernels_vs_plain(kw, spec, batch, seed, 0)
     held.update(K2=train["train"], K3b=train["vjp"])
-    errs = {k: {e: v[e] for e in ("rel_err", "l1_64") if e in v}
+    bf16 = bf16_kernels_vs_plain(kw, spec, batch, seed, 0)
+    held.update({f"{k} bf16": bf16[n] for k, n in
+                 (("K3f", "fwd"), ("K2", "train"), ("K3b", "vjp"))})
+    errs = {k: {e: v[e] for e in ("rel_err", "l1_64", "rel_l2", "cos",
+                                  "share", "control_share")
+                if e in v}
             for k, v in held.items()}
     print(f"bench_ops batch ({p} packs of te = {spec.te}): every timed "
           f"kernel against its plain version {json.dumps(errs)} [{card}]")
@@ -1720,6 +2027,60 @@ def act_chain_phase(cfg_kw: dict, spec, batch, seed: int, card: str) -> dict:
                 step_ms=step_ms)
 
 
+def mm_probe_phase(seed: int, card: str) -> dict:
+    """P2: the probe at its defaults (``tools/int8_microbench.py``: cuBLAS
+    and cuBLASLt, then P2, in bf16 and int8 at N = 4096), its kernel
+    launches counted; then P2 against its plain version on seeded random
+    inputs at the probe's N (bf16 normal, int8 in [-3, 3]): int8 exactly,
+    bf16 within rel-L2 4e-3; the plain versions' times, and the bounds 2N³
+    over the bf16 and int8 tensor-core peaks."""
+    import torch
+    from cgr_mpnn_3d_tpu_torch.ops import mm_probe as mp
+    from cgr_mpnn_3d_tpu_torch.tools import int8_microbench
+    # the main path: the probe; counts zeroed just before, read just after
+    mp.launches = 0
+    res = int8_microbench.main([])
+    launches = mp.launches
+    check(launches > 0, "the probe made no P2 launches")
+    check(all(np.isfinite(v) and v > 0 for v in res["tops"].values()),
+          f"probe rates {res['tops']}")
+    N = res["n"]
+    gen = torch.Generator().manual_seed(seed)
+    dev = torch.device(DEVICE)
+    a16 = torch.randn((N, N), generator=gen).bfloat16().to(dev)
+    b16 = torch.randn((N, N), generator=gen).bfloat16().to(dev)
+    a8 = torch.randint(-3, 4, (N, N), generator=gen, dtype=torch.int8).to(dev)
+    b8 = torch.randint(-3, 4, (N, N), generator=gen, dtype=torch.int8).to(dev)
+    got16, want16 = mp.mm_probe(a16, b16), mp.mm_probe_ref(a16, b16)
+    got8, want8 = mp.mm_probe(a8, b8), mp.mm_probe_ref(a8, b8)
+    torch.cuda.synchronize()
+    check(torch.equal(got8, want8), "P2 int8 differs from its plain version")
+    err16 = rel_l2([got16], [want16])
+    check(err16 <= 4e-3, f"P2 bf16 vs plain rel-L2 {err16:.3e} > 4e-3")
+    plain16 = time_ms(lambda: mp.mm_probe_ref(a16, b16), 5)
+    plain8 = time_ms(lambda: mp.mm_probe_ref(a8, b8), 3)
+    ops = 2.0 * N ** 3
+    entry = dict(abs_err=float((got16.float() - want16.float()).abs().max()),
+                 ms=res["ms"]["P2 bf16->f32"], plain_ms=plain16,
+                 bound_ms=ops / PEAK_BF16_FLOPS * 1e3, bound_by="operations",
+                 library_ms=res["ms"]["cuBLAS bf16->f32"])
+    int8 = dict(ms=res["ms"]["P2 int8->int32"], plain_ms=plain8,
+                bound_ms=ops / PEAK_INT8_OPS * 1e3,
+                library_ms=res["ms"]["cuBLASLt int8->int32"])
+    print(f"mm_probe bf16 N = {N}: rel-L2 vs plain {err16:.3e}, max abs err "
+          f"{entry['abs_err']:.3e}; kernel {entry['ms']:.4f} ms "
+          f"({res['tops']['P2 bf16->f32']:.1f} TFLOP/s), plain "
+          f"{plain16:.4f} ms, cuBLAS {entry['library_ms']:.4f} ms "
+          f"({res['tops']['cuBLAS bf16->f32']:.1f} TFLOP/s), bound "
+          f"{entry['bound_ms']:.4f} ms [{card}]")
+    print(f"mm_probe int8 N = {N}: equal to plain; kernel {int8['ms']:.4f} ms "
+          f"({res['tops']['P2 int8->int32']:.1f} TOP/s), plain "
+          f"{plain8:.4f} ms, cuBLASLt {int8['library_ms']:.4f} ms "
+          f"({res['tops']['cuBLASLt int8->int32']:.1f} TOP/s), bound "
+          f"{int8['bound_ms']:.4f} ms; probe launches {launches} [{card}]")
+    return dict(entry=entry, int8=int8, launches=launches, probe=res)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1775,6 +2136,9 @@ def main(argv=None) -> int:
     train_k = train_kernels_vs_plain(full_train, spec, batch, args.seed,
                                      args.repeats)
     print_train_kernels("full width, dropout 0.1, synthetic", train_k, card)
+    bf16_k = bf16_kernels_vs_plain(full_train, spec, batch, args.seed,
+                                   args.repeats)
+    print_bf16("full width, dropout 0.1, synthetic", bf16_k, card)
     for act in ("SiLU", "GELU"):
         k = train_kernels_vs_plain(dict(full_train, activation=act), spec,
                                    batch, args.seed, 0)
@@ -1810,6 +2174,8 @@ def main(argv=None) -> int:
                             f"dropout 0.1", k, card)
         small_train = dict(small, dropout_ps=(0.1,) * 3)
         what = f"small width {act} mean/mean learnable skip, dropout 0.1"
+        print_bf16(what, bf16_kernels_vs_plain(small_train, spec, batch,
+                                               args.seed + 1, 0), card)
         print_layered(what, layered_kernels(small_train, spec, batch,
                                             args.seed + 1, 0), card)
         print_layered(f"layered vs whole-model, {what}", layered_vs_whole(
@@ -1829,6 +2195,9 @@ def main(argv=None) -> int:
               f"{req_k['rel_err']:.3e}; kernel {req_k['ms']:.4f} ms, plain "
               f"{req_k['plain_ms']:.4f} ms, f32 bound "
               f"{req_k['bound_ms']:.4f} ms [{card}]")
+        print_bf16("request batch, full width, dropout 0.1",
+                   bf16_kernels_vs_plain(full_train, spec, batch, args.seed,
+                                         args.repeats), card)
         print_layered("layered vs whole-model, request batch",
                       layered_vs_whole(full, spec, batch, args.seed), card)
         print_capture("capture vs the other paths, request batch",
@@ -1839,6 +2208,9 @@ def main(argv=None) -> int:
                                    args.repeats)
         print_train_kernels("corpus training batch, full width, dropout 0.1",
                             k, card)
+        print_bf16("corpus training batch, full width, dropout 0.1",
+                   bf16_kernels_vs_plain(full_train, spec, batch, args.seed,
+                                         args.repeats), card)
         print_layered("corpus training batch, full width, dropout 0.1",
                       layered_kernels(full_train, spec, batch, args.seed,
                                       args.repeats), card)
@@ -1857,13 +2229,19 @@ def main(argv=None) -> int:
         os.chdir(tmp)
         try:
             trn = train_phase(Path(tmp), args.seed, card)
-            train_profile(Path(tmp), args.seed, card)
+            rates = train_profile(Path(tmp), args.seed, card)
+            trn_16 = train_phase_bf16(Path(tmp), args.seed, card,
+                                      trn["steps_per_s"])
+            print(f"train step bf16 vs f32: {rates['bfloat16']:.2f} against "
+                  f"{rates['float32']:.2f} steps/s "
+                  f"({rates['bfloat16'] / rates['float32']:.3f}x) [{card}]")
             trn_l = train_layered(Path(tmp), args.seed, card)
         finally:
             os.chdir(cwd)
 
     goldens_on_card(card)
     bench_ops_phase(card, args.seed)
+    p2 = mm_probe_phase(args.seed, card)
 
     def kernel(name, cu, replaces, launches, k):
         return {"name": name, "route": "cuda",
@@ -1878,12 +2256,11 @@ def main(argv=None) -> int:
     # K5's entry: its two calls of one layered forward (edge_init and
     # readout) together, the bound of their summed work
     a, b = lay_k["K5 edge_init fwd"], lay_k["K5 readout fwd"]
-    ops, nbytes = a["ops"] + b["ops"], a["bytes"] + b["bytes"]
-    t_ops, t_bytes = ops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES
+    bound_ms, bound_by = bound((a["ops"] + b["ops"], 0.0,
+                                a["bytes"] + b["bytes"]), bf16=False)
     glin = dict(abs_err=max(a["abs_err"], b["abs_err"]),
                 ms=a["ms"] + b["ms"], plain_ms=a["plain_ms"] + b["plain_ms"],
-                bound_ms=max(t_ops, t_bytes) * 1e3,
-                bound_by="operations" if t_ops >= t_bytes else "bytes")
+                bound_ms=bound_ms, bound_by=bound_by)
     lay_launches = {
         key: srv_l["launches"][key] + sum(trn_l["launches"][key])
         for key in ("K5", "K4", "K7")}
@@ -1904,7 +2281,18 @@ def main(argv=None) -> int:
         kernel("fused_conv", "fused_conv.cu", "pallas_fused.py:330",
                sum(cap["launches"]["K6"]), conv_k["K6 fwd eval"]),
         kernel("act_chain", "act_chain.cu", "tools/gelu_roofline.py:66",
-               chain["launches"], chain["entry"])]}))
+               chain["launches"], chain["entry"]),
+        kernel("fused_model_fwd_bf16", "fused_model_fwd.cu",
+               "pallas_model.py:376", trn_16["launches"]["fwd"],
+               bf16_k["fwd"]),
+        kernel("fused_model_train_bf16", "fused_model_bwd.cu",
+               "pallas_model.py:439", trn_16["launches"]["train"],
+               bf16_k["train"]),
+        kernel("fused_model_vjp_bf16", "fused_model_bwd.cu",
+               "pallas_model.py:397", trn_16["launches"]["vjp"],
+               bf16_k["vjp"]),
+        kernel("mm_probe", "mm_probe.cu", "tools/int8_microbench.py:72",
+               p2["launches"], p2["entry"])]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

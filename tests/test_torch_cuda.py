@@ -5,8 +5,11 @@ gather-linear, conv stack, forward and backward, backward reruns bit for
 bit) and the layered configuration against the whole-model one; the
 per-layer conv kernel (forward and backward, Hin != H included, backward
 reruns bit for bit), capture mode on the card against the CPU and the
-layered path, and the activation-chain probe's kernel.  Run on a GPU
-machine with:
+layered path, and the activation-chain probe's kernel; the bf16
+instantiation of the whole-model kernels against their bf16 plain versions
+(reruns bit for bit, the bf16 launch counters, a bf16 model on the card
+against the CPU), no CUDA tensor reaching a plain version, and the matmul
+probe's kernel (P2).  Run on a GPU machine with:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py -q
 
@@ -14,6 +17,7 @@ machine with:
 the port need not have.)
 """
 
+import dataclasses
 import itertools
 
 import numpy as np
@@ -25,8 +29,9 @@ from cgr_mpnn_3d_tpu_torch.data import (pack_graphs, packs_needed,
                                         place_graphs, plan_spec, to_device)
 from cgr_mpnn_3d_tpu_torch.data.synthetic import synthetic_graphs
 from cgr_mpnn_3d_tpu_torch.models import (ACTIVATIONS, CGRMPNNConfig,
-                                          adjoint_inputs, apply, init_params,
-                                          kernel_inputs)
+                                          adjoint_inputs, apply,
+                                          fused_train_value_and_grad,
+                                          init_params, kernel_inputs)
 from cgr_mpnn_3d_tpu_torch.ops import fused_model as fm
 
 pytestmark = pytest.mark.cuda
@@ -477,3 +482,166 @@ def test_act_chain_kernel_matches_plain(cuda, fn):
         want = ac.act_chain_ref(x, fn, k)
         torch.cuda.synchronize()
         assert _rel(got, want) <= 1e-4, k
+
+
+# -- bf16 compute: K3f, K2 and K3b at mat_dtype bf16; the matmul probe P2 ---
+
+def _rel_l2(got, want):
+    a = torch.cat([t.double().flatten() for t in got])
+    b = torch.cat([t.double().flatten() for t in want])
+    return float((a - b).norm() / b.norm())
+
+
+def _cos(got, want):
+    a = torch.cat([t.double().flatten() for t in got])
+    b = torch.cat([t.double().flatten() for t in want])
+    return float(a @ b / (a.norm() * b.norm()))
+
+
+def _share(got, want16, want32):
+    """A bf16 result's rel-L2 to the bf16 plain version over its rel-L2 to
+    the f32 one: at most 1/2 for a kernel that rounds where the plain
+    version does, above that for one that runs f32 products."""
+    return _rel_l2(got, want16) / max(_rel_l2(got, want32), 1e-300)
+
+
+def _bf16_counts():
+    return (fm.launches, fm.train_launches, fm.vjp_launches,
+            fm.bf16_launches, fm.bf16_train_launches, fm.bf16_vjp_launches)
+
+
+@pytest.mark.parametrize("act,aggr,pooling,drop", [
+    ("ReLU", "add", "add", 0.1), ("SiLU", "mean", "mean", 0.3),
+    ("GELU", "mean", "add", 0.0)])
+def test_bf16_kernels_match_plain(cuda, act, aggr, pooling, drop):
+    """The bf16 instantiation of K3f, K2 and K3b against their bf16 plain
+    versions: predictions and SSE within rel-L2 5e-3, gradients at cosine
+    >= 0.999 (the f32 sums run in other orders, which can flip a bf16
+    rounding); predictions and gradients at most half as far from the bf16
+    plain version as from the f32 one, which the f32 kernel on the same
+    inputs is not; K2 and K3b reruns bit for bit; only the bf16 counters
+    move; and bf16 differs from f32 within tests/test_bf16.py's 1.5e-2."""
+    spec, batch, args, adj, labels, kw = _train_case(cuda, act, aggr,
+                                                     pooling, drop)
+    kw = dict(kw, mat_dtype="bfloat16")
+    mask = batch.graph_mask
+    m, dpred = mask > 0, labels * mask
+    before = _bf16_counts()
+    with torch.no_grad():
+        preds = fm.fused_model_forward(*args, **kw)
+        preds_ref = fm.fused_model_forward_ref(*args, **kw)
+        preds32 = fm.fused_model_forward_ref(*args, **dict(
+            kw, mat_dtype="float32"))
+    sse, grads = fm.fused_model_train(args, adj, labels, mask, **kw)
+    again = fm.fused_model_train(args, adj, labels, mask, **kw)
+    sse_ref, grads_ref = fm.fused_model_train_ref(args, adj, labels, mask,
+                                                  **kw)
+    vjp = fm.fused_model_vjp(args, adj, dpred, **kw)
+    vjp_again = fm.fused_model_vjp(args, adj, dpred, **kw)
+    vjp_ref = fm.fused_model_vjp_ref(args, adj, dpred, **kw)
+    torch.cuda.synchronize()
+    assert [a - b for a, b in zip(_bf16_counts(), before)] == [0, 0, 0, 1, 2,
+                                                               2]
+    f32 = dict(kw, mat_dtype="float32")
+    grads32 = fm.fused_model_train_ref(args, adj, labels, mask, **f32)[1]
+    vjp32 = fm.fused_model_vjp_ref(args, adj, dpred, **f32)
+    with torch.no_grad():
+        control = (fm.fused_model_forward(*args, **f32)[m],
+                   fm.fused_model_train(args, adj, labels, mask, **f32)[1],
+                   fm.fused_model_vjp(args, adj, dpred, **f32))
+    for got, want, want32, ctrl in (
+            ([preds[m]], [preds_ref[m]], [preds32[m]], [control[0]]),
+            (grads, grads_ref, grads32, control[1]),
+            (vjp, vjp_ref, vjp32, control[2])):
+        assert _share(got, want, want32) <= 0.5
+        assert _share(ctrl, want, want32) > 0.5
+    assert _rel_l2([preds[m]], [preds_ref[m]]) <= 5e-3
+    assert 0.0 < _rel_l2([preds[m]], [preds32[m]]) < 1.5e-2
+    assert _rel_l2([sse], [sse_ref]) <= 5e-3
+    assert _cos(grads, grads_ref) >= 0.999
+    assert _cos(vjp, vjp_ref) >= 0.999
+    assert torch.equal(sse, again[0])
+    assert all(torch.equal(x, y) for x, y in zip(grads, again[1]))
+    assert all(torch.equal(x, y) for x, y in zip(vjp, vjp_again))
+
+
+def test_bf16_model_on_card_matches_cpu(cuda):
+    """A bf16 model on the card: apply (K3f bf16, K3b bf16 under autograd)
+    and the training step (one bf16 K2 launch) against the same model on
+    the CPU (the plain versions at bf16), and at most half as far from it
+    as from the model computing in f32 on the CPU."""
+    spec, batch = _batch(60, 11, 78, "cpu")
+    cfg = CGRMPNNConfig(num_node_features=78, num_edge_features=14,
+                        depth=2, hidden_sizes=(24, 24), dropout_ps=(0.2, 0.2),
+                        activation="GELU", compute_dtype="bfloat16")
+    f32 = dataclasses.replace(cfg, compute_dtype="float32")
+    out = []
+    for dev, conf in (("cpu", cfg), (cuda, cfg), ("cpu", f32)):
+        model = init_params(conf, torch.Generator().manual_seed(4), dev)
+        b = to_device(batch, dev)
+        before = _bf16_counts()
+        pred = apply(model, b, spec, train=True, seeds=[5, 6])
+        ((pred - b.labels) ** 2 * b.graph_mask).sum().backward()
+        vjp_grads = [p.grad.cpu() for p in model.parameters()]
+        sse = fused_train_value_and_grad(model, b, spec, [5, 6])
+        step_grads = [p.grad.cpu() for p in model.parameters()]
+        if dev != "cpu":
+            torch.cuda.synchronize()
+            assert [a - c for a, c in zip(_bf16_counts(), before)] == [
+                0, 0, 0, 1, 1, 1]
+        out.append((pred.detach().cpu(), vjp_grads, sse.cpu(), step_grads))
+    (p0, v0, s0, g0), (p1, v1, s1, g1), (p32, v32, _, g32) = out
+    mask = batch.graph_mask > 0
+    assert _rel_l2([p1[mask]], [p0[mask]]) <= 5e-3
+    assert _rel_l2([s1], [s0]) <= 5e-3
+    assert _cos(v1, v0) >= 0.999 and _cos(g1, g0) >= 0.999
+    assert _share([p1[mask]], [p0[mask]], [p32[mask]]) <= 0.5
+    assert _share(v1, v0, v32) <= 0.5 and _share(g1, g0, g32) <= 0.5
+
+
+def test_no_cuda_tensor_reaches_a_plain_version(cuda, monkeypatch):
+    """With every plain version of K3f, K2, K3b and P2 replaced by one that
+    raises, the wrappers, apply and the training step still run on the
+    card, in f32 and in bf16."""
+    from cgr_mpnn_3d_tpu_torch.models import cgr_mpnn as cm
+    from cgr_mpnn_3d_tpu_torch.ops import mm_probe as mp
+
+    def refuse(*a, **k):
+        raise AssertionError("a plain version was called")
+    for name in ("fused_model_forward_ref", "fused_model_train_ref",
+                 "fused_model_vjp_ref"):
+        monkeypatch.setattr(fm, name, refuse)
+    monkeypatch.setattr(mp, "mm_probe_ref", refuse)
+    spec, batch = _batch(60, 12, 78, cuda)
+    for dtype in ("float32", "bfloat16"):
+        cfg = CGRMPNNConfig(num_node_features=78, num_edge_features=14,
+                            depth=2, hidden_sizes=(24, 24),
+                            dropout_ps=(0.1, 0.1), compute_dtype=dtype)
+        model = init_params(cfg, torch.Generator().manual_seed(1), cuda)
+        pred = apply(model, batch, spec, train=True, seeds=[1, 2])
+        pred.sum().backward()
+        cm.fused_train_value_and_grad(model, batch, spec, [1, 2])
+    a = torch.randint(-3, 4, (128, 128), dtype=torch.int8, device=cuda)
+    mp.mm_probe(a, a)
+    mp.mm_probe(a.bfloat16(), a.bfloat16())
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("M,N,K", [(512, 512, 512), (256, 384, 192)])
+def test_mm_probe_kernel_matches_plain(cuda, M, N, K):
+    from cgr_mpnn_3d_tpu_torch.ops import mm_probe as mp
+    gen = torch.Generator().manual_seed(M + K)
+    a8 = torch.randint(-3, 4, (M, K), generator=gen, dtype=torch.int8)
+    b8 = torch.randint(-3, 4, (K, N), generator=gen, dtype=torch.int8)
+    a16 = torch.randn((M, K), generator=gen).bfloat16()
+    b16 = torch.randn((K, N), generator=gen).bfloat16()
+    before = mp.launches
+    got8 = mp.mm_probe(a8.to(cuda), b8.to(cuda))
+    got16 = mp.mm_probe(a16.to(cuda), b16.to(cuda))
+    torch.cuda.synchronize()
+    assert mp.launches == before + 2
+    assert got8.dtype == torch.int8 and got16.dtype == torch.bfloat16
+    assert torch.equal(got8.cpu(), mp.mm_probe_ref(a8, b8))
+    assert _rel_l2([got16.cpu()], [mp.mm_probe_ref(a16, b16)]) <= 4e-3
+    with pytest.raises(ValueError, match="multiples of 128"):
+        mp.mm_probe(a8[:100].to(cuda), b8.to(cuda))

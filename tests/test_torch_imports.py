@@ -39,7 +39,8 @@ def test_importing_every_module_loads_no_jax():
     kernels = {f"cgr_mpnn_3d_tpu_torch.{m}" for m in
                ("ops.onehot_spmm", "ops.gather_linear", "ops.conv_stack",
                 "ops._launch", "ops.fused_conv", "ops.act_chain",
-                "cli.bench_ops", "tools.gelu_roofline")}
+                "ops.mm_probe", "cli.bench_ops", "tools.gelu_roofline",
+                "tools.int8_microbench", "tools.bwd_registers")}
     assert kernels <= set(res["mods"])
     assert [m for m in res["loaded"] if _forbidden(m)] == []
 
