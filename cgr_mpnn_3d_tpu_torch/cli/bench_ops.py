@@ -7,12 +7,13 @@ The counterpart of ``cgr_mpnn_3d_tpu/cli/bench_ops.py``, with its flags, its
 synthetic batch (``synthetic_graphs(N)`` packed at te=512, tn=256, tb=32
 into ``packs_needed(fill_target=0.92)`` packs) and its result lines:
 
-    dense_matmul[ET,H]x[H,H]   torch.matmul, the library anchor (f32; the
-                               bf16 library rate is the P2 probe's
-                               tools/int8_microbench.py)
-    xla_gather_messages        the plain dmpnn_messages
-    pallas_onehot_messages     the ELL gather-sum (K7) with the rev sign
-    fused_conv_fwd             the per-layer conv kernel (K6)
+    dense_matmul[ET,H]x[H,H]   torch.matmul of bf16 h and w, the library
+                               anchor
+    xla_gather_messages        the plain dmpnn_messages of h cast to f32
+    pallas_onehot_messages     the ELL gather-sum (K7) with the rev sign, at
+                               mat_dtype bf16 on bf16 h (f32 out)
+    fused_conv_fwd             the per-layer conv kernel (K6) at bf16 on
+                               bf16 h, h0 (bf16 out)
     fused_conv_fwd+bwd         K6 forward, then backward (autograd on dh, dh0)
     model_fwd                  apply through the whole-model kernel (K3f),
                                bf16 compute
@@ -21,11 +22,11 @@ into ``packs_needed(fill_target=0.92)`` packs) and its result lines:
 
 Deviations from the JAX module:
 
-* the model rows run at bf16 (``compute_dtype="bfloat16"``, the
-  whole-model kernels' bf16 instantiation), as the JAX module's do; the f32
-  anchor, the gathers and the K6 and K7 rows stay f32 (TF32 off) until
-  their kernels' bf16 slice.  The header line lists the dtype of each row
-  and every line ends with its own;
+* every row runs at the JAX module's type: bf16 for the anchor, K7, K6
+  and the model rows (``compute_dtype="bfloat16"``, the whole-model
+  kernels' bf16 instantiation), f32 for the plain gather and Adam (TF32
+  off).  The header line lists the dtype of each row and every line ends
+  with its own;
 * no ``build_indices`` line: the port gathers through the packer's ELL
   arrays and builds no index rows;
 * timing by CUDA events, not a ``lax.scan``: after a warm-up call, a loop of
@@ -55,11 +56,11 @@ import torch
 __all__ = ["main", "parser", "bench_batch", "conv_inputs", "model_kw",
            "DTYPES"]
 
-# the operand type of every line
-DTYPES = {"dense_matmul[ET,H]x[H,H]": "float32",
+# the operand type of every line (the JAX module's)
+DTYPES = {"dense_matmul[ET,H]x[H,H]": "bfloat16",
           "xla_gather_messages": "float32",
-          "pallas_onehot_messages": "float32",
-          "fused_conv_fwd": "float32", "fused_conv_fwd+bwd": "float32",
+          "pallas_onehot_messages": "bfloat16",
+          "fused_conv_fwd": "bfloat16", "fused_conv_fwd+bwd": "bfloat16",
           "model_fwd": "bfloat16", "model_fwd+bwd": "bfloat16",
           "optimizer_update": "float32"}
 
@@ -84,11 +85,11 @@ def bench_batch(n_graphs: int, device):
 
 def conv_inputs(spec, H: int, device) -> tuple:
     """Seeded inputs of one conv layer on the benchmark's batch: (h, h0)
-    [ET, H] and (w [H, H], b [H], skip = 1)."""
+    [ET, H] bf16 and (w [H, H], b [H], skip = 1) f32."""
     gen = torch.Generator().manual_seed(0)
     ET = spec.total_edges
-    h = torch.randn((ET, H), generator=gen).to(device)
-    h0 = torch.randn((ET, H), generator=gen).to(device)
+    h = torch.randn((ET, H), generator=gen).bfloat16().to(device)
+    h0 = torch.randn((ET, H), generator=gen).bfloat16().to(device)
     w = (torch.randn((H, H), generator=gen) * 0.05).to(device)
     return (h, h0), (w, torch.zeros(H, device=device),
                      torch.ones((), device=device))
@@ -161,7 +162,7 @@ def main(argv=None, repeats: int = 3) -> dict:
     norm = torch.ones(ET, device=dev)
     D = batch.edge_nbr.shape[1]
     msg = (batch.edge_nbr, batch.rev)
-    conv = dict(p=spec.p)
+    conv = dict(p=spec.p, mat_dtype=DTYPES["fused_conv_fwd"])
 
     def timed(fn):
         return _time(fn, dev, repeats)
@@ -169,13 +170,16 @@ def main(argv=None, repeats: int = 3) -> dict:
     results = {}
     with torch.no_grad():
         # library anchor: a dense product of the size of one conv layer
-        t = timed(lambda: torch.matmul(h, w))
+        w16 = w.bfloat16()
+        t = timed(lambda: torch.matmul(h, w16))
         results["dense_matmul[ET,H]x[H,H]"] = (t, 2 * ET * H * H / t / 1e12)
         results["xla_gather_messages"] = (
-            timed(lambda: dmpnn_messages(h, *msg, norm)), None)
+            timed(lambda: dmpnn_messages(h.float(), *msg, norm)), None)
         results["pallas_onehot_messages"] = (
             timed(lambda: spmm(h, batch.edge_nbr, batch.edge_nbr_rev,
-                               batch.rev, batch.rev, p=spec.p)), None)
+                               batch.rev, batch.rev, p=spec.p,
+                               mat_dtype=DTYPES["pallas_onehot_messages"])),
+            None)
         t = timed(lambda: fused_conv_layer(h, h0, *msg, batch.edge_nbr_rev,
                                            w, b, one, **conv))
         work = 2 * n_real * H * H + n_real * (D + 1) * H
@@ -186,7 +190,7 @@ def main(argv=None, repeats: int = 3) -> dict:
     def conv_fwd_bwd():
         out = fused_conv_layer(hg, h0g, *msg, batch.edge_nbr_rev, w, b, one,
                                **conv)
-        return torch.autograd.grad(out.sum(), (hg, h0g))
+        return torch.autograd.grad(out.float().sum(), (hg, h0g))
     t = timed(conv_fwd_bwd)
     results["fused_conv_fwd+bwd"] = (t, 3 * work / t / 1e12)
 

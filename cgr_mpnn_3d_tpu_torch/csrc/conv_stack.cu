@@ -12,6 +12,13 @@
 // pack-local row, column, seed[l] and pack, bit for bit.  The backward
 // replays the forward and returns dh0, dW [L, H, H], db [L, H] and dskip [L].
 //
+// mat = 1 is the TPU kernels' mat_dtype = out_dtype = bf16: h0, the output,
+// the cotangent g and dh0 are bf16, every layer's state and messages are
+// held in bf16 (pallas_stack.py rounds them at every use as an operand, so
+// the numbers are the same), the products run on the tensor cores, and the
+// mean scale is bf16(1 / degree); pre-activations, dpre, the dh0 sum and
+// the weight gradients stay f32 (layered_common.cuh).
+//
 // Design.  On the TPU one grid step keeps a pack's edge state in VMEM for
 // all L layers.  A te x H f32 state (400 KB at te = 256, H = 400) does not
 // fit a block's 227 KB of shared memory, and messages gather rows from all
@@ -26,20 +33,21 @@
 // conv_layer_bwd, which fused_conv.cu (K6, one layer) runs too.
 //
 // Backward (pallas_stack.py:96-157): the replay keeps every layer's t and
-// pre-activation in scratch (2·L·p·te·H floats, 1.4 GB at 436 packs of full
-// width), then walks the layers in reverse:
-//   dpre_l = drop_l'(g)·act'(pre_l),  dh0 += skip[l]·dpre_l,
+// pre-activation in scratch (L·p·te·H of each, 1.4 GB in f32 at 436 packs
+// of full width), then walks the layers in reverse:
+//   dpre_l = drop_l'(g)·act'(pre_l),  dh0 += skip[l]·dpre_l (f32),
 //   dskip[l] = Σ dpre_l·h0 (per-block partials, summed in block order),
 //   dW[l] = t_lᵀ·dpre_l, db[l] = Σ_r dpre_l (split-K partials, summed in
 //   split order), g = adjoint of the messages applied to dpre_l·W[l]ᵀ,
 // the adjoint being a gather through edge_nbr_rev (each entry scaled by its
-// forward row's 1/degree for mean) minus the rev row, as in
-// fused_model_bwd.cu; the stack's input cotangent is dh0 + g.  No float
-// atomics: reruns are bit-identical.
+// forward row's scale for mean) minus the rev row, as in
+// fused_model_bwd.cu; the stack's input cotangent is dh0 + g, stored once.
+// No float atomics: reruns are bit-identical.
 //
-// Bound.  Per layer 2·rows·H² FMA operations forward (about three times
-// that backward, plus the replay) against 3·H·4 bytes per row: bound by
-// f32 FMA throughput outside the tensor cores, not by memory.
+// Bound.  Per layer 2·rows·H² multiply-adds forward (about three times
+// that backward, plus the replay) against 3·H·4 bytes per row (half of it
+// in bf16): bound by the products -- f32 FMA throughput outside the tensor
+// cores, or the bf16 tensor-core rate -- not by memory.
 
 #include "layered_common.cuh"
 
@@ -47,8 +55,9 @@ namespace {
 
 using namespace cgr;
 
+template <bool kBf16>
 struct StackArgs {
-  const float* h0;
+  const Elem<kBf16>* h0;
   const int *edge_nbr, *rev;
   const float *w, *b, *skips;
   const int* drop;  // [3, L] dropout table, or nullptr in eval mode
@@ -61,94 +70,155 @@ struct StackArgs {
 
 // Layer l of the forward (layered_common.cuh::conv_layer): h_out =
 // layer(messages(h_in)); the pre-activation goes to `pre` when it is set.
-void layer(const StackArgs& a, int l, const float* h_in, float* t, float* pre,
-           float* h_out, float* rscale, cudaStream_t st) {
+template <bool kBf16>
+void layer(const StackArgs<kBf16>& a, int l, const Elem<kBf16>* h_in,
+           Elem<kBf16>* t, float* pre, Elem<kBf16>* h_out, float* rscale,
+           cudaStream_t st) {
   const size_t HH = static_cast<size_t>(a.H) * a.H;
-  conv_layer(a.graph(), h_in, a.H, a.w + l * HH,
-             a.b + static_cast<size_t>(l) * a.H, a.skips + l, a.h0, a.H,
-             a.act, a.drop, a.L, l, t, pre, h_out, rscale, st);
+  conv_layer<kBf16>(a.graph(), h_in, a.H, a.w + l * HH,
+                    a.b + static_cast<size_t>(l) * a.H, a.skips + l, a.h0,
+                    a.H, a.act, a.drop, a.L, l, t, pre, h_out, rscale, st);
 }
 
-// a += b over n floats.
-__global__ void add_kernel(float* a, const float* b, long long n) {
+// out = acc + g over n elements, stored as E (out may be acc).
+template <class E>
+__global__ void finish_kernel(E* out, const float* acc, const float* g,
+                              long long n) {
   for (long long i = blockIdx.x * static_cast<long long>(blockDim.x) +
                      threadIdx.x;
        i < n; i += static_cast<long long>(gridDim.x) * blockDim.x)
-    a[i] += b[i];
+    out[i] = from_f32<E>(acc[i] + g[i]);
+}
+
+// The backward's scratch: ts [L, rows, H] and h, dt [rows, H] as Elem;
+// pres [L, rows, H], g [rows, H], the dh0 sum [rows, H] (bf16 only: f32
+// sums into dh0 itself), escale [rows], the weight partials [S, H, H] and
+// the dskip partials [kReduceBlocks, L] as f32.
+template <bool kBf16>
+struct Scratch {
+  Elem<kBf16> *ts, *h, *dt;
+  float *pres, *g, *dacc, *escale, *wpart, *dpart;
+  size_t bytes;
+};
+
+template <bool kBf16>
+Scratch<kBf16> scratch_of(void* base, int p, int te, int H, int L, int S) {
+  using E = Elem<kBf16>;
+  const long long rows = static_cast<long long>(p) * te, rH = rows * H;
+  Carve c{static_cast<char*>(base)};
+  Scratch<kBf16> s;
+  s.ts = c.take<E>(L * rH);
+  s.h = c.take<E>(rH);
+  s.dt = c.take<E>(rH);
+  s.pres = c.take<float>(L * rH);
+  s.g = c.take<float>(rH);
+  s.dacc = kBf16 ? c.take<float>(rH) : nullptr;
+  s.escale = c.take<float>(rows);
+  s.wpart = c.take<float>(static_cast<long long>(S) * H * H);
+  s.dpart = c.take<float>(static_cast<long long>(kReduceBlocks) * L);
+  s.bytes = c.used;
+  return s;
+}
+
+template <bool kBf16>
+void forward(const StackArgs<kBf16>& a, Elem<kBf16>* t, Elem<kBf16>* out,
+             cudaStream_t st) {
+  for (int l = 0; l < a.L; ++l)
+    layer(a, l, l == 0 ? a.h0 : out, t, nullptr, out, nullptr, st);
+}
+
+template <bool kBf16>
+void backward(const StackArgs<kBf16>& a, const int* edge_nbr_rev,
+              const Elem<kBf16>* g_out, Elem<kBf16>* dh0, float* dw,
+              float* db, float* dskip, void* scratch, int S,
+              cudaStream_t st) {
+  using E = Elem<kBf16>;
+  const int H = a.H, L = a.L;
+  const long long rH = a.rows() * H;
+  const size_t HH = static_cast<size_t>(H) * H;
+  const Scratch<kBf16> s = scratch_of<kBf16>(scratch, a.p, a.te, H, L, S);
+  float* dacc = kBf16 ? s.dacc : reinterpret_cast<float*>(dh0);
+
+  // replay, keeping every layer's messages and pre-activations
+  for (int l = 0; l < L; ++l)
+    layer(a, l, l == 0 ? a.h0 : s.h, s.ts + l * rH, s.pres + l * rH, s.h,
+          l == 0 ? s.escale : nullptr, st);
+
+  const ConvGraph gr = a.graph();
+  for (int l = L - 1; l >= 0; --l) {
+    float* dpre = s.pres + l * rH;
+    if (l == L - 1)
+      dpre_kernel<E, E, float><<<kReduceBlocks, kThreads, 0, st>>>(
+          g_out, dpre, nullptr, dpre, a.h0, dacc, 0, a.skips + l, a.drop, L,
+          l, a.act, a.te, H, rH, s.dpart);
+    else
+      dpre_kernel<float, E, float><<<kReduceBlocks, kThreads, 0, st>>>(
+          s.g, dpre, nullptr, dpre, a.h0, dacc, 1, a.skips + l, a.drop, L, l,
+          a.act, a.te, H, rH, s.dpart);
+    // dW[l], db[l], and g = the messages' adjoint applied to dpre·W[l]ᵀ
+    conv_layer_bwd<kBf16>(gr, edge_nbr_rev, s.ts + l * rH, H, dpre, H,
+                          a.w + l * HH, s.escale, S, s.wpart, s.dt, s.g,
+                          dw + l * HH, db + static_cast<size_t>(l) * H, st);
+  }
+  finish_kernel<E><<<2048, 256, 0, st>>>(dh0, dacc, s.g, rH);
+  launch_sum(s.dpart, kReduceBlocks, L, dskip, st);
 }
 
 }  // namespace
 
-// out [p·te, H] (the last layer's state); t [p·te, H] is scratch.
-extern "C" int cgr_conv_stack_fwd(const float* h0, const int* edge_nbr,
+// out [p·te, H] (the last layer's state); t [p·te, H] is scratch; both of
+// h0's type (f32, or bf16 with mat = 1).
+extern "C" int cgr_conv_stack_fwd(const void* h0, const int* edge_nbr,
                                   const int* rev, const float* w,
                                   const float* b, const float* skips,
-                                  const int* drop, float* t, float* out,
-                                  int p, int te, int H, int L,
-                                  int D, int act, int mean, void* stream) {
+                                  const int* drop, void* t, void* out, int p,
+                                  int te, int H, int L, int D, int act,
+                                  int mean, int mat, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const StackArgs a{h0, edge_nbr, rev, w, b, skips, drop, p, te, H, L, D, act,
-                    mean};
-  for (int l = 0; l < L; ++l)
-    layer(a, l, l == 0 ? h0 : out, t, nullptr, out, nullptr, st);
+  if (mat) {
+    using E = Elem<true>;
+    forward(StackArgs<true>{static_cast<const E*>(h0), edge_nbr, rev, w, b,
+                            skips, drop, p, te, H, L, D, act, mean},
+            static_cast<E*>(t), static_cast<E*>(out), st);
+  } else {
+    forward(StackArgs<false>{static_cast<const float*>(h0), edge_nbr, rev, w,
+                             b, skips, drop, p, te, H, L, D, act, mean},
+            static_cast<float*>(t), static_cast<float*>(out), st);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
-// Floats of the backward's scratch: ts and pres [L, rows, H], h, dt, g
-// [rows, H], escale [rows], the weight partials [S, H, H] and the dskip
-// partials [kReduceBlocks, L].
-extern "C" long long cgr_conv_stack_bwd_scratch_floats(int p, int te, int H,
-                                                       int L, int S) {
-  const long long rH = static_cast<long long>(p) * te * H;
-  return (2LL * L + 3) * rH + static_cast<long long>(p) * te +
-         static_cast<long long>(S) * H * H +
-         static_cast<long long>(kReduceBlocks) * L;
+// Bytes of the backward's scratch.
+extern "C" long long cgr_conv_stack_bwd_scratch_bytes(int p, int te, int H,
+                                                      int L, int S, int mat) {
+  return static_cast<long long>(
+      mat ? scratch_of<true>(nullptr, p, te, H, L, S).bytes
+          : scratch_of<false>(nullptr, p, te, H, L, S).bytes);
 }
 
-// dh0 [rows, H], dw [L, H, H], db [L, H], dskip [L] from the cotangent g of
-// the forward's output.
-extern "C" int cgr_conv_stack_bwd(const float* h0, const int* edge_nbr,
+// dh0 [rows, H] (h0's type), dw [L, H, H], db [L, H], dskip [L] from the
+// cotangent g of the forward's output (h0's type).
+extern "C" int cgr_conv_stack_bwd(const void* h0, const int* edge_nbr,
                                   const int* rev, const int* edge_nbr_rev,
                                   const float* w, const float* b,
                                   const float* skips, const int* drop,
-                                  const float* g_out, float* dh0, float* dw,
-                                  float* db, float* dskip, float* scratch,
+                                  const void* g_out, void* dh0, float* dw,
+                                  float* db, float* dskip, void* scratch,
                                   int p, int te, int H, int L, int D, int act,
-                                  int mean, int S, void* stream) {
+                                  int mean, int S, int mat, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const StackArgs a{h0, edge_nbr, rev, w, b, skips, drop, p, te, H, L, D, act,
-                    mean};
-  const long long rows = a.rows(), rH = rows * H;
-  const size_t HH = static_cast<size_t>(H) * H;
-  float* ts = scratch;
-  float* pres = ts + L * rH;
-  float* h = pres + L * rH;
-  float* dt = h + rH;
-  float* g = dt + rH;
-  float* escale = g + rH;
-  float* wpart = escale + rows;
-  float* dpart = wpart + static_cast<long long>(S) * HH;
-
-  // replay, keeping every layer's messages and pre-activations
-  for (int l = 0; l < L; ++l)
-    layer(a, l, l == 0 ? h0 : h, ts + l * rH, pres + l * rH, h,
-          l == 0 ? escale : nullptr, st);
-
-  const float* g_in = g_out;
-  const ConvGraph gr = a.graph();
-  for (int l = L - 1; l >= 0; --l) {
-    float* dpre = pres + l * rH;
-    dpre_kernel<<<kReduceBlocks, kThreads, 0, st>>>(
-        g_in, dpre, nullptr, dpre, h0, dh0, l < L - 1, skips + l, drop, L, l,
-        act, te, H, rH, dpart);
-    // dW[l], db[l], and g = the messages' adjoint applied to dpre·W[l]ᵀ
-    conv_layer_bwd(gr, edge_nbr_rev, ts + l * rH, H, dpre, H, w + l * HH,
-                   escale, S, wpart, dt, g, dw + l * HH,
-                   db + static_cast<size_t>(l) * H, st);
-    g_in = g;
+  if (mat) {
+    using E = Elem<true>;
+    backward(StackArgs<true>{static_cast<const E*>(h0), edge_nbr, rev, w, b,
+                             skips, drop, p, te, H, L, D, act, mean},
+             edge_nbr_rev, static_cast<const E*>(g_out), static_cast<E*>(dh0),
+             dw, db, dskip, scratch, S, st);
+  } else {
+    backward(StackArgs<false>{static_cast<const float*>(h0), edge_nbr, rev,
+                              w, b, skips, drop, p, te, H, L, D, act, mean},
+             edge_nbr_rev, static_cast<const float*>(g_out),
+             static_cast<float*>(dh0), dw, db, dskip, scratch, S, st);
   }
-  add_kernel<<<2048, 256, 0, st>>>(dh0, g_in, rH);
-  launch_sum(dpart, kReduceBlocks, L, dskip, st);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -19,25 +19,31 @@
 //   dh    = adjoint of the messages applied to dpre·Wᵀ,   dh0 = skip·dpre,
 //   dW    = tᵀ·dpre,   db = Σ_r dpre,   dskip = Σ dpre·h0
 //
+// mat = 1 is the TPU kernels' mat_dtype = out_dtype = bf16 (the model's
+// capture path): h, h0, out, the cotangent g, dh and dh0 are bf16, operands
+// are rounded to bf16 where they are read, the products run on the tensor
+// cores and the mean scale is bf16(1 / degree); dpre, dW, db and dskip stay
+// f32 (layered_common.cuh).
+//
 // Design.  One layer of K4 (conv_stack.cu), with h ≠ h0 and Hin ≠ H
 // allowed, through the same layered_common.cuh steps: conv_layer (the
 // message gather writes t to device scratch, then the product t·W runs as
 // one 64 x 64 output tile per block over the whole batch with bias, skip,
 // activation and dropout in its epilogue, the pack of a row taken from
 // the row index, never from blockIdx), dpre_kernel and conv_layer_bwd.
-// The backward recomputes t (and, for mean, each row's 1/degree), takes
+// The backward recomputes t (and, for mean, each row's scale), takes
 // dpre from the saved output (ReLU, no product) or from the recomputed
 // pre-activation (SiLU, GELU), and gathers the adjoint through the
 // transposed ELL array edge_nbr_rev, each entry scaled by its forward
-// row's 1/degree, minus the rev row.  dW and db are split-K partials over
+// row's scale, minus the rev row.  dW and db are split-K partials over
 // fixed row ranges, dskip per-block partials, each summed in order by a
 // second launch: no float atomics, so reruns are bit-identical.
 //
-// Bound.  2·rows·Hin·H FMA operations forward against (Hin + 2·H)·4 bytes
+// Bound.  2·rows·Hin·H multiply-adds forward against (Hin + 2·H) elements
 // per row (about three times the operations backward): at the model's
-// widths (H = 400) bound by f32 FMA throughput outside the tensor cores,
-// not by memory.  The tile loop is the simple one of fused_model_common.cuh
-// (no wgmma, no TMA).
+// widths (H = 400) bound by the products -- f32 FMA throughput outside the
+// tensor cores, or the bf16 tensor-core rate -- not by memory.  The tile
+// loop is the simple one of fused_model_common.cuh (no wgmma, no TMA).
 
 #include "layered_common.cuh"
 
@@ -45,8 +51,9 @@ namespace {
 
 using namespace cgr;
 
+template <bool kBf16>
 struct ConvArgs {
-  const float *h, *h0;
+  const Elem<kBf16> *h, *h0;
   const int *edge_nbr, *rev;
   const float *w, *b, *skip;
   const int* drop;  // [3, 1] dropout table, or nullptr in eval mode
@@ -60,69 +67,128 @@ struct ConvArgs {
 // The layer (layered_common.cuh::conv_layer): t = messages(h) into
 // scratch, with each row's scale in rscale when set; then the output to
 // `out` and the pre-activation to `pre`, each when set.
-void layer(const ConvArgs& a, float* t, float* pre, float* out,
-           float* rscale, cudaStream_t st) {
-  conv_layer(a.graph(), a.h, a.Hin, a.w, a.b, a.skip, a.h0, a.H, a.act,
-             a.drop, 1, 0, t, pre, out, rscale, st);
+template <bool kBf16>
+void layer(const ConvArgs<kBf16>& a, Elem<kBf16>* t, float* pre,
+           Elem<kBf16>* out, float* rscale, cudaStream_t st) {
+  conv_layer<kBf16>(a.graph(), a.h, a.Hin, a.w, a.b, a.skip, a.h0, a.H,
+                    a.act, a.drop, 1, 0, t, pre, out, rscale, st);
+}
+
+// The backward's scratch: t and dt [rows, Hin] as Elem; dpre [rows, H],
+// rscale [rows], the split-K partials [S, Hin, H] and the dskip partials
+// [kReduceBlocks] as f32.
+template <bool kBf16>
+struct Scratch {
+  Elem<kBf16> *t, *dt;
+  float *dpre, *rscale, *wpart, *dpart;
+  size_t bytes;
+};
+
+template <bool kBf16>
+Scratch<kBf16> scratch_of(void* base, int p, int te, int Hin, int H, int S) {
+  using E = Elem<kBf16>;
+  const long long rows = static_cast<long long>(p) * te;
+  Carve c{static_cast<char*>(base)};
+  Scratch<kBf16> s;
+  s.t = c.take<E>(rows * Hin);
+  s.dt = c.take<E>(rows * Hin);
+  s.dpre = c.take<float>(rows * H);
+  s.rscale = c.take<float>(rows);
+  s.wpart = c.take<float>(static_cast<long long>(S) * Hin * H);
+  s.dpart = c.take<float>(kReduceBlocks);
+  s.bytes = c.used;
+  return s;
+}
+
+template <bool kBf16>
+void backward(const ConvArgs<kBf16>& a, const int* edge_nbr_rev,
+              const Elem<kBf16>* out, const Elem<kBf16>* g, Elem<kBf16>* dh,
+              Elem<kBf16>* dh0, float* dw, float* db, float* dskip,
+              void* scratch, int S, cudaStream_t st) {
+  using E = Elem<kBf16>;
+  const Scratch<kBf16> s = scratch_of<kBf16>(scratch, a.p, a.te, a.Hin, a.H,
+                                             S);
+  // ReLU: dpre from the saved output; SiLU, GELU: from the pre-activation,
+  // recomputed into dpre and overwritten in place
+  layer(a, s.t, a.act == kRelu ? nullptr : s.dpre, nullptr,
+        a.mean ? s.rscale : nullptr, st);
+  dpre_kernel<E, E, E><<<kReduceBlocks, kThreads, 0, st>>>(
+      g, s.dpre, a.act == kRelu ? out : nullptr, s.dpre, a.h0, dh0, 0,
+      a.skip, a.drop, 1, 0, a.act, a.te, a.H, a.rows() * a.H, s.dpart);
+  conv_layer_bwd<kBf16>(a.graph(), edge_nbr_rev, s.t, a.Hin, s.dpre, a.H,
+                        a.w, s.rscale, S, s.wpart, s.dt, dh, dw, db, st);
+  if (dskip != nullptr) launch_sum(s.dpart, kReduceBlocks, 1, dskip, st);
+}
+
+template <bool kBf16>
+ConvArgs<kBf16> args_of(const void* h, const void* h0, const int* edge_nbr,
+                        const int* rev, const float* w, const float* b,
+                        const float* skip, const int* drop, int p, int te,
+                        int Hin, int H, int D, int act, int mean) {
+  using E = Elem<kBf16>;
+  return ConvArgs<kBf16>{static_cast<const E*>(h), static_cast<const E*>(h0),
+                         edge_nbr, rev, w, b, skip, drop, p, te, Hin, H, D,
+                         act, mean};
 }
 
 }  // namespace
 
-// out [p·te, H]; t [p·te, Hin] is scratch.
-extern "C" int cgr_fused_conv_fwd(const float* h, const float* h0,
+// out [p·te, H]; t [p·te, Hin] is scratch; h, h0, t and out of one type
+// (f32, or bf16 with mat = 1).
+extern "C" int cgr_fused_conv_fwd(const void* h, const void* h0,
                                   const int* edge_nbr, const int* rev,
                                   const float* w, const float* b,
                                   const float* skip, const int* drop,
-                                  float* t, float* out, int p, int te,
+                                  void* t, void* out, int p, int te,
                                   int Hin, int H, int D, int act, int mean,
-                                  void* stream) {
+                                  int mat, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  layer(ConvArgs{h, h0, edge_nbr, rev, w, b, skip, drop, p, te, Hin, H, D,
-                 act, mean},
-        t, nullptr, out, nullptr, st);
+  if (mat)
+    layer(args_of<true>(h, h0, edge_nbr, rev, w, b, skip, drop, p, te, Hin,
+                        H, D, act, mean),
+          static_cast<Elem<true>*>(t), nullptr, static_cast<Elem<true>*>(out),
+          nullptr, st);
+  else
+    layer(args_of<false>(h, h0, edge_nbr, rev, w, b, skip, drop, p, te, Hin,
+                         H, D, act, mean),
+          static_cast<float*>(t), nullptr, static_cast<float*>(out), nullptr,
+          st);
   return static_cast<int>(cudaGetLastError());
 }
 
-// Floats of the backward's scratch: t and dt [rows, Hin], dpre [rows, H],
-// rscale [rows], the split-K partials [S, Hin, H] and the dskip partials
-// [kReduceBlocks].
-extern "C" long long cgr_fused_conv_bwd_scratch_floats(int p, int te, int Hin,
-                                                      int H, int S) {
-  const long long rows = static_cast<long long>(p) * te;
-  return rows * (2LL * Hin + H + 1) + static_cast<long long>(S) * Hin * H +
-         kReduceBlocks;
+// Bytes of the backward's scratch.
+extern "C" long long cgr_fused_conv_bwd_scratch_bytes(int p, int te, int Hin,
+                                                      int H, int S, int mat) {
+  return static_cast<long long>(
+      mat ? scratch_of<true>(nullptr, p, te, Hin, H, S).bytes
+          : scratch_of<false>(nullptr, p, te, Hin, H, S).bytes);
 }
 
-// dh [rows, Hin], dh0 [rows, H], dw [Hin, H], db [H], dskip [1] from the
-// cotangent g of the forward's output `out`; a null output is skipped.
+// dh [rows, Hin], dh0 [rows, H] (h's type), dw [Hin, H], db [H], dskip [1]
+// from the cotangent g of the forward's output `out` (h's type); a null
+// output is skipped.
 extern "C" int cgr_fused_conv_bwd(
-    const float* h, const float* h0, const int* edge_nbr, const int* rev,
+    const void* h, const void* h0, const int* edge_nbr, const int* rev,
     const int* edge_nbr_rev, const float* w, const float* b,
-    const float* skip, const int* drop, const float* out, const float* g,
-    float* dh, float* dh0, float* dw, float* db, float* dskip, float* scratch,
-    int p, int te, int Hin, int H, int D, int act, int mean, int S,
+    const float* skip, const int* drop, const void* out, const void* g,
+    void* dh, void* dh0, float* dw, float* db, float* dskip, void* scratch,
+    int p, int te, int Hin, int H, int D, int act, int mean, int S, int mat,
     void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const ConvArgs a{h, h0, edge_nbr, rev, w, b, skip, drop, p, te, Hin, H, D,
-                   act, mean};
-  const long long rows = a.rows();
-  float* t = scratch;
-  float* dt = t + rows * Hin;
-  float* dpre = dt + rows * Hin;
-  float* rscale = dpre + rows * H;
-  float* wpart = rscale + rows;
-  float* dpart = wpart + static_cast<long long>(S) * Hin * H;
-
-  // ReLU: dpre from the saved output; SiLU, GELU: from the pre-activation,
-  // recomputed into dpre and overwritten in place
-  layer(a, t, act == kRelu ? nullptr : dpre, nullptr, mean ? rscale : nullptr,
-        st);
-  dpre_kernel<<<kReduceBlocks, kThreads, 0, st>>>(
-      g, dpre, act == kRelu ? out : nullptr, dpre, h0, dh0, 0, skip, drop, 1,
-      0, act, te, H, rows * H, dpart);
-  conv_layer_bwd(a.graph(), edge_nbr_rev, t, Hin, dpre, H, w, rscale, S,
-                 wpart, dt, dh, dw, db, st);
-  if (dskip != nullptr) launch_sum(dpart, kReduceBlocks, 1, dskip, st);
+  if (mat) {
+    using E = Elem<true>;
+    backward(args_of<true>(h, h0, edge_nbr, rev, w, b, skip, drop, p, te, Hin,
+                           H, D, act, mean),
+             edge_nbr_rev, static_cast<const E*>(out),
+             static_cast<const E*>(g), static_cast<E*>(dh),
+             static_cast<E*>(dh0), dw, db, dskip, scratch, S, st);
+  } else {
+    backward(args_of<false>(h, h0, edge_nbr, rev, w, b, skip, drop, p, te,
+                            Hin, H, D, act, mean),
+             edge_nbr_rev, static_cast<const float*>(out),
+             static_cast<const float*>(g), static_cast<float*>(dh),
+             static_cast<float*>(dh0), dw, db, dskip, scratch, S, st);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

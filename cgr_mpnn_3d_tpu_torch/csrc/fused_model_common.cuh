@@ -106,19 +106,22 @@ __device__ __forceinline__ Dropout layer_dropout(const int* drop, int L,
                  static_cast<unsigned>(blockIdx.x), __int_as_float(drop[2 * L + l])};
 }
 
-// Rows of a dense operand [*, K]: row m is base + m*K, or with `ids` the
-// row ids[m] - lo when that lies in [0, n), and a zero row otherwise.
-struct Rows {
-  const float* base;
+// Rows of a dense operand [*, K] of element type T (f32, or bf16 in the
+// layered kernels' bf16 instantiation): row m is base + m*K, or with `ids`
+// the row ids[m] - lo when that lies in [0, n), and a zero row otherwise.
+template <class T>
+struct RowsOf {
+  const T* base;
   int K;
   const int* ids;
   int lo, n;
-  __device__ __forceinline__ const float* row(int m) const {
+  __device__ __forceinline__ const T* row(int m) const {
     if (ids == nullptr) return base + static_cast<size_t>(m) * K;
     const int r = ids[m] - lo;
     return (r >= 0 && r < n) ? base + static_cast<size_t>(r) * K : nullptr;
   }
 };
+using Rows = RowsOf<float>;
 
 struct Smem {
   float a[BK][BM + 1];  // +1 keeps the k-major stores conflict-free
@@ -186,12 +189,13 @@ __device__ __forceinline__ void mma_tile(float (&acc)[TM][TN], const Rows& A,
 }
 
 // The tensor-core twin of mma_tile, operands rounded to bf16 as they are
-// staged: warp w accumulates rows 16 (w % 4) .. + 16 and columns
-// 32 (w / 4) .. + 32 of the tile, as four 16 x 8 mma tiles; acc[j] holds
-// tile j's fragment (rows g, g + 8; columns 8 j + 2 t, + 1).
-template <bool TA, bool TB>
+// staged (A's elements f32 or bf16): warp w accumulates rows 16 (w % 4)
+// .. + 16 and columns 32 (w / 4) .. + 32 of the tile, as four 16 x 8 mma
+// tiles; acc[j] holds tile j's fragment (rows g, g + 8; columns
+// 8 j + 2 t, + 1).
+template <bool TA, bool TB, class T>
 __device__ __forceinline__ void mma_tile_bf16(float (&acc)[4][4],
-                                              const Rows& A,
+                                              const RowsOf<T>& A,
                                               const float* __restrict__ B,
                                               int ldb, int K, int m0, int n0,
                                               int M, int N, SmemBf16& sm) {
@@ -205,8 +209,8 @@ __device__ __forceinline__ void mma_tile_bf16(float (&acc)[4][4],
       const int m = m0 + mm, k = k0 + kk;
       float v = 0.f;
       if (m < M && k < K) {
-        const float* r = A.row(TA ? k : m);
-        if (r != nullptr) v = r[TA ? m : k];
+        const T* r = A.row(TA ? k : m);
+        if (r != nullptr) v = to_f32(r[TA ? m : k]);
       }
       sm.a[mm][kk] = bf16_bits(v);
     }
@@ -239,11 +243,13 @@ __device__ __forceinline__ void mma_tile_bf16(float (&acc)[4][4],
 }
 
 // One operand pair of a product: Aop · Bop with reduction length K.
-struct Operands {
-  Rows A;
+template <class T>
+struct OperandsOf {
+  RowsOf<T> A;
   const float* B;
   int ldb, K;
 };
+using Operands = OperandsOf<float>;
 
 // epi(m, n, Σ over the pairs of Aop·Bop [m, n]) over an M x N output.
 template <bool kBf16, bool TA, bool TB, class Epi>

@@ -15,12 +15,19 @@
 //   dxb  = dpre·Wbᵀ,  dxa = Gᵀ·(dpre·Waᵀ),  dWa = (G·xa)ᵀ·dpre,
 //   dWb  = xbᵀ·dpre,  db = Σ_r dpre
 //
+// mat = 1 is the TPU kernels' mat_dtype bf16: xa, xb, dxa and dxb are bf16
+// (the model's x, e and h are bf16 there, and dxa, dxb take their dtype),
+// every operand is rounded to bf16 where it is read, the products run on
+// the tensor cores and the mean scale is bf16(1 / degree); the output and
+// its cotangent are at out_dtype (out_bf16: bf16 for edge_init's h0, f32
+// for the readout); dpre, dWa, dWb and db stay f32.
+//
 // Design.  The TPU kernel builds G as a one-hot matrix per pack and keeps
 // every operand of a pack in VMEM.  Here:
 // * the gathered operand t1 = G·xa is written once to device scratch by a
 //   grid-wide gather (layered_common.cuh::gather_kernel), then the products
-//   run as one 64 x 64 output tile per block over the whole batch (the f32
-//   FMA loop of fused_model_common.cuh), so every SM works at any p;
+//   run as one 64 x 64 output tile per block over the whole batch, so every
+//   SM works at any p;
 // * Gᵀ is a gather through the transposed ELL array `adj` [p·ca, Dadj]
 //   (node_out for edge_init, receivers for the readout), each entry scaled
 //   by its forward row's scale_r (kept by the forward gather): no atomics;
@@ -28,12 +35,12 @@
 //   ranges, summed in split order by a second launch, so reruns are
 //   bit-identical.
 //
-// Bound.  Per call the products need 2·rows·(FA + FB)·H FMA operations
+// Bound.  Per call the products need 2·rows·(FA + FB)·H multiply-adds
 // (forward; about three times that backward) against a few hundred bytes
 // per row, so at the model's widths (FA, FB, H ≥ 14, H = 400) the kernel is
-// bound by f32 FMA throughput outside the tensor cores (67 TFLOP/s), not
-// by memory.  The tile loop is the simple one of fused_model_common.cuh (no
-// wgmma, no TMA).
+// bound by the products (f32 FMA outside the tensor cores, 67 TFLOP/s, or
+// the bf16 tensor cores), not by memory.  The tile loop is the simple one
+// of fused_model_common.cuh (no wgmma, no TMA).
 
 #include "layered_common.cuh"
 
@@ -41,26 +48,29 @@ namespace {
 
 using namespace cgr;
 
-// dpre = g·act'(acc + bias): the backward's pre-activation recomputed.
+// dpre = g·act'(acc + bias): the backward's pre-activation recomputed; g
+// of type O.
+template <class O>
 struct DpreEpi {
   const float* bias;
-  const float* g;
+  const O* g;
   int act;
   float* dpre;
   int ld;
   __device__ __forceinline__ void operator()(int m, int n, float acc) const {
     const size_t o = static_cast<size_t>(m) * ld + n;
-    dpre[o] = g[o] * k_dact(act, acc + bias[n]);
+    dpre[o] = to_f32(g[o]) * k_dact(act, acc + bias[n]);
   }
 };
 
 // ReLU: dpre = g where out > 0, else 0.
-__global__ void relu_dpre_kernel(const float* out, const float* g, long long n,
+template <class O>
+__global__ void relu_dpre_kernel(const O* out, const O* g, long long n,
                                  float* dpre) {
   for (long long i = blockIdx.x * static_cast<long long>(blockDim.x) +
                      threadIdx.x;
        i < n; i += static_cast<long long>(gridDim.x) * blockDim.x)
-    dpre[i] = out[i] > 0.f ? g[i] : 0.f;
+    dpre[i] = to_f32(out[i]) > 0.f ? to_f32(g[i]) : 0.f;
 }
 
 struct Dims {
@@ -70,71 +80,125 @@ struct Dims {
 
 // t1 = G·xa into scratch, with each forward row's scale in rscale (when
 // set).
-void gather_t1(const float* xa, const int* idx, const Dims& d, float* t1,
-               float* rscale, cudaStream_t st) {
-  launch_gather(GatherArgs{xa, d.ca, d.FA, idx, d.D, nullptr, nullptr, d.mean,
-                           d.R, d.rows(), t1, rscale},
-                st);
+template <bool kBf16>
+void gather_t1(const Elem<kBf16>* xa, const int* idx, const Dims& d,
+               Elem<kBf16>* t1, float* rscale, cudaStream_t st) {
+  using E = Elem<kBf16>;
+  launch_gather<kBf16>(GatherArgs<E, E>{xa, d.ca, d.FA, idx, d.D, nullptr,
+                                        nullptr, d.mean, d.R, d.rows(), t1,
+                                        rscale},
+                       st);
+}
+
+template <bool kBf16, class O>
+void forward(const void* xa_, const void* xb_, const int* idx,
+             const float* wa, const float* wb, const float* b, void* t1_,
+             void* out, const Dims& d, cudaStream_t st) {
+  using E = Elem<kBf16>;
+  const E* xa = static_cast<const E*>(xa_);
+  const E* xb = static_cast<const E*>(xb_);
+  E* t1 = static_cast<E*>(t1_);
+  gather_t1<kBf16>(xa, idx, d, t1, nullptr, st);
+  launch_tile<kBf16, false, false>(
+      plain(t1, d.FA, wa, d.H, d.FA), plain(xb, d.FB, wb, d.H, d.FB),
+      static_cast<int>(d.rows()), d.H,
+      LayerEpi<O>{b, nullptr, nullptr, d.act, nullptr, static_cast<O*>(out),
+                  d.H, nullptr, 0, 0, d.R},
+      st);
+}
+
+template <bool kBf16, class O>
+void backward(const void* xa_, const void* xb_, const int* idx,
+              const int* adj, const float* wa, const float* wb,
+              const float* b, const void* out_, const void* g_, void* dxa_,
+              void* dxb_, float* dwa, float* dwb, float* db, void* t1_,
+              void* dt_, float* dpre, float* rscale, float* part,
+              const Dims& d, int Dadj, int S, cudaStream_t st) {
+  using E = Elem<kBf16>;
+  const E* xa = static_cast<const E*>(xa_);
+  const E* xb = static_cast<const E*>(xb_);
+  const O* out = static_cast<const O*>(out_);
+  const O* g = static_cast<const O*>(g_);
+  E *t1 = static_cast<E*>(t1_), *dt = static_cast<E*>(dt_);
+  E *dxa = static_cast<E*>(dxa_), *dxb = static_cast<E*>(dxb_);
+  const long long rows = d.rows();
+  const int M = static_cast<int>(rows), H = d.H, FA = d.FA, FB = d.FB;
+  gather_t1<kBf16>(xa, idx, d, t1, rscale, st);
+  if (d.act == kRelu) {
+    relu_dpre_kernel<O><<<2048, 256, 0, st>>>(out, g, rows * H, dpre);
+  } else {
+    launch_tile<kBf16, false, false>(plain(t1, FA, wa, H, FA),
+                                     plain(xb, FB, wb, H, FB), M, H,
+                                     DpreEpi<O>{b, g, d.act, dpre, H}, st);
+  }
+  const Operands none = no_operands();
+  if (dxb != nullptr)
+    launch_tile<kBf16, false, true>(plain(dpre, H, wb, H, H), none, M, FB,
+                                    StoreAs<E>{dxb, FB}, st);
+  if (dxa != nullptr) {
+    launch_tile<kBf16, false, true>(plain(dpre, H, wa, H, H), none, M, FA,
+                                    StoreAs<E>{dt, FA}, st);
+    launch_gather<kBf16>(GatherArgs<E, E>{dt, d.R, FA, adj, Dadj, nullptr,
+                                          d.mean ? rscale : nullptr, 0, d.ca,
+                                          static_cast<long long>(d.p) * d.ca,
+                                          dxa, nullptr},
+                         st);
+  }
+  if (dwa != nullptr)
+    launch_wgrad<kBf16>(t1, FA, dpre, H, rows, S, part, dwa, st);
+  if (dwb != nullptr)
+    launch_wgrad<kBf16>(xb, FB, dpre, H, rows, S, part, dwb, st);
+  if (db != nullptr) launch_colsum(dpre, H, rows, S, part, db, st);
 }
 
 }  // namespace
 
-// out [p·R, H]; t1 [p·R, FA] is scratch.
-extern "C" int cgr_gather_linear_fwd(const float* xa, const float* xb,
+// out [p·R, H]; t1 [p·R, FA] is scratch.  xa, xb and t1 are f32, or bf16
+// with mat = 1; out is bf16 when out_bf16 (mat = 1 only), else f32.
+extern "C" int cgr_gather_linear_fwd(const void* xa, const void* xb,
                                      const int* idx, const float* wa,
                                      const float* wb, const float* b,
-                                     float* t1, float* out, int p, int R,
+                                     void* t1, void* out, int p, int R,
                                      int ca, int FA, int FB, int H, int D,
-                                     int act, int mean, void* stream) {
+                                     int act, int mean, int mat, int out_bf16,
+                                     void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const Dims d{p, R, ca, FA, FB, H, D, act, mean};
-  gather_t1(xa, idx, d, t1, nullptr, st);
-  const int M = static_cast<int>(d.rows());
-  launch_tile<false, false>(
-      plain(t1, FA, wa, H, FA), plain(xb, FB, wb, H, FB), M, H,
-      LayerEpi{b, nullptr, nullptr, act, nullptr, out, H, nullptr, 0, 0, R},
-      st);
+  if (!mat)
+    forward<false, float>(xa, xb, idx, wa, wb, b, t1, out, d, st);
+  else if (out_bf16)
+    forward<true, __nv_bfloat16>(xa, xb, idx, wa, wb, b, t1, out, d, st);
+  else
+    forward<true, float>(xa, xb, idx, wa, wb, b, t1, out, d, st);
   return static_cast<int>(cudaGetLastError());
 }
 
-// Cotangents from g [p·R, H] (the forward's output `out` given): dxa [p·ca,
-// FA] through adj [p·ca, Dadj], dxb [p·R, FB], dwa [FA, H], dwb [FB, H],
-// db [H]; a null output is skipped.  Scratch: t1 and dt [p·R, FA], dpre
-// [p·R, H], rscale [p·R], part [S·max(FA, FB)·H].
+// Cotangents from g [p·R, H] (the forward's output `out` given; both of
+// out's type): dxa [p·ca, FA] through adj [p·ca, Dadj] and dxb [p·R, FB]
+// of xa's type, dwa [FA, H], dwb [FB, H], db [H]; a null output is
+// skipped.  Scratch: t1 and dt [p·R, FA] of xa's type, dpre [p·R, H],
+// rscale [p·R], part [S·max(FA, FB)·H].
 extern "C" int cgr_gather_linear_bwd(
-    const float* xa, const float* xb, const int* idx, const int* adj,
-    const float* wa, const float* wb, const float* b, const float* out,
-    const float* g, float* dxa, float* dxb, float* dwa, float* dwb, float* db,
-    float* t1, float* dt, float* dpre, float* rscale, float* part, int p,
+    const void* xa, const void* xb, const int* idx, const int* adj,
+    const float* wa, const float* wb, const float* b, const void* out,
+    const void* g, void* dxa, void* dxb, float* dwa, float* dwb, float* db,
+    void* t1, void* dt, float* dpre, float* rscale, float* part, int p,
     int R, int ca, int FA, int FB, int H, int D, int Dadj, int act, int mean,
-    int S, void* stream) {
+    int S, int mat, int out_bf16, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const Dims d{p, R, ca, FA, FB, H, D, act, mean};
-  const long long rows = d.rows();
-  const int M = static_cast<int>(rows);
-  gather_t1(xa, idx, d, t1, rscale, st);
-  if (act == kRelu) {
-    relu_dpre_kernel<<<2048, 256, 0, st>>>(out, g, rows * H, dpre);
-  } else {
-    launch_tile<false, false>(plain(t1, FA, wa, H, FA),
-                              plain(xb, FB, wb, H, FB), M, H,
-                              DpreEpi{b, g, act, dpre, H}, st);
-  }
-  const Operands none = no_operands();
-  if (dxb != nullptr)
-    launch_tile<false, true>(plain(dpre, H, wb, H, H), none, M, FB,
-                             StoreEpi{dxb, FB}, st);
-  if (dxa != nullptr) {
-    launch_tile<false, true>(plain(dpre, H, wa, H, H), none, M, FA,
-                             StoreEpi{dt, FA}, st);
-    launch_gather(GatherArgs{dt, R, FA, adj, Dadj, nullptr,
-                             mean ? rscale : nullptr, 0, ca,
-                             static_cast<long long>(p) * ca, dxa, nullptr},
-                  st);
-  }
-  if (dwa != nullptr) launch_wgrad(t1, FA, dpre, H, rows, S, part, dwa, st);
-  if (dwb != nullptr) launch_wgrad(xb, FB, dpre, H, rows, S, part, dwb, st);
-  if (db != nullptr) launch_colsum(dpre, H, rows, S, part, db, st);
+  if (!mat)
+    backward<false, float>(xa, xb, idx, adj, wa, wb, b, out, g, dxa, dxb,
+                           dwa, dwb, db, t1, dt, dpre, rscale, part, d, Dadj,
+                           S, st);
+  else if (out_bf16)
+    backward<true, __nv_bfloat16>(xa, xb, idx, adj, wa, wb, b, out, g, dxa,
+                                  dxb, dwa, dwb, db, t1, dt, dpre, rscale,
+                                  part, d, Dadj, S, st);
+  else
+    backward<true, float>(xa, xb, idx, adj, wa, wb, b, out, g, dxa, dxb, dwa,
+                          dwb, db, t1, dt, dpre, rscale, part, d, Dadj, S,
+                          st);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -1,9 +1,8 @@
 // Device code shared by the layered kernels (onehot_spmm.cu, gather_linear.cu,
 // conv_stack.cu, fused_conv.cu): a pack-local ELL gather-sum over a whole
-// batch, one output tile of the shared-memory f32 product of
-// fused_model_common.cuh per thread block, a split-K weight-gradient
-// product, column sums, a fixed-order sum of partials, and from these one
-// conv layer's forward and backward steps.
+// batch, one output tile of a shared-memory product per thread block, a
+// split-K weight-gradient product, column sums, a fixed-order sum of
+// partials, and from these one conv layer's forward and backward steps.
 //
 // Unlike the whole-model kernels, these run a grid over the whole batch:
 // a block is not a pack.  A row's pack is its row index over the rows per
@@ -12,8 +11,21 @@
 // Indices outside the window of their row's pack, the sentinel included,
 // count as absent.  No float atomics: every sum runs in a fixed order, so
 // reruns are bit-identical.
+//
+// Everything is templated on kBf16, the TPU kernels' mat_dtype (as in
+// fused_model_common.cuh).  false: f32 operands, the f32 FMA tile of
+// mma_tile, every state f32.  true: every operand of a product and of a
+// gather-sum rounded to bf16 as it is read, the products on the tensor
+// cores (mma_tile_bf16, f32 sums), a mean scaled by bf16(1 / degree), and
+// the states the TPU kernels store at out_dtype bf16 (h0, every layer's h,
+// the messages t, their cotangents) held as __nv_bfloat16 (Elem<true>).
+// Rounding a value where it is stored gives the numbers of rounding it
+// where it enters a product, which is where the TPU kernels round.
+// Pre-activations, dpre, weight gradients and every sum stay f32.
 
 #pragma once
+
+#include <type_traits>
 
 #include "fused_model_common.cuh"
 
@@ -23,13 +35,18 @@ constexpr int kGatherThreads = 128;  // columns of one gather block
 constexpr int kGatherRows = 8;       // rows of one gather block
 constexpr int kReduceBlocks = 264;   // blocks of a grid-stride reduction
 
+// The element type of the stored states.
+template <bool kBf16>
+using Elem = std::conditional_t<kBf16, __nv_bfloat16, float>;
+
 // out[r, :] = scale_r · Σ_d w_j·src[j, :]  [− src[sign[r], :]],  j = idx[r, d]
 // over `rows` output rows of width W, R rows per pack, C source rows per
-// pack.  w_j = src_scale[j] (1 when nullptr); scale_r = 1 / (entries
+// pack.  w_j = src_scale[j] (1 when nullptr); scale_r = mean_colscale(entries
 // counted) when `mean`, else 1; the sign term stays unscaled.  With
-// `rscale`, scale_r is written there too.
+// `rscale`, scale_r is written there too.  src is S (f32 or bf16), out O.
+template <class S, class O>
 struct GatherArgs {
-  const float* src;
+  const S* src;
   int C, W;
   const int* idx;
   int D;
@@ -37,11 +54,13 @@ struct GatherArgs {
   const float* src_scale;
   int mean, R;
   long long rows;
-  float* out;
+  O* out;
   float* rscale;
 };
 
-__global__ void __launch_bounds__(kGatherThreads) gather_kernel(GatherArgs a) {
+template <bool kBf16, class S, class O>
+__global__ void __launch_bounds__(kGatherThreads)
+    gather_kernel(GatherArgs<S, O> a) {
   const int c = blockIdx.y * kGatherThreads + threadIdx.x;
   for (int i = 0; i < kGatherRows; ++i) {
     const long long r = static_cast<long long>(blockIdx.x) * kGatherRows + i;
@@ -55,95 +74,127 @@ __global__ void __launch_bounds__(kGatherThreads) gather_kernel(GatherArgs a) {
       if (j >= 0 && j < a.C) {
         ++count;
         if (c < a.W) {
-          const float v = a.src[(lo + j) * a.W + c];
+          const float v = operand<kBf16>(to_f32(a.src[(lo + j) * a.W + c]));
           sum += a.src_scale == nullptr ? v : a.src_scale[lo + j] * v;
         }
       }
     }
-    const float scale = a.mean ? mean_colscale(count) : 1.f;
+    const float scale = a.mean ? mean_colscale<kBf16>(count) : 1.f;
     if (a.mean) sum *= scale;
     if (a.sign != nullptr) {
       const long long j = a.sign[r] - lo;
-      if (j >= 0 && j < a.C && c < a.W) sum -= a.src[(lo + j) * a.W + c];
+      if (j >= 0 && j < a.C && c < a.W)
+        sum -= operand<kBf16>(to_f32(a.src[(lo + j) * a.W + c]));
     }
-    if (c < a.W) a.out[r * a.W + c] = sum;
+    if (c < a.W) a.out[r * a.W + c] = from_f32<O>(sum);
     if (a.rscale != nullptr && blockIdx.y == 0 && threadIdx.x == 0)
       a.rscale[r] = scale;
   }
 }
 
-inline void launch_gather(const GatherArgs& a, cudaStream_t st) {
+template <bool kBf16, class S, class O>
+inline void launch_gather(const GatherArgs<S, O>& a, cudaStream_t st) {
   if (a.rows == 0) return;
   const dim3 grid(static_cast<unsigned>((a.rows + kGatherRows - 1) / kGatherRows),
                   static_cast<unsigned>((a.W + kGatherThreads - 1) / kGatherThreads));
-  gather_kernel<<<grid, kGatherThreads, 0, st>>>(a);
+  gather_kernel<kBf16, S, O><<<grid, kGatherThreads, 0, st>>>(a);
 }
 
-// Stores the accumulators of the BM x BN tile at (m0, n0) through epi.
-template <class Epi>
+// Stores the accumulators of the BM x BN tile at (m0, n0) through epi, in
+// the thread -> (m, n) map of mma_tile (f32) or of the mma fragments of
+// mma_tile_bf16 (as fused_model_common.cuh::gemm does).
+template <bool kBf16, class Epi>
 __device__ __forceinline__ void store_tile(const float (&acc)[TM][TN], int m0,
                                            int n0, int M, int N,
                                            const Epi& epi) {
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+  if constexpr (kBf16) {
+    const int warp = threadIdx.x / 32, g = (threadIdx.x % 32) / 4,
+              t = threadIdx.x % 4;
 #pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const int m = m0 + ty + 16 * i;
+    for (int j = 0; j < 4; ++j)
 #pragma unroll
-    for (int j = 0; j < TN; ++j) {
-      const int n = n0 + tx + 16 * j;
-      if (m < M && n < N) epi(m, n, acc[i][j]);
+      for (int q = 0; q < 4; ++q) {
+        const int m = m0 + 16 * (warp % 4) + g + 8 * (q / 2);
+        const int n = n0 + 32 * (warp / 4) + 8 * j + 2 * t + q % 2;
+        if (m < M && n < N) epi(m, n, acc[j][q]);
+      }
+  } else {
+    const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+#pragma unroll
+    for (int i = 0; i < TM; ++i) {
+      const int m = m0 + ty + 16 * i;
+#pragma unroll
+      for (int j = 0; j < TN; ++j) {
+        const int n = n0 + tx + 16 * j;
+        if (m < M && n < N) epi(m, n, acc[i][j]);
+      }
     }
   }
 }
 
+// acc += one operand pair's share of the BM x BN tile at (m0, n0).
+template <bool kBf16, bool TA, bool TB, class T>
+__device__ __forceinline__ void tile_product(float (&acc)[TM][TN],
+                                             const OperandsOf<T>& p, int m0,
+                                             int n0, int M, int N,
+                                             SmemOf<kBf16>& sm) {
+  if constexpr (kBf16)
+    mma_tile_bf16<TA, TB>(acc, p.A, p.B, p.ldb, p.K, m0, n0, M, N, sm);
+  else
+    mma_tile<TA, TB>(acc, p.A, p.B, p.ldb, p.K, m0, n0, M, N, sm);
+}
+
 // One BM x BN output tile per block, grid (ceil(N/BN), ceil(M/BM)):
-// epi(m, n, Σ over the pairs of Aop·Bop) (fused_model_common.cuh::mma_tile);
-// the second pair is skipped when its K is 0.
-template <bool TA, bool TB, class Epi>
+// epi(m, n, Σ over the pairs of Aop·Bop) (fused_model_common.cuh::mma_tile
+// or mma_tile_bf16); the second pair is skipped when its K is 0.
+template <bool kBf16, bool TA, bool TB, class T1, class T2, class Epi>
 __global__ void __launch_bounds__(kThreads)
-    tile_kernel(Operands p1, Operands p2, int M, int N, Epi epi) {
-  __shared__ Smem sm;
+    tile_kernel(OperandsOf<T1> p1, OperandsOf<T2> p2, int M, int N, Epi epi) {
+  __shared__ SmemOf<kBf16> sm;
   const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
   float acc[TM][TN] = {};
-  mma_tile<TA, TB>(acc, p1.A, p1.B, p1.ldb, p1.K, m0, n0, M, N, sm);
-  if (p2.K > 0)
-    mma_tile<TA, TB>(acc, p2.A, p2.B, p2.ldb, p2.K, m0, n0, M, N, sm);
-  store_tile(acc, m0, n0, M, N, epi);
+  tile_product<kBf16, TA, TB>(acc, p1, m0, n0, M, N, sm);
+  if (p2.K > 0) tile_product<kBf16, TA, TB>(acc, p2, m0, n0, M, N, sm);
+  store_tile<kBf16>(acc, m0, n0, M, N, epi);
 }
 
-template <bool TA, bool TB, class Epi>
-void launch_tile(const Operands& p1, const Operands& p2, int M, int N,
-                 const Epi& epi, cudaStream_t st) {
+template <bool kBf16, bool TA, bool TB, class T1, class T2, class Epi>
+void launch_tile(const OperandsOf<T1>& p1, const OperandsOf<T2>& p2, int M,
+                 int N, const Epi& epi, cudaStream_t st) {
   if (M == 0 || N == 0) return;
   const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
-  tile_kernel<TA, TB, Epi><<<grid, kThreads, 0, st>>>(p1, p2, M, N, epi);
+  tile_kernel<kBf16, TA, TB, T1, T2, Epi><<<grid, kThreads, 0, st>>>(
+      p1, p2, M, N, epi);
 }
 
-inline Operands plain(const float* a, int K_a, const float* b, int ldb, int K) {
-  return Operands{Rows{a, K_a, nullptr, 0, 0}, b, ldb, K};
+template <class T>
+inline OperandsOf<T> plain(const T* a, int K_a, const float* b, int ldb,
+                           int K) {
+  return OperandsOf<T>{RowsOf<T>{a, K_a, nullptr, 0, 0}, b, ldb, K};
 }
 
 inline Operands no_operands() { return Operands{Rows{nullptr, 0, nullptr, 0, 0}, nullptr, 0, 0}; }
 
-// out = drop_l(act(acc + bias [+ skip·h0])) over rows of width ld; the
-// pre-activation is stored too when `pre` is set, the output only when
-// `out` is.  `drop` is the wrapper's [3, L] table (seeds, thresholds,
-// scales) or nullptr; row m is pack-local row m % rows_per_pack of pack
-// m / rows_per_pack.
+// out = drop_l(act(acc + bias [+ skip·h0])) over rows of width ld, h0 and
+// out of type T; the f32 pre-activation is stored too when `pre` is set,
+// the output only when `out` is.  `drop` is the wrapper's [3, L] table
+// (seeds, thresholds, scales) or nullptr; row m is pack-local row
+// m % rows_per_pack of pack m / rows_per_pack.
+template <class T>
 struct LayerEpi {
   const float* bias;
-  const float* h0;    // nullptr: no skip term
+  const T* h0;        // nullptr: no skip term
   const float* skip;  // the layer's skip weight (device)
   int act;
   float* pre;
-  float* out;
+  T* out;
   int ld;
   const int* drop;
   int L, l, rows_per_pack;
   __device__ __forceinline__ void operator()(int m, int n, float acc) const {
     const size_t o = static_cast<size_t>(m) * ld + n;
     float v = acc + bias[n];
-    if (h0 != nullptr) v = fmaf(*skip, h0[o], v);
+    if (h0 != nullptr) v = fmaf(*skip, to_f32(h0[o]), v);
     if (pre != nullptr) pre[o] = v;
     if (out == nullptr) return;
     float y = k_act(act, v);
@@ -154,26 +205,39 @@ struct LayerEpi {
                       __int_as_float(drop[2 * L + l])};
       y = d.apply(m % rows_per_pack, n, y);
     }
-    out[o] = y;
+    out[o] = from_f32<T>(y);
   }
 };
 
-// part[s, m, n] = Σ_{k in split s} A[k, m]·B[k, n] with A [K, M] and B
-// [K, N] row-major, split s covering rows [s·chunk, (s + 1)·chunk); grid
-// (ceil(N/BN), ceil(M/BM), S).
+// out[m, n] = acc, stored as T.
+template <class T>
+struct StoreAs {
+  T* out;
+  int ld;
+  __device__ __forceinline__ void operator()(int m, int n, float acc) const {
+    out[static_cast<size_t>(m) * ld + n] = from_f32<T>(acc);
+  }
+};
+
+// part[s, m, n] = Σ_{k in split s} A[k, m]·B[k, n] with A [K, M] (of type
+// T) and B [K, N] row-major, split s covering rows [s·chunk, (s + 1)·chunk);
+// grid (ceil(N/BN), ceil(M/BM), S).
+template <bool kBf16, class T>
 __global__ void __launch_bounds__(kThreads)
-    wgrad_kernel(const float* A, int M, const float* B, int N, long long K,
+    wgrad_kernel(const T* A, int M, const float* B, int N, long long K,
                  long long chunk, float* part) {
-  __shared__ Smem sm;
+  __shared__ SmemOf<kBf16> sm;
   const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
   const long long k0 = blockIdx.z * chunk;
   const long long left = K - k0;
   const int kn = static_cast<int>(left < chunk ? (left > 0 ? left : 0) : chunk);
   float acc[TM][TN] = {};
-  mma_tile<true, false>(acc, Rows{A + k0 * M, M, nullptr, 0, 0}, B + k0 * N,
-                        N, kn, m0, n0, M, N, sm);
-  store_tile(acc, m0, n0, M, N,
-             StoreEpi{part + static_cast<size_t>(blockIdx.z) * M * N, N});
+  tile_product<kBf16, true, false>(
+      acc, OperandsOf<T>{RowsOf<T>{A + k0 * M, M, nullptr, 0, 0}, B + k0 * N,
+                         N, kn},
+      m0, n0, M, N, sm);
+  store_tile<kBf16>(acc, m0, n0, M, N,
+                    StoreEpi{part + static_cast<size_t>(blockIdx.z) * M * N, N});
 }
 
 // part[s, c] = Σ_{r in split s} a[r, c], rows in order; grid
@@ -209,12 +273,14 @@ inline void launch_sum(const float* part, int S, long long G, float* out,
 
 // out [M, N] = Σ_k A[k, :]ᵀ·B[k, :] over K rows: S split-K partials in
 // part (S·M·N floats), then their sum in split order.
-inline void launch_wgrad(const float* A, int M, const float* B, int N,
+template <bool kBf16, class T>
+inline void launch_wgrad(const T* A, int M, const float* B, int N,
                          long long K, int S, float* part, float* out,
                          cudaStream_t st) {
   const long long chunk = (K + S - 1) / S;
   const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM, S);
-  wgrad_kernel<<<grid, kThreads, 0, st>>>(A, M, B, N, K, chunk, part);
+  wgrad_kernel<kBf16, T><<<grid, kThreads, 0, st>>>(A, M, B, N, K, chunk,
+                                                    part);
   launch_sum(part, S, static_cast<long long>(M) * N, out, st);
 }
 
@@ -226,10 +292,23 @@ inline void launch_colsum(const float* a, int N, long long K, int S,
   launch_sum(part, S, N, out, st);
 }
 
+// Typed buffers carved out of one scratch allocation, each 256-byte
+// aligned; with a null base only the bytes are counted.
+struct Carve {
+  char* base;
+  size_t used = 0;
+  template <class T>
+  T* take(long long n) {
+    T* p = base == nullptr ? nullptr : reinterpret_cast<T*>(base + used);
+    used += (static_cast<size_t>(n) * sizeof(T) + 255) / 256 * 256;
+    return p;
+  }
+};
+
 // One D-MPNN conv layer over the whole batch, as conv_stack.cu (every
 // layer) and fused_conv.cu (one layer) run it: `rows` edge rows in packs
 // of te, messages through edge_nbr [rows, D] minus rev, scaled by
-// 1 / (entries counted) when `mean`.
+// mean_colscale(entries counted) when `mean`.
 struct ConvGraph {
   const int *edge_nbr, *rev;
   int D, mean, te;
@@ -240,18 +319,21 @@ struct ConvGraph {
 // then drop_l(act(t·W + b + skip·h0)) with W [Hin, H] to `out` and the
 // pre-activation to `pre`, each when set (neither: no product).  out may
 // be h_in: the gather has finished before the product starts.
-inline void conv_layer(const ConvGraph& g, const float* h_in, int Hin,
+template <bool kBf16>
+inline void conv_layer(const ConvGraph& g, const Elem<kBf16>* h_in, int Hin,
                        const float* w, const float* b, const float* skip,
-                       const float* h0, int H, int act, const int* drop,
-                       int L, int l, float* t, float* pre, float* out,
-                       float* rscale, cudaStream_t st) {
-  launch_gather(GatherArgs{h_in, g.te, Hin, g.edge_nbr, g.D, g.rev, nullptr,
-                           g.mean, g.te, g.rows, t, rscale},
-                st);
+                       const Elem<kBf16>* h0, int H, int act, const int* drop,
+                       int L, int l, Elem<kBf16>* t, float* pre,
+                       Elem<kBf16>* out, float* rscale, cudaStream_t st) {
+  using E = Elem<kBf16>;
+  launch_gather<kBf16>(GatherArgs<E, E>{h_in, g.te, Hin, g.edge_nbr, g.D,
+                                        g.rev, nullptr, g.mean, g.te, g.rows,
+                                        t, rscale},
+                       st);
   if (pre == nullptr && out == nullptr) return;
-  launch_tile<false, false>(
+  launch_tile<kBf16, false, false>(
       plain(t, Hin, w, H, Hin), no_operands(), static_cast<int>(g.rows), H,
-      LayerEpi{b, h0, skip, act, pre, out, H, drop, L, l, g.te}, st);
+      LayerEpi<E>{b, h0, skip, act, pre, out, H, drop, L, l, g.te}, st);
 }
 
 // A conv layer's dpre = drop_l'(g)·act'(pre) over the n = rows·H floats,
@@ -259,12 +341,13 @@ inline void conv_layer(const ConvGraph& g, const float* h_in, int Hin,
 // drop_l'(g) where out > 0, else 0, and pre is not read.  Then
 // dh0 = skip·dpre, or dh0 += skip·dpre when `add` (when dh0 is set), and
 // the block's share of Σ dpre·h0 in part[blockIdx.x·L + l]; kReduceBlocks
-// blocks of kThreads, grid-stride.
+// blocks of kThreads, grid-stride.  g is G, out and h0 E, dh0 D.
+template <class G, class E, class D>
 __global__ void __launch_bounds__(kThreads)
-    dpre_kernel(const float* g, const float* pre, const float* out,
-                float* dpre, const float* h0, float* dh0, int add,
-                const float* skip, const int* drop, int L, int l, int act,
-                int te, int H, long long n, float* part) {
+    dpre_kernel(const G* g, const float* pre, const E* out, float* dpre,
+                const E* h0, D* dh0, int add, const float* skip,
+                const int* drop, int L, int l, int act, int te, int H,
+                long long n, float* part) {
   __shared__ float red[kThreads];
   Dropout dr{0, 0u, 0u, 0u, 1.f};
   if (drop != nullptr)
@@ -278,10 +361,10 @@ __global__ void __launch_bounds__(kThreads)
        i < n; i += static_cast<long long>(gridDim.x) * kThreads) {
     float v;
     if (out != nullptr) {
-      v = out[i] > 0.f ? g[i] * dr.scale : 0.f;
+      v = to_f32(out[i]) > 0.f ? to_f32(g[i]) * dr.scale : 0.f;
     } else {
       const long long r = i / H;
-      float gg = g[i];
+      float gg = to_f32(g[i]);
       if (dr.on) {
         dr.pack = static_cast<unsigned>(r / te);
         gg = dr.kept(static_cast<int>(r % te), static_cast<int>(i % H))
@@ -291,8 +374,9 @@ __global__ void __launch_bounds__(kThreads)
       v = gg * k_dact(act, pre[i]);
     }
     dpre[i] = v;
-    dot = fmaf(v, h0[i], dot);
-    if (dh0 != nullptr) dh0[i] = add ? fmaf(s, v, dh0[i]) : s * v;
+    dot = fmaf(v, to_f32(h0[i]), dot);
+    if (dh0 != nullptr)
+      dh0[i] = from_f32<D>(add ? fmaf(s, v, to_f32(dh0[i])) : s * v);
   }
   red[threadIdx.x] = dot;
   __syncthreads();
@@ -305,25 +389,29 @@ __global__ void __launch_bounds__(kThreads)
 
 // A conv layer's backward from dpre [rows, H]: dW = tᵀ·dpre and
 // db = Σ_r dpre (split-K partials in wpart, summed in split order), then
-// dt = dpre·Wᵀ and dh = the messages' adjoint applied to dt: a gather
-// through the transposed ELL array edge_nbr_rev, each entry scaled by its
-// forward row's 1/degree (rscale, for mean), minus the rev row.  A null
-// output is skipped.
+// dt = dpre·Wᵀ (stored as Elem: the operand the adjoint rounds) and dh =
+// the messages' adjoint applied to dt: a gather through the transposed ELL
+// array edge_nbr_rev, each entry scaled by its forward row's scale
+// (rscale, for mean), minus the rev row, stored as DH.  A null output is
+// skipped.
+template <bool kBf16, class DH>
 inline void conv_layer_bwd(const ConvGraph& g, const int* edge_nbr_rev,
-                           const float* t, int Hin, const float* dpre, int H,
-                           const float* w, const float* rscale, int S,
-                           float* wpart, float* dt, float* dh, float* dw,
+                           const Elem<kBf16>* t, int Hin, const float* dpre,
+                           int H, const float* w, const float* rscale, int S,
+                           float* wpart, Elem<kBf16>* dt, DH* dh, float* dw,
                            float* db, cudaStream_t st) {
-  if (dw != nullptr) launch_wgrad(t, Hin, dpre, H, g.rows, S, wpart, dw, st);
+  using E = Elem<kBf16>;
+  if (dw != nullptr)
+    launch_wgrad<kBf16>(t, Hin, dpre, H, g.rows, S, wpart, dw, st);
   if (db != nullptr) launch_colsum(dpre, H, g.rows, S, wpart, db, st);
   if (dh == nullptr) return;
-  launch_tile<false, true>(plain(dpre, H, w, H, H), no_operands(),
-                           static_cast<int>(g.rows), Hin, StoreEpi{dt, Hin},
-                           st);
-  launch_gather(GatherArgs{dt, g.te, Hin, edge_nbr_rev, g.D, g.rev,
-                           g.mean ? rscale : nullptr, 0, g.te, g.rows, dh,
-                           nullptr},
-                st);
+  launch_tile<kBf16, false, true>(plain(dpre, H, w, H, H), no_operands(),
+                                  static_cast<int>(g.rows), Hin,
+                                  StoreAs<E>{dt, Hin}, st);
+  launch_gather<kBf16>(GatherArgs<E, DH>{dt, g.te, Hin, edge_nbr_rev, g.D,
+                                         g.rev, g.mean ? rscale : nullptr, 0,
+                                         g.te, g.rows, dh, nullptr},
+                       st);
 }
 
 }  // namespace cgr

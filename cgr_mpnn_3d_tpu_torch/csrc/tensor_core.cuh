@@ -1,6 +1,7 @@
 // The bf16 tensor-core product for sm_90a (mma.sync, inline PTX), shared
-// by the whole-model kernels' bf16 instantiation (fused_model_common.cuh)
-// and the matmul probe (mm_probe.cu).
+// by the bf16 instantiations of the whole-model and layered kernels
+// (fused_model_common.cuh, layered_common.cuh) and the matmul probe
+// (mm_probe.cu).
 //
 // Fragment layout (PTX ISA, "Matrix Fragments for mma.m16n8k16"), with
 // g = lane / 4 and t = lane % 4:
@@ -25,6 +26,24 @@ __device__ __forceinline__ float round_bf16(float v) {
 
 __device__ __forceinline__ unsigned short bf16_bits(float v) {
   return __bfloat16_as_ushort(__float2bfloat16_rn(v));
+}
+
+// A stored f32 or bf16 element as f32, and an f32 value stored as T (bf16:
+// round to nearest even).
+__device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+
+template <class T>
+__device__ __forceinline__ T from_f32(float v);
+template <>
+__device__ __forceinline__ float from_f32<float>(float v) {
+  return v;
+}
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
+  return __float2bfloat16_rn(v);
 }
 
 // The 32-bit word at p (4-byte aligned shared memory).

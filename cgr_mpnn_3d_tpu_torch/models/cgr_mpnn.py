@@ -39,12 +39,18 @@ torch; on the CPU each takes its plain version.  Training then goes through
 autograd (:func:`supports_fused_train` is False).
 
 ``CGRMPNNConfig(compute_dtype="bfloat16")`` is the JAX package's bf16
-compute with the rounding of its Pallas kernels (``mat_dtype=bf16``): every
-operand of a product and a gather rounded to bf16, sums and elementwise work
-in f32, parameters f32.  It runs the whole-model kernels only (their bf16
-instantiation on the card, their plain versions on the CPU) and needs the
-batch's ``spec``; bf16 with the layered configuration, with capture mode or
-without ``spec`` raises (ROADMAP.md §1.4).
+compute (JAX ``apply`` :209-372): every operand of a product and a gather
+rounded to bf16, sums and elementwise work in f32, parameters f32.  With
+the batch's ``spec`` every path runs its kernels' bf16 instantiation
+(``mat_dtype=bf16``; on the CPU their plain versions at bf16): the
+whole-model kernels; in the layered configuration K5, K4, K5, K7 with x, e,
+h0 and the conv stack's states held as ``torch.bfloat16`` tensors where JAX
+holds bf16 arrays; in capture mode K7 and K6, h0 rounded to bf16 for the
+conv layers (``h0c``).  The torch products around the kernels -- capture's
+edge_init and readout, the FFN head -- round their operands as JAX's
+``_linear`` / ``_linear_cat`` do (autograd then rounds their cotangents,
+as JAX's ``astype`` does).  A CPU batch without ``spec`` takes the XLA
+path's rounding: f32 gathers, operands rounded at each product.
 
 Dropout is the TPU kernels' hash dropout everywhere (on the card and on the
 CPU), driven by one int32 seed per conv layer, so a CPU run and a card run
@@ -70,7 +76,8 @@ from ..ops.conv_stack import conv_stack
 from ..ops.fused_conv import fused_conv_layer
 from ..ops.fused_model import GRAD_NAMES, fused_model, fused_model_train
 from ..ops.gather_linear import gather_linear
-from ..ops.kernel_math import MAT_DTYPES, hash_dropout_keep_full, k_act
+from ..ops.kernel_math import (MAT_DTYPES, hash_dropout_keep_full, k_act,
+                               round_bf16)
 from ..ops.onehot_spmm import spmm
 from ..ops.segment import (dmpnn_messages, gather_nodes, graph_pool_sum,
                            node_incoming_sum)
@@ -125,7 +132,8 @@ class CGRMPNNConfig:
 
 
 class Linear(nn.Module):
-    """y = x @ w + b with ``w`` [fan_in, fan_out] (the JAX layout)."""
+    """The parameters of y = x @ w + b, ``w`` [fan_in, fan_out] (the JAX
+    layout); :func:`apply` multiplies through ``_linear``."""
 
     def __init__(self, fan_in: int, fan_out: int,
                  generator: torch.Generator | None = None):
@@ -139,9 +147,6 @@ class Linear(nn.Module):
 
         self.w = uniform(fan_in, fan_out)
         self.b = uniform(fan_out)
-
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return x @ self.w + self.b
 
 
 class CGRMPNN(nn.Module):
@@ -249,22 +254,6 @@ def _kernel_kw(cfg: CGRMPNNConfig, spec: PackSpec, train: bool,
                 mat_dtype=cfg.compute_dtype)
 
 
-def _check_bf16(cfg: CGRMPNNConfig, spec: PackSpec | None,
-                capture: bool) -> None:
-    """bf16 compute runs the whole-model kernels only; the other paths'
-    bf16 is ROADMAP.md §1.4."""
-    missing = ("capture mode (K6, K7)" if capture
-               else "the layered configuration (K4, K5, K7)"
-               if not cfg.fuse_whole_model
-               else "a batch without its PackSpec (the XLA path's rounding)"
-               if spec is None else None)
-    if missing:
-        raise NotImplementedError(
-            f"compute_dtype='bfloat16' with {missing} is not ported yet "
-            f"(ROADMAP.md §1.4); bf16 runs the whole-model kernels with the "
-            f"batch's PackSpec")
-
-
 def kernel_grads_to_params(model: CGRMPNN, grads: tuple) -> None:
     """Write the kernels' 11 weight gradients (ops.fused_model.GRAD_NAMES
     order) into the parameters' ``.grad``: the counterpart of the JAX
@@ -316,20 +305,50 @@ def _pool_scale(batch: PackedGraphBatch) -> torch.Tensor:
     return torch.where(n_cnt > 0, 1.0 / n_cnt.clamp_min(1.0), 0.0)[:, None]
 
 
+def _store_dtype(cfg: CGRMPNNConfig) -> torch.dtype:
+    """The type of x, e and the edge states between kernels (JAX's
+    ``store_dt``)."""
+    return (torch.bfloat16 if cfg.compute_dtype == "bfloat16"
+            else torch.float32)
+
+
+def _linear(x: torch.Tensor, lin: Linear, bf16: bool) -> torch.Tensor:
+    """x @ w + b; at bf16 JAX's ``_linear``: x and w rounded to bf16, f32
+    sums, b f32."""
+    if not bf16:
+        return x @ lin.w + lin.b
+    return round_bf16(x.float()) @ round_bf16(lin.w) + lin.b
+
+
+def _linear_cat(a: torch.Tensor, b: torch.Tensor, lin: Linear,
+                bf16: bool) -> torch.Tensor:
+    """Linear over the concat [a ++ b] without building it (JAX's
+    ``_linear_cat``, rounding as :func:`_linear`)."""
+    na, w = a.shape[1], lin.w
+    if bf16:
+        a, b, w = round_bf16(a.float()), round_bf16(b.float()), round_bf16(w)
+    return a @ w[:na] + b @ w[na:] + lin.b
+
+
 def _layered(model: CGRMPNN, batch: PackedGraphBatch, spec: PackSpec,
              train: bool, seeds) -> torch.Tensor:
     """The layered-kernel forward (JAX apply's fuse_whole_model=False
     branch): gather-linear edge_init, the conv stack, gather-linear readout,
     sum pooling through the ELL gather-sum, then the mean scale and the FFN
-    head in torch."""
+    head in torch.  At bf16 x, e, h0 and the stack's output are bf16
+    tensors; the readout writes f32 (JAX's ``h.astype(f32)`` and back to
+    ``h0.dtype`` before it is the identity on those values and on their
+    cotangents, so the stack's output goes to the readout as it is)."""
     cfg = model.cfg
-    kw = dict(p=spec.p, act=ACTIVATIONS[cfg.activation])
+    md = cfg.compute_dtype
+    kw = dict(p=spec.p, act=ACTIVATIONS[cfg.activation], mat_dtype=md)
     mean = cfg.aggr == "mean"
-    x, e = batch.node_x.float(), batch.edge_attr.float()
+    sd = _store_dtype(cfg)
+    x, e = batch.node_x.to(sd), batch.edge_attr.to(sd)
     F = x.shape[1]
     wei, wen = model.edge_init, model.edge_to_node
     h0 = gather_linear(x, e, batch.senders[:, None], batch.node_out,
-                       wei.w[:F], wei.w[F:], wei.b, **kw)
+                       wei.w[:F], wei.w[F:], wei.b, **kw, out_dtype=md)
     h = conv_stack(h0, batch.edge_nbr, batch.rev, batch.edge_nbr_rev,
                    torch.stack([c.w for c in model.convs]),
                    torch.stack([c.b for c in model.convs]),
@@ -339,10 +358,10 @@ def _layered(model: CGRMPNN, batch: PackedGraphBatch, spec: PackSpec,
     hn = gather_linear(h, x, batch.node_inc, batch.receivers[:, None],
                        wen.w[F:], wen.w[:F], wen.b, **kw, mean=mean)
     pooled = spmm(hn, batch.graph_nodes, batch.graph_of_node[:, None],
-                  p=spec.p)
+                  p=spec.p, mat_dtype=md)
     if cfg.pooling == "mean":
         pooled = pooled * _pool_scale(batch)
-    return model.ffn(pooled)[:, 0]
+    return _linear(pooled, model.ffn, md == "bfloat16")[:, 0]
 
 
 def _inv_degree(batch: PackedGraphBatch) -> torch.Tensor:
@@ -356,35 +375,42 @@ def _capture(model: CGRMPNN, batch: PackedGraphBatch, spec: PackSpec,
              train: bool, seeds):
     """The per-layer kernel forward with every intermediate activation (JAX
     apply's capture branch with use_pallas): K7 for x[senders], the
-    incoming sum and the pooling, K6 once per conv layer."""
+    incoming sum and the pooling, K6 once per conv layer.  At bf16 x and e
+    are bf16 tensors, ``acts["h0"]`` is edge_init's f32 output and the conv
+    layers take and give bf16 (h0 rounded once, JAX's ``h0c``)."""
     cfg = model.cfg
-    kact, p = ACTIVATIONS[cfg.activation], spec.p
-    x, e = batch.node_x.float(), batch.edge_attr.float()
-    F = x.shape[1]
+    kact, p, md = ACTIVATIONS[cfg.activation], spec.p, cfg.compute_dtype
+    bf16 = md == "bfloat16"
+    sd = _store_dtype(cfg)
+    x, e = batch.node_x.to(sd), batch.edge_attr.to(sd)
     wei, wen = model.edge_init, model.edge_to_node
-    x_src = spmm(x, batch.senders[:, None], batch.node_out, p=p)
-    h0 = k_act(kact, x_src @ wei.w[:F] + e @ wei.w[F:] + wei.b)
+    x_src = spmm(x, batch.senders[:, None], batch.node_out, p=p, mat_dtype=md)
+    h0 = k_act(kact, _linear_cat(x_src, e, wei, bf16))
     acts = {"h0": h0}
+    h0c = h0.to(sd)
     skips = _skips(model, x.device)
     seeds = seed_list(seeds) if train else [None] * cfg.depth
-    h = h0
+    h = h0c
     for l, conv in enumerate(model.convs):
-        h = fused_conv_layer(h, h0, batch.edge_nbr, batch.rev,
+        h = fused_conv_layer(h, h0c, batch.edge_nbr, batch.rev,
                              batch.edge_nbr_rev, conv.w, conv.b, skips[l],
                              p=p, act=kact, mean=cfg.aggr == "mean",
                              train=train, seed=seeds[l],
-                             dropout_p=cfg.dropout_ps[l] if train else 0.0)
+                             dropout_p=cfg.dropout_ps[l] if train else 0.0,
+                             mat_dtype=md)
         acts[f"h_{l}"] = h
-    s = spmm(h, batch.node_inc, batch.receivers[:, None], p=p)
+    s = spmm(h.float(), batch.node_inc, batch.receivers[:, None], p=p,
+             mat_dtype=md)
     if cfg.aggr == "mean":
         s = s * _inv_degree(batch)[:, None]
-    hn = k_act(kact, x @ wen.w[:F] + s @ wen.w[F:] + wen.b)
+    hn = k_act(kact, _linear_cat(x, s, wen, bf16))
     acts["s"], acts["h_node"] = s, hn
-    pooled = spmm(hn, batch.graph_nodes, batch.graph_of_node[:, None], p=p)
+    pooled = spmm(hn, batch.graph_nodes, batch.graph_of_node[:, None], p=p,
+                  mat_dtype=md)
     if cfg.pooling == "mean":
         pooled = pooled * _pool_scale(batch)
     acts["pooled"] = pooled
-    return model.ffn(pooled)[:, 0], acts
+    return _linear(pooled, model.ffn, bf16)[:, 0], acts
 
 
 def _dropout(h: torch.Tensor, rate: float, seed: int, te: int):
@@ -412,15 +438,13 @@ def apply(model: CGRMPNN, batch: PackedGraphBatch, spec: PackSpec | None = None,
     the layered kernels run instead (their plain versions on the CPU).
     ``capture=True`` with ``spec`` runs the per-layer kernels (see the
     module doc), on the card and, through their plain versions, on the
-    CPU.  With ``cfg.compute_dtype="bfloat16"`` the whole-model kernels'
-    bf16 instantiation runs, on the CPU their plain versions at bf16; the
-    other paths raise there."""
+    CPU.  With ``cfg.compute_dtype="bfloat16"`` each of those paths runs
+    its kernels' bf16 instantiation (on the CPU their plain versions at
+    bf16), and a CPU batch without ``spec`` rounds as JAX's XLA path."""
     cfg = model.cfg
     kact = ACTIVATIONS[cfg.activation]
     x, e = batch.node_x, batch.edge_attr
     bf16 = cfg.compute_dtype == "bfloat16"
-    if bf16:
-        _check_bf16(cfg, spec, capture)
 
     if x.device.type == "cuda" and spec is None:
         raise ValueError("the kernels need the batch's PackSpec")
@@ -431,12 +455,16 @@ def apply(model: CGRMPNN, batch: PackedGraphBatch, spec: PackSpec | None = None,
         return _capture(model, batch, spec, train, seeds)
     if not cfg.fuse_whole_model and spec is not None:
         return _layered(model, batch, spec, train, seeds)
-    if x.device.type == "cuda" or bf16:
+    if x.device.type == "cuda" or (bf16 and spec is not None):
         return fused_model(kernel_inputs(model, batch), adjoint_inputs(batch),
                            **_kernel_kw(cfg, spec, train, seeds))
     layer_seeds = seed_list(seeds) if train else None
 
+    # the XLA path: f32 gathers; at bf16 x and e rounded (JAX casts them),
+    # and every product's operands rounded (_linear, _linear_cat)
     x, e = x.float(), e.float()
+    if bf16:
+        x, e = round_bf16(x), round_bf16(e)
     ET = batch.senders.shape[0]
     acts: dict[str, torch.Tensor] = {}
     if cfg.aggr == "mean":
@@ -445,17 +473,15 @@ def apply(model: CGRMPNN, batch: PackedGraphBatch, spec: PackSpec | None = None,
     else:
         norm = torch.ones(ET, device=x.device)
 
-    F = x.shape[1]
-    wei = model.edge_init
     x_src = gather_nodes(x, batch.senders)
-    h0 = k_act(kact, x_src @ wei.w[:F] + e @ wei.w[F:] + wei.b)
+    h0 = k_act(kact, _linear_cat(x_src, e, model.edge_init, bf16))
     if capture:
         acts["h0"] = h0
     skips = _skips(model, x.device)
     h = h0
     for l in range(cfg.depth):
         t = dmpnn_messages(h, batch.edge_nbr, batch.rev, norm)
-        h = k_act(kact, model.convs[l](t) + skips[l] * h0)
+        h = k_act(kact, _linear(t, model.convs[l], bf16) + skips[l] * h0)
         if train:
             h = _dropout(h, cfg.dropout_ps[l], layer_seeds[l], spec.te)
         if capture:
@@ -464,8 +490,7 @@ def apply(model: CGRMPNN, batch: PackedGraphBatch, spec: PackSpec | None = None,
     s = node_incoming_sum(h, batch.node_inc)
     if cfg.aggr == "mean":
         s = s * inv_deg[:, None]
-    wen = model.edge_to_node
-    hn = k_act(kact, x @ wen.w[:F] + s @ wen.w[F:] + wen.b)
+    hn = k_act(kact, _linear_cat(x, s, model.edge_to_node, bf16))
     if capture:
         acts["s"] = s
         acts["h_node"] = hn
@@ -473,7 +498,7 @@ def apply(model: CGRMPNN, batch: PackedGraphBatch, spec: PackSpec | None = None,
     pooled = graph_pool_sum(hn, batch.graph_nodes)
     if cfg.pooling == "mean":
         pooled = pooled * _pool_scale(batch)
-    out = model.ffn(pooled)[:, 0]
+    out = _linear(pooled, model.ffn, bf16)[:, 0]
     if capture:
         acts["pooled"] = pooled
         return out, acts

@@ -10,11 +10,11 @@ import numpy as np
 import torch
 
 from . import _build
-from .kernel_math import dropout_threshold
+from .kernel_math import MAT_DTYPES, dropout_threshold
 
-__all__ = ["PTR", "I32", "library", "check_cuda", "seed_list", "check_train",
-           "drop_table", "stream", "raise_on", "refuse_grad", "ptr",
-           "split_k"]
+__all__ = ["PTR", "I32", "library", "check_types", "check_cuda",
+           "seed_list", "check_train", "drop_table", "stream", "raise_on",
+           "refuse_grad", "ptr", "split_k", "mat_index", "count_launch"]
 
 PTR, I32 = ctypes.c_void_p, ctypes.c_int
 
@@ -33,15 +33,37 @@ def library(name: str, signatures: dict) -> ctypes.CDLL:
     return lib
 
 
-def check_cuda(args: dict, device, index_names) -> None:
-    """Every tensor on ``device``, contiguous, int32 when its name is in
-    ``index_names`` and float32 otherwise."""
+def _allowed(types, name: str) -> tuple:
+    want = (types or {}).get(name, torch.float32)
+    return want if isinstance(want, tuple) else (want,)
+
+
+def check_types(args: dict, types: dict, what: str) -> None:
+    """Each float tensor of ``args`` has a dtype that ``types`` allows for
+    its name (a dtype or a tuple of them; float32 where the name is
+    missing), on any device; float64 passes where float32 does (the plain
+    versions' float64 evaluations).  Index tensors are not looked at."""
     for name, tsr in args.items():
-        want = torch.int32 if name in index_names else torch.float32
+        if not tsr.is_floating_point():
+            continue
+        ok = _allowed(types, name)
+        if tsr.dtype not in ok and not (tsr.dtype == torch.float64
+                                        and torch.float32 in ok):
+            raise TypeError(f"{name} is {tsr.dtype}; {what} takes "
+                            f"{' or '.join(str(t) for t in ok)} there")
+
+
+def check_cuda(args: dict, device, index_names, types=None) -> None:
+    """Every tensor on ``device``, contiguous, int32 when its name is in
+    ``index_names`` and otherwise of a dtype ``types`` allows for its name
+    (float32 where it is missing)."""
+    for name, tsr in args.items():
+        ok = (torch.int32,) if name in index_names else _allowed(types, name)
         if tsr.device != device:
             raise ValueError(f"{name} is on {tsr.device}, expected {device}")
-        if tsr.dtype != want:
-            raise TypeError(f"{name} is {tsr.dtype}, the kernel takes {want}")
+        if tsr.dtype not in ok:
+            raise TypeError(f"{name} is {tsr.dtype}, the kernel takes "
+                            f"{' or '.join(str(t) for t in ok)}")
         if not tsr.is_contiguous():
             raise ValueError(f"{name} is not contiguous")
 
@@ -73,6 +95,21 @@ def drop_table(train: bool, seeds, dropout_ps, device):
                       np.asarray(thr, np.uint32).view(np.int32),
                       scale.view(np.int32)])
     return torch.from_numpy(table).to(device)
+
+
+def mat_index(mat_dtype: str) -> int:
+    """The ``mat`` argument of the CUDA kernels: 0 for f32, 1 for bf16."""
+    if mat_dtype not in MAT_DTYPES:
+        raise ValueError(f"unsupported mat_dtype {mat_dtype!r}")
+    return MAT_DTYPES.index(mat_dtype)
+
+
+def count_launch(counters: dict, mat_dtype: str, backward: bool) -> None:
+    """One more launch on a layered wrapper's counter (``counters`` is its
+    module's globals()): ``launches`` or ``bwd_launches``, with a ``bf16_``
+    prefix at mat_dtype bf16."""
+    key = "bwd_launches" if backward else "launches"
+    counters[("bf16_" if mat_dtype == "bfloat16" else "") + key] += 1
 
 
 def split_k(rows: int) -> int:

@@ -16,6 +16,15 @@ the TPU kernels' hash dropout (ops/kernel_math.py), bit for bit.  The
 backward takes the transposed ELL array ``edge_nbr_rev`` and the forward's
 output, and returns (dh, dh0, dw, db, dskip).
 
+``mat_dtype`` is the TPU kernels' ``mat_dtype`` and ``out_dtype`` at once
+(the model's ``store_dt``): at "float32" every float tensor is f32; at
+"bfloat16" h, h0, the output, its cotangent, dh and dh0 are bf16, every
+operand of a product and of the message gather is rounded to bf16 where
+it enters (sums f32, the mean scale ``bf16(1/deg)``), and the backward
+rounds dpre and dpre·wᵀ where they enter its products
+(``pallas_fused.py``'s ``_bwd_kernel``); w, b, skip and their gradients
+stay f32.
+
 * :func:`fused_conv_forward` / :func:`fused_conv_backward` launch
   ``csrc/fused_conv.cu`` for CUDA tensors or raise, and take
   :func:`fused_conv_layer_ref` / :func:`fused_conv_backward_ref` (autograd
@@ -30,32 +39,45 @@ import ctypes
 
 import torch
 
-from ._launch import (I32, PTR, check_cuda, check_train, drop_table, library,
-                      ptr, raise_on, refuse_grad, split_k, stream)
+from ._launch import (I32, PTR, check_cuda, check_train, check_types,
+                      count_launch, drop_table, library, mat_index, ptr,
+                      raise_on, refuse_grad, split_k, stream)
+from .bf16_ref import bf16_gather, bf16_mm, bf16_onehot
 from .kernel_math import (KERNEL_ACTS, hash_dropout_keep_full, k_act,
                           mean_colscale)
 from .segment import dmpnn_messages, in_pack
 
 __all__ = ["fused_conv_forward", "fused_conv_layer_ref",
            "fused_conv_backward", "fused_conv_backward_ref",
-           "fused_conv_layer", "launches", "bwd_launches"]
+           "fused_conv_layer", "launches", "bwd_launches", "bf16_launches",
+           "bf16_bwd_launches"]
 
-# kernel launches by the wrappers (nothing else adds here)
+# kernel launches by the wrappers (nothing else adds here), at f32 and at
+# bf16
 launches = 0
 bwd_launches = 0
+bf16_launches = 0
+bf16_bwd_launches = 0
 
 _SIGNATURES = {
-    "cgr_fused_conv_fwd": ([PTR] * 10 + [I32] * 7 + [PTR], I32),
-    "cgr_fused_conv_bwd": ([PTR] * 17 + [I32] * 8 + [PTR], I32),
-    "cgr_fused_conv_bwd_scratch_floats": ([I32] * 5, ctypes.c_longlong),
+    "cgr_fused_conv_fwd": ([PTR] * 10 + [I32] * 8 + [PTR], I32),
+    "cgr_fused_conv_bwd": ([PTR] * 17 + [I32] * 9 + [PTR], I32),
+    "cgr_fused_conv_bwd_scratch_bytes": ([I32] * 6, ctypes.c_longlong),
 }
 _INDEX_NAMES = {"edge_nbr", "rev", "edge_nbr_rev"}
 
 
+def _types(mat_dtype: str) -> dict:
+    """The dtype of the states (weights f32)."""
+    x = torch.bfloat16 if mat_dtype == "bfloat16" else torch.float32
+    return dict(h=x, h0=x, out=x, g=x)
+
+
 def _check(args: dict, p: int, act: str, train: bool, seed,
-           dropout_p: float) -> None:
+           dropout_p: float, mat_dtype: str) -> None:
     if act not in KERNEL_ACTS:
         raise ValueError(f"unsupported kernel activation {act!r}")
+    mat_index(mat_dtype)
     h, edge_nbr, w = args["h"], args["edge_nbr"], args["w"]
     if p < 1 or h.shape[0] % p:
         raise ValueError(f"rows of h {tuple(h.shape)} must split into p={p} "
@@ -70,44 +92,54 @@ def _check(args: dict, p: int, act: str, train: bool, seed,
             raise ValueError(f"{name} has shape {tuple(tsr.shape)}, "
                              f"expected {want[name]}")
     check_train(train, None if seed is None else [seed], (dropout_p,), 1)
+    check_types(args, _types(mat_dtype), f"mat_dtype={mat_dtype}")
 
 
 def fused_conv_layer_ref(h, h0, edge_nbr, rev, w, b, skip, *, p: int,
                          act: str = "relu", mean: bool = False,
                          train: bool = False, seed=None,
-                         dropout_p: float = 0.0) -> torch.Tensor:
+                         dropout_p: float = 0.0,
+                         mat_dtype: str = "float32") -> torch.Tensor:
     """Plain PyTorch version of the forward (any device), differentiable:
     ``dmpnn_messages`` over the ELL arrays with every index outside its
-    row's pack sent to the sentinel, then the layer."""
+    row's pack sent to the sentinel, then the layer (at bf16 the one-hot
+    gather and product of ops/bf16_ref.py)."""
     _check(dict(h=h, h0=h0, edge_nbr=edge_nbr, rev=rev, w=w, b=b, skip=skip),
-           p, act, train, seed, dropout_p)
+           p, act, train, seed, dropout_p, mat_dtype)
     ET, H = h0.shape
-    nbr, valid = in_pack(edge_nbr, p, ET)
-    norm = mean_colscale(valid) if mean else torch.ones(ET, device=h.device)
-    t = dmpnn_messages(h, nbr, in_pack(rev, p, ET)[0], norm)
-    out = k_act(act, t @ w + b + skip * h0)
+    if mat_dtype == "bfloat16":
+        t = bf16_gather(h, *bf16_onehot(edge_nbr, p, ET, mean, rev,
+                                        dtype=w.dtype))
+        out = k_act(act, bf16_mm(t, w) + b + skip * h0.to(w.dtype))
+    else:
+        nbr, valid = in_pack(edge_nbr, p, ET)
+        norm = (mean_colscale(valid) if mean
+                else torch.ones(ET, device=h.device))
+        t = dmpnn_messages(h, nbr, in_pack(rev, p, ET)[0], norm)
+        out = k_act(act, t @ w + b + skip * h0)
     if train and dropout_p > 0.0:
         keep = hash_dropout_keep_full(ET, H, ET // p, int(seed), dropout_p,
                                       device=h.device)
         out = torch.where(keep, out * (1.0 / (1.0 - dropout_p)), 0.0)
-    return out
+    return out.to(h0.dtype)
 
 
 def fused_conv_backward_ref(h, h0, edge_nbr, rev, edge_nbr_rev, w, b, skip,
                             out, g, *, p: int, act: str = "relu",
                             mean: bool = False, train: bool = False,
-                            seed=None, dropout_p: float = 0.0):
+                            seed=None, dropout_p: float = 0.0,
+                            mat_dtype: str = "float32"):
     """Plain version of the backward: (dh, dh0, dw, db, dskip) by autograd
     through :func:`fused_conv_layer_ref`; ``edge_nbr_rev`` and ``out`` are
     only checked."""
     _check(dict(h=h, h0=h0, edge_nbr=edge_nbr, rev=rev,
                 edge_nbr_rev=edge_nbr_rev, w=w, b=b, skip=skip, out=out, g=g),
-           p, act, train, seed, dropout_p)
+           p, act, train, seed, dropout_p, mat_dtype)
     with torch.enable_grad():
         ins = [t.detach().requires_grad_() for t in (h, h0, w, b, skip)]
         y = fused_conv_layer_ref(ins[0], ins[1], edge_nbr, rev, *ins[2:], p=p,
                                  act=act, mean=mean, train=train, seed=seed,
-                                 dropout_p=dropout_p)
+                                 dropout_p=dropout_p, mat_dtype=mat_dtype)
         grads = torch.autograd.grad(y, ins, g)
     return tuple(grads)
 
@@ -126,10 +158,10 @@ def _drop(train: bool, seed, dropout_p: float, device):
 
 
 def _launch_fwd(h, h0, edge_nbr, rev, w, b, skip, p, act, mean, train, seed,
-                dropout_p) -> torch.Tensor:
+                dropout_p, mat_dtype) -> torch.Tensor:
     args = dict(h=h, h0=h0, edge_nbr=edge_nbr, rev=rev, w=w, b=b, skip=skip)
-    _check(args, p, act, train, seed, dropout_p)
-    check_cuda(args, h.device, _INDEX_NAMES)
+    _check(args, p, act, train, seed, dropout_p, mat_dtype)
+    check_cuda(args, h.device, _INDEX_NAMES, _types(mat_dtype))
     dev = h.device
     t = torch.empty_like(h)
     out = torch.empty_like(h0)
@@ -140,7 +172,7 @@ def _launch_fwd(h, h0, edge_nbr, rev, w, b, skip, p, act, mean, train, seed,
             *(x.data_ptr() for x in (h, h0, edge_nbr, rev, w, b, skip)),
             ptr(drop), t.data_ptr(), out.data_ptr(),
             *_dims(h, h0, edge_nbr, p), KERNEL_ACTS.index(act), int(mean),
-            stream(dev))
+            mat_index(mat_dtype), stream(dev))
     raise_on(lib, err, "fused_conv_fwd")
     return out
 
@@ -148,36 +180,37 @@ def _launch_fwd(h, h0, edge_nbr, rev, w, b, skip, p, act, mean, train, seed,
 def fused_conv_forward(h, h0, edge_nbr, rev, w, b, skip, *, p: int,
                        act: str = "relu", mean: bool = False,
                        train: bool = False, seed=None,
-                       dropout_p: float = 0.0) -> torch.Tensor:
-    """The forward -> out [p*te, H] f32.  CUDA tensors launch
-    ``csrc/fused_conv.cu`` or raise; CPU tensors take
-    :func:`fused_conv_layer_ref`.  Floats are float32, indices int32, all
+                       dropout_p: float = 0.0,
+                       mat_dtype: str = "float32") -> torch.Tensor:
+    """The forward -> out [p*te, H] of h's type.  CUDA tensors launch
+    ``csrc/fused_conv.cu`` (its ``mat_dtype`` instantiation) or raise; CPU
+    tensors take :func:`fused_conv_layer_ref`.  Indices int32, all
     contiguous.  No backward: call :func:`fused_conv_layer` for one."""
-    global launches
     kw = dict(p=p, act=act, mean=mean, train=train, seed=seed,
-              dropout_p=dropout_p)
+              dropout_p=dropout_p, mat_dtype=mat_dtype)
     if h.device.type == "cpu":
         return fused_conv_layer_ref(h, h0, edge_nbr, rev, w, b, skip, **kw)
     if h.device.type != "cuda":
         raise ValueError(f"unsupported device {h.device}")
     refuse_grad((h, h0, w, b, skip), "fused_conv", "fused_conv_layer()")
     out = _launch_fwd(h, h0, edge_nbr, rev, w, b, skip, **kw)
-    launches += 1
+    count_launch(globals(), mat_dtype, False)
     return out
 
 
 def _launch_bwd(h, h0, edge_nbr, rev, edge_nbr_rev, w, b, skip, out, g, p,
-                act, mean, train, seed, dropout_p, needs):
+                act, mean, train, seed, dropout_p, mat_dtype, needs):
     args = dict(h=h, h0=h0, edge_nbr=edge_nbr, rev=rev,
                 edge_nbr_rev=edge_nbr_rev, w=w, b=b, skip=skip, out=out, g=g)
-    _check(args, p, act, train, seed, dropout_p)
-    check_cuda(args, h.device, _INDEX_NAMES)
+    _check(args, p, act, train, seed, dropout_p, mat_dtype)
+    check_cuda(args, h.device, _INDEX_NAMES, _types(mat_dtype))
     dev = h.device
     dims = _dims(h, h0, edge_nbr, p)
     S = split_k(h.shape[0])
     lib = _lib()
-    n_scratch = lib.cgr_fused_conv_bwd_scratch_floats(*dims[:4], S)
-    scratch = torch.empty(n_scratch, device=dev, dtype=torch.float32)
+    mat = mat_index(mat_dtype)
+    n_scratch = lib.cgr_fused_conv_bwd_scratch_bytes(*dims[:4], S, mat)
+    scratch = torch.empty(n_scratch, device=dev, dtype=torch.uint8)
     grads = [torch.empty_like(t) if need else None
              for t, need in zip((h, h0, w, b, skip), needs)]
     drop = _drop(train, seed, dropout_p, dev)
@@ -187,7 +220,7 @@ def _launch_bwd(h, h0, edge_nbr, rev, edge_nbr_rev, w, b, skip, out, g, p,
                                      skip)),
             ptr(drop), out.data_ptr(), g.data_ptr(), *(ptr(x) for x in grads),
             scratch.data_ptr(), *dims, KERNEL_ACTS.index(act), int(mean), S,
-            stream(dev))
+            mat, stream(dev))
     raise_on(lib, err, "fused_conv_bwd")
     return tuple(grads)
 
@@ -195,21 +228,21 @@ def _launch_bwd(h, h0, edge_nbr, rev, edge_nbr_rev, w, b, skip, out, g, p,
 def fused_conv_backward(h, h0, edge_nbr, rev, edge_nbr_rev, w, b, skip, out,
                         g, *, p: int, act: str = "relu", mean: bool = False,
                         train: bool = False, seed=None,
-                        dropout_p: float = 0.0, needs=(True,) * 5):
+                        dropout_p: float = 0.0, mat_dtype: str = "float32",
+                        needs=(True,) * 5):
     """(dh, dh0, dw, db, dskip) from the cotangent ``g`` of the forward's
     output ``out``; an entry whose ``needs`` flag is False is None (and not
     computed on the card).  CUDA tensors launch ``csrc/fused_conv.cu`` or
     raise; CPU tensors take :func:`fused_conv_backward_ref`."""
-    global bwd_launches
     kw = dict(p=p, act=act, mean=mean, train=train, seed=seed,
-              dropout_p=dropout_p)
+              dropout_p=dropout_p, mat_dtype=mat_dtype)
     if h.device.type == "cpu":
         grads = fused_conv_backward_ref(h, h0, edge_nbr, rev, edge_nbr_rev, w,
                                         b, skip, out, g, **kw)
         return tuple(d if need else None for d, need in zip(grads, needs))
     grads = _launch_bwd(h, h0, edge_nbr, rev, edge_nbr_rev, w, b, skip, out,
                         g, **kw, needs=needs)
-    bwd_launches += 1
+    count_launch(globals(), mat_dtype, True)
     return grads
 
 
@@ -219,9 +252,8 @@ class _FusedConv(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, kw, edge_nbr, rev, edge_nbr_rev, h, h0, w, b, skip):
-        global launches
         out = _launch_fwd(h, h0, edge_nbr, rev, w, b, skip, **kw)
-        launches += 1
+        count_launch(globals(), kw["mat_dtype"], False)
         ctx.kw = kw
         ctx.save_for_backward(edge_nbr, rev, edge_nbr_rev, h, h0, w, b, skip,
                               out)
@@ -229,24 +261,24 @@ class _FusedConv(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        global bwd_launches
         edge_nbr, rev, edge_nbr_rev, h, h0, w, b, skip, out = ctx.saved_tensors
         grads = _launch_bwd(h, h0, edge_nbr, rev, edge_nbr_rev, w, b, skip,
                             out, g.contiguous(), **ctx.kw,
                             needs=ctx.needs_input_grad[4:])
-        bwd_launches += 1
+        count_launch(globals(), ctx.kw["mat_dtype"], True)
         return (None,) * 4 + grads
 
 
 def fused_conv_layer(h, h0, edge_nbr, rev, edge_nbr_rev, w, b, skip, *,
                      p: int, act: str = "relu", mean: bool = False,
                      train: bool = False, seed=None,
-                     dropout_p: float = 0.0) -> torch.Tensor:
+                     dropout_p: float = 0.0,
+                     mat_dtype: str = "float32") -> torch.Tensor:
     """The layer, differentiable in h, h0, w, b and skip: on the card the
     forward kernel with the backward kernel as its backward, on the CPU
     :func:`fused_conv_layer_ref` under autograd."""
     kw = dict(p=p, act=act, mean=mean, train=train, seed=seed,
-              dropout_p=dropout_p)
+              dropout_p=dropout_p, mat_dtype=mat_dtype)
     if h.device.type == "cpu":
         return fused_conv_layer_ref(h, h0, edge_nbr, rev, w, b, skip, **kw)
     return _FusedConv.apply(kw, edge_nbr, rev, edge_nbr_rev, h, h0, w, b,

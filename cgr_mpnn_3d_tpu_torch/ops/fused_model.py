@@ -42,8 +42,8 @@ outputs stay f32 at both types.
 Each wrapper launches its CUDA kernel (``csrc/fused_model_fwd.cu``,
 ``csrc/fused_model_bwd.cu``) for CUDA tensors or raises, and takes its plain
 version only for CPU tensors.  The plain versions of K2 and K3b are autograd
-through :func:`fused_model_forward_ref`, whose bf16 products and gathers are
-``torch.autograd.Function``s that round their cotangents as the kernels do.
+through :func:`fused_model_forward_ref`, whose bf16 products and gathers
+(ops/bf16_ref.py) round their cotangents as the kernels do.
 """
 
 from __future__ import annotations
@@ -55,8 +55,9 @@ import torch
 
 from ._launch import (I32, PTR, check_cuda, check_train, drop_table, library,
                       ptr, raise_on, refuse_grad, seed_list, stream)
+from .bf16_ref import bf16_gather, bf16_mm, bf16_onehot
 from .kernel_math import (KERNEL_ACTS, MAT_DTYPES, hash_dropout_keep_full,
-                          k_act, mean_colscale, round_bf16)
+                          k_act)
 from .segment import ext_zero_row, in_pack, pack_gather_sum
 
 __all__ = ["fused_model_forward", "fused_model_forward_ref",
@@ -122,64 +123,6 @@ def _check(args: dict, p: int, act: str, aggr: str, pooling: str,
     check_train(train, seeds, dropout_ps, args["wc"].shape[0])
 
 
-class _Bf16MatMul(torch.autograd.Function):
-    """a @ b with both operands rounded to bf16 and f32 (or float64) sums:
-    ``_mm`` of the TPU kernels at ``mat_dtype=bf16``.  The backward rounds
-    the incoming gradient too before its two products, as the TPU
-    kernel's backward does (``_outerT``, ``_mmT``)."""
-
-    @staticmethod
-    def forward(ctx, a, b):
-        a, b = round_bf16(a), round_bf16(b)
-        ctx.save_for_backward(a, b)
-        return a @ b
-
-    @staticmethod
-    def backward(ctx, g):
-        a, b = ctx.saved_tensors
-        g = round_bf16(g)
-        return (g @ b.T if ctx.needs_input_grad[0] else None,
-                a.T @ g if ctx.needs_input_grad[1] else None)
-
-
-class _Bf16Gather(torch.autograd.Function):
-    """out[r] = Σ_d coef[r, d] · bf16(src)[ids[r, d]], ``ids`` holding the
-    sentinel row (zero) for absent entries: a one-hot product of the TPU
-    kernels at bf16 (``_BlockDiag.dot0``), whose entries ``coef`` are bf16
-    values.  The backward is the transposed product (``_BlockDiag.mm``)
-    with the incoming gradient rounded to bf16."""
-
-    @staticmethod
-    def forward(ctx, src, ids, coef):
-        ctx.save_for_backward(ids, coef)
-        ctx.rows = src.shape[0]
-        return (coef[..., None] * ext_zero_row(round_bf16(src))[ids]).sum(1)
-
-    @staticmethod
-    def backward(ctx, g):
-        ids, coef = ctx.saved_tensors
-        part = coef[..., None] * round_bf16(g)[:, None, :]
-        out = g.new_zeros((ctx.rows + 1, g.shape[1]))
-        out.index_add_(0, ids.reshape(-1), part.reshape(-1, g.shape[1]))
-        return out[:-1], None, None
-
-
-def _bf16_onehot(idx, p: int, n_src: int, mean: bool, rev=None, *, dtype):
-    """(ids, coef) of one pack-local gather as the bf16 one-hot matrix of
-    the TPU kernels (``pallas_model.py::_onehot``) has it: each counted
-    entry is ``bf16(1/deg)`` for mean, else 1; with ``rev`` the D-MPNN
-    message's reverse row is one more entry of -1 (exact, unscaled)."""
-    ids, valid = in_pack(idx, p, n_src)
-    scale = (mean_colscale(valid, "bfloat16") if mean
-             else torch.ones(idx.shape[0], device=idx.device))
-    coef = valid * scale[:, None]
-    if rev is not None:
-        rid, rvalid = in_pack(rev, p, n_src)
-        ids = torch.cat([ids, rid[:, None]], dim=1)
-        coef = torch.cat([coef, -rvalid[:, None].float()], dim=1)
-    return ids, coef.to(dtype)
-
-
 def fused_model_forward_ref(x, e, senders, edge_nbr, rev, node_inc,
                             graph_nodes, wx, we, be, wc, bc, skips, ws, wxn,
                             ben, wffn, bffn, *, p: int, act: str = "relu",
@@ -205,10 +148,10 @@ def fused_model_forward_ref(x, e, senders, edge_nbr, rev, node_inc,
 
     if mat_dtype == "bfloat16":
         def gather(idx, n_src, mean_, rev_=None):
-            ids, coef = _bf16_onehot(idx, p, n_src, mean_, rev_,
-                                     dtype=x.dtype)
-            return lambda src: _Bf16Gather.apply(src, ids, coef)
-        mm = _Bf16MatMul.apply
+            ids, coef = bf16_onehot(idx, p, n_src, mean_, rev_,
+                                    dtype=x.dtype)
+            return lambda src: bf16_gather(src, ids, coef)
+        mm = bf16_mm
         messages = gather(edge_nbr, ET, mean, rev)
         incoming = gather(node_inc, ET, mean)
         pool = gather(graph_nodes, NT, pooling == "mean")

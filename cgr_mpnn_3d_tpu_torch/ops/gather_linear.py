@@ -7,13 +7,23 @@ The counterpart of ``cgr_mpnn_3d_tpu/ops/pallas_glin.py::fused_gather_linear``
 
 with ``xa`` [p*ca, FA] gathered pack-locally through the ELL array ``idx``
 [p*R, D], ``xb`` [p*R, FB], ``wa`` [FA, H], ``wb`` [FB, H], ``b`` [H] ->
-``out`` [p*R, H] f32; ``scale_r`` is 1, or 1 / (entries counted) when
+``out`` [p*R, H]; ``scale_r`` is 1, or 1 / (entries counted) when
 ``mean``.  The model calls it as edge_init (idx = senders[:, None], xa = x,
 xb = e) and as the readout (idx = node_inc, xa = h, xb = x).
 
 The backward takes the transposed ELL array ``adj`` [p*ca, Dadj] through
 which dxa is gathered (node_out for edge_init, receivers[:, None] for the
 readout) and returns (dxa, dxb, dwa, dwb, db).
+
+``mat_dtype`` and ``out_dtype`` are the TPU kernel's: at "float32" every
+float tensor is f32.  At "bfloat16" ``xa`` and ``xb`` are bf16 tensors
+(the model's x, e and h are), every operand of a product and of the
+gather is rounded to bf16 where it enters (sums f32, the mean scale
+``bf16(1/deg)``), ``out`` and its cotangent are at ``out_dtype`` (bf16 for
+edge_init's h0, f32 for the readout), and dxa, dxb come back bf16
+(``_fgl_bwd``'s ``.astype(xa.dtype)``); the backward rounds dpre and the
+gathered dpre·waᵀ where they enter its products; weights and their
+gradients stay f32.
 
 * :func:`gather_linear_forward` / :func:`gather_linear_backward` launch
   ``csrc/gather_linear.cu`` for CUDA tensors or raise, and take
@@ -27,29 +37,48 @@ from __future__ import annotations
 
 import torch
 
-from ._launch import (I32, PTR, check_cuda, library, ptr, raise_on,
-                      refuse_grad, split_k, stream)
+from ._launch import (I32, PTR, check_cuda, check_types, count_launch,
+                      library, mat_index, ptr, raise_on, refuse_grad,
+                      split_k, stream)
+from .bf16_ref import bf16_gather, bf16_mm, bf16_onehot
 from .kernel_math import KERNEL_ACTS, k_act
 from .segment import pack_gather_sum
 
 __all__ = ["gather_linear_forward", "gather_linear_forward_ref",
            "gather_linear_backward", "gather_linear_backward_ref",
-           "gather_linear", "launches", "bwd_launches"]
+           "gather_linear", "launches", "bwd_launches", "bf16_launches",
+           "bf16_bwd_launches"]
 
-# kernel launches by the wrappers (nothing else adds here)
+# kernel launches by the wrappers (nothing else adds here), at f32 and at
+# bf16
 launches = 0
 bwd_launches = 0
+bf16_launches = 0
+bf16_bwd_launches = 0
 
 _SIGNATURES = {
-    "cgr_gather_linear_fwd": ([PTR] * 8 + [I32] * 9 + [PTR], I32),
-    "cgr_gather_linear_bwd": ([PTR] * 19 + [I32] * 11 + [PTR], I32),
+    "cgr_gather_linear_fwd": ([PTR] * 8 + [I32] * 11 + [PTR], I32),
+    "cgr_gather_linear_bwd": ([PTR] * 19 + [I32] * 13 + [PTR], I32),
 }
 _INDEX_NAMES = {"idx", "adj"}
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
-def _check(args: dict, p: int, act: str) -> None:
+def _types(mat_dtype: str, out_dtype: str) -> dict:
+    """The dtype of every float argument at these types (weights f32)."""
+    x = _DTYPES[mat_dtype]
+    return dict(xa=x, xb=x, out=_DTYPES[out_dtype], g=_DTYPES[out_dtype])
+
+
+def _check(args: dict, p: int, act: str, mat_dtype: str,
+           out_dtype: str) -> None:
     if act not in KERNEL_ACTS:
         raise ValueError(f"unsupported kernel activation {act!r}")
+    mat_index(mat_dtype)
+    if out_dtype not in _DTYPES or (mat_dtype == "float32"
+                                    and out_dtype != "float32"):
+        raise ValueError(f"unsupported out_dtype {out_dtype!r} at mat_dtype "
+                         f"{mat_dtype!r}")
     xa, xb, idx, wa = args["xa"], args["xb"], args["idx"], args["wa"]
     if p < 1 or xa.shape[0] % p or xb.shape[0] % p:
         raise ValueError(f"rows of xa {tuple(xa.shape)} and xb "
@@ -65,27 +94,41 @@ def _check(args: dict, p: int, act: str) -> None:
         if tuple(tsr.shape) != want[name]:
             raise ValueError(f"{name} has shape {tuple(tsr.shape)}, "
                              f"expected {want[name]}")
+    check_types(args, _types(mat_dtype, out_dtype),
+                f"mat_dtype={mat_dtype}, out_dtype={out_dtype}")
 
 
 def gather_linear_forward_ref(xa, xb, idx, wa, wb, b, *, p: int,
-                              act: str = "relu",
-                              mean: bool = False) -> torch.Tensor:
-    """Plain PyTorch version of the forward (any device), differentiable."""
-    _check(dict(xa=xa, xb=xb, idx=idx, wa=wa, wb=wb, b=b), p, act)
-    return k_act(act, pack_gather_sum(xa, idx, p, mean) @ wa + xb @ wb + b)
+                              act: str = "relu", mean: bool = False,
+                              mat_dtype: str = "float32",
+                              out_dtype: str = "float32") -> torch.Tensor:
+    """Plain PyTorch version of the forward (any device), differentiable
+    (at bf16 as the backward kernel rounds: ops/bf16_ref.py)."""
+    _check(dict(xa=xa, xb=xb, idx=idx, wa=wa, wb=wb, b=b), p, act, mat_dtype,
+           out_dtype)
+    if mat_dtype == "float32":
+        return k_act(act, pack_gather_sum(xa, idx, p, mean) @ wa + xb @ wb
+                     + b)
+    t1 = bf16_gather(xa, *bf16_onehot(idx, p, xa.shape[0], mean,
+                                      dtype=wa.dtype))
+    pre = bf16_mm(t1, wa) + bf16_mm(xb, wb) + b
+    return k_act(act, pre).to(_DTYPES[out_dtype])
 
 
 def gather_linear_backward_ref(xa, xb, idx, adj, wa, wb, b, out, g, *,
-                               p: int, act: str = "relu", mean: bool = False):
+                               p: int, act: str = "relu", mean: bool = False,
+                               mat_dtype: str = "float32",
+                               out_dtype: str = "float32"):
     """Plain version of the backward: (dxa, dxb, dwa, dwb, db) by autograd
     through :func:`gather_linear_forward_ref`; ``adj`` and ``out`` are only
     checked (autograd transposes the gather itself)."""
+    kw = dict(mat_dtype=mat_dtype, out_dtype=out_dtype)
     _check(dict(xa=xa, xb=xb, idx=idx, adj=adj, wa=wa, wb=wb, b=b, out=out,
-                g=g), p, act)
+                g=g), p, act, **kw)
     with torch.enable_grad():
         ins = [t.detach().requires_grad_() for t in (xa, xb, wa, wb, b)]
         y = gather_linear_forward_ref(ins[0], ins[1], idx, *ins[2:], p=p,
-                                      act=act, mean=mean)
+                                      act=act, mean=mean, **kw)
         grads = torch.autograd.grad(y, ins, g)
     return tuple(grads)
 
@@ -99,85 +142,96 @@ def _dims(xa, xb, idx, wa, p: int) -> list[int]:
             wa.shape[1], idx.shape[1]]
 
 
-def _launch_fwd(xa, xb, idx, wa, wb, b, p, act, mean) -> torch.Tensor:
+def _modes(act: str, mean: bool, mat_dtype: str, out_dtype: str) -> list:
+    return [KERNEL_ACTS.index(act), int(mean), mat_index(mat_dtype),
+            int(out_dtype == "bfloat16")]
+
+
+def _launch_fwd(xa, xb, idx, wa, wb, b, p, act, mean, mat_dtype,
+                out_dtype) -> torch.Tensor:
     args = dict(xa=xa, xb=xb, idx=idx, wa=wa, wb=wb, b=b)
-    _check(args, p, act)
-    check_cuda(args, xa.device, _INDEX_NAMES)
+    _check(args, p, act, mat_dtype, out_dtype)
+    check_cuda(args, xa.device, _INDEX_NAMES, _types(mat_dtype, out_dtype))
     rows, FA, H = xb.shape[0], xa.shape[1], wa.shape[1]
     dev = xa.device
-    t1 = torch.empty((rows, FA), device=dev, dtype=torch.float32)
-    out = torch.empty((rows, H), device=dev, dtype=torch.float32)
+    t1 = torch.empty((rows, FA), device=dev, dtype=xa.dtype)
+    out = torch.empty((rows, H), device=dev, dtype=_DTYPES[out_dtype])
     lib = _lib()
     with torch.cuda.device(dev):
         err = lib.cgr_gather_linear_fwd(
             *(t.data_ptr() for t in (xa, xb, idx, wa, wb, b, t1, out)),
-            *_dims(xa, xb, idx, wa, p), KERNEL_ACTS.index(act), int(mean),
-            stream(dev))
+            *_dims(xa, xb, idx, wa, p),
+            *_modes(act, mean, mat_dtype, out_dtype), stream(dev))
     raise_on(lib, err, "gather_linear_fwd")
     return out
 
 
 def gather_linear_forward(xa, xb, idx, wa, wb, b, *, p: int,
-                          act: str = "relu",
-                          mean: bool = False) -> torch.Tensor:
-    """The forward -> out [p*R, H] f32.  CUDA tensors launch
-    ``csrc/gather_linear.cu`` or raise; CPU tensors take
-    :func:`gather_linear_forward_ref`.  Floats are float32, indices int32,
-    all contiguous.  No backward: call :func:`gather_linear` for one."""
-    global launches
+                          act: str = "relu", mean: bool = False,
+                          mat_dtype: str = "float32",
+                          out_dtype: str = "float32") -> torch.Tensor:
+    """The forward -> out [p*R, H] at ``out_dtype``.  CUDA tensors launch
+    ``csrc/gather_linear.cu`` (its ``mat_dtype`` instantiation) or raise;
+    CPU tensors take :func:`gather_linear_forward_ref`.  Indices int32, all
+    contiguous.  No backward: call :func:`gather_linear` for one."""
+    kw = dict(p=p, act=act, mean=mean, mat_dtype=mat_dtype,
+              out_dtype=out_dtype)
     if xa.device.type == "cpu":
-        return gather_linear_forward_ref(xa, xb, idx, wa, wb, b, p=p,
-                                         act=act, mean=mean)
+        return gather_linear_forward_ref(xa, xb, idx, wa, wb, b, **kw)
     if xa.device.type != "cuda":
         raise ValueError(f"unsupported device {xa.device}")
     refuse_grad((xa, xb, wa, wb, b), "gather_linear", "gather_linear()")
-    out = _launch_fwd(xa, xb, idx, wa, wb, b, p, act, mean)
-    launches += 1
+    out = _launch_fwd(xa, xb, idx, wa, wb, b, **kw)
+    count_launch(globals(), mat_dtype, False)
     return out
 
 
-def _launch_bwd(xa, xb, idx, adj, wa, wb, b, out, g, p, act, mean, needs):
+def _launch_bwd(xa, xb, idx, adj, wa, wb, b, out, g, p, act, mean,
+                mat_dtype, out_dtype, needs):
     args = dict(xa=xa, xb=xb, idx=idx, adj=adj, wa=wa, wb=wb, b=b, out=out,
                 g=g)
-    _check(args, p, act)
-    check_cuda(args, xa.device, _INDEX_NAMES)
+    _check(args, p, act, mat_dtype, out_dtype)
+    check_cuda(args, xa.device, _INDEX_NAMES, _types(mat_dtype, out_dtype))
     rows, FA, FB, H = xb.shape[0], xa.shape[1], xb.shape[1], wa.shape[1]
     dev = xa.device
 
-    def empty(*shape):
-        return torch.empty(shape, device=dev, dtype=torch.float32)
+    def empty(*shape, dtype=torch.float32):
+        return torch.empty(shape, device=dev, dtype=dtype)
 
-    grads = [empty(*t.shape) if need else None
+    grads = [torch.empty_like(t) if need else None
              for t, need in zip((xa, xb, wa, wb, b), needs)]
     S = split_k(rows)
-    scratch = [empty(rows, FA), empty(rows, FA), empty(rows, H), empty(rows),
-               empty(S * max(FA, FB) * H)]
+    scratch = [empty(rows, FA, dtype=xa.dtype), empty(rows, FA, dtype=xa.dtype),
+               empty(rows, H), empty(rows), empty(S * max(FA, FB) * H)]
     lib = _lib()
     with torch.cuda.device(dev):
         err = lib.cgr_gather_linear_bwd(
             *(t.data_ptr() for t in (xa, xb, idx, adj, wa, wb, b, out, g)),
             *(ptr(t) for t in grads), *(t.data_ptr() for t in scratch),
             *_dims(xa, xb, idx, wa, p), adj.shape[1], KERNEL_ACTS.index(act),
-            int(mean), S, stream(dev))
+            int(mean), S, mat_index(mat_dtype), int(out_dtype == "bfloat16"),
+            stream(dev))
     raise_on(lib, err, "gather_linear_bwd")
     return tuple(grads)
 
 
 def gather_linear_backward(xa, xb, idx, adj, wa, wb, b, out, g, *, p: int,
                            act: str = "relu", mean: bool = False,
-                           needs=(True,) * 5):
+                           mat_dtype: str = "float32",
+                           out_dtype: str = "float32", needs=(True,) * 5):
     """(dxa, dxb, dwa, dwb, db) from the cotangent ``g`` of ``out``; an
     entry whose ``needs`` flag is False is None (and not computed on the
     card).  CUDA tensors launch ``csrc/gather_linear.cu`` or raise; CPU
     tensors take :func:`gather_linear_backward_ref`."""
-    global bwd_launches
+    kw = dict(p=p, act=act, mean=mean, mat_dtype=mat_dtype,
+              out_dtype=out_dtype)
     if xa.device.type == "cpu":
         grads = gather_linear_backward_ref(xa, xb, idx, adj, wa, wb, b, out,
-                                           g, p=p, act=act, mean=mean)
+                                           g, **kw)
         return tuple(d if need else None for d, need in zip(grads, needs))
-    grads = _launch_bwd(xa, xb, idx, adj, wa, wb, b, out, g, p, act, mean,
-                        needs)
-    bwd_launches += 1
+    grads = _launch_bwd(xa, xb, idx, adj, wa, wb, b, out, g, **kw,
+                        needs=needs)
+    count_launch(globals(), mat_dtype, True)
     return grads
 
 
@@ -187,30 +241,29 @@ class _GatherLinear(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, kw, idx, adj, xa, xb, wa, wb, b):
-        global launches
         out = _launch_fwd(xa, xb, idx, wa, wb, b, **kw)
-        launches += 1
+        count_launch(globals(), kw["mat_dtype"], False)
         ctx.kw = kw
         ctx.save_for_backward(idx, adj, xa, xb, wa, wb, b, out)
         return out
 
     @staticmethod
     def backward(ctx, g):
-        global bwd_launches
         idx, adj, xa, xb, wa, wb, b, out = ctx.saved_tensors
         grads = _launch_bwd(xa, xb, idx, adj, wa, wb, b, out, g.contiguous(),
                             needs=ctx.needs_input_grad[3:], **ctx.kw)
-        bwd_launches += 1
+        count_launch(globals(), ctx.kw["mat_dtype"], True)
         return (None, None, None) + grads
 
 
 def gather_linear(xa, xb, idx, adj, wa, wb, b, *, p: int, act: str = "relu",
-                  mean: bool = False) -> torch.Tensor:
+                  mean: bool = False, mat_dtype: str = "float32",
+                  out_dtype: str = "float32") -> torch.Tensor:
     """The forward, differentiable in xa, xb, wa, wb and b: on the card the
     forward kernel with the backward kernel as its backward, on the CPU
     :func:`gather_linear_forward_ref` under autograd."""
+    kw = dict(p=p, act=act, mean=mean, mat_dtype=mat_dtype,
+              out_dtype=out_dtype)
     if xa.device.type == "cpu":
-        return gather_linear_forward_ref(xa, xb, idx, wa, wb, b, p=p,
-                                         act=act, mean=mean)
-    return _GatherLinear.apply(dict(p=p, act=act, mean=mean), idx, adj, xa,
-                               xb, wa, wb, b)
+        return gather_linear_forward_ref(xa, xb, idx, wa, wb, b, **kw)
+    return _GatherLinear.apply(kw, idx, adj, xa, xb, wa, wb, b)

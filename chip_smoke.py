@@ -69,9 +69,9 @@ Phases (any failure raises, and the script exits non-zero):
    (``tools/gelu_roofline.py``), its kernel against its plain version on
    the probe's input, and a layered training step with ReLU and with GELU
    against the probe's prediction;
-13. the per-op timing CLI ``cli/bench_ops.py`` at its defaults (its model
-   rows at bf16), then every kernel it times against its plain version on
-   its te = 512 batch;
+13. the per-op timing CLI ``cli/bench_ops.py`` at its defaults (every row
+   at the JAX module's dtype: bf16 but for the plain gather and Adam), then
+   every kernel it times against its plain version on its te = 512 batch;
 14. bf16 compute (``compute_dtype="bfloat16"``), interleaved with the
    phases above: the bf16 instantiation of K3f, K2 and K3b against their
    bf16 plain versions (rel-L2 of predictions and SSE, cosine of the
@@ -90,7 +90,26 @@ Phases (any failure raises, and the script exits non-zero):
 15. the matmul probe P2: the probe at its defaults
    (``tools/int8_microbench.py``), then its kernel against its plain
    version at N = 4096 in bf16 and int8;
-16. a ``{"kernels": [...]}`` line, then ``{"ok": true, "device": {...}}`` as
+16. bf16 in the layered and capture paths (the bf16 instantiation of K4,
+   K5, K6 and K7), interleaved with the phases above: each kernel against
+   its bf16 plain version on the inputs a bf16 layered forward or capture
+   gives it (bf16 x, e, h0 and states; K5 edge_init and readout, K4 eval
+   and train, K7 pool, its transposed backward and the sign row, K6 eval,
+   train and Hin != H), forward and backward, held by hold_bf16 (rel-L2,
+   gradient cosine, backward reruns bit for bit, the f32 plain version at
+   tests/test_bf16.py's bounds, and the share hold with the f32 kernel as
+   control) at full width on the synthetic batch and the corpus training
+   batch with times and bf16 bounds, and at small width for SiLU and GELU
+   with mean/mean and learnable skips; capture at bf16 on the card against
+   capture through the bf16 plain versions on the card and on the CPU
+   (every activation, then the gradients), its launch counts and its
+   forward and step ms beside f32; layered serving at bf16 through
+   ``predict`` (bf16 K5 twice, K4 and K7 once per request batch, no f32
+   launch, no K3f) held to the CPU and the bf16 whole-model path within
+   1e-2 rel-L2; layered training at bf16, 2 epochs on the card and on the
+   CPU, every step launching the bf16 backward kernels, steps/s beside the
+   f32 layered step; bench_ops' K6 and K7 rows at bf16 (phase 13);
+17. a ``{"kernels": [...]}`` line, then ``{"ok": true, "device": {...}}`` as
    the last line.
 
 It exits non-zero, printing no result, without CUDA or without the package
@@ -744,6 +763,7 @@ BF16_COS = 0.999    # ... and the cosine of the gradients
 BF16_SHARE = 0.5    # ... and its rel-L2 at most this share of its rel-L2 to
                     # the f32 plain version (predictions, gradients)
 BF16_TRAIN_TOL = 1e-2  # bf16 card vs CPU per-epoch RMSE, relative
+BF16 = "bfloat16"
 
 
 def rel_l2(got, want) -> float:
@@ -990,14 +1010,19 @@ def train_phase_bf16(tmp: Path, seed: int, card: str,
                 steps_per_s=steps_per_s)
 
 
+def nbytes_of(*ts) -> int:
+    """Bytes of the tensors, each element at its own size (bf16 2 B)."""
+    return sum(t.numel() * t.element_size() for t in ts)
+
+
 def spmm_cost(src, idx, sign, p: int) -> tuple[float, float, float]:
     """(0 products, adds, bytes) of the ELL gather-sum on these inputs: one add
-    per counted entry and column; every input read once, the output
+    per counted entry and column; every input read once, the f32 output
     written once."""
     from cgr_mpnn_3d_tpu_torch.ops.segment import in_pack
     H = src.shape[1]
     n = int(in_pack(idx, p, src.shape[0])[1].sum())
-    nbytes = (src.numel() + idx.numel() + idx.shape[0] * H) * 4
+    nbytes = nbytes_of(src, idx) + idx.shape[0] * H * 4
     if sign is not None:
         n += int(in_pack(sign, p, src.shape[0])[1].sum())
         nbytes += sign.numel() * 4
@@ -1005,7 +1030,7 @@ def spmm_cost(src, idx, sign, p: int) -> tuple[float, float, float]:
 
 
 def glin_cost(xa, xb, idx, wa, p: int, rows_out: int, rows_a: int,
-              adj=None) -> tuple[float, float, float]:
+              adj=None, out_size: int = 4) -> tuple[float, float, float]:
     """(product operations, other operations, bytes) of the gather-linear
     on these inputs over the
     real rows: the products, the gathered product taken over the smaller of
@@ -1013,18 +1038,21 @@ def glin_cost(xa, xb, idx, wa, p: int, rows_out: int, rows_a: int,
     narrower width; backward dxa, dxb, dWa, dWb and db (ReLU: dpre from
     the output, no recomputation), when the adjoint ELL ``adj`` is given.
     Bytes: every input read once (the backward's with ``adj``, the output
-    and its cotangent), every output written once."""
+    and its cotangent, ``out_size`` bytes an element), every output written
+    once, each at its type's size."""
     from cgr_mpnn_3d_tpu_torch.ops.segment import in_pack
     FA, FB, H = xa.shape[1], xb.shape[1], wa.shape[1]
     m, R = min(rows_out, rows_a), rows_out
     adds = int(in_pack(idx, p, xa.shape[0])[1].sum()) * min(FA, H)
-    ins = xa.numel() + xb.numel() + idx.numel() + (FA + FB + 1) * H
+    weights = (FA + FB + 1) * H * 4
+    ins = nbytes_of(xa, xb, idx) + weights
+    out = xb.shape[0] * H * out_size
     if adj is None:
         return (float(2 * m * FA * H + 2 * R * FB * H), float(adds),
-                float((ins + xb.shape[0] * H) * 4))
-    nbytes = 2 * ins - idx.numel() + adj.numel() + 2 * xb.shape[0] * H
+                float(ins + out))
+    nbytes = ins + nbytes_of(adj) + 2 * out + nbytes_of(xa, xb) + weights
     return (float(4 * m * FA * H + 4 * R * FB * H), float(2 * adds + R * H),
-            float(nbytes * 4))
+            float(nbytes))
 
 
 def stack_cost(h0, edge_nbr, rev, w, p: int, edges: int,
@@ -1041,12 +1069,13 @@ def stack_cost(h0, edge_nbr, rev, w, p: int, edges: int,
     adds = (int(in_pack(edge_nbr, p, ET)[1].sum())
             + int(in_pack(rev, p, ET)[1].sum())) * H
     prod = L * 2 * edges * H * H
-    ins = h0.numel() + edge_nbr.numel() + rev.numel() + L * (H * H + H + 1)
+    weights = L * (H * H + H + 1) * 4
+    ins = nbytes_of(h0, edge_nbr, rev) + weights
     if not backward:
-        return float(prod), float(L * adds), float((ins + ET * H) * 4)
-    nbytes = ins + edge_nbr.numel() + 2 * ET * H + L * (H * H + H + 1)
+        return float(prod), float(L * adds), float(ins + nbytes_of(h0))
+    nbytes = ins + nbytes_of(edge_nbr) + 2 * nbytes_of(h0) + weights
     return (float(3 * prod), float(2 * L * adds + L * edges * H),
-            float(nbytes * 4))
+            float(nbytes))
 
 
 def hold(out: dict, name: str, got, want, relu: bool = False,
@@ -1079,15 +1108,94 @@ def hold(out: dict, name: str, got, want, relu: bool = False,
     out[name] = entry
 
 
-def layered_kernels(cfg_kw: dict, spec, batch, seed: int,
-                    repeats: int) -> dict:
+def _f32(ts) -> list:
+    return [t.float() if t.is_floating_point() else t for t in ts]
+
+
+def hold_bf16(out: dict, name: str, got, want, want32, ctrl,
+              grads: bool = False) -> None:
+    """A bf16 kernel's outputs against its bf16 plain version's, by the rule
+    of bf16_kernels_vs_plain: finite; values within rel-L2 BF16_TOL, or
+    gradients at cosine >= BF16_COS; against the f32 plain version
+    ``want32`` (on f32 copies of the same inputs) within tests/test_bf16.py's
+    bounds (values rel-L2 < 1.5e-2; gradients cosine > 0.995 and rel-L2 <
+    0.1); and the share: rel-L2 to the bf16 plain version at most
+    BF16_SHARE of that to the f32 plain version, a hold the f32 kernel's
+    result ``ctrl`` on the same inputs must fail."""
+    import torch
+
+    def listed(v):
+        return list(v) if isinstance(v, (tuple, list)) else [v]
+    got, want, want32, ctrl = (listed(v) for v in (got, want, want32, ctrl))
+    check(all(bool(torch.isfinite(g).all()) for g in got),
+          f"bf16 {name} outputs are not finite")
+    near, far = rel_l2(got, want), rel_l2(got, want32)
+    share = near / max(far, 1e-30)
+    ctrl_share = rel_l2(ctrl, want) / max(rel_l2(ctrl, want32), 1e-30)
+    entry = dict(abs_err=max(float((g.double() - w.double()).abs().max())
+                             for g, w in zip(got, want)),
+                 rel_l2=near, f32_rel_l2=far, share=share,
+                 control_share=ctrl_share)
+    check(share <= BF16_SHARE,
+          f"bf16 {name}: rel-L2 to the bf16 plain version {near:.3e} is "
+          f"{share:.3f} of that to the f32 plain version {far:.3e} (> "
+          f"{BF16_SHARE})")
+    check(ctrl_share > BF16_SHARE,
+          f"bf16 {name}: the f32 kernel passes the bf16 hold (share "
+          f"{ctrl_share:.3f} <= {BF16_SHARE})")
+    if grads:
+        entry.update(cos=cosine(got, want), f32_cos=cosine(got, want32))
+        check(entry["cos"] >= BF16_COS and entry["f32_cos"] > 0.995
+              and far < 0.1,
+              f"bf16 {name}: gradient cosine {entry['cos']:.6f} vs bf16 "
+              f"plain, {entry['f32_cos']:.6f} and rel-L2 {far:.3e} vs f32 "
+              f"plain")
+    else:
+        check(near <= BF16_TOL and 0.0 < far < 1.5e-2,
+              f"bf16 {name}: rel-L2 {near:.3e} vs bf16 plain (> {BF16_TOL}) "
+              f"or {far:.3e} vs f32 plain")
+    out[name] = entry
+
+
+def held(out: dict, name: str, kern, plain, args, kw32: dict, kw: dict,
+         grads: bool = False, relu: bool = False, args32=None):
+    """kern(*args, **kw) against plain(*args, **kw) -> the kernel's result.
+    ``kw`` names the run's mat_dtype.  f32: hold (gradients with ``relu``
+    by its float64 rule).  bf16: hold_bf16, with the f32 kernel and plain
+    version under ``kw32`` on ``args32`` (f32 copies of args by default;
+    a backward whose ReLU reads the saved output needs the f32 forward's
+    there) as the f32 plain version and the control.  With ``grads`` a
+    second kernel run must equal the first bit for bit."""
+    import torch
+    got = kern(*args, **kw)
+    if kw.get("mat_dtype") != BF16:
+        hold(out, name, got, plain(*args, **kw), relu and grads,
+             lambda: plain(*_f64(args), **kw))
+    else:
+        a32 = _f32(args) if args32 is None else args32
+        hold_bf16(out, name, got, plain(*args, **kw), plain(*a32, **kw32),
+                  kern(*a32, **kw32), grads)
+    if grads:
+        check(all(torch.equal(u, v) for u, v in zip(got, kern(*args, **kw))),
+              f"two runs of {name} differ")
+    return got
+
+
+def layered_kernels(cfg_kw: dict, spec, batch, seed: int, repeats: int,
+                    dtype: str = "float32") -> dict:
     """The layered kernels against their plain versions on the inputs a
     layered forward of this batch gives them (each stage fed the kernel's
     output of the stage before), with seeded weights and cotangents: K5
     edge_init, K4 in eval and (with the config's dropout) train mode, K5
     readout, K7 pooling, then K7 over the transposed pooling ELL, K7 with
     the sign row on the message arrays, and the backward kernels of K5 and
-    K4.  With ``repeats``: times, f32 bounds, and the library call of K7."""
+    K4.  f32: each output at REL_TOL, ReLU gradients by the float64 rule of
+    hold.  ``dtype="bfloat16"``: the kernels' bf16 instantiation on the
+    model's bf16 tensors (x, e, h0 and the stack's states), each held by
+    hold_bf16 with the f32 kernel as control, and every backward rerun bit
+    for bit.  With ``repeats``: times, bounds (products at the bf16 peak at
+    bf16), and the library call of K7 (``embedding_bag``, on the bf16
+    source at bf16)."""
     import torch
     from cgr_mpnn_3d_tpu_torch.models import CGRMPNNConfig, init_params
     from cgr_mpnn_3d_tpu_torch.models.cgr_mpnn import ACTIVATIONS, _skips
@@ -1102,7 +1210,9 @@ def layered_kernels(cfg_kw: dict, spec, batch, seed: int,
     model = init_params(cfg, gen, dev)
     p, act, mean = spec.p, ACTIVATIONS[cfg.activation], cfg.aggr == "mean"
     relu = act == "relu"
-    x, e = b.node_x, b.edge_attr
+    bf16 = dtype == "bfloat16"
+    sd = torch.bfloat16 if bf16 else torch.float32
+    x, e = b.node_x.to(sd), b.edge_attr.to(sd)
     F, NT, ET = x.shape[1], x.shape[0], e.shape[0]
     E, N = int((b.senders < NT).sum()), int((b.graph_nodes < NT).sum())
     with torch.no_grad():
@@ -1120,102 +1230,111 @@ def layered_kernels(cfg_kw: dict, spec, batch, seed: int,
         0, 2**31 - 1, (cfg.depth,), generator=gen)],
         dropout_ps=cfg.dropout_ps)
 
-    def rand(*shape):
-        return torch.randn(shape, generator=gen).to(dev)
+    def rand(*shape, like=None):
+        t = torch.randn(shape, generator=gen).to(dev)
+        return t if like is None else t.to(like.dtype)
+
+    # the keywords of each kernel in f32 and at this dtype (K5: with its
+    # out_dtype)
+    kw_i = dict(p=p, act=act)
+    kw_s = dict(p=p, act=act, mean=mean)
+    kw_r = dict(p=p, act=act, mean=mean)
+    kw_p = dict(p=p)
+    md = dict(mat_dtype=dtype)
+    k_i, k_s, k_r, k_p = (dict(kw_i, **md, out_dtype=dtype), dict(kw_s, **md),
+                          dict(kw_r, **md, out_dtype="float32"),
+                          dict(kw_p, **md))
 
     out: dict = dict(p=p, graphs=int((b.graph_mask > 0).sum()))
     with torch.no_grad():
-        h0 = gl.gather_linear_forward(x, e, senders, *w_init, p=p, act=act)
-        hold(out, "K5 edge_init fwd", h0, gl.gather_linear_forward_ref(
-            x, e, senders, *w_init, p=p, act=act))
-        kw_s = dict(p=p, act=act, mean=mean)
-        h = cs.conv_stack_forward(h0, *msg, *stack, **kw_s)
-        hold(out, "K4 fwd eval", h, cs.conv_stack_forward_ref(
-            h0, *msg, *stack, **kw_s))
-        h_tr = cs.conv_stack_forward(h0, *msg, *stack, **kw_s, **train)
-        hold(out, "K4 fwd train", h_tr, cs.conv_stack_forward_ref(
-            h0, *msg, *stack, **kw_s, **train))
-        hn = gl.gather_linear_forward(h, x, b.node_inc, *w_read, p=p,
-                                      act=act, mean=mean)
-        hold(out, "K5 readout fwd", hn, gl.gather_linear_forward_ref(
-            h, x, b.node_inc, *w_read, p=p, act=act, mean=mean))
-        pooled = sp.onehot_spmm(hn, b.graph_nodes, p=p)
-        hold(out, "K7 pool fwd", pooled,
-             sp.onehot_spmm_ref(hn, b.graph_nodes, p=p))
+        fwd_init = (x, e, senders, *w_init)
+        h0 = held(out, "K5 edge_init fwd", gl.gather_linear_forward,
+                  gl.gather_linear_forward_ref, fwd_init, kw_i, k_i)
+        h = held(out, "K4 fwd eval", cs.conv_stack_forward,
+                 cs.conv_stack_forward_ref, (h0, *msg, *stack), kw_s, k_s)
+        held(out, "K4 fwd train", cs.conv_stack_forward,
+             cs.conv_stack_forward_ref, (h0, *msg, *stack),
+             dict(kw_s, **train), dict(k_s, **train))
+        fwd_read = (h, x, b.node_inc, *w_read)
+        hn = held(out, "K5 readout fwd", gl.gather_linear_forward,
+                  gl.gather_linear_forward_ref, fwd_read, kw_r, k_r)
+        pooled = held(out, "K7 pool fwd", sp.onehot_spmm,
+                      sp.onehot_spmm_ref, (hn, b.graph_nodes), kw_p, k_p)
         dpool = rand(*pooled.shape)
-        hold(out, "K7 pool bwd", sp.onehot_spmm(dpool, b.graph_of_node[:, None],
-                                                p=p),
-             sp.onehot_spmm_ref(dpool, b.graph_of_node[:, None], p=p))
-        hold(out, "K7 messages (sign)", sp.onehot_spmm(h, *msg, p=p),
-             sp.onehot_spmm_ref(h, *msg, p=p))
+        held(out, "K7 pool bwd", sp.onehot_spmm, sp.onehot_spmm_ref,
+             (dpool, b.graph_of_node[:, None]), kw_p, k_p)
+        # an f32 source at bf16: a bf16 one is exact at both types
+        g_h = rand(*h.shape)
+        held(out, "K7 messages (sign)", sp.onehot_spmm, sp.onehot_spmm_ref,
+             (g_h if bf16 else h, *msg), kw_p, k_p)
 
-        g_hn, g_h, g_h0 = rand(*hn.shape), rand(*h.shape), rand(*h0.shape)
+        g_hn, g_h0 = rand(*hn.shape), rand(*h0.shape, like=h0)
+        g_h = g_h.to(h.dtype)
+
+        def with_f32_out(args, fwd, kw):
+            """A K5 backward's f32 arguments: the saved output, which the
+            ReLU backward reads, from the f32 forward on the same inputs."""
+            a32 = _f32(args)
+            a32[-2] = gl.gather_linear_forward(*_f32(fwd), **kw)
+            return a32
         bwd_read = (h, x, b.node_inc, receivers, *w_read, hn, g_hn)
-        kw_r = dict(p=p, act=act, mean=mean)
-        hold(out, "K5 readout bwd", gl.gather_linear_backward(
-            *bwd_read, **kw_r), gl.gather_linear_backward_ref(
-            *bwd_read, **kw_r), relu, lambda: gl.gather_linear_backward_ref(
-            *_f64(bwd_read), **kw_r))
+        held(out, "K5 readout bwd", gl.gather_linear_backward,
+             gl.gather_linear_backward_ref, bwd_read, kw_r, k_r, True, relu,
+             with_f32_out(bwd_read, fwd_read, kw_r) if bf16 else None)
         bwd_stack = (h0, *msg, b.edge_nbr_rev, *stack, g_h)
-        hold(out, "K4 bwd train", cs.conv_stack_backward(
-            *bwd_stack, **kw_s, **train), cs.conv_stack_backward_ref(
-            *bwd_stack, **kw_s, **train), relu,
-            lambda: cs.conv_stack_backward_ref(*_f64(bwd_stack), **kw_s,
-                                               **train))
+        held(out, "K4 bwd train", cs.conv_stack_backward,
+             cs.conv_stack_backward_ref, bwd_stack, dict(kw_s, **train),
+             dict(k_s, **train), True, relu)
         bwd_init = (x, e, senders, b.node_out, *w_init, h0, g_h0)
-        hold(out, "K5 edge_init bwd", gl.gather_linear_backward(
-            *bwd_init, p=p, act=act), gl.gather_linear_backward_ref(
-            *bwd_init, p=p, act=act), relu,
-            lambda: gl.gather_linear_backward_ref(*_f64(bwd_init), p=p,
-                                                  act=act))
+        held(out, "K5 edge_init bwd", gl.gather_linear_backward,
+             gl.gather_linear_backward_ref, bwd_init, kw_i, k_i, True, relu,
+             with_f32_out(bwd_init, fwd_init, kw_i) if bf16 else None)
         torch.cuda.synchronize()
         if not repeats:
             return out
-        fwd_init = (x, e, senders, *w_init)
-        fwd_read = (h, x, b.node_inc, *w_read)
+        size = 2 if bf16 else 4
         timed = {
-            "K5 edge_init fwd": (
-                lambda: gl.gather_linear_forward(*fwd_init, p=p, act=act),
-                lambda: gl.gather_linear_forward_ref(*fwd_init, p=p, act=act),
-                glin_cost(x, e, senders, w_init[0], p, E, N)),
-            "K5 readout fwd": (
-                lambda: gl.gather_linear_forward(*fwd_read, **kw_r),
-                lambda: gl.gather_linear_forward_ref(*fwd_read, **kw_r),
-                glin_cost(h, x, b.node_inc, w_read[0], p, N, E)),
-            "K4 fwd eval": (
-                lambda: cs.conv_stack_forward(h0, *msg, *stack, **kw_s),
-                lambda: cs.conv_stack_forward_ref(h0, *msg, *stack, **kw_s),
-                stack_cost(h0, *msg, stack[0], p, E, False)),
-            "K7 pool fwd": (
-                lambda: sp.onehot_spmm(hn, b.graph_nodes, p=p),
-                lambda: sp.onehot_spmm_ref(hn, b.graph_nodes, p=p),
-                spmm_cost(hn, b.graph_nodes, None, p)),
-            "K5 edge_init bwd": (
-                lambda: gl.gather_linear_backward(*bwd_init, p=p, act=act),
-                lambda: gl.gather_linear_backward_ref(*bwd_init, p=p,
-                                                      act=act),
-                glin_cost(x, e, senders, w_init[0], p, E, N, b.node_out)),
-            "K5 readout bwd": (
-                lambda: gl.gather_linear_backward(*bwd_read, **kw_r),
-                lambda: gl.gather_linear_backward_ref(*bwd_read, **kw_r),
-                glin_cost(h, x, b.node_inc, w_read[0], p, N, E, receivers)),
-            "K4 bwd train": (
-                lambda: cs.conv_stack_backward(*bwd_stack, **kw_s, **train),
-                lambda: cs.conv_stack_backward_ref(*bwd_stack, **kw_s,
-                                                   **train),
-                stack_cost(h0, *msg, stack[0], p, E, True)),
+            "K5 edge_init fwd": (gl.gather_linear_forward,
+                                 gl.gather_linear_forward_ref, fwd_init, k_i,
+                                 glin_cost(x, e, senders, w_init[0], p, E, N,
+                                           out_size=size)),
+            "K5 readout fwd": (gl.gather_linear_forward,
+                               gl.gather_linear_forward_ref, fwd_read, k_r,
+                               glin_cost(h, x, b.node_inc, w_read[0], p, N,
+                                         E)),
+            "K4 fwd eval": (cs.conv_stack_forward, cs.conv_stack_forward_ref,
+                            (h0, *msg, *stack), k_s,
+                            stack_cost(h0, *msg, stack[0], p, E, False)),
+            "K7 pool fwd": (sp.onehot_spmm, sp.onehot_spmm_ref,
+                            (hn, b.graph_nodes), k_p,
+                            spmm_cost(hn, b.graph_nodes, None, p)),
+            "K5 edge_init bwd": (gl.gather_linear_backward,
+                                 gl.gather_linear_backward_ref, bwd_init, k_i,
+                                 glin_cost(x, e, senders, w_init[0], p, E, N,
+                                           b.node_out, size)),
+            "K5 readout bwd": (gl.gather_linear_backward,
+                               gl.gather_linear_backward_ref, bwd_read, k_r,
+                               glin_cost(h, x, b.node_inc, w_read[0], p, N,
+                                         E, receivers)),
+            "K4 bwd train": (cs.conv_stack_backward,
+                             cs.conv_stack_backward_ref, bwd_stack,
+                             dict(k_s, **train),
+                             stack_cost(h0, *msg, stack[0], p, E, True)),
         }
-        for name, (kern, plain, cost) in timed.items():
-            _timed(out[name], kern, plain, repeats, cost)
+        for name, (kern, plain, args, kw, cost) in timed.items():
+            _timed(out[name], lambda: kern(*args, **kw),
+                   lambda: plain(*args, **kw), repeats, cost, bf16)
         # K7's library yardstick: one embedding_bag over the same sum, ids
-        # outside the pack sent to an appended zero row
+        # outside the pack sent to an appended zero row; at bf16 on the
+        # bf16 source (a bf16 sum)
         ids = in_pack(b.graph_nodes, p, NT)[0]
-        ext = ext_zero_row(hn)
+        ext = ext_zero_row(hn.to(sd))
         bag = torch.nn.functional.embedding_bag
         lib_out = bag(ids, ext, mode="sum")
-        check(float((lib_out - pooled).abs().max())
-              <= REL_TOL * max(float(pooled.abs().max()), 1e-30),
-              "embedding_bag disagrees with the pooling kernel")
+        agree = (rel_l2([lib_out], [pooled]) <= BF16_TOL if bf16 else
+                 float((lib_out - pooled).abs().max())
+                 <= REL_TOL * max(float(pooled.abs().max()), 1e-30))
+        check(agree, "embedding_bag disagrees with the pooling kernel")
         out["K7 pool fwd"]["library_ms"] = time_ms(
             lambda: bag(ids, ext, mode="sum"), repeats)
     return out
@@ -1225,8 +1344,19 @@ def print_layered(what: str, k: dict, card: str) -> None:
     for name, e in k.items():
         if not isinstance(e, dict) or "abs_err" not in e:
             continue
-        line = (f"{name} {what}: {k['graphs']} graphs in {k['p']} packs, "
-                f"max abs err {e['abs_err']:.3e}, rel {e['rel_err']:.3e}")
+        if "share" in e:
+            line = (f"bf16 {name} {what}: {k['graphs']} graphs in {k['p']} "
+                    f"packs, max abs err {e['abs_err']:.3e}, rel-L2 vs bf16 "
+                    f"plain {e['rel_l2']:.3e}, vs f32 plain "
+                    f"{e['f32_rel_l2']:.3e}, share {e['share']:.4g} (limit "
+                    f"{BF16_SHARE}; the f32 kernel's "
+                    f"{e['control_share']:.4g})")
+            if "cos" in e:
+                line += (f", cosine vs bf16 plain {e['cos']:.8f}, vs f32 "
+                         f"plain {e['f32_cos']:.8f}")
+        else:
+            line = (f"{name} {what}: {k['graphs']} graphs in {k['p']} packs, "
+                    f"max abs err {e['abs_err']:.3e}, rel {e['rel_err']:.3e}")
         if "l1" in e:
             line += (f"; vector L1 vs plain {e['l1']:.3e}, vs float64: kernel "
                      f"{e['l1_64'][0]:.3e}, f32 plain {e['l1_64'][1]:.3e}")
@@ -1236,9 +1366,9 @@ def print_layered(what: str, k: dict, card: str) -> None:
             line += f", K2 {e['l1_k2_64']:.3e}"
         if "ms" in e:
             line += (f"; kernel {e['ms']:.4f} ms, plain {e['plain_ms']:.4f} "
-                     f"ms, f32 bound {e['bound_ms']:.4f} ms "
-                     f"({e['ops'] / 1e9:.3f} GFLOP, {e['bytes'] / 1e6:.3f} "
-                     f"MB, {e['bound_by']}-bound)")
+                     f"ms, {'bf16' if 'share' in e else 'f32'} bound "
+                     f"{e['bound_ms']:.4f} ms ({e['ops'] / 1e9:.3f} GFLOP, "
+                     f"{e['bytes'] / 1e6:.3f} MB, {e['bound_by']}-bound)")
             if "library_ms" in e:
                 line += f", embedding_bag {e['library_ms']:.4f} ms"
             line += f" [{card}]"
@@ -1317,12 +1447,16 @@ def k2_plain_grads(model, batch, spec, seeds, dtype) -> list:
     return [w.grad for w in scratch.parameters()]
 
 
-def serve_layered(tmp: Path, seed: int, card: str) -> dict:
+def serve_layered(tmp: Path, seed: int, card: str,
+                  dtype: str = "float32") -> dict:
     """Serving through train/evaluate.py::predict with the checkpoint of
-    ``serve`` loaded into the layered configuration: the demo set as one
-    request and as 10 single-reaction requests, then the corpus; held to
-    the CPU and to the whole-model path, with the launch counts and, for
-    both configurations, the rates."""
+    ``serve`` loaded into the layered configuration at ``dtype``: the demo
+    set as one request and as 10 single-reaction requests, then the corpus;
+    held to the CPU and to the whole-model path at the same dtype (f32:
+    max |Δ| / max at REL_TOL; bf16: rel-L2 within 1e-2, the whole-model
+    kernels rounding elsewhere), with the launch counts (at bf16 of the
+    bf16 kernels, and none of the f32 ones) and, for both configurations,
+    the rates."""
     import dataclasses
     import torch
     from cgr_mpnn_3d_tpu_torch.data import ChemDataset, PackedLoader, plan_spec
@@ -1333,6 +1467,9 @@ def serve_layered(tmp: Path, seed: int, card: str) -> dict:
     from cgr_mpnn_3d_tpu_torch.ops import onehot_spmm as sp
     from cgr_mpnn_3d_tpu_torch.train import load_model, predict
     whole, cfg, _ = load_model(tmp / "CGR-MPNN-3D.npz", DEVICE)
+    bf16 = dtype == "bfloat16"
+    cfg = dataclasses.replace(cfg, compute_dtype=dtype)
+    whole.cfg = cfg
     layered = CGRMPNN(dataclasses.replace(cfg, fuse_whole_model=False))
     layered.load_state_dict(whole.state_dict())
     layered = layered.to(DEVICE).eval()
@@ -1357,66 +1494,91 @@ def serve_layered(tmp: Path, seed: int, card: str) -> dict:
             torch.cuda.synchronize()
         return pred, time.perf_counter() - t0
 
+    mods = (gl, cs, sp)
+
     def counts():
-        return dict(K5=gl.launches, K4=cs.launches, K7=sp.launches,
-                    K3f=fm.launches)
+        pre = "bf16_" if bf16 else ""
+        out = dict(K5=gl, K4=cs, K7=sp)
+        out = {k: getattr(m, pre + "launches") for k, m in out.items()}
+        out.update(K3f=fm.launches + fm.bf16_launches,
+                   other=sum(getattr(m, ("" if bf16 else "bf16_")
+                                     + "launches") for m in mods))
+        return out
+
+    def zero():
+        for m in (*mods, fm):
+            m.launches = m.bf16_launches = 0
 
     def n_batches(ds_spec):
         return len(PackedLoader(ds_spec[0], ds_spec[1], batch_size=64))
 
+    def err(got, want):
+        if bf16:
+            return rel_l2([torch.from_numpy(got)], [torch.from_numpy(want)])
+        return float(np.abs(got - want).max()) / max(
+            float(np.abs(want).max()), 1e-30)
+
+    tol = 1e-2 if bf16 else REL_TOL
     request(layered, demo)          # warm-up, outside the counted run
     # the main path: counts are zeroed just before it and read just after
-    gl.launches = cs.launches = sp.launches = fm.launches = 0
+    zero()
     batch_pred, batch_s = request(layered, demo)
     single = [request(layered, s) for s in singles]
     launches = counts()
     n = n_batches(demo) + sum(n_batches(s) for s in singles)
-    check(launches == dict(K5=2 * n, K4=n, K7=n, K3f=0),
-          f"layered serving launches {launches} for {n} request batches")
+    check(launches == dict(K5=2 * n, K4=n, K7=n, K3f=0, other=0),
+          f"layered {dtype} serving launches {launches} for {n} request "
+          f"batches")
     cpu_pred, _ = request(on_cpu, demo, "cpu")
     whole_pred, _ = request(whole, demo)
     single_pred = np.concatenate([s[0] for s in single])
-    scale = max(float(np.abs(cpu_pred).max()), 1e-30)
-    errs = dict(cpu=float(np.abs(batch_pred - cpu_pred).max()) / scale,
-                whole=float(np.abs(batch_pred - whole_pred).max()) / scale,
-                single=float(np.abs(single_pred - cpu_pred).max()) / scale)
-    check(np.isfinite(batch_pred).all() and max(errs.values()) <= REL_TOL,
-          f"layered serving predictions differ: {errs}")
+    errs = dict(cpu=err(batch_pred, cpu_pred),
+                whole=err(batch_pred, whole_pred),
+                single=err(single_pred, cpu_pred))
+    check(np.isfinite(batch_pred).all() and max(errs.values()) <= tol,
+          f"layered {dtype} serving predictions differ: {errs}")
     latency = statistics.median(s[1] for s in single) * 1e3
     whole_latency = statistics.median(request(whole, s)[1]
                                       for s in singles) * 1e3
-    print(f"serve layered demo: {len(batch_pred)} reactions, batch request "
-          f"{batch_s * 1e3:.3f} ms, single-request latency median "
-          f"{latency:.3f} ms over {len(single)} (whole-model {whole_latency:.3f}"
-          f" ms), launches {launches} for {n} request batches; rel err vs "
-          f"CPU {errs['cpu']:.3e}, vs whole-model {errs['whole']:.3e}, "
-          f"single {errs['single']:.3e} [{card}]")
+    print(f"serve layered {dtype} demo: {len(batch_pred)} reactions, batch "
+          f"request {batch_s * 1e3:.3f} ms, single-request latency median "
+          f"{latency:.3f} ms over {len(single)} (whole-model "
+          f"{whole_latency:.3f} ms), launches {launches} for {n} request "
+          f"batches; {'rel-L2' if bf16 else 'rel err'} vs CPU "
+          f"{errs['cpu']:.3e}, vs whole-model {errs['whole']:.3e}, single "
+          f"{errs['single']:.3e} [{card}]")
 
-    gl.launches = cs.launches = sp.launches = fm.launches = 0
+    zero()
     runs = [request(layered, corpus) for _ in range(3)]
     corpus_launches = counts()
     whole_runs = [request(whole, corpus) for _ in range(3)]
     m = len(runs[0][0])
-    scale = max(float(np.abs(whole_runs[0][0]).max()), 1e-30)
-    err = float(np.abs(runs[0][0] - whole_runs[0][0]).max()) / scale
-    check(err <= REL_TOL, f"layered vs whole-model corpus predictions "
-                          f"differ by {err:.3e}")
+    corpus_err = err(runs[0][0], whole_runs[0][0])
+    check(corpus_err <= tol, f"layered vs whole-model {dtype} corpus "
+                             f"predictions differ by {corpus_err:.3e}")
     gps = m / statistics.median(r[1] for r in runs)
     whole_gps = m / statistics.median(r[1] for r in whole_runs)
-    print(f"serve layered corpus: {m} reactions per request via predict(), "
-          f"launches per request {dict((k, v // 3) for k, v in corpus_launches.items())}"
-          f", median {gps:.1f} graphs/s (whole-model {whole_gps:.1f}), rel "
-          f"err vs whole-model {err:.3e} [{card}]")
+    print(f"serve layered {dtype} corpus: {m} reactions per request via "
+          f"predict(), launches per request "
+          f"{dict((k, v // 3) for k, v in corpus_launches.items())}, median "
+          f"{gps:.1f} graphs/s (whole-model {whole_gps:.1f}), "
+          f"{'rel-L2' if bf16 else 'rel err'} vs whole-model "
+          f"{corpus_err:.3e} [{card}]")
     return dict(launches=launches, latency_ms=latency, graphs_per_s=gps)
 
 
-def train_layered(tmp: Path, seed: int, card: str) -> dict:
+def train_layered(tmp: Path, seed: int, card: str, dtype: str = "float32",
+                  f32_rates=None) -> dict:
     """RxnGraphTrainer with the README's model and flags in the layered
     configuration, 2 epochs on the corpus on the card and on the CPU, and
     the whole-model configuration on the card: per-epoch RMSE held at
     TRAIN_TOL; every step launches the backward kernels of K5 (twice), K4
     and K7 and no training kernel K2; steps/s of both configurations on
-    batches already on the card, and where a layered step's time goes."""
+    batches already on the card, and where a layered step's time goes.
+    At ``dtype="bfloat16"`` the same in the bf16 layered configuration,
+    without the whole-model run: card vs CPU within BF16_TRAIN_TOL, every
+    step launching the bf16 backward kernels and no f32 one, its steps/s
+    beside the f32 run's ``f32_rates``."""
     import dataclasses
     import torch
     from cgr_mpnn_3d_tpu_torch.data import ChemDataset, plan_spec, to_device
@@ -1430,11 +1592,13 @@ def train_layered(tmp: Path, seed: int, card: str) -> dict:
     ds = ChemDataset(str(data / "train.csv"),
                      data_npz_path=str(data / "train.npz"))
     ds.prefeaturize()
+    bf16 = dtype == "bfloat16"
     cfg = CGRMPNNConfig(num_node_features=ds.num_node_features,
                         num_edge_features=ds.num_edge_features, depth=4,
                         hidden_sizes=(400,) * 4, dropout_ps=(0.1,) * 4,
-                        fuse_whole_model=False)
+                        fuse_whole_model=False, compute_dtype=dtype)
     spec = plan_spec([ds.graph(i) for i in range(len(ds))])
+    pre = "bf16_" if bf16 else ""
 
     def trainer(fuse: bool, device: str, name: str):
         return RxnGraphTrainer(
@@ -1444,48 +1608,63 @@ def train_layered(tmp: Path, seed: int, card: str) -> dict:
             val_frequency=1, seed=seed, model_save_dir=str(tmp / name),
             device=device)
 
+    def zero():
+        for m in (gl, cs, sp):
+            m.launches = m.bwd_launches = 0
+            m.bf16_launches = m.bf16_bwd_launches = 0
+        fm.launches = fm.train_launches = fm.vjp_launches = 0
+        fm.bf16_launches = fm.bf16_train_launches = fm.bf16_vjp_launches = 0
+
     # the main path: counts are zeroed just before it and read just after
-    for m in (gl, cs, sp):
-        m.launches = m.bwd_launches = 0
-    fm.launches = fm.train_launches = fm.vjp_launches = 0
-    card_tr = trainer(False, DEVICE, "layered_card")
+    zero()
+    card_tr = trainer(False, DEVICE, f"layered_card_{dtype}")
     t0 = time.perf_counter()
     card_res = card_tr.train()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = dict(K5=(gl.launches, gl.bwd_launches),
-                    K4=(cs.launches, cs.bwd_launches),
-                    K7=(sp.launches, sp.bwd_launches),
-                    K2=fm.train_launches, K3b=fm.vjp_launches, K3f=fm.launches)
+    launches = {k: (getattr(m, pre + "launches"),
+                    getattr(m, pre + "bwd_launches"))
+                for k, m in (("K5", gl), ("K4", cs), ("K7", sp))}
+    launches.update(
+        K2=fm.train_launches + fm.bf16_train_launches,
+        K3b=fm.vjp_launches + fm.bf16_vjp_launches,
+        K3f=fm.launches + fm.bf16_launches,
+        other=sum(getattr(m, k) for m in (gl, cs, sp) for k in (
+            ("launches", "bwd_launches") if bf16
+            else ("bf16_launches", "bf16_bwd_launches"))))
     steps = card_res["steps"]
     check(steps > 0 and launches["K5"][1] == 2 * steps
           and launches["K4"][1] == steps and launches["K7"][1] == steps
-          and launches["K2"] == launches["K3b"] == launches["K3f"] == 0,
-          f"layered training launches {launches} for {steps} steps")
-    cpu_res = trainer(False, "cpu", "layered_cpu").train()
-    whole_res = trainer(True, DEVICE, "whole_card").train()
+          and launches["K2"] == launches["K3b"] == launches["K3f"] == 0
+          and launches["other"] == 0,
+          f"layered {dtype} training launches {launches} for {steps} steps")
+    cpu_res = trainer(False, "cpu", f"layered_cpu_{dtype}").train()
+    runs = (("cpu", cpu_res),) if bf16 else (
+        ("cpu", cpu_res), ("whole", trainer(True, DEVICE,
+                                            "whole_card").train()))
     rel = {}
-    for other, res in (("cpu", cpu_res), ("whole", whole_res)):
+    for other, res in runs:
         rel[other] = max(abs(a - b) / abs(b)
                          for key in ("train_losses", "val_losses")
                          for a, b in zip(card_res[key], res[key]))
     check(all(np.isfinite(card_res[k]).all() for k in ("train_losses",
                                                        "val_losses")),
           f"layered training losses are not finite: {card_res}")
-    check(max(rel.values()) <= TRAIN_TOL,
-          f"layered card RMSE vs CPU {rel['cpu']:.3e}, vs whole-model "
-          f"{rel['whole']:.3e} > {TRAIN_TOL}")
-    print(f"train layered: 2 epochs, {steps} steps in {wall:.3f} s wall, "
-          f"train RMSE {card_res['train_losses']}, val RMSE "
+    tol = BF16_TRAIN_TOL if bf16 else TRAIN_TOL
+    check(max(rel.values()) <= tol,
+          f"layered {dtype} card RMSE vs {rel} > {tol}")
+    print(f"train layered {dtype}: 2 epochs, {steps} steps in {wall:.3f} s "
+          f"wall, train RMSE {card_res['train_losses']}, val RMSE "
           f"{card_res['val_losses']}; launches (forward, backward) {launches};"
-          f" max rel diff vs CPU {rel['cpu']:.3e}, vs whole-model card "
-          f"{rel['whole']:.3e} (limit {TRAIN_TOL}) [{card}]")
+          f" max rel diff {rel} (limit {tol}) [{card}]")
 
-    # steps/s on batches already on the card, both configurations
+    # steps/s on batches already on the card, both configurations (at bf16
+    # the layered one, beside the f32 run's)
     batches = [to_device(b, DEVICE) for b in card_tr.train_loader]
     rates = {}
-    for name, tr in (("layered", card_tr), ("whole", trainer(True, DEVICE,
-                                                             "whole_rate"))):
+    configs = (("layered", card_tr),) if bf16 else (
+        ("layered", card_tr), ("whole", trainer(True, DEVICE, "whole_rate")))
+    for name, tr in configs:
         for b in batches:
             tr._train_step(b)
         torch.cuda.synchronize()
@@ -1495,19 +1674,28 @@ def train_layered(tmp: Path, seed: int, card: str) -> dict:
                 tr._train_step(b)
         torch.cuda.synchronize()
         rates[name] = 3 * len(batches) / (time.perf_counter() - t0)
-    print(f"train step: layered {rates['layered']:.2f} steps/s, whole-model "
-          f"{rates['whole']:.2f} steps/s over {3 * len(batches)} steps of "
-          f"{len(batches)} corpus batches already on the card (p = "
-          f"{card_tr.train_loader.spec.p}) [{card}]")
-    for m in (gl, cs, sp):
-        m.launches = m.bwd_launches = 0
+    if bf16:
+        print(f"train step layered bf16: {rates['layered']:.2f} steps/s "
+              f"against f32 {f32_rates['layered']:.2f} "
+              f"({rates['layered'] / f32_rates['layered']:.3f}x) over "
+              f"{3 * len(batches)} steps of {len(batches)} corpus batches "
+              f"already on the card (p = {card_tr.train_loader.spec.p}) "
+              f"[{card}]")
+    else:
+        print(f"train step: layered {rates['layered']:.2f} steps/s, "
+              f"whole-model {rates['whole']:.2f} steps/s over "
+              f"{3 * len(batches)} steps of {len(batches)} corpus batches "
+              f"already on the card (p = {card_tr.train_loader.spec.p}) "
+              f"[{card}]")
+    zero()
     wall_ms, dev_ms, top = device_busy(
         lambda: [card_tr._train_step(b) for b in batches], top=12)
-    per_step = {name: (m.launches / len(batches), m.bwd_launches / len(batches))
+    per_step = {name: (getattr(m, pre + "launches") / len(batches),
+                       getattr(m, pre + "bwd_launches") / len(batches))
                 for name, m in (("K5", gl), ("K4", cs), ("K7", sp))}
     check(per_step == dict(K5=(2, 2), K4=(1, 1), K7=(1, 1)),
           f"layered training step launches {per_step} (forward, backward)")
-    print(f"profile layered train epoch ({len(batches)} steps): wall "
+    print(f"profile layered {dtype} train epoch ({len(batches)} steps): wall "
           f"{wall_ms:.3f} ms, device busy {dev_ms:.3f} ms "
           f"({100 * dev_ms / wall_ms:.1f}%), launches per step (forward, "
           f"backward) {per_step}, device time by kernel {top} [{card}]")
@@ -1529,38 +1717,41 @@ def conv_cost(h, h0, edge_nbr, rev, w, p: int, edges: int, backward: bool,
     adds = (int(in_pack(edge_nbr, p, ET)[1].sum())
             + int(in_pack(rev, p, ET)[1].sum())) * Hin
     prod = 2 * edges * Hin * H
-    ins = (h.numel() + h0.numel() + edge_nbr.numel() + rev.numel()
-           + Hin * H + H + 1)
+    weights = (Hin * H + H + 1) * 4
+    ins = nbytes_of(h, h0, edge_nbr, rev) + weights
     if not backward:
-        return float(prod), float(adds), float((ins + ET * H) * 4)
-    nbytes = (ins + edge_nbr.numel() + 2 * ET * H
-              + h.numel() + h0.numel() + Hin * H + H + 1)
+        return float(prod), float(adds), float(ins + nbytes_of(h0))
+    nbytes = (ins + nbytes_of(edge_nbr) + 2 * nbytes_of(h0) + nbytes_of(h, h0)
+              + weights)
     return (float((0 if relu else prod) + 2 * prod),
-            float(2 * adds + 4 * edges * H), float(nbytes * 4))
+            float(2 * adds + 4 * edges * H), float(nbytes))
 
 
-def fused_conv_kernels(cfg_kw: dict, spec, batch, seed: int,
-                       repeats: int) -> dict:
+def fused_conv_kernels(cfg_kw: dict, spec, batch, seed: int, repeats: int,
+                       dtype: str = "float32") -> dict:
     """The per-layer conv kernel K6 against its plain version on the inputs
     capture mode gives its second layer (h = the first layer's output, h0 =
     edge_init's), with seeded weights and cotangents: the forward in eval
     and train mode (the config's dropout of that layer), the backward in
     train mode -- each output at REL_TOL, with ReLU by the float64 rule of
-    hold -- and a second backward run, which must equal the first bit for
-    bit.  With ``repeats``: times of the eval forward and the backward, and
-    their f32 bounds."""
+    hold, or at ``dtype="bfloat16"`` (bf16 capture's inputs: h and h0c
+    bf16) by hold_bf16 with the f32 kernel on f32 copies as control -- and
+    a second backward run, which must equal the first bit for bit.  With
+    ``repeats``: times of the eval forward and the backward, and their
+    bounds (products at the bf16 peak at bf16)."""
     import torch
     from cgr_mpnn_3d_tpu_torch.models import (CGRMPNNConfig, apply,
                                               init_params)
     from cgr_mpnn_3d_tpu_torch.models.cgr_mpnn import ACTIVATIONS, _skips
     from cgr_mpnn_3d_tpu_torch.ops import fused_conv as fc
-    cfg = CGRMPNNConfig(**cfg_kw)
+    cfg = CGRMPNNConfig(**dict(cfg_kw, compute_dtype=dtype))
     gen = torch.Generator().manual_seed(seed)
     b = batch
     dev = b.node_x.device
     model = init_params(cfg, gen, dev)
     p, act = spec.p, ACTIVATIONS[cfg.activation]
     relu = act == "relu"
+    bf16 = dtype == "bfloat16"
     with torch.no_grad():
         if cfg.use_learnable_skip:
             for w in model.skip_weights:
@@ -1568,98 +1759,210 @@ def fused_conv_kernels(cfg_kw: dict, spec, batch, seed: int,
         _, acts = apply(model, b, spec, capture=True)
         ws = (model.convs[1].w.detach(), model.convs[1].b.detach(),
               _skips(model, dev)[1].detach())
-    ins = (acts["h_0"], acts["h0"], b.edge_nbr, b.rev)
+    h_in = acts["h_0"]
+    ins = (h_in, acts["h0"].to(h_in.dtype), b.edge_nbr, b.rev)
     bwd = (*ins, b.edge_nbr_rev, *ws)
     kw = dict(p=p, act=act, mean=cfg.aggr == "mean")
     train = dict(kw, train=True, dropout_p=cfg.dropout_ps[1],
                  seed=int(torch.randint(0, 2**31 - 1, (), generator=gen)))
-    g = torch.randn(acts["h0"].shape, generator=gen).to(dev)
+    g = torch.randn(acts["h0"].shape, generator=gen).to(dev).to(h_in.dtype)
     E = int((b.senders < b.node_x.shape[0]).sum())
     out: dict = dict(p=p, graphs=int((b.graph_mask > 0).sum()))
+    md = dict(mat_dtype=dtype)
+    k_ev, k_tr = dict(kw, **md), dict(train, **md)
     with torch.no_grad():
-        hold(out, "K6 fwd eval", fc.fused_conv_forward(*ins, *ws, **kw),
-             fc.fused_conv_layer_ref(*ins, *ws, **kw))
-        y, y_ref = (fc.fused_conv_forward(*ins, *ws, **train),
-                    fc.fused_conv_layer_ref(*ins, *ws, **train))
-        hold(out, "K6 fwd train", y, y_ref)
-        grads = fc.fused_conv_backward(*bwd, y, g, **train)
-        hold(out, "K6 bwd train", grads, fc.fused_conv_backward_ref(
-            *bwd, y_ref, g, **train), relu,
-            lambda: fc.fused_conv_backward_ref(*_f64(bwd), y_ref.double(),
-                                               g.double(), **train))
-        again = fc.fused_conv_backward(*bwd, y, g, **train)
+        held(out, "K6 fwd eval", fc.fused_conv_forward,
+             fc.fused_conv_layer_ref, (*ins, *ws), kw, k_ev)
+        y = held(out, "K6 fwd train", fc.fused_conv_forward,
+                 fc.fused_conv_layer_ref, (*ins, *ws), train, k_tr)
+        args = (*bwd, y, g)
+        args32 = ((*_f32(bwd), fc.fused_conv_forward(*_f32(ins), *ws, **train),
+                   g.float()) if bf16 else None)
+        held(out, "K6 bwd train", fc.fused_conv_backward,
+             fc.fused_conv_backward_ref, args, train, k_tr, True, relu,
+             args32)
         torch.cuda.synchronize()
-        check(all(torch.equal(x, z) for x, z in zip(grads, again)),
-              "two runs of K6's backward differ")
         if repeats:
             _timed(out["K6 fwd eval"],
-                   lambda: fc.fused_conv_forward(*ins, *ws, **kw),
-                   lambda: fc.fused_conv_layer_ref(*ins, *ws, **kw), repeats,
-                   conv_cost(ins[0], ins[1], b.edge_nbr, b.rev, ws[0], p, E,
-                             False))
+                   lambda: fc.fused_conv_forward(*ins, *ws, **k_ev),
+                   lambda: fc.fused_conv_layer_ref(*ins, *ws, **k_ev),
+                   repeats, conv_cost(ins[0], ins[1], b.edge_nbr, b.rev,
+                                      ws[0], p, E, False), bf16)
             _timed(out["K6 bwd train"],
-                   lambda: fc.fused_conv_backward(*bwd, y, g, **train),
-                   lambda: fc.fused_conv_backward_ref(*bwd, y_ref, g,
-                                                      **train), repeats,
-                   conv_cost(ins[0], ins[1], b.edge_nbr, b.rev, ws[0], p, E,
-                             True, relu))
+                   lambda: fc.fused_conv_backward(*args, **k_tr),
+                   lambda: fc.fused_conv_backward_ref(*args, **k_tr),
+                   repeats, conv_cost(ins[0], ins[1], b.edge_nbr, b.rev,
+                                      ws[0], p, E, True, relu), bf16)
     return out
 
 
-def fused_conv_hin(spec, batch, seed: int) -> dict:
+def fused_conv_hin(spec, batch, seed: int, dtype: str = "float32") -> dict:
     """K6 with Hin = 24 != H = 40 (GELU, mean, dropout 0.2, skip 0.8) on
-    seeded random inputs, forward and backward, each output at REL_TOL."""
+    seeded random inputs, forward and backward, each output at REL_TOL, or
+    at ``dtype="bfloat16"`` (h and h0 bf16) by hold_bf16."""
     import torch
     from cgr_mpnn_3d_tpu_torch.ops import fused_conv as fc
     gen = torch.Generator().manual_seed(seed)
     b = batch
     dev = b.node_x.device
     ET = b.edge_nbr.shape[0]
+    sd = torch.bfloat16 if dtype == "bfloat16" else torch.float32
 
     def rand(*shape, scale=1.0):
         return (torch.randn(shape, generator=gen) * scale).to(dev)
-    ins = (rand(ET, 24), rand(ET, 40), b.edge_nbr, b.rev)
+    ins = (rand(ET, 24).to(sd), rand(ET, 40).to(sd), b.edge_nbr, b.rev)
     ws = (rand(24, 40, scale=0.2), rand(40, scale=0.1),
           torch.tensor(0.8, device=dev))
     kw = dict(p=spec.p, act="gelu", mean=True, train=True, seed=12345,
               dropout_p=0.2)
     out: dict = dict(p=spec.p, graphs=int((b.graph_mask > 0).sum()))
+    k = dict(kw, mat_dtype=dtype)
     with torch.no_grad():
-        y = fc.fused_conv_forward(*ins, *ws, **kw)
-        y_ref = fc.fused_conv_layer_ref(*ins, *ws, **kw)
-        hold(out, "K6 fwd Hin 24", y, y_ref)
-        g = rand(*y.shape)
-        hold(out, "K6 bwd Hin 24", fc.fused_conv_backward(
-            *ins, b.edge_nbr_rev, *ws, y, g, **kw),
-            fc.fused_conv_backward_ref(*ins, b.edge_nbr_rev, *ws, y_ref, g,
-                                       **kw))
+        y = held(out, "K6 fwd Hin 24", fc.fused_conv_forward,
+                 fc.fused_conv_layer_ref, (*ins, *ws), kw, k)
+        g = rand(*y.shape).to(sd)
+        i32 = _f32(ins)
+        args32 = ((*i32, b.edge_nbr_rev, *ws,
+                   fc.fused_conv_forward(*i32, *ws, **kw), g.float())
+                  if dtype == BF16 else None)
+        held(out, "K6 bwd Hin 24", fc.fused_conv_backward,
+             fc.fused_conv_backward_ref, (*ins, b.edge_nbr_rev, *ws, y, g),
+             kw, k, True, False, args32)
     return out
 
 
-def capture_plain(model, batch, spec):
-    """``apply(capture=True)`` with the plain versions of K7 and K6 in
-    place of their wrappers, on the batch's own device (the plain versions
-    run on any device); no launch is counted."""
+def capture_plain(model, batch, spec, **kw):
+    """``apply(capture=True, **kw)`` with the plain versions of K7 and K6
+    in place of their wrappers, on the batch's own device (the plain
+    versions run on any device); no launch is counted."""
     from cgr_mpnn_3d_tpu_torch.models import apply
     from cgr_mpnn_3d_tpu_torch.models import cgr_mpnn as cm
     from cgr_mpnn_3d_tpu_torch.ops import fused_conv as fc
     from cgr_mpnn_3d_tpu_torch.ops import onehot_spmm as sp
 
-    def spmm_ref(src, idx, idx_bwd, sign=None, sign_bwd=None, *, p):
-        return sp.onehot_spmm_ref(src, idx, sign, p=p)
+    def spmm_ref(src, idx, idx_bwd, sign=None, sign_bwd=None, *, p,
+                 mat_dtype="float32"):
+        return sp.onehot_spmm_ref(src, idx, sign, p=p, mat_dtype=mat_dtype)
 
     def conv_ref(h, h0, edge_nbr, rev, edge_nbr_rev, w, b, skip, **kw):
         return fc.fused_conv_layer_ref(h, h0, edge_nbr, rev, w, b, skip, **kw)
     wrappers = cm.spmm, cm.fused_conv_layer
     cm.spmm, cm.fused_conv_layer = spmm_ref, conv_ref
     try:
-        return apply(model, batch, spec, capture=True)
+        return apply(model, batch, spec, capture=True, **kw)
     finally:
         cm.spmm, cm.fused_conv_layer = wrappers
 
 
+def _capture_bf16(cfg_kw: dict, spec, batch, seed: int, on_cpu: bool,
+                  repeats: int) -> dict:
+    """capture_vs_paths at bf16 (see there): capture on the card (the bf16
+    K7 and K6) against capture through the bf16 plain versions on the card
+    and, with ``on_cpu``, on the CPU -- every activation and the
+    predictions, each on its own, then in train mode the parameter
+    gradients -- each by hold_bf16, with the same model computing in f32 as the f32
+    plain version (capture_plain) and the control (the f32 kernels).  The
+    train-mode run is the main path: 3 bf16 K7 and depth bf16 K6 launches
+    forward, 2 and depth backward, nothing else.  With ``repeats``: the
+    forward's and the training step's ms at bf16 beside f32, and the
+    card's time by kernel in one bf16 capture forward."""
+    import dataclasses
+    import torch
+    from cgr_mpnn_3d_tpu_torch.models import (CGRMPNN, CGRMPNNConfig, apply,
+                                              init_params, kernel_seeds)
+    from cgr_mpnn_3d_tpu_torch.ops import conv_stack as cs
+    from cgr_mpnn_3d_tpu_torch.ops import fused_conv as fc
+    from cgr_mpnn_3d_tpu_torch.ops import fused_model as fm
+    from cgr_mpnn_3d_tpu_torch.ops import gather_linear as gl
+    from cgr_mpnn_3d_tpu_torch.ops import onehot_spmm as sp
+    cfg = CGRMPNNConfig(**dict(cfg_kw, compute_dtype="bfloat16"))
+    gen = torch.Generator().manual_seed(seed)
+    dev = batch.node_x.device
+    m16 = init_params(cfg, gen, dev)
+    if cfg.use_learnable_skip:
+        with torch.no_grad():
+            for w in m16.skip_weights:
+                w.copy_(torch.rand((), generator=gen) * 2.0 - 0.5)
+    m32 = CGRMPNN(dataclasses.replace(cfg, compute_dtype="float32")).to(dev)
+    m32.load_state_dict(m16.state_dict())
+    mask = batch.graph_mask > 0
+    out: dict = dict(p=spec.p, graphs=int(mask.sum()))
+
+    def named(pred, acts) -> dict:
+        """Every activation and the predictions, on the card."""
+        return dict({k: v.to(dev) for k, v in acts.items()},
+                    preds=pred.to(dev)[mask])
+
+    def hold_each(what, got, want, want32, ctrl):
+        for k in sorted(got):
+            hold_bf16(out, f"capture {k} vs {what}", got[k], want[k],
+                      want32[k], ctrl[k])
+    with torch.no_grad():
+        got = named(*apply(m16, batch, spec, capture=True))
+        ctrl = named(*apply(m32, batch, spec, capture=True))
+        hold_each("plain", got, named(*capture_plain(m16, batch, spec)),
+                  named(*capture_plain(m32, batch, spec)), ctrl)
+        if on_cpu:
+            b_cpu = type(batch)(*(t.cpu() for t in batch))
+            cpu = {}
+            for md, m in (("bfloat16", m16), ("float32", m32)):
+                c = CGRMPNN(m.cfg)
+                c.load_state_dict(m.state_dict())
+                cpu[md] = named(*apply(c, b_cpu, spec, capture=True))
+            hold_each("CPU", got, cpu["bfloat16"], cpu["float32"], ctrl)
+
+    seeds = kernel_seeds(cfg, gen)
+
+    def step(model, plain=False):
+        """The masked SSE's parameter gradients of one train-mode capture
+        forward and backward, through the kernels or the plain versions."""
+        model.zero_grad()
+        pred, _ = (capture_plain(model, batch, spec, train=True, seeds=seeds)
+                   if plain else apply(model, batch, spec, train=True,
+                                       seeds=seeds, capture=True))
+        err = (pred - batch.labels) * batch.graph_mask
+        (err * err).sum().backward()
+        return [w.grad.clone() for w in model.parameters()]
+
+    # the main path: counts are zeroed just before it and read just after
+    for m in (sp, fc, gl, cs):
+        m.launches = m.bwd_launches = m.bf16_launches = m.bf16_bwd_launches = 0
+    fm.launches = fm.train_launches = fm.vjp_launches = 0
+    fm.bf16_launches = fm.bf16_train_launches = fm.bf16_vjp_launches = 0
+    g16 = step(m16)
+    torch.cuda.synchronize()
+    launches = dict(K7=(sp.bf16_launches, sp.bf16_bwd_launches),
+                    K6=(fc.bf16_launches, fc.bf16_bwd_launches),
+                    f32=[(m.launches, m.bwd_launches) for m in (sp, fc)],
+                    other=[gl.bf16_launches, gl.bf16_bwd_launches,
+                           cs.bf16_launches, cs.bf16_bwd_launches,
+                           gl.launches, cs.launches, fm.launches,
+                           fm.train_launches, fm.vjp_launches,
+                           fm.bf16_launches, fm.bf16_train_launches,
+                           fm.bf16_vjp_launches])
+    L = cfg.depth
+    check(launches == dict(K7=(3, 2), K6=(L, L), f32=[(0, 0), (0, 0)],
+                           other=[0] * 12),
+          f"bf16 capture forward + backward launches {launches}")
+    out["launches"] = dict(K7=launches["K7"], K6=launches["K6"])
+    hold_bf16(out, "capture grads vs plain", g16, step(m16, True),
+              step(m32, True), step(m32), True)
+    if repeats:
+        with torch.no_grad():
+            out["fwd_ms"] = {
+                md: time_ms(lambda: apply(m, batch, spec, capture=True),
+                            repeats)
+                for md, m in (("bf16", m16), ("f32", m32))}
+            wall, busy, top = device_busy(
+                lambda: apply(m16, batch, spec, capture=True), top=12)
+        out["step_ms"] = {md: time_ms(lambda: step(m), repeats)
+                          for md, m in (("bf16", m16), ("f32", m32))}
+        out["profile"] = dict(wall_ms=wall, busy_ms=busy, top=top)
+    return out
+
+
 def capture_vs_paths(cfg_kw: dict, spec, batch, seed: int, on_cpu: bool,
-                     repeats: int = 0) -> dict:
+                     repeats: int = 0, dtype: str = "float32") -> dict:
     """Capture mode (``apply(capture=True)``: K7 for x[senders], the
     incoming sum and the pooling, K6 per layer) on the card against the
     other paths, one model with seeded weights.  Eval: every activation
@@ -1676,7 +1979,10 @@ def capture_vs_paths(cfg_kw: dict, spec, batch, seed: int, on_cpu: bool,
     has no backward) and depth K6 backward, and no other kernel.  With
     ``repeats``: the forward's time in the three paths (capture, layered,
     K3f), a training step's forward and backward in capture and layered
-    mode, and the card's time by kernel in one capture forward."""
+    mode, and the card's time by kernel in one capture forward.  At
+    ``dtype="bfloat16"``: _capture_bf16."""
+    if dtype == "bfloat16":
+        return _capture_bf16(cfg_kw, spec, batch, seed, on_cpu, repeats)
     import dataclasses
     import torch
     from cgr_mpnn_3d_tpu_torch.models import (CGRMPNN, CGRMPNNConfig, apply,
@@ -1888,14 +2194,16 @@ def goldens_on_card(card: str) -> None:
 
 def bench_ops_phase(card: str, seed: int) -> dict:
     """``cli/bench_ops.py`` at its defaults (2 repeats), its lines tagged
-    with the card; every time finite and positive, and the K6 and K7 and
-    the bf16 K3f and K3b counts risen.  Then every kernel it timed, held
-    once against its plain version on its batch (te = 512) at REL_TOL: K6
-    forward and backward on its conv inputs (the ReLU gradients by the
-    float64 rule of hold), K7 with the rev sign, and K3f, K2 and K3b
-    (kernel_vs_plain, train_kernels_vs_plain) with the benchmark model's
-    config and seeded weights, in f32 and (bf16_kernels_vs_plain, the model
-    rows' dtype) in bf16."""
+    with the card; every time finite and positive, and the bf16 K6, K7,
+    K3f and K3b counts risen (the rows' dtypes are the JAX module's), no
+    f32 K6 or K7 one.  Then every kernel it timed, held once against its
+    plain version on its batch (te = 512): K6 forward and backward on its
+    bf16 conv inputs and K7 with the rev sign on its bf16 h by hold_bf16
+    (the control: the f32 kernels on f32 copies; K7's bf16 source is exact
+    at both types, so its share is taken on an f32 source of the same
+    shape), and K3f, K2 and K3b (kernel_vs_plain, train_kernels_vs_plain)
+    with the benchmark model's config and seeded weights, in f32 and
+    (bf16_kernels_vs_plain, the model rows' dtype) in bf16."""
     import contextlib
     import io
     import torch
@@ -1903,7 +2211,8 @@ def bench_ops_phase(card: str, seed: int) -> dict:
     from cgr_mpnn_3d_tpu_torch.ops import fused_conv as fc
     from cgr_mpnn_3d_tpu_torch.ops import fused_model as fm
     from cgr_mpnn_3d_tpu_torch.ops import onehot_spmm as sp
-    fc.launches = fc.bwd_launches = sp.launches = 0
+    for m in (fc, sp):
+        m.launches = m.bwd_launches = m.bf16_launches = m.bf16_bwd_launches = 0
     fm.bf16_launches = fm.bf16_vjp_launches = 0
     buf = io.StringIO()
     t0 = time.perf_counter()
@@ -1914,15 +2223,18 @@ def bench_ops_phase(card: str, seed: int) -> dict:
         print(f"bench_ops {line} [{card}]")
     check(all(np.isfinite(t) and t > 0 for t, _ in res.values()),
           f"bench_ops times {res}")
-    check(fc.launches > 0 and fc.bwd_launches > 0 and sp.launches > 0,
-          f"bench_ops launches: K6 {fc.launches} + {fc.bwd_launches}, K7 "
-          f"{sp.launches}")
+    check(fc.bf16_launches > 0 and fc.bf16_bwd_launches > 0
+          and sp.bf16_launches > 0
+          and fc.launches == fc.bwd_launches == sp.launches == 0,
+          f"bench_ops launches: bf16 K6 {fc.bf16_launches} + "
+          f"{fc.bf16_bwd_launches}, bf16 K7 {sp.bf16_launches}; f32 K6 "
+          f"{fc.launches}, K7 {sp.launches}")
     check(fm.bf16_launches > 0 and fm.bf16_vjp_launches > 0,
           f"bench_ops' bf16 model rows launched bf16 K3f "
           f"{fm.bf16_launches}, K3b {fm.bf16_vjp_launches} times")
-    print(f"bench_ops: {len(res)} lines in {wall:.3f} s; launches K6 "
-          f"{fc.launches} forward + {fc.bwd_launches} backward, K7 "
-          f"{sp.launches}")
+    print(f"bench_ops: {len(res)} lines in {wall:.3f} s; launches bf16 K6 "
+          f"{fc.bf16_launches} forward + {fc.bf16_bwd_launches} backward, "
+          f"bf16 K7 {sp.bf16_launches}")
 
     args = bench_ops.parser().parse_args([])
     dev = torch.device(DEVICE)
@@ -1933,30 +2245,37 @@ def bench_ops_phase(card: str, seed: int) -> dict:
     g = torch.randn(h0.shape, generator=torch.Generator().manual_seed(seed)
                     ).to(dev)
     p = spec.p
-    held: dict = {}
+    kw, k16 = dict(p=p), dict(p=p, mat_dtype=BF16)
+    g = g.to(h.dtype)
+    results: dict = {}
     with torch.no_grad():
-        y, y_ref = (fc.fused_conv_forward(*ins, *ws, p=p),
-                    fc.fused_conv_layer_ref(*ins, *ws, p=p))
-        hold(held, "K6 fwd", y, y_ref)
-        hold(held, "K6 bwd", fc.fused_conv_backward(*bwd, y, g, p=p),
-             fc.fused_conv_backward_ref(*bwd, y_ref, g, p=p), True,
-             lambda: fc.fused_conv_backward_ref(*_f64(bwd), y_ref.double(),
-                                                g.double(), p=p))
-        hold(held, "K7 messages",
-             sp.onehot_spmm(h, batch.edge_nbr, batch.rev, p=p),
-             sp.onehot_spmm_ref(h, batch.edge_nbr, batch.rev, p=p))
-    del h, h0, ins, bwd, g, y, y_ref
+        y = held(results, "K6 fwd", fc.fused_conv_forward,
+                 fc.fused_conv_layer_ref, (*ins, *ws), kw, k16)
+        args32 = (*_f32(bwd), fc.fused_conv_forward(*_f32(ins), *ws, **kw),
+                  g.float())
+        held(results, "K6 bwd", fc.fused_conv_backward,
+             fc.fused_conv_backward_ref, (*bwd, y, g), kw, k16, True, True,
+             args32)
+        msg = (batch.edge_nbr, batch.rev)
+        check(rel_l2([sp.onehot_spmm(h, *msg, **k16)],
+                     [sp.onehot_spmm_ref(h, *msg, **k16)]) <= BF16_TOL,
+              "bf16 K7 messages on bench_ops' bf16 h")
+        src = torch.randn(h.shape, generator=torch.Generator().manual_seed(
+            seed)).to(dev)
+        held(results, "K7 messages", sp.onehot_spmm, sp.onehot_spmm_ref,
+             (src, *msg), kw, k16)
+    del h, h0, ins, bwd, g, y, args32, src
     kw = bench_ops.model_kw(args.hidden)
-    held["K3f"] = kernel_vs_plain(kw, spec, batch, seed, 0)
+    results["K3f"] = kernel_vs_plain(kw, spec, batch, seed, 0)
     train = train_kernels_vs_plain(kw, spec, batch, seed, 0)
-    held.update(K2=train["train"], K3b=train["vjp"])
+    results.update(K2=train["train"], K3b=train["vjp"])
     bf16 = bf16_kernels_vs_plain(kw, spec, batch, seed, 0)
-    held.update({f"{k} bf16": bf16[n] for k, n in
-                 (("K3f", "fwd"), ("K2", "train"), ("K3b", "vjp"))})
+    results.update({f"{k} bf16": bf16[n] for k, n in
+                    (("K3f", "fwd"), ("K2", "train"), ("K3b", "vjp"))})
     errs = {k: {e: v[e] for e in ("rel_err", "l1_64", "rel_l2", "cos",
                                   "share", "control_share")
                 if e in v}
-            for k, v in held.items()}
+            for k, v in results.items()}
     print(f"bench_ops batch ({p} packs of te = {spec.te}): every timed "
           f"kernel against its plain version {json.dumps(errs)} [{card}]")
     return res
@@ -2156,6 +2475,16 @@ def main(argv=None) -> int:
                            lay_reps)
     print_capture("capture vs the other paths, full width, dropout 0.1, "
                   "synthetic", cap, card)
+    what = "full width, dropout 0.1, synthetic"
+    lay_k16 = layered_kernels(full_train, spec, batch, args.seed, lay_reps,
+                              BF16)
+    print_layered(what, lay_k16, card)
+    conv_k16 = fused_conv_kernels(full_train, spec, batch, args.seed,
+                                  lay_reps, BF16)
+    print_capture(what, conv_k16, card)
+    cap16 = capture_vs_paths(full_train, spec, batch, args.seed, False,
+                             lay_reps, BF16)
+    print_capture(f"bf16 capture vs plain, {what}", cap16, card)
     chain = act_chain_phase(full_train, spec, batch, args.seed, card)
     del batch
     for act in ("SiLU", "GELU"):
@@ -2184,8 +2513,15 @@ def main(argv=None) -> int:
                                                args.seed + 1, 0), card)
         print_capture(f"capture vs the other paths, {what}", capture_vs_paths(
             small_train, spec, batch, args.seed + 1, True), card)
-    print_capture("small width, GELU mean, dropout 0.2, skip 0.8",
-                  fused_conv_hin(spec, batch, args.seed), card)
+        print_layered(what, layered_kernels(small_train, spec, batch,
+                                            args.seed + 1, 0, BF16), card)
+        print_capture(what, fused_conv_kernels(small_train, spec, batch,
+                                               args.seed + 1, 0, BF16), card)
+        print_capture(f"bf16 capture vs plain, {what}", capture_vs_paths(
+            small_train, spec, batch, args.seed + 1, True, 0, BF16), card)
+    for dtype in ("float32", BF16):
+        print_capture("small width, GELU mean, dropout 0.2, skip 0.8",
+                      fused_conv_hin(spec, batch, args.seed, dtype), card)
 
     with tempfile.TemporaryDirectory() as tmp:
         spec, batch = corpus_batch(Path(tmp), args.seed, dev)
@@ -2203,6 +2539,9 @@ def main(argv=None) -> int:
         print_capture("capture vs the other paths, request batch",
                       capture_vs_paths(full, spec, batch, args.seed, True,
                                        args.repeats), card)
+        print_capture("bf16 capture vs plain, request batch",
+                      capture_vs_paths(full, spec, batch, args.seed, True,
+                                       args.repeats, BF16), card)
         spec, batch = corpus_batch(Path(tmp), args.seed, dev, shuffle=True)
         k = train_kernels_vs_plain(full_train, spec, batch, args.seed,
                                    args.repeats)
@@ -2221,8 +2560,15 @@ def main(argv=None) -> int:
                                      args.repeats)
         print_capture("corpus training batch, full width, dropout 0.1",
                       conv_p4, card)
+        print_layered("corpus training batch, full width, dropout 0.1",
+                      layered_kernels(full_train, spec, batch, args.seed,
+                                      args.repeats, BF16), card)
+        print_capture("corpus training batch, full width, dropout 0.1",
+                      fused_conv_kernels(full_train, spec, batch, args.seed,
+                                         args.repeats, BF16), card)
         srv = serve(Path(tmp), args.seed, card)
         srv_l = serve_layered(Path(tmp), args.seed, card)
+        srv_l16 = serve_layered(Path(tmp), args.seed, card, BF16)
         # the training CLI writes runs/, hyperparameter_study/ and a parity
         # plot into its working directory
         cwd = os.getcwd()
@@ -2236,6 +2582,8 @@ def main(argv=None) -> int:
                   f"{rates['float32']:.2f} steps/s "
                   f"({rates['bfloat16'] / rates['float32']:.3f}x) [{card}]")
             trn_l = train_layered(Path(tmp), args.seed, card)
+            trn_l16 = train_layered(Path(tmp), args.seed, card, BF16,
+                                    trn_l["rates"])
         finally:
             os.chdir(cwd)
 
@@ -2253,17 +2601,21 @@ def main(argv=None) -> int:
                 "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
                 "library_ms": k.get("library_ms")}
 
-    # K5's entry: its two calls of one layered forward (edge_init and
-    # readout) together, the bound of their summed work
-    a, b = lay_k["K5 edge_init fwd"], lay_k["K5 readout fwd"]
-    bound_ms, bound_by = bound((a["ops"] + b["ops"], 0.0,
-                                a["bytes"] + b["bytes"]), bf16=False)
-    glin = dict(abs_err=max(a["abs_err"], b["abs_err"]),
-                ms=a["ms"] + b["ms"], plain_ms=a["plain_ms"] + b["plain_ms"],
-                bound_ms=bound_ms, bound_by=bound_by)
-    lay_launches = {
-        key: srv_l["launches"][key] + sum(trn_l["launches"][key])
-        for key in ("K5", "K4", "K7")}
+    def glin(lay: dict, bf16: bool) -> dict:
+        """K5's entry: its two calls of one layered forward (edge_init and
+        readout) together, the bound of their summed work."""
+        a, b = lay["K5 edge_init fwd"], lay["K5 readout fwd"]
+        bound_ms, bound_by = bound((a["ops"] + b["ops"], 0.0,
+                                    a["bytes"] + b["bytes"]), bf16)
+        return dict(abs_err=max(a["abs_err"], b["abs_err"]),
+                    ms=a["ms"] + b["ms"],
+                    plain_ms=a["plain_ms"] + b["plain_ms"],
+                    bound_ms=bound_ms, bound_by=bound_by)
+
+    def lay_launches(srv_run: dict, trn_run: dict) -> dict:
+        return {key: srv_run["launches"][key] + sum(trn_run["launches"][key])
+                for key in ("K5", "K4", "K7")}
+    lay32, lay16 = lay_launches(srv_l, trn_l), lay_launches(srv_l16, trn_l16)
     print(json.dumps({"kernels": [
         kernel("fused_model_fwd", "fused_model_fwd.cu", "pallas_model.py:376",
                srv["launches"], main_k),
@@ -2273,11 +2625,11 @@ def main(argv=None) -> int:
         kernel("fused_model_vjp", "fused_model_bwd.cu", "pallas_model.py:397",
                trn["launches"]["vjp"], train_k["vjp"]),
         kernel("conv_stack", "conv_stack.cu", "pallas_stack.py:177",
-               lay_launches["K4"], lay_k["K4 fwd eval"]),
+               lay32["K4"], lay_k["K4 fwd eval"]),
         kernel("gather_linear", "gather_linear.cu", "pallas_glin.py:160",
-               lay_launches["K5"], glin),
+               lay32["K5"], glin(lay_k, False)),
         kernel("onehot_spmm", "onehot_spmm.cu", "pallas_ops.py:93",
-               lay_launches["K7"], lay_k["K7 pool fwd"]),
+               lay32["K7"], lay_k["K7 pool fwd"]),
         kernel("fused_conv", "fused_conv.cu", "pallas_fused.py:330",
                sum(cap["launches"]["K6"]), conv_k["K6 fwd eval"]),
         kernel("act_chain", "act_chain.cu", "tools/gelu_roofline.py:66",
@@ -2291,6 +2643,14 @@ def main(argv=None) -> int:
         kernel("fused_model_vjp_bf16", "fused_model_bwd.cu",
                "pallas_model.py:397", trn_16["launches"]["vjp"],
                bf16_k["vjp"]),
+        kernel("conv_stack_bf16", "conv_stack.cu", "pallas_stack.py:177",
+               lay16["K4"], lay_k16["K4 fwd eval"]),
+        kernel("gather_linear_bf16", "gather_linear.cu", "pallas_glin.py:160",
+               lay16["K5"], glin(lay_k16, True)),
+        kernel("onehot_spmm_bf16", "onehot_spmm.cu", "pallas_ops.py:93",
+               lay16["K7"], lay_k16["K7 pool fwd"]),
+        kernel("fused_conv_bf16", "fused_conv.cu", "pallas_fused.py:330",
+               sum(cap16["launches"]["K6"]), conv_k16["K6 fwd eval"]),
         kernel("mm_probe", "mm_probe.cu", "tools/int8_microbench.py:72",
                p2["launches"], p2["entry"])]}))
     print(json.dumps({"ok": True, "device": {

@@ -1,8 +1,9 @@
 """bf16 compute of the port on the CPU: the plain versions of the
 whole-model kernels at ``mat_dtype="bfloat16"`` against the JAX kernels in
 interpret mode, the model and the trainer against tests/test_bf16.py's
-bounds, the training CLI end to end, the paths bf16 does not cover yet, and
-the matmul probe P2 against the JAX tool's own Pallas kernel.
+bounds, the training CLI end to end, an unsupported compute_dtype, and
+the matmul probe P2 against the JAX tool's own Pallas kernel (the
+layered, capture and XLA paths at bf16: tests/test_torch_layered_bf16.py).
 
 Inputs are made from seeds with numpy (weights by ``jax.random`` and copied
 into the port) at test_bf16.py's shapes: the first 16 corpus reactions in 4
@@ -425,17 +426,9 @@ def test_cli_train_bf16_on_the_cpu(tmp_path, monkeypatch):
     assert events.count("histograms/grads") == 2
 
 
-@pytest.mark.parametrize("path", ["layered", "capture", "no spec"])
-def test_bf16_outside_the_whole_model_kernels_raises(packed, path):
-    spec, b, tb = packed
+def test_unsupported_compute_dtype_raises(packed):
+    _, b, _ = packed
     kw = _kw(b, "ReLU", "add", "add", dtype="bfloat16")
-    model = CGRMPNN(CGRMPNNConfig(**kw, fuse_whole_model=path != "layered"))
-    call = {"layered": lambda: apply(model, tb, spec),
-            "capture": lambda: apply(model, tb, spec, capture=True),
-            "no spec": lambda: apply(model, tb)}[path]
-    with torch.no_grad(), pytest.raises(NotImplementedError,
-                                        match=r"ROADMAP.md §1.4"):
-        call()
     with pytest.raises(ValueError, match="compute_dtype"):
         CGRMPNNConfig(**{**kw, "compute_dtype": "float16"})
 

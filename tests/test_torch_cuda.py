@@ -645,3 +645,231 @@ def test_mm_probe_kernel_matches_plain(cuda, M, N, K):
     assert _rel_l2([got16.cpu()], [mp.mm_probe_ref(a16, b16)]) <= 4e-3
     with pytest.raises(ValueError, match="multiples of 128"):
         mp.mm_probe(a8[:100].to(cuda), b8.to(cuda))
+
+
+# -- bf16 compute in the layered and capture paths: K4-K7 at mat_dtype bf16 --
+
+def _layered_counts():
+    from cgr_mpnn_3d_tpu_torch.ops import conv_stack as cs
+    from cgr_mpnn_3d_tpu_torch.ops import fused_conv as fc
+    from cgr_mpnn_3d_tpu_torch.ops import gather_linear as gl
+    from cgr_mpnn_3d_tpu_torch.ops import onehot_spmm as sp
+    return {name: (m.launches, m.bwd_launches, m.bf16_launches,
+                   m.bf16_bwd_launches)
+            for name, m in (("K4", cs), ("K5", gl), ("K6", fc), ("K7", sp))}
+
+
+def _moved(before):
+    return {k: tuple(a - b for a, b in zip(v, before[k]))
+            for k, v in _layered_counts().items() if v != before[k]}
+
+
+def _bf16_hold(got, want16, want32, ctrl):
+    """The share hold: the bf16 kernel at most half as far from the bf16
+    plain version as from the f32 one, the f32 kernel (control) not; and
+    the bf16 kernel within rel-L2 5e-3 of the bf16 plain version."""
+    assert _rel_l2(got, want16) <= 5e-3
+    assert _share(got, want16, want32) <= 0.5
+    assert _share(ctrl, want16, want32) > 0.5
+
+
+def _f32(ts):
+    return [t.float() if t.is_floating_point() else t for t in ts]
+
+
+def test_bf16_onehot_spmm_kernel_matches_plain(cuda):
+    from cgr_mpnn_3d_tpu_torch.ops import onehot_spmm as sp
+    spec, b, rand = _layered_inputs(cuda)
+    h_e, h_n = rand(b.edge_nbr.shape[0], 40), rand(b.node_x.shape[0], 40)
+    bf16 = dict(p=spec.p, mat_dtype="bfloat16")
+    for src, idx, sign in ((h_e, b.edge_nbr, b.rev),
+                           (h_n, b.graph_nodes, None)):
+        before = _layered_counts()
+        got = sp.onehot_spmm(src, idx, sign, **bf16)
+        assert _moved(before) == {"K7": (0, 0, 1, 0)}
+        assert got.dtype == torch.float32
+        _bf16_hold([got], [sp.onehot_spmm_ref(src, idx, sign, **bf16)],
+                   [sp.onehot_spmm_ref(src, idx, sign, p=spec.p)],
+                   [sp.onehot_spmm(src, idx, sign, p=spec.p)])
+    # a bf16 source (x[senders]) is read as it is
+    x16 = b.node_x.bfloat16()
+    assert torch.equal(sp.onehot_spmm(x16, b.senders[:, None], **bf16),
+                       sp.onehot_spmm_ref(x16, b.senders[:, None], **bf16))
+    # the backward: K7 bf16 over the transposed ELL, the gradient rounded
+    src = h_n.clone().requires_grad_()
+    cot = rand(b.graph_nodes.shape[0], 40)
+    grads = {}
+    for md in ("bfloat16", "float32"):
+        before = _layered_counts()
+        out = sp.spmm(src, b.graph_nodes, b.graph_of_node[:, None], p=spec.p,
+                      mat_dtype=md)
+        (grads[md],) = torch.autograd.grad((out * cot).sum(), src)
+        want = {"bfloat16": (0, 0, 1, 1), "float32": (1, 1, 0, 0)}[md]
+        assert _moved(before) == {"K7": want}
+    with torch.enable_grad():
+        refs = [torch.autograd.grad((sp.onehot_spmm_ref(
+            src, b.graph_nodes, p=spec.p, mat_dtype=md) * cot).sum(), src)[0]
+            for md in ("bfloat16", "float32")]
+    _bf16_hold([grads["bfloat16"]], [refs[0]], [refs[1]],
+               [grads["float32"]])
+
+
+@pytest.mark.parametrize("stage,act,mean", [("edge_init", "relu", False),
+                                            ("readout", "gelu", True),
+                                            ("readout", "silu", False)])
+def test_bf16_gather_linear_kernel_matches_plain(cuda, stage, act, mean):
+    from cgr_mpnn_3d_tpu_torch.ops import gather_linear as gl
+    spec, b, rand = _layered_inputs(cuda)
+    H = 40
+    ET, NT = b.edge_nbr.shape[0], b.node_x.shape[0]
+    if stage == "edge_init":
+        xa, xb, idx, adj = b.node_x, rand(ET, 14), b.senders[:, None], \
+            b.node_out
+        out_dtype = "bfloat16"
+    else:
+        xa, xb, idx, adj = rand(ET, H), b.node_x, b.node_inc, \
+            b.receivers[:, None]
+        out_dtype = "float32"
+    xa, xb = xa.bfloat16(), xb.bfloat16()
+    ws = (rand(xa.shape[1], H, scale=0.2), rand(xb.shape[1], H, scale=0.2),
+          rand(H, scale=0.1))
+    kw = dict(p=spec.p, act=act, mean=mean)
+    k16 = dict(kw, mat_dtype="bfloat16", out_dtype=out_dtype)
+    before = _layered_counts()
+    out = gl.gather_linear_forward(xa, xb, idx, *ws, **k16)
+    g = rand(*out.shape).to(out.dtype)
+    grads = gl.gather_linear_backward(xa, xb, idx, adj, *ws, out, g, **k16)
+    again = gl.gather_linear_backward(xa, xb, idx, adj, *ws, out, g, **k16)
+    torch.cuda.synchronize()
+    assert _moved(before) == {"K5": (0, 0, 1, 2)}
+    assert out.dtype == (torch.bfloat16 if stage == "edge_init"
+                         else torch.float32)
+    assert [t.dtype for t in grads] == [torch.bfloat16] * 2 + \
+        [torch.float32] * 3
+    assert all(torch.equal(x, y) for x, y in zip(grads, again))
+    want = gl.gather_linear_forward_ref(xa, xb, idx, *ws, **k16)
+    ref = gl.gather_linear_backward_ref(xa, xb, idx, adj, *ws, want, g, **k16)
+    f32 = [*_f32([xa, xb]), idx]
+    want32 = gl.gather_linear_forward_ref(*f32, *ws, **kw)
+    ref32 = gl.gather_linear_backward_ref(*f32[:3], adj, *ws, want32,
+                                          g.float(), **kw)
+    ctrl = gl.gather_linear_forward(*f32, *ws, **kw)
+    ctrl_g = gl.gather_linear_backward(*f32[:3], adj, *ws, ctrl, g.float(),
+                                       **kw)
+    _bf16_hold([out], [want], [want32], [ctrl])
+    _bf16_hold(grads, ref, ref32, ctrl_g)
+
+
+@pytest.mark.parametrize("act,mean,drop", [("relu", False, 0.1),
+                                           ("silu", True, 0.0),
+                                           ("gelu", False, 0.3)])
+def test_bf16_conv_stack_kernel_matches_plain(cuda, act, mean, drop):
+    from cgr_mpnn_3d_tpu_torch.ops import conv_stack as cs
+    spec, b, rand = _layered_inputs(cuda)
+    ET, H, L = b.edge_nbr.shape[0], 40, 3
+    h0 = rand(ET, H).bfloat16()
+    ws = (rand(L, H, H, scale=0.2), rand(L, H, scale=0.1),
+          torch.tensor([0.8, -0.3, 1.2], device=cuda))
+    kw = dict(p=spec.p, act=act, mean=mean, train=drop > 0,
+              seeds=[7, 2**31 - 2, 12345] if drop else None,
+              dropout_ps=(drop,) * L if drop else ())
+    k16 = dict(kw, mat_dtype="bfloat16")
+    idx = (b.edge_nbr, b.rev)
+    before = _layered_counts()
+    out = cs.conv_stack_forward(h0, *idx, *ws, **k16)
+    g = rand(*out.shape).bfloat16()
+    grads = cs.conv_stack_backward(h0, *idx, b.edge_nbr_rev, *ws, g, **k16)
+    again = cs.conv_stack_backward(h0, *idx, b.edge_nbr_rev, *ws, g, **k16)
+    torch.cuda.synchronize()
+    assert _moved(before) == {"K4": (0, 0, 1, 2)}
+    assert out.dtype == grads[0].dtype == torch.bfloat16
+    assert all(torch.equal(x, y) for x, y in zip(grads, again))
+    h32, g32 = h0.float(), g.float()
+    _bf16_hold([out], [cs.conv_stack_forward_ref(h0, *idx, *ws, **k16)],
+               [cs.conv_stack_forward_ref(h32, *idx, *ws, **kw)],
+               [cs.conv_stack_forward(h32, *idx, *ws, **kw)])
+    _bf16_hold(grads, cs.conv_stack_backward_ref(h0, *idx, b.edge_nbr_rev,
+                                                 *ws, g, **k16),
+               cs.conv_stack_backward_ref(h32, *idx, b.edge_nbr_rev, *ws,
+                                          g32, **kw),
+               cs.conv_stack_backward(h32, *idx, b.edge_nbr_rev, *ws, g32,
+                                      **kw))
+
+
+@pytest.mark.parametrize("act,mean,drop,hin", [("relu", False, 0.1, 40),
+                                               ("gelu", True, 0.3, 40),
+                                               ("silu", True, 0.0, 24)])
+def test_bf16_fused_conv_kernel_matches_plain(cuda, act, mean, drop, hin):
+    from cgr_mpnn_3d_tpu_torch.ops import fused_conv as fc
+    spec, b, rand = _layered_inputs(cuda)
+    ET, H = b.edge_nbr.shape[0], 40
+    h, h0 = rand(ET, hin).bfloat16(), rand(ET, H).bfloat16()
+    ws = (rand(hin, H, scale=0.2), rand(H, scale=0.1),
+          torch.tensor(0.8, device=cuda))
+    kw = dict(p=spec.p, act=act, mean=mean, train=drop > 0,
+              seed=2**31 - 2 if drop else None, dropout_p=drop)
+    k16 = dict(kw, mat_dtype="bfloat16")
+    idx = (b.edge_nbr, b.rev)
+    before = _layered_counts()
+    out = fc.fused_conv_forward(h, h0, *idx, *ws, **k16)
+    g = rand(*out.shape).bfloat16()
+    grads = fc.fused_conv_backward(h, h0, *idx, b.edge_nbr_rev, *ws, out, g,
+                                   **k16)
+    again = fc.fused_conv_backward(h, h0, *idx, b.edge_nbr_rev, *ws, out, g,
+                                   **k16)
+    torch.cuda.synchronize()
+    assert _moved(before) == {"K6": (0, 0, 1, 2)}
+    assert [t.dtype for t in (out, *grads)] == [torch.bfloat16] * 3 + \
+        [torch.float32] * 3
+    assert all(torch.equal(x, y) for x, y in zip(grads, again))
+    want = fc.fused_conv_layer_ref(h, h0, *idx, *ws, **k16)
+    f32 = _f32([h, h0])
+    want32 = fc.fused_conv_layer_ref(*f32, *idx, *ws, **kw)
+    ctrl = fc.fused_conv_forward(*f32, *idx, *ws, **kw)
+    _bf16_hold([out], [want], [want32], [ctrl])
+    _bf16_hold(grads,
+               fc.fused_conv_backward_ref(h, h0, *idx, b.edge_nbr_rev, *ws,
+                                          want, g, **k16),
+               fc.fused_conv_backward_ref(*f32, *idx, b.edge_nbr_rev, *ws,
+                                          want32, g.float(), **kw),
+               fc.fused_conv_backward(*f32, *idx, b.edge_nbr_rev, *ws, ctrl,
+                                      g.float(), **kw))
+
+
+@pytest.mark.parametrize("capture", [False, True], ids=["layered", "capture"])
+def test_bf16_layered_and_capture_on_card_match_cpu(cuda, capture):
+    """A bf16 model in the layered configuration and in capture mode on the
+    card (the bf16 K5, K4, K7 or K7, K6 forward and backward, no f32 launch
+    and no whole-model kernel) against the same model on the CPU (the plain
+    versions at bf16), held by the share against the CPU's f32 run."""
+    spec, batch = _batch(60, 13, 78, "cpu")
+    cfg = CGRMPNNConfig(num_node_features=78, num_edge_features=14,
+                        depth=3, hidden_sizes=(40,) * 3,
+                        dropout_ps=(0.2, 0.0, 0.3), activation="GELU",
+                        aggr="mean", pooling="mean", use_learnable_skip=True,
+                        fuse_whole_model=False, compute_dtype="bfloat16")
+    f32 = dataclasses.replace(cfg, compute_dtype="float32")
+    out = []
+    for dev, conf in (("cpu", cfg), (cuda, cfg), ("cpu", f32)):
+        model = init_params(conf, torch.Generator().manual_seed(4), dev)
+        b = to_device(batch, dev)
+        before, fm_before = _layered_counts(), _bf16_counts()
+        pred = apply(model, b, spec, train=True, seeds=[5, 6, 7],
+                     capture=capture)
+        pred = pred[0] if capture else pred
+        ((pred - b.labels) ** 2 * b.graph_mask).sum().backward()
+        if dev != "cpu":
+            torch.cuda.synchronize()
+            assert _bf16_counts() == fm_before
+            assert _moved(before) == (
+                {"K7": (0, 0, 3, 2), "K6": (0, 0, 3, 3)} if capture else
+                {"K5": (0, 0, 2, 2), "K4": (0, 0, 1, 1),
+                 "K7": (0, 0, 1, 1)})
+        out.append((pred.detach().cpu(), [p.grad.cpu()
+                                          for p in model.parameters()]))
+    (p0, g0), (p1, g1), (p32, g32) = out
+    mask = batch.graph_mask > 0
+    assert _rel_l2([p1[mask]], [p0[mask]]) <= 5e-3
+    assert _cos(g1, g0) >= 0.999
+    assert _share([p1[mask]], [p0[mask]], [p32[mask]]) <= 0.5
+    assert _share(g1, g0, g32) <= 0.5
