@@ -17,6 +17,8 @@ found at the same path:
 * ``train/``   the trainer, checkpoints (the JAX package's ``.npz`` + JSON
                format), metrics, step timing, ``load_model``, ``predict``,
                ``evaluate``;
+* ``parallel/`` edge partitioning (``--ep``) with every shard of a step in
+               one process: the pack-local EP packer, loader and step;
 * ``cli/``     ``train``, ``test`` and ``predict``.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``; with

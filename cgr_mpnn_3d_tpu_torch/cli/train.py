@@ -5,7 +5,7 @@ Usage (the README's model):
   python -m cgr_mpnn_3d_tpu_torch.cli.train --name CGR-MPNN-3D -d 4 \\
       --hidden_sizes 400 --dropout_ps 0.1 -af ReLU -lr 1e-4 -ne 50 \\
       --weight_decay 1e-5 -bs 64 -g 0.9 --data_path datasets \\
-      [--compute_dtype bfloat16]
+      [--compute_dtype bfloat16 | --ep 2]
 
 ``--data_path`` holds ``train.csv`` and ``val.csv`` (and ``test.csv`` unless
 ``--skip_test``), plus ``<split>.npz`` descriptors for CGR-MPNN-3D; a
@@ -18,10 +18,15 @@ kernels' bf16 products (on the CPU their plain versions at bf16);
 parameters and Adam stay f32.  The test after training loads the
 checkpoint in f32, as the JAX CLI does.
 
-Not ported yet: the data-parallel, edge-partition and multi-host flags
-(``--dp``, ``--ep*``), ``--device_epoch``, ``--steps_per_call``,
-``--reuse_packs``, ``--loader_workers``, ``--pack_q`` and
-``--num_workers`` (ROADMAP.md).
+``--ep N`` shards every batch's edges over N shards in the pack-local
+layout (``parallel/ep_pack.py``, tiles ``--ep_te`` x ``--ep_tn``), every
+shard of a step in this process on one device; f32 only.  ``--ep_overlap``,
+``--ep_rdma``, ``--dp`` other than 1, ``--reuse_packs`` and
+``--loader_workers`` other than 1 raise NotImplementedError, naming their
+ROADMAP.md items.
+
+Not ported yet: multi-host, ``--device_epoch``, ``--steps_per_call``,
+``--pack_q`` and ``--num_workers`` (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -80,7 +85,53 @@ def build_arg_parser() -> argparse.ArgumentParser:
                          "steps within an epoch; --resume continues from it "
                          "bit-identically (0 = per-epoch)")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
+    ap.add_argument("--ep", default=1, type=int,
+                    help="edge-partition shards: each batch's edges are "
+                         "sharded over ep shards in pack-local layout, "
+                         "every shard of a step in this process")
+    ap.add_argument("--ep_te", default=128, type=int,
+                    help="EP pack tile: edge slots per pack (grows when a "
+                         "shard-local graph fragment exceeds it)")
+    ap.add_argument("--ep_tn", default=72, type=int,
+                    help="EP pack tile: node slots per pack")
+    ap.add_argument("--ep_overlap", action="store_true",
+                    help="not ported: raises (ROADMAP.md)")
+    ap.add_argument("--ep_rdma", action="store_true",
+                    help="not ported: raises (ROADMAP.md, K12)")
+    ap.add_argument("--dp", default=1, type=int,
+                    help="data-parallel devices; only 1 is ported")
+    ap.add_argument("--reuse_packs", action="store_true",
+                    help="not ported: raises (ROADMAP.md)")
+    ap.add_argument("--loader_workers", default=1, type=int,
+                    help="packing threads; only 1 is ported")
     return ap
+
+
+def refuse_unported(args) -> None:
+    """Raise NotImplementedError for a flag whose path is not ported, so
+    that no run takes another path quietly."""
+    if args.ep_overlap:
+        raise NotImplementedError(
+            "--ep_overlap (wired layers through K6 with act='linear' and the "
+            "compact boundary correction) is not ported yet: ROADMAP.md, "
+            "edge partitioning, item 2")
+    if args.ep_rdma:
+        raise NotImplementedError(
+            "--ep_rdma (K12, the RDMA ring exchange across cards) is not "
+            "ported yet: ROADMAP.md, K12")
+    if args.dp != 1:
+        raise NotImplementedError(
+            "--dp (data parallelism over torch.distributed) is not ported "
+            "yet: ROADMAP.md, edge partitioning, item 5")
+    if args.reuse_packs or args.loader_workers != 1:
+        raise NotImplementedError(
+            "--reuse_packs and --loader_workers are not ported yet: "
+            "ROADMAP.md, edge partitioning, item 4")
+    if args.ep > 1 and args.compute_dtype != "float32":
+        raise NotImplementedError(
+            "--ep runs at --compute_dtype float32 only: the bf16 "
+            "instantiations of K8-K11 are ROADMAP.md, edge partitioning, "
+            "item 1")
 
 
 def run_name(args) -> str:
@@ -123,6 +174,7 @@ def train(args) -> dict:
     from ..train import MetricsLogger, RxnGraphTrainer
     from ..utils import resolve_device
 
+    refuse_unported(args)
     device = resolve_device(args.device)
     train_data = split_dataset(args.data_path, "train", args.name)
     val_data = split_dataset(args.data_path, "val", args.name)
@@ -155,7 +207,8 @@ def train(args) -> dict:
         batch_size=args.batch_size, val_frequency=args.val_frequency,
         model_save_dir=args.save_path, seed=args.seed, logger=logger,
         log_histograms=args.log_histograms, resume_from=args.resume,
-        ckpt_every_steps=args.ckpt_every_steps, device=device)
+        ckpt_every_steps=args.ckpt_every_steps, device=device, n_ep=args.ep,
+        ep_te=args.ep_te, ep_tn=args.ep_tn)
     return trainer.train()
 
 
@@ -182,6 +235,7 @@ def main(argv=None) -> dict:
     if len(args.dropout_ps) == 1:
         args.dropout_ps = args.dropout_ps * args.depth
 
+    refuse_unported(args)
     if not args.skip_test:
         # fail before training, not after it
         split_dataset(args.data_path, "test", args.name)

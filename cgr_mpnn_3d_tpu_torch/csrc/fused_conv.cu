@@ -44,6 +44,24 @@
 // widths (H = 400) bound by the products -- f32 FMA throughput outside the
 // tensor cores, or the bf16 tensor-core rate -- not by memory.  The tile
 // loop is the simple one of fused_model_common.cuh (no wgmma, no TMA).
+//
+// The edge-partitioned layer (K8, and K9 with the global mean scale), the
+// entry points cgr_fused_conv_r_*: the TPU kernels
+// pallas_fused.py::_fwd_call_r and _bwd_call_r (fused_conv_layer_r and
+// fused_conv_layer_rm), run once per wired layer by parallel/ep_pack.py.
+// The messages take one more term, the boundary correction r [p·tn, Hin]
+// (f32) of the layer's node slots, gathered at the edge's sender:
+//
+//   t[e] = s_e·(Σ_d h[edge_nbr[e, d]] + r[senders[e]]) − h[rev e]   (K9)
+//   t[e] = scale·Σ_d h[edge_nbr[e, d]] − h[rev e] + r[senders[e]]    (K8)
+//
+// with s the given per-edge global 1/in-degree of the sender (0 on
+// padding) and K8's scale 1, or the local mean scale; then K6's epilogue.
+// The backward adds dr[n] = Σ_{e ∈ node_out[n]} s_e·dt[e] (K8: s = 1), a
+// gather through node_out with no atomics, and takes dh through
+// edge_nbr_rev with each entry scaled by s (K9) or the forward row's mean
+// scale (K8).  f32 only (mat_dtype f32); the design and the bound are
+// K6's, with the r gather adding tn·Hin reads per pack.
 
 #include "layered_common.cuh"
 
@@ -189,6 +207,98 @@ extern "C" int cgr_fused_conv_bwd(
              static_cast<const float*>(g), static_cast<float*>(dh),
              static_cast<float*>(dh0), dw, db, dskip, scratch, S, st);
   }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The edge-partitioned layer's message gather: t = messages(h) plus the
+// boundary term of r, each row's scale to rscale (when set).
+static void gather_r(const float* h, const float* r, const int* edge_nbr,
+              const int* rev, const int* senders, const float* scale,
+              float* t, float* rscale, int p, int te, int tn, int Hin, int D,
+              int mean, cudaStream_t st) {
+  const long long rows = static_cast<long long>(p) * te;
+  launch_gather<false>(GatherArgs<float, float>{h, te, Hin, edge_nbr, D, rev,
+                                                nullptr, mean, te, rows, t,
+                                                rscale, scale, r, senders,
+                                                tn},
+                       st);
+}
+
+// out [p·te, H]; t [p·te, Hin] is scratch; scale [p·te] (K9) or null (K8).
+extern "C" int cgr_fused_conv_r_fwd(const float* h, const float* r,
+                                    const float* h0, const int* edge_nbr,
+                                    const int* rev, const int* senders,
+                                    const float* scale, const float* w,
+                                    const float* b, const float* skip,
+                                    const int* drop, float* t, float* out,
+                                    int p, int te, int tn, int Hin, int H,
+                                    int D, int act, int mean, void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  gather_r(h, r, edge_nbr, rev, senders, scale, t, nullptr, p, te, tn, Hin,
+           D, mean, st);
+  launch_tile<false, false, false>(
+      plain(t, Hin, w, H, Hin), no_operands(), p * te, H,
+      LayerEpi<float>{b, h0, skip, act, nullptr, out, H, drop, 1, 0, te}, st);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Bytes of the edge-partitioned backward's scratch (K6's at f32).
+extern "C" long long cgr_fused_conv_r_bwd_scratch_bytes(int p, int te,
+                                                        int Hin, int H,
+                                                        int S) {
+  return static_cast<long long>(
+      scratch_of<false>(nullptr, p, te, Hin, H, S).bytes);
+}
+
+// dh [p·te, Hin], dr [p·tn, Hin], dh0 [p·te, H], dw [Hin, H], db [H],
+// dskip [1] from the cotangent g of `out`; a null output is skipped.
+extern "C" int cgr_fused_conv_r_bwd(
+    const float* h, const float* r, const float* h0, const int* edge_nbr,
+    const int* rev, const int* senders, const float* scale,
+    const int* edge_nbr_rev, const int* node_out, const float* w,
+    const float* b, const float* skip, const int* drop, const float* out,
+    const float* g, float* dh, float* dr, float* dh0, float* dw, float* db,
+    float* dskip, void* scratch, int p, int te, int tn, int Hin, int H, int D,
+    int Dout, int act, int mean, int S, void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const long long rows = static_cast<long long>(p) * te;
+  const Scratch<false> s = scratch_of<false>(scratch, p, te, Hin, H, S);
+  gather_r(h, r, edge_nbr, rev, senders, scale, s.t, s.rscale, p, te, tn,
+           Hin, D, mean, st);
+  // ReLU: dpre from the saved output; SiLU, GELU: from the pre-activation,
+  // recomputed into dpre and overwritten in place
+  if (act != kRelu)
+    launch_tile<false, false, false>(
+        plain(s.t, Hin, w, H, Hin), no_operands(), static_cast<int>(rows), H,
+        LayerEpi<float>{b, h0, skip, act, s.dpre, nullptr, H, nullptr, 1, 0,
+                        te},
+        st);
+  dpre_kernel<float, float, float><<<kReduceBlocks, kThreads, 0, st>>>(
+      g, s.dpre, act == kRelu ? out : nullptr, s.dpre, h0, dh0, 0, skip, drop,
+      1, 0, act, te, H, rows * H, s.dpart);
+  if (dw != nullptr)
+    launch_wgrad<false>(s.t, Hin, s.dpre, H, rows, S, s.wpart, dw, st);
+  if (db != nullptr) launch_colsum(s.dpre, H, rows, S, s.wpart, db, st);
+  if (dh != nullptr || dr != nullptr)
+    launch_tile<false, false, true>(plain(s.dpre, H, w, H, H), no_operands(),
+                                    static_cast<int>(rows), Hin,
+                                    StoreAs<float>{s.dt, Hin}, st);
+  // dh: the messages' adjoint, each entry scaled by its forward row's scale
+  // (K9's s, or K8's mean scale), minus the rev row
+  if (dh != nullptr)
+    launch_gather<false>(GatherArgs<float, float>{
+                             s.dt, te, Hin, edge_nbr_rev, D, rev,
+                             scale != nullptr ? scale
+                                              : (mean ? s.rscale : nullptr),
+                             0, te, rows, dh, nullptr},
+                         st);
+  // dr[n] = Σ over the out-edges e of node n of s_e·dt[e]
+  if (dr != nullptr)
+    launch_gather<false>(GatherArgs<float, float>{
+                             s.dt, te, Hin, node_out, Dout, nullptr, scale, 0,
+                             tn, static_cast<long long>(p) * tn, dr, nullptr},
+                         st);
+  if (dskip != nullptr) launch_sum(s.dpart, kReduceBlocks, 1, dskip, st);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -41,6 +41,22 @@
 // bound by the products (f32 FMA outside the tensor cores, 67 TFLOP/s, or
 // the bf16 tensor cores), not by memory.  The tile loop is the simple one
 // of fused_model_common.cuh (no wgmma, no TMA).
+//
+// The edge-partitioned readout, the entry points cgr_gather_linear_r_*:
+// K10 (pallas_glin.py::_fwd_call_r, _bwd_call_r) and, with the pool on,
+// K11 (_fwd_call_pool, _bwd_call_pool), which parallel/ep_pack.py runs once
+// per EP forward.  xr [p·R, FA] (f32, aligned with the output rows: the
+// received remote partials of the owned node slots) joins the gathered
+// sum before the product,
+//
+//   out  = act((G·xa + xr)·Wa + xb·Wb + b),      dxr = dpre·Waᵀ,
+//
+// and K11 also writes the per-pack group pool pool[q] = Σ_{n ∈
+// pool_ell[q]} out[n] [p·GP, H] (a gather through the per-group node ELL,
+// the untransposed pool_t); its backward reads dout = g + gpool[group of
+// the row] (through node_group, the transpose).  f32 only: the gather
+// takes xr as its extra term (layered_common.cuh), dt is written straight
+// into dxr, and the rest is K5's backward.
 
 #include "layered_common.cuh"
 
@@ -78,27 +94,45 @@ struct Dims {
   long long rows() const { return static_cast<long long>(p) * R; }
 };
 
-// t1 = G·xa into scratch, with each forward row's scale in rscale (when
-// set).
+// t1 = G·xa (+ xr, f32 rows aligned with t1's, when set) into scratch,
+// with each forward row's scale in rscale (when set).
 template <bool kBf16>
-void gather_t1(const Elem<kBf16>* xa, const int* idx, const Dims& d,
-               Elem<kBf16>* t1, float* rscale, cudaStream_t st) {
+void gather_t1(const Elem<kBf16>* xa, const float* xr, const int* idx,
+               const Dims& d, Elem<kBf16>* t1, float* rscale,
+               cudaStream_t st) {
   using E = Elem<kBf16>;
   launch_gather<kBf16>(GatherArgs<E, E>{xa, d.ca, d.FA, idx, d.D, nullptr,
                                         nullptr, d.mean, d.R, d.rows(), t1,
-                                        rscale},
+                                        rscale, nullptr, xr, nullptr, 0},
                        st);
+}
+
+// dout[i, :] = g[i, :] + gpool[q, :] with q = node_group[i] when it lies in
+// the GP groups of row i's pack (R rows per pack), else g[i, :].
+__global__ void add_group_kernel(const float* g, const float* gpool,
+                                 const int* node_group, long long rows, int R,
+                                 int GP, int H, float* dout) {
+  for (long long i = blockIdx.x * static_cast<long long>(blockDim.x) +
+                     threadIdx.x;
+       i < rows * H; i += static_cast<long long>(gridDim.x) * blockDim.x) {
+    const long long r = i / H, lo = (r / R) * GP;
+    const long long q = node_group[r] - lo;
+    float v = g[i];
+    if (q >= 0 && q < GP) v += gpool[(lo + q) * H + i % H];
+    dout[i] = v;
+  }
 }
 
 template <bool kBf16, class O>
 void forward(const void* xa_, const void* xb_, const int* idx,
              const float* wa, const float* wb, const float* b, void* t1_,
-             void* out, const Dims& d, cudaStream_t st) {
+             void* out, const Dims& d, cudaStream_t st,
+             const float* xr = nullptr) {
   using E = Elem<kBf16>;
   const E* xa = static_cast<const E*>(xa_);
   const E* xb = static_cast<const E*>(xb_);
   E* t1 = static_cast<E*>(t1_);
-  gather_t1<kBf16>(xa, idx, d, t1, nullptr, st);
+  gather_t1<kBf16>(xa, xr, idx, d, t1, nullptr, st);
   launch_tile<kBf16, false, false>(
       plain(t1, d.FA, wa, d.H, d.FA), plain(xb, d.FB, wb, d.H, d.FB),
       static_cast<int>(d.rows()), d.H,
@@ -107,13 +141,16 @@ void forward(const void* xa_, const void* xb_, const int* idx,
       st);
 }
 
+// dt = dpre·Waᵀ is formed when dxa is wanted or keep_dt is set (the EP
+// readout's dxr is dt itself).
 template <bool kBf16, class O>
 void backward(const void* xa_, const void* xb_, const int* idx,
               const int* adj, const float* wa, const float* wb,
               const float* b, const void* out_, const void* g_, void* dxa_,
               void* dxb_, float* dwa, float* dwb, float* db, void* t1_,
               void* dt_, float* dpre, float* rscale, float* part,
-              const Dims& d, int Dadj, int S, cudaStream_t st) {
+              const Dims& d, int Dadj, int S, cudaStream_t st,
+              const float* xr = nullptr, bool keep_dt = false) {
   using E = Elem<kBf16>;
   const E* xa = static_cast<const E*>(xa_);
   const E* xb = static_cast<const E*>(xb_);
@@ -123,7 +160,7 @@ void backward(const void* xa_, const void* xb_, const int* idx,
   E *dxa = static_cast<E*>(dxa_), *dxb = static_cast<E*>(dxb_);
   const long long rows = d.rows();
   const int M = static_cast<int>(rows), H = d.H, FA = d.FA, FB = d.FB;
-  gather_t1<kBf16>(xa, idx, d, t1, rscale, st);
+  gather_t1<kBf16>(xa, xr, idx, d, t1, rscale, st);
   if (d.act == kRelu) {
     relu_dpre_kernel<O><<<2048, 256, 0, st>>>(out, g, rows * H, dpre);
   } else {
@@ -135,15 +172,15 @@ void backward(const void* xa_, const void* xb_, const int* idx,
   if (dxb != nullptr)
     launch_tile<kBf16, false, true>(plain(dpre, H, wb, H, H), none, M, FB,
                                     StoreAs<E>{dxb, FB}, st);
-  if (dxa != nullptr) {
+  if (dxa != nullptr || keep_dt)
     launch_tile<kBf16, false, true>(plain(dpre, H, wa, H, H), none, M, FA,
                                     StoreAs<E>{dt, FA}, st);
+  if (dxa != nullptr)
     launch_gather<kBf16>(GatherArgs<E, E>{dt, d.R, FA, adj, Dadj, nullptr,
                                           d.mean ? rscale : nullptr, 0, d.ca,
                                           static_cast<long long>(d.p) * d.ca,
                                           dxa, nullptr},
                          st);
-  }
   if (dwa != nullptr)
     launch_wgrad<kBf16>(t1, FA, dpre, H, rows, S, part, dwa, st);
   if (dwb != nullptr)
@@ -199,6 +236,53 @@ extern "C" int cgr_gather_linear_bwd(
     backward<true, float>(xa, xb, idx, adj, wa, wb, b, out, g, dxa, dxb, dwa,
                           dwb, db, t1, dt, dpre, rscale, part, d, Dadj, S,
                           st);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The EP readout (K10; K11 when pool_ell is set): out [p·R, H] and, with
+// the pool, pool [p·GP, H] through pool_ell [p·GP, DN] (node slots of each
+// group, sentinel-padded); t1 [p·R, FA] is scratch.  All f32.
+extern "C" int cgr_gather_linear_r_fwd(const float* xa, const float* xr,
+                                       const float* xb, const int* idx,
+                                       const int* pool_ell, const float* wa,
+                                       const float* wb, const float* b,
+                                       float* t1, float* out, float* pool,
+                                       int p, int R, int ca, int FA, int FB,
+                                       int H, int D, int GP, int DN, int act,
+                                       int mean, void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const Dims d{p, R, ca, FA, FB, H, D, act, mean};
+  forward<false, float>(xa, xb, idx, wa, wb, b, t1, out, d, st, xr);
+  if (pool_ell != nullptr)
+    launch_gather<false>(GatherArgs<float, float>{
+                             out, R, H, pool_ell, DN, nullptr, nullptr, 0, GP,
+                             static_cast<long long>(p) * GP, pool, nullptr},
+                         st);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Cotangents of the EP readout from g [p·R, H] (and, for K11, gpool
+// [p·GP, H] through node_group [p·R]): dxa, dxr, dxb, dwa, dwb, db as
+// K5's with dxr = dpre·Waᵀ; a null output is skipped.  Scratch: K5's, and
+// dout [p·R, H] for K11.
+extern "C" int cgr_gather_linear_r_bwd(
+    const float* xa, const float* xr, const float* xb, const int* idx,
+    const int* adj, const int* node_group, const float* wa, const float* wb,
+    const float* b, const float* out, const float* g, const float* gpool,
+    float* dxa, float* dxr, float* dxb, float* dwa, float* dwb, float* db,
+    float* t1, float* dt, float* dpre, float* rscale, float* part,
+    float* dout, int p, int R, int ca, int FA, int FB, int H, int D,
+    int Dadj, int GP, int act, int mean, int S, void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const Dims d{p, R, ca, FA, FB, H, D, act, mean};
+  if (gpool != nullptr) {
+    add_group_kernel<<<2048, 256, 0, st>>>(g, gpool, node_group, d.rows(), R,
+                                           GP, H, dout);
+    g = dout;
+  }
+  backward<false, float>(xa, xb, idx, adj, wa, wb, b, out, g, dxa, dxb, dwa,
+                         dwb, db, t1, dxr != nullptr ? dxr : dt, dpre, rscale,
+                         part, d, Dadj, S, st, xr, dxr != nullptr);
   return static_cast<int>(cudaGetLastError());
 }
 

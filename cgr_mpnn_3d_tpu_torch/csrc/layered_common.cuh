@@ -39,11 +39,17 @@ constexpr int kReduceBlocks = 264;   // blocks of a grid-stride reduction
 template <bool kBf16>
 using Elem = std::conditional_t<kBf16, __nv_bfloat16, float>;
 
-// out[r, :] = scale_r · Σ_d w_j·src[j, :]  [− src[sign[r], :]],  j = idx[r, d]
-// over `rows` output rows of width W, R rows per pack, C source rows per
-// pack.  w_j = src_scale[j] (1 when nullptr); scale_r = mean_colscale(entries
-// counted) when `mean`, else 1; the sign term stays unscaled.  With
-// `rscale`, scale_r is written there too.  src is S (f32 or bf16), out O.
+// out[r, :] = scale_r · (Σ_d w_j·src[j, :] + extra[k, :])  [− src[sign[r], :]],
+// j = idx[r, d], over `rows` output rows of width W, R rows per pack, C
+// source rows per pack.  w_j = src_scale[j] (1 when nullptr); scale_r =
+// row_scale[r] when given, else mean_colscale(entries counted) when `mean`,
+// else 1; the sign term stays unscaled.  The extra term (f32, when `extra`
+// is set) is row k = extra_idx[r] of the window of extra_C rows of r's pack
+// (absent outside it), or row r itself when extra_idx is nullptr; it is
+// scaled by row_scale[r] only (a mean scale leaves it as it is, as the TPU
+// kernels' S·r term).  With `rscale`, scale_r is written there too.  src
+// is S (f32 or bf16), out O.  Leaving the trailing members out of an
+// initializer leaves them null.
 template <class S, class O>
 struct GatherArgs {
   const S* src;
@@ -56,6 +62,10 @@ struct GatherArgs {
   long long rows;
   O* out;
   float* rscale;
+  const float* row_scale;
+  const float* extra;
+  const int* extra_idx;
+  int extra_C;
 };
 
 template <bool kBf16, class S, class O>
@@ -79,8 +89,23 @@ __global__ void __launch_bounds__(kGatherThreads)
         }
       }
     }
-    const float scale = a.mean ? mean_colscale<kBf16>(count) : 1.f;
-    if (a.mean) sum *= scale;
+    float scale = a.mean ? mean_colscale<kBf16>(count) : 1.f;
+    if (a.row_scale != nullptr) scale = a.row_scale[r];
+    if (a.mean || a.row_scale != nullptr) sum *= scale;
+    if (a.extra != nullptr && c < a.W) {
+      long long k = r;
+      bool in = true;
+      if (a.extra_idx != nullptr) {
+        const long long elo = (r / a.R) * a.extra_C;
+        k = a.extra_idx[r] - elo;
+        in = k >= 0 && k < a.extra_C;
+        k += elo;
+      }
+      if (in) {
+        const float v = operand<kBf16>(a.extra[k * a.W + c]);
+        sum += a.row_scale == nullptr ? v : a.row_scale[r] * v;
+      }
+    }
     if (a.sign != nullptr) {
       const long long j = a.sign[r] - lo;
       if (j >= 0 && j < a.C && c < a.W)

@@ -15,14 +15,14 @@ from __future__ import annotations
 import queue
 import threading
 from dataclasses import dataclass
-from typing import Iterator
+from typing import Iterable, Iterator
 
 import numpy as np
 
 from .batch import PackedGraphBatch, PackSpec, pack_graphs
 from .dataset import ChemDataset
 
-__all__ = ["PackedLoader"]
+__all__ = ["PackedLoader", "background"]
 
 
 @dataclass
@@ -97,25 +97,31 @@ class PackedLoader:
     def prefetch(self, depth: int = 2) -> Iterator[PackedGraphBatch]:
         """The same batches, packed by a background thread ``depth``
         batches ahead of the consumer."""
-        q: queue.Queue = queue.Queue(maxsize=depth)
-        _SENTINEL = object()
-        err: list[BaseException] = []
+        return background(self, depth)
 
-        def worker():
-            try:
-                for b in self:
-                    q.put(b)
-            except BaseException as e:  # surfaced to the consumer
-                err.append(e)
-            finally:
-                q.put(_SENTINEL)
 
-        t = threading.Thread(target=worker, daemon=True)
-        t.start()
-        while True:
-            item = q.get()
-            if item is _SENTINEL:
-                if err:
-                    raise err[0]
-                return
-            yield item
+def background(items: Iterable, depth: int = 2) -> Iterator:
+    """Iterate ``items`` on a background thread, at most ``depth`` items
+    ahead of the consumer; an exception there is raised here."""
+    q: queue.Queue = queue.Queue(maxsize=depth)
+    _SENTINEL = object()
+    err: list[BaseException] = []
+
+    def worker():
+        try:
+            for b in items:
+                q.put(b)
+        except BaseException as e:  # surfaced to the consumer
+            err.append(e)
+        finally:
+            q.put(_SENTINEL)
+
+    t = threading.Thread(target=worker, daemon=True)
+    t.start()
+    while True:
+        item = q.get()
+        if item is _SENTINEL:
+            if err:
+                raise err[0]
+            return
+        yield item

@@ -2,7 +2,9 @@
 
 Generates random connected graphs with chemistry-like statistics (10-30
 atoms, max degree ~4, directed edge pairs) without invoking the SMILES
-stack — deterministic and fast, used by chip_smoke.py.
+stack — deterministic and fast, used by chip_smoke.py — and path graphs
+(:func:`chain_graph`), whose long chains are the giant graphs that edge
+partitioning cuts across shards.
 """
 
 from __future__ import annotations
@@ -11,7 +13,7 @@ import numpy as np
 
 from ..chem.featurize import GraphArrays
 
-__all__ = ["synthetic_graphs"]
+__all__ = ["synthetic_graphs", "chain_graph"]
 
 
 def synthetic_graphs(n: int, rng: np.random.Generator,
@@ -54,3 +56,20 @@ def synthetic_graphs(n: int, rng: np.random.Generator,
             rev_edge_index=np.arange(ne, dtype=np.int32) ^ 1,
         ))
     return out
+
+
+def chain_graph(n: int, rng: np.random.Generator, node_feat_dim: int = 78,
+                edge_feat_dim: int = 14) -> GraphArrays:
+    """An n-node path graph (directed pairs adjacent) with normal random
+    features."""
+    nb = n - 1
+    send = np.empty(2 * nb, np.int32)
+    recv = np.empty(2 * nb, np.int32)
+    send[0::2] = np.arange(nb)
+    recv[0::2] = np.arange(1, n)
+    send[1::2] = np.arange(1, n)
+    recv[1::2] = np.arange(nb)
+    return GraphArrays(
+        rng.normal(size=(n, node_feat_dim)).astype(np.float32),
+        rng.normal(size=(2 * nb, edge_feat_dim)).astype(np.float32),
+        send, recv, np.arange(2 * nb, dtype=np.int32) ^ 1)

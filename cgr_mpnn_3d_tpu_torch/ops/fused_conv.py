@@ -31,6 +31,23 @@ stay f32.
   through the plain forward) only for CPU tensors;
 * :func:`fused_conv_layer` is the forward differentiable in h, h0, w, b and
   skip, with the backward kernel as its backward on the card.
+
+The edge-partitioned layer (K8, ``pallas_fused.py::fused_conv_layer_r``;
+K9 with a ``scale``, ``fused_conv_layer_rm``), f32 only, adds the boundary
+correction ``r`` [p*tn, Hin] of the layer's node slots at each edge's
+sender (``senders`` [p*te], pack-local node slots):
+
+    t[e] = s_e · (sum_d h[edge_nbr[e, d]] + r[senders[e]]) - h[rev[e]]   (K9)
+    t[e] = scale · sum_d h[edge_nbr[e, d]] - h[rev[e]] + r[senders[e]]    (K8)
+
+with ``scale`` [p*te] the per-edge global 1/in-degree of the sender (0 on
+padding) and K8's scale 1, or the local mean scale when ``mean``.  The
+backward also takes ``node_out`` [p*tn, D2] (the adjoint of the sender
+gather) and returns (dh, dr, dh0, dw, db, dskip):
+:func:`fused_conv_r_forward` / :func:`fused_conv_r_backward` (plain versions
+:func:`fused_conv_layer_r_ref` / :func:`fused_conv_r_backward_ref`) and the
+autograd :func:`fused_conv_layer_r`.  Counters ``r_launches`` /
+``r_bwd_launches`` (K8) and ``rm_launches`` / ``rm_bwd_launches`` (K9).
 """
 
 from __future__ import annotations
@@ -45,12 +62,15 @@ from ._launch import (I32, PTR, check_cuda, check_train, check_types,
 from .bf16_ref import bf16_gather, bf16_mm, bf16_onehot
 from .kernel_math import (KERNEL_ACTS, hash_dropout_keep_full, k_act,
                           mean_colscale)
-from .segment import dmpnn_messages, in_pack
+from .segment import dmpnn_messages, ext_zero_row, in_pack
 
 __all__ = ["fused_conv_forward", "fused_conv_layer_ref",
            "fused_conv_backward", "fused_conv_backward_ref",
-           "fused_conv_layer", "launches", "bwd_launches", "bf16_launches",
-           "bf16_bwd_launches"]
+           "fused_conv_layer", "fused_conv_r_forward",
+           "fused_conv_layer_r_ref", "fused_conv_r_backward",
+           "fused_conv_r_backward_ref", "fused_conv_layer_r", "launches",
+           "bwd_launches", "bf16_launches", "bf16_bwd_launches",
+           "r_launches", "r_bwd_launches", "rm_launches", "rm_bwd_launches"]
 
 # kernel launches by the wrappers (nothing else adds here), at f32 and at
 # bf16
@@ -58,11 +78,19 @@ launches = 0
 bwd_launches = 0
 bf16_launches = 0
 bf16_bwd_launches = 0
+# the edge-partitioned layer: K8, and K9 (with the global mean scale)
+r_launches = 0
+r_bwd_launches = 0
+rm_launches = 0
+rm_bwd_launches = 0
 
 _SIGNATURES = {
     "cgr_fused_conv_fwd": ([PTR] * 10 + [I32] * 8 + [PTR], I32),
     "cgr_fused_conv_bwd": ([PTR] * 17 + [I32] * 9 + [PTR], I32),
     "cgr_fused_conv_bwd_scratch_bytes": ([I32] * 6, ctypes.c_longlong),
+    "cgr_fused_conv_r_fwd": ([PTR] * 13 + [I32] * 8 + [PTR], I32),
+    "cgr_fused_conv_r_bwd": ([PTR] * 22 + [I32] * 10 + [PTR], I32),
+    "cgr_fused_conv_r_bwd_scratch_bytes": ([I32] * 5, ctypes.c_longlong),
 }
 _INDEX_NAMES = {"edge_nbr", "rev", "edge_nbr_rev"}
 
@@ -283,3 +311,233 @@ def fused_conv_layer(h, h0, edge_nbr, rev, edge_nbr_rev, w, b, skip, *,
         return fused_conv_layer_ref(h, h0, edge_nbr, rev, w, b, skip, **kw)
     return _FusedConv.apply(kw, edge_nbr, rev, edge_nbr_rev, h, h0, w, b,
                             skip)
+
+
+# -- the edge-partitioned layer (K8 / K9) ------------------------------------
+
+_R_INDEX_NAMES = {"edge_nbr", "rev", "edge_nbr_rev", "senders", "node_out"}
+
+
+def _check_r(args: dict, p: int, tn: int, act: str, mean: bool, train: bool,
+             seed, dropout_p: float) -> None:
+    if act not in KERNEL_ACTS:
+        raise ValueError(f"unsupported kernel activation {act!r}")
+    h, edge_nbr, w = args["h"], args["edge_nbr"], args["w"]
+    if p < 1 or h.shape[0] % p:
+        raise ValueError(f"rows of h {tuple(h.shape)} must split into p={p} "
+                         f"packs")
+    if mean and args.get("scale") is not None:
+        raise ValueError("the global scale (K9) replaces the local mean")
+    ET, (Hin, H) = h.shape[0], w.shape
+    D = edge_nbr.shape[1] if edge_nbr.dim() == 2 else -1
+    D2 = (args["node_out"].shape[1] if "node_out" in args
+          and args["node_out"].dim() == 2 else -1)
+    want = dict(h=(ET, Hin), r=(p * tn, Hin), h0=(ET, H), edge_nbr=(ET, D),
+                rev=(ET,), senders=(ET,), scale=(ET,), edge_nbr_rev=(ET, D),
+                node_out=(p * tn, D2), w=(Hin, H), b=(H,), skip=(),
+                out=(ET, H), g=(ET, H))
+    for name, tsr in args.items():
+        if tsr is not None and tuple(tsr.shape) != want[name]:
+            raise ValueError(f"{name} has shape {tuple(tsr.shape)}, "
+                             f"expected {want[name]}")
+    check_train(train, None if seed is None else [seed], (dropout_p,), 1)
+    check_types({k: v for k, v in args.items() if v is not None}, {},
+                "the edge-partitioned conv layer (f32 only)")
+
+
+def fused_conv_layer_r_ref(h, r, h0, edge_nbr, rev, senders, w, b, skip, *,
+                           p: int, tn: int, scale=None, act: str = "relu",
+                           mean: bool = False, train: bool = False, seed=None,
+                           dropout_p: float = 0.0) -> torch.Tensor:
+    """Plain PyTorch version of K8 (K9 with ``scale``), differentiable:
+    ``dmpnn_messages`` with every index outside its row's pack sent to the
+    sentinel, plus the (scaled) row of r at the sender, then the layer."""
+    _check_r(dict(h=h, r=r, h0=h0, edge_nbr=edge_nbr, rev=rev,
+                  senders=senders, scale=scale, w=w, b=b, skip=skip),
+             p, tn, act, mean, train, seed, dropout_p)
+    ET, H = h0.shape
+    nbr, valid = in_pack(edge_nbr, p, ET)
+    if scale is not None:
+        norm = scale
+    elif mean:
+        norm = mean_colscale(valid)
+    else:
+        norm = torch.ones(ET, dtype=h.dtype, device=h.device)
+    t = dmpnn_messages(h, nbr, in_pack(rev, p, ET)[0], norm)
+    r_src = ext_zero_row(r)[in_pack(senders, p, r.shape[0])[0]]
+    t = t + (r_src if scale is None else scale[:, None] * r_src)
+    out = k_act(act, t @ w + b + skip * h0)
+    if train and dropout_p > 0.0:
+        keep = hash_dropout_keep_full(ET, H, ET // p, int(seed), dropout_p,
+                                      device=h.device)
+        out = torch.where(keep, out * (1.0 / (1.0 - dropout_p)), 0.0)
+    return out
+
+
+def fused_conv_r_backward_ref(h, r, h0, edge_nbr, rev, senders, edge_nbr_rev,
+                              node_out, w, b, skip, out, g, *, p: int,
+                              tn: int, scale=None, act: str = "relu",
+                              mean: bool = False, train: bool = False,
+                              seed=None, dropout_p: float = 0.0):
+    """Plain version of the backward: (dh, dr, dh0, dw, db, dskip) by
+    autograd through :func:`fused_conv_layer_r_ref`; ``edge_nbr_rev``,
+    ``node_out`` and ``out`` are only checked."""
+    _check_r(dict(h=h, r=r, h0=h0, edge_nbr=edge_nbr, rev=rev,
+                  senders=senders, scale=scale, edge_nbr_rev=edge_nbr_rev,
+                  node_out=node_out, w=w, b=b, skip=skip, out=out, g=g),
+             p, tn, act, mean, train, seed, dropout_p)
+    with torch.enable_grad():
+        ins = [t.detach().requires_grad_() for t in (h, r, h0, w, b, skip)]
+        y = fused_conv_layer_r_ref(ins[0], ins[1], ins[2], edge_nbr, rev,
+                                   senders, *ins[3:], p=p, tn=tn, scale=scale,
+                                   act=act, mean=mean, train=train, seed=seed,
+                                   dropout_p=dropout_p)
+        grads = torch.autograd.grad(y, ins, g)
+    return tuple(grads)
+
+
+def _count_r(scale, backward: bool) -> None:
+    key = ("rm_" if scale is not None else "r_") + (
+        "bwd_launches" if backward else "launches")
+    globals()[key] += 1
+
+
+def _launch_r_fwd(h, r, h0, edge_nbr, rev, senders, w, b, skip, p, tn,
+                  scale, act, mean, train, seed, dropout_p) -> torch.Tensor:
+    args = dict(h=h, r=r, h0=h0, edge_nbr=edge_nbr, rev=rev, senders=senders,
+                scale=scale, w=w, b=b, skip=skip)
+    _check_r(args, p, tn, act, mean, train, seed, dropout_p)
+    dev = h.device
+    check_cuda({k: v for k, v in args.items() if v is not None}, dev,
+               _R_INDEX_NAMES)
+    t = torch.empty_like(h)
+    out = torch.empty_like(h0)
+    drop = _drop(train, seed, dropout_p, dev)
+    lib = _lib()
+    ET, Hin, H = h.shape[0], h.shape[1], h0.shape[1]
+    with torch.cuda.device(dev):
+        err = lib.cgr_fused_conv_r_fwd(
+            *(ptr(x) for x in (h, r, h0, edge_nbr, rev, senders, scale, w, b,
+                               skip, drop, t, out)),
+            p, ET // p, tn, Hin, H, edge_nbr.shape[1], KERNEL_ACTS.index(act),
+            int(mean), stream(dev))
+    raise_on(lib, err, "fused_conv_r_fwd")
+    return out
+
+
+def fused_conv_r_forward(h, r, h0, edge_nbr, rev, senders, w, b, skip, *,
+                         p: int, tn: int, scale=None, act: str = "relu",
+                         mean: bool = False, train: bool = False, seed=None,
+                         dropout_p: float = 0.0) -> torch.Tensor:
+    """K8 (K9 with ``scale``) forward -> out [p*te, H], f32.  CUDA tensors
+    launch ``csrc/fused_conv.cu`` or raise; CPU tensors take
+    :func:`fused_conv_layer_r_ref`.  No backward: call
+    :func:`fused_conv_layer_r` for one."""
+    kw = dict(p=p, tn=tn, scale=scale, act=act, mean=mean, train=train,
+              seed=seed, dropout_p=dropout_p)
+    if h.device.type == "cpu":
+        return fused_conv_layer_r_ref(h, r, h0, edge_nbr, rev, senders, w, b,
+                                      skip, **kw)
+    if h.device.type != "cuda":
+        raise ValueError(f"unsupported device {h.device}")
+    refuse_grad((h, r, h0, w, b, skip), "fused_conv_r",
+                "fused_conv_layer_r()")
+    out = _launch_r_fwd(h, r, h0, edge_nbr, rev, senders, w, b, skip, **kw)
+    _count_r(scale, False)
+    return out
+
+
+def _launch_r_bwd(h, r, h0, edge_nbr, rev, senders, edge_nbr_rev, node_out,
+                  w, b, skip, out, g, p, tn, scale, act, mean, train, seed,
+                  dropout_p, needs):
+    args = dict(h=h, r=r, h0=h0, edge_nbr=edge_nbr, rev=rev, senders=senders,
+                scale=scale, edge_nbr_rev=edge_nbr_rev, node_out=node_out,
+                w=w, b=b, skip=skip, out=out, g=g)
+    _check_r(args, p, tn, act, mean, train, seed, dropout_p)
+    dev = h.device
+    check_cuda({k: v for k, v in args.items() if v is not None}, dev,
+               _R_INDEX_NAMES)
+    ET, Hin, H = h.shape[0], h.shape[1], h0.shape[1]
+    S = split_k(ET)
+    lib = _lib()
+    n_scratch = lib.cgr_fused_conv_r_bwd_scratch_bytes(p, ET // p, Hin, H, S)
+    scratch = torch.empty(n_scratch, device=dev, dtype=torch.uint8)
+    grads = [torch.empty_like(t) if need else None
+             for t, need in zip((h, r, h0, w, b, skip), needs)]
+    drop = _drop(train, seed, dropout_p, dev)
+    with torch.cuda.device(dev):
+        err = lib.cgr_fused_conv_r_bwd(
+            *(ptr(x) for x in (h, r, h0, edge_nbr, rev, senders, scale,
+                               edge_nbr_rev, node_out, w, b, skip, drop, out,
+                               g)),
+            *(ptr(x) for x in grads), scratch.data_ptr(), p, ET // p, tn,
+            Hin, H, edge_nbr.shape[1], node_out.shape[1],
+            KERNEL_ACTS.index(act), int(mean), S, stream(dev))
+    raise_on(lib, err, "fused_conv_r_bwd")
+    return tuple(grads)
+
+
+def fused_conv_r_backward(h, r, h0, edge_nbr, rev, senders, edge_nbr_rev,
+                          node_out, w, b, skip, out, g, *, p: int, tn: int,
+                          scale=None, act: str = "relu", mean: bool = False,
+                          train: bool = False, seed=None,
+                          dropout_p: float = 0.0, needs=(True,) * 6):
+    """(dh, dr, dh0, dw, db, dskip) from the cotangent ``g`` of ``out``; an
+    entry whose ``needs`` flag is False is None (and not computed on the
+    card).  CUDA tensors launch ``csrc/fused_conv.cu`` or raise; CPU
+    tensors take :func:`fused_conv_r_backward_ref`."""
+    kw = dict(p=p, tn=tn, scale=scale, act=act, mean=mean, train=train,
+              seed=seed, dropout_p=dropout_p)
+    if h.device.type == "cpu":
+        grads = fused_conv_r_backward_ref(h, r, h0, edge_nbr, rev, senders,
+                                          edge_nbr_rev, node_out, w, b, skip,
+                                          out, g, **kw)
+        return tuple(d if need else None for d, need in zip(grads, needs))
+    grads = _launch_r_bwd(h, r, h0, edge_nbr, rev, senders, edge_nbr_rev,
+                          node_out, w, b, skip, out, g, **kw, needs=needs)
+    _count_r(scale, True)
+    return grads
+
+
+class _FusedConvR(torch.autograd.Function):
+    """Forward: K8 (K9).  Backward: its backward kernel, which recomputes
+    the messages from the saved inputs."""
+
+    @staticmethod
+    def forward(ctx, kw, edge_nbr, rev, senders, edge_nbr_rev, node_out,
+                scale, h, r, h0, w, b, skip):
+        out = _launch_r_fwd(h, r, h0, edge_nbr, rev, senders, w, b, skip,
+                            scale=scale, **kw)
+        _count_r(scale, False)
+        ctx.kw = kw
+        ctx.save_for_backward(edge_nbr, rev, senders, edge_nbr_rev, node_out,
+                              scale, h, r, h0, w, b, skip, out)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        (edge_nbr, rev, senders, edge_nbr_rev, node_out, scale, h, r, h0, w,
+         b, skip, out) = ctx.saved_tensors
+        grads = _launch_r_bwd(h, r, h0, edge_nbr, rev, senders, edge_nbr_rev,
+                              node_out, w, b, skip, out, g.contiguous(),
+                              scale=scale, **ctx.kw,
+                              needs=ctx.needs_input_grad[7:])
+        _count_r(scale, True)
+        return (None,) * 7 + grads
+
+
+def fused_conv_layer_r(h, r, h0, edge_nbr, rev, edge_nbr_rev, senders,
+                       node_out, w, b, skip, *, p: int, tn: int, scale=None,
+                       act: str = "relu", mean: bool = False,
+                       train: bool = False, seed=None,
+                       dropout_p: float = 0.0) -> torch.Tensor:
+    """K8 (K9 with ``scale``), differentiable in h, r, h0, w, b and skip: on
+    the card the forward kernel with the backward kernel as its backward,
+    on the CPU :func:`fused_conv_layer_r_ref` under autograd."""
+    kw = dict(p=p, tn=tn, act=act, mean=mean, train=train, seed=seed,
+              dropout_p=dropout_p)
+    if h.device.type == "cpu":
+        return fused_conv_layer_r_ref(h, r, h0, edge_nbr, rev, senders, w, b,
+                                      skip, scale=scale, **kw)
+    return _FusedConvR.apply(kw, edge_nbr, rev, senders, edge_nbr_rev,
+                             node_out, scale, h, r, h0, w, b, skip)

@@ -31,6 +31,23 @@ gradients stay f32.
   (autograd through the plain forward) only for CPU tensors;
 * :func:`gather_linear` is the forward differentiable in every float input,
   with the backward kernel as its backward on the card.
+
+The edge-partitioned readout (f32 only): K10
+(``pallas_glin.py::fused_gather_linear_r``) adds ``xr`` [p*R, FA], rows
+aligned with the output's, to the gathered sum,
+
+    out = act((G·xa + xr)·wa + xb·wb + b),      dxr = dpre·waᵀ,
+
+and K11 (``fused_gather_linear_pool``) also returns the per-pack group pool
+``pool[q] = sum_{n in pool_ell[q]} out[n]`` [p*GP, H] through the per-group
+node ELL ``pool_ell`` [p*GP, DN]; its backward takes the pool's cotangent
+through ``node_group`` [p*R] (the transpose: the group of each row).  One
+CUDA entry point serves both (K10 is K11 with the pool off):
+:func:`gather_linear_r_forward` / :func:`gather_linear_r_backward` /
+:func:`gather_linear_r` and :func:`gather_linear_pool_forward` /
+:func:`gather_linear_pool_backward` / :func:`gather_linear_pool`, with the
+plain versions ``*_ref``.  Counters ``r_launches`` / ``r_bwd_launches``
+(K10) and ``pool_launches`` / ``pool_bwd_launches`` (K11).
 """
 
 from __future__ import annotations
@@ -42,12 +59,18 @@ from ._launch import (I32, PTR, check_cuda, check_types, count_launch,
                       split_k, stream)
 from .bf16_ref import bf16_gather, bf16_mm, bf16_onehot
 from .kernel_math import KERNEL_ACTS, k_act
-from .segment import pack_gather_sum
+from .segment import ext_zero_row, in_pack, pack_gather_sum
 
 __all__ = ["gather_linear_forward", "gather_linear_forward_ref",
            "gather_linear_backward", "gather_linear_backward_ref",
-           "gather_linear", "launches", "bwd_launches", "bf16_launches",
-           "bf16_bwd_launches"]
+           "gather_linear", "gather_linear_r_forward",
+           "gather_linear_r_forward_ref", "gather_linear_r_backward",
+           "gather_linear_r_backward_ref", "gather_linear_r",
+           "gather_linear_pool_forward", "gather_linear_pool_forward_ref",
+           "gather_linear_pool_backward", "gather_linear_pool_backward_ref",
+           "gather_linear_pool", "launches", "bwd_launches", "bf16_launches",
+           "bf16_bwd_launches", "r_launches", "r_bwd_launches",
+           "pool_launches", "pool_bwd_launches"]
 
 # kernel launches by the wrappers (nothing else adds here), at f32 and at
 # bf16
@@ -55,10 +78,17 @@ launches = 0
 bwd_launches = 0
 bf16_launches = 0
 bf16_bwd_launches = 0
+# the edge-partitioned readout: K10, and K11 (with the group pool)
+r_launches = 0
+r_bwd_launches = 0
+pool_launches = 0
+pool_bwd_launches = 0
 
 _SIGNATURES = {
     "cgr_gather_linear_fwd": ([PTR] * 8 + [I32] * 11 + [PTR], I32),
     "cgr_gather_linear_bwd": ([PTR] * 19 + [I32] * 13 + [PTR], I32),
+    "cgr_gather_linear_r_fwd": ([PTR] * 11 + [I32] * 11 + [PTR], I32),
+    "cgr_gather_linear_r_bwd": ([PTR] * 24 + [I32] * 12 + [PTR], I32),
 }
 _INDEX_NAMES = {"idx", "adj"}
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -267,3 +297,288 @@ def gather_linear(xa, xb, idx, adj, wa, wb, b, *, p: int, act: str = "relu",
     if xa.device.type == "cpu":
         return gather_linear_forward_ref(xa, xb, idx, wa, wb, b, **kw)
     return _GatherLinear.apply(kw, idx, adj, xa, xb, wa, wb, b)
+
+
+# -- the edge-partitioned readout (K10 / K11) ---------------------------------
+
+_R_INDEX_NAMES = {"idx", "adj", "node_group", "pool_ell"}
+
+
+def _check_r(args: dict, p: int, act: str) -> None:
+    if act not in KERNEL_ACTS:
+        raise ValueError(f"unsupported kernel activation {act!r}")
+    xa, xb, idx, wa = args["xa"], args["xb"], args["idx"], args["wa"]
+    if p < 1 or xa.shape[0] % p or xb.shape[0] % p:
+        raise ValueError(f"rows of xa {tuple(xa.shape)} and xb "
+                         f"{tuple(xb.shape)} must split into p={p} packs")
+    rows, FA, H = xb.shape[0], wa.shape[0], wa.shape[1]
+
+    def width(name):
+        t = args.get(name)
+        return t.shape[1] if t is not None and t.dim() == 2 else -1
+
+    GP = args["pool_ell"].shape[0] if args.get("pool_ell") is not None else 0
+    want = dict(xa=(xa.shape[0], FA), xr=(rows, FA),
+                xb=(rows, args["wb"].shape[0]), idx=(rows, width("idx")),
+                adj=(xa.shape[0], width("adj")), node_group=(rows,),
+                pool_ell=(GP, width("pool_ell")), wa=(FA, H),
+                wb=(args["wb"].shape[0], H), b=(H,), out=(rows, H),
+                g=(rows, H), gpool=(GP, H))
+    if GP % p:
+        raise ValueError(f"pool_ell's {GP} rows must split into p={p} packs")
+    for name, tsr in args.items():
+        if tsr is not None and tuple(tsr.shape) != want[name]:
+            raise ValueError(f"{name} has shape {tuple(tsr.shape)}, "
+                             f"expected {want[name]}")
+    check_types({k: v for k, v in args.items() if v is not None}, {},
+                "the edge-partitioned readout (f32 only)")
+
+
+def gather_linear_r_forward_ref(xa, xr, xb, idx, wa, wb, b, *, p: int,
+                                act: str = "relu",
+                                mean: bool = False) -> torch.Tensor:
+    """Plain PyTorch version of K10 (any device), differentiable."""
+    _check_r(dict(xa=xa, xr=xr, xb=xb, idx=idx, wa=wa, wb=wb, b=b), p, act)
+    return k_act(act, (pack_gather_sum(xa, idx, p, mean) + xr) @ wa
+                 + xb @ wb + b)
+
+
+def gather_linear_pool_forward_ref(xa, xr, xb, idx, node_group, pool_ell, wa,
+                                   wb, b, *, p: int, act: str = "relu",
+                                   mean: bool = False):
+    """Plain version of K11: (out, pool), the pool a sum of out's rows
+    through ``pool_ell`` (entries outside the group's pack absent);
+    ``node_group`` is only checked."""
+    _check_r(dict(xa=xa, xr=xr, xb=xb, idx=idx, node_group=node_group,
+                  pool_ell=pool_ell, wa=wa, wb=wb, b=b), p, act)
+    out = gather_linear_r_forward_ref(xa, xr, xb, idx, wa, wb, b, p=p,
+                                      act=act, mean=mean)
+    ids = in_pack(pool_ell, p, out.shape[0])[0]
+    return out, ext_zero_row(out)[ids].sum(dim=1)
+
+
+def gather_linear_r_backward_ref(xa, xr, xb, idx, adj, wa, wb, b, out, g, *,
+                                 p: int, act: str = "relu",
+                                 mean: bool = False):
+    """(dxa, dxr, dxb, dwa, dwb, db) by autograd through
+    :func:`gather_linear_r_forward_ref`; ``adj`` and ``out`` are only
+    checked."""
+    _check_r(dict(xa=xa, xr=xr, xb=xb, idx=idx, adj=adj, wa=wa, wb=wb, b=b,
+                  out=out, g=g), p, act)
+    with torch.enable_grad():
+        ins = [t.detach().requires_grad_() for t in (xa, xr, xb, wa, wb, b)]
+        y = gather_linear_r_forward_ref(ins[0], ins[1], ins[2], idx,
+                                        *ins[3:], p=p, act=act, mean=mean)
+        return tuple(torch.autograd.grad(y, ins, g))
+
+
+def gather_linear_pool_backward_ref(xa, xr, xb, idx, adj, node_group,
+                                    pool_ell, wa, wb, b, out, g, gpool, *,
+                                    p: int, act: str = "relu",
+                                    mean: bool = False):
+    """K11's (dxa, dxr, dxb, dwa, dwb, db) from the cotangents of out and
+    pool, by autograd through :func:`gather_linear_pool_forward_ref`."""
+    _check_r(dict(xa=xa, xr=xr, xb=xb, idx=idx, adj=adj,
+                  node_group=node_group, pool_ell=pool_ell, wa=wa, wb=wb,
+                  b=b, out=out, g=g, gpool=gpool), p, act)
+    with torch.enable_grad():
+        ins = [t.detach().requires_grad_() for t in (xa, xr, xb, wa, wb, b)]
+        y = gather_linear_pool_forward_ref(ins[0], ins[1], ins[2], idx,
+                                           node_group, pool_ell, *ins[3:],
+                                           p=p, act=act, mean=mean)
+        return tuple(torch.autograd.grad(y, ins, (g, gpool)))
+
+
+def _count_r(pool: bool, backward: bool) -> None:
+    key = ("pool_" if pool else "r_") + (
+        "bwd_launches" if backward else "launches")
+    globals()[key] += 1
+
+
+def _launch_r_fwd(xa, xr, xb, idx, wa, wb, b, p, act, mean,
+                  node_group=None, pool_ell=None):
+    args = dict(xa=xa, xr=xr, xb=xb, idx=idx, node_group=node_group,
+                pool_ell=pool_ell, wa=wa, wb=wb, b=b)
+    _check_r(args, p, act)
+    dev = xa.device
+    check_cuda({k: v for k, v in args.items() if v is not None}, dev,
+               _R_INDEX_NAMES)
+    rows, FA, H = xb.shape[0], xa.shape[1], wa.shape[1]
+    t1 = torch.empty((rows, FA), device=dev)
+    out = torch.empty((rows, H), device=dev)
+    GP = 0 if pool_ell is None else pool_ell.shape[0] // p
+    DN = 0 if pool_ell is None else pool_ell.shape[1]
+    pool = None if pool_ell is None else torch.empty((p * GP, H), device=dev)
+    lib = _lib()
+    with torch.cuda.device(dev):
+        err = lib.cgr_gather_linear_r_fwd(
+            *(ptr(t) for t in (xa, xr, xb, idx, pool_ell, wa, wb, b, t1, out,
+                               pool)),
+            *_dims(xa, xb, idx, wa, p), GP, DN, KERNEL_ACTS.index(act),
+            int(mean), stream(dev))
+    raise_on(lib, err, "gather_linear_r_fwd")
+    return out, pool
+
+
+def _launch_r_bwd(xa, xr, xb, idx, adj, wa, wb, b, out, g, p, act, mean,
+                  needs, node_group=None, pool_ell=None, gpool=None):
+    args = dict(xa=xa, xr=xr, xb=xb, idx=idx, adj=adj, node_group=node_group,
+                pool_ell=pool_ell, wa=wa, wb=wb, b=b, out=out, g=g,
+                gpool=gpool)
+    _check_r(args, p, act)
+    dev = xa.device
+    check_cuda({k: v for k, v in args.items() if v is not None}, dev,
+               _R_INDEX_NAMES)
+    rows, FA, FB, H = xb.shape[0], xa.shape[1], xb.shape[1], wa.shape[1]
+
+    def empty(*shape):
+        return torch.empty(shape, device=dev)
+
+    grads = [torch.empty_like(t) if need else None
+             for t, need in zip((xa, xr, xb, wa, wb, b), needs)]
+    S = split_k(rows)
+    scratch = [empty(rows, FA), empty(rows, FA), empty(rows, H), empty(rows),
+               empty(S * max(FA, FB) * H),
+               empty(rows, H) if gpool is not None else None]
+    GP = 0 if gpool is None else gpool.shape[0] // p
+    lib = _lib()
+    with torch.cuda.device(dev):
+        err = lib.cgr_gather_linear_r_bwd(
+            *(ptr(t) for t in (xa, xr, xb, idx, adj, node_group, wa, wb, b,
+                               out, g, gpool)),
+            *(ptr(t) for t in grads), *(ptr(t) for t in scratch),
+            *_dims(xa, xb, idx, wa, p), adj.shape[1], GP,
+            KERNEL_ACTS.index(act), int(mean), S, stream(dev))
+    raise_on(lib, err, "gather_linear_r_bwd")
+    return tuple(grads)
+
+
+def _cpu_or_cuda(xa) -> bool:
+    """True for CPU tensors (the plain version); raises off CPU and CUDA."""
+    if xa.device.type == "cpu":
+        return True
+    if xa.device.type != "cuda":
+        raise ValueError(f"unsupported device {xa.device}")
+    return False
+
+
+def gather_linear_r_forward(xa, xr, xb, idx, wa, wb, b, *, p: int,
+                            act: str = "relu",
+                            mean: bool = False) -> torch.Tensor:
+    """K10's forward -> out [p*R, H] f32.  CUDA tensors launch
+    ``csrc/gather_linear.cu`` or raise; CPU tensors take
+    :func:`gather_linear_r_forward_ref`."""
+    kw = dict(p=p, act=act, mean=mean)
+    if _cpu_or_cuda(xa):
+        return gather_linear_r_forward_ref(xa, xr, xb, idx, wa, wb, b, **kw)
+    refuse_grad((xa, xr, xb, wa, wb, b), "gather_linear_r",
+                "gather_linear_r()")
+    out, _ = _launch_r_fwd(xa, xr, xb, idx, wa, wb, b, **kw)
+    _count_r(False, False)
+    return out
+
+
+def gather_linear_pool_forward(xa, xr, xb, idx, node_group, pool_ell, wa, wb,
+                               b, *, p: int, act: str = "relu",
+                               mean: bool = False):
+    """K11's forward -> (out [p*R, H], pool [p*GP, H]), f32.  CUDA tensors
+    launch ``csrc/gather_linear.cu`` or raise; CPU tensors take
+    :func:`gather_linear_pool_forward_ref`."""
+    kw = dict(p=p, act=act, mean=mean)
+    if _cpu_or_cuda(xa):
+        return gather_linear_pool_forward_ref(xa, xr, xb, idx, node_group,
+                                              pool_ell, wa, wb, b, **kw)
+    refuse_grad((xa, xr, xb, wa, wb, b), "gather_linear_pool",
+                "gather_linear_pool()")
+    res = _launch_r_fwd(xa, xr, xb, idx, wa, wb, b, **kw,
+                        node_group=node_group, pool_ell=pool_ell)
+    _count_r(True, False)
+    return res
+
+
+def gather_linear_r_backward(xa, xr, xb, idx, adj, wa, wb, b, out, g, *,
+                             p: int, act: str = "relu", mean: bool = False,
+                             needs=(True,) * 6):
+    """K10's (dxa, dxr, dxb, dwa, dwb, db) from the cotangent ``g`` of
+    ``out``; an entry whose ``needs`` flag is False is None."""
+    kw = dict(p=p, act=act, mean=mean)
+    if _cpu_or_cuda(xa):
+        grads = gather_linear_r_backward_ref(xa, xr, xb, idx, adj, wa, wb, b,
+                                             out, g, **kw)
+        return tuple(d if need else None for d, need in zip(grads, needs))
+    grads = _launch_r_bwd(xa, xr, xb, idx, adj, wa, wb, b, out, g, **kw,
+                          needs=needs)
+    _count_r(False, True)
+    return grads
+
+
+def gather_linear_pool_backward(xa, xr, xb, idx, adj, node_group, pool_ell,
+                                wa, wb, b, out, g, gpool, *, p: int,
+                                act: str = "relu", mean: bool = False,
+                                needs=(True,) * 6):
+    """K11's (dxa, dxr, dxb, dwa, dwb, db) from the cotangents ``g`` of
+    ``out`` and ``gpool`` of the pool."""
+    kw = dict(p=p, act=act, mean=mean)
+    if _cpu_or_cuda(xa):
+        grads = gather_linear_pool_backward_ref(
+            xa, xr, xb, idx, adj, node_group, pool_ell, wa, wb, b, out, g,
+            gpool, **kw)
+        return tuple(d if need else None for d, need in zip(grads, needs))
+    grads = _launch_r_bwd(xa, xr, xb, idx, adj, wa, wb, b, out, g, **kw,
+                          needs=needs, node_group=node_group,
+                          pool_ell=pool_ell, gpool=gpool)
+    _count_r(True, True)
+    return grads
+
+
+class _GatherLinearR(torch.autograd.Function):
+    """Forward: K10 (K11 with the pool tables).  Backward: its backward
+    kernel, which recomputes the gathered operand."""
+
+    @staticmethod
+    def forward(ctx, kw, idx, adj, node_group, pool_ell, xa, xr, xb, wa, wb,
+                b):
+        out, pool = _launch_r_fwd(xa, xr, xb, idx, wa, wb, b, **kw,
+                                  node_group=node_group, pool_ell=pool_ell)
+        ctx.kw, ctx.pooled = kw, pool is not None
+        _count_r(ctx.pooled, False)
+        ctx.save_for_backward(idx, adj, node_group, pool_ell, xa, xr, xb, wa,
+                              wb, b, out)
+        return (out, pool) if ctx.pooled else out
+
+    @staticmethod
+    def backward(ctx, g, gpool=None):
+        (idx, adj, node_group, pool_ell, xa, xr, xb, wa, wb, b,
+         out) = ctx.saved_tensors
+        pool_kw = (dict(node_group=node_group, pool_ell=pool_ell,
+                        gpool=gpool.contiguous()) if ctx.pooled else {})
+        grads = _launch_r_bwd(xa, xr, xb, idx, adj, wa, wb, b, out,
+                              g.contiguous(), **ctx.kw,
+                              needs=ctx.needs_input_grad[5:], **pool_kw)
+        _count_r(ctx.pooled, True)
+        return (None,) * 5 + grads
+
+
+def gather_linear_r(xa, xr, xb, idx, adj, wa, wb, b, *, p: int,
+                    act: str = "relu", mean: bool = False) -> torch.Tensor:
+    """K10, differentiable in xa, xr, xb, wa, wb and b: on the card the
+    forward kernel with the backward kernel as its backward, on the CPU
+    :func:`gather_linear_r_forward_ref` under autograd."""
+    kw = dict(p=p, act=act, mean=mean)
+    if _cpu_or_cuda(xa):
+        return gather_linear_r_forward_ref(xa, xr, xb, idx, wa, wb, b, **kw)
+    return _GatherLinearR.apply(kw, idx, adj, None, None, xa, xr, xb, wa, wb,
+                                b)
+
+
+def gather_linear_pool(xa, xr, xb, idx, adj, node_group, pool_ell, wa, wb, b,
+                       *, p: int, act: str = "relu", mean: bool = False):
+    """K11 -> (out, pool), differentiable in xa, xr, xb, wa, wb and b: on
+    the card the forward kernel with the backward kernel as its backward,
+    on the CPU :func:`gather_linear_pool_forward_ref` under autograd."""
+    kw = dict(p=p, act=act, mean=mean)
+    if _cpu_or_cuda(xa):
+        return gather_linear_pool_forward_ref(xa, xr, xb, idx, node_group,
+                                              pool_ell, wa, wb, b, **kw)
+    return _GatherLinearR.apply(kw, idx, adj, node_group, pool_ell, xa, xr,
+                                xb, wa, wb, b)

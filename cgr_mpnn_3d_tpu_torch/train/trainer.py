@@ -30,11 +30,18 @@
               continues bit-identically (the loader fast-forwards);
 * NaN guard   a non-finite loss skips its update (the state stays at the
               last good step, seeds included); ``max_bad_steps``
-              consecutive ones abort the run.
+              consecutive ones abort the run;
+* EP          with ``n_ep > 1`` (JAX ``trainer.py:299-313``, :355-386) the
+              batches come from ``parallel.EPPackLoader`` (``ep_te`` /
+              ``ep_tn`` tiles) as (spec, batch), and every shard of a step
+              runs in this process: the step and the validation step are
+              ``parallel.ep_pack``'s, keyed by the loader's spec (rebuilt
+              when the pins grow), with one dropout seed per shard and
+              layer.  f32 only; the gradient histograms are skipped there,
+              as in JAX.
 
-Left out of this slice: data parallelism, edge partitioning, multi-host,
-device-resident epochs, several steps per call, reused packs and loader
-workers (ROADMAP.md).
+Left out: data parallelism, multi-host, device-resident epochs, several
+steps per call, reused packs and loader workers (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -53,6 +60,10 @@ from ..data.loader import PackedLoader
 from ..models.cgr_mpnn import (CGRMPNNConfig, apply,
                                fused_train_value_and_grad, init_params,
                                kernel_seeds, supports_fused_train)
+from ..parallel.ep_loader import EPPackLoader
+from ..parallel.ep_pack import (EPPackedBatch, check_ep_config, ep_shards,
+                                make_ep_pack_eval_step,
+                                make_ep_pack_train_step)
 from ..utils.device import resolve_device
 from .checkpoint import (SEED_STREAM, load_checkpoint,
                          restore_training_state, save_checkpoint)
@@ -105,14 +116,32 @@ class RxnGraphTrainer:
     # save {name}.latest.npz every N successful steps inside an epoch
     ckpt_every_steps: int = 0
     device: str | torch.device = "cuda"
+    # edge partitioning: shards per step, and the EP packer's tile
+    n_ep: int = 1
+    ep_te: int = 128
+    ep_tn: int = 72
 
     def __post_init__(self):
         self.device = resolve_device(self.device)
-        self.train_loader = PackedLoader(self.train_data, self.spec,
-                                         batch_size=self.batch_size,
-                                         shuffle=True, seed=self.seed)
-        self.val_loader = PackedLoader(self.val_data, self.spec,
-                                       batch_size=self.batch_size)
+        self.n_ep = max(1, self.n_ep)
+        if self.n_ep > 1:
+            check_ep_config(self.cfg)
+            self.train_loader = EPPackLoader(self.train_data, self.n_ep,
+                                             batch_size=self.batch_size,
+                                             shuffle=True, seed=self.seed,
+                                             te=self.ep_te, tn=self.ep_tn)
+            self.val_loader = EPPackLoader(self.val_data, self.n_ep,
+                                           batch_size=self.batch_size,
+                                           shuffle=False, te=self.ep_te,
+                                           tn=self.ep_tn)
+        else:
+            self.train_loader = PackedLoader(self.train_data, self.spec,
+                                             batch_size=self.batch_size,
+                                             shuffle=True, seed=self.seed)
+            self.val_loader = PackedLoader(self.val_data, self.spec,
+                                           batch_size=self.batch_size)
+        # the EP steps, keyed by ("t" | "e", the loader's spec)
+        self._ep_steps: dict = {}
         self.model = init_params(self.cfg,
                                  torch.Generator().manual_seed(self.seed),
                                  self.device)
@@ -176,14 +205,40 @@ class RxnGraphTrainer:
 
     # -- steps ------------------------------------------------------------
     def _step_seeds(self) -> torch.Tensor:
+        """The step's dropout seeds: one per conv layer, or [n_ep, depth]
+        (one per shard and layer, in shard order) under EP."""
         self._gen.manual_seed((self._stream[0] << 32) | self._stream[1])
+        if self.n_ep > 1:
+            return torch.randint(0, 2**31 - 1, (self.n_ep, self.cfg.depth),
+                                 generator=self._gen,
+                                 dtype=torch.int64).to(torch.int32)
         return kernel_seeds(self.cfg, self._gen)
+
+    def _ep_step(self, kind: str, spec):
+        """The EP train ("t") or eval ("e") step of ``spec``."""
+        if (kind, spec) not in self._ep_steps:
+            make = (make_ep_pack_train_step if kind == "t"
+                    else make_ep_pack_eval_step)
+            self._ep_steps[(kind, spec)] = make(self.model, spec)
+        return self._ep_steps[(kind, spec)]
+
+    def _to_device(self, item):
+        """A loader item on the trainer's device: a packed batch, or under
+        EP (spec, the shards of its one data-parallel group)."""
+        if self.n_ep == 1:
+            return to_device(item, self.device)
+        spec, stacked = item
+        return spec, ep_shards(EPPackedBatch(*(a[0] for a in stacked)),
+                               self.device)
 
     def _train_step(self, batch) -> float:
         """One step on a device batch: the loss; the update is applied only
         when the loss is finite."""
         spec, seeds = self.train_loader.spec, self._step_seeds()
-        if supports_fused_train(self.cfg):
+        if self.n_ep > 1:
+            spec, shards = batch
+            sse = self._ep_step("t", spec)(shards, seeds)
+        elif supports_fused_train(self.cfg):
             sse = fused_train_value_and_grad(self.model, batch, spec, seeds)
         else:
             self.optimizer.zero_grad()
@@ -223,8 +278,9 @@ class RxnGraphTrainer:
                 # trained before the mid-epoch checkpoint
                 steps_done += 1
                 continue
-            batch = to_device(host_batch, self.device)
-            if self.log_histograms and hist_sample is None:
+            batch = self._to_device(host_batch)
+            if (self.log_histograms and hist_sample is None
+                    and self.n_ep == 1):
                 hist_sample = batch
             loss = self._train_step(batch)
             if not math.isfinite(loss):
@@ -283,7 +339,11 @@ class RxnGraphTrainer:
         total = 0.0
         with torch.no_grad():
             for host_batch in self.val_loader.prefetch():
-                batch = to_device(host_batch, self.device)
+                batch = self._to_device(host_batch)
+                if self.n_ep > 1:
+                    spec, shards = batch
+                    total += float(self._ep_step("e", spec)(shards)[0])
+                    continue
                 total += float(sse_loss(self.model, batch,
                                         self.val_loader.spec))
         rmse = float(np.sqrt(total / len(self.val_data)))

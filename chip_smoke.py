@@ -109,7 +109,25 @@ Phases (any failure raises, and the script exits non-zero):
    1e-2 rel-L2; layered training at bf16, 2 epochs on the card and on the
    CPU, every step launching the bf16 backward kernels, steps/s beside the
    f32 layered step; bench_ops' K6 and K7 rows at bf16 (phase 13);
-17. a ``{"kernels": [...]}`` line, then ``{"ok": true, "device": {...}}`` as
+17. edge partitioning (every shard of a step in this process): K8, K9, K10
+   and K11 against their plain versions at full width on the most wired
+   shard of a wired batch (a 9,600-atom chain cut across the shards and 200
+   synthetic graphs) and on the zero-cut 2,500 graphs with two 480-atom
+   chains at n_ep 2 and 4, forward and backward (ReLU gradients by the
+   float64 rule, backward reruns bit for bit), with times, plain versions'
+   times and bounds; the EP forward and gradients on the card
+   against the single-device model (predictions and SSE against the
+   layered ``apply``, gradients against K2's plain version in float64) at
+   n_ep 2 and 4 (a 2,400-atom chain and 50 synthetic graphs); the EP
+   training step against the single-device layered
+   step on a zero-cut batch (2,500 synthetic graphs and two 480-atom
+   chains) and on the wired batch; ``cli.train.main --ep 2`` with the
+   README's model on the corpus, 3 epochs on the card and 2 on the CPU
+   (zero cut: one K2 per shard and step, validation through K5, K4 and
+   K11); ``RxnGraphTrainer(n_ep=2)`` on a wired dataset with aggr add (K8)
+   and mean (K9), 3 epochs on the card and on the CPU, with the launch
+   counts of every new kernel;
+18. a ``{"kernels": [...]}`` line, then ``{"ok": true, "device": {...}}`` as
    the last line.
 
 It exits non-zero, printing no result, without CUDA or without the package
@@ -2400,6 +2418,469 @@ def mm_probe_phase(seed: int, card: str) -> dict:
     return dict(entry=entry, int8=int8, launches=launches, probe=res)
 
 
+# -- edge partitioning: K8/K9, K10/K11 and the EP paths ---------------------
+
+EP_CHAIN = 9600    # atoms of the full-width wired batch's chain (cut at 2, 4)
+EP_GRAPHS = 200    # synthetic graphs beside it
+
+
+class GraphSet:
+    """A ChemDataset stand-in over graphs in memory (what the EP loader
+    reads of a dataset)."""
+
+    def __init__(self, graphs, labels, F: int, Fe: int = 14):
+        self.graphs, self.labels = graphs, np.asarray(labels, np.float32)
+        self.use_npz = False
+        self.num_node_features, self.num_edge_features = F, Fe
+
+    def __len__(self):
+        return len(self.graphs)
+
+    def graph(self, i):
+        return self.graphs[i]
+
+
+def ep_graphs(seed: int, n_graphs: int, chains, F: int = 270):
+    """Seeded synthetic graphs plus path graphs of ``chains`` atoms, and
+    normal labels."""
+    from cgr_mpnn_3d_tpu_torch.data.synthetic import (chain_graph,
+                                                      synthetic_graphs)
+    rng = np.random.default_rng(seed)
+    graphs = synthetic_graphs(n_graphs, rng, node_feat_dim=F) + [
+        chain_graph(n, rng, F) for n in chains]
+    return graphs, rng.standard_normal(len(graphs)).astype(np.float32)
+
+
+def ep_zero():
+    """Every launch counter the EP paths move, set to 0."""
+    from cgr_mpnn_3d_tpu_torch.ops import conv_stack as cs
+    from cgr_mpnn_3d_tpu_torch.ops import fused_conv as fc
+    from cgr_mpnn_3d_tpu_torch.ops import fused_model as fm
+    from cgr_mpnn_3d_tpu_torch.ops import gather_linear as gl
+    for m, keys in ((gl, ("launches", "bwd_launches", "r_launches",
+                          "r_bwd_launches", "pool_launches",
+                          "pool_bwd_launches")),
+                    (fc, ("launches", "bwd_launches", "r_launches",
+                          "r_bwd_launches", "rm_launches",
+                          "rm_bwd_launches")),
+                    (cs, ("launches", "bwd_launches")),
+                    (fm, ("launches", "train_launches", "vjp_launches"))):
+        for k in keys:
+            setattr(m, k, 0)
+
+
+def ep_counts() -> dict:
+    """(forward, backward) launches of each kernel the EP paths run."""
+    from cgr_mpnn_3d_tpu_torch.ops import conv_stack as cs
+    from cgr_mpnn_3d_tpu_torch.ops import fused_conv as fc
+    from cgr_mpnn_3d_tpu_torch.ops import fused_model as fm
+    from cgr_mpnn_3d_tpu_torch.ops import gather_linear as gl
+    return dict(K5=(gl.launches, gl.bwd_launches),
+                K4=(cs.launches, cs.bwd_launches),
+                K8=(fc.r_launches, fc.r_bwd_launches),
+                K9=(fc.rm_launches, fc.rm_bwd_launches),
+                K10=(gl.r_launches, gl.r_bwd_launches),
+                K11=(gl.pool_launches, gl.pool_bwd_launches),
+                K2=fm.train_launches, K3f=fm.launches)
+
+
+def conv_r_cost(h, r, h0, b, w, p: int, edges: int, backward: bool,
+                scale=None) -> tuple[float, float, float]:
+    """conv_cost of K6 (ReLU) plus the boundary term of K8/K9 on these
+    inputs: one add (K9: and a multiply) per counted sender and column;
+    r, senders and the scale read once; backward also the dr gather's adds
+    through node_out, node_out read and dr written once."""
+    from cgr_mpnn_3d_tpu_torch.ops.segment import in_pack
+    prod, other, nbytes = conv_cost(h, h0, b.edge_nbr, b.rev, w, p, edges,
+                                    backward)
+    n_r = int(in_pack(b.senders, p, r.shape[0])[1].sum()) * h.shape[1]
+    n_r *= 2 if scale is not None else 1
+    extra = nbytes_of(r, b.senders) + (0 if scale is None
+                                       else nbytes_of(scale))
+    if not backward:
+        return prod, other + n_r, nbytes + extra
+    return (prod, other + 2 * n_r,
+            nbytes + extra + nbytes_of(b.node_out, r))
+
+
+def glin_r_cost(xa, xr, xb, b, wa, p: int, backward: bool,
+                pool: bool) -> tuple[float, float, float]:
+    """glin_cost of the readout (K5 through node_inc) plus K10's xr and
+    K11's pool on these inputs: one add per element of xr (backward: dxr
+    written), and per counted pool entry and column (forward: pool_ell read
+    and the pool written; backward: node_group and the pool's cotangent
+    read, one add per output element)."""
+    from cgr_mpnn_3d_tpu_torch.ops.segment import in_pack
+    adj = b.dst[:, None] if backward else None
+    prod, other, nbytes = glin_cost(xa, xb, b.node_inc, wa, p, xb.shape[0],
+                                    xa.shape[0], adj)
+    rows, H = xr.shape[0], wa.shape[1]
+    other += xr.numel()
+    nbytes += nbytes_of(xr) * (2 if backward else 1)
+    if pool and not backward:
+        other += int(in_pack(b.pool_ell, p, rows)[1].sum()) * H
+        nbytes += nbytes_of(b.pool_ell) + b.pool_ell.shape[0] * H * 4
+    elif pool:
+        other += rows * H
+        nbytes += nbytes_of(b.node_group) + b.pool_ell.shape[0] * H * 4
+    return prod, other, nbytes
+
+
+def ep_kernels(seed: int, repeats: int, n_ep: int, n_graphs: int = EP_GRAPHS,
+               chains=(EP_CHAIN,)) -> dict:
+    """K8, K9, K10 and K11 against their plain versions at full width
+    (hidden 400, F = 270) on the most wired shard of a batch of
+    ``n_graphs`` synthetic graphs and chains of ``chains`` atoms (te 128 /
+    tn 72 before the tile grows to a chain's fragment; by default the wired
+    batch, whose chain is cut), seeded inputs (r random, as the kernels'
+    work does not depend on the cut): forward at REL_TOL, backward by the
+    float64 rule of hold (ReLU), a second backward bit for bit; times of
+    both, plain versions' and bounds."""
+    import torch
+    from cgr_mpnn_3d_tpu_torch.ops import fused_conv as fc
+    from cgr_mpnn_3d_tpu_torch.ops import gather_linear as gl
+    from cgr_mpnn_3d_tpu_torch.parallel import ep_shards, pack_shard_edges
+    graphs, labels = ep_graphs(seed, n_graphs, chains)
+    host, spec = pack_shard_edges(graphs, labels, n_ep, te=128, tn=72)
+    check(any(spec.caps) or chains != (EP_CHAIN,),
+          f"the wired batch has no cut at n_ep={n_ep}")
+    shards = ep_shards(host, DEVICE)
+    b = max(shards, key=lambda s: float(s.halo_mask.sum()))
+    gen = torch.Generator().manual_seed(seed)
+    H, F, p = 400, 270, spec.p
+
+    def rand(*shape, scale=1.0):
+        return (torch.randn(shape, generator=gen) * scale).to(DEVICE)
+
+    h, h0, r = rand(spec.pe, H).relu(), rand(spec.pe, H).relu(), \
+        rand(spec.pn, H, scale=0.5)
+    w, bias = rand(H, H, scale=H ** -0.5), rand(H, scale=0.1)
+    skip = torch.tensor(1.0, device=DEVICE)
+    scale = torch.cat([b.inv_deg, b.inv_deg.new_zeros(1)])[
+        b.senders.long()].contiguous()
+    E = int((b.senders < spec.pn).sum())
+    out: dict = dict(p=p, te=spec.te, tn=spec.tn, caps=spec.caps, edges=E,
+                     halo=int(b.halo_mask.sum()))
+    conv = (h, r, h0, b.edge_nbr, b.rev, b.senders)
+    conv_w = (w, bias, skip)
+    g = rand(spec.pe, H)
+    with torch.no_grad():
+        for name, sc in (("K8", None), ("K9", scale)):
+            kw = dict(p=p, tn=spec.tn, scale=sc)
+            y = held(out, f"{name} fwd", fc.fused_conv_r_forward,
+                     fc.fused_conv_layer_r_ref, (*conv, *conv_w), kw, kw)
+            args = (*conv, b.edge_nbr_rev, b.node_out, *conv_w, y, g)
+            held(out, f"{name} bwd", fc.fused_conv_r_backward,
+                 fc.fused_conv_r_backward_ref, args, kw, kw, True, True)
+            if repeats:
+                _timed(out[f"{name} fwd"],
+                       lambda: fc.fused_conv_r_forward(*conv, *conv_w, **kw),
+                       lambda: fc.fused_conv_layer_r_ref(*conv, *conv_w,
+                                                         **kw),
+                       repeats, conv_r_cost(h, r, h0, b, w, p, E, False, sc))
+                _timed(out[f"{name} bwd"],
+                       lambda: fc.fused_conv_r_backward(*args, **kw),
+                       lambda: fc.fused_conv_r_backward_ref(*args, **kw),
+                       repeats, conv_r_cost(h, r, h0, b, w, p, E, True, sc))
+        xr = rand(spec.pn, H, scale=0.5)
+        x = b.node_x
+        wa, wb, bb = rand(H, H, scale=H ** -0.5), rand(F, H, scale=F ** -0.5), \
+            rand(H, scale=0.1)
+        gn = rand(spec.pn, H)
+        kw = dict(p=p)
+        ro = (h, xr, x, b.node_inc)
+        y = held(out, "K10 fwd", gl.gather_linear_r_forward,
+                 gl.gather_linear_r_forward_ref, (*ro, wa, wb, bb), kw, kw)
+        args10 = (*ro, b.dst[:, None], wa, wb, bb, y, gn)
+        held(out, "K10 bwd", gl.gather_linear_r_backward,
+             gl.gather_linear_r_backward_ref, args10, kw, kw, True, True)
+        pool_t = (b.node_group, b.pool_ell)
+        y, pool = held(out, "K11 fwd", gl.gather_linear_pool_forward,
+                       gl.gather_linear_pool_forward_ref,
+                       (*ro, *pool_t, wa, wb, bb), kw, kw)
+        gp = rand(*pool.shape)
+        args11 = (*ro, b.dst[:, None], *pool_t, wa, wb, bb, y, gn, gp)
+        held(out, "K11 bwd", gl.gather_linear_pool_backward,
+             gl.gather_linear_pool_backward_ref, args11, kw, kw, True, True)
+        torch.cuda.synchronize()
+        if repeats:
+            for name, fwd, ref, fargs, bwd, bref, bargs, pooled in (
+                    ("K10", gl.gather_linear_r_forward,
+                     gl.gather_linear_r_forward_ref, (*ro, wa, wb, bb),
+                     gl.gather_linear_r_backward,
+                     gl.gather_linear_r_backward_ref, args10, False),
+                    ("K11", gl.gather_linear_pool_forward,
+                     gl.gather_linear_pool_forward_ref,
+                     (*ro, *pool_t, wa, wb, bb),
+                     gl.gather_linear_pool_backward,
+                     gl.gather_linear_pool_backward_ref, args11, True)):
+                _timed(out[f"{name} fwd"], lambda: fwd(*fargs, **kw),
+                       lambda: ref(*fargs, **kw), repeats,
+                       glin_r_cost(h, xr, x, b, wa, p, False, pooled))
+                _timed(out[f"{name} bwd"], lambda: bwd(*bargs, **kw),
+                       lambda: bref(*bargs, **kw), repeats,
+                       glin_r_cost(h, xr, x, b, wa, p, True, pooled))
+    return out
+
+
+def print_ep_kernels(what: str, k: dict, card: str) -> None:
+    print(f"EP kernels {what}: {k['p']} packs of te {k['te']} / tn "
+          f"{k['tn']}, caps {k['caps']}, {k['edges']} edges, {k['halo']} "
+          f"halo slots [{card}]")
+    for name, e in k.items():
+        if not isinstance(e, dict):
+            continue
+        line = f"  {name}: max abs err {e['abs_err']:.3e}"
+        if "l1_64" in e:
+            line += (f", L1 vs float64 kernel {e['l1_64'][0]:.3e} plain "
+                     f"{e['l1_64'][1]:.3e}")
+        if "ms" in e:
+            line += (f"; kernel {e['ms']:.4f} ms, plain {e['plain_ms']:.4f} "
+                     f"ms, bound {e['bound_ms']:.4f} ms by {e['bound_by']} "
+                     f"({e['ops'] / 1e9:.3f} GOP, {e['bytes'] / 1e6:.3f} MB)")
+        print(line)
+
+
+def single_device_batch(graphs, labels, device):
+    """``graphs`` packed by the single-device packer into packs big enough
+    for the largest graph (tb 64) -> (spec, batch on ``device``)."""
+    from cgr_mpnn_3d_tpu_torch.data import (pack_graphs, packs_needed,
+                                            place_graphs, to_device)
+    from cgr_mpnn_3d_tpu_torch.data.batch import PackSpec
+    te = max(256, -(-max(g.num_edges for g in graphs) // 8) * 8)
+    tn = max(128, -(-max(g.num_nodes for g in graphs) // 8) * 8)
+    d = max(int(np.bincount(g.receivers).max()) for g in graphs
+            if g.num_edges)
+    dn = max(g.num_nodes for g in graphs)
+    spec = PackSpec(te=te, tn=tn, tb=64, d=d, dn=dn)
+    p = packs_needed(graphs, spec)
+    while not place_graphs(graphs, spec.with_packs(p)):
+        p += 1
+    spec = spec.with_packs(p)
+    return spec, to_device(pack_graphs(graphs, list(labels), spec), device)
+
+
+def ep_vs_single(seed: int, n_ep: int, graphs, labels) -> dict:
+    """The EP forward and gradients on the card (every shard in this
+    process: K5, K8 per layer, K11) against the single-device model on the
+    same graphs and weights at full width (ReLU, add/add, depth 4): the
+    predictions against the layered ``apply`` on the card at REL_TOL, the
+    SSE too, and the gradients against K2's plain version by the float64
+    rule of hold; with the launch counts of the EP run."""
+    import dataclasses
+    import torch
+    from cgr_mpnn_3d_tpu_torch.models import CGRMPNN, CGRMPNNConfig, apply
+    from cgr_mpnn_3d_tpu_torch.models import init_params
+    from cgr_mpnn_3d_tpu_torch.parallel import (ep_pack_forward, ep_shards,
+                                                pack_shard_edges)
+    cfg = CGRMPNNConfig(num_node_features=270, num_edge_features=14,
+                        depth=4, hidden_sizes=(400,) * 4,
+                        dropout_ps=(0.0,) * 4)
+    whole = init_params(cfg, torch.Generator().manual_seed(seed), DEVICE)
+    layered = CGRMPNN(dataclasses.replace(cfg, fuse_whole_model=False)).to(
+        DEVICE)
+    layered.load_state_dict(whole.state_dict())
+    host, spec = pack_shard_edges(graphs, labels, n_ep, te=128, tn=72)
+    shards = ep_shards(host, DEVICE)
+    spec1, batch1 = single_device_batch(graphs, labels, DEVICE)
+    mask = batch1.graph_mask > 0
+    rows = batch1.row_ids.long()[mask]
+    out: dict = dict(n_ep=n_ep, caps=spec.caps, p=spec.p, te=spec.te,
+                     graphs=len(graphs))
+    with torch.no_grad():
+        want = apply(layered, batch1, spec1)[mask]
+    ep_zero()
+    sse, preds = ep_pack_forward(layered, shards, spec)
+    sse.backward()
+    torch.cuda.synchronize()
+    out["launches"] = ep_counts()
+    hold(out, "preds", preds.detach()[rows], want)
+    hold(out, "sse", sse.detach(),
+         ((want - batch1.labels[mask]) ** 2).sum())
+    seeds = torch.zeros(cfg.depth, dtype=torch.int32)
+    hold(out, "grads", [w.grad for w in layered.parameters()],
+         k2_plain_grads(whole, batch1, spec1, seeds, torch.float32), True,
+         lambda: k2_plain_grads(whole, batch1, spec1, seeds, torch.float64))
+    return out
+
+
+def ep_step_times(seed: int, card: str) -> dict:
+    """The EP training step's compute (every shard in this process,
+    autograd through the layered EP kernels) at n_ep 2 against the
+    single-device layered step (K5, K4, K5, K7) on the same graphs at full
+    width, on the zero-cut batch (2,500 synthetic graphs and two 480-atom
+    chains: K5, K4, K11 per shard) and on the wired batch (K5, K8 per
+    layer, K11 per shard): ms per step over 3 steps (host clock around
+    steps ending in a synchronize), and the wired step's device busy share
+    under torch.profiler."""
+    import torch
+    from cgr_mpnn_3d_tpu_torch.models import CGRMPNNConfig, init_params
+    from cgr_mpnn_3d_tpu_torch.parallel import (ep_shards,
+                                                make_ep_pack_train_step,
+                                                pack_shard_edges)
+    from cgr_mpnn_3d_tpu_torch.train import sse_loss
+    cfg = CGRMPNNConfig(num_node_features=270, num_edge_features=14,
+                        depth=4, hidden_sizes=(400,) * 4,
+                        dropout_ps=(0.1,) * 4, fuse_whole_model=False)
+    model = init_params(cfg, torch.Generator().manual_seed(seed), DEVICE)
+    seeds = torch.randint(0, 2**31 - 1, (2, 4), dtype=torch.int32)
+    res = {}
+    for case, (n, chains) in (("zero-cut", (2500, (480, 480))),
+                              ("wired", (EP_GRAPHS, (EP_CHAIN,)))):
+        graphs, labels = ep_graphs(seed, n, chains)
+        host, spec = pack_shard_edges(graphs, labels, 2, te=128, tn=72)
+        shards = ep_shards(host, DEVICE)
+        spec1, batch1 = single_device_batch(graphs, labels, DEVICE)
+        ep_step = make_ep_pack_train_step(model, spec)
+
+        def single():
+            model.zero_grad(set_to_none=True)
+            sse_loss(model, batch1, spec1, train=True,
+                     seeds=seeds[0]).backward()
+
+        def ep():
+            ep_step(shards, seeds)
+
+        ms = {}
+        for name, fn in (("single", single), ("ep", ep), ("ep2", ep),
+                         ("single2", single)):
+            fn()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(3):
+                fn()
+            torch.cuda.synchronize()
+            ms[name] = (time.perf_counter() - t0) / 3 * 1e3
+        entry = dict(ep_ms=(ms["ep"] + ms["ep2"]) / 2,
+                     single_ms=(ms["single"] + ms["single2"]) / 2,
+                     caps=spec.caps, p=spec.p, te=spec.te,
+                     single_p=spec1.p, single_te=spec1.te)
+        if case == "wired":
+            wall, dev_ms, top = device_busy(ep, top=6)
+            entry.update(busy=dev_ms / wall, top=top)
+        res[case] = entry
+        print(f"EP step n_ep 2 {case} ({len(graphs)} graphs, caps "
+              f"{spec.caps}, {spec.p} packs of te {spec.te} per shard): "
+              f"{entry['ep_ms']:.3f} ms against the single-device layered "
+              f"step {entry['single_ms']:.3f} ms ({spec1.p} packs of te "
+              f"{spec1.te})" + (f"; device busy {100 * entry['busy']:.1f}% "
+                                f"of the EP step, by kernel {entry['top']}"
+                                if "busy" in entry else "") + f" [{card}]")
+    return res
+
+
+def ep_cli_phase(tmp: Path, seed: int, card: str) -> dict:
+    """``cli.train.main --ep 2`` with the README's model and flags on the
+    corpus, 3 epochs on the card and 2 on the CPU (zero cut: one K2 per
+    shard and step; validation through K5, K4, K11; the test after
+    training through K3f), per-epoch RMSE held at TRAIN_TOL; steps/s per
+    epoch (StepTimer).  Its runs/ go to ``tmp/ep_cli``."""
+    import torch
+    data = tmp / "datasets"
+    cwd = os.getcwd()
+    (tmp / "ep_cli").mkdir(exist_ok=True)
+    os.chdir(tmp / "ep_cli")
+    try:
+        ep_zero()
+        t0 = time.perf_counter()
+        card_res = train_cli(tmp, data, seed, DEVICE, 3, "ep_card", "--ep",
+                             "2")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = ep_counts()
+        cpu_res = train_cli(tmp, data, seed, "cpu", 2, "ep_cpu", "--ep", "2",
+                            "--skip_test")
+        steps_per_s = [json.loads(line).get("steps_per_s")
+                       for f in Path("runs").glob("*_e-3_*.jsonl")
+                       for line in f.read_text().splitlines()
+                       if '"train_loss"' in line]
+    finally:
+        os.chdir(cwd)
+    steps = card_res["steps"]
+    check(steps > 0 and launches["K2"] == 2 * steps,
+          f"--ep 2: {launches['K2']} K2 launches for {steps} steps (one per "
+          f"shard and step on the zero-cut corpus)")
+    check(launches["K5"][0] > 0 and launches["K4"][0] > 0
+          and launches["K11"][0] > 0 and launches["K3f"] > 0,
+          f"--ep 2 validation or test launched no kernel: {launches}")
+    check(launches["K8"] == launches["K9"] == (0, 0),
+          f"the zero-cut corpus launched K8/K9: {launches}")
+    rel = max(abs(a - b) / abs(b) for key in ("train_losses", "val_losses")
+              for a, b in zip(card_res[key], cpu_res[key]))
+    check(all(np.isfinite(card_res[k]).all() for k in ("train_losses",
+                                                       "val_losses"))
+          and rel <= TRAIN_TOL,
+          f"--ep 2 card vs CPU per-epoch RMSE differ by {rel:.3e}")
+    print(f"train cli --ep 2 card: 3 epochs, {steps} steps in {wall:.3f} s "
+          f"wall, train RMSE {card_res['train_losses']}, val RMSE "
+          f"{card_res['val_losses']}, test RMSE {card_res['test_losses']}; "
+          f"launches {launches}; steps/s per epoch (StepTimer) "
+          f"{steps_per_s}; card vs CPU (2 epochs) max rel diff {rel:.3e} "
+          f"(limit {TRAIN_TOL}) [{card}]")
+    return dict(launches=launches, steps_per_s=steps_per_s, rel=rel)
+
+
+def ep_train_wired(tmp: Path, seed: int, card: str) -> dict:
+    """RxnGraphTrainer with ``n_ep=2`` on a wired dataset (a 480-atom chain
+    and 7 synthetic graphs, one batch: the chain is cut), the README's
+    model at full width with dropout 0.1, aggr add (K8) and mean (K9), 3
+    epochs on the card and on the CPU: per-epoch RMSE held at TRAIN_TOL,
+    and per epoch K5, K8 (K9) per layer and K11 once per shard forward
+    and backward in the step, forward again in validation."""
+    import torch
+    from cgr_mpnn_3d_tpu_torch.data.batch import PackSpec
+    from cgr_mpnn_3d_tpu_torch.models import CGRMPNNConfig
+    from cgr_mpnn_3d_tpu_torch.train import RxnGraphTrainer
+    graphs, labels = ep_graphs(seed + 3, 7, (480,))
+    ds = GraphSet(graphs, labels, 270)
+    out = {}
+    for aggr, conv in (("add", "K8"), ("mean", "K9")):
+        cfg = CGRMPNNConfig(num_node_features=270, num_edge_features=14,
+                            depth=4, hidden_sizes=(400,) * 4,
+                            dropout_ps=(0.1,) * 4, aggr=aggr)
+
+        def trainer(device):
+            return RxnGraphTrainer(
+                name=f"ep_wired_{aggr}_{device}", cfg=cfg, train_data=ds,
+                val_data=ds, spec=PackSpec(), lr=1e-4, weight_decay=1e-5,
+                gamma=0.9, num_epochs=3, batch_size=len(ds), val_frequency=1,
+                seed=seed, model_save_dir=str(tmp / f"ep_wired_{device}"),
+                device=device, n_ep=2)
+
+        ep_zero()
+        card_res = trainer(DEVICE).train()
+        torch.cuda.synchronize()
+        launches = ep_counts()
+        cpu_res = trainer("cpu").train()
+        want = {"K5": (12, 6), conv: (48, 24), "K11": (12, 6)}
+        check(card_res["steps"] == 3
+              and all(launches[k] == v for k, v in want.items())
+              and launches["K2"] == 0,
+              f"wired {aggr} training launches {launches}, expected {want}")
+        rel = max(abs(a - b) / abs(b) for key in ("train_losses",
+                                                  "val_losses")
+                  for a, b in zip(card_res[key], cpu_res[key]))
+        check(all(np.isfinite(card_res[k]).all() for k in ("train_losses",
+                                                           "val_losses"))
+              and rel <= TRAIN_TOL,
+              f"wired {aggr} card vs CPU per-epoch RMSE differ by {rel:.3e}")
+        print(f"train wired EP {aggr} n_ep 2: 3 steps, train RMSE "
+              f"{card_res['train_losses']}, val RMSE "
+              f"{card_res['val_losses']}; launches {launches}; card vs CPU "
+              f"max rel diff {rel:.3e} (limit {TRAIN_TOL}) [{card}]")
+        out[aggr] = dict(launches=launches, rel=rel)
+    return out
+
+
+def print_ep_vs_single(k: dict, card: str) -> None:
+    print(f"EP vs single device, n_ep {k['n_ep']} (caps {k['caps']}, "
+          f"{k['p']} packs of te {k['te']} per shard, {k['graphs']} graphs): "
+          f"preds rel err {k['preds']['rel_err']:.3e}, sse rel err "
+          f"{k['sse']['rel_err']:.3e}, gradients L1 vs float64 "
+          f"{k['grads']['l1_64'][0]:.3e} (plain {k['grads']['l1_64'][1]:.3e})"
+          f"; launches {k['launches']} [{card}]")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2591,6 +3072,33 @@ def main(argv=None) -> int:
     bench_ops_phase(card, args.seed)
     p2 = mm_probe_phase(args.seed, card)
 
+    # edge partitioning: every shard of a step in this process
+    ep_k = {n: ep_kernels(args.seed, lay_reps, n) for n in (2, 4)}
+    for n, k in ep_k.items():
+        print_ep_kernels(f"full width, wired batch, n_ep {n}", k, card)
+    for n in (2, 4):
+        # 2,500 graphs and two 480-atom chains: LPT gives each chain whole
+        # to a shard (neither holds 1/n_ep of the edges), so no cut
+        print_ep_kernels(f"full width, 2,500 graphs + two 480-atom chains "
+                         f"(zero cut), n_ep {n}", ep_kernels(
+                             args.seed, lay_reps, n, 2500, (480, 480)), card)
+    # a smaller wired batch here: K2's plain version in float64 gathers
+    # [graphs, nodes of the largest graph, hidden] for the pooling
+    wired = ep_graphs(args.seed, 50, (2400,))
+    for n in (2, 4):
+        print_ep_vs_single(ep_vs_single(args.seed, n, *wired), card)
+    ep_step_times(args.seed, card)
+    with tempfile.TemporaryDirectory() as tmp:
+        training_data(Path(tmp), args.seed)
+        ep_cli = ep_cli_phase(Path(tmp), args.seed, card)
+        ep_wired = ep_train_wired(Path(tmp), args.seed, card)
+    print(f"train steps/s per epoch (StepTimer), README model on the corpus:"
+          f" --ep 2 {ep_cli['steps_per_s']} against the single-device run's "
+          f"{trn['steps_per_s']} [{card}]")
+    ep_launches = {k: sum(ep_cli["launches"][k]) + sum(
+        sum(run["launches"][k]) for run in ep_wired.values())
+        for k in ("K8", "K9", "K10", "K11")}
+
     def kernel(name, cu, replaces, launches, k):
         return {"name": name, "route": "cuda",
                 "source": f"cgr_mpnn_3d_tpu_torch/csrc/{cu}",
@@ -2652,7 +3160,15 @@ def main(argv=None) -> int:
         kernel("fused_conv_bf16", "fused_conv.cu", "pallas_fused.py:330",
                sum(cap16["launches"]["K6"]), conv_k16["K6 fwd eval"]),
         kernel("mm_probe", "mm_probe.cu", "tools/int8_microbench.py:72",
-               p2["launches"], p2["entry"])]}))
+               p2["launches"], p2["entry"]),
+        kernel("fused_conv_r", "fused_conv.cu", "pallas_fused.py:555",
+               ep_launches["K8"], ep_k[2]["K8 fwd"]),
+        kernel("fused_conv_rm", "fused_conv.cu", "pallas_fused.py:686",
+               ep_launches["K9"], ep_k[2]["K9 fwd"]),
+        kernel("gather_linear_r", "gather_linear.cu", "pallas_glin.py:306",
+               ep_launches["K10"], ep_k[2]["K10 fwd"]),
+        kernel("gather_linear_pool", "gather_linear.cu", "pallas_glin.py:491",
+               ep_launches["K11"], ep_k[2]["K11 fwd"])]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -873,3 +873,179 @@ def test_bf16_layered_and_capture_on_card_match_cpu(cuda, capture):
     assert _cos(g1, g0) >= 0.999
     assert _share([p1[mask]], [p0[mask]], [p32[mask]]) <= 0.5
     assert _share(g1, g0, g32) <= 0.5
+
+
+# -- edge partitioning: K8/K9, K10/K11 and the EP step ------------------------
+
+def _ep_case(cuda, n_ep=4, seed=11, F=78, wide=False):
+    """A wired EP batch (a chain of 200 atoms cut across the shards, one of
+    33 and six small graphs; with ``wide``, a random graph of 64 nodes and
+    96 edge pairs, which every split cuts wide) as per-shard tensors on the
+    card, with a seeded rand()."""
+    from cgr_mpnn_3d_tpu_torch.chem.featurize import GraphArrays
+    from cgr_mpnn_3d_tpu_torch.data.synthetic import chain_graph
+    from cgr_mpnn_3d_tpu_torch.parallel import ep_shards, pack_shard_edges
+    rng = np.random.default_rng(seed)
+    if wide:
+        u = rng.integers(0, 64, 96)
+        v = (u + rng.integers(1, 64, 96)) % 64
+        big = GraphArrays(
+            rng.normal(size=(64, F)).astype(np.float32),
+            rng.normal(size=(192, 14)).astype(np.float32),
+            np.stack([u, v], 1).reshape(-1).astype(np.int32),
+            np.stack([v, u], 1).reshape(-1).astype(np.int32),
+            np.arange(192, dtype=np.int32) ^ 1)
+    else:
+        big = chain_graph(200, rng, F)
+    graphs = [big, chain_graph(33, rng, F)] + \
+        synthetic_graphs(6, rng, node_feat_dim=F)
+    labels = [0.7 * i - 2.0 for i in range(len(graphs))]
+    b, spec = pack_shard_edges(graphs, labels, n_ep, te=64, tn=32)
+    assert any(spec.caps)
+
+    def rand(*shape, scale=1.0):
+        return torch.from_numpy((rng.standard_normal(shape) * scale)
+                                .astype(np.float32)).to(cuda)
+    return spec, ep_shards(b, cuda), rand
+
+
+@pytest.mark.parametrize("act,global_mean,drop", [("relu", False, 0.1),
+                                                  ("relu", True, 0.0),
+                                                  ("gelu", True, 0.3),
+                                                  ("silu", False, 0.0)])
+def test_fused_conv_r_kernel_matches_plain(cuda, act, global_mean, drop):
+    """K8 (K9 with the global scale) forward and backward against the plain
+    version on a wired shard; the backward reruns bit for bit."""
+    from cgr_mpnn_3d_tpu_torch.ops import fused_conv as fc
+    spec, shards, rand = _ep_case(cuda)
+    b = max(shards, key=lambda s: float(s.halo_mask.sum()))
+    PE, PN, H = spec.pe, spec.pn, 40
+    scale = (torch.cat([b.inv_deg, b.inv_deg.new_zeros(1)])[
+        b.senders.long()].contiguous() if global_mean else None)
+    ins = (rand(PE, H), rand(PN, H), rand(PE, H), b.edge_nbr, b.rev,
+           b.senders)
+    ws = (rand(H, H, scale=0.2), rand(H, scale=0.1),
+          torch.tensor(0.8, device=cuda))
+    kw = dict(p=spec.p, tn=spec.tn, scale=scale, act=act, train=drop > 0,
+              seed=2**31 - 2 if drop else None, dropout_p=drop)
+    key = "rm_" if global_mean else "r_"
+    before = (getattr(fc, key + "launches"), getattr(fc, key + "bwd_launches"))
+    out = fc.fused_conv_r_forward(*ins, *ws, **kw)
+    want = fc.fused_conv_layer_r_ref(*ins, *ws, **kw)
+    g = rand(*out.shape)
+    bwd = (*ins, b.edge_nbr_rev, b.node_out, *ws)
+    grads = fc.fused_conv_r_backward(*bwd, out, g, **kw)
+    assert (getattr(fc, key + "launches"),
+            getattr(fc, key + "bwd_launches")) == (before[0] + 1,
+                                                   before[1] + 1)
+    ref = fc.fused_conv_r_backward_ref(*bwd, want, g, **kw)
+    torch.cuda.synchronize()
+    assert _rel(out, want) <= 1e-4
+    assert [t.shape for t in grads] == [t.shape for t in ref]
+    kw64 = dict(kw, scale=None if scale is None else scale.double())
+    _held(act, grads, ref, lambda: fc.fused_conv_r_backward_ref(
+        *_f64(ins), b.edge_nbr_rev, b.node_out, *_f64(ws), want.double(),
+        g.double(), **kw64))
+    again = fc.fused_conv_r_backward(*bwd, out, g, **kw)
+    assert all(torch.equal(x, y) for x, y in zip(grads, again))
+
+
+@pytest.mark.parametrize("act,mean,pool", [("relu", False, True),
+                                           ("gelu", True, True),
+                                           ("relu", True, False),
+                                           ("silu", False, False)])
+def test_gather_linear_r_kernel_matches_plain(cuda, act, mean, pool):
+    """K11 (K10 with the pool off) forward and backward against the plain
+    version on a wired shard; the backward reruns bit for bit."""
+    from cgr_mpnn_3d_tpu_torch.ops import gather_linear as gl
+    spec, shards, rand = _ep_case(cuda)
+    b = max(shards, key=lambda s: float(s.halo_mask.sum()))
+    PE, PN, H, F = spec.pe, spec.pn, 40, 78
+    ins = (rand(PE, H), rand(PN, H), rand(PN, F), b.node_inc)
+    ws = (rand(H, H, scale=0.2), rand(F, H, scale=0.1), rand(H, scale=0.1))
+    kw = dict(p=spec.p, act=act, mean=mean)
+    key = "pool_" if pool else "r_"
+    before = (getattr(gl, key + "launches"), getattr(gl, key + "bwd_launches"))
+    if pool:
+        tabs = (b.node_group, b.pool_ell)
+        out, pooled = gl.gather_linear_pool_forward(*ins, *tabs, *ws, **kw)
+        want, want_pool = gl.gather_linear_pool_forward_ref(*ins, *tabs, *ws,
+                                                            **kw)
+        g, gp = rand(*out.shape), rand(*pooled.shape)
+        bwd = (*ins, b.dst[:, None], *tabs, *ws)
+
+        def grads_of(fn, o, *extra):
+            return fn(*bwd, o, g, gp, **kw)
+        grads = grads_of(gl.gather_linear_pool_backward, out)
+        ref = gl.gather_linear_pool_backward_ref(*bwd, want, g, gp, **kw)
+        again = grads_of(gl.gather_linear_pool_backward, out)
+        f64 = lambda: gl.gather_linear_pool_backward_ref(  # noqa: E731
+            *_f64(ins), b.dst[:, None], *tabs, *_f64(ws), want.double(),
+            g.double(), gp.double(), **kw)
+    else:
+        out = gl.gather_linear_r_forward(*ins, *ws, **kw)
+        want = gl.gather_linear_r_forward_ref(*ins, *ws, **kw)
+        g = rand(*out.shape)
+        bwd = (*ins, b.dst[:, None], *ws)
+        grads = gl.gather_linear_r_backward(*bwd, out, g, **kw)
+        ref = gl.gather_linear_r_backward_ref(*bwd, want, g, **kw)
+        again = gl.gather_linear_r_backward(*bwd, out, g, **kw)
+        f64 = lambda: gl.gather_linear_r_backward_ref(  # noqa: E731
+            *_f64(ins), b.dst[:, None], *_f64(ws), want.double(), g.double(),
+            **kw)
+    assert (getattr(gl, key + "launches"),
+            getattr(gl, key + "bwd_launches")) == (before[0] + 1,
+                                                   before[1] + 2)
+    torch.cuda.synchronize()
+    assert _rel(out, want) <= 1e-4
+    if pool:
+        assert _rel(pooled, want_pool) <= 1e-4
+    assert [t.shape for t in grads] == [t.shape for t in ref]
+    _held(act, grads, ref, f64)
+    assert all(torch.equal(x, y) for x, y in zip(grads, again))
+
+
+@pytest.mark.parametrize("act,aggr,pooling,n_ep,wide", [
+    ("GELU", "add", "add", 4, False), ("SiLU", "mean", "mean", 2, False),
+    ("GELU", "mean", "add", 4, True)])
+def test_ep_step_on_card_matches_cpu(cuda, act, aggr, pooling, n_ep, wide):
+    """The EP forward and its gradients on the card against the CPU (plain
+    versions) on a wired batch: every shard launches K5 once, K8 (K9 for
+    mean) once per layer and K11 once, forward and backward; a rerun of the
+    gradients is bit-identical."""
+    from cgr_mpnn_3d_tpu_torch.ops import fused_conv as fc
+    from cgr_mpnn_3d_tpu_torch.ops import gather_linear as gl
+    from cgr_mpnn_3d_tpu_torch.parallel import ep_pack_forward
+    spec, shards, _ = _ep_case(cuda, n_ep=n_ep, wide=wide)
+    cpu = [type(s)(*(t.cpu() for t in s)) for s in shards]
+    cfg = CGRMPNNConfig(num_node_features=78, num_edge_features=14, depth=3,
+                        hidden_sizes=(40,) * 3, dropout_ps=(0.0,) * 3,
+                        activation=act, aggr=aggr, pooling=pooling,
+                        use_learnable_skip=True, fuse_whole_model=False)
+    model = init_params(cfg, torch.Generator().manual_seed(3), cuda)
+    ref = init_params(cfg, torch.Generator().manual_seed(3), "cpu")
+    conv = "rm_" if aggr == "mean" else "r_"
+
+    def counts():
+        return (gl.launches, getattr(fc, conv + "launches"),
+                gl.pool_launches, gl.bwd_launches,
+                getattr(fc, conv + "bwd_launches"), gl.pool_bwd_launches)
+
+    def grads_of(m, s):
+        m.zero_grad(set_to_none=True)
+        sse, preds = ep_pack_forward(m, s, spec)
+        sse.backward()
+        return preds.detach(), [p.grad.clone() for p in m.parameters()]
+
+    before = counts()
+    preds, grads = grads_of(model, shards)
+    after = counts()
+    assert [a - b_ for a, b_ in zip(after, before)] == [
+        n_ep, 3 * n_ep, n_ep, n_ep, 3 * n_ep, n_ep]
+    want, want_grads = grads_of(ref, cpu)
+    torch.cuda.synchronize()
+    assert _rel(preds.cpu(), want) <= 1e-4
+    for g, w in zip(grads, want_grads):
+        assert _rel(g.cpu(), w) <= 1e-4
+    _, again = grads_of(model, shards)
+    assert all(torch.equal(x, y) for x, y in zip(grads, again))

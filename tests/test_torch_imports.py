@@ -40,7 +40,9 @@ def test_importing_every_module_loads_no_jax():
                ("ops.onehot_spmm", "ops.gather_linear", "ops.conv_stack",
                 "ops._launch", "ops.fused_conv", "ops.act_chain",
                 "ops.mm_probe", "cli.bench_ops", "tools.gelu_roofline",
-                "tools.int8_microbench", "tools.bwd_registers")}
+                "tools.int8_microbench", "tools.bwd_registers",
+                "parallel.edge_partition", "parallel.ep_pack",
+                "parallel.ep_loader")}
     assert kernels <= set(res["mods"])
     assert [m for m in res["loaded"] if _forbidden(m)] == []
 
@@ -115,7 +117,10 @@ def test_entry_points_raise_without_cuda(no_cuda, tmp_path):
                   str(tmp_path / "saved")]
     for call in (lambda: load_model(ckpt),
                  lambda: RxnGraphTrainer("t", cfg, ds, ds, PackSpec()),
+                 lambda: RxnGraphTrainer("t", cfg, ds, ds, PackSpec(),
+                                         n_ep=2),
                  lambda: cli_train.main(train_argv),
+                 lambda: cli_train.main(train_argv + ["--ep", "2"]),
                  lambda: cli_test.main(["--path_trained_model", str(named),
                                         "--data_path", str(tmp_path)]),
                  lambda: predict(model, ds, PackSpec()),
