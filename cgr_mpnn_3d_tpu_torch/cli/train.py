@@ -95,9 +95,12 @@ def build_arg_parser() -> argparse.ArgumentParser:
     ap.add_argument("--ep_tn", default=72, type=int,
                     help="EP pack tile: node slots per pack")
     ap.add_argument("--ep_overlap", action="store_true",
-                    help="not ported: raises (ROADMAP.md)")
+                    help="wired EP layers through the linear-activation "
+                         "conv kernel plus the compact boundary correction "
+                         "(one stream: nothing overlaps yet)")
     ap.add_argument("--ep_rdma", action="store_true",
-                    help="not ported: raises (ROADMAP.md, K12)")
+                    help="EP exchanges through the hop-exchange kernel "
+                         "(K12): one launch for every hop and shard")
     ap.add_argument("--dp", default=1, type=int,
                     help="data-parallel devices; only 1 is ported")
     ap.add_argument("--reuse_packs", action="store_true",
@@ -110,15 +113,6 @@ def build_arg_parser() -> argparse.ArgumentParser:
 def refuse_unported(args) -> None:
     """Raise NotImplementedError for a flag whose path is not ported, so
     that no run takes another path quietly."""
-    if args.ep_overlap:
-        raise NotImplementedError(
-            "--ep_overlap (wired layers through K6 with act='linear' and the "
-            "compact boundary correction) is not ported yet: ROADMAP.md, "
-            "edge partitioning, item 2")
-    if args.ep_rdma:
-        raise NotImplementedError(
-            "--ep_rdma (K12, the RDMA ring exchange across cards) is not "
-            "ported yet: ROADMAP.md, K12")
     if args.dp != 1:
         raise NotImplementedError(
             "--dp (data parallelism over torch.distributed) is not ported "
@@ -127,11 +121,6 @@ def refuse_unported(args) -> None:
         raise NotImplementedError(
             "--reuse_packs and --loader_workers are not ported yet: "
             "ROADMAP.md, edge partitioning, item 4")
-    if args.ep > 1 and args.compute_dtype != "float32":
-        raise NotImplementedError(
-            "--ep runs at --compute_dtype float32 only: the bf16 "
-            "instantiations of K8-K11 are ROADMAP.md, edge partitioning, "
-            "item 1")
 
 
 def run_name(args) -> str:
@@ -189,6 +178,8 @@ def train(args) -> dict:
         pooling=args.pooling,
         use_learnable_skip=args.learnable_skip,
         compute_dtype=args.compute_dtype,
+        ep_rdma_exchange=args.ep_rdma,
+        ep_overlap=args.ep_overlap,
     )
     print("Featurizing training set...")
     train_data.prefeaturize()

@@ -14,8 +14,9 @@
 // returns dh [rows, Hin], dh0, dW, db and dskip (any of them skipped when
 // its pointer is null):
 //
-//   dpre  = drop'(g)·act'(pre)   ReLU: g·scale where out > 0 (pallas_fused
-//                                :280-284, no second product)
+//   dpre  = drop'(g)·act'(pre)   ReLU: g·scale where out > 0, linear:
+//                                drop'(g) (pallas_fused :280-290, no
+//                                second product)
 //   dh    = adjoint of the messages applied to dpre·Wᵀ,   dh0 = skip·dpre,
 //   dW    = tᵀ·dpre,   db = Σ_r dpre,   dskip = Σ dpre·h0
 //
@@ -23,7 +24,10 @@
 // capture path): h, h0, out, the cotangent g, dh and dh0 are bf16, operands
 // are rounded to bf16 where they are read, the products run on the tensor
 // cores and the mean scale is bf16(1 / degree); dpre, dW, db and dskip stay
-// f32 (layered_common.cuh).
+// f32 (layered_common.cuh).  With out_f32 the output and its cotangent are
+// f32 at mat = 1 (out_dtype f32: the EP overlap path's linear
+// pre-activations).  act may be linear (the identity, derivative 1) here
+// and in no other kernel.
 //
 // Design.  One layer of K4 (conv_stack.cu), with h ≠ h0 and Hin ≠ H
 // allowed, through the same layered_common.cuh steps: conv_layer (the
@@ -32,10 +36,10 @@
 // activation and dropout in its epilogue, the pack of a row taken from
 // the row index, never from blockIdx), dpre_kernel and conv_layer_bwd.
 // The backward recomputes t (and, for mean, each row's scale), takes
-// dpre from the saved output (ReLU, no product) or from the recomputed
-// pre-activation (SiLU, GELU), and gathers the adjoint through the
-// transposed ELL array edge_nbr_rev, each entry scaled by its forward
-// row's scale, minus the rev row.  dW and db are split-K partials over
+// dpre from the saved output (ReLU) or the dropped cotangent (linear),
+// with no product, or from the recomputed pre-activation (SiLU, GELU),
+// and gathers the adjoint through the transposed ELL array edge_nbr_rev,
+// each entry scaled by its forward row's scale, minus the rev row.  dW and db are split-K partials over
 // fixed row ranges, dskip per-block partials, each summed in order by a
 // second launch: no float atomics, so reruns are bit-identical.
 //
@@ -60,8 +64,12 @@
 // The backward adds dr[n] = Σ_{e ∈ node_out[n]} s_e·dt[e] (K8: s = 1), a
 // gather through node_out with no atomics, and takes dh through
 // edge_nbr_rev with each entry scaled by s (K9) or the forward row's mean
-// scale (K8).  f32 only (mat_dtype f32); the design and the bound are
-// K6's, with the r gather adding tn·Hin reads per pack.
+// scale (K8).  mat = 1 is K6's bf16: h, h0, out, g, dh, dh0 bf16, while r
+// and dr stay f32 (the JAX correction is f32); r is rounded to bf16 where
+// it enters the sum and s (K9's entries) too, and t = M h + S r is summed
+// in f32 and rounded once, before the product with W, as
+// pallas_fused.py:458-465 does.  The design and the bound are K6's, with
+// the r gather adding tn·Hin reads per pack.
 
 #include "layered_common.cuh"
 
@@ -83,13 +91,13 @@ struct ConvArgs {
 };
 
 // The layer (layered_common.cuh::conv_layer): t = messages(h) into
-// scratch, with each row's scale in rscale when set; then the output to
-// `out` and the pre-activation to `pre`, each when set.
-template <bool kBf16>
-void layer(const ConvArgs<kBf16>& a, Elem<kBf16>* t, float* pre,
-           Elem<kBf16>* out, float* rscale, cudaStream_t st) {
-  conv_layer<kBf16>(a.graph(), a.h, a.Hin, a.w, a.b, a.skip, a.h0, a.H,
-                    a.act, a.drop, 1, 0, t, pre, out, rscale, st);
+// scratch, with each row's scale in rscale when set; then the output (of
+// type O) to `out` and the pre-activation to `pre`, each when set.
+template <bool kBf16, class O>
+void layer(const ConvArgs<kBf16>& a, Elem<kBf16>* t, float* pre, O* out,
+           float* rscale, cudaStream_t st) {
+  conv_layer<kBf16, O>(a.graph(), a.h, a.Hin, a.w, a.b, a.skip, a.h0, a.H,
+                       a.act, a.drop, 1, 0, t, pre, out, rscale, st);
 }
 
 // The backward's scratch: t and dt [rows, Hin] as Elem; dpre [rows, H],
@@ -118,21 +126,29 @@ Scratch<kBf16> scratch_of(void* base, int p, int te, int Hin, int H, int S) {
   return s;
 }
 
-template <bool kBf16>
+size_t scratch_bytes(int p, int te, int Hin, int H, int S, int mat) {
+  return mat ? scratch_of<true>(nullptr, p, te, Hin, H, S).bytes
+             : scratch_of<false>(nullptr, p, te, Hin, H, S).bytes;
+}
+
+// out and g are O (the state type, or f32 with out_f32).
+template <bool kBf16, class O>
 void backward(const ConvArgs<kBf16>& a, const int* edge_nbr_rev,
-              const Elem<kBf16>* out, const Elem<kBf16>* g, Elem<kBf16>* dh,
-              Elem<kBf16>* dh0, float* dw, float* db, float* dskip,
-              void* scratch, int S, cudaStream_t st) {
+              const O* out, const O* g, Elem<kBf16>* dh, Elem<kBf16>* dh0,
+              float* dw, float* db, float* dskip, void* scratch, int S,
+              cudaStream_t st) {
   using E = Elem<kBf16>;
   const Scratch<kBf16> s = scratch_of<kBf16>(scratch, a.p, a.te, a.Hin, a.H,
                                              S);
-  // ReLU: dpre from the saved output; SiLU, GELU: from the pre-activation,
-  // recomputed into dpre and overwritten in place
-  layer(a, s.t, a.act == kRelu ? nullptr : s.dpre, nullptr,
-        a.mean ? s.rscale : nullptr, st);
-  dpre_kernel<E, E, E><<<kReduceBlocks, kThreads, 0, st>>>(
-      g, s.dpre, a.act == kRelu ? out : nullptr, s.dpre, a.h0, dh0, 0,
-      a.skip, a.drop, 1, 0, a.act, a.te, a.H, a.rows() * a.H, s.dpart);
+  // ReLU: dpre from the saved output; linear: the dropped cotangent, no
+  // product; SiLU, GELU: from the pre-activation, recomputed into dpre and
+  // overwritten in place
+  layer<kBf16, E>(a, s.t, needs_pre(a.act) ? s.dpre : nullptr, nullptr,
+                  a.mean ? s.rscale : nullptr, st);
+  dpre_kernel<O, E, E, O><<<kReduceBlocks, kThreads, 0, st>>>(
+      g, needs_pre(a.act) ? s.dpre : nullptr, a.act == kRelu ? out : nullptr,
+      s.dpre, a.h0, dh0, 0, a.skip, a.drop, 1, 0, a.act, a.te, a.H,
+      a.rows() * a.H, s.dpart);
   conv_layer_bwd<kBf16>(a.graph(), edge_nbr_rev, s.t, a.Hin, s.dpre, a.H,
                         a.w, s.rscale, S, s.wpart, s.dt, dh, dw, db, st);
   if (dskip != nullptr) launch_sum(s.dpart, kReduceBlocks, 1, dskip, st);
@@ -149,156 +165,201 @@ ConvArgs<kBf16> args_of(const void* h, const void* h0, const int* edge_nbr,
                          act, mean};
 }
 
+// The edge-partitioned layer's message gather: t = messages(h) plus the
+// boundary term of r, each row's scale to rscale (when set).
+template <bool kBf16>
+void gather_r(const Elem<kBf16>* h, const float* r, const int* edge_nbr,
+              const int* rev, const int* senders, const float* scale,
+              Elem<kBf16>* t, float* rscale, int p, int te, int tn, int Hin,
+              int D, int mean, cudaStream_t st) {
+  using E = Elem<kBf16>;
+  const long long rows = static_cast<long long>(p) * te;
+  launch_gather<kBf16>(GatherArgs<E, E>{h, te, Hin, edge_nbr, D, rev,
+                                        nullptr, mean, te, rows, t, rscale,
+                                        scale, r, senders, tn},
+                       st);
+}
+
+template <bool kBf16>
+void r_forward(const void* h_, const float* r, const void* h0_,
+               const int* edge_nbr, const int* rev, const int* senders,
+               const float* scale, const float* w, const float* b,
+               const float* skip, const int* drop, void* t_, void* out_,
+               int p, int te, int tn, int Hin, int H, int D, int act,
+               int mean, cudaStream_t st) {
+  using E = Elem<kBf16>;
+  E* t = static_cast<E*>(t_);
+  gather_r<kBf16>(static_cast<const E*>(h_), r, edge_nbr, rev, senders,
+                  scale, t, nullptr, p, te, tn, Hin, D, mean, st);
+  launch_tile<kBf16, false, false>(
+      plain(t, Hin, w, H, Hin), no_operands(), p * te, H,
+      LayerEpi<E>{b, static_cast<const E*>(h0_), skip, act, nullptr,
+                  static_cast<E*>(out_), H, drop, 1, 0, te},
+      st);
+}
+
+template <bool kBf16>
+void r_backward(const void* h_, const float* r, const void* h0_,
+                const int* edge_nbr, const int* rev, const int* senders,
+                const float* scale, const int* edge_nbr_rev,
+                const int* node_out, const float* w, const float* b,
+                const float* skip, const int* drop, const void* out_,
+                const void* g_, void* dh_, float* dr, void* dh0_, float* dw,
+                float* db, float* dskip, void* scratch, int p, int te, int tn,
+                int Hin, int H, int D, int Dout, int act, int mean, int S,
+                cudaStream_t st) {
+  using E = Elem<kBf16>;
+  const E* h0 = static_cast<const E*>(h0_);
+  E* dh = static_cast<E*>(dh_);
+  const long long rows = static_cast<long long>(p) * te;
+  const Scratch<kBf16> s = scratch_of<kBf16>(scratch, p, te, Hin, H, S);
+  gather_r<kBf16>(static_cast<const E*>(h_), r, edge_nbr, rev, senders,
+                  scale, s.t, s.rscale, p, te, tn, Hin, D, mean, st);
+  // ReLU: dpre from the saved output; linear: the dropped cotangent;
+  // SiLU, GELU: from the pre-activation, recomputed into dpre and
+  // overwritten in place
+  if (needs_pre(act))
+    launch_tile<kBf16, false, false>(
+        plain(s.t, Hin, w, H, Hin), no_operands(), static_cast<int>(rows), H,
+        LayerEpi<E>{b, h0, skip, act, s.dpre, nullptr, H, nullptr, 1, 0, te},
+        st);
+  dpre_kernel<E, E, E><<<kReduceBlocks, kThreads, 0, st>>>(
+      static_cast<const E*>(g_), needs_pre(act) ? s.dpre : nullptr,
+      act == kRelu ? static_cast<const E*>(out_) : nullptr, s.dpre, h0,
+      static_cast<E*>(dh0_), 0, skip, drop, 1, 0, act, te, H, rows * H,
+      s.dpart);
+  if (dw != nullptr)
+    launch_wgrad<kBf16>(s.t, Hin, s.dpre, H, rows, S, s.wpart, dw, st);
+  if (db != nullptr) launch_colsum(s.dpre, H, rows, S, s.wpart, db, st);
+  if (dh != nullptr || dr != nullptr)
+    launch_tile<kBf16, false, true>(plain(s.dpre, H, w, H, H), no_operands(),
+                                    static_cast<int>(rows), Hin,
+                                    StoreAs<E>{s.dt, Hin}, st);
+  // dh: the messages' adjoint, each entry scaled by its forward row's scale
+  // (K9's s, or K8's mean scale), minus the rev row
+  if (dh != nullptr)
+    launch_gather<kBf16>(GatherArgs<E, E>{
+                             s.dt, te, Hin, edge_nbr_rev, D, rev,
+                             scale != nullptr ? scale
+                                              : (mean ? s.rscale : nullptr),
+                             0, te, rows, dh, nullptr},
+                         st);
+  // dr[n] = Σ over the out-edges e of node n of s_e·dt[e] (f32)
+  if (dr != nullptr)
+    launch_gather<kBf16>(GatherArgs<E, float>{
+                             s.dt, te, Hin, node_out, Dout, nullptr, scale, 0,
+                             tn, static_cast<long long>(p) * tn, dr, nullptr},
+                         st);
+  if (dskip != nullptr) launch_sum(s.dpart, kReduceBlocks, 1, dskip, st);
+}
+
 }  // namespace
 
-// out [p·te, H]; t [p·te, Hin] is scratch; h, h0, t and out of one type
-// (f32, or bf16 with mat = 1).
+// out [p·te, H]; t [p·te, Hin] is scratch; h, h0 and t of one type (f32, or
+// bf16 with mat = 1), out of that type too unless out_f32.
 extern "C" int cgr_fused_conv_fwd(const void* h, const void* h0,
                                   const int* edge_nbr, const int* rev,
                                   const float* w, const float* b,
                                   const float* skip, const int* drop,
                                   void* t, void* out, int p, int te,
                                   int Hin, int H, int D, int act, int mean,
-                                  int mat, void* stream) {
+                                  int mat, int out_f32, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (mat)
-    layer(args_of<true>(h, h0, edge_nbr, rev, w, b, skip, drop, p, te, Hin,
-                        H, D, act, mean),
-          static_cast<Elem<true>*>(t), nullptr, static_cast<Elem<true>*>(out),
-          nullptr, st);
+  if (!mat)
+    layer<false, float>(args_of<false>(h, h0, edge_nbr, rev, w, b, skip, drop,
+                                       p, te, Hin, H, D, act, mean),
+                        static_cast<float*>(t), nullptr,
+                        static_cast<float*>(out), nullptr, st);
+  else if (out_f32)
+    layer<true, float>(args_of<true>(h, h0, edge_nbr, rev, w, b, skip, drop,
+                                     p, te, Hin, H, D, act, mean),
+                       static_cast<Elem<true>*>(t), nullptr,
+                       static_cast<float*>(out), nullptr, st);
   else
-    layer(args_of<false>(h, h0, edge_nbr, rev, w, b, skip, drop, p, te, Hin,
-                         H, D, act, mean),
-          static_cast<float*>(t), nullptr, static_cast<float*>(out), nullptr,
-          st);
+    layer<true, Elem<true>>(args_of<true>(h, h0, edge_nbr, rev, w, b, skip,
+                                          drop, p, te, Hin, H, D, act, mean),
+                            static_cast<Elem<true>*>(t), nullptr,
+                            static_cast<Elem<true>*>(out), nullptr, st);
   return static_cast<int>(cudaGetLastError());
 }
 
-// Bytes of the backward's scratch.
+// Bytes of the backward's scratch (K6's, and K8/K9's).
 extern "C" long long cgr_fused_conv_bwd_scratch_bytes(int p, int te, int Hin,
                                                       int H, int S, int mat) {
-  return static_cast<long long>(
-      mat ? scratch_of<true>(nullptr, p, te, Hin, H, S).bytes
-          : scratch_of<false>(nullptr, p, te, Hin, H, S).bytes);
+  return static_cast<long long>(scratch_bytes(p, te, Hin, H, S, mat));
 }
 
 // dh [rows, Hin], dh0 [rows, H] (h's type), dw [Hin, H], db [H], dskip [1]
-// from the cotangent g of the forward's output `out` (h's type); a null
-// output is skipped.
+// from the cotangent g of the forward's output `out` (both of out's type);
+// a null output is skipped.
 extern "C" int cgr_fused_conv_bwd(
     const void* h, const void* h0, const int* edge_nbr, const int* rev,
     const int* edge_nbr_rev, const float* w, const float* b,
     const float* skip, const int* drop, const void* out, const void* g,
     void* dh, void* dh0, float* dw, float* db, float* dskip, void* scratch,
     int p, int te, int Hin, int H, int D, int act, int mean, int S, int mat,
-    void* stream) {
+    int out_f32, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (mat) {
-    using E = Elem<true>;
-    backward(args_of<true>(h, h0, edge_nbr, rev, w, b, skip, drop, p, te, Hin,
-                           H, D, act, mean),
-             edge_nbr_rev, static_cast<const E*>(out),
-             static_cast<const E*>(g), static_cast<E*>(dh),
-             static_cast<E*>(dh0), dw, db, dskip, scratch, S, st);
+  using B = Elem<true>;
+  if (!mat) {
+    backward<false, float>(args_of<false>(h, h0, edge_nbr, rev, w, b, skip,
+                                          drop, p, te, Hin, H, D, act, mean),
+                           edge_nbr_rev, static_cast<const float*>(out),
+                           static_cast<const float*>(g),
+                           static_cast<float*>(dh), static_cast<float*>(dh0),
+                           dw, db, dskip, scratch, S, st);
+  } else if (out_f32) {
+    backward<true, float>(args_of<true>(h, h0, edge_nbr, rev, w, b, skip,
+                                        drop, p, te, Hin, H, D, act, mean),
+                          edge_nbr_rev, static_cast<const float*>(out),
+                          static_cast<const float*>(g), static_cast<B*>(dh),
+                          static_cast<B*>(dh0), dw, db, dskip, scratch, S,
+                          st);
   } else {
-    backward(args_of<false>(h, h0, edge_nbr, rev, w, b, skip, drop, p, te,
-                            Hin, H, D, act, mean),
-             edge_nbr_rev, static_cast<const float*>(out),
-             static_cast<const float*>(g), static_cast<float*>(dh),
-             static_cast<float*>(dh0), dw, db, dskip, scratch, S, st);
+    backward<true, B>(args_of<true>(h, h0, edge_nbr, rev, w, b, skip, drop,
+                                    p, te, Hin, H, D, act, mean),
+                      edge_nbr_rev, static_cast<const B*>(out),
+                      static_cast<const B*>(g), static_cast<B*>(dh),
+                      static_cast<B*>(dh0), dw, db, dskip, scratch, S, st);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
-// The edge-partitioned layer's message gather: t = messages(h) plus the
-// boundary term of r, each row's scale to rscale (when set).
-static void gather_r(const float* h, const float* r, const int* edge_nbr,
-              const int* rev, const int* senders, const float* scale,
-              float* t, float* rscale, int p, int te, int tn, int Hin, int D,
-              int mean, cudaStream_t st) {
-  const long long rows = static_cast<long long>(p) * te;
-  launch_gather<false>(GatherArgs<float, float>{h, te, Hin, edge_nbr, D, rev,
-                                                nullptr, mean, te, rows, t,
-                                                rscale, scale, r, senders,
-                                                tn},
-                       st);
-}
-
 // out [p·te, H]; t [p·te, Hin] is scratch; scale [p·te] (K9) or null (K8).
-extern "C" int cgr_fused_conv_r_fwd(const float* h, const float* r,
-                                    const float* h0, const int* edge_nbr,
+// h, h0, t and out are f32, or bf16 with mat = 1; r is f32.
+extern "C" int cgr_fused_conv_r_fwd(const void* h, const float* r,
+                                    const void* h0, const int* edge_nbr,
                                     const int* rev, const int* senders,
                                     const float* scale, const float* w,
                                     const float* b, const float* skip,
-                                    const int* drop, float* t, float* out,
+                                    const int* drop, void* t, void* out,
                                     int p, int te, int tn, int Hin, int H,
-                                    int D, int act, int mean, void* stream) {
+                                    int D, int act, int mean, int mat,
+                                    void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  gather_r(h, r, edge_nbr, rev, senders, scale, t, nullptr, p, te, tn, Hin,
-           D, mean, st);
-  launch_tile<false, false, false>(
-      plain(t, Hin, w, H, Hin), no_operands(), p * te, H,
-      LayerEpi<float>{b, h0, skip, act, nullptr, out, H, drop, 1, 0, te}, st);
+  (mat ? r_forward<true> : r_forward<false>)(h, r, h0, edge_nbr, rev, senders,
+                                             scale, w, b, skip, drop, t, out,
+                                             p, te, tn, Hin, H, D, act, mean,
+                                             st);
   return static_cast<int>(cudaGetLastError());
 }
 
-// Bytes of the edge-partitioned backward's scratch (K6's at f32).
-extern "C" long long cgr_fused_conv_r_bwd_scratch_bytes(int p, int te,
-                                                        int Hin, int H,
-                                                        int S) {
-  return static_cast<long long>(
-      scratch_of<false>(nullptr, p, te, Hin, H, S).bytes);
-}
-
-// dh [p·te, Hin], dr [p·tn, Hin], dh0 [p·te, H], dw [Hin, H], db [H],
-// dskip [1] from the cotangent g of `out`; a null output is skipped.
+// dh [p·te, Hin], dr [p·tn, Hin] (f32), dh0 [p·te, H], dw [Hin, H], db [H],
+// dskip [1] from the cotangent g of `out`; a null output is skipped.  h,
+// h0, out, g, dh and dh0 are f32, or bf16 with mat = 1.
 extern "C" int cgr_fused_conv_r_bwd(
-    const float* h, const float* r, const float* h0, const int* edge_nbr,
+    const void* h, const float* r, const void* h0, const int* edge_nbr,
     const int* rev, const int* senders, const float* scale,
     const int* edge_nbr_rev, const int* node_out, const float* w,
-    const float* b, const float* skip, const int* drop, const float* out,
-    const float* g, float* dh, float* dr, float* dh0, float* dw, float* db,
+    const float* b, const float* skip, const int* drop, const void* out,
+    const void* g, void* dh, float* dr, void* dh0, float* dw, float* db,
     float* dskip, void* scratch, int p, int te, int tn, int Hin, int H, int D,
-    int Dout, int act, int mean, int S, void* stream) {
+    int Dout, int act, int mean, int S, int mat, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const long long rows = static_cast<long long>(p) * te;
-  const Scratch<false> s = scratch_of<false>(scratch, p, te, Hin, H, S);
-  gather_r(h, r, edge_nbr, rev, senders, scale, s.t, s.rscale, p, te, tn,
-           Hin, D, mean, st);
-  // ReLU: dpre from the saved output; SiLU, GELU: from the pre-activation,
-  // recomputed into dpre and overwritten in place
-  if (act != kRelu)
-    launch_tile<false, false, false>(
-        plain(s.t, Hin, w, H, Hin), no_operands(), static_cast<int>(rows), H,
-        LayerEpi<float>{b, h0, skip, act, s.dpre, nullptr, H, nullptr, 1, 0,
-                        te},
-        st);
-  dpre_kernel<float, float, float><<<kReduceBlocks, kThreads, 0, st>>>(
-      g, s.dpre, act == kRelu ? out : nullptr, s.dpre, h0, dh0, 0, skip, drop,
-      1, 0, act, te, H, rows * H, s.dpart);
-  if (dw != nullptr)
-    launch_wgrad<false>(s.t, Hin, s.dpre, H, rows, S, s.wpart, dw, st);
-  if (db != nullptr) launch_colsum(s.dpre, H, rows, S, s.wpart, db, st);
-  if (dh != nullptr || dr != nullptr)
-    launch_tile<false, false, true>(plain(s.dpre, H, w, H, H), no_operands(),
-                                    static_cast<int>(rows), Hin,
-                                    StoreAs<float>{s.dt, Hin}, st);
-  // dh: the messages' adjoint, each entry scaled by its forward row's scale
-  // (K9's s, or K8's mean scale), minus the rev row
-  if (dh != nullptr)
-    launch_gather<false>(GatherArgs<float, float>{
-                             s.dt, te, Hin, edge_nbr_rev, D, rev,
-                             scale != nullptr ? scale
-                                              : (mean ? s.rscale : nullptr),
-                             0, te, rows, dh, nullptr},
-                         st);
-  // dr[n] = Σ over the out-edges e of node n of s_e·dt[e]
-  if (dr != nullptr)
-    launch_gather<false>(GatherArgs<float, float>{
-                             s.dt, te, Hin, node_out, Dout, nullptr, scale, 0,
-                             tn, static_cast<long long>(p) * tn, dr, nullptr},
-                         st);
-  if (dskip != nullptr) launch_sum(s.dpart, kReduceBlocks, 1, dskip, st);
+  (mat ? r_backward<true> : r_backward<false>)(
+      h, r, h0, edge_nbr, rev, senders, scale, edge_nbr_rev, node_out, w, b,
+      skip, drop, out, g, dh, dr, dh0, dw, db, dskip, scratch, p, te, tn, Hin,
+      H, D, Dout, act, mean, S, st);
   return static_cast<int>(cudaGetLastError());
 }
 

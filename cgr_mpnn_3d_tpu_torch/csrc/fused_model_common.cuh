@@ -33,18 +33,27 @@ constexpr int kThreads = 256;          // 16 x 16 threads
 constexpr int BM = 64, BN = 64, BK = 16;
 constexpr int TM = 4, TN = 4;          // thread (ty, tx): rows ty + 16 i, cols tx + 16 j
 
-enum Act { kRelu = 0, kSilu = 1, kGelu = 2 };  // ops/kernel_math.KERNEL_ACTS
+// ops/kernel_math.CONV_ACTS; linear (the identity) only in fused_conv.cu
+enum Act { kRelu = 0, kSilu = 1, kGelu = 2, kLinear = 3 };
 
-// k_act: relu, silu (x * sigmoid(x)) or exact-erf gelu.
+// k_act: relu, silu (x * sigmoid(x)), exact-erf gelu or linear.
 __device__ __forceinline__ float k_act(int act, float x) {
   if (act == kRelu) return fmaxf(x, 0.f);
+  if (act == kLinear) return x;
   if (act == kSilu) return x / (1.f + expf(-x));
   return 0.5f * x * (1.f + erff(x * 0.70710678118654752f));
+}
+
+// Whether a backward needs the pre-activation: ReLU reads the saved output
+// instead, and linear's derivative is 1 (pallas_fused.py:280-290).
+__host__ __device__ __forceinline__ bool needs_pre(int act) {
+  return act == kSilu || act == kGelu;
 }
 
 // k_dact: d act(x) / dx.
 __device__ __forceinline__ float k_dact(int act, float x) {
   if (act == kRelu) return x > 0.f ? 1.f : 0.f;
+  if (act == kLinear) return 1.f;
   if (act == kSilu) {
     const float s = 1.f / (1.f + expf(-x));
     return s * (1.f + x * (1.f - s));

@@ -54,9 +54,15 @@
 // and K11 also writes the per-pack group pool pool[q] = Σ_{n ∈
 // pool_ell[q]} out[n] [p·GP, H] (a gather through the per-group node ELL,
 // the untransposed pool_t); its backward reads dout = g + gpool[group of
-// the row] (through node_group, the transpose).  f32 only: the gather
-// takes xr as its extra term (layered_common.cuh), dt is written straight
-// into dxr, and the rest is K5's backward.
+// the row] (through node_group, the transpose).  The gather takes xr as
+// its extra term (layered_common.cuh), unrounded, dt is written straight
+// into dxr, and the rest is K5's backward.  mat = 1 is K5's bf16 with the
+// readout's f32 output: xa, xb, dxa and dxb bf16; xr, dxr, out, g, the
+// pool and its cotangent f32.  As in pallas_glin.py at mat_dtype bf16, xr
+// joins the gathered sum in f32 and t1 is rounded once (:316-319), the
+// pool sums bf16(out) and the backward adds bf16(gpool) (:497, :527), and
+// dxr is the f32 dt = bf16(dpre)·bf16(Wa)ᵀ, rounded again where dxa
+// gathers it.
 
 #include "layered_common.cuh"
 
@@ -103,12 +109,14 @@ void gather_t1(const Elem<kBf16>* xa, const float* xr, const int* idx,
   using E = Elem<kBf16>;
   launch_gather<kBf16>(GatherArgs<E, E>{xa, d.ca, d.FA, idx, d.D, nullptr,
                                         nullptr, d.mean, d.R, d.rows(), t1,
-                                        rscale, nullptr, xr, nullptr, 0},
+                                        rscale, nullptr, xr, nullptr, 0, 1},
                        st);
 }
 
 // dout[i, :] = g[i, :] + gpool[q, :] with q = node_group[i] when it lies in
-// the GP groups of row i's pack (R rows per pack), else g[i, :].
+// the GP groups of row i's pack (R rows per pack), else g[i, :]; gpool
+// rounded as an operand.
+template <bool kBf16>
 __global__ void add_group_kernel(const float* g, const float* gpool,
                                  const int* node_group, long long rows, int R,
                                  int GP, int H, float* dout) {
@@ -118,7 +126,7 @@ __global__ void add_group_kernel(const float* g, const float* gpool,
     const long long r = i / H, lo = (r / R) * GP;
     const long long q = node_group[r] - lo;
     float v = g[i];
-    if (q >= 0 && q < GP) v += gpool[(lo + q) * H + i % H];
+    if (q >= 0 && q < GP) v += operand<kBf16>(gpool[(lo + q) * H + i % H]);
     dout[i] = v;
   }
 }
@@ -142,8 +150,9 @@ void forward(const void* xa_, const void* xb_, const int* idx,
 }
 
 // dt = dpre·Waᵀ is formed when dxa is wanted or keep_dt is set (the EP
-// readout's dxr is dt itself).
-template <bool kBf16, class O>
+// readout's dxr is dt itself), and stored as DT (the Elem operand dxa
+// gathers, or f32 for dxr).
+template <bool kBf16, class O, class DT = Elem<kBf16>>
 void backward(const void* xa_, const void* xb_, const int* idx,
               const int* adj, const float* wa, const float* wb,
               const float* b, const void* out_, const void* g_, void* dxa_,
@@ -156,7 +165,8 @@ void backward(const void* xa_, const void* xb_, const int* idx,
   const E* xb = static_cast<const E*>(xb_);
   const O* out = static_cast<const O*>(out_);
   const O* g = static_cast<const O*>(g_);
-  E *t1 = static_cast<E*>(t1_), *dt = static_cast<E*>(dt_);
+  E* t1 = static_cast<E*>(t1_);
+  DT* dt = static_cast<DT*>(dt_);
   E *dxa = static_cast<E*>(dxa_), *dxb = static_cast<E*>(dxb_);
   const long long rows = d.rows();
   const int M = static_cast<int>(rows), H = d.H, FA = d.FA, FB = d.FB;
@@ -174,9 +184,9 @@ void backward(const void* xa_, const void* xb_, const int* idx,
                                     StoreAs<E>{dxb, FB}, st);
   if (dxa != nullptr || keep_dt)
     launch_tile<kBf16, false, true>(plain(dpre, H, wa, H, H), none, M, FA,
-                                    StoreAs<E>{dt, FA}, st);
+                                    StoreAs<DT>{dt, FA}, st);
   if (dxa != nullptr)
-    launch_gather<kBf16>(GatherArgs<E, E>{dt, d.R, FA, adj, Dadj, nullptr,
+    launch_gather<kBf16>(GatherArgs<DT, E>{dt, d.R, FA, adj, Dadj, nullptr,
                                           d.mean ? rscale : nullptr, 0, d.ca,
                                           static_cast<long long>(d.p) * d.ca,
                                           dxa, nullptr},
@@ -239,50 +249,84 @@ extern "C" int cgr_gather_linear_bwd(
   return static_cast<int>(cudaGetLastError());
 }
 
+namespace {
+
+template <bool kBf16>
+void r_forward(const void* xa, const float* xr, const void* xb,
+               const int* idx, const int* pool_ell, const float* wa,
+               const float* wb, const float* b, void* t1, float* out,
+               float* pool, const Dims& d, int GP, int DN, cudaStream_t st) {
+  forward<kBf16, float>(xa, xb, idx, wa, wb, b, t1, out, d, st, xr);
+  if (pool_ell != nullptr)
+    launch_gather<kBf16>(GatherArgs<float, float>{
+                             out, d.R, d.H, pool_ell, DN, nullptr, nullptr, 0,
+                             GP, static_cast<long long>(d.p) * GP, pool,
+                             nullptr},
+                         st);
+}
+
+template <bool kBf16>
+void r_backward(const void* xa, const float* xr, const void* xb,
+                const int* idx, const int* adj, const int* node_group,
+                const float* wa, const float* wb, const float* b,
+                const float* out, const float* g, const float* gpool,
+                void* dxa, float* dxr, void* dxb, float* dwa, float* dwb,
+                float* db, void* t1, float* dt, float* dpre, float* rscale,
+                float* part, float* dout, const Dims& d, int Dadj, int GP,
+                int S, cudaStream_t st) {
+  if (gpool != nullptr) {
+    add_group_kernel<kBf16><<<2048, 256, 0, st>>>(g, gpool, node_group,
+                                                  d.rows(), d.R, GP, d.H,
+                                                  dout);
+    g = dout;
+  }
+  backward<kBf16, float, float>(xa, xb, idx, adj, wa, wb, b, out, g, dxa,
+                                dxb, dwa, dwb, db, t1,
+                                dxr != nullptr ? dxr : dt, dpre, rscale, part,
+                                d, Dadj, S, st, xr, dxr != nullptr);
+}
+
+}  // namespace
+
 // The EP readout (K10; K11 when pool_ell is set): out [p·R, H] and, with
 // the pool, pool [p·GP, H] through pool_ell [p·GP, DN] (node slots of each
-// group, sentinel-padded); t1 [p·R, FA] is scratch.  All f32.
-extern "C" int cgr_gather_linear_r_fwd(const float* xa, const float* xr,
-                                       const float* xb, const int* idx,
+// group, sentinel-padded); t1 [p·R, FA] is scratch of xa's type.  xa, xb
+// and t1 are f32, or bf16 with mat = 1; xr, out and the pool are f32.
+extern "C" int cgr_gather_linear_r_fwd(const void* xa, const float* xr,
+                                       const void* xb, const int* idx,
                                        const int* pool_ell, const float* wa,
                                        const float* wb, const float* b,
-                                       float* t1, float* out, float* pool,
+                                       void* t1, float* out, float* pool,
                                        int p, int R, int ca, int FA, int FB,
                                        int H, int D, int GP, int DN, int act,
-                                       int mean, void* stream) {
+                                       int mean, int mat, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const Dims d{p, R, ca, FA, FB, H, D, act, mean};
-  forward<false, float>(xa, xb, idx, wa, wb, b, t1, out, d, st, xr);
-  if (pool_ell != nullptr)
-    launch_gather<false>(GatherArgs<float, float>{
-                             out, R, H, pool_ell, DN, nullptr, nullptr, 0, GP,
-                             static_cast<long long>(p) * GP, pool, nullptr},
-                         st);
+  (mat ? r_forward<true> : r_forward<false>)(xa, xr, xb, idx, pool_ell, wa,
+                                             wb, b, t1, out, pool, d, GP, DN,
+                                             st);
   return static_cast<int>(cudaGetLastError());
 }
 
 // Cotangents of the EP readout from g [p·R, H] (and, for K11, gpool
 // [p·GP, H] through node_group [p·R]): dxa, dxr, dxb, dwa, dwb, db as
-// K5's with dxr = dpre·Waᵀ; a null output is skipped.  Scratch: K5's, and
-// dout [p·R, H] for K11.
+// K5's with dxr = dpre·Waᵀ; a null output is skipped.  dxa and dxb take
+// xa's type, the rest is f32.  Scratch: t1 [p·R, FA] of xa's type, dt
+// [p·R, FA], dpre, rscale, part as K5's (f32), and dout [p·R, H] for K11.
 extern "C" int cgr_gather_linear_r_bwd(
-    const float* xa, const float* xr, const float* xb, const int* idx,
+    const void* xa, const float* xr, const void* xb, const int* idx,
     const int* adj, const int* node_group, const float* wa, const float* wb,
     const float* b, const float* out, const float* g, const float* gpool,
-    float* dxa, float* dxr, float* dxb, float* dwa, float* dwb, float* db,
-    float* t1, float* dt, float* dpre, float* rscale, float* part,
+    void* dxa, float* dxr, void* dxb, float* dwa, float* dwb, float* db,
+    void* t1, float* dt, float* dpre, float* rscale, float* part,
     float* dout, int p, int R, int ca, int FA, int FB, int H, int D,
-    int Dadj, int GP, int act, int mean, int S, void* stream) {
+    int Dadj, int GP, int act, int mean, int S, int mat, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const Dims d{p, R, ca, FA, FB, H, D, act, mean};
-  if (gpool != nullptr) {
-    add_group_kernel<<<2048, 256, 0, st>>>(g, gpool, node_group, d.rows(), R,
-                                           GP, H, dout);
-    g = dout;
-  }
-  backward<false, float>(xa, xb, idx, adj, wa, wb, b, out, g, dxa, dxb, dwa,
-                         dwb, db, t1, dxr != nullptr ? dxr : dt, dpre, rscale,
-                         part, d, Dadj, S, st, xr, dxr != nullptr);
+  (mat ? r_backward<true> : r_backward<false>)(
+      xa, xr, xb, idx, adj, node_group, wa, wb, b, out, g, gpool, dxa, dxr,
+      dxb, dwa, dwb, db, t1, dt, dpre, rscale, part, dout, d, Dadj, GP, S,
+      st);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -47,9 +47,12 @@ using Elem = std::conditional_t<kBf16, __nv_bfloat16, float>;
 // is set) is row k = extra_idx[r] of the window of extra_C rows of r's pack
 // (absent outside it), or row r itself when extra_idx is nullptr; it is
 // scaled by row_scale[r] only (a mean scale leaves it as it is, as the TPU
-// kernels' S·r term).  With `rscale`, scale_r is written there too.  src
-// is S (f32 or bf16), out O.  Leaving the trailing members out of an
-// initializer leaves them null.
+// kernels' S·r term), and rounded as an operand unless `extra_exact` (the
+// EP readout adds its f32 xr unrounded).  Under kBf16 the scales are
+// entries of the one-hot matrix, so w_j and row_scale[r] are rounded to
+// bf16 too.  With `rscale`, scale_r is written there too.  src is S (f32
+// or bf16), out O.  Leaving the trailing members out of an initializer
+// leaves them null.
 template <class S, class O>
 struct GatherArgs {
   const S* src;
@@ -66,6 +69,7 @@ struct GatherArgs {
   const float* extra;
   const int* extra_idx;
   int extra_C;
+  int extra_exact;
 };
 
 template <bool kBf16, class S, class O>
@@ -85,12 +89,14 @@ __global__ void __launch_bounds__(kGatherThreads)
         ++count;
         if (c < a.W) {
           const float v = operand<kBf16>(to_f32(a.src[(lo + j) * a.W + c]));
-          sum += a.src_scale == nullptr ? v : a.src_scale[lo + j] * v;
+          sum += a.src_scale == nullptr
+                     ? v
+                     : operand<kBf16>(a.src_scale[lo + j]) * v;
         }
       }
     }
     float scale = a.mean ? mean_colscale<kBf16>(count) : 1.f;
-    if (a.row_scale != nullptr) scale = a.row_scale[r];
+    if (a.row_scale != nullptr) scale = operand<kBf16>(a.row_scale[r]);
     if (a.mean || a.row_scale != nullptr) sum *= scale;
     if (a.extra != nullptr && c < a.W) {
       long long k = r;
@@ -102,8 +108,9 @@ __global__ void __launch_bounds__(kGatherThreads)
         k += elo;
       }
       if (in) {
-        const float v = operand<kBf16>(a.extra[k * a.W + c]);
-        sum += a.row_scale == nullptr ? v : a.row_scale[r] * v;
+        const float e = a.extra[k * a.W + c];
+        const float v = a.extra_exact ? e : operand<kBf16>(e);
+        sum += a.row_scale == nullptr ? v : scale * v;
       }
     }
     if (a.sign != nullptr) {
@@ -200,19 +207,19 @@ inline OperandsOf<T> plain(const T* a, int K_a, const float* b, int ldb,
 
 inline Operands no_operands() { return Operands{Rows{nullptr, 0, nullptr, 0, 0}, nullptr, 0, 0}; }
 
-// out = drop_l(act(acc + bias [+ skip·h0])) over rows of width ld, h0 and
-// out of type T; the f32 pre-activation is stored too when `pre` is set,
+// out = drop_l(act(acc + bias [+ skip·h0])) over rows of width ld, h0 of
+// type T and out of type O; the f32 pre-activation is stored too when `pre` is set,
 // the output only when `out` is.  `drop` is the wrapper's [3, L] table
 // (seeds, thresholds, scales) or nullptr; row m is pack-local row
 // m % rows_per_pack of pack m / rows_per_pack.
-template <class T>
+template <class T, class O = T>
 struct LayerEpi {
   const float* bias;
   const T* h0;        // nullptr: no skip term
   const float* skip;  // the layer's skip weight (device)
   int act;
   float* pre;
-  T* out;
+  O* out;
   int ld;
   const int* drop;
   int L, l, rows_per_pack;
@@ -230,7 +237,7 @@ struct LayerEpi {
                       __int_as_float(drop[2 * L + l])};
       y = d.apply(m % rows_per_pack, n, y);
     }
-    out[o] = from_f32<T>(y);
+    out[o] = from_f32<O>(y);
   }
 };
 
@@ -342,14 +349,15 @@ struct ConvGraph {
 
 // t = messages(h_in) [rows, Hin] (each row's scale to rscale when set),
 // then drop_l(act(t·W + b + skip·h0)) with W [Hin, H] to `out` and the
-// pre-activation to `pre`, each when set (neither: no product).  out may
-// be h_in: the gather has finished before the product starts.
-template <bool kBf16>
+// pre-activation to `pre`, each when set (neither: no product); out is O
+// (the state type, or f32 for K6's linear pre-activations at bf16).  out
+// may be h_in: the gather has finished before the product starts.
+template <bool kBf16, class O = Elem<kBf16>>
 inline void conv_layer(const ConvGraph& g, const Elem<kBf16>* h_in, int Hin,
                        const float* w, const float* b, const float* skip,
                        const Elem<kBf16>* h0, int H, int act, const int* drop,
-                       int L, int l, Elem<kBf16>* t, float* pre,
-                       Elem<kBf16>* out, float* rscale, cudaStream_t st) {
+                       int L, int l, Elem<kBf16>* t, float* pre, O* out,
+                       float* rscale, cudaStream_t st) {
   using E = Elem<kBf16>;
   launch_gather<kBf16>(GatherArgs<E, E>{h_in, g.te, Hin, g.edge_nbr, g.D,
                                         g.rev, nullptr, g.mean, g.te, g.rows,
@@ -358,18 +366,26 @@ inline void conv_layer(const ConvGraph& g, const Elem<kBf16>* h_in, int Hin,
   if (pre == nullptr && out == nullptr) return;
   launch_tile<kBf16, false, false>(
       plain(t, Hin, w, H, Hin), no_operands(), static_cast<int>(g.rows), H,
-      LayerEpi<E>{b, h0, skip, act, pre, out, H, drop, L, l, g.te}, st);
+      LayerEpi<E, O>{b, h0, skip, act, pre, out, H, drop, L, l, g.te}, st);
 }
 
 // A conv layer's dpre = drop_l'(g)·act'(pre) over the n = rows·H floats,
 // into dpre (which may be pre); with `out` instead (ReLU), dpre is
-// drop_l'(g) where out > 0, else 0, and pre is not read.  Then
+// drop_l'(g) where out > 0, else 0, and pre is not read; with neither
+// (linear), dpre = drop_l'(g).  Then
 // dh0 = skip·dpre, or dh0 += skip·dpre when `add` (when dh0 is set), and
 // the block's share of Σ dpre·h0 in part[blockIdx.x·L + l]; kReduceBlocks
-// blocks of kThreads, grid-stride.  g is G, out and h0 E, dh0 D.
-template <class G, class E, class D>
+// blocks of kThreads, grid-stride.  g is G, h0 E, dh0 D, out OT (E by
+// default; out is not deduced, so a nullptr passes).
+template <class T>
+struct NoDeduce {
+  using type = T;
+};
+
+template <class G, class E, class D, class OT = E>
 __global__ void __launch_bounds__(kThreads)
-    dpre_kernel(const G* g, const float* pre, const E* out, float* dpre,
+    dpre_kernel(const G* g, const float* pre,
+                const typename NoDeduce<OT>::type* out, float* dpre,
                 const E* h0, D* dh0, int add, const float* skip,
                 const int* drop, int L, int l, int act, int te, int H,
                 long long n, float* part) {
@@ -396,7 +412,7 @@ __global__ void __launch_bounds__(kThreads)
                  ? gg * dr.scale
                  : 0.f;
       }
-      v = gg * k_dact(act, pre[i]);
+      v = pre != nullptr ? gg * k_dact(act, pre[i]) : gg;
     }
     dpre[i] = v;
     dot = fmaf(v, to_f32(h0[i]), dot);

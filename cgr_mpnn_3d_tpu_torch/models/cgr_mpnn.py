@@ -106,6 +106,13 @@ class CGRMPNNConfig:
     use_learnable_skip: bool = False
     fuse_whole_model: bool = True          # False: the layered kernels
     compute_dtype: str = "float32"         # or "bfloat16" (kernels' mat_dtype)
+    ep_rdma_exchange: bool = False         # --ep exchanges through K12, one
+                                           # launch for every hop and shard
+                                           # (parallel/rdma_exchange.py)
+    ep_overlap: bool = False               # --ep wired layers: K6 without r
+                                           # (act linear), then the compact
+                                           # cut-bounded correction, act and
+                                           # dropout (parallel/ep_pack.py)
 
     def __post_init__(self):
         object.__setattr__(self, "hidden_sizes",

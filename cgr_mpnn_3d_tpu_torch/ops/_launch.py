@@ -104,11 +104,12 @@ def mat_index(mat_dtype: str) -> int:
     return MAT_DTYPES.index(mat_dtype)
 
 
-def count_launch(counters: dict, mat_dtype: str, backward: bool) -> None:
+def count_launch(counters: dict, mat_dtype: str, backward: bool,
+                 kind: str = "") -> None:
     """One more launch on a layered wrapper's counter (``counters`` is its
-    module's globals()): ``launches`` or ``bwd_launches``, with a ``bf16_``
-    prefix at mat_dtype bf16."""
-    key = "bwd_launches" if backward else "launches"
+    module's globals()): ``<kind>launches`` or ``<kind>bwd_launches``, with a
+    ``bf16_`` prefix at mat_dtype bf16."""
+    key = kind + ("bwd_launches" if backward else "launches")
     counters[("bf16_" if mat_dtype == "bfloat16" else "") + key] += 1
 
 

@@ -32,9 +32,9 @@ gradients stay f32.
 * :func:`gather_linear` is the forward differentiable in every float input,
   with the backward kernel as its backward on the card.
 
-The edge-partitioned readout (f32 only): K10
-(``pallas_glin.py::fused_gather_linear_r``) adds ``xr`` [p*R, FA], rows
-aligned with the output's, to the gathered sum,
+The edge-partitioned readout: K10
+(``pallas_glin.py::fused_gather_linear_r``) adds ``xr`` [p*R, FA] (f32),
+rows aligned with the output's, to the gathered sum,
 
     out = act((G·xa + xr)·wa + xb·wb + b),      dxr = dpre·waᵀ,
 
@@ -46,8 +46,13 @@ CUDA entry point serves both (K10 is K11 with the pool off):
 :func:`gather_linear_r_forward` / :func:`gather_linear_r_backward` /
 :func:`gather_linear_r` and :func:`gather_linear_pool_forward` /
 :func:`gather_linear_pool_backward` / :func:`gather_linear_pool`, with the
-plain versions ``*_ref``.  Counters ``r_launches`` / ``r_bwd_launches``
-(K10) and ``pool_launches`` / ``pool_bwd_launches`` (K11).
+plain versions ``*_ref``.  ``mat_dtype`` is K5's with the readout's f32
+output: at bf16 xa, xb, dxa and dxb are bf16 while xr, dxr, the output,
+the pool and their cotangents stay f32; xr joins the gathered sum
+unrounded, the pool sums bf16(out) and its cotangent enters the backward
+rounded (pallas_glin.py:316-319, :497, :527).  Counters ``r_launches`` /
+``r_bwd_launches`` (K10) and ``pool_launches`` / ``pool_bwd_launches``
+(K11), with the ``bf16_`` prefix at bf16.
 """
 
 from __future__ import annotations
@@ -70,7 +75,9 @@ __all__ = ["gather_linear_forward", "gather_linear_forward_ref",
            "gather_linear_pool_backward", "gather_linear_pool_backward_ref",
            "gather_linear_pool", "launches", "bwd_launches", "bf16_launches",
            "bf16_bwd_launches", "r_launches", "r_bwd_launches",
-           "pool_launches", "pool_bwd_launches"]
+           "pool_launches", "pool_bwd_launches", "bf16_r_launches",
+           "bf16_r_bwd_launches", "bf16_pool_launches",
+           "bf16_pool_bwd_launches"]
 
 # kernel launches by the wrappers (nothing else adds here), at f32 and at
 # bf16
@@ -78,17 +85,22 @@ launches = 0
 bwd_launches = 0
 bf16_launches = 0
 bf16_bwd_launches = 0
-# the edge-partitioned readout: K10, and K11 (with the group pool)
+# the edge-partitioned readout: K10, and K11 (with the group pool), at f32
+# and at bf16
 r_launches = 0
 r_bwd_launches = 0
 pool_launches = 0
 pool_bwd_launches = 0
+bf16_r_launches = 0
+bf16_r_bwd_launches = 0
+bf16_pool_launches = 0
+bf16_pool_bwd_launches = 0
 
 _SIGNATURES = {
     "cgr_gather_linear_fwd": ([PTR] * 8 + [I32] * 11 + [PTR], I32),
     "cgr_gather_linear_bwd": ([PTR] * 19 + [I32] * 13 + [PTR], I32),
-    "cgr_gather_linear_r_fwd": ([PTR] * 11 + [I32] * 11 + [PTR], I32),
-    "cgr_gather_linear_r_bwd": ([PTR] * 24 + [I32] * 12 + [PTR], I32),
+    "cgr_gather_linear_r_fwd": ([PTR] * 11 + [I32] * 12 + [PTR], I32),
+    "cgr_gather_linear_r_bwd": ([PTR] * 24 + [I32] * 13 + [PTR], I32),
 }
 _INDEX_NAMES = {"idx", "adj"}
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -304,9 +316,10 @@ def gather_linear(xa, xb, idx, adj, wa, wb, b, *, p: int, act: str = "relu",
 _R_INDEX_NAMES = {"idx", "adj", "node_group", "pool_ell"}
 
 
-def _check_r(args: dict, p: int, act: str) -> None:
+def _check_r(args: dict, p: int, act: str, mat_dtype: str) -> None:
     if act not in KERNEL_ACTS:
         raise ValueError(f"unsupported kernel activation {act!r}")
+    mat_index(mat_dtype)
     xa, xb, idx, wa = args["xa"], args["xb"], args["idx"], args["wa"]
     if p < 1 or xa.shape[0] % p or xb.shape[0] % p:
         raise ValueError(f"rows of xa {tuple(xa.shape)} and xb "
@@ -330,81 +343,95 @@ def _check_r(args: dict, p: int, act: str) -> None:
         if tsr is not None and tuple(tsr.shape) != want[name]:
             raise ValueError(f"{name} has shape {tuple(tsr.shape)}, "
                              f"expected {want[name]}")
-    check_types({k: v for k, v in args.items() if v is not None}, {},
-                "the edge-partitioned readout (f32 only)")
+    check_types({k: v for k, v in args.items() if v is not None},
+                _types(mat_dtype, "float32"),
+                f"the edge-partitioned readout at mat_dtype={mat_dtype}")
 
 
 def gather_linear_r_forward_ref(xa, xr, xb, idx, wa, wb, b, *, p: int,
-                                act: str = "relu",
-                                mean: bool = False) -> torch.Tensor:
-    """Plain PyTorch version of K10 (any device), differentiable."""
-    _check_r(dict(xa=xa, xr=xr, xb=xb, idx=idx, wa=wa, wb=wb, b=b), p, act)
-    return k_act(act, (pack_gather_sum(xa, idx, p, mean) + xr) @ wa
-                 + xb @ wb + b)
+                                act: str = "relu", mean: bool = False,
+                                mat_dtype: str = "float32") -> torch.Tensor:
+    """Plain PyTorch version of K10 (any device), differentiable (at bf16
+    through ops/bf16_ref.py, xr added unrounded)."""
+    _check_r(dict(xa=xa, xr=xr, xb=xb, idx=idx, wa=wa, wb=wb, b=b), p, act,
+             mat_dtype)
+    if mat_dtype == "float32":
+        return k_act(act, (pack_gather_sum(xa, idx, p, mean) + xr) @ wa
+                     + xb @ wb + b)
+    t1 = bf16_gather(xa, *bf16_onehot(idx, p, xa.shape[0], mean,
+                                      dtype=wa.dtype)) + xr.to(wa.dtype)
+    return k_act(act, bf16_mm(t1, wa) + bf16_mm(xb, wb) + b)
 
 
 def gather_linear_pool_forward_ref(xa, xr, xb, idx, node_group, pool_ell, wa,
                                    wb, b, *, p: int, act: str = "relu",
-                                   mean: bool = False):
+                                   mean: bool = False,
+                                   mat_dtype: str = "float32"):
     """Plain version of K11: (out, pool), the pool a sum of out's rows
-    through ``pool_ell`` (entries outside the group's pack absent);
-    ``node_group`` is only checked."""
+    through ``pool_ell`` (entries outside the group's pack absent; at bf16
+    of bf16(out), its cotangent rounded); ``node_group`` is only
+    checked."""
     _check_r(dict(xa=xa, xr=xr, xb=xb, idx=idx, node_group=node_group,
-                  pool_ell=pool_ell, wa=wa, wb=wb, b=b), p, act)
+                  pool_ell=pool_ell, wa=wa, wb=wb, b=b), p, act, mat_dtype)
     out = gather_linear_r_forward_ref(xa, xr, xb, idx, wa, wb, b, p=p,
-                                      act=act, mean=mean)
+                                      act=act, mean=mean, mat_dtype=mat_dtype)
+    if mat_dtype == "bfloat16":
+        return out, bf16_gather(out, *bf16_onehot(pool_ell, p, out.shape[0],
+                                                  False, dtype=out.dtype))
     ids = in_pack(pool_ell, p, out.shape[0])[0]
     return out, ext_zero_row(out)[ids].sum(dim=1)
 
 
 def gather_linear_r_backward_ref(xa, xr, xb, idx, adj, wa, wb, b, out, g, *,
                                  p: int, act: str = "relu",
-                                 mean: bool = False):
+                                 mean: bool = False,
+                                 mat_dtype: str = "float32"):
     """(dxa, dxr, dxb, dwa, dwb, db) by autograd through
     :func:`gather_linear_r_forward_ref`; ``adj`` and ``out`` are only
     checked."""
     _check_r(dict(xa=xa, xr=xr, xb=xb, idx=idx, adj=adj, wa=wa, wb=wb, b=b,
-                  out=out, g=g), p, act)
+                  out=out, g=g), p, act, mat_dtype)
     with torch.enable_grad():
         ins = [t.detach().requires_grad_() for t in (xa, xr, xb, wa, wb, b)]
         y = gather_linear_r_forward_ref(ins[0], ins[1], ins[2], idx,
-                                        *ins[3:], p=p, act=act, mean=mean)
+                                        *ins[3:], p=p, act=act, mean=mean,
+                                        mat_dtype=mat_dtype)
         return tuple(torch.autograd.grad(y, ins, g))
 
 
 def gather_linear_pool_backward_ref(xa, xr, xb, idx, adj, node_group,
                                     pool_ell, wa, wb, b, out, g, gpool, *,
                                     p: int, act: str = "relu",
-                                    mean: bool = False):
+                                    mean: bool = False,
+                                    mat_dtype: str = "float32"):
     """K11's (dxa, dxr, dxb, dwa, dwb, db) from the cotangents of out and
     pool, by autograd through :func:`gather_linear_pool_forward_ref`."""
     _check_r(dict(xa=xa, xr=xr, xb=xb, idx=idx, adj=adj,
                   node_group=node_group, pool_ell=pool_ell, wa=wa, wb=wb,
-                  b=b, out=out, g=g, gpool=gpool), p, act)
+                  b=b, out=out, g=g, gpool=gpool), p, act, mat_dtype)
     with torch.enable_grad():
         ins = [t.detach().requires_grad_() for t in (xa, xr, xb, wa, wb, b)]
         y = gather_linear_pool_forward_ref(ins[0], ins[1], ins[2], idx,
                                            node_group, pool_ell, *ins[3:],
-                                           p=p, act=act, mean=mean)
+                                           p=p, act=act, mean=mean,
+                                           mat_dtype=mat_dtype)
         return tuple(torch.autograd.grad(y, ins, (g, gpool)))
 
 
-def _count_r(pool: bool, backward: bool) -> None:
-    key = ("pool_" if pool else "r_") + (
-        "bwd_launches" if backward else "launches")
-    globals()[key] += 1
+def _count_r(pool: bool, mat_dtype: str, backward: bool) -> None:
+    count_launch(globals(), mat_dtype, backward, "pool_" if pool else "r_")
 
 
-def _launch_r_fwd(xa, xr, xb, idx, wa, wb, b, p, act, mean,
+def _launch_r_fwd(xa, xr, xb, idx, wa, wb, b, p, act, mean, mat_dtype,
                   node_group=None, pool_ell=None):
     args = dict(xa=xa, xr=xr, xb=xb, idx=idx, node_group=node_group,
                 pool_ell=pool_ell, wa=wa, wb=wb, b=b)
-    _check_r(args, p, act)
+    _check_r(args, p, act, mat_dtype)
     dev = xa.device
     check_cuda({k: v for k, v in args.items() if v is not None}, dev,
-               _R_INDEX_NAMES)
+               _R_INDEX_NAMES, _types(mat_dtype, "float32"))
     rows, FA, H = xb.shape[0], xa.shape[1], wa.shape[1]
-    t1 = torch.empty((rows, FA), device=dev)
+    t1 = torch.empty((rows, FA), device=dev, dtype=xa.dtype)
     out = torch.empty((rows, H), device=dev)
     GP = 0 if pool_ell is None else pool_ell.shape[0] // p
     DN = 0 if pool_ell is None else pool_ell.shape[1]
@@ -415,30 +442,31 @@ def _launch_r_fwd(xa, xr, xb, idx, wa, wb, b, p, act, mean,
             *(ptr(t) for t in (xa, xr, xb, idx, pool_ell, wa, wb, b, t1, out,
                                pool)),
             *_dims(xa, xb, idx, wa, p), GP, DN, KERNEL_ACTS.index(act),
-            int(mean), stream(dev))
+            int(mean), mat_index(mat_dtype), stream(dev))
     raise_on(lib, err, "gather_linear_r_fwd")
     return out, pool
 
 
 def _launch_r_bwd(xa, xr, xb, idx, adj, wa, wb, b, out, g, p, act, mean,
-                  needs, node_group=None, pool_ell=None, gpool=None):
+                  mat_dtype, needs, node_group=None, pool_ell=None,
+                  gpool=None):
     args = dict(xa=xa, xr=xr, xb=xb, idx=idx, adj=adj, node_group=node_group,
                 pool_ell=pool_ell, wa=wa, wb=wb, b=b, out=out, g=g,
                 gpool=gpool)
-    _check_r(args, p, act)
+    _check_r(args, p, act, mat_dtype)
     dev = xa.device
     check_cuda({k: v for k, v in args.items() if v is not None}, dev,
-               _R_INDEX_NAMES)
+               _R_INDEX_NAMES, _types(mat_dtype, "float32"))
     rows, FA, FB, H = xb.shape[0], xa.shape[1], xb.shape[1], wa.shape[1]
 
-    def empty(*shape):
-        return torch.empty(shape, device=dev)
+    def empty(*shape, dtype=torch.float32):
+        return torch.empty(shape, device=dev, dtype=dtype)
 
     grads = [torch.empty_like(t) if need else None
              for t, need in zip((xa, xr, xb, wa, wb, b), needs)]
     S = split_k(rows)
-    scratch = [empty(rows, FA), empty(rows, FA), empty(rows, H), empty(rows),
-               empty(S * max(FA, FB) * H),
+    scratch = [empty(rows, FA, dtype=xa.dtype), empty(rows, FA),
+               empty(rows, H), empty(rows), empty(S * max(FA, FB) * H),
                empty(rows, H) if gpool is not None else None]
     GP = 0 if gpool is None else gpool.shape[0] // p
     lib = _lib()
@@ -448,7 +476,8 @@ def _launch_r_bwd(xa, xr, xb, idx, adj, wa, wb, b, out, g, p, act, mean,
                                out, g, gpool)),
             *(ptr(t) for t in grads), *(ptr(t) for t in scratch),
             *_dims(xa, xb, idx, wa, p), adj.shape[1], GP,
-            KERNEL_ACTS.index(act), int(mean), S, stream(dev))
+            KERNEL_ACTS.index(act), int(mean), S, mat_index(mat_dtype),
+            stream(dev))
     raise_on(lib, err, "gather_linear_r_bwd")
     return tuple(grads)
 
@@ -463,28 +492,29 @@ def _cpu_or_cuda(xa) -> bool:
 
 
 def gather_linear_r_forward(xa, xr, xb, idx, wa, wb, b, *, p: int,
-                            act: str = "relu",
-                            mean: bool = False) -> torch.Tensor:
+                            act: str = "relu", mean: bool = False,
+                            mat_dtype: str = "float32") -> torch.Tensor:
     """K10's forward -> out [p*R, H] f32.  CUDA tensors launch
-    ``csrc/gather_linear.cu`` or raise; CPU tensors take
-    :func:`gather_linear_r_forward_ref`."""
-    kw = dict(p=p, act=act, mean=mean)
+    ``csrc/gather_linear.cu`` (its ``mat_dtype`` instantiation) or raise;
+    CPU tensors take :func:`gather_linear_r_forward_ref`."""
+    kw = dict(p=p, act=act, mean=mean, mat_dtype=mat_dtype)
     if _cpu_or_cuda(xa):
         return gather_linear_r_forward_ref(xa, xr, xb, idx, wa, wb, b, **kw)
     refuse_grad((xa, xr, xb, wa, wb, b), "gather_linear_r",
                 "gather_linear_r()")
     out, _ = _launch_r_fwd(xa, xr, xb, idx, wa, wb, b, **kw)
-    _count_r(False, False)
+    _count_r(False, mat_dtype, False)
     return out
 
 
 def gather_linear_pool_forward(xa, xr, xb, idx, node_group, pool_ell, wa, wb,
                                b, *, p: int, act: str = "relu",
-                               mean: bool = False):
+                               mean: bool = False,
+                               mat_dtype: str = "float32"):
     """K11's forward -> (out [p*R, H], pool [p*GP, H]), f32.  CUDA tensors
     launch ``csrc/gather_linear.cu`` or raise; CPU tensors take
     :func:`gather_linear_pool_forward_ref`."""
-    kw = dict(p=p, act=act, mean=mean)
+    kw = dict(p=p, act=act, mean=mean, mat_dtype=mat_dtype)
     if _cpu_or_cuda(xa):
         return gather_linear_pool_forward_ref(xa, xr, xb, idx, node_group,
                                               pool_ell, wa, wb, b, **kw)
@@ -492,33 +522,34 @@ def gather_linear_pool_forward(xa, xr, xb, idx, node_group, pool_ell, wa, wb,
                 "gather_linear_pool()")
     res = _launch_r_fwd(xa, xr, xb, idx, wa, wb, b, **kw,
                         node_group=node_group, pool_ell=pool_ell)
-    _count_r(True, False)
+    _count_r(True, mat_dtype, False)
     return res
 
 
 def gather_linear_r_backward(xa, xr, xb, idx, adj, wa, wb, b, out, g, *,
                              p: int, act: str = "relu", mean: bool = False,
-                             needs=(True,) * 6):
+                             mat_dtype: str = "float32", needs=(True,) * 6):
     """K10's (dxa, dxr, dxb, dwa, dwb, db) from the cotangent ``g`` of
     ``out``; an entry whose ``needs`` flag is False is None."""
-    kw = dict(p=p, act=act, mean=mean)
+    kw = dict(p=p, act=act, mean=mean, mat_dtype=mat_dtype)
     if _cpu_or_cuda(xa):
         grads = gather_linear_r_backward_ref(xa, xr, xb, idx, adj, wa, wb, b,
                                              out, g, **kw)
         return tuple(d if need else None for d, need in zip(grads, needs))
     grads = _launch_r_bwd(xa, xr, xb, idx, adj, wa, wb, b, out, g, **kw,
                           needs=needs)
-    _count_r(False, True)
+    _count_r(False, mat_dtype, True)
     return grads
 
 
 def gather_linear_pool_backward(xa, xr, xb, idx, adj, node_group, pool_ell,
                                 wa, wb, b, out, g, gpool, *, p: int,
                                 act: str = "relu", mean: bool = False,
+                                mat_dtype: str = "float32",
                                 needs=(True,) * 6):
     """K11's (dxa, dxr, dxb, dwa, dwb, db) from the cotangents ``g`` of
     ``out`` and ``gpool`` of the pool."""
-    kw = dict(p=p, act=act, mean=mean)
+    kw = dict(p=p, act=act, mean=mean, mat_dtype=mat_dtype)
     if _cpu_or_cuda(xa):
         grads = gather_linear_pool_backward_ref(
             xa, xr, xb, idx, adj, node_group, pool_ell, wa, wb, b, out, g,
@@ -527,7 +558,7 @@ def gather_linear_pool_backward(xa, xr, xb, idx, adj, node_group, pool_ell,
     grads = _launch_r_bwd(xa, xr, xb, idx, adj, wa, wb, b, out, g, **kw,
                           needs=needs, node_group=node_group,
                           pool_ell=pool_ell, gpool=gpool)
-    _count_r(True, True)
+    _count_r(True, mat_dtype, True)
     return grads
 
 
@@ -541,7 +572,7 @@ class _GatherLinearR(torch.autograd.Function):
         out, pool = _launch_r_fwd(xa, xr, xb, idx, wa, wb, b, **kw,
                                   node_group=node_group, pool_ell=pool_ell)
         ctx.kw, ctx.pooled = kw, pool is not None
-        _count_r(ctx.pooled, False)
+        _count_r(ctx.pooled, kw["mat_dtype"], False)
         ctx.save_for_backward(idx, adj, node_group, pool_ell, xa, xr, xb, wa,
                               wb, b, out)
         return (out, pool) if ctx.pooled else out
@@ -555,16 +586,17 @@ class _GatherLinearR(torch.autograd.Function):
         grads = _launch_r_bwd(xa, xr, xb, idx, adj, wa, wb, b, out,
                               g.contiguous(), **ctx.kw,
                               needs=ctx.needs_input_grad[5:], **pool_kw)
-        _count_r(ctx.pooled, True)
+        _count_r(ctx.pooled, ctx.kw["mat_dtype"], True)
         return (None,) * 5 + grads
 
 
 def gather_linear_r(xa, xr, xb, idx, adj, wa, wb, b, *, p: int,
-                    act: str = "relu", mean: bool = False) -> torch.Tensor:
+                    act: str = "relu", mean: bool = False,
+                    mat_dtype: str = "float32") -> torch.Tensor:
     """K10, differentiable in xa, xr, xb, wa, wb and b: on the card the
     forward kernel with the backward kernel as its backward, on the CPU
     :func:`gather_linear_r_forward_ref` under autograd."""
-    kw = dict(p=p, act=act, mean=mean)
+    kw = dict(p=p, act=act, mean=mean, mat_dtype=mat_dtype)
     if _cpu_or_cuda(xa):
         return gather_linear_r_forward_ref(xa, xr, xb, idx, wa, wb, b, **kw)
     return _GatherLinearR.apply(kw, idx, adj, None, None, xa, xr, xb, wa, wb,
@@ -572,11 +604,12 @@ def gather_linear_r(xa, xr, xb, idx, adj, wa, wb, b, *, p: int,
 
 
 def gather_linear_pool(xa, xr, xb, idx, adj, node_group, pool_ell, wa, wb, b,
-                       *, p: int, act: str = "relu", mean: bool = False):
+                       *, p: int, act: str = "relu", mean: bool = False,
+                       mat_dtype: str = "float32"):
     """K11 -> (out, pool), differentiable in xa, xr, xb, wa, wb and b: on
     the card the forward kernel with the backward kernel as its backward,
     on the CPU :func:`gather_linear_pool_forward_ref` under autograd."""
-    kw = dict(p=p, act=act, mean=mean)
+    kw = dict(p=p, act=act, mean=mean, mat_dtype=mat_dtype)
     if _cpu_or_cuda(xa):
         return gather_linear_pool_forward_ref(xa, xr, xb, idx, node_group,
                                               pool_ell, wa, wb, b, **kw)

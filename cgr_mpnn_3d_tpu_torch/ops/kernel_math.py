@@ -23,12 +23,15 @@ import math
 
 import torch
 
-__all__ = ["KERNEL_ACTS", "MAT_DTYPES", "round_bf16", "k_act", "k_dact", "mean_colscale",
+__all__ = ["KERNEL_ACTS", "CONV_ACTS", "MAT_DTYPES", "round_bf16", "k_act", "k_dact", "mean_colscale",
            "dropout_threshold", "hash_bits", "k_dropout_mask",
            "hash_dropout_keep_full"]
 
 # activation ids shared with the CUDA kernels (the ``act`` argument)
 KERNEL_ACTS = ("relu", "silu", "gelu")
+# ... and the per-layer conv kernel's (K6), which also takes "linear" (the
+# identity: the EP overlap path's pre-activations, JAX k_act :120)
+CONV_ACTS = KERNEL_ACTS + ("linear",)
 # operand types of the whole-model kernels' products (the ``mat_dtype`` int
 # of the CUDA kernels is the index here)
 MAT_DTYPES = ("float32", "bfloat16")
@@ -39,8 +42,11 @@ _M32 = 0xFFFFFFFF
 
 
 def k_act(name: str, pre: torch.Tensor) -> torch.Tensor:
-    """Activation on the f32 pre-activation: relu, silu (x * sigmoid(x)) or
-    exact-erf gelu.  ReLU's gradient at 0 is 0, as in JAX."""
+    """Activation on the f32 pre-activation: relu, silu (x * sigmoid(x)),
+    exact-erf gelu or linear (the identity).  ReLU's gradient at 0 is 0, as
+    in JAX."""
+    if name == "linear":
+        return pre
     if name == "relu":
         return torch.relu(pre)
     if name == "silu":
@@ -52,6 +58,8 @@ def k_act(name: str, pre: torch.Tensor) -> torch.Tensor:
 
 def k_dact(name: str, pre: torch.Tensor) -> torch.Tensor:
     """d act(pre) / d pre, as the backward kernels compute it."""
+    if name == "linear":
+        return torch.ones_like(pre)
     if name == "relu":
         return (pre > 0.0).to(torch.float32)
     if name == "silu":

@@ -45,26 +45,47 @@ is a gather through an index array the packer built (the JAX scatter-adds
 become gathers through ``recv_add_ell`` and ``halo_pull_idx``): no atomics,
 so a rerun is bit-identical.
 
-f32 only: ``compute_dtype="bfloat16"`` raises (ROADMAP.md).
+``compute_dtype="bfloat16"`` is JAX's ``md`` / ``store_dt`` (JAX
+``ep_pack_forward`` :920-990): x, e, h0 and every layer's h bf16, each
+kernel at ``mat_dtype`` bf16 (K5, K4 or K8/K9, K11; K2 per shard on the
+zero-cut train step), while the correction, the wire rows, the received
+rows and the readout stay f32.  ``cfg.ep_overlap`` runs each wired layer as
+JAX's overlap path (:1006-1063): the two exchanges, K6 with
+``act="linear"`` and no dropout for the local pre-activations, the compact
+correction ``[recv ++ (pulled - p_wire)] @ W`` brought to the node slots
+through a gather table made from ``recv_add_ell`` and ``halo_pull_idx`` (no
+scatter-add) and to the edges at their senders, then act, hash dropout and
+``store_dt``.  With
+wired mean it warns once and runs the K9 path (JAX drops to its XLA glue
+path there; the port has none, and K9 computes the same sums).  One stream
+in one process runs everything in order, so nothing overlaps yet.
+``cfg.ep_rdma_exchange`` sends every exchange through K12
+(:mod:`.rdma_exchange`: one launch for all hops and shards) instead of
+:class:`_RingExchange`'s copies.
 """
 
 from __future__ import annotations
 
+import warnings
 from dataclasses import dataclass
 from typing import NamedTuple, Sequence
 
 import numpy as np
 import torch
 
-from ..models.cgr_mpnn import (ACTIVATIONS, CGRMPNN, CGRMPNNConfig, _kernel_kw,
-                               _skips, kernel_grads_to_params)
+from ..models.cgr_mpnn import (ACTIVATIONS, CGRMPNN, CGRMPNNConfig, _dropout,
+                               _kernel_kw, _skips, _store_dtype,
+                               kernel_grads_to_params)
 from ..ops._launch import seed_list
+from ..ops.bf16_ref import bf16_mm
 from ..ops.conv_stack import conv_stack
-from ..ops.fused_conv import fused_conv_layer_r
+from ..ops.fused_conv import fused_conv_layer, fused_conv_layer_r
 from ..ops.fused_model import fused_model_train
 from ..ops.gather_linear import gather_linear, gather_linear_pool
+from ..ops.kernel_math import k_act, round_bf16
 from ..ops.segment import gather_nodes, node_incoming_sum
 from .edge_partition import EPOverflow, _ell_pack, _r8, _relabel_large
+from .rdma_exchange import _ring_move, ring_exchange_rdma
 
 __all__ = ["EPOverflow", "EPPackSpec", "EPPackedBatch", "pack_shard_edges",
            "empty_ep_pack_batch", "wire_bytes_per_layer", "ep_shards",
@@ -72,7 +93,10 @@ __all__ = ["EPOverflow", "EPPackSpec", "EPPackedBatch", "pack_shard_edges",
            "ep_pack_forward_shard", "ep_pack_forward",
            "supports_ep_fused_train", "ep_pack_fused_train",
            "make_ep_pack_train_step", "make_ep_pack_eval_step",
-           "check_ep_config"]
+           "ring_moves"]
+
+# runs of _RingExchange (forward and backward): 0 under --ep_rdma
+ring_moves = 0
 
 
 @dataclass(frozen=True)
@@ -693,18 +717,6 @@ class Psum(NamedTuple):
     value: torch.Tensor
 
 
-def _ring_move(bufs, caps, inverse: bool) -> list:
-    n = len(bufs)
-    outs = [[] for _ in range(n)]
-    off = 0
-    for h, s_h in enumerate(caps, start=1):
-        for k in range(n):
-            src = (k + h) % n if inverse else (k - h) % n
-            outs[k].append(bufs[src][off:off + s_h])
-        off += s_h
-    return [torch.cat(o, dim=0) for o in outs]
-
-
 class _RingExchange(torch.autograd.Function):
     """Hop h moves the block [off_h, off_h + caps[h-1]) of shard k's buffer
     to shard k + h (``inverse``: to k - h).  The adjoint is the inverse
@@ -712,11 +724,15 @@ class _RingExchange(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, caps, inverse, *bufs):
+        global ring_moves
+        ring_moves += 1
         ctx.caps, ctx.inverse = caps, inverse
         return tuple(_ring_move(bufs, caps, inverse))
 
     @staticmethod
     def backward(ctx, *grads):
+        global ring_moves
+        ring_moves += 1
         return (None, None, *_ring_move(grads, ctx.caps, not ctx.inverse))
 
 
@@ -726,10 +742,14 @@ def ring_exchange(bufs: list, caps: tuple[int, ...],
     return list(_RingExchange.apply(tuple(caps), inverse, *bufs))
 
 
-def run_lockstep(gens: list, caps: tuple[int, ...]) -> list:
+def run_lockstep(gens: list, caps: tuple[int, ...],
+                 rdma: bool = False) -> list:
     """Run one generator per shard in lockstep: each runs to its next
     :class:`Exchange` or :class:`Psum`, the collective runs over all of
-    them, and each resumes with its share; returns their return values."""
+    them, and each resumes with its share; returns their return values.
+    With ``rdma`` the exchanges go through K12 (:func:`ring_exchange_rdma`)
+    instead of :func:`ring_exchange`."""
+    exchange = ring_exchange_rdma if rdma else ring_exchange
     n = len(gens)
     sends: list = [None] * n
     while True:
@@ -748,8 +768,7 @@ def run_lockstep(gens: list, caps: tuple[int, ...]) -> list:
         if any(type(r) is not kind for r in reqs):
             raise RuntimeError("the shards asked for different collectives")
         if kind is Exchange:
-            sends = ring_exchange([r.buf for r in reqs], caps,
-                                  reqs[0].inverse)
+            sends = exchange([r.buf for r in reqs], caps, reqs[0].inverse)
         else:
             total = reqs[0].value
             for r in reqs[1:]:
@@ -761,12 +780,35 @@ def run_lockstep(gens: list, caps: tuple[int, ...]) -> list:
 # the EP forward of one shard
 # ---------------------------------------------------------------------------
 
-def check_ep_config(cfg: CGRMPNNConfig) -> None:
-    """The EP path runs its kernels at f32 only."""
-    if cfg.compute_dtype != "float32":
-        raise NotImplementedError(
-            "edge partitioning runs at compute_dtype float32 only; the bf16 "
-            "instantiations of K8-K11 are queued in ROADMAP.md (EP at bf16)")
+_overlap_wired_mean_warned = False
+
+
+def _warn_overlap_wired_mean_once() -> None:
+    """``ep_overlap`` with aggr='mean' on a wired spec: the overlap path's
+    correction, applied after the linear-activation kernel, cannot carry
+    the global mean scale through the product, so the run takes the K9
+    path instead; say so once (JAX ``_warn_overlap_wired_mean_once``)."""
+    global _overlap_wired_mean_warned
+    if not _overlap_wired_mean_warned:
+        _overlap_wired_mean_warned = True
+        warnings.warn(
+            "--ep_overlap with aggr='mean' on an edge-partition spec with a "
+            "non-empty cut runs the wired-mean layers through K9 "
+            "(fused_conv_layer_r with the global scale), as without "
+            "--ep_overlap", stacklevel=3)
+
+
+def _exchanges(h, b: EPPackedBatch):
+    """The push and the pull of one wired layer on h (f32): (recv, r_recv,
+    pulled - p_wire) -- the received rows [TW, H], them summed on their
+    owned slots [PN, H], and the pulled complete sums less the local
+    partials sent [TW, H]."""
+    a_loc = _node_partial(h, b)
+    p_wire = _wire_gather(a_loc, b)
+    recv = yield Exchange(p_wire)
+    r_recv = _recv_add(recv, b)
+    pulled = yield Exchange(_serve_gather(a_loc + r_recv, b), inverse=True)
+    return recv, r_recv, pulled - p_wire
 
 
 def _correction(h, b: EPPackedBatch):
@@ -774,13 +816,8 @@ def _correction(h, b: EPPackedBatch):
     received rows on owned boundary slots, (pulled complete - local partial)
     on halo slots, zero elsewhere -- so that the conv kernel's local
     messages plus r at the sender are the complete sums (push, then pull)."""
-    a_loc = _node_partial(h, b)
-    p_wire = _wire_gather(a_loc, b)
-    recv = yield Exchange(p_wire)
-    r_recv = _recv_add(recv, b)
-    served = _serve_gather(a_loc + r_recv, b)
-    pulled = yield Exchange(served, inverse=True)
-    return _halo_swap(r_recv, pulled - p_wire, b)
+    _, r_recv, d_pull = yield from _exchanges(h, b)
+    return _halo_swap(r_recv, d_pull, b)
 
 
 def _recv_only(h, b: EPPackedBatch):
@@ -790,6 +827,31 @@ def _recv_only(h, b: EPPackedBatch):
     return _recv_add(recv, b)
 
 
+def _overlap_tables(b: EPPackedBatch, tw: int):
+    """The overlap path's gather tables between the node slots and the
+    rows of [recv ++ (pulled - p_wire)] (sentinel 2·TW): (corr_ell [PN,
+    DR+1], each slot's received rows (recv_add_ell) then its pull row (halo
+    slots); slots2 [2·TW], recv_dst_slot ++ wire_send_slot, its adjoint).
+    Built once per batch on the batch's device."""
+    ra, pull = b.recv_add_ell, b.halo_pull_idx
+    corr_ell = torch.cat([torch.where(ra < tw, ra, 2 * tw),
+                          torch.where(pull < tw, pull + tw, 2 * tw)[:, None]],
+                         dim=1).to(torch.int32)
+    return corr_ell, torch.cat([b.recv_dst_slot, b.wire_send_slot])
+
+
+def _overlap_correction(recv, d_pull, w, tables, b: EPPackedBatch, bf16):
+    """The overlap path's boundary term at each edge [PE, H]: rw = [recv ++
+    (pulled - p_wire)] @ w (operands bf16 at bf16, f32 sums), its rows
+    summed onto their node slots through ``corr_ell`` (adjoint: the gather
+    through ``slots2``; both from :func:`_overlap_tables`), then taken at
+    each edge's sender (adjoint: the sum through node_out)."""
+    rows2 = torch.cat([recv, d_pull])
+    rw = bf16_mm(rows2, w) if bf16 else rows2 @ w
+    nodes = _PairGather.apply(rw, *tables, None, None)
+    return _PairGather.apply(nodes, b.senders, b.node_out, None, None)
+
+
 def ep_pack_forward_shard(model: CGRMPNN, b: EPPackedBatch, spec: EPPackSpec,
                           *, train: bool = False, seeds=None):
     """One shard's EP forward, a generator (see the module doc): yields its
@@ -797,18 +859,27 @@ def ep_pack_forward_shard(model: CGRMPNN, b: EPPackedBatch, spec: EPPackSpec,
     shard -- and preds [B]).  ``seeds`` holds this shard's int32 dropout
     seed per conv layer (train mode)."""
     cfg = model.cfg
-    check_ep_config(cfg)
     if train and seeds is None:
         raise ValueError("train mode needs one dropout seed per conv layer")
     kact = ACTIVATIONS[cfg.activation]
+    md = cfg.compute_dtype
+    bf16 = md == "bfloat16"
+    # fd: the correction's, the wire's and the readout's type (f32, or
+    # float64 for a float64 evaluation); sd: x, e and the edge states
+    fd = model.ffn.w.dtype
+    sd = _store_dtype(cfg) if bf16 else fd
     p, tn, H = spec.p, spec.tn, cfg.hidden
     has_wire = any(c > 0 for c in spec.caps)
     wired_mean = cfg.aggr == "mean" and has_wire
-    x, e = b.node_x.float(), b.edge_attr.float()
+    if cfg.ep_overlap and wired_mean:
+        _warn_overlap_wired_mean_once()
+    overlap = cfg.ep_overlap and has_wire and not wired_mean
+    x, e = b.node_x.to(sd), b.edge_attr.to(sd)
     F = x.shape[1]
     wei, wen = model.edge_init, model.edge_to_node
     h0 = gather_linear(x, e, b.senders[:, None], b.node_out, wei.w[:F],
-                       wei.w[F:], wei.b, p=p, act=kact)
+                       wei.w[F:], wei.b, p=p, act=kact, mat_dtype=md,
+                       out_dtype=md)
     skips = _skips(model, x.device)
     if not has_wire:
         # no boundary at this width: the whole depth as one stack kernel
@@ -817,47 +888,68 @@ def ep_pack_forward_shard(model: CGRMPNN, b: EPPackedBatch, spec: EPPackSpec,
                        torch.stack([c.b for c in model.convs]), skips, p=p,
                        act=kact, mean=cfg.aggr == "mean", train=train,
                        seeds=seeds if train else None,
-                       dropout_ps=tuple(cfg.dropout_ps) if train else ())
+                       dropout_ps=tuple(cfg.dropout_ps) if train else (),
+                       mat_dtype=md)
     else:
         # per-edge GLOBAL 1/in-degree of the sender (0 on padding edges)
         scale = (_take0(b.inv_deg[:, None], b.senders)[:, 0].contiguous()
                  if wired_mean else None)
+        tables = _overlap_tables(b, spec.tw) if overlap else None
         layer_seeds = seed_list(seeds) if train else [None] * cfg.depth
         h = h0
         for l, conv in enumerate(model.convs):
-            r = yield from _correction(h, b)
+            rate = cfg.dropout_ps[l] if train else 0.0
+            if overlap:
+                recv, _, d_pull = yield from _exchanges(h.to(fd), b)
+                # the local pre-activations, independent of the exchanges
+                pre = fused_conv_layer(
+                    h, h0, b.edge_nbr, b.rev, b.edge_nbr_rev, conv.w, conv.b,
+                    skips[l], p=p, act="linear", mat_dtype=md,
+                    out_dtype="float32")
+                corr = _overlap_correction(recv, d_pull, conv.w, tables, b,
+                                           bf16)
+                out = k_act(kact, pre.to(fd) + corr)
+                if rate > 0.0:
+                    out = _dropout(out, rate, layer_seeds[l], spec.te)
+                h = out.to(sd)
+                continue
+            r = yield from _correction(h.to(fd), b)
             h = fused_conv_layer_r(
                 h, r, h0, b.edge_nbr, b.rev, b.edge_nbr_rev, b.senders,
                 b.node_out, conv.w, conv.b, skips[l], p=p, tn=tn, scale=scale,
-                act=kact, train=train, seed=layer_seeds[l],
-                dropout_p=cfg.dropout_ps[l] if train else 0.0)
+                act=kact, train=train, seed=layer_seeds[l], dropout_p=rate,
+                mat_dtype=md)
     # readout + per-pack group pool in one kernel (only the push hop: the
     # pool reads owned slots), then the groups of each graph combined
     if has_wire:
-        r_s = yield from _recv_only(h, b)
+        r_s = yield from _recv_only(h.to(fd), b)
     else:
-        r_s = h.new_zeros((p * tn, H))
+        r_s = h.new_zeros((p * tn, H), dtype=fd)
     h_ro, ro_mean = h, cfg.aggr == "mean"
     if wired_mean:
         # the global mean as the add kernel on scaled rows: each edge feeds
         # exactly one node dst(e), so h rows take inv_deg[dst(e)] and r_s
         # rows inv_deg[v]
-        h_ro = h * _take0(b.inv_deg[:, None], b.dst)
+        h_ro = (h.to(fd) * _take0(b.inv_deg[:, None], b.dst)).to(h.dtype)
         r_s = r_s * b.inv_deg[:, None]
         ro_mean = False
     _, pool_part = gather_linear_pool(
         h_ro, r_s, x, b.node_inc, b.dst[:, None], b.node_group, b.pool_ell,
-        wen.w[F:], wen.w[:F], wen.b, p=p, act=kact, mean=ro_mean)
+        wen.w[F:], wen.w[:F], wen.b, p=p, act=kact, mean=ro_mean,
+        mat_dtype=md)
     pool = _combine_groups(pool_part, b)
     if cfg.pooling == "mean":
         # the shard's pool rows are partial sums: divide by the graph's
         # node count over all shards
-        local_cnt = (b.graph_nodes < spec.pn).sum(dim=1).float()
+        local_cnt = (b.graph_nodes < spec.pn).sum(dim=1).to(fd)
         cnt = yield Psum(local_cnt)
         pool = pool * torch.where(cnt > 0, 1.0 / cnt.clamp_min(1.0),
                                   0.0)[:, None]
     # the ffn bias split as b/n_ep, so the sum over shards is exact
-    z = pool @ model.ffn.w + model.ffn.b / spec.n_ep
+    w_ffn = model.ffn.w
+    if bf16:
+        pool, w_ffn = round_bf16(pool), round_bf16(w_ffn)
+    z = pool @ w_ffn + model.ffn.b / spec.n_ep
     preds = (yield Psum(z))[:, 0]
     err = (preds - b.labels) * b.graph_mask
     return (err * err).sum(), preds
@@ -873,7 +965,8 @@ def ep_pack_forward(model: CGRMPNN, shards: list, spec: EPPackSpec, *,
     gens = [ep_pack_forward_shard(model, b, spec, train=train,
                                   seeds=None if seeds is None else seeds[k])
             for k, b in enumerate(shards)]
-    (sse, preds), *_ = run_lockstep(gens, spec.caps)
+    (sse, preds), *_ = run_lockstep(gens, spec.caps,
+                                    model.cfg.ep_rdma_exchange)
     return sse, preds
 
 
@@ -912,7 +1005,6 @@ def ep_pack_fused_train(model: CGRMPNN, b: EPPackedBatch, spec: EPPackSpec,
     sums over disjoint graphs, summed over the shards by the caller (no
     division by n_ep)."""
     cfg = model.cfg
-    check_ep_config(cfg)
     node_inc, labels, mask = _ep_kernel_batch(b, spec)
     x = b.node_x.float()
     F = x.shape[1]

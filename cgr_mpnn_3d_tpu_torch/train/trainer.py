@@ -37,8 +37,9 @@
               runs in this process: the step and the validation step are
               ``parallel.ep_pack``'s, keyed by the loader's spec (rebuilt
               when the pins grow), with one dropout seed per shard and
-              layer.  f32 only; the gradient histograms are skipped there,
-              as in JAX.
+              layer, at either ``compute_dtype`` and with the config's
+              ``ep_overlap`` and ``ep_rdma_exchange``; the gradient
+              histograms are skipped there, as in JAX.
 
 Left out: data parallelism, multi-host, device-resident epochs, several
 steps per call, reused packs and loader workers (ROADMAP.md).
@@ -61,7 +62,7 @@ from ..models.cgr_mpnn import (CGRMPNNConfig, apply,
                                fused_train_value_and_grad, init_params,
                                kernel_seeds, supports_fused_train)
 from ..parallel.ep_loader import EPPackLoader
-from ..parallel.ep_pack import (EPPackedBatch, check_ep_config, ep_shards,
+from ..parallel.ep_pack import (EPPackedBatch, ep_shards,
                                 make_ep_pack_eval_step,
                                 make_ep_pack_train_step)
 from ..utils.device import resolve_device
@@ -125,7 +126,6 @@ class RxnGraphTrainer:
         self.device = resolve_device(self.device)
         self.n_ep = max(1, self.n_ep)
         if self.n_ep > 1:
-            check_ep_config(self.cfg)
             self.train_loader = EPPackLoader(self.train_data, self.n_ep,
                                              batch_size=self.batch_size,
                                              shuffle=True, seed=self.seed,

@@ -127,7 +127,24 @@ Phases (any failure raises, and the script exits non-zero):
    K11); ``RxnGraphTrainer(n_ep=2)`` on a wired dataset with aggr add (K8)
    and mean (K9), 3 epochs on the card and on the CPU, with the launch
    counts of every new kernel;
-18. a ``{"kernels": [...]}`` line, then ``{"ok": true, "device": {...}}`` as
+18. EP at bf16, K6's linear activation, the hop exchange K12, --ep_rdma
+   and --ep_overlap: K8, K9, K10 and K11 at bf16 and K6 with act="linear"
+   (f32 and bf16) against their plain versions on the wired batch's most
+   wired shard at n_ep 2 (hold_bf16, the f32 kernel as control), with
+   times, bounds and plain versions' times; K12 against the ring copies
+   on the wired batch's wire buffers at n_ep 2 and 4, f32 and bf16, both
+   ways and backward, bit for bit, timed beside the copies and one
+   ``index_select``; the wired EP step at n_ep 2 through the ring copies,
+   K12 (equal bit for bit, one launch per exchange, also at n_ep 4), bf16
+   (against f32 within tests/test_bf16.py's bounds) and --ep_overlap (f32
+   against the K8 path, gradients by the float64 rule; bf16 by the bf16
+   rule), each step's ms and launches, the busy share with and without
+   K12; ``tools/profile_ep.py`` at its defaults (K10's caller);
+   ``cli.train.main --ep 2 --compute_dtype bfloat16`` on the corpus (3
+   epochs on the card, 2 on the CPU, BF16_TRAIN_TOL); the wired trainer at
+   bf16 (K8, K9), with --ep_rdma and with --ep_overlap, card vs CPU; each
+   new phase's wall time on a line of its own;
+19. a ``{"kernels": [...]}`` line, then ``{"ok": true, "device": {...}}`` as
    the last line.
 
 It exits non-zero, printing no result, without CUDA or without the package
@@ -1721,14 +1738,16 @@ def train_layered(tmp: Path, seed: int, card: str, dtype: str = "float32",
 
 
 def conv_cost(h, h0, edge_nbr, rev, w, p: int, edges: int, backward: bool,
-              relu: bool = True) -> tuple[float, float, float]:
+              recompute: bool = False,
+              out_size: int | None = None) -> tuple[float, float, float]:
     """(product operations, other operations, bytes) of one conv layer
-    (K6) on these inputs over the
-    real edges: the product t·W and the message adds; backward the
-    recomputed messages (and, for SiLU and GELU, the recomputed product),
-    dt = dpre·Wᵀ, dW = tᵀ·dpre, the adjoint's adds, db, dskip and dh0.
-    Bytes: every input read once (backward: edge_nbr_rev, the output and
-    its cotangent too), every output written once."""
+    (K6) on these inputs over the real edges: the product t·W and the
+    message adds; backward the recomputed messages (and, with
+    ``recompute`` -- SiLU and GELU, not ReLU or linear -- the recomputed
+    product), dt = dpre·Wᵀ, dW = tᵀ·dpre, the adjoint's adds, db, dskip
+    and dh0.  Bytes: every input read once (backward: edge_nbr_rev, the
+    output and its cotangent too), every output written once; the output
+    and its cotangent at h0's element size, or ``out_size`` bytes."""
     from cgr_mpnn_3d_tpu_torch.ops.segment import in_pack
     ET, Hin = h.shape
     H = w.shape[1]
@@ -1737,11 +1756,12 @@ def conv_cost(h, h0, edge_nbr, rev, w, p: int, edges: int, backward: bool,
     prod = 2 * edges * Hin * H
     weights = (Hin * H + H + 1) * 4
     ins = nbytes_of(h, h0, edge_nbr, rev) + weights
+    outb = h0.numel() * (out_size or h0.element_size())
     if not backward:
-        return float(prod), float(adds), float(ins + nbytes_of(h0))
-    nbytes = (ins + nbytes_of(edge_nbr) + 2 * nbytes_of(h0) + nbytes_of(h, h0)
+        return float(prod), float(adds), float(ins + outb)
+    nbytes = (ins + nbytes_of(edge_nbr) + 2 * outb + nbytes_of(h, h0)
               + weights)
-    return (float((0 if relu else prod) + 2 * prod),
+    return (float((prod if recompute else 0) + 2 * prod),
             float(2 * adds + 4 * edges * H), float(nbytes))
 
 
@@ -1810,7 +1830,7 @@ def fused_conv_kernels(cfg_kw: dict, spec, batch, seed: int, repeats: int,
                    lambda: fc.fused_conv_backward(*args, **k_tr),
                    lambda: fc.fused_conv_backward_ref(*args, **k_tr),
                    repeats, conv_cost(ins[0], ins[1], b.edge_nbr, b.rev,
-                                      ws[0], p, E, True, relu), bf16)
+                                      ws[0], p, E, True, not relu), bf16)
     return out
 
 
@@ -2451,37 +2471,66 @@ def ep_graphs(seed: int, n_graphs: int, chains, F: int = 270):
     return graphs, rng.standard_normal(len(graphs)).astype(np.float32)
 
 
-def ep_zero():
-    """Every launch counter the EP paths move, set to 0."""
+# the launch counters of the EP paths, by kernel: (module, forward counter,
+# backward counter); "bf16 " names the bf16 instantiation's
+EP_COUNTERS = {
+    "K5": ("gl", "launches", "bwd_launches"),
+    "K4": ("cs", "launches", "bwd_launches"),
+    "K8": ("fc", "r_launches", "r_bwd_launches"),
+    "K9": ("fc", "rm_launches", "rm_bwd_launches"),
+    "K10": ("gl", "r_launches", "r_bwd_launches"),
+    "K11": ("gl", "pool_launches", "pool_bwd_launches"),
+    "K6 linear": ("fc", "linear_launches", "linear_bwd_launches"),
+    "K12": ("rx", "launches", "bwd_launches"),
+}
+
+
+def nonzero(launches: dict) -> dict:
+    """The counters of ``launches`` that moved."""
+    return {k: v for k, v in launches.items() if v not in (0, (0, 0))}
+
+
+def _ep_modules() -> dict:
     from cgr_mpnn_3d_tpu_torch.ops import conv_stack as cs
     from cgr_mpnn_3d_tpu_torch.ops import fused_conv as fc
     from cgr_mpnn_3d_tpu_torch.ops import fused_model as fm
     from cgr_mpnn_3d_tpu_torch.ops import gather_linear as gl
-    for m, keys in ((gl, ("launches", "bwd_launches", "r_launches",
-                          "r_bwd_launches", "pool_launches",
-                          "pool_bwd_launches")),
-                    (fc, ("launches", "bwd_launches", "r_launches",
-                          "r_bwd_launches", "rm_launches",
-                          "rm_bwd_launches")),
-                    (cs, ("launches", "bwd_launches")),
-                    (fm, ("launches", "train_launches", "vjp_launches"))):
-        for k in keys:
-            setattr(m, k, 0)
+    from cgr_mpnn_3d_tpu_torch.parallel import ep_pack as ep
+    from cgr_mpnn_3d_tpu_torch.parallel import rdma_exchange as rx
+    return dict(cs=cs, fc=fc, fm=fm, gl=gl, ep=ep, rx=rx)
+
+
+def ep_zero():
+    """Every launch counter the EP paths move, set to 0 (and the ring
+    copies' count)."""
+    m = _ep_modules()
+    for mod, fwd, bwd in EP_COUNTERS.values():
+        for key in (fwd, bwd):
+            setattr(m[mod], key, 0)
+            if mod != "rx":
+                setattr(m[mod], "bf16_" + key, 0)
+    for key in ("launches", "train_launches", "vjp_launches"):
+        setattr(m["fm"], key, 0)
+        setattr(m["fm"], "bf16_" + key, 0)
+    m["ep"].ring_moves = 0
 
 
 def ep_counts() -> dict:
-    """(forward, backward) launches of each kernel the EP paths run."""
-    from cgr_mpnn_3d_tpu_torch.ops import conv_stack as cs
-    from cgr_mpnn_3d_tpu_torch.ops import fused_conv as fc
-    from cgr_mpnn_3d_tpu_torch.ops import fused_model as fm
-    from cgr_mpnn_3d_tpu_torch.ops import gather_linear as gl
-    return dict(K5=(gl.launches, gl.bwd_launches),
-                K4=(cs.launches, cs.bwd_launches),
-                K8=(fc.r_launches, fc.r_bwd_launches),
-                K9=(fc.rm_launches, fc.rm_bwd_launches),
-                K10=(gl.r_launches, gl.r_bwd_launches),
-                K11=(gl.pool_launches, gl.pool_bwd_launches),
-                K2=fm.train_launches, K3f=fm.launches)
+    """(forward, backward) launches of each kernel the EP paths run, f32
+    and ("<id> bf16") bf16; K2 and K3f launches; the ring copies' runs."""
+    m = _ep_modules()
+    out = {}
+    for name, (mod, fwd, bwd) in EP_COUNTERS.items():
+        out[name] = (getattr(m[mod], fwd), getattr(m[mod], bwd))
+        if mod != "rx":
+            out[name + " bf16"] = (getattr(m[mod], "bf16_" + fwd),
+                                   getattr(m[mod], "bf16_" + bwd))
+    fm = m["fm"]
+    out.update(K2=fm.train_launches, K3f=fm.launches,
+               **{"K2 bf16": fm.bf16_train_launches,
+                  "K3f bf16": fm.bf16_launches},
+               ring=m["ep"].ring_moves)
+    return out
 
 
 def conv_r_cost(h, r, h0, b, w, p: int, edges: int, backward: bool,
@@ -2527,15 +2576,19 @@ def glin_r_cost(xa, xr, xb, b, wa, p: int, backward: bool,
 
 
 def ep_kernels(seed: int, repeats: int, n_ep: int, n_graphs: int = EP_GRAPHS,
-               chains=(EP_CHAIN,)) -> dict:
+               chains=(EP_CHAIN,), dtype: str = "float32") -> dict:
     """K8, K9, K10 and K11 against their plain versions at full width
     (hidden 400, F = 270) on the most wired shard of a batch of
     ``n_graphs`` synthetic graphs and chains of ``chains`` atoms (te 128 /
     tn 72 before the tile grows to a chain's fragment; by default the wired
     batch, whose chain is cut), seeded inputs (r random, as the kernels'
-    work does not depend on the cut): forward at REL_TOL, backward by the
-    float64 rule of hold (ReLU), a second backward bit for bit; times of
-    both, plain versions' and bounds."""
+    work does not depend on the cut), and K6 with act="linear" (f32
+    output) on the same shard, as the overlap path calls it: f32 forward
+    at REL_TOL, backward by the float64 rule of hold (ReLU), a second
+    backward bit for bit.  ``dtype="bfloat16"``: h, h0, x and the states'
+    cotangents bf16 (r, xr and the readout f32), each held by hold_bf16
+    with the f32 kernel as control.  Times of both, plain versions' and
+    bounds (products at the bf16 peak at bf16)."""
     import torch
     from cgr_mpnn_3d_tpu_torch.ops import fused_conv as fc
     from cgr_mpnn_3d_tpu_torch.ops import gather_linear as gl
@@ -2548,60 +2601,87 @@ def ep_kernels(seed: int, repeats: int, n_ep: int, n_graphs: int = EP_GRAPHS,
     b = max(shards, key=lambda s: float(s.halo_mask.sum()))
     gen = torch.Generator().manual_seed(seed)
     H, F, p = 400, 270, spec.p
+    bf16 = dtype == BF16
+    sd = torch.bfloat16 if bf16 else torch.float32
 
-    def rand(*shape, scale=1.0):
-        return (torch.randn(shape, generator=gen) * scale).to(DEVICE)
+    def rand(*shape, scale=1.0, dt=torch.float32):
+        return (torch.randn(shape, generator=gen) * scale).to(DEVICE).to(dt)
 
-    h, h0, r = rand(spec.pe, H).relu(), rand(spec.pe, H).relu(), \
-        rand(spec.pn, H, scale=0.5)
+    h, h0, r = rand(spec.pe, H).relu().to(sd), rand(spec.pe, H).relu().to(
+        sd), rand(spec.pn, H, scale=0.5)
     w, bias = rand(H, H, scale=H ** -0.5), rand(H, scale=0.1)
     skip = torch.tensor(1.0, device=DEVICE)
     scale = torch.cat([b.inv_deg, b.inv_deg.new_zeros(1)])[
         b.senders.long()].contiguous()
     E = int((b.senders < spec.pn).sum())
     out: dict = dict(p=p, te=spec.te, tn=spec.tn, caps=spec.caps, edges=E,
-                     halo=int(b.halo_mask.sum()))
+                     halo=int(b.halo_mask.sum()), dtype=dtype)
     conv = (h, r, h0, b.edge_nbr, b.rev, b.senders)
     conv_w = (w, bias, skip)
-    g = rand(spec.pe, H)
+    g = rand(spec.pe, H, dt=sd)
+    md = dict(mat_dtype=dtype)
     with torch.no_grad():
         for name, sc in (("K8", None), ("K9", scale)):
             kw = dict(p=p, tn=spec.tn, scale=sc)
+            k = dict(kw, **md)
             y = held(out, f"{name} fwd", fc.fused_conv_r_forward,
-                     fc.fused_conv_layer_r_ref, (*conv, *conv_w), kw, kw)
+                     fc.fused_conv_layer_r_ref, (*conv, *conv_w), kw, k)
             args = (*conv, b.edge_nbr_rev, b.node_out, *conv_w, y, g)
+            args32 = ((*_f32(args[:-2]), fc.fused_conv_r_forward(
+                *_f32(conv), *conv_w, **kw), g.float()) if bf16 else None)
             held(out, f"{name} bwd", fc.fused_conv_r_backward,
-                 fc.fused_conv_r_backward_ref, args, kw, kw, True, True)
+                 fc.fused_conv_r_backward_ref, args, kw, k, True, True,
+                 args32)
             if repeats:
                 _timed(out[f"{name} fwd"],
-                       lambda: fc.fused_conv_r_forward(*conv, *conv_w, **kw),
+                       lambda: fc.fused_conv_r_forward(*conv, *conv_w, **k),
                        lambda: fc.fused_conv_layer_r_ref(*conv, *conv_w,
-                                                         **kw),
-                       repeats, conv_r_cost(h, r, h0, b, w, p, E, False, sc))
+                                                         **k),
+                       repeats, conv_r_cost(h, r, h0, b, w, p, E, False, sc),
+                       bf16)
                 _timed(out[f"{name} bwd"],
-                       lambda: fc.fused_conv_r_backward(*args, **kw),
-                       lambda: fc.fused_conv_r_backward_ref(*args, **kw),
-                       repeats, conv_r_cost(h, r, h0, b, w, p, E, True, sc))
+                       lambda: fc.fused_conv_r_backward(*args, **k),
+                       lambda: fc.fused_conv_r_backward_ref(*args, **k),
+                       repeats, conv_r_cost(h, r, h0, b, w, p, E, True, sc),
+                       bf16)
+        # K6 with the linear activation: the overlap path's pre-activations
+        lin = (h, h0, b.edge_nbr, b.rev)
+        kl = dict(p=p, act="linear", out_dtype="float32")
+        kl16 = dict(kl, **md)
+        yl = held(out, "K6 linear fwd", fc.fused_conv_forward,
+                  fc.fused_conv_layer_ref, (*lin, *conv_w), kl, kl16)
+        gl32 = rand(spec.pe, H)
+        largs = (*lin, b.edge_nbr_rev, *conv_w, yl, gl32)
+        held(out, "K6 linear bwd", fc.fused_conv_backward,
+             fc.fused_conv_backward_ref, largs, kl, kl16, True)
         xr = rand(spec.pn, H, scale=0.5)
-        x = b.node_x
+        x = b.node_x.to(sd)
         wa, wb, bb = rand(H, H, scale=H ** -0.5), rand(F, H, scale=F ** -0.5), \
             rand(H, scale=0.1)
         gn = rand(spec.pn, H)
         kw = dict(p=p)
+        k = dict(kw, **md)
         ro = (h, xr, x, b.node_inc)
         y = held(out, "K10 fwd", gl.gather_linear_r_forward,
-                 gl.gather_linear_r_forward_ref, (*ro, wa, wb, bb), kw, kw)
+                 gl.gather_linear_r_forward_ref, (*ro, wa, wb, bb), kw, k)
         args10 = (*ro, b.dst[:, None], wa, wb, bb, y, gn)
+        a10_32 = ((*_f32(args10[:-2]), gl.gather_linear_r_forward(
+            *_f32(ro), wa, wb, bb, **kw), gn) if bf16 else None)
         held(out, "K10 bwd", gl.gather_linear_r_backward,
-             gl.gather_linear_r_backward_ref, args10, kw, kw, True, True)
+             gl.gather_linear_r_backward_ref, args10, kw, k, True, True,
+             a10_32)
         pool_t = (b.node_group, b.pool_ell)
         y, pool = held(out, "K11 fwd", gl.gather_linear_pool_forward,
                        gl.gather_linear_pool_forward_ref,
-                       (*ro, *pool_t, wa, wb, bb), kw, kw)
+                       (*ro, *pool_t, wa, wb, bb), kw, k)
         gp = rand(*pool.shape)
         args11 = (*ro, b.dst[:, None], *pool_t, wa, wb, bb, y, gn, gp)
+        a11_32 = ((*_f32(args11[:-3]), gl.gather_linear_pool_forward(
+            *_f32(ro), *pool_t, wa, wb, bb, **kw)[0], gn, gp) if bf16
+            else None)
         held(out, "K11 bwd", gl.gather_linear_pool_backward,
-             gl.gather_linear_pool_backward_ref, args11, kw, kw, True, True)
+             gl.gather_linear_pool_backward_ref, args11, kw, k, True, True,
+             a11_32)
         torch.cuda.synchronize()
         if repeats:
             for name, fwd, ref, fargs, bwd, bref, bargs, pooled in (
@@ -2614,23 +2694,39 @@ def ep_kernels(seed: int, repeats: int, n_ep: int, n_graphs: int = EP_GRAPHS,
                      (*ro, *pool_t, wa, wb, bb),
                      gl.gather_linear_pool_backward,
                      gl.gather_linear_pool_backward_ref, args11, True)):
-                _timed(out[f"{name} fwd"], lambda: fwd(*fargs, **kw),
-                       lambda: ref(*fargs, **kw), repeats,
-                       glin_r_cost(h, xr, x, b, wa, p, False, pooled))
-                _timed(out[f"{name} bwd"], lambda: bwd(*bargs, **kw),
-                       lambda: bref(*bargs, **kw), repeats,
-                       glin_r_cost(h, xr, x, b, wa, p, True, pooled))
+                _timed(out[f"{name} fwd"], lambda: fwd(*fargs, **k),
+                       lambda: ref(*fargs, **k), repeats,
+                       glin_r_cost(h, xr, x, b, wa, p, False, pooled), bf16)
+                _timed(out[f"{name} bwd"], lambda: bwd(*bargs, **k),
+                       lambda: bref(*bargs, **k), repeats,
+                       glin_r_cost(h, xr, x, b, wa, p, True, pooled), bf16)
+            _timed(out["K6 linear fwd"],
+                   lambda: fc.fused_conv_forward(*lin, *conv_w, **kl16),
+                   lambda: fc.fused_conv_layer_ref(*lin, *conv_w, **kl16),
+                   repeats, conv_cost(h, h0, b.edge_nbr, b.rev, w, p, E,
+                                      False, out_size=4), bf16)
+            _timed(out["K6 linear bwd"],
+                   lambda: fc.fused_conv_backward(*largs, **kl16),
+                   lambda: fc.fused_conv_backward_ref(*largs, **kl16),
+                   repeats, conv_cost(h, h0, b.edge_nbr, b.rev, w, p, E,
+                                      True, out_size=4), bf16)
     return out
 
 
 def print_ep_kernels(what: str, k: dict, card: str) -> None:
-    print(f"EP kernels {what}: {k['p']} packs of te {k['te']} / tn "
-          f"{k['tn']}, caps {k['caps']}, {k['edges']} edges, {k['halo']} "
-          f"halo slots [{card}]")
+    print(f"EP kernels {k['dtype']} {what}: {k['p']} packs of te {k['te']} "
+          f"/ tn {k['tn']}, caps {k['caps']}, {k['edges']} edges, "
+          f"{k['halo']} halo slots [{card}]")
     for name, e in k.items():
         if not isinstance(e, dict):
             continue
         line = f"  {name}: max abs err {e['abs_err']:.3e}"
+        if "share" in e:
+            line += (f", rel-L2 vs bf16 plain {e['rel_l2']:.3e}, vs f32 plain "
+                     f"{e['f32_rel_l2']:.3e}, share {e['share']:.4g} (the f32 "
+                     f"kernel's {e['control_share']:.4g})")
+        if "cos" in e:
+            line += f", gradient cosine {e['cos']:.8f}"
         if "l1_64" in e:
             line += (f", L1 vs float64 kernel {e['l1_64'][0]:.3e} plain "
                      f"{e['l1_64'][1]:.3e}")
@@ -2769,27 +2865,271 @@ def ep_step_times(seed: int, card: str) -> dict:
     return res
 
 
-def ep_cli_phase(tmp: Path, seed: int, card: str) -> dict:
-    """``cli.train.main --ep 2`` with the README's model and flags on the
-    corpus, 3 epochs on the card and 2 on the CPU (zero cut: one K2 per
-    shard and step; validation through K5, K4, K11; the test after
-    training through K3f), per-epoch RMSE held at TRAIN_TOL; steps/s per
-    epoch (StepTimer).  Its runs/ go to ``tmp/ep_cli``."""
+def wire_buffers(seed: int, n_ep: int, H: int = 400) -> tuple:
+    """(spec, per-shard wire buffers [TW, H] f32): the push hop's rows of the
+    wired batch at ``n_ep`` -- each shard's local partial sums of seeded
+    edge states, gathered on its halo slots (ep_pack's glue)."""
+    import torch
+    from cgr_mpnn_3d_tpu_torch.parallel import ep_shards, pack_shard_edges
+    from cgr_mpnn_3d_tpu_torch.parallel.ep_pack import (_node_partial,
+                                                        _wire_gather)
+    graphs, labels = ep_graphs(seed, EP_GRAPHS, (EP_CHAIN,))
+    host, spec = pack_shard_edges(graphs, labels, n_ep, te=128, tn=72)
+    gen = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        bufs = [_wire_gather(_node_partial(
+            torch.randn((spec.pe, H), generator=gen).to(DEVICE), b), b)
+            for b in ep_shards(host, DEVICE)]
+    return spec, bufs
+
+
+def exchange_phase(seed: int, repeats: int, card: str) -> dict:
+    """K12 (``parallel/rdma_exchange.py``) against its plain version
+    (ep_pack's ring copies, ``_ring_move``) on the wired batch's real wire
+    buffers at n_ep 2 and 4, f32 and bf16: both directions and the
+    autograd backward (the inverse exchange) bit for bit, one launch per
+    exchange; times of the kernel, the plain version and the library call
+    (one ``index_select`` over the stacked buffers through a row map built
+    beforehand), and the bytes bound 2 · n_ep · TW · H · elem over
+    PEAK_BYTES."""
+    import torch
+    from cgr_mpnn_3d_tpu_torch.parallel import ep_pack as ep
+    from cgr_mpnn_3d_tpu_torch.parallel import rdma_exchange as rx
+    out = {}
+    for n_ep in (2, 4):
+        spec, bufs32 = wire_buffers(seed, n_ep)
+        caps, tw = spec.caps, spec.tw
+        # the library call's row map: output row k*TW + r of the stacked
+        # buffers reads input row src*TW + r
+        rows = np.empty(n_ep * tw, np.int64)
+        off = 0
+        for hop, s_h in enumerate(caps, start=1):
+            for k in range(n_ep):
+                src = (k - hop) % n_ep
+                rows[k * tw + off:k * tw + off + s_h] = src * tw + np.arange(
+                    off, off + s_h)
+            off += s_h
+        row_map = torch.from_numpy(rows).to(DEVICE)
+        for dtype in (torch.float32, torch.bfloat16):
+            bufs = [b.to(dtype).contiguous() for b in bufs32]
+            name = f"n_ep {n_ep} {str(dtype)[6:]}"
+            before = (rx.launches, rx.bwd_launches)
+            for inverse in (False, True):
+                got = rx.ring_exchange_rdma(bufs, caps, inverse)
+                want = rx._ring_move(bufs, caps, inverse)
+                check(all(torch.equal(a, b) for a, b in zip(got, want)),
+                      f"K12 {name} inverse={inverse} differs from the ring "
+                      f"copies")
+            leaves = [b.clone().requires_grad_() for b in bufs]
+            wts = [torch.randn_like(b) for b in leaves]
+            grads = [torch.autograd.grad(
+                sum((o * w).sum() for o, w in zip(fn(leaves, caps), wts)),
+                leaves) for fn in (rx.ring_exchange_rdma, ep.ring_exchange)]
+            check(all(torch.equal(a, b) for a, b in zip(*grads)),
+                  f"K12 {name}: its backward differs from the ring copies'")
+            check((rx.launches - before[0], rx.bwd_launches - before[1])
+                  == (3, 1), f"K12 {name}: launches "
+                  f"{(rx.launches - before[0], rx.bwd_launches - before[1])}"
+                  f", expected one per exchange")
+            stacked = torch.stack(bufs).reshape(n_ep * tw, -1)
+            lib = stacked.index_select(0, row_map).reshape(n_ep, tw, -1)
+            check(all(torch.equal(lib[k], w) for k, w in enumerate(
+                rx._ring_move(bufs, caps, False))),
+                f"index_select {name} differs from the ring copies")
+            nbytes = 2 * n_ep * tw * bufs[0].shape[1] * bufs[0].element_size()
+            entry = dict(abs_err=0.0, tw=tw, caps=caps)
+            _timed(entry, lambda: rx.ring_exchange_rdma(bufs, caps),
+                   lambda: rx._ring_move(bufs, caps, False), repeats,
+                   (0.0, 0.0, float(nbytes)))
+            entry["library_ms"] = time_ms(
+                lambda: stacked.index_select(0, row_map), repeats)
+            out[name] = entry
+            print(f"K12 {name}: caps {caps}, TW {tw}: bit for bit both ways "
+                  f"and backward; kernel {entry['ms']:.4f} ms, plain (ring "
+                  f"copies) {entry['plain_ms']:.4f} ms, index_select "
+                  f"{entry['library_ms']:.4f} ms, bound "
+                  f"{entry['bound_ms']:.6f} ms by {entry['bound_by']} "
+                  f"({nbytes / 1e6:.3f} MB) [{card}]")
+    return out
+
+
+def ep_variants(seed: int, card: str) -> dict:
+    """The wired EP training step at n_ep 2 (README model, dropout 0.1, one
+    seed set) in each variant: f32 through the ring copies and through K12
+    (--ep_rdma: SSE and gradients equal bit for bit, one K12 launch per
+    exchange and no ring copy, also at n_ep 4), bf16 (the EP forward and
+    gradients against the f32 path within tests/test_bf16.py's bounds),
+    and --ep_overlap at f32 (predictions and SSE at REL_TOL against the
+    K8 path, gradients by the float64 rule of hold, the float64
+    evaluation on the CPU, on the smaller wired batch of ep_vs_single) and
+    at bf16 (the bf16 rule against the bf16 K8 path); ms per step (host
+    clock over 3 steps ending in a synchronize) of each, the device busy
+    share of each, launches per step."""
+    import dataclasses
+    import torch
+    from cgr_mpnn_3d_tpu_torch.models import CGRMPNN, CGRMPNNConfig
+    from cgr_mpnn_3d_tpu_torch.parallel import (ep_pack_forward, ep_shards,
+                                                pack_shard_edges)
+    base = CGRMPNNConfig(num_node_features=270, num_edge_features=14,
+                         depth=4, hidden_sizes=(400,) * 4,
+                         dropout_ps=(0.1,) * 4, fuse_whole_model=False)
+    weights = CGRMPNN(base, torch.Generator().manual_seed(seed)).state_dict()
+
+    def model_of(device=DEVICE, **kw):
+        m = CGRMPNN(dataclasses.replace(base, **kw)).to(device)
+        m.load_state_dict(weights)
+        return m
+
+    def run(model, shards, spec, seeds):
+        model.zero_grad(set_to_none=True)
+        sse, preds = ep_pack_forward(model, shards, spec, train=True,
+                                     seeds=seeds)
+        sse.backward()
+        return sse.detach(), preds.detach(), [p.grad.clone()
+                                              for p in model.parameters()]
+
+    def step_ms(model, shards, spec, seeds):
+        run(model, shards, spec, seeds)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(3):
+            run(model, shards, spec, seeds)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / 3 * 1e3
+
+    res: dict = {}
+    for n_ep in (2, 4):
+        graphs, labels = ep_graphs(seed, EP_GRAPHS, (EP_CHAIN,))
+        host, spec = pack_shard_edges(graphs, labels, n_ep, te=128, tn=72)
+        shards = ep_shards(host, DEVICE)
+        seeds = torch.randint(0, 2**31 - 1, (n_ep, 4), dtype=torch.int32,
+                              generator=torch.Generator().manual_seed(seed))
+        variants = ((("f32", {}), ("f32 --ep_rdma",
+                                   dict(ep_rdma_exchange=True)))
+                    if n_ep == 4 else
+                    (("f32", {}), ("f32 --ep_rdma",
+                                   dict(ep_rdma_exchange=True)),
+                     ("bf16", dict(compute_dtype=BF16)),
+                     ("f32 --ep_overlap", dict(ep_overlap=True)),
+                     ("bf16 --ep_overlap", dict(ep_overlap=True,
+                                                compute_dtype=BF16))))
+        runs = {}
+        for name, kw in variants:
+            model = model_of(**kw)
+            ep_zero()
+            runs[name] = run(model, shards, spec, seeds)
+            torch.cuda.synchronize()
+            launches = ep_counts()
+            wall, dev_ms, top = device_busy(
+                lambda: run(model, shards, spec, seeds), top=6)
+            res[f"n_ep {n_ep} {name}"] = dict(
+                launches=launches, ms=step_ms(model, shards, spec, seeds),
+                busy=dev_ms / wall, top=top)
+        ring, rdma = runs["f32"], runs["f32 --ep_rdma"]
+        check(torch.equal(ring[0], rdma[0])
+              and all(torch.equal(a, b) for a, b in zip(ring[2], rdma[2])),
+              f"--ep_rdma at n_ep {n_ep}: the SSE or gradients differ from "
+              f"the ring copies'")
+        lr = res[f"n_ep {n_ep} f32 --ep_rdma"]["launches"]
+        check(lr["K12"] == (9, 9) and lr["ring"] == 0
+              and res[f"n_ep {n_ep} f32"]["launches"]["ring"] == 18,
+              f"--ep_rdma at n_ep {n_ep}: K12 launches {lr['K12']} and "
+              f"ring copies {lr['ring']} per step, expected (9, 9) and 0")
+        if n_ep != 2:
+            continue
+        b16 = runs["bf16"]
+        sse_rel = abs(float(b16[0]) - float(ring[0])) / abs(float(ring[0]))
+        pr, gr, gc = (rel_l2([b16[1]], [ring[1]]), rel_l2(b16[2], ring[2]),
+                      cosine(b16[2], ring[2]))
+        check(pr < 1.5e-2 and sse_rel < 2e-2 and gc > 0.995 and gr < 0.1,
+              f"bf16 EP vs f32 EP: preds rel-L2 {pr:.3e}, SSE {sse_rel:.3e},"
+              f" gradient cosine {gc:.6f} rel-L2 {gr:.3e}")
+        res["bf16 vs f32"] = dict(preds=pr, sse=sse_rel, grads=gr, cos=gc)
+        lb = res["n_ep 2 bf16"]["launches"]
+        check(all(lb[k] == (0, 0) for k in ("K5", "K8", "K11"))
+              and lb["K8 bf16"] == (8, 8),
+              f"the bf16 EP step launched {lb}")
+        o16 = runs["bf16 --ep_overlap"]
+        opr, ogc = rel_l2([o16[1]], [b16[1]]), cosine(o16[2], b16[2])
+        check(opr <= BF16_TOL and ogc >= BF16_COS,
+              f"bf16 --ep_overlap vs the bf16 K8 path: preds rel-L2 "
+              f"{opr:.3e}, gradient cosine {ogc:.6f}")
+        res["bf16 overlap vs K8"] = dict(preds=opr, cos=ogc)
+        lo = res["n_ep 2 f32 --ep_overlap"]["launches"]
+        check(lo["K6 linear"] == (8, 8) and lo["K8"] == (0, 0),
+              f"the overlap step launched {lo}")
+    # --ep_overlap at f32 against the K8 path, gradients by the float64 rule
+    graphs, labels = ep_graphs(seed, 50, (2400,))
+    host, spec = pack_shard_edges(graphs, labels, 2, te=128, tn=72)
+    shards = ep_shards(host, DEVICE)
+    seeds = torch.randint(0, 2**31 - 1, (2, 4), dtype=torch.int32,
+                          generator=torch.Generator().manual_seed(seed))
+    k8 = run(model_of(), shards, spec, seeds)
+    ov = run(model_of(ep_overlap=True), shards, spec, seeds)
+    exact = run(model_of("cpu").double(), ep_shards(host, "cpu"), spec,
+                seeds)
+    hold_ov: dict = dict(caps=spec.caps)
+    hold(hold_ov, "preds", ov[1], k8[1])
+    hold(hold_ov, "sse", ov[0], k8[0])
+    hold(hold_ov, "grads", ov[2], k8[2], True,
+         lambda: [g.to(DEVICE) for g in exact[2]])
+    res["f32 overlap vs K8"] = hold_ov
+    for name, e in res.items():
+        line = f"EP wired step {name}: " + (
+            f"{e['ms']:.3f} ms per step; launches {nonzero(e['launches'])}"
+            + f"; device busy {100 * e['busy']:.1f}%, by kernel {e['top']}"
+            if "ms" in e else
+            ", ".join(f"{k} {v}" for k, v in e.items()))
+        print(line + f" [{card}]")
+    return res
+
+
+def profile_ep_phase(card: str) -> dict:
+    """``tools/profile_ep.py`` at its defaults (2,500 graphs, te 128 / tn 64,
+    bf16): every row, with the bf16 K10 launches of its readout row (K10's
+    only caller, as in JAX)."""
+    from cgr_mpnn_3d_tpu_torch.tools import profile_ep
+    res = profile_ep.main([])
+    check(res["launches"] > 0 and all(np.isfinite(v) and v > 0
+                                      for v in res["ms"].values()),
+          f"tools/profile_ep.py: {res['launches']} bf16 K10 launches, rows "
+          f"{res['ms']}")
+    print(f"tools/profile_ep.py (bf16, p = {res['spec']['p']} packs of te "
+          f"128): K10 readout row {res['ms']['K10 readout fwd']:.4f} ms, "
+          f"{res['launches']} bf16 K10 launches; ep fwd "
+          f"{res['ms']['ep fwd']:.3f} ms, fwd+bwd {res['ms']['ep fwd+bwd']:.3f}"
+          f" ms [{card}]")
+    return res
+
+
+def ep_cli_phase(tmp: Path, seed: int, card: str,
+                 dtype: str = "float32") -> dict:
+    """``cli.train.main --ep 2`` (at ``dtype``: ``--compute_dtype``) with the
+    README's model and flags on the corpus, 3 epochs on the card and 2 on
+    the CPU (zero cut: one K2 per shard and step; validation through K5,
+    K4, K11; the test after training through the f32 K3f, as the
+    checkpoint loads in f32), per-epoch RMSE held at TRAIN_TOL (bf16:
+    BF16_TRAIN_TOL); at bf16 every EP launch is a bf16 one; steps/s per
+    epoch (StepTimer).  Its runs/ go to ``tmp/ep_cli`` (``ep_cli_bf16``)."""
     import torch
     data = tmp / "datasets"
     cwd = os.getcwd()
-    (tmp / "ep_cli").mkdir(exist_ok=True)
-    os.chdir(tmp / "ep_cli")
+    bf16 = dtype == BF16
+    sfx = " bf16" if bf16 else ""
+    flags = ["--ep", "2", "--compute_dtype", dtype]
+    run_dir = tmp / ("ep_cli_bf16" if bf16 else "ep_cli")
+    run_dir.mkdir(exist_ok=True)
+    os.chdir(run_dir)
     try:
         ep_zero()
         t0 = time.perf_counter()
-        card_res = train_cli(tmp, data, seed, DEVICE, 3, "ep_card", "--ep",
-                             "2")
+        card_res = train_cli(tmp, data, seed, DEVICE, 3, "ep_card" + dtype,
+                             *flags)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = ep_counts()
-        cpu_res = train_cli(tmp, data, seed, "cpu", 2, "ep_cpu", "--ep", "2",
-                            "--skip_test")
+        cpu_res = train_cli(tmp, data, seed, "cpu", 2, "ep_cpu" + dtype,
+                            *flags, "--skip_test")
         steps_per_s = [json.loads(line).get("steps_per_s")
                        for f in Path("runs").glob("*_e-3_*.jsonl")
                        for line in f.read_text().splitlines()
@@ -2797,36 +3137,66 @@ def ep_cli_phase(tmp: Path, seed: int, card: str) -> dict:
     finally:
         os.chdir(cwd)
     steps = card_res["steps"]
-    check(steps > 0 and launches["K2"] == 2 * steps,
-          f"--ep 2: {launches['K2']} K2 launches for {steps} steps (one per "
-          f"shard and step on the zero-cut corpus)")
-    check(launches["K5"][0] > 0 and launches["K4"][0] > 0
-          and launches["K11"][0] > 0 and launches["K3f"] > 0,
-          f"--ep 2 validation or test launched no kernel: {launches}")
-    check(launches["K8"] == launches["K9"] == (0, 0),
-          f"the zero-cut corpus launched K8/K9: {launches}")
+    check(steps > 0 and launches["K2" + sfx] == 2 * steps,
+          f"--ep 2 {dtype}: {launches['K2' + sfx]} K2 launches for {steps} "
+          f"steps (one per shard and step on the zero-cut corpus)")
+    check(launches["K5" + sfx][0] > 0 and launches["K4" + sfx][0] > 0
+          and launches["K11" + sfx][0] > 0 and launches["K3f"] > 0,
+          f"--ep 2 {dtype} validation or test launched no kernel: "
+          f"{launches}")
+    zero = [k for k in ("K8", "K9", "K10", "K8 bf16", "K9 bf16", "K10 bf16")
+            if launches[k] != (0, 0)]
+    if bf16:
+        zero += [k for k in ("K5", "K4", "K11") if launches[k] != (0, 0)]
+        zero += ["K2"] if launches["K2"] else []
+    check(not zero, f"--ep 2 {dtype} launched {zero}: {launches}")
+    tol = BF16_TRAIN_TOL if bf16 else TRAIN_TOL
     rel = max(abs(a - b) / abs(b) for key in ("train_losses", "val_losses")
               for a, b in zip(card_res[key], cpu_res[key]))
     check(all(np.isfinite(card_res[k]).all() for k in ("train_losses",
                                                        "val_losses"))
-          and rel <= TRAIN_TOL,
-          f"--ep 2 card vs CPU per-epoch RMSE differ by {rel:.3e}")
-    print(f"train cli --ep 2 card: 3 epochs, {steps} steps in {wall:.3f} s "
-          f"wall, train RMSE {card_res['train_losses']}, val RMSE "
-          f"{card_res['val_losses']}, test RMSE {card_res['test_losses']}; "
-          f"launches {launches}; steps/s per epoch (StepTimer) "
-          f"{steps_per_s}; card vs CPU (2 epochs) max rel diff {rel:.3e} "
-          f"(limit {TRAIN_TOL}) [{card}]")
+          and rel <= tol,
+          f"--ep 2 {dtype} card vs CPU per-epoch RMSE differ by {rel:.3e}")
+    print(f"train cli --ep 2 {dtype} card: 3 epochs, {steps} steps in "
+          f"{wall:.3f} s wall, train RMSE {card_res['train_losses']}, val "
+          f"RMSE {card_res['val_losses']}, test RMSE "
+          f"{card_res['test_losses']}; launches {nonzero(launches)}; steps/s per "
+          f"epoch (StepTimer) {steps_per_s}; card vs CPU (2 epochs) max rel "
+          f"diff {rel:.3e} (limit {tol}) [{card}]")
     return dict(launches=launches, steps_per_s=steps_per_s, rel=rel)
+
+
+# the wired training runs: (name, config fields, the (forward, backward)
+# launches of the counters that move; every other counter stays 0 and
+# the ring copies run unless K12 replaces them)
+WIRED_RUNS = (
+    ("add", dict(aggr="add"), {"K5": (12, 6), "K8": (48, 24),
+                               "K11": (12, 6)}),
+    ("mean", dict(aggr="mean"), {"K5": (12, 6), "K9": (48, 24),
+                                 "K11": (12, 6)}),
+    ("add bf16", dict(aggr="add", compute_dtype=BF16),
+     {"K5 bf16": (12, 6), "K8 bf16": (48, 24), "K11 bf16": (12, 6)}),
+    ("mean bf16", dict(aggr="mean", compute_dtype=BF16),
+     {"K5 bf16": (12, 6), "K9 bf16": (48, 24), "K11 bf16": (12, 6)}),
+    # one K12 launch per exchange: 2 per wired layer and 1 in the readout
+    ("add --ep_rdma", dict(aggr="add", ep_rdma_exchange=True),
+     {"K5": (12, 6), "K8": (48, 24), "K11": (12, 6), "K12": (54, 27),
+      "ring": 0}),
+    ("add --ep_overlap", dict(aggr="add", ep_overlap=True),
+     {"K5": (12, 6), "K6 linear": (48, 24), "K11": (12, 6)}),
+)
 
 
 def ep_train_wired(tmp: Path, seed: int, card: str) -> dict:
     """RxnGraphTrainer with ``n_ep=2`` on a wired dataset (a 480-atom chain
     and 7 synthetic graphs, one batch: the chain is cut), the README's
-    model at full width with dropout 0.1, aggr add (K8) and mean (K9), 3
-    epochs on the card and on the CPU: per-epoch RMSE held at TRAIN_TOL,
-    and per epoch K5, K8 (K9) per layer and K11 once per shard forward
-    and backward in the step, forward again in validation."""
+    model at full width with dropout 0.1, in each of WIRED_RUNS' configs
+    (aggr add: K8, mean: K9; at bf16; with --ep_rdma: K12; with
+    --ep_overlap: K6 linear), 3 epochs on the card and on the CPU:
+    per-epoch RMSE held at TRAIN_TOL (bf16: BF16_TRAIN_TOL), and per epoch
+    K5, the conv kernel per layer and K11 once per shard forward and
+    backward in the step, forward again in validation; every other
+    counter stays 0."""
     import torch
     from cgr_mpnn_3d_tpu_torch.data.batch import PackSpec
     from cgr_mpnn_3d_tpu_torch.models import CGRMPNNConfig
@@ -2834,41 +3204,46 @@ def ep_train_wired(tmp: Path, seed: int, card: str) -> dict:
     graphs, labels = ep_graphs(seed + 3, 7, (480,))
     ds = GraphSet(graphs, labels, 270)
     out = {}
-    for aggr, conv in (("add", "K8"), ("mean", "K9")):
+    for name, fields, want in WIRED_RUNS:
         cfg = CGRMPNNConfig(num_node_features=270, num_edge_features=14,
                             depth=4, hidden_sizes=(400,) * 4,
-                            dropout_ps=(0.1,) * 4, aggr=aggr)
+                            dropout_ps=(0.1,) * 4, **fields)
+        tag = name.replace(" ", "_").replace("-", "")
 
         def trainer(device):
             return RxnGraphTrainer(
-                name=f"ep_wired_{aggr}_{device}", cfg=cfg, train_data=ds,
+                name=f"ep_wired_{tag}_{device}", cfg=cfg, train_data=ds,
                 val_data=ds, spec=PackSpec(), lr=1e-4, weight_decay=1e-5,
                 gamma=0.9, num_epochs=3, batch_size=len(ds), val_frequency=1,
                 seed=seed, model_save_dir=str(tmp / f"ep_wired_{device}"),
                 device=device, n_ep=2)
 
+        t0 = time.perf_counter()
         ep_zero()
         card_res = trainer(DEVICE).train()
         torch.cuda.synchronize()
         launches = ep_counts()
         cpu_res = trainer("cpu").train()
-        want = {"K5": (12, 6), conv: (48, 24), "K11": (12, 6)}
+        moved = {k: v for k, v in nonzero(launches).items()
+                 if k != "ring" or "ring" in want}
         check(card_res["steps"] == 3
-              and all(launches[k] == v for k, v in want.items())
-              and launches["K2"] == 0,
-              f"wired {aggr} training launches {launches}, expected {want}")
+              and moved == {k: v for k, v in want.items() if v},
+              f"wired {name} training launches {nonzero(launches)}, "
+              f"expected {want}")
+        tol = BF16_TRAIN_TOL if "bf16" in name else TRAIN_TOL
         rel = max(abs(a - b) / abs(b) for key in ("train_losses",
                                                   "val_losses")
                   for a, b in zip(card_res[key], cpu_res[key]))
         check(all(np.isfinite(card_res[k]).all() for k in ("train_losses",
                                                            "val_losses"))
-              and rel <= TRAIN_TOL,
-              f"wired {aggr} card vs CPU per-epoch RMSE differ by {rel:.3e}")
-        print(f"train wired EP {aggr} n_ep 2: 3 steps, train RMSE "
+              and rel <= tol,
+              f"wired {name} card vs CPU per-epoch RMSE differ by {rel:.3e}")
+        print(f"train wired EP {name} n_ep 2: 3 steps, train RMSE "
               f"{card_res['train_losses']}, val RMSE "
-              f"{card_res['val_losses']}; launches {launches}; card vs CPU "
-              f"max rel diff {rel:.3e} (limit {TRAIN_TOL}) [{card}]")
-        out[aggr] = dict(launches=launches, rel=rel)
+              f"{card_res['val_losses']}; launches {nonzero(launches)}; card "
+              f"vs CPU max rel diff {rel:.3e} (limit {tol}); phase wall "
+              f"{time.perf_counter() - t0:.1f} s [{card}]")
+        out[name] = dict(launches=launches, rel=rel)
     return out
 
 
@@ -3088,16 +3463,38 @@ def main(argv=None) -> int:
     for n in (2, 4):
         print_ep_vs_single(ep_vs_single(args.seed, n, *wired), card)
     ep_step_times(args.seed, card)
+    # EP at bf16, K6's linear activation, K12, --ep_rdma and --ep_overlap
+    t0 = time.perf_counter()
+    ep_k16 = ep_kernels(args.seed, lay_reps, 2, dtype=BF16)
+    print_ep_kernels("full width, wired batch, n_ep 2", ep_k16, card)
+    print(f"phase wall: bf16 K8-K11 and K6 linear "
+          f"{time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    k12 = exchange_phase(args.seed, args.repeats, card)
+    print(f"phase wall: K12 {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    ep_variants(args.seed, card)
+    print(f"phase wall: EP step variants {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    prof = profile_ep_phase(card)
+    print(f"phase wall: tools/profile_ep.py {time.perf_counter() - t0:.1f} s")
     with tempfile.TemporaryDirectory() as tmp:
         training_data(Path(tmp), args.seed)
         ep_cli = ep_cli_phase(Path(tmp), args.seed, card)
+        t0 = time.perf_counter()
+        ep_cli16 = ep_cli_phase(Path(tmp), args.seed, card, BF16)
+        print(f"phase wall: --ep 2 --compute_dtype bfloat16 CLI "
+              f"{time.perf_counter() - t0:.1f} s")
         ep_wired = ep_train_wired(Path(tmp), args.seed, card)
     print(f"train steps/s per epoch (StepTimer), README model on the corpus:"
-          f" --ep 2 {ep_cli['steps_per_s']} against the single-device run's "
+          f" --ep 2 {ep_cli['steps_per_s']}, at bf16 "
+          f"{ep_cli16['steps_per_s']}, against the single-device run's "
           f"{trn['steps_per_s']} [{card}]")
-    ep_launches = {k: sum(ep_cli["launches"][k]) + sum(
-        sum(run["launches"][k]) for run in ep_wired.values())
-        for k in ("K8", "K9", "K10", "K11")}
+    ep_runs = [ep_cli["launches"], ep_cli16["launches"],
+               *(run["launches"] for run in ep_wired.values())]
+    ep_launches = {k: sum(sum(run[k]) for run in ep_runs)
+                   for k in ("K8", "K9", "K10", "K11", "K8 bf16", "K9 bf16",
+                             "K11 bf16", "K6 linear", "K12")}
 
     def kernel(name, cu, replaces, launches, k):
         return {"name": name, "route": "cuda",
@@ -3168,7 +3565,21 @@ def main(argv=None) -> int:
         kernel("gather_linear_r", "gather_linear.cu", "pallas_glin.py:306",
                ep_launches["K10"], ep_k[2]["K10 fwd"]),
         kernel("gather_linear_pool", "gather_linear.cu", "pallas_glin.py:491",
-               ep_launches["K11"], ep_k[2]["K11 fwd"])]}))
+               ep_launches["K11"], ep_k[2]["K11 fwd"]),
+        kernel("fused_conv_r_bf16", "fused_conv.cu", "pallas_fused.py:555",
+               ep_launches["K8 bf16"], ep_k16["K8 fwd"]),
+        kernel("fused_conv_rm_bf16", "fused_conv.cu", "pallas_fused.py:686",
+               ep_launches["K9 bf16"], ep_k16["K9 fwd"]),
+        kernel("gather_linear_r_bf16", "gather_linear.cu",
+               "pallas_glin.py:306", prof["launches"], ep_k16["K10 fwd"]),
+        kernel("gather_linear_pool_bf16", "gather_linear.cu",
+               "pallas_glin.py:491", ep_launches["K11 bf16"],
+               ep_k16["K11 fwd"]),
+        kernel("fused_conv_linear", "fused_conv.cu", "pallas_fused.py:330",
+               ep_launches["K6 linear"], ep_k[2]["K6 linear fwd"]),
+        kernel("ring_exchange", "ring_exchange.cu",
+               "cgr_mpnn_3d_tpu/parallel/rdma_exchange.py:99",
+               ep_launches["K12"], k12["n_ep 2 float32"])]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

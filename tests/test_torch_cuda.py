@@ -1049,3 +1049,311 @@ def test_ep_step_on_card_matches_cpu(cuda, act, aggr, pooling, n_ep, wide):
         assert _rel(g.cpu(), w) <= 1e-4
     _, again = grads_of(model, shards)
     assert all(torch.equal(x, y) for x, y in zip(grads, again))
+
+
+# -- EP at bf16, K6's linear activation, the hop exchange K12, and the EP
+# -- step with --ep_rdma and --ep_overlap ------------------------------------
+
+@pytest.mark.parametrize("act,global_mean,mean,drop", [
+    ("relu", False, False, 0.1), ("relu", True, False, 0.0),
+    ("gelu", True, False, 0.3), ("silu", False, True, 0.0)])
+def test_bf16_fused_conv_r_kernel_matches_plain(cuda, act, global_mean, mean,
+                                                drop):
+    """K8 (K9 with the global scale) at bf16 against its bf16 plain version
+    on a wired shard, forward and backward, by the share hold with the f32
+    kernel as control; only the bf16 counters move; reruns bit for bit."""
+    from cgr_mpnn_3d_tpu_torch.ops import fused_conv as fc
+    spec, shards, rand = _ep_case(cuda)
+    b = max(shards, key=lambda s: float(s.halo_mask.sum()))
+    PE, PN, H = spec.pe, spec.pn, 40
+    scale = (torch.cat([b.inv_deg, b.inv_deg.new_zeros(1)])[
+        b.senders.long()].contiguous() if global_mean else None)
+    h, r, h0 = rand(PE, H).bfloat16(), rand(PN, H), rand(PE, H).bfloat16()
+    idx = (b.edge_nbr, b.rev, b.senders)
+    ws = (rand(H, H, scale=0.2), rand(H, scale=0.1),
+          torch.tensor(0.8, device=cuda))
+    kw = dict(p=spec.p, tn=spec.tn, scale=scale, act=act, mean=mean,
+              train=drop > 0, seed=2**31 - 2 if drop else None,
+              dropout_p=drop)
+    k16 = dict(kw, mat_dtype="bfloat16")
+    key = "rm_" if global_mean else "r_"
+    names = [p_ + key + s for p_ in ("", "bf16_")
+             for s in ("launches", "bwd_launches")]
+    before = [getattr(fc, n) for n in names]
+    out = fc.fused_conv_r_forward(h, r, h0, *idx, *ws, **k16)
+    g = rand(*out.shape).bfloat16()
+    bwd = (h, r, h0, *idx, b.edge_nbr_rev, b.node_out, *ws)
+    grads = fc.fused_conv_r_backward(*bwd, out, g, **k16)
+    again = fc.fused_conv_r_backward(*bwd, out, g, **k16)
+    torch.cuda.synchronize()
+    assert [getattr(fc, n) - v for n, v in zip(names, before)] == [0, 0, 1, 2]
+    assert [t.dtype for t in (out, *grads)] == [
+        torch.bfloat16, torch.bfloat16, torch.float32, torch.bfloat16] + \
+        [torch.float32] * 3
+    assert all(torch.equal(x, y) for x, y in zip(grads, again))
+    f32 = (h.float(), r, h0.float())
+    want = fc.fused_conv_layer_r_ref(h, r, h0, *idx, *ws, **k16)
+    want32 = fc.fused_conv_layer_r_ref(*f32, *idx, *ws, **kw)
+    ctrl = fc.fused_conv_r_forward(*f32, *idx, *ws, **kw)
+    _bf16_hold([out], [want], [want32], [ctrl])
+    bwd32 = (*f32, *idx, b.edge_nbr_rev, b.node_out, *ws)
+    _bf16_hold(grads, fc.fused_conv_r_backward_ref(*bwd, want, g, **k16),
+               fc.fused_conv_r_backward_ref(*bwd32, want32, g.float(), **kw),
+               fc.fused_conv_r_backward(*bwd32, ctrl, g.float(), **kw))
+
+
+@pytest.mark.parametrize("act,mean,pool", [("relu", False, True),
+                                           ("gelu", True, True),
+                                           ("silu", False, False)])
+def test_bf16_gather_linear_r_kernel_matches_plain(cuda, act, mean, pool):
+    """K11 (K10 with the pool off) at bf16 against its bf16 plain version,
+    forward and backward, by the share hold with the f32 kernel as
+    control; the output, the pool, xr's gradient f32; reruns bit for bit."""
+    from cgr_mpnn_3d_tpu_torch.ops import gather_linear as gl
+    spec, shards, rand = _ep_case(cuda)
+    b = max(shards, key=lambda s: float(s.halo_mask.sum()))
+    PE, PN, H, F = spec.pe, spec.pn, 40, 78
+    ins = (rand(PE, H).bfloat16(), rand(PN, H), rand(PN, F).bfloat16(),
+           b.node_inc)
+    ins32 = (ins[0].float(), ins[1], ins[2].float(), b.node_inc)
+    ws = (rand(H, H, scale=0.2), rand(F, H, scale=0.1), rand(H, scale=0.1))
+    kw = dict(p=spec.p, act=act, mean=mean)
+    k16 = dict(kw, mat_dtype="bfloat16")
+    key = "pool_" if pool else "r_"
+    names = [p_ + key + s for p_ in ("", "bf16_")
+             for s in ("launches", "bwd_launches")]
+    before = [getattr(gl, n) for n in names]
+    tabs = (b.node_group, b.pool_ell) if pool else ()
+    fwd = gl.gather_linear_pool_forward if pool else gl.gather_linear_r_forward
+    fref = (gl.gather_linear_pool_forward_ref if pool
+            else gl.gather_linear_r_forward_ref)
+    bwd_fn = (gl.gather_linear_pool_backward if pool
+              else gl.gather_linear_r_backward)
+    bref = (gl.gather_linear_pool_backward_ref if pool
+            else gl.gather_linear_r_backward_ref)
+
+    def listed(v):
+        return list(v) if isinstance(v, tuple) else [v]
+    got = listed(fwd(*ins, *tabs, *ws, **k16))
+    cots = [rand(*t.shape) for t in got]
+    args = (*ins, b.dst[:, None], *tabs, *ws)
+    args32 = (*ins32, b.dst[:, None], *tabs, *ws)
+    grads = bwd_fn(*args, got[0], *cots, **k16)
+    again = bwd_fn(*args, got[0], *cots, **k16)
+    torch.cuda.synchronize()
+    assert [getattr(gl, n) - v for n, v in zip(names, before)] == [0, 0, 1, 2]
+    assert all(t.dtype == torch.float32 for t in got)
+    assert [t.dtype for t in grads] == [torch.bfloat16, torch.float32,
+                                        torch.bfloat16] + [torch.float32] * 3
+    assert all(torch.equal(x, y) for x, y in zip(grads, again))
+    want = listed(fref(*ins, *tabs, *ws, **k16))
+    want32 = listed(fref(*ins32, *tabs, *ws, **kw))
+    ctrl = listed(fwd(*ins32, *tabs, *ws, **kw))
+    _bf16_hold(got, want, want32, ctrl)
+    _bf16_hold(grads, bref(*args, want[0], *cots, **k16),
+               bref(*args32, want32[0], *cots, **kw),
+               bwd_fn(*args32, ctrl[0], *cots, **kw))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_fused_conv_linear_kernel_matches_plain(cuda, dtype):
+    """K6 with act="linear" (f32 output at either dtype, as the overlap
+    path takes it): f32 against the plain version at 1e-4, bf16 by the
+    share hold; only the linear counters move."""
+    from cgr_mpnn_3d_tpu_torch.ops import fused_conv as fc
+    spec, b, rand = _layered_inputs(cuda)
+    ET, H = b.edge_nbr.shape[0], 40
+    h, h0 = rand(ET, H), rand(ET, H)
+    ws = (rand(H, H, scale=0.2), rand(H, scale=0.1),
+          torch.tensor(0.8, device=cuda))
+    kw = dict(p=spec.p, act="linear", out_dtype="float32")
+    idx = (b.edge_nbr, b.rev)
+    pre = "bf16_" if dtype == "bfloat16" else ""
+    names = [pre + "linear_launches", pre + "linear_bwd_launches",
+             "launches", "bwd_launches", "bf16_launches", "bf16_bwd_launches"]
+    before = [getattr(fc, n) for n in names]
+    ins = (h.bfloat16(), h0.bfloat16()) if pre else (h, h0)
+    k = dict(kw, mat_dtype=dtype)
+    out = fc.fused_conv_forward(*ins, *idx, *ws, **k)
+    g = rand(*out.shape)
+    grads = fc.fused_conv_backward(*ins, *idx, b.edge_nbr_rev, *ws, out, g,
+                                   **k)
+    torch.cuda.synchronize()
+    assert [getattr(fc, n) - v for n, v in zip(names, before)] == \
+        [1, 1, 0, 0, 0, 0]
+    assert out.dtype == torch.float32
+    want = fc.fused_conv_layer_ref(*ins, *idx, *ws, **k)
+    ref = fc.fused_conv_backward_ref(*ins, *idx, b.edge_nbr_rev, *ws, want,
+                                     g, **k)
+    if not pre:
+        assert _rel(out, want) <= 1e-4
+        for x, y in zip(grads, ref):
+            assert _rel(x, y) <= 1e-4
+        return
+    f32 = _f32(ins)
+    k32 = dict(kw, mat_dtype="float32")
+    _bf16_hold([out], [want], [fc.fused_conv_layer_ref(*f32, *idx, *ws,
+                                                       **k32)],
+               [fc.fused_conv_forward(*f32, *idx, *ws, **k32)])
+    _bf16_hold(grads, ref,
+               fc.fused_conv_backward_ref(*f32, *idx, b.edge_nbr_rev, *ws,
+                                          want, g, **k32),
+               fc.fused_conv_backward(*f32, *idx, b.edge_nbr_rev, *ws, out,
+                                      g, **k32))
+
+
+@pytest.mark.parametrize("caps", [(8, 0, 16), (8,), (0, 8, 0, 0, 0, 0, 8),
+                                  (24, 8, 16)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ring_exchange_kernel_matches_plain(cuda, caps, dtype):
+    """K12 against ep_pack's ring copies, both directions and through its
+    autograd backward, bit for bit; one launch per exchange whatever
+    n_ep; no active hop returns the buffers."""
+    from cgr_mpnn_3d_tpu_torch.parallel import ep_pack as ep
+    from cgr_mpnn_3d_tpu_torch.parallel import rdma_exchange as rx
+    n, tw, H = len(caps) + 1, sum(caps), 40
+    gen = torch.Generator().manual_seed(len(caps))
+    bufs = [torch.randn((tw, H), generator=gen).to(dtype).to(cuda)
+            for _ in range(n)]
+    for inverse in (False, True):
+        before = (rx.launches, rx.bwd_launches)
+        got = rx.ring_exchange_rdma(bufs, caps, inverse)
+        assert (rx.launches, rx.bwd_launches) == (before[0] + 1, before[1])
+        want = rx._ring_move(bufs, caps, inverse)
+        torch.cuda.synchronize()
+        assert all(torch.equal(x, y) for x, y in zip(got, want))
+    leaves = [t.clone().requires_grad_() for t in bufs]
+    outs = [rx.ring_exchange_rdma(leaves, caps), ep.ring_exchange(
+        leaves, caps)]
+    wts = [torch.randn((tw, H), generator=gen).to(dtype).to(cuda)
+           for _ in range(n)]
+    grads = [torch.autograd.grad(sum((o * w).sum() for o, w in zip(out, wts)),
+                                 leaves) for out in outs]
+    assert all(torch.equal(x, y) for x, y in zip(*grads))
+    assert rx.ring_exchange_rdma(bufs, (0,) * (n - 1))[0] is bufs[0]
+
+
+@pytest.mark.parametrize("aggr,n_ep", [("add", 4), ("mean", 2)])
+def test_bf16_ep_step_on_card_matches_cpu(cuda, aggr, n_ep):
+    """The bf16 EP forward and gradients on the card against the CPU (the
+    bf16 plain versions) on a wired batch, held by the share against the
+    CPU's f32 run: only the bf16 counters of K5, K8/K9 and K11 move."""
+    from cgr_mpnn_3d_tpu_torch.ops import fused_conv as fc
+    from cgr_mpnn_3d_tpu_torch.ops import gather_linear as gl
+    from cgr_mpnn_3d_tpu_torch.parallel import ep_pack_forward
+    spec, shards, _ = _ep_case(cuda, n_ep=n_ep)
+    cpu = [type(s)(*(t.cpu() for t in s)) for s in shards]
+    cfg = CGRMPNNConfig(num_node_features=78, num_edge_features=14, depth=3,
+                        hidden_sizes=(40,) * 3, dropout_ps=(0.2,) * 3,
+                        activation="GELU", aggr=aggr,
+                        use_learnable_skip=True, fuse_whole_model=False,
+                        compute_dtype="bfloat16")
+    conv = "rm_" if aggr == "mean" else "r_"
+    names = [p_ + k + s for p_ in ("", "bf16_")
+             for k, m in (("", gl), (conv, fc), ("pool_", gl))
+             for s in ("launches", "bwd_launches")]
+    mods = [gl, gl, fc, fc, gl, gl] * 2
+    seeds = torch.randint(0, 2**31 - 1, (n_ep, 3), dtype=torch.int32,
+                          generator=torch.Generator().manual_seed(9))
+    out = []
+    for dev, c, s in (("cpu", cfg, cpu), (cuda, cfg, shards),
+                      ("cpu", dataclasses.replace(
+                          cfg, compute_dtype="float32"), cpu)):
+        model = init_params(c, torch.Generator().manual_seed(3), dev)
+        before = [getattr(m, n) for m, n in zip(mods, names)]
+        sse, preds = ep_pack_forward(model, s, spec, train=True, seeds=seeds)
+        sse.backward()
+        if dev != "cpu":
+            torch.cuda.synchronize()
+            moved = [getattr(m, n) - v for m, n, v in zip(mods, names,
+                                                          before)]
+            assert moved == [0] * 6 + [n_ep, n_ep, 3 * n_ep, 3 * n_ep,
+                                       n_ep, n_ep]
+        out.append((preds.detach().cpu(), [p.grad.cpu()
+                                           for p in model.parameters()]))
+    (p0, g0), (p1, g1), (p32, g32) = out
+    assert _rel_l2([p1], [p0]) <= 5e-3 and _cos(g1, g0) >= 0.999
+    assert _share([p1], [p0], [p32]) <= 0.5 and _share(g1, g0, g32) <= 0.5
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ep_rdma_and_overlap_on_card(cuda, dtype):
+    """On a wired batch at n_ep 4: --ep_rdma gives the same loss and
+    gradients bit for bit, with one K12 launch per exchange each way and
+    no ring copy; --ep_overlap (K6 linear per layer) matches the K8 path
+    (f32 at 1e-4, bf16 within rel-L2 5e-3 and gradient cosine 0.999)."""
+    from cgr_mpnn_3d_tpu_torch.ops import fused_conv as fc
+    from cgr_mpnn_3d_tpu_torch.parallel import ep_pack as ep
+    from cgr_mpnn_3d_tpu_torch.parallel import rdma_exchange as rx
+    spec, shards, _ = _ep_case(cuda, n_ep=4)
+    cfg = CGRMPNNConfig(num_node_features=78, num_edge_features=14, depth=3,
+                        hidden_sizes=(40,) * 3, dropout_ps=(0.2,) * 3,
+                        activation="GELU", use_learnable_skip=True,
+                        fuse_whole_model=False, compute_dtype=dtype)
+    seeds = torch.randint(0, 2**31 - 1, (4, 3), dtype=torch.int32,
+                          generator=torch.Generator().manual_seed(9))
+    res = {}
+    for name, kw in (("ring", {}), ("rdma", dict(ep_rdma_exchange=True)),
+                     ("overlap", dict(ep_overlap=True))):
+        model = init_params(dataclasses.replace(cfg, **kw),
+                            torch.Generator().manual_seed(3), cuda)
+        before = (rx.launches, rx.bwd_launches, ep.ring_moves,
+                  fc.linear_launches + fc.bf16_linear_launches)
+        sse, preds = ep.ep_pack_forward(model, shards, spec, train=True,
+                                        seeds=seeds)
+        sse.backward()
+        torch.cuda.synchronize()
+        after = (rx.launches, rx.bwd_launches, ep.ring_moves,
+                 fc.linear_launches + fc.bf16_linear_launches)
+        moved = [a - b_ for a, b_ in zip(after, before)]
+        # 2 exchanges per wired layer and 1 in the readout
+        assert moved == {"ring": [0, 0, 14, 0], "rdma": [7, 7, 0, 0],
+                         "overlap": [0, 0, 14, 12]}[name]
+        res[name] = (sse.detach(), preds.detach(),
+                     [p.grad for p in model.parameters()])
+    assert torch.equal(res["rdma"][0], res["ring"][0])
+    assert all(torch.equal(x, y) for x, y in zip(res["rdma"][2],
+                                                 res["ring"][2]))
+    (_, p0, g0), (_, p1, g1) = res["ring"], res["overlap"]
+    if dtype == "float32":
+        assert _rel(p1, p0) <= 1e-4
+        assert _rel_l2(g1, g0) <= 1e-4
+    else:
+        assert _rel_l2([p1], [p0]) <= 5e-3 and _cos(g1, g0) >= 0.999
+
+
+def test_no_cuda_tensor_reaches_an_ep_plain_version(cuda, monkeypatch):
+    """With the plain versions of K6, K8/K9, K10/K11 and K12 (the ring
+    copies) replaced by ones that raise, the wired EP step runs on the card
+    at bf16 with --ep_rdma, and with --ep_overlap."""
+    from cgr_mpnn_3d_tpu_torch.ops import fused_conv as fc
+    from cgr_mpnn_3d_tpu_torch.ops import gather_linear as gl
+    from cgr_mpnn_3d_tpu_torch.parallel import ep_pack as ep
+    from cgr_mpnn_3d_tpu_torch.parallel import rdma_exchange as rx
+
+    def refuse(*a, **k):
+        raise AssertionError("a plain version was called")
+    for mod, names in ((fc, ("fused_conv_layer_ref", "fused_conv_backward_ref",
+                             "fused_conv_layer_r_ref",
+                             "fused_conv_r_backward_ref")),
+                       (gl, ("gather_linear_r_forward_ref",
+                             "gather_linear_pool_forward_ref",
+                             "gather_linear_r_backward_ref",
+                             "gather_linear_pool_backward_ref")),
+                       (rx, ("_ring_move",))):
+        for name in names:
+            monkeypatch.setattr(mod, name, refuse)
+    spec, shards, _ = _ep_case(cuda, n_ep=4)
+    seeds = torch.randint(0, 2**31 - 1, (4, 3), dtype=torch.int32,
+                          generator=torch.Generator().manual_seed(9))
+    for kw in (dict(ep_rdma_exchange=True), dict(ep_overlap=True,
+                                                 ep_rdma_exchange=True)):
+        cfg = CGRMPNNConfig(num_node_features=78, num_edge_features=14,
+                            depth=3, hidden_sizes=(40,) * 3,
+                            dropout_ps=(0.2,) * 3, fuse_whole_model=False,
+                            compute_dtype="bfloat16", **kw)
+        model = init_params(cfg, torch.Generator().manual_seed(3), cuda)
+        sse, _ = ep.ep_pack_forward(model, shards, spec, train=True,
+                                    seeds=seeds)
+        sse.backward()
+    torch.cuda.synchronize()

@@ -12,6 +12,7 @@ the same seeded numpy inputs of a wired EP shard (rtol/atol 1e-4):
 The JAX kernels take the transposed index tables of the JAX packer; the
 port's take the ELL arrays of its own packer, built from the same graphs.
 The hash dropout is the same bit for bit, so K8 is also held in train mode.
+Their bf16 instantiations are held in tests/test_torch_ep_bf16.py.
 """
 
 import jax
@@ -179,28 +180,45 @@ def test_gather_linear_r_plain_matches_jax(shard, act, mean, pool):
 
 
 def test_wrappers_refuse_bf16_and_bad_shapes(shard):
-    """K8-K11 run at f32 only, and check their shapes."""
+    """K8-K11 take the dtypes of their mat_dtype only (bf16 states at
+    bf16, never f16; r and xr f32 at both), and check their shapes."""
     spec, _, bt, rng = shard
     PE, PN = spec.pe, spec.pn
     h = torch.from_numpy(_rand(rng, PE, H))
     r = torch.from_numpy(_rand(rng, PN, H))
     w, b = torch.zeros(H, H), torch.zeros(H)
-    with pytest.raises(TypeError, match="f32 only"):
+    one = torch.tensor(1.0)
+    with pytest.raises(TypeError, match="mat_dtype=float32"):
         fc.fused_conv_r_forward(h.bfloat16(), r, h, bt.edge_nbr, bt.rev,
-                                bt.senders, w, b, torch.tensor(1.0),
-                                p=spec.p, tn=spec.tn)
+                                bt.senders, w, b, one, p=spec.p, tn=spec.tn)
+    for hh, rr, name in ((h.half(), r, "h"), (h.bfloat16(), r.bfloat16(),
+                                               "r")):
+        with pytest.raises(TypeError, match=f"^{name} is"):
+            fc.fused_conv_r_forward(hh, rr, h.bfloat16(), bt.edge_nbr,
+                                    bt.rev, bt.senders, w, b, one, p=spec.p,
+                                    tn=spec.tn, mat_dtype="bfloat16")
     with pytest.raises(ValueError, match="r has shape"):
         fc.fused_conv_r_forward(h, r[:-1], h, bt.edge_nbr, bt.rev,
-                                bt.senders, w, b, torch.tensor(1.0),
-                                p=spec.p, tn=spec.tn)
+                                bt.senders, w, b, one, p=spec.p, tn=spec.tn)
     with pytest.raises(ValueError, match="replaces the local mean"):
         fc.fused_conv_r_forward(h, r, h, bt.edge_nbr, bt.rev, bt.senders, w,
-                                b, torch.tensor(1.0), p=spec.p, tn=spec.tn,
-                                mean=True, scale=torch.ones(PE))
+                                b, one, p=spec.p, tn=spec.tn, mean=True,
+                                scale=torch.ones(PE))
+    with pytest.raises(ValueError, match="unsupported kernel activation"):
+        fc.fused_conv_r_forward(h, r, h, bt.edge_nbr, bt.rev, bt.senders, w,
+                                b, one, p=spec.p, tn=spec.tn, act="linear")
     x = torch.zeros(PN, NF)
-    with pytest.raises(TypeError, match="f32 only"):
+    with pytest.raises(TypeError, match="xr is torch.bfloat16"):
         gl.gather_linear_r_forward(h, r.bfloat16(), x, bt.node_inc, w,
                                    torch.zeros(NF, H), b, p=spec.p)
+    with pytest.raises(TypeError, match="xr is torch.bfloat16"):
+        gl.gather_linear_r_forward(h.bfloat16(), r.bfloat16(), x.bfloat16(),
+                                   bt.node_inc, w, torch.zeros(NF, H), b,
+                                   p=spec.p, mat_dtype="bfloat16")
+    with pytest.raises(TypeError, match="xa is torch.float16"):
+        gl.gather_linear_r_forward(h.half(), r, x.bfloat16(), bt.node_inc, w,
+                                   torch.zeros(NF, H), b, p=spec.p,
+                                   mat_dtype="bfloat16")
     with pytest.raises(ValueError, match="xr has shape"):
         gl.gather_linear_pool_forward(h, r[:-1], x, bt.node_inc,
                                       bt.node_group, bt.pool_ell, w,

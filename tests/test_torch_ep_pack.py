@@ -11,7 +11,8 @@ against the JAX package's ``parallel/ep_pack.py`` on the CPU:
   learnable skip (rtol/atol 1e-4);
 * shard-count invariance and the single-device model's loss; the zero-cut
   one-kernel step against the autograd step; JAX weights carried in by
-  ``params_from_jax``; the training CLI with ``--ep`` and its refusals.
+  ``params_from_jax``; the training CLI with ``--ep`` (also at bf16, with
+  ``--ep_overlap`` and with ``--ep_rdma``) and its refusals.
 """
 
 import dataclasses
@@ -378,8 +379,9 @@ def _data(tmp_path):
 
 def test_train_cli_with_ep_and_its_refusals(tmp_path, monkeypatch):
     """cli.train --ep 2 trains on the CPU (zero cut: the one-kernel step's
-    plain version, validation through K5/K4/K11's) and resumes; the flags
-    whose paths are not ported raise before any data is read."""
+    plain version, validation through K5/K4/K11's), also with
+    --compute_dtype bfloat16, --ep_overlap and --ep_rdma; the flags whose
+    paths are not ported raise before any data is read."""
     from cgr_mpnn_3d_tpu_torch.cli.train import main
     monkeypatch.chdir(tmp_path)
     data = _data(tmp_path)
@@ -391,7 +393,11 @@ def test_train_cli_with_ep_and_its_refusals(tmp_path, monkeypatch):
     assert res["steps"] > 0 and len(res["val_losses"]) == 2
     assert np.isfinite(res["train_losses"]).all()
     for flags in (["--compute_dtype", "bfloat16"], ["--ep_overlap"],
-                  ["--ep_rdma"], ["--dp", "2"], ["--reuse_packs"],
+                  ["--ep_rdma"]):
+        res = main(base + ["-ne", "2"] + flags)
+        assert res["steps"] > 0 and len(res["val_losses"]) == 2
+        assert np.isfinite(res["train_losses"]).all()
+    for flags in (["--dp", "2"], ["--reuse_packs"],
                   ["--loader_workers", "2"]):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             main(base + ["-ne", "1", "--data_path", "missing"] + flags)

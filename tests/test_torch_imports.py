@@ -42,7 +42,8 @@ def test_importing_every_module_loads_no_jax():
                 "ops.mm_probe", "cli.bench_ops", "tools.gelu_roofline",
                 "tools.int8_microbench", "tools.bwd_registers",
                 "parallel.edge_partition", "parallel.ep_pack",
-                "parallel.ep_loader")}
+                "parallel.ep_loader", "parallel.rdma_exchange",
+                "tools.profile_ep")}
     assert kernels <= set(res["mods"])
     assert [m for m in res["loaded"] if _forbidden(m)] == []
 
