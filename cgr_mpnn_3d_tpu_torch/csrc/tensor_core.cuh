@@ -1,7 +1,7 @@
 // The bf16 tensor-core product for sm_90a (mma.sync, inline PTX), shared
 // by the bf16 instantiations of the whole-model and layered kernels
-// (fused_model_common.cuh, layered_common.cuh) and the matmul probe
-// (mm_probe.cu).
+// (fused_model_common.cuh, layered_common.cuh).  The matmul probe
+// (mm_probe.cu) runs wgmma from hopper.cuh instead.
 //
 // Fragment layout (PTX ISA, "Matrix Fragments for mma.m16n8k16"), with
 // g = lane / 4 and t = lane % 4:

@@ -1,5 +1,6 @@
 """Matmul rate probe (P2): is int8 about twice bf16 on this card's tensor
-cores, through the library and through a hand-written ``mma.sync`` kernel?
+cores, through the library and through a hand-written kernel (TMA loads
+feeding ``wgmma``; for int8 with the transpose of B it needs)?
 
 The counterpart of ``tools/int8_microbench.py``.  It times N x N products
 (2 N^3 operations each) and prints the JAX tool's four rate lines and its
@@ -14,8 +15,10 @@ int8/bf16 ratio line:
 The two library lines are yardsticks: no path of the port calls them.  Each
 rate is the best of ``--repeats`` runs of ``--steps`` calls on the same
 seeded inputs (bf16 normal, int8 in [-3, 3]) between two CUDA events, after
-a warm-up call; the card caches no results, so the calls need no chain.  A
-failing line raises instead of printing 0.0.  ``--cpu`` runs the plain
+a warm-up call; the card caches no results, so the calls need no chain.
+cuBLASLt gets its column-major B made once, outside the timed calls; P2's
+int8 line times its transpose of B in every call.  A failing line raises
+instead of printing 0.0.  ``--cpu`` runs the plain
 version and the CPU's library calls (their rates are the CPU's).
 
   python -m cgr_mpnn_3d_tpu_torch.tools.int8_microbench [--cpu] [--n 4096]

@@ -89,7 +89,10 @@ Phases (any failure raises, and the script exits non-zero):
    in f32, as in the JAX CLI), and no f32 K2 or K3b runs;
 15. the matmul probe P2: the probe at its defaults
    (``tools/int8_microbench.py``), then its kernel against its plain
-   version at N = 4096 in bf16 and int8;
+   version at N = 4096 in bf16 and in int8 (over [-3, 3] and the full
+   [-128, 127]), its int8 transpose alone against ``b.t()``, each one's
+   rate and share of its bound and of the library call, and the kernels'
+   registers from ptxas;
 16. bf16 in the layered and capture paths (the bf16 instantiation of K4,
    K5, K6 and K7), interleaved with the phases above: each kernel against
    its bf16 plain version on the inputs a bf16 layered forward or capture
@@ -134,8 +137,10 @@ Phases (any failure raises, and the script exits non-zero):
    times, bounds and plain versions' times; K12 against the ring copies
    on the wired batch's wire buffers at n_ep 2 and 4, f32 and bf16, both
    ways and backward, bit for bit, timed beside the copies and one
-   ``index_select``; the wired EP step at n_ep 2 through the ring copies,
-   K12 (equal bit for bit, one launch per exchange, also at n_ep 4), bf16
+   ``index_select`` (CUDA events, and the device time of K12 and of
+   ``index_select`` under torch.profiler); the wired EP step at n_ep 2
+   through the ring copies, K12 (equal bit for bit, one launch per
+   exchange, also at n_ep 4), bf16
    (against f32 within tests/test_bf16.py's bounds) and --ep_overlap (f32
    against the K8 path, gradients by the float64 rule; bf16 by the bf16
    rule), each step's ms and launches, the busy share with and without
@@ -2384,21 +2389,40 @@ def act_chain_phase(cfg_kw: dict, spec, batch, seed: int, card: str) -> dict:
                 step_ms=step_ms)
 
 
+def ptxas_lines(name: str) -> list[str]:
+    """(kernel, registers / shared memory) lines of ptxas -v for the library
+    ``name`` from this run's build, one per entry function."""
+    from cgr_mpnn_3d_tpu_torch.ops import _build
+    out, fn = [], None
+    for line in _build.build_logs.get(name, "").splitlines():
+        if "Compiling entry function" in line:
+            fn = line.split("'")[1]
+        elif "registers" in line and fn is not None:
+            out.append(f"{fn}: {line.split(':', 1)[1].strip()}")
+            fn = None
+    return out
+
+
 def mm_probe_phase(seed: int, card: str) -> dict:
     """P2: the probe at its defaults (``tools/int8_microbench.py``: cuBLAS
-    and cuBLASLt, then P2, in bf16 and int8 at N = 4096), its kernel
-    launches counted; then P2 against its plain version on seeded random
-    inputs at the probe's N (bf16 normal, int8 in [-3, 3]): int8 exactly,
-    bf16 within rel-L2 4e-3; the plain versions' times, and the bounds 2N³
-    over the bf16 and int8 tensor-core peaks."""
+    and cuBLASLt, then P2, in bf16 and int8 at N = 4096), its kernel and
+    int8 transpose launches counted; then P2 against its plain version on
+    seeded random inputs at the probe's N (bf16 normal, int8 in [-3, 3]
+    and over the full [-128, 127], where the sums wrap): int8 exactly,
+    bf16 within rel-L2 4e-3; the int8 transpose alone against ``b.t()``;
+    the plain versions' times, the bounds 2N³ over the bf16 and int8
+    tensor-core peaks (the transpose: 2N² bytes over PEAK_BYTES), each
+    kernel's share of its bound and of the library call, and the kernels'
+    registers and static shared memory from ptxas."""
     import torch
     from cgr_mpnn_3d_tpu_torch.ops import mm_probe as mp
     from cgr_mpnn_3d_tpu_torch.tools import int8_microbench
     # the main path: the probe; counts zeroed just before, read just after
-    mp.launches = 0
+    mp.launches = mp.transpose_launches = 0
     res = int8_microbench.main([])
-    launches = mp.launches
-    check(launches > 0, "the probe made no P2 launches")
+    launches, t_launches = mp.launches, mp.transpose_launches
+    check(launches > 0 and t_launches > 0,
+          f"the probe made {launches} P2 and {t_launches} transpose launches")
     check(all(np.isfinite(v) and v > 0 for v in res["tops"].values()),
           f"probe rates {res['tops']}")
     N = res["n"]
@@ -2414,6 +2438,15 @@ def mm_probe_phase(seed: int, card: str) -> dict:
     check(torch.equal(got8, want8), "P2 int8 differs from its plain version")
     err16 = rel_l2([got16], [want16])
     check(err16 <= 4e-3, f"P2 bf16 vs plain rel-L2 {err16:.3e} > 4e-3")
+    a8f = torch.randint(-128, 128, (N, N), generator=gen,
+                        dtype=torch.int8).to(dev)
+    b8f = torch.randint(-128, 128, (N, N), generator=gen,
+                        dtype=torch.int8).to(dev)
+    check(torch.equal(mp.mm_probe(a8f, b8f), mp.mm_probe_ref(a8f, b8f)),
+          "P2 int8 over [-128, 127] differs from its plain version")
+    check(torch.equal(mp.transpose_s8(b8f), mp.transpose_s8_ref(b8f)),
+          "P2's int8 transpose differs from b.t()")
+    del a8f
     plain16 = time_ms(lambda: mp.mm_probe_ref(a16, b16), 5)
     plain8 = time_ms(lambda: mp.mm_probe_ref(a8, b8), 3)
     ops = 2.0 * N ** 3
@@ -2424,18 +2457,42 @@ def mm_probe_phase(seed: int, card: str) -> dict:
     int8 = dict(ms=res["ms"]["P2 int8->int32"], plain_ms=plain8,
                 bound_ms=ops / PEAK_INT8_OPS * 1e3,
                 library_ms=res["ms"]["cuBLASLt int8->int32"])
+    # the transpose alone (part of every int8 call above); its plain
+    # version and the library call are the same torch call, timed apart
+    t_plain = [time_ms(lambda: mp.transpose_s8_ref(b8f), 32)]
+    t_ms = [time_ms(lambda: mp.transpose_s8(b8f), 32) for _ in range(2)]
+    t_plain.append(time_ms(lambda: mp.transpose_s8_ref(b8f), 32))
+    trans = dict(abs_err=0.0, ms=statistics.mean(t_ms),
+                 plain_ms=statistics.mean(t_plain),
+                 bound_ms=2.0 * N * N / PEAK_BYTES * 1e3, bound_by="bytes",
+                 library_ms=time_ms(lambda: b8f.t().contiguous(), 32))
     print(f"mm_probe bf16 N = {N}: rel-L2 vs plain {err16:.3e}, max abs err "
           f"{entry['abs_err']:.3e}; kernel {entry['ms']:.4f} ms "
-          f"({res['tops']['P2 bf16->f32']:.1f} TFLOP/s), plain "
+          f"({res['tops']['P2 bf16->f32']:.1f} TFLOP/s, "
+          f"{entry['bound_ms'] / entry['ms']:.3f} of the bound, "
+          f"{entry['library_ms'] / entry['ms']:.3f} of cuBLAS's rate), plain "
           f"{plain16:.4f} ms, cuBLAS {entry['library_ms']:.4f} ms "
           f"({res['tops']['cuBLAS bf16->f32']:.1f} TFLOP/s), bound "
           f"{entry['bound_ms']:.4f} ms [{card}]")
-    print(f"mm_probe int8 N = {N}: equal to plain; kernel {int8['ms']:.4f} ms "
-          f"({res['tops']['P2 int8->int32']:.1f} TOP/s), plain "
+    print(f"mm_probe int8 N = {N}: equal to plain at [-3, 3] and [-128, "
+          f"127]; kernel with its transpose {int8['ms']:.4f} ms "
+          f"({res['tops']['P2 int8->int32']:.1f} TOP/s, "
+          f"{int8['bound_ms'] / int8['ms']:.3f} of the bound, "
+          f"{int8['library_ms'] / int8['ms']:.3f} of cuBLASLt's rate), plain "
           f"{plain8:.4f} ms, cuBLASLt {int8['library_ms']:.4f} ms "
-          f"({res['tops']['cuBLASLt int8->int32']:.1f} TOP/s), bound "
-          f"{int8['bound_ms']:.4f} ms; probe launches {launches} [{card}]")
-    return dict(entry=entry, int8=int8, launches=launches, probe=res)
+          f"({res['tops']['cuBLASLt int8->int32']:.1f} TOP/s, B column-major "
+          f"made outside its timed loop), bound {int8['bound_ms']:.4f} ms; "
+          f"probe launches {launches} [{card}]")
+    print(f"mm_probe int8 transpose N = {N}: equal to b.t(); kernel "
+          f"{trans['ms']:.4f} ms, plain {trans['plain_ms']:.4f} ms, "
+          f"b.t().contiguous() {trans['library_ms']:.4f} ms, bound "
+          f"{trans['bound_ms']:.4f} ms by bytes; launches in the probe "
+          f"{t_launches} [{card}]")
+    for line in ptxas_lines("mm_probe") or ["(no ptxas log: built before "
+                                            "this run)"]:
+        print(f"mm_probe ptxas: {line}")
+    return dict(entry=entry, int8=int8, launches=launches, probe=res,
+                transpose=trans, transpose_launches=t_launches)
 
 
 # -- edge partitioning: K8/K9, K10/K11 and the EP paths ---------------------
@@ -2890,8 +2947,9 @@ def exchange_phase(seed: int, repeats: int, card: str) -> dict:
     autograd backward (the inverse exchange) bit for bit, one launch per
     exchange; times of the kernel, the plain version and the library call
     (one ``index_select`` over the stacked buffers through a row map built
-    beforehand), and the bytes bound 2 · n_ep · TW · H · elem over
-    PEAK_BYTES."""
+    beforehand), the device time per call of the kernel and of the
+    library call under torch.profiler, and the bytes bound
+    2 · n_ep · TW · H · elem over PEAK_BYTES."""
     import torch
     from cgr_mpnn_3d_tpu_torch.parallel import ep_pack as ep
     from cgr_mpnn_3d_tpu_torch.parallel import rdma_exchange as rx
@@ -2943,6 +3001,14 @@ def exchange_phase(seed: int, repeats: int, card: str) -> dict:
                    (0.0, 0.0, float(nbytes)))
             entry["library_ms"] = time_ms(
                 lambda: stacked.index_select(0, row_map), repeats)
+            # the card's own time per call, beside the event times (which
+            # hold the wrappers' host work when it exceeds the kernel's)
+            for key, fn in (("device_ms", lambda: rx.ring_exchange_rdma(
+                    bufs, caps)), ("library_device_ms",
+                                   lambda: stacked.index_select(0, row_map))):
+                _, busy, top = device_busy(
+                    lambda: [fn() for _ in range(repeats)], top=2)
+                entry[key], entry[key + "_by"] = busy / repeats, top
             out[name] = entry
             print(f"K12 {name}: caps {caps}, TW {tw}: bit for bit both ways "
                   f"and backward; kernel {entry['ms']:.4f} ms, plain (ring "
@@ -2950,6 +3016,15 @@ def exchange_phase(seed: int, repeats: int, card: str) -> dict:
                   f"{entry['library_ms']:.4f} ms, bound "
                   f"{entry['bound_ms']:.6f} ms by {entry['bound_by']} "
                   f"({nbytes / 1e6:.3f} MB) [{card}]")
+            print(f"K12 {name} device time per call (torch.profiler, "
+                  f"{repeats} calls): kernel {entry['device_ms']:.6f} ms "
+                  f"{entry['device_ms_by']}, index_select "
+                  f"{entry['library_device_ms']:.6f} ms "
+                  f"{entry['library_device_ms_by']}: device factor "
+                  f"{entry['device_ms'] / entry['library_device_ms']:.3f}, "
+                  f"event factor {entry['ms'] / entry['library_ms']:.3f}; "
+                  f"host share of the kernel's event time "
+                  f"{1 - entry['device_ms'] / entry['ms']:.3f} [{card}]")
     return out
 
 
@@ -3558,6 +3633,9 @@ def main(argv=None) -> int:
                sum(cap16["launches"]["K6"]), conv_k16["K6 fwd eval"]),
         kernel("mm_probe", "mm_probe.cu", "tools/int8_microbench.py:72",
                p2["launches"], p2["entry"]),
+        kernel("mm_probe_transpose_s8", "mm_probe.cu",
+               "tools/int8_microbench.py:72", p2["transpose_launches"],
+               p2["transpose"]),
         kernel("fused_conv_r", "fused_conv.cu", "pallas_fused.py:555",
                ep_launches["K8"], ep_k[2]["K8 fwd"]),
         kernel("fused_conv_rm", "fused_conv.cu", "pallas_fused.py:686",

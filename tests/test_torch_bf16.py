@@ -479,6 +479,45 @@ def test_p2_plain_matches_the_jax_tool(jax_tool, dtype):
     assert _rel_l2(got, exact) <= 4e-3 and _rel_l2(want, exact) <= 4e-3
 
 
+@pytest.mark.parametrize("seed", [3, 11])
+def test_p2_plain_matches_the_jax_tool_full_range(jax_tool, seed):
+    """int8 over [-128, 127], where the sums leave the int8 range by far
+    and only their low 8 bits remain: the tool's Pallas kernel (one step
+    from c: c · c, at the fixture's N = 512, the tool's row block) and
+    the plain version, exactly.  The card tests hold the kernel to this
+    plain version."""
+    rng = np.random.default_rng(seed)
+    c = rng.integers(-128, 128, (512, 512)).astype(np.int8)
+    loop, _ = jax_tool.pallas_mm(jnp.int8, jnp.int32)
+    want = np.asarray(loop(jnp.asarray(c)))
+    got = mp.mm_probe_ref(torch.from_numpy(c), torch.from_numpy(c))
+    exact = c.astype(np.int64) @ c.astype(np.int64)
+    assert np.abs(exact).max() > 127 * 512
+    np.testing.assert_array_equal(got.numpy(), want)
+    np.testing.assert_array_equal(got.numpy(), exact.astype(np.int8))
+
+
+def test_p2_transpose_plain_on_the_cpu():
+    """The int8 transpose wrapper on CPU tensors: its plain version,
+    b.t() laid out row-major."""
+    b = torch.from_numpy(np.random.default_rng(5).integers(
+        -128, 128, (64, 192)).astype(np.int8))
+    got = mp.transpose_s8(b)
+    assert got.is_contiguous() and torch.equal(got, b.t())
+    assert torch.equal(mp.transpose_s8_ref(b), got)
+
+
+def test_p2_parts_variants_match_the_source():
+    """tools/mm_probe_parts.py builds its variants by replacing text of
+    csrc/mm_probe.cu: each text it replaces is there exactly once."""
+    from cgr_mpnn_3d_tpu_torch.ops import _build
+    from cgr_mpnn_3d_tpu_torch.tools import mm_probe_parts
+    src = (_build.CSRC / "mm_probe.cu").read_text()
+    for name, (old, new) in mm_probe_parts.VARIANTS.items():
+        assert src.count(old) == 1, name
+        assert src.replace(old, new) != src
+
+
 def test_p2_tool_runs_on_the_cpu(capsys):
     from cgr_mpnn_3d_tpu_torch.tools import int8_microbench
     out = int8_microbench.main(["--cpu", "--n", "128", "--steps", "1",

@@ -600,9 +600,9 @@ def test_bf16_model_on_card_matches_cpu(cuda):
 
 
 def test_no_cuda_tensor_reaches_a_plain_version(cuda, monkeypatch):
-    """With every plain version of K3f, K2, K3b and P2 replaced by one that
-    raises, the wrappers, apply and the training step still run on the
-    card, in f32 and in bf16."""
+    """With every plain version of K3f, K2, K3b and P2 (and its int8
+    transpose) replaced by one that raises, the wrappers, apply and the
+    training step still run on the card, in f32 and in bf16."""
     from cgr_mpnn_3d_tpu_torch.models import cgr_mpnn as cm
     from cgr_mpnn_3d_tpu_torch.ops import mm_probe as mp
 
@@ -612,6 +612,7 @@ def test_no_cuda_tensor_reaches_a_plain_version(cuda, monkeypatch):
                  "fused_model_vjp_ref"):
         monkeypatch.setattr(fm, name, refuse)
     monkeypatch.setattr(mp, "mm_probe_ref", refuse)
+    monkeypatch.setattr(mp, "transpose_s8_ref", refuse)
     spec, batch = _batch(60, 12, 78, cuda)
     for dtype in ("float32", "bfloat16"):
         cfg = CGRMPNNConfig(num_node_features=78, num_edge_features=14,
@@ -624,11 +625,16 @@ def test_no_cuda_tensor_reaches_a_plain_version(cuda, monkeypatch):
     a = torch.randint(-3, 4, (128, 128), dtype=torch.int8, device=cuda)
     mp.mm_probe(a, a)
     mp.mm_probe(a.bfloat16(), a.bfloat16())
+    mp.transpose_s8(a)
     torch.cuda.synchronize()
 
 
-@pytest.mark.parametrize("M,N,K", [(512, 512, 512), (256, 384, 192)])
+@pytest.mark.parametrize("M,N,K", [(512, 512, 512), (256, 384, 192),
+                                   (128, 128, 64), (384, 640, 1088)])
 def test_mm_probe_kernel_matches_plain(cuda, M, N, K):
+    """At the pipeline's edges: (128, 128, 64) is one K block, fewer than
+    the 4 stages; N = 384 and 640 are no multiples of the 256-wide tile;
+    K = 1088 is 17 bf16 K blocks (9 int8), so the ring wraps."""
     from cgr_mpnn_3d_tpu_torch.ops import mm_probe as mp
     gen = torch.Generator().manual_seed(M + K)
     a8 = torch.randint(-3, 4, (M, K), generator=gen, dtype=torch.int8)
@@ -645,6 +651,64 @@ def test_mm_probe_kernel_matches_plain(cuda, M, N, K):
     assert _rel_l2([got16.cpu()], [mp.mm_probe_ref(a16, b16)]) <= 4e-3
     with pytest.raises(ValueError, match="multiples of 128"):
         mp.mm_probe(a8[:100].to(cuda), b8.to(cuda))
+
+
+@pytest.mark.parametrize("M,N,K", [(256, 384, 192), (384, 640, 1088)])
+def test_mm_probe_kernel_full_range(cuda, M, N, K):
+    """int8 over [-128, 127]: sums far past the int8 range, wrapped to
+    their low 8 bits, equal to the plain version; bf16 entries near 1e3
+    within rel-L2 4e-3; a rerun equal bit for bit in both types."""
+    from cgr_mpnn_3d_tpu_torch.ops import mm_probe as mp
+    gen = torch.Generator().manual_seed(N + K)
+    a8 = torch.randint(-128, 128, (M, K), generator=gen, dtype=torch.int8)
+    b8 = torch.randint(-128, 128, (K, N), generator=gen, dtype=torch.int8)
+    a16 = (1e3 + 30 * torch.randn((M, K), generator=gen)).bfloat16()
+    b16 = (1e3 * torch.randn((K, N), generator=gen)).bfloat16()
+    got8 = mp.mm_probe(a8.to(cuda), b8.to(cuda))
+    got16 = mp.mm_probe(a16.to(cuda), b16.to(cuda))
+    again8 = mp.mm_probe(a8.to(cuda), b8.to(cuda))
+    again16 = mp.mm_probe(a16.to(cuda), b16.to(cuda))
+    torch.cuda.synchronize()
+    want8 = mp.mm_probe_ref(a8, b8)
+    assert torch.equal(got8.cpu(), want8)
+    assert (a8.double() @ b8.double()).abs().max() > 127 * 64
+    assert _rel_l2([got16.cpu()], [mp.mm_probe_ref(a16, b16)]) <= 4e-3
+    assert torch.equal(got8, again8) and torch.equal(got16, again16)
+
+
+def test_mm_probe_parts_tool(cuda, capsys):
+    """tools/mm_probe_parts.py at a small N: every variant builds, runs and
+    (but for "no stores") equals the shipped build; the wrapper's library
+    is the shipped one again afterwards."""
+    from cgr_mpnn_3d_tpu_torch.ops import _build
+    from cgr_mpnn_3d_tpu_torch.tools import mm_probe_parts
+    shipped = _build.load("mm_probe")
+    out = mm_probe_parts.main(["--n", "512", "--steps", "2",
+                               "--repeats", "1"])
+    assert _build.load("mm_probe") is shipped
+    assert set(out["ms"]) == {"shipped", *mm_probe_parts.VARIANTS}
+    assert all(len(v) == (2 if name == "shipped" else 1)
+               for name, d in out["ms"].items() for v in d.values())
+    assert set(out["waves"]) == {"M=512", "M=640"} and out["clocks"]
+    assert "P2 bf16 running" in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("K,N", [(64, 64), (192, 384), (1088, 640)])
+def test_mm_probe_transpose_matches_plain(cuda, K, N):
+    """The int8 transpose mm_probe runs before an int8 product, alone:
+    equal to b.t(), one launch on its counter."""
+    from cgr_mpnn_3d_tpu_torch.ops import mm_probe as mp
+    gen = torch.Generator().manual_seed(K)
+    b = torch.randint(-128, 128, (K, N), generator=gen, dtype=torch.int8)
+    before = (mp.transpose_launches, mp.launches)
+    got = mp.transpose_s8(b.to(cuda))
+    torch.cuda.synchronize()
+    assert (mp.transpose_launches, mp.launches) == (before[0] + 1, before[1])
+    assert got.shape == (N, K) and torch.equal(got.cpu(), b.t())
+    with pytest.raises(ValueError, match="multiples of 64"):
+        mp.transpose_s8(b[:, :32].contiguous().to(cuda))
+    with pytest.raises(TypeError, match="int8"):
+        mp.transpose_s8(b.bfloat16().to(cuda))
 
 
 # -- bf16 compute in the layered and capture paths: K4-K7 at mat_dtype bf16 --
