@@ -20,10 +20,14 @@ checkpoint in f32, as the JAX CLI does.
 
 ``--ep N`` shards every batch's edges over N shards in the pack-local
 layout (``parallel/ep_pack.py``, tiles ``--ep_te`` x ``--ep_tn``), every
-shard of a step in this process on one device; f32 only.  ``--ep_overlap``,
-``--ep_rdma``, ``--dp`` other than 1, ``--reuse_packs`` and
-``--loader_workers`` other than 1 raise NotImplementedError, naming their
-ROADMAP.md items.
+shard of a step in this process on one device, at either
+``--compute_dtype``; ``--ep_overlap`` runs its wired layers through the
+linear conv kernel plus a compact correction, and ``--ep_rdma`` sends every
+exchange through the hop-exchange kernel.
+
+``refuse_unported`` raises NotImplementedError, naming the ROADMAP.md item,
+for ``--dp`` other than 1, ``--reuse_packs`` and ``--loader_workers`` other
+than 1.
 
 Not ported yet: multi-host, ``--device_epoch``, ``--steps_per_call``,
 ``--pack_q`` and ``--num_workers`` (ROADMAP.md).
@@ -113,14 +117,17 @@ def build_arg_parser() -> argparse.ArgumentParser:
 def refuse_unported(args) -> None:
     """Raise NotImplementedError for a flag whose path is not ported, so
     that no run takes another path quietly."""
+    ep = args.ep > 1
     if args.dp != 1:
         raise NotImplementedError(
             "--dp (data parallelism over torch.distributed) is not ported "
-            "yet: ROADMAP.md, edge partitioning, item 5")
+            "yet: ROADMAP.md section 1.5, data parallel and multi-host"
+            + ("; with --ep, section 1.6 item 5" if ep else ""))
     if args.reuse_packs or args.loader_workers != 1:
         raise NotImplementedError(
             "--reuse_packs and --loader_workers are not ported yet: "
-            "ROADMAP.md, edge partitioning, item 4")
+            "ROADMAP.md section 1.3, the loader's other modes"
+            + ("; with --ep, section 1.6 item 4" if ep else ""))
 
 
 def run_name(args) -> str:

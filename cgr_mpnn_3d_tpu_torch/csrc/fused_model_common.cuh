@@ -13,10 +13,18 @@
 // Elementwise work (biases, skip·h0, activations, dropout) and every stored
 // state stay f32 in both.
 //
-// One thread block of kThreads threads works on one pack.  Indices are
-// global, with the sentinel equal to the row count; an index outside the
-// block's own pack (the sentinel included) is skipped and never read
+// The work is cut into items that one thread block of kThreads threads
+// computes: one 64 x 64 output tile of a product, or a range of rows of an
+// elementwise or gather pass, of one pack.  The forward below runs every
+// item of one pack in one block (K3f); the training kernel spreads the
+// items of every pack over the whole grid, one phase at a time.  Indices
+// are global, with the sentinel equal to the row count; an index outside
+// the item's own pack (the sentinel included) is skipped and never read
 // through, which is what a never-matching one-hot column does on the TPU.
+//
+// Data written by one phase of a kernel and read by a later one (the
+// states) is never read through __restrict__ pointers: those may load
+// through the non-coherent read-only path.
 
 #pragma once
 
@@ -106,13 +114,13 @@ struct Dropout {
 };
 
 // `drop` is the wrapper's [3, L] table (seeds, thresholds as uint32 bits,
-// scales as f32 bits), or nullptr in eval mode.
+// scales as f32 bits), or nullptr in eval mode; `pack` is the pack index.
 __device__ __forceinline__ Dropout layer_dropout(const int* drop, int L,
-                                                 int l) {
+                                                 int l, int pack) {
   if (drop == nullptr) return Dropout{0, 0u, 0u, 0u, 1.f};
   return Dropout{1, static_cast<unsigned>(drop[l]),
                  static_cast<unsigned>(drop[L + l]),
-                 static_cast<unsigned>(blockIdx.x), __int_as_float(drop[2 * L + l])};
+                 static_cast<unsigned>(pack), __int_as_float(drop[2 * L + l])};
 }
 
 // Rows of a dense operand [*, K] of element type T (f32, or bf16 in the
@@ -155,7 +163,7 @@ using SmemOf = std::conditional_t<kBf16, SmemBf16, Smem>;
 //   Bop(k, n) = B[k*ldb + n] (TB false)  or  B[n*ldb + k] (TB true: Bᵀ).
 template <bool TA, bool TB>
 __device__ __forceinline__ void mma_tile(float (&acc)[TM][TN], const Rows& A,
-                                         const float* __restrict__ B, int ldb,
+                                         const float* B, int ldb,
                                          int K, int m0, int n0, int M, int N,
                                          Smem& sm) {
   const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
@@ -205,7 +213,7 @@ __device__ __forceinline__ void mma_tile(float (&acc)[TM][TN], const Rows& A,
 template <bool TA, bool TB, class T>
 __device__ __forceinline__ void mma_tile_bf16(float (&acc)[4][4],
                                               const RowsOf<T>& A,
-                                              const float* __restrict__ B,
+                                              const float* B,
                                               int ldb, int K, int m0, int n0,
                                               int M, int N, SmemBf16& sm) {
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
@@ -260,44 +268,46 @@ struct OperandsOf {
 };
 using Operands = OperandsOf<float>;
 
-// epi(m, n, Σ over the pairs of Aop·Bop [m, n]) over an M x N output.
+// The 64 x 64 output tiles of an M x N product.
+__host__ __device__ __forceinline__ int tiles_of(int M, int N) {
+  return ((M + BM - 1) / BM) * ((N + BN - 1) / BN);
+}
+
+// epi(m, n, Σ over the pairs of Aop·Bop [m, n]) over tile `tile` (tiles
+// in row-major order) of an M x N output.
 template <bool kBf16, bool TA, bool TB, class Epi>
-__device__ void gemm(const Operands& p1, const Operands* p2, int M, int N,
-                     const Epi& epi, SmemOf<kBf16>& sm) {
-  const int tid = threadIdx.x;
-  for (int m0 = 0; m0 < M; m0 += BM) {
-    for (int n0 = 0; n0 < N; n0 += BN) {
-      float acc[TM][TN] = {};
-      if constexpr (kBf16) {
-        mma_tile_bf16<TA, TB>(acc, p1.A, p1.B, p1.ldb, p1.K, m0, n0, M, N,
-                              sm);
-        if (p2 != nullptr)
-          mma_tile_bf16<TA, TB>(acc, p2->A, p2->B, p2->ldb, p2->K, m0, n0,
-                                M, N, sm);
-        const int warp = tid / 32, g = (tid % 32) / 4, t = tid % 4;
+__device__ void gemm_tile(const Operands& p1, const Operands* p2, int M,
+                          int N, int tile, const Epi& epi,
+                          SmemOf<kBf16>& sm) {
+  const int tid = threadIdx.x, tiles_n = (N + BN - 1) / BN;
+  const int m0 = (tile / tiles_n) * BM, n0 = (tile % tiles_n) * BN;
+  float acc[TM][TN] = {};
+  if constexpr (kBf16) {
+    mma_tile_bf16<TA, TB>(acc, p1.A, p1.B, p1.ldb, p1.K, m0, n0, M, N, sm);
+    if (p2 != nullptr)
+      mma_tile_bf16<TA, TB>(acc, p2->A, p2->B, p2->ldb, p2->K, m0, n0, M, N,
+                            sm);
+    const int warp = tid / 32, g = (tid % 32) / 4, t = tid % 4;
 #pragma unroll
-        for (int j = 0; j < 4; ++j)
+    for (int j = 0; j < 4; ++j)
 #pragma unroll
-          for (int q = 0; q < 4; ++q) {
-            const int m = m0 + 16 * (warp % 4) + g + 8 * (q / 2);
-            const int n = n0 + 32 * (warp / 4) + 8 * j + 2 * t + q % 2;
-            if (m < M && n < N) epi(m, n, acc[j][q]);
-          }
-      } else {
-        const int tx = tid % 16, ty = tid / 16;
-        mma_tile<TA, TB>(acc, p1.A, p1.B, p1.ldb, p1.K, m0, n0, M, N, sm);
-        if (p2 != nullptr)
-          mma_tile<TA, TB>(acc, p2->A, p2->B, p2->ldb, p2->K, m0, n0, M, N,
-                           sm);
+      for (int q = 0; q < 4; ++q) {
+        const int m = m0 + 16 * (warp % 4) + g + 8 * (q / 2);
+        const int n = n0 + 32 * (warp / 4) + 8 * j + 2 * t + q % 2;
+        if (m < M && n < N) epi(m, n, acc[j][q]);
+      }
+  } else {
+    const int tx = tid % 16, ty = tid / 16;
+    mma_tile<TA, TB>(acc, p1.A, p1.B, p1.ldb, p1.K, m0, n0, M, N, sm);
+    if (p2 != nullptr)
+      mma_tile<TA, TB>(acc, p2->A, p2->B, p2->ldb, p2->K, m0, n0, M, N, sm);
 #pragma unroll
-        for (int i = 0; i < TM; ++i) {
-          const int m = m0 + ty + 16 * i;
+    for (int i = 0; i < TM; ++i) {
+      const int m = m0 + ty + 16 * i;
 #pragma unroll
-          for (int j = 0; j < TN; ++j) {
-            const int n = n0 + tx + 16 * j;
-            if (m < M && n < N) epi(m, n, acc[i][j]);
-          }
-        }
+      for (int j = 0; j < TN; ++j) {
+        const int n = n0 + tx + 16 * j;
+        if (m < M && n < N) epi(m, n, acc[i][j]);
       }
     }
   }
@@ -333,16 +343,16 @@ struct StoreEpi {
 };
 
 // out[r, :] = scale_r · Σ_d src[ids[r, d] - lo, :]  [- src[rev[r] - lo, :]]
-// over R rows of width H; entries outside [0, n) are skipped, and
-// scale_r = mean_colscale(entries counted) when `mean`, else 1.  The rev
-// row is unscaled (its one-hot entry is -1, exact in bf16 too).
+// over the rows r0 <= r < r1 of width H; entries outside [0, n) are
+// skipped, and scale_r = mean_colscale(entries counted) when `mean`, else
+// 1.  The rev row is unscaled (its one-hot entry is -1, exact in bf16 too).
 template <bool kBf16>
-__device__ void gather_sum(const float* __restrict__ src, int n, int lo,
+__device__ void gather_sum(const float* src, int n, int lo,
                            const int* __restrict__ ids, int D,
-                           const int* __restrict__ rev, bool mean, int R,
-                           int H, float* __restrict__ out) {
-  for (int i = threadIdx.x; i < R * H; i += kThreads) {
-    const int r = i / H, c = i % H;
+                           const int* __restrict__ rev, bool mean, int r0,
+                           int r1, int H, float* out) {
+  for (int i = threadIdx.x; i < (r1 - r0) * H; i += kThreads) {
+    const int r = r0 + i / H, c = i % H;
     const int* row = ids + static_cast<size_t>(r) * D;
     float sum = 0.f;
     int count = 0;
@@ -359,17 +369,17 @@ __device__ void gather_sum(const float* __restrict__ src, int n, int lo,
       if (j >= 0 && j < n)
         sum -= operand<kBf16>(src[static_cast<size_t>(j) * H + c]);
     }
-    out[i] = sum;
+    out[static_cast<size_t>(r) * H + c] = sum;
   }
 }
 
-// out[g] = pooled[g, :] · wffn + bffn, one warp per graph.
+// out[g] = pooled[g, :] · wffn + bffn for g0 <= g < g1, one warp per graph.
 template <bool kBf16>
-__device__ void head(const float* __restrict__ pooled, int tb, int H,
+__device__ void head(const float* pooled, int g0, int g1, int H,
                      const float* __restrict__ wffn,
-                     const float* __restrict__ bffn, float* __restrict__ out) {
+                     const float* __restrict__ bffn, float* out) {
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  for (int g = warp; g < tb; g += kThreads / 32) {
+  for (int g = g0 + warp; g < g1; g += kThreads / 32) {
     float v = 0.f;
     for (int c = lane; c < H; c += 32)
       v = fmaf(operand<kBf16>(pooled[static_cast<size_t>(g) * H + c]),
@@ -398,7 +408,7 @@ struct FwdState {
   size_t t_stride, pre_stride;
 };
 
-// The whole forward of pack blockIdx.x (pallas_model.py::_replay_forward):
+// The forward of pack q (pallas_model.py::_replay_forward), as items:
 //
 //   h0     = act(x[senders]·Wx + e·We + be)                   edge_init
 //   for l < L:
@@ -410,61 +420,110 @@ struct FwdState {
 //   pred   = pooled·wffn + bffn                               ffn head
 //
 // "scale" is 1 for add and 1 / (number of counted entries) for mean; the
-// rev term stays unscaled.  Ends with the block synchronised.
+// rev term stays unscaled.  Each step's items depend only on the steps
+// before it, so a kernel may run the items of one step in any blocks, in
+// any order, once every item of the step before has finished.  A product
+// has tiles_of(rows, H) items, one 64 x 64 output tile each; a gather,
+// one per range of rows; pooling and the head, one per range of graphs.
+
 template <bool kBf16>
-__device__ void forward_pack(const ModelArgs& a, const FwdState& st,
-                             SmemOf<kBf16>& sm) {
-  const int H = a.H;
-  const int eb = blockIdx.x * a.te, nb = blockIdx.x * a.tn,
-            gb = blockIdx.x * a.tb;
-  const float* x = a.x + static_cast<size_t>(nb) * a.F;
-  const float* e = a.e + static_cast<size_t>(eb) * a.Fe;
+__device__ void edge_init_tile(const ModelArgs& a, const FwdState& st,
+                               int q, int tile, SmemOf<kBf16>& sm) {
+  const int eb = q * a.te, nb = q * a.tn;
+  const Operands xw{Rows{a.x + static_cast<size_t>(nb) * a.F, a.F,
+                         a.senders + eb, nb, a.tn},
+                    a.wx, a.H, a.F};
+  const Operands ew{Rows{a.e + static_cast<size_t>(eb) * a.Fe, a.Fe, nullptr,
+                         0, 0},
+                    a.we, a.H, a.Fe};
   const Dropout none{0, 0u, 0u, 0u, 1.f};
+  gemm_tile<kBf16, false, false>(
+      xw, &ew, a.te, a.H, tile,
+      ActEpi{a.be, nullptr, 0.f, a.act, st.pre0, st.h0, a.H, none}, sm);
+}
 
-  // edge_init
-  const Operands xw{Rows{x, a.F, a.senders + eb, nb, a.tn}, a.wx, H, a.F};
-  const Operands ew{Rows{e, a.Fe, nullptr, 0, 0}, a.we, H, a.Fe};
-  gemm<kBf16, false, false>(
-      xw, &ew, a.te, H,
-      ActEpi{a.be, nullptr, 0.f, a.act, st.pre0, st.h0, H, none}, sm);
-  __syncthreads();
+// Messages of layer l over rows [r0, r1) from h_in (h0 when l is 0).
+template <bool kBf16>
+__device__ void message_rows(const ModelArgs& a, const FwdState& st, int q,
+                             int l, int r0, int r1) {
+  const int eb = q * a.te;
+  gather_sum<kBf16>(l == 0 ? st.h0 : st.h, a.te, eb,
+                    a.edge_nbr + static_cast<size_t>(eb) * a.D, a.D,
+                    a.rev + eb, a.mean_aggr != 0, r0, r1, a.H,
+                    st.t + l * st.t_stride);
+}
 
-  const float* h_in = st.h0;
-  for (int l = 0; l < a.L; ++l) {
-    float* t = st.t + l * st.t_stride;
-    gather_sum<kBf16>(h_in, a.te, eb,
-                      a.edge_nbr + static_cast<size_t>(eb) * a.D, a.D,
-                      a.rev + eb, a.mean_aggr != 0, a.te, H, t);
-    __syncthreads();
-    const Operands tw{Rows{t, H, nullptr, 0, 0},
-                      a.wc + static_cast<size_t>(l) * H * H, H, H};
-    gemm<kBf16, false, false>(
-        tw, nullptr, a.te, H,
-        ActEpi{a.bc + static_cast<size_t>(l) * H, st.h0, a.skips[l], a.act,
-               st.pre == nullptr ? nullptr : st.pre + l * st.pre_stride, st.h,
-               H, layer_dropout(a.drop, a.L, l)},
-        sm);
-    __syncthreads();
-    h_in = st.h;
-  }
+template <bool kBf16>
+__device__ void conv_tile(const ModelArgs& a, const FwdState& st, int q,
+                          int l, int tile, SmemOf<kBf16>& sm) {
+  const int H = a.H;
+  const Operands tw{Rows{st.t + l * st.t_stride, H, nullptr, 0, 0},
+                    a.wc + static_cast<size_t>(l) * H * H, H, H};
+  gemm_tile<kBf16, false, false>(
+      tw, nullptr, a.te, H, tile,
+      ActEpi{a.bc + static_cast<size_t>(l) * H, st.h0, a.skips[l], a.act,
+             st.pre == nullptr ? nullptr : st.pre + l * st.pre_stride, st.h,
+             H, layer_dropout(a.drop, a.L, l, q)},
+      sm);
+}
 
-  // readout: hn = act(s·Ws + x·Wxn + ben), s = incoming sum of h
-  gather_sum<kBf16>(h_in, a.te, eb,
+// The readout's incoming sum s over node rows [r0, r1) from the last h.
+template <bool kBf16>
+__device__ void readout_rows(const ModelArgs& a, const FwdState& st, int q,
+                             int r0, int r1) {
+  const int eb = q * a.te, nb = q * a.tn;
+  gather_sum<kBf16>(a.L == 0 ? st.h0 : st.h, a.te, eb,
                     a.node_inc + static_cast<size_t>(nb) * a.D, a.D, nullptr,
-                    a.mean_aggr != 0, a.tn, H, st.s);
-  __syncthreads();
-  const Operands sw{Rows{st.s, H, nullptr, 0, 0}, a.ws, H, H};
-  const Operands xn{Rows{x, a.F, nullptr, 0, 0}, a.wxn, H, a.F};
-  gemm<kBf16, false, false>(
-      sw, &xn, a.tn, H,
-      ActEpi{a.ben, nullptr, 0.f, a.act, st.pre_n, st.hn, H, none}, sm);
-  __syncthreads();
+                    a.mean_aggr != 0, r0, r1, a.H, st.s);
+}
 
+template <bool kBf16>
+__device__ void readout_tile(const ModelArgs& a, const FwdState& st, int q,
+                             int tile, SmemOf<kBf16>& sm) {
+  const int H = a.H, nb = q * a.tn;
+  const Operands sw{Rows{st.s, H, nullptr, 0, 0}, a.ws, H, H};
+  const Operands xn{Rows{a.x + static_cast<size_t>(nb) * a.F, a.F, nullptr,
+                         0, 0},
+                    a.wxn, H, a.F};
+  const Dropout none{0, 0u, 0u, 0u, 1.f};
+  gemm_tile<kBf16, false, false>(
+      sw, &xn, a.tn, H, tile,
+      ActEpi{a.ben, nullptr, 0.f, a.act, st.pre_n, st.hn, H, none}, sm);
+}
+
+// Pooled rows and predictions of the graphs [g0, g1) of pack q.
+template <bool kBf16>
+__device__ void pool_head(const ModelArgs& a, const FwdState& st, int q,
+                          int g0, int g1) {
+  const int nb = q * a.tn, gb = q * a.tb;
   gather_sum<kBf16>(st.hn, a.tn, nb,
                     a.graph_nodes + static_cast<size_t>(gb) * a.DN, a.DN,
-                    nullptr, a.mean_pool != 0, a.tb, H, st.pooled);
+                    nullptr, a.mean_pool != 0, g0, g1, a.H, st.pooled);
   __syncthreads();
-  head<kBf16>(st.pooled, a.tb, H, a.wffn, a.bffn, st.preds);
+  head<kBf16>(st.pooled, g0, g1, a.H, a.wffn, a.bffn, st.preds);
+}
+
+// The whole forward of pack q in this block, step after step.  Ends with
+// the block synchronised.
+template <bool kBf16>
+__device__ void forward_pack(const ModelArgs& a, const FwdState& st, int q,
+                             SmemOf<kBf16>& sm) {
+  for (int tile = 0; tile < tiles_of(a.te, a.H); ++tile)
+    edge_init_tile<kBf16>(a, st, q, tile, sm);
+  __syncthreads();
+  for (int l = 0; l < a.L; ++l) {
+    message_rows<kBf16>(a, st, q, l, 0, a.te);
+    __syncthreads();
+    for (int tile = 0; tile < tiles_of(a.te, a.H); ++tile)
+      conv_tile<kBf16>(a, st, q, l, tile, sm);
+    __syncthreads();
+  }
+  readout_rows<kBf16>(a, st, q, 0, a.tn);
+  __syncthreads();
+  for (int tile = 0; tile < tiles_of(a.tn, a.H); ++tile)
+    readout_tile<kBf16>(a, st, q, tile, sm);
+  __syncthreads();
+  pool_head<kBf16>(a, st, q, 0, a.tb);
   __syncthreads();
 }
 

@@ -12,7 +12,9 @@
 // version of the same function are in ops/fused_model.py.
 //
 // Design.  The TPU kernel turns every gather into a one-hot matmul built in
-// VMEM from transposed index rows.  Here the block gathers rows straight
+// VMEM from transposed index rows.  Here the block runs every item of its
+// pack's forward (the phase functions of fused_model_common.cuh, which the
+// training kernel spreads over the whole grid) and gathers rows straight
 // through the packer's ELL arrays.  A te x H f32 tile is 400 KB at full
 // width, more than the 227 KB of shared memory a block may have, so the
 // edge states (h0, h, t), the node states (s, hn) and the pooled rows live
@@ -59,7 +61,7 @@ __global__ void __launch_bounds__(kThreads)
                     nullptr,          sc.h + eb * H,  sc.s + nb * H,
                     nullptr,          sc.hn + nb * H, sc.pooled + gb * H,
                     out + gb,         0,              0};
-  forward_pack<kBf16>(a, st, sm);
+  forward_pack<kBf16>(a, st, blockIdx.x, sm);
 }
 
 }  // namespace

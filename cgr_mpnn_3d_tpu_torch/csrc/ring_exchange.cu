@@ -18,12 +18,14 @@
 // shard); a block copies its share of one hop block of one shard with
 // 16-byte vector loads and stores when the source, the destination and
 // the length are 16-byte aligned (rows of H f32 or bf16 values with H a
-// multiple of 8), else byte by byte.  The n_ep source and n_ep output
-// pointers and the hop table (distance, byte offset, bytes) travel in the
-// kernel's parameters: no device allocation and no host-to-device copy per
-// call, and the per-shard tensors stay separate, as each rank of a
-// torch.distributed run will hold its own.  f32 and bf16 differ only in
-// the row's bytes.
+// multiple of 8), else byte by byte.  The outputs are one allocation
+// [n_ep, TW, H]: shard k's output starts `stride` bytes after shard
+// k - 1's.  The hop table (distance, byte offset, bytes) is built once per
+// spec and row width by the wrapper and passed by address; the n_ep source
+// pointers and the output's base travel in the kernel's parameters with
+// it: no device allocation and no host-to-device copy per call, and the
+// sources stay separate tensors, as each rank of a torch.distributed run
+// will hold its own.  f32 and bf16 differ only in the row's bytes.
 //
 // Bound.  Bytes: each hop block read once and written once,
 // 2 · n_ep · TW · H · elem over the card's memory rate; no arithmetic.
@@ -39,7 +41,8 @@ constexpr int kCopyThreads = 256;
 
 struct Table {
   const char* src[kMaxShards];
-  char* dst[kMaxShards];
+  char* dst;                  // shard k's output at dst + k · stride
+  long long stride;
   long long off[kMaxShards];  // byte offset of active hop i
   long long len[kMaxShards];  // bytes of active hop i
   int hop[kMaxShards];        // its distance h
@@ -50,7 +53,7 @@ __global__ void __launch_bounds__(kCopyThreads)
   const int i = blockIdx.y, k = blockIdx.z, h = t.hop[i];
   const int to = inverse ? ((k - h) % n + n) % n : (k + h) % n;
   const char* s = t.src[k] + t.off[i];
-  char* d = t.dst[to] + t.off[i];
+  char* d = t.dst + to * t.stride + t.off[i];
   const long long nbytes = t.len[i];
   const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
   const long long first =
@@ -67,30 +70,38 @@ __global__ void __launch_bounds__(kCopyThreads)
 
 }  // namespace
 
-// One launch: for each of the n_active hops (distance hops[i], byte offset
-// offs[i], bytes lens[i]) and each shard k, the block of srcs[k] goes to
-// dsts[(k ± hops[i]) mod n].  srcs and dsts are host arrays of n device
-// pointers; rows of the outputs outside every active block are not
-// written.
-extern "C" int cgr_ring_exchange(const void* const* srcs, void* const* dsts,
-                                 int n, const int* hops,
-                                 const long long* offs,
-                                 const long long* lens, int n_active,
-                                 int inverse, void* stream) {
+// One spec's hop table, built once by the wrapper (parallel/
+// rdma_exchange.py::_HopTable has the same layout): n shards, n_active
+// active hops, each of distance hop[i], byte offset off[i] and bytes
+// len[i]; stride is the bytes of one shard's output (TW rows).
+struct HopTable {
+  int n, n_active;
+  long long stride;
+  int hop[kMaxShards];
+  long long off[kMaxShards];
+  long long len[kMaxShards];
+};
+
+// One launch: for each active hop i and each shard k, the block of srcs[k]
+// goes to shard (k ± hop[i]) mod n of the output at dst.  srcs is a host
+// array of n device pointers; rows of the output outside every active
+// block are not written.
+extern "C" int cgr_ring_exchange(const HopTable* ht, const void* const* srcs,
+                                 void* dst, int inverse, void* stream) {
+  const int n = ht->n, n_active = ht->n_active;
   if (n < 1 || n > kMaxShards || n_active < 0 || n_active >= kMaxShards)
     return static_cast<int>(cudaErrorInvalidValue);
   if (n_active == 0) return 0;
-  Table t{};
+  Table t;
   long long longest = 0;
-  for (int k = 0; k < n; ++k) {
-    t.src[k] = static_cast<const char*>(srcs[k]);
-    t.dst[k] = static_cast<char*>(dsts[k]);
-  }
+  for (int k = 0; k < n; ++k) t.src[k] = static_cast<const char*>(srcs[k]);
+  t.dst = static_cast<char*>(dst);
+  t.stride = ht->stride;
   for (int i = 0; i < n_active; ++i) {
-    t.hop[i] = hops[i];
-    t.off[i] = offs[i];
-    t.len[i] = lens[i];
-    longest = lens[i] > longest ? lens[i] : longest;
+    t.hop[i] = ht->hop[i];
+    t.off[i] = ht->off[i];
+    t.len[i] = ht->len[i];
+    longest = t.len[i] > longest ? t.len[i] : longest;
   }
   // about four 16-byte chunks per thread for the longest block
   const long long per_block = 16LL * kCopyThreads * 4;

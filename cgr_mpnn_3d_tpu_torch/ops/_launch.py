@@ -94,7 +94,9 @@ def drop_table(train: bool, seeds, dropout_ps, device):
     table = np.stack([seeds.astype(np.uint32).view(np.int32),
                       np.asarray(thr, np.uint32).view(np.int32),
                       scale.view(np.int32)])
-    return torch.from_numpy(table).to(device)
+    # not blocking: the copy of a pageable host buffer is staged before the
+    # call returns, and a blocking one would wait for the card's queue
+    return torch.from_numpy(table).to(device, non_blocking=True)
 
 
 def mat_index(mat_dtype: str) -> int:

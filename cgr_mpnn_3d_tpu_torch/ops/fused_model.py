@@ -64,7 +64,7 @@ __all__ = ["fused_model_forward", "fused_model_forward_ref",
            "fused_model_train", "fused_model_train_ref", "fused_model_vjp",
            "fused_model_vjp_ref", "fused_model", "GRAD_NAMES", "launches",
            "train_launches", "vjp_launches", "bf16_launches",
-           "bf16_train_launches", "bf16_vjp_launches"]
+           "bf16_train_launches", "bf16_vjp_launches", "bwd_grid"]
 
 # launches of each CUDA kernel by its wrapper (nothing else adds here):
 # the forward (K3f), the training step (K2) and the VJP (K3b), with f32
@@ -238,6 +238,24 @@ def _lib(name: str) -> ctypes.CDLL:
     return library(name, _SIGNATURES[name])
 
 
+def bwd_grid(p: int, te: int, H: int, mat_dtype: str = "float32",
+             device="cuda") -> tuple[int, int, int]:
+    """(blocks, blocks per SM, SMs) of the cooperative grid that K2 and K3b
+    launch at ``mat_dtype`` on ``p`` packs of ``te`` edge rows at width
+    ``H`` on ``device`` (a CUDA device): one block per SM while the largest
+    tile phases fit the SMs, else two."""
+    lib = _lib("fused_model_bwd")
+    lib.cgr_fused_model_bwd_grid.argtypes = [I32] * 4 + [PTR, PTR]
+    lib.cgr_fused_model_bwd_grid.restype = I32
+    per_sm, sms = ctypes.c_int(), ctypes.c_int()
+    with torch.cuda.device(device):
+        grid = lib.cgr_fused_model_bwd_grid(
+            MAT_DTYPES.index(mat_dtype), p, te, H, ctypes.byref(per_sm),
+            ctypes.byref(sms))
+    raise_on(lib, max(0, -grid), "fused_model_bwd grid")
+    return grid, per_sm.value, sms.value
+
+
 def _dims(x, e, graph_nodes, edge_nbr, wc, p: int) -> list[int]:
     NT, F = x.shape
     ET, Fe = e.shape
@@ -347,10 +365,12 @@ def fused_model_train(inputs, adjoint, labels, mask, *, p: int,
     """The training step's compute: (sse, grads) with grads the 11 weight
     gradients in :data:`GRAD_NAMES` order, shaped like the weights.
 
-    CUDA tensors launch ``csrc/fused_model_bwd.cu`` (K2: one block per pack
-    replays the forward, derives dpred = 2·mask·(pred − y) and the masked
-    SSE, and writes its pack's gradients; a second launch sums them over
-    packs) or raise; CPU tensors take :func:`fused_model_train_ref`.  With
+    CUDA tensors launch ``csrc/fused_model_bwd.cu`` (K2: one cooperative
+    grid over the whole card, :func:`bwd_grid`, replays the forward,
+    derives dpred = 2·mask·(pred − y) and the masked SSE, and writes each
+    pack's gradients, phase after phase, each phase's tiles and row ranges
+    of every pack spread over the grid; its last phase sums them over packs
+    in pack order) or raise; CPU tensors take :func:`fused_model_train_ref`.  With
     ``mat_dtype="bfloat16"`` the replay and every backward product round
     their operands to bf16 (the kernel's bf16 instantiation); the partial
     gradients and their sum stay f32."""

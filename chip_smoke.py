@@ -20,7 +20,10 @@ Phases (any failure raises, and the script exits non-zero):
    forward in train mode, the training step (K2) and the VJP (K3b), at full
    width with dropout 0.1 on the synthetic batch and on the first training
    batch of the corpus, and at small width for SiLU and GELU with mean/mean
-   and learnable skips; times and f32 bounds;
+   and learnable skips; times and f32 bounds; K2's and K3b's cooperative
+   grid (blocks, blocks per SM), and the phase timer
+   ``tools/k2_phases.py`` at p = 4 and 436 packs, f32 and bf16 (its
+   stamped build, started beside the others, equal to the shipped one);
 5. serving: a seeded full-width checkpoint in the ``.npz`` + JSON format
    serves ``examples/demo.csv`` (with synthetic descriptors) through
    ``activation_energy_prediction(device="cuda")`` once as a batch and as 10
@@ -138,7 +141,8 @@ Phases (any failure raises, and the script exits non-zero):
    on the wired batch's wire buffers at n_ep 2 and 4, f32 and bf16, both
    ways and backward, bit for bit, timed beside the copies and one
    ``index_select`` (CUDA events, and the device time of K12 and of
-   ``index_select`` under torch.profiler); the wired EP step at n_ep 2
+   ``index_select`` under torch.profiler), with the wrapper's host time
+   step by step (``tools/k12_host.py``); the wired EP step at n_ep 2
    through the ring copies, K12 (equal bit for bit, one launch per
    exchange, also at n_ep 4), bf16
    (against f32 within tests/test_bf16.py's bounds) and --ep_overlap (f32
@@ -167,6 +171,7 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from pathlib import Path
 
@@ -190,6 +195,27 @@ def card_line() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], check=True, capture_output=True,
         text=True, timeout=60).stdout.strip().splitlines()[0]
+
+
+def in_background(fn):
+    """Start ``fn()`` in a thread; returns a call that waits for it and
+    gives its result, or raises what it raised."""
+    out: dict = {}
+
+    def run():
+        try:
+            out["value"] = fn()
+        except BaseException as e:  # handed to the waiting call
+            out["error"] = e
+    t = threading.Thread(target=run)
+    t.start()
+
+    def wait():
+        t.join()
+        if "error" in out:
+            raise out["error"]
+        return out["value"]
+    return wait
 
 
 def check(ok: bool, msg: str) -> None:
@@ -228,6 +254,17 @@ def time_ms(fn, n: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / n
+
+
+def alternating_ms(fns: dict, calls: int, rounds: int = 5) -> dict:
+    """{name: [ms a call of each round]}: ``rounds`` rounds, each timing
+    every function of ``fns`` over ``calls`` calls between two CUDA events
+    in turn, so a slow spell of the shared host falls on all of them."""
+    out = {name: [] for name in fns}
+    for _ in range(rounds):
+        for name, fn in fns.items():
+            out[name].append(time_ms(fn, calls))
+    return out
 
 
 def bound(cost, bf16: bool) -> tuple[float, str]:
@@ -496,6 +533,41 @@ def train_kernels_vs_plain(cfg_kw: dict, spec, batch, seed: int,
                        forward_cost(args) if name == "fwd_train"
                        else train_cost(args, adj))
         out[name] = entry
+    return out
+
+
+def k2_grid_phase(card: str) -> dict:
+    """The cooperative grid K2 and K3b launch, at each mat_dtype, for the
+    training batch (p = 4) and the full-width synthetic batch (436 packs)
+    of the README model: more blocks than the 4 packs of a training
+    batch."""
+    from cgr_mpnn_3d_tpu_torch.ops import fused_model as fm
+    out = {}
+    for md in ("float32", "bfloat16"):
+        for p in (4, 436):
+            grid, per_sm, sms = fm.bwd_grid(p, 256, 400, md)
+            out[md, p] = grid
+            print(f"K2/K3b {md}, {p} packs: one cooperative grid of {grid} "
+                  f"blocks ({per_sm} per SM x {sms} SMs) [{card}]")
+        check(out[md, 4] > 4, f"K2 {md} launches {out[md, 4]} blocks at "
+                              f"p = 4")
+    return out
+
+
+def k2_phases_phase(card: str, stamped_build) -> dict:
+    """tools/k2_phases.py at its defaults (p = 4 and 436 packs, f32 and
+    bf16) once its stamped build (``stamped_build``, started beside the
+    others) is ready: every phase stamped, the stamped build's outputs
+    equal to the shipped build's."""
+    from cgr_mpnn_3d_tpu_torch.tools import k2_phases
+    stamped_build()
+    print(f"k2_phases [{card}]:")
+    out = k2_phases.main([])
+    for key, r in out.items():
+        check(r["equal"], f"k2_phases {key}: the stamped build differs")
+        check({k.split("[")[0] for k in r["phases"]}
+              == set(k2_phases.PHASES[1:]),
+              f"k2_phases {key}: phases {sorted(r['phases'])}")
     return out
 
 
@@ -2947,12 +3019,15 @@ def exchange_phase(seed: int, repeats: int, card: str) -> dict:
     autograd backward (the inverse exchange) bit for bit, one launch per
     exchange; times of the kernel, the plain version and the library call
     (one ``index_select`` over the stacked buffers through a row map built
-    beforehand), the device time per call of the kernel and of the
-    library call under torch.profiler, and the bytes bound
-    2 · n_ep · TW · H · elem over PEAK_BYTES."""
+    beforehand; the kernel and the library call are timed in turn, the
+    median of 5 rounds of 200 calls each), the device time per call of
+    the kernel and of the library call under torch.profiler, the
+    wrapper's host time step by step (tools/k12_host.py), and the bytes
+    bound 2 · n_ep · TW · H · elem over PEAK_BYTES."""
     import torch
     from cgr_mpnn_3d_tpu_torch.parallel import ep_pack as ep
     from cgr_mpnn_3d_tpu_torch.parallel import rdma_exchange as rx
+    from cgr_mpnn_3d_tpu_torch.tools import k12_host
     out = {}
     for n_ep in (2, 4):
         spec, bufs32 = wire_buffers(seed, n_ep)
@@ -2999,8 +3074,16 @@ def exchange_phase(seed: int, repeats: int, card: str) -> dict:
             _timed(entry, lambda: rx.ring_exchange_rdma(bufs, caps),
                    lambda: rx._ring_move(bufs, caps, False), repeats,
                    (0.0, 0.0, float(nbytes)))
-            entry["library_ms"] = time_ms(
-                lambda: stacked.index_select(0, row_map), repeats)
+            # K12 and the library call in turn, 5 rounds of 200 calls:
+            # both are host-bound, and the host is shared
+            rounds = alternating_ms({
+                "K12": lambda: rx.ring_exchange_rdma(bufs, caps),
+                "index_select": lambda: stacked.index_select(0, row_map)},
+                200)
+            entry["ms"] = statistics.median(rounds["K12"])
+            entry["library_ms"] = statistics.median(rounds["index_select"])
+            entry["rounds"] = rounds
+            entry["host_us"] = k12_host.split(bufs, caps, 2000)
             # the card's own time per call, beside the event times (which
             # hold the wrappers' host work when it exceeds the kernel's)
             for key, fn in (("device_ms", lambda: rx.ring_exchange_rdma(
@@ -3025,6 +3108,14 @@ def exchange_phase(seed: int, repeats: int, card: str) -> dict:
                   f"event factor {entry['ms'] / entry['library_ms']:.3f}; "
                   f"host share of the kernel's event time "
                   f"{1 - entry['device_ms'] / entry['ms']:.3f} [{card}]")
+            print(f"K12 {name} wrapper host time, µs a call "
+                  f"(tools/k12_host.py): " + "; ".join(
+                      f"{k} {v:.3f}" for k, v in entry["host_us"].items())
+                  + f"; event times, 5 alternating rounds of 200 calls: "
+                  f"K12 {[round(1e3 * t, 3) for t in entry['rounds']['K12']]}"
+                  f", index_select "
+                  f"{[round(1e3 * t, 3) for t in entry['rounds']['index_select']]}"
+                  f" [{card}]")
     return out
 
 
@@ -3361,6 +3452,9 @@ def main(argv=None) -> int:
     torch.backends.cudnn.allow_tf32 = False
     print("tf32: matmul False, cudnn False")
 
+    from cgr_mpnn_3d_tpu_torch.tools import k2_phases
+    stamped_build = in_background(
+        lambda: k2_phases.variant({k2_phases.DEFINE: None}))
     t0 = time.perf_counter()
     libs = _build.build_all()
     print(f"build: {len(libs)} CUDA sources in "
@@ -3389,6 +3483,10 @@ def main(argv=None) -> int:
     bf16_k = bf16_kernels_vs_plain(full_train, spec, batch, args.seed,
                                    args.repeats)
     print_bf16("full width, dropout 0.1, synthetic", bf16_k, card)
+    k2_grid_phase(card)
+    t0 = time.perf_counter()
+    k2_phases_phase(card, stamped_build)
+    print(f"phase wall: tools/k2_phases.py {time.perf_counter() - t0:.1f} s")
     for act in ("SiLU", "GELU"):
         k = train_kernels_vs_plain(dict(full_train, activation=act), spec,
                                    batch, args.seed, 0)

@@ -228,6 +228,161 @@ def test_train_kernel_is_deterministic(cuda):
     assert all(torch.equal(x, y) for x, y in zip(a[1], b[1]))
 
 
+# -- K2 and K3b as one cooperative grid over the card ----------------------
+
+def _packs_case(cuda, p, act, aggr, pooling, drop, seed=3):
+    """_train_case's model (depth 3, hidden 40, 78 node features) on the
+    fewest synthetic graphs that fill exactly ``p`` packs (p = "many": more
+    packs than the grid's blocks take in one round of a tile phase)."""
+    def packed(graphs):
+        spec = plan_spec(graphs, te=256, tn=128, tb=16)
+        n = packs_needed(graphs, spec)
+        while not place_graphs(graphs, spec.with_packs(n)):
+            n += 1
+        return spec.with_packs(n)
+
+    rng = np.random.default_rng(seed)
+    if p == "many":     # 4 tiles a pack at hidden 40
+        graphs = synthetic_graphs(
+            6 * (fm.bwd_grid(10**4, 256, 40, device=cuda)[0] // 4 + 20), rng,
+            node_feat_dim=78)
+        spec = packed(graphs)
+    else:
+        pool = synthetic_graphs(8 * p, rng, node_feat_dim=78)
+        graphs = next(pool[:k] for k in range(1, len(pool) + 1)
+                      if packed(pool[:k]).p == p)
+        spec = packed(graphs)
+    batch = to_device(pack_graphs(graphs, [0.0] * len(graphs), spec), cuda)
+    cfg = CGRMPNNConfig(num_node_features=78, num_edge_features=14,
+                        depth=3, hidden_sizes=(40,) * 3,
+                        dropout_ps=(drop,) * 3, activation=act, aggr=aggr,
+                        pooling=pooling, use_learnable_skip=True)
+    model = init_params(cfg, torch.Generator().manual_seed(seed), cuda)
+    with torch.no_grad():
+        for w, v in zip(model.skip_weights, (0.8, -0.3, 1.2)):
+            w.fill_(v)
+        args = kernel_inputs(model, batch)
+    labels = torch.randn(batch.labels.shape, generator=torch.Generator()
+                         .manual_seed(seed)).to(cuda)
+    kw = dict(p=spec.p, act=ACTIVATIONS[act], aggr=aggr, pooling=pooling,
+              train=drop > 0, seeds=[7, 2**31 - 2, 12345] if drop else None,
+              dropout_ps=(drop,) * 3 if drop else ())
+    return spec, batch, args, adjoint_inputs(batch), labels, kw
+
+
+PACK_CASES = [(1, "ReLU", "add", "add", 0.1), (4, "ReLU", "mean", "mean", 0.0),
+              (7, "GELU", "add", "mean", 0.3), ("many", "ReLU", "add", "add",
+                                                 0.1),
+              ("many", "SiLU", "mean", "add", 0.0)]
+
+
+@pytest.mark.parametrize("mat_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("p,act,aggr,pooling,drop", PACK_CASES)
+def test_k2_k3b_grid_match_plain(cuda, p, act, aggr, pooling, drop,
+                                 mat_dtype):
+    """K2 and K3b, one cooperative grid whatever p, against their plain
+    versions at p = 1, 4, 7 and more packs than one round of the grid:
+    f32 at 1e-4 (ReLU by the float64 rule), bf16 within rel-L2 5e-3 and
+    cosine 0.999 of the bf16 plain version and by its share against the
+    f32 plain version; a rerun bit for bit."""
+    spec, batch, args, adj, labels, kw = _packs_case(cuda, p, act, aggr,
+                                                     pooling, drop)
+    if p != "many":
+        assert spec.p == p
+    mask = batch.graph_mask
+    dpred = labels * mask
+    kw = dict(kw, mat_dtype=mat_dtype)
+    sse, grads = fm.fused_model_train(args, adj, labels, mask, **kw)
+    again = fm.fused_model_train(args, adj, labels, mask, **kw)
+    vjp = fm.fused_model_vjp(args, adj, dpred, **kw)
+    vjp_again = fm.fused_model_vjp(args, adj, dpred, **kw)
+    sse_ref, grads_ref = fm.fused_model_train_ref(args, adj, labels, mask,
+                                                  **kw)
+    vjp_ref = fm.fused_model_vjp_ref(args, adj, dpred, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(sse, again[0])
+    assert all(torch.equal(x, y) for x, y in zip(grads, again[1]))
+    assert all(torch.equal(x, y) for x, y in zip(vjp, vjp_again))
+    if mat_dtype == "float32":
+        assert abs(float(sse) - float(sse_ref)) <= 1e-4 * abs(float(sse_ref))
+        _assert_grads(act, grads, grads_ref, lambda: fm.fused_model_train_ref(
+            _f64(args), adj, labels.double(), mask.double(), **kw)[1])
+        _assert_grads(act, vjp, vjp_ref, lambda: fm.fused_model_vjp_ref(
+            _f64(args), adj, dpred.double(), **kw))
+        return
+    f32 = dict(kw, mat_dtype="float32")
+    grads32 = fm.fused_model_train_ref(args, adj, labels, mask, **f32)[1]
+    vjp32 = fm.fused_model_vjp_ref(args, adj, dpred, **f32)
+    assert _rel_l2([sse], [sse_ref]) <= 5e-3
+    for got, want, want32 in ((grads, grads_ref, grads32),
+                              (vjp, vjp_ref, vjp32)):
+        assert _cos(got, want) >= 0.999
+        assert _share(got, want, want32) <= 0.5
+
+
+def test_k2_grid_size_does_not_change_the_result(cuda):
+    """The shipped build takes one block per SM at a training batch's four
+    packs (more blocks than packs) and two at a large batch; builds of the
+    same source with a 7-block grid, with the phase clock, and forced to
+    one or two blocks per SM give its outputs bit for bit (f32 and bf16,
+    K2 and K3b, more packs than one round of the grid)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from cgr_mpnn_3d_tpu_torch.ops import _build
+    from cgr_mpnn_3d_tpu_torch.tools import k2_phases
+    spec, batch, args, adj, labels, kw = _packs_case(cuda, "many", "ReLU",
+                                                     "add", "add", 0.1)
+    for md in ("float32", "bfloat16"):
+        grid, per_sm, sms = fm.bwd_grid(4, 256, 400, md, cuda)
+        assert (grid, per_sm) == (sms, 1) and grid > 4
+        grid, per_sm, sms = fm.bwd_grid(spec.p, 256, 40, md, cuda)
+        assert (grid, per_sm) == (2 * sms, 2) and spec.p * 4 > grid
+    mask = batch.graph_mask
+
+    def run():
+        return [fm.fused_model_train(args, adj, labels, mask,
+                                     **dict(kw, mat_dtype=md))
+                for md in ("float32", "bfloat16")] + [
+            fm.fused_model_vjp(args, adj, labels * mask,
+                               **dict(kw, mat_dtype=md))
+            for md in ("float32", "bfloat16")]
+
+    def flat(res):
+        return [res[0][0], *res[0][1], res[1][0], *res[1][1], *res[2],
+                *res[3]]
+    shipped = _build.load("fused_model_bwd")
+    want = flat(run())
+    defines = [{"CGR_GRID_BLOCKS": 7}, {k2_phases.DEFINE: None},
+               {"CGR_BWD_BLOCKS_PER_SM": 1}, {"CGR_BWD_BLOCKS_PER_SM": 2}]
+    with ThreadPoolExecutor(len(defines)) as pool:
+        libs = list(pool.map(k2_phases.variant, defines))
+    for d, lib in zip(defines, libs):
+        _build._libs["fused_model_bwd"] = lib
+        try:
+            got = flat(run())
+        finally:
+            _build._libs["fused_model_bwd"] = shipped
+        assert all(torch.equal(x, y) for x, y in zip(got, want)), d
+
+
+def test_k2_phases_tool(cuda, capsys):
+    """tools/k2_phases.py at a small size: every phase of the table is
+    stamped, the stamped build equals the shipped one, and the wrapper's
+    library is the shipped one again afterwards."""
+    from cgr_mpnn_3d_tpu_torch.ops import _build
+    from cgr_mpnn_3d_tpu_torch.tools import k2_phases
+    shipped = _build.load("fused_model_bwd")
+    out = k2_phases.main(["--small", "20", "--graphs", "60", "--repeats",
+                          "2"])
+    assert _build.load("fused_model_bwd") is shipped
+    assert len(out) == 4 and all(r["equal"] for r in out.values())
+    for r in out.values():
+        names = {k.split("[")[0] for k in r["phases"]}
+        assert names == set(k2_phases.PHASES[1:])
+        assert sum(r["phases"].values()) == pytest.approx(r["span_ms"])
+    assert "phases (ms, share of the span)" in capsys.readouterr().out
+
+
 # -- the layered kernels (K7, K5, K4) ---------------------------------------
 
 def _held(act, got, want, want64):
@@ -1295,6 +1450,42 @@ def test_ring_exchange_kernel_matches_plain(cuda, caps, dtype):
                                  leaves) for out in outs]
     assert all(torch.equal(x, y) for x, y in zip(*grads))
     assert rx.ring_exchange_rdma(bufs, (0,) * (n - 1))[0] is bufs[0]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ring_exchange_allocates_anew_each_call(cuda, dtype):
+    """K12's outputs are views of one allocation per call: they do not
+    overlap, a second call of the same spec leaves the first call's
+    outputs as they were, and the backward is the inverse exchange."""
+    from cgr_mpnn_3d_tpu_torch.parallel import rdma_exchange as rx
+    caps, H = (8, 0, 16), 40
+    gen = torch.Generator().manual_seed(5)
+    bufs = [torch.randn((24, H), generator=gen).to(dtype).to(cuda)
+            for _ in range(4)]
+    first = rx.ring_exchange_rdma(bufs, caps)
+    kept = [t.clone() for t in first]
+    spans = sorted((t.data_ptr(), t.data_ptr() + t.numel() * t.element_size())
+                   for t in first)
+    assert all(a[1] <= b[0] for a, b in zip(spans, spans[1:]))
+    assert first[0].untyped_storage().data_ptr() == \
+        first[3].untyped_storage().data_ptr()
+    other = [torch.randn((24, H), generator=gen).to(dtype).to(cuda)
+             for _ in range(4)]
+    second = rx.ring_exchange_rdma(other, caps)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(first, kept))
+    assert all(a.data_ptr() != b.data_ptr() for a, b in zip(first, second))
+    assert all(torch.equal(a, b) for a, b in zip(
+        second, rx._ring_move(other, caps, False)))
+    leaves = [b.clone().requires_grad_() for b in bufs]
+    cots = [torch.randn((24, H), generator=gen).to(dtype).to(cuda)
+            for _ in range(4)]
+    before = rx.bwd_launches
+    grads = torch.autograd.grad(rx.ring_exchange_rdma(leaves, caps), leaves,
+                                cots)
+    assert rx.bwd_launches == before + 1
+    assert all(torch.equal(g, w) for g, w in zip(
+        grads, rx._ring_move(cots, caps, True)))
 
 
 @pytest.mark.parametrize("aggr,n_ep", [("add", 4), ("mean", 2)])

@@ -97,6 +97,79 @@ def test_exchange_backward_is_the_inverse_exchange(dtype):
         trx._launch(bufs[:3], caps, False)
 
 
+def _bufs(n=4, tw=24, H=12, **kw):
+    gen = torch.Generator().manual_seed(n)
+    return [torch.randn((tw, H), generator=gen, **kw) for _ in range(n)]
+
+
+def _transposed(b):
+    return b.t().contiguous().t()
+
+
+@pytest.mark.parametrize("case,error,match", [
+    ("count", ValueError, "3 buffers for 3 hops"),
+    ("shards", ValueError, "at most 32 shards"),
+    ("shape first", ValueError, "buffer 0 has shape"),
+    ("shape", ValueError, "buffer 2 has shape"),
+    ("rank", ValueError, "buffer 1 has shape"),
+    ("dtype first", TypeError, "buffer 0 is torch.float16"),
+    ("dtype", TypeError, "buffer 3 is torch.bfloat16"),
+    ("device", ValueError, "buffer 1 is on meta, not cpu"),
+    ("contiguous", ValueError, "buffer 2 is not contiguous")])
+def test_exchange_check_raises_what_it_raised(case, error, match):
+    """K12's single-pass check: a buffer that differs from the first in
+    shape, dtype, device or layout, a wrong count and more than 32 shards
+    raise what the per-buffer check raised; good buffers pass."""
+    caps, bufs = (8, 0, 16), _bufs()
+    trx._check(bufs, caps)
+    trx._check([b.bfloat16() for b in bufs], caps)
+    if case == "count":
+        bufs = bufs[:3]
+    elif case == "shards":
+        caps, bufs = (8,) * 32, _bufs(33, tw=256)
+    elif case == "shape first":
+        bufs[0] = bufs[0][:20]
+    elif case == "shape":
+        bufs[2] = torch.zeros(24, 13)
+    elif case == "rank":
+        bufs[1] = bufs[1].reshape(24, 3, 4)
+    elif case == "dtype first":
+        bufs = [b.half() for b in bufs]
+    elif case == "dtype":
+        bufs[3] = bufs[3].bfloat16()
+    elif case == "device":
+        bufs[1] = torch.empty(24, 12, device="meta")
+    else:
+        bufs[2] = _transposed(bufs[2])
+    with pytest.raises(error, match=match):
+        trx._check(bufs, caps)
+    if case in ("count", "shards"):
+        with pytest.raises(error, match=match):
+            trx._launch(bufs, caps, False)
+
+
+@pytest.mark.parametrize("caps", [(8,), (8, 0, 0), (0, 8, 0, 0, 0, 0, 8),
+                                  (24, 8, 16), (0, 0), ()])
+def test_exchange_plan_cache_matches_active_hops(caps):
+    """The cached active hops and hop table of a spec are what
+    _active_hops gives, offsets and lengths in bytes of the row; the same
+    spec gives the same plan object, and caps as a list or tuple alike."""
+    assert list(trx._active(caps)) == trx._active_hops(caps)
+    assert trx._active(caps) is trx._active(tuple(caps))
+    assert trx.ring_exchange_rdma(_bufs(len(caps) + 1, tw=sum(caps)),
+                                  list(caps)) is not None
+    if not trx._active(caps):
+        return
+    plan = trx._plan(caps, 48)
+    assert plan is trx._plan(caps, 48) and plan.tw == sum(caps)
+    t = plan.keep
+    assert (t.n, t.n_active, t.stride) == (len(caps) + 1,
+                                          len(trx._active(caps)),
+                                          sum(caps) * 48)
+    assert [(t.hop[i], t.off[i] // 48, t.len[i] // 48)
+            for i in range(t.n_active)] == trx._active_hops(caps)
+
+
 def _port_model(seed=4, drop=0.2, **kw):
     cfg = CGRMPNNConfig(num_node_features=NF, num_edge_features=FE,
                         depth=DEPTH, hidden_sizes=(H,) * DEPTH,

@@ -272,3 +272,24 @@ def test_train_mode_checks(packed):
         with pytest.raises(ValueError, match="labels has shape"):
             fm.fused_model_train(args, adjoint_inputs(tb), tb.labels[:-1],
                                  tb.graph_mask, **kkw)
+
+
+def test_k2_phases_tool_matches_the_source():
+    """tools/k2_phases.py's define and phase table are the kernel's: the
+    phase clock sits under ``#ifdef DEFINE`` (the shipped build, which no
+    flag of ops/_build.py defines, stamps nothing), the source's table
+    equals PHASES, and the stamps run through its ids in order."""
+    import re
+    from cgr_mpnn_3d_tpu_torch.ops import _build
+    from cgr_mpnn_3d_tpu_torch.tools import k2_phases
+    src = (_build.CSRC / "fused_model_bwd.cu").read_text()
+    start = src.index(f"#ifdef {k2_phases.DEFINE}\n")
+    clock = src[start:src.index("#endif", start)]
+    table = re.search(r"kPhaseNames\[\] = \{(.*?)\};", clock, re.S).group(1)
+    assert tuple(re.findall(r'"([^"]+)"', table)) == k2_phases.PHASES
+    assert "#define CGR_STAMP(id, layer) phase_stamp(id, layer)" in clock
+    assert "#else\n#define CGR_STAMP(id, layer)\n#endif" in src
+    ids = [int(i) for i in re.findall(r"CGR_STAMP\((\d+), ", src)]
+    assert ids == list(range(len(k2_phases.PHASES)))
+    assert not any(k2_phases.DEFINE in f for f in _build.NVCC_FLAGS)
+    assert "getenv" not in src

@@ -284,3 +284,24 @@ def test_cli_train_and_test_run_on_the_cpu(tmp_path, monkeypatch):
                          "--data_path", str(data), "--device", "cpu",
                          "--save_result"])
     assert out["test_losses"] == pytest.approx(res["test_losses"])
+
+
+@pytest.mark.parametrize("flags,text", [
+    (["--dp", "2"], "ROADMAP.md section 1.5, data parallel and multi-host"),
+    (["--dp", "2", "--ep", "2"], "section 1.5, data parallel and multi-host;"
+                                 " with --ep, section 1.6 item 5"),
+    (["--reuse_packs"], "ROADMAP.md section 1.3, the loader's other modes"),
+    (["--loader_workers", "2", "--ep", "2"],
+     "section 1.3, the loader's other modes; with --ep, section 1.6 item 4")])
+def test_cli_refusals_name_their_roadmap_items(flags, text):
+    """cli/train.py refuses the unported flags before any data is read,
+    naming the ROADMAP.md item: data parallelism is section 1.5 (with
+    --ep also 1.6 item 5), the loader's modes 1.3 (with --ep also 1.6
+    item 4); no message cites edge partitioning without --ep."""
+    from cgr_mpnn_3d_tpu_torch.cli import train as cli_train
+    with pytest.raises(NotImplementedError) as err:
+        cli_train.main(["-ne", "1", "--data_path", "missing", "--device",
+                        "cpu"] + flags)
+    assert text in str(err.value)
+    if "--ep" not in flags:
+        assert "1.6" not in str(err.value)
