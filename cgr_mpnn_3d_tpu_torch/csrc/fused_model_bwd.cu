@@ -27,8 +27,10 @@
 // * Two instantiations of each mat_dtype: one block per SM (no register
 //   spill) while the largest tile phases fit the SMs, as at a training
 //   batch of four packs; two per SM (128 registers) at a larger batch,
-//   where more blocks hide more latency.
-// * Phases (L conv layers; the names of the phase clock below):
+//   where more blocks hide more latency.  The dealing of items, the
+//   forward's phases (the replay, shared with K3f), the instantiation's
+//   choice, the grid and the phase clock are in fused_model_grid.cuh.
+// * Phases (L conv layers; the names of the phase clock):
 //     edge_init          h0, pre0 tiles; the mean scales of the pack
 //     gather[l], conv[l] messages t_l; t_l·Wc[l] tiles -> pre_l, h
 //     readout gather     s;  readout  s·Ws + x·Wxn tiles -> pre_n, hn
@@ -89,9 +91,7 @@
 // tensor-core work (bound 15x lower than f32's), and the staging loops, the
 // gathers and the elementwise passes over the pack's states set the time.
 
-#include <cooperative_groups.h>
-
-#include "fused_model_common.cuh"
+#include "fused_model_grid.cuh"
 
 namespace {
 
@@ -119,19 +119,6 @@ struct GradLayout {
     total = o;
   }
 };
-
-// Rows of an elementwise or gather item: few at a small batch, so that
-// the items of a few packs spread over the grid, more at a large one, so
-// that their fixed costs stay small.  A function of the batch alone: the
-// column sums' chunking, and so the result, does not depend on the grid.
-constexpr int kRowsSmall = 4, kRowsLarge = 16;
-__host__ __device__ inline int rows_per_item(int p) {
-  return p <= 32 ? kRowsSmall : kRowsLarge;
-}
-
-__host__ __device__ inline int row_items(int n, int rows) {
-  return (n + rows - 1) / rows;
-}
 
 // Row chunks of a pack's column and skip partials, at most.
 __host__ __device__ inline int chunks_of(int te, int tn) {
@@ -174,35 +161,6 @@ struct BwdArgs {
   float *scratch, *partial, *out;
   int p;
 };
-
-#ifdef CGR_PHASE_CLOCK
-// The phase clock of tools/k2_phases.py (never in the shipped build):
-// thread 0 of block 0 stamps %globaltimer after each grid barrier.
-constexpr int kMaxStamps = 256;
-__device__ unsigned long long phase_ns[kMaxStamps];
-__device__ int phase_id[kMaxStamps];
-__device__ int phase_count;
-const char* const kPhaseNames[] = {
-    "start", "edge_init", "gather", "conv", "readout gather", "readout",
-    "pool+head", "pool adjoint", "readout grads", "adjoint+act", "dt",
-    "edge_init adjoint", "edge_init grads", "pack sum"};
-__device__ void phase_stamp(int id, int layer) {
-  if (blockIdx.x == 0 && threadIdx.x == 0) {
-    unsigned long long t;
-    asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
-    if (id == 0) phase_count = 0;
-    const int i = phase_count;
-    if (i < kMaxStamps) {
-      phase_ns[i] = t;
-      phase_id[i] = id * 256 + (layer < 0 ? 255 : layer);
-      phase_count = i + 1;
-    }
-  }
-}
-#define CGR_STAMP(id, layer) phase_stamp(id, layer)
-#else
-#define CGR_STAMP(id, layer)
-#endif
 
 // One pack's scratch and partial slice.
 struct Pack {
@@ -440,13 +398,6 @@ __device__ void weight_tile(const ModelArgs& a, const Pack& k,
         StoreEpi{k.part + gl.dwc + static_cast<size_t>(l) * H * H, H}, sm);
 }
 
-// Calls fn(it) for this block's items of a phase of n items: b, b + grid,
-// b + 2·grid, ...
-template <class Fn>
-__device__ __forceinline__ void items(int n, Fn&& fn) {
-  for (int it = blockIdx.x; it < n; it += gridDim.x) fn(it);
-}
-
 // Weight tiles that a tile phase of n items takes (the rest go to the
 // next phase, beside its rows): at a large batch (four rounds of the grid
 // or more) all `tiles`; else as many as fill the last round's free slots
@@ -503,61 +454,21 @@ __global__ void __launch_bounds__(kThreads, kBlocks)
             t_eh = tiles_of(a.Fe, H), r_e = row_items(te, rows),
             r_n = row_items(tn, rows);
   auto pack = [&](int q) { return Pack(a, b, sl, gl, q); };
-  // rows [r0, r1) of row item j of n rows
-  auto span = [&](int j, int n, int& r0, int& r1) {
-    r0 = j * rows;
-    r1 = r0 + rows < n ? r0 + rows : n;
-  };
   CGR_STAMP(0, -1);
 
-  // replay: edge_init tiles and the mean scales
-  items(p * (t_e + 1), [&](int it) {
-    const int q = it / (t_e + 1), j = it % (t_e + 1);
-    const Pack k = pack(q);
-    if (j < t_e) {
-      edge_init_tile<kBf16>(a, k.fwd(a), q, j, sm);
-    } else {
-      row_scales<kBf16>(a.edge_nbr + static_cast<size_t>(k.eb) * a.D, a.D,
-                        k.eb, te, te, a.mean_aggr != 0, k.escale);
-      row_scales<kBf16>(a.node_inc + static_cast<size_t>(k.nb) * a.D, a.D,
-                        k.eb, te, tn, a.mean_aggr != 0, k.nscale);
-      row_scales<kBf16>(a.graph_nodes + static_cast<size_t>(k.gb) * a.DN,
-                        a.DN, k.nb, tn, tb, a.mean_pool != 0, k.gscale);
-    }
-  });
-  grid.sync();
-  CGR_STAMP(1, -1);
-  for (int l = 0; l < L; ++l) {
-    items(p * r_e, [&](int it) {
-      int r0, r1;
-      span(it % r_e, te, r0, r1);
-      message_rows<kBf16>(a, pack(it / r_e).fwd(a), it / r_e, l, r0, r1);
-    });
-    grid.sync();
-    CGR_STAMP(2, l);
-    items(p * t_e, [&](int it) {
-      conv_tile<kBf16>(a, pack(it / t_e).fwd(a), it / t_e, l, it % t_e, sm);
-    });
-    grid.sync();
-    CGR_STAMP(3, l);
-  }
-  items(p * r_n, [&](int it) {
-    int r0, r1;
-    span(it % r_n, tn, r0, r1);
-    readout_rows<kBf16>(a, pack(it / r_n).fwd(a), it / r_n, r0, r1);
-  });
-  grid.sync();
-  CGR_STAMP(4, -1);
-  items(p * t_n, [&](int it) {
-    readout_tile<kBf16>(a, pack(it / t_n).fwd(a), it / t_n, it % t_n, sm);
-  });
-  grid.sync();
-  CGR_STAMP(5, -1);
-  items(p * tb, [&](int it) {
-    const int g = it % tb;
-    pool_head<kBf16>(a, pack(it / tb).fwd(a), it / tb, g, g + 1);
-    __syncthreads();
-  });
+  // replay: the forward's phases, with the mean scales beside edge_init
+  forward_phases<kBf16>(
+      a, p, [&](int q) { return pack(q).fwd(a); }, 1,
+      [&](int q, int) {
+        const Pack k = pack(q);
+        row_scales<kBf16>(a.edge_nbr + static_cast<size_t>(k.eb) * a.D, a.D,
+                          k.eb, te, te, a.mean_aggr != 0, k.escale);
+        row_scales<kBf16>(a.node_inc + static_cast<size_t>(k.nb) * a.D, a.D,
+                          k.eb, te, tn, a.mean_aggr != 0, k.nscale);
+        row_scales<kBf16>(a.graph_nodes + static_cast<size_t>(k.gb) * a.DN,
+                          a.DN, k.nb, tn, tb, a.mean_pool != 0, k.gscale);
+      },
+      sm);
   grid.sync();
   CGR_STAMP(6, -1);
 
@@ -696,58 +607,19 @@ __global__ void __launch_bounds__(kThreads, kBlocks)
   CGR_STAMP(13, -1);
 }
 
-// The instantiation a launch takes: one block per SM while the batch's
-// largest tile phases (p·tiles_of(te, H) tiles) fit the SMs, else two
-// (CGR_BWD_BLOCKS_PER_SM forces one of them).
-void* kernel_of(int mat_dtype, int p, int te, int H, int sms) {
-#ifdef CGR_BWD_BLOCKS_PER_SM
-  const bool one = CGR_BWD_BLOCKS_PER_SM == 1;
-#else
-  const bool one = static_cast<long long>(p) * tiles_of(te, H) <= sms;
-#endif
-  if (mat_dtype == 1)
-    return one ? reinterpret_cast<void*>(&fused_model_bwd_kernel<true, 1>)
-               : reinterpret_cast<void*>(&fused_model_bwd_kernel<true, 2>);
-  return one ? reinterpret_cast<void*>(&fused_model_bwd_kernel<false, 1>)
-             : reinterpret_cast<void*>(&fused_model_bwd_kernel<false, 2>);
-}
-
-// The cooperative grid of a launch: the blocks per SM of its
-// instantiation that fit at once times the SMs of the current device (at
-// most CGR_GRID_BLOCKS when that is defined).  Returns 0 or a CUDA error
-// code.
-int grid_of(int mat_dtype, int p, int te, int H, void** fn, int* grid,
-            int* per_sm, int* sms) {
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  *fn = kernel_of(mat_dtype, p, te, H, *sms);
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(per_sm, *fn, kThreads,
-                                                      0);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (*per_sm < 1) return static_cast<int>(cudaErrorCooperativeLaunchTooLarge);
-  *grid = *per_sm * *sms;
-#ifdef CGR_GRID_BLOCKS
-  *grid = *grid < CGR_GRID_BLOCKS ? *grid : CGR_GRID_BLOCKS;
-#endif
-  return 0;
-}
+Instances kFns = {
+    {reinterpret_cast<const void*>(&fused_model_bwd_kernel<false, 1>),
+     reinterpret_cast<const void*>(&fused_model_bwd_kernel<false, 2>)},
+    {reinterpret_cast<const void*>(&fused_model_bwd_kernel<true, 1>),
+     reinterpret_cast<const void*>(&fused_model_bwd_kernel<true, 2>)}};
 
 int launch(const ModelArgs& a, BwdArgs b, float* out, int p, int mat_dtype,
            void* stream) {
-  void* fn = nullptr;
-  int grid = 0, per_sm = 0, sms = 0;
-  const int err = grid_of(mat_dtype, p, a.te, a.H, &fn, &grid, &per_sm, &sms);
-  if (err != 0) return err;
   b.out = out;
   b.p = p;
   ModelArgs args = a;
   void* params[] = {&args, &b};
-  return static_cast<int>(cudaLaunchCooperativeKernel(
-      fn, dim3(grid), dim3(kThreads), params, 0,
-      static_cast<cudaStream_t>(stream)));
+  return launch_grid(kFns, mat_dtype, p, a.te, a.H, params, stream);
 }
 
 }  // namespace
@@ -768,9 +640,10 @@ extern "C" long long cgr_fused_model_grad_floats(int F, int Fe, int H, int L) {
 // code) and writes the blocks per SM and the SMs.
 extern "C" int cgr_fused_model_bwd_grid(int mat_dtype, int p, int te, int H,
                                         int* per_sm, int* sms) {
-  void* fn = nullptr;
+  const void* fn = nullptr;
   int grid = 0;
-  const int err = grid_of(mat_dtype, p, te, H, &fn, &grid, per_sm, sms);
+  const int err = grid_of(kFns, mat_dtype, p, te, H, &fn, &grid, per_sm,
+                          sms);
   return err != 0 ? -err : grid;
 }
 
@@ -811,28 +684,6 @@ extern "C" int cgr_fused_model_vjp(CGR_MODEL_PARAMS, const float* dpred,
                         nullptr, dpred, scratch, partial, nullptr, 0},
                 out, p, mat_dtype, stream);
 }
-
-#ifdef CGR_PHASE_CLOCK
-// Copies the stamps of the last launch (at most n) to the host: ns[i] the
-// %globaltimer reading, ids[i] = phase · 256 + layer (255: none); returns
-// their count or -1.
-extern "C" int cgr_phase_clock_read(long long* ns, int* ids, int n) {
-  int count = 0;
-  if (cudaMemcpyFromSymbol(&count, phase_count, sizeof(int)) != cudaSuccess)
-    return -1;
-  count = count < n ? count : n;
-  if (cudaMemcpyFromSymbol(ns, phase_ns, count * sizeof(long long)) !=
-          cudaSuccess ||
-      cudaMemcpyFromSymbol(ids, phase_id, count * sizeof(int)) != cudaSuccess)
-    return -1;
-  return count;
-}
-
-extern "C" const char* cgr_phase_name(int id) {
-  constexpr int n = sizeof(kPhaseNames) / sizeof(kPhaseNames[0]);
-  return id >= 0 && id < n ? kPhaseNames[id] : nullptr;
-}
-#endif
 
 extern "C" const char* cgr_cuda_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));

@@ -2,8 +2,8 @@
 // fused_model_bwd.cu): the elementwise helpers of the TPU kernels
 // (cgr_mpnn_3d_tpu/ops/pallas_fused.py: k_act, k_dact, mean_colscale,
 // _hash_bits / k_dropout_mask), a shared-memory-tiled product with plain or
-// transposed operands, the ELL gather sums, and the per-pack forward that
-// both kernels run (pallas_model.py::_replay_forward).
+// transposed operands, the ELL gather sums, and the forward's steps
+// (pallas_model.py::_replay_forward) as items that both kernels run.
 //
 // Everything that touches a product's operands is templated on kBf16, the
 // TPU kernels' mat_dtype: false is the f32 FMA product; true rounds every
@@ -15,12 +15,12 @@
 //
 // The work is cut into items that one thread block of kThreads threads
 // computes: one 64 x 64 output tile of a product, or a range of rows of an
-// elementwise or gather pass, of one pack.  The forward below runs every
-// item of one pack in one block (K3f); the training kernel spreads the
-// items of every pack over the whole grid, one phase at a time.  Indices
-// are global, with the sentinel equal to the row count; an index outside
-// the item's own pack (the sentinel included) is skipped and never read
-// through, which is what a never-matching one-hot column does on the TPU.
+// elementwise or gather pass, of one pack.  Both kernels spread the items
+// of every pack over the whole grid, one phase at a time
+// (fused_model_grid.cuh).  Indices are global, with the sentinel equal to
+// the row count; an index outside the item's own pack (the sentinel
+// included) is skipped and never read through, which is what a
+// never-matching one-hot column does on the TPU.
 //
 // Data written by one phase of a kernel and read by a later one (the
 // states) is never read through __restrict__ pointers: those may load
@@ -501,30 +501,6 @@ __device__ void pool_head(const ModelArgs& a, const FwdState& st, int q,
                     nullptr, a.mean_pool != 0, g0, g1, a.H, st.pooled);
   __syncthreads();
   head<kBf16>(st.pooled, g0, g1, a.H, a.wffn, a.bffn, st.preds);
-}
-
-// The whole forward of pack q in this block, step after step.  Ends with
-// the block synchronised.
-template <bool kBf16>
-__device__ void forward_pack(const ModelArgs& a, const FwdState& st, int q,
-                             SmemOf<kBf16>& sm) {
-  for (int tile = 0; tile < tiles_of(a.te, a.H); ++tile)
-    edge_init_tile<kBf16>(a, st, q, tile, sm);
-  __syncthreads();
-  for (int l = 0; l < a.L; ++l) {
-    message_rows<kBf16>(a, st, q, l, 0, a.te);
-    __syncthreads();
-    for (int tile = 0; tile < tiles_of(a.te, a.H); ++tile)
-      conv_tile<kBf16>(a, st, q, l, tile, sm);
-    __syncthreads();
-  }
-  readout_rows<kBf16>(a, st, q, 0, a.tn);
-  __syncthreads();
-  for (int tile = 0; tile < tiles_of(a.tn, a.H); ++tile)
-    readout_tile<kBf16>(a, st, q, tile, sm);
-  __syncthreads();
-  pool_head<kBf16>(a, st, q, 0, a.tb);
-  __syncthreads();
 }
 
 }  // namespace cgr

@@ -52,9 +52,12 @@
 //   out  = act((G·xa + xr)·Wa + xb·Wb + b),      dxr = dpre·Waᵀ,
 //
 // and K11 also writes the per-pack group pool pool[q] = Σ_{n ∈
-// pool_ell[q]} out[n] [p·GP, H] (a gather through the per-group node ELL,
-// the untransposed pool_t); its backward reads dout = g + gpool[group of
-// the row] (through node_group, the transpose).  The gather takes xr as
+// pool_ell[q]} out[n] [p·GP, H] through the per-group node ELL (the
+// untransposed pool_t), as an ordered split sum over chunks of the ELL row
+// (launch_pool): a group can hold thousands of entries (a long chain's
+// nodes), which one thread per column would walk alone; its backward reads
+// dout = g + gpool[group of the row] (through node_group, the
+// transpose).  The gather takes xr as
 // its extra term (layered_common.cuh), unrounded, dt is written straight
 // into dxr, and the rest is K5's backward.  mat = 1 is K5's bf16 with the
 // readout's f32 output: xa, xb, dxa and dxb bf16; xr, dxr, out, g, the
@@ -251,18 +254,99 @@ extern "C" int cgr_gather_linear_bwd(
 
 namespace {
 
+// K11's group pool as an ordered split sum.  Each group's pool_ell row
+// [DN] is cut into chunks of kPoolChunk entries (their count a function of
+// DN alone).  Pass 1 takes one (group, chunk) item per block at a time:
+// warp 0 keeps the chunk's entries inside the group's pack, in entry
+// order, and the block sums their rows of out in that order (coalesced
+// row reads, each operand rounded as a gather's) into part[group, chunk,
+// :], marking in used[group, chunk] whether the chunk had an entry.  Pass 2
+// sums each group's used partials in chunk order.  With one chunk, pass 1
+// writes the pool itself.  No atomics: reruns are bit-identical and the
+// result does not depend on either grid.
+constexpr int kPoolChunk = 32;    // entries of a chunk: one warp's ballot
+constexpr int kPoolThreads = 128;
+constexpr int kPoolBlocks = 4096;
+
+template <bool kBf16>
+__global__ void __launch_bounds__(kPoolThreads)
+    pool_part_kernel(const float* out, int R, int H, const int* pool_ell,
+                     int GP, int DN, int chunks, long long items, float* part,
+                     int* used) {
+  __shared__ int rows[kPoolChunk];
+  __shared__ int n_rows;
+  const int lane = threadIdx.x;
+  for (long long it = blockIdx.x; it < items; it += gridDim.x) {
+    const long long g = it / chunks, lo = (g / GP) * R;
+    if (lane < kPoolChunk) {
+      const int d = static_cast<int>(it % chunks) * kPoolChunk + lane;
+      const long long j = d < DN ? pool_ell[g * DN + d] - lo : -1;
+      const bool in = j >= 0 && j < R;
+      const unsigned mask = __ballot_sync(0xffffffffu, in);
+      if (in) rows[__popc(mask & ((1u << lane) - 1u))] = static_cast<int>(j);
+      if (lane == 0) n_rows = __popc(mask);
+    }
+    __syncthreads();
+    const int n = n_rows;
+    if (used != nullptr && threadIdx.x == 0) used[it] = n > 0;
+    if (n > 0 || used == nullptr) {
+      for (int c = threadIdx.x; c < H; c += kPoolThreads) {
+        float sum = 0.f;
+#pragma unroll 8
+        for (int i = 0; i < n; ++i)
+          sum += operand<kBf16>(out[(lo + rows[i]) * H + c]);
+        part[it * H + c] = sum;
+      }
+    }
+    __syncthreads();  // rows and n_rows are the next item's
+  }
+}
+
+__global__ void pool_sum_kernel(const float* part, const int* used,
+                                long long groups, int chunks, int H,
+                                float* pool) {
+  for (long long i = blockIdx.x * static_cast<long long>(blockDim.x) +
+                     threadIdx.x;
+       i < groups * H; i += static_cast<long long>(gridDim.x) * blockDim.x) {
+    const long long g = i / H;
+    float s = 0.f;
+    for (int k = 0; k < chunks; ++k)
+      if (used[g * chunks + k]) s += part[(g * chunks + k) * H + i % H];
+    pool[i] = s;
+  }
+}
+
+// pool [p·GP, H] from out [p·R, H] through pool_ell [p·GP, DN]; part
+// [p·GP·chunks, H] and used [p·GP·chunks] are scratch when chunks > 1.
+template <bool kBf16>
+void launch_pool(const float* out, const int* pool_ell, float* pool,
+                 float* part, int* used, const Dims& d, int GP, int DN,
+                 int chunks, cudaStream_t st) {
+  const long long groups = static_cast<long long>(d.p) * GP,
+                  items = groups * chunks;
+  if (items == 0) return;
+  const bool split = chunks > 1;
+  pool_part_kernel<kBf16>
+      <<<static_cast<unsigned>(items < kPoolBlocks ? items : kPoolBlocks),
+         kPoolThreads, 0, st>>>(out, d.R, d.H, pool_ell, GP, DN, chunks,
+                                items, split ? part : pool,
+                                split ? used : nullptr);
+  if (split) {
+    const long long blocks = (groups * d.H + 255) / 256;
+    pool_sum_kernel<<<static_cast<unsigned>(blocks < 2048 ? blocks : 2048),
+                      256, 0, st>>>(part, used, groups, chunks, d.H, pool);
+  }
+}
+
 template <bool kBf16>
 void r_forward(const void* xa, const float* xr, const void* xb,
                const int* idx, const int* pool_ell, const float* wa,
                const float* wb, const float* b, void* t1, float* out,
-               float* pool, const Dims& d, int GP, int DN, cudaStream_t st) {
+               float* pool, float* part, int* used, const Dims& d, int GP,
+               int DN, int chunks, cudaStream_t st) {
   forward<kBf16, float>(xa, xb, idx, wa, wb, b, t1, out, d, st, xr);
-  if (pool_ell != nullptr)
-    launch_gather<kBf16>(GatherArgs<float, float>{
-                             out, d.R, d.H, pool_ell, DN, nullptr, nullptr, 0,
-                             GP, static_cast<long long>(d.p) * GP, pool,
-                             nullptr},
-                         st);
+  if (pool_ell == nullptr) return;
+  launch_pool<kBf16>(out, pool_ell, pool, part, used, d, GP, DN, chunks, st);
 }
 
 template <bool kBf16>
@@ -290,21 +374,28 @@ void r_backward(const void* xa, const float* xr, const void* xb,
 
 // The EP readout (K10; K11 when pool_ell is set): out [p·R, H] and, with
 // the pool, pool [p·GP, H] through pool_ell [p·GP, DN] (node slots of each
-// group, sentinel-padded); t1 [p·R, FA] is scratch of xa's type.  xa, xb
-// and t1 are f32, or bf16 with mat = 1; xr, out and the pool are f32.
+// group, sentinel-padded), split into `chunks` = max(1, ceil(DN /
+// kPoolChunk)) chunks (part [p·GP·chunks, H] f32 and used [p·GP·chunks]
+// int32 are scratch when chunks > 1; another count is refused); t1 [p·R,
+// FA] is scratch of xa's type.  xa, xb and t1 are f32, or bf16 with mat =
+// 1; xr, out and the pool are f32.
 extern "C" int cgr_gather_linear_r_fwd(const void* xa, const float* xr,
                                        const void* xb, const int* idx,
                                        const int* pool_ell, const float* wa,
                                        const float* wb, const float* b,
                                        void* t1, float* out, float* pool,
-                                       int p, int R, int ca, int FA, int FB,
-                                       int H, int D, int GP, int DN, int act,
+                                       float* part, int* used, int p, int R,
+                                       int ca, int FA, int FB, int H, int D,
+                                       int GP, int DN, int chunks, int act,
                                        int mean, int mat, void* stream) {
+  if (pool_ell != nullptr &&
+      chunks != (DN > kPoolChunk ? (DN + kPoolChunk - 1) / kPoolChunk : 1))
+    return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const Dims d{p, R, ca, FA, FB, H, D, act, mean};
   (mat ? r_forward<true> : r_forward<false>)(xa, xr, xb, idx, pool_ell, wa,
-                                             wb, b, t1, out, pool, d, GP, DN,
-                                             st);
+                                             wb, b, t1, out, pool, part, used,
+                                             d, GP, DN, chunks, st);
   return static_cast<int>(cudaGetLastError());
 }
 

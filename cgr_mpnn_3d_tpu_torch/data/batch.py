@@ -7,7 +7,10 @@ pack); a batch is P packs.
 
 Pack locality is the key invariant: a graph never spans packs, so every
 edge/node index an edge references lives inside the same pack.  The CUDA
-kernel (csrc/fused_model_fwd.cu) runs one block per pack on that basis.
+kernels rely on it: the whole-model forward (csrc/fused_model_fwd.cu, the
+phases of csrc/fused_model_grid.cuh::forward_phases) deals each phase's
+tiles and row ranges of every pack to one cooperative grid, and an item
+reads only its own pack's rows.
 
 Gather-only adjacency: alongside ``senders/receivers/rev`` the packer emits
 ELL-style index arrays whose *adjoints are also gathers*:

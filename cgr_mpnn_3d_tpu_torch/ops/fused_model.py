@@ -64,7 +64,8 @@ __all__ = ["fused_model_forward", "fused_model_forward_ref",
            "fused_model_train", "fused_model_train_ref", "fused_model_vjp",
            "fused_model_vjp_ref", "fused_model", "GRAD_NAMES", "launches",
            "train_launches", "vjp_launches", "bf16_launches",
-           "bf16_train_launches", "bf16_vjp_launches", "bwd_grid"]
+           "bf16_train_launches", "bf16_vjp_launches", "bwd_grid",
+           "fwd_grid"]
 
 # launches of each CUDA kernel by its wrapper (nothing else adds here):
 # the forward (K3f), the training step (K2) and the VJP (K3b), with f32
@@ -238,22 +239,33 @@ def _lib(name: str) -> ctypes.CDLL:
     return library(name, _SIGNATURES[name])
 
 
+def _grid(name: str, p: int, te: int, H: int, mat_dtype: str,
+          device) -> tuple[int, int, int]:
+    lib = _lib(name)
+    fn = getattr(lib, f"cgr_{name}_grid")
+    fn.argtypes, fn.restype = [I32] * 4 + [PTR, PTR], I32
+    per_sm, sms = ctypes.c_int(), ctypes.c_int()
+    with torch.cuda.device(device):
+        grid = fn(MAT_DTYPES.index(mat_dtype), p, te, H,
+                  ctypes.byref(per_sm), ctypes.byref(sms))
+    raise_on(lib, max(0, -grid), f"{name} grid")
+    return grid, per_sm.value, sms.value
+
+
 def bwd_grid(p: int, te: int, H: int, mat_dtype: str = "float32",
              device="cuda") -> tuple[int, int, int]:
     """(blocks, blocks per SM, SMs) of the cooperative grid that K2 and K3b
     launch at ``mat_dtype`` on ``p`` packs of ``te`` edge rows at width
     ``H`` on ``device`` (a CUDA device): one block per SM while the largest
     tile phases fit the SMs, else two."""
-    lib = _lib("fused_model_bwd")
-    lib.cgr_fused_model_bwd_grid.argtypes = [I32] * 4 + [PTR, PTR]
-    lib.cgr_fused_model_bwd_grid.restype = I32
-    per_sm, sms = ctypes.c_int(), ctypes.c_int()
-    with torch.cuda.device(device):
-        grid = lib.cgr_fused_model_bwd_grid(
-            MAT_DTYPES.index(mat_dtype), p, te, H, ctypes.byref(per_sm),
-            ctypes.byref(sms))
-    raise_on(lib, max(0, -grid), "fused_model_bwd grid")
-    return grid, per_sm.value, sms.value
+    return _grid("fused_model_bwd", p, te, H, mat_dtype, device)
+
+
+def fwd_grid(p: int, te: int, H: int, mat_dtype: str = "float32",
+             device="cuda") -> tuple[int, int, int]:
+    """(blocks, blocks per SM, SMs) of the cooperative grid that K3f
+    launches, by the rule of :func:`bwd_grid`."""
+    return _grid("fused_model_fwd", p, te, H, mat_dtype, device)
 
 
 def _dims(x, e, graph_nodes, edge_nbr, wc, p: int) -> list[int]:
@@ -277,14 +289,16 @@ def fused_model_forward(x, e, senders, edge_nbr, rev, node_inc, graph_nodes,
                         mat_dtype: str = "float32") -> torch.Tensor:
     """Whole-model forward -> preds [p*tb] f32.
 
-    CUDA tensors launch ``csrc/fused_model_fwd.cu`` (one block per pack) or
-    raise; CPU tensors take :func:`fused_model_forward_ref`.  Features and
-    weights are float32, indices int32, all contiguous; ``wffn`` is [H, 1],
-    ``skips`` [L], ``bffn`` [1].  ``mat_dtype="bfloat16"`` runs the
-    kernel's bf16 instantiation: the operands of every product and gather
-    are rounded to bf16 as they load (products on the tensor cores), sums
-    and elementwise work stay f32.  No backward: for gradients on the card
-    call :func:`fused_model`."""
+    CUDA tensors launch ``csrc/fused_model_fwd.cu`` (one cooperative grid
+    over the whole card, :func:`fwd_grid`: the forward's phases, each
+    phase's tiles, row ranges and graphs of every pack spread over the
+    grid) or raise; CPU tensors take :func:`fused_model_forward_ref`.
+    Features and weights are float32, indices int32, all contiguous;
+    ``wffn`` is [H, 1], ``skips`` [L], ``bffn`` [1].
+    ``mat_dtype="bfloat16"`` runs the kernel's bf16 instantiation: the
+    operands of every product and gather are rounded to bf16 as they load
+    (products on the tensor cores), sums and elementwise work stay f32.
+    No backward: for gradients on the card call :func:`fused_model`."""
     global launches, bf16_launches
     tensors = (x, e, senders, edge_nbr, rev, node_inc, graph_nodes, wx, we,
                be, wc, bc, skips, ws, wxn, ben, wffn, bffn)

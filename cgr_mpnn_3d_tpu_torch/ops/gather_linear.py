@@ -40,7 +40,9 @@ rows aligned with the output's, to the gathered sum,
 
 and K11 (``fused_gather_linear_pool``) also returns the per-pack group pool
 ``pool[q] = sum_{n in pool_ell[q]} out[n]`` [p*GP, H] through the per-group
-node ELL ``pool_ell`` [p*GP, DN]; its backward takes the pool's cotangent
+node ELL ``pool_ell`` [p*GP, DN] (on the card an ordered split sum: each
+row's entries in :func:`pool_chunks` chunks of ``POOL_CHUNK``, partials
+summed in chunk order); its backward takes the pool's cotangent
 through ``node_group`` [p*R] (the transpose: the group of each row).  One
 CUDA entry point serves both (K10 is K11 with the pool off):
 :func:`gather_linear_r_forward` / :func:`gather_linear_r_backward` /
@@ -77,7 +79,7 @@ __all__ = ["gather_linear_forward", "gather_linear_forward_ref",
            "bf16_bwd_launches", "r_launches", "r_bwd_launches",
            "pool_launches", "pool_bwd_launches", "bf16_r_launches",
            "bf16_r_bwd_launches", "bf16_pool_launches",
-           "bf16_pool_bwd_launches"]
+           "bf16_pool_bwd_launches", "POOL_CHUNK", "pool_chunks"]
 
 # kernel launches by the wrappers (nothing else adds here), at f32 and at
 # bf16
@@ -99,7 +101,7 @@ bf16_pool_bwd_launches = 0
 _SIGNATURES = {
     "cgr_gather_linear_fwd": ([PTR] * 8 + [I32] * 11 + [PTR], I32),
     "cgr_gather_linear_bwd": ([PTR] * 19 + [I32] * 13 + [PTR], I32),
-    "cgr_gather_linear_r_fwd": ([PTR] * 11 + [I32] * 12 + [PTR], I32),
+    "cgr_gather_linear_r_fwd": ([PTR] * 13 + [I32] * 13 + [PTR], I32),
     "cgr_gather_linear_r_bwd": ([PTR] * 24 + [I32] * 13 + [PTR], I32),
 }
 _INDEX_NAMES = {"idx", "adj"}
@@ -314,6 +316,16 @@ def gather_linear(xa, xb, idx, adj, wa, wb, b, *, p: int, act: str = "relu",
 # -- the edge-partitioned readout (K10 / K11) ---------------------------------
 
 _R_INDEX_NAMES = {"idx", "adj", "node_group", "pool_ell"}
+# entries of pool_ell that one partial of K11's split pool sums
+# (kPoolChunk in csrc/gather_linear.cu, which refuses another count)
+POOL_CHUNK = 32
+
+
+def pool_chunks(DN: int) -> int:
+    """The chunks K11's forward splits each group's ``pool_ell`` row of
+    ``DN`` entries into (a function of DN alone, so reruns sum in the same
+    order): ceil(DN / POOL_CHUNK), at least 1."""
+    return max(1, -(-DN // POOL_CHUNK))
 
 
 def _check_r(args: dict, p: int, act: str, mat_dtype: str) -> None:
@@ -436,13 +448,19 @@ def _launch_r_fwd(xa, xr, xb, idx, wa, wb, b, p, act, mean, mat_dtype,
     GP = 0 if pool_ell is None else pool_ell.shape[0] // p
     DN = 0 if pool_ell is None else pool_ell.shape[1]
     pool = None if pool_ell is None else torch.empty((p * GP, H), device=dev)
+    chunks = pool_chunks(DN)
+    part = used = None
+    if pool_ell is not None and chunks > 1:
+        part = torch.empty((p * GP * chunks, H), device=dev)
+        used = torch.empty(p * GP * chunks, device=dev, dtype=torch.int32)
     lib = _lib()
     with torch.cuda.device(dev):
         err = lib.cgr_gather_linear_r_fwd(
             *(ptr(t) for t in (xa, xr, xb, idx, pool_ell, wa, wb, b, t1, out,
-                               pool)),
-            *_dims(xa, xb, idx, wa, p), GP, DN, KERNEL_ACTS.index(act),
-            int(mean), mat_index(mat_dtype), stream(dev))
+                               pool, part, used)),
+            *_dims(xa, xb, idx, wa, p), GP, DN, chunks,
+            KERNEL_ACTS.index(act), int(mean), mat_index(mat_dtype),
+            stream(dev))
     raise_on(lib, err, "gather_linear_r_fwd")
     return out, pool
 

@@ -23,7 +23,13 @@ Phases (any failure raises, and the script exits non-zero):
    and learnable skips; times and f32 bounds; K2's and K3b's cooperative
    grid (blocks, blocks per SM), and the phase timer
    ``tools/k2_phases.py`` at p = 4 and 436 packs, f32 and bf16 (its
-   stamped build, started beside the others, equal to the shipped one);
+   stamped build, started beside the others, equal to the shipped one),
+   and with ``--forward`` for K3f; K3f's cooperative grid on the
+   synthetic batch (436 packs) and the corpus request batch (p = 4): its
+   predictions equal bit for bit through a rerun and a build with a
+   7-block grid, at f32 and bf16, eval and train mode, and timed in
+   alternating rounds (with ``--parent``, beside the earlier commit's
+   K3f);
 5. serving: a seeded full-width checkpoint in the ``.npz`` + JSON format
    serves ``examples/demo.csv`` (with synthetic descriptors) through
    ``activation_energy_prediction(device="cuda")`` once as a batch and as 10
@@ -152,7 +158,12 @@ Phases (any failure raises, and the script exits non-zero):
    ``cli.train.main --ep 2 --compute_dtype bfloat16`` on the corpus (3
    epochs on the card, 2 on the CPU, BF16_TRAIN_TOL); the wired trainer at
    bf16 (K8, K9), with --ep_rdma and with --ep_overlap, card vs CPU; each
-   new phase's wall time on a line of its own;
+   new phase's wall time on a line of its own; K11's split pool on the
+   wired batch (n_ep 2 and 4, f32 and bf16) and on the inputs of its
+   first launch at each shape in ``--ep 2`` validation and the wired
+   training runs (recorded as they run): held against its plain version,
+   a rerun bit for bit, and timed beside the plain version (with
+   ``--parent``, and the earlier commit's K11) in alternating rounds;
 19. a ``{"kernels": [...]}`` line, then ``{"ok": true, "device": {...}}`` as
    the last line.
 
@@ -568,6 +579,293 @@ def k2_phases_phase(card: str, stamped_build) -> dict:
         check({k.split("[")[0] for k in r["phases"]}
               == set(k2_phases.PHASES[1:]),
               f"k2_phases {key}: phases {sorted(r['phases'])}")
+    return out
+
+
+# the build of csrc/fused_model_fwd.cu with a 7-block grid: K3f's
+# predictions must not move (the forced instantiations are the card
+# tests'; tools/bwd_registers.py --forward times them)
+K3F_VARIANTS = {"7 blocks": {"CGR_GRID_BLOCKS": 7}}
+
+
+def start_variant_builds(parent: Path | None = None) -> dict:
+    """The builds under build/k2_phases/ that the K3f and phase-clock
+    phases swap in, and with ``parent`` (an earlier commit's csrc/) its
+    K3f and K11 sources, each started now (nvcc in the background):
+    {name: a call that waits for the library}."""
+    from cgr_mpnn_3d_tpu_torch.ops import _build
+    from cgr_mpnn_3d_tpu_torch.tools import k2_phases
+    fwd = _build.CSRC / "fused_model_fwd.cu"
+    todo = {f"K3f {n}": (d, fwd) for n, d in K3F_VARIANTS.items()}
+    todo.update({"K2 stamped": ({k2_phases.DEFINE: None}, None),
+                 "K3f stamped": ({k2_phases.DEFINE: None}, fwd)})
+    if parent is not None:
+        parent = parent.resolve()
+        todo.update({"K3f earlier": ({}, parent / "fused_model_fwd.cu"),
+                     "K11 earlier": ({}, parent / "gather_linear.cu")})
+    return {name: in_background(lambda d=d, src=src: k2_phases.variant(d, src))
+            for name, (d, src) in todo.items()}
+
+
+def swapped(name: str, lib, fn):
+    """fn() with ``lib`` as the wrapper's library of csrc/<name>.cu."""
+    from cgr_mpnn_3d_tpu_torch.ops import _build
+    shipped = _build.load(name)
+    _build._libs[name] = lib
+    try:
+        return fn()
+    finally:
+        _build._libs[name] = shipped
+
+
+def k3f_grid_phase(cfg_kw: dict, spec, batch, seed: int, repeats: int,
+                   builds: dict, card: str, what: str) -> dict:
+    """K3f as one cooperative grid: its grid at f32 and bf16, and its
+    predictions through the shipped build, a rerun and each grid build of
+    K3F_VARIANTS (a 7-block grid), equal bit for bit at f32 and bf16, eval
+    and train mode (dropout 0.1, seeded); the earlier commit's K3f
+    (``builds["K3f earlier"]``, with ``--parent``), same C interface, is
+    reported equal or not.  With ``repeats``: eval-mode ms of the shipped
+    build and the earlier commit's, timed over ``repeats`` calls in 5
+    alternating rounds (medians and the rounds' spread)."""
+    import torch
+    from cgr_mpnn_3d_tpu_torch.models import (CGRMPNNConfig, init_params,
+                                              kernel_inputs, kernel_seeds)
+    from cgr_mpnn_3d_tpu_torch.models.cgr_mpnn import ACTIVATIONS
+    from cgr_mpnn_3d_tpu_torch.ops import fused_model as fm
+    cfg = CGRMPNNConfig(**dict(cfg_kw, dropout_ps=(0.1,) * cfg_kw["depth"]))
+    gen = torch.Generator().manual_seed(seed)
+    model = init_params(cfg, gen, batch.node_x.device)
+    with torch.no_grad():
+        args = kernel_inputs(model, batch)
+    ev = dict(p=spec.p, act=ACTIVATIONS[cfg.activation], aggr=cfg.aggr,
+              pooling=cfg.pooling)
+    tr = dict(ev, train=True, seeds=kernel_seeds(cfg, gen).tolist(),
+              dropout_ps=cfg.dropout_ps)
+    libs = {n: builds[f"K3f {n}"]() for n in K3F_VARIANTS}
+    earlier = builds["K3f earlier"]() if "K3f earlier" in builds else None
+    H = cfg.hidden_sizes[0]
+    out: dict = dict(p=spec.p, grid={}, earlier_equal={}, ms={})
+    for md in ("float32", BF16):
+        out["grid"][md] = fm.fwd_grid(spec.p, spec.te, H, md)
+        for mode, kw in (("eval", ev), ("train", tr)):
+            def call(kw=dict(kw, mat_dtype=md)):
+                with torch.no_grad():
+                    return fm.fused_model_forward(*args, **kw)
+            want = call()
+            check(bool(torch.isfinite(want[batch.graph_mask > 0]).all()),
+                  f"K3f {md} {mode} predictions are not finite")
+            check(torch.equal(want, call()),
+                  f"two runs of K3f {md} {mode} differ on {spec.p} packs")
+            for name, lib in libs.items():
+                check(torch.equal(swapped("fused_model_fwd", lib, call), want),
+                      f"K3f {md} {mode} through the {name} build differs "
+                      f"from the shipped build on {spec.p} packs")
+            if earlier is not None:
+                out["earlier_equal"][md, mode] = bool(torch.equal(
+                    swapped("fused_model_fwd", earlier, call), want))
+        if repeats:
+            kw = dict(ev, mat_dtype=md)
+
+            def fwd():
+                with torch.no_grad():
+                    fm.fused_model_forward(*args, **kw)
+            fns = {"shipped": fwd}
+            if earlier is not None:
+                fns["earlier commit"] = lambda: swapped("fused_model_fwd",
+                                                        earlier, fwd)
+            out["ms"][md] = alternating_ms(fns, repeats)
+    grids = "; ".join(f"{md} {g[0]} blocks ({g[1]} per SM x {g[2]} SMs)"
+                      for md, g in out["grid"].items())
+    print(f"K3f grid, {what}, {spec.p} packs: {grids}; predictions equal bit "
+          f"for bit through a rerun and the {', '.join(K3F_VARIANTS)} "
+          f"build, at f32 and bf16, eval and train" + (
+              "" if earlier is None else
+              f"; the earlier commit's K3f equal: {out['earlier_equal']}")
+          + f" [{card}]")
+    for md, ms in out["ms"].items():
+        print(f"K3f {md} eval, {what}, {spec.p} packs, ms (median of 5 "
+              f"alternating rounds, min-max): " + "; ".join(
+                  f"{n} {statistics.median(v):.4f} ({min(v):.4f}-"
+                  f"{max(v):.4f})" for n, v in ms.items()) + f" [{card}]")
+    return out
+
+
+def k3f_phases_phase(card: str, builds: dict) -> dict:
+    """tools/k2_phases.py --forward at its defaults (K3f, eval mode, p = 4
+    and 436 packs, f32 and bf16) once its stamped build is ready: the
+    forward's phases stamped, the stamped build equal to the shipped one."""
+    from cgr_mpnn_3d_tpu_torch.tools import k2_phases
+    builds["K3f stamped"]()
+    print(f"k2_phases --forward [{card}]:")
+    out = k2_phases.main(["--forward"])
+    for key, r in out.items():
+        check(r["equal"], f"k2_phases --forward {key}: the stamped build "
+                          f"differs")
+        check({k.split("[")[0] for k in r["phases"]}
+              == set(k2_phases.PHASES[1:7]),
+              f"k2_phases --forward {key}: phases {sorted(r['phases'])}")
+    return out
+
+
+def earlier_k11(lib, source: Path):
+    """K11's forward through ``lib``, the build of an earlier commit's
+    gather_linear.cu (``source``): a call with gather_linear_pool_forward's
+    arguments -> (out, pool).  A source whose r_fwd entry point takes the
+    split pool's ``chunks`` runs through the shipped wrapper; an older one
+    (no part, used or chunks) through its own argument list."""
+    import ctypes
+    import re
+
+    import torch
+    from cgr_mpnn_3d_tpu_torch.ops import gather_linear as gl
+    from cgr_mpnn_3d_tpu_torch.ops._launch import mat_index, ptr, stream
+    from cgr_mpnn_3d_tpu_torch.ops.kernel_math import KERNEL_ACTS
+    if re.search(r"cgr_gather_linear_r_fwd\([^)]*\bchunks\b",
+                 source.read_text()):
+        def swap(*fargs, **kw):
+            with torch.no_grad():
+                return swapped("gather_linear", lib, lambda:
+                               gl.gather_linear_pool_forward(*fargs, **kw))
+        return swap
+    fn = lib.cgr_gather_linear_r_fwd
+    fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 12 + [
+        ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+
+    def call(xa, xr, xb, idx, node_group, pool_ell, wa, wb, b, *, p,
+             act="relu", mean=False, mat_dtype="float32"):
+        dev, H = xa.device, wa.shape[1]
+        GP, DN = pool_ell.shape[0] // p, pool_ell.shape[1]
+        t1 = torch.empty((xb.shape[0], xa.shape[1]), device=dev,
+                         dtype=xa.dtype)
+        out = torch.empty((xb.shape[0], H), device=dev)
+        pool = torch.empty((p * GP, H), device=dev)
+        with torch.no_grad(), torch.cuda.device(dev):
+            err = fn(*(ptr(t) for t in (xa, xr, xb, idx, pool_ell, wa, wb, b,
+                                        t1, out, pool)),
+                     *gl._dims(xa, xb, idx, wa, p), GP, DN,
+                     KERNEL_ACTS.index(act), int(mean), mat_index(mat_dtype),
+                     stream(dev))
+        check(err == 0, f"the earlier commit's K11 failed ({err})")
+        return out, pool
+    return call
+
+
+def k11_held(out: dict, name: str, fargs, kw: dict, repeats: int,
+             earlier=None, cost=None) -> dict:
+    """K11's forward on ``fargs`` (gather_linear_pool_forward's
+    arguments): the readout and the pool held against the plain version
+    (f32 at REL_TOL; bf16 within rel-L2 BF16_TOL of the bf16 plain
+    version), a rerun bit for bit, and with ``earlier`` (an earlier
+    commit's K11, :func:`earlier_k11`) the largest difference of its pool;
+    with ``repeats`` the ms of the kernel, the plain version and the
+    earlier commit's over ``repeats`` calls in 5 alternating rounds, and
+    the bound of ``cost``."""
+    import torch
+    from cgr_mpnn_3d_tpu_torch.ops import gather_linear as gl
+
+    def kern():
+        with torch.no_grad():
+            return gl.gather_linear_pool_forward(*fargs, **kw)
+
+    def plain():
+        with torch.no_grad():
+            return gl.gather_linear_pool_forward_ref(*fargs, **kw)
+    got, want = kern(), plain()
+    bf16 = kw.get("mat_dtype") == BF16
+    if bf16:
+        near = rel_l2(list(got), list(want))
+        check(all(bool(torch.isfinite(g).all()) for g in got)
+              and near <= BF16_TOL,
+              f"bf16 {name}: rel-L2 {near:.3e} to the bf16 plain version")
+        out[name] = dict(rel_l2=near, abs_err=max(
+            float((g - w).abs().max()) for g, w in zip(got, want)))
+    else:
+        hold(out, name, got, want)
+    again = kern()
+    check(all(torch.equal(u, v) for u, v in zip(got, again)),
+          f"two runs of {name} differ")
+    e = out[name]
+    e["chunks"] = gl.pool_chunks(fargs[5].shape[1])
+    fns = {"kernel": kern, "plain": plain}
+    if earlier is not None:
+        e["earlier_diff"] = float((earlier(*fargs, **kw)[1]
+                                   - got[1]).abs().max())
+        fns["earlier commit"] = lambda: earlier(*fargs, **kw)
+    if repeats:
+        ms = alternating_ms(fns, repeats)
+        e["rounds"] = ms
+        e["ms"] = statistics.median(ms["kernel"])
+        e["plain_ms"] = statistics.median(ms["plain"])
+        if earlier is not None:
+            e["earlier_ms"] = statistics.median(ms["earlier commit"])
+        if cost is not None:
+            e["bound_ms"], e["bound_by"] = bound(cost, bf16)
+    return e
+
+
+def print_k11(what: str, e: dict, card: str) -> None:
+    line = (f"K11 fwd {what}: {e['chunks']} chunks a group, max abs err "
+            f"{e['abs_err']:.3e}, reruns equal")
+    if "earlier_diff" in e:
+        line += f", max |pool - earlier commit's| {e['earlier_diff']:.3e}"
+    if "ms" in e:
+        line += (f"; kernel {e['ms']:.4f} ms "
+                 f"({min(e['rounds']['kernel']):.4f}-"
+                 f"{max(e['rounds']['kernel']):.4f}), plain "
+                 f"{e['plain_ms']:.4f}")
+        if "earlier_ms" in e:
+            line += f", earlier commit {e['earlier_ms']:.4f}"
+        if "bound_ms" in e:
+            line += f", bound {e['bound_ms']:.4f} by {e['bound_by']}"
+    print(line + f" [{card}]")
+
+
+class K11Recorder:
+    """Records the inputs of the first K11 launch on the card of each
+    shape and dtype that the EP forward makes (``parallel/ep_pack.py``'s
+    gather_linear_pool, wrapped while the recorder is active)."""
+
+    def __init__(self):
+        self.calls: dict = {}
+
+    def __enter__(self):
+        from cgr_mpnn_3d_tpu_torch.parallel import ep_pack
+        self._orig = orig = ep_pack.gather_linear_pool
+
+        def rec(xa, xr, xb, idx, adj, node_group, pool_ell, wa, wb, b, **kw):
+            key = (kw.get("mat_dtype"), tuple(xa.shape), tuple(pool_ell.shape))
+            if xa.is_cuda and key not in self.calls:
+                self.calls[key] = ([t.detach().clone() for t in (
+                    xa, xr, xb, idx, node_group, pool_ell, wa, wb, b)],
+                    dict(kw))
+            return orig(xa, xr, xb, idx, adj, node_group, pool_ell, wa, wb,
+                        b, **kw)
+        ep_pack.gather_linear_pool = rec
+        return self
+
+    def __exit__(self, *exc):
+        from cgr_mpnn_3d_tpu_torch.parallel import ep_pack
+        ep_pack.gather_linear_pool = self._orig
+
+
+def k11_main_path(recorded: dict, repeats: int, earlier, card: str) -> dict:
+    """k11_held on every shape K11 was launched at in a recorded run,
+    with the readout's and the pool's bound (glin_r_cost)."""
+    from types import SimpleNamespace
+    out = {}
+    for label, rec in recorded.items():
+        for (md, xa_shape, ell_shape), (fargs, kw) in rec.calls.items():
+            xa, xr, xb, idx, node_group, pool_ell, wa = fargs[:7]
+            b = SimpleNamespace(node_inc=idx, pool_ell=pool_ell,
+                                node_group=node_group)
+            R = xb.shape[0] // kw["p"]
+            name = (f"{label} {md}, {kw['p']} packs of R {R}, pool_ell "
+                    f"{list(ell_shape)}")
+            e = k11_held(out, name, fargs, kw, repeats, earlier,
+                         glin_r_cost(xa, xr, xb, b, wa, kw["p"], False, True))
+            print_k11(name, e, card)
     return out
 
 
@@ -2705,7 +3003,8 @@ def glin_r_cost(xa, xr, xb, b, wa, p: int, backward: bool,
 
 
 def ep_kernels(seed: int, repeats: int, n_ep: int, n_graphs: int = EP_GRAPHS,
-               chains=(EP_CHAIN,), dtype: str = "float32") -> dict:
+               chains=(EP_CHAIN,), dtype: str = "float32",
+               k11_split: bool = False, earlier=None) -> dict:
     """K8, K9, K10 and K11 against their plain versions at full width
     (hidden 400, F = 270) on the most wired shard of a batch of
     ``n_graphs`` synthetic graphs and chains of ``chains`` atoms (te 128 /
@@ -2717,7 +3016,10 @@ def ep_kernels(seed: int, repeats: int, n_ep: int, n_graphs: int = EP_GRAPHS,
     backward bit for bit.  ``dtype="bfloat16"``: h, h0, x and the states'
     cotangents bf16 (r, xr and the readout f32), each held by hold_bf16
     with the f32 kernel as control.  Times of both, plain versions' and
-    bounds (products at the bf16 peak at bf16)."""
+    bounds (products at the bf16 peak at bf16).  With ``k11_split``,
+    K11's forward once more by k11_held ("K11 split"): a rerun bit for
+    bit, and its time beside the plain version's (and ``earlier``'s, an
+    earlier commit's K11) in alternating rounds."""
     import torch
     from cgr_mpnn_3d_tpu_torch.ops import fused_conv as fc
     from cgr_mpnn_3d_tpu_torch.ops import gather_linear as gl
@@ -2811,6 +3113,10 @@ def ep_kernels(seed: int, repeats: int, n_ep: int, n_graphs: int = EP_GRAPHS,
         held(out, "K11 bwd", gl.gather_linear_pool_backward,
              gl.gather_linear_pool_backward_ref, args11, kw, k, True, True,
              a11_32)
+        if k11_split:
+            k11_held(out, "K11 split", (*ro, *pool_t, wa, wb, bb), k,
+                     repeats, earlier,
+                     glin_r_cost(h, xr, x, b, wa, p, False, True))
         torch.cuda.synchronize()
         if repeats:
             for name, fwd, ref, fargs, bwd, bref, bargs, pooled in (
@@ -2847,7 +3153,9 @@ def print_ep_kernels(what: str, k: dict, card: str) -> None:
           f"/ tn {k['tn']}, caps {k['caps']}, {k['edges']} edges, "
           f"{k['halo']} halo slots [{card}]")
     for name, e in k.items():
-        if not isinstance(e, dict):
+        if name == "K11 split":
+            print_k11(f"(split sum) {what}", e, card)
+        if not isinstance(e, dict) or name == "K11 split":
             continue
         line = f"  {name}: max abs err {e['abs_err']:.3e}"
         if "share" in e:
@@ -3099,12 +3407,16 @@ def exchange_phase(seed: int, repeats: int, card: str) -> dict:
                   f"{entry['library_ms']:.4f} ms, bound "
                   f"{entry['bound_ms']:.6f} ms by {entry['bound_by']} "
                   f"({nbytes / 1e6:.3f} MB) [{card}]")
+            # the profiler may record no device time for a call this short
+            factor = (f"{entry['device_ms'] / entry['library_device_ms']:.3f}"
+                      if entry["library_device_ms"] > 0 else
+                      "not measured (no device time recorded for "
+                      "index_select)")
             print(f"K12 {name} device time per call (torch.profiler, "
                   f"{repeats} calls): kernel {entry['device_ms']:.6f} ms "
                   f"{entry['device_ms_by']}, index_select "
                   f"{entry['library_device_ms']:.6f} ms "
-                  f"{entry['library_device_ms_by']}: device factor "
-                  f"{entry['device_ms'] / entry['library_device_ms']:.3f}, "
+                  f"{entry['library_device_ms_by']}: device factor {factor}, "
                   f"event factor {entry['ms'] / entry['library_ms']:.3f}; "
                   f"host share of the kernel's event time "
                   f"{1 - entry['device_ms'] / entry['ms']:.3f} [{card}]")
@@ -3427,6 +3739,10 @@ def main(argv=None) -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--graphs", type=int, default=2500)
     ap.add_argument("--repeats", type=int, default=20)
+    ap.add_argument("--parent", type=Path, default=None,
+                    help="csrc/ of an earlier commit of the port (unpacked "
+                         "with git archive): its K3f and K11 are timed "
+                         "beside the shipped ones")
     args = ap.parse_args(argv)
 
     import torch
@@ -3452,9 +3768,7 @@ def main(argv=None) -> int:
     torch.backends.cudnn.allow_tf32 = False
     print("tf32: matmul False, cudnn False")
 
-    from cgr_mpnn_3d_tpu_torch.tools import k2_phases
-    stamped_build = in_background(
-        lambda: k2_phases.variant({k2_phases.DEFINE: None}))
+    builds = start_variant_builds(args.parent)
     t0 = time.perf_counter()
     libs = _build.build_all()
     print(f"build: {len(libs)} CUDA sources in "
@@ -3476,6 +3790,10 @@ def main(argv=None) -> int:
           f"{main_k['plain_ms']:.4f} ms, f32 bound {main_k['bound_ms']:.4f} "
           f"ms ({main_k['ops'] / 1e9:.3f} GFLOP, "
           f"{main_k['bytes'] / 1e6:.3f} MB) [{card}]")
+    t0 = time.perf_counter()
+    k3f_grid_phase(full, spec, batch, args.seed, args.repeats, builds, card,
+                   "full width, synthetic")
+    print(f"phase wall: K3f grid builds {time.perf_counter() - t0:.1f} s")
     full_train = dict(full, dropout_ps=(0.1,) * 4)
     train_k = train_kernels_vs_plain(full_train, spec, batch, args.seed,
                                      args.repeats)
@@ -3485,8 +3803,12 @@ def main(argv=None) -> int:
     print_bf16("full width, dropout 0.1, synthetic", bf16_k, card)
     k2_grid_phase(card)
     t0 = time.perf_counter()
-    k2_phases_phase(card, stamped_build)
+    k2_phases_phase(card, builds["K2 stamped"])
     print(f"phase wall: tools/k2_phases.py {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    k3f_phases_phase(card, builds)
+    print(f"phase wall: tools/k2_phases.py --forward "
+          f"{time.perf_counter() - t0:.1f} s")
     for act in ("SiLU", "GELU"):
         k = train_kernels_vs_plain(dict(full_train, activation=act), spec,
                                    batch, args.seed, 0)
@@ -3560,6 +3882,8 @@ def main(argv=None) -> int:
               f"{req_k['rel_err']:.3e}; kernel {req_k['ms']:.4f} ms, plain "
               f"{req_k['plain_ms']:.4f} ms, f32 bound "
               f"{req_k['bound_ms']:.4f} ms [{card}]")
+        k3f_grid_phase(full, spec, batch, args.seed, args.repeats, builds,
+                       card, "request batch")
         print_bf16("request batch, full width, dropout 0.1",
                    bf16_kernels_vs_plain(full_train, spec, batch, args.seed,
                                          args.repeats), card)
@@ -3621,7 +3945,12 @@ def main(argv=None) -> int:
     p2 = mm_probe_phase(args.seed, card)
 
     # edge partitioning: every shard of a step in this process
-    ep_k = {n: ep_kernels(args.seed, lay_reps, n) for n in (2, 4)}
+    earlier = (earlier_k11(builds["K11 earlier"](),
+                           args.parent / "gather_linear.cu")
+               if args.parent else None)
+    ep_k = {n: ep_kernels(args.seed, lay_reps, n, k11_split=True,
+                          earlier=earlier)
+            for n in (2, 4)}
     for n, k in ep_k.items():
         print_ep_kernels(f"full width, wired batch, n_ep {n}", k, card)
     for n in (2, 4):
@@ -3638,7 +3967,8 @@ def main(argv=None) -> int:
     ep_step_times(args.seed, card)
     # EP at bf16, K6's linear activation, K12, --ep_rdma and --ep_overlap
     t0 = time.perf_counter()
-    ep_k16 = ep_kernels(args.seed, lay_reps, 2, dtype=BF16)
+    ep_k16 = ep_kernels(args.seed, lay_reps, 2, dtype=BF16, k11_split=True,
+                        earlier=earlier)
     print_ep_kernels("full width, wired batch, n_ep 2", ep_k16, card)
     print(f"phase wall: bf16 K8-K11 and K6 linear "
           f"{time.perf_counter() - t0:.1f} s")
@@ -3653,12 +3983,22 @@ def main(argv=None) -> int:
     print(f"phase wall: tools/profile_ep.py {time.perf_counter() - t0:.1f} s")
     with tempfile.TemporaryDirectory() as tmp:
         training_data(Path(tmp), args.seed)
-        ep_cli = ep_cli_phase(Path(tmp), args.seed, card)
-        t0 = time.perf_counter()
-        ep_cli16 = ep_cli_phase(Path(tmp), args.seed, card, BF16)
+        # K11's inputs where the main paths launch it: --ep 2 validation
+        # on the corpus and the wired training runs
+        k11_runs = {"--ep 2 validation": K11Recorder(),
+                    "wired training": K11Recorder()}
+        with k11_runs["--ep 2 validation"]:
+            ep_cli = ep_cli_phase(Path(tmp), args.seed, card)
+            t0 = time.perf_counter()
+            ep_cli16 = ep_cli_phase(Path(tmp), args.seed, card, BF16)
         print(f"phase wall: --ep 2 --compute_dtype bfloat16 CLI "
               f"{time.perf_counter() - t0:.1f} s")
-        ep_wired = ep_train_wired(Path(tmp), args.seed, card)
+        with k11_runs["wired training"]:
+            ep_wired = ep_train_wired(Path(tmp), args.seed, card)
+    t0 = time.perf_counter()
+    k11_main_path(k11_runs, lay_reps, earlier, card)
+    print(f"phase wall: K11 at the main paths' shapes "
+          f"{time.perf_counter() - t0:.1f} s")
     print(f"train steps/s per epoch (StepTimer), README model on the corpus:"
           f" --ep 2 {ep_cli['steps_per_s']}, at bf16 "
           f"{ep_cli16['steps_per_s']}, against the single-device run's "

@@ -233,7 +233,8 @@ def test_train_kernel_is_deterministic(cuda):
 def _packs_case(cuda, p, act, aggr, pooling, drop, seed=3):
     """_train_case's model (depth 3, hidden 40, 78 node features) on the
     fewest synthetic graphs that fill exactly ``p`` packs (p = "many": more
-    packs than the grid's blocks take in one round of a tile phase)."""
+    packs than the grid's blocks take in one round of a tile phase;
+    "waves": more than two rounds of K3f's grid)."""
     def packed(graphs):
         spec = plan_spec(graphs, te=256, tn=128, tb=16)
         n = packs_needed(graphs, spec)
@@ -242,7 +243,15 @@ def _packs_case(cuda, p, act, aggr, pooling, drop, seed=3):
         return spec.with_packs(n)
 
     rng = np.random.default_rng(seed)
-    if p == "many":     # 4 tiles a pack at hidden 40
+    if p == "waves":    # more than two rounds of K3f's grid a tile phase
+        blocks, n = fm.fwd_grid(10**4, 256, 40, device=cuda)[0], 256
+        while True:
+            graphs = synthetic_graphs(n, rng, node_feat_dim=78)
+            spec = packed(graphs)
+            if spec.p * 4 > 2 * blocks:
+                break
+            n *= 2
+    elif p == "many":   # 4 tiles a pack at hidden 40
         graphs = synthetic_graphs(
             6 * (fm.bwd_grid(10**4, 256, 40, device=cuda)[0] // 4 + 20), rng,
             node_feat_dim=78)
@@ -353,7 +362,7 @@ def test_k2_grid_size_does_not_change_the_result(cuda):
     shipped = _build.load("fused_model_bwd")
     want = flat(run())
     defines = [{"CGR_GRID_BLOCKS": 7}, {k2_phases.DEFINE: None},
-               {"CGR_BWD_BLOCKS_PER_SM": 1}, {"CGR_BWD_BLOCKS_PER_SM": 2}]
+               {"CGR_BLOCKS_PER_SM": 1}, {"CGR_BLOCKS_PER_SM": 2}]
     with ThreadPoolExecutor(len(defines)) as pool:
         libs = list(pool.map(k2_phases.variant, defines))
     for d, lib in zip(defines, libs):
@@ -381,6 +390,186 @@ def test_k2_phases_tool(cuda, capsys):
         assert names == set(k2_phases.PHASES[1:])
         assert sum(r["phases"].values()) == pytest.approx(r["span_ms"])
     assert "phases (ms, share of the span)" in capsys.readouterr().out
+
+
+# -- K3f as one cooperative grid over the card ------------------------------
+
+@pytest.mark.parametrize("train", [False, True], ids=["eval", "train"])
+@pytest.mark.parametrize("mat_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("p", [1, 4, "waves"])
+def test_k3f_grid_matches_plain(cuda, p, mat_dtype, train):
+    """K3f, one cooperative grid whatever p, against its plain version at
+    p = 1, 4 and more than two rounds of the grid, eval and train mode
+    (dropout 0.1, add/add, learnable skips): f32 at 1e-4, bf16 within
+    rel-L2 5e-3 of the bf16 plain version and by its share against the f32
+    plain version; a rerun bit for bit."""
+    spec, batch, args, _, _, kw = _packs_case(
+        cuda, p, "ReLU", "add", "add", 0.1 if train else 0.0)
+    if p != "waves":
+        assert spec.p == p
+    kw = dict(kw, mat_dtype=mat_dtype)
+    before = fm.bf16_launches if mat_dtype == "bfloat16" else fm.launches
+    with torch.no_grad():
+        got = fm.fused_model_forward(*args, **kw)
+        again = fm.fused_model_forward(*args, **kw)
+        want = fm.fused_model_forward_ref(*args, **kw)
+        want32 = fm.fused_model_forward_ref(*args,
+                                            **dict(kw, mat_dtype="float32"))
+    torch.cuda.synchronize()
+    after = fm.bf16_launches if mat_dtype == "bfloat16" else fm.launches
+    assert after == before + 2
+    assert torch.equal(got, again)
+    real = batch.graph_mask > 0
+    got, want, want32 = got[real], want[real], want32[real]
+    assert bool(torch.isfinite(got).all())
+    if mat_dtype == "float32":
+        assert _rel(got, want) <= 1e-4
+    else:
+        assert _rel_l2([got], [want]) <= 5e-3
+        assert _share([got], [want], [want32]) <= 0.5
+
+
+def test_k3f_grid_size_does_not_change_the_predictions(cuda):
+    """K3f takes one block per SM at a request batch's four packs and two
+    at a large batch; builds of its source forced to one or two blocks per
+    SM give the shipped build's predictions bit for bit (f32 and bf16,
+    eval and train mode, at p = 4 and more than two rounds of the grid).
+    chip_smoke.py holds a 7-block grid, test_k2_phases_forward_mode the
+    phase-clock build."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from cgr_mpnn_3d_tpu_torch.ops import _build
+    from cgr_mpnn_3d_tpu_torch.tools import k2_phases
+    for md in ("float32", "bfloat16"):
+        grid, per_sm, sms = fm.fwd_grid(4, 256, 400, md, cuda)
+        assert (grid, per_sm) == (sms, 1)
+        grid, per_sm, sms = fm.fwd_grid(436, 256, 400, md, cuda)
+        assert (grid, per_sm) == (2 * sms, 2)
+    cases = [_packs_case(cuda, p, "ReLU", "add", "add", 0.1)
+             for p in (4, "waves")]
+
+    def run():
+        out = []
+        with torch.no_grad():
+            for _, _, args, _, _, kw in cases:
+                for md in ("float32", "bfloat16"):
+                    for train in (False, True):
+                        k = dict(kw, mat_dtype=md)
+                        if not train:
+                            k.update(train=False, seeds=None, dropout_ps=())
+                        out.append(fm.fused_model_forward(*args, **k))
+        return out
+    shipped = _build.load("fused_model_fwd")
+    want = run()
+    assert all(torch.equal(x, y) for x, y in zip(run(), want))
+    src = _build.CSRC / "fused_model_fwd.cu"
+    defines = [{"CGR_BLOCKS_PER_SM": 1}, {"CGR_BLOCKS_PER_SM": 2}]
+    with ThreadPoolExecutor(len(defines)) as pool:
+        libs = list(pool.map(lambda d: k2_phases.variant(d, src), defines))
+    for d, lib in zip(defines, libs):
+        _build._libs["fused_model_fwd"] = lib
+        try:
+            got = run()
+        finally:
+            _build._libs["fused_model_fwd"] = shipped
+        assert all(torch.equal(x, y) for x, y in zip(got, want)), d
+
+
+def test_k2_phases_forward_mode(cuda, capsys):
+    """tools/k2_phases.py --forward at a small size: K3f's forward phases
+    are stamped, the stamped build equals the shipped one, and the
+    wrapper's library is the shipped one again afterwards."""
+    from cgr_mpnn_3d_tpu_torch.ops import _build
+    from cgr_mpnn_3d_tpu_torch.tools import k2_phases
+    shipped = _build.load("fused_model_fwd")
+    out = k2_phases.main(["--forward", "--small", "20", "--graphs", "60",
+                          "--repeats", "2"])
+    assert _build.load("fused_model_fwd") is shipped
+    assert len(out) == 4 and all(r["equal"] for r in out.values())
+    for r in out.values():
+        names = {k.split("[")[0] for k in r["phases"]}
+        assert names == set(k2_phases.PHASES[1:7])
+        assert sum(r["phases"].values()) == pytest.approx(r["span_ms"])
+    assert "K3f float32" in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("forward", [False, True], ids=["K2", "K3f"])
+def test_bwd_registers_tool(cuda, forward, capsys):
+    """tools/bwd_registers.py at a small size, for K2 and with --forward
+    for K3f: the builds forced to one and two blocks per SM give the
+    shipped build's outputs bit for bit, each build is timed twice at each
+    case, and the wrapper's library is the shipped one again."""
+    from cgr_mpnn_3d_tpu_torch.ops import _build
+    from cgr_mpnn_3d_tpu_torch.tools import bwd_registers
+    name = "fused_model_fwd" if forward else "fused_model_bwd"
+    shipped = _build.load(name)
+    out = bwd_registers.main(["--small", "20", "--graphs", "60", "--repeats",
+                              "2"] + (["--forward"] if forward else []))
+    assert _build.load(name) is shipped
+    assert len(out["equal"]) == 4 and all(out["equal"].values())
+    assert all(len(v) == 2 for ms in out["ms"].values() for v in ms.values())
+    assert ("K3f" if forward else "K2") + " float32" in capsys.readouterr().out
+
+
+def _pool_case(cuda, seed, p=2, R=150, ca=200, GP=3, DN=150, H=40, F=24):
+    """K11's forward inputs at small width with a pool ELL of DN entries a
+    group (more than one chunk): group 0 of each pack every row of its pack
+    in a seeded order, group 1 a few rows then sentinels, the rest rows of
+    the other pack (out of pack) between sentinels."""
+    gen = torch.Generator().manual_seed(seed)
+
+    def rand(*shape, scale=1.0):
+        return (torch.randn(shape, generator=gen) * scale).to(cuda)
+    idx = torch.randint(0, ca, (p * R, 3), generator=gen)
+    idx += (torch.arange(p * R) // R * ca)[:, None]
+    idx[::7, 2] = p * ca                            # sentinels
+    ell = torch.full((p * GP, DN), p * R, dtype=torch.int64)
+    for q in range(p):
+        ell[q * GP, :R] = torch.randperm(R, generator=gen) + q * R
+        ell[q * GP + 1, :5] = torch.arange(5) + q * R
+        other = ((q + 1) % p) * R
+        ell[q * GP + 2, 1::3] = torch.arange(len(range(1, DN, 3))) + other
+        ell[q * GP + 2, ::17] = torch.arange(len(range(0, DN, 17))) + q * R
+    node_group = (torch.arange(p * R) // R * GP).to(torch.int32)
+    ins = (rand(p * ca, H), rand(p * R, H, scale=0.5), rand(p * R, F),
+           idx.to(torch.int32).to(cuda), node_group.to(cuda),
+           ell.to(torch.int32).to(cuda))
+    ws = (rand(H, H, scale=H ** -0.5), rand(F, H, scale=F ** -0.5),
+          rand(H, scale=0.1))
+    return ins, ws
+
+
+@pytest.mark.parametrize("DN", [150, 32, 7])
+@pytest.mark.parametrize("mat_dtype", ["float32", "bfloat16"])
+def test_k11_split_pool_matches_plain(cuda, DN, mat_dtype):
+    """K11's forward, its group pool an ordered split sum over chunks of
+    the pool ELL (a group longer than one chunk, with sentinel and
+    out-of-pack entries; one chunk exactly; fewer entries than a chunk),
+    against the plain version: f32 at 1e-4, bf16 within rel-L2 5e-3 of the
+    bf16 plain version and by its share against the f32 one; reruns bit
+    for bit."""
+    from cgr_mpnn_3d_tpu_torch.ops import gather_linear as gl
+    ins, ws = _pool_case(cuda, 21, R=150 if DN == 150 else DN, DN=DN)
+    if mat_dtype == "bfloat16":
+        ins = (ins[0].bfloat16(), ins[1], ins[2].bfloat16(), *ins[3:])
+    kw = dict(p=2, act="relu", mat_dtype=mat_dtype)
+    with torch.no_grad():
+        got = gl.gather_linear_pool_forward(*ins, *ws, **kw)
+        again = gl.gather_linear_pool_forward(*ins, *ws, **kw)
+        want = gl.gather_linear_pool_forward_ref(*ins, *ws, **kw)
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, y) for x, y in zip(got, again))
+    assert gl.pool_chunks(DN) == -(-DN // gl.POOL_CHUNK)
+    if mat_dtype == "float32":
+        assert _rel(got[0], want[0]) <= 1e-4
+        assert _rel(got[1], want[1]) <= 1e-4
+        return
+    f32 = [t.float() if t.is_floating_point() else t for t in ins]
+    with torch.no_grad():
+        want32 = gl.gather_linear_pool_forward_ref(
+            *f32, *ws, **dict(kw, mat_dtype="float32"))
+    assert _rel_l2([got[1]], [want[1]]) <= 5e-3
+    assert _share([got[1]], [want[1]], [want32[1]]) <= 0.5
 
 
 # -- the layered kernels (K7, K5, K4) ---------------------------------------

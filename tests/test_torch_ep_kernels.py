@@ -179,6 +179,71 @@ def test_gather_linear_r_plain_matches_jax(shard, act, mean, pool):
                                    **TOL)
 
 
+@pytest.fixture(scope="module")
+def long_shard():
+    """The most-wired shard of a 2-shard batch whose 200-atom chain makes
+    a group of 100 pool entries (four chunks of K11's split pool), from
+    both packers, and a seeded rng."""
+    rng = np.random.default_rng(12)
+    graphs = [chain_graph(200, rng, NF)] + synthetic_graphs(
+        6, rng, node_feat_dim=NF)
+    labels = [0.3 * i for i in range(len(graphs))]
+    bj, sj = jep.pack_shard_edges(graphs, labels, 2, te=64, tn=32)
+    bt, st = tep.pack_shard_edges(graphs, labels, 2, te=64, tn=32)
+    assert vars(sj) == vars(st) and any(st.caps)
+    k = int(np.argmax(bt.halo_mask.sum(axis=1)))
+    local_j = jax.tree_util.tree_map(lambda v: jnp.asarray(v[k]), bj)
+    local_t = tep.EPPackedBatch(*(torch.as_tensor(a[k]) for a in bt))
+    return st, local_j, local_t, np.random.default_rng(6)
+
+
+@pytest.mark.parametrize("act,mean", [("relu", False), ("gelu", True)])
+def test_gather_linear_pool_plain_matches_jax_on_a_long_group(long_shard,
+                                                              act, mean):
+    """K11's forward (readout and group pool) on a shard whose chain group
+    spans several chunks of the card's split pool, padded with sentinels:
+    the plain version, which the card holds the kernel to, against JAX's
+    Pallas K11 in interpret mode."""
+    spec, bj, bt, rng = long_shard
+    DN = bt.pool_ell.shape[1]
+    real = (bt.pool_ell < spec.pn).sum(dim=1)
+    assert gl.pool_chunks(DN) > 2 and int(real.max()) > 2 * gl.POOL_CHUNK
+    assert int(real.min()) < DN
+    PE, PN = spec.pe, spec.pn
+    xa, xr, xb = _rand(rng, PE, H), _rand(rng, PN, H), _rand(rng, PN, NF)
+    wa, wb = _rand(rng, H, H, scale=0.2), _rand(rng, NF, H, scale=0.2)
+    b = _rand(rng, H, scale=0.1)
+    gspec = GatherLinearSpec(p=spec.p, d_nbr=spec.d, mat_dtype=jnp.float32,
+                             out_dtype=jnp.float32, interpret=True,
+                             gp=spec.gp, act=act,
+                             aggr="mean" if mean else "add")
+    ng = jnp.full((spec.p, 8, spec.tn), spec.p * spec.gp, jnp.int32)
+    ng = ng.at[:, 0, :].set(bj.node_group.reshape(spec.p, spec.tn))
+    ng = ng.reshape(spec.p * 8, spec.tn)
+    want = jax.jit(lambda *a: fused_gather_linear_pool(gspec, *a))(
+        xa, xr, xb, bj.inc_t, ng, wa, wb, b)
+    got = gl.gather_linear_pool_forward(
+        *(torch.from_numpy(a) for a in (xa, xr, xb)), bt.node_inc,
+        bt.node_group, bt.pool_ell, *(torch.from_numpy(a) for a in (wa, wb,
+                                                                   b)),
+        p=spec.p, act=act, mean=mean)
+    _close(got[0], want[0])
+    _close(got[1], want[1])
+
+
+@pytest.mark.parametrize("DN,chunks", [(1, 1), (31, 1), (32, 1), (33, 2),
+                                       (100, 4), (4800, 150)])
+def test_pool_chunks_match_the_kernel(DN, chunks):
+    """The chunks of K11's split pool depend on DN alone, and the wrapper's
+    chunk width is the kernel's kPoolChunk (which refuses another count)."""
+    import re
+    from cgr_mpnn_3d_tpu_torch.ops import _build
+    src = (_build.CSRC / "gather_linear.cu").read_text()
+    width = int(re.search(r"constexpr int kPoolChunk = (\d+);", src).group(1))
+    assert gl.POOL_CHUNK == width
+    assert gl.pool_chunks(DN) == chunks == max(1, -(-DN // width))
+
+
 def test_wrappers_refuse_bf16_and_bad_shapes(shard):
     """K8-K11 take the dtypes of their mat_dtype only (bf16 states at
     bf16, never f16; r and xr f32 at both), and check their shapes."""

@@ -275,21 +275,31 @@ def test_train_mode_checks(packed):
 
 
 def test_k2_phases_tool_matches_the_source():
-    """tools/k2_phases.py's define and phase table are the kernel's: the
-    phase clock sits under ``#ifdef DEFINE`` (the shipped build, which no
-    flag of ops/_build.py defines, stamps nothing), the source's table
-    equals PHASES, and the stamps run through its ids in order."""
+    """tools/k2_phases.py's define and phase table are the kernels': the
+    phase clock sits under ``#ifdef DEFINE`` in fused_model_grid.cuh (the
+    shipped builds, which no flag of ops/_build.py defines, stamp
+    nothing), its table equals PHASES, and the stamps run through its ids
+    in order: K2's (fused_model_bwd.cu around the shared forward phases)
+    through every id, K3f's (fused_model_fwd.cu) through the forward's."""
     import re
     from cgr_mpnn_3d_tpu_torch.ops import _build
     from cgr_mpnn_3d_tpu_torch.tools import k2_phases
-    src = (_build.CSRC / "fused_model_bwd.cu").read_text()
-    start = src.index(f"#ifdef {k2_phases.DEFINE}\n")
-    clock = src[start:src.index("#endif", start)]
+    grid = (_build.CSRC / "fused_model_grid.cuh").read_text()
+    start = grid.index(f"#ifdef {k2_phases.DEFINE}\n")
+    clock = grid[start:grid.index("#else\n#define CGR_STAMP", start)]
     table = re.search(r"kPhaseNames\[\] = \{(.*?)\};", clock, re.S).group(1)
     assert tuple(re.findall(r'"([^"]+)"', table)) == k2_phases.PHASES
     assert "#define CGR_STAMP(id, layer) phase_stamp(id, layer)" in clock
-    assert "#else\n#define CGR_STAMP(id, layer)\n#endif" in src
-    ids = [int(i) for i in re.findall(r"CGR_STAMP\((\d+), ", src)]
-    assert ids == list(range(len(k2_phases.PHASES)))
+    assert "#else\n#define CGR_STAMP(id, layer)\n#endif" in grid
+
+    def ids(text):
+        return [int(i) for i in re.findall(r"CGR_STAMP\((\d+), ", text)]
+    shared = ids(grid[grid.index("void forward_phases("):])
+    bwd = (_build.CSRC / "fused_model_bwd.cu").read_text()
+    fwd = (_build.CSRC / "fused_model_fwd.cu").read_text()
+    for src, last in ((bwd, len(k2_phases.PHASES)), (fwd, 7)):
+        assert "forward_phases<kBf16>(" in src
+        head, tail = src.split("forward_phases<kBf16>(", 1)
+        assert ids(head)[-1:] + shared + ids(tail) == list(range(last))
+        assert "getenv" not in src
     assert not any(k2_phases.DEFINE in f for f in _build.NVCC_FLAGS)
-    assert "getenv" not in src
