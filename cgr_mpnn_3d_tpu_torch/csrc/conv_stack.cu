@@ -23,14 +23,15 @@
 // all L layers.  A te x H f32 state (400 KB at te = 256, H = 400) does not
 // fit a block's 227 KB of shared memory, and messages gather rows from all
 // over the pack, so here every layer is two grid-wide launches over the
-// whole batch: the message gather (layered_common.cuh::gather_kernel) into
-// a scratch t, then the product t·W[l] as one 64 x 64 output tile per
-// block with bias, skip, activation and dropout in its epilogue
-// (LayerEpi, which takes the pack of a row from the row index, never from
-// blockIdx).  The launch boundary is the grid-wide barrier that the layer
-// dependency needs, and every SM works at any p.  The layer and its
-// backward steps are layered_common.cuh's conv_layer, dpre_kernel and
-// conv_layer_bwd, which fused_conv.cu (K6, one layer) runs too.
+// whole batch: one cooperative launch (conv_grid.cuh::conv_layer) of the
+// message gather into a scratch t, a grid barrier, then the product
+// t·W[l] as output tiles with bias, skip, activation and dropout in their
+// epilogue (LayerEpi, which takes the pack of a row from the row index,
+// never from blockIdx).  The launch boundary is the barrier that the
+// layer dependency needs, and every SM works at any p.  The layer and its
+// backward steps are conv_grid.cuh's conv_layer and conv_layer_bwd and
+// layered_common.cuh's dpre_kernel, which fused_conv.cu (K6, one layer)
+// runs too (its dpre as a phase of its one launch).
 //
 // Backward (pallas_stack.py:96-157): the replay keeps every layer's t and
 // pre-activation in scratch (L·p·te·H of each, 1.4 GB in f32 at 436 packs
@@ -49,7 +50,7 @@
 // in bf16): bound by the products -- f32 FMA throughput outside the tensor
 // cores, or the bf16 tensor-core rate -- not by memory.
 
-#include "layered_common.cuh"
+#include "conv_grid.cuh"
 
 namespace {
 
@@ -68,17 +69,23 @@ struct StackArgs {
   }
 };
 
-// Layer l of the forward (layered_common.cuh::conv_layer): h_out =
-// layer(messages(h_in)); the pre-activation goes to `pre` when it is set.
+// Layer l of the forward (conv_grid.cuh::conv_layer): h_out =
+// layer(messages(h_in)); the pre-activation goes to `pre` when it is set;
+// w16 is scratch for W[l] rounded to bf16 (null at f32).  Returns 0 or a
+// CUDA error code.
 template <bool kBf16>
-void layer(const StackArgs<kBf16>& a, int l, const Elem<kBf16>* h_in,
-           Elem<kBf16>* t, float* pre, Elem<kBf16>* h_out, float* rscale,
-           cudaStream_t st) {
+int layer(const StackArgs<kBf16>& a, int l, const Elem<kBf16>* h_in,
+          Elem<kBf16>* t, Elem<kBf16>* w16, float* pre, Elem<kBf16>* h_out,
+          float* rscale, cudaStream_t st) {
   const size_t HH = static_cast<size_t>(a.H) * a.H;
-  conv_layer<kBf16>(a.graph(), h_in, a.H, a.w + l * HH,
-                    a.b + static_cast<size_t>(l) * a.H, a.skips + l, a.h0,
-                    a.H, a.act, a.drop, a.L, l, t, pre, h_out, rscale, st);
+  return conv_layer<kBf16>(a.graph(), h_in, a.H, a.w + l * HH,
+                           a.b + static_cast<size_t>(l) * a.H, a.skips + l,
+                           a.h0, a.H, a.act, a.drop, a.L, l, t, w16, pre,
+                           h_out, rscale, st);
 }
+
+// The first error of a sequence of launches.
+inline int first(int err, int next) { return err != 0 ? err : next; }
 
 // out = acc + g over n elements, stored as E (out may be acc).
 template <class E>
@@ -92,12 +99,14 @@ __global__ void finish_kernel(E* out, const float* acc, const float* g,
 
 // The backward's scratch: ts [L, rows, H] and h, dt [rows, H] as Elem;
 // pres [L, rows, H], g [rows, H], the dh0 sum [rows, H] (bf16 only: f32
-// sums into dh0 itself), escale [rows], the weight partials [S, H, H] and
-// the dskip partials [kReduceBlocks, L] as f32.
+// sums into dh0 itself), escale [rows] and the dskip partials
+// [kReduceBlocks, L] as f32; a layer's product partials and bf16 copies
+// (conv_grid.cuh::ConvParts).
 template <bool kBf16>
 struct Scratch {
   Elem<kBf16> *ts, *h, *dt;
-  float *pres, *g, *dacc, *escale, *wpart, *dpart;
+  float *pres, *g, *dacc, *escale, *dpart;
+  ConvParts<kBf16> parts;
   size_t bytes;
 };
 
@@ -114,21 +123,26 @@ Scratch<kBf16> scratch_of(void* base, int p, int te, int H, int L, int S) {
   s.g = c.take<float>(rH);
   s.dacc = kBf16 ? c.take<float>(rH) : nullptr;
   s.escale = c.take<float>(rows);
-  s.wpart = c.take<float>(static_cast<long long>(S) * H * H);
   s.dpart = c.take<float>(static_cast<long long>(kReduceBlocks) * L);
+  s.parts = carve_parts<kBf16>(c, S, rows, H, H);
   s.bytes = c.used;
   return s;
 }
 
+// t: ops/fused_conv.py::fwd_scratch_elems(rows, H, H) elements.
 template <bool kBf16>
-void forward(const StackArgs<kBf16>& a, Elem<kBf16>* t, Elem<kBf16>* out,
-             cudaStream_t st) {
+int forward(const StackArgs<kBf16>& a, Elem<kBf16>* t, Elem<kBf16>* out,
+            cudaStream_t st) {
+  Elem<kBf16>* w16 = conv_fwd_w16<kBf16>(t, a.rows(), a.H);
+  int err = 0;
   for (int l = 0; l < a.L; ++l)
-    layer(a, l, l == 0 ? a.h0 : out, t, nullptr, out, nullptr, st);
+    err = first(err, layer(a, l, l == 0 ? a.h0 : out, t, w16, nullptr, out,
+                           nullptr, st));
+  return err;
 }
 
 template <bool kBf16>
-void backward(const StackArgs<kBf16>& a, const int* edge_nbr_rev,
+int backward(const StackArgs<kBf16>& a, const int* edge_nbr_rev,
               const Elem<kBf16>* g_out, Elem<kBf16>* dh0, float* dw,
               float* db, float* dskip, void* scratch, int S,
               cudaStream_t st) {
@@ -140,9 +154,11 @@ void backward(const StackArgs<kBf16>& a, const int* edge_nbr_rev,
   float* dacc = kBf16 ? s.dacc : reinterpret_cast<float*>(dh0);
 
   // replay, keeping every layer's messages and pre-activations
+  int err = 0;
   for (int l = 0; l < L; ++l)
-    layer(a, l, l == 0 ? a.h0 : s.h, s.ts + l * rH, s.pres + l * rH, s.h,
-          l == 0 ? s.escale : nullptr, st);
+    err = first(err, layer(a, l, l == 0 ? a.h0 : s.h, s.ts + l * rH,
+                           s.parts.w16, s.pres + l * rH, s.h,
+                           l == 0 ? s.escale : nullptr, st));
 
   const ConvGraph gr = a.graph();
   for (int l = L - 1; l >= 0; --l) {
@@ -156,18 +172,21 @@ void backward(const StackArgs<kBf16>& a, const int* edge_nbr_rev,
           s.g, dpre, nullptr, dpre, a.h0, dacc, 1, a.skips + l, a.drop, L, l,
           a.act, a.te, H, rH, s.dpart);
     // dW[l], db[l], and g = the messages' adjoint applied to dpre·W[l]ᵀ
-    conv_layer_bwd<kBf16>(gr, edge_nbr_rev, s.ts + l * rH, H, dpre, H,
-                          a.w + l * HH, s.escale, S, s.wpart, s.dt, s.g,
-                          dw + l * HH, db + static_cast<size_t>(l) * H, st);
+    err = first(err, conv_layer_bwd<kBf16>(
+                         gr, edge_nbr_rev, s.ts + l * rH, H, dpre, H,
+                         a.w + l * HH, s.escale, S, s.parts, s.dt, s.g,
+                         dw + l * HH, db + static_cast<size_t>(l) * H, st));
   }
   finish_kernel<E><<<2048, 256, 0, st>>>(dh0, dacc, s.g, rH);
   launch_sum(s.dpart, kReduceBlocks, L, dskip, st);
+  return err;
 }
 
 }  // namespace
 
-// out [p·te, H] (the last layer's state); t [p·te, H] is scratch; both of
-// h0's type (f32, or bf16 with mat = 1).
+// out [p·te, H] (the last layer's state); t is scratch of
+// ops/fused_conv.py::fwd_scratch_elems(p·te, H, H, mat) elements; both of
+// h0's type (f32, or bf16 with mat = 1).  One cooperative launch a layer.
 extern "C" int cgr_conv_stack_fwd(const void* h0, const int* edge_nbr,
                                   const int* rev, const float* w,
                                   const float* b, const float* skips,
@@ -175,17 +194,20 @@ extern "C" int cgr_conv_stack_fwd(const void* h0, const int* edge_nbr,
                                   int te, int H, int L, int D, int act,
                                   int mean, int mat, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  int err = 0;
   if (mat) {
     using E = Elem<true>;
-    forward(StackArgs<true>{static_cast<const E*>(h0), edge_nbr, rev, w, b,
-                            skips, drop, p, te, H, L, D, act, mean},
-            static_cast<E*>(t), static_cast<E*>(out), st);
+    err = forward(StackArgs<true>{static_cast<const E*>(h0), edge_nbr, rev,
+                                  w, b, skips, drop, p, te, H, L, D, act,
+                                  mean},
+                  static_cast<E*>(t), static_cast<E*>(out), st);
   } else {
-    forward(StackArgs<false>{static_cast<const float*>(h0), edge_nbr, rev, w,
-                             b, skips, drop, p, te, H, L, D, act, mean},
-            static_cast<float*>(t), static_cast<float*>(out), st);
+    err = forward(StackArgs<false>{static_cast<const float*>(h0), edge_nbr,
+                                   rev, w, b, skips, drop, p, te, H, L, D,
+                                   act, mean},
+                  static_cast<float*>(t), static_cast<float*>(out), st);
   }
-  return static_cast<int>(cudaGetLastError());
+  return err != 0 ? err : static_cast<int>(cudaGetLastError());
 }
 
 // Bytes of the backward's scratch.
@@ -207,19 +229,22 @@ extern "C" int cgr_conv_stack_bwd(const void* h0, const int* edge_nbr,
                                   int p, int te, int H, int L, int D, int act,
                                   int mean, int S, int mat, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  int err = 0;
   if (mat) {
     using E = Elem<true>;
-    backward(StackArgs<true>{static_cast<const E*>(h0), edge_nbr, rev, w, b,
-                             skips, drop, p, te, H, L, D, act, mean},
-             edge_nbr_rev, static_cast<const E*>(g_out), static_cast<E*>(dh0),
-             dw, db, dskip, scratch, S, st);
+    err = backward(StackArgs<true>{static_cast<const E*>(h0), edge_nbr, rev,
+                                   w, b, skips, drop, p, te, H, L, D, act,
+                                   mean},
+                   edge_nbr_rev, static_cast<const E*>(g_out),
+                   static_cast<E*>(dh0), dw, db, dskip, scratch, S, st);
   } else {
-    backward(StackArgs<false>{static_cast<const float*>(h0), edge_nbr, rev,
-                              w, b, skips, drop, p, te, H, L, D, act, mean},
-             edge_nbr_rev, static_cast<const float*>(g_out),
-             static_cast<float*>(dh0), dw, db, dskip, scratch, S, st);
+    err = backward(StackArgs<false>{static_cast<const float*>(h0), edge_nbr,
+                                    rev, w, b, skips, drop, p, te, H, L, D,
+                                    act, mean},
+                   edge_nbr_rev, static_cast<const float*>(g_out),
+                   static_cast<float*>(dh0), dw, db, dskip, scratch, S, st);
   }
-  return static_cast<int>(cudaGetLastError());
+  return err != 0 ? err : static_cast<int>(cudaGetLastError());
 }
 
 extern "C" const char* cgr_cuda_error_string(int code) {

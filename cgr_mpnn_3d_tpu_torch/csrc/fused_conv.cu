@@ -29,25 +29,27 @@
 // pre-activations).  act may be linear (the identity, derivative 1) here
 // and in no other kernel.
 //
-// Design.  One layer of K4 (conv_stack.cu), with h ≠ h0 and Hin ≠ H
-// allowed, through the same layered_common.cuh steps: conv_layer (the
-// message gather writes t to device scratch, then the product t·W runs as
-// one 64 x 64 output tile per block over the whole batch with bias, skip,
-// activation and dropout in its epilogue, the pack of a row taken from
-// the row index, never from blockIdx), dpre_kernel and conv_layer_bwd.
-// The backward recomputes t (and, for mean, each row's scale), takes
-// dpre from the saved output (ReLU) or the dropped cotangent (linear),
-// with no product, or from the recomputed pre-activation (SiLU, GELU),
-// and gathers the adjoint through the transposed ELL array edge_nbr_rev,
-// each entry scaled by its forward row's scale, minus the rev row.  dW and db are split-K partials over
-// fixed row ranges, dskip per-block partials, each summed in order by a
-// second launch: no float atomics, so reruns are bit-identical.
+// Design (conv_grid.cuh).  Each direction is one cooperative launch over
+// the whole card, phases behind grid barriers: forward the message gather
+// (t to device scratch) then the product t·W as tiles over the whole
+// batch with bias, skip, activation and dropout in their epilogue (the
+// pack of a row taken from the row index, never from blockIdx); backward
+// the recomputed t (and, for mean, each row's scale; for SiLU and GELU the
+// pre-activation tiles), dpre from the saved output (ReLU), the dropped
+// cotangent (linear) or the pre-activation (SiLU, GELU) with dh0 and the
+// dskip partials, then dW's split-K partial tiles, db's column partials
+// and the tiles of dt = dpre·Wᵀ, then their sums in partial order and dh,
+// the adjoint gather through the transposed ELL array edge_nbr_rev, each
+// entry scaled by its forward row's scale, minus the rev row.  No float
+// atomics, so reruns are bit-identical, and every output has the bits of
+// the earlier design of two launches forward and nine to eleven backward.
+// The tiles are conv_grid.cuh's: cp.async rings, f32 FMA or bf16
+// mma.sync (ldmatrix) with W (and dpre) rounded to bf16 once per call.
 //
 // Bound.  2·rows·Hin·H multiply-adds forward against (Hin + 2·H) elements
 // per row (about three times the operations backward): at the model's
 // widths (H = 400) bound by the products -- f32 FMA throughput outside the
-// tensor cores, or the bf16 tensor-core rate -- not by memory.  The tile
-// loop is the simple one of fused_model_common.cuh (no wgmma, no TMA).
+// tensor cores, or the bf16 tensor-core rate -- not by memory.
 //
 // The edge-partitioned layer (K8, and K9 with the global mean scale), the
 // entry points cgr_fused_conv_r_*: the TPU kernels
@@ -71,7 +73,7 @@
 // pallas_fused.py:458-465 does.  The design and the bound are K6's, with
 // the r gather adding tn·Hin reads per pack.
 
-#include "layered_common.cuh"
+#include "conv_grid.cuh"
 
 namespace {
 
@@ -90,23 +92,15 @@ struct ConvArgs {
   }
 };
 
-// The layer (layered_common.cuh::conv_layer): t = messages(h) into
-// scratch, with each row's scale in rscale when set; then the output (of
-// type O) to `out` and the pre-activation to `pre`, each when set.
-template <bool kBf16, class O>
-void layer(const ConvArgs<kBf16>& a, Elem<kBf16>* t, float* pre, O* out,
-           float* rscale, cudaStream_t st) {
-  conv_layer<kBf16, O>(a.graph(), a.h, a.Hin, a.w, a.b, a.skip, a.h0, a.H,
-                       a.act, a.drop, 1, 0, t, pre, out, rscale, st);
-}
-
 // The backward's scratch: t and dt [rows, Hin] as Elem; dpre [rows, H],
-// rscale [rows], the split-K partials [S, Hin, H] and the dskip partials
-// [kReduceBlocks] as f32.
+// rscale [rows] and the dskip partials [kReduceBlocks] as f32; the
+// product's partials and bf16 copies (conv_grid.cuh::ConvParts, S split-K
+// partials).
 template <bool kBf16>
 struct Scratch {
   Elem<kBf16> *t, *dt;
-  float *dpre, *rscale, *wpart, *dpart;
+  float *dpre, *rscale, *dpart;
+  ConvParts<kBf16> parts;
   size_t bytes;
 };
 
@@ -120,8 +114,8 @@ Scratch<kBf16> scratch_of(void* base, int p, int te, int Hin, int H, int S) {
   s.dt = c.take<E>(rows * Hin);
   s.dpre = c.take<float>(rows * H);
   s.rscale = c.take<float>(rows);
-  s.wpart = c.take<float>(static_cast<long long>(S) * Hin * H);
   s.dpart = c.take<float>(kReduceBlocks);
+  s.parts = carve_parts<kBf16>(c, S, rows, Hin, H);
   s.bytes = c.used;
   return s;
 }
@@ -129,29 +123,6 @@ Scratch<kBf16> scratch_of(void* base, int p, int te, int Hin, int H, int S) {
 size_t scratch_bytes(int p, int te, int Hin, int H, int S, int mat) {
   return mat ? scratch_of<true>(nullptr, p, te, Hin, H, S).bytes
              : scratch_of<false>(nullptr, p, te, Hin, H, S).bytes;
-}
-
-// out and g are O (the state type, or f32 with out_f32).
-template <bool kBf16, class O>
-void backward(const ConvArgs<kBf16>& a, const int* edge_nbr_rev,
-              const O* out, const O* g, Elem<kBf16>* dh, Elem<kBf16>* dh0,
-              float* dw, float* db, float* dskip, void* scratch, int S,
-              cudaStream_t st) {
-  using E = Elem<kBf16>;
-  const Scratch<kBf16> s = scratch_of<kBf16>(scratch, a.p, a.te, a.Hin, a.H,
-                                             S);
-  // ReLU: dpre from the saved output; linear: the dropped cotangent, no
-  // product; SiLU, GELU: from the pre-activation, recomputed into dpre and
-  // overwritten in place
-  layer<kBf16, E>(a, s.t, needs_pre(a.act) ? s.dpre : nullptr, nullptr,
-                  a.mean ? s.rscale : nullptr, st);
-  dpre_kernel<O, E, E, O><<<kReduceBlocks, kThreads, 0, st>>>(
-      g, needs_pre(a.act) ? s.dpre : nullptr, a.act == kRelu ? out : nullptr,
-      s.dpre, a.h0, dh0, 0, a.skip, a.drop, 1, 0, a.act, a.te, a.H,
-      a.rows() * a.H, s.dpart);
-  conv_layer_bwd<kBf16>(a.graph(), edge_nbr_rev, s.t, a.Hin, s.dpre, a.H,
-                        a.w, s.rscale, S, s.wpart, s.dt, dh, dw, db, st);
-  if (dskip != nullptr) launch_sum(s.dpart, kReduceBlocks, 1, dskip, st);
 }
 
 template <bool kBf16>
@@ -165,98 +136,178 @@ ConvArgs<kBf16> args_of(const void* h, const void* h0, const int* edge_nbr,
                          act, mean};
 }
 
+// The layer (conv_grid.cuh::conv_layer): t = messages(h) into the
+// scratch (t, then W rounded to bf16 at bf16), the output (of type O) to
+// `out`.
+template <bool kBf16, class O>
+int layer(const ConvArgs<kBf16>& a, Elem<kBf16>* t, O* out, cudaStream_t st) {
+  return conv_layer<kBf16, O>(a.graph(), a.h, a.Hin, a.w, a.b, a.skip, a.h0,
+                              a.H, a.act, a.drop, 1, 0, t,
+                              conv_fwd_w16<kBf16>(t, a.rows(), a.Hin), nullptr,
+                              out, nullptr, st);
+}
+
+// The backward's arguments that K6 and K8/K9 share: t recomputed by `msg`
+// (the pre-activation too for SiLU and GELU), dpre from g (and the saved
+// output for ReLU), then the products, sums and dh's gather, each when
+// its output is set.  The rows' scales of the adjoint are `scale` (K9) or
+// the recomputed mean scales.
+template <bool kBf16, class O>
+ConvBwdArgs<kBf16, O, Elem<kBf16>> bwd_args(
+    const ConvArgs<kBf16>& a, const GatherArgs<Elem<kBf16>, Elem<kBf16>>& msg,
+    const int* edge_nbr_rev, const float* scale, const O* out, const O* g,
+    Elem<kBf16>* dh, Elem<kBf16>* dh0, float* dw, float* db, float* dskip,
+    const Scratch<kBf16>& s, int S, bool want_dt) {
+  using E = Elem<kBf16>;
+  const bool pre = needs_pre(a.act);
+  ConvBwdArgs<kBf16, O, E> b{};
+  b.recompute = 1;
+  b.msg = msg;
+  b.pre_epi = LayerEpi<E, E>{a.b,   a.h0,   a.skip,  a.act,   pre ? s.dpre : nullptr,
+                             nullptr, a.H, nullptr, 1,       0, a.te};
+  b.dpre_on = 1;
+  b.g = g;
+  b.out = a.act == kRelu ? out : nullptr;
+  b.pre = pre ? s.dpre : nullptr;
+  b.h0 = a.h0;
+  b.dh0 = dh0;
+  b.skip = a.skip;
+  b.drop = a.drop;
+  b.act = a.act;
+  b.te = a.te;
+  b.dpart = s.dpart;
+  b.w = a.w;
+  b.t = s.t;
+  b.dpre = s.dpre;
+  b.parts = s.parts;
+  b.dt = want_dt ? s.dt : nullptr;
+  b.dw = dw;
+  b.db = db;
+  b.dskip = dskip;
+  b.dh = GatherArgs<E, E>{s.dt,  a.te, a.Hin, edge_nbr_rev, a.D, a.rev,
+                          scale != nullptr ? scale
+                                           : (a.mean ? s.rscale : nullptr),
+                          0,     a.te, a.rows(), dh, nullptr};
+  b.p = a.p;
+  b.Hin = a.Hin;
+  b.H = a.H;
+  b.S = S;
+  b.rows = a.rows();
+  return b;
+}
+
+// out and g are O (the state type, or f32 with out_f32).
+template <bool kBf16, class O>
+int backward(const ConvArgs<kBf16>& a, const int* edge_nbr_rev, const O* out,
+             const O* g, Elem<kBf16>* dh, Elem<kBf16>* dh0, float* dw,
+             float* db, float* dskip, void* scratch, int S, cudaStream_t st) {
+  using E = Elem<kBf16>;
+  const Scratch<kBf16> s = scratch_of<kBf16>(scratch, a.p, a.te, a.Hin, a.H,
+                                             S);
+  const GatherArgs<E, E> msg{a.h, a.te, a.Hin, a.edge_nbr, a.D, a.rev,
+                             nullptr, a.mean, a.te, a.rows(), s.t,
+                             a.mean ? s.rscale : nullptr};
+  return launch_conv_bwd(bwd_args<kBf16, O>(a, msg, edge_nbr_rev, nullptr,
+                                            out, g, dh, dh0, dw, db, dskip, s,
+                                            S, dh != nullptr),
+                         st);
+}
+
 // The edge-partitioned layer's message gather: t = messages(h) plus the
 // boundary term of r, each row's scale to rscale (when set).
 template <bool kBf16>
-void gather_r(const Elem<kBf16>* h, const float* r, const int* edge_nbr,
-              const int* rev, const int* senders, const float* scale,
-              Elem<kBf16>* t, float* rscale, int p, int te, int tn, int Hin,
-              int D, int mean, cudaStream_t st) {
-  using E = Elem<kBf16>;
-  const long long rows = static_cast<long long>(p) * te;
-  launch_gather<kBf16>(GatherArgs<E, E>{h, te, Hin, edge_nbr, D, rev,
-                                        nullptr, mean, te, rows, t, rscale,
-                                        scale, r, senders, tn},
-                       st);
+GatherArgs<Elem<kBf16>, Elem<kBf16>> messages_r(
+    const ConvArgs<kBf16>& a, const float* r, const int* senders,
+    const float* scale, Elem<kBf16>* t, float* rscale, int tn) {
+  return GatherArgs<Elem<kBf16>, Elem<kBf16>>{
+      a.h,  a.te,     a.Hin, a.edge_nbr, a.D,  a.rev,    nullptr, a.mean,
+      a.te, a.rows(), t,     rscale,     scale, r, senders, tn};
 }
 
 template <bool kBf16>
-void r_forward(const void* h_, const float* r, const void* h0_,
-               const int* edge_nbr, const int* rev, const int* senders,
-               const float* scale, const float* w, const float* b,
-               const float* skip, const int* drop, void* t_, void* out_,
-               int p, int te, int tn, int Hin, int H, int D, int act,
-               int mean, cudaStream_t st) {
+int r_forward(const ConvArgs<kBf16>& a, const float* r, const int* senders,
+              const float* scale, void* t_, void* out_, int tn,
+              cudaStream_t st) {
   using E = Elem<kBf16>;
   E* t = static_cast<E*>(t_);
-  gather_r<kBf16>(static_cast<const E*>(h_), r, edge_nbr, rev, senders,
-                  scale, t, nullptr, p, te, tn, Hin, D, mean, st);
-  launch_tile<kBf16, false, false>(
-      plain(t, Hin, w, H, Hin), no_operands(), p * te, H,
-      LayerEpi<E>{b, static_cast<const E*>(h0_), skip, act, nullptr,
-                  static_cast<E*>(out_), H, drop, 1, 0, te},
-      st);
+  ConvFwdArgs<kBf16, E> f{};
+  f.msg = messages_r<kBf16>(a, r, senders, scale, t, nullptr, tn);
+  f.w = a.w;
+  f.w16 = conv_fwd_w16<kBf16>(t, a.rows(), a.Hin);
+  f.epi = LayerEpi<E>{a.b,  a.h0, a.skip, a.act, nullptr, static_cast<E*>(out_),
+                      a.H, a.drop, 1,     0,     a.te};
+  f.p = a.p;
+  f.Hin = a.Hin;
+  f.H = a.H;
+  return launch_conv_fwd(f, st);
 }
 
 template <bool kBf16>
-void r_backward(const void* h_, const float* r, const void* h0_,
-                const int* edge_nbr, const int* rev, const int* senders,
-                const float* scale, const int* edge_nbr_rev,
-                const int* node_out, const float* w, const float* b,
-                const float* skip, const int* drop, const void* out_,
-                const void* g_, void* dh_, float* dr, void* dh0_, float* dw,
-                float* db, float* dskip, void* scratch, int p, int te, int tn,
-                int Hin, int H, int D, int Dout, int act, int mean, int S,
-                cudaStream_t st) {
+int r_backward(const ConvArgs<kBf16>& a, const float* r, const int* senders,
+               const float* scale, const int* edge_nbr_rev,
+               const int* node_out, const void* out_, const void* g_,
+               void* dh_, float* dr, void* dh0_, float* dw, float* db,
+               float* dskip, void* scratch, int tn, int Dout, int S,
+               cudaStream_t st) {
   using E = Elem<kBf16>;
-  const E* h0 = static_cast<const E*>(h0_);
+  const Scratch<kBf16> s = scratch_of<kBf16>(scratch, a.p, a.te, a.Hin, a.H,
+                                             S);
   E* dh = static_cast<E*>(dh_);
-  const long long rows = static_cast<long long>(p) * te;
-  const Scratch<kBf16> s = scratch_of<kBf16>(scratch, p, te, Hin, H, S);
-  gather_r<kBf16>(static_cast<const E*>(h_), r, edge_nbr, rev, senders,
-                  scale, s.t, s.rscale, p, te, tn, Hin, D, mean, st);
-  // ReLU: dpre from the saved output; linear: the dropped cotangent;
-  // SiLU, GELU: from the pre-activation, recomputed into dpre and
-  // overwritten in place
-  if (needs_pre(act))
-    launch_tile<kBf16, false, false>(
-        plain(s.t, Hin, w, H, Hin), no_operands(), static_cast<int>(rows), H,
-        LayerEpi<E>{b, h0, skip, act, s.dpre, nullptr, H, nullptr, 1, 0, te},
-        st);
-  dpre_kernel<E, E, E><<<kReduceBlocks, kThreads, 0, st>>>(
-      static_cast<const E*>(g_), needs_pre(act) ? s.dpre : nullptr,
-      act == kRelu ? static_cast<const E*>(out_) : nullptr, s.dpre, h0,
-      static_cast<E*>(dh0_), 0, skip, drop, 1, 0, act, te, H, rows * H,
-      s.dpart);
-  if (dw != nullptr)
-    launch_wgrad<kBf16>(s.t, Hin, s.dpre, H, rows, S, s.wpart, dw, st);
-  if (db != nullptr) launch_colsum(s.dpre, H, rows, S, s.wpart, db, st);
-  if (dh != nullptr || dr != nullptr)
-    launch_tile<kBf16, false, true>(plain(s.dpre, H, w, H, H), no_operands(),
-                                    static_cast<int>(rows), Hin,
-                                    StoreAs<E>{s.dt, Hin}, st);
-  // dh: the messages' adjoint, each entry scaled by its forward row's scale
-  // (K9's s, or K8's mean scale), minus the rev row
-  if (dh != nullptr)
-    launch_gather<kBf16>(GatherArgs<E, E>{
-                             s.dt, te, Hin, edge_nbr_rev, D, rev,
-                             scale != nullptr ? scale
-                                              : (mean ? s.rscale : nullptr),
-                             0, te, rows, dh, nullptr},
-                         st);
+  ConvBwdArgs<kBf16, E, E> b = bwd_args<kBf16, E>(
+      a, messages_r<kBf16>(a, r, senders, scale, s.t, s.rscale, tn),
+      edge_nbr_rev, scale, static_cast<const E*>(out_),
+      static_cast<const E*>(g_), dh, static_cast<E*>(dh0_), dw, db, dskip, s,
+      S, dh != nullptr || dr != nullptr);
   // dr[n] = Σ over the out-edges e of node n of s_e·dt[e] (f32)
-  if (dr != nullptr)
-    launch_gather<kBf16>(GatherArgs<E, float>{
-                             s.dt, te, Hin, node_out, Dout, nullptr, scale, 0,
-                             tn, static_cast<long long>(p) * tn, dr, nullptr},
-                         st);
-  if (dskip != nullptr) launch_sum(s.dpart, kReduceBlocks, 1, dskip, st);
+  b.dr = GatherArgs<E, float>{s.dt, a.te, a.Hin, node_out, Dout, nullptr,
+                              scale, 0, tn, static_cast<long long>(a.p) * tn,
+                              dr, nullptr};
+  return launch_conv_bwd(b, st);
 }
 
 }  // namespace
 
-// out [p·te, H]; t [p·te, Hin] is scratch; h, h0 and t of one type (f32, or
-// bf16 with mat = 1), out of that type too unless out_f32.
+namespace {
+
+// A launch's own error code, or the runtime's last one.
+int status(int err) {
+  return err != 0 ? err : static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// The cooperative grid of a launch over p·te rows at widths Hin and H
+// (backward: the widest of the two), at mat 0 (f32) or 1 (bf16), on the
+// current device: returns the blocks (or minus a CUDA error code) and
+// writes the tile rows, the blocks per SM and the SMs.
+extern "C" int cgr_fused_conv_grid(int p, int te, int Hin, int H, int mat,
+                                   int backward, int* bm, int* per_sm,
+                                   int* sms) {
+  using B = Elem<true>;
+  const long long rows = static_cast<long long>(p) * te;
+  const void *fn32 = nullptr, *fn64 = nullptr, *fn = nullptr;
+  if (backward) {
+    fn32 = mat ? reinterpret_cast<const void*>(&conv_bwd_kernel<true, 32, B, B>)
+               : reinterpret_cast<const void*>(
+                     &conv_bwd_kernel<false, 32, float, float>);
+    fn64 = mat ? reinterpret_cast<const void*>(&conv_bwd_kernel<true, 64, B, B>)
+               : reinterpret_cast<const void*>(
+                     &conv_bwd_kernel<false, 64, float, float>);
+  } else {
+    fn32 = mat ? reinterpret_cast<const void*>(&conv_fwd_kernel<true, 32, B>)
+               : reinterpret_cast<const void*>(&conv_fwd_kernel<false, 32, float>);
+    fn64 = mat ? reinterpret_cast<const void*>(&conv_fwd_kernel<true, 64, B>)
+               : reinterpret_cast<const void*>(&conv_fwd_kernel<false, 64, float>);
+  }
+  int grid = 0;
+  const int err = conv_grid_of(fn32, fn64, rows, backward && Hin > H ? Hin : H,
+                               &fn, bm, &grid, per_sm, sms);
+  return err != 0 ? -err : grid;
+}
+
+// out [p·te, H]; t is scratch of ops/fused_conv.py::fwd_scratch_elems
+// elements (t, then at bf16 W rounded to bf16); h, h0 and t of one type (f32, or bf16 with mat = 1), out of that type too
+// unless out_f32.  One cooperative launch.
 extern "C" int cgr_fused_conv_fwd(const void* h, const void* h0,
                                   const int* edge_nbr, const int* rev,
                                   const float* w, const float* b,
@@ -265,22 +316,18 @@ extern "C" int cgr_fused_conv_fwd(const void* h, const void* h0,
                                   int Hin, int H, int D, int act, int mean,
                                   int mat, int out_f32, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  using B = Elem<true>;
   if (!mat)
-    layer<false, float>(args_of<false>(h, h0, edge_nbr, rev, w, b, skip, drop,
-                                       p, te, Hin, H, D, act, mean),
-                        static_cast<float*>(t), nullptr,
-                        static_cast<float*>(out), nullptr, st);
-  else if (out_f32)
-    layer<true, float>(args_of<true>(h, h0, edge_nbr, rev, w, b, skip, drop,
-                                     p, te, Hin, H, D, act, mean),
-                       static_cast<Elem<true>*>(t), nullptr,
-                       static_cast<float*>(out), nullptr, st);
-  else
-    layer<true, Elem<true>>(args_of<true>(h, h0, edge_nbr, rev, w, b, skip,
-                                          drop, p, te, Hin, H, D, act, mean),
-                            static_cast<Elem<true>*>(t), nullptr,
-                            static_cast<Elem<true>*>(out), nullptr, st);
-  return static_cast<int>(cudaGetLastError());
+    return status(layer<false, float>(
+        args_of<false>(h, h0, edge_nbr, rev, w, b, skip, drop, p, te, Hin, H,
+                       D, act, mean),
+        static_cast<float*>(t), static_cast<float*>(out), st));
+  const ConvArgs<true> a = args_of<true>(h, h0, edge_nbr, rev, w, b, skip,
+                                         drop, p, te, Hin, H, D, act, mean);
+  return status(out_f32 ? layer<true, float>(a, static_cast<B*>(t),
+                                             static_cast<float*>(out), st)
+                        : layer<true, B>(a, static_cast<B*>(t),
+                                         static_cast<B*>(out), st));
 }
 
 // Bytes of the backward's scratch (K6's, and K8/K9's).
@@ -291,7 +338,7 @@ extern "C" long long cgr_fused_conv_bwd_scratch_bytes(int p, int te, int Hin,
 
 // dh [rows, Hin], dh0 [rows, H] (h's type), dw [Hin, H], db [H], dskip [1]
 // from the cotangent g of the forward's output `out` (both of out's type);
-// a null output is skipped.
+// a null output is skipped.  One cooperative launch.
 extern "C" int cgr_fused_conv_bwd(
     const void* h, const void* h0, const int* edge_nbr, const int* rev,
     const int* edge_nbr_rev, const float* w, const float* b,
@@ -301,32 +348,29 @@ extern "C" int cgr_fused_conv_bwd(
     int out_f32, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   using B = Elem<true>;
-  if (!mat) {
-    backward<false, float>(args_of<false>(h, h0, edge_nbr, rev, w, b, skip,
-                                          drop, p, te, Hin, H, D, act, mean),
-                           edge_nbr_rev, static_cast<const float*>(out),
-                           static_cast<const float*>(g),
-                           static_cast<float*>(dh), static_cast<float*>(dh0),
-                           dw, db, dskip, scratch, S, st);
-  } else if (out_f32) {
-    backward<true, float>(args_of<true>(h, h0, edge_nbr, rev, w, b, skip,
-                                        drop, p, te, Hin, H, D, act, mean),
-                          edge_nbr_rev, static_cast<const float*>(out),
-                          static_cast<const float*>(g), static_cast<B*>(dh),
-                          static_cast<B*>(dh0), dw, db, dskip, scratch, S,
-                          st);
-  } else {
-    backward<true, B>(args_of<true>(h, h0, edge_nbr, rev, w, b, skip, drop,
-                                    p, te, Hin, H, D, act, mean),
-                      edge_nbr_rev, static_cast<const B*>(out),
-                      static_cast<const B*>(g), static_cast<B*>(dh),
-                      static_cast<B*>(dh0), dw, db, dskip, scratch, S, st);
-  }
-  return static_cast<int>(cudaGetLastError());
+  if (!mat)
+    return status(backward<false, float>(
+        args_of<false>(h, h0, edge_nbr, rev, w, b, skip, drop, p, te, Hin, H,
+                       D, act, mean),
+        edge_nbr_rev, static_cast<const float*>(out),
+        static_cast<const float*>(g), static_cast<float*>(dh),
+        static_cast<float*>(dh0), dw, db, dskip, scratch, S, st));
+  const ConvArgs<true> a = args_of<true>(h, h0, edge_nbr, rev, w, b, skip,
+                                         drop, p, te, Hin, H, D, act, mean);
+  if (out_f32)
+    return status(backward<true, float>(
+        a, edge_nbr_rev, static_cast<const float*>(out),
+        static_cast<const float*>(g), static_cast<B*>(dh),
+        static_cast<B*>(dh0), dw, db, dskip, scratch, S, st));
+  return status(backward<true, B>(
+      a, edge_nbr_rev, static_cast<const B*>(out), static_cast<const B*>(g),
+      static_cast<B*>(dh), static_cast<B*>(dh0), dw, db, dskip, scratch, S,
+      st));
 }
 
-// out [p·te, H]; t [p·te, Hin] is scratch; scale [p·te] (K9) or null (K8).
-// h, h0, t and out are f32, or bf16 with mat = 1; r is f32.
+// out [p·te, H]; t is scratch of ops/fused_conv.py::fwd_scratch_elems
+// elements; scale [p·te] (K9) or null (K8).  h, h0, t and out are f32, or bf16 with
+// mat = 1; r is f32.  One cooperative launch.
 extern "C" int cgr_fused_conv_r_fwd(const void* h, const float* r,
                                     const void* h0, const int* edge_nbr,
                                     const int* rev, const int* senders,
@@ -337,16 +381,21 @@ extern "C" int cgr_fused_conv_r_fwd(const void* h, const float* r,
                                     int D, int act, int mean, int mat,
                                     void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  (mat ? r_forward<true> : r_forward<false>)(h, r, h0, edge_nbr, rev, senders,
-                                             scale, w, b, skip, drop, t, out,
-                                             p, te, tn, Hin, H, D, act, mean,
-                                             st);
-  return static_cast<int>(cudaGetLastError());
+  if (mat)
+    return status(r_forward<true>(
+        args_of<true>(h, h0, edge_nbr, rev, w, b, skip, drop, p, te, Hin, H,
+                      D, act, mean),
+        r, senders, scale, t, out, tn, st));
+  return status(r_forward<false>(
+      args_of<false>(h, h0, edge_nbr, rev, w, b, skip, drop, p, te, Hin, H, D,
+                     act, mean),
+      r, senders, scale, t, out, tn, st));
 }
 
 // dh [p·te, Hin], dr [p·tn, Hin] (f32), dh0 [p·te, H], dw [Hin, H], db [H],
 // dskip [1] from the cotangent g of `out`; a null output is skipped.  h,
-// h0, out, g, dh and dh0 are f32, or bf16 with mat = 1.
+// h0, out, g, dh and dh0 are f32, or bf16 with mat = 1.  One cooperative
+// launch.
 extern "C" int cgr_fused_conv_r_bwd(
     const void* h, const float* r, const void* h0, const int* edge_nbr,
     const int* rev, const int* senders, const float* scale,
@@ -356,11 +405,17 @@ extern "C" int cgr_fused_conv_r_bwd(
     float* dskip, void* scratch, int p, int te, int tn, int Hin, int H, int D,
     int Dout, int act, int mean, int S, int mat, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  (mat ? r_backward<true> : r_backward<false>)(
-      h, r, h0, edge_nbr, rev, senders, scale, edge_nbr_rev, node_out, w, b,
-      skip, drop, out, g, dh, dr, dh0, dw, db, dskip, scratch, p, te, tn, Hin,
-      H, D, Dout, act, mean, S, st);
-  return static_cast<int>(cudaGetLastError());
+  if (mat)
+    return status(r_backward<true>(
+        args_of<true>(h, h0, edge_nbr, rev, w, b, skip, drop, p, te, Hin, H,
+                      D, act, mean),
+        r, senders, scale, edge_nbr_rev, node_out, out, g, dh, dr, dh0, dw,
+        db, dskip, scratch, tn, Dout, S, st));
+  return status(r_backward<false>(
+      args_of<false>(h, h0, edge_nbr, rev, w, b, skip, drop, p, te, Hin, H, D,
+                     act, mean),
+      r, senders, scale, edge_nbr_rev, node_out, out, g, dh, dr, dh0, dw, db,
+      dskip, scratch, tn, Dout, S, st));
 }
 
 extern "C" const char* cgr_cuda_error_string(int code) {

@@ -180,15 +180,13 @@ inline int blocks_per_sm(int p, int te, int H, int sms) {
 // function may serve both counts).
 using Instances = const void* const[2][2];
 
-// The cooperative grid of a launch of p packs of te edge rows at width H:
-// the instantiation (*fn) for the blocks per SM that blocks_per_sm picks,
-// and that many blocks on each SM of the current device, or as many as
-// fit at once if fewer do (at most CGR_GRID_BLOCKS blocks when that is
-// defined), with the blocks per SM and the SMs.  The occupancy query runs
-// once per (device, instantiation); later launches read the cache.
-// Returns 0 or a CUDA error code.
-inline int grid_of(Instances& fns, int mat_dtype, int p, int te, int H,
-                   const void** fn, int* grid, int* per_sm, int* sms) {
+// The SMs of the current device (*sms) and the blocks of `fn` (kThreads
+// threads and `smem` bytes of dynamic shared memory) that fit on one of
+// them at once (*fit; not asked with a null fn), each asked of the runtime
+// once per device and (device, function) and read from a cache after;
+// with `smem`, fn's dynamic shared memory limit is raised to it before
+// that one query.  Returns 0 or a CUDA error code.
+inline int occupancy_of(const void* fn, size_t smem, int* fit, int* sms) {
   static std::mutex lock;
   static std::map<int, int> sms_of;                            // device
   static std::map<std::pair<int, const void*>, int> fit_of;    // blocks/SM
@@ -204,18 +202,33 @@ inline int grid_of(Instances& fns, int mat_dtype, int p, int te, int H,
     s = sms_of.emplace(dev, n).first;
   }
   *sms = s->second;
-  const int want = blocks_per_sm(p, te, H, *sms);
-  *fn = fns[mat_dtype == 1][want - 1];
-  auto f = fit_of.find({dev, *fn});
+  if (fn == nullptr) return 0;
+  auto f = fit_of.find({dev, fn});
   if (f == fit_of.end()) {
+    if (smem > 0) {
+      err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 static_cast<int>(smem));
+      if (err != cudaSuccess) return static_cast<int>(err);
+    }
     int n = 0;
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, *fn, kThreads, 0);
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, fn, kThreads, smem);
     if (err != cudaSuccess) return static_cast<int>(err);
-    f = fit_of.emplace(std::make_pair(dev, *fn), n).first;
+    f = fit_of.emplace(std::make_pair(dev, fn), n).first;
   }
-  if (f->second < 1)
-    return static_cast<int>(cudaErrorCooperativeLaunchTooLarge);
-  *per_sm = f->second < want ? f->second : want;
+  *fit = f->second;
+  return 0;
+}
+
+// The grid of `want` blocks on each SM, or as many as fit at once if fewer
+// do (at most CGR_GRID_BLOCKS blocks when that is defined): *grid blocks,
+// *per_sm of them an SM.  Returns 0 or a CUDA error code.
+inline int grid_for(const void* fn, size_t smem, int want, int* grid,
+                    int* per_sm, int* sms) {
+  int fit = 0;
+  const int err = occupancy_of(fn, smem, &fit, sms);
+  if (err != 0) return err;
+  if (fit < 1) return static_cast<int>(cudaErrorCooperativeLaunchTooLarge);
+  *per_sm = fit < want ? fit : want;
   *grid = *per_sm * *sms;
 #ifdef CGR_GRID_BLOCKS
   *grid = *grid < CGR_GRID_BLOCKS ? *grid : CGR_GRID_BLOCKS;
@@ -223,9 +236,34 @@ inline int grid_of(Instances& fns, int mat_dtype, int p, int te, int H,
   return 0;
 }
 
+// The cooperative grid of a launch of p packs of te edge rows at width H:
+// the instantiation (*fn) for the blocks per SM that blocks_per_sm picks,
+// and grid_for's grid for it, with the blocks per SM and the SMs.  The
+// occupancy query runs once per (device, instantiation); later launches
+// read the cache.  Returns 0 or a CUDA error code.
+inline int grid_of(Instances& fns, int mat_dtype, int p, int te, int H,
+                   const void** fn, int* grid, int* per_sm, int* sms) {
+  int fit = 0;
+  const int err = occupancy_of(nullptr, 0, &fit, sms);  // the SMs
+  if (err != 0) return err;
+  const int want = blocks_per_sm(p, te, H, *sms);
+  *fn = fns[mat_dtype == 1][want - 1];
+  return grid_for(*fn, 0, want, grid, per_sm, sms);
+}
+
+// One cooperative launch of `fn` over `grid` blocks of kThreads with
+// `smem` bytes of dynamic shared memory; returns 0 or a CUDA error code (a
+// grid that cannot be co-resident is cudaErrorCooperativeLaunchTooLarge,
+// never a hang).
+inline int launch_cooperative(const void* fn, int grid, size_t smem,
+                              void** params, void* stream) {
+  return static_cast<int>(cudaLaunchCooperativeKernel(
+      fn, dim3(grid), dim3(kThreads), params, smem,
+      static_cast<cudaStream_t>(stream)));
+}
+
 // One cooperative launch of `params` on `stream` over the grid of
-// grid_of; returns 0 or a CUDA error code (a grid that cannot be
-// co-resident is cudaErrorCooperativeLaunchTooLarge, never a hang).
+// grid_of; returns 0 or a CUDA error code.
 inline int launch_grid(Instances& fns, int mat_dtype, int p, int te, int H,
                        void** params, void* stream) {
   const void* fn = nullptr;
@@ -233,9 +271,7 @@ inline int launch_grid(Instances& fns, int mat_dtype, int p, int te, int H,
   const int err = grid_of(fns, mat_dtype, p, te, H, &fn, &grid, &per_sm,
                           &sms);
   if (err != 0) return err;
-  return static_cast<int>(cudaLaunchCooperativeKernel(
-      fn, dim3(grid), dim3(kThreads), params, 0,
-      static_cast<cudaStream_t>(stream)));
+  return launch_cooperative(fn, grid, 0, params, stream);
 }
 
 }  // namespace cgr

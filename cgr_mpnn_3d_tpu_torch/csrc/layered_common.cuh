@@ -2,7 +2,8 @@
 // conv_stack.cu, fused_conv.cu): a pack-local ELL gather-sum over a whole
 // batch, one output tile of a shared-memory product per thread block, a
 // split-K weight-gradient product, column sums, a fixed-order sum of
-// partials, and from these one conv layer's forward and backward steps.
+// partials, and a conv layer's dpre pass (the conv layer itself, forward
+// and backward, is conv_grid.cuh's cooperative grid).
 //
 // Unlike the whole-model kernels, these run a grid over the whole batch:
 // a block is not a pack.  A row's pack is its row index over the rows per
@@ -72,6 +73,61 @@ struct GatherArgs {
   int extra_exact;
 };
 
+// Element (r, c) of the gather-sum, for any c (the entries are counted
+// for c >= W too, and nothing is stored there); row r's scale goes to
+// rscale when `scale_out` is set.
+template <bool kBf16, class S, class O>
+__device__ __forceinline__ void gather_elem(const GatherArgs<S, O>& a,
+                                            long long r, int c,
+                                            bool scale_out) {
+  const long long lo = (r / a.R) * a.C;
+  const int* row = a.idx + r * a.D;
+  float sum = 0.f;
+  int count = 0;
+  for (int d = 0; d < a.D; ++d) {
+    const long long j = row[d] - lo;
+    if (j >= 0 && j < a.C) {
+      ++count;
+      if (c < a.W) {
+        const float v = operand<kBf16>(to_f32(a.src[(lo + j) * a.W + c]));
+        // one fused multiply-add per scaled entry, in every kernel that
+        // inlines this (left to the compiler, the contraction differs
+        // from kernel to kernel, and so would the bits)
+        sum = a.src_scale == nullptr
+                  ? sum + v
+                  : fmaf(operand<kBf16>(a.src_scale[lo + j]), v, sum);
+      }
+    }
+  }
+  float scale = a.mean ? mean_colscale<kBf16>(count) : 1.f;
+  if (a.row_scale != nullptr) scale = operand<kBf16>(a.row_scale[r]);
+  if (a.mean || a.row_scale != nullptr) sum *= scale;
+  if (a.extra != nullptr && c < a.W) {
+    long long k = r;
+    bool in = true;
+    if (a.extra_idx != nullptr) {
+      const long long elo = (r / a.R) * a.extra_C;
+      k = a.extra_idx[r] - elo;
+      in = k >= 0 && k < a.extra_C;
+      k += elo;
+    }
+    if (in) {
+      const float e = a.extra[k * a.W + c];
+      const float v = a.extra_exact ? e : operand<kBf16>(e);
+      // a product, then a sum: never contracted (see above)
+      sum = a.row_scale == nullptr ? sum + v
+                                   : __fadd_rn(sum, __fmul_rn(scale, v));
+    }
+  }
+  if (a.sign != nullptr) {
+    const long long j = a.sign[r] - lo;
+    if (j >= 0 && j < a.C && c < a.W)
+      sum -= operand<kBf16>(to_f32(a.src[(lo + j) * a.W + c]));
+  }
+  if (c < a.W) a.out[r * a.W + c] = from_f32<O>(sum);
+  if (a.rscale != nullptr && scale_out) a.rscale[r] = scale;
+}
+
 template <bool kBf16, class S, class O>
 __global__ void __launch_bounds__(kGatherThreads)
     gather_kernel(GatherArgs<S, O> a) {
@@ -79,48 +135,7 @@ __global__ void __launch_bounds__(kGatherThreads)
   for (int i = 0; i < kGatherRows; ++i) {
     const long long r = static_cast<long long>(blockIdx.x) * kGatherRows + i;
     if (r >= a.rows) return;
-    const long long lo = (r / a.R) * a.C;
-    const int* row = a.idx + r * a.D;
-    float sum = 0.f;
-    int count = 0;
-    for (int d = 0; d < a.D; ++d) {
-      const long long j = row[d] - lo;
-      if (j >= 0 && j < a.C) {
-        ++count;
-        if (c < a.W) {
-          const float v = operand<kBf16>(to_f32(a.src[(lo + j) * a.W + c]));
-          sum += a.src_scale == nullptr
-                     ? v
-                     : operand<kBf16>(a.src_scale[lo + j]) * v;
-        }
-      }
-    }
-    float scale = a.mean ? mean_colscale<kBf16>(count) : 1.f;
-    if (a.row_scale != nullptr) scale = operand<kBf16>(a.row_scale[r]);
-    if (a.mean || a.row_scale != nullptr) sum *= scale;
-    if (a.extra != nullptr && c < a.W) {
-      long long k = r;
-      bool in = true;
-      if (a.extra_idx != nullptr) {
-        const long long elo = (r / a.R) * a.extra_C;
-        k = a.extra_idx[r] - elo;
-        in = k >= 0 && k < a.extra_C;
-        k += elo;
-      }
-      if (in) {
-        const float e = a.extra[k * a.W + c];
-        const float v = a.extra_exact ? e : operand<kBf16>(e);
-        sum += a.row_scale == nullptr ? v : scale * v;
-      }
-    }
-    if (a.sign != nullptr) {
-      const long long j = a.sign[r] - lo;
-      if (j >= 0 && j < a.C && c < a.W)
-        sum -= operand<kBf16>(to_f32(a.src[(lo + j) * a.W + c]));
-    }
-    if (c < a.W) a.out[r * a.W + c] = from_f32<O>(sum);
-    if (a.rscale != nullptr && blockIdx.y == 0 && threadIdx.x == 0)
-      a.rscale[r] = scale;
+    gather_elem<kBf16>(a, r, c, blockIdx.y == 0 && threadIdx.x == 0);
   }
 }
 
@@ -338,7 +353,7 @@ struct Carve {
 };
 
 // One D-MPNN conv layer over the whole batch, as conv_stack.cu (every
-// layer) and fused_conv.cu (one layer) run it: `rows` edge rows in packs
+// layer) and fused_conv.cu (one layer) run it (conv_grid.cuh): `rows` edge rows in packs
 // of te, messages through edge_nbr [rows, D] minus rev, scaled by
 // mean_colscale(entries counted) when `mean`.
 struct ConvGraph {
@@ -346,28 +361,6 @@ struct ConvGraph {
   int D, mean, te;
   long long rows;
 };
-
-// t = messages(h_in) [rows, Hin] (each row's scale to rscale when set),
-// then drop_l(act(t·W + b + skip·h0)) with W [Hin, H] to `out` and the
-// pre-activation to `pre`, each when set (neither: no product); out is O
-// (the state type, or f32 for K6's linear pre-activations at bf16).  out
-// may be h_in: the gather has finished before the product starts.
-template <bool kBf16, class O = Elem<kBf16>>
-inline void conv_layer(const ConvGraph& g, const Elem<kBf16>* h_in, int Hin,
-                       const float* w, const float* b, const float* skip,
-                       const Elem<kBf16>* h0, int H, int act, const int* drop,
-                       int L, int l, Elem<kBf16>* t, float* pre, O* out,
-                       float* rscale, cudaStream_t st) {
-  using E = Elem<kBf16>;
-  launch_gather<kBf16>(GatherArgs<E, E>{h_in, g.te, Hin, g.edge_nbr, g.D,
-                                        g.rev, nullptr, g.mean, g.te, g.rows,
-                                        t, rscale},
-                       st);
-  if (pre == nullptr && out == nullptr) return;
-  launch_tile<kBf16, false, false>(
-      plain(t, Hin, w, H, Hin), no_operands(), static_cast<int>(g.rows), H,
-      LayerEpi<E, O>{b, h0, skip, act, pre, out, H, drop, L, l, g.te}, st);
-}
 
 // A conv layer's dpre = drop_l'(g)·act'(pre) over the n = rows·H floats,
 // into dpre (which may be pre); with `out` instead (ReLU), dpre is
@@ -382,6 +375,91 @@ struct NoDeduce {
   using type = T;
 };
 
+// Element k of the dpre pass from its loaded g, x (out, with `relu`;
+// else pre, when `pre`), h0 and, with `add`, the old dh0: stores dpre
+// (and dpre16) and dh0, and adds dpre·h0 to dot.
+template <class D>
+__device__ __forceinline__ void dpre_elem(long long k, float g, float x,
+                                          float h, float d, bool relu,
+                                          bool pre, const Dropout& dr,
+                                          int act, int te, int H, float s,
+                                          int add, float* dpre,
+                                          __nv_bfloat16* dpre16, D* dh0,
+                                          float& dot) {
+  float v;
+  if (relu) {
+    v = x > 0.f ? g * dr.scale : 0.f;
+  } else {
+    const long long r = k / H;
+    float gg = g;
+    if (dr.on) {
+      Dropout e = dr;
+      e.pack = static_cast<unsigned>(r / te);
+      gg = e.kept(static_cast<int>(r % te), static_cast<int>(k % H))
+               ? gg * dr.scale
+               : 0.f;
+    }
+    v = pre ? gg * k_dact(act, x) : gg;
+  }
+  dpre[k] = v;
+  if (dpre16 != nullptr) dpre16[k] = __float2bfloat16_rn(v);
+  dot = fmaf(v, h, dot);
+  if (dh0 != nullptr) dh0[k] = from_f32<D>(add ? fmaf(s, v, d) : s * v);
+}
+
+// Block b of nb of the dpre pass (the grid-stride partition of
+// dpre_kernel; `red` is kThreads floats of shared memory); with dpre16,
+// dpre rounded to bf16 is stored there too.  Each thread takes its
+// elements in order, four at a time: their loads first, then each
+// element (dpre may be pre: an element is read before it is written).
+template <class G, class E, class D, class OT>
+__device__ __forceinline__ void dpre_part(
+    const G* g, const float* pre, const OT* out, float* dpre, const E* h0,
+    D* dh0, int add, const float* skip, const int* drop, int L, int l,
+    int act, int te, int H, long long n, float* part,
+    __nv_bfloat16* dpre16, int b, int nb, float* red) {
+  Dropout dr{0, 0u, 0u, 0u, 1.f};
+  if (drop != nullptr)
+    dr = Dropout{1, static_cast<unsigned>(drop[l]),
+                 static_cast<unsigned>(drop[L + l]), 0u,
+                 __int_as_float(drop[2 * L + l])};
+  const float s = *skip;
+  const bool relu = out != nullptr, has_pre = pre != nullptr;
+  const bool old = dh0 != nullptr && add;
+  float dot = 0.f;
+  constexpr int U = 4;
+  const long long step = static_cast<long long>(nb) * kThreads;
+  long long i = b * static_cast<long long>(kThreads) + threadIdx.x;
+  for (; i + (U - 1) * step < n; i += U * step) {
+    float gv[U], xv[U], hv[U], dv[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const long long k = i + u * step;
+      gv[u] = to_f32(g[k]);
+      xv[u] = relu ? to_f32(out[k]) : (has_pre ? pre[k] : 0.f);
+      hv[u] = to_f32(h0[k]);
+      dv[u] = old ? to_f32(dh0[k]) : 0.f;
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u)
+      dpre_elem(i + u * step, gv[u], xv[u], hv[u], dv[u], relu, has_pre, dr,
+                act, te, H, s, add, dpre, dpre16, dh0, dot);
+  }
+  for (; i < n; i += step)
+    dpre_elem(i, to_f32(g[i]),
+              relu ? to_f32(out[i]) : (has_pre ? pre[i] : 0.f),
+              to_f32(h0[i]), old ? to_f32(dh0[i]) : 0.f, relu, has_pre, dr,
+              act, te, H, s, add, dpre, dpre16, dh0, dot);
+  __syncthreads();  // red may still be read by an earlier block's sum
+  red[threadIdx.x] = dot;
+  __syncthreads();
+  for (int k = kThreads / 2; k > 0; k >>= 1) {
+    if (threadIdx.x < k) red[threadIdx.x] += red[threadIdx.x + k];
+    __syncthreads();
+  }
+  if (threadIdx.x == 0) part[static_cast<size_t>(b) * L + l] = red[0];
+}
+
 template <class G, class E, class D, class OT = E>
 __global__ void __launch_bounds__(kThreads)
     dpre_kernel(const G* g, const float* pre,
@@ -390,69 +468,9 @@ __global__ void __launch_bounds__(kThreads)
                 const int* drop, int L, int l, int act, int te, int H,
                 long long n, float* part) {
   __shared__ float red[kThreads];
-  Dropout dr{0, 0u, 0u, 0u, 1.f};
-  if (drop != nullptr)
-    dr = Dropout{1, static_cast<unsigned>(drop[l]),
-                 static_cast<unsigned>(drop[L + l]), 0u,
-                 __int_as_float(drop[2 * L + l])};
-  const float s = *skip;
-  float dot = 0.f;
-  for (long long i = blockIdx.x * static_cast<long long>(kThreads) +
-                     threadIdx.x;
-       i < n; i += static_cast<long long>(gridDim.x) * kThreads) {
-    float v;
-    if (out != nullptr) {
-      v = to_f32(out[i]) > 0.f ? to_f32(g[i]) * dr.scale : 0.f;
-    } else {
-      const long long r = i / H;
-      float gg = to_f32(g[i]);
-      if (dr.on) {
-        dr.pack = static_cast<unsigned>(r / te);
-        gg = dr.kept(static_cast<int>(r % te), static_cast<int>(i % H))
-                 ? gg * dr.scale
-                 : 0.f;
-      }
-      v = pre != nullptr ? gg * k_dact(act, pre[i]) : gg;
-    }
-    dpre[i] = v;
-    dot = fmaf(v, to_f32(h0[i]), dot);
-    if (dh0 != nullptr)
-      dh0[i] = from_f32<D>(add ? fmaf(s, v, to_f32(dh0[i])) : s * v);
-  }
-  red[threadIdx.x] = dot;
-  __syncthreads();
-  for (int k = kThreads / 2; k > 0; k >>= 1) {
-    if (threadIdx.x < k) red[threadIdx.x] += red[threadIdx.x + k];
-    __syncthreads();
-  }
-  if (threadIdx.x == 0) part[static_cast<size_t>(blockIdx.x) * L + l] = red[0];
-}
-
-// A conv layer's backward from dpre [rows, H]: dW = tᵀ·dpre and
-// db = Σ_r dpre (split-K partials in wpart, summed in split order), then
-// dt = dpre·Wᵀ (stored as Elem: the operand the adjoint rounds) and dh =
-// the messages' adjoint applied to dt: a gather through the transposed ELL
-// array edge_nbr_rev, each entry scaled by its forward row's scale
-// (rscale, for mean), minus the rev row, stored as DH.  A null output is
-// skipped.
-template <bool kBf16, class DH>
-inline void conv_layer_bwd(const ConvGraph& g, const int* edge_nbr_rev,
-                           const Elem<kBf16>* t, int Hin, const float* dpre,
-                           int H, const float* w, const float* rscale, int S,
-                           float* wpart, Elem<kBf16>* dt, DH* dh, float* dw,
-                           float* db, cudaStream_t st) {
-  using E = Elem<kBf16>;
-  if (dw != nullptr)
-    launch_wgrad<kBf16>(t, Hin, dpre, H, g.rows, S, wpart, dw, st);
-  if (db != nullptr) launch_colsum(dpre, H, g.rows, S, wpart, db, st);
-  if (dh == nullptr) return;
-  launch_tile<kBf16, false, true>(plain(dpre, H, w, H, H), no_operands(),
-                                  static_cast<int>(g.rows), Hin,
-                                  StoreAs<E>{dt, Hin}, st);
-  launch_gather<kBf16>(GatherArgs<E, DH>{dt, g.te, Hin, edge_nbr_rev, g.D,
-                                         g.rev, g.mean ? rscale : nullptr, 0,
-                                         g.te, g.rows, dh, nullptr},
-                       st);
+  dpre_part<G, E, D, OT>(g, pre, out, dpre, h0, dh0, add, skip, drop, L, l,
+                         act, te, H, n, part, nullptr, blockIdx.x, gridDim.x,
+                         red);
 }
 
 }  // namespace cgr

@@ -39,6 +39,7 @@ from ._launch import (I32, PTR, check_cuda, check_train, check_types,
                       count_launch, drop_table, library, mat_index, ptr,
                       raise_on, refuse_grad, seed_list, split_k, stream)
 from .bf16_ref import bf16_gather, bf16_mm, bf16_onehot
+from .fused_conv import fwd_scratch_elems
 from .kernel_math import KERNEL_ACTS, hash_dropout_keep_full, k_act
 from .segment import ext_zero_row, in_pack, pack_gather_sum
 
@@ -158,7 +159,9 @@ def _launch_fwd(h0, edge_nbr, rev, w, b, skips, p, act, mean, train, seeds,
     _check(args, p, act, train, seeds, dropout_ps, mat_dtype)
     check_cuda(args, h0.device, _INDEX_NAMES, _types(mat_dtype))
     dev = h0.device
-    t = torch.empty_like(h0)
+    H = h0.shape[1]
+    t = torch.empty(fwd_scratch_elems(h0.shape[0], H, H, mat_dtype),
+                    device=dev, dtype=h0.dtype)
     out = torch.empty_like(h0)
     drop = drop_table(train, seeds, dropout_ps, dev)
     lib = _lib()

@@ -57,6 +57,12 @@ summed in f32 and rounded once before the product with w
 (pallas_fused.py:458-465).  Counters ``r_launches`` / ``r_bwd_launches``
 (K8) and ``rm_launches`` / ``rm_bwd_launches`` (K9), with the ``bf16_``
 prefix at bf16.
+
+On the card each call is one cooperative launch of
+``csrc/conv_grid.cuh``'s conv grid per direction (K4 runs it per layer);
+:func:`conv_bm`, :func:`conv_blocks_per_sm` and :func:`fwd_scratch_elems`
+mirror its shape rules, and :func:`conv_grid` asks the library for the
+grid a launch takes.
 """
 
 from __future__ import annotations
@@ -82,7 +88,9 @@ __all__ = ["fused_conv_forward", "fused_conv_layer_ref",
            "linear_launches", "linear_bwd_launches", "bf16_linear_launches",
            "bf16_linear_bwd_launches", "r_launches", "r_bwd_launches",
            "rm_launches", "rm_bwd_launches", "bf16_r_launches",
-           "bf16_r_bwd_launches", "bf16_rm_launches", "bf16_rm_bwd_launches"]
+           "bf16_r_bwd_launches", "bf16_rm_launches", "bf16_rm_bwd_launches",
+           "CONV_ALIGN", "CONV_STAGES", "CONV_SMEM", "conv_bm",
+           "conv_blocks_per_sm", "fwd_scratch_elems", "conv_grid"]
 
 # kernel launches by the wrappers (nothing else adds here), at f32 and at
 # bf16
@@ -105,6 +113,35 @@ bf16_r_launches = 0
 bf16_r_bwd_launches = 0
 bf16_rm_launches = 0
 bf16_rm_bwd_launches = 0
+
+# csrc/conv_grid.cuh's constants: kConvAlign (elements), kConvStages,
+# kConvSmem (bytes of dynamic shared memory a block)
+CONV_ALIGN = 128
+CONV_STAGES = 4
+CONV_SMEM = CONV_STAGES * 2 * 5120
+
+
+def conv_bm(rows: int, N: int, sms: int) -> int:
+    """The conv grid's tile rows over ``rows`` rows whose widest product
+    has N columns: 64, or 32 while the 64-row tiles do not fill the SMs."""
+    return 32 if -(-rows // 64) * -(-N // 64) < sms else 64
+
+
+def conv_blocks_per_sm(rows: int, N: int, bm: int, sms: int) -> int:
+    """Blocks per SM: one while the tiles of ``bm`` rows fit the SMs, else
+    two (as many as fit, if fewer)."""
+    return 1 if -(-rows // bm) * -(-N // 64) <= sms else 2
+
+
+def fwd_scratch_elems(rows: int, Hin: int, H: int, mat_dtype: str) -> int:
+    """Elements of the forward's scratch ``t`` (h's dtype): t [rows, Hin],
+    then at bf16 W rounded to bf16 [Hin, H] from the next multiple of
+    CONV_ALIGN."""
+    t = rows * Hin
+    if mat_index(mat_dtype) == 0:
+        return t
+    return -(-t // CONV_ALIGN) * CONV_ALIGN + Hin * H
+
 
 _SIGNATURES = {
     "cgr_fused_conv_fwd": ([PTR] * 10 + [I32] * 9 + [PTR], I32),
@@ -213,6 +250,26 @@ def _lib():
     return library("fused_conv", _SIGNATURES)
 
 
+def conv_grid(p: int, te: int, Hin: int, H: int, mat_dtype: str = "float32",
+              backward: bool = False) -> tuple[int, int, int, int]:
+    """(blocks, tile rows, blocks per SM, SMs) of a launch over p·te rows on
+    the current CUDA device (the occupancy query, cached per device and
+    instantiation, needs the card)."""
+    lib = _lib()
+    fn = lib.cgr_fused_conv_grid   # typed here: not every build has it
+    fn.argtypes, fn.restype = [I32] * 6 + [PTR] * 3, I32
+    bm, per_sm, sms = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+    grid = fn(p, te, Hin, H, mat_index(mat_dtype), int(backward),
+              ctypes.byref(bm), ctypes.byref(per_sm), ctypes.byref(sms))
+    raise_on(lib, -grid if grid < 0 else 0, "cgr_fused_conv_grid")
+    return grid, bm.value, per_sm.value, sms.value
+
+
+def _scratch_t(h, Hin: int, H: int, mat_dtype: str) -> torch.Tensor:
+    return torch.empty(fwd_scratch_elems(h.shape[0], Hin, H, mat_dtype),
+                       device=h.device, dtype=h.dtype)
+
+
 def _dims(h, h0, edge_nbr, p: int) -> list[int]:
     return [p, h.shape[0] // p, h.shape[1], h0.shape[1], edge_nbr.shape[1]]
 
@@ -237,7 +294,7 @@ def _launch_fwd(h, h0, edge_nbr, rev, w, b, skip, p, act, mean, train, seed,
     _check(args, p, act, train, seed, dropout_p, mat_dtype, out_dtype)
     check_cuda(args, h.device, _INDEX_NAMES, _types(mat_dtype, out_dtype))
     dev = h.device
-    t = torch.empty_like(h)
+    t = _scratch_t(h, h.shape[1], h0.shape[1], mat_dtype)
     out = torch.empty(h0.shape, device=dev,
                       dtype=_DTYPES[out_dtype or mat_dtype])
     drop = _drop(train, seed, dropout_p, dev)
@@ -492,11 +549,11 @@ def _launch_r_fwd(h, r, h0, edge_nbr, rev, senders, w, b, skip, p, tn,
     dev = h.device
     check_cuda({k: v for k, v in args.items() if v is not None}, dev,
                _R_INDEX_NAMES, _types(mat_dtype))
-    t = torch.empty_like(h)
+    ET, Hin, H = h.shape[0], h.shape[1], h0.shape[1]
+    t = _scratch_t(h, Hin, H, mat_dtype)
     out = torch.empty_like(h0)
     drop = _drop(train, seed, dropout_p, dev)
     lib = _lib()
-    ET, Hin, H = h.shape[0], h.shape[1], h0.shape[1]
     with torch.cuda.device(dev):
         err = lib.cgr_fused_conv_r_fwd(
             *(ptr(x) for x in (h, r, h0, edge_nbr, rev, senders, scale, w, b,

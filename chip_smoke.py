@@ -164,7 +164,20 @@ Phases (any failure raises, and the script exits non-zero):
    training runs (recorded as they run): held against its plain version,
    a rerun bit for bit, and timed beside the plain version (with
    ``--parent``, and the earlier commit's K11) in alternating rounds;
-19. a ``{"kernels": [...]}`` line, then ``{"ok": true, "device": {...}}`` as
+19. the conv layer of K6, K8/K9 and K4 (``csrc/conv_grid.cuh``, one
+   cooperative launch per direction): the inputs of its first launch of
+   each kernel, dtype, activation, mode and shape are recorded where the
+   kernel phases (436 packs, the corpus training batch at p = 4, the
+   wired batch) and the main paths (the capture step on the request
+   batch, layered training, the wired training runs) launch it; each is
+   replayed: a rerun and every forced build of CONV_VARIANTS (a 7-block
+   grid, 32- and 64-row tiles, one and two blocks an SM) bit for bit, one
+   kernel launch a call of K6, K8 and K9 (torch.profiler), and with
+   ``--parent`` the earlier commit's build bit for bit, its launches, and
+   both timed in alternating rounds (and by device time) beside the
+   bound; with ``--parent`` too, K5, K7, K10 and K2 at their recorded
+   shapes bit for bit and timed beside the earlier commit's builds;
+20. a ``{"kernels": [...]}`` line, then ``{"ok": true, "device": {...}}`` as
    the last line.
 
 It exits non-zero, printing no result, without CUDA or without the package
@@ -589,9 +602,11 @@ K3F_VARIANTS = {"7 blocks": {"CGR_GRID_BLOCKS": 7}}
 
 
 def start_variant_builds(parent: Path | None = None) -> dict:
-    """The builds under build/k2_phases/ that the K3f and phase-clock
-    phases swap in, and with ``parent`` (an earlier commit's csrc/) its
-    K3f and K11 sources, each started now (nvcc in the background):
+    """The builds under build/k2_phases/ that the K3f, phase-clock and
+    conv-grid phases swap in (CONV_VARIANTS), and with ``parent`` (an
+    earlier commit's csrc/) its K3f and K11 sources and its fused_conv.cu,
+    conv_stack.cu, gather_linear.cu, onehot_spmm.cu and fused_model_bwd.cu
+    ("<library> earlier"), each started now (nvcc in the background):
     {name: a call that waits for the library}."""
     from cgr_mpnn_3d_tpu_torch.ops import _build
     from cgr_mpnn_3d_tpu_torch.tools import k2_phases
@@ -599,12 +614,22 @@ def start_variant_builds(parent: Path | None = None) -> dict:
     todo = {f"K3f {n}": (d, fwd) for n, d in K3F_VARIANTS.items()}
     todo.update({"K2 stamped": ({k2_phases.DEFINE: None}, None),
                  "K3f stamped": ({k2_phases.DEFINE: None}, fwd)})
+    for lib, variants in CONV_VARIANTS.items():
+        todo.update({f"{lib} {n}": (d, _build.CSRC / f"{lib}.cu")
+                     for n, d in variants.items()})
     if parent is not None:
         parent = parent.resolve()
         todo.update({"K3f earlier": ({}, parent / "fused_model_fwd.cu"),
                      "K11 earlier": ({}, parent / "gather_linear.cu")})
-    return {name: in_background(lambda d=d, src=src: k2_phases.variant(d, src))
-            for name, (d, src) in todo.items()}
+        todo.update({f"{lib} earlier": ({}, parent / f"{lib}.cu")
+                     for lib in ("fused_conv", "conv_stack", "onehot_spmm",
+                                 "fused_model_bwd")})
+    builds = {name: in_background(lambda d=d, src=src: k2_phases.variant(d,
+                                                                        src))
+              for name, (d, src) in todo.items()}
+    if parent is not None:
+        builds["gather_linear earlier"] = builds["K11 earlier"]
+    return builds
 
 
 def swapped(name: str, lib, fn):
@@ -866,6 +891,287 @@ def k11_main_path(recorded: dict, repeats: int, earlier, card: str) -> dict:
             e = k11_held(out, name, fargs, kw, repeats, earlier,
                          glin_r_cost(xa, xr, xb, b, wa, kw["p"], False, True))
             print_k11(name, e, card)
+    return out
+
+
+# forced builds of the conv grid (csrc/conv_grid.cuh), by library: each
+# must give the shipped build's bits (the result does not depend on the
+# grid, the tile rows or the blocks per SM)
+CONV_VARIANTS = {
+    "fused_conv": {
+        "7 blocks": {"CGR_GRID_BLOCKS": 7},
+        "tile rows 32": {"CGR_CONV_BM": 32},
+        "tile rows 64, 1 block an SM": {"CGR_CONV_BM": 64,
+                                        "CGR_BLOCKS_PER_SM": 1},
+        "tile rows 64, 2 blocks an SM": {"CGR_CONV_BM": 64,
+                                         "CGR_BLOCKS_PER_SM": 2}},
+    "conv_stack": {"7 blocks": {"CGR_GRID_BLOCKS": 7}},
+}
+# the wrappers' launch functions whose inputs the main paths record:
+# {kernel: (module, function, library)}; K8's with a scale is K9's
+CONV_LAUNCHES = {
+    "K6 fwd": ("fc", "_launch_fwd", "fused_conv"),
+    "K6 bwd": ("fc", "_launch_bwd", "fused_conv"),
+    "K8 fwd": ("fc", "_launch_r_fwd", "fused_conv"),
+    "K8 bwd": ("fc", "_launch_r_bwd", "fused_conv"),
+    "K4 fwd": ("cs", "_launch_fwd", "conv_stack"),
+    "K4 bwd": ("cs", "_launch_bwd", "conv_stack"),
+}
+# kernels whose code this change leaves as it was, held once beside the
+# parent's build (K3f and K11 in their own phases)
+UNMOVED_LAUNCHES = {
+    "K5 fwd": ("gl", "_launch_fwd", "gather_linear"),
+    "K5 bwd": ("gl", "_launch_bwd", "gather_linear"),
+    "K7": ("os", "_launch", "onehot_spmm"),
+    "K10/K11 fwd": ("gl", "_launch_r_fwd", "gather_linear"),
+    "K2/K3b": ("fm", "_backward", "fused_model_bwd"),
+}
+
+
+def _cloned(v):
+    import torch
+    if torch.is_tensor(v):
+        return v.detach().clone()
+    if isinstance(v, (tuple, list)):
+        return type(v)(_cloned(x) for x in v)
+    if isinstance(v, dict):
+        return {k: _cloned(x) for k, x in v.items()}
+    return v
+
+
+def _shapes(v):
+    import torch
+    if torch.is_tensor(v):
+        return (tuple(v.shape), str(v.dtype), v.is_cuda)
+    if isinstance(v, (tuple, list)):
+        return tuple(_shapes(x) for x in v)
+    if isinstance(v, dict):
+        return tuple((k, _shapes(x)) for k, x in sorted(v.items()))
+    return v if isinstance(v, (int, float, str, bool, type(None))) else None
+
+
+class LaunchRecorder:
+    """Records the inputs of the first card launch of each kernel, dtype,
+    activation, mode and shape that runs while it is active, through the
+    wrappers' launch functions ``targets`` ({kernel: (module, function,
+    library)}), at most ``limit`` of them: {key: (launch function, library,
+    args, kwargs)}, key[0] the kernel."""
+
+    def __init__(self, targets: dict, limit: int = 12):
+        self.targets, self.limit, self.calls = targets, limit, {}
+
+    def _modules(self) -> dict:
+        from cgr_mpnn_3d_tpu_torch.ops import onehot_spmm
+        return dict(_ep_modules(), os=onehot_spmm)
+
+    def __enter__(self):
+        mods = self._modules()
+        self._orig = {}
+        for kernel, (mod, fn, lib) in self.targets.items():
+            orig = getattr(mods[mod], fn)
+            self._orig[kernel] = (mods[mod], fn, orig)
+
+            def rec(*a, _orig=orig, _kernel=kernel, _lib=lib, **kw):
+                # the dropout seeds change from call to call, the work not
+                sh = _shapes((a, {k: v for k, v in kw.items()
+                                  if k not in ("seed", "seeds")}))
+                name = _kernel
+                if kw.get("scale") is not None:
+                    name = _kernel.replace("K8", "K9")
+                if kw.get("act") == "linear":
+                    name = _kernel.replace("K6", "K6 linear")
+                key = (name, kw.get("mat_dtype"), kw.get("act"),
+                       kw.get("train"), sh)
+                if ("True" in str(sh) and key not in self.calls
+                        and len(self.calls) < self.limit):
+                    self.calls[key] = (_orig, _lib, _cloned(a), _cloned(kw))
+                return _orig(*a, **kw)
+            setattr(mods[mod], fn, rec)
+        return self
+
+    def __exit__(self, *exc):
+        for mod, fn, orig in self._orig.values():
+            setattr(mod, fn, orig)
+
+
+# the CUDA API calls that launch a kernel (cudaLaunch*, cuLaunch*), as
+# torch.profiler names them
+LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchCooperativeKernel",
+                "cudaLaunchKernelExC", "cuLaunchKernel", "cuLaunchKernelEx",
+                "cuLaunchCooperativeKernel")
+
+
+def kernel_launches(fn, calls: int = 3) -> float:
+    """The kernels a call of ``fn`` launches, as torch.profiler records
+    them: its kernel-launch runtime calls over ``calls`` calls, in the
+    active step of a profile whose warm-up step (two calls of ``fn``, at
+    least 50 ms) starts the tracer."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, schedule
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1,
+                                   repeat=1)) as prof:
+        t0, n = time.perf_counter(), 0
+        while n < 2 or time.perf_counter() - t0 < 0.05:
+            fn()
+            torch.cuda.synchronize()
+            n += 1
+        prof.step()
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+        prof.step()
+    return sum(e.count for e in prof.key_averages()
+               if e.key in LAUNCH_CALLS) / calls
+
+
+def device_ms(fn, calls: int = 10) -> float:
+    """The device time of one call of ``fn``, median of ``calls``: CUDA
+    events around the call, queued behind a ~1 ms spin of the card so that
+    the host has launched everything before the first event runs (the
+    card's time for the call, without the host's)."""
+    import torch
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    out = []
+    for _ in range(calls):
+        torch.cuda.synchronize()
+        torch.cuda._sleep(2_000_000)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        out.append(start.elapsed_time(end))
+    return statistics.median(out)
+
+
+def _outputs(v) -> list:
+    """The tensors of a result, nested tuples flattened, Nones left out."""
+    if isinstance(v, (tuple, list)):
+        return [t for x in v for t in _outputs(x)]
+    return [] if v is None else [v]
+
+
+def _same(a, b) -> bool:
+    import torch
+    x, y = _outputs(a), _outputs(b)
+    return len(x) == len(y) and all(torch.equal(u, w) for u, w in zip(x, y))
+
+
+def _max_diff(a, b) -> float:
+    return max((float((u.double() - w.double()).abs().max())
+                for u, w in zip(_outputs(a), _outputs(b))), default=0.0)
+
+
+def conv_cost_of(kernel: str, a: tuple, kw: dict) -> tuple:
+    """The (products, other operations, bytes) of a recorded conv launch
+    (conv_cost, conv_r_cost, stack_cost) over its real edges (the rows
+    whose reverse edge is in their pack: every real edge has one)."""
+    from types import SimpleNamespace
+
+    from cgr_mpnn_3d_tpu_torch.ops.segment import in_pack
+    bwd, p = kernel.endswith("bwd"), kw["p"]
+    if kernel.startswith("K4"):
+        h0, edge_nbr, rev = a[0], a[1], a[2]
+        w = a[4] if bwd else a[3]
+        E = int(in_pack(rev, p, h0.shape[0])[1].sum())
+        return stack_cost(h0, edge_nbr, rev, w, p, E, bwd)
+    if kernel.startswith(("K8", "K9")):
+        h, r, h0, edge_nbr, rev, senders = a[:6]
+        node_out = a[7] if bwd else None
+        w = a[8] if bwd else a[6]
+        E = int(in_pack(rev, p, h.shape[0])[1].sum())
+        ns = SimpleNamespace(edge_nbr=edge_nbr, rev=rev, senders=senders,
+                             node_out=node_out)
+        return conv_r_cost(h, r, h0, ns, w, p, E, bwd, kw.get("scale"))
+    h, h0, edge_nbr, rev = a[:4]
+    w = a[5] if bwd else a[4]
+    E = int(in_pack(rev, p, h.shape[0])[1].sum())
+    return conv_cost(h, h0, edge_nbr, rev, w, p, E, bwd,
+                     kw["act"] in ("silu", "gelu"),
+                     4 if kw.get("out_dtype") == "float32" else None)
+
+
+def held_beside_parent(recorded: dict, builds: dict, repeats: int,
+                       card: str, conv: bool = True) -> dict:
+    """Every recorded launch (LaunchRecorder) replayed: a rerun bit for
+    bit; with ``conv`` each forced build of CONV_VARIANTS bit for bit and
+    one kernel launch a call of K6, K8 and K9 (torch.profiler); with
+    --parent the parent's build of its library (``builds["<library>
+    earlier"]``) bit for bit, its launches, and the ms of both over
+    ``repeats`` calls in 5 alternating rounds, beside the bound of the
+    conv kernels' work."""
+    import torch
+    out = {}
+    for label, rec in recorded.items():
+        for key, (fn, lib, a, kw) in rec.calls.items():
+            kernel, md = key[0], key[1] or "float32"
+
+            def call(fn=fn, a=a, kw=kw):
+                with torch.no_grad():
+                    return fn(*a, **kw)
+            rows = a[0].shape[0] if torch.is_tensor(a[0]) else None
+            name = (f"{kernel} {md} {kw.get('act', '')} "
+                    f"{'train' if kw.get('train') else 'eval'}, {label}, "
+                    f"{kw.get('p')} packs" + (f", {rows} rows" if rows
+                                               else ""))
+            got = call()
+            check(_same(got, call()), f"{name}: two runs differ")
+            e: dict = dict(kernel=kernel, label=label, dtype=md, rows=rows)
+            if conv:
+                for vname in CONV_VARIANTS[lib]:
+                    vlib = builds[f"{lib} {vname}"]()
+                    check(_same(got, swapped(lib, vlib, call)),
+                          f"{name}: the {vname} build differs")
+                e["launches"] = kernel_launches(call)
+                if not kernel.startswith("K4"):
+                    check(e["launches"] == 1,
+                          f"{name}: {e['launches']} kernel launches a call")
+            fns = {"shipped": call}
+            parent = builds.get(f"{lib} earlier")
+            if parent is not None:
+                par = parent()
+
+                def pcall(call=call, par=par, lib=lib):
+                    return swapped(lib, par, call)
+                theirs = pcall()
+                e["parent_equal"] = _same(got, theirs)
+                e["parent_diff"] = _max_diff(got, theirs)
+                check(e["parent_equal"], f"{name}: differs from the parent's "
+                                         f"build by {e['parent_diff']:.3e}")
+                if conv:
+                    e["parent_launches"] = kernel_launches(pcall)
+                fns["parent"] = pcall
+            if repeats:
+                ms = alternating_ms(fns, repeats)
+                e["rounds"] = ms
+                e["ms"] = statistics.median(ms["shipped"])
+                if "parent" in ms:
+                    e["parent_ms"] = statistics.median(ms["parent"])
+                e["device_ms"] = {n: device_ms(f) for n, f in fns.items()}
+            if conv:
+                e["bound_ms"], e["bound_by"] = bound(
+                    conv_cost_of(kernel, a, kw), md == BF16)
+            out[name] = e
+            line = f"{name}: reruns"
+            if conv:
+                line += (f" and {len(CONV_VARIANTS[lib])} forced builds equal"
+                         f", {e['launches']:g} kernel launches a call")
+            if "parent_equal" in e:
+                line += (f"; the parent's build equal: {e['parent_equal']}"
+                         + (f" ({e['parent_launches']:g} launches)"
+                            if conv else ""))
+            if "ms" in e:
+                line += (f"; ms (median of 5 alternating rounds, min-max) "
+                         + "; ".join(f"{n} {statistics.median(v):.4f} "
+                                     f"({min(v):.4f}-{max(v):.4f})"
+                                     for n, v in e["rounds"].items()))
+            if "device_ms" in e:
+                line += "; device ms a call (behind a spin) " + ", ".join(
+                    f"{n} {v:.4f}" for n, v in e["device_ms"].items())
+            if "bound_ms" in e:
+                line += f"; bound {e['bound_ms']:.4f} by {e['bound_by']}"
+            print(line + f" [{card}]")
     return out
 
 
@@ -3741,7 +4047,8 @@ def main(argv=None) -> int:
     ap.add_argument("--repeats", type=int, default=20)
     ap.add_argument("--parent", type=Path, default=None,
                     help="csrc/ of an earlier commit of the port (unpacked "
-                         "with git archive): its K3f and K11 are timed "
+                         "with git archive): its K3f, K11, conv layer (K6, "
+                         "K8/K9, K4), K5, K7, K10 and K2 are held and timed "
                          "beside the shipped ones")
     args = ap.parse_args(argv)
 
@@ -3815,23 +4122,35 @@ def main(argv=None) -> int:
         print_train_kernels(f"full width {act}, dropout 0.1, synthetic", k,
                             card)
     lay_reps = max(1, args.repeats // 4)
-    lay_k = layered_kernels(full_train, spec, batch, args.seed, lay_reps)
+    # the conv layer's inputs (K6, K8/K9, K4) where the main paths and the
+    # kernel phases launch it, replayed beside the forced grids and the
+    # parent's build at the end
+    conv_runs = {name: LaunchRecorder(CONV_LAUNCHES, 24) for name in (
+        "436 packs", "p = 4, corpus training batch", "wired batch",
+        "capture step, request batch", "layered training",
+        "wired training runs")}
+    unmoved = LaunchRecorder(UNMOVED_LAUNCHES, 24)
+    with conv_runs["436 packs"]:
+        lay_k = layered_kernels(full_train, spec, batch, args.seed, lay_reps)
     print_layered("full width, dropout 0.1, synthetic", lay_k, card)
     print_layered("layered vs whole-model, full width, dropout 0.1, "
                   "synthetic", layered_vs_whole(full_train, spec, batch,
                                                 args.seed), card)
-    conv_k = fused_conv_kernels(full_train, spec, batch, args.seed, lay_reps)
+    with conv_runs["436 packs"]:
+        conv_k = fused_conv_kernels(full_train, spec, batch, args.seed,
+                                    lay_reps)
     print_capture("full width, dropout 0.1, synthetic", conv_k, card)
     cap = capture_vs_paths(full_train, spec, batch, args.seed, False,
                            lay_reps)
     print_capture("capture vs the other paths, full width, dropout 0.1, "
                   "synthetic", cap, card)
     what = "full width, dropout 0.1, synthetic"
-    lay_k16 = layered_kernels(full_train, spec, batch, args.seed, lay_reps,
-                              BF16)
-    print_layered(what, lay_k16, card)
-    conv_k16 = fused_conv_kernels(full_train, spec, batch, args.seed,
+    with conv_runs["436 packs"]:
+        lay_k16 = layered_kernels(full_train, spec, batch, args.seed,
                                   lay_reps, BF16)
+        print_layered(what, lay_k16, card)
+        conv_k16 = fused_conv_kernels(full_train, spec, batch, args.seed,
+                                      lay_reps, BF16)
     print_capture(what, conv_k16, card)
     cap16 = capture_vs_paths(full_train, spec, batch, args.seed, False,
                              lay_reps, BF16)
@@ -3889,36 +4208,41 @@ def main(argv=None) -> int:
                                          args.repeats), card)
         print_layered("layered vs whole-model, request batch",
                       layered_vs_whole(full, spec, batch, args.seed), card)
-        print_capture("capture vs the other paths, request batch",
-                      capture_vs_paths(full, spec, batch, args.seed, True,
-                                       args.repeats), card)
-        print_capture("bf16 capture vs plain, request batch",
-                      capture_vs_paths(full, spec, batch, args.seed, True,
-                                       args.repeats, BF16), card)
+        with conv_runs["capture step, request batch"]:
+            print_capture("capture vs the other paths, request batch",
+                          capture_vs_paths(full, spec, batch, args.seed, True,
+                                           args.repeats), card)
+            print_capture("bf16 capture vs plain, request batch",
+                          capture_vs_paths(full, spec, batch, args.seed, True,
+                                           args.repeats, BF16), card)
         spec, batch = corpus_batch(Path(tmp), args.seed, dev, shuffle=True)
-        k = train_kernels_vs_plain(full_train, spec, batch, args.seed,
-                                   args.repeats)
+        with unmoved:
+            k = train_kernels_vs_plain(full_train, spec, batch, args.seed,
+                                       args.repeats)
         print_train_kernels("corpus training batch, full width, dropout 0.1",
                             k, card)
         print_bf16("corpus training batch, full width, dropout 0.1",
                    bf16_kernels_vs_plain(full_train, spec, batch, args.seed,
                                          args.repeats), card)
-        print_layered("corpus training batch, full width, dropout 0.1",
-                      layered_kernels(full_train, spec, batch, args.seed,
-                                      args.repeats), card)
+        with conv_runs["p = 4, corpus training batch"], unmoved:
+            print_layered("corpus training batch, full width, dropout 0.1",
+                          layered_kernels(full_train, spec, batch, args.seed,
+                                          args.repeats), card)
         print_layered("layered vs whole-model, corpus training batch",
                       layered_vs_whole(full_train, spec, batch, args.seed),
                       card)
-        conv_p4 = fused_conv_kernels(full_train, spec, batch, args.seed,
-                                     args.repeats)
-        print_capture("corpus training batch, full width, dropout 0.1",
-                      conv_p4, card)
-        print_layered("corpus training batch, full width, dropout 0.1",
-                      layered_kernels(full_train, spec, batch, args.seed,
-                                      args.repeats, BF16), card)
-        print_capture("corpus training batch, full width, dropout 0.1",
-                      fused_conv_kernels(full_train, spec, batch, args.seed,
-                                         args.repeats, BF16), card)
+        with conv_runs["p = 4, corpus training batch"]:
+            conv_p4 = fused_conv_kernels(full_train, spec, batch, args.seed,
+                                         args.repeats)
+            print_capture("corpus training batch, full width, dropout 0.1",
+                          conv_p4, card)
+            print_layered("corpus training batch, full width, dropout 0.1",
+                          layered_kernels(full_train, spec, batch, args.seed,
+                                          args.repeats, BF16), card)
+            print_capture("corpus training batch, full width, dropout 0.1",
+                          fused_conv_kernels(full_train, spec, batch,
+                                             args.seed, args.repeats, BF16),
+                          card)
         srv = serve(Path(tmp), args.seed, card)
         srv_l = serve_layered(Path(tmp), args.seed, card)
         srv_l16 = serve_layered(Path(tmp), args.seed, card, BF16)
@@ -3934,9 +4258,10 @@ def main(argv=None) -> int:
             print(f"train step bf16 vs f32: {rates['bfloat16']:.2f} against "
                   f"{rates['float32']:.2f} steps/s "
                   f"({rates['bfloat16'] / rates['float32']:.3f}x) [{card}]")
-            trn_l = train_layered(Path(tmp), args.seed, card)
-            trn_l16 = train_layered(Path(tmp), args.seed, card, BF16,
-                                    trn_l["rates"])
+            with conv_runs["layered training"]:
+                trn_l = train_layered(Path(tmp), args.seed, card)
+                trn_l16 = train_layered(Path(tmp), args.seed, card, BF16,
+                                        trn_l["rates"])
         finally:
             os.chdir(cwd)
 
@@ -3948,9 +4273,11 @@ def main(argv=None) -> int:
     earlier = (earlier_k11(builds["K11 earlier"](),
                            args.parent / "gather_linear.cu")
                if args.parent else None)
-    ep_k = {n: ep_kernels(args.seed, lay_reps, n, k11_split=True,
-                          earlier=earlier)
-            for n in (2, 4)}
+    with conv_runs["wired batch"], unmoved:
+        ep_k = {2: ep_kernels(args.seed, lay_reps, 2, k11_split=True,
+                              earlier=earlier)}
+    ep_k[4] = ep_kernels(args.seed, lay_reps, 4, k11_split=True,
+                         earlier=earlier)
     for n, k in ep_k.items():
         print_ep_kernels(f"full width, wired batch, n_ep {n}", k, card)
     for n in (2, 4):
@@ -3967,8 +4294,9 @@ def main(argv=None) -> int:
     ep_step_times(args.seed, card)
     # EP at bf16, K6's linear activation, K12, --ep_rdma and --ep_overlap
     t0 = time.perf_counter()
-    ep_k16 = ep_kernels(args.seed, lay_reps, 2, dtype=BF16, k11_split=True,
-                        earlier=earlier)
+    with conv_runs["wired batch"]:
+        ep_k16 = ep_kernels(args.seed, lay_reps, 2, dtype=BF16,
+                            k11_split=True, earlier=earlier)
     print_ep_kernels("full width, wired batch, n_ep 2", ep_k16, card)
     print(f"phase wall: bf16 K8-K11 and K6 linear "
           f"{time.perf_counter() - t0:.1f} s")
@@ -3993,11 +4321,22 @@ def main(argv=None) -> int:
             ep_cli16 = ep_cli_phase(Path(tmp), args.seed, card, BF16)
         print(f"phase wall: --ep 2 --compute_dtype bfloat16 CLI "
               f"{time.perf_counter() - t0:.1f} s")
-        with k11_runs["wired training"]:
+        with k11_runs["wired training"], conv_runs["wired training runs"]:
             ep_wired = ep_train_wired(Path(tmp), args.seed, card)
     t0 = time.perf_counter()
     k11_main_path(k11_runs, lay_reps, earlier, card)
     print(f"phase wall: K11 at the main paths' shapes "
+          f"{time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    for label, rec in conv_runs.items():
+        held_beside_parent({label: rec}, builds, lay_reps
+                           if label == "436 packs" else args.repeats, card)
+    print(f"phase wall: the conv grid at the recorded shapes, beside its "
+          f"forced builds and the parent's {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    held_beside_parent({"unmoved": unmoved}, builds, args.repeats, card,
+                       conv=False)
+    print(f"phase wall: K5, K7, K10/K11 and K2/K3b beside the parent's "
           f"{time.perf_counter() - t0:.1f} s")
     print(f"train steps/s per epoch (StepTimer), README model on the corpus:"
           f" --ep 2 {ep_cli['steps_per_s']}, at bf16 "

@@ -1801,3 +1801,176 @@ def test_no_cuda_tensor_reaches_an_ep_plain_version(cuda, monkeypatch):
                                     seeds=seeds)
         sse.backward()
     torch.cuda.synchronize()
+
+
+# -- the conv grid (csrc/conv_grid.cuh) ---------------------------------------
+
+# forced builds of fused_conv.cu: a 7-block grid, 32-row tiles, 64-row
+# tiles at one block an SM
+CONV_DEFINES = [{"CGR_GRID_BLOCKS": 7}, {"CGR_CONV_BM": 32},
+                {"CGR_CONV_BM": 64, "CGR_BLOCKS_PER_SM": 1}]
+
+
+def _conv_variants(name, defines):
+    from concurrent.futures import ThreadPoolExecutor
+
+    from cgr_mpnn_3d_tpu_torch.ops import _build
+    from cgr_mpnn_3d_tpu_torch.tools import k2_phases
+    src = _build.CSRC / f"{name}.cu"
+    with ThreadPoolExecutor(len(defines)) as pool:
+        return list(pool.map(lambda d: k2_phases.variant(d, src), defines))
+
+
+def _through(name, lib, fn):
+    from cgr_mpnn_3d_tpu_torch.ops import _build
+    shipped = _build.load(name)
+    _build._libs[name] = lib
+    try:
+        return fn()
+    finally:
+        _build._libs[name] = shipped
+
+
+def _flat(v):
+    if isinstance(v, (tuple, list)):
+        return [t for x in v for t in _flat(x)]
+    return [] if v is None else [v]
+
+
+@pytest.mark.parametrize("mat_dtype", ["float32", "bfloat16"])
+def test_conv_grid_forced_builds_and_reruns_are_bit_identical(cuda,
+                                                              mat_dtype):
+    """K6 (ReLU, SiLU, GELU and linear; add and mean; train mode) and K8/K9
+    forward and backward: a rerun and the builds forced to a 7-block grid,
+    32-row tiles and 64-row tiles at one block an SM give the shipped
+    build's outputs bit for bit."""
+    from cgr_mpnn_3d_tpu_torch.ops import fused_conv as fc
+    spec, b, rand = _layered_inputs(cuda)
+    sd = torch.bfloat16 if mat_dtype == "bfloat16" else torch.float32
+    ET, H = b.edge_nbr.shape[0], 40
+    ins = (rand(ET, H).to(sd), rand(ET, H).to(sd), b.edge_nbr, b.rev)
+    ws = (rand(H, H, scale=0.2), rand(H, scale=0.1),
+          torch.tensor(0.8, device=cuda))
+    g = rand(ET, H).to(sd)
+    espec, shards, erand = _ep_case(cuda)
+    e = max(shards, key=lambda s: float(s.halo_mask.sum()))
+    scale = torch.cat([e.inv_deg, e.inv_deg.new_zeros(1)])[
+        e.senders.long()].contiguous()
+    rins = (erand(espec.pe, H).to(sd), erand(espec.pn, H),
+            erand(espec.pe, H).to(sd), e.edge_nbr, e.rev, e.senders)
+    rg = erand(espec.pe, H).to(sd)
+
+    def run():
+        out = []
+        with torch.no_grad():
+            for act, mean in (("relu", False), ("silu", True),
+                              ("gelu", False), ("linear", True)):
+                kw = dict(p=spec.p, act=act, mean=mean, train=True,
+                          seed=2**31 - 3, dropout_p=0.2, mat_dtype=mat_dtype,
+                          out_dtype="float32" if act == "linear" else None)
+                y = fc.fused_conv_forward(*ins, *ws, **kw)
+                gg = g.float() if act == "linear" else g
+                out += [y, *fc.fused_conv_backward(*ins, b.edge_nbr_rev, *ws,
+                                                   y, gg, **kw)]
+            for sc in (None, scale):
+                kw = dict(p=espec.p, tn=espec.tn, scale=sc, train=True,
+                          seed=77, dropout_p=0.1, mat_dtype=mat_dtype)
+                y = fc.fused_conv_r_forward(*rins, *ws, **kw)
+                out += [y, *fc.fused_conv_r_backward(
+                    *rins, e.edge_nbr_rev, e.node_out, *ws, y, rg, **kw)]
+        return _flat(out)
+    want = run()
+    assert all(torch.isfinite(t).all() for t in want)
+    assert all(torch.equal(x, y) for x, y in zip(run(), want))
+    for d, lib in zip(CONV_DEFINES, _conv_variants("fused_conv",
+                                                   CONV_DEFINES)):
+        got = _through("fused_conv", lib, run)
+        assert all(torch.equal(x, y) for x, y in zip(got, want)), d
+
+
+@pytest.mark.parametrize("mat_dtype", ["float32", "bfloat16"])
+def test_conv_stack_on_the_conv_grid_is_bit_identical(cuda, mat_dtype):
+    """K4 runs the conv grid's layer: a rerun and a 7-block grid give its
+    outputs and gradients bit for bit (its plain-version holds are
+    test_conv_stack_kernel_matches_plain and the bf16 twin)."""
+    from cgr_mpnn_3d_tpu_torch.ops import conv_stack as cs
+    spec, b, rand = _layered_inputs(cuda)
+    sd = torch.bfloat16 if mat_dtype == "bfloat16" else torch.float32
+    ET, H, L = b.edge_nbr.shape[0], 40, 3
+    h0 = rand(ET, H).to(sd)
+    ws = (rand(L, H, H, scale=0.2), rand(L, H, scale=0.1),
+          torch.tensor([1.0, 0.7, 1.3], device=cuda))
+    g = rand(ET, H).to(sd)
+
+    def run():
+        out = []
+        with torch.no_grad():
+            for act, mean in (("relu", False), ("gelu", True)):
+                kw = dict(p=spec.p, act=act, mean=mean, train=True,
+                          seeds=[5, 6, 7], dropout_ps=(0.1,) * L,
+                          mat_dtype=mat_dtype)
+                out.append(cs.conv_stack_forward(h0, b.edge_nbr, b.rev, *ws,
+                                                 **kw))
+                out += list(cs.conv_stack_backward(
+                    h0, b.edge_nbr, b.rev, b.edge_nbr_rev, *ws, g, **kw))
+        return out
+    want = run()
+    assert all(torch.equal(x, y) for x, y in zip(run(), want))
+    (lib,) = _conv_variants("conv_stack", [{"CGR_GRID_BLOCKS": 7}])
+    got = _through("conv_stack", lib, run)
+    assert all(torch.equal(x, y) for x, y in zip(got, want))
+
+
+def test_conv_grid_is_one_launch_a_direction(cuda):
+    """A K6 or K8 call is one kernel launch forward and one backward
+    (torch.profiler), on the grid the shape rule picks."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from cgr_mpnn_3d_tpu_torch.ops import fused_conv as fc
+    spec, b, rand = _layered_inputs(cuda)
+    ET, H = b.edge_nbr.shape[0], 40
+    ins = (rand(ET, H), rand(ET, H), b.edge_nbr, b.rev)
+    ws = (rand(H, H, scale=0.2), rand(H, scale=0.1),
+          torch.tensor(0.8, device=cuda))
+    kw = dict(p=spec.p, act="gelu", train=True, seed=3, dropout_p=0.1)
+    with torch.no_grad():
+        y = fc.fused_conv_forward(*ins, *ws, **kw)
+    g = rand(ET, H)
+
+    def kernels(fn):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            with torch.no_grad():
+                fn()
+            torch.cuda.synchronize()
+        return [e.key for e in prof.key_averages()
+                for _ in range(e.count)
+                if e.device_type == DeviceType.CUDA
+                and not e.key.startswith(("Memcpy", "Memset"))]
+    fwd = kernels(lambda: fc.fused_conv_forward(*ins, *ws, **kw))
+    bwd = kernels(lambda: fc.fused_conv_backward(
+        *ins, b.edge_nbr_rev, *ws, y, g, **kw))
+    assert len(fwd) == 1 and "conv_fwd_kernel" in fwd[0], fwd
+    assert len(bwd) == 1 and "conv_bwd_kernel" in bwd[0], bwd
+    for p, bm in ((4, 32), (436, 64)):
+        blocks, tile_rows, per_sm, sms = fc.conv_grid(p, 256, 400, 400)
+        assert tile_rows == fc.conv_bm(p * 256, 400, sms) == bm
+        assert per_sm == fc.conv_blocks_per_sm(p * 256, 400, bm, sms)
+        assert blocks == per_sm * sms
+
+
+def test_conv_phases_tool(cuda, capsys):
+    """tools/conv_phases.py: the stamped build of the conv grid equals the
+    shipped one on every case, and each phase takes a positive time no
+    longer than the span."""
+    from cgr_mpnn_3d_tpu_torch.tools import conv_phases
+    out = conv_phases.main(["--graphs", "60", "--repeats", "2", "--probe"])
+    assert any(k.endswith(" bwd") and "dpre" in v for k, v in out.items())
+    for key, res in out.items():
+        if key.startswith("probe"):
+            assert res > 0
+            continue
+        assert all(0 < v <= res["span"] + 1e-9 for v in res.values()), key
+    assert "conv_phases" in capsys.readouterr().out
