@@ -1,9 +1,10 @@
 // The D-MPNN conv layer as one cooperative grid per direction over the
 // card (CUDA C++, sm_90a), shared by K6 and K8/K9 (fused_conv.cu, one
 // layer) and K4 (conv_stack.cu, every layer through conv_layer and
-// conv_layer_bwd).  The TPU kernels do each direction of a layer in one
-// pallas_call (pallas_fused.py::_fwd_call, _bwd_call, _fwd_call_r,
-// _bwd_call_r); so does this header:
+// conv_layer_bwd); its tile, gathers, sums and grid are also the
+// gather-linear's (gather_linear.cu: K5, K10/K11).  The TPU kernels do
+// each direction of a layer in one pallas_call (pallas_fused.py::_fwd_call,
+// _bwd_call, _fwd_call_r, _bwd_call_r); so does this header:
 //
 //   forward    messages: t = messages(h) [+ r at the senders], row ranges
 //              (with bf16 products also W rounded to bf16)
@@ -31,7 +32,9 @@
 // non-coherent path.
 //
 // The tile.  A BMt x 64 output tile (BMt 64, or 32 when the 64-row tiles
-// do not fill the SMs) of 256 threads, its operands copied by cp.async
+// do not fill the SMs) of 256 threads, summed over one operand pair or
+// two (TilePairs: the gather-linear's t1·Wa + xb·Wb, pair after pair
+// through the same ring), its operands copied by cp.async
 // 16-byte copies into a ring of kConvStages stages in dynamic shared
 // memory: stage s + 1.. load while stage s computes.  A chunk that is not
 // whole or not aligned is copied element by element (zeros outside the
@@ -186,21 +189,45 @@ __device__ __forceinline__ void load_box(T* s, int ss, const T* g,
   }
 }
 
-// The f32 BMt x 64 tile at (m0, n0) of Aop·Bop over K, through epi(m, n,
-// Σ_k), where Aop(m, k) = A[m·lda + k] (TA: A[k·lda + m]) and Bop(k, n) =
-// B[k·ldb + n] (TB: B[n·ldb + k]).  Thread (tx, ty) sums rows ty·RM + i
-// and columns 4 tx + j (TB: tx + 16 j, which keeps its [n][k] stage
-// reads free of bank conflicts), each over k ascending, one fmaf per k,
-// K padded with zeros to a multiple of 16 -- mma_tile's order.
-template <int BMt, bool TA, bool TB, class Epi>
-__device__ void tile_f32(const float* A, long long lda, const float* B,
-                         long long ldb, int M, int N, int K, int m0, int n0,
-                         const Epi& epi, char* smem) {
+// One operand pair of a tile's product: Aop·Bop over K, where Aop(m, k) =
+// A[m·lda + k] (TA: A[k·lda + m]) and Bop(k, n) = B[k·ldb + n] (TB:
+// B[n·ldb + k]).  With a_padded, A's rows hold zeros from K (TA: from M)
+// up to lda, so whole 16-byte copies may read up to lda.
+template <class T>
+struct TilePair {
+  const T* A;
+  long long lda;
+  const T* B;
+  long long ldb;
+  int K;
+  bool a_padded;
+};
+
+// The NP pairs of a tile, passed by value (one pair stays in registers).
+template <class T, int NP>
+struct TilePairs {
+  TilePair<T> p[NP];
+};
+
+// The f32 BMt x 64 tile at (m0, n0) of the sum over the NP pairs of
+// Aop·Bop, through epi(m, n, Σ), the pairs taken in order through one
+// cp.async ring.  Thread (tx, ty) sums rows ty·RM + i and columns 4 tx + j
+// (TB: tx + 16 j, which keeps its [n][k] stage reads free of bank
+// conflicts), each over k ascending, one fmaf per k, each pair's K padded
+// with zeros to a multiple of 16 -- mma_tile's order, pair by pair.
+template <int BMt, bool TA, bool TB, int NP, class Epi>
+__device__ void tile_f32(const TilePairs<float, NP> pp, int M, int N,
+                         int m0, int n0, const Epi& epi, char* smem) {
+  const TilePair<float>* p = pp.p;
   constexpr int BKf = 16, RM = BMt / 16, SK = BKf + 4;
   constexpr int SA = TA ? BMt : SK, SB = TB ? SK : BN;
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  const bool va = whole_chunks(A, lda), vb = whole_chunks(B, ldb);
-  const int nk = (K + BKf - 1) / BKf;
+  bool va[NP], vb[NP];
+#pragma unroll
+  for (int q = 0; q < NP; ++q)
+    va[q] = whole_chunks(p[q].A, p[q].lda), vb[q] = whole_chunks(p[q].B, p[q].ldb);
+  const int nk0 = (p[0].K + BKf - 1) / BKf;
+  const int nk = NP > 1 ? nk0 + (p[NP - 1].K + BKf - 1) / BKf : nk0;
   auto sa = [&](int s) {
     return reinterpret_cast<float*>(smem + 2 * s * kConvHalf);
   };
@@ -208,15 +235,23 @@ __device__ void tile_f32(const float* A, long long lda, const float* B,
     return reinterpret_cast<float*>(smem + (2 * s + 1) * kConvHalf);
   };
   auto load = [&](int kb) {
-    const int s = kb % kConvStages, k0 = kb * BKf;
+    const bool second = NP > 1 && kb >= nk0;
+    const TilePair<float>& q = p[second ? NP - 1 : 0];
+    const bool qa = va[second ? NP - 1 : 0], qb = vb[second ? NP - 1 : 0];
+    const int s = kb % kConvStages, k0 = (second ? kb - nk0 : kb) * BKf;
+    const int ext = q.a_padded ? static_cast<int>(q.lda) : (TA ? M : q.K);
     if constexpr (TA)
-      load_box<float, BKf, BMt>(sa(s), SA, A, lda, k0, m0, K, M, va);
+      load_box<float, BKf, BMt>(sa(s), SA, q.A, q.lda, k0, m0, q.K, ext,
+                                qa);
     else
-      load_box<float, BMt, BKf>(sa(s), SA, A, lda, m0, k0, M, K, va);
+      load_box<float, BMt, BKf>(sa(s), SA, q.A, q.lda, m0, k0, M, ext,
+                                qa);
     if constexpr (TB)
-      load_box<float, BN, BKf>(sb(s), SB, B, ldb, n0, k0, N, K, vb);
+      load_box<float, BN, BKf>(sb(s), SB, q.B, q.ldb, n0, k0, N, q.K,
+                               qb);
     else
-      load_box<float, BKf, BN>(sb(s), SB, B, ldb, k0, n0, K, N, vb);
+      load_box<float, BKf, BN>(sb(s), SB, q.B, q.ldb, k0, n0, q.K, N,
+                               qb);
   };
   float acc[RM][4] = {};
 #pragma unroll
@@ -298,33 +333,45 @@ __device__ void tile_f32(const float* A, long long lda, const float* B,
 // The bf16 twin: operands already bf16 (A [m][k] or, TA, [k][m]; B [k][n]
 // or, TB, [n][k]), 32-deep stages; warp w sums rows 16 (w % WM) .. + 16
 // and columns WC (w / WM) .. + WC of the tile as NT m16n8k16 tiles, each
-// over k ascending in steps of 16 (mma_tile_bf16's sequence).
-template <int BMt, bool TA, bool TB, class Epi>
-__device__ void tile_bf16(const __nv_bfloat16* A, long long lda,
-                          const __nv_bfloat16* B, long long ldb, int M, int N,
-                          int K, int m0, int n0, const Epi& epi, char* smem) {
+// over k ascending in steps of 16, pair by pair (mma_tile_bf16's sequence).
+template <int BMt, bool TA, bool TB, int NP, class Epi>
+__device__ void tile_bf16(const TilePairs<__nv_bfloat16, NP> pp, int M,
+                          int N, int m0, int n0, const Epi& epi, char* smem) {
+  const TilePair<__nv_bfloat16>* p = pp.p;
   using T = __nv_bfloat16;
   constexpr int BKh = 32, WM = BMt / 16, WC = BN / (8 / WM), NT = WC / 8;
   constexpr int SA = TA ? BMt + 8 : BKh + 8, SB = TB ? BKh + 8 : BN + 8;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int wr = 16 * (warp % WM), wc = WC * (warp / WM);
   const int li = lane / 8, lr = lane % 8;
-  const bool va = whole_chunks(A, lda), vb = whole_chunks(B, ldb);
-  const int nk = (K + BKh - 1) / BKh;
+  bool va[NP], vb[NP];
+#pragma unroll
+  for (int q = 0; q < NP; ++q)
+    va[q] = whole_chunks(p[q].A, p[q].lda), vb[q] = whole_chunks(p[q].B, p[q].ldb);
+  const int nk0 = (p[0].K + BKh - 1) / BKh;
+  const int nk = NP > 1 ? nk0 + (p[NP - 1].K + BKh - 1) / BKh : nk0;
   auto sa = [&](int s) { return reinterpret_cast<T*>(smem + 2 * s * kConvHalf); };
   auto sb = [&](int s) {
     return reinterpret_cast<T*>(smem + (2 * s + 1) * kConvHalf);
   };
   auto load = [&](int kb) {
-    const int s = kb % kConvStages, k0 = kb * BKh;
+    const bool second = NP > 1 && kb >= nk0;
+    const TilePair<T>& q = p[second ? NP - 1 : 0];
+    const bool qa = va[second ? NP - 1 : 0], qb = vb[second ? NP - 1 : 0];
+    const int s = kb % kConvStages, k0 = (second ? kb - nk0 : kb) * BKh;
+    const int ext = q.a_padded ? static_cast<int>(q.lda) : (TA ? M : q.K);
     if constexpr (TA)
-      load_box<T, BKh, BMt>(sa(s), SA, A, lda, k0, m0, K, M, va);
+      load_box<T, BKh, BMt>(sa(s), SA, q.A, q.lda, k0, m0, q.K, ext,
+                            qa);
     else
-      load_box<T, BMt, BKh>(sa(s), SA, A, lda, m0, k0, M, K, va);
+      load_box<T, BMt, BKh>(sa(s), SA, q.A, q.lda, m0, k0, M, ext,
+                            qa);
     if constexpr (TB)
-      load_box<T, BN, BKh>(sb(s), SB, B, ldb, n0, k0, N, K, vb);
+      load_box<T, BN, BKh>(sb(s), SB, q.B, q.ldb, n0, k0, N, q.K,
+                           qb);
     else
-      load_box<T, BKh, BN>(sb(s), SB, B, ldb, k0, n0, K, N, vb);
+      load_box<T, BKh, BN>(sb(s), SB, q.B, q.ldb, k0, n0, q.K, N,
+                           qb);
   };
   float acc[NT][4] = {};
 #pragma unroll
@@ -386,18 +433,28 @@ __host__ __device__ __forceinline__ int conv_tiles(long long M, int N) {
   return static_cast<int>((M + BMt - 1) / BMt) * ((N + BN - 1) / BN);
 }
 
-// Tile `tile` (row-major) of an M x N product of Elem operands.
+// Tile `tile` (row-major) of an M x N product of Elem operands, summed
+// over the NP operand pairs in order.
+template <bool kBf16, int BMt, bool TA, bool TB, int NP, class Epi>
+__device__ __forceinline__ void conv_tile_pairs(
+    const TilePairs<Elem<kBf16>, NP>& p, int M, int N, int tile,
+    const Epi& epi, char* smem) {
+  const int tn = (N + BN - 1) / BN;
+  const int m0 = (tile / tn) * BMt, n0 = (tile % tn) * BN;
+  if constexpr (kBf16)
+    tile_bf16<BMt, TA, TB>(p, M, N, m0, n0, epi, smem);
+  else
+    tile_f32<BMt, TA, TB>(p, M, N, m0, n0, epi, smem);
+}
+
+// The tile of one operand pair.
 template <bool kBf16, int BMt, bool TA, bool TB, class Epi>
 __device__ __forceinline__ void conv_tile(const Elem<kBf16>* A, long long lda,
                                           const Elem<kBf16>* B, long long ldb,
                                           int M, int N, int K, int tile,
                                           const Epi& epi, char* smem) {
-  const int tn = (N + BN - 1) / BN;
-  const int m0 = (tile / tn) * BMt, n0 = (tile % tn) * BN;
-  if constexpr (kBf16)
-    tile_bf16<BMt, TA, TB>(A, lda, B, ldb, M, N, K, m0, n0, epi, smem);
-  else
-    tile_f32<BMt, TA, TB>(A, lda, B, ldb, M, N, K, m0, n0, epi, smem);
+  const TilePairs<Elem<kBf16>, 1> p{{{A, lda, B, ldb, K, false}}};
+  conv_tile_pairs<kBf16, BMt, TA, TB>(p, M, N, tile, epi, smem);
 }
 
 // Calls fn(part, j) for this block's items of a phase whose parts have
@@ -444,66 +501,124 @@ __device__ __forceinline__ void store4(__nv_bfloat16* p, const float (&v)[4]) {
   *reinterpret_cast<uint2*>(p) = x;
 }
 
-// Elements (r, c .. c + 3) of the gather-sum a: gather_elem's arithmetic,
-// element by element, on four columns at once (the row's indices read
-// once, each source row by one vector load).
-template <bool kBf16, class S, class O>
-__device__ __forceinline__ void gather_quad(const GatherArgs<S, O>& a,
-                                            long long r, int c,
-                                            bool scale_out) {
-  const long long lo = (r / a.R) * a.C;
-  const int* row = a.idx + r * a.D;
-  float sum[4] = {0.f, 0.f, 0.f, 0.f}, v[4];
-  int count = 0;
+// Elements c .. c + 3 of the row at p (n elements) as f32: one vector load
+// with kVec, else the elements below n one by one (the rest read 0); and
+// stored back as T (with kVec whole, else the elements below n).
+template <bool kVec, class T>
+__device__ __forceinline__ void load4_at(const T* p, int c, int n,
+                                         float (&v)[4]) {
+  if constexpr (kVec) {
+    load4(p + c, v);
+  } else {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) v[e] = c + e < n ? to_f32(p[c + e]) : 0.f;
+  }
+}
+
+template <bool kVec, class T>
+__device__ __forceinline__ void store4_at(T* p, int c, int n,
+                                          const float (&v)[4]) {
+  if constexpr (kVec) {
+    store4(p + c, v);
+  } else {
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      if (c + e < n) p[c + e] = from_f32<T>(v[e]);
+  }
+}
+
+// Elements (r[u], c[u] .. c[u] + 3) of the gather-sum a for each live unit
+// u of U: gather_elem's arithmetic, element by element (the entries in
+// order), the row's indices read once a unit; at each entry the loads of
+// every unit are issued before any is summed, so a thread keeps U rows in
+// flight.  kVec: whole vector loads and stores; else element by element,
+// columns from W on neither read nor stored.  Each row's scale goes to
+// rscale from its unit at column 0.
+template <bool kBf16, bool kVec, int U, class S, class O>
+__device__ __forceinline__ void gather_units(const GatherArgs<S, O>& a,
+                                             const int (&r)[U],
+                                             const int (&c)[U],
+                                             const bool (&live)[U]) {
+  long long lo[U];
+  float sum[U][4], v[U][4], s[U];
+  int count[U];
+#pragma unroll
+  for (int u = 0; u < U; ++u) {
+    lo[u] = (static_cast<long long>(r[u]) / a.R) * a.C;
+    count[u] = 0;
+#pragma unroll
+    for (int e = 0; e < 4; ++e) sum[u][e] = 0.f;
+  }
   for (int d = 0; d < a.D; ++d) {
-    const long long j = row[d] - lo;
-    if (j >= 0 && j < a.C) {
-      ++count;
-      load4(a.src + (lo + j) * a.W + c, v);
-      if (a.src_scale == nullptr) {
+    long long j[U];
 #pragma unroll
-        for (int e = 0; e < 4; ++e) sum[e] = sum[e] + operand<kBf16>(v[e]);
-      } else {
-        const float s = operand<kBf16>(a.src_scale[lo + j]);
+    for (int u = 0; u < U; ++u)
+      j[u] = live[u] ? a.idx[static_cast<long long>(r[u]) * a.D + d] - lo[u]
+                     : -1;
 #pragma unroll
-        for (int e = 0; e < 4; ++e) sum[e] = fmaf(s, operand<kBf16>(v[e]), sum[e]);
+    for (int u = 0; u < U; ++u) {
+      if (j[u] >= 0 && j[u] < a.C) {
+        load4_at<kVec>(a.src + (lo[u] + j[u]) * a.W, c[u], a.W, v[u]);
+        if (a.src_scale != nullptr)
+          s[u] = operand<kBf16>(a.src_scale[lo[u] + j[u]]);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      if (j[u] >= 0 && j[u] < a.C) {
+        ++count[u];
+        if (a.src_scale == nullptr) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            sum[u][e] = sum[u][e] + operand<kBf16>(v[u][e]);
+        } else {
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            sum[u][e] = fmaf(s[u], operand<kBf16>(v[u][e]), sum[u][e]);
+        }
       }
     }
   }
-  float scale = a.mean ? mean_colscale<kBf16>(count) : 1.f;
-  if (a.row_scale != nullptr) scale = operand<kBf16>(a.row_scale[r]);
-  if (a.mean || a.row_scale != nullptr)
 #pragma unroll
-    for (int e = 0; e < 4; ++e) sum[e] *= scale;
-  if (a.extra != nullptr) {
-    long long k = r;
-    bool in = true;
-    if (a.extra_idx != nullptr) {
-      const long long elo = (r / a.R) * a.extra_C;
-      k = a.extra_idx[r] - elo;
-      in = k >= 0 && k < a.extra_C;
-      k += elo;
-    }
-    if (in) {
-      load4(a.extra + k * a.W + c, v);
+  for (int u = 0; u < U; ++u) {
+    if (!live[u]) continue;
+    float scale = a.mean ? mean_colscale<kBf16>(count[u]) : 1.f;
+    if (a.row_scale != nullptr) scale = operand<kBf16>(a.row_scale[r[u]]);
+    if (a.mean || a.row_scale != nullptr)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float x = a.extra_exact ? v[e] : operand<kBf16>(v[e]);
-        sum[e] = a.row_scale == nullptr ? sum[e] + x
-                                        : __fadd_rn(sum[e], __fmul_rn(scale, x));
+      for (int e = 0; e < 4; ++e) sum[u][e] *= scale;
+    if (a.extra != nullptr) {
+      long long k = r[u];
+      bool in = true;
+      if (a.extra_idx != nullptr) {
+        const long long elo =
+            (static_cast<long long>(r[u]) / a.R) * a.extra_C;
+        k = a.extra_idx[r[u]] - elo;
+        in = k >= 0 && k < a.extra_C;
+        k += elo;
+      }
+      if (in) {
+        load4_at<kVec>(a.extra + k * a.W, c[u], a.W, v[u]);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float x = a.extra_exact ? v[u][e] : operand<kBf16>(v[u][e]);
+          sum[u][e] = a.row_scale == nullptr
+                          ? sum[u][e] + x
+                          : __fadd_rn(sum[u][e], __fmul_rn(scale, x));
+        }
       }
     }
-  }
-  if (a.sign != nullptr) {
-    const long long j = a.sign[r] - lo;
-    if (j >= 0 && j < a.C) {
-      load4(a.src + (lo + j) * a.W + c, v);
+    if (a.sign != nullptr) {
+      const long long j = a.sign[r[u]] - lo[u];
+      if (j >= 0 && j < a.C) {
+        load4_at<kVec>(a.src + (lo[u] + j) * a.W, c[u], a.W, v[u]);
 #pragma unroll
-      for (int e = 0; e < 4; ++e) sum[e] -= operand<kBf16>(v[e]);
+        for (int e = 0; e < 4; ++e) sum[u][e] -= operand<kBf16>(v[u][e]);
+      }
     }
+    store4_at<kVec>(a.out + r[u] * a.ld_out(), c[u], a.W, sum[u]);
+    if (a.rscale != nullptr && c[u] == 0) a.rscale[r[u]] = scale;
   }
-  store4(a.out + r * a.W + c, sum);
-  if (a.rscale != nullptr && scale_out) a.rscale[r] = scale;
 }
 
 template <class T>
@@ -512,25 +627,46 @@ __device__ __forceinline__ bool aligned_as(const T* p, int bytes) {
 }
 
 // Row item j (rows_per_item rows) of the gather-sum a (gather_kernel's
-// elements): four columns a thread where the rows allow vector loads,
-// else one.
-template <bool kBf16, class S, class O>
+// elements): four columns a thread where the rows allow vector loads; else
+// one element a thread at a time, or with U > 1 U units of four columns a
+// thread at once (gather_units, element loads).
+template <bool kBf16, int U = 1, class S, class O>
 __device__ __forceinline__ void gather_item(const GatherArgs<S, O>& a, int j,
                                             int rows_per) {
   int r0, r1;
   row_span(j, rows_per, static_cast<int>(a.rows), r0, r1);
-  const bool quads = a.W % 4 == 0 && aligned_as(a.src, 4 * sizeof(S)) &&
+  const bool quads = a.W % 4 == 0 && a.ld_out() % 4 == 0 &&
+                     aligned_as(a.src, 4 * sizeof(S)) &&
                      aligned_as(a.out, 4 * sizeof(O)) &&
                      (a.extra == nullptr || aligned_as(a.extra, 16));
   if (quads) {
     const int q = a.W / 4;
-    for (int i = threadIdx.x; i < (r1 - r0) * q; i += kThreads)
-      gather_quad<kBf16>(a, r0 + i / q, (i % q) * 4, i % q == 0);
+    for (int i = threadIdx.x; i < (r1 - r0) * q; i += kThreads) {
+      const int r[1] = {r0 + i / q}, c[1] = {(i % q) * 4};
+      const bool live[1] = {true};
+      gather_units<kBf16, true>(a, r, c, live);
+    }
     return;
   }
-  for (int i = threadIdx.x; i < (r1 - r0) * a.W; i += kThreads) {
-    const int c = i % a.W;
-    gather_elem<kBf16>(a, r0 + i / a.W, c, c == 0);
+  if constexpr (U == 1) {
+    for (int i = threadIdx.x; i < (r1 - r0) * a.W; i += kThreads) {
+      const int c = i % a.W;
+      gather_elem<kBf16>(a, r0 + i / a.W, c, c == 0);
+    }
+  } else {
+    const int q = (a.W + 3) / 4, n = (r1 - r0) * q;
+    for (int i0 = threadIdx.x; i0 < n; i0 += U * kThreads) {
+      int r[U], c[U];
+      bool live[U];
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const int i = i0 + u * kThreads;
+        live[u] = i < n;
+        r[u] = r0 + (live[u] ? i / q : 0);
+        c[u] = live[u] ? (i % q) * 4 : 0;
+      }
+      gather_units<kBf16, false>(a, r, c, live);
+    }
   }
 }
 

@@ -1,9 +1,9 @@
 // Device code shared by the layered kernels (onehot_spmm.cu, gather_linear.cu,
 // conv_stack.cu, fused_conv.cu): a pack-local ELL gather-sum over a whole
-// batch, one output tile of a shared-memory product per thread block, a
-// split-K weight-gradient product, column sums, a fixed-order sum of
-// partials, and a conv layer's dpre pass (the conv layer itself, forward
-// and backward, is conv_grid.cuh's cooperative grid).
+// batch, an epilogue of a product's tiles, a fixed-order sum of partials,
+// scratch carving, and a conv layer's dpre pass (the conv layer and the
+// gather-linear themselves, forward and backward, are conv_grid.cuh's
+// cooperative grid and its tile).
 //
 // Unlike the whole-model kernels, these run a grid over the whole batch:
 // a block is not a pack.  A row's pack is its row index over the rows per
@@ -14,10 +14,10 @@
 // reruns are bit-identical.
 //
 // Everything is templated on kBf16, the TPU kernels' mat_dtype (as in
-// fused_model_common.cuh).  false: f32 operands, the f32 FMA tile of
-// mma_tile, every state f32.  true: every operand of a product and of a
-// gather-sum rounded to bf16 as it is read, the products on the tensor
-// cores (mma_tile_bf16, f32 sums), a mean scaled by bf16(1 / degree), and
+// fused_model_common.cuh).  false: f32 operands, f32 FMA products (in
+// mma_tile's order), every state f32.  true: every operand of a product
+// and of a gather-sum rounded to bf16 as it is read, the products on the
+// tensor cores (f32 sums), a mean scaled by bf16(1 / degree), and
 // the states the TPU kernels store at out_dtype bf16 (h0, every layer's h,
 // the messages t, their cotangents) held as __nv_bfloat16 (Elem<true>).
 // Rounding a value where it is stored gives the numbers of rounding it
@@ -52,8 +52,8 @@ using Elem = std::conditional_t<kBf16, __nv_bfloat16, float>;
 // EP readout adds its f32 xr unrounded).  Under kBf16 the scales are
 // entries of the one-hot matrix, so w_j and row_scale[r] are rounded to
 // bf16 too.  With `rscale`, scale_r is written there too.  src is S (f32
-// or bf16), out O.  Leaving the trailing members out of an initializer
-// leaves them null.
+// or bf16), out O, its rows ldo apart (0: W, the source's row stride).
+// Leaving the trailing members out of an initializer leaves them null.
 template <class S, class O>
 struct GatherArgs {
   const S* src;
@@ -71,6 +71,10 @@ struct GatherArgs {
   const int* extra_idx;
   int extra_C;
   int extra_exact;
+  int ldo;
+  __host__ __device__ __forceinline__ long long ld_out() const {
+    return ldo != 0 ? ldo : W;
+  }
 };
 
 // Element (r, c) of the gather-sum, for any c (the entries are counted
@@ -124,7 +128,7 @@ __device__ __forceinline__ void gather_elem(const GatherArgs<S, O>& a,
     if (j >= 0 && j < a.C && c < a.W)
       sum -= operand<kBf16>(to_f32(a.src[(lo + j) * a.W + c]));
   }
-  if (c < a.W) a.out[r * a.W + c] = from_f32<O>(sum);
+  if (c < a.W) a.out[r * a.ld_out() + c] = from_f32<O>(sum);
   if (a.rscale != nullptr && scale_out) a.rscale[r] = scale;
 }
 
@@ -146,81 +150,6 @@ inline void launch_gather(const GatherArgs<S, O>& a, cudaStream_t st) {
                   static_cast<unsigned>((a.W + kGatherThreads - 1) / kGatherThreads));
   gather_kernel<kBf16, S, O><<<grid, kGatherThreads, 0, st>>>(a);
 }
-
-// Stores the accumulators of the BM x BN tile at (m0, n0) through epi, in
-// the thread -> (m, n) map of mma_tile (f32) or of the mma fragments of
-// mma_tile_bf16 (as fused_model_common.cuh::gemm does).
-template <bool kBf16, class Epi>
-__device__ __forceinline__ void store_tile(const float (&acc)[TM][TN], int m0,
-                                           int n0, int M, int N,
-                                           const Epi& epi) {
-  if constexpr (kBf16) {
-    const int warp = threadIdx.x / 32, g = (threadIdx.x % 32) / 4,
-              t = threadIdx.x % 4;
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        const int m = m0 + 16 * (warp % 4) + g + 8 * (q / 2);
-        const int n = n0 + 32 * (warp / 4) + 8 * j + 2 * t + q % 2;
-        if (m < M && n < N) epi(m, n, acc[j][q]);
-      }
-  } else {
-    const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-#pragma unroll
-    for (int i = 0; i < TM; ++i) {
-      const int m = m0 + ty + 16 * i;
-#pragma unroll
-      for (int j = 0; j < TN; ++j) {
-        const int n = n0 + tx + 16 * j;
-        if (m < M && n < N) epi(m, n, acc[i][j]);
-      }
-    }
-  }
-}
-
-// acc += one operand pair's share of the BM x BN tile at (m0, n0).
-template <bool kBf16, bool TA, bool TB, class T>
-__device__ __forceinline__ void tile_product(float (&acc)[TM][TN],
-                                             const OperandsOf<T>& p, int m0,
-                                             int n0, int M, int N,
-                                             SmemOf<kBf16>& sm) {
-  if constexpr (kBf16)
-    mma_tile_bf16<TA, TB>(acc, p.A, p.B, p.ldb, p.K, m0, n0, M, N, sm);
-  else
-    mma_tile<TA, TB>(acc, p.A, p.B, p.ldb, p.K, m0, n0, M, N, sm);
-}
-
-// One BM x BN output tile per block, grid (ceil(N/BN), ceil(M/BM)):
-// epi(m, n, Σ over the pairs of Aop·Bop) (fused_model_common.cuh::mma_tile
-// or mma_tile_bf16); the second pair is skipped when its K is 0.
-template <bool kBf16, bool TA, bool TB, class T1, class T2, class Epi>
-__global__ void __launch_bounds__(kThreads)
-    tile_kernel(OperandsOf<T1> p1, OperandsOf<T2> p2, int M, int N, Epi epi) {
-  __shared__ SmemOf<kBf16> sm;
-  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
-  float acc[TM][TN] = {};
-  tile_product<kBf16, TA, TB>(acc, p1, m0, n0, M, N, sm);
-  if (p2.K > 0) tile_product<kBf16, TA, TB>(acc, p2, m0, n0, M, N, sm);
-  store_tile<kBf16>(acc, m0, n0, M, N, epi);
-}
-
-template <bool kBf16, bool TA, bool TB, class T1, class T2, class Epi>
-void launch_tile(const OperandsOf<T1>& p1, const OperandsOf<T2>& p2, int M,
-                 int N, const Epi& epi, cudaStream_t st) {
-  if (M == 0 || N == 0) return;
-  const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
-  tile_kernel<kBf16, TA, TB, T1, T2, Epi><<<grid, kThreads, 0, st>>>(
-      p1, p2, M, N, epi);
-}
-
-template <class T>
-inline OperandsOf<T> plain(const T* a, int K_a, const float* b, int ldb,
-                           int K) {
-  return OperandsOf<T>{RowsOf<T>{a, K_a, nullptr, 0, 0}, b, ldb, K};
-}
-
-inline Operands no_operands() { return Operands{Rows{nullptr, 0, nullptr, 0, 0}, nullptr, 0, 0}; }
 
 // out = drop_l(act(acc + bias [+ skip·h0])) over rows of width ld, h0 of
 // type T and out of type O; the f32 pre-activation is stored too when `pre` is set,
@@ -266,40 +195,6 @@ struct StoreAs {
   }
 };
 
-// part[s, m, n] = Σ_{k in split s} A[k, m]·B[k, n] with A [K, M] (of type
-// T) and B [K, N] row-major, split s covering rows [s·chunk, (s + 1)·chunk);
-// grid (ceil(N/BN), ceil(M/BM), S).
-template <bool kBf16, class T>
-__global__ void __launch_bounds__(kThreads)
-    wgrad_kernel(const T* A, int M, const float* B, int N, long long K,
-                 long long chunk, float* part) {
-  __shared__ SmemOf<kBf16> sm;
-  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
-  const long long k0 = blockIdx.z * chunk;
-  const long long left = K - k0;
-  const int kn = static_cast<int>(left < chunk ? (left > 0 ? left : 0) : chunk);
-  float acc[TM][TN] = {};
-  tile_product<kBf16, true, false>(
-      acc, OperandsOf<T>{RowsOf<T>{A + k0 * M, M, nullptr, 0, 0}, B + k0 * N,
-                         N, kn},
-      m0, n0, M, N, sm);
-  store_tile<kBf16>(acc, m0, n0, M, N,
-                    StoreEpi{part + static_cast<size_t>(blockIdx.z) * M * N, N});
-}
-
-// part[s, c] = Σ_{r in split s} a[r, c], rows in order; grid
-// (ceil(N/256), S) of 256 threads.
-__global__ void colsum_kernel(const float* a, int N, long long K,
-                              long long chunk, float* part) {
-  const int c = blockIdx.x * 256 + threadIdx.x;
-  if (c >= N) return;
-  const long long k0 = blockIdx.y * chunk;
-  const long long k1 = k0 + chunk < K ? k0 + chunk : K;
-  float s = 0.f;
-  for (long long r = k0; r < k1; ++r) s += a[r * N + c];
-  part[static_cast<size_t>(blockIdx.y) * N + c] = s;
-}
-
 // out[i] = Σ_s part[s, i] over S partials of G floats, in order.
 __global__ void sum_splits_kernel(const float* part, int S, long long G,
                                   float* out) {
@@ -316,27 +211,6 @@ inline void launch_sum(const float* part, int S, long long G, float* out,
                        cudaStream_t st) {
   const long long blocks = (G + 255) / 256 < 2048 ? (G + 255) / 256 : 2048;
   sum_splits_kernel<<<static_cast<int>(blocks), 256, 0, st>>>(part, S, G, out);
-}
-
-// out [M, N] = Σ_k A[k, :]ᵀ·B[k, :] over K rows: S split-K partials in
-// part (S·M·N floats), then their sum in split order.
-template <bool kBf16, class T>
-inline void launch_wgrad(const T* A, int M, const float* B, int N,
-                         long long K, int S, float* part, float* out,
-                         cudaStream_t st) {
-  const long long chunk = (K + S - 1) / S;
-  const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM, S);
-  wgrad_kernel<kBf16, T><<<grid, kThreads, 0, st>>>(A, M, B, N, K, chunk,
-                                                    part);
-  launch_sum(part, S, static_cast<long long>(M) * N, out, st);
-}
-
-// out [N] = Σ_k a[k, :] over K rows: S partials in part (S·N floats).
-inline void launch_colsum(const float* a, int N, long long K, int S,
-                          float* part, float* out, cudaStream_t st) {
-  const long long chunk = (K + S - 1) / S;
-  colsum_kernel<<<dim3((N + 255) / 256, S), 256, 0, st>>>(a, N, K, chunk, part);
-  launch_sum(part, S, N, out, st);
 }
 
 // Typed buffers carved out of one scratch allocation, each 256-byte

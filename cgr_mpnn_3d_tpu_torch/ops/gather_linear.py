@@ -55,9 +55,19 @@ unrounded, the pool sums bf16(out) and its cotangent enters the backward
 rounded (pallas_glin.py:316-319, :497, :527).  Counters ``r_launches`` /
 ``r_bwd_launches`` (K10) and ``pool_launches`` / ``pool_bwd_launches``
 (K11), with the ``bf16_`` prefix at bf16.
+
+On the card each call is one cooperative launch per direction of
+``csrc/gather_linear.cu``'s grid (on ``csrc/conv_grid.cuh``'s tile), with
+one scratch allocation sized by the library
+(``cgr_gather_linear_{fwd,bwd}_scratch_bytes``); :func:`padded`,
+:func:`xb_copied`, :func:`scratch_bytes` and :func:`glin_tiles` mirror its
+layout and shape rule, and :func:`glin_grid` asks the library for the grid
+a launch takes.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -65,6 +75,7 @@ from ._launch import (I32, PTR, check_cuda, check_types, count_launch,
                       library, mat_index, ptr, raise_on, refuse_grad,
                       split_k, stream)
 from .bf16_ref import bf16_gather, bf16_mm, bf16_onehot
+from .fused_conv import conv_blocks_per_sm, conv_bm
 from .kernel_math import KERNEL_ACTS, k_act
 from .segment import ext_zero_row, in_pack, pack_gather_sum
 
@@ -79,7 +90,9 @@ __all__ = ["gather_linear_forward", "gather_linear_forward_ref",
            "bf16_bwd_launches", "r_launches", "r_bwd_launches",
            "pool_launches", "pool_bwd_launches", "bf16_r_launches",
            "bf16_r_bwd_launches", "bf16_pool_launches",
-           "bf16_pool_bwd_launches", "POOL_CHUNK", "pool_chunks"]
+           "bf16_pool_bwd_launches", "POOL_CHUNK", "pool_chunks",
+           "GLIN_PAD", "padded", "xb_copied", "scratch_bytes", "glin_tiles",
+           "glin_grid"]
 
 # kernel launches by the wrappers (nothing else adds here), at f32 and at
 # bf16
@@ -100,10 +113,59 @@ bf16_pool_bwd_launches = 0
 
 _SIGNATURES = {
     "cgr_gather_linear_fwd": ([PTR] * 8 + [I32] * 11 + [PTR], I32),
-    "cgr_gather_linear_bwd": ([PTR] * 19 + [I32] * 13 + [PTR], I32),
-    "cgr_gather_linear_r_fwd": ([PTR] * 13 + [I32] * 13 + [PTR], I32),
-    "cgr_gather_linear_r_bwd": ([PTR] * 24 + [I32] * 13 + [PTR], I32),
+    "cgr_gather_linear_bwd": ([PTR] * 15 + [I32] * 13 + [PTR], I32),
+    "cgr_gather_linear_r_fwd": ([PTR] * 11 + [I32] * 13 + [PTR], I32),
+    "cgr_gather_linear_r_bwd": ([PTR] * 19 + [I32] * 13 + [PTR], I32),
+    "cgr_gather_linear_fwd_scratch_bytes": ([I32] * 8, ctypes.c_longlong),
+    "cgr_gather_linear_bwd_scratch_bytes": ([I32] * 7, ctypes.c_longlong),
+    "cgr_gather_linear_grid": ([I32] * 7 + [ctypes.POINTER(I32)] * 3, I32),
 }
+# csrc/gather_linear.cu's kGlinPad: t1's (and a copied xb's) row stride is
+# a multiple of it (whole 16-byte chunks at f32 and bf16)
+GLIN_PAD = 8
+_CARVE = 256        # layered_common.cuh::Carve aligns each buffer to it
+
+
+def padded(n: int) -> int:
+    """The row stride of t1 (width n) in the scratch: n rounded up to a
+    multiple of GLIN_PAD."""
+    return -(-n // GLIN_PAD) * GLIN_PAD
+
+
+def xb_copied(FB: int) -> bool:
+    """Whether the kernel copies xb (width FB) to its padded stride: when
+    its rows are not whole chunks."""
+    return padded(FB) != FB
+
+
+def scratch_bytes(backward: bool, p: int, R: int, FA: int, FB: int, H: int,
+                  mat_dtype: str, S: int = 0, GP: int = 0,
+                  chunks: int = 1) -> int:
+    """Bytes of a direction's scratch, the layout the kernel carves:
+    forward t1 [rows, padded(FA)], xb's copy, at bf16 wa and wb rounded,
+    K11's pool partials and flags (more than one chunk); backward t1,
+    xb's copy, the bf16 weights, dt [rows, FA] (at f32), dpre, rscale,
+    dpre rounded at bf16, and S split-K partials [S, FA + FB + 1, H]; each
+    buffer 256-byte aligned."""
+    e = 2 if mat_dtype == "bfloat16" else 4
+    bf16 = e == 2
+    rows = p * R
+    sizes = [rows * padded(FA) * e]
+    if xb_copied(FB):
+        sizes.append(rows * padded(FB) * e)
+    if bf16:
+        sizes += [FA * H * e, FB * H * e]
+    if not backward:
+        if GP and chunks > 1:
+            sizes += [p * GP * chunks * H * 4, p * GP * chunks * 4]
+    else:
+        sizes += [rows * FA * 4, rows * H * 4, rows * 4]
+        if bf16:
+            sizes.append(rows * H * 2)
+        sizes.append(S * (FA + FB + 1) * H * 4)
+    return sum(-(-n // _CARVE) * _CARVE for n in sizes)
+
+
 _INDEX_NAMES = {"idx", "adj"}
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -177,8 +239,42 @@ def gather_linear_backward_ref(xa, xb, idx, adj, wa, wb, b, out, g, *,
     return tuple(grads)
 
 
+def glin_tiles(rows: int, FA: int, FB: int, H: int, backward: bool,
+               sms: int) -> tuple[int, int]:
+    """(tile rows, blocks per SM) of a launch over ``rows`` rows: the conv
+    grid's rule (ops.fused_conv.conv_bm, conv_blocks_per_sm) over the
+    widest product, H forward and the widest of FA, FB and H backward."""
+    N = max(FA, FB, H) if backward else H
+    bm = conv_bm(rows, N, sms)
+    return bm, conv_blocks_per_sm(rows, N, bm, sms)
+
+
 def _lib():
     return library("gather_linear", _SIGNATURES)
+
+
+def glin_grid(p: int, R: int, FA: int, FB: int, H: int,
+              mat_dtype: str = "float32", backward: bool = False):
+    """(blocks, tile rows, blocks per SM, SMs) of a launch over p·R rows
+    on the current card (the library's shape rule and occupancy query)."""
+    lib = _lib()
+    bm, per_sm, sms = I32(), I32(), I32()
+    grid = lib.cgr_gather_linear_grid(p, R, FA, FB, H, mat_index(mat_dtype),
+                                      int(backward), ctypes.byref(bm),
+                                      ctypes.byref(per_sm), ctypes.byref(sms))
+    raise_on(lib, -grid if grid < 0 else 0, "cgr_gather_linear_grid")
+    return grid, bm.value, per_sm.value, sms.value
+
+
+def _scratch(lib, backward: bool, dims: list, mat: int, dev, S: int = 0,
+             GP: int = 0, chunks: int = 1) -> torch.Tensor:
+    """One allocation of the bytes the library asks for a direction."""
+    p, R, _, FA, FB, H = dims[:6]
+    n = (lib.cgr_gather_linear_bwd_scratch_bytes(p, R, FA, FB, H, S, mat)
+         if backward else
+         lib.cgr_gather_linear_fwd_scratch_bytes(p, R, FA, FB, H, GP, chunks,
+                                                 mat))
+    return torch.empty(n, device=dev, dtype=torch.uint8)
 
 
 def _dims(xa, xb, idx, wa, p: int) -> list[int]:
@@ -196,16 +292,16 @@ def _launch_fwd(xa, xb, idx, wa, wb, b, p, act, mean, mat_dtype,
     args = dict(xa=xa, xb=xb, idx=idx, wa=wa, wb=wb, b=b)
     _check(args, p, act, mat_dtype, out_dtype)
     check_cuda(args, xa.device, _INDEX_NAMES, _types(mat_dtype, out_dtype))
-    rows, FA, H = xb.shape[0], xa.shape[1], wa.shape[1]
+    rows, H = xb.shape[0], wa.shape[1]
     dev = xa.device
-    t1 = torch.empty((rows, FA), device=dev, dtype=xa.dtype)
     out = torch.empty((rows, H), device=dev, dtype=_DTYPES[out_dtype])
     lib = _lib()
+    dims = _dims(xa, xb, idx, wa, p)
     with torch.cuda.device(dev):
+        scratch = _scratch(lib, False, dims, mat_index(mat_dtype), dev)
         err = lib.cgr_gather_linear_fwd(
-            *(t.data_ptr() for t in (xa, xb, idx, wa, wb, b, t1, out)),
-            *_dims(xa, xb, idx, wa, p),
-            *_modes(act, mean, mat_dtype, out_dtype), stream(dev))
+            *(t.data_ptr() for t in (xa, xb, idx, wa, wb, b, scratch, out)),
+            *dims, *_modes(act, mean, mat_dtype, out_dtype), stream(dev))
     raise_on(lib, err, "gather_linear_fwd")
     return out
 
@@ -236,25 +332,19 @@ def _launch_bwd(xa, xb, idx, adj, wa, wb, b, out, g, p, act, mean,
                 g=g)
     _check(args, p, act, mat_dtype, out_dtype)
     check_cuda(args, xa.device, _INDEX_NAMES, _types(mat_dtype, out_dtype))
-    rows, FA, FB, H = xb.shape[0], xa.shape[1], xb.shape[1], wa.shape[1]
     dev = xa.device
-
-    def empty(*shape, dtype=torch.float32):
-        return torch.empty(shape, device=dev, dtype=dtype)
-
     grads = [torch.empty_like(t) if need else None
              for t, need in zip((xa, xb, wa, wb, b), needs)]
-    S = split_k(rows)
-    scratch = [empty(rows, FA, dtype=xa.dtype), empty(rows, FA, dtype=xa.dtype),
-               empty(rows, H), empty(rows), empty(S * max(FA, FB) * H)]
+    S = split_k(xb.shape[0])
     lib = _lib()
+    dims, mat = _dims(xa, xb, idx, wa, p), mat_index(mat_dtype)
     with torch.cuda.device(dev):
+        scratch = _scratch(lib, True, dims, mat, dev, S)
         err = lib.cgr_gather_linear_bwd(
             *(t.data_ptr() for t in (xa, xb, idx, adj, wa, wb, b, out, g)),
-            *(ptr(t) for t in grads), *(t.data_ptr() for t in scratch),
-            *_dims(xa, xb, idx, wa, p), adj.shape[1], KERNEL_ACTS.index(act),
-            int(mean), S, mat_index(mat_dtype), int(out_dtype == "bfloat16"),
-            stream(dev))
+            *(ptr(t) for t in grads), scratch.data_ptr(), *dims,
+            adj.shape[1], KERNEL_ACTS.index(act), int(mean), S, mat,
+            int(out_dtype == "bfloat16"), stream(dev))
     raise_on(lib, err, "gather_linear_bwd")
     return tuple(grads)
 
@@ -442,24 +532,20 @@ def _launch_r_fwd(xa, xr, xb, idx, wa, wb, b, p, act, mean, mat_dtype,
     dev = xa.device
     check_cuda({k: v for k, v in args.items() if v is not None}, dev,
                _R_INDEX_NAMES, _types(mat_dtype, "float32"))
-    rows, FA, H = xb.shape[0], xa.shape[1], wa.shape[1]
-    t1 = torch.empty((rows, FA), device=dev, dtype=xa.dtype)
+    rows, H = xb.shape[0], wa.shape[1]
     out = torch.empty((rows, H), device=dev)
     GP = 0 if pool_ell is None else pool_ell.shape[0] // p
     DN = 0 if pool_ell is None else pool_ell.shape[1]
     pool = None if pool_ell is None else torch.empty((p * GP, H), device=dev)
     chunks = pool_chunks(DN)
-    part = used = None
-    if pool_ell is not None and chunks > 1:
-        part = torch.empty((p * GP * chunks, H), device=dev)
-        used = torch.empty(p * GP * chunks, device=dev, dtype=torch.int32)
     lib = _lib()
+    dims, mat = _dims(xa, xb, idx, wa, p), mat_index(mat_dtype)
     with torch.cuda.device(dev):
+        scratch = _scratch(lib, False, dims, mat, dev, GP=GP, chunks=chunks)
         err = lib.cgr_gather_linear_r_fwd(
-            *(ptr(t) for t in (xa, xr, xb, idx, pool_ell, wa, wb, b, t1, out,
-                               pool, part, used)),
-            *_dims(xa, xb, idx, wa, p), GP, DN, chunks,
-            KERNEL_ACTS.index(act), int(mean), mat_index(mat_dtype),
+            *(ptr(t) for t in (xa, xr, xb, idx, pool_ell, wa, wb, b, scratch,
+                               out, pool)),
+            *dims, GP, DN, chunks, KERNEL_ACTS.index(act), int(mean), mat,
             stream(dev))
     raise_on(lib, err, "gather_linear_r_fwd")
     return out, pool
@@ -475,26 +561,19 @@ def _launch_r_bwd(xa, xr, xb, idx, adj, wa, wb, b, out, g, p, act, mean,
     dev = xa.device
     check_cuda({k: v for k, v in args.items() if v is not None}, dev,
                _R_INDEX_NAMES, _types(mat_dtype, "float32"))
-    rows, FA, FB, H = xb.shape[0], xa.shape[1], xb.shape[1], wa.shape[1]
-
-    def empty(*shape, dtype=torch.float32):
-        return torch.empty(shape, device=dev, dtype=dtype)
-
     grads = [torch.empty_like(t) if need else None
              for t, need in zip((xa, xr, xb, wa, wb, b), needs)]
-    S = split_k(rows)
-    scratch = [empty(rows, FA, dtype=xa.dtype), empty(rows, FA),
-               empty(rows, H), empty(rows), empty(S * max(FA, FB) * H),
-               empty(rows, H) if gpool is not None else None]
+    S = split_k(xb.shape[0])
     GP = 0 if gpool is None else gpool.shape[0] // p
     lib = _lib()
+    dims, mat = _dims(xa, xb, idx, wa, p), mat_index(mat_dtype)
     with torch.cuda.device(dev):
+        scratch = _scratch(lib, True, dims, mat, dev, S)
         err = lib.cgr_gather_linear_r_bwd(
             *(ptr(t) for t in (xa, xr, xb, idx, adj, node_group, wa, wb, b,
                                out, g, gpool)),
-            *(ptr(t) for t in grads), *(ptr(t) for t in scratch),
-            *_dims(xa, xb, idx, wa, p), adj.shape[1], GP,
-            KERNEL_ACTS.index(act), int(mean), S, mat_index(mat_dtype),
+            *(ptr(t) for t in grads), scratch.data_ptr(), *dims,
+            adj.shape[1], GP, KERNEL_ACTS.index(act), int(mean), S, mat,
             stream(dev))
     raise_on(lib, err, "gather_linear_r_bwd")
     return tuple(grads)

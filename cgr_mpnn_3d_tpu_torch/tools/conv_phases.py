@@ -129,15 +129,16 @@ def _wired_case(chain: int, n_graphs: int, seed: int, dev, mat_dtype: str):
             lambda: fc.fused_conv_r_backward(*bwd, **kw))
 
 
-def _through(lib, fn):
+def _through(lib, fn, name: str = "fused_conv"):
+    """fn() under no_grad with ``lib`` as the library of csrc/<name>.cu."""
     from ..ops import _build
-    shipped = _build.load("fused_conv")
-    _build._libs["fused_conv"] = lib
+    shipped = _build.load(name)
+    _build._libs[name] = lib
     try:
         with torch.no_grad():
             return fn()
     finally:
-        _build._libs["fused_conv"] = shipped
+        _build._libs[name] = shipped
 
 
 def _equal(a, b) -> bool:
@@ -147,11 +148,11 @@ def _equal(a, b) -> bool:
                for x, y in zip(a, b))
 
 
-def _stamps(lib, fn, repeats: int) -> list[dict]:
+def _stamps(lib, fn, repeats: int, name: str = "fused_conv") -> list[dict]:
     """{phase id: ms since the launch's start} of ``repeats`` calls."""
     runs = []
     for _ in range(repeats):
-        _through(lib, fn)
+        _through(lib, fn, name)
         torch.cuda.synchronize()
         st = read_stamps(lib)
         t0 = st[0][2]

@@ -158,25 +158,28 @@ Phases (any failure raises, and the script exits non-zero):
    ``cli.train.main --ep 2 --compute_dtype bfloat16`` on the corpus (3
    epochs on the card, 2 on the CPU, BF16_TRAIN_TOL); the wired trainer at
    bf16 (K8, K9), with --ep_rdma and with --ep_overlap, card vs CPU; each
-   new phase's wall time on a line of its own; K11's split pool on the
-   wired batch (n_ep 2 and 4, f32 and bf16) and on the inputs of its
-   first launch at each shape in ``--ep 2`` validation and the wired
-   training runs (recorded as they run): held against its plain version,
-   a rerun bit for bit, and timed beside the plain version (with
-   ``--parent``, and the earlier commit's K11) in alternating rounds;
-19. the conv layer of K6, K8/K9 and K4 (``csrc/conv_grid.cuh``, one
-   cooperative launch per direction): the inputs of its first launch of
-   each kernel, dtype, activation, mode and shape are recorded where the
-   kernel phases (436 packs, the corpus training batch at p = 4, the
-   wired batch) and the main paths (the capture step on the request
-   batch, layered training, the wired training runs) launch it; each is
-   replayed: a rerun and every forced build of CONV_VARIANTS (a 7-block
-   grid, 32- and 64-row tiles, one and two blocks an SM) bit for bit, one
-   kernel launch a call of K6, K8 and K9 (torch.profiler), and with
-   ``--parent`` the earlier commit's build bit for bit, its launches, and
-   both timed in alternating rounds (and by device time) beside the
-   bound; with ``--parent`` too, K5, K7, K10 and K2 at their recorded
-   shapes bit for bit and timed beside the earlier commit's builds;
+   new phase's wall time on a line of its own;
+19. the gather-linear K5 and the EP readout K10/K11
+   (``csrc/gather_linear.cu`` on ``csrc/conv_grid.cuh``'s tile, one
+   cooperative launch per direction): the inputs of their first launch of
+   each kernel, dtype, activation, mean and shape are recorded where the
+   kernel phases (436 packs, the corpus training batch at p = 4, the wired
+   batch) and the main paths (layered serving and training, ``--ep 2``
+   validation, the wired training runs) launch them; each is replayed: a
+   rerun and every forced build of GLIN_VARIANTS (a 7-block grid, 32- and
+   64-row tiles, one and two blocks an SM) bit for bit, held against its
+   plain version (PERF.md section 2's bounds), one kernel launch a call
+   (torch.profiler), the wrapper's host ms a call, the bound, its grid,
+   and with ``--parent`` the earlier commit's build (through that commit's
+   own wrapper) bit for bit, its launches, and both timed in alternating
+   rounds and by device time; ``tools/glin_phases.py --probe`` (the
+   grid's phases at p = 4, 436 packs and two K11 layouts, block 0's
+   product tiles without copies or products); the conv layer (K6, K8/K9,
+   K4: its shared tile header is edited here), K7 and K2/K3b, recorded on
+   the capture step, layered training, the corpus training batch and the
+   wired batch and training runs: a rerun bit for bit, one launch a call
+   of K6 and K8/K9, and with ``--parent`` bit for bit and timed beside the
+   earlier commit's builds;
 20. a ``{"kernels": [...]}`` line, then ``{"ok": true, "device": {...}}`` as
    the last line.
 
@@ -603,33 +606,78 @@ K3F_VARIANTS = {"7 blocks": {"CGR_GRID_BLOCKS": 7}}
 
 def start_variant_builds(parent: Path | None = None) -> dict:
     """The builds under build/k2_phases/ that the K3f, phase-clock and
-    conv-grid phases swap in (CONV_VARIANTS), and with ``parent`` (an
-    earlier commit's csrc/) its K3f and K11 sources and its fused_conv.cu,
-    conv_stack.cu, gather_linear.cu, onehot_spmm.cu and fused_model_bwd.cu
-    ("<library> earlier"), each started now (nvcc in the background):
-    {name: a call that waits for the library}."""
+    gather-linear grid phases swap in (GLIN_VARIANTS, and
+    tools/glin_phases.py's stamped and probe builds), and with ``parent``
+    (an earlier commit's csrc/) its fused_model_fwd.cu ("K3f earlier"),
+    fused_conv.cu, conv_stack.cu, gather_linear.cu, onehot_spmm.cu and
+    fused_model_bwd.cu ("<library> earlier"), each started now (nvcc in
+    the background): {name: a call that waits for the library}."""
     from cgr_mpnn_3d_tpu_torch.ops import _build
-    from cgr_mpnn_3d_tpu_torch.tools import k2_phases
+    from cgr_mpnn_3d_tpu_torch.tools import glin_phases, k2_phases
     fwd = _build.CSRC / "fused_model_fwd.cu"
+    glin = _build.CSRC / "gather_linear.cu"
     todo = {f"K3f {n}": (d, fwd) for n, d in K3F_VARIANTS.items()}
     todo.update({"K2 stamped": ({k2_phases.DEFINE: None}, None),
                  "K3f stamped": ({k2_phases.DEFINE: None}, fwd)})
-    for lib, variants in CONV_VARIANTS.items():
-        todo.update({f"{lib} {n}": (d, _build.CSRC / f"{lib}.cu")
-                     for n, d in variants.items()})
+    todo.update({f"gather_linear {n}": (d, glin)
+                 for n, d in GLIN_VARIANTS.items()})
+    todo.update({f"glin_phases {n}": (d, glin)
+                 for n, d in glin_phases.DEFINES.items()})
     if parent is not None:
         parent = parent.resolve()
-        todo.update({"K3f earlier": ({}, parent / "fused_model_fwd.cu"),
-                     "K11 earlier": ({}, parent / "gather_linear.cu")})
+        todo["K3f earlier"] = ({}, parent / "fused_model_fwd.cu")
         todo.update({f"{lib} earlier": ({}, parent / f"{lib}.cu")
                      for lib in ("fused_conv", "conv_stack", "onehot_spmm",
-                                 "fused_model_bwd")})
-    builds = {name: in_background(lambda d=d, src=src: k2_phases.variant(d,
-                                                                        src))
-              for name, (d, src) in todo.items()}
-    if parent is not None:
-        builds["gather_linear earlier"] = builds["K11 earlier"]
-    return builds
+                                 "fused_model_bwd", "gather_linear")})
+    return {name: in_background(lambda d=d, src=src: k2_phases.variant(d,
+                                                                       src))
+            for name, (d, src) in todo.items()}
+
+
+def glin_phases_phase(card: str, builds: dict,
+                      parent: Path | None = None) -> dict:
+    """tools/glin_phases.py --probe at its defaults (K5 at p = 4 and 436
+    packs, K11 on the wired runs' and a zero-cut layout, f32 and bf16) once
+    its builds (started beside the others) are ready: the stamped build
+    equal to the shipped one (the tool raises otherwise), every phase a
+    positive time within its span.  Its f32 K5 backwards (random inputs,
+    ReLU, where the kernel's ``out`` and the plain version's recomputed
+    pre-activation may disagree on a mask) are then replayed by
+    held_beside_parent: the float64 rule, the masks that differ, the
+    forced builds and, with ``parent``, the parent's build."""
+    from cgr_mpnn_3d_tpu_torch.tools import glin_phases
+    for name in glin_phases.DEFINES:
+        builds[f"glin_phases {name}"]()
+    print(f"glin_phases --probe [{card}]:")
+    rec = LaunchRecorder({"K5 bwd": GLIN_LAUNCHES["K5 bwd"]}, 8)
+    with rec:
+        out = glin_phases.main(["--probe"])
+    for key, r in out.items():
+        if isinstance(r, dict):
+            check(all(0 < v <= r["span"] + 1e-9 for v in r.values()),
+                  f"glin_phases {key}: phases {r}")
+    rec.calls = {k: v for k, v in rec.calls.items() if k[1] == "float32"}
+    held_beside_parent({"tools/glin_phases.py cases": rec}, builds, 0, card,
+                       parent, glin=True)
+    return out
+
+
+def parent_wrapper(parent: Path, module: str):
+    """The wrapper module ops/<module>.py of an earlier commit's package
+    (``parent`` its csrc/, unpacked beside its ops/ by git archive),
+    loaded under a name of its own inside the shipped ops package (its
+    relative imports reach the shipped helpers), for calls through that
+    commit's build (``swapped``) whose C interface differs from the
+    shipped one."""
+    import importlib.util
+    name = f"cgr_mpnn_3d_tpu_torch.ops._parent_{module}"
+    if name not in sys.modules:
+        spec = importlib.util.spec_from_file_location(
+            name, Path(parent).resolve().parent / "ops" / f"{module}.py")
+        mod = importlib.util.module_from_spec(spec)
+        sys.modules[name] = mod
+        spec.loader.exec_module(mod)
+    return sys.modules[name]
 
 
 def swapped(name: str, lib, fn):
@@ -733,197 +781,38 @@ def k3f_phases_phase(card: str, builds: dict) -> dict:
     return out
 
 
-def earlier_k11(lib, source: Path):
-    """K11's forward through ``lib``, the build of an earlier commit's
-    gather_linear.cu (``source``): a call with gather_linear_pool_forward's
-    arguments -> (out, pool).  A source whose r_fwd entry point takes the
-    split pool's ``chunks`` runs through the shipped wrapper; an older one
-    (no part, used or chunks) through its own argument list."""
-    import ctypes
-    import re
-
-    import torch
-    from cgr_mpnn_3d_tpu_torch.ops import gather_linear as gl
-    from cgr_mpnn_3d_tpu_torch.ops._launch import mat_index, ptr, stream
-    from cgr_mpnn_3d_tpu_torch.ops.kernel_math import KERNEL_ACTS
-    if re.search(r"cgr_gather_linear_r_fwd\([^)]*\bchunks\b",
-                 source.read_text()):
-        def swap(*fargs, **kw):
-            with torch.no_grad():
-                return swapped("gather_linear", lib, lambda:
-                               gl.gather_linear_pool_forward(*fargs, **kw))
-        return swap
-    fn = lib.cgr_gather_linear_r_fwd
-    fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 12 + [
-        ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-
-    def call(xa, xr, xb, idx, node_group, pool_ell, wa, wb, b, *, p,
-             act="relu", mean=False, mat_dtype="float32"):
-        dev, H = xa.device, wa.shape[1]
-        GP, DN = pool_ell.shape[0] // p, pool_ell.shape[1]
-        t1 = torch.empty((xb.shape[0], xa.shape[1]), device=dev,
-                         dtype=xa.dtype)
-        out = torch.empty((xb.shape[0], H), device=dev)
-        pool = torch.empty((p * GP, H), device=dev)
-        with torch.no_grad(), torch.cuda.device(dev):
-            err = fn(*(ptr(t) for t in (xa, xr, xb, idx, pool_ell, wa, wb, b,
-                                        t1, out, pool)),
-                     *gl._dims(xa, xb, idx, wa, p), GP, DN,
-                     KERNEL_ACTS.index(act), int(mean), mat_index(mat_dtype),
-                     stream(dev))
-        check(err == 0, f"the earlier commit's K11 failed ({err})")
-        return out, pool
-    return call
-
-
-def k11_held(out: dict, name: str, fargs, kw: dict, repeats: int,
-             earlier=None, cost=None) -> dict:
-    """K11's forward on ``fargs`` (gather_linear_pool_forward's
-    arguments): the readout and the pool held against the plain version
-    (f32 at REL_TOL; bf16 within rel-L2 BF16_TOL of the bf16 plain
-    version), a rerun bit for bit, and with ``earlier`` (an earlier
-    commit's K11, :func:`earlier_k11`) the largest difference of its pool;
-    with ``repeats`` the ms of the kernel, the plain version and the
-    earlier commit's over ``repeats`` calls in 5 alternating rounds, and
-    the bound of ``cost``."""
-    import torch
-    from cgr_mpnn_3d_tpu_torch.ops import gather_linear as gl
-
-    def kern():
-        with torch.no_grad():
-            return gl.gather_linear_pool_forward(*fargs, **kw)
-
-    def plain():
-        with torch.no_grad():
-            return gl.gather_linear_pool_forward_ref(*fargs, **kw)
-    got, want = kern(), plain()
-    bf16 = kw.get("mat_dtype") == BF16
-    if bf16:
-        near = rel_l2(list(got), list(want))
-        check(all(bool(torch.isfinite(g).all()) for g in got)
-              and near <= BF16_TOL,
-              f"bf16 {name}: rel-L2 {near:.3e} to the bf16 plain version")
-        out[name] = dict(rel_l2=near, abs_err=max(
-            float((g - w).abs().max()) for g, w in zip(got, want)))
-    else:
-        hold(out, name, got, want)
-    again = kern()
-    check(all(torch.equal(u, v) for u, v in zip(got, again)),
-          f"two runs of {name} differ")
-    e = out[name]
-    e["chunks"] = gl.pool_chunks(fargs[5].shape[1])
-    fns = {"kernel": kern, "plain": plain}
-    if earlier is not None:
-        e["earlier_diff"] = float((earlier(*fargs, **kw)[1]
-                                   - got[1]).abs().max())
-        fns["earlier commit"] = lambda: earlier(*fargs, **kw)
-    if repeats:
-        ms = alternating_ms(fns, repeats)
-        e["rounds"] = ms
-        e["ms"] = statistics.median(ms["kernel"])
-        e["plain_ms"] = statistics.median(ms["plain"])
-        if earlier is not None:
-            e["earlier_ms"] = statistics.median(ms["earlier commit"])
-        if cost is not None:
-            e["bound_ms"], e["bound_by"] = bound(cost, bf16)
-    return e
-
-
-def print_k11(what: str, e: dict, card: str) -> None:
-    line = (f"K11 fwd {what}: {e['chunks']} chunks a group, max abs err "
-            f"{e['abs_err']:.3e}, reruns equal")
-    if "earlier_diff" in e:
-        line += f", max |pool - earlier commit's| {e['earlier_diff']:.3e}"
-    if "ms" in e:
-        line += (f"; kernel {e['ms']:.4f} ms "
-                 f"({min(e['rounds']['kernel']):.4f}-"
-                 f"{max(e['rounds']['kernel']):.4f}), plain "
-                 f"{e['plain_ms']:.4f}")
-        if "earlier_ms" in e:
-            line += f", earlier commit {e['earlier_ms']:.4f}"
-        if "bound_ms" in e:
-            line += f", bound {e['bound_ms']:.4f} by {e['bound_by']}"
-    print(line + f" [{card}]")
-
-
-class K11Recorder:
-    """Records the inputs of the first K11 launch on the card of each
-    shape and dtype that the EP forward makes (``parallel/ep_pack.py``'s
-    gather_linear_pool, wrapped while the recorder is active)."""
-
-    def __init__(self):
-        self.calls: dict = {}
-
-    def __enter__(self):
-        from cgr_mpnn_3d_tpu_torch.parallel import ep_pack
-        self._orig = orig = ep_pack.gather_linear_pool
-
-        def rec(xa, xr, xb, idx, adj, node_group, pool_ell, wa, wb, b, **kw):
-            key = (kw.get("mat_dtype"), tuple(xa.shape), tuple(pool_ell.shape))
-            if xa.is_cuda and key not in self.calls:
-                self.calls[key] = ([t.detach().clone() for t in (
-                    xa, xr, xb, idx, node_group, pool_ell, wa, wb, b)],
-                    dict(kw))
-            return orig(xa, xr, xb, idx, adj, node_group, pool_ell, wa, wb,
-                        b, **kw)
-        ep_pack.gather_linear_pool = rec
-        return self
-
-    def __exit__(self, *exc):
-        from cgr_mpnn_3d_tpu_torch.parallel import ep_pack
-        ep_pack.gather_linear_pool = self._orig
-
-
-def k11_main_path(recorded: dict, repeats: int, earlier, card: str) -> dict:
-    """k11_held on every shape K11 was launched at in a recorded run,
-    with the readout's and the pool's bound (glin_r_cost)."""
-    from types import SimpleNamespace
-    out = {}
-    for label, rec in recorded.items():
-        for (md, xa_shape, ell_shape), (fargs, kw) in rec.calls.items():
-            xa, xr, xb, idx, node_group, pool_ell, wa = fargs[:7]
-            b = SimpleNamespace(node_inc=idx, pool_ell=pool_ell,
-                                node_group=node_group)
-            R = xb.shape[0] // kw["p"]
-            name = (f"{label} {md}, {kw['p']} packs of R {R}, pool_ell "
-                    f"{list(ell_shape)}")
-            e = k11_held(out, name, fargs, kw, repeats, earlier,
-                         glin_r_cost(xa, xr, xb, b, wa, kw["p"], False, True))
-            print_k11(name, e, card)
-    return out
-
-
-# forced builds of the conv grid (csrc/conv_grid.cuh), by library: each
-# must give the shipped build's bits (the result does not depend on the
-# grid, the tile rows or the blocks per SM)
-CONV_VARIANTS = {
-    "fused_conv": {
-        "7 blocks": {"CGR_GRID_BLOCKS": 7},
-        "tile rows 32": {"CGR_CONV_BM": 32},
-        "tile rows 64, 1 block an SM": {"CGR_CONV_BM": 64,
-                                        "CGR_BLOCKS_PER_SM": 1},
-        "tile rows 64, 2 blocks an SM": {"CGR_CONV_BM": 64,
-                                         "CGR_BLOCKS_PER_SM": 2}},
-    "conv_stack": {"7 blocks": {"CGR_GRID_BLOCKS": 7}},
-}
+# forced builds of csrc/gather_linear.cu's grid: each must give the
+# shipped build's bits (the result does not depend on the grid, the tile
+# rows or the blocks per SM)
+GLIN_VARIANTS = {
+    "7 blocks": {"CGR_GRID_BLOCKS": 7},
+    "tile rows 32": {"CGR_CONV_BM": 32},
+    "tile rows 64, 1 block an SM": {"CGR_CONV_BM": 64,
+                                    "CGR_BLOCKS_PER_SM": 1},
+    "tile rows 64, 2 blocks an SM": {"CGR_CONV_BM": 64,
+                                     "CGR_BLOCKS_PER_SM": 2}}
 # the wrappers' launch functions whose inputs the main paths record:
-# {kernel: (module, function, library)}; K8's with a scale is K9's
-CONV_LAUNCHES = {
+# {kernel: (module, function, library)}; K10/K11's is K11's with a pool
+GLIN_LAUNCHES = {
+    "K5 fwd": ("gl", "_launch_fwd", "gather_linear"),
+    "K5 bwd": ("gl", "_launch_bwd", "gather_linear"),
+    "K10/K11 fwd": ("gl", "_launch_r_fwd", "gather_linear"),
+    "K10/K11 bwd": ("gl", "_launch_r_bwd", "gather_linear"),
+}
+# kernels this change does not redesign, recorded where the main paths
+# and the kernel phases launch them and held beside the parent's build
+# (K3f in its own phase): the conv layer, whose shared tile header
+# (csrc/conv_grid.cuh: the operand pairs, the gather units) it edits, with
+# one launch a call of K6 and K8/K9; K7 and K2/K3b.  K8's with a scale is
+# K9's
+UNMOVED_LAUNCHES = {
     "K6 fwd": ("fc", "_launch_fwd", "fused_conv"),
     "K6 bwd": ("fc", "_launch_bwd", "fused_conv"),
     "K8 fwd": ("fc", "_launch_r_fwd", "fused_conv"),
     "K8 bwd": ("fc", "_launch_r_bwd", "fused_conv"),
     "K4 fwd": ("cs", "_launch_fwd", "conv_stack"),
     "K4 bwd": ("cs", "_launch_bwd", "conv_stack"),
-}
-# kernels whose code this change leaves as it was, held once beside the
-# parent's build (K3f and K11 in their own phases)
-UNMOVED_LAUNCHES = {
-    "K5 fwd": ("gl", "_launch_fwd", "gather_linear"),
-    "K5 bwd": ("gl", "_launch_bwd", "gather_linear"),
     "K7": ("os", "_launch", "onehot_spmm"),
-    "K10/K11 fwd": ("gl", "_launch_r_fwd", "gather_linear"),
     "K2/K3b": ("fm", "_backward", "fused_model_bwd"),
 }
 
@@ -955,7 +844,8 @@ class LaunchRecorder:
     activation, mode and shape that runs while it is active, through the
     wrappers' launch functions ``targets`` ({kernel: (module, function,
     library)}), at most ``limit`` of them: {key: (launch function, library,
-    args, kwargs)}, key[0] the kernel."""
+    args, kwargs, module name, function name)}, key[0] the kernel (K9 for
+    K8 with a scale, K10 or K11 for K10/K11 by its pool)."""
 
     def __init__(self, targets: dict, limit: int = 12):
         self.targets, self.limit, self.calls = targets, limit, {}
@@ -971,7 +861,8 @@ class LaunchRecorder:
             orig = getattr(mods[mod], fn)
             self._orig[kernel] = (mods[mod], fn, orig)
 
-            def rec(*a, _orig=orig, _kernel=kernel, _lib=lib, **kw):
+            def rec(*a, _orig=orig, _kernel=kernel, _lib=lib, _fn=fn,
+                    _mod=mods[mod].__name__.rsplit(".", 1)[1], **kw):
                 # the dropout seeds change from call to call, the work not
                 sh = _shapes((a, {k: v for k, v in kw.items()
                                   if k not in ("seed", "seeds")}))
@@ -980,11 +871,14 @@ class LaunchRecorder:
                     name = _kernel.replace("K8", "K9")
                 if kw.get("act") == "linear":
                     name = _kernel.replace("K6", "K6 linear")
+                name = name.replace("K10/K11", "K10" if kw.get("pool_ell")
+                                    is None else "K11")
                 key = (name, kw.get("mat_dtype"), kw.get("act"),
-                       kw.get("train"), sh)
+                       kw.get("mean"), kw.get("train"), sh)
                 if ("True" in str(sh) and key not in self.calls
                         and len(self.calls) < self.limit):
-                    self.calls[key] = (_orig, _lib, _cloned(a), _cloned(kw))
+                    self.calls[key] = (_orig, _lib, _cloned(a), _cloned(kw),
+                                       _mod, _fn)
                 return _orig(*a, **kw)
             setattr(mods[mod], fn, rec)
         return self
@@ -1063,84 +957,216 @@ def _max_diff(a, b) -> float:
                 for u, w in zip(_outputs(a), _outputs(b))), default=0.0)
 
 
-def conv_cost_of(kernel: str, a: tuple, kw: dict) -> tuple:
-    """The (products, other operations, bytes) of a recorded conv launch
-    (conv_cost, conv_r_cost, stack_cost) over its real edges (the rows
-    whose reverse edge is in their pack: every real edge has one)."""
+def glin_cost_of(kernel: str, a: tuple, kw: dict) -> tuple:
+    """The (products, other operations, bytes) of a recorded K5, K10 or
+    K11 launch (glin_cost, glin_r_cost): K5 over its output rows with an
+    entry in their pack (edge_init: the real edges) and every row of
+    xa."""
     from types import SimpleNamespace
 
     from cgr_mpnn_3d_tpu_torch.ops.segment import in_pack
     bwd, p = kernel.endswith("bwd"), kw["p"]
-    if kernel.startswith("K4"):
-        h0, edge_nbr, rev = a[0], a[1], a[2]
-        w = a[4] if bwd else a[3]
-        E = int(in_pack(rev, p, h0.shape[0])[1].sum())
-        return stack_cost(h0, edge_nbr, rev, w, p, E, bwd)
-    if kernel.startswith(("K8", "K9")):
-        h, r, h0, edge_nbr, rev, senders = a[:6]
-        node_out = a[7] if bwd else None
-        w = a[8] if bwd else a[6]
-        E = int(in_pack(rev, p, h.shape[0])[1].sum())
-        ns = SimpleNamespace(edge_nbr=edge_nbr, rev=rev, senders=senders,
-                             node_out=node_out)
-        return conv_r_cost(h, r, h0, ns, w, p, E, bwd, kw.get("scale"))
-    h, h0, edge_nbr, rev = a[:4]
-    w = a[5] if bwd else a[4]
-    E = int(in_pack(rev, p, h.shape[0])[1].sum())
-    return conv_cost(h, h0, edge_nbr, rev, w, p, E, bwd,
-                     kw["act"] in ("silu", "gelu"),
-                     4 if kw.get("out_dtype") == "float32" else None)
+    if kernel.startswith("K5"):
+        xa, xb, idx = a[:3]
+        wa = a[4] if bwd else a[3]
+        rows = int(in_pack(idx, p, xa.shape[0])[1].any(dim=1).sum())
+        return glin_cost(xa, xb, idx, wa, p, rows, xa.shape[0],
+                         a[3] if bwd else None,
+                         2 if kw.get("out_dtype") == BF16 else 4)
+    xa, xr, xb, idx = a[:4]
+    adj = a[4] if bwd else None
+    ns = SimpleNamespace(node_inc=idx, pool_ell=kw.get("pool_ell"),
+                         node_group=kw.get("node_group"),
+                         dst=None if adj is None else adj.reshape(-1))
+    return glin_r_cost(xa, xr, xb, ns, a[5] if bwd else a[4], p, bwd,
+                       kernel.startswith("K11"))
+
+
+def glin_plain(kernel: str, a: tuple, kw: dict):
+    """The plain version of a recorded K5, K10 or K11 launch on its inputs:
+    the outputs the launch returns (a backward's wanted cotangents)."""
+    from cgr_mpnn_3d_tpu_torch.ops import gather_linear as gl
+    k = {n: kw[n] for n in ("p", "act", "mean", "mat_dtype")}
+    needs = kw.get("needs")
+    if kernel == "K5 fwd":
+        return gl.gather_linear_forward_ref(*a, **k,
+                                            out_dtype=kw["out_dtype"])
+    if kernel == "K5 bwd":
+        grads = gl.gather_linear_backward_ref(*a, **k,
+                                              out_dtype=kw["out_dtype"])
+    elif kernel == "K10 fwd":
+        return gl.gather_linear_r_forward_ref(*a, **k)
+    elif kernel == "K11 fwd":
+        xa, xr, xb, idx, wa, wb, b = a
+        return gl.gather_linear_pool_forward_ref(
+            xa, xr, xb, idx, kw["node_group"], kw["pool_ell"], wa, wb, b, **k)
+    elif kernel == "K10 bwd":
+        grads = gl.gather_linear_r_backward_ref(*a, **k)
+    else:
+        xa, xr, xb, idx, adj, wa, wb, b, out, g = a
+        grads = gl.gather_linear_pool_backward_ref(
+            xa, xr, xb, idx, adj, kw["node_group"], kw["pool_ell"], wa, wb, b,
+            out, g, kw["gpool"], **k)
+    return [d for d, need in zip(grads, needs) if need]
+
+
+def glin_held(e: dict, name: str, kernel: str, got, a: tuple, kw: dict,
+              launch):
+    """A recorded K5, K10 or K11 launch's outputs against its plain
+    version, by PERF.md section 2's bounds: f32 at REL_TOL (ReLU gradients
+    by hold's float64 rule, with the count of ReLU masks that differ
+    between the kernel's ``out`` input and the plain version's recomputed
+    pre-activation); bf16 by hold_bf16 against the bf16 and f32 plain
+    versions, with ``launch`` (the launch function) at f32 on f32 copies as
+    its control (a backward's ``out`` from the f32 plain forward, so that
+    the control's ReLU masks are the f32 plain version's), and each
+    gradient on its own at cosine >= BF16_COS.
+    Returns the float64 evaluation where the rule took one, else None."""
+    import torch
+    got, want = _outputs(got), _outputs(glin_plain(kernel, a, kw))
+    check(len(got) == len(want) and all(bool(torch.isfinite(t).all())
+                                        for t in got),
+          f"{name}: {len(got)} outputs against the plain version's "
+          f"{len(want)}, or not finite")
+    bwd = kernel.endswith("bwd")
+
+    def cast(v, dtype):
+        return v.to(dtype) if torch.is_tensor(v) and \
+            v.is_floating_point() else v
+    res: dict = {}
+    if kw["mat_dtype"] != BF16:
+        relu = bwd and kw["act"] == "relu"
+        k64 = {n: cast(v, torch.float64) for n, v in kw.items()}
+        ex: list = []
+
+        def exact():
+            ex.append(_outputs(glin_plain(
+                kernel, tuple(cast(v, torch.float64) for v in a), k64)))
+            return ex[0]
+        hold(res, name, got, want, relu, exact)
+        e.update(res[name])
+        if relu:    # the ReLU masks: the kernel reads out > 0
+            k5 = kernel.startswith("K5")
+            fa = a[:3] + a[4:7] if k5 else a[:4] + a[5:8]
+            pre = _outputs(glin_plain(kernel.replace("bwd", "fwd"), fa,
+                                      kw))[0]
+            out = a[7 if k5 else 8]
+            e["relu_flips"] = (int(((pre > 0) != (out > 0)).sum()),
+                               out.numel())
+        return ex[0] if ex else None
+    a32 = tuple(cast(v, torch.float32) for v in a)
+    kw32 = {n: cast(v, torch.float32) for n, v in kw.items()}
+    kw32.update(mat_dtype="float32", **({"out_dtype": "float32"}
+                                        if "out_dtype" in kw else {}))
+    if bwd:     # the control's out from the f32 forward, as its masks
+        k5 = kernel.startswith("K5")
+        fa = a32[:3] + a32[4:7] if k5 else a32[:4] + a32[5:8]
+        at = 7 if k5 else 8
+        a32 = a32[:at] + (_outputs(glin_plain(
+            kernel.replace("bwd", "fwd"), fa, kw32))[0],) + a32[at + 1:]
+    with torch.no_grad():
+        ctrl = _outputs(launch(*a32, **kw32))
+    hold_bf16(res, name, got, want, _outputs(glin_plain(kernel, a32, kw32)),
+              ctrl, grads=bwd)
+    e.update(res[name])
+    if bwd:
+        e["cos_each"] = [1.0 if not (g.any() or w.any()) else cosine([g], [w])
+                         for g, w in zip(got, want)]
+        check(min(e["cos_each"]) >= BF16_COS,
+              f"bf16 {name}: gradient cosines {e['cos_each']} to the bf16 "
+              f"plain version, each on its own")
+    return None
+
+
+def host_ms(fn, calls: int = 50) -> float:
+    """The host's ms a call of ``fn``: the wall time of ``calls`` calls
+    queued without waiting for the card (the launches are asynchronous),
+    then the card drained."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    ms = (time.perf_counter() - t0) * 1e3 / calls
+    torch.cuda.synchronize()
+    return ms
 
 
 def held_beside_parent(recorded: dict, builds: dict, repeats: int,
-                       card: str, conv: bool = True) -> dict:
+                       card: str, parent: Path | None = None,
+                       glin: bool = False) -> dict:
     """Every recorded launch (LaunchRecorder) replayed: a rerun bit for
-    bit; with ``conv`` each forced build of CONV_VARIANTS bit for bit and
-    one kernel launch a call of K6, K8 and K9 (torch.profiler); with
-    --parent the parent's build of its library (``builds["<library>
-    earlier"]``) bit for bit, its launches, and the ms of both over
-    ``repeats`` calls in 5 alternating rounds, beside the bound of the
-    conv kernels' work."""
+    bit; with ``glin`` (K5, K10, K11) each forced build of GLIN_VARIANTS
+    bit for bit, the plain version by glin_held, one kernel launch a call
+    (torch.profiler), the wrapper's host ms a call and the bound of the
+    call's work; with ``parent`` (an earlier commit's csrc/) that commit's
+    build of its library (``builds["<library> earlier"]``) through that
+    commit's own wrapper (parent_wrapper) bit for bit, and the ms of both
+    over ``repeats`` calls in 5 alternating rounds and by device time."""
     import torch
+    from cgr_mpnn_3d_tpu_torch.ops import gather_linear as gl
     out = {}
     for label, rec in recorded.items():
-        for key, (fn, lib, a, kw) in rec.calls.items():
+        for key, (fn, lib, a, kw, mod, fname) in rec.calls.items():
             kernel, md = key[0], key[1] or "float32"
 
             def call(fn=fn, a=a, kw=kw):
                 with torch.no_grad():
                     return fn(*a, **kw)
             rows = a[0].shape[0] if torch.is_tensor(a[0]) else None
-            name = (f"{kernel} {md} {kw.get('act', '')} "
-                    f"{'train' if kw.get('train') else 'eval'}, {label}, "
-                    f"{kw.get('p')} packs" + (f", {rows} rows" if rows
-                                               else ""))
+            widths = ""
+            if glin:    # the output rows, and the widths of xa and xb
+                xa, xb = a[0], a[1 if kernel.startswith("K5") else 2]
+                rows = xb.shape[0]
+                widths = f" FA {xa.shape[1]} + FB {xb.shape[1]}"
+            name = (f"{kernel} {md} {kw.get('act', '')}"
+                    + (" mean" if kw.get("mean") else "") + widths
+                    + (f" {'train' if kw.get('train') else 'eval'}"
+                       if "train" in kw else "")
+                    + f", {label}, {kw.get('p')} packs"
+                    + (f", {rows} rows" if rows else ""))
             got = call()
             check(_same(got, call()), f"{name}: two runs differ")
             e: dict = dict(kernel=kernel, label=label, dtype=md, rows=rows)
-            if conv:
-                for vname in CONV_VARIANTS[lib]:
-                    vlib = builds[f"{lib} {vname}"]()
+            if kernel.split()[0] in ("K6", "K8", "K9"):
+                e["launches"] = kernel_launches(call)
+                check(e["launches"] == 1,
+                      f"{name}: {e['launches']} kernel launches a call")
+            if glin:
+                for vname in GLIN_VARIANTS:
+                    vlib = builds[f"gather_linear {vname}"]()
                     check(_same(got, swapped(lib, vlib, call)),
                           f"{name}: the {vname} build differs")
+                ex = glin_held(e, name, kernel, got, a, kw, fn)
                 e["launches"] = kernel_launches(call)
-                if not kernel.startswith("K4"):
-                    check(e["launches"] == 1,
-                          f"{name}: {e['launches']} kernel launches a call")
+                check(e["launches"] == 1,
+                      f"{name}: {e['launches']} kernel launches a call")
+                e["host_ms"] = host_ms(call)
+                e["bound_ms"], e["bound_by"] = bound(
+                    glin_cost_of(kernel, a, kw), md == BF16)
+                k5, bwd = kernel.startswith("K5"), kernel.endswith("bwd")
+                wa = a[(3 if k5 else 4) + bwd]
+                e["grid"] = gl.glin_grid(kw["p"], xb.shape[0] // kw["p"],
+                                         a[0].shape[1], xb.shape[1],
+                                         wa.shape[1], md, bwd)
             fns = {"shipped": call}
-            parent = builds.get(f"{lib} earlier")
-            if parent is not None:
-                par = parent()
+            par = builds.get(f"{lib} earlier")
+            if parent is not None and par is not None:
+                plib, pfn = par(), getattr(parent_wrapper(parent, mod), fname)
 
-                def pcall(call=call, par=par, lib=lib):
-                    return swapped(lib, par, call)
+                def pcall(pfn=pfn, plib=plib, lib=lib, a=a, kw=kw):
+                    with torch.no_grad():
+                        return swapped(lib, plib, lambda: pfn(*a, **kw))
                 theirs = pcall()
                 e["parent_equal"] = _same(got, theirs)
                 e["parent_diff"] = _max_diff(got, theirs)
                 check(e["parent_equal"], f"{name}: differs from the parent's "
                                          f"build by {e['parent_diff']:.3e}")
-                if conv:
+                if glin:
                     e["parent_launches"] = kernel_launches(pcall)
+                    if ex is not None:
+                        e["parent_l1_64"] = l1(_outputs(theirs), ex)
                 fns["parent"] = pcall
             if repeats:
                 ms = alternating_ms(fns, repeats)
@@ -1149,18 +1175,37 @@ def held_beside_parent(recorded: dict, builds: dict, repeats: int,
                 if "parent" in ms:
                     e["parent_ms"] = statistics.median(ms["parent"])
                 e["device_ms"] = {n: device_ms(f) for n, f in fns.items()}
-            if conv:
-                e["bound_ms"], e["bound_by"] = bound(
-                    conv_cost_of(kernel, a, kw), md == BF16)
             out[name] = e
             line = f"{name}: reruns"
-            if conv:
-                line += (f" and {len(CONV_VARIANTS[lib])} forced builds equal"
-                         f", {e['launches']:g} kernel launches a call")
+            if not glin and "launches" in e:
+                line += f", {e['launches']:g} kernel launches a call"
+            if glin:
+                line += (f" and {len(GLIN_VARIANTS)} forced builds equal, "
+                         f"grid {e['grid'][0]} blocks of {e['grid'][1]}-row "
+                         f"tiles ({e['grid'][2]} an SM), "
+                         f"{e['launches']:g} kernel launches a call; plain "
+                         f"max abs err {e['abs_err']:.3e}")
+                if "rel_err" in e:
+                    line += f" rel {e['rel_err']:.3e}"
+                if "l1_64" in e:
+                    line += (f", L1 vs float64 kernel {e['l1_64'][0]:.3e} "
+                             f"plain {e['l1_64'][1]:.3e}"
+                             + (f" parent {e['parent_l1_64']:.3e}"
+                                if "parent_l1_64" in e else "")
+                             + f", ReLU masks of out unlike the plain "
+                             f"version's pre {e['relu_flips'][0]} of "
+                             f"{e['relu_flips'][1]}")
+                if "share" in e:
+                    line += (f" rel-L2 {e['rel_l2']:.3e} (to f32 plain "
+                             f"{e['f32_rel_l2']:.3e}, share {e['share']:.4g}"
+                             f", f32 control's {e['control_share']:.4g})")
+                if "cos_each" in e:
+                    line += " cos each " + ", ".join(
+                        f"{c:.6f}" for c in e["cos_each"])
             if "parent_equal" in e:
                 line += (f"; the parent's build equal: {e['parent_equal']}"
                          + (f" ({e['parent_launches']:g} launches)"
-                            if conv else ""))
+                            if glin else ""))
             if "ms" in e:
                 line += (f"; ms (median of 5 alternating rounds, min-max) "
                          + "; ".join(f"{n} {statistics.median(v):.4f} "
@@ -1169,6 +1214,8 @@ def held_beside_parent(recorded: dict, builds: dict, repeats: int,
             if "device_ms" in e:
                 line += "; device ms a call (behind a spin) " + ", ".join(
                     f"{n} {v:.4f}" for n, v in e["device_ms"].items())
+            if "host_ms" in e:
+                line += f"; host ms a call {e['host_ms']:.4f}"
             if "bound_ms" in e:
                 line += f"; bound {e['bound_ms']:.4f} by {e['bound_by']}"
             print(line + f" [{card}]")
@@ -3309,8 +3356,7 @@ def glin_r_cost(xa, xr, xb, b, wa, p: int, backward: bool,
 
 
 def ep_kernels(seed: int, repeats: int, n_ep: int, n_graphs: int = EP_GRAPHS,
-               chains=(EP_CHAIN,), dtype: str = "float32",
-               k11_split: bool = False, earlier=None) -> dict:
+               chains=(EP_CHAIN,), dtype: str = "float32") -> dict:
     """K8, K9, K10 and K11 against their plain versions at full width
     (hidden 400, F = 270) on the most wired shard of a batch of
     ``n_graphs`` synthetic graphs and chains of ``chains`` atoms (te 128 /
@@ -3322,10 +3368,7 @@ def ep_kernels(seed: int, repeats: int, n_ep: int, n_graphs: int = EP_GRAPHS,
     backward bit for bit.  ``dtype="bfloat16"``: h, h0, x and the states'
     cotangents bf16 (r, xr and the readout f32), each held by hold_bf16
     with the f32 kernel as control.  Times of both, plain versions' and
-    bounds (products at the bf16 peak at bf16).  With ``k11_split``,
-    K11's forward once more by k11_held ("K11 split"): a rerun bit for
-    bit, and its time beside the plain version's (and ``earlier``'s, an
-    earlier commit's K11) in alternating rounds."""
+    bounds (products at the bf16 peak at bf16)."""
     import torch
     from cgr_mpnn_3d_tpu_torch.ops import fused_conv as fc
     from cgr_mpnn_3d_tpu_torch.ops import gather_linear as gl
@@ -3419,10 +3462,6 @@ def ep_kernels(seed: int, repeats: int, n_ep: int, n_graphs: int = EP_GRAPHS,
         held(out, "K11 bwd", gl.gather_linear_pool_backward,
              gl.gather_linear_pool_backward_ref, args11, kw, k, True, True,
              a11_32)
-        if k11_split:
-            k11_held(out, "K11 split", (*ro, *pool_t, wa, wb, bb), k,
-                     repeats, earlier,
-                     glin_r_cost(h, xr, x, b, wa, p, False, True))
         torch.cuda.synchronize()
         if repeats:
             for name, fwd, ref, fargs, bwd, bref, bargs, pooled in (
@@ -3459,9 +3498,7 @@ def print_ep_kernels(what: str, k: dict, card: str) -> None:
           f"/ tn {k['tn']}, caps {k['caps']}, {k['edges']} edges, "
           f"{k['halo']} halo slots [{card}]")
     for name, e in k.items():
-        if name == "K11 split":
-            print_k11(f"(split sum) {what}", e, card)
-        if not isinstance(e, dict) or name == "K11 split":
+        if not isinstance(e, dict):
             continue
         line = f"  {name}: max abs err {e['abs_err']:.3e}"
         if "share" in e:
@@ -4046,10 +4083,11 @@ def main(argv=None) -> int:
     ap.add_argument("--graphs", type=int, default=2500)
     ap.add_argument("--repeats", type=int, default=20)
     ap.add_argument("--parent", type=Path, default=None,
-                    help="csrc/ of an earlier commit of the port (unpacked "
-                         "with git archive): its K3f, K11, conv layer (K6, "
-                         "K8/K9, K4), K5, K7, K10 and K2 are held and timed "
-                         "beside the shipped ones")
+                    help="csrc/ of an earlier commit's package (unpacked "
+                         "whole with git archive, its ops/ beside): its "
+                         "K3f, K5, K10/K11, conv layer (K6, K8/K9, K4), K7 "
+                         "and K2 are held and timed beside the shipped "
+                         "ones")
     args = ap.parse_args(argv)
 
     import torch
@@ -4122,30 +4160,29 @@ def main(argv=None) -> int:
         print_train_kernels(f"full width {act}, dropout 0.1, synthetic", k,
                             card)
     lay_reps = max(1, args.repeats // 4)
-    # the conv layer's inputs (K6, K8/K9, K4) where the main paths and the
-    # kernel phases launch it, replayed beside the forced grids and the
-    # parent's build at the end
-    conv_runs = {name: LaunchRecorder(CONV_LAUNCHES, 24) for name in (
+    # the inputs of K5 and K10/K11 where the main paths and the kernel
+    # phases launch them, replayed beside the forced grids, the plain
+    # versions and the parent's build at the end; those of the kernels not
+    # redesigned here (K6, K8/K9, K4, K7, K2/K3b) beside the parent's
+    glin_runs = {name: LaunchRecorder(GLIN_LAUNCHES, 24) for name in (
         "436 packs", "p = 4, corpus training batch", "wired batch",
-        "capture step, request batch", "layered training",
-        "wired training runs")}
-    unmoved = LaunchRecorder(UNMOVED_LAUNCHES, 24)
-    with conv_runs["436 packs"]:
+        "layered training", "--ep 2 validation", "wired training runs")}
+    glin_runs["layered serving"] = LaunchRecorder(GLIN_LAUNCHES, 12)
+    unmoved = LaunchRecorder(UNMOVED_LAUNCHES, 80)
+    with glin_runs["436 packs"]:
         lay_k = layered_kernels(full_train, spec, batch, args.seed, lay_reps)
     print_layered("full width, dropout 0.1, synthetic", lay_k, card)
     print_layered("layered vs whole-model, full width, dropout 0.1, "
                   "synthetic", layered_vs_whole(full_train, spec, batch,
                                                 args.seed), card)
-    with conv_runs["436 packs"]:
-        conv_k = fused_conv_kernels(full_train, spec, batch, args.seed,
-                                    lay_reps)
+    conv_k = fused_conv_kernels(full_train, spec, batch, args.seed, lay_reps)
     print_capture("full width, dropout 0.1, synthetic", conv_k, card)
     cap = capture_vs_paths(full_train, spec, batch, args.seed, False,
                            lay_reps)
     print_capture("capture vs the other paths, full width, dropout 0.1, "
                   "synthetic", cap, card)
     what = "full width, dropout 0.1, synthetic"
-    with conv_runs["436 packs"]:
+    with glin_runs["436 packs"]:
         lay_k16 = layered_kernels(full_train, spec, batch, args.seed,
                                   lay_reps, BF16)
         print_layered(what, lay_k16, card)
@@ -4208,7 +4245,7 @@ def main(argv=None) -> int:
                                          args.repeats), card)
         print_layered("layered vs whole-model, request batch",
                       layered_vs_whole(full, spec, batch, args.seed), card)
-        with conv_runs["capture step, request batch"]:
+        with unmoved:
             print_capture("capture vs the other paths, request batch",
                           capture_vs_paths(full, spec, batch, args.seed, True,
                                            args.repeats), card)
@@ -4224,14 +4261,14 @@ def main(argv=None) -> int:
         print_bf16("corpus training batch, full width, dropout 0.1",
                    bf16_kernels_vs_plain(full_train, spec, batch, args.seed,
                                          args.repeats), card)
-        with conv_runs["p = 4, corpus training batch"], unmoved:
+        with glin_runs["p = 4, corpus training batch"], unmoved:
             print_layered("corpus training batch, full width, dropout 0.1",
                           layered_kernels(full_train, spec, batch, args.seed,
                                           args.repeats), card)
         print_layered("layered vs whole-model, corpus training batch",
                       layered_vs_whole(full_train, spec, batch, args.seed),
                       card)
-        with conv_runs["p = 4, corpus training batch"]:
+        with glin_runs["p = 4, corpus training batch"], unmoved:
             conv_p4 = fused_conv_kernels(full_train, spec, batch, args.seed,
                                          args.repeats)
             print_capture("corpus training batch, full width, dropout 0.1",
@@ -4244,8 +4281,9 @@ def main(argv=None) -> int:
                                              args.seed, args.repeats, BF16),
                           card)
         srv = serve(Path(tmp), args.seed, card)
-        srv_l = serve_layered(Path(tmp), args.seed, card)
-        srv_l16 = serve_layered(Path(tmp), args.seed, card, BF16)
+        with glin_runs["layered serving"]:
+            srv_l = serve_layered(Path(tmp), args.seed, card)
+            srv_l16 = serve_layered(Path(tmp), args.seed, card, BF16)
         # the training CLI writes runs/, hyperparameter_study/ and a parity
         # plot into its working directory
         cwd = os.getcwd()
@@ -4258,7 +4296,7 @@ def main(argv=None) -> int:
             print(f"train step bf16 vs f32: {rates['bfloat16']:.2f} against "
                   f"{rates['float32']:.2f} steps/s "
                   f"({rates['bfloat16'] / rates['float32']:.3f}x) [{card}]")
-            with conv_runs["layered training"]:
+            with glin_runs["layered training"], unmoved:
                 trn_l = train_layered(Path(tmp), args.seed, card)
                 trn_l16 = train_layered(Path(tmp), args.seed, card, BF16,
                                         trn_l["rates"])
@@ -4270,14 +4308,9 @@ def main(argv=None) -> int:
     p2 = mm_probe_phase(args.seed, card)
 
     # edge partitioning: every shard of a step in this process
-    earlier = (earlier_k11(builds["K11 earlier"](),
-                           args.parent / "gather_linear.cu")
-               if args.parent else None)
-    with conv_runs["wired batch"], unmoved:
-        ep_k = {2: ep_kernels(args.seed, lay_reps, 2, k11_split=True,
-                              earlier=earlier)}
-    ep_k[4] = ep_kernels(args.seed, lay_reps, 4, k11_split=True,
-                         earlier=earlier)
+    with glin_runs["wired batch"], unmoved:
+        ep_k = {2: ep_kernels(args.seed, lay_reps, 2)}
+    ep_k[4] = ep_kernels(args.seed, lay_reps, 4)
     for n, k in ep_k.items():
         print_ep_kernels(f"full width, wired batch, n_ep {n}", k, card)
     for n in (2, 4):
@@ -4294,9 +4327,8 @@ def main(argv=None) -> int:
     ep_step_times(args.seed, card)
     # EP at bf16, K6's linear activation, K12, --ep_rdma and --ep_overlap
     t0 = time.perf_counter()
-    with conv_runs["wired batch"]:
-        ep_k16 = ep_kernels(args.seed, lay_reps, 2, dtype=BF16,
-                            k11_split=True, earlier=earlier)
+    with glin_runs["wired batch"]:
+        ep_k16 = ep_kernels(args.seed, lay_reps, 2, dtype=BF16)
     print_ep_kernels("full width, wired batch, n_ep 2", ep_k16, card)
     print(f"phase wall: bf16 K8-K11 and K6 linear "
           f"{time.perf_counter() - t0:.1f} s")
@@ -4311,32 +4343,30 @@ def main(argv=None) -> int:
     print(f"phase wall: tools/profile_ep.py {time.perf_counter() - t0:.1f} s")
     with tempfile.TemporaryDirectory() as tmp:
         training_data(Path(tmp), args.seed)
-        # K11's inputs where the main paths launch it: --ep 2 validation
-        # on the corpus and the wired training runs
-        k11_runs = {"--ep 2 validation": K11Recorder(),
-                    "wired training": K11Recorder()}
-        with k11_runs["--ep 2 validation"]:
+        with glin_runs["--ep 2 validation"]:
             ep_cli = ep_cli_phase(Path(tmp), args.seed, card)
             t0 = time.perf_counter()
             ep_cli16 = ep_cli_phase(Path(tmp), args.seed, card, BF16)
         print(f"phase wall: --ep 2 --compute_dtype bfloat16 CLI "
               f"{time.perf_counter() - t0:.1f} s")
-        with k11_runs["wired training"], conv_runs["wired training runs"]:
+        with glin_runs["wired training runs"], unmoved:
             ep_wired = ep_train_wired(Path(tmp), args.seed, card)
     t0 = time.perf_counter()
-    k11_main_path(k11_runs, lay_reps, earlier, card)
-    print(f"phase wall: K11 at the main paths' shapes "
+    for label, rec in glin_runs.items():
+        held_beside_parent({label: rec}, builds, lay_reps
+                           if label == "436 packs" else args.repeats, card,
+                           args.parent, glin=True)
+    print(f"phase wall: K5 and K10/K11 at the recorded shapes, beside their "
+          f"forced builds, plain versions and the parent's "
           f"{time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    for label, rec in conv_runs.items():
-        held_beside_parent({label: rec}, builds, lay_reps
-                           if label == "436 packs" else args.repeats, card)
-    print(f"phase wall: the conv grid at the recorded shapes, beside its "
-          f"forced builds and the parent's {time.perf_counter() - t0:.1f} s")
+    glin_phases_phase(card, builds, args.parent)
+    print(f"phase wall: tools/glin_phases.py --probe "
+          f"{time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     held_beside_parent({"unmoved": unmoved}, builds, args.repeats, card,
-                       conv=False)
-    print(f"phase wall: K5, K7, K10/K11 and K2/K3b beside the parent's "
+                       args.parent)
+    print(f"phase wall: K6, K8/K9, K4, K7 and K2/K3b beside the parent's "
           f"{time.perf_counter() - t0:.1f} s")
     print(f"train steps/s per epoch (StepTimer), README model on the corpus:"
           f" --ep 2 {ep_cli['steps_per_s']}, at bf16 "

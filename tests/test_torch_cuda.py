@@ -1974,3 +1974,177 @@ def test_conv_phases_tool(cuda, capsys):
             continue
         assert all(0 < v <= res["span"] + 1e-9 for v in res.values()), key
     assert "conv_phases" in capsys.readouterr().out
+
+
+# -- the gather-linear grid (K5, K10/K11 in csrc/gather_linear.cu) -----------
+
+# forced builds of gather_linear.cu: a 7-block grid, 32-row tiles, 64-row
+# tiles at one and at two blocks an SM
+GLIN_DEFINES = [{"CGR_GRID_BLOCKS": 7}, {"CGR_CONV_BM": 32},
+                {"CGR_CONV_BM": 64, "CGR_BLOCKS_PER_SM": 1},
+                {"CGR_CONV_BM": 64, "CGR_BLOCKS_PER_SM": 2}]
+
+
+def _glin_run(cuda, mat_dtype):
+    """K5 (edge_init, readout; ReLU, SiLU, GELU; add and mean) and K10 and
+    K11 (a pool ELL of 150 entries a group: five chunks) forward and
+    backward at small width: every output, flattened."""
+    from cgr_mpnn_3d_tpu_torch.ops import gather_linear as gl
+    spec, b, rand = _layered_inputs(cuda)
+    bf16 = mat_dtype == "bfloat16"
+    sd = torch.bfloat16 if bf16 else torch.float32
+    H, ET = 40, b.edge_nbr.shape[0]
+    x, e, h = b.node_x.to(sd), rand(ET, 14).to(sd), rand(ET, H).to(sd)
+    pins, pws = _pool_case(cuda, 31)
+    if bf16:
+        pins = (pins[0].bfloat16(), pins[1], pins[2].bfloat16(), *pins[3:])
+    out = []
+    with torch.no_grad():
+        for stage, act, mean in (("edge_init", "relu", False),
+                                 ("edge_init", "silu", False),
+                                 ("readout", "gelu", True),
+                                 ("readout", "relu", False)):
+            if stage == "edge_init":
+                xa, xb, idx, adj = x, e, b.senders[:, None], b.node_out
+            else:
+                xa, xb, idx, adj = h, x, b.node_inc, b.receivers[:, None]
+            ws = (rand(xa.shape[1], H, scale=0.2),
+                  rand(xb.shape[1], H, scale=0.2), rand(H, scale=0.1))
+            kw = dict(p=spec.p, act=act, mean=mean, mat_dtype=mat_dtype,
+                      out_dtype=mat_dtype if stage == "edge_init"
+                      else "float32")
+            y = gl.gather_linear_forward(xa, xb, idx, *ws, **kw)
+            g = rand(*y.shape).to(y.dtype)
+            out += [y, *gl.gather_linear_backward(xa, xb, idx, adj, *ws, y,
+                                                  g, **kw)]
+        xa, xr, xb, idx, ng, ell = pins
+        adj = torch.full((xa.shape[0], 1), xb.shape[0], dtype=torch.int32,
+                         device=cuda)
+        for act, mean in (("relu", False), ("silu", True)):
+            kw = dict(p=2, act=act, mean=mean, mat_dtype=mat_dtype)
+            y = gl.gather_linear_r_forward(xa, xr, xb, idx, *pws, **kw)
+            g = rand(*y.shape)
+            out += [y, *gl.gather_linear_r_backward(xa, xr, xb, idx, adj,
+                                                    *pws, y, g, **kw)]
+            y, pool = gl.gather_linear_pool_forward(*pins, *pws, **kw)
+            gp = rand(*pool.shape)
+            out += [y, pool, *gl.gather_linear_pool_backward(
+                xa, xr, xb, idx, adj, ng, ell, *pws, y, g, gp, **kw)]
+    return _flat(out)
+
+
+@pytest.mark.parametrize("mat_dtype", ["float32", "bfloat16"])
+def test_glin_grid_forced_builds_and_reruns_are_bit_identical(cuda,
+                                                              mat_dtype):
+    """K5, K10 and K11 (DN > 32) forward and backward: a rerun and the
+    builds forced to a 7-block grid, 32-row tiles and 64-row tiles at one
+    and at two blocks an SM give the shipped build's outputs bit for
+    bit."""
+    want = _glin_run(cuda, mat_dtype)
+    assert all(torch.isfinite(t).all() for t in want)
+    assert all(torch.equal(x, y) for x, y in zip(_glin_run(cuda, mat_dtype),
+                                                 want))
+    for d, lib in zip(GLIN_DEFINES, _conv_variants("gather_linear",
+                                                   GLIN_DEFINES)):
+        got = _through("gather_linear", lib,
+                       lambda: _glin_run(cuda, mat_dtype))
+        assert all(torch.equal(x, y) for x, y in zip(got, want)), d
+
+
+def test_glin_grid_is_one_launch_a_direction(cuda):
+    """A K5 or K11 call is one kernel launch forward and one backward
+    (torch.profiler), on the grid the shape rule picks, with the scratch
+    bytes the wrapper's mirror gives."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from cgr_mpnn_3d_tpu_torch.ops import _build
+    from cgr_mpnn_3d_tpu_torch.ops import gather_linear as gl
+    spec, b, rand = _layered_inputs(cuda)
+    H, ET = 40, b.edge_nbr.shape[0]
+    ins = (rand(ET, H), b.node_x, b.node_inc)
+    ws = (rand(H, H, scale=0.2), rand(b.node_x.shape[1], H, scale=0.2),
+          rand(H, scale=0.1))
+    kw = dict(p=spec.p, act="gelu", mean=True)
+    with torch.no_grad():
+        y = gl.gather_linear_forward(*ins, *ws, **kw)
+    g = rand(*y.shape)
+    pins, pws = _pool_case(cuda, 33)
+    with torch.no_grad():
+        py, pool = gl.gather_linear_pool_forward(*pins, *pws, p=2)
+    adj = torch.full((pins[0].shape[0], 1), pins[2].shape[0],
+                     dtype=torch.int32, device=cuda)
+    gp, pg = rand(*pool.shape), rand(*py.shape)
+
+    def kernels(fn):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            with torch.no_grad():
+                fn()
+            torch.cuda.synchronize()
+        return [e.key for e in prof.key_averages()
+                for _ in range(e.count)
+                if e.device_type == DeviceType.CUDA
+                and not e.key.startswith(("Memcpy", "Memset"))]
+    for name, fn in (
+            ("glin_fwd_kernel",
+             lambda: gl.gather_linear_forward(*ins, *ws, **kw)),
+            ("glin_bwd_kernel", lambda: gl.gather_linear_backward(
+                *ins, b.receivers[:, None], *ws, y, g, **kw)),
+            ("glin_fwd_kernel",
+             lambda: gl.gather_linear_pool_forward(*pins, *pws, p=2)),
+            ("glin_bwd_kernel", lambda: gl.gather_linear_pool_backward(
+                *pins[:4], adj, *pins[4:], *pws, py, pg, gp, p=2))):
+        got = kernels(fn)
+        assert len(got) == 1 and name in got[0], got
+    for p, R, FA, FB, bm in ((4, 256, 270, 14, 32), (436, 256, 270, 14, 64),
+                             (8, 72, 400, 270, 32)):
+        for backward in (False, True):
+            blocks, rows_, per_sm, sms = gl.glin_grid(p, R, FA, FB, 400,
+                                                      backward=backward)
+            assert (rows_, per_sm) == gl.glin_tiles(p * R, FA, FB, 400,
+                                                    backward, sms)
+            assert rows_ == bm and blocks == per_sm * sms
+    lib = _build.load("gather_linear")
+    for mat, md in ((0, "float32"), (1, "bfloat16")):
+        for p, R, FA, FB, GP, chunks in ((4, 256, 270, 14, 0, 1),
+                                         (8, 72, 400, 270, 24, 2),
+                                         (3, 7, 5, 3, 2, 1)):
+            S = 4
+            assert lib.cgr_gather_linear_fwd_scratch_bytes(
+                p, R, FA, FB, 400, GP, chunks, mat) == gl.scratch_bytes(
+                    False, p, R, FA, FB, 400, md, GP=GP, chunks=chunks)
+            assert lib.cgr_gather_linear_bwd_scratch_bytes(
+                p, R, FA, FB, 400, S, mat) == gl.scratch_bytes(
+                    True, p, R, FA, FB, 400, md, S)
+
+
+def test_glin_phases_tool(cuda, capsys):
+    """tools/glin_phases.py: the stamped build equals the shipped one on
+    every case, and each phase takes a positive time no longer than the
+    span."""
+    from cgr_mpnn_3d_tpu_torch.tools import glin_phases
+    out = glin_phases.main(["--graphs", "60", "--val", "20", "--repeats",
+                            "2", "--probe"])
+    assert any(k.endswith(" bwd") and "products" in v for k, v in out.items()
+               if isinstance(v, dict))
+    for key, res in out.items():
+        if key.startswith("probe"):
+            assert res > 0
+        else:
+            assert all(0 < v <= res["span"] + 1e-9 for v in res.values()), key
+    assert "glin_phases" in capsys.readouterr().out
+
+
+def test_glin_ties_tool(cuda, capsys):
+    """tools/glin_ties.py on the card: the kernel's gradients by the float64
+    rule (at most 3 x the plain version's L1, or 1e-4), whatever masks
+    differ between its out and the plain version's pre-activation."""
+    from cgr_mpnn_3d_tpu_torch.tools import glin_ties
+    out = glin_ties.main(["--graphs", "60", "--seeds", "2"])
+    assert len(out) == 4
+    for r in out:
+        assert 0 <= r["flips"] < r["n"]
+        assert r["l1_kernel"] <= max(3 * r["l1_plain"], 1e-4), r
+    assert "glin_ties K5 edge_init" in capsys.readouterr().out
