@@ -626,7 +626,7 @@ __device__ __forceinline__ bool aligned_as(const T* p, int bytes) {
   return (reinterpret_cast<uintptr_t>(p) & (bytes - 1)) == 0;
 }
 
-// Row item j (rows_per_item rows) of the gather-sum a (gather_kernel's
+// Row item j (rows_per_item rows) of the gather-sum a (gather_elem's
 // elements): four columns a thread where the rows allow vector loads; else
 // one element a thread at a time, or with U > 1 U units of four columns a
 // thread at once (gather_units, element loads).

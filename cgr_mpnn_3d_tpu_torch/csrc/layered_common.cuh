@@ -1,7 +1,8 @@
-// Device code shared by the layered kernels (onehot_spmm.cu, gather_linear.cu,
-// conv_stack.cu, fused_conv.cu): a pack-local ELL gather-sum over a whole
-// batch, an epilogue of a product's tiles, a fixed-order sum of partials,
-// scratch carving, and a conv layer's dpre pass (the conv layer and the
+// Device code shared by the layered kernels (gather_linear.cu,
+// conv_stack.cu, fused_conv.cu): the element of a pack-local ELL gather-sum
+// over a whole batch (K7, onehot_spmm.cu, has a kernel of its own), an
+// epilogue of a product's tiles, a fixed-order sum of partials, scratch
+// carving, and a conv layer's dpre pass (the conv layer and the
 // gather-linear themselves, forward and backward, are conv_grid.cuh's
 // cooperative grid and its tile).
 //
@@ -32,9 +33,7 @@
 
 namespace cgr {
 
-constexpr int kGatherThreads = 128;  // columns of one gather block
-constexpr int kGatherRows = 8;       // rows of one gather block
-constexpr int kReduceBlocks = 264;   // blocks of a grid-stride reduction
+constexpr int kReduceBlocks = 264;  // blocks of a grid-stride reduction
 
 // The element type of the stored states.
 template <bool kBf16>
@@ -130,25 +129,6 @@ __device__ __forceinline__ void gather_elem(const GatherArgs<S, O>& a,
   }
   if (c < a.W) a.out[r * a.ld_out() + c] = from_f32<O>(sum);
   if (a.rscale != nullptr && scale_out) a.rscale[r] = scale;
-}
-
-template <bool kBf16, class S, class O>
-__global__ void __launch_bounds__(kGatherThreads)
-    gather_kernel(GatherArgs<S, O> a) {
-  const int c = blockIdx.y * kGatherThreads + threadIdx.x;
-  for (int i = 0; i < kGatherRows; ++i) {
-    const long long r = static_cast<long long>(blockIdx.x) * kGatherRows + i;
-    if (r >= a.rows) return;
-    gather_elem<kBf16>(a, r, c, blockIdx.y == 0 && threadIdx.x == 0);
-  }
-}
-
-template <bool kBf16, class S, class O>
-inline void launch_gather(const GatherArgs<S, O>& a, cudaStream_t st) {
-  if (a.rows == 0) return;
-  const dim3 grid(static_cast<unsigned>((a.rows + kGatherRows - 1) / kGatherRows),
-                  static_cast<unsigned>((a.W + kGatherThreads - 1) / kGatherThreads));
-  gather_kernel<kBf16, S, O><<<grid, kGatherThreads, 0, st>>>(a);
 }
 
 // out = drop_l(act(acc + bias [+ skip·h0])) over rows of width ld, h0 of

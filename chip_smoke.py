@@ -175,12 +175,24 @@ Phases (any failure raises, and the script exits non-zero):
    rounds and by device time; ``tools/glin_phases.py --probe`` (the
    grid's phases at p = 4, 436 packs and two K11 layouts, block 0's
    product tiles without copies or products); the conv layer (K6, K8/K9,
-   K4: its shared tile header is edited here), K7 and K2/K3b, recorded on
-   the capture step, layered training, the corpus training batch and the
-   wired batch and training runs: a rerun bit for bit, one launch a call
-   of K6 and K8/K9, and with ``--parent`` bit for bit and timed beside the
-   earlier commit's builds;
-20. a ``{"kernels": [...]}`` line, then ``{"ok": true, "device": {...}}`` as
+   K4) and K2/K3b, recorded on the capture step, layered training, the
+   corpus training batch and the wired batch and training runs: a rerun
+   bit for bit, one launch a call of K6 and K8/K9, and with ``--parent``
+   bit for bit and timed beside the earlier commit's builds;
+20. the ELL gather-sum K7 (``csrc/onehot_spmm.cu``: a group of lanes a
+   row, vector loads): the inputs of its first launch of each shape and
+   dtype are recorded where the 436-pack and p = 4 kernel phases and the
+   main paths (layered serving and training, the capture step, bench_ops'
+   messages, ``tools/profile_ep.py``'s rows) launch it; each is replayed:
+   a rerun and every forced build of SPMM_VARIANTS (4-byte loads, one row
+   a warp) bit for bit, its plain version at REL_TOL, one kernel launch a
+   call, its launch plan (the kernel's, equal to the wrapper's mirror),
+   the bound, and with ``--parent`` the earlier commit's build (through
+   that commit's own wrapper) bit for bit; device ms a call behind a spin
+   (shipped, parent, ``embedding_bag``), the call's ms by CUDA events in
+   alternating rounds and its host ms; then the wrapper's host time step
+   by step (``tools/k7_host.py``, the parent's beside it);
+21. a ``{"kernels": [...]}`` line, then ``{"ok": true, "device": {...}}`` as
    the last line.
 
 It exits non-zero, printing no result, without CUDA or without the package
@@ -610,8 +622,9 @@ def start_variant_builds(parent: Path | None = None) -> dict:
     tools/glin_phases.py's stamped and probe builds), and with ``parent``
     (an earlier commit's csrc/) its fused_model_fwd.cu ("K3f earlier"),
     fused_conv.cu, conv_stack.cu, gather_linear.cu, onehot_spmm.cu and
-    fused_model_bwd.cu ("<library> earlier"), each started now (nvcc in
-    the background): {name: a call that waits for the library}."""
+    fused_model_bwd.cu ("<library> earlier"), and K7's SPMM_VARIANTS, each
+    started now (nvcc in the background): {name: a call that waits for the
+    library}."""
     from cgr_mpnn_3d_tpu_torch.ops import _build
     from cgr_mpnn_3d_tpu_torch.tools import glin_phases, k2_phases
     fwd = _build.CSRC / "fused_model_fwd.cu"
@@ -623,6 +636,8 @@ def start_variant_builds(parent: Path | None = None) -> dict:
                  for n, d in GLIN_VARIANTS.items()})
     todo.update({f"glin_phases {n}": (d, glin)
                  for n, d in glin_phases.DEFINES.items()})
+    todo.update({f"onehot_spmm {n}": (d, _build.CSRC / "onehot_spmm.cu")
+                 for n, d in SPMM_VARIANTS.items()})
     if parent is not None:
         parent = parent.resolve()
         todo["K3f earlier"] = ({}, parent / "fused_model_fwd.cu")
@@ -678,6 +693,19 @@ def parent_wrapper(parent: Path, module: str):
         sys.modules[name] = mod
         spec.loader.exec_module(mod)
     return sys.modules[name]
+
+
+def parent_bound(parent: Path, module: str, name: str, lib):
+    """parent_wrapper(parent, module) with its ``library`` bound to
+    ``lib`` (that commit's build of csrc/<name>.cu, typed by the wrapper's
+    own signatures), so that its calls need no swap of the shipped table
+    (the bound lookup is cheaper than the wrapper's own, which favours the
+    parent in a host-time comparison)."""
+    from cgr_mpnn_3d_tpu_torch.ops._launch import library
+    mod = parent_wrapper(parent, module)
+    typed = swapped(name, lib, lambda: library(name, mod._SIGNATURES))
+    mod.library = lambda *_: typed
+    return mod
 
 
 def swapped(name: str, lib, fn):
@@ -799,12 +827,17 @@ GLIN_LAUNCHES = {
     "K10/K11 fwd": ("gl", "_launch_r_fwd", "gather_linear"),
     "K10/K11 bwd": ("gl", "_launch_r_bwd", "gather_linear"),
 }
-# kernels this change does not redesign, recorded where the main paths
-# and the kernel phases launch them and held beside the parent's build
-# (K3f in its own phase): the conv layer, whose shared tile header
-# (csrc/conv_grid.cuh: the operand pairs, the gather units) it edits, with
-# one launch a call of K6 and K8/K9; K7 and K2/K3b.  K8's with a scale is
-# K9's
+# forced builds of csrc/onehot_spmm.cu: each must give the shipped build's
+# bits (a column's sum does not depend on the load width or the lanes a
+# row)
+SPMM_VARIANTS = {"4-byte loads": {"CGR_SPMM_VEC_BYTES": 4},
+                 "one row a warp": {"CGR_SPMM_LANES": 32}}
+# the function through which every K7 call launches (forward, backward)
+SPMM_LAUNCHES = {"K7": ("os", "_run", "onehot_spmm")}
+# kernels not redesigned here, recorded where the main paths and the
+# kernel phases launch them and held beside the parent's build (K3f in its
+# own phase): the conv layer, with one launch a call of K6 and K8/K9, and
+# K2/K3b.  K8's with a scale is K9's
 UNMOVED_LAUNCHES = {
     "K6 fwd": ("fc", "_launch_fwd", "fused_conv"),
     "K6 bwd": ("fc", "_launch_bwd", "fused_conv"),
@@ -812,7 +845,6 @@ UNMOVED_LAUNCHES = {
     "K8 bwd": ("fc", "_launch_r_bwd", "fused_conv"),
     "K4 fwd": ("cs", "_launch_fwd", "conv_stack"),
     "K4 bwd": ("cs", "_launch_bwd", "conv_stack"),
-    "K7": ("os", "_launch", "onehot_spmm"),
     "K2/K3b": ("fm", "_backward", "fused_model_bwd"),
 }
 
@@ -1220,6 +1252,144 @@ def held_beside_parent(recorded: dict, builds: dict, repeats: int,
                 line += f"; bound {e['bound_ms']:.4f} by {e['bound_by']}"
             print(line + f" [{card}]")
     return out
+
+
+def spmm_held(recorded: dict, builds: dict, repeats: int, card: str,
+              parent: Path | None = None) -> dict:
+    """Every recorded K7 launch (LaunchRecorder on the wrapper's ``_run``:
+    src, idx, sign, p, mat and a bf16 d_src's flag) replayed: a rerun and
+    each forced build of SPMM_VARIANTS bit for bit; the plain version at
+    REL_TOL (the kernel and the plain version round the same operands and
+    sum them in another order; a bf16 d_src within one bf16 rounding, 2^-8
+    of its largest value); one kernel launch a call (torch.profiler); the
+    kernel's launch plan equal to the wrapper's mirror; the bound of the
+    call's work (spmm_cost); with ``parent`` (an earlier commit's csrc/)
+    that commit's build through its own wrapper bit for bit (a bf16 d_src:
+    its f32 result cast, as its backward did).  With ``repeats``: device ms
+    a call behind a spin (shipped, parent with its cast, embedding_bag over
+    the same sum), the public call (``onehot_spmm``) by CUDA events over
+    ``repeats`` calls in 5 alternating rounds beside the parent's and
+    embedding_bag's, and the host ms a call of both wrappers."""
+    import torch
+    from cgr_mpnn_3d_tpu_torch.ops import onehot_spmm as sp
+    from cgr_mpnn_3d_tpu_torch.tools.k7_host import library_call
+    out = {}
+    for label, rec in recorded.items():
+        for key, (fn, lib, a, kw, mod, fname) in rec.calls.items():
+            src, idx, sign, p, mat = a[:5]
+            out_bf16 = bool(a[5] if len(a) > 5 else kw.get("out_bf16"))
+            md = BF16 if mat else "float32"
+
+            def call(fn=fn, a=a, kw=kw):
+                with torch.no_grad():
+                    return fn(*a, **kw)
+            rows, D = idx.shape
+            name = (f"K7 {md} {str(src.dtype)[6:]} src [{src.shape[0]}, "
+                    f"{src.shape[1]}] ({src.shape[1] * src.element_size()} "
+                    f"B rows), {rows} rows of D {D}"
+                    + (" - sign" if sign is not None else "")
+                    + (", bf16 d_src" if out_bf16 else "")
+                    + f", {label}, {p} packs")
+            got = call()
+            check(_same(got, call()), f"{name}: two runs differ")
+            for vname in SPMM_VARIANTS:
+                vlib = builds[f"onehot_spmm {vname}"]()
+                check(_same(got, swapped(lib, vlib, call)),
+                      f"{name}: the {vname} build differs")
+            want = sp.onehot_spmm_ref(src, idx, sign, p=p, mat_dtype=md)
+            e: dict = dict(kernel="K7", label=label, dtype=md, rows=rows,
+                           D=D, width=src.shape[1],
+                           row_bytes=src.shape[1] * src.element_size())
+            e["abs_err"] = float((got.double() - want.double()).abs().max())
+            e["rel_err"] = e["abs_err"] / max(float(want.abs().max()), 1e-30)
+            check(bool(torch.isfinite(got).all())
+                  and e["rel_err"] <= (2.0 ** -8 if out_bf16 else REL_TOL),
+                  f"{name}: kernel vs plain relative error "
+                  f"{e['rel_err']:.3e}")
+            e["launches"] = kernel_launches(call)
+            check(e["launches"] == 1,
+                  f"{name}: {e['launches']} kernel launches a call")
+            sizes = (src.element_size(), got.element_size())
+            e["plan"] = sp.kernel_plan(rows, src.shape[1], *sizes,
+                                       src.data_ptr(), got.data_ptr())
+            check(e["plan"] == sp.launch_plan(rows, src.shape[1], *sizes,
+                                              src.data_ptr(),
+                                              got.data_ptr()),
+                  f"{name}: the kernel's plan {e['plan']} is not the "
+                  f"wrapper's mirror")
+            e["bound_ms"], e["bound_by"] = bound(
+                spmm_cost(src, idx, sign, p, got.element_size()), False)
+            bag = library_call(src, idx, sign, p, md)
+
+            def public(src=src, idx=idx, sign=sign, p=p, md=md):
+                with torch.no_grad():
+                    return sp.onehot_spmm(src, idx, sign, p=p, mat_dtype=md)
+            dev_fns, call_fns = {"shipped": call}, {"shipped": public}
+            host_fns = {"shipped": public}
+            par = builds.get(f"{lib} earlier")
+            if parent is not None and par is not None:
+                pmod = parent_bound(parent, mod, lib, par())
+
+                def pcall(pmod=pmod, a=a, md=md, ob=out_bf16):
+                    with torch.no_grad():
+                        y = pmod._launch(*a[:4], md)
+                        return y.to(torch.bfloat16) if ob else y
+
+                def ppublic(pmod=pmod, src=src, idx=idx, sign=sign, p=p,
+                            md=md):
+                    with torch.no_grad():
+                        return pmod.onehot_spmm(src, idx, sign, p=p,
+                                                mat_dtype=md)
+                theirs = pcall()
+                e["parent_equal"] = _same(got, theirs)
+                e["parent_diff"] = _max_diff(got, theirs)
+                check(e["parent_equal"], f"{name}: differs from the parent's "
+                                         f"build by {e['parent_diff']:.3e}")
+                dev_fns["parent"], call_fns["parent"] = pcall, ppublic
+                host_fns["parent"] = ppublic
+            dev_fns["embedding_bag"] = call_fns["embedding_bag"] = bag
+            if repeats:
+                e["device_ms"] = {n: device_ms(f) for n, f in dev_fns.items()}
+                e["rounds"] = alternating_ms(call_fns, repeats)
+                e["call_ms"] = {n: statistics.median(v)
+                                for n, v in e["rounds"].items()}
+                e["host_ms"] = {n: host_ms(f) for n, f in host_fns.items()}
+            out[name] = e
+            line = (f"{name}: reruns and {len(SPMM_VARIANTS)} forced builds "
+                    f"equal, plan {e['plan'][0]} elements a chunk, "
+                    f"{e['plan'][1]} lanes a row, {e['plan'][3]} blocks, "
+                    f"{e['launches']:g} kernel launches a call; plain max "
+                    f"abs err {e['abs_err']:.3e} rel {e['rel_err']:.3e}")
+            if "parent_equal" in e:
+                line += f"; the parent's build equal: {e['parent_equal']}"
+            if "device_ms" in e:
+                line += "; device ms a call (behind a spin) " + ", ".join(
+                    f"{n} {v:.4f}" for n, v in e["device_ms"].items())
+                line += ("; call ms by events (median of 5 alternating "
+                         "rounds, min-max) " + "; ".join(
+                             f"{n} {statistics.median(v):.4f} "
+                             f"({min(v):.4f}-{max(v):.4f})"
+                             for n, v in e["rounds"].items()))
+                line += "; host ms a call " + ", ".join(
+                    f"{n} {v:.4f}" for n, v in e["host_ms"].items())
+            line += f"; bound {e['bound_ms']:.4f} by {e['bound_by']}"
+            print(line + f" [{card}]")
+    return out
+
+
+def k7_host_phase(card: str, parent: Path | None = None) -> dict:
+    """tools/k7_host.py: the wrapper's host time step by step on the
+    layered pooling at p = 4, f32 and bf16, and with ``parent`` the earlier
+    commit's wrapper's beside it; every step a positive time."""
+    from cgr_mpnn_3d_tpu_torch.tools import k7_host
+    argv = ["--calls", "1000"]
+    if parent is not None:
+        argv += ["--parent", str(parent)]
+    print(f"tools/k7_host.py [{card}]:")
+    res = k7_host.main(argv)
+    check(all(v > 0 for r in res.values() for v in r.values()),
+          f"tools/k7_host.py: {res}")
+    return res
 
 
 def print_train_kernels(what: str, k: dict, card: str) -> None:
@@ -1778,14 +1948,15 @@ def nbytes_of(*ts) -> int:
     return sum(t.numel() * t.element_size() for t in ts)
 
 
-def spmm_cost(src, idx, sign, p: int) -> tuple[float, float, float]:
+def spmm_cost(src, idx, sign, p: int,
+              out_size: int = 4) -> tuple[float, float, float]:
     """(0 products, adds, bytes) of the ELL gather-sum on these inputs: one add
-    per counted entry and column; every input read once, the f32 output
-    written once."""
+    per counted entry and column; every input read once, the output (f32,
+    or of ``out_size`` bytes an element) written once."""
     from cgr_mpnn_3d_tpu_torch.ops.segment import in_pack
     H = src.shape[1]
     n = int(in_pack(idx, p, src.shape[0])[1].sum())
-    nbytes = nbytes_of(src, idx) + idx.shape[0] * H * 4
+    nbytes = nbytes_of(src, idx) + idx.shape[0] * H * out_size
     if sign is not None:
         n += int(in_pack(sign, p, src.shape[0])[1].sum())
         nbytes += sign.numel() * 4
@@ -4128,6 +4299,7 @@ def main(argv=None) -> int:
                 hidden_sizes=(400,) * 4, dropout_ps=(0.0,) * 4,
                 activation="ReLU")
     spec, batch = synthetic_batch(args.graphs, args.seed, 270, 14, dev)
+    pool_ell = tuple(batch.graph_nodes.shape)   # K7's pool at this batch
     main_k = kernel_vs_plain(full, spec, batch, args.seed, args.repeats)
     print(f"fused_model_fwd full width: {main_k['graphs']} synthetic graphs "
           f"in {main_k['p']} packs, max abs err {main_k['abs_err']:.3e}, rel "
@@ -4160,16 +4332,20 @@ def main(argv=None) -> int:
         print_train_kernels(f"full width {act}, dropout 0.1, synthetic", k,
                             card)
     lay_reps = max(1, args.repeats // 4)
-    # the inputs of K5 and K10/K11 where the main paths and the kernel
-    # phases launch them, replayed beside the forced grids, the plain
-    # versions and the parent's build at the end; those of the kernels not
-    # redesigned here (K6, K8/K9, K4, K7, K2/K3b) beside the parent's
+    # the inputs of K5 and K10/K11, and of K7, where the main paths and the
+    # kernel phases launch them, replayed beside the forced builds, the
+    # plain versions and the parent's build at the end; those of the
+    # kernels not redesigned here (K6, K8/K9, K4, K2/K3b) beside the
+    # parent's
     glin_runs = {name: LaunchRecorder(GLIN_LAUNCHES, 24) for name in (
         "436 packs", "p = 4, corpus training batch", "wired batch",
         "layered training", "--ep 2 validation", "wired training runs")}
     glin_runs["layered serving"] = LaunchRecorder(GLIN_LAUNCHES, 12)
+    spmm_runs = {name: LaunchRecorder(SPMM_LAUNCHES, 12) for name in (
+        "436 packs", "p = 4, corpus training batch", "capture step",
+        "layered serving", "layered training", "bench_ops", "profile_ep")}
     unmoved = LaunchRecorder(UNMOVED_LAUNCHES, 80)
-    with glin_runs["436 packs"]:
+    with glin_runs["436 packs"], spmm_runs["436 packs"]:
         lay_k = layered_kernels(full_train, spec, batch, args.seed, lay_reps)
     print_layered("full width, dropout 0.1, synthetic", lay_k, card)
     print_layered("layered vs whole-model, full width, dropout 0.1, "
@@ -4182,7 +4358,7 @@ def main(argv=None) -> int:
     print_capture("capture vs the other paths, full width, dropout 0.1, "
                   "synthetic", cap, card)
     what = "full width, dropout 0.1, synthetic"
-    with glin_runs["436 packs"]:
+    with glin_runs["436 packs"], spmm_runs["436 packs"]:
         lay_k16 = layered_kernels(full_train, spec, batch, args.seed,
                                   lay_reps, BF16)
         print_layered(what, lay_k16, card)
@@ -4245,7 +4421,7 @@ def main(argv=None) -> int:
                                          args.repeats), card)
         print_layered("layered vs whole-model, request batch",
                       layered_vs_whole(full, spec, batch, args.seed), card)
-        with unmoved:
+        with unmoved, spmm_runs["capture step"]:
             print_capture("capture vs the other paths, request batch",
                           capture_vs_paths(full, spec, batch, args.seed, True,
                                            args.repeats), card)
@@ -4261,7 +4437,8 @@ def main(argv=None) -> int:
         print_bf16("corpus training batch, full width, dropout 0.1",
                    bf16_kernels_vs_plain(full_train, spec, batch, args.seed,
                                          args.repeats), card)
-        with glin_runs["p = 4, corpus training batch"], unmoved:
+        with glin_runs["p = 4, corpus training batch"], unmoved, \
+                spmm_runs["p = 4, corpus training batch"]:
             print_layered("corpus training batch, full width, dropout 0.1",
                           layered_kernels(full_train, spec, batch, args.seed,
                                           args.repeats), card)
@@ -4273,15 +4450,17 @@ def main(argv=None) -> int:
                                          args.repeats)
             print_capture("corpus training batch, full width, dropout 0.1",
                           conv_p4, card)
-            print_layered("corpus training batch, full width, dropout 0.1",
-                          layered_kernels(full_train, spec, batch, args.seed,
-                                          args.repeats, BF16), card)
+            with spmm_runs["p = 4, corpus training batch"]:
+                print_layered("corpus training batch, full width, dropout "
+                              "0.1", layered_kernels(
+                                  full_train, spec, batch, args.seed,
+                                  args.repeats, BF16), card)
             print_capture("corpus training batch, full width, dropout 0.1",
                           fused_conv_kernels(full_train, spec, batch,
                                              args.seed, args.repeats, BF16),
                           card)
         srv = serve(Path(tmp), args.seed, card)
-        with glin_runs["layered serving"]:
+        with glin_runs["layered serving"], spmm_runs["layered serving"]:
             srv_l = serve_layered(Path(tmp), args.seed, card)
             srv_l16 = serve_layered(Path(tmp), args.seed, card, BF16)
         # the training CLI writes runs/, hyperparameter_study/ and a parity
@@ -4296,7 +4475,8 @@ def main(argv=None) -> int:
             print(f"train step bf16 vs f32: {rates['bfloat16']:.2f} against "
                   f"{rates['float32']:.2f} steps/s "
                   f"({rates['bfloat16'] / rates['float32']:.3f}x) [{card}]")
-            with glin_runs["layered training"], unmoved:
+            with glin_runs["layered training"], unmoved, \
+                    spmm_runs["layered training"]:
                 trn_l = train_layered(Path(tmp), args.seed, card)
                 trn_l16 = train_layered(Path(tmp), args.seed, card, BF16,
                                         trn_l["rates"])
@@ -4304,7 +4484,8 @@ def main(argv=None) -> int:
             os.chdir(cwd)
 
     goldens_on_card(card)
-    bench_ops_phase(card, args.seed)
+    with spmm_runs["bench_ops"]:
+        bench_ops_phase(card, args.seed)
     p2 = mm_probe_phase(args.seed, card)
 
     # edge partitioning: every shard of a step in this process
@@ -4339,7 +4520,8 @@ def main(argv=None) -> int:
     ep_variants(args.seed, card)
     print(f"phase wall: EP step variants {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    prof = profile_ep_phase(card)
+    with spmm_runs["profile_ep"]:
+        prof = profile_ep_phase(card)
     print(f"phase wall: tools/profile_ep.py {time.perf_counter() - t0:.1f} s")
     with tempfile.TemporaryDirectory() as tmp:
         training_data(Path(tmp), args.seed)
@@ -4366,8 +4548,17 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     held_beside_parent({"unmoved": unmoved}, builds, args.repeats, card,
                        args.parent)
-    print(f"phase wall: K6, K8/K9, K4, K7 and K2/K3b beside the parent's "
+    print(f"phase wall: K6, K8/K9, K4 and K2/K3b beside the parent's "
           f"{time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    spmm_k = spmm_held(spmm_runs, builds, args.repeats, card, args.parent)
+    check(any(e["row_bytes"] % 16 for e in spmm_k.values()),
+          "no recorded K7 launch has rows whose bytes are not a multiple "
+          "of 16")
+    k7_host_phase(card, args.parent)
+    print(f"phase wall: K7 at the recorded shapes ({len(spmm_k)}), beside "
+          f"its forced builds, plain version and the parent's, and "
+          f"tools/k7_host.py {time.perf_counter() - t0:.1f} s")
     print(f"train steps/s per epoch (StepTimer), README model on the corpus:"
           f" --ep 2 {ep_cli['steps_per_s']}, at bf16 "
           f"{ep_cli16['steps_per_s']}, against the single-device run's "
@@ -4399,6 +4590,15 @@ def main(argv=None) -> int:
                     plain_ms=a["plain_ms"] + b["plain_ms"],
                     bound_ms=bound_ms, bound_by=bound_by)
 
+    def pool(lay: dict, md: str) -> dict:
+        """K7's entry: the pool forward of layered_kernels (errors, bound,
+        plain and embedding_bag times), its ms the replay's call by CUDA
+        events at this batch (spmm_held: alternating rounds of
+        ``--repeats`` calls, no recorder active)."""
+        e = next(e for e in spmm_k.values() if e["label"] == "436 packs"
+                 and e["dtype"] == md and (e["rows"], e["D"]) == pool_ell)
+        return dict(lay["K7 pool fwd"], ms=e["call_ms"]["shipped"])
+
     def lay_launches(srv_run: dict, trn_run: dict) -> dict:
         return {key: srv_run["launches"][key] + sum(trn_run["launches"][key])
                 for key in ("K5", "K4", "K7")}
@@ -4416,7 +4616,7 @@ def main(argv=None) -> int:
         kernel("gather_linear", "gather_linear.cu", "pallas_glin.py:160",
                lay32["K5"], glin(lay_k, False)),
         kernel("onehot_spmm", "onehot_spmm.cu", "pallas_ops.py:93",
-               lay32["K7"], lay_k["K7 pool fwd"]),
+               lay32["K7"], pool(lay_k, "float32")),
         kernel("fused_conv", "fused_conv.cu", "pallas_fused.py:330",
                sum(cap["launches"]["K6"]), conv_k["K6 fwd eval"]),
         kernel("act_chain", "act_chain.cu", "tools/gelu_roofline.py:66",
@@ -4435,7 +4635,7 @@ def main(argv=None) -> int:
         kernel("gather_linear_bf16", "gather_linear.cu", "pallas_glin.py:160",
                lay16["K5"], glin(lay_k16, True)),
         kernel("onehot_spmm_bf16", "onehot_spmm.cu", "pallas_ops.py:93",
-               lay16["K7"], lay_k16["K7 pool fwd"]),
+               lay16["K7"], pool(lay_k16, BF16)),
         kernel("fused_conv_bf16", "fused_conv.cu", "pallas_fused.py:330",
                sum(cap16["launches"]["K6"]), conv_k16["K6 fwd eval"]),
         kernel("mm_probe", "mm_probe.cu", "tools/int8_microbench.py:72",

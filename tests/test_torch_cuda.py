@@ -621,6 +621,125 @@ def test_onehot_spmm_kernel_matches_plain(cuda):
     assert _rel(got, want) <= 1e-5
 
 
+SPMM_DEFINES = [{"CGR_SPMM_VEC_BYTES": 4}, {"CGR_SPMM_LANES": 32}]
+
+
+def _spmm_cases(cuda):
+    """K7's edges on a 120-graph batch: rows of F = 270 (1,080 and 540
+    bytes, no multiple of 16) and H = 400, f32 and bf16 sources, an ELL
+    of 40 entries a row (two index chunks; repeats and a tail of
+    sentinels), D = 1, the sign row, and a source whose base lies off a
+    16-byte boundary: [(name, src, idx, sign, mat_dtype)]."""
+    spec, b, rand = _layered_inputs(cuda, F=270)
+    NT, ET = b.node_x.shape[0], b.edge_nbr.shape[0]
+    x, h = b.node_x, rand(ET, 400)
+    wide = torch.full((b.graph_nodes.shape[0], 40), NT, dtype=torch.int32,
+                      device=cuda)
+    wide[:, :b.graph_nodes.shape[1]] = b.graph_nodes
+    wide[::2, 33:39] = b.graph_nodes[::2, :6]
+    off = rand(NT * 400 + 1)[1:].view(NT, 400)
+    off16 = rand(NT * 270 + 1).bfloat16()[1:].view(NT, 270)
+    cases = []
+    for md in ("float32", "bfloat16"):
+        cases += [("x[senders] 270", x, b.senders[:, None], None, md),
+                  ("messages 400", h, b.edge_nbr, b.rev, md),
+                  ("pool DN 40", rand(NT, 400), wide, None, md),
+                  ("offset base", off, b.graph_nodes, None, md)]
+    cases += [("x[senders] 270 bf16 src", x.bfloat16(), b.senders[:, None],
+               None, "bfloat16"),
+              ("offset bf16 base", off16, b.graph_nodes, None, "bfloat16"),
+              ("messages bf16 src", h.bfloat16(), b.edge_nbr, b.rev,
+               "bfloat16")]
+    return spec.p, cases
+
+
+def _spmm_run(cuda):
+    from cgr_mpnn_3d_tpu_torch.ops import onehot_spmm as sp
+    p, cases = _spmm_cases(cuda)
+    with torch.no_grad():
+        return [sp.onehot_spmm(s, i, g, p=p, mat_dtype=md)
+                for _, s, i, g, md in cases]
+
+
+def test_spmm_grid_matches_plain_and_reruns(cuda):
+    """Every edge case at its plain version (the same operands summed in
+    another order: 1e-5 of the largest value), reruns bit for bit, one
+    launch a call on the counters."""
+    from cgr_mpnn_3d_tpu_torch.ops import onehot_spmm as sp
+    p, cases = _spmm_cases(cuda)
+    got = _spmm_run(cuda)
+    assert all(torch.equal(x, y) for x, y in zip(got, _spmm_run(cuda)))
+    for (name, s, i, g, md), y in zip(cases, got):
+        before = (sp.launches, sp.bf16_launches)
+        with torch.no_grad():
+            again = sp.onehot_spmm(s, i, g, p=p, mat_dtype=md)
+        bf16 = md == "bfloat16"
+        assert (sp.launches, sp.bf16_launches) == (before[0] + (not bf16),
+                                                   before[1] + bf16), name
+        assert torch.equal(again, y), name
+        want = sp.onehot_spmm_ref(s, i, g, p=p, mat_dtype=md)
+        assert y.dtype == torch.float32 and _rel(y, want) <= 1e-5, name
+
+
+def test_spmm_forced_builds_are_bit_identical(cuda):
+    """The builds forced to 4-byte loads and to one row a warp give the
+    shipped build's outputs bit for bit on every edge case."""
+    want = _spmm_run(cuda)
+    for d, lib in zip(SPMM_DEFINES, _conv_variants("onehot_spmm",
+                                                   SPMM_DEFINES)):
+        got = _through("onehot_spmm", lib, lambda: _spmm_run(cuda))
+        assert all(torch.equal(x, y) for x, y in zip(got, want)), d
+
+
+def test_spmm_plan_is_the_wrappers_mirror(cuda):
+    """The kernel's launch plan equals launch_plan's at the main paths'
+    widths and at base addresses off every boundary."""
+    from cgr_mpnn_3d_tpu_torch.ops import onehot_spmm as sp
+    for rows, W, ss, os_ in ((6976, 400, 4, 4), (6976, 400, 2, 4),
+                             (1024, 270, 4, 4), (1024, 270, 2, 4),
+                             (512, 400, 4, 2), (64, 40, 4, 4),
+                             (300, 7, 4, 4), (64, 1000, 4, 4)):
+        for sptr in range(0, 64, ss):
+            for optr in (0, 4, 8, 16, 24):
+                want = sp.launch_plan(rows, W, ss, os_, 4096 + sptr,
+                                      8192 + optr)
+                assert sp.kernel_plan(rows, W, ss, os_, 4096 + sptr,
+                                      8192 + optr) == want
+
+
+def test_spmm_bf16_backward_stores_the_cast_sum(cuda, monkeypatch):
+    """With a bf16 source the backward stores d_src in bf16 itself: the
+    f32 sum of the same kernel cast, bit for bit, and the tensor the
+    launch wrote is the gradient autograd returns (no cast after it); an
+    f32 source's d_src stays f32."""
+    from cgr_mpnn_3d_tpu_torch.ops import onehot_spmm as sp
+    spec, b, rand = _layered_inputs(cuda, F=270)
+    launched = []
+    run = sp._run
+
+    def recorded(*a, **k):
+        launched.append(run(*a, **k))
+        return launched[-1]
+    for src, idx, bwd in ((b.node_x, b.senders[:, None], b.node_out),
+                          (rand(b.node_x.shape[0], 400), b.graph_nodes,
+                           b.graph_of_node[:, None])):
+        for dt in (torch.bfloat16, torch.float32):
+            s = src.to(dt).requires_grad_()
+            out = sp.spmm(s, idx, bwd, p=spec.p, mat_dtype="bfloat16")
+            g = rand(*out.shape)
+            before = sp.bf16_bwd_launches
+            launched.clear()
+            monkeypatch.setattr(sp, "_run", recorded)
+            (d,) = torch.autograd.grad(out, s, g)
+            monkeypatch.setattr(sp, "_run", run)
+            assert sp.bf16_bwd_launches == before + 1
+            assert len(launched) == 1
+            assert d.data_ptr() == launched[0].data_ptr()
+            with torch.no_grad():
+                f32 = sp.onehot_spmm(g, bwd, p=spec.p, mat_dtype="bfloat16")
+            assert d.dtype == dt and torch.equal(d, f32.to(dt))
+
+
 @pytest.mark.parametrize("stage,act,mean", [("edge_init", "relu", False),
                                             ("readout", "gelu", True),
                                             ("readout", "silu", False)])

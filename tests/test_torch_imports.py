@@ -44,7 +44,7 @@ def test_importing_every_module_loads_no_jax():
                 "parallel.edge_partition", "parallel.ep_pack",
                 "parallel.ep_loader", "parallel.rdma_exchange",
                 "tools.profile_ep", "tools.mm_probe_parts",
-                "tools.k2_phases", "tools.k12_host")}
+                "tools.k2_phases", "tools.k12_host", "tools.k7_host")}
     assert kernels <= set(res["mods"])
     assert [m for m in res["loaded"] if _forbidden(m)] == []
 
