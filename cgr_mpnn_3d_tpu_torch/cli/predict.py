@@ -1,9 +1,11 @@
 """Inference CLI: activation energies for a SMILES csv, on the card.
 
 The counterpart of ``cgr_mpnn_3d_tpu/cli/predict.py`` with the same flags,
-plus ``--device`` (default ``cuda``) and ``--batch_size``.  The MACE
-descriptor step is not ported yet, so the descriptors come from a
-precomputed ``.npz`` (``--data_path_npz``).
+plus ``--device`` (default ``cuda``) and ``--batch_size``.  Requests are
+featurized by the native C++ featurizer (``native/``); the entry point's
+``use_native=False`` takes the pure-Python twin.  The MACE descriptor step
+is not ported yet, so the descriptors come from a precomputed ``.npz``
+(``--data_path_npz``).
 """
 
 from __future__ import annotations
@@ -24,7 +26,8 @@ def activation_energy_prediction(
         output_results: str = "", model_path: str = "",
         print_results: bool = False, store_results: bool = False,
         output_format: str = "text", npz_path: str | None = None,
-        device: str | torch.device = "cuda", batch_size: int = 64) -> list:
+        device: str | torch.device = "cuda", batch_size: int = 64,
+        use_native: bool | None = None) -> list:
     data_path_smiles = Path(input_smiles)
     data_path_results = (Path(output_results) if output_results
                          else Path("results.txt"))
@@ -39,7 +42,8 @@ def activation_energy_prediction(
             "npz (--data_path_npz)")
 
     model, cfg, _ = load_model(model_path, device)
-    pred_data = ChemDataset(str(data_path_smiles), data_npz_path=npz_path)
+    pred_data = ChemDataset(str(data_path_smiles), data_npz_path=npz_path,
+                            use_native=use_native)
     if pred_data.num_node_features != cfg.num_node_features:
         raise ValueError(
             f"model expects {cfg.num_node_features} node features but the "

@@ -25,18 +25,27 @@ shard of a step in this process on one device, at either
 linear conv kernel plus a compact correction, and ``--ep_rdma`` sends every
 exchange through the hop-exchange kernel.
 
+The splits are featurized by the native C++ featurizer on ``--num_workers``
+threads (default half the CPUs) and cached beside each CSV
+(``<split>.csv.featcache.npz``, the JAX package's format).
+``--reuse_packs`` packs each epoch's batches once and reuses them, shuffling
+batch order per epoch, under ``--ep`` too.  ``--loader_workers N`` parses
+for the JAX command line's sake and packing stays serial: one background
+thread packs ahead of the device (``data/loader.py``).
+
 ``refuse_unported`` raises NotImplementedError, naming the ROADMAP.md item,
-for ``--dp`` other than 1, ``--reuse_packs`` and ``--loader_workers`` other
+for ``--dp`` other than 1, ``--device_epoch`` and ``--steps_per_call`` other
 than 1.
 
-Not ported yet: multi-host, ``--device_epoch``, ``--steps_per_call``,
-``--pack_q`` and ``--num_workers`` (ROADMAP.md).
+Not ported yet: multi-host and ``--pack_q`` (left out on purpose:
+ROADMAP.md).
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import os
 from pathlib import Path
 
 import numpy as np
@@ -107,10 +116,19 @@ def build_arg_parser() -> argparse.ArgumentParser:
                          "(K12): one launch for every hop and shard")
     ap.add_argument("--dp", default=1, type=int,
                     help="data-parallel devices; only 1 is ported")
-    ap.add_argument("--reuse_packs", action="store_true",
-                    help="not ported: raises (ROADMAP.md)")
+    ap.add_argument("--num_workers", default=None, type=int,
+                    help="featurization threads (default: half the CPUs)")
     ap.add_argument("--loader_workers", default=1, type=int,
-                    help="packing threads; only 1 is ported")
+                    help="accepted for the JAX command line; the port "
+                         "packs on one background thread")
+    ap.add_argument("--reuse_packs", action="store_true",
+                    help="pack each epoch once and reuse its batches in "
+                         "later epochs, shuffling batch order")
+    ap.add_argument("--device_epoch", action="store_true",
+                    help="a whole epoch per device call; not ported: raises "
+                         "(ROADMAP.md)")
+    ap.add_argument("--steps_per_call", default=1, type=int,
+                    help="train steps per device call; only 1 is ported")
     return ap
 
 
@@ -123,11 +141,10 @@ def refuse_unported(args) -> None:
             "--dp (data parallelism over torch.distributed) is not ported "
             "yet: ROADMAP.md section 1.5, data parallel and multi-host"
             + ("; with --ep, section 1.6 item 5" if ep else ""))
-    if args.reuse_packs or args.loader_workers != 1:
+    if args.device_epoch or args.steps_per_call != 1:
         raise NotImplementedError(
-            "--reuse_packs and --loader_workers are not ported yet: "
-            "ROADMAP.md section 1.3, the loader's other modes"
-            + ("; with --ep, section 1.6 item 4" if ep else ""))
+            "--device_epoch and --steps_per_call are not ported yet: "
+            "ROADMAP.md section 1.3, the loader's other modes")
 
 
 def run_name(args) -> str:
@@ -188,9 +205,11 @@ def train(args) -> dict:
         ep_rdma_exchange=args.ep_rdma,
         ep_overlap=args.ep_overlap,
     )
-    print("Featurizing training set...")
-    train_data.prefeaturize()
-    val_data.prefeaturize()
+    workers = (args.num_workers if args.num_workers is not None
+               else max(1, (os.cpu_count() or 2) // 2))
+    print(f"Featurizing training set ({workers} workers)...")
+    train_data.prefeaturize(num_workers=workers, cache=True)
+    val_data.prefeaturize(num_workers=workers, cache=True)
     graphs = [train_data.graph(i) for i in range(len(train_data))]
     spec = plan_spec(graphs, te=args.pack_te, tn=args.pack_tn,
                      tb=args.pack_tb)
@@ -206,7 +225,8 @@ def train(args) -> dict:
         model_save_dir=args.save_path, seed=args.seed, logger=logger,
         log_histograms=args.log_histograms, resume_from=args.resume,
         ckpt_every_steps=args.ckpt_every_steps, device=device, n_ep=args.ep,
-        ep_te=args.ep_te, ep_tn=args.ep_tn)
+        ep_te=args.ep_te, ep_tn=args.ep_tn,
+        loader_workers=args.loader_workers, reuse_packs=args.reuse_packs)
     return trainer.train()
 
 

@@ -1,7 +1,8 @@
 """Static-shape block-dense graph packing (numpy, host side).
 
-A copy of ``cgr_mpnn_3d_tpu/data/batch.py`` (the Python packer; the native
-C++ packer is not part of the port) plus :func:`to_device`.  Graphs are
+A copy of ``cgr_mpnn_3d_tpu/data/batch.py`` (the Python packer, the twin of
+``native/packer.cpp``, which packs the same batches bit for bit) plus
+:func:`to_device`.  Graphs are
 bin-packed into fixed-size *packs* (TE edges x TN nodes x TB graphs per
 pack); a batch is P packs.
 

@@ -1,13 +1,31 @@
 """Host-side batch loader: shuffle -> featurize (cached) -> pack.
 
-The counterpart of ``cgr_mpnn_3d_tpu/data/loader.py`` with the serial Python
-packer: every batch has identical array shapes, a window of graphs that
-overflows its packs shrinks and carries the remainder into the next batch,
-and the shuffle order comes from ``seed + epoch`` -- so the windows are the
-same as the JAX package's loader for the same dataset and seed.  A
-background thread (:meth:`PackedLoader.prefetch`) overlaps packing with the
-device's work.  The JAX loader's native packer, worker threads, reused
-packs and window plan are not ported yet.
+The counterpart of ``cgr_mpnn_3d_tpu/data/loader.py``: every batch has
+identical array shapes, a window of graphs that overflows its packs shrinks
+(n -> int(n*0.8)) and carries the remainder into the next batch, and the
+shuffle order comes from ``seed + epoch`` -- so the windows are the JAX
+package's for the same dataset and seed.
+
+* **Packer.**  The native packer (``native/``) unless ``use_native=False``
+  picks the Python twin (``data.batch``); both give the same batches bit
+  for bit.  ``use_native=None`` means native, and a library that does not
+  build raises (the JAX loader falls back to Python there).
+* **Workers.**  ``workers`` is accepted for the JAX command line's
+  ``--loader_workers`` and packs serially: the JAX loader's speculative
+  thread pool gives the serial batches bit for bit, and on the measured
+  workload it was slower than one thread (PERF.md section 6), while
+  :meth:`PackedLoader.prefetch` already overlaps packing with the device.
+* **Reused packs.**  ``reuse_packs`` packs the epoch once, from the epoch-0
+  order (on the native path in one ``pack_epoch_native`` call), and later
+  epochs emit the same batches in an order shuffled from ``seed + epoch``.
+* :meth:`PackedLoader.prefetch` packs on a background thread.
+
+Windows are always sorted big graphs first (first-fit-decreasing); the JAX
+loader's ``sort_within_batch`` has no other value in use.  Left out:
+``round_packs_to``, which exists for the JAX loader's ``--pack_q``
+sub-packs, which no Hopper kernel wants (ROADMAP.md section 3), and
+``plan_windows``, which only the JAX ``--device_epoch`` mode calls
+(ROADMAP.md section 1.3).
 """
 
 from __future__ import annotations
@@ -38,11 +56,19 @@ class PackedLoader:
     shuffle: bool = False
     seed: int = 0
     drop_last: bool = False
+    use_native: bool | None = None   # None = native (raises if it fails)
+    # the JAX loader's packing threads; accepted, and packing is serial
+    workers: int = 1
+    # pack the epoch once and reuse its batches in later epochs, shuffling
+    # batch order instead of graph order
+    reuse_packs: bool = False
 
     def __post_init__(self):
         packs = max(1, int(np.ceil(self.batch_size / self.spec.tb)))
         self.spec = self.spec.with_packs(packs)
+        self.use_native = self.use_native is None or bool(self.use_native)
         self._epoch = 0
+        self._pack_cache: list[PackedGraphBatch] | None = None
 
     def __len__(self) -> int:
         return int(np.ceil(len(self.dataset) / self.batch_size))
@@ -60,7 +86,10 @@ class PackedLoader:
         return idx
 
     def _pack_window(self, rows: list[int]) -> tuple[PackedGraphBatch, int]:
-        """Pack as many of ``rows`` as fit; returns (batch, n_consumed)."""
+        """Pack as many of ``rows`` as fit; returns (batch, n_consumed).
+
+        Native path: the shrink loop probes with the placement-only
+        ``place_graphs_native`` and packs once at the surviving n."""
         n = len(rows)
         while True:
             # big graphs first (first-fit-decreasing); row_ids keep the
@@ -68,18 +97,71 @@ class PackedLoader:
             window = sorted(rows[:n],
                             key=lambda i: -self.dataset.graph(i).num_edges)
             graphs = [self.dataset.graph(i) for i in window]
+            if self.use_native:
+                from .. import native
+                if not native.place_graphs_native(graphs, self.spec):
+                    if n == 1:
+                        raise ValueError(native.last_error())
+                    n = max(1, int(n * 0.8))
+                    continue
+                pack = native.pack_graphs_native
+            else:
+                pack = pack_graphs
             labels = [self.dataset.labels[i] for i in window]
             extra = ([self.dataset.extra_feats(i) for i in window]
                      if self.dataset.use_npz else None)
             try:
-                return pack_graphs(graphs, labels, self.spec, extra,
-                                   row_ids=window), n
+                return pack(graphs, labels, self.spec, extra,
+                            row_ids=window), n
             except ValueError:
-                if n == 1:
+                if self.use_native or n == 1:
                     raise
                 n = max(1, int(n * 0.8))
 
     def __iter__(self) -> Iterator[PackedGraphBatch]:
+        if not self.reuse_packs:
+            yield from self._iter_pack()
+            return
+        if self._pack_cache is None:
+            # the cache comes from the epoch-0 order, so a resumed run
+            # rebuilds the same batches whatever epoch it resumes into
+            saved = self._epoch
+            self._epoch = 0
+            try:
+                self._pack_cache = self._build_cache()
+            finally:
+                self._epoch = saved
+        yield from self._iter_cached()
+
+    def _build_cache(self) -> list[PackedGraphBatch]:
+        """Pack the whole epoch for reuse: on the native path one
+        ``pack_epoch_native`` call, bit for bit the batches of per-window
+        iteration."""
+        if not self.use_native:
+            return list(self._iter_pack())
+        from .. import native
+        order = self._order().tolist()
+        return native.pack_epoch_native(
+            [self.dataset.graph(i) for i in order],
+            [self.dataset.labels[i] for i in order], self.spec,
+            self.batch_size,
+            extra_node_feats=([self.dataset.extra_feats(i) for i in order]
+                              if self.dataset.use_npz else None),
+            row_ids=order, sort_within=True,
+            drop_last=self.drop_last)
+
+    def _iter_cached(self) -> Iterator[PackedGraphBatch]:
+        """The cached batches in an order shuffled from seed + epoch."""
+        order = np.arange(len(self._pack_cache))
+        if self.shuffle:
+            rng = np.random.default_rng(self.seed + self._epoch)
+            rng.shuffle(order)
+        for i in order:
+            yield self._pack_cache[i]
+
+    def _iter_pack(self) -> Iterator[PackedGraphBatch]:
+        """Pack every window; an overflow carries its remainder into the
+        next one."""
         order = [int(i) for i in self._order()]
         pending: list[int] = []
         pos = 0

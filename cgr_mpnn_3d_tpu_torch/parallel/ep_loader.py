@@ -16,9 +16,16 @@ here).
   (1 node, 0 edges).
 * **Order.**  Shuffled from ``seed + epoch`` as the JAX loader does, so both
   see the same windows; :meth:`prefetch` packs on a background thread.
+* **Reused packs.**  ``reuse_packs`` builds the epoch's items once from the
+  epoch-0 order, again while the pins grow during a build (at most 4
+  builds, so every item shares the final spec), and emits them in an order
+  shuffled from ``seed + epoch``.
+* **Workers.**  As in JAX, ``workers`` packs the ``n_dp`` windows of a
+  group on a thread pool only when ``n_dp > 1``; at the port's one group it
+  is accepted and changes nothing.
 
-Not ported (ROADMAP.md): ``reuse_packs``, ``workers``, ``n_dp > 1`` (each
-raises), and the flat v2 ``EPLoader``.
+Not ported (ROADMAP.md): ``n_dp > 1`` (raises) and the flat v2
+``EPLoader``.
 """
 
 from __future__ import annotations
@@ -62,17 +69,10 @@ class EPPackLoader:
             raise NotImplementedError(
                 "the port's EP loader runs one data-parallel group (n_dp=1); "
                 "--dp and torch.distributed are queued in ROADMAP.md")
-        if self.reuse_packs:
-            raise NotImplementedError(
-                "reuse_packs under edge partitioning is not ported yet "
-                "(ROADMAP.md)")
-        if self.workers != 1:
-            raise NotImplementedError(
-                "loader workers under edge partitioning are not ported yet "
-                "(ROADMAP.md)")
         if len(self.dataset) == 0:
             raise ValueError("empty dataset")
         self._epoch = 0
+        self._cache: list | None = None
         self._dummy = self._make_dummy()
         if self.spec is None:
             for w in self._prescan_windows():
@@ -131,6 +131,34 @@ class EPPackLoader:
         return [self._window(order[i * bs:(i + 1) * bs]) for i in range(n)]
 
     def __iter__(self):
+        if not self.reuse_packs:
+            yield from self._iter_build()
+            return
+        if self._cache is None:
+            saved = self._epoch
+            self._epoch = 0
+            try:
+                for _ in range(4):
+                    before = self.spec
+                    items = list(self._iter_build())
+                    if self.spec == before:
+                        break
+                    # the pins grew during the build, so its items mix
+                    # specs: build again at the (monotone) final pins
+                else:
+                    raise RuntimeError(
+                        "EP pins failed to stabilize over 4 builds")
+            finally:
+                self._epoch = saved
+            self._cache = items
+        order = np.arange(len(self._cache))
+        if self.shuffle:
+            rng = np.random.default_rng(self.seed + self._epoch)
+            rng.shuffle(order)
+        for i in order:
+            yield self._cache[i]
+
+    def _iter_build(self):
         order = list(self._order())
         bs = self.batch_size
         windows = [self._window(order[i:i + bs])

@@ -21,7 +21,7 @@ from ..models.cgr_mpnn import CGRMPNN, CGRMPNNConfig, apply
 from ..utils.device import resolve_device
 from .checkpoint import load_checkpoint, restore_into
 
-__all__ = ["load_model", "evaluate", "predict", "parity_plot"]
+__all__ = ["load_model", "model_config", "evaluate", "predict", "parity_plot"]
 
 
 def load_model(ckpt_path: str | Path, device: str | torch.device = "cuda"
@@ -29,8 +29,16 @@ def load_model(ckpt_path: str | Path, device: str | torch.device = "cuda"
     """Rebuild (model on ``device``, config, metadata) from a checkpoint's
     npz + sidecar; leaves after the params (optimizer state) are skipped."""
     leaves, meta = load_checkpoint(ckpt_path)
+    cfg = model_config(meta)
+    model = CGRMPNN(cfg)
+    restore_into(model, leaves[:len(model.state_dict())])
+    return model.to(resolve_device(device)).eval(), cfg, meta
+
+
+def model_config(meta: dict) -> CGRMPNNConfig:
+    """The model configuration a checkpoint's metadata describes."""
     mcfg = meta["model"]
-    cfg = CGRMPNNConfig(
+    return CGRMPNNConfig(
         num_node_features=int(mcfg["num_node_features"]),
         num_edge_features=int(mcfg["num_edge_features"]),
         depth=int(mcfg["depth"]),
@@ -41,9 +49,6 @@ def load_model(ckpt_path: str | Path, device: str | torch.device = "cuda"
         pooling=mcfg.get("pooling", "add"),
         use_learnable_skip=bool(mcfg.get("use_learnable_skip", False)),
     )
-    model = CGRMPNN(cfg)
-    restore_into(model, leaves[:len(model.state_dict())])
-    return model.to(resolve_device(device)).eval(), cfg, meta
 
 
 def predict(model: CGRMPNN, dataset: ChemDataset, spec: PackSpec,

@@ -41,8 +41,14 @@
               ``ep_overlap`` and ``ep_rdma_exchange``; the gradient
               histograms are skipped there, as in JAX.
 
-Left out: data parallelism, multi-host, device-resident epochs, several
-steps per call, reused packs and loader workers (ROADMAP.md).
+* loaders     ``reuse_packs`` packs each loader's epoch once and reuses
+              its batches in later epochs (batch order shuffled from seed
+              + epoch); ``loader_workers`` is accepted and packing stays
+              serial (``data/loader.py``); both reach the EP loader too, as
+              in JAX (``trainer.py:300-326``).
+
+Left out: data parallelism, multi-host, device-resident epochs and several
+steps per call (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -121,25 +127,33 @@ class RxnGraphTrainer:
     n_ep: int = 1
     ep_te: int = 128
     ep_tn: int = 72
+    # the loaders' packing threads and cross-epoch pack reuse
+    loader_workers: int = 1
+    reuse_packs: bool = False
 
     def __post_init__(self):
         self.device = resolve_device(self.device)
         self.n_ep = max(1, self.n_ep)
+        modes = dict(reuse_packs=self.reuse_packs,
+                     workers=self.loader_workers)
         if self.n_ep > 1:
             self.train_loader = EPPackLoader(self.train_data, self.n_ep,
                                              batch_size=self.batch_size,
                                              shuffle=True, seed=self.seed,
-                                             te=self.ep_te, tn=self.ep_tn)
+                                             te=self.ep_te, tn=self.ep_tn,
+                                             **modes)
             self.val_loader = EPPackLoader(self.val_data, self.n_ep,
                                            batch_size=self.batch_size,
                                            shuffle=False, te=self.ep_te,
-                                           tn=self.ep_tn)
+                                           tn=self.ep_tn, **modes)
         else:
             self.train_loader = PackedLoader(self.train_data, self.spec,
                                              batch_size=self.batch_size,
-                                             shuffle=True, seed=self.seed)
+                                             shuffle=True, seed=self.seed,
+                                             **modes)
             self.val_loader = PackedLoader(self.val_data, self.spec,
-                                           batch_size=self.batch_size)
+                                           batch_size=self.batch_size,
+                                           **modes)
         # the EP steps, keyed by ("t" | "e", the loader's spec)
         self._ep_steps: dict = {}
         self.model = init_params(self.cfg,

@@ -30,19 +30,36 @@ Phases (any failure raises, and the script exits non-zero):
    7-block grid, at f32 and bf16, eval and train mode, and timed in
    alternating rounds (with ``--parent``, beside the earlier commit's
    K3f);
-5. serving: a seeded full-width checkpoint in the ``.npz`` + JSON format
+5. serving: the native C++ featurizer and packer on the host first
+   (``native_phase``: featurization of the corpus and the demo set against
+   the Python twin at NATIVE_TOL, ``pack_graphs_native`` /
+   ``place_graphs_native`` and the reused-packs cache ``pack_epoch_native``
+   against the Python packer, per-window iteration and two packing
+   workers bit for bit, us a reaction and ms an epoch of each); then a
+   seeded full-width checkpoint in the ``.npz`` + JSON format
    serves ``examples/demo.csv`` (with synthetic descriptors) through
    ``activation_energy_prediction(device="cuda")`` once as a batch and as 10
    single-reaction requests; the launch count of the kernel must rise, and
    the predictions must match the same entry point with ``device="cpu"``;
-   request latency and served graphs/s;
+   request latency and served graphs/s; the same requests with native
+   featurization and the Python twin in 3 alternating rounds
+   (``serve_native``: latency, corpus graphs/s, predictions within REL_TOL,
+   busy share of each), the corpus request's stages and ``load_model``'s
+   parts (``load_checkpoint``, the model build, ``restore_into``,
+   ``.to(device)``);
 6. training: ``cli.train.main`` with the README's model and flags, 3 epochs
    on the 300-reaction corpus (synthetic descriptors) on the card, then 2 on
    the CPU; the per-epoch RMSEs must agree, every training step must be one
    launch of the training kernel, and the gradient histograms must go
    through the VJP kernel; then a resumed run (1 epoch, resume, 2nd epoch)
-   must equal a straight 2-epoch run bit for bit; steps/s and the card's
-   busy share of a training step under torch.profiler;
+   must equal a straight 2-epoch run bit for bit; the loader's modes
+   (``train_modes_phase``: ``--reuse_packs --loader_workers 2
+   --num_workers 2`` on the card against the CPU, against
+   ``--loader_workers 1`` bit for bit (the port packs serially whatever
+   the flag says) and beside the run without
+   ``--reuse_packs``, the busy share of trainer epochs with and without
+   reused packs, ``--ep 2 --reuse_packs`` card against CPU); steps/s and
+   the card's busy share of a training step under torch.profiler;
 7. the layered-kernel configuration (``fuse_whole_model=False``): the
    gather-linear K5 (edge_init and readout), the conv stack K4 (eval and
    train mode) and the ELL gather-sum K7 (pooling, its transposed
@@ -224,6 +241,7 @@ PEAK_INT8_OPS = 1979e12   # H100 SXM int8 tensor cores, dense (data sheet)
 PEAK_BYTES = 3.35e12    # H100 SXM HBM3 bytes/s (data sheet)
 DEVICE = "cuda"
 TRAIN_TOL = 1e-3        # card vs CPU per-epoch RMSE, relative
+NATIVE_TOL = 1e-6       # native vs Python features (tests/test_native.py)
 README_FLAGS = ["--name", "CGR-MPNN-3D", "-d", "4", "--hidden_sizes", "400",
                 "--dropout_ps", "0.1", "-af", "ReLU", "-lr", "1e-4",
                 "--weight_decay", "1e-5", "-bs", "64", "-g", "0.9"]
@@ -1544,7 +1562,279 @@ def serve(tmp: Path, seed: int, card: str) -> dict:
               f"{dev_ms:.3f} ms ({100 * dev_ms / wall_ms:.1f}%), top device "
               f"time {top} [{card}]")
     return dict(launches=launches, latency_ms=latency_ms,
-                graphs_per_s=n / wall)
+                graphs_per_s=n / wall, ckpt=ckpt, singles=singles)
+
+
+def _smiles_of(path: Path) -> list[str]:
+    with open(path, newline="") as f:
+        return [row[0] for row in list(csv.reader(f))[1:] if row]
+
+
+def _same_batches(a: list, b: list) -> bool:
+    return len(a) == len(b) and all(
+        x._fields == y._fields and all(
+            np.asarray(u).dtype == np.asarray(v).dtype
+            and np.array_equal(np.asarray(u), np.asarray(v))
+            for u, v in zip(x, y)) for x, y in zip(a, b))
+
+
+def native_phase(tmp: Path, seed: int, card: str) -> dict:
+    """The native C++ featurizer and packer on the card's host against
+    their Python twins: featurization of the corpus and the demo set (index
+    arrays equal, features within NATIVE_TOL), ``pack_graphs_native`` and
+    ``place_graphs_native`` against ``pack_graphs`` / ``place_graphs`` on
+    the corpus with descriptors and row ids, ``pack_epoch_native`` (the
+    reused-packs cache) against per-window iteration, native and Python,
+    and parallel packing against serial, all bit for bit; featurize us a
+    reaction and epoch pack ms of each, alternating over 3 rounds."""
+    from cgr_mpnn_3d_tpu_torch import native
+    from cgr_mpnn_3d_tpu_torch.chem import RxnGraph
+    from cgr_mpnn_3d_tpu_torch.data import (ChemDataset, PackedLoader,
+                                            pack_graphs, packs_needed,
+                                            place_graphs, plan_spec)
+    from cgr_mpnn_3d_tpu_torch.data.descriptors import \
+        synthetic_descriptors_npz
+    lib = native.build()
+    # the g++ build a fresh checkout pays once (the package's own library
+    # is built by the phases before this one)
+    t0 = time.perf_counter()
+    native.build(build_dir=tmp / "native_build")
+    build_s = time.perf_counter() - t0
+    corpus = ROOT / "tests" / "corpus_reactions.csv"
+    demo = ROOT / "examples" / "demo.csv"
+    out: dict = {"phase": "native", "card": card, "library": lib.name,
+                 "build_s": build_s}
+    for name, path in (("corpus", corpus), ("demo", demo)):
+        smiles = _smiles_of(path)
+        worst, bits = 0.0, True
+        for smi in smiles:
+            a, b = native.featurize(smi), RxnGraph(smi).arrays
+            for f in ("senders", "receivers", "rev_edge_index"):
+                check(np.array_equal(getattr(a, f), getattr(b, f)),
+                      f"native {f} differs from Python on {smi}")
+            for f in ("node_feats", "edge_feats"):
+                x, y = getattr(a, f), getattr(b, f)
+                check(x.shape == y.shape, f"native {f} shape on {smi}")
+                if x.size:
+                    worst = max(worst, float(np.abs(x - y).max()))
+                bits = bits and np.array_equal(x, y)
+        check(worst <= NATIVE_TOL, f"native features differ from Python "
+                                   f"by {worst:.3e} on {name}")
+        us = {"native": [], "python": []}
+        for _ in range(3):
+            for kind, fn in (("native", native.featurize),
+                             ("python", lambda smi: RxnGraph(smi).arrays)):
+                t0 = time.perf_counter()
+                for smi in smiles:
+                    fn(smi)
+                us[kind].append((time.perf_counter() - t0) * 1e6
+                                / len(smiles))
+        out[name] = {"reactions": len(smiles), "max_abs_err": worst,
+                     "bit_for_bit": bits, "featurize_us": us,
+                     "speedup": statistics.median(us["python"])
+                     / statistics.median(us["native"])}
+
+    # one window: all 300 corpus graphs with descriptor blocks and row ids
+    graphs = [native.featurize(smi) for smi in _smiles_of(corpus)]
+    rng = np.random.default_rng(seed)
+    extra = [rng.random((g.num_nodes, 64)).astype(np.float32)
+             for g in graphs]
+    labels = rng.normal(size=len(graphs)).astype(np.float32)
+    rows = rng.permutation(10 * len(graphs))[:len(graphs)]
+    spec = plan_spec(graphs)
+    p = packs_needed(graphs, spec)
+    while not place_graphs(graphs, spec.with_packs(p)):
+        check(not native.place_graphs_native(graphs, spec.with_packs(p)),
+              f"native placement accepts {p} packs, Python refuses")
+        p += 1
+    check(native.place_graphs_native(graphs, spec.with_packs(p)),
+          f"native placement refuses {p} packs, Python accepts")
+    spec = spec.with_packs(p)
+    pack_ms = {"native": [], "python": []}
+    for _ in range(3):
+        for kind, fn in (("native", native.pack_graphs_native),
+                         ("python", pack_graphs)):
+            t0 = time.perf_counter()
+            b = fn(graphs, labels, spec, extra, row_ids=rows)
+            pack_ms[kind].append((time.perf_counter() - t0) * 1e3)
+            out.setdefault("window", {})[kind] = b
+    check(_same_batches([out["window"]["native"]],
+                        [out["window"]["python"]]),
+          "pack_graphs_native differs from pack_graphs")
+    out["window"] = {"graphs": len(graphs), "packs": p, "ms": pack_ms}
+
+    # the epoch: the reused-packs cache in one native call against
+    # per-window iteration (native and Python)
+    synthetic_descriptors_npz(corpus, tmp / "native.npz", 64, seed=seed)
+    ds = {kind: ChemDataset(str(corpus), data_npz_path=str(tmp / "native.npz"),
+                            use_native=kind == "native")
+          for kind in ("native", "python")}
+    for d in ds.values():
+        d.prefeaturize()
+    espec = plan_spec([ds["native"].graph(i) for i in range(300)])
+    kw = dict(batch_size=64, shuffle=True, seed=seed)
+    epoch_ms = {"pack_epoch_native": [], "native": [], "python": []}
+    got = {}
+    for _ in range(3):
+        t0 = time.perf_counter()
+        ld = PackedLoader(ds["native"], espec, reuse_packs=True, **kw)
+        next(iter(ld))
+        epoch_ms["pack_epoch_native"].append(
+            (time.perf_counter() - t0) * 1e3)
+        got["pack_epoch_native"] = ld._pack_cache
+        for kind, make in (
+                ("native", lambda: PackedLoader(ds["native"], espec, **kw)),
+                ("python", lambda: PackedLoader(ds["python"], espec,
+                                                use_native=False, **kw))):
+            t0 = time.perf_counter()
+            got[kind] = list(make().prefetch())
+            epoch_ms[kind].append((time.perf_counter() - t0) * 1e3)
+    for kind in ("native", "python"):
+        check(_same_batches(got["pack_epoch_native"], got[kind]),
+              f"pack_epoch_native differs from {kind} per-window packing")
+    out["epoch"] = {"windows": len(got["native"]), "p": ld.spec.p,
+                    "ms": epoch_ms}
+    print(f"native: {lib.name}, a fresh build {build_s:.3f} s; featurize vs "
+          f"Python: corpus max abs err {out['corpus']['max_abs_err']:.3e} "
+          f"(bit for bit {out['corpus']['bit_for_bit']}), demo "
+          f"{out['demo']['max_abs_err']:.3e}; us a reaction (3 rounds) "
+          f"native {out['corpus']['featurize_us']['native']}, Python "
+          f"{out['corpus']['featurize_us']['python']} "
+          f"({out['corpus']['speedup']:.1f}x); pack_graphs_native = "
+          f"pack_graphs on {len(graphs)} graphs in {p} packs, ms {pack_ms}; "
+          f"pack_epoch_native = per-window native and Python "
+          f"over {len(got['native'])} windows, epoch ms {epoch_ms} [{card}]")
+    print(json.dumps(out, default=float))
+    return out
+
+
+def load_model_split(ckpt: Path, repeats: int = 5) -> dict:
+    """Median ms of ``load_model``'s parts (``train/evaluate.py``): reading
+    the checkpoint, building the model, ``restore_into`` and ``.to()``,
+    and of the whole call, over ``repeats`` rounds."""
+    import torch
+    from cgr_mpnn_3d_tpu_torch.models import CGRMPNN
+    from cgr_mpnn_3d_tpu_torch.train import (load_checkpoint, load_model,
+                                             restore_into)
+    from cgr_mpnn_3d_tpu_torch.train.evaluate import model_config
+    parts: dict = {k: [] for k in ("load_checkpoint", "model build",
+                                   "restore_into", ".to(device)",
+                                   "load_model")}
+    for _ in range(repeats):
+        t0 = time.perf_counter()
+        leaves, meta = load_checkpoint(ckpt)
+        t1 = time.perf_counter()
+        model = CGRMPNN(model_config(meta))
+        t2 = time.perf_counter()
+        restore_into(model, leaves[:len(model.state_dict())])
+        t3 = time.perf_counter()
+        model.to(DEVICE).eval()
+        torch.cuda.synchronize()
+        t4 = time.perf_counter()
+        load_model(ckpt, DEVICE)
+        torch.cuda.synchronize()
+        t5 = time.perf_counter()
+        for k, a, b in (("load_checkpoint", t0, t1), ("model build", t1, t2),
+                        ("restore_into", t2, t3), (".to(device)", t3, t4),
+                        ("load_model", t4, t5)):
+            parts[k].append((b - a) * 1e3)
+    return {k: statistics.median(v) for k, v in parts.items()}
+
+
+def serve_native(tmp: Path, srv: dict, card: str) -> dict:
+    """The serving entry point with native featurization against the
+    Python twin (``use_native=True`` / ``False``), alternating over 3
+    rounds: 10 single requests and the corpus request each, predictions
+    within REL_TOL of each other; the device busy share of a corpus
+    request of each; the corpus request's stages and ``load_model``'s
+    parts."""
+    import torch
+    from cgr_mpnn_3d_tpu_torch.cli.predict import activation_energy_prediction
+    from cgr_mpnn_3d_tpu_torch.data import ChemDataset, PackedLoader, plan_spec
+    from cgr_mpnn_3d_tpu_torch.ops import fused_model as fm
+    from cgr_mpnn_3d_tpu_torch.train import load_model, predict
+    corpus = ROOT / "tests" / "corpus_reactions.csv"
+    corpus_npz = tmp / "corpus.npz"
+
+    def request(csv_path, npz_path, use_native):
+        t0 = time.perf_counter()
+        res = activation_energy_prediction(
+            str(csv_path), output_results=str(tmp / "results.txt"),
+            model_path=str(srv["ckpt"]), npz_path=str(npz_path),
+            device=DEVICE, use_native=use_native)
+        torch.cuda.synchronize()
+        return (np.array([r["Activation Energy"] for r in res]),
+                time.perf_counter() - t0)
+
+    kinds = {"native": True, "python": False}
+    latency = {k: [] for k in kinds}
+    gps = {k: [] for k in kinds}
+    preds = {}
+    counts = {k: 0 for k in kinds}
+    # the main path: counts are zeroed just before it and read just after
+    fm.launches = 0
+    for _ in range(3):
+        for kind, use_native in kinds.items():
+            before = fm.launches
+            single = [request(c, z, use_native) for c, z in srv["singles"]]
+            whole, wall = request(corpus, corpus_npz, use_native)
+            counts[kind] += fm.launches - before
+            latency[kind].append(
+                statistics.median(t for _, t in single) * 1e3)
+            gps[kind].append(len(whole) / wall)
+            preds[kind] = np.concatenate([whole, *(v for v, _ in single)])
+    launches = fm.launches
+    check(launches == sum(counts.values()) and
+          counts["native"] == counts["python"] >= 3 * 11,
+          f"forward-kernel launches {counts} (total {launches}) for 3 "
+          f"rounds of 10 single requests and the corpus request each")
+    check(all(np.isfinite(v).all() and v.shape == (310,)
+              for v in preds.values()), "predictions are not finite")
+    scale = max(float(np.abs(preds["python"]).max()), 1e-30)
+    rel = float(np.abs(preds["native"] - preds["python"]).max()) / scale
+    check(rel <= REL_TOL, f"native vs Python predictions differ by "
+                          f"{rel:.3e}")
+    busy = {}
+    for kind, use_native in kinds.items():
+        wall_ms, dev_ms, top = device_busy(
+            lambda: request(corpus, corpus_npz, use_native))
+        busy[kind] = {"wall_ms": wall_ms, "device_ms": dev_ms,
+                      "busy_pct": 100 * dev_ms / wall_ms}
+    # the corpus request's stages, native featurization
+    stages: dict = {k: [] for k in ("load_model", "read + featurize",
+                                    "pack (loader)", "predict")}
+    for _ in range(3):
+        t0 = time.perf_counter()
+        model, _, _ = load_model(srv["ckpt"], DEVICE)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        ds = ChemDataset(str(corpus), data_npz_path=str(corpus_npz))
+        ds.prefeaturize()
+        t2 = time.perf_counter()
+        spec = plan_spec([ds.graph(i) for i in range(len(ds))])
+        list(PackedLoader(ds, spec, batch_size=64))
+        t3 = time.perf_counter()
+        predict(model, ds, spec, 64, DEVICE)
+        torch.cuda.synchronize()
+        t4 = time.perf_counter()
+        for k, a, b in (("load_model", t0, t1), ("read + featurize", t1, t2),
+                        ("pack (loader)", t2, t3), ("predict", t3, t4)):
+            stages[k].append((b - a) * 1e3)
+    stages = {k: statistics.median(v) for k, v in stages.items()}
+    split = load_model_split(srv["ckpt"])
+    out = {"phase": "serve native vs python", "card": card,
+           "latency_ms": latency, "graphs_per_s": gps,
+           "rel_err": rel, "launches": launches, "busy": busy,
+           "corpus_stages_ms": stages, "load_model_ms": split}
+    print(f"serve native vs Python (3 alternating rounds): single-request "
+          f"latency median ms native {latency['native']}, Python "
+          f"{latency['python']}; corpus graphs/s native {gps['native']}, "
+          f"Python {gps['python']}; predictions rel err {rel:.3e}; busy "
+          f"native {busy['native']['busy_pct']:.2f}%, Python "
+          f"{busy['python']['busy_pct']:.2f}%; corpus request stages ms "
+          f"{stages}; load_model split ms {split} [{card}]")
+    print(json.dumps(out, default=float))
+    return out
 
 
 def training_data(tmp: Path, seed: int) -> Path:
@@ -1639,6 +1929,142 @@ def train_phase(tmp: Path, seed: int, card: str) -> dict:
           f"bit for bit ({len(la)} leaves: params, Adam moments, step, "
           f"seed stream)")
     return trn
+
+
+def _cli_run(run_dir: Path, data: Path, seed: int, device: str,
+             epochs: int, *extra: str) -> dict:
+    """One ``cli.train.main`` run with the README's flags and ``--skip_test``
+    in its own working directory ``run_dir`` (checkpoints, runs/ log);
+    adds the StepTimer's steps/s of each epoch and the wall seconds."""
+    import torch
+    run_dir.mkdir(parents=True, exist_ok=True)
+    cwd = os.getcwd()
+    os.chdir(run_dir)
+    try:
+        t0 = time.perf_counter()
+        res = train_cli(run_dir, data, seed, device, epochs, "saved",
+                        "--skip_test", *extra)
+        if device != "cpu":
+            torch.cuda.synchronize()
+        res["wall_s"] = time.perf_counter() - t0
+    finally:
+        os.chdir(cwd)
+    res["steps_per_s"] = [json.loads(line).get("steps_per_s")
+                          for f in (run_dir / "runs").glob("*.jsonl")
+                          for line in f.read_text().splitlines()
+                          if '"train_loss"' in line]
+    return res
+
+
+def train_modes_phase(tmp: Path, seed: int, card: str) -> dict:
+    """The training entry point with the loader's modes: ``--reuse_packs
+    --loader_workers 2 --num_workers 2`` on fresh splits (featurized on two
+    threads, then from the feature cache) on the card against the same
+    flags on the CPU (TRAIN_TOL), against ``--loader_workers 1`` (losses
+    bit for bit) and beside the run without ``--reuse_packs``; the card's
+    busy share of three epochs of the trainer with and without reused
+    packs; then ``--ep 2 --reuse_packs`` on the card against the CPU."""
+    import torch
+    from cgr_mpnn_3d_tpu_torch.data import ChemDataset, plan_spec
+    from cgr_mpnn_3d_tpu_torch.models import CGRMPNNConfig
+    from cgr_mpnn_3d_tpu_torch.ops import fused_model as fm
+    from cgr_mpnn_3d_tpu_torch.train import RxnGraphTrainer
+    data = training_data(tmp / "modes", seed)
+    modes = ("--reuse_packs", "--num_workers", "2")
+    # the main path: counts are zeroed just before it and read just after
+    fm.launches = fm.train_launches = fm.vjp_launches = 0
+    reuse2 = _cli_run(tmp / "modes" / "reuse_w2", data, seed, DEVICE, 3,
+                      *modes, "--loader_workers", "2")
+    launches = dict(fwd=fm.launches, train=fm.train_launches)
+    check(launches["train"] == reuse2["steps"] > 0,
+          f"{launches['train']} training-kernel launches for "
+          f"{reuse2['steps']} steps with --reuse_packs")
+    check(launches["fwd"] > 0, "validation launched no forward kernel")
+    check(all((data / f"{s}.csv.featcache.npz").exists()
+              for s in ("train", "val")), "no feature cache was written")
+    cpu = _cli_run(tmp / "modes" / "cpu", data, seed, "cpu", 2, *modes,
+                   "--loader_workers", "2")
+    rel = max(abs(a - b) / abs(b) for key in ("train_losses", "val_losses")
+              for a, b in zip(reuse2[key], cpu[key]))
+    check(rel <= TRAIN_TOL, f"--reuse_packs card vs CPU RMSE differ by "
+                            f"{rel:.3e}")
+    reuse1 = _cli_run(tmp / "modes" / "reuse_w1", data, seed, DEVICE, 3,
+                      *modes, "--loader_workers", "1")
+    same = all(reuse1[k] == reuse2[k]
+               for k in ("train_losses", "val_losses", "steps"))
+    check(same, f"--loader_workers 2 and 1 differ: {reuse2['train_losses']}"
+                f" against {reuse1['train_losses']}")
+    packed = _cli_run(tmp / "modes" / "packed", data, seed, DEVICE, 3,
+                      "--num_workers", "2")
+
+    # busy share of three epochs of training, packs reused or not
+    ds = ChemDataset(str(data / "train.csv"),
+                     data_npz_path=str(data / "train.npz"))
+    ds.prefeaturize(num_workers=2, cache=True)
+    spec = plan_spec([ds.graph(i) for i in range(len(ds))])
+    cfg = CGRMPNNConfig(num_node_features=ds.num_node_features,
+                        num_edge_features=ds.num_edge_features, depth=4,
+                        hidden_sizes=(400,) * 4, dropout_ps=(0.1,) * 4)
+    epochs = {}
+    for _ in range(2):
+        for reuse in (False, True):
+            tr = RxnGraphTrainer(name="modes", cfg=cfg, train_data=ds,
+                                 val_data=ds, spec=spec, lr=1e-4,
+                                 batch_size=64, seed=seed,
+                                 model_save_dir=str(tmp / "modes" / "tr"),
+                                 device=DEVICE, reuse_packs=reuse)
+            tr._train_epoch(0)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for e in (1, 2, 3):
+                tr._train_epoch(e)
+            torch.cuda.synchronize()
+            rate = 3 * len(tr.train_loader) / (time.perf_counter() - t0)
+            wall_ms, dev_ms, _ = device_busy(
+                lambda: [tr._train_epoch(e) for e in (4, 5, 6)])
+            epochs.setdefault(reuse, []).append(
+                {"steps_per_s": rate, "busy_pct": 100 * dev_ms / wall_ms})
+
+    ep_zero()
+    ep_card = _cli_run(tmp / "modes" / "ep_card", data, seed, DEVICE, 2,
+                       "--ep", "2", "--reuse_packs")
+    ep_launches = nonzero(ep_counts())
+    # zero cut: K2 once a shard and step; validation through K5, K4, K11
+    check(ep_launches.get("K2") == 2 * ep_card["steps"] > 0
+          and all(ep_launches.get(k, (0,))[0] > 0
+                  for k in ("K5", "K4", "K11")),
+          f"--ep 2 --reuse_packs launches {ep_launches} for "
+          f"{ep_card['steps']} steps")
+    ep_cpu = _cli_run(tmp / "modes" / "ep_cpu", data, seed, "cpu", 2,
+                      "--ep", "2", "--reuse_packs")
+    ep_rel = max(abs(a - b) / abs(b)
+                 for key in ("train_losses", "val_losses")
+                 for a, b in zip(ep_card[key], ep_cpu[key]))
+    check(ep_rel <= TRAIN_TOL, f"--ep 2 --reuse_packs card vs CPU RMSE "
+                               f"differ by {ep_rel:.3e}")
+    out = {"phase": "train loader modes", "card": card,
+           "launches": launches, "ep_launches": ep_launches,
+           "rel_vs_cpu": rel,
+           "workers_2_equals_1": same, "ep_rel_vs_cpu": ep_rel,
+           "train_losses": reuse2["train_losses"],
+           "steps_per_s": {"reuse_packs, 2 workers": reuse2["steps_per_s"],
+                           "reuse_packs, 1 worker": reuse1["steps_per_s"],
+                           "packed every epoch": packed["steps_per_s"],
+                           "--ep 2 --reuse_packs": ep_card["steps_per_s"]},
+           "wall_s": {"reuse_packs, 2 workers": reuse2["wall_s"],
+                      "reuse_packs, 1 worker": reuse1["wall_s"],
+                      "packed every epoch": packed["wall_s"]},
+           "trainer_epochs": {"reuse_packs": epochs[True],
+                              "packed every epoch": epochs[False]}}
+    print(f"train cli --reuse_packs --loader_workers 2 --num_workers 2: 3 "
+          f"epochs, {reuse2['steps']} steps, train RMSE "
+          f"{reuse2['train_losses']}, card vs CPU (2 epochs) max rel diff "
+          f"{rel:.3e} (limit {TRAIN_TOL}); --loader_workers 1 bit for bit "
+          f"{same}; steps/s per epoch (StepTimer) {out['steps_per_s']}; "
+          f"trainer epochs (steps/s, busy %) {out['trainer_epochs']}; --ep "
+          f"2 --reuse_packs card vs CPU {ep_rel:.3e} [{card}]")
+    print(json.dumps(out, default=float))
+    return out
 
 
 def train_profile(tmp: Path, seed: int, card: str) -> dict:
@@ -4459,7 +4885,15 @@ def main(argv=None) -> int:
                           fused_conv_kernels(full_train, spec, batch,
                                              args.seed, args.repeats, BF16),
                           card)
+        t0 = time.perf_counter()
+        native_phase(Path(tmp), args.seed, card)
+        print(f"phase wall: native featurizer and packer "
+              f"{time.perf_counter() - t0:.1f} s")
         srv = serve(Path(tmp), args.seed, card)
+        t0 = time.perf_counter()
+        serve_native(Path(tmp), srv, card)
+        print(f"phase wall: serve native vs Python "
+              f"{time.perf_counter() - t0:.1f} s")
         with glin_runs["layered serving"], spmm_runs["layered serving"]:
             srv_l = serve_layered(Path(tmp), args.seed, card)
             srv_l16 = serve_layered(Path(tmp), args.seed, card, BF16)
@@ -4469,6 +4903,10 @@ def main(argv=None) -> int:
         os.chdir(tmp)
         try:
             trn = train_phase(Path(tmp), args.seed, card)
+            t0 = time.perf_counter()
+            train_modes_phase(Path(tmp), args.seed, card)
+            print(f"phase wall: train with the loader's modes "
+                  f"{time.perf_counter() - t0:.1f} s")
             rates = train_profile(Path(tmp), args.seed, card)
             trn_16 = train_phase_bf16(Path(tmp), args.seed, card,
                                       trn["steps_per_s"])

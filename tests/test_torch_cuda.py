@@ -8,8 +8,9 @@ reruns bit for bit), capture mode on the card against the CPU and the
 layered path, and the activation-chain probe's kernel; the bf16
 instantiation of the whole-model kernels against their bf16 plain versions
 (reruns bit for bit, the bf16 launch counters, a bf16 model on the card
-against the CPU), no CUDA tensor reaching a plain version, and the matmul
-probe's kernel (P2).  Run on a GPU machine with:
+against the CPU), no CUDA tensor reaching a plain version, the matmul
+probe's kernel (P2), and ``predict`` over natively featurized graphs
+against the Python twin's.  Run on a GPU machine with:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py -q
 
@@ -2040,12 +2041,70 @@ def test_conv_stack_on_the_conv_grid_is_bit_identical(cuda, mat_dtype):
     assert all(torch.equal(x, y) for x, y in zip(got, want))
 
 
+LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchCooperativeKernel",
+                "cudaLaunchKernelExC", "cuLaunchKernel", "cuLaunchKernelEx",
+                "cuLaunchCooperativeKernel")
+
+
+def _launches_of_one_call(fn, module) -> tuple[int, dict, list]:
+    """(kernel launches, counters moved, device kernels) of one call of
+    ``fn``: the kernel-launch runtime calls torch.profiler records in the
+    active step of a profile whose warm-up step (calls of ``fn`` for at
+    least 50 ms) starts the tracer -- the counting of
+    chip_smoke.py::kernel_launches --, the launch counters of the wrapper
+    ``module`` that one call moves (each counts the launches of one
+    kernel), and the names of the device kernels the active step recorded.
+    A later profiling session in the same process can lose the device
+    records while the runtime calls are always recorded, so the launches
+    are counted from the runtime calls and the names are checked by
+    :func:`_assert_kernel` whenever the device records are there."""
+    import time
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, schedule
+    names = [n for n in dir(module) if n.endswith("launches")]
+    before = {n: getattr(module, n) for n in names}
+    with torch.no_grad():
+        fn()
+    torch.cuda.synchronize()
+    moved = {n: getattr(module, n) - before[n] for n in names
+             if getattr(module, n) != before[n]}
+    with torch.no_grad(), profile(
+            activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+            schedule=schedule(wait=0, warmup=1, active=1,
+                              repeat=1)) as prof:
+        t0, n = time.perf_counter(), 0
+        while n < 2 or time.perf_counter() - t0 < 0.05:
+            fn()
+            torch.cuda.synchronize()
+            n += 1
+        prof.step()
+        fn()
+        torch.cuda.synchronize()
+        prof.step()
+    events = prof.key_averages()
+    return (sum(e.count for e in events if e.key in LAUNCH_CALLS), moved,
+            [e.key for e in events for _ in range(e.count)
+             if e.device_type == DeviceType.CUDA
+             # the step's own annotation is recorded on the device too
+             and not e.key.startswith(("Memcpy", "Memset",
+                                       "ProfilerStep"))])
+
+
+def _assert_kernel(got, counter, kernel):
+    """One launch, the wrapper's ``counter`` moved by one, and -- where the
+    profile recorded device kernels -- exactly one, named ``kernel``."""
+    launches, moved, kernels = got
+    assert (launches, moved) == (1, {counter: 1}), (counter, got)
+    assert not kernels or (len(kernels) == 1 and kernel in kernels[0]), \
+        (kernel, got)
+
+
 def test_conv_grid_is_one_launch_a_direction(cuda):
     """A K6 or K8 call is one kernel launch forward and one backward
-    (torch.profiler), on the grid the shape rule picks."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
+    (torch.profiler's launch calls, the wrapper's forward or backward
+    counter, and the device kernel's name where the profile recorded it),
+    on the grid the shape rule picks."""
     from cgr_mpnn_3d_tpu_torch.ops import fused_conv as fc
     spec, b, rand = _layered_inputs(cuda)
     ET, H = b.edge_nbr.shape[0], 40
@@ -2056,23 +2115,12 @@ def test_conv_grid_is_one_launch_a_direction(cuda):
     with torch.no_grad():
         y = fc.fused_conv_forward(*ins, *ws, **kw)
     g = rand(ET, H)
-
-    def kernels(fn):
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            with torch.no_grad():
-                fn()
-            torch.cuda.synchronize()
-        return [e.key for e in prof.key_averages()
-                for _ in range(e.count)
-                if e.device_type == DeviceType.CUDA
-                and not e.key.startswith(("Memcpy", "Memset"))]
-    fwd = kernels(lambda: fc.fused_conv_forward(*ins, *ws, **kw))
-    bwd = kernels(lambda: fc.fused_conv_backward(
-        *ins, b.edge_nbr_rev, *ws, y, g, **kw))
-    assert len(fwd) == 1 and "conv_fwd_kernel" in fwd[0], fwd
-    assert len(bwd) == 1 and "conv_bwd_kernel" in bwd[0], bwd
+    fwd = _launches_of_one_call(
+        lambda: fc.fused_conv_forward(*ins, *ws, **kw), fc)
+    bwd = _launches_of_one_call(lambda: fc.fused_conv_backward(
+        *ins, b.edge_nbr_rev, *ws, y, g, **kw), fc)
+    _assert_kernel(fwd, "launches", "conv_fwd_kernel")
+    _assert_kernel(bwd, "bwd_launches", "conv_bwd_kernel")
     for p, bm in ((4, 32), (436, 64)):
         blocks, tile_rows, per_sm, sms = fc.conv_grid(p, 256, 400, 400)
         assert tile_rows == fc.conv_bm(p * 256, 400, sms) == bm
@@ -2172,11 +2220,10 @@ def test_glin_grid_forced_builds_and_reruns_are_bit_identical(cuda,
 
 def test_glin_grid_is_one_launch_a_direction(cuda):
     """A K5 or K11 call is one kernel launch forward and one backward
-    (torch.profiler), on the grid the shape rule picks, with the scratch
-    bytes the wrapper's mirror gives."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
+    (torch.profiler's launch calls, the wrapper's counter of that kernel
+    and direction, and the device kernel's name where the profile recorded
+    it), on the grid the shape rule picks, with the scratch bytes the
+    wrapper's mirror gives."""
     from cgr_mpnn_3d_tpu_torch.ops import _build
     from cgr_mpnn_3d_tpu_torch.ops import gather_linear as gl
     spec, b, rand = _layered_inputs(cuda)
@@ -2194,29 +2241,18 @@ def test_glin_grid_is_one_launch_a_direction(cuda):
     adj = torch.full((pins[0].shape[0], 1), pins[2].shape[0],
                      dtype=torch.int32, device=cuda)
     gp, pg = rand(*pool.shape), rand(*py.shape)
-
-    def kernels(fn):
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            with torch.no_grad():
-                fn()
-            torch.cuda.synchronize()
-        return [e.key for e in prof.key_averages()
-                for _ in range(e.count)
-                if e.device_type == DeviceType.CUDA
-                and not e.key.startswith(("Memcpy", "Memset"))]
-    for name, fn in (
-            ("glin_fwd_kernel",
+    for name, kernel, fn in (
+            ("launches", "glin_fwd_kernel",
              lambda: gl.gather_linear_forward(*ins, *ws, **kw)),
-            ("glin_bwd_kernel", lambda: gl.gather_linear_backward(
-                *ins, b.receivers[:, None], *ws, y, g, **kw)),
-            ("glin_fwd_kernel",
+            ("bwd_launches", "glin_bwd_kernel",
+             lambda: gl.gather_linear_backward(
+                 *ins, b.receivers[:, None], *ws, y, g, **kw)),
+            ("pool_launches", "glin_fwd_kernel",
              lambda: gl.gather_linear_pool_forward(*pins, *pws, p=2)),
-            ("glin_bwd_kernel", lambda: gl.gather_linear_pool_backward(
-                *pins[:4], adj, *pins[4:], *pws, py, pg, gp, p=2))):
-        got = kernels(fn)
-        assert len(got) == 1 and name in got[0], got
+            ("pool_bwd_launches", "glin_bwd_kernel",
+             lambda: gl.gather_linear_pool_backward(
+                 *pins[:4], adj, *pins[4:], *pws, py, pg, gp, p=2))):
+        _assert_kernel(_launches_of_one_call(fn, gl), name, kernel)
     for p, R, FA, FB, bm in ((4, 256, 270, 14, 32), (436, 256, 270, 14, 64),
                              (8, 72, 400, 270, 32)):
         for backward in (False, True):
@@ -2267,3 +2303,40 @@ def test_glin_ties_tool(cuda, capsys):
         assert 0 <= r["flips"] < r["n"]
         assert r["l1_kernel"] <= max(3 * r["l1_plain"], 1e-4), r
     assert "glin_ties K5 edge_init" in capsys.readouterr().out
+
+
+def test_predict_on_native_features_matches_the_python_twin(cuda, tmp_path):
+    """``predict`` on the card over a corpus slice featurized by the native
+    C++ featurizer against the same call over the pure-Python twin's
+    graphs: predictions within 1e-4, through the forward kernel."""
+    import csv
+    from pathlib import Path
+
+    from cgr_mpnn_3d_tpu_torch.data import ChemDataset
+    from cgr_mpnn_3d_tpu_torch.data.descriptors import \
+        synthetic_descriptors_npz
+    from cgr_mpnn_3d_tpu_torch.train import predict
+    corpus = Path(__file__).resolve().parent / "corpus_reactions.csv"
+    with open(corpus, newline="") as f:
+        rows = list(csv.reader(f))[:81]
+    path = tmp_path / "slice.csv"
+    with open(path, "w", newline="") as f:
+        csv.writer(f).writerows(rows)
+    synthetic_descriptors_npz(path, tmp_path / "slice.npz", 8)
+    preds = []
+    for use_native in (True, False):
+        ds = ChemDataset(str(path), data_npz_path=str(tmp_path / "slice.npz"),
+                         use_native=use_native)
+        ds.prefeaturize(num_workers=2)
+        cfg = CGRMPNNConfig(num_node_features=ds.num_node_features,
+                            num_edge_features=ds.num_edge_features, depth=3,
+                            hidden_sizes=(64,) * 3, dropout_ps=(0.0,) * 3)
+        model = init_params(cfg, torch.Generator().manual_seed(0), cuda)
+        before = fm.launches
+        preds.append(predict(model, ds, plan_spec(
+            [ds.graph(i) for i in range(len(ds))]), 32, cuda))
+        assert fm.launches > before
+    native_pred, python_pred = preds
+    assert native_pred.shape == (80,) and np.isfinite(native_pred).all()
+    scale = max(float(np.abs(python_pred).max()), 1e-30)
+    assert float(np.abs(native_pred - python_pred).max()) / scale <= 1e-4

@@ -140,3 +140,162 @@ def test_to_device_round_trip():
     assert int(tb.senders.max()) == spec.total_nodes
     assert int(tb.edge_nbr.max()) == spec.total_edges
     assert int(tb.graph_nodes.max()) == spec.total_nodes
+
+
+# -- the loader's modes and the feature cache ---------------------------------
+
+@pytest.fixture
+def corpus_csv(tmp_path):
+    path = tmp_path / "rx.csv"
+    with open(path, "w", newline="") as f:
+        w = csv.writer(f)
+        w.writerow(["smiles", "ea"])
+        for i, s in enumerate(_corpus(40)):
+            w.writerow([s, float(i)])
+    return path
+
+
+def _tight_spec(ds):
+    # te=64 tiles make windows of 6 and more overflow and carry
+    return tdata.plan_spec([ds.graph(i) for i in range(len(ds))], te=64,
+                           tn=32, tb=4)
+
+
+@pytest.mark.parametrize("use_native", [True, False])
+def test_parallel_packing_yields_the_serial_batches(corpus_csv, use_native):
+    """``workers`` packs serially in the port: its batches are those of one
+    worker and of the JAX loader's thread pool, bit for bit."""
+    ds = tdata.ChemDataset(str(corpus_csv), use_native=use_native)
+    dj = jdata.ChemDataset(str(corpus_csv), use_native=use_native)
+    spec = _tight_spec(ds)
+    for shuffle in (False, True):
+        kw = dict(batch_size=6, shuffle=shuffle, seed=3,
+                  use_native=use_native)
+        a = list(tdata.PackedLoader(ds, spec, **kw))
+        b = list(tdata.PackedLoader(ds, spec, workers=3, **kw).prefetch())
+        c = list(jdata.PackedLoader(dj, jdata.PackSpec(**vars(spec)),
+                                    workers=3, **kw).prefetch())
+        assert len(a) == len(b) == len(c) > len(ds) // 6
+        for x, y, z in zip(a, b, c):
+            _assert_batch_equal(x, y)
+            _assert_batch_equal(x, z)
+
+
+def test_reuse_packs_same_batches_in_shuffled_order(corpus_csv):
+    """Epoch 2 on yields the cache's batch objects (composed from the
+    epoch-0 order) in an order shuffled from seed + epoch; a loader that
+    starts at a later epoch builds the same cache."""
+    ds = tdata.ChemDataset(str(corpus_csv))
+    spec = _tight_spec(ds)
+    mk = lambda: tdata.PackedLoader(ds, spec, batch_size=6, shuffle=True,
+                                    seed=5, reuse_packs=True)
+    ld = mk()
+    e0 = list(ld)
+    ld.set_epoch(1)
+    e1 = list(ld)
+    assert {id(b) for b in e0} == {id(b) for b in e1} and len(e0) > 2
+    key = lambda b: tuple(b.row_ids.tolist())  # noqa: E731
+    orders = set()
+    for ep in range(1, 5):
+        ld.set_epoch(ep)
+        orders.add(tuple(key(b) for b in ld))
+    assert len(orders) > 1, "no epoch reordered the batches"
+    straight = tdata.PackedLoader(ds, spec, batch_size=6, shuffle=True,
+                                  seed=5)
+    assert len(ld._pack_cache) == len(e0)
+    for a, b in zip(ld._pack_cache, straight):
+        _assert_batch_equal(a, b)
+    late = mk()
+    late.set_epoch(7)
+    ld.set_epoch(7)
+    for a, b in zip(ld, late):
+        _assert_batch_equal(a, b)
+
+
+@pytest.mark.parametrize("use_native,drop_last", [(True, False),
+                                                  (False, False),
+                                                  (True, True)])
+def test_emitted_windows_equal_the_jax_plan(corpus_csv, use_native,
+                                            drop_last):
+    """The rows of every batch the port emits, overflow shrink and carry
+    included, are those of the JAX loader's window plan."""
+    ds = tdata.ChemDataset(str(corpus_csv), use_native=use_native)
+    dj = jdata.ChemDataset(str(corpus_csv), use_native=use_native)
+    spec = _tight_spec(ds)
+    kw = dict(batch_size=7, shuffle=True, seed=2, drop_last=drop_last,
+              use_native=use_native)
+    lt = tdata.PackedLoader(ds, spec, **kw)
+    lj = jdata.PackedLoader(dj, jdata.PackSpec(**vars(spec)), **kw)
+    plan = lj.plan_windows(lt._order())
+    emitted = [sorted(b.row_ids[b.graph_mask > 0].tolist()) for b in lt]
+    assert [sorted(w) for w in plan] == emitted
+    assert len(plan) > len(ds) // 7
+
+
+def test_feature_cache_round_trips_and_crosses_packages(corpus_csv,
+                                                         tmp_path):
+    import os
+    ds = tdata.ChemDataset(str(corpus_csv))
+    ds.prefeaturize(cache=True)
+    cache = Path(str(corpus_csv) + ".featcache.npz")
+    assert cache.exists()
+    back = tdata.ChemDataset(str(corpus_csv))
+    assert back.load_feature_cache()
+    for s in set(ds.smiles):
+        _assert_graph_equal(back._cache[s], ds._cache[s])
+    # the JAX package loads the port's cache, and the port the JAX one's
+    dj = jdata.ChemDataset(str(corpus_csv), use_native=False)
+    assert dj.load_feature_cache()
+    for s in set(ds.smiles):
+        _assert_graph_equal(dj._cache[s], ds._cache[s])
+    other = tmp_path / "other.csv"
+    other.write_text(corpus_csv.read_text())
+    jw = jdata.ChemDataset(str(other), use_native=False)
+    jw.prefeaturize(cache=True)
+    pt = tdata.ChemDataset(str(other))
+    assert pt.load_feature_cache()
+    for s in set(pt.smiles):
+        _assert_graph_equal(pt._cache[s], jw._cache[s])
+    # stale: older than the CSV, or of another version
+    t = cache.stat().st_mtime
+    os.utime(corpus_csv, (t + 10, t + 10))
+    assert not tdata.ChemDataset(str(corpus_csv)).load_feature_cache()
+    os.utime(corpus_csv, (t - 10, t - 10))
+    assert tdata.ChemDataset(str(corpus_csv)).load_feature_cache()
+    stale = tdata.ChemDataset(str(corpus_csv))
+    stale.FEAT_VERSION = tdata.ChemDataset.FEAT_VERSION + 1
+    assert not stale.load_feature_cache()
+    assert not tdata.ChemDataset(str(DEMO)).load_feature_cache()
+
+
+def test_prefeaturize_on_workers_equals_serial(corpus_csv):
+    serial = tdata.ChemDataset(str(corpus_csv))
+    serial.prefeaturize()
+    pooled = tdata.ChemDataset(str(corpus_csv))
+    pooled.prefeaturize(num_workers=2)
+    assert list(pooled._cache) == list(serial._cache)
+    for s in serial._cache:
+        _assert_graph_equal(pooled._cache[s], serial._cache[s])
+    python = tdata.ChemDataset(str(corpus_csv), use_native=False)
+    python.prefeaturize(num_workers=2)
+    for s in serial._cache:
+        _assert_graph_equal(python._cache[s], serial._cache[s])
+
+
+def test_dataset_rows_equal_jax(tmp_path):
+    bare = tmp_path / "bare.csv"
+    bare.write_text("".join(DEMO.read_text().splitlines(True)[1:4]))
+    j_synth_npz(DEMO, tmp_path / "d.npz", 4)
+    for path, kw in ((bare, dict()),
+                     (DEMO, dict(data_npz_path=str(tmp_path / "d.npz")))):
+        dt = tdata.ChemDataset(str(path), **kw)
+        dj = jdata.ChemDataset(str(path), **kw)
+        assert dt.smiles == dj.smiles and len(dt) == len(dj) > 2
+        np.testing.assert_array_equal(dt.labels, dj.labels)
+        for i in (0, 1, -1):
+            (gt, lt, xt), (gj, lj, xj) = dt[i], dj[i]
+            _assert_graph_equal(gt, gj)
+            assert lt == lj
+            assert (xt is None) == (xj is None)
+            if xt is not None:
+                np.testing.assert_array_equal(xt, xj)

@@ -189,9 +189,46 @@ def test_loader_matches_jax_and_grows_pins():
                                               getattr(bj, f), err_msg=f)
         if not shuffle:
             assert got[-1][0].te > 64 and got[0][0].te == 64
-    for bad in (dict(n_dp=2), dict(reuse_packs=True), dict(workers=2)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            EPPackLoader(_FakeDataset(), n_ep=2, **bad)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        EPPackLoader(_FakeDataset(), n_ep=2, n_dp=2)
+    # workers packs a group's windows on threads only when n_dp > 1: at one
+    # group the items are the serial ones
+    kw = dict(n_ep=4, batch_size=4, shuffle=True, seed=3, prescan_batches=1,
+              te=64, tn=32)
+    for (sa, ba), (sb, bb) in zip(EPPackLoader(_FakeDataset(), **kw),
+                                  EPPackLoader(_FakeDataset(), workers=2,
+                                               **kw).prefetch()):
+        assert sa == sb
+        for f in SHARED:
+            np.testing.assert_array_equal(getattr(ba, f), getattr(bb, f))
+
+
+def test_loader_reuse_packs_equals_the_jax_cache():
+    """reuse_packs: the cache is built from the epoch-0 order, again
+    while the pins grow (the giant chain grows them), so every item shares
+    the final spec; it equals the JAX loader's cache item for item, and
+    each epoch emits it in the JAX loader's shuffled order; a loader that
+    starts at a later epoch builds the same items."""
+    kw = dict(n_ep=4, batch_size=4, n_dp=1, shuffle=True, seed=9,
+              prescan_batches=1, te=64, tn=32, reuse_packs=True)
+    lt, lj = EPPackLoader(_FakeDataset(), **kw), JLoader(_FakeDataset(), **kw)
+    for epoch in (0, 3):
+        lt.set_epoch(epoch)
+        lj.set_epoch(epoch)
+        got, want = list(lt), list(lj)
+        assert len(got) == len(want) == 4
+        assert len({id(s) for s, _ in got}) == 1 and got[0][0].te > 64
+        for (st, bt), (sj, bj) in zip(got, want):
+            assert vars(st) == vars(sj)
+            for f in SHARED:
+                np.testing.assert_array_equal(getattr(bt, f),
+                                              getattr(bj, f), err_msg=f)
+    late = EPPackLoader(_FakeDataset(), **kw)
+    late.set_epoch(3)
+    for (sa, ba), (sb, bb) in zip(lt, late.prefetch()):
+        assert sa == sb
+        for f in SHARED:
+            np.testing.assert_array_equal(getattr(ba, f), getattr(bb, f))
 
 
 def _cfgs(aggr="add", pooling="add", skip=False, act="ReLU", depth=3):
@@ -380,8 +417,9 @@ def _data(tmp_path):
 def test_train_cli_with_ep_and_its_refusals(tmp_path, monkeypatch):
     """cli.train --ep 2 trains on the CPU (zero cut: the one-kernel step's
     plain version, validation through K5/K4/K11's), also with
-    --compute_dtype bfloat16, --ep_overlap and --ep_rdma; the flags whose
-    paths are not ported raise before any data is read."""
+    --compute_dtype bfloat16, --ep_overlap, --ep_rdma and --reuse_packs
+    with --loader_workers 2; the flags whose paths are not ported raise
+    before any data is read."""
     from cgr_mpnn_3d_tpu_torch.cli.train import main
     monkeypatch.chdir(tmp_path)
     data = _data(tmp_path)
@@ -393,11 +431,11 @@ def test_train_cli_with_ep_and_its_refusals(tmp_path, monkeypatch):
     assert res["steps"] > 0 and len(res["val_losses"]) == 2
     assert np.isfinite(res["train_losses"]).all()
     for flags in (["--compute_dtype", "bfloat16"], ["--ep_overlap"],
-                  ["--ep_rdma"]):
+                  ["--ep_rdma"], ["--reuse_packs", "--loader_workers", "2"]):
         res = main(base + ["-ne", "2"] + flags)
         assert res["steps"] > 0 and len(res["val_losses"]) == 2
         assert np.isfinite(res["train_losses"]).all()
-    for flags in (["--dp", "2"], ["--reuse_packs"],
-                  ["--loader_workers", "2"]):
+    for flags in (["--dp", "2"], ["--device_epoch"],
+                  ["--steps_per_call", "2"]):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             main(base + ["-ne", "1", "--data_path", "missing"] + flags)

@@ -44,7 +44,8 @@ def test_importing_every_module_loads_no_jax():
                 "parallel.edge_partition", "parallel.ep_pack",
                 "parallel.ep_loader", "parallel.rdma_exchange",
                 "tools.profile_ep", "tools.mm_probe_parts",
-                "tools.k2_phases", "tools.k12_host", "tools.k7_host")}
+                "tools.k2_phases", "tools.k12_host", "tools.k7_host",
+                "native", "data.dataset", "data.loader")}
     assert kernels <= set(res["mods"])
     assert [m for m in res["loaded"] if _forbidden(m)] == []
 
@@ -64,6 +65,48 @@ def test_source_imports_no_jax(path):
         else:
             continue
         assert not any(_forbidden(n) for n in names), (path, names)
+
+
+def test_the_port_opens_nothing_of_the_jax_package(tmp_path):
+    """A fresh interpreter featurizes, caches, packs and reuses packs
+    through the port's native library and its Python twins, under an audit
+    hook: no file opened and no library loaded lies under
+    ``cgr_mpnn_3d_tpu/`` (its ``native/libcgrfeat.so`` included), and
+    none is mapped into the process."""
+    code = (
+        "import json, sys\n"
+        "seen = []\n"
+        "def hook(event, args):\n"
+        "    if event in ('open', 'ctypes.dlopen') and args and args[0]:\n"
+        "        seen.append(str(args[0]))\n"
+        "sys.addaudithook(hook)\n"
+        "from cgr_mpnn_3d_tpu_torch import native\n"
+        "from cgr_mpnn_3d_tpu_torch.data import (ChemDataset, PackedLoader,"
+        " plan_spec)\n"
+        f"csv = {str(tmp_path / 'demo.csv')!r}\n"
+        f"open(csv, 'w').write(open({str(REPO / 'examples' / 'demo.csv')!r})"
+        ".read())\n"
+        "for use_native in (True, False):\n"
+        "    ds = ChemDataset(csv, use_native=use_native)\n"
+        "    ds.prefeaturize(num_workers=2, cache=True)\n"
+        "    spec = plan_spec([ds.graph(i) for i in range(len(ds))])\n"
+        "    for reuse in (False, True):\n"
+        "        list(PackedLoader(ds, spec, batch_size=4, workers=2,\n"
+        "                          reuse_packs=reuse, shuffle=True,\n"
+        "                          use_native=use_native).prefetch())\n"
+        "native.featurize('CCO', 'mol')\n"
+        "maps = open('/proc/self/maps').read().split()\n"
+        "print(json.dumps({'seen': seen, 'maps': maps}))\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=str(REPO),
+                         capture_output=True, text=True, check=True,
+                         timeout=300)
+    res = json.loads(out.stdout.strip().splitlines()[-1])
+    jax_pkg = str(REPO / "cgr_mpnn_3d_tpu") + "/"
+    opened = [p for p in res["seen"] + res["maps"] if jax_pkg in p
+              or p.startswith("cgr_mpnn_3d_tpu/")]
+    assert opened == []
+    assert any("libcgrfeat-" in p and "cgr_mpnn_3d_tpu_torch/build/" in p
+               for p in res["maps"])
 
 
 @pytest.fixture

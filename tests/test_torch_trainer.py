@@ -131,6 +131,23 @@ def test_trajectory_matches_the_jax_trainer(splits, tmp_path):
         assert err <= 1e-3 * np.abs(want).max(), (name, err)
 
 
+def test_reused_packs_and_loader_workers_match_the_jax_trainer(splits,
+                                                                tmp_path):
+    """reuse_packs with two loader workers: the same per-epoch RMSE as
+    the JAX trainer with the same flags (rtol 1e-4, as the straight run),
+    and the same steps."""
+    init = _jax_init_checkpoint(splits, tmp_path)
+    jt, pt = _trainers(splits, tmp_path, resume=str(init), reuse_packs=True,
+                       loader_workers=2)
+    assert pt.train_loader.reuse_packs and pt.val_loader.workers == 2
+    out_j, out_t = jt.train(), pt.train()
+    np.testing.assert_allclose(out_t["train_losses"], out_j["train_losses"],
+                               rtol=1e-4)
+    np.testing.assert_allclose(out_t["val_losses"], out_j["val_losses"],
+                               rtol=1e-4)
+    assert out_t["steps"] == int(jt.state.step) >= 9
+
+
 # -- checkpoints --------------------------------------------------------------
 
 def test_checkpoints_cross_load_both_ways(splits, tmp_path):
@@ -286,18 +303,42 @@ def test_cli_train_and_test_run_on_the_cpu(tmp_path, monkeypatch):
     assert out["test_losses"] == pytest.approx(res["test_losses"])
 
 
+def test_cli_loader_modes_and_the_feature_cache(tmp_path, monkeypatch):
+    """cli.train with --reuse_packs --loader_workers 2 --num_workers 2 on
+    the CPU: the feature cache is written beside each split's CSV, and the
+    per-epoch losses equal --loader_workers 1 bit for bit (the same
+    batches) -- also in a second run that loads the cache."""
+    from cgr_mpnn_3d_tpu_torch.cli import train as cli_train
+    monkeypatch.chdir(tmp_path)
+    data = tmp_path / "datasets"
+    data.mkdir()
+    for split in ("train", "val"):
+        (data / f"{split}.csv").write_text(DEMO.read_text())
+    argv = ["-d", "2", "--hidden_sizes", "16", "--dropout_ps", "0.1", "-ne",
+            "3", "-bs", "4", "--val_frequency", "1", "--data_path",
+            str(data), "--save_path", "saved", "--device", "cpu",
+            "--skip_test", "--reuse_packs", "--num_workers", "2"]
+    two = cli_train.main(argv + ["--loader_workers", "2"])
+    for split in ("train", "val"):
+        assert (data / f"{split}.csv.featcache.npz").exists()
+    one = cli_train.main(argv + ["--loader_workers", "1"])
+    assert two["train_losses"] == one["train_losses"]
+    assert two["val_losses"] == one["val_losses"]
+    assert two["steps"] == one["steps"] == 9
+
+
 @pytest.mark.parametrize("flags,text", [
     (["--dp", "2"], "ROADMAP.md section 1.5, data parallel and multi-host"),
     (["--dp", "2", "--ep", "2"], "section 1.5, data parallel and multi-host;"
                                  " with --ep, section 1.6 item 5"),
-    (["--reuse_packs"], "ROADMAP.md section 1.3, the loader's other modes"),
-    (["--loader_workers", "2", "--ep", "2"],
-     "section 1.3, the loader's other modes; with --ep, section 1.6 item 4")])
+    (["--device_epoch"], "ROADMAP.md section 1.3, the loader's other modes"),
+    (["--steps_per_call", "2", "--ep", "2"],
+     "ROADMAP.md section 1.3, the loader's other modes")])
 def test_cli_refusals_name_their_roadmap_items(flags, text):
     """cli/train.py refuses the unported flags before any data is read,
     naming the ROADMAP.md item: data parallelism is section 1.5 (with
-    --ep also 1.6 item 5), the loader's modes 1.3 (with --ep also 1.6
-    item 4); no message cites edge partitioning without --ep."""
+    --ep also 1.6 item 5), a device-resident epoch and several steps per
+    call 1.3; no message cites edge partitioning without --ep."""
     from cgr_mpnn_3d_tpu_torch.cli import train as cli_train
     with pytest.raises(NotImplementedError) as err:
         cli_train.main(["-ne", "1", "--data_path", "missing", "--device",
