@@ -5,7 +5,8 @@ Usage (the README's model):
   python -m cgr_mpnn_3d_tpu_torch.cli.train --name CGR-MPNN-3D -d 4 \\
       --hidden_sizes 400 --dropout_ps 0.1 -af ReLU -lr 1e-4 -ne 50 \\
       --weight_decay 1e-5 -bs 64 -g 0.9 --data_path datasets \\
-      [--compute_dtype bfloat16 | --ep 2]
+      [--compute_dtype bfloat16 | --ep 2] [--reuse_packs --device_epoch |
+      --steps_per_call 4]
 
 ``--data_path`` holds ``train.csv`` and ``val.csv`` (and ``test.csv`` unless
 ``--skip_test``), plus ``<split>.npz`` descriptors for CGR-MPNN-3D; a
@@ -33,9 +34,16 @@ batch order per epoch, under ``--ep`` too.  ``--loader_workers N`` parses
 for the JAX command line's sake and packing stays serial: one background
 thread packs ahead of the device (``data/loader.py``).
 
+``--steps_per_call K`` (single device) moves K batches to the card in one
+transfer and runs their K steps with one read of their losses; the NaN
+guard then rolls back whole chunks.  ``--reuse_packs --device_epoch`` stages
+the reused packs on the card once and runs each epoch's steps with no
+host-to-device copy and no host read inside; a non-finite loss rolls the
+epoch back and stops the run.  Under ``--ep`` the staged order is the
+epoch-0 grouping, shuffled as a whole in later epochs.
+
 ``refuse_unported`` raises NotImplementedError, naming the ROADMAP.md item,
-for ``--dp`` other than 1, ``--device_epoch`` and ``--steps_per_call`` other
-than 1.
+for ``--dp`` other than 1.
 
 Not ported yet: multi-host and ``--pack_q`` (left out on purpose:
 ROADMAP.md).
@@ -125,26 +133,27 @@ def build_arg_parser() -> argparse.ArgumentParser:
                     help="pack each epoch once and reuse its batches in "
                          "later epochs, shuffling batch order")
     ap.add_argument("--device_epoch", action="store_true",
-                    help="a whole epoch per device call; not ported: raises "
-                         "(ROADMAP.md)")
+                    help="with --reuse_packs: stage the packed epoch on the "
+                         "device once and run each epoch with no host copy "
+                         "or read inside; the NaN guard is per epoch (a "
+                         "non-finite loss rolls the epoch back and stops "
+                         "the run); under --ep the epoch-0 grouping is "
+                         "staged and later epochs shuffle it")
     ap.add_argument("--steps_per_call", default=1, type=int,
-                    help="train steps per device call; only 1 is ported")
+                    help="train steps per host read of the losses (single "
+                         "device): their batches move in one transfer; the "
+                         "NaN guard rolls back a whole chunk")
     return ap
 
 
 def refuse_unported(args) -> None:
     """Raise NotImplementedError for a flag whose path is not ported, so
     that no run takes another path quietly."""
-    ep = args.ep > 1
     if args.dp != 1:
         raise NotImplementedError(
             "--dp (data parallelism over torch.distributed) is not ported "
             "yet: ROADMAP.md section 1.5, data parallel and multi-host"
-            + ("; with --ep, section 1.6 item 5" if ep else ""))
-    if args.device_epoch or args.steps_per_call != 1:
-        raise NotImplementedError(
-            "--device_epoch and --steps_per_call are not ported yet: "
-            "ROADMAP.md section 1.3, the loader's other modes")
+            + ("; with --ep, section 1.6 item 5" if args.ep > 1 else ""))
 
 
 def run_name(args) -> str:
@@ -226,7 +235,8 @@ def train(args) -> dict:
         log_histograms=args.log_histograms, resume_from=args.resume,
         ckpt_every_steps=args.ckpt_every_steps, device=device, n_ep=args.ep,
         ep_te=args.ep_te, ep_tn=args.ep_tn,
-        loader_workers=args.loader_workers, reuse_packs=args.reuse_packs)
+        loader_workers=args.loader_workers, reuse_packs=args.reuse_packs,
+        steps_per_call=args.steps_per_call, device_epoch=args.device_epoch)
     return trainer.train()
 
 

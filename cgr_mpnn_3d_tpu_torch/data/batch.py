@@ -39,7 +39,8 @@ import torch
 from ..chem.featurize import GraphArrays
 
 __all__ = ["PackSpec", "PackedGraphBatch", "pack_graphs", "plan_spec",
-           "place_graphs", "packs_needed", "empty_batch", "to_device"]
+           "place_graphs", "packs_needed", "empty_batch", "device_tensor",
+           "to_device"]
 
 
 @dataclass(frozen=True)
@@ -310,9 +311,16 @@ def packs_needed(graphs: Sequence[GraphArrays], spec: PackSpec,
     return p
 
 
+def device_tensor(a: np.ndarray, device) -> torch.Tensor:
+    """``a`` as a tensor on ``device``, in memory that torch allocated: on
+    the CPU a copy, not a view of the numpy buffer, whose alignment changes
+    from run to run -- and MKL's products give other bits for operands at
+    other alignments, which would make two runs of the same steps differ."""
+    t = torch.as_tensor(np.ascontiguousarray(a), device=device)
+    return t.clone() if t.device.type == "cpu" else t
+
+
 def to_device(batch: PackedGraphBatch, device) -> PackedGraphBatch:
     """The same batch as tensors on ``device`` (int32 indices, features in
     the packer's dtype).  Indices keep the global-with-sentinel convention."""
-    return PackedGraphBatch(*(
-        torch.as_tensor(np.ascontiguousarray(a), device=device)
-        for a in batch))
+    return PackedGraphBatch(*(device_tensor(a, device) for a in batch))

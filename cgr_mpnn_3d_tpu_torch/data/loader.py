@@ -17,15 +17,17 @@ package's for the same dataset and seed.
   :meth:`PackedLoader.prefetch` already overlaps packing with the device.
 * **Reused packs.**  ``reuse_packs`` packs the epoch once, from the epoch-0
   order (on the native path in one ``pack_epoch_native`` call), and later
-  epochs emit the same batches in an order shuffled from ``seed + epoch``.
+  epochs emit the same batches in an order shuffled from ``seed + epoch``
+  (:meth:`PackedLoader.batch_order`); :meth:`PackedLoader.cached_batches`
+  hands the cache to the trainer's device-resident epoch.
 * :meth:`PackedLoader.prefetch` packs on a background thread.
 
 Windows are always sorted big graphs first (first-fit-decreasing); the JAX
 loader's ``sort_within_batch`` has no other value in use.  Left out:
 ``round_packs_to``, which exists for the JAX loader's ``--pack_q``
 sub-packs, which no Hopper kernel wants (ROADMAP.md section 3), and
-``plan_windows``, which only the JAX ``--device_epoch`` mode calls
-(ROADMAP.md section 1.3).
+``plan_windows``, which only the JAX package's multi-host runs call
+(ROADMAP.md section 1.5).
 """
 
 from __future__ import annotations
@@ -122,6 +124,13 @@ class PackedLoader:
         if not self.reuse_packs:
             yield from self._iter_pack()
             return
+        cache = self.cached_batches()
+        for i in self.batch_order(self._epoch):
+            yield cache[i]
+
+    def cached_batches(self) -> list[PackedGraphBatch]:
+        """The reused epoch's batches in cache order, packed on first use
+        (``reuse_packs``): what a device-resident epoch stages."""
         if self._pack_cache is None:
             # the cache comes from the epoch-0 order, so a resumed run
             # rebuilds the same batches whatever epoch it resumes into
@@ -131,7 +140,15 @@ class PackedLoader:
                 self._pack_cache = self._build_cache()
             finally:
                 self._epoch = saved
-        yield from self._iter_cached()
+        return self._pack_cache
+
+    def batch_order(self, epoch: int) -> np.ndarray:
+        """The order of the cached batches in ``epoch``: shuffled from seed
+        + epoch (identity without ``shuffle``)."""
+        order = np.arange(len(self.cached_batches()))
+        if self.shuffle:
+            np.random.default_rng(self.seed + epoch).shuffle(order)
+        return order
 
     def _build_cache(self) -> list[PackedGraphBatch]:
         """Pack the whole epoch for reuse: on the native path one
@@ -149,15 +166,6 @@ class PackedLoader:
                               if self.dataset.use_npz else None),
             row_ids=order, sort_within=True,
             drop_last=self.drop_last)
-
-    def _iter_cached(self) -> Iterator[PackedGraphBatch]:
-        """The cached batches in an order shuffled from seed + epoch."""
-        order = np.arange(len(self._pack_cache))
-        if self.shuffle:
-            rng = np.random.default_rng(self.seed + self._epoch)
-            rng.shuffle(order)
-        for i in order:
-            yield self._pack_cache[i]
 
     def _iter_pack(self) -> Iterator[PackedGraphBatch]:
         """Pack every window; an overflow carries its remainder into the

@@ -5,6 +5,7 @@ raise on a failed launch."""
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import numpy as np
 import torch
@@ -13,8 +14,9 @@ from . import _build
 from .kernel_math import MAT_DTYPES, dropout_threshold
 
 __all__ = ["PTR", "I32", "library", "check_types", "check_cuda",
-           "seed_list", "check_train", "drop_table", "stream", "raise_on",
-           "refuse_grad", "ptr", "split_k", "mat_index", "count_launch"]
+           "seed_list", "check_train", "drop_table", "stage_rates", "stream",
+           "raise_on", "refuse_grad", "ptr", "split_k", "mat_index",
+           "count_launch"]
 
 PTR, I32 = ctypes.c_void_p, ctypes.c_int
 
@@ -82,18 +84,47 @@ def check_train(train: bool, seeds, dropout_ps, L: int) -> None:
             raise ValueError(f"drop rates must lie in [0, 1): {dropout_ps}")
 
 
+@functools.cache
+def _rate_rows(dropout_ps: tuple, device: torch.device | None = None):
+    """[2, L] int32: the keep thresholds (uint32 bits) and the scales
+    1/(1 - rate) (f32 bits) of the drop rates, made once per rates: in
+    numpy, or on ``device`` (one copy).  Callers only read it."""
+    thr = np.asarray([dropout_threshold(r) for r in dropout_ps], np.uint32)
+    scale = np.asarray([1.0 / (1.0 - r) for r in dropout_ps], np.float32)
+    rows = np.stack([thr.view(np.int32), scale.view(np.int32)])
+    return rows if device is None else torch.from_numpy(rows).to(device)
+
+
+def stage_rates(dropout_ps, device: torch.device) -> None:
+    """Copy the rate rows of ``dropout_ps``, and of each of its layers alone
+    (a one-layer kernel's table), to the card ``device`` now, so that a
+    later :func:`drop_table` of seeds on the card copies nothing (a staged
+    epoch copies nothing to the card)."""
+    for rates in (tuple(dropout_ps), *((r,) for r in dropout_ps)):
+        _rate_rows(rates, device)
+
+
 def drop_table(train: bool, seeds, dropout_ps, device):
     """[3, L] int32 on ``device``: seeds, keep thresholds (uint32 bits) and
     scales 1/(1 - rate) (f32 bits); None in eval mode.  A layer of rate 0
-    keeps every element at scale 1, which leaves it unchanged."""
+    keeps every element at scale 1, which leaves it unchanged.  Seeds that
+    are already an int32 tensor on the CUDA ``device`` stay there: the
+    table is built on the card, with no host read, and copies nothing once
+    :func:`stage_rates` has put its rates there; host seeds
+    (a list, or a CPU tensor) are built into the table on the host and
+    copied with it."""
     if not train:
         return None
+    rates = tuple(dropout_ps)
+    if torch.is_tensor(seeds) and seeds.device.type == "cuda":
+        if seeds.dtype != torch.int32 or seeds.device != device:
+            raise ValueError(f"device seeds must be int32 on {device}, got "
+                             f"{seeds.dtype} on {seeds.device}")
+        return torch.cat([seeds.reshape(1, -1),
+                          _rate_rows(rates, seeds.device)])
     seeds = np.asarray(seed_list(seeds), np.int64) & 0xFFFFFFFF
-    thr = [dropout_threshold(r) for r in dropout_ps]
-    scale = np.asarray([1.0 / (1.0 - r) for r in dropout_ps], np.float32)
-    table = np.stack([seeds.astype(np.uint32).view(np.int32),
-                      np.asarray(thr, np.uint32).view(np.int32),
-                      scale.view(np.int32)])
+    table = np.concatenate([seeds.astype(np.uint32).view(np.int32)[None],
+                            _rate_rows(rates)])
     # not blocking: the copy of a pageable host buffer is staged before the
     # call returns, and a blocking one would wait for the card's queue
     return torch.from_numpy(table).to(device, non_blocking=True)

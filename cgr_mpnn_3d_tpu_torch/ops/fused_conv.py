@@ -275,8 +275,11 @@ def _dims(h, h0, edge_nbr, p: int) -> list[int]:
 
 
 def _drop(train: bool, seed, dropout_p: float, device):
-    return drop_table(train, None if seed is None else [seed], (dropout_p,),
-                      device)
+    """The layer's [3, 1] dropout table; a seed that is a tensor (a row of
+    the trainer's seeds, on the card in a staged epoch) stays one."""
+    seeds = (seed.reshape(1) if torch.is_tensor(seed)
+             else None if seed is None else [seed])
+    return drop_table(train, seeds, (dropout_p,), device)
 
 
 def _out_f32(mat_dtype: str, out_dtype) -> int:

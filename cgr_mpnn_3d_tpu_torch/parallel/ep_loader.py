@@ -151,12 +151,16 @@ class EPPackLoader:
             finally:
                 self._epoch = saved
             self._cache = items
+        for i in self.batch_order(self._epoch):
+            yield self._cache[i]
+
+    def batch_order(self, epoch: int) -> np.ndarray:
+        """The order of the cached items in ``epoch`` (``reuse_packs``):
+        shuffled from seed + epoch (identity without ``shuffle``)."""
         order = np.arange(len(self._cache))
         if self.shuffle:
-            rng = np.random.default_rng(self.seed + self._epoch)
-            rng.shuffle(order)
-        for i in order:
-            yield self._cache[i]
+            np.random.default_rng(self.seed + epoch).shuffle(order)
+        return order
 
     def _iter_build(self):
         order = list(self._order())

@@ -73,6 +73,7 @@ from typing import NamedTuple, Sequence
 import numpy as np
 import torch
 
+from ..data.batch import device_tensor
 from ..models.cgr_mpnn import (ACTIVATIONS, CGRMPNN, CGRMPNNConfig, _dropout,
                                _kernel_kw, _skips, _store_dtype,
                                kernel_grads_to_params)
@@ -620,8 +621,7 @@ def ep_shards(batch: EPPackedBatch, device) -> list[EPPackedBatch]:
     """The shards of ``batch`` (leaves [n_ep, ...]) as tensors on
     ``device``, one :class:`EPPackedBatch` per shard."""
     n_ep = batch.node_x.shape[0]
-    return [EPPackedBatch(*(torch.as_tensor(np.ascontiguousarray(a[k]),
-                                            device=device) for a in batch))
+    return [EPPackedBatch(*(device_tensor(a[k], device) for a in batch))
             for k in range(n_ep)]
 
 
@@ -895,7 +895,14 @@ def ep_pack_forward_shard(model: CGRMPNN, b: EPPackedBatch, spec: EPPackSpec,
         scale = (_take0(b.inv_deg[:, None], b.senders)[:, 0].contiguous()
                  if wired_mean else None)
         tables = _overlap_tables(b, spec.tw) if overlap else None
-        layer_seeds = seed_list(seeds) if train else [None] * cfg.depth
+        # seeds on the card stay there (a 0-dim view a layer, no host
+        # read); host seeds become ints
+        if not train:
+            layer_seeds = [None] * cfg.depth
+        elif torch.is_tensor(seeds) and seeds.is_cuda:
+            layer_seeds = list(seeds)
+        else:
+            layer_seeds = seed_list(seeds)
         h = h0
         for l, conv in enumerate(model.convs):
             rate = cfg.dropout_ps[l] if train else 0.0

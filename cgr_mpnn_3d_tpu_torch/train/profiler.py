@@ -4,7 +4,9 @@ p99, steps/s) for the metrics log.
 The counterpart of ``cgr_mpnn_3d_tpu/train/profiler.py::StepTimer``; its
 ``trace`` context (a profiler trace of the wrapped steps) is not ported yet.
 A step's time is the host's time between two ticks, which includes waiting
-for the card: the trainer reads each step's loss on the host.
+for the card: the trainer reads each step's loss on the host (with
+``steps_per_call`` each chunk's losses, with ``device_epoch`` each epoch's,
+and the interval is split evenly among its steps).
 """
 
 from __future__ import annotations
@@ -23,12 +25,16 @@ class StepTimer:
         self._last: float | None = None
         self._count = 0
 
-    def tick(self) -> None:
+    def tick(self, steps: int = 1) -> None:
+        """``steps`` steps ended now: the time since the last tick, split
+        evenly among them (a chunk of steps, or a staged epoch, reads its
+        losses once, so its steps have no host timestamps of their own)."""
         now = time.perf_counter()
         if self._last is not None:
-            self._count += 1
-            if self._count > self.warmup:
-                self._times.append(now - self._last)
+            for _ in range(steps):
+                self._count += 1
+                if self._count > self.warmup:
+                    self._times.append((now - self._last) / steps)
         self._last = now
 
     def reset_epoch(self) -> None:

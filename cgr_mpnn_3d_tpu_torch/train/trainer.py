@@ -46,13 +46,34 @@
               + epoch); ``loader_workers`` is accepted and packing stays
               serial (``data/loader.py``); both reach the EP loader too, as
               in JAX (``trainer.py:300-326``).
+* chunks      ``steps_per_call`` K > 1 (single device; JAX :448-454,
+              :749-823): K consecutive loader batches go to the device in
+              one transfer with their K seed rows, their K steps run with
+              no host read between them, and the chunk's losses are read
+              once at its end; the remainder runs as single steps.  The NaN
+              guard works per chunk: a non-finite chunk restores the state
+              taken before it (parameters, Adam, step, seed stream) and
+              counts one bad; ``max_bad_steps`` in a row abort.
+* device epoch ``device_epoch`` (needs ``reuse_packs``; JAX :615-736): the
+              reused pack cache is staged on the device once ([S, ...];
+              single device in cache order, EP the epoch-0 iteration), and
+              each epoch draws its S seed rows and copies them over once,
+              runs its steps on views of the staged rows in the loader's
+              order (EP: epoch 0 the identity, later epochs shuffled over
+              the staged order), with no host-to-device copy and no host
+              read inside, and reads its [S] losses once.  A non-finite
+              loss restores the epoch-start state and raises
+              FloatingPointError.  ``ckpt_every_steps``, ``steps_per_call``
+              and a mid-epoch resume are refused, as in JAX.  Both modes
+              always step the optimizer and roll back from a snapshot of
+              device-side copies (JAX gets that from its immutable state).
 
-Left out: data parallelism, multi-host, device-resident epochs and several
-steps per call (ROADMAP.md).
+Left out: data parallelism and multi-host (ROADMAP.md section 1.5).
 """
 
 from __future__ import annotations
 
+import json
 import math
 import time
 from dataclasses import dataclass
@@ -61,12 +82,14 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from ..data.batch import PackSpec, to_device
+from ..data.batch import (PackedGraphBatch, PackSpec, device_tensor,
+                          to_device)
 from ..data.dataset import ChemDataset
 from ..data.loader import PackedLoader
 from ..models.cgr_mpnn import (CGRMPNNConfig, apply,
                                fused_train_value_and_grad, init_params,
                                kernel_seeds, supports_fused_train)
+from ..ops._launch import stage_rates
 from ..parallel.ep_loader import EPPackLoader
 from ..parallel.ep_pack import (EPPackedBatch, ep_shards,
                                 make_ep_pack_eval_step,
@@ -87,6 +110,14 @@ def set_epoch_lr(optimizer: torch.optim.Optimizer, lr: float, gamma: float,
     """learning rate = lr * gamma**epoch (ExponentialLR stepped per epoch)."""
     for group in optimizer.param_groups:
         group["lr"] = lr * (gamma ** epoch)
+
+
+def _copy_all(dst: list, src: list) -> None:
+    """dst[i] <- src[i], one foreach copy per device (Adam's ``step``
+    stays on the host beside state on the card)."""
+    for dev in {t.device for t in src}:
+        pairs = [(d, t) for d, t in zip(dst, src) if t.device == dev]
+        torch._foreach_copy_([d for d, _ in pairs], [t for _, t in pairs])
 
 
 def sse_loss(model, batch, spec: PackSpec, train: bool = False,
@@ -130,10 +161,18 @@ class RxnGraphTrainer:
     # the loaders' packing threads and cross-epoch pack reuse
     loader_workers: int = 1
     reuse_packs: bool = False
+    # train steps per host read of the losses (single device): see
+    # "chunks" in the module doc
+    steps_per_call: int = 1
+    # whole epochs on the device over the staged pack cache: see "device
+    # epoch" in the module doc
+    device_epoch: bool = False
 
     def __post_init__(self):
         self.device = resolve_device(self.device)
         self.n_ep = max(1, self.n_ep)
+        self.steps_per_call = max(1, self.steps_per_call)
+        self._check_modes()
         modes = dict(reuse_packs=self.reuse_packs,
                      workers=self.loader_workers)
         if self.n_ep > 1:
@@ -172,8 +211,35 @@ class RxnGraphTrainer:
         self._skip_steps = 0
         self._epoch_done = -1
         self._timer = StepTimer()
+        self._staged = None          # the device epoch's staged cache
+        self._snap: list = []        # the rollback snapshot's buffers
         if self.resume_from:
             self._resume(self.resume_from)
+            if self.device_epoch and self._skip_steps:
+                raise ValueError(
+                    "--device_epoch cannot fast-forward into a MID-epoch "
+                    "checkpoint (a staged epoch has no host-visible steps, "
+                    "and the checkpoint's batch order came from a "
+                    "host-looped run); resume this checkpoint without "
+                    "--device_epoch, or resume an epoch-boundary checkpoint")
+
+    def _check_modes(self) -> None:
+        """Refuse what the JAX trainer refuses (``trainer.py:283-298``)."""
+        if self.n_ep > 1 and self.steps_per_call > 1:
+            raise ValueError("steps_per_call > 1 is single-device only")
+        if not self.device_epoch:
+            return
+        if not self.reuse_packs:
+            raise ValueError("--device_epoch requires --reuse_packs (the "
+                             "epoch cache is what gets staged on the device)")
+        if self.ckpt_every_steps:
+            raise ValueError("--device_epoch has no host-visible steps; "
+                             "--ckpt_every_steps cannot fire inside a staged "
+                             "epoch")
+        if self.steps_per_call > 1:
+            raise ValueError("--device_epoch runs the whole epoch with one "
+                             "host read; --steps_per_call would be silently "
+                             "ignored -- drop one of the two")
 
     # -- checkpointing ----------------------------------------------------
     def _ckpt_meta(self) -> dict:
@@ -218,15 +284,27 @@ class RxnGraphTrainer:
             self._skip_steps = int(mid["steps_done"])
 
     # -- steps ------------------------------------------------------------
-    def _step_seeds(self) -> torch.Tensor:
-        """The step's dropout seeds: one per conv layer, or [n_ep, depth]
-        (one per shard and layer, in shard order) under EP."""
-        self._gen.manual_seed((self._stream[0] << 32) | self._stream[1])
+    def _seeds_at(self, draw: int) -> torch.Tensor:
+        """The dropout seeds of the step at ``draw`` in the stream: one per
+        conv layer, or [n_ep, depth] (one per shard and layer, in shard
+        order) under EP."""
+        self._gen.manual_seed((self._stream[0] << 32) | draw)
         if self.n_ep > 1:
             return torch.randint(0, 2**31 - 1, (self.n_ep, self.cfg.depth),
                                  generator=self._gen,
                                  dtype=torch.int64).to(torch.int32)
         return kernel_seeds(self.cfg, self._gen)
+
+    def _next_seeds(self, n: int) -> torch.Tensor:
+        """The seeds of the next ``n`` steps, [n, ...], the rows the host
+        loop would draw, on the trainer's device in one copy (on the card,
+        the drop tables' rate rows go over once, here, and not in a step
+        loop)."""
+        seeds = torch.stack([self._seeds_at(self._stream[1] + i)
+                             for i in range(n)]).to(self.device)
+        if seeds.device.type == "cuda":
+            stage_rates(self.cfg.dropout_ps, seeds.device)
+        return seeds
 
     def _ep_step(self, kind: str, spec):
         """The EP train ("t") or eval ("e") step of ``spec``."""
@@ -245,25 +323,112 @@ class RxnGraphTrainer:
         return spec, ep_shards(EPPackedBatch(*(a[0] for a in stacked)),
                                self.device)
 
+    def _stack_on_device(self, host: list):
+        """Loader items stacked on the trainer's device, one transfer a
+        field: a packed batch of [n, ...] tensors, or under EP (their one
+        spec, the [n, n_ep, ...] shards of each item's data-parallel
+        group).  :meth:`_staged_row` reads item i back as views."""
+        if self.n_ep == 1:
+            return to_device(PackedGraphBatch(*map(np.stack, zip(*host))),
+                             self.device)
+        spec = host[0][0]
+        if any(sp != spec for sp, _ in host):
+            raise RuntimeError("the reused EP packs must share one spec to "
+                               "be staged")
+        return spec, EPPackedBatch(*(
+            device_tensor(np.stack([b[f][0] for _, b in host]), self.device)
+            for f in range(len(EPPackedBatch._fields))))
+
+    def _device_batches(self, host: list) -> list:
+        """Loader batches on the device: one alone as it is, several
+        stacked in one transfer and taken row by row (views)."""
+        if len(host) == 1:
+            return [self._to_device(host[0])]
+        stacked = self._stack_on_device(host)
+        return [self._staged_row(stacked, j) for j in range(len(host))]
+
+    def _grads(self, batch, seeds) -> torch.Tensor:
+        """The step's loss (0-dim, on the device) with the gradients of
+        every parameter in ``.grad``; no optimizer step."""
+        spec = self.train_loader.spec
+        if self.n_ep > 1:
+            spec, shards = batch
+            return self._ep_step("t", spec)(shards, seeds)
+        if supports_fused_train(self.cfg):
+            return fused_train_value_and_grad(self.model, batch, spec, seeds)
+        self.optimizer.zero_grad()
+        sse = sse_loss(self.model, batch, spec, train=True, seeds=seeds)
+        sse.backward()
+        return sse.detach()
+
     def _train_step(self, batch) -> float:
         """One step on a device batch: the loss; the update is applied only
         when the loss is finite."""
-        spec, seeds = self.train_loader.spec, self._step_seeds()
-        if self.n_ep > 1:
-            spec, shards = batch
-            sse = self._ep_step("t", spec)(shards, seeds)
-        elif supports_fused_train(self.cfg):
-            sse = fused_train_value_and_grad(self.model, batch, spec, seeds)
-        else:
-            self.optimizer.zero_grad()
-            sse = sse_loss(self.model, batch, spec, train=True, seeds=seeds)
-            sse.backward()
-        loss = float(sse.detach())
+        loss = float(self._grads(batch, self._seeds_at(self._stream[1])))
         if math.isfinite(loss):
             self.optimizer.step()
             self.step += 1
             self._stream[1] += 1
         return loss
+
+    def _run_steps(self, batches, seeds: torch.Tensor) -> torch.Tensor:
+        """One step on each device batch in turn, step i with ``seeds[i]``
+        (on the trainer's device), the optimizer stepping always: the [n]
+        losses, left on the device.  Nothing here copies to the device or
+        reads from it."""
+        losses = []
+        for i, batch in enumerate(batches):
+            losses.append(self._grads(batch, seeds[i]))
+            self.optimizer.step()
+        return torch.stack(losses)
+
+    def _train_chunk(self, batches: list) -> list[float]:
+        """``steps_per_call`` steps with one host read: their losses.  A
+        non-finite one rolls the whole chunk back (the state, seeds
+        included, as before it)."""
+        snap = self._snapshot()
+        losses = self._run_steps(batches, self._next_seeds(len(batches)))
+        losses = losses.tolist()
+        if all(math.isfinite(v) for v in losses):
+            self.step += len(batches)
+            self._stream[1] += len(batches)
+        else:
+            self._restore(snap)
+        return losses
+
+    def _state_tensors(self, layout: list) -> list:
+        """The live training tensors: the parameters, then the Adam state
+        of each (``layout``: its state's keys, or none before its first
+        step)."""
+        params = list(self.model.parameters())
+        return [p.detach() for p in params] + [
+            self.optimizer.state[p][k] for p, keys in zip(params, layout)
+            for k in keys]
+
+    def _snapshot(self) -> tuple:
+        """The training state as device-side copies (``optimizer
+        .state_dict()`` would give references) in buffers made once and
+        refilled, with ``step`` and the seed stream."""
+        layout = [tuple(sorted(self.optimizer.state.get(p, {})))
+                  for p in self.model.parameters()]
+        live = self._state_tensors(layout)
+        with torch.no_grad():
+            if [t.shape for t in self._snap] != [t.shape for t in live]:
+                self._snap = [t.clone() for t in live]
+            else:
+                _copy_all(self._snap, live)
+        return layout, self.step, list(self._stream)
+
+    def _restore(self, snap: tuple) -> None:
+        """Put back the state of :meth:`_snapshot`, bit for bit (Adam's
+        state of a parameter dropped where it had none then)."""
+        layout, self.step, stream = snap
+        self._stream = list(stream)
+        for p, keys in zip(self.model.parameters(), layout):
+            if not keys:
+                self.optimizer.state.pop(p, None)
+        with torch.no_grad():
+            _copy_all(self._state_tensors(layout), self._snap)
 
     def _grad_norm(self) -> float:
         return float(torch.sqrt(sum((p.grad.double() ** 2).sum()
@@ -274,7 +439,21 @@ class RxnGraphTrainer:
                                     for p in self.model.parameters())))
 
     # -- epochs -----------------------------------------------------------
+    def _chunks(self):
+        """The loader's batches in lists of ``steps_per_call``, the
+        remainder one at a time (JAX ``trainer.py:749-770``)."""
+        K, pend = self.steps_per_call, []
+        for b in self.train_loader.prefetch():
+            pend.append(b)
+            if len(pend) == K:
+                yield pend
+                pend = []
+        for b in pend:
+            yield [b]
+
     def _train_epoch(self, epoch_idx: int) -> float:
+        if self.device_epoch:
+            return self._train_epoch_device(epoch_idx)
         total = 0.0
         self.train_loader.set_epoch(epoch_idx)
         self._timer.reset_epoch()
@@ -286,20 +465,23 @@ class RxnGraphTrainer:
             (self.logger.log(msg) if self.logger else print(msg))
         steps_done = 0
         hist_sample = None
-        for host_batch in self.train_loader.prefetch():
-            if steps_done < skip:
+        for host in self._chunks():
+            n = len(host)
+            if steps_done + n <= skip:
                 # fast-forward the deterministic loader past steps already
                 # trained before the mid-epoch checkpoint
-                steps_done += 1
+                steps_done += n
                 continue
-            batch = self._to_device(host_batch)
+            batches = self._device_batches(host)
             if (self.log_histograms and hist_sample is None
                     and self.n_ep == 1):
-                hist_sample = batch
-            loss = self._train_step(batch)
-            if not math.isfinite(loss):
-                # NaN/inf guard: the update was not applied (the state and
-                # the seed stream stay at the last good step)
+                hist_sample = batches[0]
+            losses = ([self._train_step(batches[0])] if n == 1
+                      else self._train_chunk(batches))
+            if not all(math.isfinite(v) for v in losses):
+                # NaN/inf guard: the update was not applied, or the chunk
+                # was rolled back (the state and the seed stream stay at
+                # the last good step)
                 bad += 1
                 msg = {"event": "non_finite_loss", "epoch": epoch_idx,
                        "consecutive": bad}
@@ -310,23 +492,96 @@ class RxnGraphTrainer:
                         f"{epoch_idx}; aborting (last checkpoint is intact)")
                 continue
             bad = 0
-            total += loss
-            self._timer.tick()
-            steps_done += 1
-            if (self.ckpt_every_steps
-                    and steps_done % self.ckpt_every_steps == 0):
+            for v in losses:
+                total += v
+            self._timer.tick(n)
+            steps_done += n
+            every = self.ckpt_every_steps
+            if every and steps_done // every > (steps_done - n) // every:
                 self.save(Path(self.model_save_dir)
                           / f"{self.name}.latest.npz",
                           mid_epoch=(epoch_idx, steps_done))
         self._skip_steps = 0
+        return self._end_epoch(epoch_idx, total, hist_sample,
+                               steps_done > skip)
+
+    def _stage_epoch(self) -> tuple:
+        """(the staged cache, its S batches): the loader's reused pack cache
+        on the trainer's device, [S, ...] (EP: the spec and [S, n_ep, ...]),
+        made once.  Single device: in cache order, read past the loader's
+        shuffle, so that each epoch's order is the loader's own and not
+        composed with the staging order (JAX ``trainer.py:621-638``).  EP:
+        the epoch-0 iteration, every item under one spec."""
+        if self._staged is not None:
+            return self._staged
+        if self.n_ep == 1:
+            items = self.train_loader.cached_batches()
+        else:
+            self.train_loader.set_epoch(0)
+            items = list(self.train_loader)
+        staged = self._stack_on_device(items)
+        tensors = staged if self.n_ep == 1 else staged[1]
+        self._staged = (staged, len(items))
+        mb = sum(t.numel() * t.element_size() for t in tensors) / 2**20
+        msg = {"device_epoch_staged_mb": mb}
+        print(json.dumps(msg))
+        if self.logger:
+            self.logger.log(msg)
+        return self._staged
+
+    def _staged_row(self, staged, i: int):
+        """Batch ``i`` of the staged cache as views: a packed batch, or
+        under EP (spec, its shards)."""
+        if self.n_ep == 1:
+            return PackedGraphBatch(*(t[i] for t in staged))
+        spec, b = staged
+        return spec, [EPPackedBatch(*(t[i, k] for t in b))
+                      for k in range(self.n_ep)]
+
+    def _train_epoch_device(self, epoch_idx: int) -> float:
+        """One staged epoch: its seeds copied over once, its steps run with
+        no host read, its losses read once at the end."""
+        staged, S = self._stage_epoch()
+        # the loader's order over the cache; EP staged the epoch-0
+        # iteration, so its epoch 0 is the identity (JAX :690-697)
+        order = (np.arange(S) if self.n_ep > 1 and epoch_idx == 0
+                 else self.train_loader.batch_order(epoch_idx))
+        seeds = self._next_seeds(S)
+        snap = self._snapshot()
+        self._timer.reset_epoch()
+        self._timer.tick()
+        losses = self._run_steps((self._staged_row(staged, i) for i in order),
+                                 seeds).tolist()
+        self._timer.tick(S)
+        if not all(math.isfinite(v) for v in losses):
+            # epoch-granular NaN guard: the whole epoch rolls back, and a
+            # rerun would repeat it (the same batches, seeds and order)
+            self._restore(snap)
+            msg = {"event": "non_finite_loss", "epoch": epoch_idx,
+                   "scope": "device_epoch (epoch rolled back)"}
+            (self.logger.log(msg) if self.logger else print(msg))
+            raise FloatingPointError(
+                f"non-finite loss inside staged epoch {epoch_idx}; state "
+                f"rolled back to epoch start (checkpoint intact)")
+        self.step += S
+        self._stream[1] += S
+        sample = (self._staged_row(staged, 0)
+                  if self.log_histograms and self.n_ep == 1 else None)
+        # summed in step order, as the host loop sums
+        return self._end_epoch(epoch_idx, sum(losses), sample, True)
+
+    def _end_epoch(self, epoch_idx: int, total: float, hist_sample,
+                   stepped: bool) -> float:
+        """The epoch's RMSE, logged with its step times (and norms), and its
+        histograms; ``stepped``: a step ran, so ``.grad`` holds the last
+        step's gradients."""
         rmse = float(np.sqrt(total / len(self.train_data)))
         if self.logger:
             rec = {"train_loss": rmse, "epoch": epoch_idx,
                    **self._timer.stats()}
             if self.log_param_norms:
                 rec["param_norm"] = self._param_norm()
-                if steps_done > skip:
-                    # the gradients of the epoch's last step
+                if stepped:
                     rec["grad_norm"] = self._grad_norm()
             self.logger.log(rec)
         else:

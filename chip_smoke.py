@@ -58,8 +58,17 @@ Phases (any failure raises, and the script exits non-zero):
    ``--loader_workers 1`` bit for bit (the port packs serially whatever
    the flag says) and beside the run without
    ``--reuse_packs``, the busy share of trainer epochs with and without
-   reused packs, ``--ep 2 --reuse_packs`` card against CPU); steps/s and
-   the card's busy share of a training step under torch.profiler;
+   reused packs, ``--ep 2 --reuse_packs`` card against CPU); the
+   trainer's device-resident modes (``device_epoch_phase``: ``--reuse_packs
+   --device_epoch`` at f32 and bf16, the layered configuration, ``--ep 2``
+   and the wired EP step staged, ``--steps_per_call 4``, each against its
+   host loop bit for bit -- ``--ep 2`` from epoch 1 on within rtol 0.05 --
+   and against the CPU; every staged epoch's and chunk's step loop under
+   sync debug mode "error" in a torch.profiler window with no HtoD or DtoH
+   copy, one K2 launch a whole-model step; steps/s and busy share of
+   staged epochs and of chunks beside the host loop, the staged MB);
+   steps/s and the card's busy share of a
+   training step under torch.profiler;
 7. the layered-kernel configuration (``fuse_whole_model=False``): the
    gather-linear K5 (edge_init and readout), the conv stack K4 (eval and
    train mode) and the ELL gather-sum K7 (pooling, its transposed
@@ -2063,6 +2072,351 @@ def train_modes_phase(tmp: Path, seed: int, card: str) -> dict:
           f"{same}; steps/s per epoch (StepTimer) {out['steps_per_s']}; "
           f"trainer epochs (steps/s, busy %) {out['trainer_epochs']}; --ep "
           f"2 --reuse_packs card vs CPU {ep_rel:.3e} [{card}]")
+    print(json.dumps(out, default=float))
+    return out
+
+
+COPY_CALLS = ("cudaMemcpyAsync", "cudaMemcpy", "cudaMemcpy2DAsync",
+              "cuMemcpyHtoDAsync_v2", "cuMemcpyAsync")
+T1X_REACTIONS = 10073   # Transition1x's reactions (SURVEY.md, dataset scale)
+
+
+def launch_counters() -> dict:
+    """Every kernel wrapper's launch counter, as "module.counter"."""
+    from cgr_mpnn_3d_tpu_torch.ops import (conv_stack, fused_conv,
+                                           fused_model, gather_linear,
+                                           onehot_spmm)
+    from cgr_mpnn_3d_tpu_torch.parallel import rdma_exchange
+    return {f"{m.__name__.rsplit('.', 1)[1]}.{k}": v
+            for m in (conv_stack, fused_conv, fused_model, gather_linear,
+                      onehot_spmm, rdma_exchange)
+            for k, v in vars(m).items()
+            if k.endswith("launches") and isinstance(v, int)}
+
+
+class StrictSteps:
+    """While active, every ``RxnGraphTrainer._run_steps`` call on the card
+    (the steps of a staged epoch, or of a ``--steps_per_call`` chunk, once
+    their batches and seeds are on the card) runs under
+    ``torch.cuda.set_sync_debug_mode("error")``, so that a call that waits
+    for the card raises, inside a torch.profiler window that ends with one
+    control host-to-device copy.  ``windows`` gets a record a call: its
+    steps, the copy runtime calls (every direction) and the ``Memcpy
+    HtoD``, ``DtoH`` and ``DtoD`` device records of the window (the
+    control's HtoD included: it shows that the window records copies), its
+    cooperative launches and the launch counters that moved."""
+
+    def __init__(self):
+        self.windows: list[dict] = []
+
+    def __enter__(self):
+        from cgr_mpnn_3d_tpu_torch.train.trainer import RxnGraphTrainer
+        self._cls, self._orig = RxnGraphTrainer, RxnGraphTrainer._run_steps
+        orig, windows = self._orig, self.windows
+
+        def run_steps(tr, batches, seeds):
+            import torch
+            from torch.profiler import ProfilerActivity, profile
+            if tr.device.type != "cuda":
+                return orig(tr, batches, seeds)
+            torch.cuda.synchronize()
+            before = launch_counters()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                torch.cuda.set_sync_debug_mode("error")
+                try:
+                    losses = orig(tr, batches, seeds)
+                finally:
+                    torch.cuda.set_sync_debug_mode("default")
+                torch.ones(4).to(tr.device, non_blocking=True)
+                torch.cuda.synchronize()
+            after = launch_counters()
+            ev = prof.key_averages()
+            windows.append(dict(
+                steps=len(losses),
+                copy_calls=sum(e.count for e in ev if e.key in COPY_CALLS),
+                htod=sum(e.count for e in ev if "Memcpy HtoD" in e.key),
+                dtoh=sum(e.count for e in ev if "Memcpy DtoH" in e.key),
+                dtod=sum(e.count for e in ev if "Memcpy DtoD" in e.key),
+                coop=sum(e.count for e in ev
+                         if e.key == "cudaLaunchCooperativeKernel"),
+                moved={k: after[k] - v for k, v in before.items()
+                       if after[k] != v}))
+            return losses
+        RxnGraphTrainer._run_steps = run_steps
+        return self
+
+    def __exit__(self, *exc):
+        self._cls._run_steps = self._orig
+
+
+def _latest_leaves(run_dir: Path) -> list:
+    from cgr_mpnn_3d_tpu_torch.train import load_checkpoint
+    (f,) = (run_dir / "saved").glob("*.latest.npz")
+    return load_checkpoint(f)[0]
+
+
+def _same_leaves(a: list, b: list) -> bool:
+    return len(a) == len(b) and all(np.array_equal(x, y)
+                                    for x, y in zip(a, b))
+
+
+def _max_rel(a: dict, b: dict) -> float:
+    return max(abs(x - y) / abs(y) for key in ("train_losses", "val_losses")
+               for x, y in zip(a[key], b[key]))
+
+
+def _staged_mb(run_dir: Path) -> float:
+    (mb,) = [json.loads(line)["device_epoch_staged_mb"]
+             for f in (run_dir / "runs").glob("*.jsonl")
+             for line in f.read_text().splitlines()
+             if "device_epoch_staged_mb" in line]
+    return mb
+
+
+def device_epoch_phase(tmp: Path, seed: int, card: str) -> dict:
+    """The trainer's device-resident modes with the README's model and
+    flags on the corpus, 3 epochs on the card: ``--reuse_packs
+    --device_epoch`` against ``--reuse_packs`` at f32 and bf16 (per-epoch
+    RMSE and the final state -- parameters, Adam, step, seed stream -- bit
+    for bit), the layered configuration through ``RxnGraphTrainer``
+    (the same), ``--ep 2 --reuse_packs --device_epoch`` (epoch 0 bit for
+    bit, then within rtol 0.05 of the host loop), ``--steps_per_call 4``
+    against 1 (bit for bit); each mode's card run against its run on the
+    CPU (2 epochs) within TRAIN_TOL.  Every step loop of a staged epoch or
+    a chunk runs under StrictSteps: no synchronizing call, no copy to the
+    card and none from it (the window's Memcpy records: one HtoD, its
+    control), one K2 launch a
+    whole-model step (n_ep a step under --ep 2), the backward of K4 once a
+    layered step.  The wired EP step (K5, K8 per layer and shard, K11) in
+    staged epochs of ep_train_wired's set, bit for bit with its host loop.
+    Then steps/s (wall and StepTimer) and the card's busy share of staged
+    epochs and of chunks of 4 beside the host loop's (smoke readings), and
+    the staged MB."""
+    import dataclasses
+    import torch
+    from cgr_mpnn_3d_tpu_torch.data import ChemDataset, plan_spec
+    from cgr_mpnn_3d_tpu_torch.data.batch import PackSpec
+    from cgr_mpnn_3d_tpu_torch.models import CGRMPNNConfig
+    from cgr_mpnn_3d_tpu_torch.train import RxnGraphTrainer, load_checkpoint
+    from cgr_mpnn_3d_tpu_torch.train.profiler import StepTimer
+    from cgr_mpnn_3d_tpu_torch.train.trainer import set_epoch_lr
+    t_phase = time.perf_counter()
+    de = tmp / "device_epoch"
+    data = training_data(de, seed)
+    out = {"phase": "device-resident modes", "card": card}
+
+    def hold_windows(label: str, wins: list, per_step: dict,
+                     sizes: set) -> None:
+        """Every step loop of ``wins`` has a size in ``sizes``, makes no
+        copy to the card and launches ``per_step`` a step."""
+        check(len(wins) >= 3 and {w["steps"] for w in wins} <= sizes,
+              f"{label}: strict step loops of {[w['steps'] for w in wins]} "
+              f"steps, expected 3 or more of {sizes}")
+        for w in wins:
+            moved = {k: w["moved"].get(k, 0) / w["steps"] for k in per_step}
+            check(w["htod"] == 1 and w["dtoh"] == 0 and moved == per_step,
+                  f"{label}: a step loop's window recorded {w['htod']} "
+                  f"Memcpy HtoD (1 is the control) and {w['dtoh']} DtoH, "
+                  f"and launched {moved} a step, expected {per_step}")
+
+    # (label, the mode's flags, its host loop's flags, launches a step)
+    pairs = (
+        ("f32", ("--reuse_packs", "--device_epoch"), ("--reuse_packs",),
+         {"fused_model.train_launches": 1}),
+        ("bf16", ("--reuse_packs", "--device_epoch", "--compute_dtype", BF16),
+         ("--reuse_packs", "--compute_dtype", BF16),
+         {"fused_model.bf16_train_launches": 1,
+          "fused_model.train_launches": 0}),
+        ("--ep 2", ("--ep", "2", "--reuse_packs", "--device_epoch"),
+         ("--ep", "2", "--reuse_packs"), {"fused_model.train_launches": 2}),
+        ("--steps_per_call 4", ("--steps_per_call", "4"), (),
+         {"fused_model.train_launches": 1}))
+    runs = {}
+    with StrictSteps() as strict:
+        for label, mode, plain, per_step in pairs:
+            tag = label.replace("-", "").replace(" ", "_")
+            host = _cli_run(de / f"{tag}_host", data, seed, DEVICE, 3, *plain)
+            n0 = len(strict.windows)
+            dev = _cli_run(de / f"{tag}_dev", data, seed, DEVICE, 3, *mode)
+            wins = strict.windows[n0:]
+            # a staged epoch is one step loop of the cache's S batches;
+            # --steps_per_call 4 one a chunk of 4 (the remainder runs as
+            # single host-loop steps)
+            hold_windows(label, wins, per_step,
+                         {dev["steps"] // 3} if "--device_epoch" in mode
+                         else {4})
+            coop = [w["coop"] / w["steps"] for w in wins]
+            cpu = _cli_run(de / f"{tag}_cpu", data, seed, "cpu", 2, *mode)
+            rel_cpu = _max_rel(dev, cpu)
+            check(rel_cpu <= TRAIN_TOL, f"{label} card vs CPU RMSE differ by "
+                                        f"{rel_cpu:.3e}")
+            if label == "--ep 2":
+                first = (dev["train_losses"][0] == host["train_losses"][0]
+                         and dev["val_losses"][0] == host["val_losses"][0])
+                rel_host = _max_rel(dev, host)
+                check(first and rel_host <= 0.05
+                      and dev["train_losses"][-1] < dev["train_losses"][0],
+                      f"--ep 2 staged epochs {dev['train_losses']} against "
+                      f"the host loop's {host['train_losses']}")
+                same = f"epoch 0 bit for bit, then max rel {rel_host:.3e}"
+            else:
+                check(dev["train_losses"] == host["train_losses"]
+                      and dev["val_losses"] == host["val_losses"]
+                      and _same_leaves(_latest_leaves(de / f"{tag}_dev"),
+                                       _latest_leaves(de / f"{tag}_host")),
+                      f"{label}: {dev['train_losses']} against the host "
+                      f"loop's {host['train_losses']}, or the final states "
+                      f"differ")
+                same = "RMSE and final state bit for bit"
+            runs[label] = dict(steps=dev["steps"], rel_cpu=rel_cpu,
+                               windows=len(wins),
+                               cooperative_a_step=coop,
+                               train_losses=dev["train_losses"],
+                               host_train_losses=host["train_losses"])
+            print(f"device modes {label}: 3 epochs, {dev['steps']} steps, "
+                  f"train RMSE {dev['train_losses']} against the host loop's "
+                  f"{host['train_losses']} ({same}); card vs CPU (2 epochs) "
+                  f"{rel_cpu:.3e} (limit {TRAIN_TOL}); "
+                  f"{len(wins)} strict step loops: no sync, "
+                  f"no copy to or from the card, launches a step {per_step}, "
+                  f"cooperative launches a step {coop} [{card}]")
+
+        # the layered configuration through the trainer
+        ds = ChemDataset(str(data / "train.csv"),
+                         data_npz_path=str(data / "train.npz"))
+        ds.prefeaturize(num_workers=2, cache=True)
+        spec = plan_spec([ds.graph(i) for i in range(len(ds))])
+        cfg = CGRMPNNConfig(num_node_features=ds.num_node_features,
+                            num_edge_features=ds.num_edge_features, depth=4,
+                            hidden_sizes=(400,) * 4, dropout_ps=(0.1,) * 4)
+
+        def trainer(device, name, epochs=3, fuse=False, **kw):
+            return RxnGraphTrainer(
+                name=name, cfg=dataclasses.replace(cfg, fuse_whole_model=fuse),
+                train_data=ds, val_data=ds, spec=spec, lr=1e-4,
+                weight_decay=1e-5, gamma=0.9, num_epochs=epochs,
+                batch_size=64, val_frequency=1, seed=seed,
+                model_save_dir=str(de / name), device=device,
+                reuse_packs=True, **kw)
+
+        def state(tr):
+            return load_checkpoint(tr.save(de / tr.name / "state.npz"))[0]
+        host_tr = trainer(DEVICE, "layered_host")
+        host = host_tr.train()
+        n0 = len(strict.windows)
+        dev_tr = trainer(DEVICE, "layered_dev", device_epoch=True)
+        dev = dev_tr.train()
+        wins = strict.windows[n0:]
+        hold_windows("layered", wins,
+                     {"conv_stack.bwd_launches": 1,
+                      "gather_linear.bwd_launches": 2,
+                      "onehot_spmm.bwd_launches": 1,
+                      "fused_model.train_launches": 0}, {dev["steps"] // 3})
+        cpu = trainer("cpu", "layered_cpu", 2, device_epoch=True).train()
+        rel_cpu = _max_rel(dev, cpu)
+        check(dev["train_losses"] == host["train_losses"]
+              and dev["val_losses"] == host["val_losses"]
+              and _same_leaves(state(dev_tr), state(host_tr))
+              and rel_cpu <= TRAIN_TOL,
+              f"layered staged epochs {dev['train_losses']} against the host "
+              f"loop's {host['train_losses']} (or the states differ), card vs "
+              f"CPU {rel_cpu:.3e}")
+        runs["layered"] = dict(steps=dev["steps"], rel_cpu=rel_cpu,
+                               train_losses=dev["train_losses"])
+        print(f"device modes layered: 3 epochs, {dev['steps']} steps, train "
+              f"RMSE {dev['train_losses']} (RMSE and final state bit for bit "
+              f"with the host loop); card vs CPU (2 epochs) {rel_cpu:.3e} "
+              f"(limit {TRAIN_TOL}); {len(wins)} strict step loops [{card}]")
+
+        # the wired EP step (K5, K8 per layer and shard, K11) in a staged
+        # epoch: ep_train_wired's set, one batch an epoch
+        graphs, labels = ep_graphs(seed + 3, 7, (480,))
+        wired = GraphSet(graphs, labels, 270)
+
+        def ep_trainer(device, name, epochs=3, **kw):
+            return RxnGraphTrainer(
+                name=name, cfg=dataclasses.replace(
+                    cfg, num_node_features=270, num_edge_features=14),
+                train_data=wired, val_data=wired, spec=PackSpec(), lr=1e-4,
+                weight_decay=1e-5, gamma=0.9, num_epochs=epochs,
+                batch_size=len(wired), val_frequency=1, seed=seed,
+                model_save_dir=str(de / name), device=device, n_ep=2,
+                reuse_packs=True, **kw)
+        host_tr = ep_trainer(DEVICE, "wired_host")
+        host = host_tr.train()
+        n0 = len(strict.windows)
+        dev_tr = ep_trainer(DEVICE, "wired_dev", device_epoch=True)
+        dev = dev_tr.train()
+        wins = strict.windows[n0:]
+        hold_windows("wired --ep 2", wins,
+                     {"fused_conv.r_bwd_launches": 8,
+                      "gather_linear.pool_bwd_launches": 2,
+                      "gather_linear.bwd_launches": 2,
+                      "fused_model.train_launches": 0}, {1})
+        cpu = ep_trainer("cpu", "wired_cpu", 2, device_epoch=True).train()
+        rel_cpu = _max_rel(dev, cpu)
+        check(any(dev_tr._staged[0][0].caps)
+              and dev["train_losses"] == host["train_losses"]
+              and dev["val_losses"] == host["val_losses"]
+              and _same_leaves(state(dev_tr), state(host_tr))
+              and rel_cpu <= TRAIN_TOL,
+              f"wired --ep 2 staged epochs {dev['train_losses']} against the "
+              f"host loop's {host['train_losses']} (or the states differ), "
+              f"card vs CPU {rel_cpu:.3e}")
+        runs["wired --ep 2"] = dict(steps=dev["steps"], rel_cpu=rel_cpu,
+                                    train_losses=dev["train_losses"])
+        print(f"device modes wired --ep 2: 3 epochs of one staged batch (a "
+              f"480-atom chain cut across 2 shards and 7 graphs), train RMSE "
+              f"{dev['train_losses']} (RMSE and final state bit for bit with "
+              f"the host loop); card vs CPU (2 epochs) {rel_cpu:.3e} (limit "
+              f"{TRAIN_TOL}); {len(wins)} strict step loops, K8 backward 8 a "
+              f"step [{card}]")
+    windows = strict.windows
+    steps = sum(w["steps"] for w in windows)
+    print(f"device modes: {len(windows)} strict step loops, {steps} steps, "
+          f"under sync debug mode \"error\"; Memcpy HtoD 0 and DtoH 0 in "
+          f"each (its control HtoD recorded in every window); DtoD "
+          f"{sum(w['dtod'] for w in windows)} and copy runtime calls "
+          f"{sum(w['copy_calls'] - 1 for w in windows)} in all, on the card "
+          f"[{card}]")
+
+    # smoke readings: staged epochs and chunks of 4 beside the host loop,
+    # f32 whole-model: the wall rate of epochs 1-3, the StepTimer's steps/s
+    # over them (the trainer's own reading: a host-looped epoch leaves its
+    # first step or chunk untimed), and the busy share of epochs 4-6
+    readings = {}
+    for _ in range(2):
+        for name, kw in (("host loop", {}),
+                         ("device epoch", dict(device_epoch=True)),
+                         ("steps_per_call 4", dict(steps_per_call=4))):
+            tr = trainer(DEVICE, "rate", fuse=True, **kw)
+            set_epoch_lr(tr.optimizer, tr.lr, tr.gamma, 0)
+            tr._train_epoch(0)
+            torch.cuda.synchronize()
+            tr._timer = StepTimer(warmup=0)
+            t0, step0 = time.perf_counter(), tr.step
+            for e in (1, 2, 3):
+                tr._train_epoch(e)
+            torch.cuda.synchronize()
+            rate = (tr.step - step0) / (time.perf_counter() - t0)
+            timer = tr._timer.stats()["steps_per_s"]
+            wall_ms, dev_ms, _ = device_busy(
+                lambda: [tr._train_epoch(e) for e in (4, 5, 6)])
+            readings.setdefault(name, []).append(
+                {"steps_per_s": rate, "timer_steps_per_s": timer,
+                 "busy_pct": 100 * dev_ms / wall_ms})
+    mb = _staged_mb(de / "f32_dev")
+    out.update(runs=runs, readings=readings, staged_mb=mb,
+               staged_mb_t1x=mb / len(ds) * T1X_REACTIONS,
+               wall_s=time.perf_counter() - t_phase)
+    print(f"device modes: staged {mb:.3f} MB for {len(ds)} reactions "
+          f"({mb / len(ds) * 1e3:.3f} KB a reaction: "
+          f"{out['staged_mb_t1x']:.1f} MB at Transition1x's "
+          f"{T1X_REACTIONS} reactions); trainer epochs, README model f32, 3 "
+          f"epochs of {len(tr.train_loader.cached_batches())} steps (chunks "
+          f"of 4, the remainder single steps), 2 rounds (wall steps/s, "
+          f"StepTimer steps/s, busy %; smoke readings): {readings} [{card}]")
     print(json.dumps(out, default=float))
     return out
 
@@ -4906,6 +5260,10 @@ def main(argv=None) -> int:
             t0 = time.perf_counter()
             train_modes_phase(Path(tmp), args.seed, card)
             print(f"phase wall: train with the loader's modes "
+                  f"{time.perf_counter() - t0:.1f} s")
+            t0 = time.perf_counter()
+            device_epoch_phase(Path(tmp), args.seed, card)
+            print(f"phase wall: the trainer's device-resident modes "
                   f"{time.perf_counter() - t0:.1f} s")
             rates = train_profile(Path(tmp), args.seed, card)
             trn_16 = train_phase_bf16(Path(tmp), args.seed, card,

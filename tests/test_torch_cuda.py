@@ -9,8 +9,10 @@ layered path, and the activation-chain probe's kernel; the bf16
 instantiation of the whole-model kernels against their bf16 plain versions
 (reruns bit for bit, the bf16 launch counters, a bf16 model on the card
 against the CPU), no CUDA tensor reaching a plain version, the matmul
-probe's kernel (P2), and ``predict`` over natively featurized graphs
-against the Python twin's.  Run on a GPU machine with:
+probe's kernel (P2), ``predict`` over natively featurized graphs
+against the Python twin's, and the trainer's device-resident modes (seeds
+on the card give host seeds' bits; a staged epoch equals the host loop
+with no synchronizing call in its steps).  Run on a GPU machine with:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py -q
 
@@ -20,6 +22,7 @@ the port need not have.)
 
 import dataclasses
 import itertools
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -2057,7 +2060,9 @@ def _launches_of_one_call(fn, module) -> tuple[int, dict, list]:
     A later profiling session in the same process can lose the device
     records while the runtime calls are always recorded, so the launches
     are counted from the runtime calls and the names are checked by
-    :func:`_assert_kernel` whenever the device records are there."""
+    :func:`_assert_kernel` whenever the device records are there; and a
+    session can hand over device records of its warm-up step too, so only
+    the kernels that started inside the active step count."""
     import time
 
     from torch.autograd import DeviceType
@@ -2082,13 +2087,18 @@ def _launches_of_one_call(fn, module) -> tuple[int, dict, list]:
         fn()
         torch.cuda.synchronize()
         prof.step()
-    events = prof.key_averages()
-    return (sum(e.count for e in events if e.key in LAUNCH_CALLS), moved,
-            [e.key for e in events for _ in range(e.count)
+    events = prof.events()
+    active = max(e.time_range.start for e in events
+                 if e.name.startswith("ProfilerStep")
+                 and e.device_type == DeviceType.CPU)
+    return (sum(e.count for e in prof.key_averages()
+                if e.key in LAUNCH_CALLS), moved,
+            [e.name for e in events
              if e.device_type == DeviceType.CUDA
+             and e.time_range.start >= active
              # the step's own annotation is recorded on the device too
-             and not e.key.startswith(("Memcpy", "Memset",
-                                       "ProfilerStep"))])
+             and not e.name.startswith(("Memcpy", "Memset",
+                                        "ProfilerStep"))])
 
 
 def _assert_kernel(got, counter, kernel):
@@ -2340,3 +2350,106 @@ def test_predict_on_native_features_matches_the_python_twin(cuda, tmp_path):
     assert native_pred.shape == (80,) and np.isfinite(native_pred).all()
     scale = max(float(np.abs(python_pred).max()), 1e-30)
     assert float(np.abs(native_pred - python_pred).max()) / scale <= 1e-4
+
+
+# -- the trainer's device-resident modes ----------------------------------------
+
+SEEDS = [7, 2**31 - 2, 12345]
+
+
+@pytest.mark.parametrize("kernel", ["K2", "K4", "K8"])
+def test_device_seeds_give_the_host_seeds_bits(cuda, kernel):
+    """Seeds already on the card (an int32 tensor; K8 a 0-dim row of it)
+    build the dropout table there and give the outputs of host seeds bit
+    for bit, forward and backward."""
+    from cgr_mpnn_3d_tpu_torch.ops import conv_stack as cs
+    from cgr_mpnn_3d_tpu_torch.ops import fused_conv as fc
+    dev_seeds = torch.tensor(SEEDS, dtype=torch.int32).to(cuda)
+    if kernel == "K2":
+        _, batch, args, adj, labels, kw = _train_case(cuda, "ReLU", "add",
+                                                      "add", 0.3)
+
+        def run(seeds):
+            return fm.fused_model_train(args, adj, labels,
+                                        batch.graph_mask.float(),
+                                        **dict(kw, seeds=seeds))
+    elif kernel == "K4":
+        spec, b, rand = _layered_inputs(cuda)
+        ET, H, L = b.edge_nbr.shape[0], 40, 3
+        h0, g = rand(ET, H), rand(ET, H)
+        ws = (rand(L, H, H, scale=0.2), rand(L, H, scale=0.1),
+              torch.tensor([0.8, -0.3, 1.2], device=cuda))
+        idx = (b.edge_nbr, b.rev)
+
+        def run(seeds):
+            kw = dict(p=spec.p, act="relu", train=True, seeds=seeds,
+                      dropout_ps=(0.3,) * L)
+            return (cs.conv_stack_forward(h0, *idx, *ws, **kw),
+                    *cs.conv_stack_backward(h0, *idx, b.edge_nbr_rev, *ws, g,
+                                            **kw))
+    else:
+        spec, shards, rand = _ep_case(cuda)
+        b = max(shards, key=lambda s: float(s.halo_mask.sum()))
+        H = 40
+        ins = (rand(spec.pe, H), rand(spec.pn, H), rand(spec.pe, H),
+               b.edge_nbr, b.rev, b.senders)
+        ws = (rand(H, H, scale=0.2), rand(H, scale=0.1),
+              torch.tensor(0.8, device=cuda))
+        g = rand(spec.pe, H)
+
+        def run(seeds):
+            kw = dict(p=spec.p, tn=spec.tn, act="relu", train=True,
+                      seed=seeds[1], dropout_p=0.3)
+            out = fc.fused_conv_r_forward(*ins, *ws, **kw)
+            return (out, *fc.fused_conv_r_backward(
+                *ins, b.edge_nbr_rev, b.node_out, *ws, out, g, **kw))
+    host, on_card = _flat(run(SEEDS)), _flat(run(dev_seeds))
+    torch.cuda.synchronize()
+    assert len(host) == len(on_card) > 1
+    assert all(torch.equal(x, y) for x, y in zip(host, on_card))
+
+
+def _demo_trainer(cuda_or_cpu, tmp_path, name, **kw):
+    from cgr_mpnn_3d_tpu_torch.data import ChemDataset
+    from cgr_mpnn_3d_tpu_torch.train import RxnGraphTrainer
+    ds = ChemDataset(str(Path(__file__).resolve().parent.parent
+                         / "examples" / "demo.csv"))
+    cfg = CGRMPNNConfig(num_node_features=ds.num_node_features,
+                        num_edge_features=ds.num_edge_features, depth=3,
+                        hidden_sizes=(64,) * 3, dropout_ps=(0.2,) * 3)
+    spec = plan_spec([ds.graph(i) for i in range(len(ds))], te=64, tn=32,
+                     tb=4)
+    return RxnGraphTrainer(name=name, cfg=cfg, train_data=ds, val_data=ds,
+                           spec=spec, batch_size=2, val_frequency=1, seed=4,
+                           gamma=0.9, num_epochs=3,
+                           model_save_dir=str(tmp_path / name),
+                           device=cuda_or_cpu, reuse_packs=True, **kw)
+
+
+def test_device_epoch_on_card_equals_the_host_loop(cuda, tmp_path):
+    """The whole-model trainer's staged epochs on the card: losses and
+    parameters equal its host loop's bit for bit over 3 epochs (dropout
+    0.2, gamma 0.9), one K2 launch a step, and every step loop runs under
+    torch.cuda.set_sync_debug_mode("error"): no call in it waits for the
+    card."""
+    host = _demo_trainer(cuda, tmp_path, "host")
+    dev = _demo_trainer(cuda, tmp_path, "dev", device_epoch=True)
+    run_steps = dev._run_steps
+
+    def strict(batches, seeds):
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return run_steps(batches, seeds)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    dev._run_steps = strict
+    out_h = host.train()
+    before = fm.train_launches
+    out_d = dev.train()
+    assert fm.train_launches - before == out_d["steps"] == 15
+    assert out_d["train_losses"] == out_h["train_losses"]
+    assert out_d["val_losses"] == out_h["val_losses"]
+    for x, y in zip(host.model.parameters(), dev.model.parameters()):
+        assert torch.equal(x, y)
+    assert (host.step, host._stream) == (dev.step, dev._stream)

@@ -12,7 +12,8 @@ against the JAX package's ``parallel/ep_pack.py`` on the CPU:
 * shard-count invariance and the single-device model's loss; the zero-cut
   one-kernel step against the autograd step; JAX weights carried in by
   ``params_from_jax``; the training CLI with ``--ep`` (also at bf16, with
-  ``--ep_overlap`` and with ``--ep_rdma``) and its refusals.
+  ``--ep_overlap``, with ``--ep_rdma`` and with ``--reuse_packs
+  --device_epoch``) and its refusal of ``--dp``.
 """
 
 import dataclasses
@@ -417,9 +418,9 @@ def _data(tmp_path):
 def test_train_cli_with_ep_and_its_refusals(tmp_path, monkeypatch):
     """cli.train --ep 2 trains on the CPU (zero cut: the one-kernel step's
     plain version, validation through K5/K4/K11's), also with
-    --compute_dtype bfloat16, --ep_overlap, --ep_rdma and --reuse_packs
-    with --loader_workers 2; the flags whose paths are not ported raise
-    before any data is read."""
+    --compute_dtype bfloat16, --ep_overlap, --ep_rdma, --reuse_packs
+    with --loader_workers 2 and --reuse_packs --device_epoch; --dp, whose
+    path is not ported, raises before any data is read."""
     from cgr_mpnn_3d_tpu_torch.cli.train import main
     monkeypatch.chdir(tmp_path)
     data = _data(tmp_path)
@@ -431,11 +432,11 @@ def test_train_cli_with_ep_and_its_refusals(tmp_path, monkeypatch):
     assert res["steps"] > 0 and len(res["val_losses"]) == 2
     assert np.isfinite(res["train_losses"]).all()
     for flags in (["--compute_dtype", "bfloat16"], ["--ep_overlap"],
-                  ["--ep_rdma"], ["--reuse_packs", "--loader_workers", "2"]):
+                  ["--ep_rdma"], ["--reuse_packs", "--loader_workers", "2"],
+                  ["--reuse_packs", "--device_epoch"]):
         res = main(base + ["-ne", "2"] + flags)
         assert res["steps"] > 0 and len(res["val_losses"]) == 2
         assert np.isfinite(res["train_losses"]).all()
-    for flags in (["--dp", "2"], ["--device_epoch"],
-                  ["--steps_per_call", "2"]):
+    for flags in (["--dp", "2"],):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             main(base + ["-ne", "1", "--data_path", "missing"] + flags)

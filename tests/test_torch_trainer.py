@@ -331,14 +331,15 @@ def test_cli_loader_modes_and_the_feature_cache(tmp_path, monkeypatch):
     (["--dp", "2"], "ROADMAP.md section 1.5, data parallel and multi-host"),
     (["--dp", "2", "--ep", "2"], "section 1.5, data parallel and multi-host;"
                                  " with --ep, section 1.6 item 5"),
-    (["--device_epoch"], "ROADMAP.md section 1.3, the loader's other modes"),
-    (["--steps_per_call", "2", "--ep", "2"],
-     "ROADMAP.md section 1.3, the loader's other modes")])
+    (["--dp", "2", "--device_epoch"],
+     "ROADMAP.md section 1.5, data parallel and multi-host"),
+    (["--dp", "2", "--steps_per_call", "2"],
+     "ROADMAP.md section 1.5, data parallel and multi-host")])
 def test_cli_refusals_name_their_roadmap_items(flags, text):
     """cli/train.py refuses the unported flags before any data is read,
     naming the ROADMAP.md item: data parallelism is section 1.5 (with
-    --ep also 1.6 item 5), a device-resident epoch and several steps per
-    call 1.3; no message cites edge partitioning without --ep."""
+    --ep also 1.6 item 5), also beside the device-resident modes, which
+    run; no message cites edge partitioning without --ep."""
     from cgr_mpnn_3d_tpu_torch.cli import train as cli_train
     with pytest.raises(NotImplementedError) as err:
         cli_train.main(["-ne", "1", "--data_path", "missing", "--device",
