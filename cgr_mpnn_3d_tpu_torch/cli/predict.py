@@ -3,9 +3,13 @@
 The counterpart of ``cgr_mpnn_3d_tpu/cli/predict.py`` with the same flags,
 plus ``--device`` (default ``cuda``) and ``--batch_size``.  Requests are
 featurized by the native C++ featurizer (``native/``); the entry point's
-``use_native=False`` takes the pure-Python twin.  The MACE descriptor step
-is not ported yet, so the descriptors come from a precomputed ``.npz``
-(``--data_path_npz``).
+``use_native=False`` takes the pure-Python twin.  The descriptors come
+from a precomputed ``.npz`` (``--data_path_npz``) or, without one, from the
+xyz file (``--data_path_coordinates``): ``data.descriptors.
+process_xyz_to_npz`` writes ``<xyz stem>.npz`` beside it on ``device``
+through the MACE backend (the optional ``mace-torch`` package; without it
+the call raises ImportError and writes nothing), and the request is served
+from that file.
 """
 
 from __future__ import annotations
@@ -17,6 +21,7 @@ from pathlib import Path
 import torch
 
 from ..data import ChemDataset, plan_spec
+from ..data.descriptors import process_xyz_to_npz
 from ..train import load_model, predict
 from ..utils import AsciiTable
 
@@ -36,10 +41,15 @@ def activation_energy_prediction(
     if not data_path_smiles.is_file():
         raise FileNotFoundError(f"SMILES file not found: {data_path_smiles}")
     if npz_path is None:
-        raise NotImplementedError(
-            f"MACE descriptors from {input_coordinates or 'an xyz file'} are "
-            "not computed by this package yet: pass a precomputed descriptor "
-            "npz (--data_path_npz)")
+        data_path_coordinates = Path(input_coordinates)
+        if not data_path_coordinates.is_file():
+            raise FileNotFoundError(
+                f"3D coordinates file not found: {data_path_coordinates}")
+        npz = data_path_coordinates.parent / (data_path_coordinates.stem
+                                              + ".npz")
+        process_xyz_to_npz(data_path_smiles, data_path_coordinates, npz,
+                           device=str(device))
+        npz_path = str(npz)
 
     model, cfg, _ = load_model(model_path, device)
     pred_data = ChemDataset(str(data_path_smiles), data_npz_path=npz_path,
@@ -48,7 +58,8 @@ def activation_energy_prediction(
         raise ValueError(
             f"model expects {cfg.num_node_features} node features but the "
             f"input provides {pred_data.num_node_features} — a CGR-MPNN-3D "
-            "model needs matching MACE descriptors (--data_path_npz)")
+            "model needs matching MACE descriptors (--data_path_npz / "
+            "--data_path_coordinates)")
     pred_data.prefeaturize()
     graphs = [pred_data.graph(i) for i in range(len(pred_data))]
     preds = predict(model, pred_data, plan_spec(graphs), batch_size, device)
@@ -87,8 +98,7 @@ def main(argv=None) -> None:
                     default="saved_models/CGR-MPNN-3D.npz")
     ap.add_argument("--data_path_results", default="results.txt")
     ap.add_argument("--data_path_npz", default=None,
-                    help="precomputed descriptor npz (required: the MACE "
-                         "step is not ported yet)")
+                    help="precomputed descriptor npz (skips MACE)")
     ap.add_argument("--store_results", action="store_true")
     ap.add_argument("--print_results", action="store_true")
     ap.add_argument("--output_format", default="text",

@@ -1,12 +1,13 @@
-"""Train CLI: the counterpart of ``cgr_mpnn_3d_tpu/cli/train.py`` on one
-device, with its single-device flags plus ``--device`` (default ``cuda``).
+"""Train CLI: the counterpart of ``cgr_mpnn_3d_tpu/cli/train.py`` in one
+process on one device, with its flags (but ``--pack_q``) plus ``--device``
+(default ``cuda``).
 
 Usage (the README's model):
   python -m cgr_mpnn_3d_tpu_torch.cli.train --name CGR-MPNN-3D -d 4 \\
       --hidden_sizes 400 --dropout_ps 0.1 -af ReLU -lr 1e-4 -ne 50 \\
       --weight_decay 1e-5 -bs 64 -g 0.9 --data_path datasets \\
-      [--compute_dtype bfloat16 | --ep 2] [--reuse_packs --device_epoch |
-      --steps_per_call 4]
+      [--compute_dtype bfloat16] [--dp 2] [--ep 2] [--reuse_packs
+      --device_epoch | --steps_per_call 4]
 
 ``--data_path`` holds ``train.csv`` and ``val.csv`` (and ``test.csv`` unless
 ``--skip_test``), plus ``<split>.npz`` descriptors for CGR-MPNN-3D; a
@@ -19,12 +20,19 @@ kernels' bf16 products (on the CPU their plain versions at bf16);
 parameters and Adam stay f32.  The test after training loads the
 checkpoint in f32, as the JAX CLI does.
 
+``--dp N`` splits every step's batch into N data-parallel groups of
+ceil(batch_size / N) graphs (a short last group padded with an all-masked
+batch) and runs every group in this process on the one device, summing
+the groups' losses and gradients (``parallel/data_parallel.py``): one
+training-kernel launch a group and step in the whole-model configuration.
+
 ``--ep N`` shards every batch's edges over N shards in the pack-local
 layout (``parallel/ep_pack.py``, tiles ``--ep_te`` x ``--ep_tn``), every
 shard of a step in this process on one device, at either
 ``--compute_dtype``; ``--ep_overlap`` runs its wired layers through the
 linear conv kernel plus a compact correction, and ``--ep_rdma`` sends every
-exchange through the hop-exchange kernel.
+exchange through the hop-exchange kernel.  With ``--dp`` each group's
+batch is sharded so.
 
 The splits are featurized by the native C++ featurizer on ``--num_workers``
 threads (default half the CPUs) and cached beside each CSV
@@ -39,14 +47,17 @@ transfer and runs their K steps with one read of their losses; the NaN
 guard then rolls back whole chunks.  ``--reuse_packs --device_epoch`` stages
 the reused packs on the card once and runs each epoch's steps with no
 host-to-device copy and no host read inside; a non-finite loss rolls the
-epoch back and stops the run.  Under ``--ep`` the staged order is the
-epoch-0 grouping, shuffled as a whole in later epochs.
+epoch back and stops the run.  Under ``--dp`` and ``--ep`` the staged
+order is the epoch-0 grouping, shuffled as a whole in later epochs.
 
 ``refuse_unported`` raises NotImplementedError, naming the ROADMAP.md item,
-for ``--dp`` other than 1.
+before any data is read when the environment asks for several processes
+(``JAX_COORDINATOR_ADDRESS`` or ``JAX_NUM_PROCESSES`` set, as the JAX CLI's
+multi-host launch reads them, or ``WORLD_SIZE`` above 1): each process
+would otherwise train alone and write the same checkpoint.
 
-Not ported yet: multi-host and ``--pack_q`` (left out on purpose:
-ROADMAP.md).
+Not ported yet: multi-host over torch.distributed, and ``--pack_q`` (left
+out on purpose: ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -123,7 +134,9 @@ def build_arg_parser() -> argparse.ArgumentParser:
                     help="EP exchanges through the hop-exchange kernel "
                          "(K12): one launch for every hop and shard")
     ap.add_argument("--dp", default=1, type=int,
-                    help="data-parallel devices; only 1 is ported")
+                    help="data-parallel groups a step, each of "
+                         "ceil(batch_size / dp) graphs, every group in this "
+                         "process on the one device (gradients summed)")
     ap.add_argument("--num_workers", default=None, type=int,
                     help="featurization threads (default: half the CPUs)")
     ap.add_argument("--loader_workers", default=1, type=int,
@@ -146,14 +159,26 @@ def build_arg_parser() -> argparse.ArgumentParser:
     return ap
 
 
+MULTI_PROCESS_ENV = ("JAX_COORDINATOR_ADDRESS", "JAX_NUM_PROCESSES",
+                     "WORLD_SIZE")
+
+
 def refuse_unported(args) -> None:
-    """Raise NotImplementedError for a flag whose path is not ported, so
-    that no run takes another path quietly."""
-    if args.dp != 1:
+    """Raise NotImplementedError for a launch whose path is not ported, so
+    that no run takes another path quietly: a multi-process environment
+    (the JAX CLI's coordinator variables, or torch's ``WORLD_SIZE`` above
+    1)."""
+    env = {k: os.environ[k] for k in MULTI_PROCESS_ENV
+           if os.environ.get(k, "")}
+    if "WORLD_SIZE" in env and int(env["WORLD_SIZE"]) <= 1:
+        del env["WORLD_SIZE"]
+    if env:
         raise NotImplementedError(
-            "--dp (data parallelism over torch.distributed) is not ported "
-            "yet: ROADMAP.md section 1.5, data parallel and multi-host"
-            + ("; with --ep, section 1.6 item 5" if args.ep > 1 else ""))
+            f"a multi-process launch ({env}) is not ported yet: every "
+            "process would train alone and write the same checkpoint; "
+            "ROADMAP.md section 1.5, data parallel and multi-host"
+            + ("; with --ep, section 1.6 item 5" if args.ep > 1 else "")
+            + " (--dp N runs every group in this one process)")
 
 
 def run_name(args) -> str:
@@ -233,7 +258,8 @@ def train(args) -> dict:
         batch_size=args.batch_size, val_frequency=args.val_frequency,
         model_save_dir=args.save_path, seed=args.seed, logger=logger,
         log_histograms=args.log_histograms, resume_from=args.resume,
-        ckpt_every_steps=args.ckpt_every_steps, device=device, n_ep=args.ep,
+        ckpt_every_steps=args.ckpt_every_steps, device=device, n_dp=args.dp,
+        n_ep=args.ep,
         ep_te=args.ep_te, ep_tn=args.ep_tn,
         loader_workers=args.loader_workers, reuse_packs=args.reuse_packs,
         steps_per_call=args.steps_per_call, device_epoch=args.device_epoch)

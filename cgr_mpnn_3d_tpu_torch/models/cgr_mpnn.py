@@ -86,6 +86,7 @@ from ..utils.device import resolve_device
 __all__ = ["CGRMPNNConfig", "CGRMPNN", "init_params", "apply",
            "kernel_inputs", "adjoint_inputs", "kernel_seeds",
            "kernel_grads_to_params", "fused_train_value_and_grad",
+           "fused_train_sse_and_grads", "sum_partials", "sse_loss",
            "params_from_jax", "jax_leaf_names", "supports_fused_train",
            "ACTIVATIONS"]
 
@@ -282,20 +283,38 @@ def kernel_grads_to_params(model: CGRMPNN, grads: tuple) -> None:
             w.grad = g["skips"][l].reshape(w.shape)
 
 
-def fused_train_value_and_grad(model: CGRMPNN, batch: PackedGraphBatch,
-                               spec: PackSpec, seeds=None) -> torch.Tensor:
-    """The masked SSE of ``batch`` (a 0-dim tensor), with the gradients of
-    every parameter written into ``.grad``: on the card by ONE launch of the
-    training kernel (replay, loss, gradients -- no autograd, no separate
-    forward), on the CPU by its plain version, both with the products of
-    ``model.cfg.compute_dtype``.  ``seeds`` (one per conv layer) turns on
-    train-mode dropout; None trains without it."""
+def fused_train_sse_and_grads(model: CGRMPNN, batch: PackedGraphBatch,
+                              spec: PackSpec, seeds=None) -> tuple:
+    """(the masked SSE of ``batch``, a 0-dim tensor; the kernels' 11 weight
+    gradients): on the card by ONE launch of the training kernel (replay,
+    loss, gradients -- no autograd, no separate forward), on the CPU by its
+    plain version, both with the products of ``model.cfg.compute_dtype``.
+    ``seeds`` (one per conv layer) turns on train-mode dropout; None trains
+    without it."""
     train = seeds is not None
     with torch.no_grad():
-        sse, grads = fused_model_train(
+        return fused_model_train(
             kernel_inputs(model, batch), adjoint_inputs(batch),
             batch.labels.float(), batch.graph_mask.float(),
             **_kernel_kw(model.cfg, spec, train, seeds))
+
+
+def sum_partials(parts) -> tuple:
+    """(SSE, gradients) summed over the (partial SSE, 11 gradients) pairs of
+    ``parts`` in their order: the training kernel's launches of one step
+    over several batches (data-parallel groups, edge-partition shards)."""
+    sse, grads = None, None
+    for s, g in parts:
+        sse = s if sse is None else sse + s
+        grads = g if grads is None else tuple(a + c for a, c in zip(grads, g))
+    return sse, grads
+
+
+def fused_train_value_and_grad(model: CGRMPNN, batch: PackedGraphBatch,
+                               spec: PackSpec, seeds=None) -> torch.Tensor:
+    """The masked SSE of ``batch`` by :func:`fused_train_sse_and_grads`,
+    with the gradients of every parameter written into ``.grad``."""
+    sse, grads = fused_train_sse_and_grads(model, batch, spec, seeds)
     kernel_grads_to_params(model, grads)
     return sse
 
@@ -510,3 +529,11 @@ def apply(model: CGRMPNN, batch: PackedGraphBatch, spec: PackSpec | None = None,
         acts["pooled"] = pooled
         return out, acts
     return out
+
+
+def sse_loss(model: CGRMPNN, batch: PackedGraphBatch, spec: PackSpec,
+             train: bool = False, seeds=None) -> torch.Tensor:
+    """Masked sum of squared errors of ``apply`` on ``batch``."""
+    preds = apply(model, batch, spec, train=train, seeds=seeds)
+    err = (preds - batch.labels) * batch.graph_mask
+    return (err * err).sum()

@@ -4,14 +4,17 @@ The counterpart of ``cgr_mpnn_3d_tpu/parallel/ep_loader.py``'s
 ``EPPackLoader``, with the machinery of its ``_BaseEPLoader`` folded in
 (the port has this one loader): each step batch is ``batch_size`` whole
 graphs sharded over ``n_ep`` shards by :func:`~.ep_pack.pack_shard_edges`,
-yielded as ``(spec, batch)`` with leaves ``[n_dp, n_ep, ...]`` (n_dp = 1
-here).
+and ``n_dp`` such batches (consecutive windows of the order) make one item,
+yielded as ``(spec, batch)`` with leaves ``[n_dp, n_ep, ...]``; a short
+last group is padded with :func:`~.ep_pack.empty_ep_pack_batch` (mask 0:
+its loss and gradients are exactly 0).
 
 * **Pinned shapes.**  The packer's padded sizes are pinned from a pre-scan
   of the first epoch's batches plus headroom; a later batch that overflows
   (:class:`~.edge_partition.EPOverflow` only, so real input errors surface
-  at once) grows the pins monotonically from its own natural sizes and is
-  packed again.  Each item carries the spec it was built under.
+  at once) grows the pins monotonically from its own natural sizes, and
+  its whole group is packed again at the new pins.  Each item carries the
+  spec it was built under.
 * **Fixed graph count.**  Short batches are padded with mask-0 dummy graphs
   (1 node, 0 edges).
 * **Order.**  Shuffled from ``seed + epoch`` as the JAX loader does, so both
@@ -20,12 +23,11 @@ here).
   epoch-0 order, again while the pins grow during a build (at most 4
   builds, so every item shares the final spec), and emits them in an order
   shuffled from ``seed + epoch``.
-* **Workers.**  As in JAX, ``workers`` packs the ``n_dp`` windows of a
-  group on a thread pool only when ``n_dp > 1``; at the port's one group it
-  is accepted and changes nothing.
+* **Workers.**  JAX's ``workers`` packs the ``n_dp`` windows of a group on
+  a thread pool, bit for bit the serial items; here it is accepted and the
+  windows are packed serially (ROADMAP.md section 1.3).
 
-Not ported (ROADMAP.md): ``n_dp > 1`` (raises) and the flat v2
-``EPLoader``.
+Not ported (ROADMAP.md): the flat v2 ``EPLoader``.
 """
 
 from __future__ import annotations
@@ -38,7 +40,8 @@ import numpy as np
 from ..chem.featurize import GraphArrays
 from ..data.loader import background
 from .edge_partition import EPOverflow, _r8
-from .ep_pack import EPPackedBatch, EPPackSpec, pack_shard_edges
+from .ep_pack import (EPPackedBatch, EPPackSpec, empty_ep_pack_batch,
+                      pack_shard_edges)
 
 __all__ = ["EPPackLoader"]
 
@@ -48,12 +51,12 @@ _HEADROOM = 1.3
 @dataclass
 class EPPackLoader:
     """Yields ``(spec, batch)``: an :class:`~.ep_pack.EPPackedBatch` with
-    leaves ``[1, n_ep, ...]`` and the pinned :class:`~.ep_pack.EPPackSpec`
+    leaves ``[n_dp, n_ep, ...]`` and the pinned :class:`~.ep_pack.EPPackSpec`
     it was built under (the trainer keys its steps on it).  Without a
     ``spec`` the pins come from a pre-scan (see the module doc)."""
     dataset: object
     n_ep: int
-    batch_size: int = 32          # graphs per step batch
+    batch_size: int = 32          # graphs per data-parallel group's batch
     n_dp: int = 1
     shuffle: bool = True
     seed: int = 0
@@ -65,10 +68,6 @@ class EPPackLoader:
     spec: EPPackSpec | None = field(default=None)
 
     def __post_init__(self):
-        if self.n_dp != 1:
-            raise NotImplementedError(
-                "the port's EP loader runs one data-parallel group (n_dp=1); "
-                "--dp and torch.distributed are queued in ROADMAP.md")
         if len(self.dataset) == 0:
             raise ValueError("empty dataset")
         self._epoch = 0
@@ -79,7 +78,8 @@ class EPPackLoader:
                 self._learn(w)
 
     def __len__(self) -> int:
-        return int(np.ceil(len(self.dataset) / self.batch_size))
+        n_batches = int(np.ceil(len(self.dataset) / self.batch_size))
+        return int(np.ceil(n_batches / self.n_dp))
 
     def set_epoch(self, epoch: int) -> None:
         self._epoch = epoch
@@ -167,20 +167,27 @@ class EPPackLoader:
         bs = self.batch_size
         windows = [self._window(order[i:i + bs])
                    for i in range(0, len(order), bs)]
-        for w in windows:
-            grows = 0
-            while True:
+        for g0 in range(0, len(windows), self.n_dp):
+            group_windows = windows[g0:g0 + self.n_dp]
+            group, i, grows = [], 0, 0
+            while i < len(group_windows):
                 try:
-                    b = self._shard_pinned(w)
-                    break
+                    group.append(self._shard_pinned(group_windows[i]))
+                    i += 1
                 except EPOverflow:
                     grows += 1
-                    if grows > 2:
+                    if grows > 2 * len(group_windows):
                         raise
                     # grow the pins from THIS window's natural sizes, then
-                    # pack it again at the new pinned shapes
-                    self._learn(w)
-            yield self.spec, _stack_group([b])
+                    # pack the whole group again at the new pinned shapes
+                    self._learn(group_windows[i])
+                    group, i = [], 0
+            if len(group) < self.n_dp:
+                filler = empty_ep_pack_batch(self.spec,
+                                             group[0].node_x.shape[2],
+                                             group[0].edge_attr.shape[2])
+                group += [filler] * (self.n_dp - len(group))
+            yield self.spec, _stack_group(group)
 
     def prefetch(self, depth: int = 2):
         """The same items, packed by a background thread ``depth`` items

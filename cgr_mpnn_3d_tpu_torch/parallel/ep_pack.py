@@ -76,7 +76,7 @@ import torch
 from ..data.batch import device_tensor
 from ..models.cgr_mpnn import (ACTIVATIONS, CGRMPNN, CGRMPNNConfig, _dropout,
                                _kernel_kw, _skips, _store_dtype,
-                               kernel_grads_to_params)
+                               kernel_grads_to_params, sum_partials)
 from ..ops._launch import seed_list
 from ..ops.bf16_ref import bf16_mm
 from ..ops.conv_stack import conv_stack
@@ -1030,39 +1030,50 @@ def ep_pack_fused_train(model: CGRMPNN, b: EPPackedBatch, spec: EPPackSpec,
 
 
 def make_ep_pack_train_step(model: CGRMPNN, spec: EPPackSpec):
-    """``step(shards, seeds) -> SSE``: the EP training step's compute over
-    every shard in this process, the gradients written into the
-    parameters' ``.grad`` (the optimizer is the caller's).  Zero-cut specs
-    of the whole-model configuration run one K2 launch per shard (partial
-    SSEs and gradients summed in shard order); otherwise autograd of the
-    full-batch SSE through K5, K4 or K8/K9, and K11.  ``seeds`` [n_ep,
-    depth] turns on train-mode dropout."""
+    """``step(groups, seeds) -> SSE``: the EP training step's compute over
+    every data-parallel group and shard in this process (``groups``
+    [n_dp][n_ep] shards), the gradients written into the parameters'
+    ``.grad`` (the optimizer is the caller's).  Zero-cut specs of the
+    whole-model configuration run one K2 launch per shard (partial SSEs and
+    gradients summed in (group, shard) order); otherwise autograd of each
+    group's full-batch SSE through K5, K4 or K8/K9, and K11, ``.grad``
+    accumulating over the groups -- JAX's ``psum(loss / n_ep)`` over
+    ('dp', 'ep'), since every shard of a group holds its full SSE.
+    ``seeds`` [n_dp, n_ep, depth] turns on train-mode dropout."""
     if supports_ep_fused_train(model.cfg, spec):
-        def step(shards, seeds=None):
-            sse, grads = None, None
-            for k, b in enumerate(shards):
-                s, g = ep_pack_fused_train(
-                    model, b, spec, None if seeds is None else seeds[k])
-                sse = s if sse is None else sse + s
-                grads = g if grads is None else tuple(
-                    a + c for a, c in zip(grads, g))
+        def step(groups, seeds=None):
+            sse, grads = sum_partials(
+                ep_pack_fused_train(model, b, spec,
+                                    None if seeds is None else seeds[g][k])
+                for g, shards in enumerate(groups)
+                for k, b in enumerate(shards))
             kernel_grads_to_params(model, grads)
             return sse
         return step
 
-    def step(shards, seeds=None):
+    def step(groups, seeds=None):
         model.zero_grad(set_to_none=True)
-        sse, _ = ep_pack_forward(model, shards, spec,
-                                 train=seeds is not None, seeds=seeds)
-        sse.backward()
-        return sse.detach()
+        total = None
+        for g, shards in enumerate(groups):
+            sse, _ = ep_pack_forward(model, shards, spec,
+                                     train=seeds is not None,
+                                     seeds=None if seeds is None else seeds[g])
+            sse.backward()
+            total = sse.detach() if total is None else total + sse.detach()
+        return total
     return step
 
 
 def make_ep_pack_eval_step(model: CGRMPNN, spec: EPPackSpec):
-    """``eval(shards) -> (SSE, preds [B])`` in eval mode, no gradients."""
+    """``eval(groups) -> (SSE summed over the groups, preds [n_dp * B])`` in
+    eval mode, no gradients; ``groups`` [n_dp][n_ep] shards."""
 
-    def evaluate(shards):
+    def evaluate(groups):
+        sse, preds = None, []
         with torch.no_grad():
-            return ep_pack_forward(model, shards, spec)
+            for shards in groups:
+                s, p = ep_pack_forward(model, shards, spec)
+                sse = s if sse is None else sse + s
+                preds.append(p)
+        return sse, torch.cat(preds)
     return evaluate

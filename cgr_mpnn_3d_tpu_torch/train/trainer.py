@@ -31,13 +31,24 @@
 * NaN guard   a non-finite loss skips its update (the state stays at the
               last good step, seeds included); ``max_bad_steps``
               consecutive ones abort the run;
+* DP          with ``n_dp > 1`` (JAX ``trainer.py:299``, :402-420, :525-540)
+              each loader packs batches of ceil(batch_size / n_dp) graphs,
+              ``n_dp`` consecutive ones make one step's groups (a short
+              last group padded with ``data.empty_batch``, whose loss and
+              gradients are exactly 0), and every group runs in this
+              process on the one device: ``parallel.data_parallel``'s step
+              sums the groups' SSEs and gradients in group order (JAX
+              ``psum``s them), one seed row per group; validation sums the
+              groups' SSEs.  A mid-epoch resume counts groups as steps,
+              and the histograms sample group 0's first batch.
 * EP          with ``n_ep > 1`` (JAX ``trainer.py:299-313``, :355-386) the
               batches come from ``parallel.EPPackLoader`` (``ep_te`` /
-              ``ep_tn`` tiles) as (spec, batch), and every shard of a step
-              runs in this process: the step and the validation step are
+              ``ep_tn`` tiles) as (spec, batch) with leaves [n_dp, n_ep,
+              ...], and every group and shard of a step runs in this
+              process: the step and the validation step are
               ``parallel.ep_pack``'s, keyed by the loader's spec (rebuilt
-              when the pins grow), with one dropout seed per shard and
-              layer, at either ``compute_dtype`` and with the config's
+              when the pins grow), with one dropout seed per group, shard
+              and layer, at either ``compute_dtype`` and with the config's
               ``ep_overlap`` and ``ep_rdma_exchange``; the gradient
               histograms are skipped there, as in JAX.
 
@@ -56,19 +67,21 @@
               counts one bad; ``max_bad_steps`` in a row abort.
 * device epoch ``device_epoch`` (needs ``reuse_packs``; JAX :615-736): the
               reused pack cache is staged on the device once ([S, ...];
-              single device in cache order, EP the epoch-0 iteration), and
-              each epoch draws its S seed rows and copies them over once,
-              runs its steps on views of the staged rows in the loader's
-              order (EP: epoch 0 the identity, later epochs shuffled over
-              the staged order), with no host-to-device copy and no host
-              read inside, and reads its [S] losses once.  A non-finite
+              single device in cache order; DP and EP the epoch-0
+              iteration's S steps, [S, n_dp, ...] and [S, n_dp, n_ep,
+              ...]), and each epoch draws its S seed rows and copies them
+              over once, runs its steps on views of the staged rows in the
+              loader's order (DP and EP: epoch 0 the identity, later
+              epochs whole steps shuffled from seed + epoch), with no
+              host-to-device copy and no host read inside, and reads its
+              [S] losses once.  A non-finite
               loss restores the epoch-start state and raises
               FloatingPointError.  ``ckpt_every_steps``, ``steps_per_call``
               and a mid-epoch resume are refused, as in JAX.  Both modes
               always step the optimizer and roll back from a snapshot of
               device-side copies (JAX gets that from its immutable state).
 
-Left out: data parallelism and multi-host (ROADMAP.md section 1.5).
+Left out: multi-host (ROADMAP.md section 1.5).
 """
 
 from __future__ import annotations
@@ -83,13 +96,14 @@ import numpy as np
 import torch
 
 from ..data.batch import (PackedGraphBatch, PackSpec, device_tensor,
-                          to_device)
+                          empty_batch, to_device)
 from ..data.dataset import ChemDataset
 from ..data.loader import PackedLoader
-from ..models.cgr_mpnn import (CGRMPNNConfig, apply,
-                               fused_train_value_and_grad, init_params,
-                               kernel_seeds, supports_fused_train)
+from ..models.cgr_mpnn import (CGRMPNNConfig, fused_train_value_and_grad,
+                               init_params, sse_loss, supports_fused_train)
 from ..ops._launch import stage_rates
+from ..parallel.data_parallel import (groups_of, make_dp_eval_step,
+                                      make_dp_train_step, stack_batches)
 from ..parallel.ep_loader import EPPackLoader
 from ..parallel.ep_pack import (EPPackedBatch, ep_shards,
                                 make_ep_pack_eval_step,
@@ -120,17 +134,10 @@ def _copy_all(dst: list, src: list) -> None:
         torch._foreach_copy_([d for d, _ in pairs], [t for _, t in pairs])
 
 
-def sse_loss(model, batch, spec: PackSpec, train: bool = False,
-             seeds=None) -> torch.Tensor:
-    """Masked sum of squared errors of ``apply`` on ``batch``."""
-    preds = apply(model, batch, spec, train=train, seeds=seeds)
-    err = (preds - batch.labels) * batch.graph_mask
-    return (err * err).sum()
-
-
 @dataclass
 class RxnGraphTrainer:
-    """Orchestrates train/val epochs on one device."""
+    """Orchestrates train/val epochs on one device (every data-parallel
+    group and edge-partition shard in this process)."""
     name: str
     cfg: CGRMPNNConfig
     train_data: ChemDataset
@@ -154,6 +161,9 @@ class RxnGraphTrainer:
     # save {name}.latest.npz every N successful steps inside an epoch
     ckpt_every_steps: int = 0
     device: str | torch.device = "cuda"
+    # data parallelism: groups per step, each of ceil(batch_size / n_dp)
+    # graphs
+    n_dp: int = 1
     # edge partitioning: shards per step, and the EP packer's tile
     n_ep: int = 1
     ep_te: int = 128
@@ -170,34 +180,41 @@ class RxnGraphTrainer:
 
     def __post_init__(self):
         self.device = resolve_device(self.device)
+        self.n_dp = max(1, self.n_dp)
         self.n_ep = max(1, self.n_ep)
         self.steps_per_call = max(1, self.steps_per_call)
         self._check_modes()
         modes = dict(reuse_packs=self.reuse_packs,
                      workers=self.loader_workers)
+        # each group's batch (JAX trainer.py:299)
+        per_dp = -(-self.batch_size // self.n_dp)
         if self.n_ep > 1:
             self.train_loader = EPPackLoader(self.train_data, self.n_ep,
-                                             batch_size=self.batch_size,
-                                             shuffle=True, seed=self.seed,
-                                             te=self.ep_te, tn=self.ep_tn,
-                                             **modes)
+                                             batch_size=per_dp,
+                                             n_dp=self.n_dp, shuffle=True,
+                                             seed=self.seed, te=self.ep_te,
+                                             tn=self.ep_tn, **modes)
             self.val_loader = EPPackLoader(self.val_data, self.n_ep,
-                                           batch_size=self.batch_size,
+                                           batch_size=per_dp, n_dp=self.n_dp,
                                            shuffle=False, te=self.ep_te,
                                            tn=self.ep_tn, **modes)
         else:
             self.train_loader = PackedLoader(self.train_data, self.spec,
-                                             batch_size=self.batch_size,
+                                             batch_size=per_dp,
                                              shuffle=True, seed=self.seed,
                                              **modes)
             self.val_loader = PackedLoader(self.val_data, self.spec,
-                                           batch_size=self.batch_size,
-                                           **modes)
+                                           batch_size=per_dp, **modes)
         # the EP steps, keyed by ("t" | "e", the loader's spec)
         self._ep_steps: dict = {}
         self.model = init_params(self.cfg,
                                  torch.Generator().manual_seed(self.seed),
                                  self.device)
+        if self.n_dp > 1 and self.n_ep == 1:
+            self._dp_train = make_dp_train_step(self.model,
+                                                self.train_loader.spec)
+            self._dp_eval = make_dp_eval_step(self.model,
+                                              self.val_loader.spec)
         self.optimizer = torch.optim.Adam(
             self.model.parameters(), lr=self.lr,
             weight_decay=self.weight_decay, amsgrad=True)
@@ -224,8 +241,8 @@ class RxnGraphTrainer:
                     "--device_epoch, or resume an epoch-boundary checkpoint")
 
     def _check_modes(self) -> None:
-        """Refuse what the JAX trainer refuses (``trainer.py:283-298``)."""
-        if self.n_ep > 1 and self.steps_per_call > 1:
+        """Refuse what the JAX trainer refuses (``trainer.py:278-298``)."""
+        if self.n_dp * self.n_ep > 1 and self.steps_per_call > 1:
             raise ValueError("steps_per_call > 1 is single-device only")
         if not self.device_epoch:
             return
@@ -286,14 +303,15 @@ class RxnGraphTrainer:
     # -- steps ------------------------------------------------------------
     def _seeds_at(self, draw: int) -> torch.Tensor:
         """The dropout seeds of the step at ``draw`` in the stream: one per
-        conv layer, or [n_ep, depth] (one per shard and layer, in shard
-        order) under EP."""
+        conv layer (``models.kernel_seeds``' draw), [n_dp, depth] under DP
+        and [n_dp, n_ep, depth] under EP (one per group, shard and layer,
+        in that order; group 0's are the single-device draw's)."""
         self._gen.manual_seed((self._stream[0] << 32) | draw)
-        if self.n_ep > 1:
-            return torch.randint(0, 2**31 - 1, (self.n_ep, self.cfg.depth),
-                                 generator=self._gen,
-                                 dtype=torch.int64).to(torch.int32)
-        return kernel_seeds(self.cfg, self._gen)
+        lead = ((self.n_dp, self.n_ep) if self.n_ep > 1
+                else (self.n_dp,) if self.n_dp > 1 else ())
+        return torch.randint(0, 2**31 - 1, lead + (self.cfg.depth,),
+                             generator=self._gen,
+                             dtype=torch.int64).to(torch.int32)
 
     def _next_seeds(self, n: int) -> torch.Tensor:
         """The seeds of the next ``n`` steps, [n, ...], the rows the host
@@ -314,20 +332,44 @@ class RxnGraphTrainer:
             self._ep_steps[(kind, spec)] = make(self.model, spec)
         return self._ep_steps[(kind, spec)]
 
+    def _dp_groups(self, items, spec: PackSpec):
+        """Loader batches ``n_dp`` at a time, stacked [n_dp, ...]; a short
+        last group is padded with all-masked empty batches (JAX
+        ``trainer.py:525-540``)."""
+        group = []
+        for b in items:
+            group.append(b)
+            if len(group) == self.n_dp:
+                yield stack_batches(group)
+                group = []
+        if group:
+            filler = empty_batch(spec, self.train_data.num_node_features,
+                                 self.train_data.num_edge_features)
+            yield stack_batches(group + [filler] * (self.n_dp - len(group)))
+
+    def _items(self, loader):
+        """The loader's items, one a step: its batches (packed ahead on a
+        background thread), under DP in stacked groups."""
+        items = loader.prefetch()
+        if self.n_dp > 1 and self.n_ep == 1:
+            return self._dp_groups(items, loader.spec)
+        return items
+
     def _to_device(self, item):
-        """A loader item on the trainer's device: a packed batch, or under
-        EP (spec, the shards of its one data-parallel group)."""
+        """A loader item on the trainer's device: a packed batch (DP: the
+        step's groups stacked, [n_dp, ...]), or under EP (spec, the
+        [n_dp][n_ep] shards of its groups)."""
         if self.n_ep == 1:
             return to_device(item, self.device)
         spec, stacked = item
-        return spec, ep_shards(EPPackedBatch(*(a[0] for a in stacked)),
-                               self.device)
+        return spec, [ep_shards(EPPackedBatch(*(a[g] for a in stacked)),
+                                self.device) for g in range(self.n_dp)]
 
     def _stack_on_device(self, host: list):
         """Loader items stacked on the trainer's device, one transfer a
-        field: a packed batch of [n, ...] tensors, or under EP (their one
-        spec, the [n, n_ep, ...] shards of each item's data-parallel
-        group).  :meth:`_staged_row` reads item i back as views."""
+        field: a packed batch of [n, ...] tensors (DP: [n, n_dp, ...]), or
+        under EP (their one spec, the [n, n_dp, n_ep, ...] shards of each
+        item's groups).  :meth:`_staged_row` reads item i back as views."""
         if self.n_ep == 1:
             return to_device(PackedGraphBatch(*map(np.stack, zip(*host))),
                              self.device)
@@ -336,7 +378,7 @@ class RxnGraphTrainer:
             raise RuntimeError("the reused EP packs must share one spec to "
                                "be staged")
         return spec, EPPackedBatch(*(
-            device_tensor(np.stack([b[f][0] for _, b in host]), self.device)
+            device_tensor(np.stack([b[f] for _, b in host]), self.device)
             for f in range(len(EPPackedBatch._fields))))
 
     def _device_batches(self, host: list) -> list:
@@ -352,8 +394,10 @@ class RxnGraphTrainer:
         every parameter in ``.grad``; no optimizer step."""
         spec = self.train_loader.spec
         if self.n_ep > 1:
-            spec, shards = batch
-            return self._ep_step("t", spec)(shards, seeds)
+            spec, groups = batch
+            return self._ep_step("t", spec)(groups, seeds)
+        if self.n_dp > 1:
+            return self._dp_train(batch, seeds)
         if supports_fused_train(self.cfg):
             return fused_train_value_and_grad(self.model, batch, spec, seeds)
         self.optimizer.zero_grad()
@@ -443,7 +487,7 @@ class RxnGraphTrainer:
         """The loader's batches in lists of ``steps_per_call``, the
         remainder one at a time (JAX ``trainer.py:749-770``)."""
         K, pend = self.steps_per_call, []
-        for b in self.train_loader.prefetch():
+        for b in self._items(self.train_loader):
             pend.append(b)
             if len(pend) == K:
                 yield pend
@@ -475,7 +519,7 @@ class RxnGraphTrainer:
             batches = self._device_batches(host)
             if (self.log_histograms and hist_sample is None
                     and self.n_ep == 1):
-                hist_sample = batches[0]
+                hist_sample = self._first_batch(batches[0])
             losses = ([self._train_step(batches[0])] if n == 1
                       else self._train_chunk(batches))
             if not all(math.isfinite(v) for v in losses):
@@ -506,19 +550,20 @@ class RxnGraphTrainer:
                                steps_done > skip)
 
     def _stage_epoch(self) -> tuple:
-        """(the staged cache, its S batches): the loader's reused pack cache
-        on the trainer's device, [S, ...] (EP: the spec and [S, n_ep, ...]),
-        made once.  Single device: in cache order, read past the loader's
-        shuffle, so that each epoch's order is the loader's own and not
-        composed with the staging order (JAX ``trainer.py:621-638``).  EP:
-        the epoch-0 iteration, every item under one spec."""
+        """(the staged cache, its S steps): the loader's reused pack cache
+        on the trainer's device, [S, ...] (DP: [S, n_dp, ...]; EP: the spec
+        and [S, n_dp, n_ep, ...]), made once.  Single device: in cache
+        order, read past the loader's shuffle, so that each epoch's order
+        is the loader's own and not composed with the staging order (JAX
+        ``trainer.py:621-638``).  DP and EP: the epoch-0 iteration's steps
+        (the host loop's epoch-0 groups; EP: every item under one spec)."""
         if self._staged is not None:
             return self._staged
-        if self.n_ep == 1:
+        if self.n_dp == 1 and self.n_ep == 1:
             items = self.train_loader.cached_batches()
         else:
             self.train_loader.set_epoch(0)
-            items = list(self.train_loader)
+            items = list(self._items(self.train_loader))
         staged = self._stack_on_device(items)
         tensors = staged if self.n_ep == 1 else staged[1]
         self._staged = (staged, len(items))
@@ -530,22 +575,31 @@ class RxnGraphTrainer:
         return self._staged
 
     def _staged_row(self, staged, i: int):
-        """Batch ``i`` of the staged cache as views: a packed batch, or
-        under EP (spec, its shards)."""
+        """Step ``i`` of the staged cache as views: a packed batch (DP: its
+        stacked groups), or under EP (spec, its [n_dp][n_ep] shards)."""
         if self.n_ep == 1:
             return PackedGraphBatch(*(t[i] for t in staged))
         spec, b = staged
-        return spec, [EPPackedBatch(*(t[i, k] for t in b))
-                      for k in range(self.n_ep)]
+        return spec, [[EPPackedBatch(*(t[i, g, k] for t in b))
+                       for k in range(self.n_ep)] for g in range(self.n_dp)]
+
+    def _first_batch(self, item):
+        """The first packed batch of a device item: the histograms' sample
+        (DP: group 0's)."""
+        return item if self.n_dp == 1 else groups_of(item)[0]
 
     def _train_epoch_device(self, epoch_idx: int) -> float:
         """One staged epoch: its seeds copied over once, its steps run with
         no host read, its losses read once at the end."""
         staged, S = self._stage_epoch()
-        # the loader's order over the cache; EP staged the epoch-0
-        # iteration, so its epoch 0 is the identity (JAX :690-697)
-        order = (np.arange(S) if self.n_ep > 1 and epoch_idx == 0
-                 else self.train_loader.batch_order(epoch_idx))
+        # the loader's order over the cache (shuffled from seed + epoch);
+        # DP and EP staged the epoch-0 iteration, so their epoch 0 is the
+        # identity and later epochs shuffle whole steps (JAX :690-697)
+        order = np.arange(S)
+        if self.train_loader.shuffle and not (
+                epoch_idx == 0 and self.n_dp * self.n_ep > 1):
+            np.random.default_rng(self.train_loader.seed
+                                  + epoch_idx).shuffle(order)
         seeds = self._next_seeds(S)
         snap = self._snapshot()
         self._timer.reset_epoch()
@@ -565,7 +619,7 @@ class RxnGraphTrainer:
                 f"rolled back to epoch start (checkpoint intact)")
         self.step += S
         self._stream[1] += S
-        sample = (self._staged_row(staged, 0)
+        sample = (self._first_batch(self._staged_row(staged, 0))
                   if self.log_histograms and self.n_ep == 1 else None)
         # summed in step order, as the host loop sums
         return self._end_epoch(epoch_idx, sum(losses), sample, True)
@@ -607,14 +661,16 @@ class RxnGraphTrainer:
     def _val_epoch(self, epoch_idx: int) -> float:
         total = 0.0
         with torch.no_grad():
-            for host_batch in self.val_loader.prefetch():
+            for host_batch in self._items(self.val_loader):
                 batch = self._to_device(host_batch)
                 if self.n_ep > 1:
-                    spec, shards = batch
-                    total += float(self._ep_step("e", spec)(shards)[0])
-                    continue
-                total += float(sse_loss(self.model, batch,
-                                        self.val_loader.spec))
+                    spec, groups = batch
+                    total += float(self._ep_step("e", spec)(groups)[0])
+                elif self.n_dp > 1:
+                    total += float(self._dp_eval(batch))
+                else:
+                    total += float(sse_loss(self.model, batch,
+                                            self.val_loader.spec))
         rmse = float(np.sqrt(total / len(self.val_data)))
         if self.logger:
             self.logger.log({"val_loss": rmse, "epoch": epoch_idx})

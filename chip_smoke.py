@@ -218,8 +218,26 @@ Phases (any failure raises, and the script exits non-zero):
    (shipped, parent, ``embedding_bag``), the call's ms by CUDA events in
    alternating rounds and its host ms; then the wrapper's host time step
    by step (``tools/k7_host.py``, the parent's beside it);
-21. a ``{"kernels": [...]}`` line, then ``{"ok": true, "device": {...}}`` as
-   the last line.
+21. data parallelism with every group in this process (``dp_phase``,
+   after the device-resident modes): ``cli.train.main`` with the README's
+   model and ``--dp 2`` on the corpus, 3 epochs on the card and 2 on the
+   CPU at f32 and bf16 (two K2 launches a step, one K3f a validation
+   group's batch); the layered configuration's K5, K4 and K7 launches a
+   step twice the single-device step's; one dp step against one step on a
+   batch of both groups' graphs; the all-masked filler group's SSE and
+   gradients exactly 0 (K2, K3f, the layered kernels; add and mean);
+   ``--dp 2 --reuse_packs --device_epoch`` under StrictSteps against its
+   host loop; ``n_dp=2, n_ep=2`` on the wired set (K8 and K9, K11) card
+   against CPU; a mid-epoch resume bit for bit with a straight run;
+22. the MACE descriptor pipeline behind ``--data_path_coordinates``
+   (``descriptor_phase``, after serving): the demo set's xyz written by
+   ``data.preprocess.write_xyz_frames``, a numpy backend in place of MACE,
+   ``activation_energy_prediction(input_coordinates=...)`` on the card
+   against serving the npz it wrote and against the CPU, its stage times
+   (the xyz -> npz step apart), and the default backend's ImportError;
+23. a ``{"kernels": [...]}`` line (the launches of every main path, the
+   data-parallel runs' included), then ``{"ok": true, "device": {...}}``
+   as the last line.
 
 It exits non-zero, printing no result, without CUDA or without the package
 beside it.
@@ -229,6 +247,7 @@ from __future__ import annotations
 
 import argparse
 import csv
+import importlib.util
 import json
 import os
 import shutil
@@ -2174,6 +2193,21 @@ def _staged_mb(run_dir: Path) -> float:
     return mb
 
 
+def hold_windows(label: str, wins: list, per_step: dict, sizes: set) -> None:
+    """Every StrictSteps step loop of ``wins`` has a size in ``sizes``,
+    makes no copy to the card or from it and launches ``per_step`` a
+    step."""
+    check(len(wins) >= 3 and {w["steps"] for w in wins} <= sizes,
+          f"{label}: strict step loops of {[w['steps'] for w in wins]} "
+          f"steps, expected 3 or more of {sizes}")
+    for w in wins:
+        moved = {k: w["moved"].get(k, 0) / w["steps"] for k in per_step}
+        check(w["htod"] == 1 and w["dtoh"] == 0 and moved == per_step,
+              f"{label}: a step loop's window recorded {w['htod']} "
+              f"Memcpy HtoD (1 is the control) and {w['dtoh']} DtoH, "
+              f"and launched {moved} a step, expected {per_step}")
+
+
 def device_epoch_phase(tmp: Path, seed: int, card: str) -> dict:
     """The trainer's device-resident modes with the README's model and
     flags on the corpus, 3 epochs on the card: ``--reuse_packs
@@ -2205,20 +2239,6 @@ def device_epoch_phase(tmp: Path, seed: int, card: str) -> dict:
     de = tmp / "device_epoch"
     data = training_data(de, seed)
     out = {"phase": "device-resident modes", "card": card}
-
-    def hold_windows(label: str, wins: list, per_step: dict,
-                     sizes: set) -> None:
-        """Every step loop of ``wins`` has a size in ``sizes``, makes no
-        copy to the card and launches ``per_step`` a step."""
-        check(len(wins) >= 3 and {w["steps"] for w in wins} <= sizes,
-              f"{label}: strict step loops of {[w['steps'] for w in wins]} "
-              f"steps, expected 3 or more of {sizes}")
-        for w in wins:
-            moved = {k: w["moved"].get(k, 0) / w["steps"] for k in per_step}
-            check(w["htod"] == 1 and w["dtoh"] == 0 and moved == per_step,
-                  f"{label}: a step loop's window recorded {w['htod']} "
-                  f"Memcpy HtoD (1 is the control) and {w['dtoh']} DtoH, "
-                  f"and launched {moved} a step, expected {per_step}")
 
     # (label, the mode's flags, its host loop's flags, launches a step)
     pairs = (
@@ -2418,6 +2438,417 @@ def device_epoch_phase(tmp: Path, seed: int, card: str) -> dict:
           f"of 4, the remainder single steps), 2 rounds (wall steps/s, "
           f"StepTimer steps/s, busy %; smoke readings): {readings} [{card}]")
     print(json.dumps(out, default=float))
+    return out
+
+
+def _counts(fn) -> tuple:
+    """(fn's result, the launch counters it moved)."""
+    import torch
+    before = launch_counters()
+    out = fn()
+    torch.cuda.synchronize()
+    after = launch_counters()
+    return out, {k: v - before[k] for k, v in after.items() if v != before[k]}
+
+
+DP_WIRED = (("add", "K8"), ("mean", "K9"))
+
+
+def dp_phase(tmp: Path, seed: int, card: str) -> dict:
+    """Data parallelism with every group in this process (``--dp 2``), the
+    README's model on the corpus: ``cli.train.main`` 3 epochs on the card
+    and 2 on the CPU at f32 (TRAIN_TOL) and bf16 (BF16_TRAIN_TOL), two K2
+    launches a step and one K3f a validation group's batch; the layered
+    configuration's K5, K4 and K7 launches a step twice the single-device
+    step's; one dp step against one single-device step on a batch of both
+    groups' graphs (SSE and the summed gradients within 1e-4, the updated
+    parameters too); the all-masked filler group's SSE and gradients
+    exactly 0 through K2, K3f and the layered kernels (add and mean); ``--dp
+    2 --reuse_packs --device_epoch`` under StrictSteps against its host
+    loop (epoch 0 bit for bit, later epochs within rtol 0.05); ``n_dp=2,
+    n_ep=2`` on the wired set (K5, K8 or K9 per layer, K11 per group and
+    shard) card against CPU; a mid-epoch resume bit for bit with a
+    straight run.  Each part's wall time on its line."""
+    import dataclasses
+    import torch
+    from cgr_mpnn_3d_tpu_torch.data import (ChemDataset, PackedLoader,
+                                            empty_batch, plan_spec,
+                                            to_device)
+    from cgr_mpnn_3d_tpu_torch.data.batch import PackSpec
+    from cgr_mpnn_3d_tpu_torch.models import CGRMPNNConfig, init_params
+    from cgr_mpnn_3d_tpu_torch.parallel import (make_dp_eval_step,
+                                                make_dp_train_step,
+                                                stack_batches)
+    from cgr_mpnn_3d_tpu_torch.train import RxnGraphTrainer, load_checkpoint
+    from cgr_mpnn_3d_tpu_torch.train.trainer import set_epoch_lr
+    t_phase = time.perf_counter()
+    base = tmp / "dp"
+    data = training_data(base, seed)
+    out = {"phase": "data parallel", "card": card, "wall_s": {}}
+    ds = ChemDataset(str(data / "train.csv"),
+                     data_npz_path=str(data / "train.npz"))
+    ds.prefeaturize(num_workers=2, cache=True)
+    spec = plan_spec([ds.graph(i) for i in range(len(ds))])
+    # validation batches of 32 graphs (the README's 64 over 2 groups)
+    val_groups = -(-len(list(PackedLoader(ds, spec, batch_size=32))) // 2)
+
+    # the CLI at f32 and bf16: the main path, counts zeroed before each run
+    for label, extra, tol, k2, k3f in (
+            ("f32", (), TRAIN_TOL, "fused_model.train_launches",
+             "fused_model.launches"),
+            ("bf16", ("--compute_dtype", BF16), BF16_TRAIN_TOL,
+             "fused_model.bf16_train_launches",
+             "fused_model.bf16_launches")):
+        t0 = time.perf_counter()
+        tag = f"cli_{label}"
+        card_res, moved = _counts(lambda: _cli_run(
+            base / f"{tag}_card", data, seed, DEVICE, 3, "--dp", "2",
+            *extra))
+        cpu_res = _cli_run(base / f"{tag}_cpu", data, seed, "cpu", 2,
+                           "--dp", "2", *extra)
+        rel = _max_rel(card_res, cpu_res)
+        want = {k2: 2 * card_res["steps"], k3f: 3 * 2 * val_groups}
+        check(card_res["steps"] > 0 and moved == want and rel <= tol,
+              f"--dp 2 {label}: launches {moved}, expected {want}; card vs "
+              f"CPU RMSE {rel:.3e} (limit {tol})")
+        out[tag] = dict(steps=card_res["steps"], launches=moved, rel=rel,
+                        train_losses=card_res["train_losses"],
+                        steps_per_s=card_res["steps_per_s"])
+        out["wall_s"][tag] = time.perf_counter() - t0
+        print(f"dp cli --dp 2 {label}: 3 epochs, {card_res['steps']} steps, "
+              f"train RMSE {card_res['train_losses']}, val RMSE "
+              f"{card_res['val_losses']}; launches {moved} (K2 two a step, "
+              f"K3f one a validation group's batch: {val_groups} groups); "
+              f"card vs CPU (2 epochs) {rel:.3e} (limit {tol}); steps/s "
+              f"(StepTimer) {card_res['steps_per_s']}; wall "
+              f"{out['wall_s'][tag]:.1f} s [{card}]")
+
+    cfg = CGRMPNNConfig(num_node_features=ds.num_node_features,
+                        num_edge_features=ds.num_edge_features, depth=4,
+                        hidden_sizes=(400,) * 4, dropout_ps=(0.1,) * 4)
+
+    def trainer(name, device=DEVICE, **kw):
+        kw = {"cfg": cfg, "train_data": ds, "val_data": ds, **kw}
+        return RxnGraphTrainer(
+            name=name, spec=spec, lr=1e-4, weight_decay=1e-5, gamma=0.9,
+            num_epochs=2, batch_size=64, val_frequency=1, seed=seed,
+            model_save_dir=str(base / name), device=device, **kw)
+
+    # the layered configuration: K5, K4 and K7 twice the single device's
+    t0 = time.perf_counter()
+    layered = dataclasses.replace(cfg, fuse_whole_model=False)
+    per_step = {}
+    for n_dp in (1, 2):
+        tr = trainer(f"layered_{n_dp}", cfg=layered, n_dp=n_dp)
+        set_epoch_lr(tr.optimizer, tr.lr, tr.gamma, 0)
+        _, moved = _counts(lambda: tr._train_epoch(0))
+        per_step[n_dp] = {k: v / tr.step for k, v in moved.items()}
+    out["layered_launches"] = moved
+    keys = [f"{m}.{c}" for m in ("gather_linear", "conv_stack",
+                                 "onehot_spmm")
+            for c in ("launches", "bwd_launches")]
+    check(all(per_step[1].get(k, 0) > 0
+              and per_step[2].get(k) == 2 * per_step[1][k] for k in keys)
+          and "fused_model.train_launches" not in per_step[2],
+          f"layered --dp 2 launches a step {per_step[2]}, expected twice "
+          f"the single device's {per_step[1]}")
+    out["layered_per_step"] = per_step
+    out["wall_s"]["layered"] = time.perf_counter() - t0
+    print(f"dp layered: launches a step at n_dp 2 {per_step[2]}, twice the "
+          f"single device's {per_step[1]}; wall "
+          f"{out['wall_s']['layered']:.1f} s [{card}]")
+
+    # one dp step against one step on a batch of both groups' graphs
+    t0 = time.perf_counter()
+    half = [ds.graph(i) for i in range(64)]
+    labels = [float(ds.labels[i]) for i in range(64)]
+    extra = [ds.extra_feats(i) for i in range(64)]
+    from cgr_mpnn_3d_tpu_torch.data import (pack_graphs, packs_needed,
+                                            place_graphs)
+
+    def fit(*parts):
+        """The spec whose pack count holds each of ``parts``."""
+        p = max(packs_needed(part, spec) for part in parts)
+        while not all(place_graphs(part, spec.with_packs(p))
+                      for part in parts):
+            p += 1
+        return spec.with_packs(p)
+    spec32, spec64 = fit(half[:32], half[32:]), fit(half)
+    groups = to_device(stack_batches([
+        pack_graphs(half[g * 32:(g + 1) * 32], labels[g * 32:(g + 1) * 32],
+                    spec32, extra[g * 32:(g + 1) * 32]) for g in (0, 1)]),
+        DEVICE)
+    whole = to_device(stack_batches([pack_graphs(half, labels, spec64,
+                                                 extra)]), DEVICE)
+    cfg0 = dataclasses.replace(cfg, dropout_ps=(0.0,) * 4)
+    res = []
+    for grp, sp in ((groups, spec32), (whole, spec64)):
+        model = init_params(cfg0, torch.Generator().manual_seed(seed),
+                            DEVICE)
+        adam = torch.optim.Adam(model.parameters(), lr=1e-4,
+                                weight_decay=1e-5, amsgrad=True)
+        sse = make_dp_train_step(model, sp)(grp, None)
+        grads = [p.grad.clone() for p in model.parameters()]
+        adam.step()
+        res.append((float(sse), grads,
+                    [p.detach().clone() for p in model.parameters()]))
+    sse_rel = abs(res[0][0] - res[1][0]) / abs(res[1][0])
+    grad_l1, param_l1 = l1(res[0][1], res[1][1]), l1(res[0][2], res[1][2])
+    check(sse_rel <= REL_TOL and grad_l1 <= REL_TOL and param_l1 <= REL_TOL,
+          f"a dp step against one step on the concatenated graphs: SSE "
+          f"{sse_rel:.3e}, gradients L1 {grad_l1:.3e}, updated parameters "
+          f"L1 {param_l1:.3e} (limit {REL_TOL})")
+    out["vs_single"] = dict(sse_rel=sse_rel, grad_l1=grad_l1,
+                            param_l1=param_l1)
+    print(f"dp step vs single device: 2 groups of 32 corpus reactions "
+          f"({spec32.p} packs each) against one batch of 64 ({spec64.p} "
+          f"packs): SSE rel "
+          f"{sse_rel:.3e}, summed gradients rel L1 {grad_l1:.3e}, updated "
+          f"parameters rel L1 {param_l1:.3e} (limit {REL_TOL}) [{card}]")
+
+    # the filler group: exactly 0 through K2, K3f and the layered kernels
+    zeros = {}
+    for pooling in ("add", "mean"):
+        for fuse in (True, False):
+            c = dataclasses.replace(cfg, aggr=pooling, pooling=pooling,
+                                    fuse_whole_model=fuse)
+            model = init_params(c, torch.Generator().manual_seed(seed),
+                                DEVICE)
+            filler = to_device(stack_batches([empty_batch(
+                spec32, ds.num_node_features, ds.num_edge_features)]),
+                DEVICE)
+            seeds = torch.randint(0, 2**31 - 1, (1, 4), dtype=torch.int32)
+            (sse, ev), moved = _counts(lambda: (
+                make_dp_train_step(model, spec32)(filler, seeds),
+                make_dp_eval_step(model, spec32)(filler)))
+            gmax = max(float(p.grad.abs().max()) for p in model.parameters())
+            key = f"{'whole-model' if fuse else 'layered'} {pooling}"
+            zeros[key] = moved
+            check(float(sse) == 0.0 and float(ev) == 0.0 and gmax == 0.0
+                  and (moved.get("fused_model.train_launches") == 1
+                       if fuse else moved.get("conv_stack.bwd_launches", 0)
+                       > 0),
+                  f"the filler group ({key}): SSE {float(sse)}, eval SSE "
+                  f"{float(ev)}, largest gradient {gmax}, launches {moved}")
+    out["filler"] = zeros
+    out["wall_s"]["step checks"] = time.perf_counter() - t0
+    print(f"dp filler group: SSE, eval SSE and every gradient exactly 0 on "
+          f"the card, whole-model (K2, K3f) and layered (K5, K4, K7), add "
+          f"and mean; launches {zeros}; wall "
+          f"{out['wall_s']['step checks']:.1f} s [{card}]")
+
+    # staged epochs: --dp 2 --reuse_packs --device_epoch
+    t0 = time.perf_counter()
+    with StrictSteps() as strict:
+        host = _cli_run(base / "de_host", data, seed, DEVICE, 3, "--dp", "2",
+                        "--reuse_packs")
+        dev = _cli_run(base / "de_dev", data, seed, DEVICE, 3, "--dp", "2",
+                       "--reuse_packs", "--device_epoch")
+    hold_windows("--dp 2 --device_epoch", strict.windows,
+                 {"fused_model.train_launches": 2}, {dev["steps"] // 3})
+    rel_host = _max_rel(dev, host)
+    check(dev["train_losses"][0] == host["train_losses"][0]
+          and dev["val_losses"][0] == host["val_losses"][0]
+          and rel_host <= 0.05
+          and dev["train_losses"][-1] < dev["train_losses"][0],
+          f"--dp 2 staged epochs {dev['train_losses']} against the host "
+          f"loop's {host['train_losses']}")
+    out["device_epoch"] = dict(steps=dev["steps"], rel_host=rel_host,
+                               windows=len(strict.windows),
+                               staged_mb=_staged_mb(base / "de_dev"))
+    out["wall_s"]["device_epoch"] = time.perf_counter() - t0
+    print(f"dp --dp 2 --reuse_packs --device_epoch: 3 epochs, "
+          f"{dev['steps']} steps, train RMSE {dev['train_losses']} against "
+          f"the host loop's {host['train_losses']} (epoch 0 bit for bit, "
+          f"then max rel {rel_host:.3e}); {len(strict.windows)} strict step "
+          f"loops: no sync, no copy to or from the card, K2 two a step; "
+          f"staged {out['device_epoch']['staged_mb']:.3f} MB; wall "
+          f"{out['wall_s']['device_epoch']:.1f} s [{card}]")
+
+    # dp x ep on the wired set: a 480-atom chain cut across 2 shards
+    t0 = time.perf_counter()
+    graphs, wl = ep_graphs(seed + 3, 7, (480,))
+    wired = GraphSet(graphs, wl, 270)
+    out["dp_ep"] = {}
+    for aggr, conv in DP_WIRED:
+        c = CGRMPNNConfig(num_node_features=270, num_edge_features=14,
+                          depth=4, hidden_sizes=(400,) * 4,
+                          dropout_ps=(0.1,) * 4, aggr=aggr)
+
+        def ep_trainer(device):
+            return RxnGraphTrainer(
+                name=f"dp_ep_{aggr}_{device}", cfg=c, train_data=wired,
+                val_data=wired, spec=PackSpec(), lr=1e-4, weight_decay=1e-5,
+                gamma=0.9, num_epochs=3, batch_size=len(wired),
+                val_frequency=1, seed=seed,
+                model_save_dir=str(base / "dp_ep"), device=device, n_dp=2,
+                n_ep=2)
+        ep_zero()
+        card_res = ep_trainer(DEVICE).train()
+        torch.cuda.synchronize()
+        launches = {k: v for k, v in nonzero(ep_counts()).items()
+                    if k != "ring"}
+        cpu_res = ep_trainer("cpu").train()
+        rel = _max_rel(card_res, cpu_res)
+        # 3 steps and 3 validations, each forward per group and shard
+        want = {"K5": (24, 12), conv: (96, 48), "K11": (24, 12)}
+        check(card_res["steps"] == 3 and launches == want
+              and rel <= TRAIN_TOL,
+              f"--dp 2 --ep 2 wired {aggr}: launches {launches}, expected "
+              f"{want}; card vs CPU {rel:.3e}")
+        out["dp_ep"][aggr] = dict(launches=launches, rel=rel)
+        print(f"dp x ep wired {aggr}: n_dp 2, n_ep 2, 3 steps, train RMSE "
+              f"{card_res['train_losses']}; launches {launches}; card vs CPU "
+              f"{rel:.3e} (limit {TRAIN_TOL}) [{card}]")
+    out["wall_s"]["dp_ep"] = time.perf_counter() - t0
+
+    # a mid-epoch resume under --dp 2, bit for bit with a straight run
+    t0 = time.perf_counter()
+    straight = trainer("straight", n_dp=2)
+    straight.train()
+    cut = trainer("cut", n_dp=2, ckpt_every_steps=2)
+    cut.train_loader.set_epoch(0)
+    steps0 = -(-len(list(cut.train_loader)) // 2)
+    calls = {"n": 0}
+    step = cut._train_step
+
+    def preempt(batch):
+        calls["n"] += 1
+        if calls["n"] == steps0 + 3:
+            raise KeyboardInterrupt
+        return step(batch)
+    cut._train_step = preempt
+    try:
+        cut.train()
+    except KeyboardInterrupt:
+        pass
+    latest = base / "cut" / "cut.latest.npz"
+    meta = json.loads(latest.with_suffix(".json").read_text())
+    resumed = trainer("cut", n_dp=2, resume_from=str(latest))
+    resumed.train()
+    a = load_checkpoint(straight.save(base / "straight" / "end.npz"))[0]
+    b = load_checkpoint(resumed.save(base / "cut" / "end.npz"))[0]
+    check(meta.get("mid_epoch") == {"epoch": 1, "steps_done": 2}
+          and _same_leaves(a, b) and resumed.step == straight.step,
+          f"--dp 2 mid-epoch resume ({meta.get('mid_epoch')}) differs from "
+          f"a straight run")
+    out["wall_s"]["resume"] = time.perf_counter() - t0
+    out["wall_s"]["phase"] = time.perf_counter() - t_phase
+    print(f"dp resume: interrupted at epoch 1 step 3 of {steps0}, resumed "
+          f"from {meta['mid_epoch']}: {len(a)} leaves bit for bit with a "
+          f"straight 2-epoch run ({straight.step} steps); wall "
+          f"{out['wall_s']['resume']:.1f} s [{card}]")
+    print(json.dumps(out, default=float))
+    return out
+
+
+def descriptor_phase(tmp: Path, seed: int, ckpt: Path, card: str) -> dict:
+    """The MACE descriptor pipeline behind ``--data_path_coordinates``:
+    ``examples/demo.csv`` copied into a temporary directory beside an xyz
+    written by ``data.preprocess.write_xyz_frames`` (three frames a
+    reaction, its atoms in atom-map order, positions from ``seed``);
+    ``data.descriptors._mace_descriptor_fn`` replaced by a numpy backend of
+    64 dims a structure that depends on each row (F = 78 + 3 x 64, the
+    README model's); ``activation_energy_prediction(input_coordinates=...)``
+    on the card with the full-width checkpoint ``ckpt``: its predictions
+    equal serving the npz it wrote (``npz_path=``) bit for bit and the CPU
+    within REL_TOL, K3f launched, the stage times with the xyz -> npz step
+    apart; then the unpatched call raises ImportError naming mace-torch
+    and writes no npz."""
+    import torch
+    from cgr_mpnn_3d_tpu_torch.chem.mol import mol_from_smiles
+    from cgr_mpnn_3d_tpu_torch.cli import predict as cli_predict
+    from cgr_mpnn_3d_tpu_torch.data import descriptors
+    from cgr_mpnn_3d_tpu_torch.data.preprocess import write_xyz_frames
+    from cgr_mpnn_3d_tpu_torch.ops import fused_model as fm
+    t_phase = time.perf_counter()
+    d = tmp / "descriptors"
+    d.mkdir(parents=True, exist_ok=True)
+    csv_path = d / "demo.csv"
+    shutil.copy(ROOT / "examples" / "demo.csv", csv_path)
+    rng = np.random.default_rng(seed)
+    frames = []
+    for smi in _smiles_of(csv_path):
+        atoms = mol_from_smiles(smi.split(">")[0]).atoms
+        syms = [a.symbol for a in sorted(atoms, key=lambda a: a.map_num)]
+        for state in ("r", "ts", "p"):
+            frames.append((syms, rng.standard_normal((len(syms), 3)),
+                           f"state={state}"))
+    xyz = d / "demo.xyz"
+    write_xyz_frames(xyz, frames)
+    proj = np.random.default_rng(seed + 1).standard_normal((4, 64))
+
+    def backend(symbols, positions):
+        z = np.asarray([[ord(s[0]) / 100.0] for s in symbols])
+        return np.tanh(np.concatenate([np.asarray(positions), z], 1) @ proj)
+
+    timed = {}
+    step = cli_predict.process_xyz_to_npz
+
+    def timed_step(*a, **kw):
+        t0 = time.perf_counter()
+        step(*a, **kw)
+        timed["xyz_to_npz_ms"] = (time.perf_counter() - t0) * 1e3
+
+    def request(device, **kw):
+        t0 = time.perf_counter()
+        res = cli_predict.activation_energy_prediction(
+            str(csv_path), output_results=str(d / "results.txt"),
+            model_path=str(ckpt), device=device, **kw)
+        if device != "cpu":
+            torch.cuda.synchronize()
+        return (np.array([r["Activation Energy"] for r in res]),
+                (time.perf_counter() - t0) * 1e3)
+
+    orig = descriptors._mace_descriptor_fn
+    descriptors._mace_descriptor_fn = lambda model, device: backend
+    cli_predict.process_xyz_to_npz = timed_step
+    try:
+        fm.launches = 0
+        got, wall_ms = request(DEVICE, input_coordinates=str(xyz))
+        launches = fm.launches
+        xyz_ms = timed["xyz_to_npz_ms"]
+        npz = d / "demo.npz"
+        with np.load(npz) as z:
+            shapes = {z[k].shape for k in z.files}
+        served, serve_ms = request(DEVICE, npz_path=str(npz))
+        cpu, _ = request("cpu", input_coordinates=str(xyz))
+    finally:
+        descriptors._mace_descriptor_fn = orig
+        cli_predict.process_xyz_to_npz = step
+    rel = float(np.abs(got - cpu).max()) / max(float(np.abs(cpu).max()),
+                                                1e-30)
+    check(got.shape == (len(frames) // 3,) and np.isfinite(got).all()
+          and all(s[1] == 192 for s in shapes) and launches > 0
+          and np.array_equal(got, served) and rel <= REL_TOL,
+          f"predict from xyz: {got} against the npz's {served} and the "
+          f"CPU's {cpu} (rel {rel:.3e}), descriptor shapes {shapes}, K3f "
+          f"launches {launches}")
+    npz.unlink()
+    # the default backend: where mace-torch is installed it would fetch
+    # its model, so the refusal is checked only where it is absent
+    raised = None
+    if importlib.util.find_spec("mace") is None:
+        try:
+            request(DEVICE, input_coordinates=str(xyz))
+        except ImportError as e:
+            raised = str(e)
+        check(raised is not None and "mace-torch" in raised
+              and not npz.exists(),
+              f"predict from xyz without a backend: {raised!r}, npz "
+              f"written {npz.exists()}")
+    out = dict(reactions=len(got), launches=launches, rel_cpu=rel,
+               wall_ms=wall_ms, xyz_to_npz_ms=xyz_ms, serve_npz_ms=serve_ms,
+               wall_s=time.perf_counter() - t_phase)
+    print(f"descriptor pipeline: {len(got)} demo reactions from xyz "
+          f"({len(frames)} frames, 64 dims a structure, numpy backend) on "
+          f"the card: {wall_ms:.3f} ms a request, of which xyz -> npz "
+          f"{xyz_ms:.3f} ms; serving the written npz {serve_ms:.3f} ms, "
+          f"predictions equal bit for bit; card vs CPU {rel:.3e} (limit "
+          f"{REL_TOL}); K3f launches {launches}; the default backend: "
+          + ("ImportError, no npz written" if raised
+             else "mace-torch is installed, not called")
+          + f"; phase wall {out['wall_s']:.1f} s [{card}]")
     return out
 
 
@@ -4566,7 +4997,7 @@ def ep_step_times(seed: int, card: str) -> dict:
                      seeds=seeds[0]).backward()
 
         def ep():
-            ep_step(shards, seeds)
+            ep_step([shards], seeds[None])
 
         ms = {}
         for name, fn in (("single", single), ("ep", ep), ("ep2", ep),
@@ -5248,6 +5679,8 @@ def main(argv=None) -> int:
         serve_native(Path(tmp), srv, card)
         print(f"phase wall: serve native vs Python "
               f"{time.perf_counter() - t0:.1f} s")
+        desc = descriptor_phase(Path(tmp), args.seed, srv["ckpt"], card)
+        print(f"phase wall: the descriptor pipeline {desc['wall_s']:.1f} s")
         with glin_runs["layered serving"], spmm_runs["layered serving"]:
             srv_l = serve_layered(Path(tmp), args.seed, card)
             srv_l16 = serve_layered(Path(tmp), args.seed, card, BF16)
@@ -5265,6 +5698,9 @@ def main(argv=None) -> int:
             device_epoch_phase(Path(tmp), args.seed, card)
             print(f"phase wall: the trainer's device-resident modes "
                   f"{time.perf_counter() - t0:.1f} s")
+            dp = dp_phase(Path(tmp), args.seed, card)
+            print(f"phase wall: data parallelism "
+                  f"{dp['wall_s']['phase']:.1f} s")
             rates = train_profile(Path(tmp), args.seed, card)
             trn_16 = train_phase_bf16(Path(tmp), args.seed, card,
                                       trn["steps_per_s"])
@@ -5399,30 +5835,41 @@ def main(argv=None) -> int:
         return {key: srv_run["launches"][key] + sum(trn_run["launches"][key])
                 for key in ("K5", "K4", "K7")}
     lay32, lay16 = lay_launches(srv_l, trn_l), lay_launches(srv_l16, trn_l16)
+    # the data-parallel runs' launches (dp_phase), added to each kernel's
+    dp32, dp16 = dp["cli_f32"]["launches"], dp["cli_bf16"]["launches"]
+    dp_lay = dp["layered_launches"]
+    dp_layered = {k: sum(v for c, v in dp_lay.items()
+                       if c.startswith(m) and "bf16" not in c)
+                for k, m in (("K5", "gather_linear"), ("K4", "conv_stack"),
+                             ("K7", "onehot_spmm"))}
+    dp_ep = {k: sum(sum(run["launches"].get(k, (0, 0)))
+                    for run in dp["dp_ep"].values())
+             for k in ("K8", "K9", "K11")}
     print(json.dumps({"kernels": [
         kernel("fused_model_fwd", "fused_model_fwd.cu", "pallas_model.py:376",
-               srv["launches"], main_k),
+               srv["launches"] + desc["launches"]
+               + dp32["fused_model.launches"], main_k),
         kernel("fused_model_train", "fused_model_bwd.cu",
-               "pallas_model.py:439", trn["launches"]["train"],
-               train_k["train"]),
+               "pallas_model.py:439", trn["launches"]["train"]
+               + dp32["fused_model.train_launches"], train_k["train"]),
         kernel("fused_model_vjp", "fused_model_bwd.cu", "pallas_model.py:397",
                trn["launches"]["vjp"], train_k["vjp"]),
         kernel("conv_stack", "conv_stack.cu", "pallas_stack.py:177",
-               lay32["K4"], lay_k["K4 fwd eval"]),
+               lay32["K4"] + dp_layered["K4"], lay_k["K4 fwd eval"]),
         kernel("gather_linear", "gather_linear.cu", "pallas_glin.py:160",
-               lay32["K5"], glin(lay_k, False)),
+               lay32["K5"] + dp_layered["K5"], glin(lay_k, False)),
         kernel("onehot_spmm", "onehot_spmm.cu", "pallas_ops.py:93",
-               lay32["K7"], pool(lay_k, "float32")),
+               lay32["K7"] + dp_layered["K7"], pool(lay_k, "float32")),
         kernel("fused_conv", "fused_conv.cu", "pallas_fused.py:330",
                sum(cap["launches"]["K6"]), conv_k["K6 fwd eval"]),
         kernel("act_chain", "act_chain.cu", "tools/gelu_roofline.py:66",
                chain["launches"], chain["entry"]),
         kernel("fused_model_fwd_bf16", "fused_model_fwd.cu",
-               "pallas_model.py:376", trn_16["launches"]["fwd"],
-               bf16_k["fwd"]),
+               "pallas_model.py:376", trn_16["launches"]["fwd"]
+               + dp16["fused_model.bf16_launches"], bf16_k["fwd"]),
         kernel("fused_model_train_bf16", "fused_model_bwd.cu",
-               "pallas_model.py:439", trn_16["launches"]["train"],
-               bf16_k["train"]),
+               "pallas_model.py:439", trn_16["launches"]["train"]
+               + dp16["fused_model.bf16_train_launches"], bf16_k["train"]),
         kernel("fused_model_vjp_bf16", "fused_model_bwd.cu",
                "pallas_model.py:397", trn_16["launches"]["vjp"],
                bf16_k["vjp"]),
@@ -5440,13 +5887,13 @@ def main(argv=None) -> int:
                "tools/int8_microbench.py:72", p2["transpose_launches"],
                p2["transpose"]),
         kernel("fused_conv_r", "fused_conv.cu", "pallas_fused.py:555",
-               ep_launches["K8"], ep_k[2]["K8 fwd"]),
+               ep_launches["K8"] + dp_ep["K8"], ep_k[2]["K8 fwd"]),
         kernel("fused_conv_rm", "fused_conv.cu", "pallas_fused.py:686",
-               ep_launches["K9"], ep_k[2]["K9 fwd"]),
+               ep_launches["K9"] + dp_ep["K9"], ep_k[2]["K9 fwd"]),
         kernel("gather_linear_r", "gather_linear.cu", "pallas_glin.py:306",
                ep_launches["K10"], ep_k[2]["K10 fwd"]),
         kernel("gather_linear_pool", "gather_linear.cu", "pallas_glin.py:491",
-               ep_launches["K11"], ep_k[2]["K11 fwd"]),
+               ep_launches["K11"] + dp_ep["K11"], ep_k[2]["K11 fwd"]),
         kernel("fused_conv_r_bf16", "fused_conv.cu", "pallas_fused.py:555",
                ep_launches["K8 bf16"], ep_k16["K8 fwd"]),
         kernel("fused_conv_rm_bf16", "fused_conv.cu", "pallas_fused.py:686",

@@ -2453,3 +2453,78 @@ def test_device_epoch_on_card_equals_the_host_loop(cuda, tmp_path):
     for x, y in zip(host.model.parameters(), dev.model.parameters()):
         assert torch.equal(x, y)
     assert (host.step, host._stream) == (dev.step, dev._stream)
+
+
+# -- data parallelism: every group in one process -------------------------------
+
+def _dp_groups(n_dp, seed, F, te=128, tn=64, tb=8):
+    """(spec, host groups stacked [n_dp, ...]): n_dp batches of 30
+    synthetic graphs packed at one spec."""
+    from cgr_mpnn_3d_tpu_torch.parallel import stack_batches
+    graphs = synthetic_graphs(30 * n_dp, np.random.default_rng(seed),
+                              node_feat_dim=F)
+    labels = np.random.default_rng(seed + 1).standard_normal(len(graphs))
+    spec = plan_spec(graphs, te=te, tn=tn, tb=tb)
+    parts = [graphs[30 * g:30 * (g + 1)] for g in range(n_dp)]
+    p = max(packs_needed(part, spec) for part in parts)
+    while not all(place_graphs(part, spec.with_packs(p)) for part in parts):
+        p += 1
+    spec = spec.with_packs(p)
+    return spec, stack_batches([pack_graphs(
+        parts[g], labels[30 * g:30 * (g + 1)].tolist(), spec)
+        for g in range(n_dp)])
+
+
+@pytest.mark.parametrize("pooling", ["add", "mean"])
+def test_dp_step_on_card_is_one_k2_a_group(cuda, pooling):
+    """The data-parallel step at n_dp 2 on the card: one K2 launch a group
+    and step, the summed SSE and gradients within 1e-4 of the same step on
+    the CPU (SiLU: no ReLU ties), dropout seeds a group."""
+    from cgr_mpnn_3d_tpu_torch.parallel import make_dp_train_step
+    spec, host = _dp_groups(2, 5, 78)
+    cfg = CGRMPNNConfig(num_node_features=78, num_edge_features=14,
+                        depth=3, hidden_sizes=(40,) * 3,
+                        dropout_ps=(0.1,) * 3, activation="SiLU",
+                        aggr=pooling, pooling=pooling)
+    seeds = torch.tensor([[3, 5, 7], [11, 13, 17]], dtype=torch.int32)
+    out = {}
+    for dev in ("cpu", cuda):
+        model = init_params(cfg, torch.Generator().manual_seed(6), dev)
+        before = fm.train_launches
+        sse = make_dp_train_step(model, spec)(to_device(host, dev), seeds)
+        if dev != "cpu":
+            assert fm.train_launches - before == 2
+        out[str(dev)] = (float(sse), {n: p.grad.cpu() for n, p in
+                                      model.named_parameters()})
+    (s_cpu, g_cpu), (s_card, g_card) = out["cpu"], out["cuda"]
+    assert abs(s_card - s_cpu) <= 1e-4 * abs(s_cpu)
+    for name, want in g_cpu.items():
+        assert _rel(g_card[name], want) <= 1e-4, name
+
+
+@pytest.mark.parametrize("fuse,pooling", list(itertools.product(
+    [True, False], ["add", "mean"])))
+def test_dp_filler_is_exact_zero_on_card(cuda, fuse, pooling):
+    """The all-masked filler of a short data-parallel group on the card:
+    SSE exactly 0 and every gradient exactly 0 through K2 (whole-model) or
+    the layered kernels' backward (K5, K4, K7), and in eval through K3f
+    or the layered forward -- no 0/0 in the mean scales."""
+    from cgr_mpnn_3d_tpu_torch.data import empty_batch
+    from cgr_mpnn_3d_tpu_torch.parallel import (make_dp_eval_step,
+                                                make_dp_train_step,
+                                                stack_batches)
+    spec, _ = _dp_groups(1, 7, 78)
+    cfg = CGRMPNNConfig(num_node_features=78, num_edge_features=14,
+                        depth=3, hidden_sizes=(40,) * 3,
+                        dropout_ps=(0.1,) * 3, aggr=pooling,
+                        pooling=pooling, fuse_whole_model=fuse)
+    model = init_params(cfg, torch.Generator().manual_seed(8), cuda)
+    filler = to_device(stack_batches([empty_batch(spec, 78, 14)]), cuda)
+    seeds = torch.tensor([[3, 5, 7]], dtype=torch.int32)
+    before = fm.train_launches
+    sse = make_dp_train_step(model, spec)(filler, seeds)
+    assert fm.train_launches - before == (1 if fuse else 0)
+    assert float(sse) == 0.0
+    for name, p in model.named_parameters():
+        assert float(p.grad.abs().max()) == 0.0, name
+    assert float(make_dp_eval_step(model, spec)(filler)) == 0.0

@@ -174,34 +174,40 @@ class _FakeDataset:
 
 
 def test_loader_matches_jax_and_grows_pins():
-    """Mid-epoch overflow grows the spec; every item carries the spec it
-    was built under and equals the JAX loader's, shuffled or not."""
-    for shuffle in (False, True):
-        kw = dict(n_ep=4, batch_size=4, n_dp=1, shuffle=shuffle, seed=3,
+    """Mid-epoch overflow grows the spec (and packs the whole group again);
+    every item carries the spec it was built under and equals the JAX
+    loader's, shuffled or not, at one data-parallel group and at three (2
+    items: the last group's two missing batches are the all-sentinel
+    filler)."""
+    for n_dp in (1, 3):
+        for shuffle in (False, True):
+            kw = dict(n_ep=4, batch_size=4, n_dp=n_dp, shuffle=shuffle,
+                      seed=3, prescan_batches=1, te=64, tn=32)
+            loader = EPPackLoader(_FakeDataset(), **kw)
+            got = list(loader.prefetch())
+            want = list(JLoader(_FakeDataset(), **kw))
+            assert len(got) == len(want) == len(loader) == -(-4 // n_dp)
+            for (st, bt), (sj, bj) in zip(got, want):
+                assert vars(st) == vars(sj)
+                assert bt.node_x.shape[:2] == (n_dp, 4)
+                for f in SHARED:
+                    np.testing.assert_array_equal(getattr(bt, f),
+                                                  getattr(bj, f), err_msg=f)
+            if not shuffle:
+                assert got[-1][0].te > 64 and got[0][0].te == 64
+            if n_dp == 3:
+                assert got[-1][1].graph_mask[1:].sum() == 0
+    # workers is accepted and packs serially: the items of one and of
+    # several groups are the serial ones
+    for n_dp in (1, 2):
+        kw = dict(n_ep=4, batch_size=4, n_dp=n_dp, shuffle=True, seed=3,
                   prescan_batches=1, te=64, tn=32)
-        got = list(EPPackLoader(_FakeDataset(), **kw).prefetch())
-        want = list(JLoader(_FakeDataset(), **kw))
-        assert len(got) == len(want) == 4
-        for (st, bt), (sj, bj) in zip(got, want):
-            assert vars(st) == vars(sj)
-            assert bt.node_x.shape[:2] == (1, 4)
+        for (sa, ba), (sb, bb) in zip(EPPackLoader(_FakeDataset(), **kw),
+                                      EPPackLoader(_FakeDataset(), workers=2,
+                                                   **kw).prefetch()):
+            assert sa == sb
             for f in SHARED:
-                np.testing.assert_array_equal(getattr(bt, f),
-                                              getattr(bj, f), err_msg=f)
-        if not shuffle:
-            assert got[-1][0].te > 64 and got[0][0].te == 64
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        EPPackLoader(_FakeDataset(), n_ep=2, n_dp=2)
-    # workers packs a group's windows on threads only when n_dp > 1: at one
-    # group the items are the serial ones
-    kw = dict(n_ep=4, batch_size=4, shuffle=True, seed=3, prescan_batches=1,
-              te=64, tn=32)
-    for (sa, ba), (sb, bb) in zip(EPPackLoader(_FakeDataset(), **kw),
-                                  EPPackLoader(_FakeDataset(), workers=2,
-                                               **kw).prefetch()):
-        assert sa == sb
-        for f in SHARED:
-            np.testing.assert_array_equal(getattr(ba, f), getattr(bb, f))
+                np.testing.assert_array_equal(getattr(ba, f), getattr(bb, f))
 
 
 def test_loader_reuse_packs_equals_the_jax_cache():
@@ -357,7 +363,7 @@ def test_one_kernel_step_equals_autograd_step(aggr, pooling, drop):
     results = []
     for model in (whole, layered):
         step = tep.make_ep_pack_train_step(model, spec)
-        sse = step(shards, seeds if drop else None)
+        sse = step([shards], seeds[None] if drop else None)
         results.append((float(sse), [p.grad for p in model.parameters()]))
     np.testing.assert_allclose(results[0][0], results[1][0], **TOL)
     for a, c in zip(results[0][1], results[1][1]):
@@ -419,8 +425,9 @@ def test_train_cli_with_ep_and_its_refusals(tmp_path, monkeypatch):
     """cli.train --ep 2 trains on the CPU (zero cut: the one-kernel step's
     plain version, validation through K5/K4/K11's), also with
     --compute_dtype bfloat16, --ep_overlap, --ep_rdma, --reuse_packs
-    with --loader_workers 2 and --reuse_packs --device_epoch; --dp, whose
-    path is not ported, raises before any data is read."""
+    with --loader_workers 2, --reuse_packs --device_epoch and --dp 2; a
+    multi-process launch, whose path is not ported, raises before any
+    data is read."""
     from cgr_mpnn_3d_tpu_torch.cli.train import main
     monkeypatch.chdir(tmp_path)
     data = _data(tmp_path)
@@ -433,10 +440,10 @@ def test_train_cli_with_ep_and_its_refusals(tmp_path, monkeypatch):
     assert np.isfinite(res["train_losses"]).all()
     for flags in (["--compute_dtype", "bfloat16"], ["--ep_overlap"],
                   ["--ep_rdma"], ["--reuse_packs", "--loader_workers", "2"],
-                  ["--reuse_packs", "--device_epoch"]):
+                  ["--reuse_packs", "--device_epoch"], ["--dp", "2"]):
         res = main(base + ["-ne", "2"] + flags)
         assert res["steps"] > 0 and len(res["val_losses"]) == 2
         assert np.isfinite(res["train_losses"]).all()
-    for flags in (["--dp", "2"],):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            main(base + ["-ne", "1", "--data_path", "missing"] + flags)
+    monkeypatch.setenv("WORLD_SIZE", "2")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        main(base + ["-ne", "1", "--data_path", "missing"])

@@ -45,7 +45,9 @@ def test_importing_every_module_loads_no_jax():
                 "parallel.ep_loader", "parallel.rdma_exchange",
                 "tools.profile_ep", "tools.mm_probe_parts",
                 "tools.k2_phases", "tools.k12_host", "tools.k7_host",
-                "native", "data.dataset", "data.loader")}
+                "native", "data.dataset", "data.loader",
+                "data.descriptors", "data.preprocess",
+                "parallel.data_parallel")}
     assert kernels <= set(res["mods"])
     assert [m for m in res["loaded"] if _forbidden(m)] == []
 
@@ -187,11 +189,17 @@ def test_entry_points_raise_without_cuda(no_cuda, tmp_path):
 
 
 def test_predict_without_descriptor_npz_names_the_missing_step(tmp_path):
+    """Without a descriptor npz, predict runs the xyz -> descriptor step,
+    whose MACE backend needs the optional mace-torch package: the call
+    raises ImportError naming it, falls back to nothing and writes no npz
+    beside the xyz file."""
     from cgr_mpnn_3d_tpu_torch.cli.predict import activation_energy_prediction
-    with pytest.raises(NotImplementedError, match="data_path_npz"):
+    before = sorted(p.name for p in (REPO / "examples").iterdir())
+    with pytest.raises(ImportError, match="mace-torch"):
         activation_energy_prediction(str(REPO / "examples" / "demo.csv"),
                                      str(REPO / "examples" / "demo.xyz"),
                                      device="cpu")
+    assert sorted(p.name for p in (REPO / "examples").iterdir()) == before
 
 
 def test_chip_smoke_fails_without_cuda(no_cuda):

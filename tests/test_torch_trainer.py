@@ -327,20 +327,31 @@ def test_cli_loader_modes_and_the_feature_cache(tmp_path, monkeypatch):
     assert two["steps"] == one["steps"] == 9
 
 
-@pytest.mark.parametrize("flags,text", [
-    (["--dp", "2"], "ROADMAP.md section 1.5, data parallel and multi-host"),
-    (["--dp", "2", "--ep", "2"], "section 1.5, data parallel and multi-host;"
-                                 " with --ep, section 1.6 item 5"),
-    (["--dp", "2", "--device_epoch"],
+@pytest.mark.parametrize("env,flags,text", [
+    ({"JAX_NUM_PROCESSES": "2"}, [],
      "ROADMAP.md section 1.5, data parallel and multi-host"),
-    (["--dp", "2", "--steps_per_call", "2"],
-     "ROADMAP.md section 1.5, data parallel and multi-host")])
-def test_cli_refusals_name_their_roadmap_items(flags, text):
-    """cli/train.py refuses the unported flags before any data is read,
-    naming the ROADMAP.md item: data parallelism is section 1.5 (with
-    --ep also 1.6 item 5), also beside the device-resident modes, which
-    run; no message cites edge partitioning without --ep."""
+    ({"JAX_COORDINATOR_ADDRESS": "localhost:12355"}, ["--dp", "2"],
+     "ROADMAP.md section 1.5, data parallel and multi-host"),
+    ({"WORLD_SIZE": "2"}, ["--reuse_packs", "--device_epoch"],
+     "ROADMAP.md section 1.5, data parallel and multi-host"),
+    ({"JAX_NUM_PROCESSES": "2"}, ["--ep", "2"],
+     "section 1.5, data parallel and multi-host; with --ep, section 1.6 "
+     "item 5"),
+    ({"WORLD_SIZE": "4"}, ["--dp", "2", "--ep", "2"],
+     "section 1.5, data parallel and multi-host; with --ep, section 1.6 "
+     "item 5")])
+def test_cli_refusals_name_their_roadmap_items(monkeypatch, env, flags,
+                                               text):
+    """cli/train.py refuses a multi-process environment (the JAX CLI's
+    coordinator variables, or WORLD_SIZE above 1) before any data is read,
+    naming the ROADMAP.md item: multi-host is section 1.5 (with --ep also
+    1.6 item 5), whatever else runs in one process; no message cites edge
+    partitioning without --ep."""
     from cgr_mpnn_3d_tpu_torch.cli import train as cli_train
+    for key in cli_train.MULTI_PROCESS_ENV:
+        monkeypatch.delenv(key, raising=False)
+    for key, value in env.items():
+        monkeypatch.setenv(key, value)
     with pytest.raises(NotImplementedError) as err:
         cli_train.main(["-ne", "1", "--data_path", "missing", "--device",
                         "cpu"] + flags)
