@@ -1,6 +1,6 @@
-"""Train CLI: the counterpart of ``cgr_mpnn_3d_tpu/cli/train.py`` in one
-process on one device, with its flags (but ``--pack_q``) plus ``--device``
-(default ``cuda``).
+"""Train CLI: the counterpart of ``cgr_mpnn_3d_tpu/cli/train.py``, with its
+flags (but ``--pack_q``) plus ``--device`` (default ``cuda``), in one
+process or as every rank of a multi-process launch.
 
 Usage (the README's model):
   python -m cgr_mpnn_3d_tpu_torch.cli.train --name CGR-MPNN-3D -d 4 \\
@@ -50,14 +50,22 @@ host-to-device copy and no host read inside; a non-finite loss rolls the
 epoch back and stops the run.  Under ``--dp`` and ``--ep`` the staged
 order is the epoch-0 grouping, shuffled as a whole in later epochs.
 
-``refuse_unported`` raises NotImplementedError, naming the ROADMAP.md item,
-before any data is read when the environment asks for several processes
-(``JAX_COORDINATOR_ADDRESS`` or ``JAX_NUM_PROCESSES`` set, as the JAX CLI's
-multi-host launch reads them, or ``WORLD_SIZE`` above 1): each process
-would otherwise train alone and write the same checkpoint.
+Several processes: the same command on every rank, launched by torchrun
+(``RANK``, ``WORLD_SIZE``, ``MASTER_ADDR``, ``MASTER_PORT``, ``LOCAL_RANK``)
+or with the JAX CLI's variables (``JAX_COORDINATOR_ADDRESS``,
+``JAX_NUM_PROCESSES``, ``JAX_PROCESS_ID``), e.g. two ranks sharing one card:
+  torchrun --nproc_per_node 2 -m cgr_mpnn_3d_tpu_torch.cli.train ... --dp 2
+The ranks join a gloo process group (``parallel/multihost.py``) and split
+the ``[dp, ep]`` grid in one of two layouts: whole dp groups a rank (the
+rank count divides ``--dp``), or one EP shard a rank (rank count = dp x
+ep).  Before any data is read or any rendezvous, another layout, ``dp x ep
+= 1``, an incomplete launch environment and ``--ep_rdma`` with one shard a
+rank raise, naming the ROADMAP.md item.  The ranks sum each step's loss
+and gradients, so their run is the single-process run with the same
+``--dp``/``--ep``; the primary (rank 0) alone writes the checkpoints, the
+metrics log and the results, tests the model and prints the summary.
 
-Not ported yet: multi-host over torch.distributed, and ``--pack_q`` (left
-out on purpose: ROADMAP.md).
+Not ported: ``--pack_q`` (left out on purpose: ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -120,7 +128,8 @@ def build_arg_parser() -> argparse.ArgumentParser:
     ap.add_argument("--ep", default=1, type=int,
                     help="edge-partition shards: each batch's edges are "
                          "sharded over ep shards in pack-local layout, "
-                         "every shard of a step in this process")
+                         "every shard of a step in this process (over "
+                         "dp x ep ranks: one shard a rank)")
     ap.add_argument("--ep_te", default=128, type=int,
                     help="EP pack tile: edge slots per pack (grows when a "
                          "shard-local graph fragment exceeds it)")
@@ -136,7 +145,9 @@ def build_arg_parser() -> argparse.ArgumentParser:
     ap.add_argument("--dp", default=1, type=int,
                     help="data-parallel groups a step, each of "
                          "ceil(batch_size / dp) graphs, every group in this "
-                         "process on the one device (gradients summed)")
+                         "process on the one device, or split over the "
+                         "ranks of a multi-process launch (gradients "
+                         "summed)")
     ap.add_argument("--num_workers", default=None, type=int,
                     help="featurization threads (default: half the CPUs)")
     ap.add_argument("--loader_workers", default=1, type=int,
@@ -157,28 +168,6 @@ def build_arg_parser() -> argparse.ArgumentParser:
                          "device): their batches move in one transfer; the "
                          "NaN guard rolls back a whole chunk")
     return ap
-
-
-MULTI_PROCESS_ENV = ("JAX_COORDINATOR_ADDRESS", "JAX_NUM_PROCESSES",
-                     "WORLD_SIZE")
-
-
-def refuse_unported(args) -> None:
-    """Raise NotImplementedError for a launch whose path is not ported, so
-    that no run takes another path quietly: a multi-process environment
-    (the JAX CLI's coordinator variables, or torch's ``WORLD_SIZE`` above
-    1)."""
-    env = {k: os.environ[k] for k in MULTI_PROCESS_ENV
-           if os.environ.get(k, "")}
-    if "WORLD_SIZE" in env and int(env["WORLD_SIZE"]) <= 1:
-        del env["WORLD_SIZE"]
-    if env:
-        raise NotImplementedError(
-            f"a multi-process launch ({env}) is not ported yet: every "
-            "process would train alone and write the same checkpoint; "
-            "ROADMAP.md section 1.5, data parallel and multi-host"
-            + ("; with --ep, section 1.6 item 5" if args.ep > 1 else "")
-            + " (--dp N runs every group in this one process)")
 
 
 def run_name(args) -> str:
@@ -218,10 +207,12 @@ def split_dataset(data_path: str | Path, split: str, name: str):
 def train(args) -> dict:
     from ..data import plan_spec
     from ..models import CGRMPNNConfig
+    from ..parallel import multihost
     from ..train import MetricsLogger, RxnGraphTrainer
     from ..utils import resolve_device
 
-    refuse_unported(args)
+    # the rendezvous before any device query (a no-op in one process)
+    multihost.initialize()
     device = resolve_device(args.device)
     train_data = split_dataset(args.data_path, "train", args.name)
     val_data = split_dataset(args.data_path, "val", args.name)
@@ -249,8 +240,10 @@ def train(args) -> dict:
                      tb=args.pack_tb)
 
     name = run_name(args)
-    logger = MetricsLogger(name, config=vars_config(args),
-                           use_wandb=args.use_logger)
+    # every rank computes the same losses: the primary alone logs them
+    logger = (MetricsLogger(name, config=vars_config(args),
+                            use_wandb=args.use_logger)
+              if multihost.is_primary() else None)
     trainer = RxnGraphTrainer(
         name=name, cfg=cfg, train_data=train_data, val_data=val_data,
         spec=spec, lr=args.learning_rate, weight_decay=args.weight_decay,
@@ -278,7 +271,8 @@ def vars_config(args) -> dict:
 
 def main(argv=None) -> dict:
     """Train, test and record; returns the run's results (train/val RMSE
-    per epoch, steps, test RMSE and MAE)."""
+    per epoch, steps, test RMSE and MAE; on a rank but the primary, the
+    training's alone)."""
     args = build_arg_parser().parse_args(argv)
     if args.hidden_sizes is None:
         args.hidden_sizes = [300] * args.depth
@@ -289,7 +283,9 @@ def main(argv=None) -> dict:
     if len(args.dropout_ps) == 1:
         args.dropout_ps = args.dropout_ps * args.depth
 
-    refuse_unported(args)
+    from ..parallel import multihost
+    # the layout before any data is read and before the rendezvous
+    multihost.check_launch(args.dp, args.ep, args.ep_rdma)
     if not args.skip_test:
         # fail before training, not after it
         split_dataset(args.data_path, "test", args.name)
@@ -300,6 +296,8 @@ def main(argv=None) -> dict:
         print(f"{k}: {v}")
 
     meta[name].update(train(args))
+    if not multihost.is_primary():
+        return meta[name]     # the test and the results are the primary's
 
     if not args.skip_test:
         from .test import test

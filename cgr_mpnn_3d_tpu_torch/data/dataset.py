@@ -20,6 +20,7 @@ JAX package's, so either package loads the other's.
 from __future__ import annotations
 
 import csv
+import os
 from pathlib import Path
 
 import numpy as np
@@ -129,9 +130,13 @@ class ChemDataset:
             "n_edges": np.asarray([g.num_edges for g in gs], np.int64),
         }
         path = self._cache_path()
+        # written beside and renamed over, so that a process reading it
+        # (another rank featurizing the same split) never sees half a file;
         # savez pickles the object-dtype smiles array on its own (it takes
         # no allow_pickle argument: one would be written as an array)
-        np.savez_compressed(path, **payload)
+        tmp = path.with_name(f"{path.name}.{os.getpid()}.npz")
+        np.savez_compressed(tmp, **payload)
+        os.replace(tmp, path)
         return path
 
     def load_feature_cache(self) -> bool:

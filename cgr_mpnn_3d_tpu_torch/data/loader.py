@@ -25,9 +25,12 @@ package's for the same dataset and seed.
 Windows are always sorted big graphs first (first-fit-decreasing); the JAX
 loader's ``sort_within_batch`` has no other value in use.  Left out:
 ``round_packs_to``, which exists for the JAX loader's ``--pack_q``
-sub-packs, which no Hopper kernel wants (ROADMAP.md section 3), and
-``plan_windows``, which only the JAX package's multi-host runs call
-(ROADMAP.md section 1.5).
+sub-packs, which no Hopper kernel wants (ROADMAP.md section 3).
+
+:meth:`PackedLoader.plan_windows` gives the windows of serial iteration
+from the placement probe alone, so that the ranks of a multi-process run
+agree on every window while each packs only its own (the trainer's
+``_mh_stream``).
 """
 
 from __future__ import annotations
@@ -39,7 +42,7 @@ from typing import Iterable, Iterator
 
 import numpy as np
 
-from .batch import PackedGraphBatch, PackSpec, pack_graphs
+from .batch import PackedGraphBatch, PackSpec, pack_graphs, place_graphs
 from .dataset import ChemDataset
 
 __all__ = ["PackedLoader", "background"]
@@ -119,6 +122,45 @@ class PackedLoader:
                 if self.use_native or n == 1:
                     raise
                 n = max(1, int(n * 0.8))
+
+    def plan_windows(self, order) -> list[list[int]]:
+        """The exact window and carry plan that serial iteration over
+        ``order`` emits -- which rows land in which batch, the overflow
+        shrink (n -> int(n*0.8)) and the carry of unconsumed rows included
+        -- from the placement-only probe (``native.place_graphs_native``,
+        or ``data.batch.place_graphs`` with ``use_native=False``): no
+        packing and no output allocation (JAX ``loader.py:127-170``)."""
+        if self.use_native:
+            from .. import native
+            probe = lambda gs: native.place_graphs_native(gs, self.spec)
+        else:
+            probe = lambda gs: place_graphs(gs, self.spec)
+        plan: list[list[int]] = []
+        pending: list[int] = []
+        order = [int(i) for i in order]
+        pos = 0
+        while pos < len(order) or pending:
+            take = self.batch_size - len(pending)
+            rows = pending + order[pos:pos + take]
+            pos += take
+            if (self.drop_last and pos >= len(order)
+                    and len(rows) < self.batch_size):
+                break
+            n = len(rows)
+            while True:
+                window = sorted(rows[:n],
+                                key=lambda i: -self.dataset.graph(i).num_edges)
+                if probe([self.dataset.graph(i) for i in window]):
+                    break
+                if n == 1:
+                    # the error the real pack raises
+                    self._pack_window(rows[:1])
+                    raise RuntimeError("the placement probe refused a graph "
+                                       "that the packer placed")
+                n = max(1, int(n * 0.8))
+            plan.append(rows[:n])
+            pending = rows[n:]
+        return plan
 
     def __iter__(self) -> Iterator[PackedGraphBatch]:
         if not self.reuse_packs:

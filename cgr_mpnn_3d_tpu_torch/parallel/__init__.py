@@ -1,10 +1,11 @@
 """Data parallelism (``--dp N``) and edge partitioning (``--ep N``) in the
-pack-local layout, with every group and shard of a step in one process:
-the data-parallel step, the host EP packer, the EP loader, the per-shard EP
-step and the hop exchange K12 (the counterpart of
-``cgr_mpnn_3d_tpu/parallel/``'s ``data_parallel``, ``ep_pack``,
-``ep_loader``, ``rdma_exchange`` and the helpers of ``edge_partition`` it
-needs)."""
+pack-local layout, every group and shard of a step in one process or split
+over the ranks of a torch.distributed (gloo) process group: the
+data-parallel step, the host EP packer, the EP loader, the per-shard EP
+step, the hop exchange K12 and the ranks' launch, layouts and collectives
+(the counterpart of ``cgr_mpnn_3d_tpu/parallel/``'s ``data_parallel``,
+``ep_pack``, ``ep_loader``, ``rdma_exchange``, ``multihost`` and the
+helpers of ``edge_partition`` it needs)."""
 
 from .data_parallel import (make_dp_eval_step, make_dp_train_step,
                             stack_batches)

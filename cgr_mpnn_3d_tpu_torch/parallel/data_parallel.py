@@ -17,8 +17,14 @@ concatenated batch:
   over the groups after one ``zero_grad``.
 
 Seeds are ``[n_dp, depth]``: one dropout seed per group and conv layer.
-The optimizer step is the caller's.  There is no mesh: ``parallel/mesh.py``
-and ``multihost.py`` come with torch.distributed (ROADMAP.md section 1.5).
+The optimizer step is the caller's.
+
+Over several ranks (``parallel/multihost.py``) each rank's step takes its
+own groups only, sums them as above, and then sums [SSE, every gradient]
+with the other ranks in one collective (:func:`all_reduce_step`; JAX's
+``psum`` across processes); validation sums the SSE so.  Every rank then
+holds the same loss and gradients, so the NaN guard and the optimizer step
+agree on all of them.
 """
 
 from __future__ import annotations
@@ -30,9 +36,10 @@ from ..data.batch import PackedGraphBatch, PackSpec
 from ..models.cgr_mpnn import (CGRMPNN, fused_train_sse_and_grads,
                                kernel_grads_to_params, sse_loss, sum_partials,
                                supports_fused_train)
+from . import multihost
 
-__all__ = ["stack_batches", "groups_of", "make_dp_train_step",
-           "make_dp_eval_step"]
+__all__ = ["stack_batches", "groups_of", "all_reduce_step",
+           "make_dp_train_step", "make_dp_eval_step"]
 
 
 def stack_batches(batches: list[PackedGraphBatch]) -> PackedGraphBatch:
@@ -46,11 +53,31 @@ def groups_of(stacked: PackedGraphBatch) -> list[PackedGraphBatch]:
             for g in range(stacked.labels.shape[0])]
 
 
+def all_reduce_step(model: CGRMPNN | None, sse: torch.Tensor
+                    ) -> torch.Tensor:
+    """Over several ranks, ``sse`` and every parameter's ``.grad`` (none
+    for ``model`` None: validation) summed over all of them in ONE
+    collective, the summed SSE returned; in one process ``sse`` as it
+    is."""
+    if multihost.world_size() == 1:
+        return sse
+    out = sse.detach().reshape(1).clone()
+    grads = []
+    if model is not None:
+        for p in model.parameters():
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+            grads.append(p.grad)
+    multihost.all_reduce_sum_([out, *grads])
+    return out[0]
+
+
 def make_dp_train_step(model: CGRMPNN, spec: PackSpec):
     """``step(groups, seeds) -> SSE``: the data-parallel training step's
-    compute over the stacked ``groups`` ([n_dp, ...] tensors), the summed
-    gradients written into the parameters' ``.grad``.  ``seeds`` [n_dp,
-    depth] turns on train-mode dropout."""
+    compute over the stacked ``groups`` ([n_dp, ...] tensors; over several
+    ranks this rank's groups), the summed gradients written into the
+    parameters' ``.grad``.  ``seeds`` [n_dp, depth] turns on train-mode
+    dropout."""
     if supports_fused_train(model.cfg):
         def step(groups, seeds=None):
             sse, grads = sum_partials(
@@ -58,7 +85,7 @@ def make_dp_train_step(model: CGRMPNN, spec: PackSpec):
                                           None if seeds is None else seeds[g])
                 for g, b in enumerate(groups_of(groups)))
             kernel_grads_to_params(model, grads)
-            return sse
+            return all_reduce_step(model, sse)
         return step
 
     def step(groups, seeds=None):
@@ -69,7 +96,7 @@ def make_dp_train_step(model: CGRMPNN, spec: PackSpec):
                          seeds=None if seeds is None else seeds[g])
             s.backward()
             sse = s.detach() if sse is None else sse + s.detach()
-        return sse
+        return all_reduce_step(model, sse)
     return step
 
 
@@ -82,5 +109,5 @@ def make_dp_eval_step(model: CGRMPNN, spec: PackSpec):
             for b in groups_of(groups):
                 s = sse_loss(model, b, spec)
                 sse = s if sse is None else sse + s
-        return sse
+        return all_reduce_step(None, sse)
     return evaluate

@@ -37,7 +37,12 @@ and :class:`Psum` (a sum over the shards) -- and receives the result.
 collective, runs the collective in this process (the ring exchange is a
 tensor copy between the shards' buffers) and resumes them, so each layer's
 push partials exist for every shard before the exchange and each shard's
-conv kernel runs after it.  Per shard: edge_init through K5, then with zero
+conv kernel runs after it.  Over several ranks with one shard a rank
+(``multihost`` layout (b)), :func:`run_distributed` drives the rank's one
+generator instead and serves its requests through the process group: the
+ring move between the group's ranks (host-staged point-to-point, its
+adjoint the inverse move) and a sum over them (its adjoint the identity:
+every rank computes the group's SSE from the summed predictions).  Per shard: edge_init through K5, then with zero
 cut the conv stack K4, else per layer the boundary correction and K8 (K9 for
 ``aggr=mean``); then the readout and group pool K11, the fragment combine,
 mean pooling and the FFN head.  Every gather of the glue, and every adjoint,
@@ -91,6 +96,7 @@ from .rdma_exchange import _ring_move, ring_exchange_rdma
 __all__ = ["EPOverflow", "EPPackSpec", "EPPackedBatch", "pack_shard_edges",
            "empty_ep_pack_batch", "wire_bytes_per_layer", "ep_shards",
            "Exchange", "Psum", "ring_exchange", "run_lockstep",
+           "run_distributed",
            "ep_pack_forward_shard", "ep_pack_forward",
            "supports_ep_fused_train", "ep_pack_fused_train",
            "make_ep_pack_train_step", "make_ep_pack_eval_step",
@@ -742,6 +748,82 @@ def ring_exchange(bufs: list, caps: tuple[int, ...],
     return list(_RingExchange.apply(tuple(caps), inverse, *bufs))
 
 
+def _rank_ring_move(buf: torch.Tensor, caps: tuple[int, ...], inverse: bool,
+                    comm) -> torch.Tensor:
+    """:func:`_ring_move` between the ranks of an EP group: hop h sends
+    this shard's block h to shard k + h (``inverse``: k - h) and receives
+    shard k - h's (k + h's) in its place.  Gloo's point-to-point calls take
+    host tensors, so the blocks go through host memory."""
+    import torch.distributed as dist
+    n, k = len(comm.ranks), comm.shard
+    host = buf.detach().to("cpu").contiguous()
+    out = torch.empty_like(host)
+    reqs, off = [], 0
+    for h, s_h in enumerate(caps, start=1):
+        if s_h:
+            to, frm = ((k - h) % n, (k + h) % n) if inverse else \
+                ((k + h) % n, (k - h) % n)
+            reqs.append(dist.isend(host[off:off + s_h], comm.ranks[to],
+                                   tag=h))
+            reqs.append(dist.irecv(out[off:off + s_h], comm.ranks[frm],
+                                   tag=h))
+        off += s_h
+    for r in reqs:
+        r.wait()
+    return out.to(buf.device)
+
+
+class _RankExchange(torch.autograd.Function):
+    """This rank's share of :class:`_RingExchange` (layout (b): one shard a
+    rank): its buffer out, its peers' rows in.  The adjoint is the inverse
+    exchange between the same ranks."""
+
+    @staticmethod
+    def forward(ctx, buf, caps, inverse, comm):
+        ctx.caps, ctx.inverse, ctx.comm = caps, inverse, comm
+        return _rank_ring_move(buf, caps, inverse, comm)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (_rank_ring_move(g, ctx.caps, not ctx.inverse, ctx.comm),
+                None, None, None)
+
+
+class _GroupSum(torch.autograd.Function):
+    """A :class:`Psum` over the ranks of an EP group; the backward is the
+    identity: each rank holds the group's loss, computed from the summed
+    value, and takes its own share of the gradient from it."""
+
+    @staticmethod
+    def forward(ctx, value, comm):
+        from .multihost import all_reduce_host_
+        return all_reduce_host_(value.detach().clone(), comm.group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def run_distributed(gen, caps: tuple[int, ...], comm):
+    """The per-rank counterpart of :func:`run_lockstep` (layout (b)): runs
+    this rank's one shard generator and serves its requests through the
+    process group of ``comm`` (``multihost.ep_comm``) -- an
+    :class:`Exchange` as the ring move between the group's ranks, a
+    :class:`Psum` as an all-reduce over them; returns its return value.
+    Every rank of the group must run it on the same spec."""
+    send = None
+    while True:
+        try:
+            req = gen.send(send)
+        except StopIteration as stop:
+            return stop.value
+        if type(req) is Exchange:
+            send = _RankExchange.apply(req.buf, tuple(caps), req.inverse,
+                                       comm)
+        else:
+            send = _GroupSum.apply(req.value, comm)
+
+
 def run_lockstep(gens: list, caps: tuple[int, ...],
                  rdma: bool = False) -> list:
     """Run one generator per shard in lockstep: each runs to its next
@@ -963,10 +1045,18 @@ def ep_pack_forward_shard(model: CGRMPNN, b: EPPackedBatch, spec: EPPackSpec,
 
 
 def ep_pack_forward(model: CGRMPNN, shards: list, spec: EPPackSpec, *,
-                    train: bool = False, seeds=None):
+                    train: bool = False, seeds=None, comm=None):
     """The EP forward over every shard in this process -> (full-batch SSE,
     preds [B]).  ``seeds`` [n_ep, depth]: one dropout seed per shard and
-    conv layer (train mode)."""
+    conv layer (train mode).  With ``comm`` (``multihost.ep_comm``: one
+    shard a rank) ``shards`` is this rank's one shard and its peers run on
+    the other ranks of the group (:func:`run_distributed`)."""
+    if comm is not None:
+        if len(shards) != 1:
+            raise ValueError(f"{len(shards)} shards on a rank of an EP group")
+        return run_distributed(ep_pack_forward_shard(
+            model, shards[0], spec, train=train,
+            seeds=None if seeds is None else seeds[0]), spec.caps, comm)
     if len(shards) != spec.n_ep:
         raise ValueError(f"{len(shards)} shards for n_ep={spec.n_ep}")
     gens = [ep_pack_forward_shard(model, b, spec, train=train,
@@ -1029,26 +1119,34 @@ def ep_pack_fused_train(model: CGRMPNN, b: EPPackedBatch, spec: EPPackSpec,
                                               seeds))
 
 
-def make_ep_pack_train_step(model: CGRMPNN, spec: EPPackSpec):
+def make_ep_pack_train_step(model: CGRMPNN, spec: EPPackSpec, comm=None):
     """``step(groups, seeds) -> SSE``: the EP training step's compute over
     every data-parallel group and shard in this process (``groups``
     [n_dp][n_ep] shards), the gradients written into the parameters'
     ``.grad`` (the optimizer is the caller's).  Zero-cut specs of the
     whole-model configuration run one K2 launch per shard (partial SSEs and
-    gradients summed in (group, shard) order); otherwise autograd of each
-    group's full-batch SSE through K5, K4 or K8/K9, and K11, ``.grad``
-    accumulating over the groups -- JAX's ``psum(loss / n_ep)`` over
-    ('dp', 'ep'), since every shard of a group holds its full SSE.
-    ``seeds`` [n_dp, n_ep, depth] turns on train-mode dropout."""
+    gradients summed over each group's shards, then over the groups);
+    otherwise autograd of each group's full-batch SSE through K5, K4 or
+    K8/K9, and K11, ``.grad`` accumulating over the groups -- JAX's
+    ``psum(loss / n_ep)`` over ('dp', 'ep'), since every shard of a group
+    holds its full SSE.  ``seeds`` [n_dp, n_ep, depth] turns on train-mode
+    dropout.
+
+    Over several ranks ``groups`` holds this rank's cells ([n][n_ep] under
+    layout (a); [[its shard]] under layout (b), with ``comm``), and [SSE,
+    gradients] are summed over every rank in one collective
+    (``data_parallel.all_reduce_step``); under layout (b) a group's full
+    SSE enters that sum once, from its shard 0."""
+    from .data_parallel import all_reduce_step
     if supports_ep_fused_train(model.cfg, spec):
         def step(groups, seeds=None):
-            sse, grads = sum_partials(
+            sse, grads = sum_partials(sum_partials(
                 ep_pack_fused_train(model, b, spec,
                                     None if seeds is None else seeds[g][k])
-                for g, shards in enumerate(groups)
                 for k, b in enumerate(shards))
+                for g, shards in enumerate(groups))
             kernel_grads_to_params(model, grads)
-            return sse
+            return all_reduce_step(model, sse)
         return step
 
     def step(groups, seeds=None):
@@ -1057,23 +1155,34 @@ def make_ep_pack_train_step(model: CGRMPNN, spec: EPPackSpec):
         for g, shards in enumerate(groups):
             sse, _ = ep_pack_forward(model, shards, spec,
                                      train=seeds is not None,
-                                     seeds=None if seeds is None else seeds[g])
+                                     seeds=None if seeds is None else seeds[g],
+                                     comm=comm)
             sse.backward()
             total = sse.detach() if total is None else total + sse.detach()
-        return total
+        return all_reduce_step(model, _once_a_group(total, comm))
     return step
 
 
-def make_ep_pack_eval_step(model: CGRMPNN, spec: EPPackSpec):
+def _once_a_group(sse: torch.Tensor, comm) -> torch.Tensor:
+    """A group's full SSE as its share of the sum over ranks: all of it on
+    shard 0, zero on the group's other ranks (layout (b))."""
+    return sse if comm is None or comm.shard == 0 else torch.zeros_like(sse)
+
+
+def make_ep_pack_eval_step(model: CGRMPNN, spec: EPPackSpec, comm=None):
     """``eval(groups) -> (SSE summed over the groups, preds [n_dp * B])`` in
-    eval mode, no gradients; ``groups`` [n_dp][n_ep] shards."""
+    eval mode, no gradients; ``groups`` [n_dp][n_ep] shards.  Over several
+    ranks the SSE is summed over every rank (each group's once) and the
+    preds are this rank's groups'."""
+    from .data_parallel import all_reduce_step
 
     def evaluate(groups):
         sse, preds = None, []
         with torch.no_grad():
             for shards in groups:
-                s, p = ep_pack_forward(model, shards, spec)
+                s, p = ep_pack_forward(model, shards, spec, comm=comm)
                 sse = s if sse is None else sse + s
                 preds.append(p)
+            sse = all_reduce_step(None, _once_a_group(sse, comm))
         return sse, torch.cat(preds)
     return evaluate

@@ -1,5 +1,6 @@
-"""Training loop on one device: the counterpart of the single-device path of
-``cgr_mpnn_3d_tpu/train/trainer.py::RxnGraphTrainer``.
+"""Training loop: the counterpart of ``cgr_mpnn_3d_tpu/train/trainer.py::
+RxnGraphTrainer``, on one device or over the ranks of a torch.distributed
+process group.
 
 * optimizer   ``torch.optim.Adam(lr, weight_decay=wd, amsgrad=True)`` -- what
               the JAX trainer emulates (``scale_by_torch_amsgrad`` after
@@ -80,8 +81,26 @@
               and a mid-epoch resume are refused, as in JAX.  Both modes
               always step the optimizer and roll back from a snapshot of
               device-side copies (JAX gets that from its immutable state).
-
-Left out: multi-host (ROADMAP.md section 1.5).
+* ranks       in a multi-process run (``parallel.multihost.initialize``
+              joined a gloo group; JAX :221-279, :495-510, :542-613) every
+              rank builds this same trainer and holds the cells of the
+              [n_dp, n_ep] grid that ``multihost.layout`` gives it: whole
+              groups (layout a) or one EP shard (layout b; its collectives
+              cross ranks through ``ep_pack.run_distributed``).  The
+              construction checks the layout and gathers a config
+              fingerprint from every rank (a mismatch raises ValueError on
+              each).  Each rank packs and moves only its own cells
+              (:meth:`_mh_stream`: without reuse the windows of
+              ``PackedLoader.plan_windows``, the serial iteration's, each
+              rank packing its own; with reuse the host-global cache; EP
+              the whole group, its local cells moved), stages only its
+              cells' columns of a device epoch and takes its slice of the
+              global seed draw; the steps sum [SSE, gradients] over every
+              rank in one collective and validation sums the SSE, so every
+              rank steps (or skips) alike.  Only the primary writes a
+              checkpoint (then a barrier) and prints the new best model.
+              W ranks give the single-process run with the same
+              ``n_dp``/``n_ep``: bit for bit where a sum has two operands.
 """
 
 from __future__ import annotations
@@ -98,10 +117,11 @@ import torch
 from ..data.batch import (PackedGraphBatch, PackSpec, device_tensor,
                           empty_batch, to_device)
 from ..data.dataset import ChemDataset
-from ..data.loader import PackedLoader
+from ..data.loader import PackedLoader, background
 from ..models.cgr_mpnn import (CGRMPNNConfig, fused_train_value_and_grad,
                                init_params, sse_loss, supports_fused_train)
 from ..ops._launch import stage_rates
+from ..parallel import multihost
 from ..parallel.data_parallel import (groups_of, make_dp_eval_step,
                                       make_dp_train_step, stack_batches)
 from ..parallel.ep_loader import EPPackLoader
@@ -137,7 +157,8 @@ def _copy_all(dst: list, src: list) -> None:
 @dataclass
 class RxnGraphTrainer:
     """Orchestrates train/val epochs on one device (every data-parallel
-    group and edge-partition shard in this process)."""
+    group and edge-partition shard in this process), or on one rank's
+    cells of a multi-process run."""
     name: str
     cfg: CGRMPNNConfig
     train_data: ChemDataset
@@ -183,7 +204,14 @@ class RxnGraphTrainer:
         self.n_dp = max(1, self.n_dp)
         self.n_ep = max(1, self.n_ep)
         self.steps_per_call = max(1, self.steps_per_call)
+        self._lay = multihost.layout(self.n_dp, self.n_ep,
+                                     ep_rdma=self.cfg.ep_rdma_exchange)
         self._check_modes()
+        if self._lay.world > 1:
+            self._check_fingerprint()
+        # layout (b): this rank's EP group (made here, on every rank)
+        self._comm = (multihost.ep_comm(self._lay)
+                      if self._lay.kind == "shards" else None)
         modes = dict(reuse_packs=self.reuse_packs,
                      workers=self.loader_workers)
         # each group's batch (JAX trainer.py:299)
@@ -240,6 +268,26 @@ class RxnGraphTrainer:
                     "host-looped run); resume this checkpoint without "
                     "--device_epoch, or resume an epoch-boundary checkpoint")
 
+    def _check_fingerprint(self) -> None:
+        """Every rank must walk the same batch sequence and enter the same
+        collectives: one gather of the config fingerprint (JAX
+        ``trainer.py:253-279``); a mismatch raises on every rank."""
+        probe = np.asarray(
+            [self.seed, len(self.train_data), len(self.val_data),
+             self.batch_size, self.n_dp, self.n_ep, self.num_epochs,
+             int(self.reuse_packs), int(self.device_epoch), self.spec.te,
+             self.spec.tn, self.spec.tb, self.val_frequency,
+             self.ckpt_every_steps, int(bool(self.resume_from)),
+             self.steps_per_call, self.max_bad_steps, self.lr,
+             self.weight_decay, self.gamma], np.float64)
+        gathered = multihost.all_gather_rows(probe)
+        if not (gathered == gathered[0:1]).all():
+            raise ValueError(
+                "multi-process config mismatch: every process must run the "
+                "identical trainer config (seed, dataset sizes, batch size, "
+                "mesh, epochs, pack spec) -- fingerprints (a row a rank):\n"
+                f"{gathered}")
+
     def _check_modes(self) -> None:
         """Refuse what the JAX trainer refuses (``trainer.py:278-298``)."""
         if self.n_dp * self.n_ep > 1 and self.steps_per_call > 1:
@@ -283,8 +331,13 @@ class RxnGraphTrainer:
             # (epoch in progress, successful steps completed within it)
             meta["mid_epoch"] = {"epoch": mid_epoch[0],
                                  "steps_done": mid_epoch[1]}
-        return save_checkpoint(path, self.model, meta, self.optimizer,
-                               self.step, self._stream)
+        # every rank holds the same state: the primary writes, and the
+        # barrier keeps every rank until the file is whole
+        if multihost.is_primary():
+            save_checkpoint(path, self.model, meta, self.optimizer,
+                            self.step, self._stream)
+        multihost.sync_global_devices("ckpt")
+        return Path(path)
 
     def _resume(self, path: str) -> None:
         leaves, meta = load_checkpoint(path)
@@ -305,13 +358,15 @@ class RxnGraphTrainer:
         """The dropout seeds of the step at ``draw`` in the stream: one per
         conv layer (``models.kernel_seeds``' draw), [n_dp, depth] under DP
         and [n_dp, n_ep, depth] under EP (one per group, shard and layer,
-        in that order; group 0's are the single-device draw's)."""
+        in that order; group 0's are the single-device draw's).  A rank of
+        a multi-process run takes its cells' rows of that global draw."""
         self._gen.manual_seed((self._stream[0] << 32) | draw)
         lead = ((self.n_dp, self.n_ep) if self.n_ep > 1
                 else (self.n_dp,) if self.n_dp > 1 else ())
-        return torch.randint(0, 2**31 - 1, lead + (self.cfg.depth,),
-                             generator=self._gen,
-                             dtype=torch.int64).to(torch.int32)
+        seeds = torch.randint(0, 2**31 - 1, lead + (self.cfg.depth,),
+                              generator=self._gen,
+                              dtype=torch.int64).to(torch.int32)
+        return self._local(seeds)
 
     def _next_seeds(self, n: int) -> torch.Tensor:
         """The seeds of the next ``n`` steps, [n, ...], the rows the host
@@ -329,7 +384,7 @@ class RxnGraphTrainer:
         if (kind, spec) not in self._ep_steps:
             make = (make_ep_pack_train_step if kind == "t"
                     else make_ep_pack_eval_step)
-            self._ep_steps[(kind, spec)] = make(self.model, spec)
+            self._ep_steps[(kind, spec)] = make(self.model, spec, self._comm)
         return self._ep_steps[(kind, spec)]
 
     def _dp_groups(self, items, spec: PackSpec):
@@ -347,9 +402,76 @@ class RxnGraphTrainer:
                                  self.train_data.num_edge_features)
             yield stack_batches(group + [filler] * (self.n_dp - len(group)))
 
+    def _local(self, stacked):
+        """This rank's cells of a stacked array or item: leaves [n_dp, ...]
+        (DP) or [n_dp, n_ep, ...] (EP) cut to its groups (and shards);
+        in a single process all of it."""
+        if self._lay.kind == "one":
+            return stacked
+        g = slice(self._lay.groups.start, self._lay.groups.stop)
+        k = slice(self._lay.shards.start, self._lay.shards.stop)
+        if torch.is_tensor(stacked):
+            return stacked[g, k] if self.n_ep > 1 else stacked[g]
+        return type(stacked)(*(a[g, k] if self.n_ep > 1 else a[g]
+                               for a in stacked))
+
+    def _mh_stream(self, loader):
+        """A rank's items of a multi-process run (JAX ``_mh_stream``): the
+        single-process items cut to this rank's cells, of which only its
+        own are packed where the packing is per group.
+
+        * DP without reuse: every rank computes the serial iteration's
+          window and carry plan with the placement probe
+          (``PackedLoader.plan_windows``) and packs only the windows of its
+          groups (on a background thread); a packer that disagrees with the
+          plan raises.
+        * DP with ``reuse_packs``: the per-epoch batch-order shuffle moves
+          cached batches between groups, so the cache is host-global and
+          each step's local groups are cut from it.
+        * EP: the edge partition is a decision over the whole group, so
+          every rank builds the whole item and keeps its cells."""
+        if self.n_ep > 1:
+            for spec, stacked in loader.prefetch():
+                yield spec, self._local(stacked)
+            return
+        if loader.reuse_packs:
+            for stacked in self._dp_groups(loader.prefetch(), loader.spec):
+                yield self._local(stacked)
+            return
+        yield from background(self._own_windows(loader))
+
+    def _own_windows(self, loader):
+        """This rank's groups of each step, packed from the plan of the
+        serial iteration (filler batches past its end)."""
+        plan = loader.plan_windows(loader._order())
+        filler = None
+        for first in range(0, len(plan), self.n_dp):
+            group = []
+            for g in self._lay.groups:
+                if first + g < len(plan):
+                    rows = plan[first + g]
+                    b, used = loader._pack_window(rows)
+                    if used != len(rows):
+                        # a short pack on one rank would drop rows and
+                        # part the ranks' data
+                        raise RuntimeError(
+                            f"window plan disagrees with the packer "
+                            f"(planned {len(rows)} rows, packed {used})")
+                else:
+                    if filler is None:
+                        filler = empty_batch(
+                            loader.spec, loader.dataset.num_node_features,
+                            loader.dataset.num_edge_features)
+                    b = filler
+                group.append(b)
+            yield stack_batches(group)
+
     def _items(self, loader):
         """The loader's items, one a step: its batches (packed ahead on a
-        background thread), under DP in stacked groups."""
+        background thread), under DP in stacked groups; over several ranks
+        this rank's cells of them (:meth:`_mh_stream`)."""
+        if self._lay.world > 1:
+            return self._mh_stream(loader)
         items = loader.prefetch()
         if self.n_dp > 1 and self.n_ep == 1:
             return self._dp_groups(items, loader.spec)
@@ -363,7 +485,8 @@ class RxnGraphTrainer:
             return to_device(item, self.device)
         spec, stacked = item
         return spec, [ep_shards(EPPackedBatch(*(a[g] for a in stacked)),
-                                self.device) for g in range(self.n_dp)]
+                                self.device)
+                      for g in range(len(self._lay.groups))]
 
     def _stack_on_device(self, host: list):
         """Loader items stacked on the trainer's device, one transfer a
@@ -581,7 +704,8 @@ class RxnGraphTrainer:
             return PackedGraphBatch(*(t[i] for t in staged))
         spec, b = staged
         return spec, [[EPPackedBatch(*(t[i, g, k] for t in b))
-                       for k in range(self.n_ep)] for g in range(self.n_dp)]
+                       for k in range(len(self._lay.shards))]
+                      for g in range(len(self._lay.groups))]
 
     def _first_batch(self, item):
         """The first packed batch of a device item: the histograms' sample
@@ -696,8 +820,9 @@ class RxnGraphTrainer:
                 if val < self.best_val_loss:
                     self.best_val_loss = val
                     path = self.save(save_dir / f"{self.name}.npz")
-                    print(f"New best model with validation loss RMSE: "
-                          f"{self.best_val_loss:.4f} located at {path}")
+                    if multihost.is_primary():
+                        print(f"New best model with validation loss RMSE: "
+                              f"{self.best_val_loss:.4f} located at {path}")
             # latest state for resume
             self.save(save_dir / f"{self.name}.latest.npz")
         out["train_time_s"] = time.time() - t0

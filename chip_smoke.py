@@ -235,9 +235,25 @@ Phases (any failure raises, and the script exits non-zero):
    ``activation_energy_prediction(input_coordinates=...)`` on the card
    against serving the npz it wrote and against the CPU, its stage times
    (the xyz -> npz step apart), and the default backend's ImportError;
-23. a ``{"kernels": [...]}`` line (the launches of every main path, the
-   data-parallel runs' included), then ``{"ok": true, "device": {...}}``
-   as the last line.
+23. multi-process training (``multiprocess_phase``, after ``dp_phase``):
+   two ranks of a gloo process group share the card, each this script
+   started again with ``--rank_job`` (built kernels found on disk): (1)
+   ``cli.train --dp 2`` with the README's model on the corpus through
+   torchrun's variables, (2) ``--dp 2 --compute_dtype bfloat16
+   --reuse_packs --device_epoch`` through the JAX CLI's variables, (3) the
+   wired set with ``n_ep=2``, one EP shard a rank (K5, K8, K11; the ring
+   exchange and the group sums between the ranks); each against the
+   single-process run with the same flags on the card: the per-epoch
+   losses and the latest checkpoint's leaves bit for bit (run 3: losses
+   at rtol 1e-6 and leaves within 1e-6 of their largest, the gradients
+   being summed over the shards in another order), only rank 0 writes,
+   each rank one K2 a step in run 1 (and the bf16 K2 in run 2), each
+   rank's launches half the single process's in run 3; the ranks' wall
+   steps/s beside the single process's and the collectives' host ms a
+   step;
+24. a ``{"kernels": [...]}`` line (the launches of every main path, the
+   data-parallel and multi-process runs' included), then ``{"ok": true,
+   "device": {...}}`` as the last line.
 
 It exits non-zero, printing no result, without CUDA or without the package
 beside it.
@@ -2738,6 +2754,290 @@ def dp_phase(tmp: Path, seed: int, card: str) -> dict:
           f"from {meta['mid_epoch']}: {len(a)} leaves bit for bit with a "
           f"straight 2-epoch run ({straight.step} steps); wall "
           f"{out['wall_s']['resume']:.1f} s [{card}]")
+    print(json.dumps(out, default=float))
+    return out
+
+
+RANK_TIMEOUT_S = 600
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def wired_trainer(seed: int, name: str, save: Path, device):
+    """The README's model (aggr add, dropout 0.1) on a wired set: 15
+    synthetic graphs and a 480-atom chain, batches of 8 graphs sharded over
+    2 EP shards (the chain's batch cut across them), 3 epochs."""
+    from cgr_mpnn_3d_tpu_torch.data.batch import PackSpec
+    from cgr_mpnn_3d_tpu_torch.models import CGRMPNNConfig
+    from cgr_mpnn_3d_tpu_torch.train import RxnGraphTrainer
+    graphs, labels = ep_graphs(seed + 3, 15, (480,))
+    data = GraphSet(graphs, labels, 270)
+    cfg = CGRMPNNConfig(num_node_features=270, num_edge_features=14,
+                        depth=4, hidden_sizes=(400,) * 4,
+                        dropout_ps=(0.1,) * 4)
+    return RxnGraphTrainer(
+        name=name, cfg=cfg, train_data=data, val_data=data, spec=PackSpec(),
+        lr=1e-4, weight_decay=1e-5, gamma=0.9, num_epochs=3, batch_size=8,
+        val_frequency=1, seed=seed, model_save_dir=str(save), device=device,
+        n_ep=2)
+
+
+def rank_job(job: dict) -> int:
+    """One rank of ``multiprocess_phase`` (``--rank_job``): the CLI with
+    ``job["argv"]``, or the wired trainer, under the launch variables the
+    parent set; prints ``RANK_RESULT`` with its results, the launch
+    counters it moved, the checkpoint files it wrote and the host seconds
+    of its collectives (the card synchronized before each)."""
+    import torch
+    from cgr_mpnn_3d_tpu_torch.parallel import ep_pack, multihost
+    from cgr_mpnn_3d_tpu_torch.train import trainer as trainer_mod
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    writes, coll = [], {"s": 0.0, "calls": 0}
+    save = trainer_mod.save_checkpoint
+
+    def counted(path, *a, **kw):
+        writes.append(str(path))
+        return save(path, *a, **kw)
+    trainer_mod.save_checkpoint = counted
+
+    def timed(fn):
+        def run(*a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                coll["s"] += time.perf_counter() - t0
+                coll["calls"] += 1
+        return run
+    multihost.all_reduce_sum_ = timed(multihost.all_reduce_sum_)
+    ep_pack._rank_ring_move = timed(ep_pack._rank_ring_move)
+    ep_pack._GroupSum.forward = staticmethod(
+        timed(ep_pack._GroupSum.forward))
+    Path(job["cwd"]).mkdir(parents=True, exist_ok=True)
+    os.chdir(job["cwd"])
+    before = launch_counters()
+    if job["kind"] == "cli":
+        from cgr_mpnn_3d_tpu_torch.cli import train as cli_train
+        res = cli_train.main(job["argv"])
+    else:
+        multihost.initialize()
+        res = wired_trainer(job["seed"], "wired", Path(job["save"]),
+                            DEVICE).train()
+    torch.cuda.synchronize()
+    after = launch_counters()
+    print("RANK_RESULT " + json.dumps(dict(
+        res=res, rank=multihost.rank(), world=multihost.world_size(),
+        device=str(torch.cuda.current_device()), writes=writes,
+        moved={k: v - before[k] for k, v in after.items() if v != before[k]},
+        coll_s=coll["s"], coll_calls=coll["calls"]), default=float),
+        flush=True)
+    return 0
+
+
+def run_ranks(jobs: list[dict], envs: list[dict]) -> list[dict]:
+    """Start one ``--rank_job`` process a job (with its launch variables),
+    all at once; their RANK_RESULTs.  A rank that fails or outlives
+    RANK_TIMEOUT_S fails the check, and every rank is gone on return."""
+    base = {k: v for k, v in os.environ.items()
+            if k not in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR",
+                         "MASTER_PORT", "JAX_COORDINATOR_ADDRESS",
+                         "JAX_NUM_PROCESSES", "JAX_PROCESS_ID")}
+    procs = [subprocess.Popen(
+        [sys.executable, str(ROOT / "chip_smoke.py"), "--rank_job",
+         json.dumps(job)], stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True, cwd=str(ROOT), env={**base, **env})
+        for job, env in zip(jobs, envs)]
+    outs = []
+    try:
+        for r, p in enumerate(procs):
+            try:
+                out, err = p.communicate(timeout=RANK_TIMEOUT_S)
+            except subprocess.TimeoutExpired:
+                check(False, f"rank {r} outlived {RANK_TIMEOUT_S} s")
+            lines = [ln for ln in out.splitlines()
+                     if ln.startswith("RANK_RESULT ")]
+            check(p.returncode == 0 and len(lines) == 1,
+                  f"rank {r} exited {p.returncode}:\n{out[-3000:]}\n"
+                  f"{err[-3000:]}")
+            outs.append(json.loads(lines[0][len("RANK_RESULT "):]))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    return outs
+
+
+def _leaves_rel(a: list, b: list) -> float:
+    """max |a - b| / max |b| over every leaf pair (0 when bit for bit)."""
+    return max(float(np.abs(x.astype(np.float64) - y).max()
+                     / max(np.abs(y).max(), 1e-30))
+               if x.size else 0.0 for x, y in zip(a, b))
+
+
+def multiprocess_phase(tmp: Path, seed: int, card: str) -> dict:
+    """Two gloo ranks on the card (each this script with ``--rank_job``)
+    against the single-process run with the same flags: see item 23 of the
+    module doc.  Each run's line has both wall steps/s and the ranks'
+    collective host ms a step."""
+    import torch
+    from cgr_mpnn_3d_tpu_torch.train import load_checkpoint
+    t_phase = time.perf_counter()
+    base = tmp / "mp"
+    data = training_data(base, seed)
+    out = {"phase": "multi-process", "card": card, "wall_s": {}, "runs": {}}
+    common = ["-ne", "3", "--val_frequency", "1", "--seed", str(seed),
+              "--data_path", str(data), "--skip_test", "--dp", "2"]
+    runs = (
+        ("dp2_f32", (), "torchrun", "fused_model.train_launches"),
+        ("dp2_bf16_device_epoch", ("--compute_dtype", BF16, "--reuse_packs",
+                                   "--device_epoch"), "jax",
+         "fused_model.bf16_train_launches"))
+    for label, extra, names, k2 in runs:
+        t0 = time.perf_counter()
+        port = _free_port()
+        run_dir = base / label
+        argv = README_FLAGS + common + ["--save_path", str(run_dir / "saved"),
+                                        "--device", DEVICE, *extra]
+        jobs = [dict(kind="cli", argv=argv, cwd=str(run_dir / f"rank{r}"))
+                for r in range(2)]
+        envs = [dict(WORLD_SIZE="2", RANK=str(r), LOCAL_RANK=str(r),
+                     MASTER_ADDR="localhost", MASTER_PORT=str(port))
+                if names == "torchrun" else
+                dict(JAX_COORDINATOR_ADDRESS=f"localhost:{port}",
+                     JAX_NUM_PROCESSES="2", JAX_PROCESS_ID=str(r))
+                for r in range(2)]
+        ranks = run_ranks(jobs, envs)
+        t_ranks = time.perf_counter() - t0
+        one = _cli_run(base / f"{label}_one", data, seed, DEVICE, 3,
+                       "--dp", "2", *extra)
+        res = [r["res"] for r in ranks]
+        same_ranks = res[0]["train_losses"] == res[1]["train_losses"] and \
+            res[0]["val_losses"] == res[1]["val_losses"]
+        bits = (res[0]["train_losses"] == one["train_losses"]
+                and res[0]["val_losses"] == one["val_losses"])
+        leaves = load_checkpoint(next((run_dir / "saved").glob(
+            "*.latest.npz")))[0]
+        leaves_one = _latest_leaves(base / f"{label}_one")
+        same_leaves = _same_leaves(leaves, leaves_one)
+        steps = res[0]["steps"]
+        k2_ok = all(r["moved"].get(k2) == steps for r in ranks)
+        writes_ok = ranks[0]["writes"] and ranks[1]["writes"] == [] and \
+            not (run_dir / "rank1" / "runs").exists() and \
+            (run_dir / "rank0" / "runs").exists()
+        check(same_ranks and bits and same_leaves and k2_ok and writes_ok
+              and [r["rank"] for r in ranks] == [0, 1],
+              f"2 ranks {label}: ranks agree {same_ranks}, losses bit for "
+              f"bit with one process {bits} ({res[0]['train_losses']} vs "
+              f"{one['train_losses']}), checkpoint leaves {same_leaves}, "
+              f"K2 one a step on each rank {k2_ok} "
+              f"({[r['moved'] for r in ranks]}, {steps} steps), only rank 0 "
+              f"wrote {writes_ok} ({[r['writes'] for r in ranks]})")
+        sps = [r["res"]["steps"] / r["res"]["train_time_s"] for r in ranks]
+        sps_one = one["steps"] / one["train_time_s"]
+        # the StepTimer's per-epoch rates (rank 0 logs them)
+        timer = [json.loads(line).get("steps_per_s")
+                 for f in (run_dir / "rank0" / "runs").glob("*.jsonl")
+                 for line in f.read_text().splitlines()
+                 if '"train_loss"' in line]
+        coll_ms = [1e3 * r["coll_s"] / steps for r in ranks]
+        out["runs"][label] = dict(
+            steps=steps, launches=[r["moved"] for r in ranks],
+            steps_per_s=sps, steps_per_s_one=sps_one, coll_ms=coll_ms,
+            timer_steps_per_s=timer, timer_steps_per_s_one=one["steps_per_s"],
+            coll_calls=[r["coll_calls"] for r in ranks],
+            train_losses=res[0]["train_losses"])
+        out["wall_s"][label] = time.perf_counter() - t0
+        print(f"multi-process {label} ({names} variables, 2 ranks on "
+              f"{ranks[0]['device']}): 3 epochs, {steps} steps, train RMSE "
+              f"{res[0]['train_losses']}, val RMSE {res[0]['val_losses']}: "
+              f"both ranks and one process bit for bit, checkpoint leaves "
+              f"bit for bit ({len(leaves)}), only rank 0 wrote "
+              f"({len(ranks[0]['writes'])} files); launches rank 0 "
+              f"{ranks[0]['moved']}, rank 1 {ranks[1]['moved']}; wall "
+              f"steps/s (steps / train time, validation and checkpoints "
+              f"included) ranks {sps} against one process's {sps_one:.3f}; "
+              f"StepTimer steps/s per epoch rank 0 {timer} against one "
+              f"process's {one['steps_per_s']}; collectives' host ms a step "
+              f"(the card synchronized before each; one all-reduce of [SSE, "
+              f"gradients] a step and one a validation batch; waiting for "
+              f"the other rank included) {coll_ms}; ranks' wall "
+              f"{t_ranks:.1f} s [{card}]")
+
+    # the wired set, one EP shard a rank (layout b)
+    t0 = time.perf_counter()
+    port = _free_port()
+    run_dir = base / "wired_ep2"
+    jobs = [dict(kind="wired", seed=seed, save=str(run_dir / "saved"),
+                 cwd=str(run_dir / f"rank{r}")) for r in range(2)]
+    envs = [dict(WORLD_SIZE="2", RANK=str(r), LOCAL_RANK=str(r),
+                 MASTER_ADDR="localhost", MASTER_PORT=str(port))
+            for r in range(2)]
+    ranks = run_ranks(jobs, envs)
+    before = launch_counters()
+    tr = wired_trainer(seed, "wired", base / "wired_ep2_one" / "saved",
+                       DEVICE)
+    one = tr.train()
+    torch.cuda.synchronize()
+    after = launch_counters()
+    moved_one = {k: v - before[k] for k, v in after.items()
+                 if v != before[k]}
+    res = [r["res"] for r in ranks]
+    same_ranks = res[0]["train_losses"] == res[1]["train_losses"] and \
+        res[0]["val_losses"] == res[1]["val_losses"]
+    loss_rel = _max_rel(res[0], one)
+    leaves = load_checkpoint(run_dir / "saved" / "wired.latest.npz")[0]
+    leaves_one = load_checkpoint(base / "wired_ep2_one" / "saved"
+                                 / "wired.latest.npz")[0]
+    leaf_rel = _leaves_rel(leaves, leaves_one)
+    halves = all(2 * r["moved"].get(k, 0) == v for r in ranks
+                 for k, v in moved_one.items())
+    used = all(r["moved"].get(k, 0) > 0 for r in ranks
+               for k in ("gather_linear.launches", "fused_conv.r_launches",
+                         "gather_linear.pool_launches"))
+    writes_ok = ranks[0]["writes"] and ranks[1]["writes"] == []
+    check(same_ranks and loss_rel <= 1e-6 and leaf_rel <= 1e-6 and halves
+          and used and writes_ok,
+          f"2 ranks, one EP shard each, wired set: ranks agree {same_ranks}, "
+          f"losses {res[0]['train_losses']} against one process's "
+          f"{one['train_losses']} (max rel {loss_rel:.3e}, limit 1e-6), "
+          f"leaves {leaf_rel:.3e} of their largest (limit 1e-6), launches "
+          f"{[r['moved'] for r in ranks]} half of one process's {moved_one} "
+          f"{halves}, K5/K8/K11 on each rank {used}, only rank 0 wrote "
+          f"{writes_ok}")
+    steps = res[0]["steps"]
+    sps = [r["steps"] / r["train_time_s"] for r in res]
+    sps_one = one["steps"] / one["train_time_s"]
+    coll_ms = [1e3 * r["coll_s"] / steps for r in ranks]
+    out["runs"]["wired_ep2"] = dict(
+        steps=steps, launches=[r["moved"] for r in ranks],
+        launches_one=moved_one, loss_rel=loss_rel, leaf_rel=leaf_rel,
+        steps_per_s=sps, steps_per_s_one=sps_one, coll_ms=coll_ms,
+        coll_calls=[r["coll_calls"] for r in ranks])
+    out["wall_s"]["wired_ep2"] = time.perf_counter() - t0
+    print(f"multi-process wired --ep 2, one shard a rank (torchrun "
+          f"variables): 3 epochs, {steps} steps, train RMSE "
+          f"{res[0]['train_losses']} against one process's "
+          f"{one['train_losses']}: losses max rel {loss_rel:.3e}, checkpoint "
+          f"leaves within {leaf_rel:.3e} of their largest (limit 1e-6, not "
+          f"bit for bit: the ranks sum the shards' gradients after their "
+          f"backward, one process accumulates them inside its backward), "
+          f"ranks bit for bit with each other; launches rank 0 "
+          f"{ranks[0]['moved']}, each half "
+          f"of one process's {moved_one}; wall steps/s ranks {sps} against "
+          f"one process's {sps_one:.3f}; collectives' host ms a step "
+          f"(ring exchanges, group sums, the all-reduce; waiting for the "
+          f"other rank included) {coll_ms} over "
+          f"{ranks[0]['coll_calls']} calls; wall "
+          f"{out['wall_s']['wired_ep2']:.1f} s [{card}]")
+    out["wall_s"]["phase"] = time.perf_counter() - t_phase
     print(json.dumps(out, default=float))
     return out
 
@@ -5470,6 +5770,9 @@ def main(argv=None) -> int:
                          "K3f, K5, K10/K11, conv layer (K6, K8/K9, K4), K7 "
                          "and K2 are held and timed beside the shipped "
                          "ones")
+    ap.add_argument("--rank_job", default=None,
+                    help="run one rank of multiprocess_phase (JSON; the "
+                         "phase starts these itself)")
     args = ap.parse_args(argv)
 
     import torch
@@ -5486,6 +5789,8 @@ def main(argv=None) -> int:
         return 1
     pkg = Path(cgr_mpnn_3d_tpu_torch.__file__).resolve().parent
     check(pkg.parent == ROOT, f"imported the port from {pkg}, not {ROOT}")
+    if args.rank_job:
+        return rank_job(json.loads(args.rank_job))
 
     card = card_line()
     print(card)
@@ -5701,6 +6006,9 @@ def main(argv=None) -> int:
             dp = dp_phase(Path(tmp), args.seed, card)
             print(f"phase wall: data parallelism "
                   f"{dp['wall_s']['phase']:.1f} s")
+            mp = multiprocess_phase(Path(tmp), args.seed, card)
+            print(f"phase wall: multi-process training "
+                  f"{mp['wall_s']['phase']:.1f} s")
             rates = train_profile(Path(tmp), args.seed, card)
             trn_16 = train_phase_bf16(Path(tmp), args.seed, card,
                                       trn["steps_per_s"])
@@ -5845,19 +6153,37 @@ def main(argv=None) -> int:
     dp_ep = {k: sum(sum(run["launches"].get(k, (0, 0)))
                     for run in dp["dp_ep"].values())
              for k in ("K8", "K9", "K11")}
+
+    def mp_launches(run: str, *counters: str) -> int:
+        """The ranks' launches of ``counters`` in one multi-process run."""
+        return sum(moved.get(c, 0) for moved in mp["runs"][run]["launches"]
+                   for c in counters)
+    mp_k2 = mp_launches("dp2_f32", "fused_model.train_launches")
+    mp_k3f = mp_launches("dp2_f32", "fused_model.launches")
+    mp_k2_16 = mp_launches("dp2_bf16_device_epoch",
+                           "fused_model.bf16_train_launches")
+    mp_k3f_16 = mp_launches("dp2_bf16_device_epoch",
+                            "fused_model.bf16_launches")
+    mp_k5 = mp_launches("wired_ep2", "gather_linear.launches",
+                        "gather_linear.bwd_launches")
+    mp_k8 = mp_launches("wired_ep2", "fused_conv.r_launches",
+                        "fused_conv.r_bwd_launches")
+    mp_k11 = mp_launches("wired_ep2", "gather_linear.pool_launches",
+                         "gather_linear.pool_bwd_launches")
     print(json.dumps({"kernels": [
         kernel("fused_model_fwd", "fused_model_fwd.cu", "pallas_model.py:376",
                srv["launches"] + desc["launches"]
-               + dp32["fused_model.launches"], main_k),
+               + dp32["fused_model.launches"] + mp_k3f, main_k),
         kernel("fused_model_train", "fused_model_bwd.cu",
                "pallas_model.py:439", trn["launches"]["train"]
-               + dp32["fused_model.train_launches"], train_k["train"]),
+               + dp32["fused_model.train_launches"] + mp_k2,
+               train_k["train"]),
         kernel("fused_model_vjp", "fused_model_bwd.cu", "pallas_model.py:397",
                trn["launches"]["vjp"], train_k["vjp"]),
         kernel("conv_stack", "conv_stack.cu", "pallas_stack.py:177",
                lay32["K4"] + dp_layered["K4"], lay_k["K4 fwd eval"]),
         kernel("gather_linear", "gather_linear.cu", "pallas_glin.py:160",
-               lay32["K5"] + dp_layered["K5"], glin(lay_k, False)),
+               lay32["K5"] + dp_layered["K5"] + mp_k5, glin(lay_k, False)),
         kernel("onehot_spmm", "onehot_spmm.cu", "pallas_ops.py:93",
                lay32["K7"] + dp_layered["K7"], pool(lay_k, "float32")),
         kernel("fused_conv", "fused_conv.cu", "pallas_fused.py:330",
@@ -5866,10 +6192,12 @@ def main(argv=None) -> int:
                chain["launches"], chain["entry"]),
         kernel("fused_model_fwd_bf16", "fused_model_fwd.cu",
                "pallas_model.py:376", trn_16["launches"]["fwd"]
-               + dp16["fused_model.bf16_launches"], bf16_k["fwd"]),
+               + dp16["fused_model.bf16_launches"] + mp_k3f_16,
+               bf16_k["fwd"]),
         kernel("fused_model_train_bf16", "fused_model_bwd.cu",
                "pallas_model.py:439", trn_16["launches"]["train"]
-               + dp16["fused_model.bf16_train_launches"], bf16_k["train"]),
+               + dp16["fused_model.bf16_train_launches"] + mp_k2_16,
+               bf16_k["train"]),
         kernel("fused_model_vjp_bf16", "fused_model_bwd.cu",
                "pallas_model.py:397", trn_16["launches"]["vjp"],
                bf16_k["vjp"]),
@@ -5887,13 +6215,14 @@ def main(argv=None) -> int:
                "tools/int8_microbench.py:72", p2["transpose_launches"],
                p2["transpose"]),
         kernel("fused_conv_r", "fused_conv.cu", "pallas_fused.py:555",
-               ep_launches["K8"] + dp_ep["K8"], ep_k[2]["K8 fwd"]),
+               ep_launches["K8"] + dp_ep["K8"] + mp_k8, ep_k[2]["K8 fwd"]),
         kernel("fused_conv_rm", "fused_conv.cu", "pallas_fused.py:686",
                ep_launches["K9"] + dp_ep["K9"], ep_k[2]["K9 fwd"]),
         kernel("gather_linear_r", "gather_linear.cu", "pallas_glin.py:306",
                ep_launches["K10"], ep_k[2]["K10 fwd"]),
         kernel("gather_linear_pool", "gather_linear.cu", "pallas_glin.py:491",
-               ep_launches["K11"] + dp_ep["K11"], ep_k[2]["K11 fwd"]),
+               ep_launches["K11"] + dp_ep["K11"] + mp_k11,
+               ep_k[2]["K11 fwd"]),
         kernel("fused_conv_r_bf16", "fused_conv.cu", "pallas_fused.py:555",
                ep_launches["K8 bf16"], ep_k16["K8 fwd"]),
         kernel("fused_conv_rm_bf16", "fused_conv.cu", "pallas_fused.py:686",

@@ -426,8 +426,9 @@ def test_train_cli_with_ep_and_its_refusals(tmp_path, monkeypatch):
     plain version, validation through K5/K4/K11's), also with
     --compute_dtype bfloat16, --ep_overlap, --ep_rdma, --reuse_packs
     with --loader_workers 2, --reuse_packs --device_epoch and --dp 2; a
-    multi-process launch, whose path is not ported, raises before any
-    data is read."""
+    multi-process launch with one EP shard a rank and --ep_rdma, whose hop
+    exchange across ranks is not ported, raises before any data is
+    read."""
     from cgr_mpnn_3d_tpu_torch.cli.train import main
     monkeypatch.chdir(tmp_path)
     data = _data(tmp_path)
@@ -446,4 +447,4 @@ def test_train_cli_with_ep_and_its_refusals(tmp_path, monkeypatch):
         assert np.isfinite(res["train_losses"]).all()
     monkeypatch.setenv("WORLD_SIZE", "2")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        main(base + ["-ne", "1", "--data_path", "missing"])
+        main(base + ["-ne", "1", "--data_path", "missing", "--ep_rdma"])

@@ -47,7 +47,7 @@ def test_importing_every_module_loads_no_jax():
                 "tools.k2_phases", "tools.k12_host", "tools.k7_host",
                 "native", "data.dataset", "data.loader",
                 "data.descriptors", "data.preprocess",
-                "parallel.data_parallel")}
+                "parallel.data_parallel", "parallel.multihost")}
     assert kernels <= set(res["mods"])
     assert [m for m in res["loaded"] if _forbidden(m)] == []
 

@@ -327,34 +327,38 @@ def test_cli_loader_modes_and_the_feature_cache(tmp_path, monkeypatch):
     assert two["steps"] == one["steps"] == 9
 
 
-@pytest.mark.parametrize("env,flags,text", [
-    ({"JAX_NUM_PROCESSES": "2"}, [],
-     "ROADMAP.md section 1.5, data parallel and multi-host"),
+@pytest.mark.parametrize("env,flags,exc,text", [
+    ({"JAX_NUM_PROCESSES": "2"}, [], ValueError,
+     "2-process run needs a multi-device mesh: pass --dp/--ep"),
     ({"JAX_COORDINATOR_ADDRESS": "localhost:12355"}, ["--dp", "2"],
-     "ROADMAP.md section 1.5, data parallel and multi-host"),
-    ({"WORLD_SIZE": "2"}, ["--reuse_packs", "--device_epoch"],
-     "ROADMAP.md section 1.5, data parallel and multi-host"),
-    ({"JAX_NUM_PROCESSES": "2"}, ["--ep", "2"],
-     "section 1.5, data parallel and multi-host; with --ep, section 1.6 "
-     "item 5"),
-    ({"WORLD_SIZE": "4"}, ["--dp", "2", "--ep", "2"],
-     "section 1.5, data parallel and multi-host; with --ep, section 1.6 "
-     "item 5")])
-def test_cli_refusals_name_their_roadmap_items(monkeypatch, env, flags,
+     ValueError, "JAX_COORDINATOR_ADDRESS without a process count"),
+    ({"WORLD_SIZE": "2"}, ["--reuse_packs", "--device_epoch"], ValueError,
+     "2-process run needs a multi-device mesh: pass --dp/--ep"),
+    ({"JAX_NUM_PROCESSES": "3"}, ["--ep", "2"], ValueError,
+     "the port takes two layouts, (a) whole dp groups a rank"),
+    ({"WORLD_SIZE": "4"}, ["--dp", "2"], ValueError,
+     "(b) one EP shard a rank (dp*ep = 2 must equal 4)"),
+    ({"WORLD_SIZE": "2"}, ["--dp", "2"], ValueError,
+     "WORLD_SIZE=2 without ['RANK', 'MASTER_ADDR', 'MASTER_PORT']"),
+    ({"WORLD_SIZE": "2", "RANK": "0", "MASTER_ADDR": "localhost",
+      "MASTER_PORT": "12355"}, ["--ep", "2", "--ep_rdma"],
+     NotImplementedError, "ROADMAP.md section 2 item 1")])
+def test_cli_refusals_name_their_roadmap_items(monkeypatch, env, flags, exc,
                                                text):
-    """cli/train.py refuses a multi-process environment (the JAX CLI's
-    coordinator variables, or WORLD_SIZE above 1) before any data is read,
-    naming the ROADMAP.md item: multi-host is section 1.5 (with --ep also
-    1.6 item 5), whatever else runs in one process; no message cites edge
-    partitioning without --ep."""
+    """cli/train.py refuses, before any rendezvous and before any data is
+    read, a multi-process launch that the port does not take: dp*ep = 1 on
+    several processes, a layout other than whole dp groups a rank or one
+    EP shard a rank (ROADMAP.md section 3), an incomplete launch
+    environment, and --ep_rdma with one shard a rank (the hop exchange
+    across cards, ROADMAP.md section 2 item 1)."""
     from cgr_mpnn_3d_tpu_torch.cli import train as cli_train
-    for key in cli_train.MULTI_PROCESS_ENV:
+    from cgr_mpnn_3d_tpu_torch.parallel import multihost
+    for key in multihost.LAUNCH_ENV:
         monkeypatch.delenv(key, raising=False)
     for key, value in env.items():
         monkeypatch.setenv(key, value)
-    with pytest.raises(NotImplementedError) as err:
+    with pytest.raises(exc) as err:
         cli_train.main(["-ne", "1", "--data_path", "missing", "--device",
                         "cpu"] + flags)
     assert text in str(err.value)
-    if "--ep" not in flags:
-        assert "1.6" not in str(err.value)
+    assert not multihost.world_size() > 1
