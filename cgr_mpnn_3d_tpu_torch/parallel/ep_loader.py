@@ -1,33 +1,36 @@
-"""Host-side loader for edge-partitioned training (CLI ``--ep N``).
+"""Host-side loaders for edge-partitioned training (CLI ``--ep N``).
 
-The counterpart of ``cgr_mpnn_3d_tpu/parallel/ep_loader.py``'s
-``EPPackLoader``, with the machinery of its ``_BaseEPLoader`` folded in
-(the port has this one loader): each step batch is ``batch_size`` whole
-graphs sharded over ``n_ep`` shards by :func:`~.ep_pack.pack_shard_edges`,
-and ``n_dp`` such batches (consecutive windows of the order) make one item,
-yielded as ``(spec, batch)`` with leaves ``[n_dp, n_ep, ...]``; a short
-last group is padded with :func:`~.ep_pack.empty_ep_pack_batch` (mask 0:
-its loss and gradients are exactly 0).
+The counterpart of ``cgr_mpnn_3d_tpu/parallel/ep_loader.py``: each step
+batch is ``batch_size`` whole graphs sharded over ``n_ep`` shards, and
+``n_dp`` such batches (consecutive windows of the order) make one item,
+stacked with leaves ``[n_dp, n_ep, ...]``; a short last group is padded
+with an all-sentinel filler (mask 0: its loss and gradients are exactly 0).
+Two loaders share the machinery of :class:`_BaseEPLoader`:
 
-* **Pinned shapes.**  The packer's padded sizes are pinned from a pre-scan
-  of the first epoch's batches plus headroom; a later batch that overflows
+* :class:`EPPackLoader` -- the ``--ep`` path: the pack-local layout of
+  :func:`~.ep_pack.pack_shard_edges`, each item yielded as ``(spec,
+  batch)`` with the :class:`~.ep_pack.EPPackSpec` it was built under;
+* :class:`EPLoader` -- the flat layout of
+  :func:`~.edge_partition.shard_edges` (items are the stacked
+  :class:`~.edge_partition.EdgeShardedBatch`), the independent layout the
+  pack-local one is checked against.
+
+* **Pinned shapes.**  The padded sizes are pinned from a pre-scan of the
+  first epoch's batches plus headroom; a later batch that overflows
   (:class:`~.edge_partition.EPOverflow` only, so real input errors surface
   at once) grows the pins monotonically from its own natural sizes, and
-  its whole group is packed again at the new pins.  Each item carries the
-  spec it was built under.
+  its whole group is sharded again at the new pins.
 * **Fixed graph count.**  Short batches are padded with mask-0 dummy graphs
   (1 node, 0 edges).
-* **Order.**  Shuffled from ``seed + epoch`` as the JAX loader does, so both
-  see the same windows; :meth:`prefetch` packs on a background thread.
+* **Order.**  Shuffled from ``seed + epoch`` as the JAX loaders do, so both
+  see the same windows; :meth:`prefetch` shards on a background thread.
 * **Reused packs.**  ``reuse_packs`` builds the epoch's items once from the
   epoch-0 order, again while the pins grow during a build (at most 4
-  builds, so every item shares the final spec), and emits them in an order
+  builds, so every item shares the final pins), and emits them in an order
   shuffled from ``seed + epoch``.
-* **Workers.**  JAX's ``workers`` packs the ``n_dp`` windows of a group on
+* **Workers.**  JAX's ``workers`` shards the ``n_dp`` windows of a group on
   a thread pool, bit for bit the serial items; here it is accepted and the
-  windows are packed serially (ROADMAP.md section 1.3).
-
-Not ported (ROADMAP.md): the flat v2 ``EPLoader``.
+  windows are sharded serially (ROADMAP.md section 1.3).
 """
 
 from __future__ import annotations
@@ -39,21 +42,65 @@ import numpy as np
 
 from ..chem.featurize import GraphArrays
 from ..data.loader import background
-from .edge_partition import EPOverflow, _r8
+from .edge_partition import EdgeShardedBatch, EPOverflow, _r8, shard_edges
 from .ep_pack import (EPPackedBatch, EPPackSpec, empty_ep_pack_batch,
                       pack_shard_edges)
 
-__all__ = ["EPPackLoader"]
+__all__ = ["EPLoader", "EPPackLoader", "empty_ep_batch_like",
+           "natural_ep_pins"]
 
 _HEADROOM = 1.3
 
 
+def natural_ep_pins(b: EdgeShardedBatch) -> dict:
+    """The padded sizes an :class:`EdgeShardedBatch` was built with."""
+    nk = b.own_recv_inc.shape[1]
+    nkh = b.node_x.shape[1]
+    n_ep = b.node_x.shape[0]
+    return {
+        "nk": nk,
+        "ek": b.src_idx.shape[1],
+        "s_max": (nkh - nk) // n_ep,
+        "d": b.part_inc.shape[2],
+        "d_out": b.ext_out.shape[2],
+        "d_recv": b.own_recv_inc.shape[2],
+        "dn": b.graph_nodes.shape[2],
+    }
+
+
+def empty_ep_batch_like(b: EdgeShardedBatch) -> EdgeShardedBatch:
+    """An all-sentinel batch of the same shapes: every gather hits the zero
+    row and graph_mask is 0, so its loss and gradients are exactly 0 (the
+    data-parallel filler of a short last group)."""
+    NKH = b.node_x.shape[1]
+    NK = b.own_recv_inc.shape[1]
+    T = NKH - NK
+    EK = b.src_idx.shape[1]
+    B = b.labels.shape[1]
+    return EdgeShardedBatch(
+        node_x=np.zeros_like(b.node_x),
+        edge_attr=np.zeros_like(b.edge_attr),
+        src_idx=np.full_like(b.src_idx, NKH),
+        rev=np.full_like(b.rev, EK),
+        dst_part=np.full_like(b.dst_part, NKH),
+        part_inc=np.full_like(b.part_inc, EK),
+        ext_out=np.full_like(b.ext_out, EK),
+        recv_idx=np.full_like(b.recv_idx, NK),
+        own_recv_inc=np.full_like(b.own_recv_inc, T),
+        graph_nodes=np.full_like(b.graph_nodes, NK),
+        node_graph=np.full_like(b.node_graph, B),
+        inv_deg_own=np.zeros_like(b.inv_deg_own),
+        labels=np.zeros_like(b.labels),
+        graph_mask=np.zeros_like(b.graph_mask))
+
+
 @dataclass
-class EPPackLoader:
-    """Yields ``(spec, batch)``: an :class:`~.ep_pack.EPPackedBatch` with
-    leaves ``[n_dp, n_ep, ...]`` and the pinned :class:`~.ep_pack.EPPackSpec`
-    it was built under (the trainer keys its steps on it).  Without a
-    ``spec`` the pins come from a pre-scan (see the module doc)."""
+class _BaseEPLoader:
+    """The window, epoch, prescan, pin-growth and reuse machinery of both
+    loaders (see the module doc).  A subclass gives ``_has_pins``,
+    ``_pin_state``, ``_shard_pinned``, ``_learn`` (grow the pins from one
+    window's natural sizes) and ``_filler``, and may wrap each item in
+    ``_emit``."""
     dataset: object
     n_ep: int
     batch_size: int = 32          # graphs per data-parallel group's batch
@@ -63,9 +110,6 @@ class EPPackLoader:
     prescan_batches: int = 8      # epoch-0 batches sampled to set pins
     reuse_packs: bool = False
     workers: int = 1
-    te: int = 128
-    tn: int = 72
-    spec: EPPackSpec | None = field(default=None)
 
     def __post_init__(self):
         if len(self.dataset) == 0:
@@ -73,10 +117,31 @@ class EPPackLoader:
         self._epoch = 0
         self._cache: list | None = None
         self._dummy = self._make_dummy()
-        if self.spec is None:
+        if not self._has_pins():
             for w in self._prescan_windows():
                 self._learn(w)
 
+    # -- the subclass's part -------------------------------------------------
+    def _has_pins(self) -> bool:
+        raise NotImplementedError
+
+    def _pin_state(self):
+        """A snapshot of the pins that compares equal while they hold."""
+        raise NotImplementedError
+
+    def _shard_pinned(self, window):
+        raise NotImplementedError
+
+    def _learn(self, window) -> None:
+        raise NotImplementedError
+
+    def _filler(self, like):
+        raise NotImplementedError
+
+    def _emit(self, stacked):
+        return stacked
+
+    # -- shared --------------------------------------------------------------
     def __len__(self) -> int:
         n_batches = int(np.ceil(len(self.dataset) / self.batch_size))
         return int(np.ceil(n_batches / self.n_dp))
@@ -139,12 +204,12 @@ class EPPackLoader:
             self._epoch = 0
             try:
                 for _ in range(4):
-                    before = self.spec
+                    before = self._pin_state()
                     items = list(self._iter_build())
-                    if self.spec == before:
+                    if self._pin_state() == before:
                         break
                     # the pins grew during the build, so its items mix
-                    # specs: build again at the (monotone) final pins
+                    # pins: build again at the (monotone) final pins
                 else:
                     raise RuntimeError(
                         "EP pins failed to stabilize over 4 builds")
@@ -179,31 +244,90 @@ class EPPackLoader:
                     if grows > 2 * len(group_windows):
                         raise
                     # grow the pins from THIS window's natural sizes, then
-                    # pack the whole group again at the new pinned shapes
+                    # shard the whole group again at the new pins
                     self._learn(group_windows[i])
                     group, i = [], 0
             if len(group) < self.n_dp:
-                filler = empty_ep_pack_batch(self.spec,
-                                             group[0].node_x.shape[2],
-                                             group[0].edge_attr.shape[2])
-                group += [filler] * (self.n_dp - len(group))
-            yield self.spec, _stack_group(group)
+                group += [self._filler(group[0])] * (self.n_dp - len(group))
+            yield self._emit(_stack_group(group))
 
     def prefetch(self, depth: int = 2):
-        """The same items, packed by a background thread ``depth`` items
+        """The same items, sharded by a background thread ``depth`` items
         ahead of the consumer."""
         return background(self, depth)
+
+    @staticmethod
+    def _masked(b, n_real: int, batch_size: int):
+        """``b`` with the dummy graphs past ``n_real`` masked out."""
+        if n_real < batch_size:
+            mask = b.graph_mask.copy()
+            mask[:, n_real:] = 0.0
+            b = b._replace(graph_mask=mask)
+        return b
+
+
+@dataclass
+class EPLoader(_BaseEPLoader):
+    """Yields stacked ``[n_dp, n_ep, ...]`` :class:`EdgeShardedBatch` items
+    (the flat layout); ``pins`` are :func:`shard_edges`'s size arguments
+    (:func:`natural_ep_pins`' keys), learned by the pre-scan when None."""
+    pins: dict | None = field(default=None)
+
+    def _has_pins(self) -> bool:
+        return self.pins is not None
+
+    def _pin_state(self):
+        return None if self.pins is None else tuple(sorted(
+            self.pins.items()))
+
+    def _shard_pinned(self, window) -> EdgeShardedBatch:
+        graphs, labels, extra, n_real = window
+        b = shard_edges(graphs, labels, self.n_ep,
+                        extra_node_feats=extra, **(self.pins or {}))
+        return self._masked(b, n_real, self.batch_size)
+
+    def _learn(self, window) -> None:
+        graphs, labels, extra, _ = window
+        nat = natural_ep_pins(shard_edges(graphs, labels, self.n_ep,
+                                          extra_node_feats=extra))
+        pins = dict(self.pins or {})
+        for k, v in nat.items():
+            pins[k] = max(_r8(int(np.ceil(v * _HEADROOM))), pins.get(k, 0))
+        self.pins = pins
+
+    def _filler(self, like: EdgeShardedBatch) -> EdgeShardedBatch:
+        return empty_ep_batch_like(like)
+
+
+@dataclass
+class EPPackLoader(_BaseEPLoader):
+    """Yields ``(spec, batch)``: an :class:`~.ep_pack.EPPackedBatch` with
+    leaves ``[n_dp, n_ep, ...]`` and the pinned :class:`~.ep_pack.EPPackSpec`
+    it was built under (the trainer keys its steps on it).  Without a
+    ``spec`` the pins come from a pre-scan (see the module doc)."""
+    te: int = 128
+    tn: int = 72
+    spec: EPPackSpec | None = field(default=None)
+
+    def _has_pins(self) -> bool:
+        return self.spec is not None
+
+    def _pin_state(self):
+        return self.spec
+
+    def _filler(self, like: EPPackedBatch) -> EPPackedBatch:
+        return empty_ep_pack_batch(self.spec, like.node_x.shape[2],
+                                   like.edge_attr.shape[2])
+
+    def _emit(self, stacked):
+        return self.spec, stacked
 
     def _shard_pinned(self, window) -> EPPackedBatch:
         graphs, labels, extra, n_real = window
         b, _ = pack_shard_edges(graphs, labels, self.n_ep, te=self.te,
                                 tn=self.tn, extra_node_feats=extra,
                                 spec=self.spec)
-        if n_real < self.batch_size:
-            mask = b.graph_mask.copy()
-            mask[:, n_real:] = 0.0
-            b = b._replace(graph_mask=mask)
-        return b
+        return self._masked(b, n_real, self.batch_size)
 
     def _learn(self, window) -> None:
         graphs, labels, extra, _ = window
@@ -234,7 +358,7 @@ class EPPackLoader:
         self.te, self.tn = self.spec.te, self.spec.tn
 
 
-def _stack_group(group: list) -> EPPackedBatch:
+def _stack_group(group: list) -> EdgeShardedBatch | EPPackedBatch:
     cls = type(group[0])
     return cls(*[np.stack([getattr(b, f) for b in group], 0)
                  for f in cls._fields])

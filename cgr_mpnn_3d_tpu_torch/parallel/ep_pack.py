@@ -32,7 +32,8 @@ untransposed).  ``dst`` doubles as the readout's ``receivers``.
 The EP forward (:func:`ep_pack_forward_shard`, the JAX ``ep_pack_forward``'s
 kernel branch) is one function per shard, as ``per_device`` is in JAX: a
 generator that yields at each collective -- :class:`Exchange` (a ring hop)
-and :class:`Psum` (a sum over the shards) -- and receives the result.
+and :class:`Psum` (a sum over the shards); the flat layout's forward
+(``edge_partition.py``) also :class:`AllToAll` -- and receives the result.
 :func:`run_lockstep` advances every shard's generator to its next
 collective, runs the collective in this process (the ring exchange is a
 tensor copy between the shards' buffers) and resumes them, so each layer's
@@ -95,8 +96,8 @@ from .rdma_exchange import _ring_move, ring_exchange_rdma
 
 __all__ = ["EPOverflow", "EPPackSpec", "EPPackedBatch", "pack_shard_edges",
            "empty_ep_pack_batch", "wire_bytes_per_layer", "ep_shards",
-           "Exchange", "Psum", "ring_exchange", "run_lockstep",
-           "run_distributed",
+           "Exchange", "Psum", "AllToAll", "ring_exchange", "all_to_all",
+           "run_lockstep", "run_distributed",
            "ep_pack_forward_shard", "ep_pack_forward",
            "supports_ep_fused_train", "ep_pack_fused_train",
            "make_ep_pack_train_step", "make_ep_pack_eval_step",
@@ -723,6 +724,21 @@ class Psum(NamedTuple):
     value: torch.Tensor
 
 
+class AllToAll(NamedTuple):
+    """A shard's request (the flat layout's, ``edge_partition.py``): the
+    all-to-all of ``buf`` [n_ep, S, H] -- it receives [n_ep, S, H] whose
+    block j is the block shard j addressed to it.  The adjoint is the same
+    all-to-all."""
+    buf: torch.Tensor
+
+
+def all_to_all(bufs: list) -> list:
+    """The all-to-all of every shard's [n_ep, S, H] buffer in this process:
+    out[k][j] = bufs[j][k] (a block transpose, differentiable)."""
+    return [b.contiguous()
+            for b in torch.stack(bufs).transpose(0, 1).unbind(0)]
+
+
 class _RingExchange(torch.autograd.Function):
     """Hop h moves the block [off_h, off_h + caps[h-1]) of shard k's buffer
     to shard k + h (``inverse``: to k - h).  The adjoint is the inverse
@@ -789,6 +805,31 @@ class _RankExchange(torch.autograd.Function):
                 None, None, None)
 
 
+def _rank_all_to_all(buf: torch.Tensor, comm) -> torch.Tensor:
+    """:func:`all_to_all` between the ranks of an EP group: block j of this
+    shard's buffer to shard j, block j of the result from shard j, through
+    host memory (gloo takes host tensors)."""
+    import torch.distributed as dist
+    host = buf.detach().to("cpu").contiguous()
+    out = torch.empty_like(host)
+    dist.all_to_all_single(out, host, group=comm.group)
+    return out.to(buf.device)
+
+
+class _RankAllToAll(torch.autograd.Function):
+    """This rank's share of :func:`all_to_all` (one shard a rank); the
+    adjoint is the same all-to-all of the gradient."""
+
+    @staticmethod
+    def forward(ctx, buf, comm):
+        ctx.comm = comm
+        return _rank_all_to_all(buf, comm)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _rank_all_to_all(g, ctx.comm), None
+
+
 class _GroupSum(torch.autograd.Function):
     """A :class:`Psum` over the ranks of an EP group; the backward is the
     identity: each rank holds the group's loss, computed from the summed
@@ -808,9 +849,10 @@ def run_distributed(gen, caps: tuple[int, ...], comm):
     """The per-rank counterpart of :func:`run_lockstep` (layout (b)): runs
     this rank's one shard generator and serves its requests through the
     process group of ``comm`` (``multihost.ep_comm``) -- an
-    :class:`Exchange` as the ring move between the group's ranks, a
-    :class:`Psum` as an all-reduce over them; returns its return value.
-    Every rank of the group must run it on the same spec."""
+    :class:`Exchange` as the ring move between the group's ranks, an
+    :class:`AllToAll` as gloo's all-to-all, a :class:`Psum` as an
+    all-reduce over them; returns its return value.  Every rank of the
+    group must run it on the same spec."""
     send = None
     while True:
         try:
@@ -820,6 +862,8 @@ def run_distributed(gen, caps: tuple[int, ...], comm):
         if type(req) is Exchange:
             send = _RankExchange.apply(req.buf, tuple(caps), req.inverse,
                                        comm)
+        elif type(req) is AllToAll:
+            send = _RankAllToAll.apply(req.buf, comm)
         else:
             send = _GroupSum.apply(req.value, comm)
 
@@ -827,8 +871,9 @@ def run_distributed(gen, caps: tuple[int, ...], comm):
 def run_lockstep(gens: list, caps: tuple[int, ...],
                  rdma: bool = False) -> list:
     """Run one generator per shard in lockstep: each runs to its next
-    :class:`Exchange` or :class:`Psum`, the collective runs over all of
-    them, and each resumes with its share; returns their return values.
+    :class:`Exchange`, :class:`AllToAll` or :class:`Psum`, the collective
+    runs over all of them, and each resumes with its share; returns their
+    return values.
     With ``rdma`` the exchanges go through K12 (:func:`ring_exchange_rdma`)
     instead of :func:`ring_exchange`."""
     exchange = ring_exchange_rdma if rdma else ring_exchange
@@ -851,6 +896,8 @@ def run_lockstep(gens: list, caps: tuple[int, ...],
             raise RuntimeError("the shards asked for different collectives")
         if kind is Exchange:
             sends = exchange([r.buf for r in reqs], caps, reqs[0].inverse)
+        elif kind is AllToAll:
+            sends = all_to_all([r.buf for r in reqs])
         else:
             total = reqs[0].value
             for r in reqs[1:]:

@@ -1,21 +1,55 @@
-"""Step timing: :class:`StepTimer`, wall-clock step statistics (mean, p50,
-p99, steps/s) for the metrics log.
+"""Tracing and step timing (the counterpart of
+``cgr_mpnn_3d_tpu/train/profiler.py``):
 
-The counterpart of ``cgr_mpnn_3d_tpu/train/profiler.py::StepTimer``; its
-``trace`` context (a profiler trace of the wrapped steps) is not ported yet.
-A step's time is the host's time between two ticks, which includes waiting
-for the card: the trainer reads each step's loss on the host (with
-``steps_per_call`` each chunk's losses, with ``device_epoch`` each epoch's,
-and the interval is split evenly among its steps).
+* :func:`trace` -- a ``torch.profiler`` session around the enclosed block,
+  written as a Chrome trace (CPU activity, and CUDA activity where a card
+  is present) into ``log_dir``; it prints where it wrote it.
+* :class:`StepTimer` -- wall-clock step statistics (mean, p50, p99,
+  steps/s) for the metrics log.  A step's time is the host's time between
+  two ticks, which includes waiting for the card: the trainer reads each
+  step's loss on the host (with ``steps_per_call`` each chunk's losses,
+  with ``device_epoch`` each epoch's, and the interval is split evenly
+  among its steps).
+
+A second profiler session in one process has been seen to lose the card's
+kernel records (the runtime's launch calls stay), so a check that a trace
+holds a kernel runs the trace in a fresh process.
 """
 
 from __future__ import annotations
 
+import contextlib
+import os
 import time
+from pathlib import Path
 
 import numpy as np
 
-__all__ = ["StepTimer"]
+__all__ = ["trace", "StepTimer"]
+
+
+@contextlib.contextmanager
+def trace(log_dir: str = "torch-trace", enabled: bool = True):
+    """Profile the enclosed block: ``with trace("runs/trace"): step(...)``
+    writes ``log_dir/trace-<pid>-<ms>.json``.  With ``enabled`` False it
+    does nothing."""
+    if not enabled:
+        yield
+        return
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    acts = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        acts.append(ProfilerActivity.CUDA)
+    out = Path(log_dir)
+    out.mkdir(parents=True, exist_ok=True)
+    with profile(activities=acts) as prof:
+        yield
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+    path = out / f"trace-{os.getpid()}-{int(time.time() * 1e3)}.json"
+    prof.export_chrome_trace(str(path))
+    print(f"[profiler] trace written to {path}")
 
 
 class StepTimer:

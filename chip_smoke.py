@@ -250,10 +250,40 @@ Phases (any failure raises, and the script exits non-zero):
    each rank one K2 a step in run 1 (and the bf16 K2 in run 2), each
    rank's launches half the single process's in run 3; the ranks' wall
    steps/s beside the single process's and the collectives' host ms a
-   step;
-24. a ``{"kernels": [...]}`` line (the launches of every main path, the
-   data-parallel and multi-process runs' included), then ``{"ok": true,
-   "device": {...}}`` as the last line.
+   step; then (4) the same wired set in the flat layout
+   (``parallel/edge_partition.py``), one shard a rank: one training step
+   and one eval, the all-to-alls through gloo, SSEs bit for bit with the
+   lockstep run and gradients within 1e-6 of their largest, K7 launches
+   half of lockstep's a rank;
+24. sweeps and the run-book (``sweep_phase``, after
+   ``multiprocess_phase``): ``cli/sweep.py``'s ``run_sweep`` with 2 bayes
+   trials of 1 epoch of the README model on the corpus on the card, every
+   trial "ok" and launching K2 (a failed trial fails the phase); then
+   ``cli/runbook.py`` with ``--epochs 1 --device cuda`` and gates
+   overridden to 1000 (both models trained, tested and gated, the summary
+   written), and with a failing gate (exit status 1);
+25. the flat edge-partition layout (``flat_ep_phase``, after the EP
+   phases): the README model at full width on the wired set (the
+   9,600-atom chain and 200 graphs) through ``shard_edges`` at n_ep 2 and
+   4, every shard in this process: the forward's predictions against K3f
+   on the same graphs and against the same code on the CPU at REL_TOL, a
+   training step's SSE and gradients against the CPU's (ReLU: hold's
+   float64 rule), a rerun bit for bit, K7 launches equal to the plan
+   (``flat_launches``: 5·depth + 4 a shard forward, 5·depth + 3 more in
+   a step), no plain gather (NoPlainGathers); bf16 held to the f32 run
+   (rel-L2 < 1.5e-2, gradient cosine > 0.995, K7 at f32); the forward's
+   and the step's ms beside the pack-local EP step on the same set; mean
+   aggregation and pooling at small width (also against K3f); a zero cut
+   (every boundary row a sentinel) and shards that own no edge; an
+   ``EPLoader`` epoch on the corpus (n_dp 2, n_ep 2, Adam) card against
+   CPU;
+26. ``train.profiler.trace`` (``trace_phase``, after ``sweep_phase``)
+   around three training steps in a fresh process (this script with
+   ``--trace_job``): the Chrome trace written, naming K2 in one kernel
+   record a step;
+27. a ``{"kernels": [...]}`` line (the launches of every main path, the
+   data-parallel, multi-process, sweep, run-book, trace and flat runs'
+   included), then ``{"ok": true, "device": {...}}`` as the last line.
 
 It exits non-zero, printing no result, without CUDA or without the package
 beside it.
@@ -262,6 +292,7 @@ beside it.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import csv
 import importlib.util
 import json
@@ -2818,6 +2849,7 @@ def rank_job(job: dict) -> int:
         return run
     multihost.all_reduce_sum_ = timed(multihost.all_reduce_sum_)
     ep_pack._rank_ring_move = timed(ep_pack._rank_ring_move)
+    ep_pack._rank_all_to_all = timed(ep_pack._rank_all_to_all)
     ep_pack._GroupSum.forward = staticmethod(
         timed(ep_pack._GroupSum.forward))
     Path(job["cwd"]).mkdir(parents=True, exist_ok=True)
@@ -2826,6 +2858,10 @@ def rank_job(job: dict) -> int:
     if job["kind"] == "cli":
         from cgr_mpnn_3d_tpu_torch.cli import train as cli_train
         res = cli_train.main(job["argv"])
+    elif job["kind"] == "flat":
+        multihost.initialize()
+        res = flat_wired_step(job["seed"], DEVICE, Path(job["cwd"])
+                              / "grads.npz")
     else:
         multihost.initialize()
         res = wired_trainer(job["seed"], "wired", Path(job["save"]),
@@ -3037,9 +3073,62 @@ def multiprocess_phase(tmp: Path, seed: int, card: str) -> dict:
           f"other rank included) {coll_ms} over "
           f"{ranks[0]['coll_calls']} calls; wall "
           f"{out['wall_s']['wired_ep2']:.1f} s [{card}]")
+
+    out["runs"]["flat_ep2"] = flat_ranks(base, seed, card)
+    out["wall_s"]["flat_ep2"] = out["runs"]["flat_ep2"]["wall_s"]
     out["wall_s"]["phase"] = time.perf_counter() - t_phase
     print(json.dumps(out, default=float))
     return out
+
+
+def flat_ranks(base: Path, seed: int, card: str) -> dict:
+    """The wired set of ``wired_trainer`` in the flat layout, one shard a
+    rank (two ``--rank_job`` ranks, torchrun's variables; the all-to-alls
+    through gloo) against the lockstep run in this process: one training
+    step and one eval, SSEs bit for bit, gradients within 1e-6 of their
+    largest, K7 launches half of lockstep's a rank."""
+    t0 = time.perf_counter()
+    port = _free_port()
+    run_dir = base / "flat_ep2"
+    jobs = [dict(kind="flat", seed=seed, cwd=str(run_dir / f"rank{r}"))
+            for r in range(2)]
+    envs = [dict(WORLD_SIZE="2", RANK=str(r), LOCAL_RANK=str(r),
+                 MASTER_ADDR="localhost", MASTER_PORT=str(port))
+            for r in range(2)]
+    ranks = run_ranks(jobs, envs)
+    one = flat_wired_step(seed, DEVICE, run_dir / "one.npz")
+    grads_one = list(np.load(run_dir / "one.npz").values())
+    grads = [list(np.load(run_dir / f"rank{r}" / "grads.npz").values())
+             for r in range(2)]
+    top = max(float(np.abs(g).max()) for g in grads_one)
+    grad_rel = max(float(np.abs(a - b).max()) / top for gs in grads
+                   for a, b in zip(gs, grads_one))
+    same = all(r["res"][k] == one[k] for r in ranks
+               for k in ("sse", "sse_eval"))
+    k7 = [sum(r["res"]["launches"][:2]) for r in ranks]
+    check(same and grad_rel <= 1e-6 and k7[0] == k7[1]
+          and sum(k7) == sum(one["launches"][:2]),
+          f"2 ranks, one flat shard each, wired set: SSEs "
+          f"{[(r['res']['sse'], r['res']['sse_eval']) for r in ranks]} "
+          f"against lockstep's {(one['sse'], one['sse_eval'])} (bit for "
+          f"bit: {same}), gradients within {grad_rel:.3e} of their largest "
+          f"(limit 1e-6), K7 launches {k7} against lockstep's "
+          f"{one['launches']}")
+    coll_ms = [1e3 * r["coll_s"] for r in ranks]
+    res = dict(launches=[r["moved"] for r in ranks], k7=k7,
+               grad_rel=grad_rel, coll_ms=coll_ms,
+               coll_calls=[r["coll_calls"] for r in ranks], sse=one["sse"],
+               wall_s=time.perf_counter() - t0)
+    print(f"multi-process flat layout, one shard a rank (torchrun "
+          f"variables, 2 ranks): one training step (dropout 0.1) and one "
+          f"eval of the wired set, SSEs ({one['sse']}, {one['sse_eval']}) "
+          f"bit for bit with the lockstep run on both ranks, gradients "
+          f"within {grad_rel:.3e} of their largest; K7 launches a rank "
+          f"{k7} against lockstep's {one['launches'][:2]}; collectives' "
+          f"host ms (all-to-alls, sums, the all-reduce; waiting included) "
+          f"{coll_ms} over {ranks[0]['coll_calls']} calls; wall "
+          f"{res['wall_s']:.1f} s [{card}]")
+    return res
 
 
 def descriptor_phase(tmp: Path, seed: int, ckpt: Path, card: str) -> dict:
@@ -5750,6 +5839,556 @@ def ep_train_wired(tmp: Path, seed: int, card: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# the flat edge-partition layout (parallel/edge_partition.py) through K7
+# ---------------------------------------------------------------------------
+
+# the plain gathers of ops/segment.py and K7's plain version
+FLAT_PLAIN = (("segment", ("gather_nodes", "node_partial_sum", "gather_rev",
+                           "graph_pool_sum", "node_incoming_sum")),
+              ("onehot_spmm", ("onehot_spmm_ref",)))
+
+
+class NoPlainGathers:
+    """While active, every plain gather op of ``ops/segment.py`` and K7's
+    plain version raise: a flat run on the card that reaches one fails."""
+
+    def __enter__(self):
+        from cgr_mpnn_3d_tpu_torch.ops import onehot_spmm, segment
+        mods = dict(segment=segment, onehot_spmm=onehot_spmm)
+        self.saved = [(mods[m], n, getattr(mods[m], n))
+                      for m, names in FLAT_PLAIN for n in names]
+
+        def refuse(*a, **k):
+            raise RuntimeError("chip_smoke check failed: a plain gather ran "
+                               "during a flat run on the card")
+        for mod, name, _ in self.saved:
+            setattr(mod, name, refuse)
+        return self
+
+    def __exit__(self, *exc):
+        for mod, name, fn in self.saved:
+            setattr(mod, name, fn)
+
+
+def spmm_counts() -> tuple:
+    """K7's (f32 forward, f32 backward, bf16 forward, bf16 backward)
+    launches so far."""
+    from cgr_mpnn_3d_tpu_torch.ops import onehot_spmm as om
+    return (om.launches, om.bwd_launches, om.bf16_launches,
+            om.bf16_bwd_launches)
+
+
+def _moved(before: tuple) -> tuple:
+    return tuple(a - b for a, b in zip(spmm_counts(), before))
+
+
+def _flat_model(cfg, src, device, dtype=None):
+    """A model of ``cfg`` on ``device`` with the weights of ``src``."""
+    import torch
+    from cgr_mpnn_3d_tpu_torch.models import CGRMPNN
+    m = CGRMPNN(cfg).to(device)
+    m.load_state_dict({k: v.to(device) for k, v in src.state_dict().items()})
+    return m.to(dtype or torch.float32)
+
+
+def _flat_step(model, shards, seeds=None):
+    """(SSE, gradients on the CPU) of one flat train step."""
+    from cgr_mpnn_3d_tpu_torch.parallel import edge_partition as flat
+    sse = flat.make_ep_train_step(model)([shards], seeds)
+    return sse.detach().cpu(), [p.grad.detach().cpu()
+                                for p in model.parameters()]
+
+
+def flat_case(out: dict, name: str, cfg, src, graphs, labels, n_ep: int,
+              single=None, f64: bool = True) -> dict:
+    """The flat layout at ``n_ep`` on ``graphs`` with the weights of
+    ``src`` in the layered ``cfg``: the forward (eval) and one training
+    step on the card under NoPlainGathers, their K7 launches against the
+    plan (``edge_partition.flat_launches``), predictions and SSE against
+    the same code on the CPU at REL_TOL (and against ``single`` =
+    (rows, predictions) of the single-device model on the card), gradients
+    against the CPU's by hold's float64 rule (``f64``), a rerun of the
+    card's step bit for bit.  Returns the case's shards and host batch."""
+    import torch
+    from cgr_mpnn_3d_tpu_torch.parallel import edge_partition as flat
+    host = flat.shard_edges(graphs, labels, n_ep)
+    shards = flat.flat_shards(host, DEVICE)
+    cpu_shards = flat.flat_shards(host, "cpu")
+    NKH = host.node_x.shape[1]
+    NK = host.own_recv_inc.shape[1]
+    e = dict(n_ep=n_ep, nk=NK, nkh=NKH, ek=host.src_idx.shape[1],
+             s=(NKH - NK) // n_ep, d=host.part_inc.shape[2],
+             real_edges=[int((host.src_idx[k] < NKH).sum())
+                         for k in range(n_ep)],
+             boundary=[int((host.recv_idx[k] < NK).sum())
+                       for k in range(n_ep)])
+    card_m = _flat_model(cfg, src, DEVICE)
+    cpu_m = _flat_model(cfg, src, "cpu")
+    L = cfg.depth
+    with NoPlainGathers(), torch.no_grad():
+        before = spmm_counts()
+        sse, preds = flat.ep_forward(card_m, shards)
+        torch.cuda.synchronize()
+        fwd = _moved(before)
+    plan_fwd = n_ep * flat.flat_launches(L, False)
+    check(fwd == (plan_fwd, 0, 0, 0),
+          f"flat {name} forward K7 launches {fwd}, plan "
+          f"({plan_fwd}, 0, 0, 0)")
+    with torch.no_grad():
+        sse_cpu, preds_cpu = flat.ep_forward(cpu_m, cpu_shards)
+    hold(e, "preds vs CPU", preds.cpu(), preds_cpu)
+    hold(e, "sse vs CPU", sse.cpu(), sse_cpu)
+    if single is not None:
+        rows, want = single
+        hold(e, "preds vs single device", preds[rows], want)
+    with NoPlainGathers():
+        before = spmm_counts()
+        sse_c, grads_c = _flat_step(card_m, shards)
+        torch.cuda.synchronize()
+        step = _moved(before)
+        _, again = _flat_step(card_m, shards)
+    plan_bwd = n_ep * (flat.flat_launches(L, True)
+                       - flat.flat_launches(L, False))
+    check(step == (plan_fwd, plan_bwd, 0, 0),
+          f"flat {name} step K7 launches {step}, plan "
+          f"({plan_fwd}, {plan_bwd}, 0, 0)")
+    check(all(torch.equal(a, b) for a, b in zip(grads_c, again)),
+          f"flat {name}: two card steps differ")
+    sse_p, grads_p = _flat_step(cpu_m, cpu_shards)
+    hold(e, "step sse vs CPU", sse_c, sse_p)
+    exact = (lambda: _flat_step(_flat_model(cfg, src, "cpu", torch.float64),
+                                cpu_shards)[1]) if f64 else None
+    hold(e, "grads vs CPU", grads_c, grads_p, cfg.activation == "ReLU"
+         and f64, exact)
+    e.update(launches=dict(forward=fwd, step=step), sse=float(sse_c),
+             grads=grads_c, preds=preds.detach())
+    out[name] = e
+    print(f"flat EP {name} (NK {NK}, S {e['s']}, EK "
+          f"{e['ek']}, D {e['d']}, real edges a shard {e['real_edges']}, "
+          f"boundary rows served {e['boundary']}): preds vs CPU rel "
+          f"{e['preds vs CPU']['rel_err']:.3e}"
+          + (f", vs single device {e['preds vs single device']['rel_err']:.3e}"
+             if single is not None else "")
+          + f", step SSE {e['step sse vs CPU']['rel_err']:.3e}, gradients "
+          + (f"L1 vs float64 {e['grads vs CPU']['l1_64'][0]:.3e} (CPU "
+             f"{e['grads vs CPU']['l1_64'][1]:.3e})"
+             if "l1_64" in e["grads vs CPU"] else
+             f"rel {e['grads vs CPU']['rel_err']:.3e}")
+          + f"; K7 launches forward {fwd[0]}, step {step[:2]} (plan "
+          f"{plan_fwd}, ({plan_fwd}, {plan_bwd})), no plain gather")
+    return shards
+
+
+def _host_ms3(fn) -> float:
+    """ms a call of ``fn``: 3 calls on the host clock, ending in a
+    synchronize, after one call that is not timed."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / 3 * 1e3
+
+
+def flat_ep_phase(tmp: Path, seed: int, card: str) -> dict:
+    """The flat layout (``shard_edges``, ``ep_forward``, the train step and
+    ``EPLoader``) on the card, every shard in this process: see item 25 of
+    the module doc."""
+    import dataclasses
+    import torch
+    from cgr_mpnn_3d_tpu_torch.data import ChemDataset
+    from cgr_mpnn_3d_tpu_torch.data.descriptors import \
+        synthetic_descriptors_npz
+    from cgr_mpnn_3d_tpu_torch.data.synthetic import chain_graph
+    from cgr_mpnn_3d_tpu_torch.models import CGRMPNNConfig, apply, init_params
+    from cgr_mpnn_3d_tpu_torch.parallel import edge_partition as flat
+    from cgr_mpnn_3d_tpu_torch.parallel import (EPLoader, ep_shards,
+                                                make_ep_pack_train_step,
+                                                pack_shard_edges)
+    t_phase = time.perf_counter()
+    out: dict = {"cases": {}, "times": {}}
+    before_all = spmm_counts()
+    full = CGRMPNNConfig(num_node_features=270, num_edge_features=14,
+                         depth=4, hidden_sizes=(400,) * 4,
+                         dropout_ps=(0.0,) * 4)
+    whole = init_params(full, torch.Generator().manual_seed(seed), DEVICE)
+    lay = dataclasses.replace(full, fuse_whole_model=False)
+    graphs, labels = ep_graphs(seed, EP_GRAPHS, (EP_CHAIN,))
+    spec1, batch1 = single_device_batch(graphs, labels, DEVICE)
+    mask = batch1.graph_mask > 0
+    rows = batch1.row_ids.long()[mask]
+    with torch.no_grad():
+        want = apply(whole, batch1, spec1)[mask]      # K3f
+    cases = out["cases"]
+    shards_of = {}
+    for n_ep in (2, 4):
+        shards_of[n_ep] = flat_case(cases, f"wired full width n_ep {n_ep}",
+                                    lay, whole, graphs, labels, n_ep,
+                                    (rows, want))
+    # bf16: the linears' operands rounded, K7 at f32 (its bf16 counters
+    # stay 0), held to the f32 oracle at tests/test_bf16.py's bounds
+    f32 = cases["wired full width n_ep 2"]
+    m16 = _flat_model(dataclasses.replace(lay, compute_dtype=BF16), whole,
+                      DEVICE)
+    with NoPlainGathers():
+        before = spmm_counts()
+        with torch.no_grad():
+            _, preds16 = flat.ep_forward(m16, shards_of[2])
+        sse16, grads16 = _flat_step(m16, shards_of[2])
+        torch.cuda.synchronize()
+        moved16 = _moved(before)
+    r16 = rel_l2([preds16], [f32["preds"]])
+    c16 = cosine(grads16, f32["grads"])
+    fwd16 = 2 * flat.flat_launches(4, False)
+    plan16 = (2 * fwd16, 2 * flat.flat_launches(4, True) - fwd16, 0, 0)
+    check(0.0 < r16 < 1.5e-2 and c16 > 0.995,
+          f"flat bf16 n_ep 2: preds rel-L2 {r16:.3e} to f32 (limit 1.5e-2), "
+          f"gradient cosine {c16:.6f} (limit 0.995)")
+    check(moved16 == plan16, f"flat bf16 n_ep 2: K7 launches {moved16} "
+                             f"(eval forward and step), plan {plan16}")
+    out["bf16"] = dict(rel_l2=r16, cos=c16, launches=moved16,
+                       sse=float(sse16))
+    print(f"flat EP bf16 n_ep 2, full width: predictions rel-L2 {r16:.3e} "
+          f"to the f32 run, gradient cosine {c16:.6f}, step SSE "
+          f"{float(sse16):.6e} against f32 {f32['sse']:.6e}; K7 launches "
+          f"{moved16} (f32 fwd, f32 bwd, bf16 fwd, bf16 bwd)")
+    # the step's and the forward's ms beside the pack-local EP step
+    model = _flat_model(lay, whole, DEVICE)
+    for n_ep in (2, 4):
+        host, spec = pack_shard_edges(graphs, labels, n_ep, te=128, tn=72)
+        pshards = ep_shards(host, DEVICE)
+        pack_step = make_ep_pack_train_step(model, spec)
+        flat_step = flat.make_ep_train_step(model)
+        shards = shards_of[n_ep]
+
+        def flat_forward():
+            with torch.no_grad():
+                flat.ep_forward(model, shards)
+
+        fns = {"flat forward": flat_forward,
+               "flat step": lambda: flat_step([shards]),
+               "pack-local step": lambda: pack_step([pshards])}
+        ms = {k: [] for k in fns}
+        for _ in range(2):
+            for k, fn in fns.items():
+                ms[k].append(_host_ms3(fn))
+        out["times"][n_ep] = ms
+        print(f"flat EP n_ep {n_ep}, full width, wired set: ms a call "
+              f"(host clock, 3 calls ending in a synchronize, two rounds) "
+              f"{ {k: [round(v, 3) for v in vs] for k, vs in ms.items()} }; "
+              f"pack-local caps {spec.caps}, {spec.p} packs of te {spec.te} "
+              f"a shard [{card}]")
+    # mean aggregation and pooling at small width, against K3f too
+    small = CGRMPNNConfig(num_node_features=78, num_edge_features=14,
+                          depth=3, hidden_sizes=(40,) * 3,
+                          dropout_ps=(0.0,) * 3, activation="SiLU",
+                          aggr="mean", pooling="mean",
+                          use_learnable_skip=True)
+    w_small = init_params(small, torch.Generator().manual_seed(seed + 1),
+                          DEVICE)
+    with torch.no_grad():
+        for w, v in zip(w_small.skip_weights, (0.8, -0.3, 1.2)):
+            w.fill_(v)
+    lay_s = dataclasses.replace(small, fuse_whole_model=False)
+    g_s, l_s = ep_graphs(seed + 1, 50, (600,), F=78)
+    spec_s, batch_s = single_device_batch(g_s, l_s, DEVICE)
+    mask_s = batch_s.graph_mask > 0
+    with torch.no_grad():
+        want_s = apply(w_small, batch_s, spec_s)[mask_s]
+    flat_case(cases, "small width SiLU mean/mean n_ep 4", lay_s, w_small,
+              g_s, l_s, 4, (batch_s.row_ids.long()[mask_s], want_s))
+    # empty parts: a zero cut (every boundary row a sentinel) and shards
+    # that own no edge
+    rng = np.random.default_rng(seed + 2)
+    zero_cut = [chain_graph(20, rng, 78), chain_graph(20, rng, 78)]
+    flat_case(cases, "zero cut n_ep 2", lay_s, w_small, zero_cut,
+              [0.5, -0.5], 2, f64=False)
+    check(sum(cases["zero cut n_ep 2"]["boundary"]) == 0,
+          "the zero-cut case has boundary rows")
+    edgeless = [chain_graph(12, rng, 78)] + [chain_graph(1, rng, 78)
+                                             for _ in range(12)]
+    flat_case(cases, "edgeless shards n_ep 4", lay_s, w_small, edgeless,
+              list(np.linspace(-1, 1, 13)), 4, f64=False)
+    check(cases["edgeless shards n_ep 4"]["real_edges"].count(0) >= 2,
+          "no shard of the edgeless case is without edges")
+    # an EPLoader epoch on the corpus (n_dp 2, n_ep 2), card against CPU
+    corpus = ROOT / "tests" / "corpus_reactions.csv"
+    synthetic_descriptors_npz(corpus, tmp / "flat_corpus.npz", 64, seed=seed)
+    ds = ChemDataset(str(corpus), data_npz_path=str(tmp / "flat_corpus.npz"))
+    ds.prefeaturize()
+    cfg_c = CGRMPNNConfig(num_node_features=ds.num_node_features,
+                          num_edge_features=ds.num_edge_features, depth=4,
+                          hidden_sizes=(400,) * 4, dropout_ps=(0.1,) * 4,
+                          fuse_whole_model=False)
+    w_c = init_params(cfg_c, torch.Generator().manual_seed(seed), "cpu")
+    loader = EPLoader(ds, n_ep=2, batch_size=64, n_dp=2, shuffle=True,
+                      seed=seed)
+    items = list(loader)
+    seeds = torch.randint(0, 2**31 - 1, (len(items), 2, 2, 4),
+                          dtype=torch.int32,
+                          generator=torch.Generator().manual_seed(seed))
+    losses, evals = {}, {}
+    t0 = time.perf_counter()
+    for tag, dev in (("card", DEVICE), ("cpu", "cpu")):
+        m = _flat_model(cfg_c, w_c, dev)
+        opt = torch.optim.Adam(m.parameters(), lr=1e-4)
+        step = flat.make_ep_train_step(m)
+        before = spmm_counts()
+        losses[tag] = []
+        with (NoPlainGathers() if tag == "card"
+              else contextlib.nullcontext()):
+            for i, item in enumerate(items):
+                groups = [flat.flat_shards(type(item)(*(a[g] for a in item)),
+                                           dev) for g in range(2)]
+                losses[tag].append(float(step(groups, seeds[i])))
+                opt.step()
+        if tag == "card":
+            torch.cuda.synchronize()
+            moved_c = _moved(before)
+        # the trained weights' predictions on the first item
+        item = items[0]
+        _, evals[tag] = flat.make_ep_eval_step(m)(
+            [flat.flat_shards(type(item)(*(a[g] for a in item)), dev)
+             for g in range(2)])
+    plan_c = len(items) * 4 * flat.flat_launches(4, True)
+    hold(out, "loader epoch preds vs CPU", evals["card"].cpu(), evals["cpu"])
+    rel_c = max(abs(a - b) / abs(b) for a, b in zip(losses["card"],
+                                                    losses["cpu"]))
+    check(moved_c[0] + moved_c[1] == plan_c and moved_c[2:] == (0, 0)
+          and np.isfinite(losses["card"]).all() and rel_c <= TRAIN_TOL,
+          f"EPLoader epoch on the corpus: card SSEs {losses['card']}, CPU "
+          f"{losses['cpu']} (max rel {rel_c:.3e}, limit {TRAIN_TOL}); K7 "
+          f"launches {moved_c}, plan {plan_c}")
+    out["loader"] = dict(items=len(items), pins=loader.pins,
+                         losses=losses["card"], rel=rel_c, launches=moved_c)
+    print(f"flat EPLoader epoch on the corpus (n_dp 2, n_ep 2, bs 64, "
+          f"README model at full width, dropout 0.1, Adam): {len(items)} "
+          f"steps, pins {loader.pins}, card SSEs {losses['card']} against "
+          f"the CPU's (max rel {rel_c:.3e}), the trained model's predictions "
+          f"on the first item against the CPU's rel "
+          f"{out['loader epoch preds vs CPU']['rel_err']:.3e}; K7 launches "
+          f"{moved_c} (plan "
+          f"{plan_c}); wall {time.perf_counter() - t0:.1f} s [{card}]")
+    total = _moved(before_all)
+    out["launches"] = total[0] + total[1]
+    out["wall_s"] = time.perf_counter() - t_phase
+    print(f"phase wall: the flat edge-partition layout {out['wall_s']:.1f} "
+          f"s; K7 launches {total} [{card}]")
+    return out
+
+
+def flat_wired_step(seed: int, device, save: Path | None = None) -> dict:
+    """The flat layout on the wired set of ``wired_trainer`` (15 synthetic
+    graphs and a 480-atom chain) with the README's model (dropout 0.1):
+    one training step (seeds fixed) and one eval at n_ep 2, every shard in
+    this process, or this rank's shard when a process group is up (one
+    shard a rank).  Returns the SSEs, K7's launches and, with ``save``, the
+    gradients written there."""
+    import torch
+    from cgr_mpnn_3d_tpu_torch.models import CGRMPNNConfig, init_params
+    from cgr_mpnn_3d_tpu_torch.parallel import edge_partition as flat
+    from cgr_mpnn_3d_tpu_torch.parallel import multihost
+    graphs, labels = ep_graphs(seed + 3, 15, (480,))
+    cfg = CGRMPNNConfig(num_node_features=270, num_edge_features=14,
+                        depth=4, hidden_sizes=(400,) * 4,
+                        dropout_ps=(0.1,) * 4, fuse_whole_model=False)
+    model = init_params(cfg, torch.Generator().manual_seed(seed), device)
+    seeds = torch.tensor([[[11, 12, 13, 14], [21, 22, 23, 24]]],
+                         dtype=torch.int32)
+    shards = flat.flat_shards(flat.shard_edges(graphs, labels, 2), device)
+    comm = None
+    if multihost.world_size() > 1:
+        comm = multihost.ep_comm(multihost.layout(1, 2))
+        shards = [shards[comm.shard]]
+        seeds = seeds[:, comm.shard:comm.shard + 1]
+    before = spmm_counts()
+    sse = flat.make_ep_train_step(model, comm)([shards], seeds)
+    sse_eval, _ = flat.make_ep_eval_step(model, comm)([shards])
+    torch.cuda.synchronize()
+    res = dict(sse=float(sse), sse_eval=float(sse_eval),
+               launches=_moved(before))
+    if save is not None:
+        np.savez(save, *[p.grad.detach().cpu().numpy()
+                         for p in model.parameters()])
+    return res
+
+
+def sweep_phase(tmp: Path, seed: int, card: str) -> dict:
+    """``cli/sweep.py`` and ``cli/runbook.py`` on the card: see item 24 of
+    the module doc."""
+    import torch
+    from cgr_mpnn_3d_tpu_torch.cli import runbook, sweep
+    t_phase = time.perf_counter()
+    base = tmp / "sweep"
+    data = training_data(base, seed)
+    space = {"method": "bayes",
+             "metric": {"name": "val_loss", "goal": "minimize"},
+             "parameters": {
+                 "name": {"value": "CGR-MPNN-3D"}, "depth": {"values": [4]},
+                 "hidden_sizes": {"values": [[400]]},
+                 "dropout_ps": {"values": [[0.1]]},
+                 "lr": {"distribution": "log_uniform_values", "min": 1e-5,
+                        "max": 1e-3},
+                 "weight_decay": {"value": 1e-5},
+                 "batch_size": {"values": [64]},
+                 "gamma": {"distribution": "uniform", "min": 0.9,
+                           "max": 1.0},
+                 "learnable_skip": {"values": [True, False]},
+                 "num_epochs": {"value": 1},
+                 "data_path": {"value": str(data)},
+                 "save_path": {"value": str(base / "saved")}}}
+    moved, real = [], sweep._default_train_fn
+
+    def counted(config, device="cuda"):
+        before = launch_counters()
+        try:
+            return real(config, device=device)
+        finally:
+            torch.cuda.synchronize()
+            after = launch_counters()
+            moved.append({k: v - before[k] for k, v in after.items()
+                          if v != before[k]})
+    sweep._default_train_fn = counted
+    try:
+        trials = sweep.run_sweep(space, 2, base / "study.jsonl", seed=seed,
+                                 device=DEVICE)
+    finally:
+        sweep._default_train_fn = real
+    ranked = sweep.evaluate_sweep(base / "study.jsonl")
+    k2 = [m.get("fused_model.train_launches", 0) for m in moved]
+    check(len(trials) == 2 and all(t["status"] == "ok" for t in trials)
+          and all(n > 0 for n in k2) and len(moved) == 2
+          and all(np.isfinite(t["val_loss"]) for t in trials),
+          f"sweep trials {[(t['status'], t.get('error')) for t in trials]}, "
+          f"launches {moved}")
+    out = dict(trials=[dict(config={k: v for k, v in t["config"].items()
+                                    if k not in ("data_path", "save_path")},
+                            val_loss=t["val_loss"]) for t in trials],
+               launches=moved, best=ranked[0]["run_id"])
+    print(f"sweep on the card: 2 bayes trials of 1 epoch on the corpus "
+          f"(README model), every trial ok: "
+          f"{[(round(t['val_loss'], 4), round(t['config']['lr'], 7)) for t in trials]} "
+          f"(val RMSE, lr); launches a trial {moved} [{card}]")
+    summary = base / "runbook.json"
+    argv = ["--data_path", str(data), "--save_path", str(base / "rb"),
+            "--epochs", "1", "--device", DEVICE, "--gate_cgr", "1000",
+            "--gate_3d", "1000"]
+    before = launch_counters()
+    t0 = time.perf_counter()
+    runbook.main(argv + ["--summary", str(summary)])
+    torch.cuda.synchronize()
+    after = launch_counters()
+    s = json.loads(summary.read_text())
+    check(s["all_passed"] is True
+          and set(s["gates"]) == {"CGR", "CGR-MPNN-3D"}
+          and all(np.isfinite(g["test_rmse_kcal_mol"])
+                  for g in s["gates"].values()),
+          f"runbook summary {s['gates']}")
+    code = None
+    try:
+        runbook.main(argv + ["--skip_3d", "--gate_cgr", "0.0001",
+                             "--summary", str(base / "runbook_fail.json")])
+    except SystemExit as e:
+        code = e.code
+    fail = json.loads((base / "runbook_fail.json").read_text())
+    check(code == 1 and fail["all_passed"] is False,
+          f"runbook with a failing gate exited {code}")
+    rb = {k: v - before[k] for k, v in after.items() if v != before[k]}
+    out.update(runbook=dict(gates={k: g["test_rmse_kcal_mol"]
+                                   for k, g in s["gates"].items()},
+                            launches=rb, wall_s=time.perf_counter() - t0))
+    out["wall_s"] = time.perf_counter() - t_phase
+    print(f"runbook on the card (1 epoch, README model at bf16, gates "
+          f"overridden to 1000): test RMSE {out['runbook']['gates']}, "
+          f"summary written; a failing gate exits {code}; launches of the "
+          f"passing run {rb}; phase wall {out['wall_s']:.1f} s [{card}]")
+    return out
+
+
+TRACE_KERNEL = "fused_model_bwd_kernel"   # K2's __global__ in the trace
+
+
+def trace_job(job: dict) -> int:
+    """``--trace_job``: ``train.profiler.trace`` around three training
+    steps of the README model (K2 each, then Adam) on the corpus training
+    batch, in this fresh process; prints TRACE_RESULT with the trace file,
+    its K2 kernel records and the K2 launches."""
+    import torch
+    from cgr_mpnn_3d_tpu_torch.models import (CGRMPNNConfig,
+                                              fused_train_value_and_grad,
+                                              init_params)
+    from cgr_mpnn_3d_tpu_torch.ops import fused_model as fm
+    from cgr_mpnn_3d_tpu_torch.train import trace
+    torch.backends.cuda.matmul.allow_tf32 = False
+    tmp = Path(job["dir"])
+    spec, batch = corpus_batch(tmp, job["seed"], DEVICE, shuffle=True)
+    cfg = CGRMPNNConfig(num_node_features=batch.node_x.shape[1],
+                        num_edge_features=batch.edge_attr.shape[1], depth=4,
+                        hidden_sizes=(400,) * 4, dropout_ps=(0.1,) * 4)
+    model = init_params(cfg, torch.Generator().manual_seed(job["seed"]),
+                        DEVICE)
+    opt = torch.optim.Adam(model.parameters(), lr=1e-4)
+    seeds = torch.tensor([3, 5, 7, 9], dtype=torch.int32)
+
+    def step():
+        fused_train_value_and_grad(model, batch, spec, seeds)
+        opt.step()
+    before = fm.train_launches
+    step()
+    with trace(str(tmp / "trace")):
+        for _ in range(3):
+            step()
+    launches = fm.train_launches - before
+    files = sorted((tmp / "trace").glob("trace-*.json"))
+    events = json.loads(files[0].read_text())["traceEvents"] if files else []
+    k2 = [e for e in events if TRACE_KERNEL in str(e.get("name", ""))]
+    print("TRACE_RESULT " + json.dumps(dict(
+        files=[str(f) for f in files],
+        bytes=files[0].stat().st_size if files else 0, events=len(events),
+        k2_records=len(k2), k2_kernel_records=sum(
+            1 for e in k2 if e.get("cat") == "kernel"),
+        k2_ms=sum(float(e.get("dur", 0)) for e in k2
+                  if e.get("cat") == "kernel") / 1e3,
+        launches=launches)), flush=True)
+    return 0
+
+
+def trace_phase(tmp: Path, seed: int, card: str) -> dict:
+    """``train.profiler.trace`` around three training steps in a fresh
+    process (a second profiler session in one process has lost the card's
+    kernel records): the trace file exists and names K2 (its kernel's
+    records, one a step), and K2 ran once a step."""
+    t0 = time.perf_counter()
+    job = dict(dir=str(tmp / "trace_job"), seed=seed)
+    Path(job["dir"]).mkdir(parents=True, exist_ok=True)
+    p = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py"),
+                        "--trace_job", json.dumps(job)], cwd=str(ROOT),
+                       capture_output=True, text=True, timeout=600)
+    lines = [ln for ln in p.stdout.splitlines()
+             if ln.startswith("TRACE_RESULT ")]
+    check(p.returncode == 0 and len(lines) == 1,
+          f"trace job exited {p.returncode}:\n{p.stdout[-3000:]}\n"
+          f"{p.stderr[-3000:]}")
+    res = json.loads(lines[0][len("TRACE_RESULT "):])
+    check(len(res["files"]) == 1 and res["k2_kernel_records"] == 3
+          and res["launches"] == 4,
+          f"trace: files {res['files']}, K2 kernel records "
+          f"{res['k2_kernel_records']} (want 3), K2 launches "
+          f"{res['launches']} (want 4: one untraced, three traced)")
+    res["wall_s"] = time.perf_counter() - t0
+    print(f"trace: train.profiler.trace around 3 training steps (README "
+          f"model, corpus training batch) in a fresh process wrote "
+          f"{Path(res['files'][0]).name} ({res['bytes']} bytes, "
+          f"{res['events']} events) naming K2 ({TRACE_KERNEL}) in "
+          f"{res['k2_kernel_records']} kernel records, "
+          f"{res['k2_ms']:.3f} ms of device time; K2 launches "
+          f"{res['launches']}; wall {res['wall_s']:.1f} s [{card}]")
+    return res
+
+
 def print_ep_vs_single(k: dict, card: str) -> None:
     print(f"EP vs single device, n_ep {k['n_ep']} (caps {k['caps']}, "
           f"{k['p']} packs of te {k['te']} per shard, {k['graphs']} graphs): "
@@ -5773,6 +6412,9 @@ def main(argv=None) -> int:
     ap.add_argument("--rank_job", default=None,
                     help="run one rank of multiprocess_phase (JSON; the "
                          "phase starts these itself)")
+    ap.add_argument("--trace_job", default=None,
+                    help="run trace_phase's traced steps (JSON; the phase "
+                         "starts it itself)")
     args = ap.parse_args(argv)
 
     import torch
@@ -5791,6 +6433,8 @@ def main(argv=None) -> int:
     check(pkg.parent == ROOT, f"imported the port from {pkg}, not {ROOT}")
     if args.rank_job:
         return rank_job(json.loads(args.rank_job))
+    if args.trace_job:
+        return trace_job(json.loads(args.trace_job))
 
     card = card_line()
     print(card)
@@ -6009,6 +6653,8 @@ def main(argv=None) -> int:
             mp = multiprocess_phase(Path(tmp), args.seed, card)
             print(f"phase wall: multi-process training "
                   f"{mp['wall_s']['phase']:.1f} s")
+            sw = sweep_phase(Path(tmp), args.seed, card)
+            tr = trace_phase(Path(tmp), args.seed, card)
             rates = train_profile(Path(tmp), args.seed, card)
             trn_16 = train_phase_bf16(Path(tmp), args.seed, card,
                                       trn["steps_per_s"])
@@ -6059,6 +6705,8 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     ep_variants(args.seed, card)
     print(f"phase wall: EP step variants {time.perf_counter() - t0:.1f} s")
+    with tempfile.TemporaryDirectory() as tmp:
+        flat_k = flat_ep_phase(Path(tmp), args.seed, card)
     t0 = time.perf_counter()
     with spmm_runs["profile_ep"]:
         prof = profile_ep_phase(card)
@@ -6170,14 +6818,26 @@ def main(argv=None) -> int:
                         "fused_conv.r_bwd_launches")
     mp_k11 = mp_launches("wired_ep2", "gather_linear.pool_launches",
                          "gather_linear.pool_bwd_launches")
+    mp_k7 = mp_launches("flat_ep2", "onehot_spmm.launches",
+                        "onehot_spmm.bwd_launches")
+
+    def sw_launches(*counters: str) -> int:
+        """The sweep's trials' and the runbook's launches of ``counters``."""
+        return sum(m.get(c, 0) for m in sw["launches"]
+                   + [sw["runbook"]["launches"]] for c in counters)
+    sw_k2, sw_k3f = (sw_launches("fused_model.train_launches"),
+                     sw_launches("fused_model.launches"))
+    sw_k2_16, sw_k3f_16 = (sw_launches("fused_model.bf16_train_launches"),
+                           sw_launches("fused_model.bf16_launches"))
     print(json.dumps({"kernels": [
         kernel("fused_model_fwd", "fused_model_fwd.cu", "pallas_model.py:376",
                srv["launches"] + desc["launches"]
-               + dp32["fused_model.launches"] + mp_k3f, main_k),
+               + dp32["fused_model.launches"] + mp_k3f + sw_k3f,
+               main_k),
         kernel("fused_model_train", "fused_model_bwd.cu",
                "pallas_model.py:439", trn["launches"]["train"]
-               + dp32["fused_model.train_launches"] + mp_k2,
-               train_k["train"]),
+               + dp32["fused_model.train_launches"] + mp_k2 + sw_k2
+               + tr["launches"], train_k["train"]),
         kernel("fused_model_vjp", "fused_model_bwd.cu", "pallas_model.py:397",
                trn["launches"]["vjp"], train_k["vjp"]),
         kernel("conv_stack", "conv_stack.cu", "pallas_stack.py:177",
@@ -6185,19 +6845,20 @@ def main(argv=None) -> int:
         kernel("gather_linear", "gather_linear.cu", "pallas_glin.py:160",
                lay32["K5"] + dp_layered["K5"] + mp_k5, glin(lay_k, False)),
         kernel("onehot_spmm", "onehot_spmm.cu", "pallas_ops.py:93",
-               lay32["K7"] + dp_layered["K7"], pool(lay_k, "float32")),
+               lay32["K7"] + dp_layered["K7"] + flat_k["launches"]
+               + mp_k7, pool(lay_k, "float32")),
         kernel("fused_conv", "fused_conv.cu", "pallas_fused.py:330",
                sum(cap["launches"]["K6"]), conv_k["K6 fwd eval"]),
         kernel("act_chain", "act_chain.cu", "tools/gelu_roofline.py:66",
                chain["launches"], chain["entry"]),
         kernel("fused_model_fwd_bf16", "fused_model_fwd.cu",
                "pallas_model.py:376", trn_16["launches"]["fwd"]
-               + dp16["fused_model.bf16_launches"] + mp_k3f_16,
-               bf16_k["fwd"]),
+               + dp16["fused_model.bf16_launches"] + mp_k3f_16
+               + sw_k3f_16, bf16_k["fwd"]),
         kernel("fused_model_train_bf16", "fused_model_bwd.cu",
                "pallas_model.py:439", trn_16["launches"]["train"]
-               + dp16["fused_model.bf16_train_launches"] + mp_k2_16,
-               bf16_k["train"]),
+               + dp16["fused_model.bf16_train_launches"] + mp_k2_16
+               + sw_k2_16, bf16_k["train"]),
         kernel("fused_model_vjp_bf16", "fused_model_bwd.cu",
                "pallas_model.py:397", trn_16["launches"]["vjp"],
                bf16_k["vjp"]),

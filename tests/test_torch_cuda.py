@@ -10,9 +10,11 @@ instantiation of the whole-model kernels against their bf16 plain versions
 (reruns bit for bit, the bf16 launch counters, a bf16 model on the card
 against the CPU), no CUDA tensor reaching a plain version, the matmul
 probe's kernel (P2), ``predict`` over natively featurized graphs
-against the Python twin's, and the trainer's device-resident modes (seeds
+against the Python twin's, the trainer's device-resident modes (seeds
 on the card give host seeds' bits; a staged epoch equals the host loop
-with no synchronizing call in its steps).  Run on a GPU machine with:
+with no synchronizing call in its steps), and the flat edge-partition
+layout through K7 (its planned launches, no plain gather, an
+all-sentinel boundary and edgeless shards).  Run on a GPU machine with:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py -q
 
@@ -2528,3 +2530,93 @@ def test_dp_filler_is_exact_zero_on_card(cuda, fuse, pooling):
     for name, p in model.named_parameters():
         assert float(p.grad.abs().max()) == 0.0, name
     assert float(make_dp_eval_step(model, spec)(filler)) == 0.0
+
+
+# -- the flat edge-partition layout through K7 (parallel/edge_partition.py)
+
+def _flat_sets():
+    """(name, graphs, labels, n_ep): a chain cut across the shards, a zero
+    cut (every boundary row a sentinel) and shards that own no edge."""
+    from cgr_mpnn_3d_tpu_torch.data.synthetic import chain_graph
+    rng = np.random.default_rng(13)
+    wired = [chain_graph(200, rng, 78), chain_graph(33, rng, 78)] + \
+        synthetic_graphs(6, rng, node_feat_dim=78)
+    zero_cut = [chain_graph(20, rng, 78), chain_graph(20, rng, 78)]
+    edgeless = [chain_graph(12, rng, 78)] + [chain_graph(1, rng, 78)
+                                             for _ in range(12)]
+    return [("wired", wired, 4), ("zero cut", zero_cut, 2),
+            ("edgeless", edgeless, 4)]
+
+
+@pytest.mark.parametrize("aggr,pooling,dtype", [
+    ("add", "add", "float32"), ("mean", "mean", "float32"),
+    ("add", "mean", "bfloat16")])
+def test_flat_ep_on_card_matches_cpu(cuda, aggr, pooling, dtype):
+    """The flat forward and training step on the card (every gather and
+    partial sum one f32 K7 launch, at bf16 too) against the same code on
+    the CPU, with the plain gathers made to raise while the card runs: K7
+    launches equal ``flat_launches``' plan, an all-sentinel boundary and
+    shards that own no edge included, and a rerun is bit for bit."""
+    from cgr_mpnn_3d_tpu_torch.models import CGRMPNN
+    from cgr_mpnn_3d_tpu_torch.ops import onehot_spmm as om
+    from cgr_mpnn_3d_tpu_torch.ops import segment
+    from cgr_mpnn_3d_tpu_torch.parallel import edge_partition as flat
+    cfg = CGRMPNNConfig(num_node_features=78, num_edge_features=14, depth=3,
+                        hidden_sizes=(40,) * 3, dropout_ps=(0.2,) * 3,
+                        aggr=aggr, pooling=pooling, use_learnable_skip=True,
+                        fuse_whole_model=False, compute_dtype=dtype)
+    ref = CGRMPNN(cfg, torch.Generator().manual_seed(4))
+    plain = [(segment, n, getattr(segment, n))
+             for n in set(segment.FLAT_OPS.values())]
+    plain.append((om, "onehot_spmm_ref", om.onehot_spmm_ref))
+
+    def refuse(*a, **k):
+        raise AssertionError("a plain gather ran on the card")
+
+    def run(device, shards, seeds):
+        model = CGRMPNN(cfg).to(device)
+        model.load_state_dict(ref.state_dict())
+        if device != "cpu":
+            for mod, n, _ in plain:
+                setattr(mod, n, refuse)
+        try:
+            with torch.no_grad():
+                _, preds = flat.ep_forward(model, shards)
+            sse = flat.make_ep_train_step(model)([shards], seeds)
+        finally:
+            for mod, n, fn in plain:
+                setattr(mod, n, fn)
+        return (preds.cpu(), float(sse),
+                [p.grad.cpu() for p in model.parameters()])
+
+    for name, graphs, n_ep in _flat_sets():
+        labels = [0.3 * i - 1.0 for i in range(len(graphs))]
+        host = flat.shard_edges(graphs, labels, n_ep)
+        if name == "zero cut":
+            assert (host.recv_idx == host.own_recv_inc.shape[1]).all()
+        if name == "edgeless":
+            assert (host.src_idx == host.node_x.shape[1]).all(axis=1).any()
+        seeds = torch.randint(0, 2**31 - 1, (1, n_ep, 3), dtype=torch.int32,
+                              generator=torch.Generator().manual_seed(2))
+        shards = flat.flat_shards(host, cuda)
+        before = (om.launches, om.bwd_launches, om.bf16_launches,
+                  om.bf16_bwd_launches)
+        preds, sse, grads = run(cuda, shards, seeds)
+        torch.cuda.synchronize()
+        moved = (om.launches - before[0], om.bwd_launches - before[1],
+                 om.bf16_launches - before[2],
+                 om.bf16_bwd_launches - before[3])
+        fwd = n_ep * flat.flat_launches(3, False)
+        assert moved == (2 * fwd, n_ep * flat.flat_launches(3, True) - fwd,
+                         0, 0), (name, moved)
+        want = run("cpu", flat.flat_shards(host, "cpu"), seeds)
+        # bf16: a last-bit difference of an f32 sum can round a linear's
+        # operand to the neighbouring bf16 value
+        tol = 1e-4 if dtype == "float32" else 5e-3
+        assert _rel(preds, want[0]) <= tol, name
+        assert abs(sse - want[1]) <= tol * max(abs(want[1]), 1e-30), name
+        top = max(float(g.abs().max()) for g in want[2])
+        assert max(float((g - w).abs().max()) for g, w in
+                   zip(grads, want[2])) <= tol * top, name
+        again = run(cuda, shards, seeds)
+        assert all(torch.equal(a, b) for a, b in zip(grads, again[2])), name
