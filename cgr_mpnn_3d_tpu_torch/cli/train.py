@@ -58,9 +58,13 @@ or with the JAX CLI's variables (``JAX_COORDINATOR_ADDRESS``,
 The ranks join a gloo process group (``parallel/multihost.py``) and split
 the ``[dp, ep]`` grid in one of two layouts: whole dp groups a rank (the
 rank count divides ``--dp``), or one EP shard a rank (rank count = dp x
-ep).  Before any data is read or any rendezvous, another layout, ``dp x ep
-= 1``, an incomplete launch environment and ``--ep_rdma`` with one shard a
-rank raise, naming the ROADMAP.md item.  The ranks sum each step's loss
+ep), where ``--ep_rdma`` sends every hop exchange from card to card
+through the cross-rank hop-exchange kernel (CUDA IPC), e.g.:
+  torchrun --nproc_per_node 2 -m cgr_mpnn_3d_tpu_torch.cli.train ... \\
+      --ep 2 --ep_rdma
+Before any data is read or any rendezvous, another layout, ``dp x ep =
+1`` and an incomplete launch environment raise, naming the ROADMAP.md
+item.  The ranks sum each step's loss
 and gradients, so their run is the single-process run with the same
 ``--dp``/``--ep``; the primary (rank 0) alone writes the checkpoints, the
 metrics log and the results, tests the model and prints the summary.
@@ -141,7 +145,8 @@ def build_arg_parser() -> argparse.ArgumentParser:
                          "(one stream: nothing overlaps yet)")
     ap.add_argument("--ep_rdma", action="store_true",
                     help="EP exchanges through the hop-exchange kernel "
-                         "(K12): one launch for every hop and shard")
+                         "(K12): one launch for every hop and shard; with "
+                         "one shard a rank, one a rank, card to card")
     ap.add_argument("--dp", default=1, type=int,
                     help="data-parallel groups a step, each of "
                          "ceil(batch_size / dp) graphs, every group in this "

@@ -67,7 +67,8 @@ path there; the port has none, and K9 computes the same sums).  One stream
 in one process runs everything in order, so nothing overlaps yet.
 ``cfg.ep_rdma_exchange`` sends every exchange through K12
 (:mod:`.rdma_exchange`: one launch for all hops and shards) instead of
-:class:`_RingExchange`'s copies.
+:class:`_RingExchange`'s copies, and with one shard a rank through the
+cross-rank K12 (one launch a rank) instead of gloo's point-to-point moves.
 """
 
 from __future__ import annotations
@@ -92,7 +93,8 @@ from ..ops.gather_linear import gather_linear, gather_linear_pool
 from ..ops.kernel_math import k_act, round_bf16
 from ..ops.segment import gather_nodes, node_incoming_sum
 from .edge_partition import EPOverflow, _ell_pack, _r8, _relabel_large
-from .rdma_exchange import _ring_move, ring_exchange_rdma
+from .rdma_exchange import (_ring_move, check_errors, rank_exchange_rdma,
+                            ring_exchange_rdma)
 
 __all__ = ["EPOverflow", "EPPackSpec", "EPPackedBatch", "pack_shard_edges",
            "empty_ep_pack_batch", "wire_bytes_per_layer", "ep_shards",
@@ -838,21 +840,25 @@ class _GroupSum(torch.autograd.Function):
     @staticmethod
     def forward(ctx, value, comm):
         from .multihost import all_reduce_host_
-        return all_reduce_host_(value.detach().clone(), comm.group)
+        total = all_reduce_host_(value.detach().clone(), comm.group)
+        check_errors()           # the card was synchronized for the sum
+        return total
 
     @staticmethod
     def backward(ctx, g):
         return g, None
 
 
-def run_distributed(gen, caps: tuple[int, ...], comm):
+def run_distributed(gen, caps: tuple[int, ...], comm, rdma: bool = False):
     """The per-rank counterpart of :func:`run_lockstep` (layout (b)): runs
     this rank's one shard generator and serves its requests through the
     process group of ``comm`` (``multihost.ep_comm``) -- an
-    :class:`Exchange` as the ring move between the group's ranks, an
+    :class:`Exchange` as the ring move between the group's ranks (with
+    ``rdma``: through the cross-rank K12, :func:`rank_exchange_rdma`), an
     :class:`AllToAll` as gloo's all-to-all, a :class:`Psum` as an
     all-reduce over them; returns its return value.  Every rank of the
     group must run it on the same spec."""
+    caps = tuple(caps)
     send = None
     while True:
         try:
@@ -860,8 +866,9 @@ def run_distributed(gen, caps: tuple[int, ...], comm):
         except StopIteration as stop:
             return stop.value
         if type(req) is Exchange:
-            send = _RankExchange.apply(req.buf, tuple(caps), req.inverse,
-                                       comm)
+            send = (rank_exchange_rdma(req.buf, caps, req.inverse, comm)
+                    if rdma else
+                    _RankExchange.apply(req.buf, caps, req.inverse, comm))
         elif type(req) is AllToAll:
             send = _RankAllToAll.apply(req.buf, comm)
         else:
@@ -1103,7 +1110,8 @@ def ep_pack_forward(model: CGRMPNN, shards: list, spec: EPPackSpec, *,
             raise ValueError(f"{len(shards)} shards on a rank of an EP group")
         return run_distributed(ep_pack_forward_shard(
             model, shards[0], spec, train=train,
-            seeds=None if seeds is None else seeds[0]), spec.caps, comm)
+            seeds=None if seeds is None else seeds[0]), spec.caps, comm,
+            model.cfg.ep_rdma_exchange)
     if len(shards) != spec.n_ep:
         raise ValueError(f"{len(shards)} shards for n_ep={spec.n_ep}")
     gens = [ep_pack_forward_shard(model, b, spec, train=train,
@@ -1206,7 +1214,9 @@ def make_ep_pack_train_step(model: CGRMPNN, spec: EPPackSpec, comm=None):
                                      comm=comm)
             sse.backward()
             total = sse.detach() if total is None else total + sse.detach()
-        return all_reduce_step(model, _once_a_group(total, comm))
+        total = all_reduce_step(model, _once_a_group(total, comm))
+        check_errors()   # the backward's exchanges, after the sum's sync
+        return total
     return step
 
 

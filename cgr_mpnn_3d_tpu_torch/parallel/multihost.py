@@ -37,8 +37,16 @@ and :func:`check_launch` does so from the environment before any
 rendezvous, so a lone misconfigured process fails at once.  ``parallel/
 mesh.py::make_mesh`` has no counterpart: its checks are :func:`layout`'s.
 
-Gloo stages CUDA tensors through host memory; NCCL across cards is
-ROADMAP.md section 1.5 step 3.
+**What crosses ranks, and how.**  Under layout (b) with ``--ep_rdma``
+every hop exchange of the EP forward and backward goes from card memory
+to card memory through the cross-rank K12 (``rdma_exchange.
+rank_exchange_rdma``: peer copies through CUDA IPC with signals in device
+memory, ranks sharing one card or on peer cards); without it the
+exchanges are gloo's point-to-point moves (``ep_pack._rank_ring_move``).
+The group sums of the EP forward, the flat layout's all-to-alls, the
+step's all-reduce of [SSE, gradients], the config fingerprint and the
+barriers stay on gloo, which stages CUDA tensors through host memory;
+NCCL across cards is ROADMAP.md section 1.5 step 3.
 """
 
 from __future__ import annotations
@@ -52,11 +60,11 @@ import numpy as np
 import torch
 
 __all__ = ["LAUNCH_ENV", "Launch", "Layout", "EPComm", "launch_env",
-           "env_world_size", "initialize", "is_primary", "rank",
-           "world_size", "local_rank", "host_shard", "sync_global_devices",
-           "layout", "local_cells", "check_launch", "ep_comm",
-           "all_reduce_sum_", "all_reduce_host_", "all_gather_rows",
-           "cuda_index"]
+           "env_world_size", "initialize", "group_timeout_s", "is_primary",
+           "rank", "world_size", "local_rank", "host_shard",
+           "sync_global_devices", "layout", "local_cells", "check_launch",
+           "ep_comm", "all_reduce_sum_", "all_reduce_host_",
+           "all_gather_rows", "cuda_index"]
 
 TORCHRUN_ENV = ("WORLD_SIZE", "RANK", "MASTER_ADDR", "MASTER_PORT",
                 "LOCAL_RANK")
@@ -65,6 +73,7 @@ LAUNCH_ENV = TORCHRUN_ENV + JAX_ENV
 DEFAULT_TIMEOUT_S = 600.0
 
 _local_rank = 0
+_timeout_s = DEFAULT_TIMEOUT_S
 _ep_comms: dict = {}
 
 
@@ -149,7 +158,7 @@ def initialize(init_method: str | None = None, world_size: int | None = None,
     single process and when already joined.  The arguments default to the
     environment's launch (:func:`launch_env`); ``timeout_s`` bounds every
     collective, so a rank whose peer died raises."""
-    global _local_rank
+    global _local_rank, _timeout_s
     import torch.distributed as dist
     if dist.is_initialized():
         return
@@ -167,10 +176,16 @@ def initialize(init_method: str | None = None, world_size: int | None = None,
     dist.init_process_group(
         "gloo", init_method=init_method, world_size=world_size, rank=rank,
         timeout=datetime.timedelta(seconds=timeout_s))
-    _local_rank = local
+    _local_rank, _timeout_s = local, timeout_s
     if torch.cuda.is_available():
         # the kernels' wrappers launch on the current device
         torch.cuda.set_device(cuda_index())
+
+
+def group_timeout_s() -> float:
+    """The process group's timeout (``initialize``'s ``timeout_s``), which
+    also bounds the cross-rank K12's waits on a peer."""
+    return _timeout_s
 
 
 def world_size() -> int:
@@ -251,8 +266,10 @@ def layout(n_dp: int, n_ep: int, world: int | None = None,
            rank_: int | None = None, ep_rdma: bool = False) -> Layout:
     """This rank's :class:`Layout` of the ``[n_dp, n_ep]`` grid over
     ``world`` ranks (default: the process group's).  ``n_dp·n_ep = 1`` on
-    several ranks, and any layout but (a) and (b), raise ValueError;
-    ``ep_rdma`` with one shard a rank raises NotImplementedError."""
+    several ranks, and any layout but (a) and (b), raise ValueError.
+    ``ep_rdma`` is taken under both: under (b) its exchanges cross ranks
+    through the cross-rank K12."""
+    del ep_rdma                                 # taken under every layout
     world = world_size() if world is None else world
     rank_ = rank() if rank_ is None else rank_
     if world <= 1:
@@ -264,11 +281,6 @@ def layout(n_dp: int, n_ep: int, world: int | None = None,
     if n_dp % world == 0:
         return Layout(n_dp, n_ep, world, rank_, "groups")
     if n_dp * n_ep == world:
-        if ep_rdma:
-            raise NotImplementedError(
-                "--ep_rdma with one EP shard a rank needs the hop exchange "
-                "K12 across cards: ROADMAP.md section 2 item 1 (no ring "
-                "exchange is taken in its place)")
         return Layout(n_dp, n_ep, world, rank_, "shards")
     raise ValueError(
         f"dp={n_dp} x ep={n_ep} over {world} processes: the port takes two "

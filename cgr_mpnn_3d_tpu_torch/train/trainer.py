@@ -121,7 +121,7 @@ from ..data.loader import PackedLoader, background
 from ..models.cgr_mpnn import (CGRMPNNConfig, fused_train_value_and_grad,
                                init_params, sse_loss, supports_fused_train)
 from ..ops._launch import stage_rates
-from ..parallel import multihost
+from ..parallel import multihost, rdma_exchange
 from ..parallel.data_parallel import (groups_of, make_dp_eval_step,
                                       make_dp_train_step, stack_batches)
 from ..parallel.ep_loader import EPPackLoader
@@ -804,7 +804,20 @@ class RxnGraphTrainer:
 
     def train(self) -> dict:
         """Full loop; returns {'train_losses': [...], 'val_losses': [...],
-        'train_time_s', 'steps'}."""
+        'train_time_s', 'steps'}.  With one EP shard a rank it ends the
+        cross-rank K12's plans (``rdma_exchange.close``) when the loop ends,
+        and on an exception without meeting the other ranks."""
+        try:
+            out = self._train_loop()
+        except BaseException:
+            if self._comm is not None:
+                rdma_exchange.close(barrier=False)
+            raise
+        if self._comm is not None:
+            rdma_exchange.close()
+        return out
+
+    def _train_loop(self) -> dict:
         out = {"train_losses": [], "val_losses": []}
         save_dir = Path(self.model_save_dir)
         save_dir.mkdir(parents=True, exist_ok=True)

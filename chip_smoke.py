@@ -250,7 +250,21 @@ Phases (any failure raises, and the script exits non-zero):
    each rank one K2 a step in run 1 (and the bf16 K2 in run 2), each
    rank's launches half the single process's in run 3; the ranks' wall
    steps/s beside the single process's and the collectives' host ms a
-   step; then (4) the same wired set in the flat layout
+   step; (3b) run 3 with ``ep_rdma_exchange``: every exchange through the
+   cross-rank K12 (``csrc/rank_exchange.cu``, CUDA IPC), against the
+   single-process ``--ep_rdma`` run by run 3's rule, no gloo ring move on
+   either rank, each rank's cross-rank K12 launches (forward, backward)
+   equal to the one-process K12's, the collectives' host ms a step with
+   and without it; (3c) the cross-rank K12 alone (``tools/k12_ranks.py``)
+   at 2 ranks (caps (8,), H 400) and 4 (caps (8, 0, 16) and (0, 8, 0)),
+   f32 and bf16: both ways, the backward and 200 calls back to back bit
+   for bit with ``_ring_move`` and gloo's move of the same buffers, one
+   launch an exchange, the median host ms of one synchronized exchange
+   over 200 calls (the cross-rank K12, gloo's move, the one-process K12;
+   a shared card), and a peer that never calls making its destination
+   raise within its limit (runs 3, 3b and 4, then the 2-rank 3c, run in
+   turn as sub-jobs of one pair of rank processes); (4) the same wired
+   set in the flat layout
    (``parallel/edge_partition.py``), one shard a rank: one training step
    and one eval, the all-to-alls through gloo, SSEs bit for bit with the
    lockstep run and gradients within 1e-6 of their largest, K7 launches
@@ -2799,10 +2813,12 @@ def _free_port() -> int:
         return sock.getsockname()[1]
 
 
-def wired_trainer(seed: int, name: str, save: Path, device):
+def wired_trainer(seed: int, name: str, save: Path, device,
+                  ep_rdma: bool = False):
     """The README's model (aggr add, dropout 0.1) on a wired set: 15
     synthetic graphs and a 480-atom chain, batches of 8 graphs sharded over
-    2 EP shards (the chain's batch cut across them), 3 epochs."""
+    2 EP shards (the chain's batch cut across them), 3 epochs; ``ep_rdma``
+    sends the exchanges through K12."""
     from cgr_mpnn_3d_tpu_torch.data.batch import PackSpec
     from cgr_mpnn_3d_tpu_torch.models import CGRMPNNConfig
     from cgr_mpnn_3d_tpu_torch.train import RxnGraphTrainer
@@ -2810,7 +2826,7 @@ def wired_trainer(seed: int, name: str, save: Path, device):
     data = GraphSet(graphs, labels, 270)
     cfg = CGRMPNNConfig(num_node_features=270, num_edge_features=14,
                         depth=4, hidden_sizes=(400,) * 4,
-                        dropout_ps=(0.1,) * 4)
+                        dropout_ps=(0.1,) * 4, ep_rdma_exchange=ep_rdma)
     return RxnGraphTrainer(
         name=name, cfg=cfg, train_data=data, val_data=data, spec=PackSpec(),
         lr=1e-4, weight_decay=1e-5, gamma=0.9, num_epochs=3, batch_size=8,
@@ -2819,25 +2835,37 @@ def wired_trainer(seed: int, name: str, save: Path, device):
 
 
 def rank_job(job: dict) -> int:
-    """One rank of ``multiprocess_phase`` (``--rank_job``): the CLI with
-    ``job["argv"]``, or the wired trainer, under the launch variables the
-    parent set; prints ``RANK_RESULT`` with its results, the launch
-    counters it moved, the checkpoint files it wrote and the host seconds
-    of its collectives (the card synchronized before each)."""
+    """One rank of ``multiprocess_phase`` (``--rank_job``), under the launch
+    variables the parent set: ``job`` or, in turn in this one process,
+    each of ``job["jobs"]`` (see :func:`_rank_sub_job`); prints
+    ``RANK_RESULT`` with the result, or the list of them."""
+    results = [_rank_sub_job(sub) for sub in job.get("jobs", [job])]
+    print("RANK_RESULT " + json.dumps(
+        results if "jobs" in job else results[0], default=float), flush=True)
+    return 0
+
+
+def _rank_sub_job(job: dict) -> dict:
+    """The CLI with ``job["argv"]``, the wired trainer (``rdma``: through
+    the cross-rank K12), the flat step, or the cross-rank K12 alone
+    (``tools/k12_ranks.py``): its results, the launch counters it moved,
+    the checkpoint files it wrote, its wall seconds and the host seconds of
+    its collectives (the card synchronized before each; not for the K12
+    alone, which times its own), with their calls by name."""
     import torch
     from cgr_mpnn_3d_tpu_torch.parallel import ep_pack, multihost
     from cgr_mpnn_3d_tpu_torch.train import trainer as trainer_mod
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    writes, coll = [], {"s": 0.0, "calls": 0}
+    t_job = time.perf_counter()
+    writes, coll = [], {"s": 0.0, "calls": 0, "by": {}}
     save = trainer_mod.save_checkpoint
 
     def counted(path, *a, **kw):
         writes.append(str(path))
         return save(path, *a, **kw)
-    trainer_mod.save_checkpoint = counted
 
-    def timed(fn):
+    def timed(fn, name):
         def run(*a, **kw):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -2846,35 +2874,52 @@ def rank_job(job: dict) -> int:
             finally:
                 coll["s"] += time.perf_counter() - t0
                 coll["calls"] += 1
+                coll["by"][name] = coll["by"].get(name, 0) + 1
         return run
-    multihost.all_reduce_sum_ = timed(multihost.all_reduce_sum_)
-    ep_pack._rank_ring_move = timed(ep_pack._rank_ring_move)
-    ep_pack._rank_all_to_all = timed(ep_pack._rank_all_to_all)
-    ep_pack._GroupSum.forward = staticmethod(
-        timed(ep_pack._GroupSum.forward))
-    Path(job["cwd"]).mkdir(parents=True, exist_ok=True)
-    os.chdir(job["cwd"])
-    before = launch_counters()
-    if job["kind"] == "cli":
-        from cgr_mpnn_3d_tpu_torch.cli import train as cli_train
-        res = cli_train.main(job["argv"])
-    elif job["kind"] == "flat":
-        multihost.initialize()
-        res = flat_wired_step(job["seed"], DEVICE, Path(job["cwd"])
-                              / "grads.npz")
-    else:
-        multihost.initialize()
-        res = wired_trainer(job["seed"], "wired", Path(job["save"]),
-                            DEVICE).train()
-    torch.cuda.synchronize()
-    after = launch_counters()
-    print("RANK_RESULT " + json.dumps(dict(
+    names = ([] if job["kind"] == "exchange" else
+             [(multihost, "all_reduce_sum_"), (ep_pack, "_rank_ring_move"),
+              (ep_pack, "_rank_all_to_all")])
+    kept = [getattr(m, n) for m, n in names]
+    group_sum = ep_pack._GroupSum.forward
+    trainer_mod.save_checkpoint = counted
+    for (m, n), fn in zip(names, kept):
+        setattr(m, n, timed(fn, n))
+    if names:
+        ep_pack._GroupSum.forward = staticmethod(timed(group_sum,
+                                                       "_GroupSum"))
+    try:
+        Path(job["cwd"]).mkdir(parents=True, exist_ok=True)
+        os.chdir(job["cwd"])
+        before = launch_counters()
+        if job["kind"] == "exchange":
+            from cgr_mpnn_3d_tpu_torch.tools import k12_ranks
+            multihost.initialize()
+            res = k12_ranks.run(job["k12"])
+        elif job["kind"] == "cli":
+            from cgr_mpnn_3d_tpu_torch.cli import train as cli_train
+            res = cli_train.main(job["argv"])
+        elif job["kind"] == "flat":
+            multihost.initialize()
+            res = flat_wired_step(job["seed"], DEVICE, Path(job["cwd"])
+                                  / "grads.npz")
+        else:
+            multihost.initialize()
+            res = wired_trainer(job["seed"], "wired", Path(job["save"]),
+                                DEVICE, ep_rdma=job.get("rdma", False)
+                                ).train()
+        torch.cuda.synchronize()
+        after = launch_counters()
+    finally:
+        trainer_mod.save_checkpoint = save
+        for (m, n), fn in zip(names, kept):
+            setattr(m, n, fn)
+        ep_pack._GroupSum.forward = staticmethod(group_sum)
+    return dict(
         res=res, rank=multihost.rank(), world=multihost.world_size(),
         device=str(torch.cuda.current_device()), writes=writes,
         moved={k: v - before[k] for k, v in after.items() if v != before[k]},
-        coll_s=coll["s"], coll_calls=coll["calls"]), default=float),
-        flush=True)
-    return 0
+        coll_s=coll["s"], coll_calls=coll["calls"], coll_by=coll["by"],
+        wall_s=time.perf_counter() - t_job)
 
 
 def run_ranks(jobs: list[dict], envs: list[dict]) -> list[dict]:
@@ -2920,10 +2965,10 @@ def _leaves_rel(a: list, b: list) -> float:
 
 def multiprocess_phase(tmp: Path, seed: int, card: str) -> dict:
     """Two gloo ranks on the card (each this script with ``--rank_job``)
-    against the single-process run with the same flags: see item 23 of the
-    module doc.  Each run's line has both wall steps/s and the ranks'
-    collective host ms a step."""
-    import torch
+    against the single-process run with the same flags, and the cross-rank
+    K12 alone at 2 and 4 ranks: see item 23 of the module doc.  Each run's
+    line has both wall steps/s and the ranks' collective host ms a
+    step."""
     from cgr_mpnn_3d_tpu_torch.train import load_checkpoint
     t_phase = time.perf_counter()
     base = tmp / "mp"
@@ -3007,19 +3052,70 @@ def multiprocess_phase(tmp: Path, seed: int, card: str) -> dict:
               f"the other rank included) {coll_ms}; ranks' wall "
               f"{t_ranks:.1f} s [{card}]")
 
-    # the wired set, one EP shard a rank (layout b)
-    t0 = time.perf_counter()
+    # one pair of rank processes (torchrun's variables) runs in turn: the
+    # wired set one EP shard a rank with the exchanges through gloo, then
+    # through the cross-rank K12, the flat layout's step, the cross-rank
+    # K12 alone (last: it ends with a peer that never calls)
     port = _free_port()
-    run_dir = base / "wired_ep2"
-    jobs = [dict(kind="wired", seed=seed, save=str(run_dir / "saved"),
-                 cwd=str(run_dir / f"rank{r}")) for r in range(2)]
     envs = [dict(WORLD_SIZE="2", RANK=str(r), LOCAL_RANK=str(r),
                  MASTER_ADDR="localhost", MASTER_PORT=str(port))
             for r in range(2)]
-    ranks = run_ranks(jobs, envs)
+    subs = [[dict(kind="wired", seed=seed, rdma=rdma,
+                  save=str(base / label / "saved"),
+                  cwd=str(base / label / f"rank{r}"))
+             for label, rdma in (("wired_ep2", False),
+                                 ("wired_ep2_rdma", True))]
+            + [dict(kind="flat", seed=seed,
+                    cwd=str(base / "flat_ep2" / f"rank{r}")),
+               dict(kind="exchange",
+                    k12=dict(K12_RANK_JOBS[0][1], seed=seed),
+                    cwd=str(base / "k12_2" / f"rank{r}"))]
+            for r in range(2)]
+    t0 = time.perf_counter()
+    pair = run_ranks([dict(jobs=sub) for sub in subs], envs)
+    out["wall_s"]["rank_pair"] = time.perf_counter() - t0
+    for i, (label, rdma) in enumerate((("wired_ep2", False),
+                                       ("wired_ep2_rdma", True))):
+        out["runs"][label] = wired_ranks(base, seed, card, rdma,
+                                         [p[i] for p in pair])
+        out["wall_s"][label] = out["runs"][label]["wall_s"]
+    print(f"multi-process wired --ep 2, one shard a rank, shared card: the "
+          f"collectives' host ms a step without --ep_rdma "
+          f"{out['runs']['wired_ep2']['coll_ms']} over "
+          f"{out['runs']['wired_ep2']['coll_calls']} calls, with it "
+          f"{out['runs']['wired_ep2_rdma']['coll_ms']} over "
+          f"{out['runs']['wired_ep2_rdma']['coll_calls']} calls (the "
+          f"exchanges no longer among them); wall steps/s "
+          f"{out['runs']['wired_ep2']['steps_per_s']} against "
+          f"{out['runs']['wired_ep2_rdma']['steps_per_s']} [{card}]")
+    out["runs"]["flat_ep2"] = flat_ranks(base, seed, card,
+                                         [p[2] for p in pair])
+    out["wall_s"]["flat_ep2"] = out["runs"]["flat_ep2"]["wall_s"]
+    out["runs"]["k12_ranks"] = k12_ranks_phase(base, seed, card,
+                                               [p[3] for p in pair])
+    out["wall_s"]["k12_ranks"] = out["runs"]["k12_ranks"]["wall_s"]
+    out["wall_s"]["phase"] = time.perf_counter() - t_phase
+    print(json.dumps(out, default=float))
+    return out
+
+
+def wired_ranks(base: Path, seed: int, card: str, rdma: bool,
+                ranks: list[dict]) -> dict:
+    """``wired_trainer`` on two ranks, one EP shard each (``ranks``: their
+    results; with ``rdma`` every exchange through the cross-rank K12),
+    against the single-process run with the same flags on the card: losses
+    at rtol 1e-6, leaves within 1e-6 of their largest, each rank half the
+    single process's launches of K5/K8/K11; with ``rdma`` no gloo ring
+    move on either rank and each rank's cross-rank K12 launches (forward,
+    backward) equal to the one-process K12's."""
+    import torch
+    from cgr_mpnn_3d_tpu_torch.train import load_checkpoint
+    label = "wired_ep2_rdma" if rdma else "wired_ep2"
+    t0 = time.perf_counter()
+    run_dir = base / label
     before = launch_counters()
-    tr = wired_trainer(seed, "wired", base / "wired_ep2_one" / "saved",
-                       DEVICE)
+    tr = wired_trainer(seed, "wired", base / f"{label}_one" / "saved",
+                       DEVICE, ep_rdma=rdma)
     one = tr.train()
     torch.cuda.synchronize()
     after = launch_counters()
@@ -3030,72 +3126,158 @@ def multiprocess_phase(tmp: Path, seed: int, card: str) -> dict:
         res[0]["val_losses"] == res[1]["val_losses"]
     loss_rel = _max_rel(res[0], one)
     leaves = load_checkpoint(run_dir / "saved" / "wired.latest.npz")[0]
-    leaves_one = load_checkpoint(base / "wired_ep2_one" / "saved"
+    leaves_one = load_checkpoint(base / f"{label}_one" / "saved"
                                  / "wired.latest.npz")[0]
     leaf_rel = _leaves_rel(leaves, leaves_one)
     halves = all(2 * r["moved"].get(k, 0) == v for r in ranks
-                 for k, v in moved_one.items())
+                 for k, v in moved_one.items()
+                 if not k.startswith("rdma_exchange."))
     used = all(r["moved"].get(k, 0) > 0 for r in ranks
                for k in ("gather_linear.launches", "fused_conv.r_launches",
                          "gather_linear.pool_launches"))
     writes_ok = ranks[0]["writes"] and ranks[1]["writes"] == []
+    moves = [r["coll_by"].get("_rank_ring_move", 0) for r in ranks]
+    k12 = [(r["moved"].get("rdma_exchange.rank_launches", 0),
+            r["moved"].get("rdma_exchange.rank_bwd_launches", 0))
+           for r in ranks]
+    k12_one = (moved_one.get("rdma_exchange.launches", 0),
+               moved_one.get("rdma_exchange.bwd_launches", 0))
+    routed = (all(m == 0 for m in moves) and k12_one[0] > 0
+              and all(k == k12_one for k in k12)) if rdma else \
+        all(m > 0 for m in moves) and k12 == [(0, 0)] * 2
     check(same_ranks and loss_rel <= 1e-6 and leaf_rel <= 1e-6 and halves
-          and used and writes_ok,
-          f"2 ranks, one EP shard each, wired set: ranks agree {same_ranks}, "
-          f"losses {res[0]['train_losses']} against one process's "
-          f"{one['train_losses']} (max rel {loss_rel:.3e}, limit 1e-6), "
-          f"leaves {leaf_rel:.3e} of their largest (limit 1e-6), launches "
-          f"{[r['moved'] for r in ranks]} half of one process's {moved_one} "
-          f"{halves}, K5/K8/K11 on each rank {used}, only rank 0 wrote "
-          f"{writes_ok}")
+          and used and writes_ok and routed,
+          f"2 ranks, one EP shard each, wired set{' --ep_rdma' * rdma}: "
+          f"ranks agree {same_ranks}, losses {res[0]['train_losses']} "
+          f"against one process's {one['train_losses']} (max rel "
+          f"{loss_rel:.3e}, limit 1e-6), leaves {leaf_rel:.3e} of their "
+          f"largest (limit 1e-6), launches {[r['moved'] for r in ranks]} "
+          f"half of one process's {moved_one} {halves}, K5/K8/K11 on each "
+          f"rank {used}, only rank 0 wrote {writes_ok}, gloo ring moves "
+          f"{moves}, cross-rank K12 launches {k12} against the one-process "
+          f"K12's {k12_one} ({routed})")
     steps = res[0]["steps"]
     sps = [r["steps"] / r["train_time_s"] for r in res]
     sps_one = one["steps"] / one["train_time_s"]
     coll_ms = [1e3 * r["coll_s"] / steps for r in ranks]
-    out["runs"]["wired_ep2"] = dict(
-        steps=steps, launches=[r["moved"] for r in ranks],
-        launches_one=moved_one, loss_rel=loss_rel, leaf_rel=leaf_rel,
-        steps_per_s=sps, steps_per_s_one=sps_one, coll_ms=coll_ms,
-        coll_calls=[r["coll_calls"] for r in ranks])
-    out["wall_s"]["wired_ep2"] = time.perf_counter() - t0
-    print(f"multi-process wired --ep 2, one shard a rank (torchrun "
-          f"variables): 3 epochs, {steps} steps, train RMSE "
-          f"{res[0]['train_losses']} against one process's "
-          f"{one['train_losses']}: losses max rel {loss_rel:.3e}, checkpoint "
-          f"leaves within {leaf_rel:.3e} of their largest (limit 1e-6, not "
-          f"bit for bit: the ranks sum the shards' gradients after their "
-          f"backward, one process accumulates them inside its backward), "
-          f"ranks bit for bit with each other; launches rank 0 "
-          f"{ranks[0]['moved']}, each half "
-          f"of one process's {moved_one}; wall steps/s ranks {sps} against "
-          f"one process's {sps_one:.3f}; collectives' host ms a step "
-          f"(ring exchanges, group sums, the all-reduce; waiting for the "
-          f"other rank included) {coll_ms} over "
-          f"{ranks[0]['coll_calls']} calls; wall "
-          f"{out['wall_s']['wired_ep2']:.1f} s [{card}]")
-
-    out["runs"]["flat_ep2"] = flat_ranks(base, seed, card)
-    out["wall_s"]["flat_ep2"] = out["runs"]["flat_ep2"]["wall_s"]
-    out["wall_s"]["phase"] = time.perf_counter() - t_phase
-    print(json.dumps(out, default=float))
+    what = ("group sums and the all-reduce" if rdma else
+            "ring exchanges, group sums, the all-reduce")
+    out = dict(steps=steps, launches=[r["moved"] for r in ranks],
+               launches_one=moved_one, loss_rel=loss_rel, leaf_rel=leaf_rel,
+               steps_per_s=sps, steps_per_s_one=sps_one, coll_ms=coll_ms,
+               coll_calls=[r["coll_calls"] for r in ranks],
+               coll_by=[r["coll_by"] for r in ranks], ring_moves=moves,
+               k12=k12, k12_one=k12_one, wall_s=time.perf_counter() - t0
+               + max(r["wall_s"] for r in ranks))
+    print(f"multi-process wired --ep 2{' --ep_rdma' * rdma}, one shard a "
+          f"rank (torchrun variables, shared card): 3 epochs, {steps} "
+          f"steps, train RMSE {res[0]['train_losses']} against one "
+          f"process's {one['train_losses']}: losses max rel {loss_rel:.3e}, "
+          f"checkpoint leaves within {leaf_rel:.3e} of their largest "
+          f"(limit 1e-6, not bit for bit: the ranks sum the shards' "
+          f"gradients after their backward, one process accumulates them "
+          f"inside its backward), ranks bit for bit with each other; "
+          f"launches rank 0 {ranks[0]['moved']}, each half of one "
+          f"process's {moved_one} (the exchanges: gloo ring moves {moves}, "
+          f"cross-rank K12 {k12} against the one-process K12's {k12_one}); "
+          f"wall steps/s ranks {sps} against one process's {sps_one:.3f}; "
+          f"collectives' host ms a step ({what}; "
+          f"waiting for the other rank included) {coll_ms} over "
+          f"{ranks[0]['coll_calls']} calls {ranks[0]['coll_by']}; wall "
+          f"{out['wall_s']:.1f} s [{card}]")
     return out
 
 
-def flat_ranks(base: Path, seed: int, card: str) -> dict:
-    """The wired set of ``wired_trainer`` in the flat layout, one shard a
-    rank (two ``--rank_job`` ranks, torchrun's variables; the all-to-alls
-    through gloo) against the lockstep run in this process: one training
-    step and one eval, SSEs bit for bit, gradients within 1e-6 of their
-    largest, K7 launches half of lockstep's a rank."""
+K12_RANK_JOBS = (
+    # 2 ranks at the main path's wire (TW 8, H 400), timed, then a missing
+    # peer; 4 ranks on asymmetric and one-hop caps
+    (2, dict(caps=[[8]], dtypes=["float32", "bfloat16"], calls=200,
+             time=True, missing=1, timeout_s=2.0)),
+    (4, dict(caps=[[8, 0, 16], [0, 8, 0]], dtypes=["float32", "bfloat16"],
+             calls=200)))
+
+
+def k12_ranks_phase(base: Path, seed: int, card: str,
+                    pair: list[dict]) -> dict:
+    """The cross-rank K12 alone (``tools/k12_ranks.py``) with 2 ranks
+    (``pair``: their results, K12_RANK_JOBS[0]) and 4 (each rank this
+    script with ``--rank_job``) sharing the card: both
+    ways, the backward and 200 calls back to back, bit for bit with
+    ``_ring_move`` and with gloo's move of the same buffers; the median host
+    ms of one synchronized exchange over 200 calls for the cross-rank K12,
+    gloo's move and the one-process K12; a peer that never calls makes
+    its destination raise within its limit (2 s) plus 10 s."""
     t0 = time.perf_counter()
-    port = _free_port()
+    out = {}
+    for world, k12 in K12_RANK_JOBS:
+        k12 = dict(k12, seed=seed)
+        t_w = time.perf_counter()
+        if world == 2:
+            ranks = [r["res"] for r in pair]
+            t_w -= max(r["wall_s"] for r in pair)
+        else:
+            port = _free_port()
+            jobs = [dict(kind="exchange", k12=k12,
+                         cwd=str(base / f"k12_{world}" / f"rank{r}"))
+                    for r in range(world)]
+            envs = [dict(WORLD_SIZE=str(world), RANK=str(r),
+                         LOCAL_RANK=str(r), MASTER_ADDR="localhost",
+                         MASTER_PORT=str(port)) for r in range(world)]
+            ranks = [r["res"] for r in run_ranks(jobs, envs)]
+        cases = len(k12["caps"]) * len(k12["dtypes"])
+        for r, got in enumerate(ranks):
+            bad = {name: case for name, case in got["cases"].items()
+                   if not all(v for k, v in case.items()
+                              if k.endswith("_equal"))}
+            check(got["shard"] == r and not bad,
+                  f"cross-rank K12, {world} ranks, rank {r}: cases not bit "
+                  f"for bit with the plain versions {bad}")
+            # each case: 2 exchanges, the backward's forward, the chain of
+            # 200, and 201 timed calls; the missing peer's plan and call
+            want = 203 * cases + 201 * cases * bool(k12.get("time"))
+            if "missing" in got:
+                want += 1 + got["missing"]["called"]
+            check(got["launches"] == [want, cases],
+                  f"cross-rank K12, {world} ranks, rank {r}: launches "
+                  f"{got['launches']}, expected one an exchange "
+                  f"({[want, cases]})")
+        if "missing" in k12:
+            m = [got["missing"] for got in ranks]
+            check(m[1] == {"called": False, "raised": False}
+                  and m[0]["raised"] and "rank 1 (EP shard 1)"
+                  in m[0]["message"] and m[0]["seconds"]
+                  <= k12["timeout_s"] + 10.0,
+                  f"cross-rank K12, a peer that never calls: {m}")
+            print(f"cross-rank K12, 2 ranks, rank 1 never calls: rank 0 "
+                  f"raised after {m[0]['seconds']:.3f} s (limit "
+                  f"{k12['timeout_s']} s): {m[0]['message']} [{card}]")
+        out[world] = dict(ranks=ranks, wall_s=time.perf_counter() - t_w)
+        print(f"cross-rank K12, {world} ranks sharing the card, caps "
+              f"{k12['caps']} at {k12['dtypes']} (H 400): both ways, the "
+              f"backward and {k12['calls']} calls back to back bit for bit "
+              f"with _ring_move and gloo's move on every rank; launches "
+              f"{[got['launches'] for got in ranks]}; wall "
+              f"{out[world]['wall_s']:.1f} s [{card}]")
+    for name, case in out[2]["ranks"][0]["cases"].items():
+        print(f"cross-rank K12 {name}, median host ms of one synchronized "
+              f"exchange over 200 calls, shared card: cross-rank K12 "
+              f"{case['rank_k12_ms']:.4f} (rank 1: "
+              f"{out[2]['ranks'][1]['cases'][name]['rank_k12_ms']:.4f}), "
+              f"gloo's _rank_ring_move {case['gloo_ms']:.4f}, the "
+              f"one-process K12 on both shards "
+              f"{case['one_process_k12_ms']:.4f} [{card}]")
+    out["wall_s"] = time.perf_counter() - t0
+    return out
+
+
+def flat_ranks(base: Path, seed: int, card: str, ranks: list[dict]) -> dict:
+    """The wired set of ``wired_trainer`` in the flat layout, one shard a
+    rank (``ranks``: their results; the all-to-alls through gloo) against
+    the lockstep run in this process: one training step and one eval, SSEs
+    bit for bit, gradients within 1e-6 of their largest, K7 launches half
+    of lockstep's a rank."""
+    t0 = time.perf_counter() - max(r["wall_s"] for r in ranks)
     run_dir = base / "flat_ep2"
-    jobs = [dict(kind="flat", seed=seed, cwd=str(run_dir / f"rank{r}"))
-            for r in range(2)]
-    envs = [dict(WORLD_SIZE="2", RANK=str(r), LOCAL_RANK=str(r),
-                 MASTER_ADDR="localhost", MASTER_PORT=str(port))
-            for r in range(2)]
-    ranks = run_ranks(jobs, envs)
     one = flat_wired_step(seed, DEVICE, run_dir / "one.npz")
     grads_one = list(np.load(run_dir / "one.npz").values())
     grads = [list(np.load(run_dir / f"rank{r}" / "grads.npz").values())
@@ -6820,6 +7002,16 @@ def main(argv=None) -> int:
                          "gather_linear.pool_bwd_launches")
     mp_k7 = mp_launches("flat_ep2", "onehot_spmm.launches",
                         "onehot_spmm.bwd_launches")
+    mp_k12 = mp_launches("wired_ep2_rdma", "rdma_exchange.rank_launches",
+                         "rdma_exchange.rank_bwd_launches")
+    # the cross-rank K12's entry: the 2-rank f32 case at the main path's
+    # wire (TW 8, H 400), rank 0's times; no library call runs here (NCCL
+    # takes no two ranks on one device)
+    k12r = mp["runs"]["k12_ranks"][2]["ranks"][0]["cases"]["(8,) float32"]
+    k12r_bound = bound((0.0, 0.0, float(k12r["bytes"])), False)
+    k12_ranks = dict(abs_err=k12r["max_abs_err"], ms=k12r["rank_k12_ms"],
+                     plain_ms=k12r["gloo_ms"], bound_ms=k12r_bound[0],
+                     bound_by=k12r_bound[1], library_ms=None)
 
     def sw_launches(*counters: str) -> int:
         """The sweep's trials' and the runbook's launches of ``counters``."""
@@ -6897,7 +7089,10 @@ def main(argv=None) -> int:
                ep_launches["K6 linear"], ep_k[2]["K6 linear fwd"]),
         kernel("ring_exchange", "ring_exchange.cu",
                "cgr_mpnn_3d_tpu/parallel/rdma_exchange.py:99",
-               ep_launches["K12"], k12["n_ep 2 float32"])]}))
+               ep_launches["K12"], k12["n_ep 2 float32"]),
+        kernel("ring_exchange_ranks", "rank_exchange.cu",
+               "cgr_mpnn_3d_tpu/parallel/rdma_exchange.py:99", mp_k12,
+               k12_ranks)]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -12,9 +12,12 @@ against the CPU), no CUDA tensor reaching a plain version, the matmul
 probe's kernel (P2), ``predict`` over natively featurized graphs
 against the Python twin's, the trainer's device-resident modes (seeds
 on the card give host seeds' bits; a staged epoch equals the host loop
-with no synchronizing call in its steps), and the flat edge-partition
+with no synchronizing call in its steps), the flat edge-partition
 layout through K7 (its planned launches, no plain gather, an
-all-sentinel boundary and edgeless shards).  Run on a GPU machine with:
+all-sentinel boundary and edgeless shards), and the hop exchange K12
+across ranks (2 and 4 processes sharing the card: bit for bit with the
+plain versions, 200 calls back to back, the backward, a missing peer
+raising within its limit).  Run on a GPU machine with:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py -q
 
@@ -1926,6 +1929,94 @@ def test_no_cuda_tensor_reaches_an_ep_plain_version(cuda, monkeypatch):
                                     seeds=seeds)
         sse.backward()
     torch.cuda.synchronize()
+
+
+# -- K12 across ranks (csrc/rank_exchange.cu) --------------------------------
+
+def _k12_ranks(world: int, job: dict, tmp_path, timeout: float = 300) -> list:
+    """``world`` processes of tools/k12_ranks.py on this machine's card(s),
+    started together on one gloo group: their results in rank order.  A
+    rank that fails or outlives ``timeout`` fails the test, and every rank
+    is gone when this returns."""
+    import json
+    import os
+    import subprocess
+    import sys
+    from cgr_mpnn_3d_tpu_torch.ops import _build
+    _build.load("rank_exchange")        # built once, before the ranks start
+    repo = Path(__file__).resolve().parent.parent
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR",
+                        "MASTER_PORT", "JAX_COORDINATOR_ADDRESS",
+                        "JAX_NUM_PROCESSES", "JAX_PROCESS_ID")}
+    env["PYTHONPATH"] = str(repo)
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "cgr_mpnn_3d_tpu_torch.tools.k12_ranks",
+         json.dumps(dict(job, init=f"file://{tmp_path}/rdv", world=world,
+                         rank=r))], stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True, cwd=str(repo), env=env)
+        for r in range(world)]
+    outs = []
+    try:
+        for r, p in enumerate(procs):
+            out, err = p.communicate(timeout=timeout)
+            assert p.returncode == 0, f"rank {r}:\n{out}\n{err}"
+            line = [ln for ln in out.splitlines() if ln.startswith("RESULT ")]
+            assert line, f"rank {r} gave no RESULT:\n{out}\n{err}"
+            outs.append(json.loads(line[-1][len("RESULT "):]))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    return outs
+
+
+@pytest.mark.parametrize("world,caps", [(2, [[8]]),
+                                        (4, [[8, 0, 16], [0, 8, 0]])])
+def test_rank_exchange_kernel_matches_plain(cuda, tmp_path, world, caps):
+    """The cross-rank K12 with 2 and 4 processes sharing the card, one EP
+    shard each, at f32 and bf16 (H 400): both ways against ``_ring_move``
+    of the stacked buffers and against gloo's move, the autograd backward
+    against the inverse exchange, and 200 exchanges back to back with no
+    host sync (both slots, many epochs) against the same chain of plain
+    moves, all bit for bit; one launch an exchange."""
+    res = _k12_ranks(world, dict(caps=caps, dtypes=["float32", "bfloat16"],
+                                 calls=200), tmp_path)
+    cases = 2 * len(caps)
+    for r, got in enumerate(res):
+        assert got["shard"] == r
+        for name, case in got["cases"].items():
+            assert all(v for k, v in case.items() if k.endswith("_equal")), \
+                (r, name, case)
+        # each case: 2 exchanges, the backward's forward, the 200 calls
+        assert got["launches"] == [203 * cases, cases], (r, got["launches"])
+
+
+@pytest.mark.parametrize("world,caps", [(2, [[8]]), (4, [[8, 0, 16]])])
+def test_rank_exchange_raises_on_a_missing_peer(cuda, tmp_path, world, caps):
+    """A peer that never calls the exchange (the last rank, after the plan
+    was made): each rank that has it as a source raises at its next
+    synchronizing read within its limit (2 s) plus 10 s, naming the peer's
+    rank; a rank whose sources all came completes; every rank closes its
+    plans and exits 0."""
+    missing = world - 1
+    res = _k12_ranks(world, dict(caps=caps, dtypes=[], missing=missing,
+                                 timeout_s=2.0), tmp_path)
+    active = [h for h, s_h in enumerate(caps[0], start=1) if s_h]
+    raised = []
+    for r, got in enumerate(res):
+        m = got["missing"]
+        assert m["called"] == (r != missing)
+        if r == missing:
+            continue
+        expect = any((r - h) % world == missing for h in active)
+        assert m["raised"] == expect, (r, m)
+        if expect:
+            raised.append(r)
+            assert f"rank {missing} (EP shard {missing})" in m["message"], m
+            assert m["seconds"] <= 2.0 + 10.0, m
+    assert raised
 
 
 # -- the conv grid (csrc/conv_grid.cuh) ---------------------------------------

@@ -7,7 +7,9 @@ JAX package:
   Pallas kernel in interpret mode) and ``_ring_exchange`` (the ppermute
   ring) under ``shard_map`` for the caps of tests/test_rdma_exchange.py, in
   both directions, bit for bit; its backward is the inverse exchange; the
-  EP forward and gradients are the same with and without it;
+  EP forward and gradients are the same with and without it; the
+  cross-rank K12's buffer check, its backward's need of a plan made by a
+  forward, and no active hop;
 * the port's overlap path against JAX's (``ep_overlap=True`` with the
   Pallas kernels in interpret mode) on tests/test_ep_pack.py's wired case
   (a 160-atom chain and 12 graphs over 4 shards), eval and train mode with
@@ -146,6 +148,37 @@ def test_exchange_check_raises_what_it_raised(case, error, match):
     if case in ("count", "shards"):
         with pytest.raises(error, match=match):
             trx._launch(bufs, caps, False)
+
+
+@pytest.mark.parametrize("case,error,match", [
+    ("rows", ValueError, r"shape \(20, 12\); the exchange takes \[TW=24"),
+    ("rank", ValueError, r"shape \(24, 3, 4\)"),
+    ("dtype", TypeError, "float16; the kernel takes float32 or bfloat16"),
+    ("contiguous", ValueError, "not contiguous")])
+def test_rank_exchange_check_raises(case, error, match):
+    """The cross-rank K12's check of this rank's buffer: [TW, H], f32 or
+    bf16, contiguous; good buffers pass."""
+    caps, buf = (8, 0, 16), _bufs(1)[0]
+    trx._check_rank(buf, caps)
+    trx._check_rank(buf.bfloat16(), caps)
+    bad = {"rows": buf[:20], "rank": buf.reshape(24, 3, 4),
+           "dtype": buf.half(), "contiguous": _transposed(buf)}[case]
+    with pytest.raises(error, match=match):
+        trx._check_rank(bad, caps)
+
+
+def test_rank_exchange_needs_a_forward_plan_and_passes_no_hop():
+    """A backward exchange finds the plan its forward made, or raises
+    before any launch; no active hop gives the buffer back as it is;
+    without an exchange on the card there is no error to raise."""
+    from cgr_mpnn_3d_tpu_torch.parallel.multihost import EPComm
+    comm = EPComm(ranks=(0, 1), shard=0, group=None)
+    with pytest.raises(RuntimeError, match="made by a forward exchange"):
+        trx._rank_plan((8,), 1600, comm, torch.device("cuda", 0), False)
+    buf = _bufs(1, tw=0)[0]
+    assert trx.rank_exchange_rdma(buf, [0], False, comm) is buf
+    trx.check_errors()
+    trx.close()
 
 
 @pytest.mark.parametrize("caps", [(8,), (8, 0, 0), (0, 8, 0, 0, 0, 0, 8),

@@ -426,9 +426,9 @@ def test_train_cli_with_ep_and_its_refusals(tmp_path, monkeypatch):
     plain version, validation through K5/K4/K11's), also with
     --compute_dtype bfloat16, --ep_overlap, --ep_rdma, --reuse_packs
     with --loader_workers 2, --reuse_packs --device_epoch and --dp 2; a
-    multi-process launch with one EP shard a rank and --ep_rdma, whose hop
-    exchange across ranks is not ported, raises before any data is
-    read."""
+    multi-process launch with one EP shard a rank and --ep_rdma (its hop
+    exchanges through the cross-rank K12) passes the launch check and goes
+    on to the rendezvous (stubbed here) before any data is read."""
     from cgr_mpnn_3d_tpu_torch.cli.train import main
     monkeypatch.chdir(tmp_path)
     data = _data(tmp_path)
@@ -445,6 +445,13 @@ def test_train_cli_with_ep_and_its_refusals(tmp_path, monkeypatch):
         res = main(base + ["-ne", "2"] + flags)
         assert res["steps"] > 0 and len(res["val_losses"]) == 2
         assert np.isfinite(res["train_losses"]).all()
-    monkeypatch.setenv("WORLD_SIZE", "2")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    from cgr_mpnn_3d_tpu_torch.parallel import multihost
+    for key, value in (("WORLD_SIZE", "2"), ("RANK", "0"),
+                       ("MASTER_ADDR", "localhost"), ("MASTER_PORT", "12355")):
+        monkeypatch.setenv(key, value)
+
+    def rendezvous(*a, **kw):
+        raise ConnectionAbortedError("the rendezvous")
+    monkeypatch.setattr(multihost, "initialize", rendezvous)
+    with pytest.raises(ConnectionAbortedError, match="the rendezvous"):
         main(base + ["-ne", "1", "--data_path", "missing", "--ep_rdma"])

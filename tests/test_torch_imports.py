@@ -45,6 +45,7 @@ def test_importing_every_module_loads_no_jax():
                 "parallel.ep_loader", "parallel.rdma_exchange",
                 "tools.profile_ep", "tools.mm_probe_parts",
                 "tools.k2_phases", "tools.k12_host", "tools.k7_host",
+                "tools.k12_ranks",
                 "native", "data.dataset", "data.loader",
                 "data.descriptors", "data.preprocess",
                 "parallel.data_parallel", "parallel.multihost",

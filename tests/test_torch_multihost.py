@@ -14,9 +14,14 @@ the CPU (``parallel/multihost.py``, the trainer's ranks, ``cli/train.py``):
   (rtol 1e-4, from one JAX init checkpoint); only rank 0 writes;
 * layout (b), one EP shard a rank, on a set with a chain cut across the
   shards: 2 ranks' step against ``run_lockstep`` (SSE, gradients, the
-  parameters after a step; also ``ep_overlap``), 4 ranks (n_dp 2, n_ep 2)
+  parameters after a step; also ``ep_overlap``, and ``ep_rdma_exchange``
+  through the cross-rank K12's entry point), 4 ranks (n_dp 2, n_ep 2)
   and 2 ranks against the single-process trainer, 2 ranks against the JAX
   trainer with n_ep 2;
+* the cross-rank exchange alone (``tools/k12_ranks.py``) over 4 ranks,
+  caps (8, 0, 16), f32 and bf16, both ways and its backward, against
+  JAX's ``ring_exchange_rdma`` (interpret mode under ``shard_map``) bit
+  for bit;
 * a two-rank ``cli.train.main`` through torchrun's variables; the config
   fingerprint guard; a rank whose peer is gone raises.
 
@@ -54,6 +59,9 @@ PHASES = ("dp", "dpreuse", "dpep", "dpde", "dpepde", "dpresume", "dpcarry",
 # has two operands, so they equal one process bit for bit
 ONE_GROUP_A_RANK = ("dpep", "dpepde", "dpdrop")
 NF, FE = 78, 14
+# the 4-rank exchange job (tools/k12_ranks.py; the CPU takes gloo's move)
+K12_JOB = dict(caps=[[8, 0, 16]], dtypes=["float32", "bfloat16"], H=24,
+               calls=6, device="cpu", outputs=True)
 
 
 def _phase_kw(phase: str, out: Path) -> dict:
@@ -184,15 +192,16 @@ def _run_wired(run: str, out: Path, init: str) -> dict:
     return _result(tr, tr.train())
 
 
-def _ep_step(rank: int, world: int, overlap: bool) -> dict:
+def _ep_step(rank: int, world: int, overlap: bool,
+             rdma: bool = False) -> dict:
     """One training step on the wired set's batch, n_ep 2: over 2 ranks
     (layout (b)) this rank's shard; in one process both shards through
-    ``run_lockstep``.  The SSE, the summed gradients and the parameters
-    after one Adam step."""
+    ``run_lockstep``.  The SSE, the summed gradients, the parameters after
+    one Adam step, and the calls of the cross-rank K12's entry point."""
     import torch
     from cgr_mpnn_3d_tpu_torch.models import init_params
-    from cgr_mpnn_3d_tpu_torch.parallel import (ep_shards, multihost,
-                                                pack_shard_edges)
+    from cgr_mpnn_3d_tpu_torch.parallel import (ep_pack, ep_shards,
+                                                multihost, pack_shard_edges)
     from cgr_mpnn_3d_tpu_torch.parallel.ep_pack import \
         make_ep_pack_train_step
     data = WiredSet()
@@ -201,7 +210,8 @@ def _ep_step(rank: int, world: int, overlap: bool) -> dict:
     assert any(spec.caps), "the chain must be cut"
     shards = ep_shards(batch, "cpu")
     seeds = torch.tensor([[[11, 12], [13, 14]]], dtype=torch.int32)
-    cfg = _port_cfg(0.1, aggr="add", pooling="mean", ep_overlap=overlap)
+    cfg = _port_cfg(0.1, aggr="add", pooling="mean", ep_overlap=overlap,
+                    ep_rdma_exchange=rdma)
     if world == 1:
         groups, sd, comm = [shards], seeds, None
     else:
@@ -209,13 +219,23 @@ def _ep_step(rank: int, world: int, overlap: bool) -> dict:
         comm = multihost.ep_comm(multihost.layout(1, 2))
     model = init_params(cfg, torch.Generator().manual_seed(3), "cpu")
     adam = torch.optim.Adam(model.parameters(), lr=1e-3, amsgrad=True)
-    sse = make_ep_pack_train_step(model, spec, comm)(groups, sd)
+    entry, calls = ep_pack.rank_exchange_rdma, [0]
+
+    def counted(*a, **kw):
+        calls[0] += 1
+        return entry(*a, **kw)
+    ep_pack.rank_exchange_rdma = counted
+    try:
+        sse = make_ep_pack_train_step(model, spec, comm)(groups, sd)
+    finally:
+        ep_pack.rank_exchange_rdma = entry
     grads = torch.cat([p.grad.reshape(-1).double()
                        for p in model.parameters()])
     adam.step()
     return {"sse": float(sse), "grads": grads.tolist(),
             "params": torch.cat([p.detach().reshape(-1).double()
-                                 for p in model.parameters()]).tolist()}
+                                 for p in model.parameters()]).tolist(),
+            "rank_k12_calls": calls[0]}
 
 
 def _child(job: dict) -> None:
@@ -262,6 +282,10 @@ def _run_mode(mode: str, job: dict, rank: int, world: int, out: Path,
     elif mode == "ep_step":
         res["add"] = _ep_step(rank, world, False)
         res["overlap"] = _ep_step(rank, world, True)
+        res["rdma"] = _ep_step(rank, world, False, rdma=True)
+    elif mode == "exchange":
+        from cgr_mpnn_3d_tpu_torch.tools.k12_ranks import run
+        res["exchange"] = run(K12_JOB)
     elif mode == "mismatch":
         try:
             _run_phase("dpdrop", Path(job["data"]), out / f"r{rank}",
@@ -366,6 +390,35 @@ def _jax_trainer(kw: dict, data=None, wired=False):
                       **kw)
 
 
+def _jax_k12() -> dict:
+    """JAX's ``ring_exchange_rdma`` (the Pallas kernel in interpret mode
+    under ``shard_map`` on a 1 x 4 mesh) on K12_JOB's buffers, every
+    shard's rows [4, TW, H] as float32: {(dtype, "fwd" | "inv" | "bwd")};
+    "bwd" is the inverse exchange of the cotangents, the backward's
+    expected gradients."""
+    import jax
+    import jax.numpy as jnp
+    from cgr_mpnn_3d_tpu.parallel import P, make_mesh
+    from cgr_mpnn_3d_tpu.parallel.rdma_exchange import ring_exchange_rdma
+    from cgr_mpnn_3d_tpu_torch.tools.k12_ranks import buffers
+    caps = tuple(K12_JOB["caps"][0])
+    n = len(caps) + 1
+    mesh = make_mesh(n_dp=1, n_ep=n, devices=jax.devices()[:n])
+    out = {}
+    for name in K12_JOB["dtypes"]:
+        for way, seed, inverse in (("fwd", 0, False), ("inv", 0, True),
+                                   ("bwd", 1, True)):
+            fn = jax.jit(jax.shard_map(
+                lambda b, inverse=inverse: ring_exchange_rdma(
+                    b[0], caps, "ep", inverse=inverse, interpret=True)[None],
+                mesh=mesh, in_specs=(P(("dp", "ep")),),
+                out_specs=P(("dp", "ep")), check_vma=False))
+            bufs = jnp.asarray(buffers(seed, n, sum(caps), K12_JOB["H"]),
+                               getattr(jnp, name))
+            out[name, way] = np.asarray(fn(bufs)).astype(np.float32)
+    return out
+
+
 def _jax_result(kw: dict, data=None, wired=False) -> dict:
     import jax
     tr = _jax_trainer(kw, data, wired)
@@ -389,7 +442,8 @@ def runs(tmp_path_factory):
     layout (b) step; 4 ranks of the wired set; the single process that
     runs all of it; 2 ranks of ``cli.train.main`` through torchrun's
     variables; 2 ranks with different seeds, of which rank 1 then leaves
-    (the fingerprint guard, then a peer that is gone)."""
+    (the fingerprint guard, then a peer that is gone); 4 ranks of the
+    cross-rank exchange alone."""
     tmp = tmp_path_factory.mktemp("mh")
     data = tmp / "data"
     _write_csvs(data)
@@ -417,6 +471,9 @@ def runs(tmp_path_factory):
     jobs += [dict(modes=["mismatch", "peer_gone"], rank=r, world=2,
                   rdv=str(tmp / "rdv_guard"), data=str(data),
                   out=str(tmp / "guard"), init="") for r in range(2)]
+    jobs += [dict(modes=["exchange"], rank=r, world=4,
+                  rdv=str(tmp / "rdv_k12"), out=str(tmp / "k12"))
+             for r in range(4)]
     procs = _spawn(jobs)
     try:
         ref = {ph: _jax_result(dict(_phase_kw(ph, tmp / "jax"),
@@ -425,11 +482,12 @@ def runs(tmp_path_factory):
                for ph in PHASES if ph != "dpdrop"}
         ref["ep2"] = _jax_result(dict(_wired_kw("ep2", tmp / "jax"),
                                       resume_from=init), wired=True)
+        ref["k12"] = _jax_k12()
     finally:
         res = _wait(procs)
     return dict(phases=res[0:2], ep2=res[0:2], step=res[0:2], ep4=res[2:6],
                 one=res[6], one_wired=res[6], cli=res[7:9], guard=res[9:11],
-                jax=ref, tmp=tmp)
+                k12=res[11:15], jax=ref, tmp=tmp)
 
 
 def _close(got, want, rtol, what):
@@ -508,17 +566,44 @@ def test_the_tight_spec_carries_and_the_plan_is_the_serial_loaders(runs):
 def test_layout_b_step_equals_run_lockstep(runs):
     """2 ranks, one EP shard each, on the wired set (a 400-atom chain cut
     across them; add aggregation, mean pooling, dropout 0.1, also
-    ``ep_overlap``): each rank's SSE equals ``run_lockstep``'s bit for bit,
-    the all-reduced gradients and the parameters after one Adam step are
+    ``ep_overlap`` and ``ep_rdma_exchange``): each rank's SSE equals
+    ``run_lockstep``'s (``rdma=True`` for the last) bit for bit, the
+    all-reduced gradients and the parameters after one Adam step are
     within 1e-5 of their largest (the ranks sum the shards' gradients in
-    another order), and the two ranks agree exactly."""
+    another order), and the two ranks agree exactly.  With
+    ``ep_rdma_exchange`` every exchange request of the ranks goes to the
+    cross-rank K12's entry point (gloo's move is its plain version here),
+    and without it none does."""
     r0, r1 = runs["step"]
-    for case in ("add", "overlap"):
+    for case in ("add", "overlap", "rdma"):
         ref, a, b = runs["one_wired"][case], r0[case], r1[case]
         assert a == b, case
         assert a["sse"] == ref["sse"], case
         for key in ("grads", "params"):
             _near(a[key], ref[key], 1e-5, f"{case} {key}")
+        assert (a["rank_k12_calls"] > 0) == (case == "rdma"), case
+    assert r0["rdma"]["sse"] == r0["add"]["sse"]
+
+
+def test_four_rank_exchange_equals_jax(runs):
+    """The cross-rank exchange over 4 ranks of one EP group (caps (8, 0,
+    16), f32 and bf16, tools/k12_ranks.py): each rank's output both ways
+    equals its row of JAX's ``ring_exchange_rdma`` bit for bit, its
+    autograd backward equals the inverse exchange of the cotangents (JAX's
+    too), and each equals the one-process ``_ring_move`` and gloo's move,
+    also after a chain of exchanges."""
+    ref = runs["jax"]["k12"]
+    caps = tuple(K12_JOB["caps"][0])
+    for r, got in enumerate(runs["k12"]):
+        assert got["exchange"]["shard"] == r
+        for name in K12_JOB["dtypes"]:
+            case = got["exchange"]["cases"][f"{caps} {name}"]
+            assert all(v for k, v in case.items() if k.endswith("_equal")), \
+                (r, name, case)
+            for way in ("fwd", "inv", "bwd"):
+                np.testing.assert_array_equal(
+                    np.asarray(case[way], np.float32), ref[name, way][r],
+                    err_msg=f"rank {r} {name} {way}")
 
 
 @pytest.mark.parametrize("run", ["ep2", "ep4"])
@@ -645,8 +730,8 @@ def test_layouts_and_host_shard():
                                (1, 2, 4, ValueError)):
         with pytest.raises(exc):
             mh.layout(n_dp, n_ep, w, 0)
-    with pytest.raises(NotImplementedError, match="section 2 item 1"):
-        mh.layout(1, 2, 2, 0, ep_rdma=True)
+    assert mh.layout(1, 2, 2, 0, ep_rdma=True).kind == "shards"
+    assert mh.layout(2, 2, 4, 3, ep_rdma=True).cells == [(1, 1)]
     assert mh.layout(2, 2, 2, 0, ep_rdma=True).kind == "groups"
     for n, pid, nproc in ((10, 0, 3), (10, 2, 3), (7, 1, 2), (0, 0, 1)):
         np.testing.assert_array_equal(mh.host_shard(n, pid, nproc),

@@ -339,18 +339,14 @@ def test_cli_loader_modes_and_the_feature_cache(tmp_path, monkeypatch):
     ({"WORLD_SIZE": "4"}, ["--dp", "2"], ValueError,
      "(b) one EP shard a rank (dp*ep = 2 must equal 4)"),
     ({"WORLD_SIZE": "2"}, ["--dp", "2"], ValueError,
-     "WORLD_SIZE=2 without ['RANK', 'MASTER_ADDR', 'MASTER_PORT']"),
-    ({"WORLD_SIZE": "2", "RANK": "0", "MASTER_ADDR": "localhost",
-      "MASTER_PORT": "12355"}, ["--ep", "2", "--ep_rdma"],
-     NotImplementedError, "ROADMAP.md section 2 item 1")])
+     "WORLD_SIZE=2 without ['RANK', 'MASTER_ADDR', 'MASTER_PORT']")])
 def test_cli_refusals_name_their_roadmap_items(monkeypatch, env, flags, exc,
                                                text):
     """cli/train.py refuses, before any rendezvous and before any data is
     read, a multi-process launch that the port does not take: dp*ep = 1 on
     several processes, a layout other than whole dp groups a rank or one
-    EP shard a rank (ROADMAP.md section 3), an incomplete launch
-    environment, and --ep_rdma with one shard a rank (the hop exchange
-    across cards, ROADMAP.md section 2 item 1)."""
+    EP shard a rank (ROADMAP.md section 3), and an incomplete launch
+    environment."""
     from cgr_mpnn_3d_tpu_torch.cli import train as cli_train
     from cgr_mpnn_3d_tpu_torch.parallel import multihost
     for key in multihost.LAUNCH_ENV:
@@ -361,4 +357,37 @@ def test_cli_refusals_name_their_roadmap_items(monkeypatch, env, flags, exc,
         cli_train.main(["-ne", "1", "--data_path", "missing", "--device",
                         "cpu"] + flags)
     assert text in str(err.value)
+    assert not multihost.world_size() > 1
+
+
+class _Rendezvous(Exception):
+    """Raised in place of the process group's rendezvous."""
+
+
+@pytest.mark.parametrize("env", [
+    {"WORLD_SIZE": "2", "RANK": "1", "MASTER_ADDR": "localhost",
+     "MASTER_PORT": "12355"},
+    {"JAX_COORDINATOR_ADDRESS": "localhost:12355", "JAX_NUM_PROCESSES": "2",
+     "JAX_PROCESS_ID": "0"}])
+def test_cli_takes_ep_rdma_with_one_shard_a_rank(monkeypatch, env):
+    """--ep 2 --ep_rdma over 2 processes (one EP shard a rank, whose hop
+    exchanges cross ranks through the cross-rank K12) passes cli/train.py's
+    launch check: ``check_launch`` gives layout (b), and ``main`` goes on
+    to the rendezvous (stubbed here) before reading any data."""
+    from cgr_mpnn_3d_tpu_torch.cli import train as cli_train
+    from cgr_mpnn_3d_tpu_torch.parallel import multihost
+    for key in multihost.LAUNCH_ENV:
+        monkeypatch.delenv(key, raising=False)
+    for key, value in env.items():
+        monkeypatch.setenv(key, value)
+    lay = multihost.check_launch(1, 2, ep_rdma=True)
+    assert (lay.kind, lay.cells) == ("shards", [(0, int(
+        env.get("RANK", env.get("JAX_PROCESS_ID"))))])
+
+    def rendezvous(*a, **kw):
+        raise _Rendezvous
+    monkeypatch.setattr(multihost, "initialize", rendezvous)
+    with pytest.raises(_Rendezvous):
+        cli_train.main(["-ne", "1", "--data_path", "missing", "--device",
+                        "cpu", "--skip_test", "--ep", "2", "--ep_rdma"])
     assert not multihost.world_size() > 1
