@@ -37,6 +37,7 @@ import numpy as np
 import torch
 
 from ..chem.featurize import GraphArrays
+from ..utils.tracing import count_copy_in
 
 __all__ = ["PackSpec", "PackedGraphBatch", "pack_graphs", "plan_spec",
            "place_graphs", "packs_needed", "empty_batch", "device_tensor",
@@ -315,8 +316,11 @@ def device_tensor(a: np.ndarray, device) -> torch.Tensor:
     """``a`` as a tensor on ``device``, in memory that torch allocated: on
     the CPU a copy, not a view of the numpy buffer, whose alignment changes
     from run to run -- and MKL's products give other bits for operands at
-    other alignments, which would make two runs of the same steps differ."""
-    t = torch.as_tensor(np.ascontiguousarray(a), device=device)
+    other alignments, which would make two runs of the same steps differ.
+    Its bytes count as ``copy_in_bytes`` (``utils.tracing``)."""
+    a = np.ascontiguousarray(a)
+    count_copy_in(a.nbytes)
+    t = torch.as_tensor(a, device=device)
     return t.clone() if t.device.type == "cpu" else t
 
 

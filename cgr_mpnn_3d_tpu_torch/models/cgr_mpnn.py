@@ -82,6 +82,7 @@ from ..ops.onehot_spmm import spmm
 from ..ops.segment import (dmpnn_messages, gather_nodes, graph_pool_sum,
                            node_incoming_sum)
 from ..utils.device import resolve_device
+from ..utils.tracing import span
 
 __all__ = ["CGRMPNNConfig", "CGRMPNN", "init_params", "apply",
            "kernel_inputs", "adjoint_inputs", "kernel_seeds",
@@ -314,8 +315,9 @@ def fused_train_value_and_grad(model: CGRMPNN, batch: PackedGraphBatch,
                                spec: PackSpec, seeds=None) -> torch.Tensor:
     """The masked SSE of ``batch`` by :func:`fused_train_sse_and_grads`,
     with the gradients of every parameter written into ``.grad``."""
-    sse, grads = fused_train_sse_and_grads(model, batch, spec, seeds)
-    kernel_grads_to_params(model, grads)
+    with span("model.grads"):
+        sse, grads = fused_train_sse_and_grads(model, batch, spec, seeds)
+        kernel_grads_to_params(model, grads)
     return sse
 
 

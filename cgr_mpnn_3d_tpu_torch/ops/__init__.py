@@ -3,14 +3,20 @@ elementwise helpers, the whole-model kernels (forward, training step, VJP),
 the layered kernels (gather-linear, conv stack, ELL gather-sum, each
 forward and backward), capture mode's per-layer conv kernel (forward and
 backward), the edge-partitioned conv layer and readout, and the
-activation-chain probe's kernel, with their plain versions.  The launch counts live on the modules:
-``ops.fused_model.launches``, ``train_launches`` and ``vjp_launches``;
+activation-chain probe's kernel, with their plain versions.  The launch
+counts live on the modules, the kernels' wrappers adding through
+``ops._launch.count_launch`` and the probes' on their own
+(``ops._launch.launch_counts()`` is a snapshot of every nonzero one, and
+``utils.tracing.counters()`` includes it):
+``ops.fused_model.launches``, ``train_launches`` and ``vjp_launches`` (K3f,
+K2, K3b), each with a ``bf16_`` twin;
 ``launches`` and ``bwd_launches`` of ``ops.gather_linear``,
 ``ops.conv_stack``, ``ops.onehot_spmm`` and ``ops.fused_conv``; the
 edge-partitioned kernels' ``r_launches`` and ``rm_launches`` (K8, K9) of
 ``ops.fused_conv`` and ``r_launches`` and ``pool_launches`` (K10, K11) of
 ``ops.gather_linear``, each with its ``_bwd_`` twin;
-``ops.act_chain.launches``.  The wrappers ``fused_model``,
+``ops.act_chain.launches``; ``ops.mm_probe.launches`` and
+``transpose_launches``.  The wrappers ``fused_model``,
 ``gather_linear``, ``conv_stack``, ``onehot_spmm`` and ``act_chain`` are
 not re-exported here, where their names would hide the modules.
 """

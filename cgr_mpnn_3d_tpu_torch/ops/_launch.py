@@ -6,17 +6,19 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import sys
 
 import numpy as np
 import torch
 
+from ..utils.tracing import count_copy_in
 from . import _build
 from .kernel_math import MAT_DTYPES, dropout_threshold
 
 __all__ = ["PTR", "I32", "library", "check_types", "check_cuda",
            "seed_list", "check_train", "drop_table", "stage_rates", "stream",
            "raise_on", "refuse_grad", "ptr", "split_k", "mat_index",
-           "count_launch"]
+           "count_launch", "launch_counts"]
 
 PTR, I32 = ctypes.c_void_p, ctypes.c_int
 
@@ -92,7 +94,10 @@ def _rate_rows(dropout_ps: tuple, device: torch.device | None = None):
     thr = np.asarray([dropout_threshold(r) for r in dropout_ps], np.uint32)
     scale = np.asarray([1.0 / (1.0 - r) for r in dropout_ps], np.float32)
     rows = np.stack([thr.view(np.int32), scale.view(np.int32)])
-    return rows if device is None else torch.from_numpy(rows).to(device)
+    if device is None:
+        return rows
+    count_copy_in(rows.nbytes)
+    return torch.from_numpy(rows).to(device)
 
 
 def stage_rates(dropout_ps, device: torch.device) -> None:
@@ -125,6 +130,7 @@ def drop_table(train: bool, seeds, dropout_ps, device):
     seeds = np.asarray(seed_list(seeds), np.int64) & 0xFFFFFFFF
     table = np.concatenate([seeds.astype(np.uint32).view(np.int32)[None],
                             _rate_rows(rates)])
+    count_copy_in(table.nbytes)
     # not blocking: the copy of a pageable host buffer is staged before the
     # call returns, and a blocking one would wait for the card's queue
     return torch.from_numpy(table).to(device, non_blocking=True)
@@ -139,11 +145,26 @@ def mat_index(mat_dtype: str) -> int:
 
 def count_launch(counters: dict, mat_dtype: str, backward: bool,
                  kind: str = "") -> None:
-    """One more launch on a layered wrapper's counter (``counters`` is its
-    module's globals()): ``<kind>launches`` or ``<kind>bwd_launches``, with a
+    """One more launch on a wrapper's counter (``counters`` is its module's
+    globals()): ``<kind>launches`` or ``<kind>bwd_launches``, with a
     ``bf16_`` prefix at mat_dtype bf16."""
     key = kind + ("bwd_launches" if backward else "launches")
     counters[("bf16_" if mat_dtype == "bfloat16" else "") + key] += 1
+
+
+def launch_counts() -> dict:
+    """Every nonzero launch counter of the loaded ``ops`` modules (the
+    module globals whose names end in ``launches``), as
+    ``{"<module>.<counter>": n}``."""
+    prefix = __name__.rsplit(".", 1)[0] + "."
+    out = {}
+    for name, mod in list(sys.modules.items()):
+        if not name.startswith(prefix) or mod is None:
+            continue
+        for key, n in vars(mod).items():
+            if key.endswith("launches") and type(n) is int and n:
+                out[f"{name[len(prefix):]}.{key}"] = n
+    return dict(sorted(out.items()))
 
 
 def split_k(rows: int) -> int:

@@ -53,8 +53,10 @@ import ctypes
 import numpy as np
 import torch
 
-from ._launch import (I32, PTR, check_cuda, check_train, drop_table, library,
-                      ptr, raise_on, refuse_grad, seed_list, stream)
+from ..utils.tracing import span
+from ._launch import (I32, PTR, check_cuda, check_train, count_launch,
+                      drop_table, library, ptr, raise_on, refuse_grad,
+                      seed_list, stream)
 from .bf16_ref import bf16_gather, bf16_mm, bf16_onehot
 from .kernel_math import (KERNEL_ACTS, MAT_DTYPES, hash_dropout_keep_full,
                           k_act)
@@ -67,9 +69,10 @@ __all__ = ["fused_model_forward", "fused_model_forward_ref",
            "bf16_train_launches", "bf16_vjp_launches", "bwd_grid",
            "fwd_grid"]
 
-# launches of each CUDA kernel by its wrapper (nothing else adds here):
-# the forward (K3f), the training step (K2) and the VJP (K3b), with f32
-# products and with bf16 products (mat_dtype="bfloat16")
+# launches of each CUDA kernel by its wrapper (through count_launch,
+# nothing else adds here): the forward (K3f), the training step (K2) and
+# the VJP (K3b), with f32 products and with bf16 products
+# (mat_dtype="bfloat16")
 launches = 0
 train_launches = 0
 vjp_launches = 0
@@ -299,7 +302,6 @@ def fused_model_forward(x, e, senders, edge_nbr, rev, node_inc, graph_nodes,
     operands of every product and gather are rounded to bf16 as they load
     (products on the tensor cores), sums and elementwise work stay f32.
     No backward: for gradients on the card call :func:`fused_model`."""
-    global launches, bf16_launches
     tensors = (x, e, senders, edge_nbr, rev, node_inc, graph_nodes, wx, we,
                be, wc, bc, skips, ws, wxn, ben, wffn, bffn)
     kw = dict(p=p, act=act, aggr=aggr, pooling=pooling, train=train,
@@ -308,31 +310,30 @@ def fused_model_forward(x, e, senders, edge_nbr, rev, node_inc, graph_nodes,
         return fused_model_forward_ref(*tensors, **kw)
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
-    args = dict(zip(_NAMES, tensors))
-    _check(args, p, act, aggr, pooling, train, seeds, dropout_ps, mat_dtype)
-    check_cuda(args, x.device, _INDEX_NAMES)
-    refuse_grad(tensors, "forward", "fused_model()")
+    with span("ops.k3f"):
+        args = dict(zip(_NAMES, tensors))
+        _check(args, p, act, aggr, pooling, train, seeds, dropout_ps,
+               mat_dtype)
+        check_cuda(args, x.device, _INDEX_NAMES)
+        refuse_grad(tensors, "forward", "fused_model()")
 
-    NT, ET, BT = x.shape[0], e.shape[0], graph_nodes.shape[0]
-    H = wc.shape[2]
-    scratch = dict(h0=(ET, H), h=(ET, H), t=(ET, H), s=(NT, H), hn=(NT, H),
-                   pooled=(BT, H))
-    bufs = [torch.empty(shape, device=x.device, dtype=torch.float32)
-            for shape in scratch.values()]
-    out = torch.empty(BT, device=x.device, dtype=torch.float32)
-    drop = drop_table(train, seeds, dropout_ps, x.device)
-    lib = _lib("fused_model_fwd")
-    with torch.cuda.device(x.device):
-        err = lib.cgr_fused_model_fwd(
-            *(t.data_ptr() for t in tensors), ptr(drop),
-            *(b.data_ptr() for b in bufs), out.data_ptr(),
-            *_dims(x, e, graph_nodes, edge_nbr, wc, p),
-            *_modes(act, aggr, pooling, mat_dtype), stream(x.device))
-    if mat_dtype == "bfloat16":
-        bf16_launches += 1
-    else:
-        launches += 1
-    raise_on(lib, err, "fused_model_fwd")
+        NT, ET, BT = x.shape[0], e.shape[0], graph_nodes.shape[0]
+        H = wc.shape[2]
+        scratch = dict(h0=(ET, H), h=(ET, H), t=(ET, H), s=(NT, H),
+                       hn=(NT, H), pooled=(BT, H))
+        bufs = [torch.empty(shape, device=x.device, dtype=torch.float32)
+                for shape in scratch.values()]
+        out = torch.empty(BT, device=x.device, dtype=torch.float32)
+        drop = drop_table(train, seeds, dropout_ps, x.device)
+        lib = _lib("fused_model_fwd")
+        with torch.cuda.device(x.device):
+            err = lib.cgr_fused_model_fwd(
+                *(t.data_ptr() for t in tensors), ptr(drop),
+                *(b.data_ptr() for b in bufs), out.data_ptr(),
+                *_dims(x, e, graph_nodes, edge_nbr, wc, p),
+                *_modes(act, aggr, pooling, mat_dtype), stream(x.device))
+        count_launch(globals(), mat_dtype, False)
+        raise_on(lib, err, "fused_model_fwd")
     return out
 
 
@@ -388,16 +389,14 @@ def fused_model_train(inputs, adjoint, labels, mask, *, p: int,
     ``mat_dtype="bfloat16"`` the replay and every backward product round
     their operands to bf16 (the kernel's bf16 instantiation); the partial
     gradients and their sum stay f32."""
-    global train_launches, bf16_train_launches
     kw = dict(p=p, act=act, aggr=aggr, pooling=pooling, train=train,
               seeds=seeds, dropout_ps=dropout_ps, mat_dtype=mat_dtype)
     if inputs[0].device.type == "cpu":
         return fused_model_train_ref(inputs, adjoint, labels, mask, **kw)
-    out = _backward(inputs, adjoint, dict(labels=labels, mask=mask), **kw)
-    if mat_dtype == "bfloat16":
-        bf16_train_launches += 1
-    else:
-        train_launches += 1
+    with span("ops.k2"):
+        out = _backward(inputs, adjoint, dict(labels=labels, mask=mask),
+                        **kw)
+        count_launch(globals(), mat_dtype, False, "train_")
     return out
 
 
@@ -409,16 +408,13 @@ def fused_model_vjp(inputs, adjoint, dpred, *, p: int, act: str = "relu",
     ``dpred`` [p*tb] of the predictions.  CUDA tensors launch
     ``csrc/fused_model_bwd.cu`` (K3b, f32 or bf16 products) or raise; CPU
     tensors take :func:`fused_model_vjp_ref`."""
-    global vjp_launches, bf16_vjp_launches
     kw = dict(p=p, act=act, aggr=aggr, pooling=pooling, train=train,
               seeds=seeds, dropout_ps=dropout_ps, mat_dtype=mat_dtype)
     if inputs[0].device.type == "cpu":
         return fused_model_vjp_ref(inputs, adjoint, dpred, **kw)
-    _, grads = _backward(inputs, adjoint, dict(dpred=dpred), **kw)
-    if mat_dtype == "bfloat16":
-        bf16_vjp_launches += 1
-    else:
-        vjp_launches += 1
+    with span("ops.k3b"):
+        _, grads = _backward(inputs, adjoint, dict(dpred=dpred), **kw)
+        count_launch(globals(), mat_dtype, False, "vjp_")
     return grads
 
 

@@ -30,6 +30,7 @@ import numpy as np
 import torch
 
 from ..models.cgr_mpnn import CGRMPNN, jax_leaf_names
+from ..utils.tracing import count_copy_out
 
 __all__ = ["save_checkpoint", "load_checkpoint", "restore_into",
            "restore_training_state", "SEED_STREAM"]
@@ -38,6 +39,13 @@ _META_SUFFIX = ".json"
 # the sidecar's ``seed_stream`` value of a checkpoint written here
 SEED_STREAM = "torch.Generator(seed, draws)"
 _MOMENTS = ("exp_avg", "exp_avg_sq", "max_exp_avg_sq")
+
+
+def _host(t: torch.Tensor) -> np.ndarray:
+    """A state tensor read back to a host array (``copy_out_bytes``)."""
+    a = t.detach().cpu().numpy()
+    count_copy_out(a.nbytes)
+    return a
 
 
 def _params(model: CGRMPNN) -> list[tuple[str, torch.nn.Parameter]]:
@@ -54,7 +62,7 @@ def _optimizer_leaves(model: CGRMPNN,
               np.float32(optimizer.param_groups[0]["lr"]),
               np.int32(count)]
     for key in _MOMENTS:
-        leaves += [st[key].detach().cpu().numpy() if key in st
+        leaves += [_host(st[key]) if key in st
                    else np.zeros(tuple(p.shape), np.float32)
                    for p, st in zip(params, states)]
     return leaves
@@ -68,7 +76,7 @@ def save_checkpoint(path: str | Path, model: CGRMPNN,
     ``optimizer`` (torch Adam with amsgrad), the full training state."""
     path = Path(path)
     path.parent.mkdir(parents=True, exist_ok=True)
-    leaves = [p.detach().cpu().numpy() for _, p in _params(model)]
+    leaves = [_host(p) for _, p in _params(model)]
     meta = dict(meta or {})
     if optimizer is not None:
         leaves += _optimizer_leaves(model, optimizer)

@@ -19,6 +19,7 @@ from ..data.dataset import ChemDataset
 from ..data.loader import PackedLoader
 from ..models.cgr_mpnn import CGRMPNN, CGRMPNNConfig, apply
 from ..utils.device import resolve_device
+from ..utils.tracing import count_copy_out, next_request_id, span
 from .checkpoint import load_checkpoint, restore_into
 
 __all__ = ["load_model", "model_config", "evaluate", "predict", "parity_plot"]
@@ -54,22 +55,40 @@ def model_config(meta: dict) -> CGRMPNNConfig:
 def predict(model: CGRMPNN, dataset: ChemDataset, spec: PackSpec,
             batch_size: int = 64,
             device: str | torch.device = "cuda") -> np.ndarray:
-    """Predictions for every dataset row, in row order."""
-    dev = resolve_device(device)
-    model = model.to(dev)
-    loader = PackedLoader(dataset, spec, batch_size=batch_size)
-    rows, preds = [], []
-    with torch.no_grad():
-        for batch in loader:
-            out = apply(model, to_device(batch, dev), loader.spec)
-            mask = batch.graph_mask > 0
-            preds.append(out.cpu().numpy()[mask])
-            rows.append(batch.row_ids[mask])
-    preds = np.concatenate(preds)
-    rows = np.concatenate(rows)
-    # slot order != input order (first-fit backfill); restore row order
-    out = np.empty_like(preds)
-    out[rows] = preds
+    """Predictions for every dataset row, in row order.  One call is one
+    ``predict.request`` span with a request id that its ``predict.*``
+    spans carry (``utils.tracing``)."""
+    rid = next_request_id()
+    with span("predict.request", request=rid):
+        dev = resolve_device(device)
+        model = model.to(dev)
+        loader = PackedLoader(dataset, spec, batch_size=batch_size)
+        batches = iter(loader)
+        rows, preds = [], []
+        with torch.no_grad():
+            while True:
+                # the last next() finds the loader's end
+                with span("predict.pack", request=rid):
+                    batch = next(batches, None)
+                if batch is None:
+                    break
+                with span("predict.copy", request=rid):
+                    db = to_device(batch, dev)
+                with span("predict.forward", request=rid):
+                    out = apply(model, db, loader.spec)
+                with span("predict.readback", request=rid):
+                    count_copy_out(out.nbytes)
+                    out = out.cpu().numpy()
+                mask = batch.graph_mask > 0
+                preds.append(out[mask])
+                rows.append(batch.row_ids[mask])
+        with span("predict.order", request=rid):
+            preds = np.concatenate(preds)
+            rows = np.concatenate(rows)
+            # slot order != input order (first-fit backfill); restore row
+            # order
+            out = np.empty_like(preds)
+            out[rows] = preds
     return out
 
 

@@ -11,6 +11,12 @@
   with ``device_epoch`` each epoch's, and the interval is split evenly
   among its steps).
 
+The program's own spans (``train.step``, ``ops.k2``, ``predict.pack``, ...)
+live in ``utils/tracing.py``: under :func:`trace` they are
+``record_function`` events of the same Chrome trace, on the clock of the
+card's activity; ``utils.tracing.span_log()`` sums them without a
+profiler.
+
 A second profiler session in one process has been seen to lose the card's
 kernel records (the runtime's launch calls stay), so a check that a trace
 holds a kernel runs the trace in a fresh process.

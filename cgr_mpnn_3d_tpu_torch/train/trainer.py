@@ -129,6 +129,8 @@ from ..parallel.ep_pack import (EPPackedBatch, ep_shards,
                                 make_ep_pack_eval_step,
                                 make_ep_pack_train_step)
 from ..utils.device import resolve_device
+from ..utils.tracing import (count_copy_in, count_copy_out, counters,
+                             set_staged_bytes, span)
 from .checkpoint import (SEED_STREAM, load_checkpoint,
                          restore_training_state, save_checkpoint)
 from .metrics import MetricsLogger
@@ -333,10 +335,11 @@ class RxnGraphTrainer:
                                  "steps_done": mid_epoch[1]}
         # every rank holds the same state: the primary writes, and the
         # barrier keeps every rank until the file is whole
-        if multihost.is_primary():
-            save_checkpoint(path, self.model, meta, self.optimizer,
-                            self.step, self._stream)
-        multihost.sync_global_devices("ckpt")
+        with span("train.save"):
+            if multihost.is_primary():
+                save_checkpoint(path, self.model, meta, self.optimizer,
+                                self.step, self._stream)
+            multihost.sync_global_devices("ckpt")
         return Path(path)
 
     def _resume(self, path: str) -> None:
@@ -374,7 +377,9 @@ class RxnGraphTrainer:
         the drop tables' rate rows go over once, here, and not in a step
         loop)."""
         seeds = torch.stack([self._seeds_at(self._stream[1] + i)
-                             for i in range(n)]).to(self.device)
+                             for i in range(n)])
+        count_copy_in(seeds.nbytes)
+        seeds = seeds.to(self.device)
         if seeds.device.type == "cuda":
             stage_rates(self.cfg.dropout_ps, seeds.device)
         return seeds
@@ -531,12 +536,21 @@ class RxnGraphTrainer:
     def _train_step(self, batch) -> float:
         """One step on a device batch: the loss; the update is applied only
         when the loss is finite."""
-        loss = float(self._grads(batch, self._seeds_at(self._stream[1])))
-        if math.isfinite(loss):
-            self.optimizer.step()
-            self.step += 1
-            self._stream[1] += 1
+        with span("train.step"):
+            loss = self._grads(batch, self._seeds_at(self._stream[1]))
+            loss = self._read_losses(loss)
+            if math.isfinite(loss):
+                self.optimizer.step()
+                self.step += 1
+                self._stream[1] += 1
         return loss
+
+    @staticmethod
+    def _read_losses(losses: torch.Tensor):
+        """A loss tensor read to the host: a float, or a list of them."""
+        with span("train.readback"):
+            count_copy_out(losses.nbytes)
+            return losses.tolist()
 
     def _run_steps(self, batches, seeds: torch.Tensor) -> torch.Tensor:
         """One step on each device batch in turn, step i with ``seeds[i]``
@@ -545,8 +559,9 @@ class RxnGraphTrainer:
         reads from it."""
         losses = []
         for i, batch in enumerate(batches):
-            losses.append(self._grads(batch, seeds[i]))
-            self.optimizer.step()
+            with span("train.step"):
+                losses.append(self._grads(batch, seeds[i]))
+                self.optimizer.step()
         return torch.stack(losses)
 
     def _train_chunk(self, batches: list) -> list[float]:
@@ -554,8 +569,8 @@ class RxnGraphTrainer:
         non-finite one rolls the whole chunk back (the state, seeds
         included, as before it)."""
         snap = self._snapshot()
-        losses = self._run_steps(batches, self._next_seeds(len(batches)))
-        losses = losses.tolist()
+        losses = self._read_losses(
+            self._run_steps(batches, self._next_seeds(len(batches))))
         if all(math.isfinite(v) for v in losses):
             self.step += len(batches)
             self._stream[1] += len(batches)
@@ -579,7 +594,7 @@ class RxnGraphTrainer:
         layout = [tuple(sorted(self.optimizer.state.get(p, {})))
                   for p in self.model.parameters()]
         live = self._state_tensors(layout)
-        with torch.no_grad():
+        with span("train.snapshot"), torch.no_grad():
             if [t.shape for t in self._snap] != [t.shape for t in live]:
                 self._snap = [t.clone() for t in live]
             else:
@@ -682,15 +697,17 @@ class RxnGraphTrainer:
         (the host loop's epoch-0 groups; EP: every item under one spec)."""
         if self._staged is not None:
             return self._staged
-        if self.n_dp == 1 and self.n_ep == 1:
-            items = self.train_loader.cached_batches()
-        else:
-            self.train_loader.set_epoch(0)
-            items = list(self._items(self.train_loader))
-        staged = self._stack_on_device(items)
+        with span("train.stage"):
+            if self.n_dp == 1 and self.n_ep == 1:
+                items = self.train_loader.cached_batches()
+            else:
+                self.train_loader.set_epoch(0)
+                items = list(self._items(self.train_loader))
+            staged = self._stack_on_device(items)
         tensors = staged if self.n_ep == 1 else staged[1]
         self._staged = (staged, len(items))
-        mb = sum(t.numel() * t.element_size() for t in tensors) / 2**20
+        set_staged_bytes(sum(t.nbytes for t in tensors))
+        mb = counters()["staged_bytes"] / 2**20
         msg = {"device_epoch_staged_mb": mb}
         print(json.dumps(msg))
         if self.logger:
@@ -728,8 +745,8 @@ class RxnGraphTrainer:
         snap = self._snapshot()
         self._timer.reset_epoch()
         self._timer.tick()
-        losses = self._run_steps((self._staged_row(staged, i) for i in order),
-                                 seeds).tolist()
+        losses = self._read_losses(self._run_steps(
+            (self._staged_row(staged, i) for i in order), seeds))
         self._timer.tick(S)
         if not all(math.isfinite(v) for v in losses):
             # epoch-granular NaN guard: the whole epoch rolls back, and a
@@ -784,17 +801,17 @@ class RxnGraphTrainer:
 
     def _val_epoch(self, epoch_idx: int) -> float:
         total = 0.0
-        with torch.no_grad():
+        with span("train.validate"), torch.no_grad():
             for host_batch in self._items(self.val_loader):
                 batch = self._to_device(host_batch)
                 if self.n_ep > 1:
                     spec, groups = batch
-                    total += float(self._ep_step("e", spec)(groups)[0])
+                    sse = self._ep_step("e", spec)(groups)[0]
                 elif self.n_dp > 1:
-                    total += float(self._dp_eval(batch))
+                    sse = self._dp_eval(batch)
                 else:
-                    total += float(sse_loss(self.model, batch,
-                                            self.val_loader.spec))
+                    sse = sse_loss(self.model, batch, self.val_loader.spec)
+                total += self._read_losses(sse)
         rmse = float(np.sqrt(total / len(self.val_data)))
         if self.logger:
             self.logger.log({"val_loss": rmse, "epoch": epoch_idx})
@@ -808,7 +825,8 @@ class RxnGraphTrainer:
         cross-rank K12's plans (``rdma_exchange.close``) when the loop ends,
         and on an exception without meeting the other ranks."""
         try:
-            out = self._train_loop()
+            with span("train.run"):
+                out = self._train_loop()
         except BaseException:
             if self._comm is not None:
                 rdma_exchange.close(barrier=False)
@@ -825,7 +843,8 @@ class RxnGraphTrainer:
         t0 = time.time()
         for epoch in range(self.start_epoch, self.num_epochs):
             set_epoch_lr(self.optimizer, self.lr, self.gamma, epoch)
-            out["train_losses"].append(self._train_epoch(epoch))
+            with span("train.epoch", epoch=epoch):
+                out["train_losses"].append(self._train_epoch(epoch))
             self._epoch_done = epoch
             if epoch % self.val_frequency == 0 or epoch == self.num_epochs - 1:
                 val = self._val_epoch(epoch)

@@ -292,9 +292,10 @@ Phases (any failure raises, and the script exits non-zero):
    ``EPLoader`` epoch on the corpus (n_dp 2, n_ep 2, Adam) card against
    CPU;
 26. ``train.profiler.trace`` (``trace_phase``, after ``sweep_phase``)
-   around three training steps in a fresh process (this script with
+   around three staged epochs in a fresh process (this script with
    ``--trace_job``): the Chrome trace written, naming K2 in one kernel
-   record a step;
+   record a step and holding the program's spans, ``train.step``,
+   ``model.grads`` and ``ops.k2`` once a step;
 27. a ``{"kernels": [...]}`` line (the launches of every main path, the
    data-parallel, multi-process, sweep, run-book, trace and flat runs'
    included), then ``{"ok": true, "device": {...}}`` as the last line.
@@ -6493,40 +6494,53 @@ def sweep_phase(tmp: Path, seed: int, card: str) -> dict:
 TRACE_KERNEL = "fused_model_bwd_kernel"   # K2's __global__ in the trace
 
 
+TRACE_SPANS = ("train.run", "train.epoch", "train.step", "model.grads",
+               "ops.k2", "train.readback", "train.validate", "train.save")
+
+
 def trace_job(job: dict) -> int:
-    """``--trace_job``: ``train.profiler.trace`` around three training
-    steps of the README model (K2 each, then Adam) on the corpus training
-    batch, in this fresh process; prints TRACE_RESULT with the trace file,
-    its K2 kernel records and the K2 launches."""
+    """``--trace_job``: ``train.profiler.trace`` around three staged epochs
+    (``RxnGraphTrainer(reuse_packs=True, device_epoch=True)``, the README
+    model on the 300-reaction corpus, bs 64; epoch 0 ran before, untraced)
+    in this fresh process; prints TRACE_RESULT with the trace file, its K2
+    kernel records, the K2 launches, the steps and the host records of the
+    program's spans (``utils/tracing.py``) by name."""
     import torch
-    from cgr_mpnn_3d_tpu_torch.models import (CGRMPNNConfig,
-                                              fused_train_value_and_grad,
-                                              init_params)
+    from cgr_mpnn_3d_tpu_torch.data import ChemDataset, plan_spec
+    from cgr_mpnn_3d_tpu_torch.data.descriptors import \
+        synthetic_descriptors_npz
+    from cgr_mpnn_3d_tpu_torch.models import CGRMPNNConfig
     from cgr_mpnn_3d_tpu_torch.ops import fused_model as fm
-    from cgr_mpnn_3d_tpu_torch.train import trace
+    from cgr_mpnn_3d_tpu_torch.train import RxnGraphTrainer, trace
     torch.backends.cuda.matmul.allow_tf32 = False
     tmp = Path(job["dir"])
-    spec, batch = corpus_batch(tmp, job["seed"], DEVICE, shuffle=True)
-    cfg = CGRMPNNConfig(num_node_features=batch.node_x.shape[1],
-                        num_edge_features=batch.edge_attr.shape[1], depth=4,
-                        hidden_sizes=(400,) * 4, dropout_ps=(0.1,) * 4)
-    model = init_params(cfg, torch.Generator().manual_seed(job["seed"]),
-                        DEVICE)
-    opt = torch.optim.Adam(model.parameters(), lr=1e-4)
-    seeds = torch.tensor([3, 5, 7, 9], dtype=torch.int32)
-
-    def step():
-        fused_train_value_and_grad(model, batch, spec, seeds)
-        opt.step()
-    before = fm.train_launches
-    step()
+    corpus = ROOT / "tests" / "corpus_reactions.csv"
+    synthetic_descriptors_npz(corpus, tmp / "corpus.npz", 64,
+                              seed=job["seed"])
+    ds = ChemDataset(str(corpus), data_npz_path=str(tmp / "corpus.npz"))
+    ds.prefeaturize()
+    cfg = CGRMPNNConfig(num_node_features=ds.num_node_features,
+                        num_edge_features=ds.num_edge_features, depth=4,
+                        hidden_sizes=(400,) * 4,
+                        dropout_ps=(0.1,) * 4)
+    tr = RxnGraphTrainer(
+        name="trace", cfg=cfg, train_data=ds, val_data=ds,
+        spec=plan_spec([ds.graph(i) for i in range(len(ds))]), lr=1e-4,
+        num_epochs=1, batch_size=64, val_frequency=3, seed=job["seed"],
+        model_save_dir=str(tmp / "saved"), device=DEVICE, reuse_packs=True,
+        device_epoch=True)
+    tr.train()
+    steps, before = tr.step, fm.train_launches
+    tr.start_epoch, tr.num_epochs = 1, 4
     with trace(str(tmp / "trace")):
-        for _ in range(3):
-            step()
+        tr.train()
     launches = fm.train_launches - before
     files = sorted((tmp / "trace").glob("trace-*.json"))
     events = json.loads(files[0].read_text())["traceEvents"] if files else []
     k2 = [e for e in events if TRACE_KERNEL in str(e.get("name", ""))]
+    spans = {n: sum(1 for e in events if e.get("name") == n
+                    and e.get("cat") == "user_annotation")
+             for n in TRACE_SPANS}
     print("TRACE_RESULT " + json.dumps(dict(
         files=[str(f) for f in files],
         bytes=files[0].stat().st_size if files else 0, events=len(events),
@@ -6534,15 +6548,17 @@ def trace_job(job: dict) -> int:
             1 for e in k2 if e.get("cat") == "kernel"),
         k2_ms=sum(float(e.get("dur", 0)) for e in k2
                   if e.get("cat") == "kernel") / 1e3,
-        launches=launches)), flush=True)
+        launches=launches, steps=tr.step - steps, spans=spans)), flush=True)
     return 0
 
 
 def trace_phase(tmp: Path, seed: int, card: str) -> dict:
-    """``train.profiler.trace`` around three training steps in a fresh
+    """``train.profiler.trace`` around three staged epochs in a fresh
     process (a second profiler session in one process has lost the card's
     kernel records): the trace file exists and names K2 (its kernel's
-    records, one a step), and K2 ran once a step."""
+    records, one a step), K2 ran once a step, and the program's spans are
+    in it: ``train.step`` and ``ops.k2`` once a step, ``train.run`` once,
+    ``train.epoch`` once an epoch."""
     t0 = time.perf_counter()
     job = dict(dir=str(tmp / "trace_job"), seed=seed)
     Path(job["dir"]).mkdir(parents=True, exist_ok=True)
@@ -6555,19 +6571,25 @@ def trace_phase(tmp: Path, seed: int, card: str) -> dict:
           f"trace job exited {p.returncode}:\n{p.stdout[-3000:]}\n"
           f"{p.stderr[-3000:]}")
     res = json.loads(lines[0][len("TRACE_RESULT "):])
-    check(len(res["files"]) == 1 and res["k2_kernel_records"] == 3
-          and res["launches"] == 4,
-          f"trace: files {res['files']}, K2 kernel records "
-          f"{res['k2_kernel_records']} (want 3), K2 launches "
-          f"{res['launches']} (want 4: one untraced, three traced)")
+    n, sp = res["steps"], res["spans"]
+    check(len(res["files"]) == 1 and n > 0 and res["k2_kernel_records"] == n
+          and res["launches"] == n,
+          f"trace: files {res['files']}, {n} steps, K2 kernel records "
+          f"{res['k2_kernel_records']}, K2 launches {res['launches']} "
+          f"(want one a step)")
+    check(sp["train.step"] == sp["ops.k2"] == sp["model.grads"] == n
+          and sp["train.run"] == 1 and sp["train.epoch"] == 3,
+          f"trace: spans {sp} in {n} steps (want train.step, model.grads "
+          f"and ops.k2 one a step, train.run once, train.epoch 3)")
     res["wall_s"] = time.perf_counter() - t0
-    print(f"trace: train.profiler.trace around 3 training steps (README "
-          f"model, corpus training batch) in a fresh process wrote "
+    print(f"trace: train.profiler.trace around 3 staged epochs (README "
+          f"model, corpus, {n} steps) in a fresh process wrote "
           f"{Path(res['files'][0]).name} ({res['bytes']} bytes, "
           f"{res['events']} events) naming K2 ({TRACE_KERNEL}) in "
           f"{res['k2_kernel_records']} kernel records, "
           f"{res['k2_ms']:.3f} ms of device time; K2 launches "
-          f"{res['launches']}; wall {res['wall_s']:.1f} s [{card}]")
+          f"{res['launches']}; spans {sp}; wall {res['wall_s']:.1f} s "
+          f"[{card}]")
     return res
 
 
