@@ -58,6 +58,7 @@ class ChemDataset:
         self.smiles: list[str] = smiles
         self.labels = np.asarray(labels, dtype=np.float32)
         self._cache: dict[str, GraphArrays] = {}
+        self._row_tables = None
 
         self.use_npz = data_npz_path is not None
         self.mace_features: dict[int, np.ndarray] = {}
@@ -92,6 +93,19 @@ class ChemDataset:
         if key < 0:
             key = len(self.smiles) + key
         return self.mace_features[key]
+
+    def row_tables(self):
+        """The native packer's per-row tables (``native.RowTables``),
+        built on first use from every row's graph (featurizing what is not
+        yet) and descriptor block, then kept: what a window's one native
+        call reads (``data.loader.PackedLoader``)."""
+        if self._row_tables is None:
+            from ..native import RowTables
+            rows = range(len(self))
+            self._row_tables = RowTables(
+                [self.graph(i) for i in rows], self.labels,
+                [self.extra_feats(i) for i in rows] if self.use_npz else None)
+        return self._row_tables
 
     def __getitem__(self, key: int) -> tuple[GraphArrays, np.float32,
                                              np.ndarray | None]:

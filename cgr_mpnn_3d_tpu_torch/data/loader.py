@@ -9,7 +9,10 @@ package's for the same dataset and seed.
 * **Packer.**  The native packer (``native/``) unless ``use_native=False``
   picks the Python twin (``data.batch``); both give the same batches bit
   for bit.  ``use_native=None`` means native, and a library that does not
-  build raises (the JAX loader falls back to Python there).
+  build raises (the JAX loader falls back to Python there).  The native
+  path packs a window in one call over the dataset's row tables
+  (``ChemDataset.row_tables``), which sorts, probes, shrinks and packs in
+  C++: a fixed handful of Python calls whatever the window's size.
 * **Workers.**  ``workers`` is accepted for the JAX command line's
   ``--loader_workers`` and packs serially: the JAX loader's speculative
   thread pool gives the serial batches bit for bit, and on the measured
@@ -42,6 +45,7 @@ from typing import Iterable, Iterator
 
 import numpy as np
 
+from ..utils.tracing import count_pack
 from .batch import PackedGraphBatch, PackSpec, pack_graphs, place_graphs
 from .dataset import ChemDataset
 
@@ -93,8 +97,15 @@ class PackedLoader:
     def _pack_window(self, rows: list[int]) -> tuple[PackedGraphBatch, int]:
         """Pack as many of ``rows`` as fit; returns (batch, n_consumed).
 
-        Native path: the shrink loop probes with the placement-only
-        ``place_graphs_native`` and packs once at the surviving n."""
+        Native path: one ``native.pack_window_native`` call from the row
+        tables, which sorts, probes, shrinks and packs once at the
+        surviving n (counted in ``pack_windows`` and ``pack_probes``)."""
+        if self.use_native:
+            from .. import native
+            batch, n, probes = native.pack_window_native(
+                self.dataset.row_tables(), rows, self.spec)
+            count_pack(1, probes)
+            return batch, n
         n = len(rows)
         while True:
             # big graphs first (first-fit-decreasing); row_ids keep the
@@ -102,39 +113,47 @@ class PackedLoader:
             window = sorted(rows[:n],
                             key=lambda i: -self.dataset.graph(i).num_edges)
             graphs = [self.dataset.graph(i) for i in window]
-            if self.use_native:
-                from .. import native
-                if not native.place_graphs_native(graphs, self.spec):
-                    if n == 1:
-                        raise ValueError(native.last_error())
-                    n = max(1, int(n * 0.8))
-                    continue
-                pack = native.pack_graphs_native
-            else:
-                pack = pack_graphs
             labels = [self.dataset.labels[i] for i in window]
             extra = ([self.dataset.extra_feats(i) for i in window]
                      if self.dataset.use_npz else None)
             try:
-                return pack(graphs, labels, self.spec, extra,
-                            row_ids=window), n
+                return pack_graphs(graphs, labels, self.spec, extra,
+                                   row_ids=window), n
             except ValueError:
-                if self.use_native or n == 1:
+                if n == 1:
                     raise
                 n = max(1, int(n * 0.8))
+
+    def _fit(self, rows: list[int]) -> int:
+        """How many of ``rows`` the window of serial iteration takes, from
+        the placement probe alone (native: one ``fit_window_native`` call,
+        its attempts counted in ``pack_probes``)."""
+        if self.use_native:
+            from .. import native
+            n, probes = native.fit_window_native(
+                self.dataset.row_tables(), rows, self.spec)
+            count_pack(0, probes)
+            return n
+        n = len(rows)
+        while True:
+            window = sorted(rows[:n],
+                            key=lambda i: -self.dataset.graph(i).num_edges)
+            if place_graphs([self.dataset.graph(i) for i in window],
+                            self.spec):
+                return n
+            if n == 1:
+                # the error the real pack raises
+                self._pack_window(rows[:1])
+                raise RuntimeError("the placement probe refused a graph "
+                                   "that the packer placed")
+            n = max(1, int(n * 0.8))
 
     def plan_windows(self, order) -> list[list[int]]:
         """The exact window and carry plan that serial iteration over
         ``order`` emits -- which rows land in which batch, the overflow
         shrink (n -> int(n*0.8)) and the carry of unconsumed rows included
-        -- from the placement-only probe (``native.place_graphs_native``,
-        or ``data.batch.place_graphs`` with ``use_native=False``): no
-        packing and no output allocation (JAX ``loader.py:127-170``)."""
-        if self.use_native:
-            from .. import native
-            probe = lambda gs: native.place_graphs_native(gs, self.spec)
-        else:
-            probe = lambda gs: place_graphs(gs, self.spec)
+        -- from the placement-only probe (:meth:`_fit`): no packing and no
+        output allocation (JAX ``loader.py:127-170``)."""
         plan: list[list[int]] = []
         pending: list[int] = []
         order = [int(i) for i in order]
@@ -146,18 +165,7 @@ class PackedLoader:
             if (self.drop_last and pos >= len(order)
                     and len(rows) < self.batch_size):
                 break
-            n = len(rows)
-            while True:
-                window = sorted(rows[:n],
-                                key=lambda i: -self.dataset.graph(i).num_edges)
-                if probe([self.dataset.graph(i) for i in window]):
-                    break
-                if n == 1:
-                    # the error the real pack raises
-                    self._pack_window(rows[:1])
-                    raise RuntimeError("the placement probe refused a graph "
-                                       "that the packer placed")
-                n = max(1, int(n * 0.8))
+            n = self._fit(rows)
             plan.append(rows[:n])
             pending = rows[n:]
         return plan
@@ -199,15 +207,11 @@ class PackedLoader:
         if not self.use_native:
             return list(self._iter_pack())
         from .. import native
-        order = self._order().tolist()
-        return native.pack_epoch_native(
-            [self.dataset.graph(i) for i in order],
-            [self.dataset.labels[i] for i in order], self.spec,
-            self.batch_size,
-            extra_node_feats=([self.dataset.extra_feats(i) for i in order]
-                              if self.dataset.use_npz else None),
-            row_ids=order, sort_within=True,
-            drop_last=self.drop_last)
+        batches, probes = native.pack_epoch_native(
+            self.dataset.row_tables(), self._order(), self.spec,
+            self.batch_size, drop_last=self.drop_last)
+        count_pack(len(batches), probes)
+        return batches
 
     def _iter_pack(self) -> Iterator[PackedGraphBatch]:
         """Pack every window; an overflow carries its remainder into the

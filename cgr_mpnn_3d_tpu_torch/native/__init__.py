@@ -1,13 +1,14 @@
 """ctypes binding of the native C++ featurizer and packer.
 
-The port's own copy of ``featurizer.cpp`` (SMILES -> CGR graph arrays) and
-``packer.cpp`` (the block-dense packer: one window, the placement probe and
-a whole epoch in one call), with the C ABI of the JAX package's
-``native/``.  The library is built with g++ at first use (or by
-:func:`build`) into ``build/libcgrfeat-<hash>.so`` beside the CUDA
-libraries; the hash covers the two sources, the compiler and its flags, so
-an edited source rebuilds.  Several processes may build at once: each writes
-its own temporary file and moves it into place.
+The port's own copy of ``featurizer.cpp`` (SMILES -> CGR graph arrays, with
+the C ABI of the JAX package's ``native/``) and ``packer.cpp`` (the
+block-dense packer over per-row tables, :class:`RowTables`: one window's
+fit, one window, or a whole epoch, each in one call).  The library is
+built with g++ at first use (or by :func:`build`) into
+``build/libcgrfeat-<hash>.so`` beside the CUDA libraries; the hash covers
+the two sources, the compiler and its flags, so an edited source rebuilds.
+Several processes may build at once: each writes its own temporary file
+and moves it into place.
 
 There is no quiet fallback: a failed build or ``dlopen`` raises
 :class:`NativeError` with the compiler's output, and the callers
@@ -31,9 +32,10 @@ import numpy as np
 
 from ..chem.featurize import GraphArrays
 
-__all__ = ["featurize", "pack_graphs_native",
-           "pack_epoch_native", "place_graphs_native", "last_error",
-           "NativeError", "build", "SOURCES", "CXXFLAGS", "BUILD_DIR"]
+__all__ = ["featurize", "RowTables", "fit_window_native",
+           "pack_window_native", "pack_epoch_native", "pack_graphs_native",
+           "place_graphs_native", "last_error", "NativeError", "build",
+           "SOURCES", "CXXFLAGS", "BUILD_DIR"]
 
 _DIR = Path(__file__).resolve().parent
 BUILD_DIR = _DIR.parent / "build"
@@ -105,30 +107,20 @@ def _declare(lib) -> None:
     lib.cgr_graph_free.argtypes = [ctypes.c_void_p]
     f32 = np.ctypeslib.ndpointer(np.float32, flags="C")
     i32 = np.ctypeslib.ndpointer(np.int32, flags="C")
-    lib.cgr_pack_graphs.restype = ctypes.c_int
-    lib.cgr_pack_graphs.argtypes = (
-        [ctypes.c_int32] * 6            # spec
-        + [ctypes.c_int32, i32, i32]    # n_graphs, node/edge counts
-        + [f32, ctypes.c_int32, f32, ctypes.c_int32]  # feats + dims
-        + [i32, i32, f32, i32]          # senders, receivers, labels, rows
-        + [f32, f32, i32, i32, i32, i32, i32, i32, i32, i32, i32,
-           f32, f32, i32])              # outputs
-    lib.cgr_place_graphs.restype = ctypes.c_int
-    lib.cgr_place_graphs.argtypes = (
-        [ctypes.c_int32] * 6 + [ctypes.c_int32, i32, i32, i32])
-    u64 = np.ctypeslib.ndpointer(np.uint64, flags="C")
+    spec = [ctypes.c_int32] * 6
+    rows = [ctypes.POINTER(_Tables), i32, ctypes.c_int32]
+    outs = [f32, f32, i32, i32, i32, i32, i32, i32, i32, i32, i32, f32, f32,
+            i32]
+    cnt = ctypes.POINTER(ctypes.c_int32)
+    lib.cgr_fit_window.restype = ctypes.c_int
+    lib.cgr_fit_window.argtypes = (
+        spec + rows + [ctypes.c_int32] * 2 + [cnt, cnt])
+    lib.cgr_pack_window.restype = ctypes.c_int
+    lib.cgr_pack_window.argtypes = (
+        spec + rows + [ctypes.c_int32] * 2 + outs + [cnt, cnt])
     lib.cgr_pack_epoch.restype = ctypes.c_int
     lib.cgr_pack_epoch.argtypes = (
-        [ctypes.c_int32] * 6            # spec
-        + [ctypes.c_int32, i32, i32]    # n_rows, node/edge counts
-        + [u64, ctypes.c_int32]         # node feat ptrs, base_dim
-        + [u64, ctypes.c_int32]         # extra feat ptrs, extra_dim
-        + [u64, ctypes.c_int32]         # edge feat ptrs, e_feat
-        + [u64, u64, f32, i32]          # send/recv ptrs, labels, rows
-        + [ctypes.c_int32] * 4          # bs, sort, drop_last, max_win
-        + [f32, f32, i32, i32, i32, i32, i32, i32, i32, i32, i32,
-           f32, f32, i32]               # stacked outputs [W, ...]
-        + [np.ctypeslib.ndpointer(np.int32)])  # n_windows_out
+        spec + rows + [ctypes.c_int32] * 3 + outs + [cnt, cnt])
 
 
 def _load():
@@ -198,142 +190,193 @@ def _cast(b, spec):
                       edge_attr=b.edge_attr.astype(spec.feat_dtype))
 
 
-def pack_graphs_native(graphs, labels, spec, extra_node_feats=None,
-                       row_ids=None):
-    """Native equivalent of data.batch.pack_graphs: the same placement,
-    sentinels and outputs, bit for bit (tests/test_torch_native.py); a
-    window that does not fit raises ValueError with the packer's message."""
+
+
+class _Tables(ctypes.Structure):
+    """``packer.cpp``'s ``CgrRowTables``."""
+    _fields_ = ([(f, ctypes.c_void_p) for f in (
+        "node_counts", "edge_counts", "labels", "row_ids", "node_feats",
+        "extra_feats", "edge_feats", "senders", "receivers")]
+        + [(f, ctypes.c_int32) for f in (
+            "n_rows", "base_dim", "extra_dim", "e_feat")])
+
+
+class RowTables:
+    """The native packer's inputs, one entry a row: ``node_counts`` and
+    ``edge_counts`` (int32), ``labels`` (float32), ``row_ids`` (int32, the
+    id a packed graph carries out; the row's index unless given) and the
+    uint64 data pointers of each row's C-contiguous ``node_feats``,
+    ``extra_feats`` (the descriptor block, if any), ``edge_feats``,
+    ``senders`` and ``receivers``.
+
+    Each array field of ``graphs`` is copied once into one flat array
+    (cast to float32 or int32), which the object keeps alive, and the
+    pointers are its base plus the rows' offsets: no loop over rows but
+    the gathering of the arrays.  ``labels`` already float32 and
+    contiguous is kept, not copied, so that an edit to a label shows."""
+
+    def __init__(self, graphs, labels, extra_node_feats=None, row_ids=None):
+        n = len(graphs)
+        self.node_counts = np.fromiter((g.num_nodes for g in graphs),
+                                       np.int32, n)
+        self.edge_counts = np.fromiter((g.num_edges for g in graphs),
+                                       np.int32, n)
+        self.labels = np.ascontiguousarray(labels, np.float32)
+        self.row_ids = (np.arange(n, dtype=np.int32) if row_ids is None
+                        else np.ascontiguousarray(row_ids, np.int32))
+        if len(self.labels) != n or len(self.row_ids) != n:
+            raise ValueError(f"{n} graphs, {len(self.labels)} labels and "
+                             f"{len(self.row_ids)} row ids")
+        self._keep: list = []
+        self.base_dim = graphs[0].node_feats.shape[1] if n else 0
+        self.e_feat = graphs[0].edge_feats.shape[1] if n else 0
+        nodes, edges = self.node_counts, self.edge_counts
+        self.node_feats = self._flat([g.node_feats for g in graphs], nodes,
+                                     np.float32, self.base_dim)
+        self.edge_feats = self._flat([g.edge_feats for g in graphs], edges,
+                                     np.float32, self.e_feat)
+        self.senders = self._flat([g.senders for g in graphs], edges,
+                                  np.int32)
+        self.receivers = self._flat([g.receivers for g in graphs], edges,
+                                    np.int32)
+        if extra_node_feats is None:
+            self.extra_dim = 0
+            self.extra_feats = np.zeros(n, np.uint64)
+        else:
+            extra = list(extra_node_feats)
+            if not np.array_equal(
+                    np.fromiter((len(x) for x in extra), np.int32, n), nodes):
+                raise ValueError("a descriptor block's rows differ from its "
+                                 "graph's nodes")
+            self.extra_dim = np.shape(extra[0])[1]
+            self.extra_feats = self._flat(extra, nodes, np.float32,
+                                          self.extra_dim)
+        self.n_feat = self.base_dim + self.extra_dim
+        ptr = lambda a: a.ctypes.data
+        self._c = _Tables(
+            ptr(self.node_counts), ptr(self.edge_counts), ptr(self.labels),
+            ptr(self.row_ids), ptr(self.node_feats), ptr(self.extra_feats),
+            ptr(self.edge_feats), ptr(self.senders), ptr(self.receivers),
+            n, self.base_dim, self.extra_dim, self.e_feat)
+
+    def _flat(self, arrays, counts, dtype, width: int | None = None):
+        """The arrays (``counts`` rows each) in one flat array, which is
+        kept; returns each array's pointer into it."""
+        shape = (0,) if width is None else (0, width)
+        flat = (np.concatenate(arrays, axis=0, dtype=dtype) if arrays
+                else np.zeros(shape, dtype))
+        self._keep.append(flat)
+        offsets = (np.cumsum(counts) - counts).astype(np.uint64)
+        return (np.uint64(flat.ctypes.data)
+                + offsets * np.uint64(flat.itemsize * (width or 1)))
+
+
+def _rows(rows) -> np.ndarray:
+    return np.ascontiguousarray(rows, np.int32)
+
+
+def fit_window_native(tables: RowTables, rows, spec, sort: bool = True,
+                      shrink: bool = True) -> tuple[int, int]:
+    """How many of the candidate ``rows`` one window takes: the in-window
+    stable sort by descending edge count (``sort``), the placement probe,
+    the shrink n -> max(1, int(n*0.8)) on a refusal (``shrink``).  Returns
+    (that count, the placement attempts); a refused single row, or any
+    refusal without ``shrink``, raises ValueError with the packer's
+    message.  Nothing is written."""
     lib = _load()
-    n_graphs = len(graphs)
-    n_feat = graphs[0].node_feats.shape[1]
-    if extra_node_feats is not None:
-        n_feat += extra_node_feats[0].shape[1]
-    e_feat = graphs[0].edge_feats.shape[1]
-
-    node_counts = np.asarray([g.num_nodes for g in graphs], np.int32)
-    edge_counts = np.asarray([g.num_edges for g in graphs], np.int32)
-    if extra_node_feats is None:
-        node_feats = np.ascontiguousarray(
-            np.concatenate([g.node_feats for g in graphs], axis=0))
-    else:
-        node_feats = np.ascontiguousarray(np.concatenate(
-            [np.concatenate([g.node_feats,
-                             np.asarray(x, np.float32)], axis=1)
-             for g, x in zip(graphs, extra_node_feats)], axis=0))
-    edge_feats = np.ascontiguousarray(
-        np.concatenate([g.edge_feats for g in graphs], axis=0))
-    senders = np.ascontiguousarray(
-        np.concatenate([g.senders for g in graphs]))
-    receivers = np.ascontiguousarray(
-        np.concatenate([g.receivers for g in graphs]))
-    labels_in = np.asarray(labels, np.float32)
-    rows_in = (np.arange(n_graphs, dtype=np.int32) if row_ids is None
-               else np.asarray(list(row_ids), np.int32))
-
-    out = _empty_batch(spec, n_feat, e_feat)
-    rc = lib.cgr_pack_graphs(
+    rows = _rows(rows)
+    consumed, probes = ctypes.c_int32(0), ctypes.c_int32(0)
+    rc = lib.cgr_fit_window(
         spec.p, spec.te, spec.tn, spec.tb, spec.d, spec.dn,
-        n_graphs, node_counts, edge_counts,
-        node_feats, n_feat, edge_feats, e_feat,
-        senders, receivers, labels_in, rows_in, *out)
+        ctypes.byref(tables._c), rows, len(rows), int(sort), int(shrink),
+        ctypes.byref(consumed), ctypes.byref(probes))
     if rc != 0:
         raise ValueError(lib.cgr_last_error().decode())
-    return _cast(out, spec)
+    return consumed.value, probes.value
+
+
+def pack_window_native(tables: RowTables, rows, spec, sort: bool = True,
+                       shrink: bool = True):
+    """One window in one call: the fit of :func:`fit_window_native`, then
+    one pack of the surviving rows.  Returns (PackedGraphBatch, rows
+    consumed, placement attempts); a refusal raises as there."""
+    lib = _load()
+    rows = _rows(rows)
+    out = _empty_batch(spec, tables.n_feat, tables.e_feat)
+    consumed, probes = ctypes.c_int32(0), ctypes.c_int32(0)
+    rc = lib.cgr_pack_window(
+        spec.p, spec.te, spec.tn, spec.tb, spec.d, spec.dn,
+        ctypes.byref(tables._c), rows, len(rows), int(sort), int(shrink),
+        *out, ctypes.byref(consumed), ctypes.byref(probes))
+    if rc != 0:
+        raise ValueError(lib.cgr_last_error().decode())
+    return _cast(out, spec), consumed.value, probes.value
+
+
+def pack_graphs_native(graphs, labels, spec, extra_node_feats=None,
+                       row_ids=None):
+    """Native equivalent of data.batch.pack_graphs: the graphs in the
+    order given, the same placement, sentinels and outputs, bit for bit
+    (tests/test_torch_native.py); a window that does not fit raises
+    ValueError with the packer's message."""
+    tables = RowTables(graphs, labels, extra_node_feats, row_ids)
+    return pack_window_native(tables, np.arange(len(graphs)), spec,
+                              sort=False, shrink=False)[0]
 
 
 def place_graphs_native(graphs, spec) -> bool:
     """Placement-only feasibility probe for one window (no output
     allocation or writes): True iff ``pack_graphs_native(graphs, ...,
     spec)`` would succeed; :func:`last_error` says why not."""
-    lib = _load()
-    node_counts = np.asarray([g.num_nodes for g in graphs], np.int32)
-    edge_counts = np.asarray([g.num_edges for g in graphs], np.int32)
-    recv = (np.ascontiguousarray(np.concatenate(
-        [g.receivers for g in graphs])) if len(graphs) else
-        np.zeros(0, np.int32))
-    if recv.size == 0:
-        recv = np.zeros(1, np.int32)  # valid pointer for the empty case
-    rc = lib.cgr_place_graphs(
-        spec.p, spec.te, spec.tn, spec.tb, spec.d, spec.dn,
-        len(graphs), node_counts, edge_counts, recv)
-    return rc == 0
+    tables = RowTables(graphs, np.zeros(len(graphs), np.float32))
+    try:
+        fit_window_native(tables, np.arange(len(graphs)), spec, sort=False,
+                          shrink=False)
+    except ValueError:
+        return False
+    return True
 
 
 def last_error() -> str:
     return _load().cgr_last_error().decode()
 
 
-def _ptr_table(arrays, dtype, keep: list) -> np.ndarray:
-    """uint64 table of each array's data pointer (C-contiguous, dtype
-    coerced); appends every (possibly copied) array to ``keep``, which the
-    caller must hold alive across the native call."""
-    ptrs = np.empty(len(arrays), np.uint64)
-    for i, a in enumerate(arrays):
-        a = np.ascontiguousarray(a, dtype=dtype)
-        keep.append(a)
-        ptrs[i] = a.ctypes.data
-    return ptrs
-
-
-def pack_epoch_native(graphs, labels, spec, batch_size,
-                      extra_node_feats=None, row_ids=None,
-                      sort_within=True, drop_last=False):
+def pack_epoch_native(tables: RowTables, order, spec, batch_size,
+                      drop_last=False):
     """Pack a whole epoch in one native call (the ``reuse_packs`` cache
-    build).  ``graphs`` and ``labels`` arrive in epoch order; windowing,
-    the in-window stable sort by descending edge count, the overflow
-    shrink (n -> int(n*0.8)) and the carry of unconsumed rows are those of
-    ``data.loader.PackedLoader``'s serial iteration, bit for bit.  The
-    inputs cross as per-graph pointer tables (no epoch-sized
-    concatenation).  Returns the list of PackedGraphBatch, each a view
-    into one stacked allocation; a window count above the estimate
-    (``rc == -2``) doubles it and packs again."""
+    build): the rows of ``tables`` in the epoch ``order``; windowing, the
+    fit of :func:`pack_window_native` and the carry of unconsumed rows
+    are those of ``data.loader.PackedLoader``'s serial iteration, bit for
+    bit.  The tables are the dataset's, built once (10-23 ms for a
+    2,048-row library with descriptors on an H100 host's CPU), so the call
+    itself is the packing.  Returns (the list of PackedGraphBatch, each a
+    view into one stacked allocation; the placement attempts).  A window
+    count above the estimate (``rc == -2``) doubles it and packs again."""
     from ..data.batch import PackedGraphBatch
 
     lib = _load()
-    n_rows = len(graphs)
-    e_feat = graphs[0].edge_feats.shape[1]
-    base_dim = graphs[0].node_feats.shape[1]
-    keep: list = []   # pointer-table buffers, alive across the call
-    nf_ptrs = _ptr_table([g.node_feats for g in graphs], np.float32, keep)
-    ef_ptrs = _ptr_table([g.edge_feats for g in graphs], np.float32, keep)
-    s_ptrs = _ptr_table([g.senders for g in graphs], np.int32, keep)
-    r_ptrs = _ptr_table([g.receivers for g in graphs], np.int32, keep)
-    if extra_node_feats is not None:
-        extra_dim = np.asarray(extra_node_feats[0]).shape[1]
-        x_ptrs = _ptr_table(list(extra_node_feats), np.float32, keep)
-    else:
-        extra_dim = 0
-        x_ptrs = np.zeros(max(1, n_rows), np.uint64)
-    n_feat = base_dim + extra_dim
-    node_counts = np.asarray([g.num_nodes for g in graphs], np.int32)
-    edge_counts = np.asarray([g.num_edges for g in graphs], np.int32)
-    labels_in = np.asarray(labels, np.float32)
-    rows_in = (np.arange(n_rows, dtype=np.int32) if row_ids is None
-               else np.asarray(list(row_ids), np.int32))
-
+    order = _rows(order)
     ET, NT = spec.total_edges, spec.total_nodes
     # window-count estimate: the graph-count bound and the edge and node
     # capacity bounds at 90% fill (too low costs a second pass)
-    total_e = int(edge_counts.sum())
-    total_n = int(node_counts.sum())
-    W = max(int(np.ceil(n_rows / batch_size)),
+    total_e = int(tables.edge_counts[order].sum())
+    total_n = int(tables.node_counts[order].sum())
+    W = max(int(np.ceil(len(order) / batch_size)),
             int(np.ceil(total_e / max(1, 0.9 * ET))),
             int(np.ceil(total_n / max(1, 0.9 * NT)))) + 4
     while True:
-        out = _empty_batch(spec, n_feat, e_feat, (W,))
-        n_windows = np.zeros(1, np.int32)
+        out = _empty_batch(spec, tables.n_feat, tables.e_feat, (W,))
+        n_windows, probes = ctypes.c_int32(0), ctypes.c_int32(0)
         rc = lib.cgr_pack_epoch(
             spec.p, spec.te, spec.tn, spec.tb, spec.d, spec.dn,
-            n_rows, node_counts, edge_counts,
-            nf_ptrs, base_dim, x_ptrs, extra_dim, ef_ptrs, e_feat,
-            s_ptrs, r_ptrs, labels_in, rows_in,
-            int(batch_size), int(bool(sort_within)), int(bool(drop_last)),
-            W, *out, n_windows)
+            ctypes.byref(tables._c), order, len(order), int(batch_size),
+            int(bool(drop_last)), W, *out, ctypes.byref(n_windows),
+            ctypes.byref(probes))
         if rc == -2:
             W *= 2
             continue
         if rc != 0:
             raise ValueError(lib.cgr_last_error().decode())
         break
-    return [_cast(PackedGraphBatch(*[f[w] for f in out]), spec)
-            for w in range(int(n_windows[0]))]
+    return ([_cast(PackedGraphBatch(*[f[w] for f in out]), spec)
+             for w in range(n_windows.value)], probes.value)

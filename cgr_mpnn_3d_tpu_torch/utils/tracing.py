@@ -19,9 +19,12 @@
   trainer's seeds, host drop tables); ``copy_out_bytes``, the bytes read
   back from it (``predict``'s predictions, the trainer's loss reads, a
   checkpoint's leaves); ``staged_bytes``, a gauge: the size of the staged
-  epoch.  On the CPU the same copies count, the CPU being the run's
-  device.  :func:`counters` is a snapshot of the three and of the kernels'
-  launch counters (``ops._launch.launch_counts``).
+  epoch; ``pack_windows`` and ``pack_probes``, the windows the native
+  packer packed and its placement attempts (``data.PackedLoader``: a
+  window, a reused epoch, and the probes of ``plan_windows``), whose ratio
+  says how often a window shrinks.  On the CPU the same copies count, the
+  CPU being the run's device.  :func:`counters` is a snapshot of these and
+  of the kernels' launch counters (``ops._launch.launch_counts``).
 
 The spans the program opens:
 
@@ -58,13 +61,14 @@ import torch
 from torch.autograd import profiler as _profiler
 
 __all__ = ["span", "span_log", "SpanLog", "Record", "counters",
-           "count_copy_in", "count_copy_out", "set_staged_bytes",
-           "next_request_id"]
+           "count_copy_in", "count_copy_out", "count_pack",
+           "set_staged_bytes", "next_request_id"]
 
 # the open span log, if any (the profiler's own flag is torch's)
 _LOG: SpanLog | None = None
 
-_COUNTS = {"copy_in_bytes": 0, "copy_out_bytes": 0, "staged_bytes": 0}
+_COUNTS = {"copy_in_bytes": 0, "copy_out_bytes": 0, "staged_bytes": 0,
+           "pack_windows": 0, "pack_probes": 0}
 _REQUESTS = itertools.count(1)
 
 
@@ -200,12 +204,18 @@ def count_copy_out(nbytes: int) -> None:
     _COUNTS["copy_out_bytes"] += nbytes
 
 
+def count_pack(windows: int, probes: int) -> None:
+    _COUNTS["pack_windows"] += windows
+    _COUNTS["pack_probes"] += probes
+
+
 def set_staged_bytes(nbytes: int) -> None:
     _COUNTS["staged_bytes"] = nbytes
 
 
 def counters() -> dict:
-    """A snapshot of the copy counters, the staged gauge and every nonzero
-    kernel launch counter (``{"fused_model.train_launches": n, ...}``)."""
+    """A snapshot of the copy and pack counters, the staged gauge and every
+    nonzero kernel launch counter (``{"fused_model.train_launches": n,
+    ...}``)."""
     from ..ops._launch import launch_counts
     return {**_COUNTS, **launch_counts()}

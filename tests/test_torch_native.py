@@ -10,6 +10,12 @@ native/``) on the CPU:
   per-window iteration of the port's loader (native and Python) and the
   JAX package's ``PackedLoader(reuse_packs=True)`` cache, bit for bit,
   with and without descriptors, through overflow carry and ``drop_last``;
+* the loader's native windows (one ``pack_window_native`` call a window
+  over the dataset's row tables) equal the Python twin's and
+  ``plan_windows``, refuse a lone graph with the packer's message, write
+  every output byte (buffers pre-filled with garbage), call no
+  ``ChemDataset.graph`` once the tables are built, and count their windows
+  and placement attempts;
 * the library builds under a hash of its sources (an edited source builds
   anew), and a compiler that fails raises: no path falls back to Python.
 """
@@ -25,7 +31,8 @@ import cgr_mpnn_3d_tpu.data as jdata
 from cgr_mpnn_3d_tpu import native as jnative
 from cgr_mpnn_3d_tpu_torch import native
 from cgr_mpnn_3d_tpu_torch.chem import MolGraph, RxnGraph
-from cgr_mpnn_3d_tpu_torch.data import (ChemDataset, PackedLoader,
+from cgr_mpnn_3d_tpu_torch.chem.featurize import GraphArrays
+from cgr_mpnn_3d_tpu_torch.data import (ChemDataset, PackedLoader, PackSpec,
                                         pack_graphs, place_graphs, plan_spec)
 from cgr_mpnn_3d_tpu_torch.data.descriptors import synthetic_descriptors_npz
 
@@ -183,7 +190,10 @@ def test_pack_epoch_grows_its_window_estimate():
     # two graphs a pack: the graph slots, which the estimate leaves out,
     # bound the windows
     spec = plan_spec(graphs, te=64, tn=48, tb=2).with_packs(1)
-    out = native.pack_epoch_native(graphs, labels, spec, 8)
+    tables = native.RowTables(graphs, labels)
+    out, probes = native.pack_epoch_native(tables, np.arange(len(graphs)),
+                                           spec, 8)
+    assert probes >= len(out)
     rows = np.concatenate([b.row_ids[b.graph_mask > 0] for b in out])
     assert sorted(rows.tolist()) == list(range(len(graphs)))
     estimate = max(-(-len(graphs) // 8),
@@ -192,6 +202,162 @@ def test_pack_epoch_grows_its_window_estimate():
                    int(np.ceil(sum(g.num_nodes for g in graphs)
                                / (0.9 * spec.total_nodes)))) + 4
     assert len(out) > estimate
+
+
+# -- the loader's one native call a window ---------------------------------
+
+# loader geometry a case: batch size, tile and loader options
+WINDOW_CASES = {
+    "plain": dict(bs=4, te=128, tn=64, tb=4),
+    "shuffled": dict(bs=4, te=128, tn=64, tb=4, shuffle=True),
+    "npz": dict(bs=4, te=128, tn=64, tb=4, npz=True, shuffle=True),
+    "drop_last": dict(bs=3, te=128, tn=64, tb=3, drop_last=True,
+                      shuffle=True),
+    # one pack of 64 edge slots for 8-graph windows: the first probe fails
+    # and the shrink and carry run
+    "overflow_carry": dict(bs=8, te=64, tn=48, tb=8, shuffle=True),
+}
+
+
+def _window_loaders(tmp_path, bs, te, tn, tb, npz=False, shuffle=False,
+                    drop_last=False):
+    """(native, Python) loaders without reused packs over the demo set."""
+    kw = {}
+    if npz:
+        synthetic_descriptors_npz(str(DEMO), str(tmp_path / "d.npz"), 6)
+        kw = dict(data_npz_path=str(tmp_path / "d.npz"))
+    ds = ChemDataset(str(DEMO), **kw)
+    spec = plan_spec([ds.graph(i) for i in range(len(ds))], te=te, tn=tn,
+                     tb=tb)
+    lkw = dict(batch_size=bs, shuffle=shuffle, seed=5, drop_last=drop_last)
+    return (PackedLoader(ds, spec, **lkw),
+            PackedLoader(ChemDataset(str(DEMO), use_native=False, **kw),
+                         spec, use_native=False, **lkw))
+
+
+def _probes(bs, n_rows, used):
+    """The placement attempts of serial iteration whose windows took
+    ``used`` rows each: one a window, and one more a shrink."""
+    pending = pos = probes = 0
+    for u in used:
+        take = min(bs - pending, n_rows - pos)
+        pos += take
+        n = pending + take
+        probes += 1
+        while n != u:
+            n = max(1, int(n * 0.8))
+            probes += 1
+        pending = pending + take - u
+    return probes
+
+
+@pytest.mark.parametrize("case", list(WINDOW_CASES))
+def test_loader_windows_equal_the_python_twin_and_the_plan(tmp_path, case):
+    geom = WINDOW_CASES[case]
+    ln, lp = _window_loaders(tmp_path, **geom)
+    native_batches = list(ln)
+    _assert_lists_equal(native_batches, list(lp), "python")
+    n = len(ln.dataset)
+    if case == "overflow_carry":
+        assert len(native_batches) > -(-n // geom["bs"]), "no overflow"
+    if case == "drop_last":
+        assert len(native_batches) == n // geom["bs"]
+    plan = ln.plan_windows(ln._order())
+    assert plan == lp.plan_windows(lp._order())
+    assert [sorted(b.row_ids[b.graph_mask > 0].tolist())
+            for b in native_batches] == [sorted(w) for w in plan]
+
+
+@pytest.mark.parametrize("limit,message", [
+    (dict(te=19), "graph exceeds pack tile; increase te/tn"),
+    (dict(dn=9), "graph has more nodes than dn"),
+    (dict(d=2), "node in-degree exceeds ELL width d"),
+])
+def test_a_lone_refused_graph_raises_the_packers_message(limit, message):
+    """Row 0 (10 nodes, 20 edges, in-degree 3) fits no pack: every window
+    holding it shrinks to it alone, and that refusal raises."""
+    ds = ChemDataset(str(DEMO))
+    spec = PackSpec(**{**dict(te=128, tn=64, tb=4, d=8, dn=16), **limit})
+    loader = PackedLoader(ds, spec, batch_size=4)
+    for fn in (lambda: next(iter(loader)),
+               lambda: loader.plan_windows(loader._order())):
+        with pytest.raises(ValueError) as err:
+            fn()
+        assert str(err.value) == message
+    python = PackedLoader(ChemDataset(str(DEMO), use_native=False), spec,
+                          batch_size=4, use_native=False)
+    with pytest.raises(ValueError):
+        next(iter(python))
+
+
+def _bond(rng, F=6, Fe=3):
+    """A two-atom graph: two nodes, two directed edges."""
+    return GraphArrays(rng.random((2, F)).astype(np.float32),
+                       rng.random((2, Fe)).astype(np.float32),
+                       np.array([0, 1], np.int32), np.array([1, 0], np.int32),
+                       np.array([1, 0], np.int32))
+
+
+@pytest.mark.parametrize("packs,what", [(2, "full"), (3, "empty")])
+def test_every_output_byte_is_written(monkeypatch, packs, what):
+    """Outputs pre-filled with a garbage pattern come out as the Python
+    packer's batch: four bonds fill two packs of 4 edge, 4 node and 2
+    graph slots to the last slot; a third pack stays empty.  Single
+    windows and a whole epoch."""
+    garbage = native._empty_batch
+
+    def filled(*args, **kw):
+        out = garbage(*args, **kw)
+        for a in out:
+            a.view(np.uint8).fill(0xA5)
+        return out
+
+    monkeypatch.setattr(native, "_empty_batch", filled)
+    rng = np.random.default_rng(1)
+    graphs = [_bond(rng) for _ in range(4)]
+    labels = [1.5, -2.0, 0.25, 3.0]
+    xs = [rng.random((2, 2)).astype(np.float32) for _ in graphs]
+    spec = PackSpec(te=4, tn=4, tb=2, d=2, dn=3, p=packs)
+    want = pack_graphs(graphs, labels, spec, xs, row_ids=[7, 3, 5, 1])
+    got = native.pack_graphs_native(graphs, labels, spec, xs,
+                                    row_ids=[7, 3, 5, 1])
+    if what == "full":
+        assert (got.graph_mask > 0).all() and (got.senders < 8).all()
+    else:
+        assert not (got.graph_mask[-2:] > 0).any()
+    _assert_batch_equal(got, want, what)
+    tables = native.RowTables(graphs, labels, xs)
+    epoch, _ = native.pack_epoch_native(tables, np.arange(4), spec, 4)
+    _assert_lists_equal(
+        epoch, [pack_graphs(graphs, labels, spec, xs)], f"epoch {what}")
+
+
+@pytest.mark.parametrize("case", ["npz", "overflow_carry"])
+def test_a_native_pass_calls_no_graph_and_counts_its_windows(
+        tmp_path, monkeypatch, case):
+    from cgr_mpnn_3d_tpu_torch.utils import tracing
+    geom = WINDOW_CASES[case]
+    loader, _ = _window_loaders(tmp_path, **geom)
+    loader.dataset.row_tables()
+    calls = []
+    graph = ChemDataset.graph
+    monkeypatch.setattr(ChemDataset, "graph",
+                        lambda self, i: calls.append(i) or graph(self, i))
+    before = tracing.counters()
+    batches = list(loader)
+    after = tracing.counters()
+    assert calls == []
+    used = [int((b.graph_mask > 0).sum()) for b in batches]
+    probes = _probes(geom["bs"], len(loader.dataset), used)
+    if case == "overflow_carry":
+        assert probes > len(batches)
+    assert after["pack_windows"] - before["pack_windows"] == len(batches)
+    assert after["pack_probes"] - before["pack_probes"] == probes
+    loader.plan_windows(loader._order())
+    again = tracing.counters()
+    assert calls == []
+    assert again["pack_windows"] == after["pack_windows"]
+    assert again["pack_probes"] - after["pack_probes"] == probes
 
 
 def test_an_edited_source_builds_under_a_new_hash(tmp_path):
