@@ -7,9 +7,10 @@ process (set-up is paid once for the kernels' build):
   step's loss, the worst leaf);
 * the control's on each ``--control-seeds`` seed, after the program's
   set-up and window (a training window's steps start from the program's
-  state): the reference put in the program's place, computed in TF32, and
-  the planted faults of the cell's kind (training: half of each batch left
-  out and the rest's SSE doubled; screening: one answer altered).
+  state): each of the runner's ``CONTROLS`` in turn, the reference put in
+  the program's place and computed in TF32, and the planted faults of the
+  cell's kind (training: half of each batch left out and the rest's SSE
+  doubled; screening: one answer altered).
 
     python3 -m gpubench.calibrate --workload <cell> --seeds 1 2 ... \\
         --control-seeds 7 8 9 --seconds 2
@@ -31,7 +32,53 @@ import torch
 
 from . import card, run, spec
 
-VARIANTS = {"train_staged": ("tf32", "half"), "screen": ("tf32", "alter")}
+
+@contextlib.contextmanager
+def _after_window(cell: str, seed: int, seconds: float, device: str,
+                  config: dict | None, traffic: dict | None):
+    """(context, runner) of one run of ``cell`` past its window, with the
+    program's state freed; standard output goes to standard error while it
+    is open.  ``config`` and ``traffic`` replace the cell's own (tests run
+    a small copy on the CPU)."""
+    bench = spec.benchmark()
+    w = spec.workload(bench, cell)
+    cfg = config or spec.config(bench, w["config"])
+    trf = traffic or spec.traffic(w["traffic"])
+    drv = spec.kind(trf["kind"])
+    drv.check_config(cfg)
+    dev = torch.device(device)
+    with tempfile.TemporaryDirectory() as tmp, \
+            contextlib.redirect_stdout(sys.stderr):
+        ctx = run.Context(cell, seed, seconds, False, dev, cfg, trf,
+                          Path(tmp), 0.0)
+        drv.inputs(ctx)
+        drv.setup(ctx)
+        drv.window(ctx)
+        ctx.program.clear()
+        gc.collect()
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+        yield ctx, drv
+
+
+def program(cell: str, seed: int, seconds: float, device: str = "cuda", *,
+            config: dict | None = None, traffic: dict | None = None) -> dict:
+    """The program's compared numbers on ``seed``, with their looks."""
+    with _after_window(cell, seed, seconds, device, config, traffic) as (
+            ctx, drv):
+        numbers = drv.check(ctx, looks=True)
+    return {"seed": seed, "program": numbers,
+            "failed": ctx.window["failed"]}
+
+
+def controls(cell: str, seed: int, seconds: float, device: str = "cuda", *,
+             config: dict | None = None, traffic: dict | None = None):
+    """(variant, its numbers with their looks) for each of the runner's
+    ``CONTROLS`` on ``seed``, in its order."""
+    with _after_window(cell, seed, seconds, device, config, traffic) as (
+            ctx, drv):
+        for variant in drv.CONTROLS:
+            yield variant, drv.control(ctx, variant, looks=True)
 
 
 def main(argv=None) -> int:
@@ -41,44 +88,17 @@ def main(argv=None) -> int:
     ap.add_argument("--control-seeds", type=int, nargs="*", default=[])
     ap.add_argument("--seconds", type=float, default=2.0)
     args = ap.parse_args(argv)
-    bench = spec.benchmark()
-    w = spec.workload(bench, args.workload)
-    card.require_cards(w["chips"])
+    card.require_cards(spec.workload(spec.benchmark(), args.workload)
+                       ["chips"])
     print(f"gpubench: card {card.card_name()}, power limit "
           f"{card.power_limit()}", file=sys.stderr)
-    trf = spec.traffic(w["traffic"])
-    drv = spec.kind(trf["kind"])
-    cfg = spec.config(bench, w["config"])
-    dev = torch.device("cuda")
     for seed in args.seeds:
-        with tempfile.TemporaryDirectory() as tmp, \
-                contextlib.redirect_stdout(sys.stderr):
-            ctx = run.Context(args.workload, seed, args.seconds, False, dev,
-                              cfg, trf, Path(tmp), 0.0)
-            drv.inputs(ctx)
-            drv.setup(ctx)
-            drv.window(ctx)
-            ctx.program.clear()
-            gc.collect()
-            torch.cuda.empty_cache()
-            numbers = drv.check(ctx, looks=True)
-        print(json.dumps({"seed": seed, "program": numbers,
-                          "failed": ctx.window["failed"]}), flush=True)
+        print(json.dumps(program(args.workload, seed, args.seconds)),
+              flush=True)
     for seed in args.control_seeds:
-        with tempfile.TemporaryDirectory() as tmp, \
-                contextlib.redirect_stdout(sys.stderr):
-            ctx = run.Context(args.workload, seed, args.seconds, False, dev,
-                              cfg, trf, Path(tmp), 0.0)
-            drv.inputs(ctx)
-            drv.setup(ctx)
-            drv.window(ctx)
-            ctx.program.clear()
-            gc.collect()
-            torch.cuda.empty_cache()
-            for variant in VARIANTS[trf["kind"]]:
-                line = json.dumps({"seed": seed, variant: drv.control(
-                    ctx, variant, looks=True)})
-                print(line, file=sys.__stdout__, flush=True)
+        for variant, numbers in controls(args.workload, seed, args.seconds):
+            print(json.dumps({"seed": seed, variant: numbers}),
+                  file=sys.__stdout__, flush=True)
     return 0
 
 

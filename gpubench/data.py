@@ -9,7 +9,9 @@ seed changes the order and not the sizes of the work.  Each row gets its
 own descriptors, so no two rows are alike.  The descriptors follow the
 MACE npz contract (``arr_i`` = [atoms, 3 * dim] per csv row, reactant ||
 TS || product), drawn standard normal from the seed; the atoms are
-counted from the bracketed atoms of the mapped reactant SMILES.
+counted from the bracketed atoms of the mapped reactant SMILES.  So a
+CGR configuration's node features are the CGR's own plus three descriptor
+sets (``check_cgr_config``).
 """
 
 from __future__ import annotations
@@ -21,7 +23,7 @@ from pathlib import Path
 import numpy as np
 
 __all__ = ["CORPUS", "corpus", "rng", "draw_rows", "atom_count",
-           "descriptors", "write_split"]
+           "descriptors", "write_split", "check_cgr_config"]
 
 CORPUS = Path(__file__).resolve().parent / "data" / "corpus_reactions.csv"
 _BRACKET = re.compile(r"\[[^\]]*\]")
@@ -82,3 +84,18 @@ def write_split(directory: Path, name: str, smiles: list[str],
     npz = directory / f"{name}.npz"
     np.savez(npz, *feats)
     return path, npz
+
+
+def check_cgr_config(cfg: dict, keys) -> None:
+    """Raise ValueError unless ``cfg`` has each of ``keys`` and its node
+    features are the CGR's plus three descriptor sets."""
+    missing = sorted(set(keys) - set(cfg))
+    if missing:
+        raise ValueError(f"configuration {cfg.get('name')!r} lacks "
+                         f"{missing}")
+    want = cfg["cgr_node_features"] + 3 * cfg["descriptor_dim"]
+    if cfg["node_features"] != want:
+        raise ValueError(
+            f"configuration {cfg.get('name')!r}: node_features "
+            f"{cfg['node_features']} is not cgr_node_features + 3 * "
+            f"descriptor_dim = {want}")

@@ -22,6 +22,17 @@ from ..reference.model import Dims, make_weights
 from ..reference.runs import predictions
 
 TRACED_REQUESTS = 3
+WINDOW = "requests"
+CONTROLS = ("tf32", "alter")
+# the configuration's keys that this runner and its readers read
+KEYS = ("cgr_node_features", "descriptor_dim", "node_features",
+        "edge_features", "hidden", "depth", "dropout", "activation", "aggr",
+        "pooling", "learnable_skip", "compute_dtype")
+
+
+def check_config(cfg: dict) -> None:
+    """Raise ValueError for a configuration this runner cannot run."""
+    data.check_cgr_config(cfg, KEYS)
 
 
 def inputs(ctx) -> None:

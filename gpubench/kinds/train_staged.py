@@ -34,6 +34,18 @@ from ..reference.model import Dims, make_weights
 from ..reference.runs import first_steps
 
 STEPS = 3
+WINDOW = "epochs"
+CONTROLS = ("tf32", "half")
+# the configuration's keys that this runner and its readers read
+KEYS = ("cgr_node_features", "descriptor_dim", "node_features",
+        "edge_features", "hidden", "depth", "dropout", "activation", "aggr",
+        "pooling", "learnable_skip", "compute_dtype", "lr", "gamma",
+        "weight_decay", "betas", "eps", "batch_size", "te", "tn", "tb")
+
+
+def check_config(cfg: dict) -> None:
+    """Raise ValueError for a configuration this runner cannot run."""
+    data.check_cgr_config(cfg, KEYS)
 
 
 def _dims(cfg: dict) -> Dims:

@@ -3,16 +3,17 @@ validation period of epochs (its steps, validation and checkpoint saves)
 over the union of the device's kernel, copy and set intervals in it, from
 the profiler's trace of that period run after the window.  The host's
 share of a step, which sets the wall-clock rate of a host-paced cell,
-does not count: what the card itself spends on the work."""
+does not count: what the card itself spends on the work.  Read in a cell
+whose runner's window is of epochs."""
 
 from gpubench import spec
 from gpubench.trace import device_busy
 
 
 def read(ctx):
-    if ctx.traffic["kind"] != "train_staged" or ctx.device.type != "cuda":
+    runner = spec.runner(ctx)
+    if runner.WINDOW != "epochs" or ctx.device.type != "cuda":
         return None
-    runner = spec.kind(ctx.traffic["kind"])
     _, busy_s, _ = device_busy(lambda: runner.stretch(ctx))
     if busy_s <= 0:
         return None

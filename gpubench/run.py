@@ -88,6 +88,7 @@ def run_cell(cell: str, seed: int, seconds: float, trace: bool,
     trf = traffic or spec.traffic(w["traffic"])
     lim = limits or spec.limits(cell)
     drv = spec.kind(trf["kind"])
+    drv.check_config(cfg)
     dev = torch.device(device)
     cuda = dev.type == "cuda"
     with tempfile.TemporaryDirectory(prefix="gpubench-") as tmp, \

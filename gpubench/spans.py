@@ -32,7 +32,7 @@ def _run(ctx) -> dict | None:
         from cgr_mpnn_3d_tpu_torch.utils import tracing
     except ImportError:
         return None
-    runner = spec.kind(ctx.traffic["kind"])
+    runner = spec.runner(ctx)
     before = tracing.counters()
     with tracing.span_log() as log:
         runner.stretch(ctx)

@@ -2,7 +2,8 @@
 
 * a configuration's file is its ``file`` entry (``configs/<name>.json``);
 * a traffic mix is ``traffic/<mix>.json``; its ``kind`` names the runner
-  ``kinds/<kind>.py`` that generates and runs it;
+  ``kinds/<kind>.py`` that generates and runs it, and whose ``WINDOW``
+  tells the end-to-end readers what its window counted;
 * a cell's limits on its compared numbers are ``limits/<cell>.json``;
 * a metric's reader is ``metrics/<name>.py``.
 """
@@ -14,7 +15,7 @@ import json
 from pathlib import Path
 
 __all__ = ["HERE", "ROOT", "benchmark", "workload", "config", "traffic",
-           "limits", "metrics_of", "kind", "reader"]
+           "limits", "metrics_of", "kind", "runner", "reader"]
 
 HERE = Path(__file__).resolve().parent
 ROOT = HERE.parent
@@ -71,6 +72,11 @@ def _module(path: Path, name: str):
 def kind(name: str):
     """The runner of a traffic kind."""
     return _module(HERE / "kinds" / f"{name}.py", f"gpubench.kinds.{name}")
+
+
+def runner(ctx):
+    """The runner of the kind that ``ctx``'s traffic runs."""
+    return kind(ctx.traffic["kind"])
 
 
 def reader(name: str):

@@ -76,11 +76,10 @@ def test_every_named_file_parses(bench):
     for c in bench["configs"]:
         cfg = spec.config(bench, c["name"])
         assert cfg["name"] == c["name"] and cfg["reduced"] == c["reduced"]
-        assert cfg["node_features"] == (cfg["cgr_node_features"]
-                                        + 3 * cfg["descriptor_dim"])
     for w in bench["workloads"]:
         trf = spec.traffic(w["traffic"])
         assert (spec.HERE / "kinds" / f"{trf['kind']}.py").exists()
+        spec.kind(trf["kind"]).check_config(spec.config(bench, w["config"]))
         assert spec.limits(w["name"])
     for m in bench["end_to_end"] + bench["per_layer"]:
         path = spec.HERE / "metrics" / f"{m['name']}.py"

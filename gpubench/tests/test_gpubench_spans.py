@@ -1,8 +1,10 @@
 """The readers of the program's spans and counters (``gpubench/spans.py``
 and the ``program_span`` / ``program_counter`` metrics): a ``--trace 1``
 run of each cell on the CPU at a tiny width reports a number for each of
-them that lists the cell, and still comes out correct; a program without
-``utils/tracing.py`` makes each of them return None, not raise."""
+them that lists the cell, exactly the per-layer metrics it reported before
+the runners declared their windows, and still comes out correct; a
+program without ``utils/tracing.py`` makes each of them return None, not
+raise."""
 
 from __future__ import annotations
 
@@ -13,7 +15,7 @@ import pytest
 import torch
 
 from gpubench import run, spec
-from gpubench.tests.conftest import tiny
+from gpubench.tests.conftest import REPORTED, tiny
 
 SEED = 2**31 + 11
 CELLS = ["cgr_mpnn_3d.train_staged", "cgr.train_staged",
@@ -32,6 +34,7 @@ def test_traced_run_reports_every_program_metric_of_the_cell(cell):
     r = run.run_cell(cell, SEED, 0.2, True, device="cpu", config=cfg,
                      traffic=trf)
     assert r["correct"], r["checks"]
+    assert set(r["metrics"]) == REPORTED[cell, True]
     for name in _program_metrics(cell):
         assert name in r["metrics"], (name, sorted(r["metrics"]))
         assert r["metrics"][name]["value"] > 0, (name, r["metrics"][name])
