@@ -9,7 +9,10 @@ xyz file (``--data_path_coordinates``): ``data.descriptors.
 process_xyz_to_npz`` writes ``<xyz stem>.npz`` beside it on ``device``
 through the MACE backend (the optional ``mace-torch`` package; without it
 the call raises ImportError and writes nothing), and the request is served
-from that file.
+from that file.  With ``--mace_model`` (a ``models.save_mace`` file of the
+port's MACE-MP) the xyz is read into a ``data.GeometryDataset`` instead and
+``predict`` computes the descriptors on the device, window by window:
+nothing is written and ``mace-torch`` is not needed.
 """
 
 from __future__ import annotations
@@ -20,8 +23,9 @@ from pathlib import Path
 
 import torch
 
-from ..data import ChemDataset, plan_spec
+from ..data import ChemDataset, GeometryDataset, plan_spec
 from ..data.descriptors import process_xyz_to_npz
+from ..models.mace import load_mace
 from ..train import load_model, predict
 from ..utils import AsciiTable
 
@@ -32,7 +36,8 @@ def activation_energy_prediction(
         print_results: bool = False, store_results: bool = False,
         output_format: str = "text", npz_path: str | None = None,
         device: str | torch.device = "cuda", batch_size: int = 64,
-        use_native: bool | None = None) -> list:
+        use_native: bool | None = None, mace_model: str | None = None
+        ) -> list:
     data_path_smiles = Path(input_smiles)
     data_path_results = (Path(output_results) if output_results
                          else Path("results.txt"))
@@ -40,7 +45,13 @@ def activation_energy_prediction(
         data_path_results /= "results.txt"
     if not data_path_smiles.is_file():
         raise FileNotFoundError(f"SMILES file not found: {data_path_smiles}")
-    if npz_path is None:
+    mace = None
+    if npz_path is None and mace_model:
+        if not Path(input_coordinates).is_file():
+            raise FileNotFoundError(
+                f"3D coordinates file not found: {input_coordinates}")
+        mace = load_mace(mace_model, device)
+    elif npz_path is None:
         data_path_coordinates = Path(input_coordinates)
         if not data_path_coordinates.is_file():
             raise FileNotFoundError(
@@ -52,17 +63,25 @@ def activation_energy_prediction(
         npz_path = str(npz)
 
     model, cfg, _ = load_model(model_path, device)
-    pred_data = ChemDataset(str(data_path_smiles), data_npz_path=npz_path,
-                            use_native=use_native)
-    if pred_data.num_node_features != cfg.num_node_features:
+    if mace is None:
+        pred_data = ChemDataset(str(data_path_smiles), data_npz_path=npz_path,
+                                use_native=use_native)
+        n_feat = pred_data.num_node_features
+    else:
+        pred_data = GeometryDataset(str(data_path_smiles), input_coordinates,
+                                    use_native=use_native)
+        n_feat = (pred_data.num_node_features
+                  + 3 * mace.cfg.descriptor_dim)
+    if n_feat != cfg.num_node_features:
         raise ValueError(
             f"model expects {cfg.num_node_features} node features but the "
-            f"input provides {pred_data.num_node_features} — a CGR-MPNN-3D "
+            f"input provides {n_feat} — a CGR-MPNN-3D "
             "model needs matching MACE descriptors (--data_path_npz / "
             "--data_path_coordinates)")
     pred_data.prefeaturize()
     graphs = [pred_data.graph(i) for i in range(len(pred_data))]
-    preds = predict(model, pred_data, plan_spec(graphs), batch_size, device)
+    preds = predict(model, pred_data, plan_spec(graphs), batch_size, device,
+                    mace=mace)
 
     table = AsciiTable(["Reaction ID", "Activation Energy [kcal/mol]"])
     results = []
@@ -99,6 +118,10 @@ def main(argv=None) -> None:
     ap.add_argument("--data_path_results", default="results.txt")
     ap.add_argument("--data_path_npz", default=None,
                     help="precomputed descriptor npz (skips MACE)")
+    ap.add_argument("--mace_model", default=None,
+                    help="the port's MACE-MP state file (models.save_mace): "
+                         "descriptors from --data_path_coordinates computed "
+                         "on the device inside predict")
     ap.add_argument("--store_results", action="store_true")
     ap.add_argument("--print_results", action="store_true")
     ap.add_argument("--output_format", default="text",
@@ -111,7 +134,7 @@ def main(argv=None) -> None:
         args.data_path_smiles, args.data_path_coordinates,
         args.data_path_results, args.data_path_model, args.print_results,
         args.store_results, args.output_format, args.data_path_npz,
-        args.device, args.batch_size)
+        args.device, args.batch_size, mace_model=args.mace_model)
 
 
 if __name__ == "__main__":

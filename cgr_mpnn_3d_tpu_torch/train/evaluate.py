@@ -5,6 +5,11 @@ The counterpart of ``cgr_mpnn_3d_tpu/train/evaluate.py``.  On the card every
 batch goes through the whole-model forward kernel; ``device="cpu"`` takes
 the plain PyTorch ops.  A checkpoint carries no compute dtype (as in the JAX
 package): a loaded model computes in f32.
+
+Given a MACE model and a ``data.GeometryDataset``, :func:`predict` computes
+each window's descriptors from the rows' geometries on the device and
+writes them into the packed node features there: the packer packs the CGR
+features alone, and no descriptor crosses from the host.
 """
 
 from __future__ import annotations
@@ -14,10 +19,11 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from ..data.batch import PackSpec, to_device
+from ..data.batch import PackSpec, device_tensor, to_device
 from ..data.dataset import ChemDataset
 from ..data.loader import PackedLoader
 from ..models.cgr_mpnn import CGRMPNN, CGRMPNNConfig, apply
+from ..models.mace import MACE
 from ..utils.device import resolve_device
 from ..utils.tracing import count_copy_out, next_request_id, span
 from .checkpoint import load_checkpoint, restore_into
@@ -54,10 +60,19 @@ def model_config(meta: dict) -> CGRMPNNConfig:
 
 def predict(model: CGRMPNN, dataset: ChemDataset, spec: PackSpec,
             batch_size: int = 64,
-            device: str | torch.device = "cuda") -> np.ndarray:
+            device: str | torch.device = "cuda",
+            mace: MACE | None = None) -> np.ndarray:
     """Predictions for every dataset row, in row order.  One call is one
     ``predict.request`` span with a request id that its ``predict.*``
-    spans carry (``utils.tracing``)."""
+    spans carry (``utils.tracing``).
+
+    With ``mace`` (on ``device``) and a ``GeometryDataset``, each window's
+    structures run through MACE on the device and its descriptors fill the
+    packed node features there (:func:`_geometry_features`); nothing is
+    kept from one call to the next."""
+    if mace is not None and not hasattr(dataset, "geometry"):
+        raise ValueError("predict with a MACE model needs a GeometryDataset "
+                         "(the rows' reactant, TS and product structures)")
     rid = next_request_id()
     with span("predict.request", request=rid):
         dev = resolve_device(device)
@@ -72,8 +87,21 @@ def predict(model: CGRMPNN, dataset: ChemDataset, spec: PackSpec,
                     batch = next(batches, None)
                 if batch is None:
                     break
+                if mace is not None:
+                    with span("predict.geometry", request=rid):
+                        lay = dataset.geometry.window(
+                            batch.row_ids, batch.graph_mask,
+                            batch.graph_nodes, batch.node_x.shape[0],
+                            mace.cfg.r_max)
+                        geo = [device_tensor(a, dev) for a in (
+                            lay.pos, lay.z, lay.struct_ptr,
+                            lay.tiles.numpy(), lay.gather)]
                 with span("predict.copy", request=rid):
                     db = to_device(batch, dev)
+                if mace is not None:
+                    desc = mace.descriptors(*geo[:4], lay.n_edges)
+                    with span("predict.descriptors", request=rid):
+                        db = _geometry_features(db, desc, geo[4])
                 with span("predict.forward", request=rid):
                     out = apply(model, db, loader.spec)
                 with span("predict.readback", request=rid):
@@ -90,6 +118,17 @@ def predict(model: CGRMPNN, dataset: ChemDataset, spec: PackSpec,
             out = np.empty_like(preds)
             out[rows] = preds
     return out
+
+
+def _geometry_features(db, desc: torch.Tensor, gather: torch.Tensor):
+    """The batch with its node features [NT, F + 3D]: the packed CGR
+    features, then the descriptors of each node's atom in the reactant,
+    TS and product (``gather``, [NT, 3]; a padding slot takes zeros)."""
+    NT = db.node_x.shape[0]
+    ext = torch.cat([desc, desc.new_zeros(1, desc.shape[1])])
+    x = torch.cat([db.node_x.to(desc.dtype),
+                   ext[gather.long()].reshape(NT, -1)], 1)
+    return db._replace(node_x=x)
 
 
 def evaluate(model: CGRMPNN, dataset: ChemDataset, spec: PackSpec,

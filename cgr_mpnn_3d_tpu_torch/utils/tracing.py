@@ -22,7 +22,9 @@
   epoch; ``pack_windows`` and ``pack_probes``, the windows the native
   packer packed and its placement attempts (``data.PackedLoader``: a
   window, a reused epoch, and the probes of ``plan_windows``), whose ratio
-  says how often a window shrinks.  On the CPU the same copies count, the
+  says how often a window shrinks; ``mace_structures``, ``mace_atoms`` and
+  ``mace_edges``, the structures, atoms and edges within the cutoff that
+  ``models.MACE.descriptors`` ran.  On the CPU the same copies count, the
   CPU being the run's device.  :func:`counters` is a snapshot of these and
   of the kernels' launch counters (``ops._launch.launch_counts``).
 
@@ -47,6 +49,13 @@ The spans the program opens:
 ``predict.forward``       ``apply`` on it
 ``predict.readback``      its predictions read back
 ``predict.order``         the row order restored
+``predict.geometry``      a window's structures laid out from the
+                          dataset's geometry tables and copied
+``predict.descriptors``   the descriptors written into the packed node
+                          features on the device
+``mace.forward``          ``models.MACE.descriptors``: one window's MACE
+``ops.mace_interaction``, the MACE kernels' wrappers: checks and launch
+``ops.mace_product``
 ========================  ==============================================
 """
 
@@ -61,14 +70,15 @@ import torch
 from torch.autograd import profiler as _profiler
 
 __all__ = ["span", "span_log", "SpanLog", "Record", "counters",
-           "count_copy_in", "count_copy_out", "count_pack",
+           "count_copy_in", "count_copy_out", "count_pack", "count_mace",
            "set_staged_bytes", "next_request_id"]
 
 # the open span log, if any (the profiler's own flag is torch's)
 _LOG: SpanLog | None = None
 
 _COUNTS = {"copy_in_bytes": 0, "copy_out_bytes": 0, "staged_bytes": 0,
-           "pack_windows": 0, "pack_probes": 0}
+           "pack_windows": 0, "pack_probes": 0, "mace_structures": 0,
+           "mace_atoms": 0, "mace_edges": 0}
 _REQUESTS = itertools.count(1)
 
 
@@ -207,6 +217,12 @@ def count_copy_out(nbytes: int) -> None:
 def count_pack(windows: int, probes: int) -> None:
     _COUNTS["pack_windows"] += windows
     _COUNTS["pack_probes"] += probes
+
+
+def count_mace(structures: int, atoms: int, edges: int) -> None:
+    _COUNTS["mace_structures"] += structures
+    _COUNTS["mace_atoms"] += atoms
+    _COUNTS["mace_edges"] += edges
 
 
 def set_staged_bytes(nbytes: int) -> None:

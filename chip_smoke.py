@@ -235,6 +235,12 @@ Phases (any failure raises, and the script exits non-zero):
    ``activation_energy_prediction(input_coordinates=...)`` on the card
    against serving the npz it wrote and against the CPU, its stage times
    (the xyz -> npz step apart), and the default backend's ImportError;
+   then the port's MACE kernels (``mace_phase``): MI and MP, each layer's,
+   on the geometry screen's first window against their plain versions at
+   MACE_TOL, their times and f32 bounds (``gpubench/cost_mace.py``), and
+   one ``predict`` request from geometries with their launch counters
+   zeroed before it (``--mace_only`` runs this phase alone after the
+   card's line and prints its ``kernels`` line);
 23. multi-process training (``multiprocess_phase``, after ``dp_phase``):
    two ranks of a gloo process group share the card, each this script
    started again with ``--rank_job`` (built kernels found on disk): (1)
@@ -332,6 +338,7 @@ PEAK_BYTES = 3.35e12    # H100 SXM HBM3 bytes/s (data sheet)
 DEVICE = "cuda"
 TRAIN_TOL = 1e-3        # card vs CPU per-epoch RMSE, relative
 NATIVE_TOL = 1e-6       # native vs Python features (tests/test_native.py)
+MACE_TOL = 1e-5         # MACE kernels vs plain, f32 (tests/test_torch_mace_cuda.py)
 README_FLAGS = ["--name", "CGR-MPNN-3D", "-d", "4", "--hidden_sizes", "400",
                 "--dropout_ps", "0.1", "-af", "ReLU", "-lr", "1e-4",
                 "--weight_decay", "1e-5", "-bs", "64", "-g", "0.9"]
@@ -3422,6 +3429,206 @@ def descriptor_phase(tmp: Path, seed: int, ckpt: Path, card: str) -> dict:
              else "mace-torch is installed, not called")
           + f"; phase wall {out['wall_s']:.1f} s [{card}]")
     return out
+
+
+def mace_phase(tmp: Path, seed: int, repeats: int, card: str) -> dict:
+    """The MACE kernels MI and MP (``csrc/mace.cu``) on the geometry
+    screen's first window: that cell's library (``gpubench``'s traffic
+    ``screen_geometry``: 2,048 corpus reactions drawn from ``seed``, their
+    seeded reactant, TS and product geometries, batch 1024) as a
+    ``GeometryDataset``, its first packed window laid out by
+    ``GeometryTables.window``; MACE-MP-0 small and the README head at
+    F = 846 (``gpubench/configs/mace_mp_small_cgr_3d.json``) on weights
+    drawn from ``seed``.  Each layer's ``ops.mace_interaction`` and
+    ``ops.mace_product`` on the card against their plain versions on the
+    same inputs (on the card, TF32 off) within MACE_TOL of the largest
+    plain value; the kernels' and the plain versions' ms over both layers
+    (CUDA events, ``repeats`` and 3 calls); each kernel's f32 bound over
+    the window's real atoms and edges (``gpubench/cost_mace.py``).  Then
+    one request of ``predict`` over the library on the card after a warm
+    one, the launch counters zeroed just before it and read after (each MACE kernel once a
+    layer a window), its first window's descriptors equal bit for bit to
+    the held calls' output, its predictions finite."""
+    import torch
+    from cgr_mpnn_3d_tpu_torch.data import GeometryDataset, plan_spec
+    from cgr_mpnn_3d_tpu_torch.data.batch import device_tensor
+    from cgr_mpnn_3d_tpu_torch.data.loader import PackedLoader
+    from cgr_mpnn_3d_tpu_torch.models import (CGRMPNN, CGRMPNNConfig, MACE,
+                                              MACEConfig)
+    from cgr_mpnn_3d_tpu_torch.ops import fused_model as fm
+    from cgr_mpnn_3d_tpu_torch.ops import mace as ops
+    from cgr_mpnn_3d_tpu_torch.train.evaluate import predict
+    from gpubench import data as gdata
+    from gpubench import geometry as ggeo
+    from gpubench.cost_mace import mace_cost
+    from gpubench.reference import mace as ref_mace
+    from gpubench.reference.model import Dims, make_weights
+    t_phase = time.perf_counter()
+    cfg = json.loads((ROOT / "gpubench" / "configs"
+                      / "mace_mp_small_cgr_3d.json").read_text())
+    trf = json.loads((ROOT / "gpubench" / "traffic"
+                      / "screen_geometry.json").read_text())
+    m = cfg["mace"]
+    smiles, labels = gdata.corpus()
+    rows = gdata.draw_rows(trf["library_rows"], seed, "library")
+    s = [smiles[i] for i in rows]
+    d = tmp / "mace"
+    d.mkdir(parents=True, exist_ok=True)
+    csv_path, _ = gdata.write_split(d, "library", s, labels[rows], None)
+    xyz = ggeo.write_xyz(d / "library.xyz",
+                         ggeo.geometries(s, gdata.rng(seed, "geometry")))
+    ds = GeometryDataset(str(csv_path), str(xyz))
+    ds.prefeaturize()
+    spec = plan_spec([ds.graph(i) for i in range(len(ds))])
+    dev = torch.device(DEVICE)
+    mace = MACE(MACEConfig(
+        num_channels=m["channels"], num_interactions=m["interactions"],
+        max_ell=m["max_ell"], num_bessel=m["bessel"],
+        num_polynomial_cutoff=m["polynomial_cutoff"],
+        radial_mlp=tuple(m["radial_mlp"]), correlation=m["correlation"],
+        num_elements=m["elements"], r_max=m["r_max"],
+        avg_num_neighbors=m["avg_num_neighbors"]))
+    mace.load_state_dict(ref_mace.make_weights(m, seed, "cpu"))
+    mace = mace.to(dev).eval()
+    L, H = cfg["depth"], cfg["hidden"]
+    head = CGRMPNN(CGRMPNNConfig(
+        num_node_features=cfg["node_features"],
+        num_edge_features=cfg["edge_features"], depth=L,
+        hidden_sizes=(H,) * L, dropout_ps=(cfg["dropout"],) * L))
+    head.load_state_dict(make_weights(
+        Dims(cfg["node_features"], cfg["edge_features"], H, L), seed, "cpu"))
+    head = head.to(dev).eval()
+
+    b = next(iter(PackedLoader(ds, spec, batch_size=trf["batch_size"])))
+    lay = ds.geometry.window(b.row_ids, b.graph_mask, b.graph_nodes,
+                             b.node_x.shape[0], mace.cfg.r_max)
+    pos, z, sptr, tiles = (device_tensor(a, dev) for a in (
+        lay.pos, lay.z, lay.struct_ptr, lay.tiles.numpy()))
+    A, C = len(lay.z), mace.cfg.num_channels
+    errs = {"MI": [], "MP": []}
+
+    def held(name, got, want):
+        diff = float((got - want).abs().max())
+        errs[name].append((diff, diff / max(float(want.abs().max()),
+                                            1e-30)))
+
+    calls = []
+    with torch.no_grad():
+        prep = mace.prepared()
+        out = torch.empty(A, mace.cfg.descriptor_dim, device=dev)
+        out_plain = torch.empty_like(out)
+        hup, sc = prep["hup0"][z.long()], None
+        for t, lw in enumerate(prep["layers"]):
+            inter = (pos, sptr, hup, lw["radial"], mace.cfg.r_max,
+                     mace.cfg.num_polynomial_cutoff)
+            msg = ops.mace_interaction(*inter)
+            held("MI", msg, ops.mace_interaction_ref(*inter))
+            tail = (lw["m"], lw["m_shared"], lw["weff"], prep["mono"],
+                    prep["coef"], prep["ptr"], lw["wout"], sc)
+            nxt = (t * C, lw["wup_next"], lw["wskip_next"])
+            prod = (msg, z, tiles, *tail, out, *nxt)
+            plain = (msg, z, *tail, out_plain, *nxt)
+            got, want = ops.mace_product(*prod), ops.mace_product_ref(*plain)
+            cols = slice(t * C, (t + 1) * C)
+            held("MP", out[:, cols], out_plain[:, cols])
+            for g, w in zip(got, want):
+                if w is not None:
+                    held("MP", g, w)
+            calls.append((inter, prod, plain))
+            hup, sc = got
+        ms = {"MI": time_ms(lambda: [ops.mace_interaction(*c[0])
+                                     for c in calls], repeats),
+              "MP": time_ms(lambda: [ops.mace_product(*c[1])
+                                     for c in calls], repeats)}
+        plain_ms = {"MI": time_ms(lambda: [ops.mace_interaction_ref(*c[0])
+                                           for c in calls], 3),
+                    "MP": time_ms(lambda: [ops.mace_product_ref(*c[2])
+                                           for c in calls], 3)}
+    window_out = out.clone()
+    cost = mace_cost(m, A, lay.n_edges, len(lay.struct_ptr) - 1,
+                     len(np.unique(lay.z)), len(lay.tiles))
+    for name in errs:
+        rel = max(r for _, r in errs[name])
+        check(rel <= MACE_TOL, f"{name} on the geometry screen's first "
+              f"window: rel err {rel:.3e} against its plain version "
+              f"(limit {MACE_TOL})")
+
+    class FirstWindows:
+        """The model as ``predict`` is given it, keeping each window's
+        descriptors."""
+
+        def __init__(self):
+            self.cfg, self.kept = mace.cfg, []
+
+        def descriptors(self, *a):
+            got = mace.descriptors(*a)
+            self.kept.append(got)
+            return got
+
+    seen = FirstWindows()
+    # one request first, so that the timed one builds nothing
+    predict(head, ds, spec, batch_size=trf["batch_size"], device=dev,
+            mace=mace)
+    torch.cuda.synchronize()
+    ops.interaction_launches = ops.product_launches = fm.launches = 0
+    t0 = time.perf_counter()
+    preds = predict(head, ds, spec, batch_size=trf["batch_size"],
+                    device=dev, mace=seen)
+    torch.cuda.synchronize()
+    request_ms = (time.perf_counter() - t0) * 1e3
+    launches = {"MI": ops.interaction_launches,
+                "MP": ops.product_launches, "K3f": fm.launches}
+    windows = len(seen.kept)
+    plan = mace.cfg.num_interactions * windows
+    check(windows > 0 and launches["MI"] == plan == launches["MP"]
+          and launches["K3f"] > 0 and preds.shape == (len(ds),)
+          and np.isfinite(preds).all()
+          and torch.equal(seen.kept[0], window_out),
+          f"predict from geometries: {windows} windows, launches "
+          f"{launches} (MI, MP {plan} each), predictions "
+          f"{preds.shape} finite {np.isfinite(preds).all()}, first window "
+          f"as held {torch.equal(seen.kept[0], window_out)}")
+    res = {"launches": launches, "windows": windows,
+           "request_ms": request_ms, "wall_s": time.perf_counter() - t_phase}
+    for name, kind in (("MI", "interaction"), ("MP", "product")):
+        bound_ms, bound_by = bound(cost[kind], False)
+        res[name] = dict(abs_err=max(a for a, _ in errs[name]),
+                         rel_err=max(r for _, r in errs[name]),
+                         ms=ms[name], plain_ms=plain_ms[name],
+                         bound_ms=bound_ms, bound_by=bound_by,
+                         ops=cost[kind][0] + cost[kind][1],
+                         bytes=cost[kind][2], library_ms=None)
+        e = res[name]
+        print(f"mace {name} ({kind}), both layers on the geometry screen's "
+              f"first window ({A} atoms, {len(lay.struct_ptr) - 1} "
+              f"structures, {lay.n_edges} edges): max abs err "
+              f"{e['abs_err']:.3e}, rel {e['rel_err']:.3e} (limit "
+              f"{MACE_TOL}); kernel {e['ms']:.4f} ms, plain "
+              f"{e['plain_ms']:.4f} ms, f32 bound {e['bound_ms']:.4f} ms by "
+              f"{bound_by} ({e['ops'] / 1e9:.3f} GFLOP, "
+              f"{e['bytes'] / 1e6:.3f} MB), "
+              f"{100 * e['bound_ms'] / e['ms']:.1f}% of it [{card}]")
+    print(f"mace request: predict over {len(ds)} reactions from geometries, "
+          f"{windows} windows, {request_ms:.3f} ms; launches MI "
+          f"{launches['MI']}, MP {launches['MP']}, K3f {launches['K3f']}; "
+          f"phase wall {res['wall_s']:.1f} s [{card}]")
+    return res
+
+
+def mace_entries(mc: dict) -> list:
+    """The ``kernels`` line's entries of MI and MP from :func:`mace_phase`
+    (no JAX kernel: the JAX package took descriptors from ``mace-torch``
+    on the host)."""
+    return [{"name": name, "route": "cuda",
+             "source": "cgr_mpnn_3d_tpu_torch/csrc/mace.cu",
+             "replaces": "cgr_mpnn_3d_tpu/data/descriptors.py:64",
+             "launches": mc["launches"][key],
+             "max_abs_err": mc[key]["abs_err"], "ms": mc[key]["ms"],
+             "plain_ms": mc[key]["plain_ms"],
+             "bound_ms": mc[key]["bound_ms"],
+             "bound_by": mc[key]["bound_by"], "library_ms": None}
+            for name, key in (("mace_interaction", "MI"),
+                              ("mace_product", "MP"))]
 
 
 def train_profile(tmp: Path, seed: int, card: str) -> dict:
@@ -6619,6 +6826,9 @@ def main(argv=None) -> int:
     ap.add_argument("--trace_job", default=None,
                     help="run trace_phase's traced steps (JSON; the phase "
                          "starts it itself)")
+    ap.add_argument("--mace_only", action="store_true",
+                    help="after the build, run mace_phase alone and print "
+                         "its kernels line")
     args = ap.parse_args(argv)
 
     import torch
@@ -6647,6 +6857,14 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     print("tf32: matmul False, cudnn False")
+    if args.mace_only:
+        with tempfile.TemporaryDirectory() as tmp:
+            mc = mace_phase(Path(tmp), args.seed, args.repeats, card)
+        print(json.dumps({"kernels": mace_entries(mc)}))
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return 0
 
     builds = start_variant_builds(args.parent)
     t0 = time.perf_counter()
@@ -6834,6 +7052,8 @@ def main(argv=None) -> int:
               f"{time.perf_counter() - t0:.1f} s")
         desc = descriptor_phase(Path(tmp), args.seed, srv["ckpt"], card)
         print(f"phase wall: the descriptor pipeline {desc['wall_s']:.1f} s")
+        mc = mace_phase(Path(tmp), args.seed, args.repeats, card)
+        print(f"phase wall: the MACE kernels {mc['wall_s']:.1f} s")
         with glin_runs["layered serving"], spmm_runs["layered serving"]:
             srv_l = serve_layered(Path(tmp), args.seed, card)
             srv_l16 = serve_layered(Path(tmp), args.seed, card, BF16)
@@ -7045,7 +7265,7 @@ def main(argv=None) -> int:
                            sw_launches("fused_model.bf16_launches"))
     print(json.dumps({"kernels": [
         kernel("fused_model_fwd", "fused_model_fwd.cu", "pallas_model.py:376",
-               srv["launches"] + desc["launches"]
+               srv["launches"] + desc["launches"] + mc["launches"]["K3f"]
                + dp32["fused_model.launches"] + mp_k3f + sw_k3f,
                main_k),
         kernel("fused_model_train", "fused_model_bwd.cu",
@@ -7114,7 +7334,7 @@ def main(argv=None) -> int:
                ep_launches["K12"], k12["n_ep 2 float32"]),
         kernel("ring_exchange_ranks", "rank_exchange.cu",
                "cgr_mpnn_3d_tpu/parallel/rdma_exchange.py:99", mp_k12,
-               k12_ranks)]}))
+               k12_ranks), *mace_entries(mc)]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
